@@ -1,0 +1,276 @@
+"""Shifted-window transformer blocks (eval).
+
+Port of the JAX package's ``models/swin.py``. Geometry (padded sizes,
+window shrink, shift sizes, SW-MSA masks, relative position indices) is
+resolved to constants when a block is built. Window attention goes through
+the whole-block kernel ``ops.pallas_kernels.fused_window_block``, with the
+q scale folded into the qkv weights as the JAX path does.
+
+Parameter names follow the flax tree (``norm1``, ``attn.qkv``, ``mlp.Dense_0``,
+``downsample.reduction`` ...) so a reader can map one to the other; weights
+use torch's ``nn.Linear`` layout ``[out, in]``.
+"""
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from focal_tpu_torch.ops.pallas_kernels import fused_window_block
+
+
+def window_partition(x, wh, ww):
+    """[B, H, W, C] -> [B*nW, wh*ww, C]."""
+    B, H, W, C = x.shape
+    x = x.reshape(B, H // wh, wh, W // ww, ww, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(-1, wh * ww, C)
+
+
+def window_reverse(windows, wh, ww, H, W):
+    """[B*nW, wh*ww, C] -> [B, H, W, C]."""
+    C = windows.shape[-1]
+    B = windows.shape[0] // (H * W // wh // ww)
+    x = windows.reshape(B, H // wh, W // ww, wh, ww, C)
+    x = x.permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(B, H, W, C)
+
+
+def relative_position_index(wh, ww):
+    """Static [wh*ww, wh*ww] index into the bias table (numpy)."""
+    coords = np.stack(np.meshgrid(np.arange(wh), np.arange(ww), indexing="ij"))  # [2, wh, ww]
+    flat = coords.reshape(2, -1)
+    rel = flat[:, :, None] - flat[:, None, :]  # [2, N, N]
+    rel = rel.transpose(1, 2, 0)
+    rel[:, :, 0] += wh - 1
+    rel[:, :, 1] += ww - 1
+    rel[:, :, 0] *= 2 * ww - 1
+    return rel.sum(-1)  # [N, N]
+
+
+def shifted_window_mask(H, W, wh, ww, sh, sw):
+    """Static additive mask [nW, N, N] for SW-MSA (numpy)."""
+    img_mask = np.zeros((H, W), np.float32)
+    h_slices = (slice(0, -wh), slice(-wh, -sh), slice(-sh, None))
+    w_slices = (slice(0, -ww), slice(-ww, -sw), slice(-sw, None))
+    cnt = 0
+    for h in h_slices:
+        for w in w_slices:
+            img_mask[h, w] = cnt
+            cnt += 1
+    mask_windows = (
+        img_mask.reshape(H // wh, wh, W // ww, ww).transpose(0, 2, 1, 3).reshape(-1, wh * ww)
+    )
+    attn_mask = mask_windows[:, None, :] - mask_windows[:, :, None]
+    return np.where(attn_mask != 0, -100.0, 0.0).astype(np.float32)
+
+
+def block_geometry(input_resolution, window_size, shift_size):
+    """Window-shrink rule: an axis no larger than the window collapses the
+    window to it and its shift to 0; the mask exists only when both shifts
+    are positive. Returns (wh, ww, sh, sw, shifted)."""
+    H, W = input_resolution
+    wh, ww = window_size
+    sh, sw = shift_size
+    if H <= wh:
+        sh, wh = 0, H
+    if W <= ww:
+        sw, ww = 0, W
+    return wh, ww, sh, sw, min(sh, sw) > 0
+
+
+class WindowAttention(nn.Module):
+    """W-MSA with relative position bias, through the whole-block kernel."""
+
+    def __init__(self, dim, window_size, num_heads, qkv_bias=True):
+        super().__init__()
+        self.dim = dim
+        self.window_size = tuple(window_size)
+        self.num_heads = num_heads
+        wh, ww = self.window_size
+        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)  # columns part|head|dim
+        self.proj = nn.Linear(dim, dim)
+        self.relative_position_bias_table = nn.Parameter(
+            torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads)
+        )
+        self.register_buffer(
+            "relative_position_index",
+            torch.from_numpy(relative_position_index(wh, ww).reshape(-1)).long(),
+            persistent=False,
+        )
+        self._kernel_key = None  # (data_ptr, _version) of each parameter when folded
+
+    def kernel_args(self):
+        """(wqkv [C, 3C] with the q scale folded in, bqkv, wproj [C, C],
+        bproj, rel_bias [H, N, N]) as the kernel takes them."""
+        C, H = self.dim, self.num_heads
+        N = self.window_size[0] * self.window_size[1]
+        scale = (C // H) ** -0.5
+        dev = self.qkv.weight.device
+        scale_vec = torch.cat([torch.full((C,), scale, device=dev), torch.ones(2 * C, device=dev)])
+        wqkv = (self.qkv.weight.t() * scale_vec).contiguous()
+        bqkv = self.qkv.bias if self.qkv.bias is not None else torch.zeros(3 * C, device=dev)
+        bqkv = (bqkv * scale_vec).contiguous()
+        bias = self.relative_position_bias_table[self.relative_position_index]
+        rel_bias = bias.reshape(N, N, H).permute(2, 0, 1).contiguous()
+        return wqkv, bqkv, self.proj.weight.t().contiguous(), self.proj.bias, rel_bias
+
+    def folded_kernel_args(self):
+        """kernel_args(), folded once and reused until a parameter is replaced
+        (load_state_dict, .to()) or written in place: a served model pays
+        for the folding on its first batch only."""
+        key = [(p.data_ptr(), p._version) for p in self.parameters()]
+        if key != self._kernel_key:
+            with torch.no_grad():
+                self._kernel_args = self.kernel_args()
+            # holding the folded-from storages keeps their addresses out of reuse
+            self._kernel_key, self._kernel_src = key, [p.detach() for p in self.parameters()]
+        return self._kernel_args
+
+    def forward(self, x, mask=None):
+        if self.training:
+            raise NotImplementedError(
+                "WindowAttention is eval-only in the port: the backward and dropout "
+                "kernels come with the training slice (ROADMAP A2)"
+            )
+        return fused_window_block(x.contiguous(), *self.folded_kernel_args(), mask)
+
+
+class DropPath(nn.Module):
+    """Per-sample stochastic depth; identity in eval. The training form (a
+    seeded torch.Generator per step) comes with the training slice."""
+
+    def __init__(self, rate=0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x):
+        if self.training and self.rate > 0.0:
+            raise NotImplementedError("DropPath is eval-only in the port: ROADMAP A2")
+        return x
+
+
+class Mlp(nn.Module):
+    """fc -> exact-erf GELU -> drop -> fc -> drop."""
+
+    def __init__(self, dim, hidden, out, drop=0.0):
+        super().__init__()
+        self.Dense_0 = nn.Linear(dim, hidden)
+        self.Dense_1 = nn.Linear(hidden, out)
+        self.drop = nn.Dropout(drop)
+
+    def forward(self, x):
+        x = self.drop(F.gelu(self.Dense_0(x), approximate="none"))
+        return self.drop(self.Dense_1(x))
+
+
+class SwinBlock(nn.Module):
+    """One (S)W-MSA + MLP block."""
+
+    def __init__(self, dim, input_resolution, num_heads, window_size, shift_size,
+                 mlp_ratio=4.0, qkv_bias=True, drop=0.0, drop_path=0.0):
+        super().__init__()
+        self.input_resolution = tuple(input_resolution)
+        H, W = self.input_resolution
+        self.wh, self.ww, self.sh, self.sw, self.shifted = block_geometry(
+            self.input_resolution, window_size, shift_size
+        )
+        mask = (
+            torch.from_numpy(shifted_window_mask(H, W, self.wh, self.ww, self.sh, self.sw))
+            if self.shifted else None
+        )
+        self.register_buffer("attn_mask", mask, persistent=False)
+        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.attn = WindowAttention(dim, (self.wh, self.ww), num_heads, qkv_bias)
+        self.drop_path1 = DropPath(drop_path)
+        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
+        self.drop_path2 = DropPath(drop_path)
+
+    def forward(self, x):
+        H, W = self.input_resolution
+        B, L, C = x.shape
+        shortcut = x
+        x = self.norm1(x).reshape(B, H, W, C)
+        if self.shifted:
+            x = torch.roll(x, shifts=(-self.sh, -self.sw), dims=(1, 2))
+        windows = window_partition(x, self.wh, self.ww)
+        x = window_reverse(self.attn(windows, self.attn_mask), self.wh, self.ww, H, W)
+        if self.shifted:
+            x = torch.roll(x, shifts=(self.sh, self.sw), dims=(1, 2))
+        x = shortcut + self.drop_path1(x.reshape(B, L, C))
+        return x + self.drop_path2(self.mlp(self.norm2(x)))
+
+
+class PatchMerging(nn.Module):
+    """2x2 patch concat + LayerNorm + linear reduce."""
+
+    def __init__(self, input_resolution, dim):
+        super().__init__()
+        self.input_resolution = tuple(input_resolution)
+        self.LayerNorm_0 = nn.LayerNorm(4 * dim, eps=1e-5)
+        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+
+    def forward(self, x):
+        H, W = self.input_resolution
+        B, L, C = x.shape
+        x = x.reshape(B, H, W, C)
+        x = torch.cat(
+            [x[:, 0::2, 0::2], x[:, 1::2, 0::2], x[:, 0::2, 1::2], x[:, 1::2, 1::2]], dim=-1
+        )
+        x = x.reshape(B, (H // 2) * (W // 2), 4 * C)
+        return self.reduction(self.LayerNorm_0(x))
+
+
+class BasicLayer(nn.Module):
+    """Stage: depth blocks with alternating shift + optional merging.
+    Blocks are registered as ``block{i}``, as the flax tree names them."""
+
+    def __init__(self, dim, input_resolution, depth, num_heads, window_size, mlp_ratio=4.0,
+                 qkv_bias=True, drop=0.0, drop_path=(0.0,), downsample=False):
+        super().__init__()
+        self.depth = depth
+        for i in range(depth):
+            shift = [0, 0] if i % 2 == 0 else [window_size[0] // 2, window_size[1] // 2]
+            dp = drop_path[i] if i < len(drop_path) else drop_path[-1]
+            self.add_module(f"block{i}", SwinBlock(
+                dim, input_resolution, num_heads, window_size, shift,
+                mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, drop=drop, drop_path=dp,
+            ))
+        self.downsample = PatchMerging(input_resolution, dim) if downsample else None
+
+    def blocks(self):
+        return [getattr(self, f"block{i}") for i in range(self.depth)]
+
+    def forward(self, x):
+        for blk in self.blocks():
+            x = blk(x)
+        if self.downsample is not None:
+            x = self.downsample(x)
+        return x
+
+
+class PatchEmbed(nn.Module):
+    """Patchify + optional LayerNorm. The flax package uses a conv with
+    kernel = stride; here it is a patch reshape plus a matmul, which is the
+    same sum and stays in full f32 on the card (cuDNN convolutions default
+    to TF32). ``proj.weight`` is the conv kernel [kh, kw, in, out] flattened
+    to [(kh*kw*in), out] and transposed."""
+
+    def __init__(self, patch_size, in_chans, embed_dim, norm=True):
+        super().__init__()
+        self.patch_size = tuple(patch_size)
+        ph, pw = self.patch_size
+        self.proj = nn.Linear(ph * pw * in_chans, embed_dim)
+        self.LayerNorm_0 = nn.LayerNorm(embed_dim, eps=1e-5) if norm else None
+
+    def forward(self, x):
+        # x: [B, H, W, C] NHWC
+        B, H, W, C = x.shape
+        ph, pw = self.patch_size
+        Hp, Wp = H // ph, W // pw
+        x = x.reshape(B, Hp, ph, Wp, pw, C).permute(0, 1, 3, 2, 4, 5)
+        x = self.proj(x.reshape(B, Hp * Wp, ph * pw * C))
+        if self.LayerNorm_0 is not None:
+            x = self.LayerNorm_0(x)
+        return x

@@ -1,0 +1,102 @@
+"""Recipe loading, device selection and the serving CLI's arguments.
+
+A dataset's recipe is ``focal_tpu_torch/configs/{dataset}.yaml``, the
+package's own copy of the JAX package's recipe; nothing else is searched.
+"""
+
+import argparse
+import os
+
+import torch
+import yaml
+
+CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
+
+LEARN_FRAMEWORK_REGISTRY = {
+    "FOCAL": "contrastive",
+    "no": "supervised",
+}
+
+DATASET_DEFAULT_TASK = {
+    "ACIDS": "vehicle_classification",
+    "MOD": "vehicle_classification",
+    "RealWorld_HAR": "activity_classification",
+    "PAMAP2": "activity_classification",
+}
+
+
+def load_yaml(path):
+    with open(path, "r") as f:
+        return yaml.safe_load(f)
+
+
+def load_dataset_config(dataset):
+    """The packaged recipe of a dataset, by name."""
+    path = os.path.join(CONFIG_DIR, f"{dataset}.yaml")
+    if not os.path.isfile(path):
+        known = sorted(f[: -len(".yaml")] for f in os.listdir(CONFIG_DIR) if f.endswith(".yaml"))
+        raise FileNotFoundError(f"No recipe for dataset '{dataset}'; packaged recipes: {known}")
+    return load_yaml(path)
+
+
+def default_task(dataset, dataset_config):
+    if dataset_config.get("default_task"):
+        return dataset_config["default_task"]
+    if dataset in DATASET_DEFAULT_TASK:
+        return DATASET_DEFAULT_TASK[dataset]
+    raise ValueError(f"No default task known for dataset {dataset}; pass -task.")
+
+
+def get_train_mode(learn_framework):
+    if learn_framework not in LEARN_FRAMEWORK_REGISTRY:
+        raise ValueError(f"Invalid learn_framework provided: {learn_framework}")
+    return LEARN_FRAMEWORK_REGISTRY[learn_framework]
+
+
+def select_device(device="cuda"):
+    """torch.device for ``device``. A CUDA device with no card raises: the
+    port never carries on on the CPU unless the caller asks for it."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but no CUDA device is available; "
+            "pass device='cpu' (-device cpu) to run on the CPU"
+        )
+    return dev
+
+
+def build_parser():
+    """The flags of the JAX CLI that serving supports, spelled the same."""
+    parser = argparse.ArgumentParser(description="FOCAL (PyTorch/CUDA) batch inference")
+    parser.add_argument("-dataset", type=str, default="MOD", help="Dataset recipe name.")
+    parser.add_argument("-model", type=str, default="SW_Transformer", help="Backbone.")
+    parser.add_argument("-task", type=str, default=None, help="Downstream task.")
+    parser.add_argument("-learn_framework", type=str, default="no", help="FOCAL | no.")
+    parser.add_argument(
+        "-model_weight", type=str, default=None,
+        help="Port state_dict (.pt) to serve. Without it the weights are a "
+        "seeded random init (-seed), for smoke runs only.",
+    )
+    parser.add_argument("-batch_size", type=int, default=None, help="Fixed serving batch (128).")
+    parser.add_argument(
+        "-input", type=str, default=None,
+        help="Index file (.txt of sample paths) or directory of .npz/.pt samples.",
+    )
+    parser.add_argument("-synthetic", action="store_true", help="Serve a synthetic batch.")
+    parser.add_argument("-synthetic_samples", type=int, default=512, help="Synthetic sample count.")
+    parser.add_argument("-predictions_out", type=str, default=None, help="Predictions JSON path.")
+    parser.add_argument("-seed", type=int, default=0, help="Seed for data and random init.")
+    parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
+    return parser
+
+
+def parse_predict_params(argv=None):
+    """Parse serving flags and fill the derived fields (recipe, task, batch)."""
+    args = build_parser().parse_args(argv)
+    args.dataset_config = load_dataset_config(args.dataset)
+    if args.task is None:
+        args.task = default_task(args.dataset, args.dataset_config)
+    args.train_mode = get_train_mode(args.learn_framework)
+    if args.batch_size is None:
+        args.batch_size = 128
+    return args
