@@ -5,33 +5,55 @@
 Phases (each raises on failure; the script exits non-zero and prints no
 result line if any fails):
   1. print the card's name and power limit (nvidia-smi); build every kernel
-     of the serving path from the sources in this checkout (nvcc, one run
-     per source);
-  2. kernel vs plain: fused_window_block against its plain PyTorch version
-     on the card at every MOD SW_Transformer block geometry (batch 128),
-     shifted and unshifted, max abs error <= 1e-4 (both full f32: the
+     from the sources in this checkout (nvcc, one run per source);
+  2. kernel #1 vs plain: fused_window_block against its plain PyTorch
+     version on the card at every MOD SW_Transformer block geometry (batch
+     128), shifted and unshifted, max abs error <= 1e-4 (both full f32: the
      difference is summation order);
-  3. the slice: the MOD SW_Transformer at full width (seeded random init)
-     served by focal_tpu_torch.serve.Predictor over ~1,000 synthetic samples
-     at batch 128 (ragged tail included): probabilities finite and summing
-     to 1, the kernel launched 16 times per batch, and the first batch equal
-     (atol 1e-5) to the same model run with the plain block on the card;
-  4. timing with CUDA events after warm-up at each geometry: kernel, plain
-     version, a library yardstick (matmul + scaled_dot_product_attention +
-     matmul, never called by the port) and the bound from the geometry's
+  3. the serving path: the MOD SW_Transformer at full width (seeded random
+     init) served by focal_tpu_torch.serve.Predictor over ~1,000 synthetic
+     samples at batch 128 (ragged tail included): probabilities finite and
+     summing to 1, #1 launched 16 times per batch (and #2, #3 never), and
+     the first batch equal (atol 1e-5) to the same model run with the plain
+     block on the card;
+  4. timing of #1 with CUDA events after warm-up at each geometry: kernel,
+     plain version, a library yardstick (matmul + scaled_dot_product_attention
+     + matmul, never called by the port) and the bound from the geometry's
      FLOP and byte counts; plus the Predictor's windows/s and p50 batch
      latency;
   5. a torch.profiler trace of one served batch: device busy time, idle
-     share, device operations and the device kernels by time.
+     share, device operations and the device kernels by time;
+  6. kernels #2 and #3 vs plain at every block geometry of the training
+     batch (256 samples, two views fused to 512): #2's output against the
+     plain forward fed #2's own keep mask (1e-4 absolute), #2's keep rate
+     within 5 sigma of 1 - attn_drop_rate per launch, #3's six gradients
+     (with #2's mask, and without a mask) against autograd of the plain
+     version as max|kernel - plain| / max|plain| <= 1e-4 (long f32 sums),
+     #3 given the weights' [out, in] copies as the Swin block gives them;
+  7. the training path: FOCAL pretrain steps of the MOD SW_Transformer at
+     full width (flax-style init, seed 0, batch 256, synthetic data resident
+     on the card, a fixed idx as bench.py uses): warm-up, then timed steps
+     with #2 and #3 launched 16 times per step each (#1 never), losses and
+     parts finite; ms per step (p50), samples/s and attention windows/s,
+     peak device memory; one
+     step with every drop rate at 0 from the trained state, through the
+     kernels and through the plain versions: loss within 1e-5 relative and
+     every parameter's gradient within max|delta| / max|plain| <= 1e-4;
+  8. timing of #2 and #3 at each training geometry: kernel, plain, library
+     (scaled_dot_product_attention with dropout; the autograd backward of
+     the library block) and bound;
+  9. a torch.profiler trace of one training step.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
 nothing of the JAX package. --out DIR writes the per-geometry details and
-the profile as JSON there.
+the profiles as JSON there.
 """
 
 import argparse
+import copy
 import json
+import math
 import os
 import subprocess
 import sys
@@ -44,8 +66,14 @@ F32_FLOPS = 67e12
 HBM_BYTES_PER_S = 3.35e12
 SERVE_BATCH = 128
 SERVE_SAMPLES = 1000
+TRAIN_BATCH = 256         # samples per step; the two views run fused as 512
+TRAIN_WARMUP = 3
+TRAIN_STEPS = 20
 KERNEL_TOL = 1e-4
+GRAD_TOL = 1e-4           # relative: max|kernel - plain| / max|plain|
 SLICE_TOL = 1e-5
+LOSS_TOL = 1e-5           # relative
+PK = "focal_tpu/ops/pallas_kernels.py"
 
 
 def log(msg):
@@ -90,17 +118,43 @@ def block_geometries(cfg, batch):
     return geos
 
 
+def bound(flops, nbytes):
+    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
 def work(g):
-    """FLOPs and bytes of one launch: projections + attention; each input
-    read once and the output written once."""
+    """#1: FLOPs and bytes of one launch (projections + attention; each
+    input read once and the output written once) and its bound."""
     B, N, C, H = g["windows"], g["N"], g["C"], g["heads"]
     flops = B * (8 * N * C * C + 4 * N * N * C)
     elems = 2 * B * N * C + 4 * C * C + 4 * C + H * N * N
     if g["mask"] is not None:
         elems += g["nW"] * N * N
     nbytes = 4 * elems
-    t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
-    return flops, nbytes, 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+    return (flops, nbytes) + bound(flops, nbytes)
+
+
+def work_dropout(g):
+    """#2: #1's work plus writing the uint8 keep mask."""
+    flops, nbytes, _, _ = work(g)
+    nbytes += g["windows"] * g["heads"] * g["N"] ** 2
+    return (flops, nbytes) + bound(flops, nbytes)
+
+
+def work_backward(g, with_keep):
+    """#3: FLOPs = B_ (22 N C^2 + 12 N^2 C): qkv recompute 6NC^2, dx 6NC^2,
+    dWqkv 6NC^2, d(attn out) 2NC^2, dWproj 2NC^2; attention 12 N^2 C
+    (scores, attention output, d(attention), dv, dq, dk: 2 N^2 C each).
+    Bytes: x, dy, dx, the keep mask, the weights, bias table and shift mask
+    once, and the gradients once."""
+    B, N, C, H = g["windows"], g["N"], g["C"], g["heads"]
+    flops = B * (22 * N * C * C + 12 * N * N * C)
+    elems = 3 * B * N * C + 2 * (4 * C * C + 4 * C + H * N * N)
+    if g["mask"] is not None:
+        elems += g["nW"] * N * N
+    nbytes = 4 * elems + (B * H * N * N if with_keep else 0)
+    return (flops, nbytes) + bound(flops, nbytes)
 
 
 def make_inputs(torch, g, gen, dev):
@@ -132,14 +186,66 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def library_block(torch, x, wqkv, bqkv, wproj, bproj, attn_mask, H):
+def library_block(torch, x, wqkv, bqkv, wproj, bproj, attn_mask, H, dropout_p=0.0):
     """Yardstick only: the same function through cuBLAS and PyTorch's
     scaled_dot_product_attention (q is pre-scaled, so scale=1)."""
     B, N, C = x.shape
     qkv = torch.matmul(x, wqkv).add_(bqkv).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
     o = torch.nn.functional.scaled_dot_product_attention(
-        qkv[0], qkv[1], qkv[2], attn_mask=attn_mask, scale=1.0)
+        qkv[0], qkv[1], qkv[2], attn_mask=attn_mask, dropout_p=dropout_p, scale=1.0)
     return torch.matmul(o.transpose(1, 2).reshape(B, N, C), wproj).add_(bproj)
+
+
+def library_mask(torch, g, rel_bias, mask):
+    B = g["windows"]
+    attn_mask = rel_bias[None].expand(B, -1, -1, -1)
+    if mask is not None:
+        attn_mask = attn_mask + mask[torch.arange(B, device=mask.device) % g["nW"]][:, None]
+    return attn_mask.contiguous()
+
+
+def transposed(args):
+    """wqkv and wproj in nn.Linear's [out, in] layout, which #3 reads and
+    the Swin block passes it."""
+    return args[1].t().contiguous(), args[3].t().contiguous()
+
+
+def rel_err(got, want):
+    return float((got - want).abs().max()) / max(float(want.abs().max()), 1e-30)
+
+
+def profile_device(torch, fn):
+    """Run fn once under torch.profiler: wall ms, device busy ms, device
+    operations and the device rows by time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.time()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.time() - t0) * 1e3
+    # device rows only: a CPU op's self device time repeats its kernels'
+    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
+    return {"wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_ops": sum(e.count for e in rows), "rows": [
+                {"name": e.key, "device_ms": e.self_device_time_total / 1e3, "count": e.count}
+                for e in rows]}
+
+
+def log_profile(tag, what, breakdown, top=12):
+    b = breakdown
+    log(f"[{tag}] {what}: wall {b['wall_ms']:.3f} ms, device busy {b['device_busy_ms']:.3f} ms, "
+        f"idle share {1 - b['device_busy_ms'] / b['wall_ms']:.3f}, {b['device_ops']} device operations")
+    for r in b["rows"][:top]:
+        log(f"[{tag}] {r['device_ms']:.4f} ms x{r['count']}: {r['name'][:90]}")
+
+
+def zero_counts(kernels):
+    for k in kernels:
+        k.launches = 0
 
 
 def main():
@@ -158,28 +264,37 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32 matmuls (the default, stated)
     torch.backends.cudnn.allow_tf32 = False
 
-    from focal_tpu_torch.data import synthetic_arrays
+    from focal_tpu_torch.data import make_synthetic_dataset, synthetic_arrays
+    from focal_tpu_torch.models import build_backbone
     from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.models.sw_transformer import init_params
     from focal_tpu_torch.ops import _build
-    from focal_tpu_torch.ops.pallas_kernels import fused_window_block, fused_window_block_reference
-    from focal_tpu_torch.params import load_yaml
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import load_yaml, parse_train_params
     from focal_tpu_torch.serve import Predictor
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
 
+    fwd, fwd_drop, bwd = pk.fused_window_block, pk.fused_window_block_dropout, pk.fused_window_block_backward
+    all_kernels = (fwd, fwd_drop, bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    report = {"card": card}
 
-    # ---- 1. build
+    # ---- 1. build: one nvcc per source
     t0 = time.time()
     libs = _build.build_all()
     log(f"[build] {len(libs)} kernel libraries in {time.time() - t0:.1f}s")
-    for src in libs:
+    for src in _build.SOURCES:
         with open(_build.log_path(src)) as f:
             for line in f.read().splitlines():
                 if "registers" in line or "smem" in line or "spill" in line:
                     log(f"[build] {src}: {line.strip()}")
 
-    # ---- 2. kernel vs plain at every block geometry of the MOD forward
+    # ---- 2. #1 vs plain at every block geometry of the MOD forward
     cfg = load_yaml(os.path.join(HERE, "focal_tpu_torch", "configs", "MOD.yaml"))  # full width
     task = "vehicle_classification"
     geos = block_geometries(cfg, SERVE_BATCH)
@@ -187,10 +302,9 @@ def main():
     max_err = 0.0
     for g in geos:
         args = make_inputs(torch, g, gen, dev)
-        y = fused_window_block(*args)
+        y = fwd(*args)
         torch.cuda.synchronize()
-        ref = fused_window_block_reference(*args)
-        err = float((y - ref).abs().max())
+        err = float((y - pk.fused_window_block_reference(*args)).abs().max())
         g["max_abs_err"] = err
         max_err = max(max_err, err)
         log(f"[check] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']} "
@@ -199,16 +313,19 @@ def main():
             raise AssertionError(f"{g['name']}: kernel differs from plain by {err} > {KERNEL_TOL}")
     torch.cuda.synchronize()
 
-    # ---- 3. the slice: full-width MOD SW_Transformer served by the Predictor
+    # ---- 3. the serving path: full-width MOD SW_Transformer served by the Predictor
     data, labels, names = synthetic_arrays(cfg, task, SERVE_SAMPLES, seed=3)
     n = len(names)
     predictor = Predictor(cfg, "SW_Transformer", task, None, batch_size=SERVE_BATCH,
                           device="cuda", seed=0)
     n_params = sum(p.numel() for p in predictor.model.parameters())
     log(f"[slice] MOD SW_Transformer, {n_params} parameters, warm-up {predictor.compile_seconds:.2f}s")
-    fused_window_block.launches = 0
+    zero_counts(all_kernels)
     result = predictor.predict(data)
-    launches = fused_window_block.launches
+    launches = fwd.launches
+    if fwd_drop.launches or bwd.launches:
+        raise AssertionError("serving launched a training kernel")
+    per_fwd = sum(g["per_forward"] for g in geos)  # 16 Swin blocks in the MOD forward
     batches = result["latency"]["batches"]
     probs = result["probs"]
     if probs.shape != (n, cfg[task]["num_classes"]) or not np.isfinite(probs).all():
@@ -216,17 +333,17 @@ def main():
     sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
     if sum_err > 1e-5:
         raise AssertionError(f"probabilities do not sum to 1 (max error {sum_err})")
-    if launches != 16 * batches:
-        raise AssertionError(f"kernel launches {launches} != 16 x {batches} batches")
+    if launches != per_fwd * batches:
+        raise AssertionError(f"kernel launches {launches} != {per_fwd} x {batches} batches")
     log(f"[slice] {n} samples in {batches} batches of {SERVE_BATCH}: "
-        f"kernel launches {launches} (16 per batch)")
+        f"kernel launches {launches} ({per_fwd} per batch)")
 
     first = {loc: {m: a[:SERVE_BATCH] for m, a in mods.items()} for loc, mods in data.items()}
-    swin_mod.fused_window_block = fused_window_block_reference  # the plain block, same model
+    swin_mod.fused_window_block = pk.fused_window_block_reference  # the plain block, same model
     try:
         plain_probs = predictor._forward(first)
     finally:
-        swin_mod.fused_window_block = fused_window_block
+        swin_mod.fused_window_block = fwd
     slice_err = float(np.abs(plain_probs - probs[:SERVE_BATCH]).max())
     log(f"[slice] first batch, kernel vs plain block: max|dprobs| {slice_err:.3e}")
     if not slice_err <= SLICE_TOL:
@@ -235,22 +352,16 @@ def main():
     log(f"[slice] p50 batch {lat['p50_s'] * 1e3:.3f} ms, mean {lat['mean_s'] * 1e3:.3f} ms, "
         f"{lat['windows_per_s']:.1f} windows/s")
 
-    # ---- 4. timing per geometry
+    # ---- 4. #1 timing per geometry
     tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0, "bytes": 0}
     for g in geos:
         x, wqkv, bqkv, wproj, bproj, rel_bias, mask = make_inputs(torch, g, gen, dev)
-        H, B = g["heads"], g["windows"]
-        attn_mask = rel_bias[None].expand(B, -1, -1, -1)
-        if mask is not None:
-            attn_mask = attn_mask + mask[torch.arange(B, device=dev) % g["nW"]][:, None]
-        attn_mask = attn_mask.contiguous()
+        attn_mask = library_mask(torch, g, rel_bias, mask)
         args = (x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-        saved = fused_window_block.launches
-        g["ms"] = time_ms(torch, lambda: fused_window_block(*args))
-        fused_window_block.launches = saved  # timing launches are not the main path's
-        g["plain_ms"] = time_ms(torch, lambda: fused_window_block_reference(*args))
+        g["ms"] = time_ms(torch, lambda: fwd(*args))
+        g["plain_ms"] = time_ms(torch, lambda: pk.fused_window_block_reference(*args))
         g["library_ms"] = time_ms(
-            torch, lambda: library_block(torch, x, wqkv, bqkv, wproj, bproj, attn_mask, H))
+            torch, lambda: library_block(torch, x, wqkv, bqkv, wproj, bproj, attn_mask, g["heads"]))
         g["flops"], g["bytes"], g["bound_ms"], g["bound_by"] = work(g)
         log(f"[time] {g['name']}: kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
             f"library {g['library_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms ({g['bound_by']}), "
@@ -263,26 +374,195 @@ def main():
         f"{tot['ms'] / (lat['p50_s'] * 1e3):.3f}")
 
     # ---- 5. where one served batch's time goes on the device
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     predictor._forward(first)
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    serve_profile = profile_device(torch, lambda: predictor._forward(first))
+    log_profile("profile", "one served batch", serve_profile)
+    del predictor
+
+    # ---- 6. #2 and #3 vs plain at every block geometry of the training batch
+    rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
+    tgeos = block_geometries(cfg, 2 * TRAIN_BATCH)
+    drop_err = grad_err = grad_abs = 0.0
+    for gi, g in enumerate(tgeos):
+        args = make_inputs(torch, g, gen, dev)
+        y, keep = fwd_drop(*args, 1000 + gi, rate)
+        torch.cuda.synchronize()
+        err = float((y - pk.fused_window_block_dropout_reference(*args, keep, rate)).abs().max())
+        kept = float(keep.double().mean())
+        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+        dy = torch.randn(y.shape, generator=gen).to(dev)
+        tr = transposed(args)
+        errs = {}
+        for tag, kp in (("keep", keep), ("nomask", None)):
+            got = bwd(*args, dy, kp, rate, *tr)
+            torch.cuda.synchronize()
+            want = pk.fused_window_block_backward_reference(*args, dy, kp, rate)
+            errs[tag] = max(rel_err(a, b) for a, b in zip(got, want))
+            grad_abs = max(grad_abs, *(float((a - b).abs().max()) for a, b in zip(got, want)))
+        g.update(max_abs_err_fwd=err, keep_rate=kept, keep_sigma=sigma, max_rel_err_bwd=errs["keep"],
+                 max_rel_err_bwd_nomask=errs["nomask"])
+        drop_err, grad_err = max(drop_err, err), max(grad_err, *errs.values())
+        log(f"[check-train] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']}: "
+            f"#2 max|kernel-plain| {err:.3e}, keep rate {kept:.5f} ({(kept - 1 + rate) / sigma:+.2f} "
+            f"sigma); #3 max rel err {errs['keep']:.3e} (mask), {errs['nomask']:.3e} (no mask)")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{g['name']}: #2 differs from plain by {err}")
+        if not abs(kept - (1 - rate)) <= 5 * sigma:
+            raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {rate} within 5 sigma")
+        if not max(errs.values()) <= GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #3 gradients differ from plain by {errs}")
+
+    # ---- 7. the training path: FOCAL pretrain steps at full width
+    targs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer",
+                                "-learn_framework", "FOCAL", "-stage", "pretrain",
+                                "-batch_size", str(TRAIN_BATCH)])
+    ds = make_synthetic_dataset(targs.dataset_config, targs.task, 2 * TRAIN_BATCH, seed=0, device=dev)
+    n_rows = ds.subseq_idx.numel()
+    idx = torch.arange(TRAIN_BATCH, device=dev) % n_rows  # fixed, as bench.py
+    model = build_backbone(targs.dataset_config, targs.model, targs.task, targs.learn_framework)
+    init_params(model, seed=0)
+    model.to(dev)
+    state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
+    step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
+    t0 = time.time()
+    for _ in range(TRAIN_WARMUP):
+        state, metrics = step(state, ds.data, idx)
+    torch.cuda.synchronize()
+    log(f"[train] MOD SW_Transformer pretrain, batch {TRAIN_BATCH} (views fused to "
+        f"{2 * TRAIN_BATCH}), {sum(p.numel() for p in model.parameters())} parameters; "
+        f"{TRAIN_WARMUP} warm-up steps in {time.time() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(all_kernels)
+    step_s, history = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
         t0 = time.time()
-        predictor._forward(first)
-        wall_ms = (time.time() - t0) * 1e3
-    # device rows only: a CPU op's self device time repeats its kernels'
-    rows = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows.sort(key=lambda e: -e.self_device_time_total)
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3
-    device_ops = sum(e.count for e in rows)
-    breakdown = {"wall_ms": wall_ms, "device_busy_ms": busy_ms, "device_ops": device_ops, "rows": [
-        {"name": e.key, "device_ms": e.self_device_time_total / 1e3, "count": e.count}
-        for e in rows]}
-    log(f"[profile] one batch: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms, "
-        f"idle share {1 - busy_ms / wall_ms:.3f}, {device_ops} device operations")
-    for r in breakdown["rows"][:12]:
-        log(f"[profile] {r['device_ms']:.4f} ms x{r['count']}: {r['name'][:90]}")
+        state, metrics = step(state, ds.data, idx)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        history.append(torch.stack([metrics[k] for k in sorted(metrics)]))
+    train_launches = {"fused_window_block": fwd.launches,
+                      "fused_window_block_dropout": fwd_drop.launches,
+                      "fused_window_block_backward": bwd.launches}
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    history = torch.stack(history).cpu()
+    names_sorted = sorted(metrics)
+    if not bool(torch.isfinite(history).all()):
+        raise AssertionError(f"non-finite loss or part: {history}")
+    if fwd_drop.launches != per_fwd * TRAIN_STEPS or bwd.launches != per_fwd * TRAIN_STEPS or fwd.launches:
+        raise AssertionError(f"training launches {train_launches} != {per_fwd} per step of #2 and #3")
+    p50_ms = float(np.percentile(step_s, 50)) * 1e3
+    step_windows = sum(g["per_forward"] * g["windows"] for g in tgeos)  # through the attention
+    train = {
+        "steps": TRAIN_STEPS, "launches": train_launches, "p50_ms": p50_ms,
+        "mean_ms": float(np.mean(step_s)) * 1e3, "min_ms": float(np.min(step_s)) * 1e3,
+        "max_ms": float(np.max(step_s)) * 1e3,
+        "samples_per_s": TRAIN_BATCH / (p50_ms / 1e3),
+        "attention_windows_per_s": step_windows / (p50_ms / 1e3), "peak_mb": peak_mb,
+        "first": dict(zip(names_sorted, history[0].tolist())),
+        "last": dict(zip(names_sorted, history[-1].tolist())),
+    }
+    log(f"[train] {TRAIN_STEPS} steps: launches {train_launches} ({per_fwd} per step of #2 and #3)")
+    log(f"[train] loss {train['first']['loss']:.4f} -> {train['last']['loss']:.4f}; last parts "
+        + ", ".join(f"{k} {v:.4f}" for k, v in train["last"].items() if k != "loss"))
+    log(f"[train] p50 step {p50_ms:.3f} ms (mean {train['mean_ms']:.3f}, min {train['min_ms']:.3f}, "
+        f"max {train['max_ms']:.3f}), {train['samples_per_s']:.1f} samples/s, "
+        f"{train['attention_windows_per_s']:.1f} attention windows/s ({step_windows} a step), "
+        f"peak memory {peak_mb:.1f} MiB")
+
+    # one step with every drop rate at 0 from the trained state, kernels vs plain
+    cfg0 = copy.deepcopy(targs.dataset_config)
+    sw0 = cfg0["SW_Transformer"]
+    sw0["dropout_ratio"] = sw0["drop_path_rate"] = sw0["attn_drop_rate"] = 0.0
+    args0 = copy.copy(targs)
+    args0.dataset_config = cfg0
+    trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+    def rate0_step(window_block, block):
+        m = build_backbone(cfg0, targs.model, targs.task, targs.learn_framework)
+        m.load_state_dict(trained)
+        m.to(dev)
+        st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
+        st.step = state.step
+        swin_mod.window_block, swin_mod.fused_window_block = window_block, block
+        try:
+            _, mt = make_pretrain_step(m, build_augmenter(args0), make_focal_loss(args0))(st, ds.data, idx)
+        finally:
+            swin_mod.window_block, swin_mod.fused_window_block = pk.window_block, fwd
+        return float(mt["loss"]), {n: p.grad for n, p in m.named_parameters() if p.requires_grad}
+
+    loss_k, grads_k = rate0_step(pk.window_block, fwd)
+    loss_p, grads_p = rate0_step(pk.window_block_reference, pk.fused_window_block_reference)
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    step_grad_err, worst = 0.0, ""
+    for name, gp in grads_p.items():
+        gk = grads_k[name]
+        if gp is None or gk is None:
+            if (gp is None) != (gk is None):
+                raise AssertionError(f"{name}: gradient on one path only")
+            continue
+        e = rel_err(gk, gp)
+        if e > step_grad_err:
+            step_grad_err, worst = e, name
+    train.update(rate0_loss_kernel=loss_k, rate0_loss_plain=loss_p, rate0_loss_rel=loss_rel,
+                 rate0_max_grad_rel=step_grad_err, rate0_worst=worst)
+    log(f"[train] rate-0 step, kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} "
+        f"(rel {loss_rel:.2e}), max grad rel err {step_grad_err:.2e} ({worst})")
+    if not loss_rel <= LOSS_TOL:
+        raise AssertionError(f"rate-0 loss differs: {loss_k} vs {loss_p}")
+    if not step_grad_err <= GRAD_TOL:
+        raise AssertionError(f"rate-0 gradients differ: {step_grad_err} at {worst}")
+    del grads_k, grads_p
+
+    # ---- 8. #2 and #3 timing per training geometry
+    ttot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
+                             "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms")}
+    tflops = {"fwd": [0, 0], "bwd": [0, 0]}
+    for gi, g in enumerate(tgeos):
+        x, wqkv, bqkv, wproj, bproj, rel_bias, mask = make_inputs(torch, g, gen, dev)
+        args = (x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+        attn_mask = library_mask(torch, g, rel_bias, mask)
+        _, keep = fwd_drop(*args, 7, rate)
+        dy = torch.randn(x.shape, generator=gen).to(dev)
+        g["fwd_ms"] = time_ms(torch, lambda: fwd_drop(*args, 7, rate))
+        g["fwd_plain_ms"] = time_ms(
+            torch, lambda: pk.fused_window_block_dropout_reference(*args, keep, rate))
+        g["fwd_library_ms"] = time_ms(torch, lambda: library_block(
+            torch, x, wqkv, bqkv, wproj, bproj, attn_mask, g["heads"], rate))
+        tr = transposed(args)
+        g["bwd_ms"] = time_ms(torch, lambda: bwd(*args, dy, keep, rate, *tr))
+        g["bwd_plain_ms"] = time_ms(
+            torch, lambda: pk.fused_window_block_backward_reference(*args, dy, keep, rate))
+        leaves = [t.clone().requires_grad_(True) for t in (x, wqkv, bqkv, wproj, bproj)]
+        am = attn_mask.clone().requires_grad_(True)  # the bias-table gradient flows through it
+        out = library_block(torch, *leaves, am, g["heads"], rate)
+        g["bwd_library_ms"] = time_ms(
+            torch, lambda: torch.autograd.grad(out, leaves + [am], dy, retain_graph=True))
+        del out
+        f, b, g["fwd_bound_ms"], g["fwd_bound_by"] = work_dropout(g)
+        tflops["fwd"][0] += f * g["per_forward"]
+        tflops["fwd"][1] += b * g["per_forward"]
+        f2, b2, g["bwd_bound_ms"], g["bwd_bound_by"] = work_backward(g, True)
+        tflops["bwd"][0] += f2 * g["per_forward"]
+        tflops["bwd"][1] += b2 * g["per_forward"]
+        g["fwd_gflop"], g["bwd_gflop"] = f / 1e9, f2 / 1e9
+        log(f"[time-train] {g['name']}: #2 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
+            f"library {g['fwd_library_ms']:.4f}, bound {g['fwd_bound_ms']:.4f}, "
+            f"{f / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #3 {g['bwd_ms']:.4f} ms (plain "
+            f"{g['bwd_plain_ms']:.4f}, library {g['bwd_library_ms']:.4f}, bound "
+            f"{g['bwd_bound_ms']:.4f}, {f2 / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+        for k in ttot:
+            ttot[k] += g["per_forward"] * g[k]
+    log(f"[time-train] one step (16 launches each): #2 {ttot['fwd_ms']:.3f} ms (plain "
+        f"{ttot['fwd_plain_ms']:.3f}, library {ttot['fwd_library_ms']:.3f}, bound "
+        f"{ttot['fwd_bound_ms']:.3f}); #3 {ttot['bwd_ms']:.3f} ms (plain {ttot['bwd_plain_ms']:.3f}, "
+        f"library {ttot['bwd_library_ms']:.3f}, bound {ttot['bwd_bound_ms']:.3f}); "
+        f"share of the p50 step {(ttot['fwd_ms'] + ttot['bwd_ms']) / p50_ms:.3f}")
+
+    # ---- 9. where one training step's time goes on the device
+    train_profile = profile_device(torch, lambda: step(state, ds.data, idx))
+    log_profile("profile-train", "one training step", train_profile, top=15)
+    train["idle_share"] = 1 - train_profile["device_busy_ms"] / train_profile["wall_ms"]
 
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
@@ -290,27 +570,36 @@ def main():
             json.dump({
                 "card": card,
                 "geometries": [{k: v for k, v in g.items() if k != "mask"} for g in geos],
-                "per_forward": tot, "latency": lat, "launches": launches,
-                "slice_err": slice_err, "profile": breakdown,
+                "train_geometries": [{k: v for k, v in g.items() if k != "mask"} for g in tgeos],
+                "per_forward": tot, "per_step": ttot, "latency": lat, "launches": launches,
+                "slice_err": slice_err, "profile": serve_profile, "train": train,
+                "train_profile": train_profile,
             }, f, indent=1)
 
-    kernels = [{
-        "name": "fused_window_block",
-        "route": "cuda",
-        "source": "focal_tpu_torch/csrc/window_block.cu",
-        "replaces": "focal_tpu/ops/pallas_kernels.py:949",
-        "launches": launches,  # the whole served run
-        "launches_per_forward": launches // batches,
-        "forwards": batches,
-        "max_abs_err": max_err,
-        "ms": tot["ms"],
-        "plain_ms": tot["plain_ms"],
-        "bound_ms": tot["bound_ms"],
-        "bound_by": "operations" if tot["flops"] / F32_FLOPS >= tot["bytes"] / HBM_BYTES_PER_S else "bytes",
-        "library_ms": tot["library_ms"],
-        "per": f"times: one forward at batch {SERVE_BATCH}, 16 launches over {len(geos)} "
-               f"geometries; launches: all {batches} forwards of the served run",
-    }]
+    def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per, **extra):
+        ops_t, byte_t = flops_bytes[0] / F32_FLOPS, flops_bytes[1] / HBM_BYTES_PER_S
+        return {"name": name, "route": "cuda", "source": "focal_tpu_torch/csrc/window_block.cu",
+                "replaces": replaces, "launches": launches_, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain, "bound_ms": bnd,
+                "bound_by": "operations" if ops_t >= byte_t else "bytes", "library_ms": lib,
+                "per": per, **extra}
+
+    train_per = (f"times: one pretrain step at batch {TRAIN_BATCH} (views fused to "
+                 f"{2 * TRAIN_BATCH}), 16 launches; launches: {TRAIN_STEPS} timed steps")
+    kernels = [
+        entry("fused_window_block", f"{PK}:949", launches, max_err, tot["ms"], tot["plain_ms"],
+              tot["bound_ms"], (tot["flops"], tot["bytes"]), tot["library_ms"],
+              f"times: one forward at batch {SERVE_BATCH}, 16 launches over {len(geos)} "
+              f"geometries; launches: all {batches} forwards of the served run",
+              launches_per_forward=per_fwd, forwards=batches),
+        entry("fused_window_block_dropout", f"{PK}:1432", train_launches["fused_window_block_dropout"],
+              drop_err, ttot["fwd_ms"], ttot["fwd_plain_ms"], ttot["fwd_bound_ms"], tflops["fwd"],
+              ttot["fwd_library_ms"], train_per, launches_per_step=per_fwd, steps=TRAIN_STEPS),
+        entry("fused_window_block_backward", f"{PK}:971",
+              train_launches["fused_window_block_backward"], grad_abs, ttot["bwd_ms"],
+              ttot["bwd_plain_ms"], ttot["bwd_bound_ms"], tflops["bwd"], ttot["bwd_library_ms"],
+              train_per, launches_per_step=per_fwd, steps=TRAIN_STEPS, max_rel_err=grad_err),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

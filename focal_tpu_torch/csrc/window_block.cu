@@ -1,43 +1,64 @@
-// Whole-block Swin window attention, forward, for Hopper (sm_90a).
+// Whole-block Swin window attention for Hopper (sm_90a): forward (#1),
+// forward with attention dropout (#2) and backward (#3).
 //
-// Replaces the TPU kernel focal_tpu/ops/pallas_kernels.py::_wblock_fwd_kernel
-// (reached through fused_window_block -> _wblock_fwd_impl -> pl.pallas_call).
+// Replaces the TPU kernels of focal_tpu/ops/pallas_kernels.py:
+//   #1 _wblock_fwd_kernel (fused_window_block -> _wblock_fwd_impl -> pl.pallas_call)
+//   #2 the same kernel with rate > 0 (fused_window_block_dropout), which also
+//      writes its keep mask out
+//   #3 _wblock_bwd_kernel (_wblock_bwd_impl -> pl.pallas_call), the VJP of both
 // Per window w of x [B, N, C] (f32, row-major):
 //   qkv = x Wqkv + bqkv                      (q columns pre-scaled by the caller)
-//   o_h = softmax(q_h k_h^T + rel_bias[h] + mask[w % nW]) v_h   for each head h
-//   y   = concat_h(o_h) Wproj + bproj
-// All three products run in this kernel's body; qkv and the attention output
-// never leave shared memory.
+//   a_h = softmax(q_h k_h^T + rel_bias[h] + mask[w % nW])   for each head h
+//   a_h = keep ? a_h / (1 - rate) : 0        (#2 only)
+//   y   = concat_h(a_h v_h) Wproj + bproj
+// All products run in these kernels' bodies; qkv and the attention output
+// never leave shared memory in the forward.
 //
-// What bounds it on this card: operations. At the MOD geometries (N = 9,
-// C = 64..256) a window does 2*9*C*4C multiply-adds of projection for
-// 9*C*2 floats of input and output, ~2.59 GFLOP against ~38 MB per launch at
-// stage 0: about 69 FLOP per byte, above the f32 CUDA-core ridge
-// (67 TFLOP/s over 3.35 TB/s = 20 FLOP/byte), so f32 FMA throughput is the
-// limit, not HBM.
+// What bounds them on this card: operations. At the MOD geometries (N = 9,
+// C = 64..256) a window does 2*9*C*4C multiply-adds of projection in the
+// forward (2*9*C*11C in the backward) for 9*C*2 floats of activations in and
+// out: 69-234 FLOP per byte, above the f32 CUDA-core ridge (67 TFLOP/s over
+// 3.35 TB/s = 20 FLOP/byte), so f32 FMA throughput is the limit, not HBM.
 //
 // What the design does about it:
-//   * A block owns WPB windows (WPB * N * 4C floats of activations, ~74 KB,
-//     so two blocks fit one SM). Each thread computes one output column for
-//     all N rows of one window: every weight it loads from global memory (L2
-//     resident; consecutive threads read consecutive columns) feeds N FMAs,
-//     and the activation operand is a float4 broadcast from shared memory.
-//   * The attention (2% of the FLOPs) is one thread per (window, head, query
-//     row) with an exact N-long softmax: rows are not padded to a power of
-//     two. Row strides in shared memory are padded (3C + 1, C + 4) so the
-//     rows a warp touches fall in different banks.
+//   * A block owns a few windows whose activations sit in dynamic shared
+//     memory (forward: x and qkv, ~74 KB; backward: x, dy, qkv, d(attn out)
+//     and dqkv, ~110 KB), so two blocks fit one SM. Each projection thread
+//     computes one output column for all N rows of one window: every weight
+//     it loads from global memory (L2 resident; consecutive threads read
+//     consecutive columns) feeds N FMAs, and the activation operand is a
+//     float4 broadcast from shared memory (project_rows).
+//   * The attention (2% of the FLOPs) is one thread per (window, head, row)
+//     with an exact N-long softmax: rows are not padded to a power of two.
+//   * Dropout bits come from Philox4x32-10 keyed by the seed and counted by
+//     (window, head, row): the mask is a pure function of (seed, geometry),
+//     whatever the block shape. #2 writes it out as uint8 [B, H, N, N] and
+//     #3 reads it back, as the TPU kernels store theirs.
+//   * The backward's cross-window sums (dWqkv, dbqkv, dWproj, dbproj: a
+//     reduction over B*N rows; d rel_bias: over B windows) are deterministic:
+//     the per-window kernel writes dqkv and the attention output to a
+//     workspace, a split-K kernel with a fixed row range per block writes
+//     one partial per split, and a second kernel sums the partials in split
+//     order. No atomics, so two runs give the same bits.
 //   * f32 throughout with fmaf and expf: no TF32, no bf16 (the TPU kernel's
 //     bf16 downcast at C >= 128 was a VMEM workaround that does not apply).
-//   * Not yet: wgmma / tensor cores, TMA, a persistent grid. Those are the
-//     later performance work.
+//   * Not yet: wgmma / tensor cores, TMA. Those are the later performance work.
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include <algorithm>
 
 namespace {
 
-constexpr int kMaxN = 16;           // window tokens a thread keeps in registers
+constexpr int kMaxN = 16;            // window tokens a thread keeps in registers
+// Threads of every block launched here. The block-wide loops step by this
+// constant, not by blockDim.x: the runtime stride cost #1 5 % on the H100.
 constexpr int kThreads = 256;
-constexpr int kActBudget = 73728;   // bytes of x + qkv per block (two blocks per SM)
+constexpr int kActBudget = 73728;    // forward: bytes of x + qkv per block (two blocks per SM)
+constexpr int kBwdBudget = 112640;   // backward: bytes of activations per block (two per SM)
+constexpr int kTile = 64;            // weight-gradient output tile (rows and columns)
+constexpr int kTileK = 16;           // weight-gradient rows per shared-memory stage
 
 int windows_per_block(int N, int C) {
   const int wpb = kActBudget / (N * 16 * C);
@@ -48,12 +69,131 @@ size_t smem_bytes(int wpb, int N, int C) {
   return (size_t)wpb * N * ((C + 4) + (3 * C + 1)) * sizeof(float);
 }
 
+// ---------------------------------------------------------------------------
+// shared device helpers
+
+// Copy `rows` rows of C floats (contiguous in global memory) into shared
+// memory rows of `stride` floats (stride % 4 == 0), float4 at a time.
+__device__ __forceinline__ void load_rows(const float* __restrict__ g, int C, float* s,
+                                          int stride, int rows) {
+  const int c4 = C / 4;
+  const float4* g4 = reinterpret_cast<const float4*>(g);
+  for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
+    const int row = i / c4, col = i - row * c4;
+    *reinterpret_cast<float4*>(s + row * stride + col * 4) = g4[i];
+  }
+}
+
+// The reverse of load_rows.
+__device__ __forceinline__ void store_rows(const float* s, int stride, float* __restrict__ g,
+                                           int C, int rows) {
+  const int c4 = C / 4;
+  float4* g4 = reinterpret_cast<float4*>(g);
+  for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
+    const int row = i / c4, col = i - row * c4;
+    g4[i] = *reinterpret_cast<const float4*>(s + row * stride + col * 4);
+  }
+}
+
+// dst[w][r][j] = sum_k src[w][r][k] W[k][j] (+ bias[j]) for nwin windows of N
+// rows, j < ncols, k < K (K % 4 == 0). src is shared memory with rows of
+// src_stride floats (% 4 == 0); W is global [K][ldw]; dst rows are
+// dst_stride floats apart and windows dst_win_stride floats apart (shared or
+// global memory). One (window, column) per item, all N rows at once.
+__device__ __forceinline__ void project_rows(const float* src, int src_stride, int K,
+                                             const float* __restrict__ W, int ldw, int ncols,
+                                             const float* __restrict__ bias, float* dst,
+                                             int dst_stride, int dst_win_stride, int nwin,
+                                             int N) {
+  for (int item = threadIdx.x; item < nwin * ncols; item += kThreads) {
+    const int w = item / ncols, j = item - w * ncols;
+    const float* sw = src + w * N * src_stride;
+    float acc[kMaxN];
+#pragma unroll
+    for (int r = 0; r < kMaxN; ++r) acc[r] = 0.f;
+    for (int k = 0; k < K; k += 4) {
+      const float b0 = __ldg(W + (size_t)(k + 0) * ldw + j);
+      const float b1 = __ldg(W + (size_t)(k + 1) * ldw + j);
+      const float b2 = __ldg(W + (size_t)(k + 2) * ldw + j);
+      const float b3 = __ldg(W + (size_t)(k + 3) * ldw + j);
+#pragma unroll
+      for (int r = 0; r < kMaxN; ++r) {
+        if (r < N) {
+          const float4 a = *reinterpret_cast<const float4*>(sw + r * src_stride + k);
+          acc[r] = fmaf(a.x, b0, acc[r]);
+          acc[r] = fmaf(a.y, b1, acc[r]);
+          acc[r] = fmaf(a.z, b2, acc[r]);
+          acc[r] = fmaf(a.w, b3, acc[r]);
+        }
+      }
+    }
+    const float bj = bias ? __ldg(bias + j) : 0.f;
+    float* dw = dst + w * dst_win_stride;
+#pragma unroll
+    for (int r = 0; r < kMaxN; ++r)
+      if (r < N) dw[r * dst_stride + j] = acc[r] + bj;
+  }
+}
+
+// p[j] = softmax_j(q . k_j + bias[j] + mask[j]) for one query row. q and the
+// k rows (kr0 + j * stride) hold hd floats of one head.
+__device__ __forceinline__ void softmax_row(const float* q, const float* kr0, int stride, int hd,
+                                            const float* __restrict__ bias,
+                                            const float* __restrict__ m, int N,
+                                            float (&p)[kMaxN]) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j) {
+    if (j < N) {
+      const float* kr = kr0 + j * stride;
+      float d = 0.f;
+      for (int t = 0; t < hd; ++t) d = fmaf(q[t], kr[t], d);
+      d += __ldg(bias + j);
+      if (m) d += __ldg(m + j);
+      p[j] = d;
+      mx = fmaxf(mx, d);
+    }
+  }
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j) {
+    if (j < N) {
+      p[j] = expf(p[j] - mx);
+      sum += p[j];
+    }
+  }
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j)
+    if (j < N) p[j] *= inv;
+}
+
+// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
+// 3", SC 2011): four independent 32-bit words per (counter, key).
+__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
+    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
+    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
+    k.x += 0x9E3779B9u;
+    k.y += 0xBB67AE85u;
+  }
+  return c;
+}
+
+// ---------------------------------------------------------------------------
+// forward (#1; #2 with kDropout)
+
+template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
                   const float* __restrict__ bqkv, const float* __restrict__ wproj,
                   const float* __restrict__ bproj, const float* __restrict__ rel_bias,
                   const float* __restrict__ mask, float* __restrict__ y,
-                  int B, int N, int C, int H, int nW, int wpb) {
+                  unsigned char* __restrict__ keep, unsigned long long seed,
+                  unsigned threshold, float inv_keep, int B, int N, int C, int H, int nW,
+                  int wpb) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int xs_stride = C + 4;      // x rows, later the attention output rows
@@ -62,86 +202,51 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
   float* qs = smem + wpb * N * xs_stride;    // [wpb][N][3C + 1]
   const int w0 = blockIdx.x * wpb;
   const int nwin = min(wpb, B - w0);
-  const int C3 = 3 * C;
   const int hd = C / H;
-  const int tid = threadIdx.x;
 
   // 1. the block's windows are contiguous in x: stage them in shared memory
-  const int c4 = C / 4;
-  const float4* xg = reinterpret_cast<const float4*>(x + (size_t)w0 * N * C);
-  for (int i = tid; i < nwin * N * c4; i += kThreads) {
-    const int row = i / c4, col = i - row * c4;
-    *reinterpret_cast<float4*>(xs + row * xs_stride + col * 4) = xg[i];
-  }
+  load_rows(x + (size_t)w0 * N * C, C, xs, xs_stride, nwin * N);
   __syncthreads();
 
-  // 2. qkv = x Wqkv + bqkv: one (window, column) per item, all N rows
-  for (int item = tid; item < nwin * C3; item += kThreads) {
-    const int w = item / C3, j = item - w * C3;
-    const float* xw = xs + w * N * xs_stride;
-    float acc[kMaxN];
-#pragma unroll
-    for (int r = 0; r < kMaxN; ++r) acc[r] = 0.f;
-    for (int k = 0; k < C; k += 4) {
-      const float b0 = __ldg(wqkv + (size_t)(k + 0) * C3 + j);
-      const float b1 = __ldg(wqkv + (size_t)(k + 1) * C3 + j);
-      const float b2 = __ldg(wqkv + (size_t)(k + 2) * C3 + j);
-      const float b3 = __ldg(wqkv + (size_t)(k + 3) * C3 + j);
-#pragma unroll
-      for (int r = 0; r < kMaxN; ++r) {
-        if (r < N) {
-          const float4 a = *reinterpret_cast<const float4*>(xw + r * xs_stride + k);
-          acc[r] = fmaf(a.x, b0, acc[r]);
-          acc[r] = fmaf(a.y, b1, acc[r]);
-          acc[r] = fmaf(a.z, b2, acc[r]);
-          acc[r] = fmaf(a.w, b3, acc[r]);
-        }
-      }
-    }
-    const float bj = __ldg(bqkv + j);
-    float* qw = qs + w * N * qs_stride;
-#pragma unroll
-    for (int r = 0; r < kMaxN; ++r)
-      if (r < N) qw[r * qs_stride + j] = acc[r] + bj;
-  }
+  // 2. qkv = x Wqkv + bqkv
+  project_rows(xs, xs_stride, C, wqkv, 3 * C, 3 * C, bqkv, qs, qs_stride, N * qs_stride, nwin, N);
   __syncthreads();
 
   // 3. attention per (window, head, query row); the output overwrites x,
   //    which step 2 has consumed
-  for (int item = tid; item < nwin * H * N; item += kThreads) {
+  for (int item = threadIdx.x; item < nwin * H * N; item += kThreads) {
     const int i = item % N;
     const int h = (item / N) % H;
     const int w = item / (N * H);
     const float* qw = qs + w * N * qs_stride;
-    const float* q = qw + i * qs_stride + h * hd;
-    const float* bias = rel_bias + (h * N + i) * N;
     const float* m = mask ? mask + ((size_t)((w0 + w) % nW) * N + i) * N : nullptr;
     float s[kMaxN];
-    float mx = -INFINITY;
+    softmax_row(qw + i * qs_stride + h * hd, qw + C + h * hd, qs_stride, hd,
+                rel_bias + (h * N + i) * N, m, N, s);
+    if (kDropout) {
+      // counter (window, head * kMaxN + row, word block): one Philox call per
+      // four keys of the row
+      const size_t row = ((size_t)(w0 + w) * H + h) * N + i;
+      unsigned char* kr = keep + row * N;
+      const uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
 #pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        const float* kr = qw + j * qs_stride + C + h * hd;
-        float d = 0.f;
-        for (int t = 0; t < hd; ++t) d = fmaf(q[t], kr[t], d);
-        d += __ldg(bias + j);
-        if (m) d += __ldg(m + j);
-        s[j] = d;
-        mx = fmaxf(mx, d);
+      for (int jb = 0; jb < kMaxN / 4; ++jb) {
+        if (jb * 4 < N) {
+          const uint4 r = philox4x32_10(
+              make_uint4((unsigned)(w0 + w), (unsigned)(h * kMaxN + i), (unsigned)jb, 0u), key);
+          const unsigned bits[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+          for (int t = 0; t < 4; ++t) {
+            const int j = jb * 4 + t;
+            if (j < N) {
+              const bool kp = bits[t] >= threshold;
+              kr[j] = kp ? 1 : 0;
+              s[j] = kp ? s[j] * inv_keep : 0.f;
+            }
+          }
+        }
       }
     }
-    float sum = 0.f;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        s[j] = expf(s[j] - mx);
-        sum += s[j];
-      }
-    }
-    const float inv = 1.f / sum;
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j)
-      if (j < N) s[j] *= inv;
     const float* vbase = qw + 2 * C + h * hd;
     float* o = xs + (w * N + i) * xs_stride + h * hd;
     for (int t = 0; t < hd; ++t) {
@@ -155,60 +260,494 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
   __syncthreads();
 
   // 4. y = attn_out Wproj + bproj, written straight to global memory
-  for (int item = tid; item < nwin * C; item += kThreads) {
-    const int w = item / C, j = item - w * C;
-    const float* aw = xs + w * N * xs_stride;
-    float acc[kMaxN];
+  project_rows(xs, xs_stride, C, wproj, C, C, bproj, y + (size_t)w0 * N * C, C, N * C, nwin, N);
+}
+
+// ---------------------------------------------------------------------------
+// backward (#3)
+
+// Shared-memory layout of the per-window backward, in floats.
+struct BwdLayout {
+  int wpb;
+  int dq_stride, xs_stride, qs_stride, gs_stride;
+  size_t dq, xs, qs, gs, ps, ds, dacc, total;
+};
+
+BwdLayout bwd_layout(int wpb, int N, int C, int H) {
+  BwdLayout L;
+  L.wpb = wpb;
+  L.dq_stride = 3 * C + 4;  // dy, then dqkv (float4 rows)
+  L.xs_stride = C + 4;      // x, then the attention output (float4 rows)
+  L.qs_stride = 3 * C + 1;  // qkv
+  L.gs_stride = C + 1;      // d(attention output) = dy Wproj^T
+  const size_t nn = (size_t)H * N * N;
+  L.dq = 0;
+  L.xs = L.dq + (size_t)wpb * N * L.dq_stride;
+  L.qs = L.xs + (size_t)wpb * N * L.xs_stride;
+  L.gs = L.qs + (size_t)wpb * N * L.qs_stride;
+  L.ps = L.gs + (size_t)wpb * N * L.gs_stride;  // attention weights as applied to v
+  L.ds = L.ps + wpb * nn;                       // score gradients
+  L.dacc = L.ds + wpb * nn;                     // this block's d rel_bias
+  L.total = L.dacc + nn;
+  return L;
+}
+
+BwdLayout bwd_plan_layout(int N, int C, int H) {
+  const BwdLayout one = bwd_layout(1, N, C, H);
+  const size_t per_window = (one.total - (size_t)H * N * N) * sizeof(float);
+  int wpb = (int)(kBwdBudget / per_window);
+  return bwd_layout(wpb < 1 ? 1 : wpb, N, C, H);
+}
+
+// Per window: recompute qkv and the softmax, then dqkv, dx, the attention
+// output (for dWproj) and the score gradients. dqkv and the attention output
+// go to the workspace for the weight-gradient kernel; each block sums the
+// score gradients of its windows (in window order) into one d rel_bias
+// partial. Blocks walk the window chunks with a fixed stride, so the
+// partials do not depend on timing.
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+wblock_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                  const float* __restrict__ bqkv, const float* __restrict__ wqkv_t,
+                  const float* __restrict__ wproj_t, const float* __restrict__ rel_bias,
+                  const float* __restrict__ mask, const float* __restrict__ dy,
+                  const unsigned char* __restrict__ keep, float inv_keep,
+                  float* __restrict__ dx, float* __restrict__ dqkv_out,
+                  float* __restrict__ ao_out, float* __restrict__ dbias_part, int B, int N,
+                  int C, int H, int nW, BwdLayout L) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* dqs = smem + L.dq;
+  float* xs = smem + L.xs;
+  float* qs = smem + L.qs;
+  float* gs = smem + L.gs;
+  float* ps = smem + L.ps;
+  float* dss = smem + L.ds;
+  float* dacc = smem + L.dacc;
+  const int hd = C / H;
+  const int nn = H * N * N;
+  const int wpb = L.wpb;
+  const int nchunks = (B + wpb - 1) / wpb;
+
+  for (int e = threadIdx.x; e < nn; e += blockDim.x) dacc[e] = 0.f;
+
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    const int w0 = chunk * wpb;
+    const int nwin = min(wpb, B - w0);
+    __syncthreads();  // the previous chunk's readers are done with shared memory
+
+    // 1. x and dy of the chunk's windows
+    load_rows(x + (size_t)w0 * N * C, C, xs, L.xs_stride, nwin * N);
+    load_rows(dy + (size_t)w0 * N * C, C, dqs, L.dq_stride, nwin * N);
+    __syncthreads();
+
+    // 2. qkv = x Wqkv + bqkv (recomputed: the forward keeps no residual but
+    //    x) and g = dy Wproj^T, the gradient of the attention output
+    project_rows(xs, L.xs_stride, C, wqkv, 3 * C, 3 * C, bqkv, qs, L.qs_stride,
+                 N * L.qs_stride, nwin, N);
+    project_rows(dqs, L.dq_stride, C, wproj_t, C, C, nullptr, gs, L.gs_stride,
+                 N * L.gs_stride, nwin, N);
+    __syncthreads();
+
+    // 3. per (window, head, query row i): softmax p, the weights applied to
+    //    v (a), the attention output (into xs, consumed by step 2), the
+    //    score gradient ds and dq (into dqs, whose dy step 2 consumed)
+    for (int item = threadIdx.x; item < nwin * H * N; item += kThreads) {
+      const int i = item % N;
+      const int h = (item / N) % H;
+      const int w = item / (N * H);
+      const float* qw = qs + w * N * L.qs_stride;
+      const float* m = mask ? mask + ((size_t)((w0 + w) % nW) * N + i) * N : nullptr;
+      float p[kMaxN];
+      softmax_row(qw + i * L.qs_stride + h * hd, qw + C + h * hd, L.qs_stride, hd,
+                  rel_bias + (h * N + i) * N, m, N, p);
+      float a[kMaxN], da[kMaxN];
+      bool kp[kMaxN];
+      const unsigned char* kr =
+          kDropout ? keep + (((size_t)(w0 + w) * H + h) * N + i) * N : nullptr;
 #pragma unroll
-    for (int r = 0; r < kMaxN; ++r) acc[r] = 0.f;
-    for (int k = 0; k < C; k += 4) {
-      const float b0 = __ldg(wproj + (size_t)(k + 0) * C + j);
-      const float b1 = __ldg(wproj + (size_t)(k + 1) * C + j);
-      const float b2 = __ldg(wproj + (size_t)(k + 2) * C + j);
-      const float b3 = __ldg(wproj + (size_t)(k + 3) * C + j);
-#pragma unroll
-      for (int r = 0; r < kMaxN; ++r) {
-        if (r < N) {
-          const float4 a = *reinterpret_cast<const float4*>(aw + r * xs_stride + k);
-          acc[r] = fmaf(a.x, b0, acc[r]);
-          acc[r] = fmaf(a.y, b1, acc[r]);
-          acc[r] = fmaf(a.z, b2, acc[r]);
-          acc[r] = fmaf(a.w, b3, acc[r]);
+      for (int j = 0; j < kMaxN; ++j) {
+        if (j < N) {
+          kp[j] = kDropout ? kr[j] != 0 : true;
+          a[j] = kDropout ? (kp[j] ? p[j] * inv_keep : 0.f) : p[j];
         }
       }
-    }
-    const float bj = __ldg(bproj + j);
-    float* yw = y + (size_t)(w0 + w) * N * C;
+      float* prow = ps + ((w * H + h) * N + i) * N;
 #pragma unroll
-    for (int r = 0; r < kMaxN; ++r)
-      if (r < N) yw[r * C + j] = acc[r] + bj;
+      for (int j = 0; j < kMaxN; ++j)
+        if (j < N) prow[j] = a[j];
+
+      const float* vbase = qw + 2 * C + h * hd;
+      const float* grow = gs + (w * N + i) * L.gs_stride + h * hd;
+      float* o = xs + (w * N + i) * L.xs_stride + h * hd;
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j)
+        if (j < N) da[j] = 0.f;
+      for (int t = 0; t < hd; ++t) {
+        const float gt = grow[t];
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < N) {
+            const float vj = vbase[j * L.qs_stride + t];
+            acc = fmaf(a[j], vj, acc);
+            da[j] = fmaf(gt, vj, da[j]);
+          }
+        }
+        o[t] = acc;
+      }
+      float dot = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j) {
+        if (j < N) {
+          if (kDropout) da[j] = kp[j] ? da[j] * inv_keep : 0.f;
+          dot = fmaf(da[j], p[j], dot);
+        }
+      }
+      float* dsrow = dss + ((w * H + h) * N + i) * N;
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j) {
+        if (j < N) {
+          da[j] = p[j] * (da[j] - dot);  // ds
+          dsrow[j] = da[j];
+        }
+      }
+      const float* kbase = qw + C + h * hd;
+      float* dq = dqs + (w * N + i) * L.dq_stride + h * hd;
+      for (int t = 0; t < hd; ++t) {
+        float acc = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j)
+          if (j < N) acc = fmaf(da[j], kbase[j * L.qs_stride + t], acc);
+        dq[t] = acc;
+      }
+    }
+    __syncthreads();
+
+    // 4. per (window, head, key row j): dk_j = sum_i ds[i][j] q_i and
+    //    dv_j = sum_i a[i][j] g_i; and this block's d rel_bias += ds
+    for (int item = threadIdx.x; item < nwin * H * N; item += kThreads) {
+      const int j = item % N;
+      const int h = (item / N) % H;
+      const int w = item / (N * H);
+      const float* qw = qs + w * N * L.qs_stride;
+      const float* dsc = dss + (w * H + h) * N * N + j;
+      const float* pc = ps + (w * H + h) * N * N + j;
+      float dsj[kMaxN], aj[kMaxN];
+#pragma unroll
+      for (int i = 0; i < kMaxN; ++i) {
+        if (i < N) {
+          dsj[i] = dsc[i * N];
+          aj[i] = pc[i * N];
+        }
+      }
+      const float* qbase = qw + h * hd;
+      const float* gbase = gs + w * N * L.gs_stride + h * hd;
+      float* drow = dqs + (w * N + j) * L.dq_stride + h * hd;
+      for (int t = 0; t < hd; ++t) {
+        float dk = 0.f, dv = 0.f;
+#pragma unroll
+        for (int i = 0; i < kMaxN; ++i) {
+          if (i < N) {
+            dk = fmaf(dsj[i], qbase[i * L.qs_stride + t], dk);
+            dv = fmaf(aj[i], gbase[i * L.gs_stride + t], dv);
+          }
+        }
+        drow[C + t] = dk;
+        drow[2 * C + t] = dv;
+      }
+    }
+    for (int e = threadIdx.x; e < nn; e += blockDim.x) {
+      float acc = dacc[e];
+      for (int w = 0; w < nwin; ++w) acc += dss[w * nn + e];
+      dacc[e] = acc;
+    }
+    __syncthreads();
+
+    // 5. dx = dqkv Wqkv^T to global memory; dqkv and the attention output
+    //    to the workspace
+    project_rows(dqs, L.dq_stride, 3 * C, wqkv_t, C, C, nullptr, dx + (size_t)w0 * N * C, C,
+                 N * C, nwin, N);
+    store_rows(dqs, L.dq_stride, dqkv_out + (size_t)w0 * N * 3 * C, 3 * C, nwin * N);
+    store_rows(xs, L.xs_stride, ao_out + (size_t)w0 * N * C, C, nwin * N);
   }
+  __syncthreads();
+  for (int e = threadIdx.x; e < nn; e += blockDim.x) dbias_part[(size_t)blockIdx.x * nn + e] = dacc[e];
+}
+
+// Weight gradients as split-K products over the B*N rows: block (tile,
+// split) computes one 64x64 tile of
+//   dWqkv = x^T dqkv  [C, 3C]   or   dWproj = ao^T dy  [C, C]
+// over its split's fixed row range, plus (first row tile) the column sums
+// dbqkv / dbproj, and writes them to its split's partial. Each thread holds
+// a 4x4 tile of the output; rows are staged 16 at a time in shared memory.
+// Partial layout per split: [dWqkv C*3C | dbqkv 3C | dWproj C*C | dbproj C].
+__global__ void __launch_bounds__(kThreads)
+wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dqkv,
+             const float* __restrict__ ao, const float* __restrict__ dy, int R, int C,
+             int rows_per_split, float* __restrict__ part, int E) {
+  __shared__ __align__(16) float As[kTileK][kTile];
+  __shared__ __align__(16) float Bs[kTileK][kTile];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int tiles_c = (C + kTile - 1) / kTile;
+  const int tiles_q = tiles_c * ((3 * C + kTile - 1) / kTile);
+  int tile = blockIdx.x;
+  const float* A;
+  const float* Bm;
+  int J;
+  float* out = part + (size_t)blockIdx.y * E;
+  if (tile < tiles_q) {
+    A = x;
+    Bm = dqkv;
+    J = 3 * C;
+  } else {
+    tile -= tiles_q;
+    A = ao;
+    Bm = dy;
+    J = C;
+    out += 3 * C * C + 3 * C;
+  }
+  float* out_b = out + C * J;
+  const int tiles_j = (J + kTile - 1) / kTile;
+  const int c0 = (tile / tiles_j) * kTile;
+  const int j0 = (tile % tiles_j) * kTile;
+  const bool col_sums = c0 == 0;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+
+  float acc[4][4];
+#pragma unroll
+  for (int a = 0; a < 4; ++a)
+#pragma unroll
+    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
+  float bsum = 0.f;
+  const int lr = tid / 16, lc = (tid % 16) * 4;
+  for (int r = r_begin; r < r_end; r += kTileK) {
+    const int rr = r + lr;
+    float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
+    if (rr < r_end) {
+      if (c0 + lc < C) av = *reinterpret_cast<const float4*>(A + (size_t)rr * C + c0 + lc);
+      if (j0 + lc < J) bv = *reinterpret_cast<const float4*>(Bm + (size_t)rr * J + j0 + lc);
+    }
+    *reinterpret_cast<float4*>(&As[lr][lc]) = av;
+    *reinterpret_cast<float4*>(&Bs[lr][lc]) = bv;
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kTileK; ++k) {
+      const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+      const float ar[4] = {a4.x, a4.y, a4.z, a4.w};
+      const float br[4] = {b4.x, b4.y, b4.z, b4.w};
+#pragma unroll
+      for (int a = 0; a < 4; ++a)
+#pragma unroll
+        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
+    }
+    if (col_sums && tid < kTile) {
+#pragma unroll
+      for (int k = 0; k < kTileK; ++k) bsum += Bs[k][tid];
+    }
+    __syncthreads();
+  }
+#pragma unroll
+  for (int a = 0; a < 4; ++a) {
+    const int c = c0 + ty * 4 + a;
+    if (c < C) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = j0 + tx * 4 + b;
+        if (j < J) out[(size_t)c * J + j] = acc[a][b];
+      }
+    }
+  }
+  if (col_sums && tid < kTile && j0 + tid < J) out_b[j0 + tid] = bsum;
+}
+
+// out[e] = sum over s (in order) of part[s][e]: the deterministic second
+// pass of the cross-block reductions.
+__global__ void reduce_partials_kernel(const float* __restrict__ part, int S, int E,
+                                       float* __restrict__ out) {
+  const int e = blockIdx.x * blockDim.x + threadIdx.x;
+  if (e >= E) return;
+  float acc = 0.f;
+  for (int s = 0; s < S; ++s) acc += part[(size_t)s * E + e];
+  out[e] = acc;
+}
+
+// Launch plan of the backward: per-window blocks (a fixed, occupancy-sized
+// grid walking the window chunks) and the weight-gradient splits.
+struct BwdPlan {
+  BwdLayout L;
+  int grid, splits, rows_per_split, wtiles, E;
+  size_t ws_floats;
+  cudaError_t err;
+};
+
+template <bool kDropout>
+cudaError_t bwd_attr(size_t smem, int* blocks_per_sm) {
+  cudaError_t err = cudaFuncSetAttribute(wblock_bwd_kernel<kDropout>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wblock_bwd_kernel<kDropout>,
+                                                       kThreads, smem);
+}
+
+BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
+  BwdPlan P;
+  P.L = bwd_plan_layout(N, C, H);
+  const size_t smem = P.L.total * sizeof(float);
+  int dev = 0, sms = 0, per_sm = 0;
+  P.err = cudaGetDevice(&dev);
+  if (P.err == cudaSuccess) P.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (P.err == cudaSuccess) P.err = dropout ? bwd_attr<true>(smem, &per_sm) : bwd_attr<false>(smem, &per_sm);
+  if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
+  if (P.err != cudaSuccess) return P;
+  const int nchunks = (B + P.L.wpb - 1) / P.L.wpb;
+  P.grid = std::min(nchunks, per_sm * sms);
+  const int R = B * N;
+  const int tiles_c = (C + kTile - 1) / kTile;
+  P.wtiles = tiles_c * ((3 * C + kTile - 1) / kTile) + tiles_c * tiles_c;
+  int splits = (4 * sms + P.wtiles - 1) / P.wtiles;
+  const int max_splits = (R + 63) / 64;
+  splits = std::max(1, std::min(splits, max_splits));
+  int rps = (R + splits - 1) / splits;
+  rps = (rps + kTileK - 1) / kTileK * kTileK;
+  P.rows_per_split = rps;
+  P.splits = (R + rps - 1) / rps;
+  P.E = 4 * C * C + 4 * C;
+  P.ws_floats = (size_t)R * 3 * C + (size_t)R * C + (size_t)P.grid * H * N * N +
+                (size_t)P.splits * P.E;
+  return P;
+}
+
+int check_geometry(int N, int C, int H) {
+  if (N < 1 || N > kMaxN || C < 4 || C % 4 != 0 || H < 1 || C % H != 0) return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 }  // namespace
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success). Pointers are
-// device pointers to contiguous f32 tensors; `mask` may be null (nW ignored).
+// Forward (#1). Launch on `stream`; returns cudaGetLastError() (0 on
+// success). Pointers are device pointers to contiguous f32 tensors; `mask`
+// may be null (nW ignored).
 extern "C" int focal_wblock_fwd(const void* x, const void* wqkv, const void* bqkv,
                                 const void* wproj, const void* bproj,
                                 const void* rel_bias, const void* mask, void* y,
                                 int B, int N, int C, int H, int nW, void* stream) {
-  if (N < 1 || N > kMaxN || C < 4 || C % 4 != 0 || H < 1 || C % H != 0 ||
-      (mask != nullptr && nW < 1))
-    return (int)cudaErrorInvalidValue;
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int wpb = windows_per_block(N, C);
   const size_t smem = smem_bytes(wpb, N, C);
   cudaError_t err = cudaFuncSetAttribute(
-      wblock_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wblock_fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + wpb - 1) / wpb;
-  wblock_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  wblock_fwd_kernel<false><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(wqkv),
       static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
       static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
-      static_cast<const float*>(mask), static_cast<float*>(y), B, N, C, H,
+      static_cast<const float*>(mask), static_cast<float*>(y), nullptr, 0ull, 0u, 1.f, B, N, C,
+      H, mask != nullptr ? nW : 1, wpb);
+  return (int)cudaGetLastError();
+}
+
+// Forward with attention dropout (#2): as focal_wblock_fwd, and each
+// (window, head, query, key) weight is kept iff its Philox word (keyed by
+// `seed`) is >= `threshold`, then scaled by `inv_keep`. The keep mask is
+// written to `keep` as uint8 [B, H, N, N].
+extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const void* bqkv,
+                                        const void* wproj, const void* bproj,
+                                        const void* rel_bias, const void* mask, void* y,
+                                        void* keep, int B, int N, int C, int H, int nW,
+                                        unsigned long long seed, unsigned threshold,
+                                        float inv_keep, void* stream) {
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const int wpb = windows_per_block(N, C);
+  const size_t smem = smem_bytes(wpb, N, C);
+  cudaError_t err = cudaFuncSetAttribute(
+      wblock_fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + wpb - 1) / wpb;
+  wblock_fwd_kernel<true><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float*>(x), static_cast<const float*>(wqkv),
+      static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
+      static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
+      static_cast<const float*>(mask), static_cast<float*>(y),
+      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, B, N, C, H,
       mask != nullptr ? nW : 1, wpb);
+  return (int)cudaGetLastError();
+}
+
+// Workspace the backward needs, in floats, for this geometry on the current
+// device (dqkv and the attention output, the d rel_bias partials and the
+// weight-gradient partials).
+extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
+                                          long long* floats) {
+  if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
+  if (B == 0) {
+    *floats = 0;
+    return 0;
+  }
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  *floats = (long long)P.ws_floats;
+  return 0;
+}
+
+// Backward (#3). Inputs: x, wqkv [C, 3C] and its transpose [3C, C], bqkv,
+// the transpose of wproj [C, C], rel_bias, mask (may be null), dy, keep
+// (uint8 [B, H, N, N] from #2, or null for no dropout) with inv_keep.
+// Outputs: dx [B, N, C]; dweights, flat [dWqkv C*3C | dbqkv 3C | dWproj C*C |
+// dbproj C]; drel_bias [H, N, N]. `ws` holds focal_wblock_bwd_workspace
+// floats. Four launches on `stream`: per-window backward, weight-gradient
+// partials, and the two ordered reductions.
+extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqkv,
+                                const void* wqkv_t, const void* wproj_t, const void* rel_bias,
+                                const void* mask, const void* dy, const void* keep,
+                                float inv_keep, void* dx, void* dweights, void* drel_bias,
+                                void* ws, int B, int N, int C, int H, int nW, void* stream) {
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const bool dropout = keep != nullptr;
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
+  if (P.err != cudaSuccess) return (int)P.err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t R = (size_t)B * N;
+  float* w = static_cast<float*>(ws);
+  float* dqkv = w;
+  float* ao = dqkv + R * 3 * C;
+  float* dbias_part = ao + R * C;
+  float* wpart = dbias_part + (size_t)P.grid * H * N * N;
+  const size_t smem = P.L.total * sizeof(float);
+  const int nw = mask != nullptr ? nW : 1;
+#define FOCAL_BWD_ARGS                                                                        \
+  static_cast<const float*>(x), static_cast<const float*>(wqkv),                              \
+      static_cast<const float*>(bqkv), static_cast<const float*>(wqkv_t),                     \
+      static_cast<const float*>(wproj_t), static_cast<const float*>(rel_bias),                \
+      static_cast<const float*>(mask), static_cast<const float*>(dy),                         \
+      static_cast<const unsigned char*>(keep), inv_keep, static_cast<float*>(dx), dqkv, ao, \
+      dbias_part, B, N, C, H, nw, P.L
+  if (dropout)
+    wblock_bwd_kernel<true><<<P.grid, kThreads, smem, s>>>(FOCAL_BWD_ARGS);
+  else
+    wblock_bwd_kernel<false><<<P.grid, kThreads, smem, s>>>(FOCAL_BWD_ARGS);
+#undef FOCAL_BWD_ARGS
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wgrad_kernel<<<dim3(P.wtiles, P.splits), kThreads, 0, s>>>(
+      static_cast<const float*>(x), dqkv, ao, static_cast<const float*>(dy), (int)R, C,
+      P.rows_per_split, wpart, P.E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials_kernel<<<(P.E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      wpart, P.splits, P.E, static_cast<float*>(dweights));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nn = H * N * N;
+  reduce_partials_kernel<<<(nn + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      dbias_part, P.grid, nn, static_cast<float*>(drel_bias));
   return (int)cudaGetLastError();
 }
 

@@ -1,10 +1,13 @@
-"""Sample files and synthetic data (numpy; same arrays as the JAX package).
+"""Sample files and synthetic data (numpy; same arrays as the JAX package),
+and device-resident datasets for the training step.
 
 Sample schema: each sample file holds
     {"label": int or {task: int}, "data": {loc: {mod: [c, i, s] float32}}}
 as either a torch ``.pt`` or an ``.npz`` with keys ``label.<task>`` /
 ``label`` and ``data.<loc>.<mod>``.
 """
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -87,3 +90,24 @@ def synthetic_arrays(dataset_config, task, num_samples, seed=0, num_seqs=None):
             x += rng.normal(0, 0.3, size=x.shape).astype(np.float32)
             data[loc][mod] = x.reshape(num_samples, c, num_segments, s)
     return data, labels, names
+
+
+def to_device(data, device):
+    """{loc: {mod: numpy}} -> {loc: {mod: tensor on device}}."""
+    return {loc: {m: torch.from_numpy(np.ascontiguousarray(a)).to(device) for m, a in mods.items()}
+            for loc, mods in data.items()}
+
+
+def make_synthetic_dataset(dataset_config, task, num_samples, seed=0, device="cpu"):
+    """Synthetic split resident on ``device``: ``data`` {loc: {mod: [N, c,
+    i, s]}}, ``labels`` [N], ``names``, and ``subseq_idx`` [N / seq_len,
+    seq_len], the sample rows of each temporal subsequence (samples of one
+    recording are stored together, as synthetic_arrays names them)."""
+    data, labels, names = synthetic_arrays(dataset_config, task, num_samples, seed)
+    seq_len = dataset_config.get("seq_len", 4)
+    return SimpleNamespace(
+        data=to_device(data, device),
+        labels=torch.from_numpy(labels).to(device),
+        names=names,
+        subseq_idx=torch.arange(len(names), device=device).reshape(-1, seq_len),
+    )

@@ -1,6 +1,9 @@
-"""SW_Transformer backbone (eval): hierarchical shifted-window attention over
+"""SW_Transformer backbone: hierarchical shifted-window attention over
 time-frequency patches per (loc, mod), with attention fusion over
-modalities. Port of the JAX package's ``models/sw_transformer.py``.
+modalities. Port of the JAX package's ``models/sw_transformer.py``. In
+``train()`` mode the forward takes the step's ``rng`` (``ops.dropout.
+StepRngs``); the pretrain path reads ``head="proj"`` and does not run
+``mod_fusion_layer``.
 
 Input spectra are folded by ``in_stride`` and zero-padded to a
 Swin-divisible size; stages halve the resolution and double the channels.
@@ -94,6 +97,7 @@ class SWTransformer(nn.Module):
                         mlp_ratio=float(config.get("mlp_ratio", 4.0)),
                         qkv_bias=bool(config.get("qkv_bias", True)),
                         drop=config["dropout_ratio"],
+                        attn_drop=config.get("attn_drop_rate", 0.0),
                         drop_path=tuple(dpr[sum(block_num[:i]): sum(block_num[: i + 1])]),
                         downsample=i < len(block_num) - 1,
                     ))
@@ -124,7 +128,7 @@ class SWTransformer(nn.Module):
         pad_w = geo["padded"][1] - geo["img_size"][1]
         return F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
 
-    def encode(self, freq_x):
+    def encode(self, freq_x, rng=None):
         """-> {mod: [b, loc_out_channels]}."""
         loc = self.locations[0]
         mod_features = {}
@@ -135,12 +139,12 @@ class SWTransformer(nn.Module):
             if ape is not None:
                 x = x + ape
             for stage in self.stages(loc, mod):
-                x = stage(x)
+                x = stage(x, rng)
             mod_features[mod] = getattr(self, f"mod_in_layer_{loc}_{mod}")(x.reshape(x.shape[0], -1))
         return mod_features
 
-    def forward(self, freq_x, head="class"):
-        mod_features = self.encode(freq_x)
+    def forward(self, freq_x, head="class", rng=None):
+        mod_features = self.encode(freq_x, rng)
         if head == "feat":
             return mod_features
         proj = {m: getattr(self, f"mod_projector_{m}")(mod_features[m]) for m in self.modalities}
@@ -156,21 +160,25 @@ class SWTransformer(nn.Module):
         raise ValueError(f"Unknown head: {head}")
 
 
+def trunc_normal(shape, std, generator):
+    """flax's truncated normal: N(0, std^2) restricted to [-2 std, 2 std]
+    (resampled, not clipped), on the CPU from ``generator``."""
+    t = torch.empty(shape)
+    return torch.nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+
+
 def init_params(model, seed=0):
     """Seeded init in the flax package's style, drawn from an explicit
-    generator: lecun-normal weights (std 1/sqrt(fan_in), truncated at 2
-    std), zero biases, unit LayerNorm scales, bias tables and position
-    embeddings truncated normal(0.02)."""
+    generator: lecun-normal weights (``nn.initializers.lecun_normal``:
+    truncated normal with std fan_in**-0.5 / 0.8796, so the truncated
+    values have std fan_in**-0.5), zero biases, unit LayerNorm scales, bias
+    tables and position embeddings ``truncated_normal(0.02)``."""
     g = torch.Generator().manual_seed(int(seed))
-
-    def trunc_normal(shape, std):
-        return (torch.randn(shape, generator=g) * std).clamp_(-2 * std, 2 * std)
-
     with torch.no_grad():
         for mod in model.modules():
             if isinstance(mod, nn.Linear):
                 fan_in = mod.weight.shape[1]
-                mod.weight.copy_(trunc_normal(mod.weight.shape, fan_in**-0.5 / 0.87962566))
+                mod.weight.copy_(trunc_normal(mod.weight.shape, fan_in**-0.5 / 0.87962566, g))
                 if mod.bias is not None:
                     mod.bias.zero_()
             elif isinstance(mod, nn.LayerNorm):
@@ -178,5 +186,5 @@ def init_params(model, seed=0):
                 mod.bias.zero_()
         for name, p in model.named_parameters():
             if name.endswith("relative_position_bias_table") or "absolute_pos_embed" in name:
-                p.copy_(trunc_normal(p.shape, 0.02))
+                p.copy_(trunc_normal(p.shape, 0.02, g))
     return model

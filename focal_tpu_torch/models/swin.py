@@ -1,10 +1,15 @@
-"""Shifted-window transformer blocks (eval).
+"""Shifted-window transformer blocks.
 
 Port of the JAX package's ``models/swin.py``. Geometry (padded sizes,
 window shrink, shift sizes, SW-MSA masks, relative position indices) is
 resolved to constants when a block is built. Window attention goes through
-the whole-block kernel ``ops.pallas_kernels.fused_window_block``, with the
-q scale folded into the qkv weights as the JAX path does.
+the whole-block kernels with the q scale folded into the qkv weights, as the
+JAX path does: ``fused_window_block`` (#1) in eval, ``window_block`` (#2 or
+#1 forward, #3 backward) in training.
+
+In training every module takes ``rng``, the step's ``ops.dropout.StepRngs``:
+one kernel seed per block from its host generator, DropPath and the other
+dropouts from its device generator.
 
 Parameter names follow the flax tree (``norm1``, ``attn.qkv``, ``mlp.Dense_0``,
 ``downsample.reduction`` ...) so a reader can map one to the other; weights
@@ -16,7 +21,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from focal_tpu_torch.ops.pallas_kernels import fused_window_block
+from focal_tpu_torch.ops.dropout import remat_dropout
+from focal_tpu_torch.ops.pallas_kernels import fused_window_block, window_block
 
 
 def window_partition(x, wh, ww):
@@ -79,14 +85,23 @@ def block_geometry(input_resolution, window_size, shift_size):
     return wh, ww, sh, sw, min(sh, sw) > 0
 
 
-class WindowAttention(nn.Module):
-    """W-MSA with relative position bias, through the whole-block kernel."""
+def _needs_rng(rng, what):
+    if rng is None:
+        raise ValueError(f"{what} in training needs the step's rng (ops.dropout.StepRngs)")
+    return rng
 
-    def __init__(self, dim, window_size, num_heads, qkv_bias=True):
+
+class WindowAttention(nn.Module):
+    """W-MSA with relative position bias, through the whole-block kernels;
+    attention dropout in the kernel, ``proj_drop`` on its output."""
+
+    def __init__(self, dim, window_size, num_heads, qkv_bias=True, attn_drop=0.0, proj_drop=0.0):
         super().__init__()
         self.dim = dim
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
+        self.attn_drop = float(attn_drop)
+        self.proj_drop = float(proj_drop)
         wh, ww = self.window_size
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)  # columns part|head|dim
         self.proj = nn.Linear(dim, dim)
@@ -100,25 +115,33 @@ class WindowAttention(nn.Module):
         )
         self._kernel_key = None  # (data_ptr, _version) of each parameter when folded
 
-    def kernel_args(self):
-        """(wqkv [C, 3C] with the q scale folded in, bqkv, wproj [C, C],
-        bproj, rel_bias [H, N, N]) as the kernel takes them."""
+    def _fold(self):
+        """(wqkv_t [3C, C] with the q scale folded in, bqkv, wproj_t [C, C],
+        bproj, rel_bias [H, N, N]): the weights in nn.Linear's [out, in]
+        layout, the transpose of what the kernels take."""
         C, H = self.dim, self.num_heads
         N = self.window_size[0] * self.window_size[1]
         scale = (C // H) ** -0.5
         dev = self.qkv.weight.device
         scale_vec = torch.cat([torch.full((C,), scale, device=dev), torch.ones(2 * C, device=dev)])
-        wqkv = (self.qkv.weight.t() * scale_vec).contiguous()
+        wqkv_t = self.qkv.weight * scale_vec[:, None]
         bqkv = self.qkv.bias if self.qkv.bias is not None else torch.zeros(3 * C, device=dev)
         bqkv = (bqkv * scale_vec).contiguous()
         bias = self.relative_position_bias_table[self.relative_position_index]
         rel_bias = bias.reshape(N, N, H).permute(2, 0, 1).contiguous()
-        return wqkv, bqkv, self.proj.weight.t().contiguous(), self.proj.bias, rel_bias
+        return wqkv_t, bqkv, self.proj.weight, self.proj.bias, rel_bias
+
+    def kernel_args(self):
+        """(wqkv [C, 3C] with the q scale folded in, bqkv, wproj [C, C],
+        bproj, rel_bias [H, N, N]) as the kernel takes them."""
+        wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
+        return wqkv_t.t().contiguous(), bqkv, wproj_t.t().contiguous(), bproj, rel_bias
 
     def folded_kernel_args(self):
         """kernel_args(), folded once and reused until a parameter is replaced
         (load_state_dict, .to()) or written in place: a served model pays
-        for the folding on its first batch only."""
+        for the folding on its first batch only. Eval only: the fold carries
+        no gradient."""
         key = [(p.data_ptr(), p._version) for p in self.parameters()]
         if key != self._kernel_key:
             with torch.no_grad():
@@ -127,48 +150,64 @@ class WindowAttention(nn.Module):
             self._kernel_key, self._kernel_src = key, [p.detach() for p in self.parameters()]
         return self._kernel_args
 
-    def forward(self, x, mask=None):
-        if self.training:
-            raise NotImplementedError(
-                "WindowAttention is eval-only in the port: the backward and dropout "
-                "kernels come with the training slice (ROADMAP A2)"
-            )
-        return fused_window_block(x.contiguous(), *self.folded_kernel_args(), mask)
+    def forward(self, x, mask=None, rng=None):
+        if not self.training:
+            return fused_window_block(x.contiguous(), *self.folded_kernel_args(), mask)
+        # training folds with grad, so the weights' gradients flow back
+        # through the q scale, the transposes and the bias-table gather
+        seed = _needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
+        wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
+        out = window_block(x.contiguous(), wqkv_t.t().contiguous(), bqkv, wproj_t.t().contiguous(),
+                           bproj, rel_bias, mask, seed, self.attn_drop,
+                           wqkv_t=wqkv_t, wproj_t=wproj_t)
+        if self.proj_drop > 0.0:
+            out = remat_dropout(out, self.proj_drop, _needs_rng(rng, "proj_drop").device)
+        return out
 
 
 class DropPath(nn.Module):
-    """Per-sample stochastic depth; identity in eval. The training form (a
-    seeded torch.Generator per step) comes with the training slice."""
+    """Per-sample stochastic depth (timm DropPath): in training each sample
+    is kept with probability 1 - rate and scaled by 1 / keep; identity in
+    eval."""
 
     def __init__(self, rate=0.0):
         super().__init__()
         self.rate = float(rate)
 
-    def forward(self, x):
-        if self.training and self.rate > 0.0:
-            raise NotImplementedError("DropPath is eval-only in the port: ROADMAP A2")
-        return x
+    def forward(self, x, rng=None):
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        gen = _needs_rng(rng, "DropPath").device
+        kept = torch.rand(x.shape[0], generator=gen, device=x.device) < keep
+        return torch.where(kept.view((-1,) + (1,) * (x.dim() - 1)), x / keep, 0.0)
 
 
 class Mlp(nn.Module):
-    """fc -> exact-erf GELU -> drop -> fc -> drop."""
+    """fc -> exact-erf GELU -> drop -> fc -> drop, the dropouts by
+    ``ops.dropout.remat_dropout``."""
 
     def __init__(self, dim, hidden, out, drop=0.0):
         super().__init__()
         self.Dense_0 = nn.Linear(dim, hidden)
         self.Dense_1 = nn.Linear(hidden, out)
-        self.drop = nn.Dropout(drop)
+        self.drop = float(drop)
 
-    def forward(self, x):
-        x = self.drop(F.gelu(self.Dense_0(x), approximate="none"))
-        return self.drop(self.Dense_1(x))
+    def _drop(self, x, rng):
+        if not self.training or self.drop == 0.0:
+            return x
+        return remat_dropout(x, self.drop, _needs_rng(rng, "Mlp dropout").device)
+
+    def forward(self, x, rng=None):
+        x = self._drop(F.gelu(self.Dense_0(x), approximate="none"), rng)
+        return self._drop(self.Dense_1(x), rng)
 
 
 class SwinBlock(nn.Module):
     """One (S)W-MSA + MLP block."""
 
     def __init__(self, dim, input_resolution, num_heads, window_size, shift_size,
-                 mlp_ratio=4.0, qkv_bias=True, drop=0.0, drop_path=0.0):
+                 mlp_ratio=4.0, qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=0.0):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         H, W = self.input_resolution
@@ -181,13 +220,14 @@ class SwinBlock(nn.Module):
         )
         self.register_buffer("attn_mask", mask, persistent=False)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = WindowAttention(dim, (self.wh, self.ww), num_heads, qkv_bias)
+        self.attn = WindowAttention(dim, (self.wh, self.ww), num_heads, qkv_bias,
+                                    attn_drop=attn_drop, proj_drop=drop)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
         self.drop_path2 = DropPath(drop_path)
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         H, W = self.input_resolution
         B, L, C = x.shape
         shortcut = x
@@ -195,11 +235,11 @@ class SwinBlock(nn.Module):
         if self.shifted:
             x = torch.roll(x, shifts=(-self.sh, -self.sw), dims=(1, 2))
         windows = window_partition(x, self.wh, self.ww)
-        x = window_reverse(self.attn(windows, self.attn_mask), self.wh, self.ww, H, W)
+        x = window_reverse(self.attn(windows, self.attn_mask, rng), self.wh, self.ww, H, W)
         if self.shifted:
             x = torch.roll(x, shifts=(self.sh, self.sw), dims=(1, 2))
-        x = shortcut + self.drop_path1(x.reshape(B, L, C))
-        return x + self.drop_path2(self.mlp(self.norm2(x)))
+        x = shortcut + self.drop_path1(x.reshape(B, L, C), rng)
+        return x + self.drop_path2(self.mlp(self.norm2(x), rng), rng)
 
 
 class PatchMerging(nn.Module):
@@ -227,7 +267,7 @@ class BasicLayer(nn.Module):
     Blocks are registered as ``block{i}``, as the flax tree names them."""
 
     def __init__(self, dim, input_resolution, depth, num_heads, window_size, mlp_ratio=4.0,
-                 qkv_bias=True, drop=0.0, drop_path=(0.0,), downsample=False):
+                 qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=(0.0,), downsample=False):
         super().__init__()
         self.depth = depth
         for i in range(depth):
@@ -235,16 +275,17 @@ class BasicLayer(nn.Module):
             dp = drop_path[i] if i < len(drop_path) else drop_path[-1]
             self.add_module(f"block{i}", SwinBlock(
                 dim, input_resolution, num_heads, window_size, shift,
-                mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, drop=drop, drop_path=dp,
+                mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, drop=drop, attn_drop=attn_drop,
+                drop_path=dp,
             ))
         self.downsample = PatchMerging(input_resolution, dim) if downsample else None
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         for blk in self.blocks():
-            x = blk(x)
+            x = blk(x, rng)
         if self.downsample is not None:
             x = self.downsample(x)
         return x

@@ -1,0 +1,48 @@
+"""Dropout of the training path, on explicit generators.
+
+Port of the JAX package's ``ops/dropout.py::remat_dropout``: the mask is an
+8-bit threshold compare, so the drop probability is quantized to t/256 with
+t = round(rate * 256) (clamped to 1..255), and survivors are scaled by the
+REALIZED keep probability, 256 / (256 - t), so E[output] == input exactly.
+The JAX version regenerates its mask from the key in the backward; here
+autograd saves the boolean mask (one byte per element) instead.
+
+It serves the attention output's ``proj_drop`` and the two MLP dropouts.
+Attention dropout itself is in-kernel (``ops.pallas_kernels.window_block``).
+"""
+
+import torch
+
+
+def _threshold(rate):
+    """Quantized u8 drop threshold: drop iff bits < t, P(drop) = t/256."""
+    return max(1, min(255, round(rate * 256.0)))
+
+
+def keep_scale(rate):
+    """Inverse of the realized keep probability."""
+    return 256.0 / (256 - _threshold(rate))
+
+
+def remat_dropout(x, rate, generator):
+    """Inverted dropout: zero with probability ``rate`` (quantized to
+    1/256ths), scale survivors by 1/keep. ``generator`` lives on x's device.
+    Callers gate rate == 0 and eval mode themselves (identity there)."""
+    bits = torch.empty(x.shape, dtype=torch.uint8, device=x.device).random_(0, 256,
+                                                                          generator=generator)
+    return torch.where(bits >= _threshold(rate), x * keep_scale(rate), 0.0)
+
+
+class StepRngs:
+    """The randomness of one training step: ``host``, a CPU generator for
+    scalar draws (augmenter choices, gates, kernel seeds), and ``device``, a
+    generator on the model's device for masks."""
+
+    def __init__(self, host, device):
+        self.host = host
+        self.device = device
+
+    def seed(self):
+        """A fresh 31-bit seed from the host generator (one per dropout
+        kernel launch, as the JAX package draws one per block)."""
+        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))

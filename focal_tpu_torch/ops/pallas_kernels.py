@@ -7,6 +7,13 @@ reader looks for its TPU counterpart. Every kernel has beside it:
   * a launch count on the wrapper (``fused_window_block.launches``), raised
     by one each time the kernel itself is launched.
 A CUDA tensor goes to the kernel or the wrapper raises; there is no fallback.
+
+Kernels (all in ``csrc/window_block.cu``):
+  #1 ``fused_window_block``: whole-block window attention, forward;
+  #2 ``fused_window_block_dropout``: #1 with attention dropout, returning
+     its uint8 keep mask [B_, H, N, N];
+  #3 ``fused_window_block_backward``: the VJP of #1 and #2.
+``window_block`` makes the #2/#3 pair (or #1/#3 at rate 0) differentiable.
 """
 
 import ctypes
@@ -19,10 +26,19 @@ _WINDOW_BLOCK_SRC = "window_block.cu"
 _MAX_N = 16  # kMaxN in csrc/window_block.cu
 
 
-def fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
+def _keep_threshold(rate):
+    """u32 drop threshold: keep iff bits >= rate * 2**32, as the TPU kernel's
+    ``jnp.uint32(rate * 4294967296.0)``."""
+    return min(int(rate * 4294967296.0), 2**32 - 1)
+
+
+def fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None,
+                                 keep=None, rate=0.0):
     """Plain PyTorch whole-block window attention (the math of the JAX
     package's ``_xla_attention`` with the bias and shift mask summed as
-    ``expand_bias_lanes`` does). Window w takes mask[w % nW]."""
+    ``expand_bias_lanes`` does). Window w takes mask[w % nW]. With ``keep``
+    (uint8 [B_, H, N, N]) the attention weights are dropped where keep is 0
+    and scaled by 1 / (1 - rate) where it is 1."""
     B, N, C = x.shape
     H = rel_bias.shape[0]
     hd = C // H
@@ -34,13 +50,41 @@ def fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=Non
         idx = torch.arange(B, device=x.device) % mask.shape[0]
         scores = scores + mask[idx][:, None]
     attn = torch.softmax(scores, dim=-1)
+    if keep is not None:
+        attn = torch.where(keep.bool(), attn * (1.0 / (1.0 - rate)), 0.0)
     out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, C)
     return torch.matmul(out, wproj) + bproj
 
 
-def _check(name, t, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"fused_window_block: {name} must be float32, got {t.dtype}")
+def draw_keep_mask(seed, shape, rate, device):
+    """The plain version's keep mask: uint8, 1 with probability 1 - rate,
+    from torch's generator seeded with ``seed`` (the kernel draws Philox bits
+    instead; the two agree in distribution, not bit for bit)."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    bits = torch.randint(0, 2**32, shape, generator=gen, device=device, dtype=torch.int64)
+    return (bits >= _keep_threshold(rate)).to(torch.uint8)
+
+
+def fused_window_block_dropout_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
+                                         rate):
+    """Plain version of #2, given its keep mask."""
+    return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, rate)
+
+
+def fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+                                          keep=None, rate=0.0):
+    """Plain version of #3: autograd through fused_window_block_reference
+    with the keep mask applied. Returns (dx, dwqkv, dbqkv, dwproj, dbproj,
+    drel_bias)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, wqkv, bqkv, wproj, bproj, rel_bias)]
+        y = fused_window_block_reference(*leaves, mask, keep, rate)
+        return torch.autograd.grad(y, leaves, dy)
+
+
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"fused_window_block: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"fused_window_block: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
@@ -49,22 +93,8 @@ def _check(name, t, shape, device):
         raise ValueError(f"fused_window_block: {name} must be contiguous")
 
 
-def fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
-    """proj(softmax(q k^T + rel_bias + mask) v) over windows, with the qkv
-    projection, attention and output projection fused in one kernel.
-
-    x: [B_, N, C] f32; wqkv: [C, 3C] (column order part|head|dim, q columns
-    pre-scaled by hd**-0.5); bqkv: [3C]; wproj: [C, C]; bproj: [C];
-    rel_bias: [H, N, N]; mask: [nW, N, N] or None (window w takes
-    mask[w % nW], windows sample-major as window_partition emits them).
-    Returns [B_, N, C] f32.
-
-    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block (forward,
-    seed=None). CPU tensors take the plain version; CUDA tensors launch
-    csrc/window_block.cu.
-    """
-    if x.device.type == "cpu":
-        return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask):
+    """Validate the CUDA path's inputs; returns (B, N, C, H, nW)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_window_block: unsupported device {x.device}")
     if x.dim() != 3:
@@ -86,19 +116,44 @@ def fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
         _check("mask", mask, (nW, N, N), dev)
     if x.data_ptr() % 16:
         raise ValueError("fused_window_block: x must be 16-byte aligned")
-    y = torch.empty_like(x)
-    lib = _window_block_lib()
+    return B, N, C, H, nW
+
+
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _launch(name, fn, dev, *args):
+    """Run one C entry point on the current stream of ``dev``; raise on error."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.focal_wblock_fwd(
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(),
-            bproj.data_ptr(), rel_bias.data_ptr(),
-            None if mask is None else mask.data_ptr(), y.data_ptr(),
-            B, N, C, H, nW, stream,
-        )
+        err = fn(*args, stream)
     if err != 0:
-        msg = lib.focal_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_window_block launch failed ({err}): {msg}")
+        msg = _window_block_lib().focal_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name} launch failed ({err}): {msg}")
+
+
+def fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
+    """proj(softmax(q k^T + rel_bias + mask) v) over windows, with the qkv
+    projection, attention and output projection fused in one kernel (#1).
+
+    x: [B_, N, C] f32; wqkv: [C, 3C] (column order part|head|dim, q columns
+    pre-scaled by hd**-0.5); bqkv: [3C]; wproj: [C, C]; bproj: [C];
+    rel_bias: [H, N, N]; mask: [nW, N, N] or None (window w takes
+    mask[w % nW], windows sample-major as window_partition emits them).
+    Returns [B_, N, C] f32.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block (forward,
+    seed=None). CPU tensors take the plain version; CUDA tensors launch
+    csrc/window_block.cu.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    y = torch.empty_like(x)
+    _launch("fused_window_block", _window_block_lib().focal_wblock_fwd, x.device,
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), B, N, C, H, nW)
     fused_window_block.launches += 1
     return y
 
@@ -106,13 +161,164 @@ def fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
 fused_window_block.launches = 0
 
 
+def fused_window_block_dropout(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate):
+    """#1 with attention dropout (#2): each (window, head, query, key)
+    weight is kept with probability 1 - rate (a u32 threshold of
+    rate * 2**32, as the TPU kernel draws it) and scaled by 1 / (1 - rate).
+    ``seed`` (an int) keys the kernel's Philox generator, counted by
+    (window, head, row): the same seed gives the same mask.
+
+    Returns (y [B_, N, C] f32, keep uint8 [B_, H, N, N]); the backward (#3)
+    takes the keep mask back, as the TPU kernel stores its own.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block_dropout
+    (_wblock_fwd_impl with rate > 0). On the CPU the keep mask comes from
+    draw_keep_mask and y from the plain version.
+    """
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"fused_window_block_dropout: rate must be in (0, 1), got {rate}")
+    if x.device.type == "cpu":
+        B, N, _ = x.shape
+        keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+        y = fused_window_block_dropout_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                                 keep, rate)
+        return y, keep
+    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    y = torch.empty_like(x)
+    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device)
+    _launch("fused_window_block_dropout", _window_block_lib().focal_wblock_fwd_dropout, x.device,
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), keep.data_ptr(), B, N, C, H, nW,
+            int(seed) % 2**64, _keep_threshold(rate), 1.0 / (1.0 - rate))
+    fused_window_block_dropout.launches += 1
+    return y, keep
+
+
+fused_window_block_dropout.launches = 0
+
+
+def fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep=None,
+                                rate=0.0, wqkv_t=None, wproj_t=None):
+    """VJP of #1 (keep None) or #2 (its keep mask and rate) (#3): recomputes
+    qkv and the softmax from x, as the TPU kernel does, and returns
+    (dx [B_, N, C], dwqkv [C, 3C], dbqkv [3C], dwproj [C, C], dbproj [C],
+    drel_bias [H, N, N]). The weight and bias-table gradients are sums over
+    every window, taken in a fixed order: two calls give the same bits.
+
+    The kernel reads wqkv and wproj transposed as well (dx and d(attention
+    output) are products with them). ``wqkv_t`` [3C, C] and ``wproj_t``
+    [C, C] pass those in, as nn.Linear stores its weights; without them the
+    wrapper makes a transposed copy of each.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_bwd_impl
+    (_wblock_bwd_kernel). CPU tensors take the plain version.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                                     dy, keep, rate)
+    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    dev = x.device
+    _check("dy", dy, (B, N, C), dev)
+    if keep is not None:
+        if not 0.0 < rate < 1.0:
+            raise ValueError(f"fused_window_block_backward: rate must be in (0, 1), got {rate}")
+        _check("keep", keep, (B, H, N, N), dev, torch.uint8)
+    lib = _window_block_lib()
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = lib.focal_wblock_bwd_workspace(B, N, C, H, int(keep is not None), ctypes.byref(floats))
+    if err != 0:
+        msg = lib.focal_cuda_error_string(err).decode()
+        raise RuntimeError(f"fused_window_block_backward: no launch plan ({err}): {msg}")
+    ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
+    drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
+    if wqkv_t is None:
+        wqkv_t = wqkv.t().contiguous()
+    if wproj_t is None:
+        wproj_t = wproj.t().contiguous()
+    _check("wqkv_t", wqkv_t, (3 * C, C), dev)
+    _check("wproj_t", wproj_t, (C, C), dev)
+    inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
+    _launch("fused_window_block_backward", lib.focal_wblock_bwd, dev,
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wqkv_t.data_ptr(), wproj_t.data_ptr(),
+            rel_bias.data_ptr(), _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep,
+            dx.data_ptr(), dweights.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(),
+            B, N, C, H, nW)
+    fused_window_block_backward.launches += 1
+    q = 3 * C * C
+    dwqkv = dweights[:q].view(C, 3 * C)
+    dbqkv = dweights[q:q + 3 * C]
+    dwproj = dweights[q + 3 * C:q + 3 * C + C * C].view(C, C)
+    dbproj = dweights[q + 3 * C + C * C:]
+    return dx, dwqkv, dbqkv, dwproj, dbproj, drel_bias
+
+
+fused_window_block_backward.launches = 0
+
+
+class _WindowBlock(torch.autograd.Function):
+    """#2 (or #1 at rate 0) forward, #3 backward, with the keep mask as the
+    saved residual."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, wqkv_t, wproj_t):
+        keep = None
+        if rate > 0.0:
+            y, keep = fused_window_block_dropout(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                                 seed, rate)
+        else:
+            y = fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, wqkv_t, wproj_t)
+        ctx.rate = rate
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, wqkv_t, wproj_t = ctx.saved_tensors
+        grads = fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                            dy.contiguous(), keep, ctx.rate, wqkv_t, wproj_t)
+        # wqkv_t and wproj_t are wqkv and wproj in another layout: their
+        # gradient reaches the parameters through wqkv and wproj
+        return (*grads, None, None, None, None, None)
+
+
+def window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=0.0,
+                 wqkv_t=None, wproj_t=None):
+    """Differentiable whole-block window attention for training: forward by
+    #2 (rate > 0) or #1, backward by #3, gradients in x, wqkv, bqkv, wproj,
+    bproj and rel_bias. ``wqkv_t`` and ``wproj_t``, when given, are the same
+    weights transposed, which #3 reads (see fused_window_block_backward)."""
+    return _WindowBlock.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, float(rate),
+                              wqkv_t, wproj_t)
+
+
+def window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=0.0,
+                           wqkv_t=None, wproj_t=None):
+    """Plain version of window_block on any device: the keep mask from
+    draw_keep_mask, autograd through fused_window_block_reference. It takes
+    window_block's arguments so that it can stand in for it; the
+    transposed weights go unread."""
+    keep = None
+    if rate > 0.0:
+        B, N, _ = x.shape
+        keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+    return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, rate)
+
+
 def _window_block_lib():
     lib = _build.load(_WINDOW_BLOCK_SRC)
-    fn = lib.focal_wblock_fwd
-    if fn.argtypes is None:
-        p = ctypes.c_void_p
-        fn.argtypes = [p] * 8 + [ctypes.c_int] * 5 + [p]
-        fn.restype = ctypes.c_int
+    if lib.focal_wblock_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.focal_wblock_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.focal_wblock_fwd_dropout.argtypes = (
+            [p] * 9 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
+        lib.focal_wblock_bwd_workspace.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
+        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_dropout,
+                   lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd):
+            fn.restype = ctypes.c_int
         lib.focal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.focal_cuda_error_string.restype = ctypes.c_char_p
     return lib

@@ -1,4 +1,5 @@
-"""Recipe loading, device selection and the serving CLI's arguments.
+"""Recipe loading, device selection, and the arguments of serving and of
+the training step.
 
 A dataset's recipe is ``focal_tpu_torch/configs/{dataset}.yaml``, the
 package's own copy of the JAX package's recipe; nothing else is searched.
@@ -99,4 +100,34 @@ def parse_predict_params(argv=None):
     args.train_mode = get_train_mode(args.learn_framework)
     if args.batch_size is None:
         args.batch_size = 128
+    return args
+
+
+def build_train_parser():
+    """The JAX CLI's flags that the pretrain step reads, spelled the same
+    (the epoch loop and its flags come with ROADMAP A3)."""
+    parser = argparse.ArgumentParser(description="FOCAL (PyTorch/CUDA) training")
+    parser.add_argument("-dataset", type=str, default="MOD", help="Dataset recipe name.")
+    parser.add_argument("-model", type=str, default="SW_Transformer", help="Backbone.")
+    parser.add_argument("-task", type=str, default=None, help="Downstream task.")
+    parser.add_argument("-learn_framework", type=str, default="FOCAL", help="FOCAL | no.")
+    parser.add_argument("-stage", type=str, default="pretrain", help="pretrain (ported) | finetune.")
+    parser.add_argument("-tag", type=str, default=None, help="Run tag; noPrivate changes the loss.")
+    parser.add_argument("-batch_size", type=int, default=None,
+                        help="Global batch (256 in pretrain, else 128).")
+    parser.add_argument("-clip_grad", action="store_true",
+                        help="Apply the recipe's clip_grad value (off by default, as in the JAX CLI).")
+    return parser
+
+
+def parse_train_params(argv=None):
+    """Parse training flags and fill the derived fields (recipe, task,
+    train_mode, batch_size)."""
+    args = build_train_parser().parse_args(argv)
+    args.dataset_config = load_dataset_config(args.dataset)
+    if args.task is None:
+        args.task = default_task(args.dataset, args.dataset_config)
+    args.train_mode = get_train_mode(args.learn_framework)
+    if args.batch_size is None:
+        args.batch_size = 256 if args.stage == "pretrain" else 128
     return args

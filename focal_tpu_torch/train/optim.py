@@ -1,0 +1,133 @@
+"""Optimizers and learning-rate schedules (port of the JAX package's
+``train/optim.py``).
+
+Schedules are timm's epoch-granular cosine (warmup prefix, one cycle) and
+step decay, as pure ``lr(epoch)`` functions; the step at update k uses
+lr(floor(k / steps_per_epoch)), as the JAX package maps them onto optax.
+Adam puts weight decay into the gradient (L2, torch ``Adam``); AdamW
+decouples it (torch ``AdamW``). Gradients are clipped to the recipe's
+``clip_grad`` global norm only when the run asks for it (``-clip_grad``).
+Frozen parameters are left out of the optimizer: no update, no decay.
+"""
+
+import math
+
+import torch
+
+
+def make_epoch_schedule(scheduler_config, optimizer_config):
+    """Return a pure lr(epoch) -> float with timm semantics."""
+    name = scheduler_config["name"]
+    base_lr = float(optimizer_config["start_lr"])
+    warmup_lr = float(optimizer_config.get("warmup_lr", 0.0))
+    min_lr = float(optimizer_config.get("min_lr", 0.0))
+    warmup_t = int(scheduler_config.get("warmup_epochs", 0))
+    warmup_prefix = bool(scheduler_config.get("warmup_prefix", False))
+    train_epochs = int(scheduler_config["train_epochs"])
+
+    def warm(epoch):
+        return warmup_lr + epoch * ((base_lr - warmup_lr) / max(warmup_t, 1))
+
+    if name == "cosine":
+        t_initial = train_epochs - warmup_t if warmup_prefix else train_epochs
+
+        def lr(epoch):
+            if epoch < warmup_t:
+                return warm(epoch)
+            t = epoch - warmup_t if warmup_prefix else epoch
+            if t >= t_initial:
+                return min_lr
+            return min_lr + 0.5 * (base_lr - min_lr) * (1.0 + math.cos(math.pi * t / t_initial))
+
+        return lr
+
+    if name == "step":
+        decay_t = int(scheduler_config["decay_epochs"])
+        decay_rate = float(scheduler_config["decay_rate"])
+
+        def lr(epoch):
+            if epoch < warmup_t:
+                return warm(epoch)
+            return base_lr * decay_rate ** math.floor(epoch / decay_t)
+
+        return lr
+
+    raise ValueError(f"Unknown LR scheduler: {name}")
+
+
+def trainable_mask(model):
+    """{parameter name: trainable}: pretraining freezes every
+    ``patch_embed`` parameter."""
+    return {name: "patch_embed" not in name for name, _ in model.named_parameters()}
+
+
+class StepOptimizer:
+    """A torch optimizer over the trainable parameters with the run's
+    schedule and optional clipping. ``step(k)`` applies update k (0-based)
+    from the parameters' ``.grad``."""
+
+    def __init__(self, optimizer, params, lr_epoch, steps_per_epoch, clip=None):
+        self.optimizer = optimizer
+        self.params = params
+        self.lr_epoch = lr_epoch
+        self.steps_per_epoch = steps_per_epoch
+        self.clip = clip
+
+    def lr(self, k):
+        return self.lr_epoch(math.floor(k / self.steps_per_epoch))
+
+    def zero_grad(self):
+        self.optimizer.zero_grad(set_to_none=True)
+
+    def step(self, k):
+        for group in self.optimizer.param_groups:
+            group["lr"] = self.lr(k)
+        if self.clip:
+            clip_by_global_norm([p.grad for p in self.params if p.grad is not None], self.clip)
+        self.optimizer.step()
+
+
+def clip_by_global_norm(grads, max_norm):
+    """optax.clip_by_global_norm in place: g * max_norm / norm when the
+    global norm reaches max_norm. Stays on the device (no host sync)."""
+    if not grads:
+        return
+    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
+    for g in grads:
+        g.mul_(scale)
+
+
+def build_optimizer(args, model, steps_per_epoch):
+    """(StepOptimizer over the trainable parameters, lr(epoch)) from the
+    framework's pretrain recipe. Frozen parameters (``trainable_mask``) get
+    requires_grad False here."""
+    if args.train_mode == "supervised" or args.stage != "pretrain":
+        raise NotImplementedError("only contrastive pretraining is ported: ROADMAP A3/A4")
+    section = args.dataset_config[args.learn_framework]
+    optimizer_config = section["pretrain_optimizer"]
+    scheduler_config = section["pretrain_lr_scheduler"]
+    lr_epoch = make_epoch_schedule(scheduler_config, optimizer_config)
+    wd = optimizer_config.get("weight_decay", 0.0)
+    if isinstance(wd, dict):
+        wd = wd[args.model]
+    wd = float(wd)
+
+    mask = trainable_mask(model)
+    params = []
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+        if mask[name]:
+            params.append(p)
+    name = optimizer_config["name"]
+    lr0 = lr_epoch(0)
+    if name == "Adam":
+        opt = torch.optim.Adam(params, lr=lr0, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+    elif name == "AdamW":
+        opt = torch.optim.AdamW(params, lr=lr0, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+    else:
+        raise NotImplementedError(f"Optimizer {name} not implemented.")
+    clip = None
+    if args.clip_grad and optimizer_config.get("clip_grad"):
+        clip = float(optimizer_config["clip_grad"])
+    return StepOptimizer(opt, params, lr_epoch, steps_per_epoch, clip), lr_epoch

@@ -1,0 +1,51 @@
+"""Training steps (port of the JAX package's ``train/steps.py``).
+
+A step gathers its batch from data already resident on the device (``idx``
+selects the rows, as the JAX package's jitted steps do), draws two
+augmented views, runs the model, the loss and the update, and returns its
+metrics as device tensors: nothing in the step waits for the device.
+"""
+
+import torch
+
+
+def gather_batch(data, idx):
+    """{loc: {mod: [N, ...]}} -> the rows idx, on the data's device."""
+    return {loc: {m: a.index_select(0, idx) for m, a in mods.items()} for loc, mods in data.items()}
+
+
+def make_pretrain_step(model, augmenter, focal_loss, fused_views=True):
+    """FOCAL pretraining: two random views -> projector features -> loss ->
+    update. Returns step(state, data, idx) -> (state, metrics) with metrics
+    {"loss", "shared", "private", "orthogonality", "ranking"}; the state is
+    updated in place and the gradients of the update stay in ``.grad``.
+
+    fused_views runs both views through the backbone as ONE [2B] batch (the
+    JAX package's default); otherwise as two forwards."""
+
+    def step(state, data, idx):
+        rngs = state.generators()
+        batch = gather_batch(data, idx)
+        view1 = augmenter.random(rngs.host, batch)
+        view2 = augmenter.random(rngs.host, batch)
+        model.train()
+        if fused_views:
+            b = idx.shape[0]
+            both = {
+                loc: {m: torch.cat([a, view2[loc][m]], dim=0) for m, a in mods.items()}
+                for loc, mods in view1.items()
+            }
+            feats = model(both, head="proj", rng=rngs)
+            f1 = {m: v[:b] for m, v in feats.items()}
+            f2 = {m: v[b:] for m, v in feats.items()}
+        else:
+            f1 = model(view1, head="proj", rng=rngs)
+            f2 = model(view2, head="proj", rng=rngs)
+        loss, parts = focal_loss(f1, f2)
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step(state.step)
+        state.step += 1
+        return state, {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+    return step

@@ -68,3 +68,116 @@ def test_kernel_wrapper_raises_on_cuda_input_it_cannot_take():
         fused_window_block(args[0], args[1][:, :96].contiguous(), *args[2:])
     with pytest.raises(ValueError):  # N above the kernel's register tile
         fused_window_block(*_args(np.random.default_rng(1), 2, 17, 64, 4, 0, dev))
+
+
+# ---------------------------------------------------------------------------
+# training kernels: #2 (forward with attention dropout) and #3 (backward).
+# #2 against the plain forward fed #2's own keep mask (1e-4 absolute, as
+# #1); #3 against autograd of the plain version with the same mask as
+# max|kernel - plain| / max|plain| <= 1e-4 per gradient (long f32 sums over
+# every window, so the bound is relative).
+
+def _rel(a, b):
+    return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,C,H,nW", [
+    (512, 9, 64, 4, 64), (509, 9, 128, 4, 16), (511, 9, 256, 4, 0), (37, 4, 32, 2, 3),
+])
+def test_dropout_forward_matches_plain_given_its_mask(B, N, C, H, nW):
+    from focal_tpu_torch.ops.pallas_kernels import (
+        fused_window_block_dropout, fused_window_block_dropout_reference)
+
+    dev = _card()
+    args = _args(np.random.default_rng(B + C), B, N, C, H, nW, dev)
+    rate = 0.2
+    before = fused_window_block_dropout.launches
+    y, keep = fused_window_block_dropout(*args, seed=1234, rate=rate)
+    torch.cuda.synchronize()
+    assert fused_window_block_dropout.launches == before + 1
+    assert keep.dtype == torch.uint8 and keep.shape == (B, H, N, N)
+    assert int(keep.max()) <= 1
+    ref = fused_window_block_dropout_reference(*args, keep, rate)
+    assert float((y - ref).abs().max()) <= 1e-4
+    # keep rate within 5 sigma of the binomial mean 1 - rate
+    n = keep.numel()
+    kept = float(keep.double().mean())
+    assert abs(kept - (1 - rate)) <= 5 * (rate * (1 - rate) / n) ** 0.5, kept
+
+
+@pytest.mark.gpu
+def test_dropout_mask_is_a_function_of_the_seed():
+    from focal_tpu_torch.ops.pallas_kernels import fused_window_block_dropout
+
+    dev = _card()
+    args = _args(np.random.default_rng(5), 300, 9, 64, 4, 4, dev)
+    y1, k1 = fused_window_block_dropout(*args, seed=7, rate=0.2)
+    y2, k2 = fused_window_block_dropout(*args, seed=7, rate=0.2)
+    _, k3 = fused_window_block_dropout(*args, seed=8, rate=0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(k1, k2) and torch.equal(y1, y2)
+    assert not torch.equal(k1, k3)
+
+
+# C = 64, 128, 256 (the MOD stage widths), nW 1 (no mask) and 4, window
+# batches that are not a multiple of the kernel's windows per block (5, 2, 1
+# at these widths) or of nW, with and without dropout
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("nW", [0, 4])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_backward_matches_autograd_of_plain(C, nW, rate):
+    from focal_tpu_torch.ops.pallas_kernels import (
+        fused_window_block_backward, fused_window_block_backward_reference,
+        fused_window_block_dropout)
+
+    dev = _card()
+    B, N, H = 1003, 9, 4
+    rng = np.random.default_rng(C + nW)
+    args = _args(rng, B, N, C, H, nW, dev)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    keep = None
+    if rate:
+        _, keep = fused_window_block_dropout(*args, seed=3, rate=rate)
+    before = fused_window_block_backward.launches
+    got = fused_window_block_backward(*args, dy, keep, rate)
+    torch.cuda.synchronize()
+    assert fused_window_block_backward.launches == before + 1
+    want = fused_window_block_backward_reference(*args, dy, keep, rate)
+    for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) <= 1e-4, (name, _rel(g, w))
+    again = fused_window_block_backward(*args, dy, keep, rate)
+    for g, h in zip(got, again):  # fixed-order sums: bitwise repeatable
+        assert torch.equal(g, h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("transposed", [False, True])
+def test_window_block_function_gradients_on_card(transposed):
+    """The autograd pair (#2 forward, #3 backward) against autograd of the
+    plain version with #2's keep mask; with ``transposed`` #3 reads the
+    weights' [out, in] copies that the caller passes, as the Swin block
+    does."""
+    from focal_tpu_torch.ops.pallas_kernels import (
+        fused_window_block_dropout, fused_window_block_reference, window_block)
+
+    dev = _card()
+    B, N, C, H, nW = 130, 9, 64, 4, 4
+    rng = np.random.default_rng(11)
+    args = _args(rng, B, N, C, H, nW, dev)
+    leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+    extra = {}
+    if transposed:
+        extra = {"wqkv_t": args[1].t().contiguous(), "wproj_t": args[3].t().contiguous()}
+    y = window_block(*leaves, args[6], seed=99, rate=0.2, **extra)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    got = torch.autograd.grad(y, leaves, dy)
+    _, keep = fused_window_block_dropout(*args, seed=99, rate=0.2)
+    ref_leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+    ref = fused_window_block_reference(*ref_leaves, args[6], keep, 0.2)
+    assert float((y - ref).detach().abs().max()) <= 1e-4
+    want = torch.autograd.grad(ref, ref_leaves, dy)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-4
