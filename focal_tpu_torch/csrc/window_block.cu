@@ -1,11 +1,16 @@
 // Whole-block Swin window attention for Hopper (sm_90a): forward (#1),
-// forward with attention dropout (#2) and backward (#3).
+// forward with attention dropout (#2) and backward (#3), and the same
+// function walked one head at a time for wide blocks: forward (#4) and
+// backward (#5).
 //
 // Replaces the TPU kernels of focal_tpu/ops/pallas_kernels.py:
 //   #1 _wblock_fwd_kernel (fused_window_block -> _wblock_fwd_impl -> pl.pallas_call)
 //   #2 the same kernel with rate > 0 (fused_window_block_dropout), which also
 //      writes its keep mask out
 //   #3 _wblock_bwd_kernel (_wblock_bwd_impl -> pl.pallas_call), the VJP of both
+//   #4 _wblock_ph_fwd_kernel (_wblock_ph_fwd_impl -> pl.pallas_call), with
+//      and without dropout
+//   #5 _wblock_ph_bwd_kernel (_wblock_ph_bwd_impl -> pl.pallas_call)
 // Per window w of x [B, N, C] (f32, row-major):
 //   qkv = x Wqkv + bqkv                      (q columns pre-scaled by the caller)
 //   a_h = softmax(q_h k_h^T + rel_bias[h] + mask[w % nW])   for each head h
@@ -42,6 +47,18 @@
 //     order. No atomics, so two runs give the same bits.
 //   * f32 throughout with fmaf and expf: no TF32, no bf16 (the TPU kernel's
 //     bf16 downcast at C >= 128 was a VMEM workaround that does not apply).
+//   * Wide blocks (#4, #5): #3 keeps qkv, dqkv and d(attention output) of
+//     all heads per window, N (8C + 10) floats, which passes the 227 KB a
+//     block may hold at C = 1024. #4 and #5 keep the whole-row tensors (x,
+//     y; x, dy, dx) per window and only ONE head's q|k|v (and dq|dk|dv, g =
+//     dy Wproj_h^T, its attention output) at a time, N (2C + 4hd) floats
+//     forward and N (3C + 8hd) backward: y and dx sum the heads in head
+//     order in shared memory, no atomics. The head's attention is spread
+//     over (window, query, key) and (window, row, dim) items instead of one
+//     thread per row, so hd = 256 does not serialise it. #5 writes dq|dk|dv
+//     and the attention output into the same workspace layout as #3, and
+//     the weight gradients come from the same split-K kernel. #4 draws its
+//     mask with #2's Philox counters, so #2 and #4 agree bit for bit.
 //   * Not yet: wgmma / tensor cores, TMA. Those are the later performance work.
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,11 +112,27 @@ __device__ __forceinline__ void store_rows(const float* s, int stride, float* __
   }
 }
 
+// Copy `rows` rows of `ncols` floats (% 4 == 0) from rows `s_stride` floats
+// apart to rows `d_stride` floats apart, float4 at a time (16-byte aligned
+// rows on both sides).
+__device__ __forceinline__ void copy_rows(const float* s, int s_stride, float* d, int d_stride,
+                                          int ncols, int rows) {
+  const int c4 = ncols / 4;
+  for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
+    const int row = i / c4, col = i - row * c4;
+    *reinterpret_cast<float4*>(d + (size_t)row * d_stride + col * 4) =
+        *reinterpret_cast<const float4*>(s + (size_t)row * s_stride + col * 4);
+  }
+}
+
 // dst[w][r][j] = sum_k src[w][r][k] W[k][j] (+ bias[j]) for nwin windows of N
 // rows, j < ncols, k < K (K % 4 == 0). src is shared memory with rows of
 // src_stride floats (% 4 == 0); W is global [K][ldw]; dst rows are
 // dst_stride floats apart and windows dst_win_stride floats apart (shared or
-// global memory). One (window, column) per item, all N rows at once.
+// global memory). One (window, column) per item, all N rows at once. With
+// kAccumulate the sum is added to dst instead (each item keeps its thread
+// from call to call, so repeated calls need no barrier between them).
+template <bool kAccumulate = false>
 __device__ __forceinline__ void project_rows(const float* src, int src_stride, int K,
                                              const float* __restrict__ W, int ldw, int ncols,
                                              const float* __restrict__ bias, float* dst,
@@ -130,13 +163,47 @@ __device__ __forceinline__ void project_rows(const float* src, int src_stride, i
     const float bj = bias ? __ldg(bias + j) : 0.f;
     float* dw = dst + w * dst_win_stride;
 #pragma unroll
-    for (int r = 0; r < kMaxN; ++r)
-      if (r < N) dw[r * dst_stride + j] = acc[r] + bj;
+    for (int r = 0; r < kMaxN; ++r) {
+      if (r < N) {
+        if (kAccumulate)
+          dw[r * dst_stride + j] += acc[r] + bj;
+        else
+          dw[r * dst_stride + j] = acc[r] + bj;
+      }
+    }
   }
 }
 
+// p = exp(p - mx) / sum over the first N entries, in registers; mx is
+// their maximum.
+__device__ __forceinline__ void softmax_from_max(float (&p)[kMaxN], float mx, int N) {
+  float sum = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j) {
+    if (j < N) {
+      p[j] = expf(p[j] - mx);
+      sum += p[j];
+    }
+  }
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j)
+    if (j < N) p[j] *= inv;
+}
+
+// p = softmax(p) over the first N entries, in registers.
+__device__ __forceinline__ void softmax_regs(float (&p)[kMaxN], int N) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j)
+    if (j < N) mx = fmaxf(mx, p[j]);
+  softmax_from_max(p, mx, N);
+}
+
 // p[j] = softmax_j(q . k_j + bias[j] + mask[j]) for one query row. q and the
-// k rows (kr0 + j * stride) hold hd floats of one head.
+// k rows (kr0 + j * stride) hold hd floats of one head. The maximum is taken
+// in the score loop: split into a loop of its own, #1 lost 1.5 % on the
+// H100 (48 registers and a spill instead of 75).
 __device__ __forceinline__ void softmax_row(const float* q, const float* kr0, int stride, int hd,
                                             const float* __restrict__ bias,
                                             const float* __restrict__ m, int N,
@@ -154,18 +221,22 @@ __device__ __forceinline__ void softmax_row(const float* q, const float* kr0, in
       mx = fmaxf(mx, d);
     }
   }
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      p[j] = expf(p[j] - mx);
-      sum += p[j];
-    }
+  softmax_from_max(p, mx, N);
+}
+
+// a . b over n floats (n % 4 == 0, both 16-byte aligned).
+__device__ __forceinline__ float dot4(const float* a, const float* b, int n) {
+  const float4* a4 = reinterpret_cast<const float4*>(a);
+  const float4* b4 = reinterpret_cast<const float4*>(b);
+  float d = 0.f;
+  for (int t = 0; t < n / 4; ++t) {
+    const float4 u = a4[t], v = b4[t];
+    d = fmaf(u.x, v.x, d);
+    d = fmaf(u.y, v.y, d);
+    d = fmaf(u.z, v.z, d);
+    d = fmaf(u.w, v.w, d);
   }
-  const float inv = 1.f / sum;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j)
-    if (j < N) p[j] *= inv;
+  return d;
 }
 
 // Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
@@ -180,6 +251,34 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
     k.y += 0xBB67AE85u;
   }
   return c;
+}
+
+// Attention dropout of one (window, head, query row): key j is kept iff its
+// Philox word (counter (window, head * kMaxN + row, word block), one call per
+// four keys; keyed by the seed) is >= threshold. Writes the row's keep bytes
+// to kr and scales the kept weights by inv_keep, zeroing the rest. #2 and #4
+// both draw through here, so the mask depends on (seed, geometry) only.
+__device__ __forceinline__ void drop_row(float (&p)[kMaxN], int N, unsigned window, int h, int i,
+                                         unsigned long long seed, unsigned threshold,
+                                         float inv_keep, unsigned char* __restrict__ kr) {
+  const uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
+#pragma unroll
+  for (int jb = 0; jb < kMaxN / 4; ++jb) {
+    if (jb * 4 < N) {
+      const uint4 r =
+          philox4x32_10(make_uint4(window, (unsigned)(h * kMaxN + i), (unsigned)jb, 0u), key);
+      const unsigned bits[4] = {r.x, r.y, r.z, r.w};
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = jb * 4 + t;
+        if (j < N) {
+          const bool kp = bits[t] >= threshold;
+          kr[j] = kp ? 1 : 0;
+          p[j] = kp ? p[j] * inv_keep : 0.f;
+        }
+      }
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -223,30 +322,9 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
     float s[kMaxN];
     softmax_row(qw + i * qs_stride + h * hd, qw + C + h * hd, qs_stride, hd,
                 rel_bias + (h * N + i) * N, m, N, s);
-    if (kDropout) {
-      // counter (window, head * kMaxN + row, word block): one Philox call per
-      // four keys of the row
-      const size_t row = ((size_t)(w0 + w) * H + h) * N + i;
-      unsigned char* kr = keep + row * N;
-      const uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
-#pragma unroll
-      for (int jb = 0; jb < kMaxN / 4; ++jb) {
-        if (jb * 4 < N) {
-          const uint4 r = philox4x32_10(
-              make_uint4((unsigned)(w0 + w), (unsigned)(h * kMaxN + i), (unsigned)jb, 0u), key);
-          const unsigned bits[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-          for (int t = 0; t < 4; ++t) {
-            const int j = jb * 4 + t;
-            if (j < N) {
-              const bool kp = bits[t] >= threshold;
-              kr[j] = kp ? 1 : 0;
-              s[j] = kp ? s[j] * inv_keep : 0.f;
-            }
-          }
-        }
-      }
-    }
+    if (kDropout)
+      drop_row(s, N, (unsigned)(w0 + w), h, i, seed, threshold, inv_keep,
+               keep + (((size_t)(w0 + w) * H + h) * N + i) * N);
     const float* vbase = qw + 2 * C + h * hd;
     float* o = xs + (w * N + i) * xs_stride + h * hd;
     for (int t = 0; t < hd; ++t) {
@@ -261,6 +339,141 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
 
   // 4. y = attn_out Wproj + bproj, written straight to global memory
   project_rows(xs, xs_stride, C, wproj, C, C, bproj, y + (size_t)w0 * N * C, C, N * C, nwin, N);
+}
+
+// ---------------------------------------------------------------------------
+// per-head forward (#4; with kDropout, #4 with attention dropout)
+
+// Shared-memory layout of the per-head kernels, in floats. Per window: rows
+// of C + 4 for x and y (forward) or x, dy and dx (backward); rows of 3hd + 4
+// for one head's q|k|v (backward also dq|dk|dv); rows of hd + 4 for its
+// attention output (backward also g = dy Wproj_h^T); N x N for its
+// attention weights (backward also their gradients). The backward adds the
+// block's d rel_bias [H, N, N] once.
+struct PhLayout {
+  int wpb, cs, qs, hs;  // windows per block; row strides
+  size_t x, y, dx, qkv, dqkv, ao, g, p, dp, dacc, total;
+};
+
+PhLayout ph_layout(int wpb, int N, int C, int H, bool backward) {
+  const int hd = C / H;
+  PhLayout L;
+  L.wpb = wpb;
+  L.cs = C + 4;
+  L.qs = 3 * hd + 4;
+  L.hs = hd + 4;
+  const size_t rows = (size_t)wpb * N, nn = (size_t)wpb * N * N;
+  size_t o = 0;
+  L.x = o, o += rows * L.cs;
+  L.y = o, o += rows * L.cs;  // y, or dy in the backward
+  L.dx = o, o += backward ? rows * L.cs : 0;
+  L.qkv = o, o += rows * L.qs;
+  L.dqkv = o, o += backward ? rows * L.qs : 0;
+  L.ao = o, o += rows * L.hs;
+  L.g = o, o += backward ? rows * L.hs : 0;
+  L.p = o, o += nn;  // float4 rows end here: the N x N blocks need no alignment
+  L.dp = o, o += backward ? nn : 0;
+  L.dacc = o, o += backward ? (size_t)H * N * N : 0;
+  L.total = o;
+  return L;
+}
+
+// Windows per block of a per-head kernel: as many as `budget` bytes hold,
+// at least one; 0 when one window does not fit the card's opt-in limit.
+int ph_windows(int N, int C, int H, bool backward, size_t budget, size_t optin) {
+  const PhLayout one = ph_layout(1, N, C, H, backward);
+  if (one.total * sizeof(float) > optin) return 0;
+  const size_t fixed = (one.total - one.dacc) * sizeof(float);  // d rel_bias, once a block
+  const size_t per_window = one.dacc * sizeof(float);
+  const size_t room = budget > fixed ? budget - fixed : 0;
+  return std::max(1, (int)(room / per_window));
+}
+
+// Per window, for each head h in order: q|k|v of h, its scores, softmax (and
+// dropout), attention output, and y += ao_h Wproj[h hd:(h+1) hd, :] (y starts
+// at bproj with head 0).
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+wblock_ph_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                     const float* __restrict__ bqkv, const float* __restrict__ wproj,
+                     const float* __restrict__ bproj, const float* __restrict__ rel_bias,
+                     const float* __restrict__ mask, float* __restrict__ y,
+                     unsigned char* __restrict__ keep, unsigned long long seed,
+                     unsigned threshold, float inv_keep, int B, int N, int C, int H, int nW,
+                     PhLayout L) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem + L.x;
+  float* ys = smem + L.y;
+  float* qs = smem + L.qkv;
+  float* os = smem + L.ao;
+  float* ps = smem + L.p;
+  const int hd = C / H;
+  const int w0 = blockIdx.x * L.wpb;
+  const int nwin = min(L.wpb, B - w0);
+
+  load_rows(x + (size_t)w0 * N * C, C, xs, L.cs, nwin * N);
+  __syncthreads();
+  for (int h = 0; h < H; ++h) {
+    // 1. q | k | v of head h: three hd-column blocks of the fused [C, 3C]
+    for (int part = 0; part < 3; ++part)
+      project_rows(xs, L.cs, C, wqkv + part * C + h * hd, 3 * C, hd, bqkv + part * C + h * hd,
+                   qs + part * hd, L.qs, N * L.qs, nwin, N);
+    __syncthreads();
+
+    // 2. scores per (window, query i, key j)
+    for (int item = threadIdx.x; item < nwin * N * N; item += kThreads) {
+      const int j = item % N, r = item / N;
+      const int w = r / N, i = r - w * N;
+      float s = dot4(qs + r * L.qs, qs + (w * N + j) * L.qs + hd, hd);
+      s += __ldg(rel_bias + (h * N + i) * N + j);
+      if (mask) s += __ldg(mask + ((size_t)((w0 + w) % nW) * N + i) * N + j);
+      ps[item] = s;
+    }
+    __syncthreads();
+
+    // 3. softmax (and dropout) per (window, query row), in place
+    for (int item = threadIdx.x; item < nwin * N; item += kThreads) {
+      const int w = item / N, i = item - w * N;
+      float* prow = ps + item * N;
+      float p[kMaxN];
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j)
+        if (j < N) p[j] = prow[j];
+      softmax_regs(p, N);
+      if (kDropout)
+        drop_row(p, N, (unsigned)(w0 + w), h, i, seed, threshold, inv_keep,
+                 keep + (((size_t)(w0 + w) * H + h) * N + i) * N);
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j)
+        if (j < N) prow[j] = p[j];
+    }
+    __syncthreads();
+
+    // 4. attention output per (window, row, dim)
+    for (int item = threadIdx.x; item < nwin * N * hd; item += kThreads) {
+      const int t = item % hd, r = item / hd;
+      const int w = r / N;
+      const float* prow = ps + r * N;
+      const float* vcol = qs + w * N * L.qs + 2 * hd + t;
+      float a = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j)
+        if (j < N) a = fmaf(prow[j], vcol[j * L.qs], a);
+      os[r * L.hs + t] = a;
+    }
+    __syncthreads();
+
+    // 5. y (+)= ao_h Wproj[h hd:(h+1) hd, :]; the next head's steps 1-3
+    //    touch neither os nor ys, so no barrier until step 4 reuses os
+    if (h == 0)
+      project_rows(os, L.hs, hd, wproj, C, C, bproj, ys, L.cs, N * L.cs, nwin, N);
+    else
+      project_rows<true>(os, L.hs, hd, wproj + (size_t)h * hd * C, C, C, nullptr, ys, L.cs,
+                         N * L.cs, nwin, N);
+  }
+  __syncthreads();
+  store_rows(ys, L.cs, y + (size_t)w0 * N * C, C, nwin * N);
 }
 
 // ---------------------------------------------------------------------------
@@ -475,6 +688,162 @@ wblock_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
   for (int e = threadIdx.x; e < nn; e += blockDim.x) dbias_part[(size_t)blockIdx.x * nn + e] = dacc[e];
 }
 
+// ---------------------------------------------------------------------------
+// per-head backward (#5)
+
+// Per window, for each head h in order: recompute q|k|v of h and its
+// softmax, g = dy Wproj_h^T, then the weights' and scores' gradients, dq,
+// dk, dv and the attention output, and dx (+)= dq|dk|dv Wqkv_h^T. dq|dk|dv
+// and the attention output go to the workspace in #3's layout ([R, 3C] and
+// [R, C]), where the weight-gradient kernel reads them. Blocks walk window
+// chunks with a fixed stride and sum their score gradients in window and
+// head order into one d rel_bias partial, as #3 does.
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+wblock_ph_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
+                     const float* __restrict__ bqkv, const float* __restrict__ wqkv_t,
+                     const float* __restrict__ wproj_t, const float* __restrict__ rel_bias,
+                     const float* __restrict__ mask, const float* __restrict__ dy,
+                     const unsigned char* __restrict__ keep, float inv_keep,
+                     float* __restrict__ dx, float* __restrict__ dqkv_out,
+                     float* __restrict__ ao_out, float* __restrict__ dbias_part, int B, int N,
+                     int C, int H, int nW, PhLayout L) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  float* xs = smem + L.x;
+  float* dys = smem + L.y;
+  float* dxs = smem + L.dx;
+  float* qs = smem + L.qkv;
+  float* dqs = smem + L.dqkv;
+  float* os = smem + L.ao;
+  float* gs = smem + L.g;
+  float* ps = smem + L.p;
+  float* dps = smem + L.dp;
+  float* dacc = smem + L.dacc;
+  const int hd = C / H;
+  const int nn = N * N;
+  const int nchunks = (B + L.wpb - 1) / L.wpb;
+
+  for (int e = threadIdx.x; e < H * nn; e += kThreads) dacc[e] = 0.f;
+
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    const int w0 = chunk * L.wpb;
+    const int nwin = min(L.wpb, B - w0);
+    __syncthreads();  // the previous chunk's readers are done with shared memory
+    load_rows(x + (size_t)w0 * N * C, C, xs, L.cs, nwin * N);
+    load_rows(dy + (size_t)w0 * N * C, C, dys, L.cs, nwin * N);
+    __syncthreads();
+
+    for (int h = 0; h < H; ++h) {
+      // 1. q | k | v of head h (recomputed) and g = dy Wproj_h^T, the
+      //    gradient of its attention output
+      for (int part = 0; part < 3; ++part)
+        project_rows(xs, L.cs, C, wqkv + part * C + h * hd, 3 * C, hd, bqkv + part * C + h * hd,
+                     qs + part * hd, L.qs, N * L.qs, nwin, N);
+      project_rows(dys, L.cs, C, wproj_t + h * hd, C, hd, nullptr, gs, L.hs, N * L.hs, nwin, N);
+      __syncthreads();
+
+      // 2. per (window, query i, key j): the score and d(weight) = g_i . v_j
+      for (int item = threadIdx.x; item < nwin * nn; item += kThreads) {
+        const int j = item % N, r = item / N;
+        const int w = r / N, i = r - w * N;
+        const float* kv = qs + (w * N + j) * L.qs;
+        float s = dot4(qs + r * L.qs, kv + hd, hd);
+        s += __ldg(rel_bias + (h * N + i) * N + j);
+        if (mask) s += __ldg(mask + ((size_t)((w0 + w) % nW) * N + i) * N + j);
+        ps[item] = s;
+        dps[item] = dot4(gs + r * L.hs, kv + 2 * hd, hd);
+      }
+      __syncthreads();
+
+      // 3. per (window, query row): softmax p; the weights as applied to v
+      //    (a, into ps) and the score gradients ds (into dps)
+      for (int item = threadIdx.x; item < nwin * N; item += kThreads) {
+        const int w = item / N, i = item - w * N;
+        float* prow = ps + item * N;
+        float* drow = dps + item * N;
+        const unsigned char* kr =
+            kDropout ? keep + (((size_t)(w0 + w) * H + h) * N + i) * N : nullptr;
+        float p[kMaxN];
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j)
+          if (j < N) p[j] = prow[j];
+        softmax_regs(p, N);
+        float da[kMaxN];
+        float dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < N) {
+            const bool kp = kDropout ? kr[j] != 0 : true;
+            prow[j] = kDropout ? (kp ? p[j] * inv_keep : 0.f) : p[j];
+            da[j] = kDropout ? (kp ? drow[j] * inv_keep : 0.f) : drow[j];
+            dot = fmaf(da[j], p[j], dot);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j)
+          if (j < N) drow[j] = p[j] * (da[j] - dot);
+      }
+      __syncthreads();
+
+      // 4. per (window, row, dim): attention output, dq, dk, dv; and the
+      //    block's d rel_bias += ds (windows in order)
+      for (int item = threadIdx.x; item < nwin * N * hd; item += kThreads) {
+        const int t = item % hd, r = item / hd;
+        const int w = r / N, i = r - w * N;
+        const float* arow = ps + r * N;              // a[i][.]
+        const float* drow = dps + r * N;             // ds[i][.]
+        const float* acol = ps + w * nn + i;         // a[.][i]
+        const float* dcol = dps + w * nn + i;        // ds[.][i]
+        const float* qkv_w = qs + w * N * L.qs + t;  // q|k|v rows of the window
+        const float* g_w = gs + w * N * L.hs + t;
+        float ao = 0.f, dq = 0.f, dk = 0.f, dv = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < N) {
+            const float* row = qkv_w + j * L.qs;
+            ao = fmaf(arow[j], row[2 * hd], ao);
+            dq = fmaf(drow[j], row[hd], dq);
+            dk = fmaf(dcol[j * N], row[0], dk);
+            dv = fmaf(acol[j * N], g_w[j * L.hs], dv);
+          }
+        }
+        os[r * L.hs + t] = ao;
+        float* d = dqs + r * L.qs + t;
+        d[0] = dq;
+        d[hd] = dk;
+        d[2 * hd] = dv;
+      }
+      for (int e = threadIdx.x; e < nn; e += kThreads) {
+        float acc = dacc[h * nn + e];
+        for (int w = 0; w < nwin; ++w) acc += dps[w * nn + e];
+        dacc[h * nn + e] = acc;
+      }
+      __syncthreads();
+
+      // 5. dx (+)= dq Wq_h^T + dk Wk_h^T + dv Wv_h^T (rows part C + h hd of
+      //    the [3C, C] transpose); dq|dk|dv and the attention output to the
+      //    workspace. The next head's steps 1-3 touch none of dqs, os, dxs.
+      for (int part = 0; part < 3; ++part) {
+        const float* wt = wqkv_t + (size_t)(part * C + h * hd) * C;
+        if (h == 0 && part == 0)
+          project_rows(dqs, L.qs, hd, wt, C, C, nullptr, dxs, L.cs, N * L.cs, nwin, N);
+        else
+          project_rows<true>(dqs + part * hd, L.qs, hd, wt, C, C, nullptr, dxs, L.cs, N * L.cs,
+                             nwin, N);
+        copy_rows(dqs + part * hd, L.qs, dqkv_out + (size_t)w0 * N * 3 * C + part * C + h * hd,
+                  3 * C, hd, nwin * N);
+      }
+      copy_rows(os, L.hs, ao_out + (size_t)w0 * N * C + h * hd, C, hd, nwin * N);
+    }
+    __syncthreads();
+    store_rows(dxs, L.cs, dx + (size_t)w0 * N * C, C, nwin * N);
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < H * nn; e += kThreads)
+    dbias_part[(size_t)blockIdx.x * H * nn + e] = dacc[e];
+}
+
 // Weight gradients as split-K products over the B*N rows: block (tile,
 // split) computes one 64x64 tile of
 //   dWqkv = x^T dqkv  [C, 3C]   or   dWproj = ao^T dy  [C, C]
@@ -575,35 +944,67 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int S, in
   out[e] = acc;
 }
 
-// Launch plan of the backward: per-window blocks (a fixed, occupancy-sized
-// grid walking the window chunks) and the weight-gradient splits.
+// Launch plan of a backward (#3, or #5 with `perhead`): per-window blocks
+// (a fixed, occupancy-sized grid walking the window chunks) and the
+// weight-gradient splits.
 struct BwdPlan {
-  BwdLayout L;
-  int grid, splits, rows_per_split, wtiles, E;
-  size_t ws_floats;
+  bool perhead;
+  BwdLayout L;  // #3
+  PhLayout P;   // #5
+  size_t smem, ws_floats;
+  int wpb, grid, splits, rows_per_split, wtiles, E;
   cudaError_t err;
 };
 
-template <bool kDropout>
-cudaError_t bwd_attr(size_t smem, int* blocks_per_sm) {
-  cudaError_t err = cudaFuncSetAttribute(wblock_bwd_kernel<kDropout>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, wblock_bwd_kernel<kDropout>,
-                                                       kThreads, smem);
+// Raise `kernel`'s dynamic shared memory limit to `smem` bytes and, when
+// asked, report how many of its blocks fit one SM.
+template <class Kernel>
+cudaError_t set_smem(Kernel kernel, size_t smem, int* blocks_per_sm) {
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err == cudaSuccess && blocks_per_sm)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kernel, kThreads, smem);
+  return err;
 }
 
-BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
-  BwdPlan P;
-  P.L = bwd_plan_layout(N, C, H);
-  const size_t smem = P.L.total * sizeof(float);
-  int dev = 0, sms = 0, per_sm = 0;
-  P.err = cudaGetDevice(&dev);
-  if (P.err == cudaSuccess) P.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (P.err == cudaSuccess) P.err = dropout ? bwd_attr<true>(smem, &per_sm) : bwd_attr<false>(smem, &per_sm);
+// The current device's SM count and the shared memory one block may opt in
+// to (232,448 bytes on the H100).
+cudaError_t device_limits(int* sms, int* smem_optin) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return err;
+}
+
+BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout, bool perhead) {
+  BwdPlan P{};
+  P.perhead = perhead;
+  int sms = 0, optin = 0, per_sm = 0;
+  P.err = device_limits(&sms, &optin);
+  if (P.err != cudaSuccess) return P;
+  if (perhead) {
+    // one block per SM: the window count is sized by the card's limit
+    P.wpb = ph_windows(N, C, H, true, optin, optin);
+    if (P.wpb == 0) {
+      P.err = cudaErrorInvalidConfiguration;
+      return P;
+    }
+    P.P = ph_layout(P.wpb, N, C, H, true);
+    P.smem = P.P.total * sizeof(float);
+    P.err = dropout ? set_smem(wblock_ph_bwd_kernel<true>, P.smem, &per_sm)
+                    : set_smem(wblock_ph_bwd_kernel<false>, P.smem, &per_sm);
+  } else {
+    P.L = bwd_plan_layout(N, C, H);
+    P.wpb = P.L.wpb;
+    P.smem = P.L.total * sizeof(float);
+    P.err = dropout ? set_smem(wblock_bwd_kernel<true>, P.smem, &per_sm)
+                    : set_smem(wblock_bwd_kernel<false>, P.smem, &per_sm);
+  }
   if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
   if (P.err != cudaSuccess) return P;
-  const int nchunks = (B + P.L.wpb - 1) / P.L.wpb;
+  const int nchunks = (B + P.wpb - 1) / P.wpb;
   P.grid = std::min(nchunks, per_sm * sms);
   const int R = B * N;
   const int tiles_c = (C + kTile - 1) / kTile;
@@ -624,6 +1025,80 @@ BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
 int check_geometry(int N, int C, int H) {
   if (N < 1 || N > kMaxN || C < 4 || C % 4 != 0 || H < 1 || C % H != 0) return (int)cudaErrorInvalidValue;
   return 0;
+}
+
+// The per-head kernels also read a head's columns as float4: hd % 4 == 0.
+int check_ph_geometry(int N, int C, int H) {
+  if (check_geometry(N, C, H) || (C / H) % 4 != 0) return (int)cudaErrorInvalidValue;
+  return 0;
+}
+
+int bwd_workspace(int B, int N, int C, int H, int dropout, bool perhead, long long* floats) {
+  if (perhead ? check_ph_geometry(N, C, H) : check_geometry(N, C, H))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) {
+    *floats = 0;
+    return 0;
+  }
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0, perhead);
+  if (P.err != cudaSuccess) return (int)P.err;
+  *floats = (long long)P.ws_floats;
+  return 0;
+}
+
+// The four launches of a backward on `stream`: the per-window kernel (#3,
+// or #5 with `perhead`), the weight-gradient partials, and the two ordered
+// reductions.
+int run_backward(bool perhead, const void* x, const void* wqkv, const void* bqkv,
+                 const void* wqkv_t, const void* wproj_t, const void* rel_bias, const void* mask,
+                 const void* dy, const void* keep, float inv_keep, void* dx, void* dweights,
+                 void* drel_bias, void* ws, int B, int N, int C, int H, int nW, void* stream) {
+  if ((perhead ? check_ph_geometry(N, C, H) : check_geometry(N, C, H)) ||
+      (mask != nullptr && nW < 1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const bool dropout = keep != nullptr;
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout, perhead);
+  if (P.err != cudaSuccess) return (int)P.err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const size_t R = (size_t)B * N;
+  float* w = static_cast<float*>(ws);
+  float* dqkv = w;
+  float* ao = dqkv + R * 3 * C;
+  float* dbias_part = ao + R * C;
+  float* wpart = dbias_part + (size_t)P.grid * H * N * N;
+  const int nw = mask != nullptr ? nW : 1;
+#define FOCAL_BWD_ARGS                                                                        \
+  static_cast<const float*>(x), static_cast<const float*>(wqkv),                              \
+      static_cast<const float*>(bqkv), static_cast<const float*>(wqkv_t),                     \
+      static_cast<const float*>(wproj_t), static_cast<const float*>(rel_bias),                \
+      static_cast<const float*>(mask), static_cast<const float*>(dy),                         \
+      static_cast<const unsigned char*>(keep), inv_keep, static_cast<float*>(dx), dqkv, ao, \
+      dbias_part, B, N, C, H, nw
+  if (perhead && dropout)
+    wblock_ph_bwd_kernel<true><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.P);
+  else if (perhead)
+    wblock_ph_bwd_kernel<false><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.P);
+  else if (dropout)
+    wblock_bwd_kernel<true><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.L);
+  else
+    wblock_bwd_kernel<false><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.L);
+#undef FOCAL_BWD_ARGS
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  wgrad_kernel<<<dim3(P.wtiles, P.splits), kThreads, 0, s>>>(
+      static_cast<const float*>(x), dqkv, ao, static_cast<const float*>(dy), (int)R, C,
+      P.rows_per_split, wpart, P.E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  reduce_partials_kernel<<<(P.E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      wpart, P.splits, P.E, static_cast<float*>(dweights));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nn = H * N * N;
+  reduce_partials_kernel<<<(nn + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      dbias_part, P.grid, nn, static_cast<float*>(drel_bias));
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -680,20 +1155,53 @@ extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const v
   return (int)cudaGetLastError();
 }
 
+// Per-head forward (#4), with attention dropout when `keep` is not null:
+// the function of focal_wblock_fwd (keep null) or focal_wblock_fwd_dropout,
+// the same mask bits for the same seed. Needs (C / H) % 4 == 0. Returns
+// cudaErrorInvalidConfiguration when one window does not fit a block.
+extern "C" int focal_wblock_ph_fwd(const void* x, const void* wqkv, const void* bqkv,
+                                   const void* wproj, const void* bproj, const void* rel_bias,
+                                   const void* mask, void* y, void* keep, int B, int N, int C,
+                                   int H, int nW, unsigned long long seed, unsigned threshold,
+                                   float inv_keep, void* stream) {
+  if (check_ph_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  int sms = 0, optin = 0;
+  cudaError_t err = device_limits(&sms, &optin);
+  if (err != cudaSuccess) return (int)err;
+  // two blocks per SM where one window allows it (each block also holds
+  // 1 KB of the SM's 228 KB for the runtime)
+  const int wpb = ph_windows(N, C, H, false, (size_t)optin / 2 - 1024, optin);
+  if (wpb == 0) return (int)cudaErrorInvalidConfiguration;
+  const PhLayout L = ph_layout(wpb, N, C, H, false);
+  const size_t smem = L.total * sizeof(float);
+  const bool dropout = keep != nullptr;
+  err = dropout ? set_smem(wblock_ph_fwd_kernel<true>, smem, nullptr)
+                : set_smem(wblock_ph_fwd_kernel<false>, smem, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (B + wpb - 1) / wpb;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FOCAL_PH_FWD_ARGS                                                                     \
+  static_cast<const float*>(x), static_cast<const float*>(wqkv),                              \
+      static_cast<const float*>(bqkv), static_cast<const float*>(wproj),                      \
+      static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),                  \
+      static_cast<const float*>(mask), static_cast<float*>(y),                                \
+      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, B, N, C, H,               \
+      mask != nullptr ? nW : 1, L
+  if (dropout)
+    wblock_ph_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_PH_FWD_ARGS);
+  else
+    wblock_ph_fwd_kernel<false><<<grid, kThreads, smem, s>>>(FOCAL_PH_FWD_ARGS);
+#undef FOCAL_PH_FWD_ARGS
+  return (int)cudaGetLastError();
+}
+
 // Workspace the backward needs, in floats, for this geometry on the current
 // device (dqkv and the attention output, the d rel_bias partials and the
 // weight-gradient partials).
 extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
                                           long long* floats) {
-  if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
-  if (B == 0) {
-    *floats = 0;
-    return 0;
-  }
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0);
-  if (P.err != cudaSuccess) return (int)P.err;
-  *floats = (long long)P.ws_floats;
-  return 0;
+  return bwd_workspace(B, N, C, H, dropout, false, floats);
 }
 
 // Backward (#3). Inputs: x, wqkv [C, 3C] and its transpose [3C, C], bqkv,
@@ -708,47 +1216,25 @@ extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqk
                                 const void* mask, const void* dy, const void* keep,
                                 float inv_keep, void* dx, void* dweights, void* drel_bias,
                                 void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const bool dropout = keep != nullptr;
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
-  if (P.err != cudaSuccess) return (int)P.err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t R = (size_t)B * N;
-  float* w = static_cast<float*>(ws);
-  float* dqkv = w;
-  float* ao = dqkv + R * 3 * C;
-  float* dbias_part = ao + R * C;
-  float* wpart = dbias_part + (size_t)P.grid * H * N * N;
-  const size_t smem = P.L.total * sizeof(float);
-  const int nw = mask != nullptr ? nW : 1;
-#define FOCAL_BWD_ARGS                                                                        \
-  static_cast<const float*>(x), static_cast<const float*>(wqkv),                              \
-      static_cast<const float*>(bqkv), static_cast<const float*>(wqkv_t),                     \
-      static_cast<const float*>(wproj_t), static_cast<const float*>(rel_bias),                \
-      static_cast<const float*>(mask), static_cast<const float*>(dy),                         \
-      static_cast<const unsigned char*>(keep), inv_keep, static_cast<float*>(dx), dqkv, ao, \
-      dbias_part, B, N, C, H, nw, P.L
-  if (dropout)
-    wblock_bwd_kernel<true><<<P.grid, kThreads, smem, s>>>(FOCAL_BWD_ARGS);
-  else
-    wblock_bwd_kernel<false><<<P.grid, kThreads, smem, s>>>(FOCAL_BWD_ARGS);
-#undef FOCAL_BWD_ARGS
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  wgrad_kernel<<<dim3(P.wtiles, P.splits), kThreads, 0, s>>>(
-      static_cast<const float*>(x), dqkv, ao, static_cast<const float*>(dy), (int)R, C,
-      P.rows_per_split, wpart, P.E);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<(P.E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      wpart, P.splits, P.E, static_cast<float*>(dweights));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nn = H * N * N;
-  reduce_partials_kernel<<<(nn + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      dbias_part, P.grid, nn, static_cast<float*>(drel_bias));
-  return (int)cudaGetLastError();
+  return run_backward(false, x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep,
+                      dx, dweights, drel_bias, ws, B, N, C, H, nW, stream);
+}
+
+// Per-head backward (#5): focal_wblock_bwd_workspace and focal_wblock_bwd
+// with the per-window kernel walking the heads. Same arguments and outputs;
+// keep comes from #4.
+extern "C" int focal_wblock_ph_bwd_workspace(int B, int N, int C, int H, int dropout,
+                                             long long* floats) {
+  return bwd_workspace(B, N, C, H, dropout, true, floats);
+}
+
+extern "C" int focal_wblock_ph_bwd(const void* x, const void* wqkv, const void* bqkv,
+                                   const void* wqkv_t, const void* wproj_t, const void* rel_bias,
+                                   const void* mask, const void* dy, const void* keep,
+                                   float inv_keep, void* dx, void* dweights, void* drel_bias,
+                                   void* ws, int B, int N, int C, int H, int nW, void* stream) {
+  return run_backward(true, x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep,
+                      dx, dweights, drel_bias, ws, B, N, C, H, nW, stream);
 }
 
 extern "C" const char* focal_cuda_error_string(int err) {

@@ -1,14 +1,19 @@
 """Sample files and synthetic data (numpy; same arrays as the JAX package),
-and device-resident datasets for the training step.
+device-resident splits, and their batch plans (port of the JAX package's
+``data/dataset.py``, ``data/synthetic.py`` and ``data/loader.py``).
 
 Sample schema: each sample file holds
     {"label": int or {task: int}, "data": {loc: {mod: [c, i, s] float32}}}
 as either a torch ``.pt`` or an ``.npz`` with keys ``label.<task>`` /
 ``label`` and ``data.<loc>.<mod>``.
+
+A split lives on the device whole; a loader yields only index arrays, which
+the step gathers from it. Train batches drop the ragged tail; eval batches
+pad it by repeating the last unit and carry a 0/1 weight per row.
 """
 
-from types import SimpleNamespace
-
+import os
+import re
 import numpy as np
 import torch
 
@@ -98,16 +103,147 @@ def to_device(data, device):
             for loc, mods in data.items()}
 
 
-def make_synthetic_dataset(dataset_config, task, num_samples, seed=0, device="cpu"):
-    """Synthetic split resident on ``device``: ``data`` {loc: {mod: [N, c,
-    i, s]}}, ``labels`` [N], ``names``, and ``subseq_idx`` [N / seq_len,
-    seq_len], the sample rows of each temporal subsequence (samples of one
-    recording are stored together, as synthetic_arrays names them)."""
-    data, labels, names = synthetic_arrays(dataset_config, task, num_samples, seed)
-    seq_len = dataset_config.get("seq_len", 4)
-    return SimpleNamespace(
-        data=to_device(data, device),
-        labels=torch.from_numpy(labels).to(device),
-        names=names,
-        subseq_idx=torch.arange(len(names), device=device).reshape(-1, seq_len),
-    )
+def partition_subsequences(sample_names, seq_len, delimiter="_"):
+    """int32 [n_subseq, seq_len] sample rows of fixed-length temporal
+    subsequences: the sequence id is the basename up to the last delimiter,
+    the order its trailing integer; a short final window repeats its last
+    sample."""
+    seq_to_samples = {}
+    for idx, name in enumerate(sample_names):
+        base = os.path.basename(name)
+        seq, tail = base.rsplit(delimiter, 1) if delimiter in base else (base, "0")
+        m = re.match(r"(\d+)", tail.split(".")[0])
+        seq_to_samples.setdefault(seq, []).append((int(m.group(1)) if m else 0, idx))
+    subseqs = []
+    for samples in seq_to_samples.values():
+        ordered = [i for _, i in sorted(samples)]
+        for i in range(0, len(ordered), seq_len):
+            window = ordered[i:i + seq_len]
+            window += window[-1:] * (seq_len - len(window))
+            subseqs.append(window)
+    return np.asarray(subseqs, dtype=np.int32)
+
+
+class Split:
+    """One split, stacked on the host (numpy) and, after ``to(device)``,
+    resident on the device: ``data`` {loc: {mod: [N, c, i, s]}}, ``labels``
+    [N] int32 (numpy, for the metrics), ``subseq_idx`` [n, seq_len] or None."""
+
+    def __init__(self, data, labels, names, seq_len=None, delimiter="_"):
+        self.data = data
+        self.labels = np.asarray(labels, dtype=np.int32)
+        self.subseq_idx = (partition_subsequences(names, seq_len, delimiter)
+                           if seq_len is not None else None)
+
+    def __len__(self):
+        return len(self.labels)
+
+    @property
+    def num_subseqs(self):
+        return 0 if self.subseq_idx is None else len(self.subseq_idx)
+
+    def to(self, device):
+        self.data = to_device(self.data, device)
+        return self
+
+    @classmethod
+    def from_index_file(cls, index_file, task, seq_len=None, delimiter="_"):
+        files = [str(f) for f in np.loadtxt(index_file, dtype=str, ndmin=1)]
+        if not files:
+            raise ValueError(f"Empty index file: {index_file}")
+        samples = [_load_sample_file(f, task) for f in files]
+        for f, (_, label) in zip(files, samples):
+            if label is None:
+                raise ValueError(f"Sample without a label in a training index: {f}")
+        first = samples[0][0]
+        data = {loc: {m: np.stack([d[loc][m] for d, _ in samples]).astype(np.float32)
+                      for m in mods} for loc, mods in first.items()}
+        names = [os.path.basename(f) for f in files]
+        return cls(data, [label for _, label in samples], names, seq_len, delimiter)
+
+
+def sequence_batches(args):
+    """Whole temporal subsequences per batch: FOCAL pretraining only."""
+    return args.train_mode == "contrastive" and args.stage == "pretrain"
+
+
+def load_split(option, args):
+    """The "train", "val" or "test" split of a run, on the host. Synthetic
+    splits hold -synthetic_samples train samples and a quarter of that for
+    val and test, seeded seed, seed + 1, seed + 2."""
+    seq_len = args.dataset_config.get("seq_len") if sequence_batches(args) else None
+    if args.synthetic:
+        n = {"train": args.synthetic_samples, "val": args.synthetic_samples // 4,
+             "test": args.synthetic_samples // 4}[option]
+        seed = args.seed + {"train": 0, "val": 1, "test": 2}[option]
+        data, labels, names = synthetic_arrays(args.dataset_config, args.task, n, seed)
+        return Split(data, labels, names, seq_len)
+    # pretraining reads the recipe's pretrain index; val and test the task's
+    cfg = args.dataset_config
+    index = cfg["pretrain_index_file"] if option == "train" else cfg[args.task][f"{option}_index_file"]
+    delimiter = "-" if args.dataset == "RealWorld_HAR" else "_"
+    return Split.from_index_file(index, args.task, seq_len, delimiter)
+
+
+class BatchPlan:
+    """One batch: int64 sample rows ``idx`` and float32 validity ``weight``."""
+
+    __slots__ = ("idx", "weight")
+
+    def __init__(self, idx, weight):
+        self.idx = idx
+        self.weight = weight
+
+
+class DeviceDataLoader:
+    """Yields BatchPlans over a Split, in order, with static shapes: with
+    ``sequence``, whole subsequences (``batch_size // seq_len`` of them) per
+    batch. ``drop_last`` drops the ragged tail (training); otherwise it is
+    padded by repeating its last unit, with weight 0 (evaluation). Training
+    takes only the loader's shape (``units``, ``per``, ``len``): the loop
+    draws its own permutation each epoch."""
+
+    def __init__(self, split, batch_size, drop_last=False, sequence=False):
+        self.split = split
+        self.sequence = sequence
+        if sequence:
+            if split.subseq_idx is None:
+                raise ValueError("sequence batching needs a split with subsequences")
+            self.seq_len = split.subseq_idx.shape[1]
+            n = split.num_subseqs
+            per = max(1, min(batch_size // self.seq_len, n))
+            self.batch_size = per * self.seq_len
+        else:
+            n = len(split)
+            per = self.batch_size = min(batch_size, n)
+        if drop_last:
+            self.num_batches = max(1, n // per) if n >= per else 0
+        else:
+            self.num_batches = -(-n // per)
+        self.units, self.per = n, per
+
+    def __len__(self):
+        return self.num_batches
+
+    def rows(self, units):
+        """Sample rows of the given units (subsequences or samples)."""
+        return self.split.subseq_idx[units].reshape(-1) if self.sequence else units
+
+    def __iter__(self):
+        order = np.arange(self.units)
+        for b in range(self.num_batches):
+            chunk = order[b * self.per:(b + 1) * self.per]
+            valid = len(chunk)
+            if valid < self.per:
+                chunk = np.concatenate([chunk, np.repeat(chunk[-1:], self.per - valid)])
+            weight = np.arange(self.per) < valid
+            if self.sequence:
+                weight = np.repeat(weight, self.seq_len)
+            yield BatchPlan(self.rows(chunk).astype(np.int64), weight.astype(np.float32))
+
+
+def create_dataloader(option, split, args):
+    """The loader of a split as the JAX package builds it: the train split's
+    drops the ragged tail, the others pad it."""
+    return DeviceDataLoader(split, args.batch_size, drop_last=option == "train",
+                            sequence=sequence_batches(args))

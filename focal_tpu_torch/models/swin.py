@@ -4,8 +4,9 @@ Port of the JAX package's ``models/swin.py``. Geometry (padded sizes,
 window shrink, shift sizes, SW-MSA masks, relative position indices) is
 resolved to constants when a block is built. Window attention goes through
 the whole-block kernels with the q scale folded into the qkv weights, as the
-JAX path does: ``fused_window_block`` (#1) in eval, ``window_block`` (#2 or
-#1 forward, #3 backward) in training.
+JAX path does: ``window_block_forward`` (#1, or #4 for blocks too wide for
+it) in eval, ``window_block`` (#2 or #1 forward and #3 backward, or #4 and
+#5) in training.
 
 In training every module takes ``rng``, the step's ``ops.dropout.StepRngs``:
 one kernel seed per block from its host generator, DropPath and the other
@@ -22,7 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from focal_tpu_torch.ops.dropout import remat_dropout
-from focal_tpu_torch.ops.pallas_kernels import fused_window_block, window_block
+from focal_tpu_torch.ops.pallas_kernels import window_block, window_block_forward
 
 
 def window_partition(x, wh, ww):
@@ -152,7 +153,7 @@ class WindowAttention(nn.Module):
 
     def forward(self, x, mask=None, rng=None):
         if not self.training:
-            return fused_window_block(x.contiguous(), *self.folded_kernel_args(), mask)
+            return window_block_forward(x.contiguous(), *self.folded_kernel_args(), mask)
         # training folds with grad, so the weights' gradients flow back
         # through the q scale, the transposes and the bias-table gather
         seed = _needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0

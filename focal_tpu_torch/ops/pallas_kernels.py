@@ -12,8 +12,12 @@ Kernels (all in ``csrc/window_block.cu``):
   #1 ``fused_window_block``: whole-block window attention, forward;
   #2 ``fused_window_block_dropout``: #1 with attention dropout, returning
      its uint8 keep mask [B_, H, N, N];
-  #3 ``fused_window_block_backward``: the VJP of #1 and #2.
-``window_block`` makes the #2/#3 pair (or #1/#3 at rate 0) differentiable.
+  #3 ``fused_window_block_backward``: the VJP of #1 and #2;
+  #4 ``fused_window_block_perhead``: #1 or #2 walking the heads one at a
+     time, for blocks too wide for #3 (``wblock_fits``);
+  #5 ``fused_window_block_perhead_backward``: the VJP of #4.
+``window_block_forward`` (eval) and ``window_block`` (training, an autograd
+pair) route each geometry to #1-#3 or to #4/#5.
 """
 
 import ctypes
@@ -24,6 +28,19 @@ from focal_tpu_torch.ops import _build
 
 _WINDOW_BLOCK_SRC = "window_block.cu"
 _MAX_N = 16  # kMaxN in csrc/window_block.cu
+_MONO_BWD_BUDGET = 112640  # kBwdBudget in csrc/window_block.cu
+
+
+def wblock_fits(N, C, H):
+    """Whether the monolithic kernels (#1-#3) serve window size N, width C
+    and H heads; where not, the per-head kernels (#4, #5) do. The measure is
+    #3's shared memory for one window, N (8C + 10) + 2 H N^2 floats (x, dy,
+    qkv, d(attention output), dqkv, and each head's weights and their
+    gradients), against the budget that keeps two of #3's blocks on an SM.
+    At N = 9 that is C <= 256 (MOD and MOD_WIDE stage 0) monolithic and
+    C = 512, 1024 (MOD_WIDE stages 1, 2) per head, as the JAX package's
+    ``wblock_fits`` routes them."""
+    return 4 * (N * (8 * C + 10) + 2 * H * N * N) <= _MONO_BWD_BUDGET
 
 
 def _keep_threshold(rate):
@@ -216,20 +233,37 @@ def fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
     if x.device.type == "cpu":
         return fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                                                      dy, keep, rate)
+    grads = _launch_backward("fused_window_block_backward", False, x, wqkv, bqkv, wproj, bproj,
+                             rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t)
+    fused_window_block_backward.launches += 1
+    return grads
+
+
+fused_window_block_backward.launches = 0
+
+
+def _launch_backward(name, perhead, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate,
+                     wqkv_t, wproj_t):
+    """The CUDA path of #3 (or #5 with ``perhead``): validate, size the
+    workspace, launch, and split the flat weight gradients."""
     B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
     dev = x.device
     _check("dy", dy, (B, N, C), dev)
+    if perhead and (C // H) % 4:
+        raise ValueError(f"{name}: head width {C // H} is not a multiple of 4")
     if keep is not None:
         if not 0.0 < rate < 1.0:
-            raise ValueError(f"fused_window_block_backward: rate must be in (0, 1), got {rate}")
+            raise ValueError(f"{name}: rate must be in (0, 1), got {rate}")
         _check("keep", keep, (B, H, N, N), dev, torch.uint8)
     lib = _window_block_lib()
+    workspace, run = ((lib.focal_wblock_ph_bwd_workspace, lib.focal_wblock_ph_bwd) if perhead
+                      else (lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd))
     floats = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
-        err = lib.focal_wblock_bwd_workspace(B, N, C, H, int(keep is not None), ctypes.byref(floats))
+        err = workspace(B, N, C, H, int(keep is not None), ctypes.byref(floats))
     if err != 0:
         msg = lib.focal_cuda_error_string(err).decode()
-        raise RuntimeError(f"fused_window_block_backward: no launch plan ({err}): {msg}")
+        raise RuntimeError(f"{name}: no launch plan ({err}): {msg}")
     ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
@@ -241,12 +275,11 @@ def fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
     _check("wqkv_t", wqkv_t, (3 * C, C), dev)
     _check("wproj_t", wproj_t, (C, C), dev)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
-    _launch("fused_window_block_backward", lib.focal_wblock_bwd, dev,
+    _launch(name, run, dev,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wqkv_t.data_ptr(), wproj_t.data_ptr(),
             rel_bias.data_ptr(), _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep,
             dx.data_ptr(), dweights.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(),
             B, N, C, H, nW)
-    fused_window_block_backward.launches += 1
     q = 3 * C * C
     dwqkv = dweights[:q].view(C, 3 * C)
     dbqkv = dweights[q:q + 3 * C]
@@ -255,17 +288,89 @@ def fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
     return dx, dwqkv, dbqkv, dwproj, dbproj, drel_bias
 
 
-fused_window_block_backward.launches = 0
+def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
+                               rate=0.0):
+    """The function of #1 (rate 0) or #2 (rate > 0) for blocks too wide for
+    them (``wblock_fits`` false), walking the heads one at a time (#4): a
+    block keeps x, y and one head's q|k|v in shared memory, not every
+    head's. Arguments as fused_window_block_dropout; with rate > 0 the keep
+    mask is drawn from the same Philox counters as #2's, so #2 and #4 give
+    the same mask for the same seed and geometry.
+
+    Returns (y [B_, N, C] f32, keep uint8 [B_, H, N, N], or None at rate 0).
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_fwd_impl
+    (_wblock_ph_fwd_kernel). CPU tensors take the plain version, with
+    draw_keep_mask's mask at rate > 0.
+    """
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"fused_window_block_perhead: rate must be in [0, 1), got {rate}")
+    if x.device.type == "cpu":
+        keep = None
+        if rate > 0.0:
+            B, N, _ = x.shape
+            keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+        return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
+                                            rate), keep
+    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    if (C // H) % 4:
+        raise ValueError(f"fused_window_block_perhead: head width {C // H} is not a multiple of 4")
+    y = torch.empty_like(x)
+    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
+    _launch("fused_window_block_perhead", _window_block_lib().focal_wblock_ph_fwd, x.device,
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep), B, N, C, H, nW,
+            int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
+    fused_window_block_perhead.launches += 1
+    return y, keep
+
+
+fused_window_block_perhead.launches = 0
+
+
+def fused_window_block_perhead_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+                                        keep=None, rate=0.0, wqkv_t=None, wproj_t=None):
+    """VJP of #4 (#5): fused_window_block_backward's arguments and results,
+    walking the heads one at a time; ``keep`` is #4's mask. The weight and
+    bias-table gradients come from the same fixed-order sums as #3's: two
+    calls give the same bits.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_bwd_impl
+    (_wblock_ph_bwd_kernel). CPU tensors take the plain version.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                                     dy, keep, rate)
+    grads = _launch_backward("fused_window_block_perhead_backward", True, x, wqkv, bqkv, wproj,
+                             bproj, rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t)
+    fused_window_block_perhead_backward.launches += 1
+    return grads
+
+
+fused_window_block_perhead_backward.launches = 0
+
+
+def window_block_forward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
+    """The eval forward, routed: #1 where ``wblock_fits``, else #4 at rate 0.
+    Arguments and result as fused_window_block."""
+    if wblock_fits(x.shape[1], x.shape[2], rel_bias.shape[0]):
+        return fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    return fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)[0]
 
 
 class _WindowBlock(torch.autograd.Function):
-    """#2 (or #1 at rate 0) forward, #3 backward, with the keep mask as the
-    saved residual."""
+    """#2 (or #1 at rate 0) forward and #3 backward where ``wblock_fits``,
+    else #4 forward and #5 backward, with the keep mask as the saved
+    residual."""
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, wqkv_t, wproj_t):
         keep = None
-        if rate > 0.0:
+        ctx.mono = wblock_fits(x.shape[1], x.shape[2], rel_bias.shape[0])
+        if not ctx.mono:
+            y, keep = fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                                 seed, rate)
+        elif rate > 0.0:
             y, keep = fused_window_block_dropout(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                                                  seed, rate)
         else:
@@ -277,8 +382,10 @@ class _WindowBlock(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, wqkv_t, wproj_t = ctx.saved_tensors
-        grads = fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                                            dy.contiguous(), keep, ctx.rate, wqkv_t, wproj_t)
+        backward = (fused_window_block_backward if ctx.mono
+                    else fused_window_block_perhead_backward)
+        grads = backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy.contiguous(), keep,
+                         ctx.rate, wqkv_t, wproj_t)
         # wqkv_t and wproj_t are wqkv and wproj in another layout: their
         # gradient reaches the parameters through wqkv and wproj
         return (*grads, None, None, None, None, None)
@@ -287,9 +394,11 @@ class _WindowBlock(torch.autograd.Function):
 def window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=0.0,
                  wqkv_t=None, wproj_t=None):
     """Differentiable whole-block window attention for training: forward by
-    #2 (rate > 0) or #1, backward by #3, gradients in x, wqkv, bqkv, wproj,
+    #2 (rate > 0) or #1 and backward by #3 where ``wblock_fits``, else
+    forward by #4 and backward by #5; gradients in x, wqkv, bqkv, wproj,
     bproj and rel_bias. ``wqkv_t`` and ``wproj_t``, when given, are the same
-    weights transposed, which #3 reads (see fused_window_block_backward)."""
+    weights transposed, which #3 and #5 read (see
+    fused_window_block_backward)."""
     return _WindowBlock.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, float(rate),
                               wqkv_t, wproj_t)
 
@@ -314,10 +423,14 @@ def _window_block_lib():
         lib.focal_wblock_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.focal_wblock_fwd_dropout.argtypes = (
             [p] * 9 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
-        lib.focal_wblock_bwd_workspace.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-        lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
-        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_dropout,
-                   lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd):
+        lib.focal_wblock_ph_fwd.argtypes = lib.focal_wblock_fwd_dropout.argtypes
+        for fn in (lib.focal_wblock_bwd_workspace, lib.focal_wblock_ph_bwd_workspace):
+            fn.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
+        for fn in (lib.focal_wblock_bwd, lib.focal_wblock_ph_bwd):
+            fn.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
+        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_dropout, lib.focal_wblock_ph_fwd,
+                   lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd,
+                   lib.focal_wblock_ph_bwd_workspace, lib.focal_wblock_ph_bwd):
             fn.restype = ctypes.c_int
         lib.focal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.focal_cuda_error_string.restype = ctypes.c_char_p

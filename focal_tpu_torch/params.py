@@ -1,5 +1,5 @@
 """Recipe loading, device selection, and the arguments of serving and of
-the training step.
+training.
 
 A dataset's recipe is ``focal_tpu_torch/configs/{dataset}.yaml``, the
 package's own copy of the JAX package's recipe; nothing else is searched.
@@ -104,8 +104,8 @@ def parse_predict_params(argv=None):
 
 
 def build_train_parser():
-    """The JAX CLI's flags that the pretrain step reads, spelled the same
-    (the epoch loop and its flags come with ROADMAP A3)."""
+    """The JAX CLI's training flags that the port runs, spelled the same,
+    and those it does not run yet, which parse_train_params refuses."""
     parser = argparse.ArgumentParser(description="FOCAL (PyTorch/CUDA) training")
     parser.add_argument("-dataset", type=str, default="MOD", help="Dataset recipe name.")
     parser.add_argument("-model", type=str, default="SW_Transformer", help="Backbone.")
@@ -117,13 +117,54 @@ def build_train_parser():
                         help="Global batch (256 in pretrain, else 128).")
     parser.add_argument("-clip_grad", action="store_true",
                         help="Apply the recipe's clip_grad value (off by default, as in the JAX CLI).")
+    parser.add_argument("-epochs", type=int, default=None,
+                        help="Number of epochs, instead of the recipe's (also the schedule's length).")
+    parser.add_argument("-val_epochs", type=int, default=None,
+                        help="Validate after epochs 0, N, 2N, ... and the last (pretrain: 10).")
+    parser.add_argument("-synthetic", action="store_true",
+                        help="Train on synthetic data shaped like the recipe (no files needed).")
+    parser.add_argument("-synthetic_samples", type=int, default=512,
+                        help="Synthetic train split size; val and test get a quarter each.")
+    parser.add_argument("-seed", type=int, default=0,
+                        help="Seed of the init, the data, the schedule and every generator.")
+    parser.add_argument("-output_dir", type=str, default=None,
+                        help="Root of the weights/ tree (default: the working directory).")
+    parser.add_argument("-resume", action="store_true",
+                        help="Go on from the _resume checkpoint of -model_weight's folder or of "
+                        "the newest matching experiment folder.")
+    parser.add_argument("-model_weight", type=str, default=None,
+                        help="Experiment folder to resume.")
+    parser.add_argument("-no_fused_views", action="store_true",
+                        help="Run the two pretrain views as two forwards, not one [2B] batch.")
+    parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
+    # the JAX CLI's flags for what the port does not run yet
+    parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7).")
+    parser.add_argument("-data_parallel", type=int, default=0, help="Not ported yet (ROADMAP A7).")
+    parser.add_argument("-model_parallel", type=int, default=1, help="Not ported yet (ROADMAP A7).")
+    parser.add_argument("-data_layout", type=str, default="auto",
+                        help="auto | replicated; sharded is not ported yet (ROADMAP A7).")
+    parser.add_argument("-ragged_tail", action="store_true", help="Not ported yet (ROADMAP A8).")
+    parser.add_argument("-py_aug_draws", action="store_true", help="Not ported yet (ROADMAP A8).")
     return parser
+
+
+# flag -> (the values the port runs, the ROADMAP item that brings the rest)
+_PORTED_VALUES = {
+    "grad_accum": ({1}, "A7"), "data_parallel": ({0, 1}, "A7"), "model_parallel": ({1}, "A7"),
+    "data_layout": ({"auto", "replicated"}, "A7"), "ragged_tail": ({False}, "A8"),
+    "py_aug_draws": ({False}, "A8"),
+}
 
 
 def parse_train_params(argv=None):
     """Parse training flags and fill the derived fields (recipe, task,
-    train_mode, batch_size)."""
+    train_mode, batch_size). A flag of what is not ported raises
+    NotImplementedError naming its ROADMAP item."""
     args = build_train_parser().parse_args(argv)
+    for name, (values, item) in _PORTED_VALUES.items():
+        if getattr(args, name) not in values:
+            raise NotImplementedError(
+                f"-{name} {getattr(args, name)} is not ported yet: ROADMAP {item}")
     args.dataset_config = load_dataset_config(args.dataset)
     if args.task is None:
         args.task = default_task(args.dataset, args.dataset_config)

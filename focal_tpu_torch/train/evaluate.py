@@ -1,0 +1,102 @@
+"""Evaluation of pretraining (port of the JAX package's
+``train/evaluate.py``): the pretrain loss over a split, encoder features
+for the KNN probe, and the task metrics (accuracy, macro-F1, confusion
+matrix) in numpy.
+
+A split's batches follow an ``EvalPlan``: every unit once, in order, the
+ragged tail padded and weighted 0. The model runs in eval mode, so its
+window attention goes through the eval kernels (#1, or #4 for wide blocks).
+"""
+
+import numpy as np
+import torch
+
+from focal_tpu_torch.ops.knn import KNN
+from focal_tpu_torch.train.steps import gather_batch
+
+
+class EvalPlan:
+    """Static batch schedule of a split from an eval loader (every unit
+    once, in order, the tail padded): ``idx`` [nb, B] rows on ``device``,
+    ``weight`` and ``labels`` [nb, B] in numpy."""
+
+    def __init__(self, loader, device):
+        plans = list(loader)
+        idx = np.stack([p.idx for p in plans])
+        self.idx = torch.from_numpy(idx).to(device)
+        self.weight = np.stack([p.weight for p in plans])
+        self.labels = loader.split.labels[idx]
+
+
+def extract_features(model, augmenter, plan, data):
+    """Per-mod encoder features (no projection) of every batch of a plan,
+    concatenated in mod-name order, the padded rows dropped -> (features
+    [n, d] on the device, labels [n] numpy)."""
+    model.eval()
+    rows = []
+    with torch.no_grad():
+        for idx in plan.idx:
+            feats = model(augmenter.no(gather_batch(data, idx)), head="feat")
+            rows.append(torch.cat([feats[m] for m in sorted(feats)], dim=-1))
+    keep = plan.weight.reshape(-1) > 0
+    stacked = torch.cat(rows)
+    return stacked[torch.from_numpy(keep).to(stacked.device)], plan.labels.reshape(-1)[keep]
+
+
+def compute_knn(model, augmenter, plan, train_data):
+    """The KNN probe fitted on the train split's features."""
+    feats, labels = extract_features(model, augmenter, plan, train_data)
+    return KNN().fit(feats, torch.from_numpy(labels).to(feats.device))
+
+
+def make_batched_pretrain_loss(model, augmenter, focal_loss):
+    """(data, plan, generator) -> mean FOCAL loss over the plan's batches:
+    two random views of each batch (drawn from ``generator``) through the
+    eval forward. Padded rows count, as in the JAX package."""
+
+    def loss_fn(data, plan, gen):
+        model.eval()
+        losses = []
+        with torch.no_grad():
+            for idx in plan.idx:
+                batch = gather_batch(data, idx)
+                f1 = model(augmenter.random(gen, batch), head="proj")
+                f2 = model(augmenter.random(gen, batch), head="proj")
+                losses.append(focal_loss(f1, f2)[0])
+        return float(torch.stack(losses).mean())
+
+    return loss_fn
+
+
+def eval_task_metrics(args, labels, predictions):
+    """(accuracy, macro-F1, confusion matrix) as scikit-learn computes
+    them. Accuracy is the ordinal closeness for distance and speed tasks.
+    F1 per class present in labels or predictions is 2 tp / (2 tp + fp +
+    fn); the confusion matrix's rows are true classes and its columns
+    predicted ones, over the sorted classes present in either."""
+    labels = np.asarray(labels)
+    predictions = np.asarray(predictions)
+    if args.task in {"distance_classification", "speed_classification"}:
+        num_classes = args.dataset_config[args.task]["num_classes"]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            closeness = 1 - (np.abs(labels - predictions)
+                             / np.maximum(labels, (num_classes - 1) - labels))
+        mean_acc = float(np.nan_to_num(closeness, nan=1.0).mean())
+    else:
+        mean_acc = float((labels == predictions).mean())
+    classes = np.unique(np.concatenate([labels, predictions]))
+    li, pi = np.searchsorted(classes, labels), np.searchsorted(classes, predictions)
+    conf = np.zeros((len(classes), len(classes)), np.int64)
+    np.add.at(conf, (li, pi), 1)
+    tp = np.diag(conf)
+    f1 = 2 * tp / (2 * tp + (conf.sum(0) - tp) + (conf.sum(1) - tp))
+    return mean_acc, float(f1.mean()), conf
+
+
+def eval_pretrained(args, model, augmenter, loss_fn, estimator, plan, data, gen):
+    """(mean pretrain loss, (accuracy, macro-F1, confusion)) of a split,
+    the metrics from the KNN probe's predictions."""
+    mean_loss = loss_fn(data, plan, gen)
+    feats, labels = extract_features(model, augmenter, plan, data)
+    preds = estimator.predict(feats).cpu().numpy()
+    return mean_loss, eval_task_metrics(args, labels, preds)

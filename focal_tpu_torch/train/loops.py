@@ -1,0 +1,169 @@
+"""Stage loops (port of the JAX package's ``train/loops.py``): FOCAL
+pretraining on one device.
+
+Epochs of pretrain steps over the device-resident train split; validation
+after epochs 0, val_epochs, 2 val_epochs, ... and the last: a KNN probe
+fitted on the train split's encoder features, then the pretrain loss and
+the probe's metrics on val and test. Every validation point saves the
+backbone (`_latest`; `_best` when the val loss is the lowest so far) and the
+full state (`_resume`). A non-finite train loss stops the run.
+
+Randomness is derived, never carried: an epoch's permutation from (seed,
+epoch), a step's views and dropout from (seed, update count), a
+validation's views from (seed, epoch). A run resumed from `_resume` thus
+takes the steps a straight run takes. Unlike the JAX loop, `_resume` holds
+the best val loss after this point's update, so that a resumed run also
+picks `_best` as a straight run does.
+"""
+
+import logging
+import math
+import time
+
+import numpy as np
+import torch
+
+from focal_tpu_torch.data import (DeviceDataLoader, create_dataloader, load_split,
+                                  sequence_batches)
+from focal_tpu_torch.models import build_backbone
+from focal_tpu_torch.models.sw_transformer import init_params
+from focal_tpu_torch.ops.augment import build_augmenter
+from focal_tpu_torch.output_paths import checkpoint_paths, set_model_weight_folder
+from focal_tpu_torch.params import select_device
+from focal_tpu_torch.train import checkpoint as ckpt
+from focal_tpu_torch.train import evaluate as ev
+from focal_tpu_torch.train.losses import make_focal_loss
+from focal_tpu_torch.train.state import create_train_state
+from focal_tpu_torch.train.steps import make_pretrain_step
+
+_PERMUTATION, _EVAL = 1, 2  # generator streams derived from the seed
+_RESIDENT_SHARE = 0.6  # of device memory a resident train split may take
+
+
+def _generator(seed, stream, n):
+    """A CPU generator keyed by (seed, stream, n)."""
+    key = int(np.random.SeedSequence([seed, stream, n]).generate_state(1, np.uint64)[0])
+    return torch.Generator().manual_seed(key % 2**63)
+
+
+class Run:
+    """What a stage loop needs, built once, on one device: the train, val
+    and test splits resident there, the train split's loader (its steps),
+    the augmenter, and the model in the flax package's init from -seed."""
+
+    def __init__(self, args):
+        self.args = args
+        self.device = select_device(args.device)
+        self.splits = {}
+        for name in ("train", "val", "test"):
+            split = load_split(name, args)
+            if name == "train" and self.device.type == "cuda":
+                nbytes = sum(a.nbytes for mods in split.data.values() for a in mods.values())
+                total = torch.cuda.get_device_properties(self.device).total_memory
+                if nbytes > _RESIDENT_SHARE * total:
+                    raise NotImplementedError(
+                        f"train split of {nbytes / 2**30:.1f} GiB does not fit the device; "
+                        "streaming is not ported yet: ROADMAP A7")
+            self.splits[name] = split.to(self.device)
+        self.train_loader = train = create_dataloader("train", self.splits["train"], args)
+        if not len(train):
+            raise ValueError("the train split holds less than one batch")
+        logging.info(f"= Splits: train {len(self.splits['train'])} samples / {len(train)} steps "
+                     f"of {train.batch_size}, val {len(self.splits['val'])}, "
+                     f"test {len(self.splits['test'])}; device {self.device}")
+        self.augmenter = build_augmenter(args)
+        model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework)
+        self.model = init_params(model, seed=args.seed).to(self.device)
+        self._plans = {}
+
+    def eval_plan(self, split):
+        """Every unit of a split once, in order, in batches of -batch_size."""
+        if split not in self._plans:
+            loader = DeviceDataLoader(self.splits[split], self.args.batch_size,
+                                      sequence=sequence_batches(self.args))
+            self._plans[split] = ev.EvalPlan(loader, self.device)
+        return self._plans[split]
+
+    def train_batches(self, epoch):
+        """[steps, rows] on the device: each step's rows of an epoch, from a
+        permutation of the train units keyed by (seed, epoch), ``per`` units
+        a step, the ragged tail dropped. One copy an epoch, so no step waits
+        on the host."""
+        loader = self.train_loader
+        perm = torch.randperm(loader.units, generator=_generator(self.args.seed, _PERMUTATION, epoch))
+        rows = loader.rows(perm.numpy()[:len(loader) * loader.per]).astype(np.int64)
+        return torch.from_numpy(rows).to(self.device).view(len(loader), -1)
+
+
+def _nan_guard(train_loss, stage, epoch):
+    if not math.isfinite(train_loss):
+        logging.error(f"[{stage}] non-finite train loss at epoch {epoch}; aborting. "
+                      "Restart from the _resume checkpoint with -resume.")
+        raise FloatingPointError(f"{stage} diverged at epoch {epoch}: loss={train_loss}")
+
+
+def log_val_test(stage, epoch, val_loss, val_metrics, test_loss, test_metrics):
+    logging.info(f"[{stage}] epoch {epoch}: val loss {val_loss:.5f}")
+    logging.info(f"Val acc: {val_metrics[0]:.5f}, val f1: {val_metrics[1]:.5f}")
+    logging.info(f"Val confusion matrix:\n {val_metrics[2]}")
+    logging.info(f"Test loss: {test_loss:.5f}")
+    logging.info(f"Test acc: {test_metrics[0]:.5f}, test f1: {test_metrics[1]:.5f}")
+    logging.info(f"Test confusion matrix:\n {test_metrics[2]}")
+
+
+def pretrain(args):
+    """FOCAL pretraining of ``args`` (parse_train_params). Returns (state,
+    best val loss, validation points), a point being a dict of the epoch,
+    the train loss and the val/test losses and metrics."""
+    select_device(args.device)  # no card and no -device cpu: raise before any folder is made
+    set_model_weight_folder(args)
+    run = Run(args)
+    train_epochs = args.epochs or (
+        args.dataset_config[args.learn_framework]["pretrain_lr_scheduler"]["train_epochs"])
+    steps_per_epoch = len(run.train_loader)
+    state = create_train_state(args, run.model, steps_per_epoch, seed=args.seed)
+    logging.info(f"= Model params: {sum(p.numel() for p in run.model.parameters()):,}")
+    focal_loss = make_focal_loss(args)
+    step = make_pretrain_step(run.model, run.augmenter, focal_loss,
+                              fused_views=not args.no_fused_views)
+    loss_fn = ev.make_batched_pretrain_loss(run.model, run.augmenter, focal_loss)
+    best_path, latest_path, resume_path = checkpoint_paths(args)
+    val_epochs = args.val_epochs or 10
+    best_val_loss, start_epoch = math.inf, 0
+    if args.resume:
+        epoch, best_val_loss = ckpt.restore_state(resume_path, state)
+        start_epoch = epoch + 1
+        logging.info(f"= Resumed from {resume_path} at epoch {start_epoch}, best {best_val_loss:.5f}")
+    data = run.splits["train"].data
+    points = []
+    start = block_t0 = time.time()
+    block_samples = 0
+    for epoch in range(start_epoch, train_epochs):
+        losses = [step(state, data, idx)[1]["loss"] for idx in run.train_batches(epoch)]
+        block_samples += steps_per_epoch * run.train_loader.batch_size
+        if epoch % val_epochs and epoch != train_epochs - 1:
+            continue
+        train_loss = float(torch.stack(losses).mean())
+        _nan_guard(train_loss, "pretrain", epoch)
+        logging.info(f"[pretrain] epoch {epoch}: train loss {train_loss:.5f} "
+                     f"({block_samples / max(time.time() - block_t0, 1e-9):.1f} samples/s)")
+        estimator = ev.compute_knn(run.model, run.augmenter, run.eval_plan("train"), data)
+        val_loss, val_metrics = ev.eval_pretrained(
+            args, run.model, run.augmenter, loss_fn, estimator, run.eval_plan("val"),
+            run.splits["val"].data, _generator(args.seed, _EVAL, epoch))
+        test_loss, test_metrics = ev.eval_pretrained(
+            args, run.model, run.augmenter, loss_fn, estimator, run.eval_plan("test"),
+            run.splits["test"].data, _generator(args.seed, _EVAL, epoch + 1))
+        log_val_test("pretrain", epoch, val_loss, val_metrics, test_loss, test_metrics)
+        ckpt.save_params(latest_path, run.model)
+        if val_loss < best_val_loss:
+            best_val_loss = val_loss
+            ckpt.save_params(best_path, run.model)
+        ckpt.save_state(resume_path, state, epoch, best_val_loss)
+        points.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
+                       "val_acc": val_metrics[0], "val_f1": val_metrics[1],
+                       "test_loss": test_loss, "test_acc": test_metrics[0],
+                       "test_f1": test_metrics[1]})
+        block_t0, block_samples = time.time(), 0
+    logging.info(f"[pretrain] total time {time.time() - start:.1f}s, best val loss {best_val_loss:.5f}")
+    return state, best_val_loss, points

@@ -100,13 +100,16 @@ def clip_by_global_norm(grads, max_norm):
 
 def build_optimizer(args, model, steps_per_epoch):
     """(StepOptimizer over the trainable parameters, lr(epoch)) from the
-    framework's pretrain recipe. Frozen parameters (``trainable_mask``) get
-    requires_grad False here."""
+    framework's pretrain recipe; a run's -epochs, when given, is also the
+    schedule's length, as in the JAX package. Frozen parameters
+    (``trainable_mask``) get requires_grad False here."""
     if args.train_mode == "supervised" or args.stage != "pretrain":
-        raise NotImplementedError("only contrastive pretraining is ported: ROADMAP A3/A4")
+        raise NotImplementedError("only contrastive pretraining is ported: ROADMAP A4")
     section = args.dataset_config[args.learn_framework]
     optimizer_config = section["pretrain_optimizer"]
     scheduler_config = section["pretrain_lr_scheduler"]
+    if getattr(args, "epochs", None):
+        scheduler_config = dict(scheduler_config, train_epochs=args.epochs)
     lr_epoch = make_epoch_schedule(scheduler_config, optimizer_config)
     wd = optimizer_config.get("weight_decay", 0.0)
     if isinstance(wd, dict):

@@ -181,3 +181,122 @@ def test_window_block_function_gradients_on_card(transposed):
     want = torch.autograd.grad(ref, ref_leaves, dy)
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# per-head kernels: #4 (forward, with and without dropout) and #5 (backward)
+# at the MOD_WIDE widths C = 512 (hd 128) and 1024 (hd 256), 4 heads; window
+# batches that are not a multiple of the windows per block (2 or 1). Same
+# tolerances as #1-#3.
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [512, 1024])
+@pytest.mark.parametrize("nW", [0, 4])
+def test_perhead_forward_matches_plain(C, nW):
+    from focal_tpu_torch.ops.pallas_kernels import (
+        fused_window_block_perhead, fused_window_block_reference)
+
+    dev = _card()
+    B, N, H = 131, 9, 4
+    args = _args(np.random.default_rng(C + nW), B, N, C, H, nW, dev)
+    before = fused_window_block_perhead.launches
+    y, keep = fused_window_block_perhead(*args)
+    torch.cuda.synchronize()
+    assert keep is None and fused_window_block_perhead.launches == before + 1
+    assert float((y - fused_window_block_reference(*args)).abs().max()) <= 1e-4
+    rate = 0.2
+    y, keep = fused_window_block_perhead(*args, seed=77, rate=rate)
+    torch.cuda.synchronize()
+    assert keep.dtype == torch.uint8 and keep.shape == (B, H, N, N) and int(keep.max()) <= 1
+    assert float((y - fused_window_block_reference(*args, keep, rate)).abs().max()) <= 1e-4
+    kept = float(keep.double().mean())
+    assert abs(kept - (1 - rate)) <= 5 * (rate * (1 - rate) / keep.numel()) ** 0.5, kept
+
+
+@pytest.mark.gpu
+def test_perhead_mask_equals_dropout_kernels_mask():
+    """#4 draws from #2's Philox counters: the same seed and geometry give
+    the same keep mask bit for bit (C = 512, where #2 also launches)."""
+    from focal_tpu_torch.ops.pallas_kernels import (
+        fused_window_block_dropout, fused_window_block_perhead)
+
+    dev = _card()
+    args = _args(np.random.default_rng(3), 70, 9, 512, 4, 4, dev)
+    _, k2 = fused_window_block_dropout(*args, seed=2024, rate=0.2)
+    _, k4 = fused_window_block_perhead(*args, seed=2024, rate=0.2)
+    torch.cuda.synchronize()
+    assert torch.equal(k2, k4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [512, 1024])
+@pytest.mark.parametrize("nW,rate", [(0, 0.0), (4, 0.0), (4, 0.2)])
+def test_perhead_backward_matches_autograd_of_plain(C, nW, rate):
+    from focal_tpu_torch.ops.pallas_kernels import (
+        fused_window_block_backward_reference, fused_window_block_perhead,
+        fused_window_block_perhead_backward)
+
+    dev = _card()
+    B, N, H = 131, 9, 4
+    rng = np.random.default_rng(C + nW + 1)
+    args = _args(rng, B, N, C, H, nW, dev)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    keep = fused_window_block_perhead(*args, seed=5, rate=rate)[1] if rate else None
+    before = fused_window_block_perhead_backward.launches
+    got = fused_window_block_perhead_backward(*args, dy, keep, rate)
+    torch.cuda.synchronize()
+    assert fused_window_block_perhead_backward.launches == before + 1
+    want = fused_window_block_backward_reference(*args, dy, keep, rate)
+    for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) <= 1e-4, (name, _rel(g, w))
+    again = fused_window_block_perhead_backward(*args, dy, keep, rate)
+    for g, h in zip(got, again):  # fixed-order sums: bitwise repeatable
+        assert torch.equal(g, h)
+
+
+@pytest.mark.gpu
+def test_window_block_routes_wide_blocks_to_the_perhead_kernels():
+    """At C = 512 the autograd pair launches #4 and #5 and neither #2 nor
+    #3, and its gradients match autograd of the plain version."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    B, N, C, H, nW = 40, 9, 512, 4, 4
+    rng = np.random.default_rng(12)
+    args = _args(rng, B, N, C, H, nW, dev)
+    leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+    counts = [k.launches for k in (pk.fused_window_block_dropout, pk.fused_window_block_backward,
+                                   pk.fused_window_block_perhead,
+                                   pk.fused_window_block_perhead_backward)]
+    y = pk.window_block(*leaves, args[6], seed=4, rate=0.2)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    got = torch.autograd.grad(y, leaves, dy)
+    after = [k.launches for k in (pk.fused_window_block_dropout, pk.fused_window_block_backward,
+                                  pk.fused_window_block_perhead,
+                                  pk.fused_window_block_perhead_backward)]
+    assert [a - b for a, b in zip(after, counts)] == [0, 0, 1, 1]
+    _, keep = pk.fused_window_block_perhead(*args, seed=4, rate=0.2)
+    ref_leaves = [a.clone().requires_grad_(True) for a in args[:6]]
+    ref = pk.fused_window_block_reference(*ref_leaves, args[6], keep, 0.2)
+    assert float((y - ref).detach().abs().max()) <= 1e-4
+    for g, w in zip(got, torch.autograd.grad(ref, ref_leaves, dy)):
+        assert _rel(g, w) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_wrappers_raise_on_a_failed_launch_plan():
+    """A geometry whose window does not fit a block raises; nothing falls
+    back: #3 at C = 1024 (the reason #5 exists), #4 and #5 at C = 4096."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    args = _args(np.random.default_rng(2), 4, 9, 1024, 4, 0, dev)
+    dy = torch.zeros_like(args[0])
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        pk.fused_window_block_backward(*args, dy)
+    wide = _args(np.random.default_rng(3), 2, 9, 4096, 4, 0, dev)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        pk.fused_window_block_perhead(*wide)
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        pk.fused_window_block_perhead_backward(*wide, torch.zeros_like(wide[0]))

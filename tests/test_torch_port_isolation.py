@@ -1,5 +1,7 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX package,
-and its entry points refuse to carry on on the CPU unless asked."""
+"""The port stands alone: importing it loads neither JAX nor the JAX package
+(nor scikit-learn, which the card's machine lacks), importing its training
+CLI runs nothing, and its entry points refuse to carry on on the CPU unless
+asked."""
 
 import json
 import os
@@ -23,7 +25,8 @@ for name in names:
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "jaxlib" or m.startswith("jaxlib.")
        or m == "flax" or m.startswith("flax.")
-       or m == "focal_tpu" or m.startswith("focal_tpu.")]
+       or m == "focal_tpu" or m.startswith("focal_tpu.")
+       or m == "sklearn" or m.startswith("sklearn.")]
 print(json.dumps({"modules": names, "bad": sorted(bad)}))
 """
 
@@ -35,6 +38,7 @@ def test_port_imports_no_jax_and_no_focal_tpu():
     assert proc.returncode == 0, proc.stderr
     probe = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "focal_tpu_torch.serve" in probe["modules"], probe  # submodules were walked
+    assert "focal_tpu_torch.train.__main__" in probe["modules"], probe  # imported, ran nothing
     assert probe["bad"] == [], f"port pulled in: {probe['bad']}"
 
 
@@ -43,6 +47,16 @@ def test_default_device_without_card_raises(monkeypatch):
     cfg = load_dataset_config("MOD_TINY")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Predictor(cfg, "SW_Transformer", "vehicle_classification")
+
+
+def test_training_cli_defaults_to_the_card(monkeypatch, tmp_path):
+    """python -m focal_tpu_torch.train without -device raises with no card."""
+    import importlib
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        cli.main(["-dataset", "MOD_TINY", "-synthetic", "-output_dir", str(tmp_path)])
 
 
 def test_kernel_input_validator():

@@ -36,7 +36,7 @@ from focal_tpu.train.losses import make_focal_loss as jax_make_focal_loss
 from focal_tpu.train.optim import build_optimizer as jax_build_optimizer
 from focal_tpu.train.state import init_state
 from focal_tpu.train.steps import make_pretrain_step as jax_make_pretrain_step
-from focal_tpu_torch.data import make_synthetic_dataset
+from focal_tpu_torch.data import synthetic_arrays, to_device
 from focal_tpu_torch.models import build_backbone
 from focal_tpu_torch.ops.augment import build_augmenter
 from focal_tpu_torch.params import parse_train_params
@@ -108,9 +108,9 @@ def _port_step(cfg, init, fused_views=True):
     model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework)
     model.load_state_dict(params_from_flax(init, {}, args.dataset_config), strict=True)
     state = create_train_state(args, model, steps_per_epoch=STEPS_PER_EPOCH)
-    ds = make_synthetic_dataset(args.dataset_config, args.task, 2 * BATCH, seed=0)
+    data = to_device(synthetic_arrays(args.dataset_config, args.task, 2 * BATCH, seed=0)[0], "cpu")
     step = make_pretrain_step(model, build_augmenter(args), make_focal_loss(args), fused_views)
-    state, metrics = step(state, ds.data, torch.arange(BATCH))
+    state, metrics = step(state, data, torch.arange(BATCH))
     grads = {n: p.grad for n, p in model.named_parameters() if p.requires_grad}
     return state, {k: float(v) for k, v in metrics.items()}, grads
 
