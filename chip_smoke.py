@@ -65,7 +65,31 @@ result line if any fails):
      and a torch.profiler trace of one step;
  13. timing of #4 and #5 at each per-head geometry (kernel, plain, library,
      bound), and beside them #1 and #3 at the C = 512 geometries, where
-     they launch too.
+     they launch too;
+ 14. kernels #13 (fused_conv_tower) and #14 (fused_conv_tower_backward) vs
+     plain at every conv-tower geometry of the DeepSense pretrain step: MOD
+     (batch 256, views fused to 512: R 5,120 rows of S 20, C 64) and
+     MOD_WIDE (batch 128 fused to 256, C 256), seismic (first conv inside,
+     KW 3, Cin 2) and audio (first conv outside, KW 5): output, batch means
+     and variances <= 1e-5 relative, the five gradients <= 1e-4 relative
+     (absolutely to 1e-2 where both are below 1e-2: conv biases before a
+     BatchNorm), the same bits on a second call;
+ 15. DeepSense MOD pretrain steps at batch 256 (flax-style init, synthetic
+     data resident on the card): 3 warm-up + 20 timed steps on the default
+     path (cuDNN convs, no kernel launched) and with -pallas_conv (#13 11
+     and #14 20 launches a step), p50, samples/s, peak memory and a
+     profiled step's idle share for both; a dropout-0 step, kernels vs
+     plain, from the initial state (loss 1e-5, gradients 1e-4 relative,
+     running statistics 1e-5) and from the trained one (reported);
+ 16. the entry point: python -m focal_tpu_torch.train -dataset MOD -model
+     DeepSense -pallas_conv -synthetic in-process, 2 epochs with validation,
+     then -resume to 3: finite losses, the three checkpoint files with the
+     running statistics, #13/#14 launches only in the steps (eval forwards
+     launch nothing); then Predictor serves the _best file over ~1,000
+     synthetic samples at batch 128 (no kernel launched);
+ 17. timing of #13 and #14 per tower geometry (kernel, plain version, the
+     unfused cuDNN chain and its autograd backward as the library
+     yardstick, and the bound).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
@@ -446,6 +470,249 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
     return train, (state, step, tdata, idx)
 
 
+# ---------------------------------------------------------------------------
+# DeepSense and its conv-tower kernels (#13, #14)
+
+DS_BATCH = 256            # DeepSense MOD samples per step; views fused to 512
+DS_WIDE_BATCH = 128       # DeepSense MOD_WIDE samples per step; views fused to 256
+DS_SAMPLES = 512          # MOD synthetic train split of the DeepSense entry-point run
+TOWER_TOL = 1e-5          # relative: output, batch means and variances
+# a gradient below NEAR_ZERO on both sides is compared absolutely, to
+# NEAR_ZERO, as the JAX package's own test holds its kernels: a conv bias
+# before a BatchNorm has a true gradient of 0, and both sides sum ~1e5 rows
+# of cancellation noise (~1e-3)
+NEAR_ZERO = 1e-2
+# operations an element of a layer's output, besides its conv: forward the
+# two stat sums (3), the BN affine (2), the GELU with its erf (~20), the mask
+# and the residual (2); backward the GELU derivative (~25), x-hat and gy (4),
+# the two sums (4), dc (5), the residual (1) and db (1)
+FWD_ELEM_OPS = 27
+BWD_ELEM_OPS = 40
+CT = "focal_tpu/ops/conv_tower.py"
+# the device kernels of csrc/conv_tower.cu as the profiler names them (in
+# the source's anonymous namespace, unlike PyTorch's at::native ones)
+TOWER_KERNEL_NAMES = tuple(f"{v}(anonymous namespace)::{k}" for v in ("", "void ") for k in (
+    "conv_tile_kernel<", "elementwise_kernel<", "wgrad_kernel(", "bn_grad_sums_kernel(",
+    "reduce_partials_kernel("))
+
+
+def tower_geometries(cfg, samples, dataset):
+    """The conv towers of one DeepSense train forward at ``samples`` (the
+    views fused): per modality R = samples * intervals rows of S positions,
+    its layer configs and whether the first conv runs outside."""
+    ds = cfg["DeepSense"]
+    loc = cfg["location_names"][0]
+    half = ds["loc_mod_out_channels"] // 2
+    geos = []
+    for mod in cfg["modality_names"]:
+        lens = ds["loc_mod_conv_lens"][mod]
+        stride = ds["loc_mod_in_conv_stride"][mod]
+        s = cfg["loc_mod_spectrum_len"][loc][mod]
+        external = max(stride) > 1
+        S = (s - lens[0][1]) // stride[1] + 1 if external else s
+        cin0 = cfg["loc_mod_in_freq_channels"][loc][mod]
+        L = 1 + ds["loc_mod_conv_inter_layers"]
+        cfgs = tuple((lens[0][1] if k == 0 else lens[1][1], cin0 if k == 0 else half, half, k > 0)
+                     for k in range(L))
+        geos.append({"name": f"{dataset} {mod}", "samples": samples,
+                     "intervals": cfg["num_segments"], "R": samples * cfg["num_segments"], "S": S,
+                     "C": half, "cfgs": cfgs, "external": external})
+    return geos
+
+
+def tower_work(g):
+    """(forward FLOPs, forward bytes, backward FLOPs, backward bytes) of the
+    chain at geometry g: the convs 2*R*S*KW*Cin*Cout (twice in the
+    backward: the transposed conv and dW) plus FWD_ELEM_OPS / BWD_ELEM_OPS
+    an output element; bytes: each input of the function read once and
+    each output written once (forward: x0, the parameters and masks in,
+    the last activation and the statistics out; backward: dy and the saved
+    activations in, dx0 and the parameter gradients out)."""
+    R, S, C = g["R"], g["S"], g["C"]
+    RS = R * S
+    f_fl = b_fl = 0
+    params = 0
+    saved = 0
+    for k, (kw, cin, cout, _) in enumerate(g["cfgs"]):
+        conv = 0 if (k == 0 and g["external"]) else 2 * RS * kw * cin * cout
+        f_fl += conv + FWD_ELEM_OPS * RS * cout
+        b_fl += 2 * conv + BWD_ELEM_OPS * RS * cout
+        params += (0 if (k == 0 and g["external"]) else kw * cin * cout) + 3 * cout
+        saved += 2 * RS * cout  # c_k and a_k
+    cin0 = g["cfgs"][0][2] if g["external"] else g["cfgs"][0][1]
+    masks = len(g["cfgs"]) * g["samples"] * C
+    f_by = 4 * (RS * cin0 + params + masks + RS * C + 2 * len(g["cfgs"]) * C)
+    b_by = 4 * (RS * C + saved + RS * cin0 + params + masks + RS * cin0 + params)
+    return f_fl, f_by, b_fl, b_by
+
+
+def tower_inputs(torch, np, g, seed, dev):
+    """Inputs at a trained model's scale: unit activations, lecun-scaled
+    weights, BN affine near (1, 0), Dropout2d masks of rate 0.2 per sample."""
+    rng = np.random.default_rng(seed)
+    cin0 = g["cfgs"][0][2] if g["external"] else g["cfgs"][0][1]
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    x0 = t(rng.normal(size=(g["R"], g["S"], cin0)))
+    ws, bs, scales, biases, masks = [], [], [], [], []
+    for k, (kw, cin, cout, _) in enumerate(g["cfgs"]):
+        ws.append(t(np.zeros((1, 1))) if (k == 0 and g["external"]) else
+                  t(rng.normal(size=(kw * cin, cout)) * (kw * cin) ** -0.5))
+        bs.append(t(rng.normal(size=cout) * 0.1))
+        scales.append(t(1.0 + 0.1 * rng.normal(size=cout)))
+        biases.append(t(0.1 * rng.normal(size=cout)))
+        masks.append(t((rng.random((g["samples"], cout)) > 0.2) / 0.8))
+    dy = t(rng.normal(size=(g["R"], g["S"], g["C"])))
+    return x0, [ws, bs, scales, biases], masks, dy
+
+
+def tower_leaves(torch, x0, params, external):
+    """Differentiable copies: x0 and every parameter but an external first
+    conv's placeholders."""
+    x0 = x0.clone().requires_grad_(True)
+    params = [[p.clone().requires_grad_(not (external and k == 0 and gi < 2))
+               for k, p in enumerate(group)] for gi, group in enumerate(params)]
+    leaves = [x0] + [p for group in params for p in group if p.requires_grad]
+    return x0, params, leaves
+
+
+def grad_errors(got, want):
+    """(worst relative error over the gradients compared relatively, worst
+    absolute error over the near-zero ones, worst absolute error overall)."""
+    rel = near = absolute = 0.0
+    for g, w in zip(got, want):
+        d = float((g - w).abs().max())
+        absolute = max(absolute, d)
+        if max(float(g.abs().max()), float(w.abs().max())) < NEAR_ZERO:
+            near = max(near, d)
+        else:
+            rel = max(rel, d / float(w.abs().max()))
+    return rel, near, absolute
+
+
+def library_tower(torch, F, x0, g, params, masks):
+    """Yardstick only: the unfused chain through cuDNN (conv2d in NCHW,
+    batch_norm in training mode, GELU, the mask, the residual)."""
+    ws, bs, scales, biases = params
+    R, S = g["R"], g["S"]
+    x = x0.permute(0, 2, 1).unsqueeze(2)  # [R, Cin, 1, S]
+    a = None
+    for k, (kw, cin, cout, residual) in enumerate(g["cfgs"]):
+        if k == 0 and g["external"]:
+            c = x
+        else:
+            w4 = ws[k].view(kw, cin, cout).permute(2, 1, 0).unsqueeze(2)  # [Cout, Cin, 1, KW]
+            c = F.conv2d(a if k > 0 else x, w4, bs[k], padding=(0, (kw - 1) // 2))
+        y = F.batch_norm(c, None, None, scales[k], biases[k], training=True, eps=1e-5)
+        m = masks[k].repeat_interleave(R // masks[k].shape[0], dim=0)[:, :, None, None]
+        z = F.gelu(y, approximate="none") * m
+        a = z + a if residual else z
+    return a
+
+
+def run_deepsense_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, dev, tag):
+    """DeepSense pretrain steps (flax-style init, seed 0, synthetic data
+    resident on the card, a fixed idx): warm-up, then timed steps with each
+    kernel's launches per step checked, and one profiled step. Returns
+    (summary, model)."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    host_data, labels, _ = synthetic_arrays(targs.dataset_config, targs.task, 2 * batch, seed=0)
+    tdata = to_device(host_data, dev)
+    idx = torch.arange(batch, device=dev) % len(labels)
+    model = build_backbone(targs.dataset_config, "DeepSense", targs.task, targs.learn_framework,
+                           pallas_conv=targs.pallas_conv)
+    init_params(model, seed=0).to(dev)
+    state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
+    step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
+    t0 = time.time()
+    for _ in range(warmup):
+        state, metrics = step(state, tdata, idx)
+    torch.cuda.synchronize()
+    log(f"[{tag}] MOD DeepSense pretrain{' -pallas_conv' if targs.pallas_conv else ''}, batch "
+        f"{batch} (views fused to {2 * batch}), {sum(p.numel() for p in model.parameters())} "
+        f"parameters; {warmup} warm-up steps in {time.time() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    step_s, history = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, metrics = step(state, tdata, idx)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        history.append(torch.stack([metrics[k] for k in sorted(metrics)]))
+    launches = counts(kernels)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    history = torch.stack(history).cpu()
+    if not bool(torch.isfinite(history).all()):
+        raise AssertionError(f"{tag}: non-finite loss or part: {history}")
+    check_counts(f"{tag}: {steps} steps", launches,
+                 {k.__name__: per_step.get(k.__name__, 0) * steps for k in kernels})
+    p50_ms = float(np.percentile(step_s, 50)) * 1e3
+    profile = profile_device(torch, lambda: step(state, tdata, idx))
+    own_ms = sum(r["device_ms"] for r in profile["rows"] if r["name"].startswith(TOWER_KERNEL_NAMES))
+    summary = {
+        "steps": steps, "launches": launches, "p50_ms": p50_ms, "tower_kernels_device_ms": own_ms,
+        "mean_ms": float(np.mean(step_s)) * 1e3, "min_ms": float(np.min(step_s)) * 1e3,
+        "max_ms": float(np.max(step_s)) * 1e3, "samples_per_s": batch / (p50_ms / 1e3),
+        "peak_mb": peak_mb, "loss_first": float(history[0][sorted(metrics).index("loss")]),
+        "loss_last": float(history[-1][sorted(metrics).index("loss")]), "profile": profile,
+        "idle_share": 1 - profile["device_busy_ms"] / profile["wall_ms"],
+    }
+    log(f"[{tag}] {steps} steps: launches {launches}; loss {summary['loss_first']:.4f} -> "
+        f"{summary['loss_last']:.4f}; p50 step {p50_ms:.3f} ms (mean {summary['mean_ms']:.3f}, "
+        f"min {summary['min_ms']:.3f}, max {summary['max_ms']:.3f}), "
+        f"{summary['samples_per_s']:.1f} samples/s, peak memory {peak_mb:.1f} MiB")
+    log_profile(tag, "one profiled step", profile, top=15)
+    log(f"[{tag}] device time of the conv-tower kernels (#13, #14) in the profiled step: "
+        f"{own_ms:.4f} ms")
+    del state, step, tdata, idx
+    return summary, model
+
+
+def deepsense_rate0_step(torch, targs, weights, dev, plain):
+    """One pretrain step of DeepSense at dropout 0 with -pallas_conv from
+    ``weights`` (a state_dict): through the tower's kernels, or with
+    ``plain`` through its plain version. Returns (loss, {name: gradient},
+    {name: running statistic}) on the CPU."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone
+    from focal_tpu_torch.models import layers as layers_mod
+    from focal_tpu_torch.ops import conv_tower as ct
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    cfg0 = copy.deepcopy(targs.dataset_config)
+    cfg0["DeepSense"]["dropout_ratio"] = 0.0
+    args0 = copy.copy(targs)
+    args0.dataset_config = cfg0
+    host_data, labels, _ = synthetic_arrays(cfg0, targs.task, 2 * targs.batch_size, seed=0)
+    data = to_device(host_data, dev)
+    idx = torch.arange(targs.batch_size, device=dev) % len(labels)
+    m = build_backbone(cfg0, "DeepSense", targs.task, targs.learn_framework, pallas_conv=True)
+    m.load_state_dict(weights)
+    m.to(dev)
+    st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
+    if plain:
+        layers_mod.fused_conv_tower = ct.fused_conv_tower_reference
+    try:
+        _, mt = make_pretrain_step(m, build_augmenter(args0), make_focal_loss(args0))(st, data, idx)
+    finally:
+        layers_mod.fused_conv_tower = ct.fused_conv_tower
+    return (float(mt["loss"]), {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None},
+            {n: b.detach().cpu() for n, b in m.named_buffers()})
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for the per-geometry JSON")
@@ -467,13 +734,15 @@ def main():
     from focal_tpu_torch.data import DeviceDataLoader, load_split, synthetic_arrays
     from focal_tpu_torch.models import swin as swin_mod
     from focal_tpu_torch.ops import _build
+    from focal_tpu_torch.ops import conv_tower as ct
     from focal_tpu_torch.ops import pallas_kernels as pk
     from focal_tpu_torch.params import load_yaml, parse_train_params
     from focal_tpu_torch.serve import Predictor
 
     fwd, fwd_drop, bwd = pk.fused_window_block, pk.fused_window_block_dropout, pk.fused_window_block_backward
     ph_fwd, ph_bwd = pk.fused_window_block_perhead, pk.fused_window_block_perhead_backward
-    all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd)
+    ct_fwd, ct_bwd = ct.fused_conv_tower, ct.fused_conv_tower_backward
+    all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -841,6 +1110,215 @@ def main():
         f"library {wtot['bwd_library_ms']:.3f}, bound {wtot['bwd_bound_ms']:.3f}); share of the "
         f"p50 step {(wtot['fwd_ms'] + wtot['bwd_ms']) / wide['p50_ms']:.3f}; one eval forward's "
         f"#4 {wtot['eval_ms']:.3f} ms")
+
+    # ---- 14. #13 and #14 vs plain at every tower geometry of the DeepSense
+    # pretrain step: MOD (batch 256, views fused to 512, C 64) and MOD_WIDE
+    # (batch 128 fused to 256, C 256), seismic (first conv inside) and audio
+    # (first conv outside)
+    import torch.nn.functional as F
+
+    cgeos = (tower_geometries(cfg, 2 * DS_BATCH, "MOD")
+             + tower_geometries(wcfg, 2 * DS_WIDE_BATCH, "MOD_WIDE"))
+    ct_fwd_err = ct_grad_rel = ct_grad_near = ct_grad_abs = 0.0
+    for gi, g in enumerate(cgeos):
+        x0, params, masks, dy = tower_inputs(torch, np, g, 100 + gi, dev)
+        runs = []
+        for fn in (ct_fwd, ct_fwd, ct.fused_conv_tower_reference):
+            xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
+            y, mus, vars_ = fn(xl, g["cfgs"], *pl_, masks, g["external"])
+            runs.append((y.detach(), mus, vars_, torch.autograd.grad(y, leaves, dy)))
+            del y
+        torch.cuda.synchronize()
+        (y, mus, vars_, grads), again, (ry, rmus, rvars, rgrads) = runs
+        fwd_rel = max([rel_err(y, ry)] + [rel_err(a, b) for a, b in zip(mus + vars_, rmus + rvars)])
+        fwd_abs = max([float((y - ry).abs().max())]
+                      + [float((a - b).abs().max()) for a, b in zip(mus + vars_, rmus + rvars)])
+        g_rel, g_near, g_abs = grad_errors(grads, rgrads)
+        same = (torch.equal(y, again[0]) and all(torch.equal(a, b) for a, b in zip(mus, again[1]))
+                and all(torch.equal(a, b) for a, b in zip(grads, again[3])))
+        g.update(max_rel_err_fwd=fwd_rel, max_abs_err_fwd=fwd_abs, max_rel_err_bwd=g_rel,
+                 max_abs_err_bwd_near_zero=g_near, max_abs_err_bwd=g_abs, repeatable=same)
+        ct_fwd_err = max(ct_fwd_err, fwd_abs)
+        ct_grad_rel, ct_grad_near, ct_grad_abs = (max(ct_grad_rel, g_rel), max(ct_grad_near, g_near),
+                                                  max(ct_grad_abs, g_abs))
+        log(f"[check-tower] {g['name']}: R {g['R']} S {g['S']} C {g['C']} layers {len(g['cfgs'])}"
+            f"{' (first conv outside)' if g['external'] else ''}: #13 max rel err {fwd_rel:.3e} "
+            f"(output, means, variances); #14 max rel err {g_rel:.3e}, near-zero max abs err "
+            f"{g_near:.3e}; same bits on a second call: {same}")
+        if not fwd_rel <= TOWER_TOL:
+            raise AssertionError(f"{g['name']}: #13 differs from plain by {fwd_rel}")
+        if not (g_rel <= GRAD_TOL and g_near <= NEAR_ZERO):
+            raise AssertionError(f"{g['name']}: #14 gradients differ from plain: {g_rel}, {g_near}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #13/#14 give other bits on a second call")
+        del runs, grads, again, rgrads, x0, params, masks, dy
+    torch.cuda.empty_cache()
+
+    # ---- 15. DeepSense MOD pretrain steps at batch 256: the default path
+    # (cuDNN convs, no kernel) and -pallas_conv (#13/#14), in one call
+    mod_geos = [g for g in cgeos if g["name"].startswith("MOD ")]
+    ds_per_step = {ct_fwd.__name__: sum(len(g["cfgs"]) + (0 if g["external"] else 1)
+                                        for g in mod_geos),
+                   ct_bwd.__name__: sum(2 * len(g["cfgs"]) for g in mod_geos)}
+    ds_runs = {}
+    for pallas in (False, True):
+        dargs = parse_train_params(["-dataset", "MOD", "-model", "DeepSense", "-learn_framework",
+                                    "FOCAL", "-stage", "pretrain", "-batch_size", str(DS_BATCH)]
+                                   + (["-pallas_conv"] if pallas else []))
+        tag = "deepsense-pallas" if pallas else "deepsense-default"
+        ds_runs[tag], trained = run_deepsense_steps(
+            torch, np, dargs, DS_BATCH, TRAIN_WARMUP, TRAIN_STEPS, all_kernels,
+            ds_per_step if pallas else {}, dev, tag)
+        if pallas:
+            trained_sd = {k: v.detach().cpu().clone() for k, v in trained.state_dict().items()}
+        del trained
+        torch.cuda.empty_cache()
+    # the rate-0 step, kernels vs plain: from the initial state (held) and
+    # from the -pallas_conv run's trained state (reported)
+    from focal_tpu_torch.models import build_backbone, init_params
+
+    initial_sd = init_params(build_backbone(cfg, "DeepSense", task, "FOCAL"), seed=0).state_dict()
+    rate0 = {}
+    for where, weights in (("initial", initial_sd), ("trained", trained_sd)):
+        kern = deepsense_rate0_step(torch, dargs, weights, dev, plain=False)
+        plain = deepsense_rate0_step(torch, dargs, weights, dev, plain=True)
+        loss_rel = abs(kern[0] - plain[0]) / abs(plain[0])
+        g_rel, g_near, _ = grad_errors([kern[1][n] for n in plain[1]], list(plain[1].values()))
+        stats_rel = max(rel_err(kern[2][n], plain[2][n]) for n in plain[2])
+        rate0[where] = {"loss_kernel": kern[0], "loss_plain": plain[0], "loss_rel": loss_rel,
+                        "max_grad_rel": g_rel, "max_grad_abs_near_zero": g_near,
+                        "max_stats_rel": stats_rel}
+        log(f"[deepsense-rate0] from the {where} state, kernels vs plain: loss {kern[0]:.6f} vs "
+            f"{plain[0]:.6f} (rel {loss_rel:.2e}), max grad rel err {g_rel:.2e} (near-zero max "
+            f"abs {g_near:.2e}), running statistics max rel err {stats_rel:.2e}"
+            f"{'' if where == 'initial' else ' (reported, not held)'}")
+        if where == "initial" and not (loss_rel <= LOSS_TOL and g_rel <= GRAD_TOL
+                                       and g_near <= NEAR_ZERO and stats_rel <= TOWER_TOL):
+            raise AssertionError(f"DeepSense rate-0 step, kernels vs plain: {rate0[where]}")
+        del kern, plain
+    del trained_sd, initial_sd
+    torch.cuda.empty_cache()
+
+    # ---- 16. the entry point: python -m focal_tpu_torch.train -dataset MOD
+    # -model DeepSense -pallas_conv -synthetic, 2 epochs, then -resume to 3;
+    # then Predictor serves the _best file
+    run_dir = os.path.join(HERE, "build", "chip_smoke_deepsense")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["-dataset", "MOD", "-model", "DeepSense", "-learn_framework", "FOCAL", "-stage",
+            "pretrain", "-pallas_conv", "-synthetic", "-synthetic_samples", str(DS_SAMPLES),
+            "-batch_size", str(DS_BATCH), "-val_epochs", "1", "-output_dir", run_dir]
+    ds_cli = []
+    folder = os.path.join(run_dir, "weights", "MOD_DeepSense")
+    for extra, points_want in ((["-epochs", "2"], [0, 1]), (["-epochs", "3", "-resume"], [2])):
+        zero_counts(all_kernels)
+        t0 = time.time()
+        st, best, points = train_cli.main(argv + extra)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        got = counts(all_kernels)
+        n_steps = st.step - (ds_cli[-1]["step"] if ds_cli else 0)
+        # eval forwards launch nothing: the counts are the steps' alone
+        want = {k.__name__: ds_per_step.get(k.__name__, 0) * n_steps for k in all_kernels}
+        if [p["epoch"] for p in points] != points_want:
+            raise AssertionError(f"validation points {[p['epoch'] for p in points]} != {points_want}")
+        for p in points:
+            if not all(math.isfinite(p[k]) for k in ("train_loss", "val_loss", "test_loss")):
+                raise AssertionError(f"non-finite loss at a validation point: {p}")
+        check_counts(f"DeepSense train CLI {' '.join(extra)}", got, want)
+        (exp,) = [d for d in os.listdir(folder) if d.startswith("exp")]
+        files = {kind: os.path.join(folder, exp, f"MOD_DeepSense_pretrain_{kind}.pt")
+                 for kind in ("latest", "best", "resume")}
+        for kind, path in files.items():
+            saved = torch.load(path, map_location="cpu", weights_only=True)
+            keys = saved["model"] if kind == "resume" else saved
+            n_stats = sum(k.endswith(".mean") or k.endswith(".var") for k in keys)
+            if n_stats != 2 * sum(len(g["cfgs"]) for g in mod_geos):  # each BatchNorm's two
+                raise AssertionError(f"{path}: {n_stats} running statistics")
+        ds_cli.append({"argv": extra, "seconds": secs, "step": st.step, "steps": n_steps,
+                       "launches": got, "points": points, "best": best})
+        log(f"[deepsense-cli] MOD {' '.join(extra)}: {n_steps} steps in {secs:.1f}s; launches "
+            f"{got}; points " + "; ".join(
+                f"epoch {p['epoch']} train {p['train_loss']:.4f} val {p['val_loss']:.4f} "
+                f"test {p['test_loss']:.4f} val acc {p['val_acc']:.3f}" for p in points))
+        del st
+    predictor = Predictor(cfg, "DeepSense", task, files["best"], batch_size=SERVE_BATCH,
+                          device="cuda", learn_framework="FOCAL")
+    zero_counts(all_kernels)
+    ds_result = predictor.predict(data)
+    ds_serve_launches = counts(all_kernels)
+    check_counts("DeepSense serving", ds_serve_launches, {k.__name__: 0 for k in all_kernels})
+    dprobs = ds_result["probs"]
+    if dprobs.shape != (n, cfg[task]["num_classes"]) or not np.isfinite(dprobs).all():
+        raise AssertionError(f"DeepSense: bad probabilities: shape {dprobs.shape}")
+    if float(np.abs(dprobs.sum(-1) - 1.0).max()) > 1e-5:
+        raise AssertionError("DeepSense: probabilities do not sum to 1")
+    ds_lat = ds_result["latency"]
+    log(f"[deepsense-serve] {n} samples in {ds_lat['batches']} batches of {SERVE_BATCH} from the "
+        f"_best file: p50 batch {ds_lat['p50_s'] * 1e3:.3f} ms, p99 {ds_lat['p99_s'] * 1e3:.3f} ms, "
+        f"{ds_lat['windows_per_s']:.1f} samples/s; launches {ds_serve_launches}")
+    del predictor
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # ---- 17. #13 and #14 timing per tower geometry: the kernels, the plain
+    # versions, the library yardstick (the unfused cuDNN chain and its
+    # autograd backward) and the bound
+    ctot = {}
+    for gi, g in enumerate(cgeos):
+        x0, params, masks, dy = tower_inputs(torch, np, g, 200 + gi, dev)
+        _, _, _, saved = ct.tower_forward(x0, g["cfgs"], *params, masks, g["external"])
+        g["fwd_ms"] = time_ms(torch, lambda: ct.tower_forward(x0, g["cfgs"], *params, masks,
+                                                              g["external"]))
+        g["bwd_ms"] = time_ms(torch, lambda: ct_bwd(saved, dy))
+        with torch.no_grad():
+            g["fwd_plain_ms"] = time_ms(torch, lambda: ct.fused_conv_tower_reference(
+                x0, g["cfgs"], *params, masks, g["external"]))
+            g["fwd_library_ms"] = time_ms(torch, lambda: library_tower(torch, F, x0, g, params, masks))
+        xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
+        ry = ct.fused_conv_tower_reference(xl, g["cfgs"], *pl_, masks, g["external"])[0]
+        g["bwd_plain_ms"] = time_ms(torch, lambda: torch.autograd.grad(ry, leaves, dy,
+                                                                       retain_graph=True))
+        del ry
+        xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
+        ly = library_tower(torch, F, xl, g, pl_, masks)
+        dyl = dy.permute(0, 2, 1).unsqueeze(2)
+        g["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(ly, leaves, dyl,
+                                                                         retain_graph=True))
+        del ly, saved
+        f_fl, f_by, b_fl, b_by = tower_work(g)
+        g["fwd_gflop"], g["bwd_gflop"] = f_fl / 1e9, b_fl / 1e9
+        g["fwd_bound_ms"], g["fwd_bound_by"] = bound(f_fl, f_by)
+        g["bwd_bound_ms"], g["bwd_bound_by"] = bound(b_fl, b_by)
+        g["fwd_flops_bytes"], g["bwd_flops_bytes"] = (f_fl, f_by), (b_fl, b_by)
+        log(f"[time-tower] {g['name']}: #13 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
+            f"library {g['fwd_library_ms']:.4f}, bound {g['fwd_bound_ms']:.4f}, "
+            f"{f_fl / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #14 {g['bwd_ms']:.4f} ms (plain "
+            f"{g['bwd_plain_ms']:.4f}, library {g['bwd_library_ms']:.4f}, bound "
+            f"{g['bwd_bound_ms']:.4f}, {b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+        ds = g["name"].split()[0]
+        step_sum = ctot.setdefault(ds, {"fwd_flops": 0, "fwd_bytes": 0, "bwd_flops": 0,
+                                        "bwd_bytes": 0})
+        for k in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "bwd_ms", "bwd_plain_ms",
+                  "bwd_library_ms"):
+            step_sum[k] = step_sum.get(k, 0.0) + g[k]
+        step_sum["fwd_flops"] += f_fl
+        step_sum["fwd_bytes"] += f_by
+        step_sum["bwd_flops"] += b_fl
+        step_sum["bwd_bytes"] += b_by
+        del x0, params, masks, dy, xl, pl_, leaves
+    for ds, step_sum in ctot.items():
+        step_sum["fwd_bound_ms"] = bound(step_sum["fwd_flops"], step_sum["fwd_bytes"])[0]
+        step_sum["bwd_bound_ms"] = bound(step_sum["bwd_flops"], step_sum["bwd_bytes"])[0]
+        log(f"[time-tower] one {ds} DeepSense step's towers: #13 {step_sum['fwd_ms']:.3f} ms "
+            f"(plain {step_sum['fwd_plain_ms']:.3f}, library {step_sum['fwd_library_ms']:.3f}, "
+            f"bound {step_sum['fwd_bound_ms']:.3f}, {step_sum['fwd_flops'] / 1e9:.2f} GFLOP); #14 "
+            f"{step_sum['bwd_ms']:.3f} ms (plain {step_sum['bwd_plain_ms']:.3f}, library "
+            f"{step_sum['bwd_library_ms']:.3f}, bound {step_sum['bwd_bound_ms']:.3f}, "
+            f"{step_sum['bwd_flops'] / 1e9:.2f} GFLOP)")
+    mod_tot = ctot["MOD"]
+    log(f"[time-tower] share of the -pallas_conv p50 step (MOD): "
+        f"{(mod_tot['fwd_ms'] + mod_tot['bwd_ms']) / ds_runs['deepsense-pallas']['p50_ms']:.3f}")
+    torch.cuda.empty_cache()
     log(f"[smoke] {time.time() - t_start:.1f}s after the build started")
 
     if cli.out:
@@ -855,11 +1333,15 @@ def main():
                 "launches": launches, "slice_err": slice_err, "profile": serve_profile,
                 "train": train, "train_profile": train_profile, "wide": wide,
                 "wide_profile": wide_profile, "train_cli": cli_runs,
+                "tower_geometries": [{k: v for k, v in g.items() if k != "cfgs"} for g in cgeos],
+                "tower_per_step": ctot, "deepsense_steps": ds_runs, "deepsense_rate0": rate0,
+                "deepsense_cli": ds_cli, "deepsense_serve_latency": ds_lat,
             }, f, indent=1)
 
-    def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per, **extra):
+    def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
+              source="focal_tpu_torch/csrc/window_block.cu", **extra):
         ops_t, byte_t = flops_bytes[0] / F32_FLOPS, flops_bytes[1] / HBM_BYTES_PER_S
-        return {"name": name, "route": "cuda", "source": "focal_tpu_torch/csrc/window_block.cu",
+        return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches_, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain, "bound_ms": bnd,
                 "bound_by": "operations" if ops_t >= byte_t else "bytes", "library_ms": lib,
@@ -868,7 +1350,13 @@ def main():
     by_path = {k.__name__: {"serve_MOD": serve_launches[k.__name__],
                             "pretrain_steps_MOD": train_launches[k.__name__],
                             "train_cli_MOD_WIDE": sum(r["launches"][k.__name__] for r in cli_runs),
-                            "pretrain_steps_MOD_WIDE": wide["launches"][k.__name__]}
+                            "pretrain_steps_MOD_WIDE": wide["launches"][k.__name__],
+                            "pretrain_steps_MOD_DeepSense_default":
+                                ds_runs["deepsense-default"]["launches"][k.__name__],
+                            "pretrain_steps_MOD_DeepSense_pallas_conv":
+                                ds_runs["deepsense-pallas"]["launches"][k.__name__],
+                            "train_cli_MOD_DeepSense": sum(r["launches"][k.__name__] for r in ds_cli),
+                            "serve_MOD_DeepSense": ds_serve_launches[k.__name__]}
                for k in all_kernels}
     cli_launches = by_path[ph_fwd.__name__]["train_cli_MOD_WIDE"]
     train_per = (f"times: one pretrain step at batch {TRAIN_BATCH} (views fused to "
@@ -877,6 +1365,17 @@ def main():
                 f"{2 * WIDE_BATCH}), {n_ph} launches; launches: the MOD_WIDE train CLI run "
                 f"({sum(r['steps'] for r in cli_runs)} steps, "
                 f"{sum(r['eval_forwards'] for r in cli_runs)} eval forwards)")
+    tower_per = (f"times: the two conv towers of one MOD DeepSense pretrain step at batch "
+                 f"{DS_BATCH} (views fused to {2 * DS_BATCH}); launches: {TRAIN_STEPS} timed "
+                 f"-pallas_conv steps; max_abs_err: worst over the MOD and MOD_WIDE towers "
+                 f"(#14: every gradient, the near-zero conv-bias ones included)")
+
+    def per_wide(d):
+        w = ctot["MOD_WIDE"]
+        return {"ms": w[f"{d}_ms"], "plain_ms": w[f"{d}_plain_ms"],
+                "library_ms": w[f"{d}_library_ms"], "bound_ms": w[f"{d}_bound_ms"],
+                "batch": DS_WIDE_BATCH}
+
     kernels = [
         entry("fused_window_block", f"{PK}:949", launches, max_err, tot["ms"], tot["plain_ms"],
               tot["bound_ms"], (tot["flops"], tot["bytes"]), tot["library_ms"],
@@ -902,6 +1401,23 @@ def main():
               wtot["bwd_plain_ms"], wtot["bwd_bound_ms"], wflops["bwd"], wtot["bwd_library_ms"],
               wide_per, launches_per_step=n_ph, max_rel_err=ph_grad_err,
               launches_by_path=by_path[ph_bwd.__name__]),
+        entry("fused_conv_tower", f"{CT}:174", by_path[ct_fwd.__name__][
+                  "pretrain_steps_MOD_DeepSense_pallas_conv"], ct_fwd_err, mod_tot["fwd_ms"],
+              mod_tot["fwd_plain_ms"], mod_tot["fwd_bound_ms"],
+              (mod_tot["fwd_flops"], mod_tot["fwd_bytes"]), mod_tot["fwd_library_ms"], tower_per,
+              source="focal_tpu_torch/csrc/conv_tower.cu", replaces_also=[f"{CT}:163"],
+              launches_per_step=ds_per_step[ct_fwd.__name__], steps=TRAIN_STEPS,
+              max_rel_err=max(g["max_rel_err_fwd"] for g in cgeos),
+              mod_wide_step=per_wide("fwd"), launches_by_path=by_path[ct_fwd.__name__]),
+        entry("fused_conv_tower_backward", f"{CT}:230", by_path[ct_bwd.__name__][
+                  "pretrain_steps_MOD_DeepSense_pallas_conv"], ct_grad_abs, mod_tot["bwd_ms"],
+              mod_tot["bwd_plain_ms"], mod_tot["bwd_bound_ms"],
+              (mod_tot["bwd_flops"], mod_tot["bwd_bytes"]), mod_tot["bwd_library_ms"], tower_per,
+              source="focal_tpu_torch/csrc/conv_tower.cu",
+              replaces_also=[f"{CT}:206", f"{CT}:257"],
+              launches_per_step=ds_per_step[ct_bwd.__name__], steps=TRAIN_STEPS,
+              max_rel_err=ct_grad_rel, max_abs_err_near_zero=ct_grad_near,
+              mod_wide_step=per_wide("bwd"), launches_by_path=by_path[ct_bwd.__name__]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

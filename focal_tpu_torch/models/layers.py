@@ -1,8 +1,250 @@
-"""Shared heads and fusion blocks (port of the JAX package's ``models/layers.py``)."""
+"""Shared building blocks (port of the JAX package's ``models/layers.py``):
+DeepSense's conv blocks and bidirectional GRU, and the heads and fusion
+blocks of both backbones.
+
+Conv blocks take NHWC input ([b, interval, spectrum, channel]), as the JAX
+package's do. The unfused path convolves in NCHW with cuDNN in full f32
+(TF32 off, as the JAX package computes in f32); the fused path
+(``use_pallas``, training only) runs the conv tower of
+``ops/conv_tower.py``, whose kernels are #13/#14. Module names are the flax
+tree's (``ConvLayer2D_{k}.Conv_0``, ``.BatchNorm_0``, ``out_proj``,
+``gru{k}``); BatchNorm keeps ``weight``/``bias`` and the buffers ``mean``
+and ``var``.
+
+In ``train()`` mode the dropout of a block takes the step's ``rng``
+(``ops.dropout.StepRngs``) and draws its masks from ``rng.device``.
+"""
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from focal_tpu_torch.ops.conv_tower import BN_EPS, fused_conv_tower, tower_fits
+from focal_tpu_torch.ops.dropout import keep_mask, needs_rng
+
+BN_MOMENTUM = 0.9  # flax's: running = 0.9 running + 0.1 batch (torch momentum 0.1)
+
+
+def conv2d_f32(x, weight, bias, stride):
+    """F.conv2d (NCHW, no padding) with cuDNN's TF32 off: full f32."""
+    with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
+                                    benchmark=torch.backends.cudnn.benchmark,
+                                    deterministic=torch.backends.cudnn.deterministic,
+                                    allow_tf32=False):
+        return F.conv2d(x, weight, bias, stride)
+
+
+class BatchNorm(nn.Module):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` over every axis but
+    the channels (dim 1). Training normalises with the batch's mean and its
+    biased variance by the fast formula, E[x^2] - E[x]^2 clipped at 0, and
+    folds them into the running ``mean``/``var`` with momentum 0.9; eval
+    normalises with the running ones."""
+
+    def __init__(self, features):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    @torch.no_grad()
+    def update(self, mu, var):
+        """Fold one batch's statistics into the running ones."""
+        self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mu)
+        self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
+
+    def forward(self, x):
+        dims = [d for d in range(x.dim()) if d != 1]
+        if self.training:
+            mu = x.mean(dim=dims)
+            var = torch.clamp((x * x).mean(dim=dims) - mu * mu, min=0.0)
+            self.update(mu.detach(), var.detach())
+        else:
+            mu, var = self.mean, self.var
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        mul = torch.rsqrt(var + BN_EPS) * self.weight
+        return (x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
+
+
+class ConvLayer2D(nn.Module):
+    """conv2d + BatchNorm + exact GELU + Dropout2d (whole (sample, channel)
+    planes), NCHW in and out. Padding SAME at stride 1 (flax's split:
+    (k-1)//2 before), VALID otherwise."""
+
+    def __init__(self, cin, features, kernel_size, stride=(1, 1), dropout_ratio=0.0):
+        super().__init__()
+        self.kernel_size = tuple(kernel_size)
+        self.stride = tuple(stride)
+        self.dropout_ratio = float(dropout_ratio)
+        self.Conv_0 = nn.Conv2d(cin, features, self.kernel_size, self.stride)
+        self.BatchNorm_0 = BatchNorm(features)
+
+    def conv(self, x):
+        if max(self.stride) == 1:
+            kh, kw = self.kernel_size
+            x = F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
+        return conv2d_f32(x, self.Conv_0.weight, self.Conv_0.bias, self.stride)
+
+    def forward(self, x, rng=None):
+        x = F.gelu(self.BatchNorm_0(self.conv(x)), approximate="none")
+        if self.training and self.dropout_ratio > 0.0:
+            gen = needs_rng(rng, "Dropout2d").device
+            x = x * keep_mask(x.shape[:2], self.dropout_ratio, gen)[:, :, None, None]
+        return x
+
+
+class ConvBlock(nn.Module):
+    """Per-(loc, mod) encoder: input conv (strided for audio) -> N residual
+    SAME convs -> per-interval flatten -> ``out_proj``.
+    Input [b, i, s, cin] (NHWC) -> [b, i_out, out_channels] (i_out 1 when
+    conv_lens[1][0] > 1 folds the intervals).
+
+    With ``use_pallas``, a training forward whose geometry ``tower_fits``
+    (as the JAX package's ConvBlock decides) runs the layers as the fused
+    conv tower; a strided input conv stays a cuDNN conv and feeds the tower
+    its output. Parameters and buffers are the same on both paths."""
+
+    def __init__(self, cin, in_size, out_channels, conv_lens, num_inter_layers,
+                 in_stride=(1, 1), dropout_ratio=0.0, use_pallas=False):
+        super().__init__()
+        self.half = out_channels // 2
+        self.conv_lens = [tuple(c) for c in conv_lens]
+        self.stride = tuple(in_stride) if not isinstance(in_stride, int) else (1, in_stride)
+        self.num_layers = 1 + num_inter_layers
+        self.dropout_ratio = float(dropout_ratio)
+        self.use_pallas = use_pallas
+        self.add_module("ConvLayer2D_0", ConvLayer2D(cin, self.half, self.conv_lens[0], self.stride,
+                                                     dropout_ratio))
+        for k in range(1, self.num_layers):
+            self.add_module(f"ConvLayer2D_{k}", ConvLayer2D(self.half, self.half, self.conv_lens[1],
+                                                            (1, 1), dropout_ratio))
+        i, s = in_size
+        if self.strided:
+            i = (i - self.conv_lens[0][0]) // self.stride[0] + 1
+            s = (s - self.conv_lens[0][1]) // self.stride[1] + 1
+        self.out_size = (i, s)
+        flat = i * s * self.half if self.conv_lens[1][0] > 1 else s * self.half
+        self.out_proj = nn.Linear(flat, out_channels)
+
+    @property
+    def strided(self):
+        return max(self.stride) > 1
+
+    def layers(self):
+        return [getattr(self, f"ConvLayer2D_{k}") for k in range(self.num_layers)]
+
+    def fused_geometry(self, x):
+        """Whether the fused tower takes input x [b, i, s, c]: the JAX
+        package's ConvBlock._fused_geometry."""
+        if self.conv_lens[0][0] != 1 or self.conv_lens[1][0] != 1:
+            return False  # tall kernels fold the intervals
+        b, i, _, _ = x.shape
+        kw_max = self.conv_lens[1][1] if self.strided else max(self.conv_lens[0][1],
+                                                                self.conv_lens[1][1])
+        return tower_fits(b * i, self.out_size[1], self.half, torch.float32, kw_max=kw_max)
+
+    def forward(self, x, rng=None):
+        if self.use_pallas and self.training and self.fused_geometry(x):
+            x = self._fused_tower(x, rng)
+        else:
+            layers = self.layers()
+            x = layers[0](x.permute(0, 3, 1, 2), rng)  # NCHW
+            for layer in layers[1:]:
+                x = x + layer(x, rng)
+            x = x.permute(0, 2, 3, 1)  # back to NHWC before the flatten
+        b, i, s, c = x.shape
+        x = x.reshape(b, 1, i * s * c) if self.conv_lens[1][0] > 1 else x.reshape(b, i, s * c)
+        return self.out_proj(x)
+
+    def _fused_tower(self, x, rng):
+        b, i, s, cin = x.shape
+        layers = self.layers()
+        s_out = self.out_size[1]
+        kws = [self.conv_lens[0][1]] + [self.conv_lens[1][1]] * (self.num_layers - 1)
+        cins = [cin] + [self.half] * (self.num_layers - 1)
+        if self.strided:
+            c0 = layers[0].conv(x.permute(0, 3, 1, 2))  # [b, half, i, s_out]
+            x0 = c0.permute(0, 2, 3, 1).reshape(b * i, s_out, self.half)
+        else:
+            x0 = x.reshape(b * i, s, cin).contiguous()
+        cfgs, ws, bs, scales, biases, masks = [], [], [], [], [], []
+        for k, layer in enumerate(layers):
+            cfgs.append((kws[k], cins[k], self.half, k > 0))
+            if k == 0 and self.strided:
+                ws.append(x0.new_zeros((1, 1)))  # external first conv: a placeholder
+            else:  # [cout, cin, 1, kw] -> flax HWIO [1, kw, cin, cout] -> [kw*cin, cout]
+                ws.append(layer.Conv_0.weight.permute(2, 3, 1, 0).reshape(kws[k] * cins[k], self.half))
+            bs.append(layer.Conv_0.bias)
+            scales.append(layer.BatchNorm_0.weight)
+            biases.append(layer.BatchNorm_0.bias)
+            if self.dropout_ratio > 0.0:
+                masks.append(keep_mask((b, self.half), self.dropout_ratio,
+                                       needs_rng(rng, "Dropout2d").device))
+            else:
+                masks.append(x0.new_ones((b, self.half)))
+        a, mus, vars_ = fused_conv_tower(x0, cfgs, ws, bs, scales, biases, masks,
+                                         external_c0=self.strided)
+        for layer, mu, var in zip(layers, mus, vars_):
+            layer.BatchNorm_0.update(mu, var)
+        return a.reshape(b, i, s_out, self.half)
+
+
+class BiGRULayer(nn.Module):
+    """One bidirectional GRU layer, each direction its own parameters,
+    stacked on a leading axis as in flax: wi [2, C, 3H], bi [2, 3H], wh
+    [2, H, 3H], bh [2, 3H], gates in the order r, z, n:
+      r = s(x Wir + bir + h Whr + bhr), z = s(... z ...),
+      n = tanh(x Win + bin + r * (h Whn + bhn)), h' = (1 - z) n + z h.
+    The reverse direction reads the time-reversed input and its outputs are
+    reversed back. Input [b, t, C] -> [b, t, 2H] (forward ++ reverse)."""
+
+    def __init__(self, cin, hidden):
+        super().__init__()
+        self.hidden = hidden
+        self.wi = nn.Parameter(torch.zeros(2, cin, 3 * hidden))
+        self.bi = nn.Parameter(torch.zeros(2, 3 * hidden))
+        self.wh = nn.Parameter(torch.zeros(2, hidden, 3 * hidden))
+        self.bh = nn.Parameter(torch.zeros(2, 3 * hidden))
+
+    def forward(self, x):
+        B, T, _ = x.shape
+        H = self.hidden
+        both = torch.stack([x, x.flip(1)])  # [2, b, t, C]
+        xproj = torch.einsum("dbtc,dcg->tdbg", both, self.wi) + self.bi[:, None]  # [t, 2, b, 3H]
+        h = x.new_zeros((2, B, H))
+        ys = []
+        for t in range(T):
+            hp = torch.baddbmm(self.bh[:, None], h, self.wh)  # [2, b, 3H]
+            xp = xproj[t]
+            r = torch.sigmoid(xp[..., :H] + hp[..., :H])
+            z = torch.sigmoid(xp[..., H:2 * H] + hp[..., H:2 * H])
+            n = torch.tanh(xp[..., 2 * H:] + r * hp[..., 2 * H:])
+            h = (1.0 - z) * n + z * h
+            ys.append(h)
+        ys = torch.stack(ys)  # [t, 2, b, H]
+        return torch.cat([ys[:, 0].transpose(0, 1), ys.flip(0)[:, 1].transpose(0, 1)], dim=-1)
+
+
+class BiGRU(nn.Module):
+    """num_layers bidirectional GRU layers (``gru{k}``), dropout between
+    them (a [b, t, 2H] mask on the layer's output, as the JAX package
+    applies it inside its scan), mean over time. [b, t, C] -> [b, 2H]."""
+
+    def __init__(self, cin, hidden, num_layers=2, dropout_ratio=0.0):
+        super().__init__()
+        self.num_layers = num_layers
+        self.dropout_ratio = float(dropout_ratio)
+        for k in range(num_layers):
+            self.add_module(f"gru{k}", BiGRULayer(cin if k == 0 else 2 * hidden, hidden))
+
+    def forward(self, x, rng=None):
+        x = x.to(torch.float32)
+        for k in range(self.num_layers):
+            x = getattr(self, f"gru{k}")(x)
+            if self.training and self.dropout_ratio > 0.0 and k < self.num_layers - 1:
+                x = x * keep_mask(x.shape, self.dropout_ratio, needs_rng(rng, "GRU dropout").device)
+        return x.mean(dim=1)
 
 
 class MultiHeadDotProductAttention(nn.Module):

@@ -1,21 +1,36 @@
-"""Backbone registry."""
+"""Backbone registry: build a backbone by name, and its flax-style init."""
 
 from focal_tpu_torch.params import get_train_mode
 
 
-def build_backbone(dataset_config, model, task, learn_framework="no"):
+def build_backbone(dataset_config, model, task, learn_framework="no", pallas_conv=False):
     """Instantiate the backbone named `model` (on the CPU; move it after).
 
     The class head is linear for supervised training or when the recipe's
-    ``pretrained_head`` says so, as in the JAX package."""
+    ``pretrained_head`` says so, as in the JAX package. ``pallas_conv``
+    (DeepSense only) trains the conv blocks through the fused conv-tower
+    kernels, as the JAX package's ``-pallas_conv``."""
+    if model not in ("SW_Transformer", "DeepSense"):
+        raise ValueError(f"Invalid model provided: {model}")
+    linear_head = (
+        get_train_mode(learn_framework) == "supervised"
+        or dataset_config[model].get("pretrained_head", "linear") == "linear"
+    )
     if model == "SW_Transformer":
         from focal_tpu_torch.models.sw_transformer import SWTransformer
 
-        linear_head = (
-            get_train_mode(learn_framework) == "supervised"
-            or dataset_config[model].get("pretrained_head", "linear") == "linear"
-        )
         return SWTransformer(dataset_config, task, linear_class_head=linear_head)
-    if model == "DeepSense":
-        raise NotImplementedError("DeepSense is not ported yet: ROADMAP A5")
-    raise ValueError(f"Invalid model provided: {model}")
+    from focal_tpu_torch.models.deepsense import DeepSense
+
+    return DeepSense(dataset_config, task, linear_class_head=linear_head, use_pallas=pallas_conv)
+
+
+def init_params(model, seed=0):
+    """The flax-style seeded init of a backbone built by build_backbone."""
+    from focal_tpu_torch.models import deepsense, sw_transformer
+
+    if isinstance(model, deepsense.DeepSense):
+        return deepsense.init_params(model, seed)
+    if isinstance(model, sw_transformer.SWTransformer):
+        return sw_transformer.init_params(model, seed)
+    raise ValueError(f"No init for {type(model).__name__}")

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from focal_tpu_torch.ops.dropout import remat_dropout
+from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
 from focal_tpu_torch.ops.pallas_kernels import window_block, window_block_forward
 
 
@@ -84,12 +84,6 @@ def block_geometry(input_resolution, window_size, shift_size):
     if W <= ww:
         sw, ww = 0, W
     return wh, ww, sh, sw, min(sh, sw) > 0
-
-
-def _needs_rng(rng, what):
-    if rng is None:
-        raise ValueError(f"{what} in training needs the step's rng (ops.dropout.StepRngs)")
-    return rng
 
 
 class WindowAttention(nn.Module):
@@ -156,13 +150,13 @@ class WindowAttention(nn.Module):
             return window_block_forward(x.contiguous(), *self.folded_kernel_args(), mask)
         # training folds with grad, so the weights' gradients flow back
         # through the q scale, the transposes and the bias-table gather
-        seed = _needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
+        seed = needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
         wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
         out = window_block(x.contiguous(), wqkv_t.t().contiguous(), bqkv, wproj_t.t().contiguous(),
                            bproj, rel_bias, mask, seed, self.attn_drop,
                            wqkv_t=wqkv_t, wproj_t=wproj_t)
         if self.proj_drop > 0.0:
-            out = remat_dropout(out, self.proj_drop, _needs_rng(rng, "proj_drop").device)
+            out = remat_dropout(out, self.proj_drop, needs_rng(rng, "proj_drop").device)
         return out
 
 
@@ -179,7 +173,7 @@ class DropPath(nn.Module):
         if not self.training or self.rate == 0.0:
             return x
         keep = 1.0 - self.rate
-        gen = _needs_rng(rng, "DropPath").device
+        gen = needs_rng(rng, "DropPath").device
         kept = torch.rand(x.shape[0], generator=gen, device=x.device) < keep
         return torch.where(kept.view((-1,) + (1,) * (x.dim() - 1)), x / keep, 0.0)
 
@@ -197,7 +191,7 @@ class Mlp(nn.Module):
     def _drop(self, x, rng):
         if not self.training or self.drop == 0.0:
             return x
-        return remat_dropout(x, self.drop, _needs_rng(rng, "Mlp dropout").device)
+        return remat_dropout(x, self.drop, needs_rng(rng, "Mlp dropout").device)
 
     def forward(self, x, rng=None):
         x = self._drop(F.gelu(self.Dense_0(x), approximate="none"), rng)

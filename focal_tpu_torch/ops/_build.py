@@ -17,7 +17,7 @@ import subprocess
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "focal_tpu_torch")
-SOURCES = ("window_block.cu",)
+SOURCES = ("window_block.cu", "conv_tower.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -57,22 +57,30 @@ def log_path(source):
 
 
 def build_all(sources=SOURCES):
-    """Compile every source not yet built, one nvcc run each. Returns
-    {source: library path}."""
+    """Compile every source not yet built, one nvcc run each, all started
+    together. Returns {source: library path}."""
     os.makedirs(BUILD_DIR, exist_ok=True)
+    runs = {}
     for s in sources:
         if os.path.isfile(library_path(s)):
             continue
         tmp = f"{library_path(s)}.{os.getpid()}.tmp"
         cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC_DIR, s)]
-        p = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        runs[s] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                         text=True))
+    failed = []
+    for s, (tmp, proc) in runs.items():
+        out = proc.communicate()[0]
         with open(log_path(s), "w") as f:
-            f.write(p.stdout)
-        if p.returncode != 0:
+            f.write(out)
+        if proc.returncode != 0:
             if os.path.exists(tmp):
                 os.remove(tmp)
-            raise RuntimeError(f"nvcc failed on {s} (exit {p.returncode}):\n{p.stdout}")
-        os.replace(tmp, library_path(s))  # atomic: concurrent builds agree
+            failed.append(f"nvcc failed on {s} (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, library_path(s))  # atomic: concurrent builds agree
+    if failed:
+        raise RuntimeError("\n".join(failed))
     return {s: library_path(s) for s in sources}
 
 

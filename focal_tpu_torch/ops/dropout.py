@@ -9,6 +9,10 @@ autograd saves the boolean mask (one byte per element) instead.
 
 It serves the attention output's ``proj_drop`` and the two MLP dropouts.
 Attention dropout itself is in-kernel (``ops.pallas_kernels.window_block``).
+
+``keep_mask`` draws the scale-factor masks of DeepSense: Dropout2d's
+[b, C] per (sample, channel), broadcast over intervals and spectrum, and
+the GRU's [b, t, 2H] between stacked layers.
 """
 
 import torch
@@ -31,6 +35,21 @@ def remat_dropout(x, rate, generator):
     bits = torch.empty(x.shape, dtype=torch.uint8, device=x.device).random_(0, 256,
                                                                           generator=generator)
     return torch.where(bits >= _threshold(rate), x * keep_scale(rate), 0.0)
+
+
+def keep_mask(shape, rate, generator):
+    """Float mask of ``shape`` on the generator's device: 1 / (1 - rate)
+    with probability 1 - rate, else 0 (the JAX package's bernoulli keep
+    divided by the keep probability; not quantized)."""
+    keep = torch.rand(shape, generator=generator, device=generator.device) < 1.0 - rate
+    return keep.to(torch.float32) / (1.0 - rate)
+
+
+def needs_rng(rng, what):
+    """The step's StepRngs, or an error naming what in training needed it."""
+    if rng is None:
+        raise ValueError(f"{what} in training needs the step's rng (ops.dropout.StepRngs)")
+    return rng
 
 
 class StepRngs:

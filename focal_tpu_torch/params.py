@@ -136,6 +136,9 @@ def build_train_parser():
                         help="Experiment folder to resume.")
     parser.add_argument("-no_fused_views", action="store_true",
                         help="Run the two pretrain views as two forwards, not one [2B] batch.")
+    parser.add_argument("-pallas_conv", action="store_true",
+                        help="DeepSense: train the conv blocks through the fused conv-tower "
+                        "kernels (#13/#14; opt-in, as in the JAX CLI).")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     # the JAX CLI's flags for what the port does not run yet
     parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7).")
@@ -145,6 +148,10 @@ def build_train_parser():
                         help="auto | replicated; sharded is not ported yet (ROADMAP A7).")
     parser.add_argument("-ragged_tail", action="store_true", help="Not ported yet (ROADMAP A8).")
     parser.add_argument("-py_aug_draws", action="store_true", help="Not ported yet (ROADMAP A8).")
+    parser.add_argument("-pallas_mlp", action="store_true",
+                        help="Not ported yet (ROADMAP B, kernels #10-#12).")
+    parser.add_argument("-no_pallas_block", action="store_true",
+                        help="Not ported yet (ROADMAP B, kernels #6-#9).")
     return parser
 
 
@@ -152,7 +159,8 @@ def build_train_parser():
 _PORTED_VALUES = {
     "grad_accum": ({1}, "A7"), "data_parallel": ({0, 1}, "A7"), "model_parallel": ({1}, "A7"),
     "data_layout": ({"auto", "replicated"}, "A7"), "ragged_tail": ({False}, "A8"),
-    "py_aug_draws": ({False}, "A8"),
+    "py_aug_draws": ({False}, "A8"), "pallas_mlp": ({False}, "B (#10-#12)"),
+    "no_pallas_block": ({False}, "B (#6-#9)"),
 }
 
 

@@ -16,8 +16,7 @@ import numpy as np
 import torch
 
 from focal_tpu_torch.data import _load_sample_file
-from focal_tpu_torch.models import build_backbone
-from focal_tpu_torch.models.sw_transformer import init_params
+from focal_tpu_torch.models import build_backbone, init_params
 from focal_tpu_torch.ops.augment import Augmenter
 from focal_tpu_torch.params import select_device
 
@@ -27,7 +26,8 @@ class Predictor:
 
     Args:
       dataset_config: the recipe (shapes, classes, backbone settings).
-      model: backbone name ("SW_Transformer").
+      model: backbone name ("SW_Transformer" or "DeepSense"; DeepSense's
+        state_dict carries its BatchNorm running statistics).
       task: downstream task key of the recipe.
       state_dict: a port state_dict, or the path of one saved with
         ``torch.save``; None serves a seeded random init (``seed``).

@@ -25,8 +25,7 @@ import torch
 
 from focal_tpu_torch.data import (DeviceDataLoader, create_dataloader, load_split,
                                   sequence_batches)
-from focal_tpu_torch.models import build_backbone
-from focal_tpu_torch.models.sw_transformer import init_params
+from focal_tpu_torch.models import build_backbone, init_params
 from focal_tpu_torch.ops.augment import build_augmenter
 from focal_tpu_torch.output_paths import checkpoint_paths, set_model_weight_folder
 from focal_tpu_torch.params import select_device
@@ -72,7 +71,8 @@ class Run:
                      f"of {train.batch_size}, val {len(self.splits['val'])}, "
                      f"test {len(self.splits['test'])}; device {self.device}")
         self.augmenter = build_augmenter(args)
-        model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework)
+        model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
+                               pallas_conv=args.pallas_conv)
         self.model = init_params(model, seed=args.seed).to(self.device)
         self._plans = {}
 

@@ -21,7 +21,10 @@ def make_pretrain_step(model, augmenter, focal_loss, fused_views=True):
     updated in place and the gradients of the update stay in ``.grad``.
 
     fused_views runs both views through the backbone as ONE [2B] batch (the
-    JAX package's default); otherwise as two forwards."""
+    JAX package's default); otherwise as two forwards. A backbone with
+    BatchNorm (DeepSense) updates its running statistics in each training
+    forward, as the JAX step carries ``batch_stats``: once from the [2B]
+    batch, or view 1's update and then view 2's."""
 
     def step(state, data, idx):
         rngs = state.generators()

@@ -12,7 +12,12 @@ gives them); the port's module names are the flax names joined by dots, so
     [H, hd, c]) ravels to [H*hd, c].
   * The PatchEmbed conv kernel [kh, kw, in, out] (NHWC) ravels to
     [kh*kw*in, out], the port's patch-reshape order.
-  * LayerNorm ``scale`` becomes ``weight``; other leaves keep their names.
+  * A ConvLayer2D's ``Conv_0`` kernel [kh, kw, in, out] (HWIO) becomes
+    ``nn.Conv2d``'s [out, in, kh, kw].
+  * LayerNorm and BatchNorm ``scale`` become ``weight``; other leaves keep
+    their names (the GRU's stacked wi, bi, wh, bh among them).
+  * ``batch_stats`` (BatchNorm's running ``mean`` and ``var``) become the
+    buffers of the same names.
 """
 
 from collections.abc import Mapping
@@ -35,8 +40,6 @@ def params_from_flax(params, batch_stats, dataset_config):
     ported."""
     if len(dataset_config["location_names"]) > 1:
         raise NotImplementedError("multi-location recipes are not ported yet: ROADMAP A5")
-    if batch_stats:
-        raise NotImplementedError("BatchNorm statistics (DeepSense) are not ported yet: ROADMAP A5")
     out = {}
 
     def walk(tree, path):
@@ -46,7 +49,9 @@ def params_from_flax(params, batch_stats, dataset_config):
                 walk(val, sub)
                 continue
             name = ".".join(path)
-            if key == "kernel":
+            if key == "kernel" and path[-1] == "Conv_0":
+                arr, key = np.transpose(np.asarray(val, np.float32), (3, 2, 0, 1)), "weight"
+            elif key == "kernel":
                 conv = len(path) >= 2 and path[-2].startswith("patch_embed")
                 contract = conv or path[-1] == "out"
                 arr = _linear_weight(val, contract)
@@ -61,4 +66,5 @@ def params_from_flax(params, batch_stats, dataset_config):
             out[full] = torch.from_numpy(np.array(arr, np.float32, order="C"))
 
     walk(params, [])
+    walk(batch_stats or {}, [])
     return out

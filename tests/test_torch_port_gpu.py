@@ -300,3 +300,109 @@ def test_wrappers_raise_on_a_failed_launch_plan():
         pk.fused_window_block_perhead(*wide)
     with pytest.raises(RuntimeError, match="no launch plan"):
         pk.fused_window_block_perhead_backward(*wide, torch.zeros_like(wide[0]))
+
+
+# ---------------------------------------------------------------------------
+# conv-tower kernels: #13 (forward) and #14 (backward) at the MOD (C = 64,
+# views fused: 512 samples of 10 intervals) and MOD_WIDE (C = 256, 256
+# samples) tower geometries of DeepSense, seismic (first conv inside, KW 3,
+# Cin 2) and audio (first conv outside, KW 5). Output, means and variances
+# 1e-5 relative to the plain version; the five gradients 1e-4 relative, and
+# where both are below 1e-2 absolutely to 1e-2, as the JAX package's own
+# test holds its kernels (a conv bias before a BatchNorm has a true
+# gradient of 0: both sides sum ~1e5 rows of cancellation noise, ~1e-3);
+# a second call gives the same bits.
+
+def _tower_args(rng, samples, intervals, S, C, kw, external, layers, dev):
+    R = samples * intervals
+    cin0 = C if external else 2
+    cfgs = tuple((kw if k else (kw if not external else 80), cin0 if k == 0 else C, C, k > 0)
+                 for k in range(layers))
+    x0 = rng.normal(size=(R, S, cin0)).astype(np.float32)
+    ws, bs, scales, biases, masks = [], [], [], [], []
+    for kwk, cin, cout, _ in cfgs:
+        fan = (kwk * cin) ** -0.5
+        ws.append(np.zeros((1, 1), np.float32) if (external and not ws) else
+                  (rng.normal(size=(kwk * cin, cout)) * fan).astype(np.float32))
+        bs.append((rng.normal(size=(cout,)) * 0.1).astype(np.float32))
+        scales.append((1.0 + 0.1 * rng.normal(size=(cout,))).astype(np.float32))
+        biases.append((0.1 * rng.normal(size=(cout,))).astype(np.float32))
+        masks.append(((rng.random((samples, cout)) > 0.2) / 0.8).astype(np.float32))
+
+    def t(a, grad=False):
+        return torch.from_numpy(a).to(dev).requires_grad_(grad)
+
+    return cfgs, t(x0, True), [[t(a, True) for a in g] for g in (ws, bs, scales, biases)], \
+        [t(m) for m in masks]
+
+
+def _tower_grads(fn, cfgs, x0, params, masks, dy, external):
+    y, mus, vars_ = fn(x0, cfgs, *params, masks, external)
+    # an external first conv's w and b are the tower's placeholders: left out
+    leaves = [x0] + [p for gi, group in enumerate(params) for k, p in enumerate(group)
+                     if not (external and k == 0 and gi < 2)]
+    return y, mus, vars_, torch.autograd.grad(y, leaves, dy)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples,C,external", [
+    (512, 64, False), (512, 64, True), (256, 256, False), (256, 256, True), (7, 64, False),
+])
+def test_conv_tower_matches_plain_on_card(samples, C, external):
+    from focal_tpu_torch.ops.conv_tower import fused_conv_tower, fused_conv_tower_reference
+
+    dev = _card()
+    rng = np.random.default_rng(samples + C + external)
+    kw = 5 if external else 3
+    cfgs, x0, params, masks = _tower_args(rng, samples, 10, 20, C, kw, external, 5, dev)
+    dy = torch.from_numpy(rng.normal(size=(samples * 10, 20, C)).astype(np.float32)).to(dev)
+    got = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
+    again = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
+    want = _tower_grads(fused_conv_tower_reference, cfgs, x0, params, masks, dy, external)
+    torch.cuda.synchronize()
+    assert _rel(got[0].detach(), want[0].detach()) <= 1e-5
+    for a, b in zip(got[1] + got[2], want[1] + want[2]):
+        assert _rel(a, b) <= 1e-5
+    for i, (g, w) in enumerate(zip(got[3], want[3])):
+        if max(float(g.abs().max()), float(w.abs().max())) < 1e-2:
+            assert float((g - w).abs().max()) <= 1e-2, i
+        else:
+            assert _rel(g, w) <= 1e-4, (i, _rel(g, w))
+    for a, b in zip([got[0], *got[1], *got[2], *got[3]], [again[0], *again[1], *again[2], *again[3]]):
+        assert torch.equal(a, b)  # fixed-order sums: bitwise repeatable
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("external", [False, True])
+def test_conv_tower_launch_counts(external):
+    """A five-layer tower: forward the first conv (inside) and five applies,
+    or five applies; backward five sums and five applies, or four and the
+    external first conv's dc."""
+    from focal_tpu_torch.ops.conv_tower import fused_conv_tower, fused_conv_tower_backward
+
+    dev = _card()
+    rng = np.random.default_rng(4)
+    cfgs, x0, params, masks = _tower_args(rng, 16, 10, 20, 64, 5 if external else 3, external, 5,
+                                          dev)
+    f0, b0 = fused_conv_tower.launches, fused_conv_tower_backward.launches
+    y, _, _ = fused_conv_tower(x0, cfgs, *params, masks, external)
+    assert fused_conv_tower.launches - f0 == (5 if external else 6)
+    y.sum().backward()
+    torch.cuda.synchronize()
+    assert fused_conv_tower_backward.launches - b0 == 10
+
+
+@pytest.mark.gpu
+def test_conv_tower_raises_on_what_its_plan_cannot_take():
+    from focal_tpu_torch.ops.conv_tower import fused_conv_tower
+
+    dev = _card()
+    rng = np.random.default_rng(6)
+    cfgs, x0, params, masks = _tower_args(rng, 4, 10, 200, 64, 3, False, 2, dev)
+    with pytest.raises(RuntimeError, match="no launch plan"):  # S = 200 > 128 rows a tile
+        fused_conv_tower(x0, cfgs, *params, masks, False)
+    cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 64, 3, False, 2, dev)
+    with pytest.raises(TypeError):
+        fused_conv_tower(x0.double(), cfgs, *params, masks, False)
+    with pytest.raises(ValueError):  # 3 mask rows do not divide R = 40
+        fused_conv_tower(x0, cfgs, *params, [m[:3] for m in masks], False)

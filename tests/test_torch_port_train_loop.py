@@ -42,6 +42,18 @@ TINY = ["-dataset", "MOD_TINY", "-model", "SW_Transformer", "-learn_framework", 
 
 
 @pytest.fixture(scope="module", autouse=True)
+def _one_torch_thread():
+    """One intra-op thread for this file's torch work: the suite runs
+    several test processes at once, and torch's per-process thread pools
+    then oversubscribe the cores and slow each other down many times
+    over."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope="module", autouse=True)
 def _root_logger_restored():
     """The CLI points the root logger at its run folder; give the next test
     file the logger it had."""
