@@ -89,7 +89,32 @@ result line if any fails):
      synthetic samples at batch 128 (no kernel launched);
  17. timing of #13 and #14 per tower geometry (kernel, plain version, the
      unfused cuDNN chain and its autograd backward as the library
-     yardstick, and the bound).
+     yardstick, and the bound);
+ 18. kernels #10 (fused_mlp_forward), #11 (fused_mlp_dropout_forward) and
+     #12 (fused_mlp_backward) vs plain at every MLP geometry on the fused
+     route: MOD at batch 128 (C 64/128/256, 16 blocks) and MOD_WIDE stage 0
+     (C 256, batch 64 fused to 128): #10, and #11 fed its own masks
+     (mlp_keep_masks), <= 1e-4 absolute; #12's five gradients with the
+     masks and without <= 1e-4 relative; each mask's keep rate within 5
+     sigma of 0.8; the same bits on a second call;
+ 19. MOD supervised steps at batch 128 (fixed pool: mixup, phase_shift):
+     3 warm-up + 20 timed on the default path (#2/#3 16 a step, no MLP
+     kernel) and with -pallas_mlp (#2, #3, #11, #12 16 each), p50,
+     samples/s, peak memory, a profiled step's idle share and top device
+     kernels; a rate-0 step from the initial state, kernels (#1, #3, #10,
+     #12 16 each) vs plain: loss 1e-5 relative, gradients 1e-4;
+ 20. the entry points in-process at MOD with -pallas_mlp and -synthetic (512
+     samples): supervised 2 epochs, -resume to 3, focal_tpu_torch.test on
+     its _best; FOCAL pretrain 1 epoch, finetune 2 epochs, -resume to 3,
+     test: the launches per step (finetune: #2 and #11 only, the backbone
+     frozen) and per eval forward (#1 and #10 16 each) held exactly, every
+     backbone entry of the finetuned files bitwise the pretrained one,
+     class_layer and mod_fusion_layer moved; Predictor -pallas_mlp over
+     ~1,000 samples (#1 and #10 16 a batch), its probabilities within 1e-5
+     of phase 3's (the cuBLAS MLP, same weights);
+ 21. timing of #10, #11 and #12 per geometry (kernel, plain version, the
+     cuBLAS chain addmm -> GELU -> addmm with F.dropout for #11 and its
+     autograd backward for #12 as the library yardstick, and the bound).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
@@ -713,6 +738,193 @@ def deepsense_rate0_step(torch, targs, weights, dev, plain):
             {n: b.detach().cpu() for n, b in m.named_buffers()})
 
 
+# ---------------------------------------------------------------------------
+# the fused MLP (#10, #11, #12) and the classifier stages
+
+SUP_BATCH = 128           # supervised and finetune samples per step (no views to fuse)
+SUP_SAMPLES = 512         # MOD synthetic train split of the classifier entry-point runs
+# operations a hidden element besides the two products: forward the bias,
+# the exact GELU (~20) and the mask; backward the GELU again and its
+# derivative (~35), the masks, dz and the bias sums
+MLP_ELEM_FWD = 24
+MLP_ELEM_BWD = 40
+TINY_GRAD = 1e-6          # a gradient tensor below this on both sides is compared absolutely
+
+
+def mlp_geometries(cfg, batch, dataset):
+    """Every (modality, stage) whose Swin MLPs take the fused route
+    (``mlp_fits``) in one forward at ``batch`` samples: T rows, width C,
+    hidden H and the blocks (launches) a forward makes there."""
+    from focal_tpu_torch.models.sw_transformer import mod_geometry
+    from focal_tpu_torch.ops.fused_mlp import mlp_fits
+
+    sw = cfg["SW_Transformer"]
+    loc = cfg["location_names"][0]
+    geos = []
+    for mod in cfg["modality_names"]:
+        geo = mod_geometry(cfg, loc, mod)
+        for stage, ((H, W), C) in enumerate(geo["stages"]):
+            hidden = int(C * float(sw.get("mlp_ratio", 4.0)))
+            if mlp_fits(C, hidden):
+                geos.append({"name": f"{dataset} {mod}/stage{stage}", "T": batch * H * W, "C": C,
+                             "H": hidden, "per_forward": geo["block_num"][stage]})
+    return geos
+
+
+def mlp_work(g, backward):
+    """(FLOPs, bytes) of one launch: forward 4TCH for the two products plus
+    MLP_ELEM_FWD a hidden element, x, the weights and y once; backward the
+    10TCH it needs (z again, dh, dx, dW1, dW2) plus MLP_ELEM_BWD a hidden
+    element, x, g and the weights read once, dx and the gradients written
+    once."""
+    T, C, H = g["T"], g["C"], g["H"]
+    if backward:
+        return 10 * T * C * H + MLP_ELEM_BWD * T * H, 4 * (3 * T * C + 4 * C * H + 2 * H + C)
+    return 4 * T * C * H + MLP_ELEM_FWD * T * H, 4 * (2 * T * C + 2 * C * H + H + C)
+
+
+def mlp_inputs(torch, np, g, seed, dev):
+    """x, w1 [C, H], b1, w2 [H, C], b2 and a gradient g at a trained model's
+    scale (unit activations, lecun-scaled weights, small biases)."""
+    rng = np.random.default_rng(seed)
+    T, C, H = g["T"], g["C"], g["H"]
+    shapes = [(T, C), (C, H), (H,), (H, C), (C,), (T, C)]
+    scales = [1.0, C**-0.5, 0.1, H**-0.5, 0.1, 1.0]
+    return [torch.from_numpy((rng.normal(size=s) * k).astype(np.float32)).to(dev)
+            for s, k in zip(shapes, scales)]
+
+
+def library_mlp(torch, F, x, w1, b1, w2, b2, rate=0.0):
+    """Yardstick only: the cuBLAS chain addmm -> GELU -> addmm, with
+    F.dropout after each at ``rate``."""
+    h = F.gelu(torch.addmm(b1, x, w1), approximate="none")
+    if rate:
+        h = F.dropout(h, rate)
+    y = torch.addmm(b2, h, w2)
+    return F.dropout(y, rate) if rate else y
+
+
+def plain_mlp(x, w1, b1, w2, b2, w1_t=None, w2_t=None):
+    """fused_mlp's plain version with its signature (for the rate-0 step)."""
+    from focal_tpu_torch.ops.fused_mlp import fused_mlp_reference
+
+    return fused_mlp_reference(x, w1, b1, w2, b2)
+
+
+def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_step, dev, tag):
+    """Supervised steps of the MOD SW_Transformer at full width (flax-style
+    init, seed 0, synthetic data and labels resident on the card, a fixed
+    idx, the recipe's fixed pool: mixup and phase_shift): warm-up, timed
+    steps with each kernel's launches per step checked, one profiled step.
+    Returns the summary."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_supervised_train_step
+
+    host_data, labels, _ = synthetic_arrays(sargs.dataset_config, sargs.task, 2 * batch, seed=0)
+    tdata = to_device(host_data, dev)
+    tlabels = torch.from_numpy(labels).long().to(dev)
+    idx = torch.arange(batch, device=dev) % len(labels)
+    model = build_backbone(sargs.dataset_config, "SW_Transformer", sargs.task, "no",
+                           pallas_mlp=sargs.pallas_mlp)
+    init_params(model, seed=0).to(dev)
+    state = create_train_state(sargs, model, steps_per_epoch=100, seed=0)
+    step = make_supervised_train_step(model, build_augmenter(sargs), fixed_aug=True)
+    t0 = time.time()
+    for _ in range(warmup):
+        state, metrics = step(state, tdata, tlabels, idx)
+    torch.cuda.synchronize()
+    log(f"[{tag}] MOD SW_Transformer supervised{' -pallas_mlp' if sargs.pallas_mlp else ''}, "
+        f"batch {batch}; {warmup} warm-up steps in {time.time() - t0:.2f}s")
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    step_s, history = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, metrics = step(state, tdata, tlabels, idx)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+        history.append(torch.stack([metrics["loss"], metrics["acc"]]))
+    launches = counts(kernels)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    history = torch.stack(history).cpu()
+    if not bool(torch.isfinite(history).all()):
+        raise AssertionError(f"{tag}: non-finite loss: {history}")
+    check_counts(f"{tag}: {steps} steps", launches,
+                 {k.__name__: per_step.get(k.__name__, 0) * steps for k in kernels})
+    p50_ms = float(np.percentile(step_s, 50)) * 1e3
+    profile = profile_device(torch, lambda: step(state, tdata, tlabels, idx))
+    mlp_ms = sum(r["device_ms"] for r in profile["rows"] if "mlp_" in r["name"]
+                 and "(anonymous namespace)" in r["name"])
+    summary = {
+        "steps": steps, "launches": launches, "p50_ms": p50_ms,
+        "mean_ms": float(np.mean(step_s)) * 1e3, "min_ms": float(np.min(step_s)) * 1e3,
+        "max_ms": float(np.max(step_s)) * 1e3, "samples_per_s": batch / (p50_ms / 1e3),
+        "peak_mb": peak_mb, "loss_first": float(history[0][0]), "loss_last": float(history[-1][0]),
+        "profile": profile, "idle_share": 1 - profile["device_busy_ms"] / profile["wall_ms"],
+        "mlp_kernels_device_ms": mlp_ms,
+    }
+    log(f"[{tag}] {steps} steps: launches {launches}; loss {summary['loss_first']:.4f} -> "
+        f"{summary['loss_last']:.4f}; p50 step {p50_ms:.3f} ms (mean {summary['mean_ms']:.3f}, "
+        f"min {summary['min_ms']:.3f}, max {summary['max_ms']:.3f}), "
+        f"{summary['samples_per_s']:.1f} samples/s, peak memory {peak_mb:.1f} MiB")
+    log_profile(tag, "one profiled step", profile, top=15)
+    log(f"[{tag}] device time of the fused MLP kernels (#10-#12) in the profiled step: "
+        f"{mlp_ms:.4f} ms")
+    del state, step, tdata, idx, model
+    return summary
+
+
+def supervised_rate0_step(torch, sargs, weights, dev, plain):
+    """One supervised step of the MOD SW_Transformer at every drop rate 0
+    with -pallas_mlp from ``weights``: through the kernels (#1/#3, #10/#12),
+    or with ``plain`` through their plain versions. The fixed pool is
+    replaced by ["no"] so both take the same inputs. Returns (loss,
+    {name: gradient}) on the CPU and the launches."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone
+    from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_supervised_train_step
+
+    cfg0 = copy.deepcopy(sargs.dataset_config)
+    sw0 = cfg0["SW_Transformer"]
+    sw0["dropout_ratio"] = sw0["drop_path_rate"] = sw0["attn_drop_rate"] = 0.0
+    sw0["fixed_augmenters"] = {"time_augmenters": ["no"], "freq_augmenters": ["no"]}
+    args0 = copy.copy(sargs)
+    args0.dataset_config = cfg0
+    host_data, labels, _ = synthetic_arrays(cfg0, sargs.task, 2 * sargs.batch_size, seed=0)
+    data = to_device(host_data, dev)
+    tlabels = torch.from_numpy(labels).long().to(dev)
+    idx = torch.arange(sargs.batch_size, device=dev) % len(labels)
+    m = build_backbone(cfg0, "SW_Transformer", sargs.task, "no", pallas_mlp=True)
+    m.load_state_dict(weights)
+    m.to(dev)
+    st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
+    if plain:
+        swin_mod.window_block, swin_mod.window_block_forward = (pk.window_block_reference,
+                                                                pk.fused_window_block_reference)
+        swin_mod.fused_mlp = plain_mlp
+    kernels = (pk.fused_window_block, pk.fused_window_block_backward, fm.fused_mlp_forward,
+               fm.fused_mlp_backward, pk.fused_window_block_dropout, fm.fused_mlp_dropout_forward)
+    zero_counts(kernels)
+    try:
+        _, mt = make_supervised_train_step(m, build_augmenter(args0), fixed_aug=True)(
+            st, data, tlabels, idx)
+        torch.cuda.synchronize()
+    finally:
+        swin_mod.window_block, swin_mod.window_block_forward = pk.window_block, pk.window_block_forward
+        swin_mod.fused_mlp = fm.fused_mlp
+    return (float(mt["loss"]), {n: p.grad.cpu() for n, p in m.named_parameters()
+                                if p.grad is not None}, counts(kernels))
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for the per-geometry JSON")
@@ -735,6 +947,7 @@ def main():
     from focal_tpu_torch.models import swin as swin_mod
     from focal_tpu_torch.ops import _build
     from focal_tpu_torch.ops import conv_tower as ct
+    from focal_tpu_torch.ops import fused_mlp as fm
     from focal_tpu_torch.ops import pallas_kernels as pk
     from focal_tpu_torch.params import load_yaml, parse_train_params
     from focal_tpu_torch.serve import Predictor
@@ -742,7 +955,8 @@ def main():
     fwd, fwd_drop, bwd = pk.fused_window_block, pk.fused_window_block_dropout, pk.fused_window_block_backward
     ph_fwd, ph_bwd = pk.fused_window_block_perhead, pk.fused_window_block_perhead_backward
     ct_fwd, ct_bwd = ct.fused_conv_tower, ct.fused_conv_tower_backward
-    all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd)
+    mlp_fwd, mlp_drop, mlp_bwd = fm.fused_mlp_forward, fm.fused_mlp_dropout_forward, fm.fused_mlp_backward
+    all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd, mlp_fwd, mlp_drop, mlp_bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1319,6 +1533,295 @@ def main():
     log(f"[time-tower] share of the -pallas_conv p50 step (MOD): "
         f"{(mod_tot['fwd_ms'] + mod_tot['bwd_ms']) / ds_runs['deepsense-pallas']['p50_ms']:.3f}")
     torch.cuda.empty_cache()
+    # ---- 18. #10, #11 and #12 vs plain at every MLP geometry on the fused
+    # route: MOD at the classifier batch of 128, MOD_WIDE stage 0 at batch
+    # 64 with the views fused to 128
+    mgeos = (mlp_geometries(cfg, SUP_BATCH, "MOD")
+             + mlp_geometries(wcfg, 2 * WIDE_BATCH, "MOD_WIDE"))
+    mlp_rate = float(cfg["SW_Transformer"]["dropout_ratio"])
+    mlp_err = {"fwd": 0.0, "drop": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    for gi, g in enumerate(mgeos):
+        T, C, H = g["T"], g["C"], g["H"]
+        x, w1, b1, w2, b2, gy = mlp_inputs(torch, np, g, 300 + gi, dev)
+        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+        seed = 4000 + gi
+        y, y_again = mlp_fwd(x, w1, b1, w2, b2), mlp_fwd(x, w1, b1, w2, b2)
+        yd = mlp_drop(x, w1, b1, w2, b2, seed, mlp_rate)
+        yd_again = mlp_drop(x, w1, b1, w2, b2, seed, mlp_rate)
+        keep1, keep2 = fm.mlp_keep_masks(seed, T, C, H, mlp_rate, dev)
+        torch.cuda.synchronize()
+        err = float((y - fm.fused_mlp_reference(x, w1, b1, w2, b2)).abs().max())
+        derr = float((yd - fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2,
+                                                          mlp_rate)).abs().max())
+        rates = {}
+        for name, k in (("keep1", keep1), ("keep2", keep2)):
+            kept = float(k.double().mean())
+            rates[name] = (kept, (kept - 1 + mlp_rate) / math.sqrt(mlp_rate * (1 - mlp_rate) / k.numel()))
+        same = torch.equal(y, y_again) and torch.equal(yd, yd_again)
+        errs = {}
+        for tag, sd, keeps in (("mask", seed, (keep1, keep2)), ("nomask", None, (None, None))):
+            got = mlp_bwd(x, w1, b1, w1t, w2t, gy, sd, mlp_rate)
+            again = mlp_bwd(x, w1, b1, w1t, w2t, gy, sd, mlp_rate)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+            want = fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, gy, *keeps, mlp_rate)
+            errs[tag] = max(rel_err(a, b) for a, b in zip(got, want))
+            mlp_err["bwd_abs"] = max(mlp_err["bwd_abs"], *(float((a - b).abs().max())
+                                                            for a, b in zip(got, want)))
+            del got, again, want
+        g.update(max_abs_err_fwd=err, max_abs_err_dropout=derr, keep_rates=rates,
+                 max_rel_err_bwd=errs["mask"], max_rel_err_bwd_nomask=errs["nomask"],
+                 repeatable=same)
+        mlp_err["fwd"], mlp_err["drop"] = max(mlp_err["fwd"], err), max(mlp_err["drop"], derr)
+        mlp_err["bwd"] = max(mlp_err["bwd"], *errs.values())
+        log(f"[check-mlp] {g['name']}: T {T} C {C} H {H} ({g['per_forward']} a forward): #10 "
+            f"max|kernel-plain| {err:.3e}, #11 {derr:.3e} (its own masks), keep rates "
+            + ", ".join(f"{k} {v[0]:.5f} ({v[1]:+.2f} sigma)" for k, v in rates.items())
+            + f"; #12 max rel err {errs['mask']:.3e} (masks), {errs['nomask']:.3e} (none); "
+            f"same bits on a second call: {same}")
+        if not max(err, derr) <= KERNEL_TOL:
+            raise AssertionError(f"{g['name']}: #10/#11 differ from plain by {err}, {derr}")
+        if not all(abs(v[1]) <= 5 for v in rates.values()):
+            raise AssertionError(f"{g['name']}: keep rates {rates} not 1 - {mlp_rate} within 5 sigma")
+        if not max(errs.values()) <= GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #12 gradients differ from plain by {errs}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #10/#11/#12 give other bits on a second call")
+        del x, w1, b1, w2, b2, gy, w1t, w2t, y, y_again, yd, yd_again, keep1, keep2
+    torch.cuda.empty_cache()
+
+    # ---- 19. MOD supervised steps at batch 128, the default path and
+    # -pallas_mlp; the rate-0 step, kernels vs plain, from the initial state
+    per_fwd_mlp = sum(g["per_forward"] for g in mgeos if g["name"].startswith("MOD "))
+    sup_step = {fwd_drop.__name__: per_fwd, bwd.__name__: per_fwd,
+                mlp_drop.__name__: per_fwd_mlp, mlp_bwd.__name__: per_fwd_mlp}
+    ft_step = {fwd_drop.__name__: per_fwd, mlp_drop.__name__: per_fwd_mlp}
+    eval_fwd = {fwd.__name__: per_fwd, mlp_fwd.__name__: per_fwd_mlp}
+    sup_runs = {}
+    for pallas in (False, True):
+        sargs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer",
+                                    "-learn_framework", "no", "-batch_size", str(SUP_BATCH)]
+                                   + (["-pallas_mlp"] if pallas else []))
+        tag = "supervised-pallas-mlp" if pallas else "supervised-default"
+        per_step = sup_step if pallas else {fwd_drop.__name__: per_fwd, bwd.__name__: per_fwd}
+        sup_runs[tag] = run_supervised_steps(torch, np, sargs, SUP_BATCH, TRAIN_WARMUP,
+                                             TRAIN_STEPS, all_kernels, per_step, dev, tag)
+        torch.cuda.empty_cache()
+    from focal_tpu_torch.models import build_backbone, init_params
+
+    sup_initial = init_params(build_backbone(cfg, "SW_Transformer", task, "no", pallas_mlp=True),
+                              seed=0).state_dict()
+    kern = supervised_rate0_step(torch, sargs, sup_initial, dev, plain=False)
+    plain = supervised_rate0_step(torch, sargs, sup_initial, dev, plain=True)
+    want0 = {fwd.__name__: per_fwd, bwd.__name__: per_fwd, mlp_fwd.__name__: per_fwd_mlp,
+             mlp_bwd.__name__: per_fwd_mlp, fwd_drop.__name__: 0, mlp_drop.__name__: 0}
+    check_counts("supervised rate-0 step (kernels)", kern[2], want0)
+    check_counts("supervised rate-0 step (plain)", plain[2], {k: 0 for k in want0})
+    sup_rate0_loss = abs(kern[0] - plain[0]) / abs(plain[0])
+    # a true gradient of 0 (the fusion attention's key bias: its softmax is
+    # blind to it) is rounding noise on both sides: compared absolutely
+    zero_grads = [n for n in plain[1] if max(float(kern[1][n].abs().max()),
+                                             float(plain[1][n].abs().max())) < TINY_GRAD]
+    sup_rate0_grad, worst = max((rel_err(kern[1][n], plain[1][n]), n) for n in plain[1]
+                                if n not in zero_grads)
+    zero_abs = max([float((kern[1][n] - plain[1][n]).abs().max()) for n in zero_grads] + [0.0])
+    sup_rate0 = {"loss_kernel": kern[0], "loss_plain": plain[0], "loss_rel": sup_rate0_loss,
+                 "max_grad_rel": sup_rate0_grad, "worst": worst, "zero_gradients": zero_grads,
+                 "zero_gradients_max_abs": zero_abs, "launches": kern[2]}
+    log(f"[supervised-rate0] from the initial state, kernels vs plain: loss {kern[0]:.6f} vs "
+        f"{plain[0]:.6f} (rel {sup_rate0_loss:.2e}), max grad rel err {sup_rate0_grad:.2e} "
+        f"({worst}); true-zero gradients {zero_grads} within {zero_abs:.2e} absolute; "
+        f"launches {kern[2]}")
+    if set(kern[1]) != set(plain[1]) or not (sup_rate0_loss <= LOSS_TOL
+                                             and sup_rate0_grad <= GRAD_TOL
+                                             and zero_abs <= TINY_GRAD):
+        raise AssertionError(f"supervised rate-0 step, kernels vs plain: {sup_rate0}")
+    del kern, plain, sup_initial
+    torch.cuda.empty_cache()
+
+    # ---- 20. the classifier entry points at MOD with -pallas_mlp: supervised
+    # 2 epochs, -resume to 3, test; FOCAL pretrain 1 epoch, finetune 2 epochs,
+    # -resume to 3, test; then Predictor -pallas_mlp
+    test_cli = importlib.import_module("focal_tpu_torch.test")
+    run_dir = os.path.join(HERE, "build", "chip_smoke_classifier")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    base = ["-dataset", "MOD", "-model", "SW_Transformer", "-pallas_mlp", "-synthetic",
+            "-synthetic_samples", str(SUP_SAMPLES), "-val_epochs", "1", "-output_dir", run_dir]
+    sup_argv = base + ["-learn_framework", "no", "-batch_size", str(SUP_BATCH)]
+    pre_argv = base + ["-learn_framework", "FOCAL", "-stage", "pretrain"]
+    ft_argv = base + ["-learn_framework", "FOCAL", "-stage", "finetune", "-batch_size",
+                      str(SUP_BATCH)]
+
+    def cli_plan(argv):
+        """(train steps an epoch, eval forwards a validation point, eval
+        forwards of the test CLI) of a run."""
+        a = parse_train_params(argv)
+        seq = a.train_mode == "contrastive" and a.stage == "pretrain"
+        n = {o: len(DeviceDataLoader(load_split(o, a), a.batch_size, sequence=seq))
+             for o in ("train", "val", "test")}
+        steps = len(DeviceDataLoader(load_split("train", a), a.batch_size, drop_last=True,
+                                     sequence=seq))
+        evals = n["train"] + 3 * (n["val"] + n["test"]) if seq else n["val"] + n["test"]
+        return steps, evals, n["test"]
+
+    cls_runs = []
+
+    def run_cli(what, fn, argv, per_step, epochs, points_want):
+        steps_per_epoch, evals_per_point, test_evals = cli_plan(argv)
+        zero_counts(all_kernels)
+        t0 = time.time()
+        out = fn(argv)
+        torch.cuda.synchronize()
+        secs = time.time() - t0
+        got = counts(all_kernels)
+        if points_want is None:  # the test CLI: one eval forward a test batch
+            n_steps, n_evals = 0, test_evals
+            if not all(math.isfinite(v) for v in out):
+                raise AssertionError(f"{what}: non-finite test metrics {out}")
+            summary = {"loss": out[0], "acc": out[1], "f1": out[2]}
+        else:
+            st, best, points = out
+            n_steps, n_evals = steps_per_epoch * epochs, evals_per_point * len(points)
+            if [p["epoch"] for p in points] != points_want:
+                raise AssertionError(f"{what}: validation points {[p['epoch'] for p in points]}")
+            for p in points:
+                if not all(math.isfinite(p[k]) for k in ("train_loss", "val_loss", "test_loss")):
+                    raise AssertionError(f"{what}: non-finite loss at a validation point: {p}")
+            summary = {"best": best, "points": points, "step": st.step}
+        want = {k.__name__: per_step.get(k.__name__, 0) * n_steps
+                + eval_fwd.get(k.__name__, 0) * n_evals for k in all_kernels}
+        check_counts(what, got, want)
+        cls_runs.append({"what": what, "seconds": secs, "steps": n_steps, "eval_forwards": n_evals,
+                         "launches": got, **summary})
+        log(f"[classifier-cli] {what}: {n_steps} steps, {n_evals} eval forwards in {secs:.1f}s; "
+            f"launches {got}; " + ("; ".join(
+                f"epoch {p['epoch']} train {p['train_loss']:.4f} val {p['val_loss']:.4f} val acc "
+                f"{p['val_acc']:.3f} test acc {p['test_acc']:.3f}" for p in summary["points"])
+                if "points" in summary else f"test loss {out[0]:.4f} acc {out[1]:.4f} f1 {out[2]:.4f}"))
+        return out
+
+    weights = os.path.join(run_dir, "weights", "MOD_SW_Transformer")
+    run_cli("supervised -epochs 2", train_cli.main, sup_argv + ["-epochs", "2"], sup_step, 2, [0, 1])
+    run_cli("supervised -epochs 3 -resume", train_cli.main, sup_argv + ["-epochs", "3", "-resume"],
+            sup_step, 1, [2])
+    run_cli("test (supervised _best)", test_cli.main, sup_argv, {}, 0, None)
+    sup_dir = os.path.join(weights, "exp0_supervised_vehicle_classification_1.0")
+    for kind in ("best", "latest", "resume"):
+        path = os.path.join(sup_dir, f"MOD_SW_Transformer_vehicle_classification_{kind}.pt")
+        if not os.path.isfile(path):
+            raise AssertionError(f"missing checkpoint {path}")
+    run_cli("pretrain -epochs 1", train_cli.main, pre_argv + ["-epochs", "1"], sup_step, 1, [0])
+    pre_dir = os.path.join(weights, "exp0_contrastive_FOCAL")
+    pretrained = torch.load(os.path.join(pre_dir, "MOD_SW_Transformer_pretrain_latest.pt"),
+                            map_location="cpu", weights_only=True)
+    ft_file = os.path.join(pre_dir, "MOD_SW_Transformer_vehicle_classification_1.0_finetune_latest.pt")
+    for extra, epochs, points_want in ((["-epochs", "2"], 2, [0, 1]),
+                                       (["-epochs", "3", "-resume"], 1, [2])):
+        run_cli(f"finetune {' '.join(extra)}", train_cli.main, ft_argv + extra, ft_step, epochs,
+                points_want)
+        tuned = torch.load(ft_file, map_location="cpu", weights_only=True)
+        moved = set()
+        for name, t in tuned.items():
+            head = name.startswith(("class_layer", "mod_fusion_layer"))
+            if head and not torch.equal(t, pretrained[name]):
+                moved.add(name.split(".")[0])
+            if not head and not torch.equal(t, pretrained[name]):
+                raise AssertionError(f"finetune moved the frozen backbone parameter {name}")
+        if moved != {"class_layer", "mod_fusion_layer"}:
+            raise AssertionError(f"finetune moved {moved}, not class_layer and mod_fusion_layer")
+    run_cli("test (finetune _best)", test_cli.main, ft_argv, {}, 0, None)
+    log(f"[classifier-cli] finetune left all {len(pretrained) - sum(n.startswith(('class_layer', 'mod_fusion_layer')) for n in pretrained)} "
+        "backbone entries bitwise as pretrained; class_layer and mod_fusion_layer moved")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    del pretrained, tuned
+    torch.cuda.empty_cache()
+
+    predictor = Predictor(cfg, "SW_Transformer", task, None, batch_size=SERVE_BATCH,
+                          device="cuda", seed=0, pallas_mlp=True)
+    zero_counts(all_kernels)
+    mlp_result = predictor.predict(data)
+    mlp_serve_launches = counts(all_kernels)
+    mlp_batches = mlp_result["latency"]["batches"]
+    check_counts("serving -pallas_mlp", mlp_serve_launches,
+                 {k.__name__: eval_fwd.get(k.__name__, 0) * mlp_batches for k in all_kernels})
+    mlp_serve_err = float(np.abs(mlp_result["probs"] - probs).max())
+    mlp_lat = mlp_result["latency"]
+    log(f"[serve-mlp] {n} samples in {mlp_batches} batches of {SERVE_BATCH} with -pallas_mlp: "
+        f"launches {mlp_serve_launches}; p50 batch {mlp_lat['p50_s'] * 1e3:.3f} ms, "
+        f"{mlp_lat['windows_per_s']:.1f} samples/s; max|dprobs| vs the cuBLAS MLP {mlp_serve_err:.3e}")
+    if not mlp_serve_err <= SLICE_TOL:
+        raise AssertionError(f"-pallas_mlp served probabilities differ by {mlp_serve_err}")
+    del predictor
+    torch.cuda.empty_cache()
+
+    # ---- 21. #10, #11 and #12 timing per geometry: kernel, plain version,
+    # the cuBLAS chain as the library yardstick (with F.dropout for #11 and
+    # its autograd backward for #12) and the bound
+    mtot = {}
+    for gi, g in enumerate(mgeos):
+        T, C, H = g["T"], g["C"], g["H"]
+        x, w1, b1, w2, b2, gy = mlp_inputs(torch, np, g, 500 + gi, dev)
+        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+        keep1, keep2 = fm.mlp_keep_masks(7, T, C, H, mlp_rate, dev)
+        with torch.no_grad():
+            g["fwd_ms"] = time_ms(torch, lambda: mlp_fwd(x, w1, b1, w2, b2))
+            g["fwd_plain_ms"] = time_ms(torch, lambda: fm.fused_mlp_reference(x, w1, b1, w2, b2))
+            g["fwd_library_ms"] = time_ms(torch, lambda: library_mlp(torch, F, x, w1, b1, w2, b2))
+            g["drop_ms"] = time_ms(torch, lambda: mlp_drop(x, w1, b1, w2, b2, 7, mlp_rate))
+            g["drop_plain_ms"] = time_ms(torch, lambda: fm.fused_mlp_dropout_reference(
+                x, w1, b1, w2, b2, keep1, keep2, mlp_rate))
+            g["drop_library_ms"] = time_ms(
+                torch, lambda: library_mlp(torch, F, x, w1, b1, w2, b2, mlp_rate))
+        g["bwd_ms"] = time_ms(torch, lambda: mlp_bwd(x, w1, b1, w1t, w2t, gy, 7, mlp_rate))
+        g["bwd_nomask_ms"] = time_ms(torch, lambda: mlp_bwd(x, w1, b1, w1t, w2t, gy))
+        g["bwd_plain_ms"] = time_ms(torch, lambda: fm.fused_mlp_backward_reference(
+            x, w1, b1, w2, b2, gy, keep1, keep2, mlp_rate))
+        leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        ly = library_mlp(torch, F, *leaves, mlp_rate)
+        g["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(ly, leaves, gy,
+                                                                         retain_graph=True))
+        del ly, leaves
+        f_fl, f_by = mlp_work(g, False)
+        b_fl, b_by = mlp_work(g, True)
+        g["fwd_bound_ms"], g["fwd_bound_by"] = bound(f_fl, f_by)
+        g["bwd_bound_ms"], g["bwd_bound_by"] = bound(b_fl, b_by)
+        g["fwd_gflop"], g["bwd_gflop"] = f_fl / 1e9, b_fl / 1e9
+        log(f"[time-mlp] {g['name']}: #10 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
+            f"library {g['fwd_library_ms']:.4f}, bound {g['fwd_bound_ms']:.4f}, "
+            f"{f_fl / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #11 {g['drop_ms']:.4f} ms (plain "
+            f"{g['drop_plain_ms']:.4f}, library {g['drop_library_ms']:.4f}); #12 {g['bwd_ms']:.4f} "
+            f"ms, {g['bwd_nomask_ms']:.4f} without masks (plain {g['bwd_plain_ms']:.4f}, library "
+            f"{g['bwd_library_ms']:.4f}, bound {g['bwd_bound_ms']:.4f}, "
+            f"{b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+        ds = g["name"].split()[0]
+        step_sum = mtot.setdefault(ds, {"fwd_flops": 0, "fwd_bytes": 0, "bwd_flops": 0,
+                                        "bwd_bytes": 0, "launches": 0})
+        k = g["per_forward"]
+        for key in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "drop_ms", "drop_plain_ms",
+                    "drop_library_ms", "bwd_ms", "bwd_nomask_ms", "bwd_plain_ms",
+                    "bwd_library_ms"):
+            step_sum[key] = step_sum.get(key, 0.0) + k * g[key]
+        step_sum["fwd_flops"] += k * f_fl
+        step_sum["fwd_bytes"] += k * f_by
+        step_sum["bwd_flops"] += k * b_fl
+        step_sum["bwd_bytes"] += k * b_by
+        step_sum["launches"] += k
+        del x, w1, b1, w2, b2, gy, w1t, w2t, keep1, keep2
+    for ds, step_sum in mtot.items():
+        step_sum["fwd_bound_ms"] = bound(step_sum["fwd_flops"], step_sum["fwd_bytes"])[0]
+        step_sum["bwd_bound_ms"] = bound(step_sum["bwd_flops"], step_sum["bwd_bytes"])[0]
+        log(f"[time-mlp] one {ds} forward's MLPs ({step_sum['launches']} launches): #10 "
+            f"{step_sum['fwd_ms']:.3f} ms (plain {step_sum['fwd_plain_ms']:.3f}, library "
+            f"{step_sum['fwd_library_ms']:.3f}, bound {step_sum['fwd_bound_ms']:.3f}, "
+            f"{step_sum['fwd_flops'] / 1e9:.2f} GFLOP); #11 {step_sum['drop_ms']:.3f} (plain "
+            f"{step_sum['drop_plain_ms']:.3f}, library {step_sum['drop_library_ms']:.3f}); #12 "
+            f"{step_sum['bwd_ms']:.3f} ms, {step_sum['bwd_nomask_ms']:.3f} without masks (plain "
+            f"{step_sum['bwd_plain_ms']:.3f}, library {step_sum['bwd_library_ms']:.3f}, bound "
+            f"{step_sum['bwd_bound_ms']:.3f}, {step_sum['bwd_flops'] / 1e9:.2f} GFLOP)")
+    mod_mlp = mtot["MOD"]
+    log(f"[time-mlp] share of the -pallas_mlp supervised p50 step (MOD): "
+        f"{(mod_mlp['drop_ms'] + mod_mlp['bwd_ms']) / sup_runs['supervised-pallas-mlp']['p50_ms']:.3f}")
+    torch.cuda.empty_cache()
     log(f"[smoke] {time.time() - t_start:.1f}s after the build started")
 
     if cli.out:
@@ -1336,6 +1839,9 @@ def main():
                 "tower_geometries": [{k: v for k, v in g.items() if k != "cfgs"} for g in cgeos],
                 "tower_per_step": ctot, "deepsense_steps": ds_runs, "deepsense_rate0": rate0,
                 "deepsense_cli": ds_cli, "deepsense_serve_latency": ds_lat,
+                "mlp_geometries": mgeos, "mlp_per_forward": mtot, "supervised_steps": sup_runs,
+                "supervised_rate0": sup_rate0, "classifier_cli": cls_runs,
+                "serve_pallas_mlp_latency": mlp_lat, "serve_pallas_mlp_err": mlp_serve_err,
             }, f, indent=1)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -1356,7 +1862,15 @@ def main():
                             "pretrain_steps_MOD_DeepSense_pallas_conv":
                                 ds_runs["deepsense-pallas"]["launches"][k.__name__],
                             "train_cli_MOD_DeepSense": sum(r["launches"][k.__name__] for r in ds_cli),
-                            "serve_MOD_DeepSense": ds_serve_launches[k.__name__]}
+                            "serve_MOD_DeepSense": ds_serve_launches[k.__name__],
+                            "supervised_steps_MOD_default":
+                                sup_runs["supervised-default"]["launches"][k.__name__],
+                            "supervised_steps_MOD_pallas_mlp":
+                                sup_runs["supervised-pallas-mlp"]["launches"][k.__name__],
+                            "supervised_rate0_step_MOD": sup_rate0["launches"].get(k.__name__, 0),
+                            "classifier_cli_MOD_pallas_mlp":
+                                sum(r["launches"][k.__name__] for r in cls_runs),
+                            "serve_MOD_pallas_mlp": mlp_serve_launches[k.__name__]}
                for k in all_kernels}
     cli_launches = by_path[ph_fwd.__name__]["train_cli_MOD_WIDE"]
     train_per = (f"times: one pretrain step at batch {TRAIN_BATCH} (views fused to "
@@ -1369,6 +1883,22 @@ def main():
                  f"{DS_BATCH} (views fused to {2 * DS_BATCH}); launches: {TRAIN_STEPS} timed "
                  f"-pallas_conv steps; max_abs_err: worst over the MOD and MOD_WIDE towers "
                  f"(#14: every gradient, the near-zero conv-bias ones included)")
+
+    MLP_SRC = "focal_tpu_torch/csrc/fused_mlp.cu"
+    sup_mlp_launches = sup_runs["supervised-pallas-mlp"]["launches"]
+    mlp_per = (f"times: the {per_fwd_mlp} MLPs of one MOD forward at batch {SUP_BATCH}; launches: "
+               f"the -pallas_mlp served run ({mlp_batches} forwards)")
+    mlp_step_per = (f"times: the {per_fwd_mlp} MLPs of one MOD supervised step at batch "
+                    f"{SUP_BATCH} (dropout {mlp_rate}); launches: {TRAIN_STEPS} timed -pallas_mlp "
+                    "supervised steps; max_abs_err: worst over the MOD and MOD_WIDE stage-0 "
+                    "geometries")
+
+    def per_wide_mlp(d):
+        w = mtot["MOD_WIDE"]
+        key = "fwd" if d == "drop" else d
+        return {"ms": w[f"{d}_ms"], "plain_ms": w[f"{d}_plain_ms"],
+                "library_ms": w[f"{d}_library_ms"], "bound_ms": w[f"{key}_bound_ms"],
+                "rows_of_samples": 2 * WIDE_BATCH, "launches": w["launches"]}
 
     def per_wide(d):
         w = ctot["MOD_WIDE"]
@@ -1418,6 +1948,22 @@ def main():
               launches_per_step=ds_per_step[ct_bwd.__name__], steps=TRAIN_STEPS,
               max_rel_err=ct_grad_rel, max_abs_err_near_zero=ct_grad_near,
               mod_wide_step=per_wide("bwd"), launches_by_path=by_path[ct_bwd.__name__]),
+        entry("fused_mlp_forward", f"{PK}:527", by_path[mlp_fwd.__name__]["serve_MOD_pallas_mlp"],
+              mlp_err["fwd"], mod_mlp["fwd_ms"], mod_mlp["fwd_plain_ms"], mod_mlp["fwd_bound_ms"],
+              (mod_mlp["fwd_flops"], mod_mlp["fwd_bytes"]), mod_mlp["fwd_library_ms"], mlp_per,
+              source=MLP_SRC, launches_per_forward=per_fwd_mlp, forwards=mlp_batches,
+              mod_wide_stage0=per_wide_mlp("fwd"), launches_by_path=by_path[mlp_fwd.__name__]),
+        entry("fused_mlp_dropout_forward", f"{PK}:537", sup_mlp_launches[mlp_drop.__name__],
+              mlp_err["drop"], mod_mlp["drop_ms"], mod_mlp["drop_plain_ms"], mod_mlp["fwd_bound_ms"],
+              (mod_mlp["fwd_flops"], mod_mlp["fwd_bytes"]), mod_mlp["drop_library_ms"], mlp_step_per,
+              source=MLP_SRC, launches_per_step=per_fwd_mlp, steps=TRAIN_STEPS,
+              mod_wide_stage0=per_wide_mlp("drop"), launches_by_path=by_path[mlp_drop.__name__]),
+        entry("fused_mlp_backward", f"{PK}:590", sup_mlp_launches[mlp_bwd.__name__],
+              mlp_err["bwd_abs"], mod_mlp["bwd_ms"], mod_mlp["bwd_plain_ms"], mod_mlp["bwd_bound_ms"],
+              (mod_mlp["bwd_flops"], mod_mlp["bwd_bytes"]), mod_mlp["bwd_library_ms"], mlp_step_per,
+              source=MLP_SRC, replaces_also=[f"{PK}:601"], launches_per_step=per_fwd_mlp,
+              steps=TRAIN_STEPS, max_rel_err=mlp_err["bwd"], ms_without_masks=mod_mlp["bwd_nomask_ms"],
+              mod_wide_stage0=per_wide_mlp("bwd"), launches_by_path=by_path[mlp_bwd.__name__]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

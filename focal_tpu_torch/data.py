@@ -127,13 +127,18 @@ def partition_subsequences(sample_names, seq_len, delimiter="_"):
 class Split:
     """One split, stacked on the host (numpy) and, after ``to(device)``,
     resident on the device: ``data`` {loc: {mod: [N, c, i, s]}}, ``labels``
-    [N] int32 (numpy, for the metrics), ``subseq_idx`` [n, seq_len] or None."""
+    [N] int32 (numpy, for the metrics; after ``to`` also ``device_labels``,
+    int64 on the device, for the classifier steps), ``subseq_idx`` [n,
+    seq_len] or None."""
 
     def __init__(self, data, labels, names, seq_len=None, delimiter="_"):
         self.data = data
         self.labels = np.asarray(labels, dtype=np.int32)
+        self.names = list(names)
+        self.seq_len, self.delimiter = seq_len, delimiter
         self.subseq_idx = (partition_subsequences(names, seq_len, delimiter)
                            if seq_len is not None else None)
+        self.device_labels = None
 
     def __len__(self):
         return len(self.labels)
@@ -144,7 +149,17 @@ class Split:
 
     def to(self, device):
         self.data = to_device(self.data, device)
+        self.device_labels = torch.from_numpy(self.labels.astype(np.int64)).to(device)
         return self
+
+    def subsample(self, label_ratio, seed=0):
+        """The rows the JAX package's ``ArrayDataset.subsample`` keeps: the
+        first round(N * label_ratio) of a permutation from
+        ``np.random.default_rng(seed)``, in that order (host arrays)."""
+        keep = np.random.default_rng(seed).permutation(len(self))[: round(len(self) * label_ratio)]
+        data = {loc: {m: a[keep] for m, a in mods.items()} for loc, mods in self.data.items()}
+        return Split(data, self.labels[keep], [self.names[i] for i in keep], self.seq_len,
+                     self.delimiter)
 
     @classmethod
     def from_index_file(cls, index_file, task, seq_len=None, delimiter="_"):
@@ -170,19 +185,27 @@ def sequence_batches(args):
 def load_split(option, args):
     """The "train", "val" or "test" split of a run, on the host. Synthetic
     splits hold -synthetic_samples train samples and a quarter of that for
-    val and test, seeded seed, seed + 1, seed + 2."""
+    val and test, seeded seed, seed + 1, seed + 2. The supervised and
+    finetune stages train on -label_ratio of the train split
+    (``Split.subsample`` with -seed), as the JAX package's loader does."""
     seq_len = args.dataset_config.get("seq_len") if sequence_batches(args) else None
+    pretrain = args.train_mode == "contrastive" and args.stage == "pretrain"
     if args.synthetic:
         n = {"train": args.synthetic_samples, "val": args.synthetic_samples // 4,
              "test": args.synthetic_samples // 4}[option]
         seed = args.seed + {"train": 0, "val": 1, "test": 2}[option]
         data, labels, names = synthetic_arrays(args.dataset_config, args.task, n, seed)
-        return Split(data, labels, names, seq_len)
-    # pretraining reads the recipe's pretrain index; val and test the task's
-    cfg = args.dataset_config
-    index = cfg["pretrain_index_file"] if option == "train" else cfg[args.task][f"{option}_index_file"]
-    delimiter = "-" if args.dataset == "RealWorld_HAR" else "_"
-    return Split.from_index_file(index, args.task, seq_len, delimiter)
+        split = Split(data, labels, names, seq_len)
+    else:
+        # pretraining reads the recipe's pretrain index; the rest the task's
+        cfg = args.dataset_config
+        index = (cfg["pretrain_index_file"] if option == "train" and pretrain
+                 else cfg[args.task][f"{option}_index_file"])
+        delimiter = "-" if args.dataset == "RealWorld_HAR" else "_"
+        split = Split.from_index_file(index, args.task, seq_len, delimiter)
+    if option == "train" and args.label_ratio < 1 and not pretrain:
+        split = split.subsample(args.label_ratio, seed=args.seed)
+    return split
 
 
 class BatchPlan:

@@ -3,13 +3,16 @@
 from focal_tpu_torch.params import get_train_mode
 
 
-def build_backbone(dataset_config, model, task, learn_framework="no", pallas_conv=False):
+def build_backbone(dataset_config, model, task, learn_framework="no", pallas_conv=False,
+                   pallas_mlp=False):
     """Instantiate the backbone named `model` (on the CPU; move it after).
 
     The class head is linear for supervised training or when the recipe's
     ``pretrained_head`` says so, as in the JAX package. ``pallas_conv``
     (DeepSense only) trains the conv blocks through the fused conv-tower
-    kernels, as the JAX package's ``-pallas_conv``."""
+    kernels, as the JAX package's ``-pallas_conv``; ``pallas_mlp``
+    (SW_Transformer only) runs the Swin MLPs through the fused MLP kernels,
+    as its ``-pallas_mlp``."""
     if model not in ("SW_Transformer", "DeepSense"):
         raise ValueError(f"Invalid model provided: {model}")
     linear_head = (
@@ -19,7 +22,8 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
     if model == "SW_Transformer":
         from focal_tpu_torch.models.sw_transformer import SWTransformer
 
-        return SWTransformer(dataset_config, task, linear_class_head=linear_head)
+        return SWTransformer(dataset_config, task, linear_class_head=linear_head,
+                             pallas_mlp=pallas_mlp)
     from focal_tpu_torch.models.deepsense import DeepSense
 
     return DeepSense(dataset_config, task, linear_class_head=linear_head, use_pallas=pallas_conv)

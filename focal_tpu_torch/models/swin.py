@@ -6,7 +6,8 @@ resolved to constants when a block is built. Window attention goes through
 the whole-block kernels with the q scale folded into the qkv weights, as the
 JAX path does: ``window_block_forward`` (#1, or #4 for blocks too wide for
 it) in eval, ``window_block`` (#2 or #1 forward and #3 backward, or #4 and
-#5) in training.
+#5) in training. With ``pallas_mlp`` each block's MLP goes through the fused
+MLP kernels (#10-#12) where ``mlp_fits``.
 
 In training every module takes ``rng``, the step's ``ops.dropout.StepRngs``:
 one kernel seed per block from its host generator, DropPath and the other
@@ -23,6 +24,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
+from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_fits
 from focal_tpu_torch.ops.pallas_kernels import window_block, window_block_forward
 
 
@@ -179,14 +181,22 @@ class DropPath(nn.Module):
 
 
 class Mlp(nn.Module):
-    """fc -> exact-erf GELU -> drop -> fc -> drop, the dropouts by
+    """fc -> exact-erf GELU -> drop -> fc -> drop.
+
+    With ``use_pallas`` (the CLI's ``-pallas_mlp``) and ``mlp_fits`` at this
+    width, as the JAX package routes it, the whole MLP runs on the [rows, C]
+    tokens as the fused kernels: ``fused_mlp`` (#10, backward #12) in eval
+    and at rate 0, ``fused_mlp_dropout`` (#11, backward #12) in training at
+    rate > 0, one kernel seed per call from the step's host generator.
+    Otherwise two nn.Linear layers with the dropouts of
     ``ops.dropout.remat_dropout``."""
 
-    def __init__(self, dim, hidden, out, drop=0.0):
+    def __init__(self, dim, hidden, out, drop=0.0, use_pallas=False):
         super().__init__()
         self.Dense_0 = nn.Linear(dim, hidden)
         self.Dense_1 = nn.Linear(hidden, out)
         self.drop = float(drop)
+        self.fused = bool(use_pallas) and out == dim and mlp_fits(dim, hidden)
 
     def _drop(self, x, rng):
         if not self.training or self.drop == 0.0:
@@ -194,6 +204,17 @@ class Mlp(nn.Module):
         return remat_dropout(x, self.drop, needs_rng(rng, "Mlp dropout").device)
 
     def forward(self, x, rng=None):
+        if self.fused:
+            lead, C = x.shape[:-1], x.shape[-1]
+            x2 = x.reshape(-1, C).contiguous()
+            w1_t, w2_t = self.Dense_0.weight, self.Dense_1.weight  # [H, C], [C, H]
+            w = (w1_t.t().contiguous(), self.Dense_0.bias, w2_t.t().contiguous(), self.Dense_1.bias)
+            if self.training and self.drop > 0.0:
+                seed = needs_rng(rng, "Mlp dropout").seed()
+                y = fused_mlp_dropout(x2, *w, seed, self.drop, w1_t=w1_t, w2_t=w2_t)
+            else:
+                y = fused_mlp(x2, *w, w1_t=w1_t, w2_t=w2_t)
+            return y.reshape(*lead, C)
         x = self._drop(F.gelu(self.Dense_0(x), approximate="none"), rng)
         return self._drop(self.Dense_1(x), rng)
 
@@ -202,7 +223,8 @@ class SwinBlock(nn.Module):
     """One (S)W-MSA + MLP block."""
 
     def __init__(self, dim, input_resolution, num_heads, window_size, shift_size,
-                 mlp_ratio=4.0, qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=0.0):
+                 mlp_ratio=4.0, qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=0.0,
+                 pallas_mlp=False):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         H, W = self.input_resolution
@@ -219,7 +241,7 @@ class SwinBlock(nn.Module):
                                     attn_drop=attn_drop, proj_drop=drop)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, use_pallas=pallas_mlp)
         self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x, rng=None):
@@ -262,7 +284,8 @@ class BasicLayer(nn.Module):
     Blocks are registered as ``block{i}``, as the flax tree names them."""
 
     def __init__(self, dim, input_resolution, depth, num_heads, window_size, mlp_ratio=4.0,
-                 qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=(0.0,), downsample=False):
+                 qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=(0.0,), downsample=False,
+                 pallas_mlp=False):
         super().__init__()
         self.depth = depth
         for i in range(depth):
@@ -271,7 +294,7 @@ class BasicLayer(nn.Module):
             self.add_module(f"block{i}", SwinBlock(
                 dim, input_resolution, num_heads, window_size, shift,
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, drop=drop, attn_drop=attn_drop,
-                drop_path=dp,
+                drop_path=dp, pallas_mlp=pallas_mlp,
             ))
         self.downsample = PatchMerging(input_resolution, dim) if downsample else None
 

@@ -17,7 +17,7 @@ import subprocess
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "focal_tpu_torch")
-SOURCES = ("window_block.cu", "conv_tower.cu")
+SOURCES = ("window_block.cu", "conv_tower.cu", "fused_mlp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -37,3 +37,11 @@ def fft_preprocess(time_loc_inputs):
         loc: {mod: fft_mod(x) for mod, x in mods.items()}
         for loc, mods in time_loc_inputs.items()
     }
+
+
+def ifft_mod(x):
+    """Inverse of fft_mod: [b, 2c, i, s] interleaved -> the real signal
+    [b, c, i, s] (for tests and signal tooling)."""
+    b, c2, i, s = x.shape
+    z = x.to(torch.float32).reshape(b, c2 // 2, 2, i, s)
+    return torch.fft.ifft(torch.complex(z[:, :, 0], z[:, :, 1]), dim=-1).real

@@ -1,0 +1,341 @@
+"""Fused Swin MLP (port of the JAX package's ``fused_mlp`` and
+``fused_mlp_dropout``, ``focal_tpu/ops/pallas_kernels.py``): fc1 -> exact
+GELU -> fc2 on [T, C] token rows, the [T, 4C] hidden never written to
+device memory.
+
+Kernels (``csrc/fused_mlp.cu``), each with a launch count on its wrapper:
+  #10 ``fused_mlp_forward``: the forward at rate 0 (``_mlp_fwd_kernel``);
+  #11 ``fused_mlp_dropout_forward``: the forward with a keep mask after the
+      GELU and one after fc2, drawn from a seed (``_mlp_fwd_dropout_kernel``);
+  #12 ``fused_mlp_backward``: dx, dW1, db1, dW2, db2, with the masks drawn
+      again from the seed or without them (``_mlp_bwd_kernel``,
+      ``_mlp_bwd_dropout_kernel``).
+``fused_mlp`` and ``fused_mlp_dropout`` are the autograd functions over
+them. A CPU tensor takes the plain versions (``*_reference``, autograd
+through torch ops); a CUDA tensor takes the kernels or raises.
+
+Dropout is the TPU kernel's: a 32-bit draw per element, kept iff bits >=
+rate * 2**32, survivors scaled by 1 / (1 - rate) (not ``ops.dropout``'s
+1/256 quantisation, which the JAX package uses only off the fused route).
+The kernels draw Philox bits by (seed, row, column, site); the CPU draws
+the masks from torch's generator, so the two agree in distribution.
+"""
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from focal_tpu_torch.ops import _build
+
+_FUSED_MLP_SRC = "fused_mlp.cu"
+MAX_C = 256  # kMaxC in csrc/fused_mlp.cu
+MLP_TILE = 1024  # the JAX kernel's max token rows per tile
+
+
+# ---------------------------------------------------------------------------
+# the gate (the JAX package's _mlp_tile / mlp_fits, copied)
+
+
+def _mlp_tile(C, H):
+    tile = MLP_TILE
+    while tile > 128 and tile * (4 * H + 3 * C) * 4 > 7 * 1024 * 1024:
+        tile //= 2
+    return tile
+
+
+def mlp_fits(C, H):
+    """Whether the fused route takes width C and hidden H: exactly where the
+    JAX package's ``mlp_fits`` does (its TPU kernel keeps both weights and
+    their gradients whole in 16 MB of VMEM), so both packages take the same
+    route at every width: MOD's C 64/128/256, MOD_WIDE's stage 0 (C 256) and
+    not its C 512/1024 stages. The CUDA kernels take C <= 256 (MAX_C) and
+    raise above it."""
+    weights = 4 * C * H * 4
+    working = _mlp_tile(C, H) * (4 * H + 3 * C) * 4
+    return weights + working <= int(16 * 1024 * 1024 * 0.9)
+
+
+def _keep_threshold(rate):
+    """u32 drop threshold: keep iff bits >= rate * 2**32, as the TPU kernel."""
+    return min(int(rate * 4294967296.0), 2**32 - 1)
+
+
+# ---------------------------------------------------------------------------
+# the plain versions
+
+
+def fused_mlp_reference(x, w1, b1, w2, b2):
+    """Plain fc1 -> exact GELU -> fc2: x [T, C] @ w1 [C, H] + b1, GELU,
+    @ w2 [H, C] + b2. Differentiable by autograd."""
+    return torch.matmul(F.gelu(torch.matmul(x, w1) + b1, approximate="none"), w2) + b2
+
+
+def fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2, rate):
+    """The dropout form given its masks (keep1 [T, H], keep2 [T, C], bool or
+    uint8): h and y are zeroed where the mask is 0 and scaled by 1 / (1 -
+    rate) where it is 1."""
+    inv = 1.0 / (1.0 - rate)
+    h = F.gelu(torch.matmul(x, w1) + b1, approximate="none")
+    h = torch.where(keep1.bool(), h * inv, 0.0)
+    y = torch.matmul(h, w2) + b2
+    return torch.where(keep2.bool(), y * inv, 0.0)
+
+
+def fused_mlp_backward_reference(x, w1, b1, w2, b2, g, keep1=None, keep2=None, rate=0.0):
+    """(dx, dw1, db1, dw2, db2) by autograd through the plain forward, with
+    the masks when given."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+        if keep1 is None:
+            y = fused_mlp_reference(*leaves)
+        else:
+            y = fused_mlp_dropout_reference(*leaves, keep1, keep2, rate)
+        return torch.autograd.grad(y, leaves, g)
+
+
+def draw_mlp_masks(seed, T, C, H, rate, device):
+    """The plain version's masks: uint8 keep1 [T, H] and keep2 [T, C], 1
+    where a 32-bit draw from torch's generator seeded with ``seed`` is >=
+    rate * 2**32."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    thr = _keep_threshold(rate)
+    bits1 = torch.randint(0, 2**32, (T, H), generator=gen, device=device, dtype=torch.int64)
+    bits2 = torch.randint(0, 2**32, (T, C), generator=gen, device=device, dtype=torch.int64)
+    return (bits1 >= thr).to(torch.uint8), (bits2 >= thr).to(torch.uint8)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' wrappers (CUDA tensors only)
+
+
+def _lib():
+    lib = _build.load(_FUSED_MLP_SRC)
+    if lib.focal_mlp_fwd.argtypes is None:
+        p, i = ctypes.c_void_p, ctypes.c_int
+        seed = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float]
+        lib.focal_mlp_fwd.argtypes = [p] * 6 + [i] * 4 + seed + [p]
+        lib.focal_mlp_bwd_workspace.argtypes = [i] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.focal_mlp_bwd.argtypes = [p] * 9 + [i] * 4 + seed + [p]
+        lib.focal_mlp_masks.argtypes = [ctypes.c_ulonglong, ctypes.c_uint] + [i] * 3 + [p] * 3
+        for fn in (lib.focal_mlp_fwd, lib.focal_mlp_bwd_workspace, lib.focal_mlp_bwd,
+                   lib.focal_mlp_masks):
+            fn.restype = ctypes.c_int
+        lib.focal_cuda_error_string.argtypes = [i]
+        lib.focal_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"fused_mlp: {name} must be {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"fused_mlp: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"fused_mlp: {name} is on {t.device}, x on {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"fused_mlp: {name} must be contiguous")
+
+
+def _check_dims(x, w1):
+    """Validate x and w1 for the kernels; returns (T, C, H)."""
+    if x.device.type != "cuda":
+        raise ValueError(f"fused_mlp: unsupported device {x.device}")
+    if x.dim() != 2 or w1.dim() != 2:
+        raise ValueError(f"fused_mlp: x must be [T, C] and w1 [C, H], got {tuple(x.shape)}, "
+                         f"{tuple(w1.shape)}")
+    T, C = x.shape
+    H = w1.shape[1]
+    if C % 4 or not 4 <= C <= MAX_C or H < 1 or T < 1:
+        raise ValueError(f"fused_mlp: unsupported width C={C} H={H} T={T} (the kernels take "
+                         f"C a multiple of 4 up to {MAX_C})")
+    _check("x", x, (T, C), x.device)
+    _check("w1", w1, (C, H), x.device)
+    if x.data_ptr() % 16:
+        raise ValueError("fused_mlp: x must be 16-byte aligned")
+    return T, C, H
+
+
+def _launch(name, fn, dev, *args):
+    with torch.cuda.device(dev):
+        err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed ({err}): "
+                           f"{_lib().focal_cuda_error_string(err).decode()}")
+
+
+def _dropout_args(seed, rate):
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"fused_mlp: rate must be in (0, 1), got {rate}")
+    return int(seed) % 2**64, _keep_threshold(rate), 1.0 / (1.0 - rate)
+
+
+def _forward(name, x, w1, b1, w2, b2, dropout, seed, rate):
+    T, C, H = _check_dims(x, w1)
+    dev = x.device
+    _check("b1", b1, (H,), dev)
+    _check("w2", w2, (H, C), dev)
+    _check("b2", b2, (C,), dev)
+    y = torch.empty_like(x)
+    seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
+    _launch(name, _lib().focal_mlp_fwd, dev, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+            w2.data_ptr(), b2.data_ptr(), y.data_ptr(), T, C, H, int(dropout), seed_, thr, inv)
+    return y
+
+
+def fused_mlp_forward(x, w1, b1, w2, b2):
+    """#10: y = GELU(x w1 + b1) w2 + b2 for x [T, C], w1 [C, H], b1 [H], w2
+    [H, C], b2 [C] (f32, contiguous). Replaces
+    focal_tpu/ops/pallas_kernels.py::_mlp_fwd_impl (_mlp_fwd_kernel). CPU
+    tensors take the plain version."""
+    if x.device.type == "cpu":
+        return fused_mlp_reference(x, w1, b1, w2, b2)
+    y = _forward("fused_mlp_forward", x, w1, b1, w2, b2, False, 0, 0.0)
+    fused_mlp_forward.launches += 1
+    return y
+
+
+fused_mlp_forward.launches = 0
+
+
+def fused_mlp_dropout_forward(x, w1, b1, w2, b2, seed, rate):
+    """#11: #10 with both dropouts: each element of h [T, H] and of y [T, C]
+    is kept iff its Philox word (keyed by ``seed``, counted by row, column
+    and site) is >= rate * 2**32, and scaled by 1 / (1 - rate). The same
+    seed gives the same masks (``mlp_keep_masks`` materialises them).
+    Replaces focal_tpu/ops/pallas_kernels.py::_mlp_fwd_impl with a seed
+    (_mlp_fwd_dropout_kernel). On the CPU the masks come from
+    draw_mlp_masks and y from the plain version."""
+    if x.device.type == "cpu":
+        T, C = x.shape
+        keep1, keep2 = draw_mlp_masks(seed, T, C, w1.shape[1], rate, x.device)
+        return fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2, rate)
+    y = _forward("fused_mlp_dropout_forward", x, w1, b1, w2, b2, True, seed, rate)
+    fused_mlp_dropout_forward.launches += 1
+    return y
+
+
+fused_mlp_dropout_forward.launches = 0
+
+
+def fused_mlp_backward(x, w1, b1, w1_t, w2_t, g, seed=None, rate=0.0):
+    """#12: (dx [T, C], dw1 [C, H], db1 [H], dw2 [H, C], db2 [C]) for the
+    gradient g [T, C] of #10 (seed None) or of #11 (its seed and rate,
+    the masks drawn again). It recomputes z and h from x, as the TPU kernel
+    does; w1_t [H, C] and w2_t [C, H] are w1 and w2 transposed (nn.Linear's
+    own layouts), which dx and dh read. The weight gradients are sums over
+    the rows taken in a fixed order: two calls give the same bits.
+    Replaces focal_tpu/ops/pallas_kernels.py::_mlp_bwd_impl
+    (_mlp_bwd_kernel, _mlp_bwd_dropout_kernel). CPU tensors take autograd
+    of the plain version, with draw_mlp_masks' masks for a seed."""
+    if x.device.type == "cpu":
+        keep1 = keep2 = None
+        if seed is not None:
+            keep1, keep2 = draw_mlp_masks(seed, x.shape[0], x.shape[1], w1.shape[1], rate, x.device)
+        b2 = torch.zeros(x.shape[1], dtype=x.dtype)  # y's bias: no part in the gradients
+        return fused_mlp_backward_reference(x, w1, b1, w2_t.t(), b2, g, keep1, keep2, rate)
+    T, C, H = _check_dims(x, w1)
+    dev = x.device
+    _check("b1", b1, (H,), dev)
+    _check("w1_t", w1_t, (H, C), dev)
+    _check("w2_t", w2_t, (C, H), dev)
+    _check("g", g, (T, C), dev)
+    if g.data_ptr() % 16:
+        raise ValueError("fused_mlp_backward: g must be 16-byte aligned")
+    dropout = seed is not None
+    seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
+    lib = _lib()
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = lib.focal_mlp_bwd_workspace(T, C, H, ctypes.byref(floats))
+    if err != 0:
+        raise RuntimeError(f"fused_mlp_backward: no launch plan ({err}): "
+                           f"{lib.focal_cuda_error_string(err).decode()}")
+    ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dweights = torch.empty(2 * C * H + H + C, dtype=torch.float32, device=dev)
+    _launch("fused_mlp_backward", lib.focal_mlp_bwd, dev, x.data_ptr(), w1.data_ptr(),
+            b1.data_ptr(), w1_t.data_ptr(), w2_t.data_ptr(), g.data_ptr(), dx.data_ptr(),
+            dweights.data_ptr(), ws.data_ptr(), T, C, H, int(dropout), seed_, thr, inv)
+    fused_mlp_backward.launches += 1
+    dw1 = dweights[:C * H].view(C, H)
+    db1 = dweights[C * H:C * H + H]
+    dw2 = dweights[C * H + H:2 * C * H + H].view(H, C)
+    db2 = dweights[2 * C * H + H:]
+    return dx, dw1, db1, dw2, db2
+
+
+fused_mlp_backward.launches = 0
+
+
+def mlp_keep_masks(seed, T, C, H, rate, device):
+    """uint8 keep1 [T, H] and keep2 [T, C] of ``seed``: on a CUDA device the
+    very masks #11 and #12 draw (a small kernel calling the same Philox
+    function; never on the training path), on the CPU draw_mlp_masks'."""
+    device = torch.device(device)
+    if device.type == "cpu":
+        return draw_mlp_masks(seed, T, C, H, rate, device)
+    if C % 4 or not 4 <= C <= MAX_C:
+        raise ValueError(f"mlp_keep_masks: unsupported width C={C}")
+    seed_, thr, _ = _dropout_args(seed, rate)
+    keep1 = torch.empty((T, H), dtype=torch.uint8, device=device)
+    keep2 = torch.empty((T, C), dtype=torch.uint8, device=device)
+    _launch("mlp_keep_masks", _lib().focal_mlp_masks, device, seed_, thr, T, C, H,
+            keep1.data_ptr(), keep2.data_ptr())
+    return keep1, keep2
+
+
+# ---------------------------------------------------------------------------
+# the autograd functions
+
+
+class _FusedMlp(torch.autograd.Function):
+    """#10 (seed None) or #11 forward, #12 backward (the JAX package's
+    jax.custom_vjp pair). The masks are not saved: #12 draws them again."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, seed, rate, w1_t, w2_t):
+        if seed is None:
+            y = fused_mlp_forward(x, w1, b1, w2, b2)
+        else:
+            y = fused_mlp_dropout_forward(x, w1, b1, w2, b2, seed, rate)
+        ctx.save_for_backward(x, w1, b1, w1_t, w2_t)
+        ctx.seed, ctx.rate = seed, rate
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w1_t, w2_t = ctx.saved_tensors
+        grads = fused_mlp_backward(x, w1, b1, w1_t, w2_t, g.contiguous(), ctx.seed, ctx.rate)
+        # w1_t and w2_t are w1 and w2 in another layout: their gradient
+        # reaches the parameters through w1 and w2
+        return (*grads, None, None, None, None)
+
+
+def _transposes(w1, w2, w1_t, w2_t):
+    return (w1.t().contiguous() if w1_t is None else w1_t,
+            w2.t().contiguous() if w2_t is None else w2_t)
+
+
+def fused_mlp(x, w1, b1, w2, b2, w1_t=None, w2_t=None):
+    """Differentiable fused MLP on [T, C] rows: forward #10, backward #12;
+    gradients in x, w1, b1, w2 and b2. ``w1_t`` [H, C] and ``w2_t`` [C, H],
+    when given, are w1 and w2 transposed (nn.Linear's weights), which #12
+    reads; else the wrapper makes them. On the CPU: the plain version under
+    autograd."""
+    if x.device.type == "cpu":
+        return fused_mlp_reference(x, w1, b1, w2, b2)
+    w1_t, w2_t = _transposes(w1, w2, w1_t, w2_t)
+    return _FusedMlp.apply(x, w1, b1, w2, b2, None, 0.0, w1_t, w2_t)
+
+
+def fused_mlp_dropout(x, w1, b1, w2, b2, seed, rate, w1_t=None, w2_t=None):
+    """fused_mlp with dropout after the GELU and after fc2 (the rate of the
+    Swin Mlp, one mask each): forward #11, backward #12 with the masks of
+    ``seed`` drawn again. On the CPU: the plain version with
+    draw_mlp_masks' masks, under autograd."""
+    if x.device.type == "cpu":
+        keep1, keep2 = draw_mlp_masks(seed, x.shape[0], x.shape[1], w1.shape[1], rate, x.device)
+        return fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2, rate)
+    w1_t, w2_t = _transposes(w1, w2, w1_t, w2_t)
+    return _FusedMlp.apply(x, w1, b1, w2, b2, int(seed), float(rate), w1_t, w2_t)

@@ -87,6 +87,9 @@ def build_parser():
     parser.add_argument("-synthetic_samples", type=int, default=512, help="Synthetic sample count.")
     parser.add_argument("-predictions_out", type=str, default=None, help="Predictions JSON path.")
     parser.add_argument("-seed", type=int, default=0, help="Seed for data and random init.")
+    parser.add_argument("-pallas_mlp", action="store_true",
+                        help="SW_Transformer: run the Swin MLPs through the fused MLP kernel "
+                        "(#10; opt-in, as in the JAX CLI).")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     return parser
 
@@ -111,7 +114,11 @@ def build_train_parser():
     parser.add_argument("-model", type=str, default="SW_Transformer", help="Backbone.")
     parser.add_argument("-task", type=str, default=None, help="Downstream task.")
     parser.add_argument("-learn_framework", type=str, default="FOCAL", help="FOCAL | no.")
-    parser.add_argument("-stage", type=str, default="pretrain", help="pretrain (ported) | finetune.")
+    parser.add_argument("-stage", type=str, default="pretrain",
+                        help="pretrain | finetune (contrastive only).")
+    parser.add_argument("-label_ratio", type=float, default=1.0,
+                        help="Share of the train split's labelled samples used by supervised "
+                        "training and finetuning.")
     parser.add_argument("-tag", type=str, default=None, help="Run tag; noPrivate changes the loss.")
     parser.add_argument("-batch_size", type=int, default=None,
                         help="Global batch (256 in pretrain, else 128).")
@@ -133,12 +140,18 @@ def build_train_parser():
                         help="Go on from the _resume checkpoint of -model_weight's folder or of "
                         "the newest matching experiment folder.")
     parser.add_argument("-model_weight", type=str, default=None,
-                        help="Experiment folder to resume.")
+                        help="Experiment folder to resume, to finetune from, or to test.")
     parser.add_argument("-no_fused_views", action="store_true",
                         help="Run the two pretrain views as two forwards, not one [2B] batch.")
     parser.add_argument("-pallas_conv", action="store_true",
                         help="DeepSense: train the conv blocks through the fused conv-tower "
                         "kernels (#13/#14; opt-in, as in the JAX CLI).")
+    parser.add_argument("-pallas_mlp", action="store_true",
+                        help="SW_Transformer: run the Swin MLPs through the fused MLP kernels "
+                        "(#10-#12; opt-in, as in the JAX CLI).")
+    parser.add_argument("-mixup_labels", action="store_true",
+                        help="Supervised: train on mixup's soft labels (off by default: the "
+                        "reference discards them).")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     # the JAX CLI's flags for what the port does not run yet
     parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7).")
@@ -148,8 +161,8 @@ def build_train_parser():
                         help="auto | replicated; sharded is not ported yet (ROADMAP A7).")
     parser.add_argument("-ragged_tail", action="store_true", help="Not ported yet (ROADMAP A8).")
     parser.add_argument("-py_aug_draws", action="store_true", help="Not ported yet (ROADMAP A8).")
-    parser.add_argument("-pallas_mlp", action="store_true",
-                        help="Not ported yet (ROADMAP B, kernels #10-#12).")
+    parser.add_argument("-init_weight", type=str, default=None, help="Not ported yet (ROADMAP A8).")
+    parser.add_argument("-ref_lr_timing", action="store_true", help="Not ported yet (ROADMAP A8).")
     parser.add_argument("-no_pallas_block", action="store_true",
                         help="Not ported yet (ROADMAP B, kernels #6-#9).")
     return parser
@@ -159,16 +172,17 @@ def build_train_parser():
 _PORTED_VALUES = {
     "grad_accum": ({1}, "A7"), "data_parallel": ({0, 1}, "A7"), "model_parallel": ({1}, "A7"),
     "data_layout": ({"auto", "replicated"}, "A7"), "ragged_tail": ({False}, "A8"),
-    "py_aug_draws": ({False}, "A8"), "pallas_mlp": ({False}, "B (#10-#12)"),
-    "no_pallas_block": ({False}, "B (#6-#9)"),
+    "py_aug_draws": ({False}, "A8"), "init_weight": ({None}, "A8"),
+    "ref_lr_timing": ({False}, "A8"), "no_pallas_block": ({False}, "B (#6-#9)"),
 }
 
 
-def parse_train_params(argv=None):
+def parse_train_params(argv=None, option="train"):
     """Parse training flags and fill the derived fields (recipe, task,
-    train_mode, batch_size). A flag of what is not ported raises
+    train_mode, batch_size, option). A flag of what is not ported raises
     NotImplementedError naming its ROADMAP item."""
     args = build_train_parser().parse_args(argv)
+    args.option = option
     for name, (values, item) in _PORTED_VALUES.items():
         if getattr(args, name) not in values:
             raise NotImplementedError(
@@ -180,3 +194,9 @@ def parse_train_params(argv=None):
     if args.batch_size is None:
         args.batch_size = 256 if args.stage == "pretrain" else 128
     return args
+
+
+def parse_test_params(argv=None):
+    """The evaluation CLI's flags: the training flags, as the JAX package's
+    ``parse_test_params`` takes them."""
+    return parse_train_params(argv, option="test")

@@ -33,16 +33,18 @@ class Predictor:
         ``torch.save``; None serves a seeded random init (``seed``).
       batch_size: the fixed serving batch.
       device: "cuda" (default) or "cpu"; "cuda" with no card raises.
+      pallas_mlp: SW_Transformer's MLPs through the fused MLP kernel (#10),
+        as the CLI's -pallas_mlp.
     """
 
     def __init__(self, dataset_config, model, task, state_dict=None, batch_size=128,
-                 device="cuda", learn_framework="no", seed=0):
+                 device="cuda", learn_framework="no", seed=0, pallas_mlp=False):
         self.device = select_device(device)
         self.task = task
         self.batch_size = int(batch_size or 128)
         self.num_classes = dataset_config[task]["num_classes"]
         self.augmenter = Augmenter(dataset_config)
-        net = build_backbone(dataset_config, model, task, learn_framework)
+        net = build_backbone(dataset_config, model, task, learn_framework, pallas_mlp=pallas_mlp)
         if state_dict is None:
             init_params(net, seed)
             self.checkpoint_path = f"random init (seed {seed})"

@@ -1,0 +1,51 @@
+"""Evaluation CLI of the port (the JAX package's root test.py):
+
+    python -m focal_tpu_torch.test -dataset MOD -model SW_Transformer \
+        -learn_framework FOCAL -stage finetune -synthetic -output_dir runs
+
+Loads the stage's `_best` classifier (supervised with ``-learn_framework
+no``, finetuned with ``-stage finetune``) from -model_weight's folder or the
+newest matching experiment folder, runs the test split through the class
+head and prints the test loss, accuracy, macro-F1 and confusion matrix. On
+the CUDA card, or on the CPU with ``-device cpu``; ``-pallas_mlp`` runs the
+Swin MLPs through the fused MLP kernel (#10).
+"""
+
+import logging
+
+from focal_tpu_torch.data import DeviceDataLoader, load_split
+from focal_tpu_torch.models import build_backbone
+from focal_tpu_torch.ops.augment import Augmenter
+from focal_tpu_torch.output_paths import checkpoint_paths, set_model_weight_folder
+from focal_tpu_torch.params import parse_test_params, select_device
+from focal_tpu_torch.train import checkpoint as ckpt
+from focal_tpu_torch.train import evaluate as ev
+
+
+def test(args):
+    """(test loss, accuracy, macro-F1) of the stage's `_best` file on the
+    test split (the confusion matrix is printed)."""
+    device = select_device(args.device)
+    set_model_weight_folder(args)
+    args.classifier_weight = checkpoint_paths(args)[0]
+    split = load_split("test", args).to(device)
+    model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
+                           pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp)
+    logging.info(f"= Loading classifier weight: {args.classifier_weight}")
+    ckpt.load_params_into(model, args.classifier_weight, load_class_layer=True)
+    model.to(device)
+    plan = ev.EvalPlan(DeviceDataLoader(split, args.batch_size), device)
+    test_loss, metrics = ev.eval_supervised(args, model, Augmenter(args.dataset_config), plan,
+                                            split.data)
+    print(f"Test classifier loss: {test_loss: .5f}")
+    print(f"Test acc: {metrics[0]: .5f}, test f1: {metrics[1]: .5f}")
+    print(f"Test confusion matrix:\n {metrics[2]}")
+    return test_loss, metrics[0], metrics[1]
+
+
+def main(argv=None):
+    return test(parse_test_params(argv))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,24 +1,29 @@
 """Training CLI of the port:
 
-    python -m focal_tpu_torch.train -dataset MOD_WIDE -model SW_Transformer \
+    python -m focal_tpu_torch.train -dataset MOD -model SW_Transformer \
         -learn_framework FOCAL -stage pretrain -synthetic -epochs 2 -output_dir runs
 
-FOCAL pretraining (``train.loops.pretrain``) on the CUDA card, or on the
-CPU with ``-device cpu``; ``-resume`` goes on from the newest run's
-`_resume` checkpoint. The supervised and finetune stages are not ported yet
-(ROADMAP A4).
+The JAX package's three stages, dispatched as its train.py does:
+``-learn_framework no`` trains a classifier (``train.loops.
+supervised_train``), ``-learn_framework FOCAL`` pretrains (``-stage
+pretrain``, the default) or finetunes the newest pretrained run (``-stage
+finetune``). On the CUDA card, or on the CPU with ``-device cpu``;
+``-resume`` goes on from the stage's `_resume` checkpoint; ``-pallas_mlp``
+runs the Swin MLPs through the fused MLP kernels.
 """
 
 from focal_tpu_torch.params import parse_train_params
-from focal_tpu_torch.train.loops import pretrain
+from focal_tpu_torch.train.loops import finetune, pretrain, supervised_train
 
 
 def train(args):
-    if args.train_mode == "supervised" or args.stage != "pretrain":
-        raise NotImplementedError(
-            f"stage {args.stage} with -learn_framework {args.learn_framework} is not ported yet: "
-            "ROADMAP A4")
-    return pretrain(args)
+    if args.train_mode == "supervised":
+        return supervised_train(args)
+    if args.stage == "pretrain":
+        return pretrain(args)
+    if args.stage == "finetune":
+        return finetune(args)
+    raise ValueError(f"Invalid stage ({args.stage}) provided.")
 
 
 def main(argv=None):

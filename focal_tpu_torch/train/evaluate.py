@@ -1,11 +1,12 @@
-"""Evaluation of pretraining (port of the JAX package's
-``train/evaluate.py``): the pretrain loss over a split, encoder features
-for the KNN probe, and the task metrics (accuracy, macro-F1, confusion
-matrix) in numpy.
+"""Evaluation (port of the JAX package's ``train/evaluate.py``): the
+pretrain loss over a split, encoder features for the KNN probe, the class
+head's loss over a split (``eval_supervised``), and the task metrics
+(accuracy, macro-F1, confusion matrix) in numpy.
 
 A split's batches follow an ``EvalPlan``: every unit once, in order, the
 ragged tail padded and weighted 0. The model runs in eval mode, so its
-window attention goes through the eval kernels (#1, or #4 for wide blocks).
+window attention goes through the eval kernels (#1, or #4 for wide blocks)
+and, with -pallas_mlp, its MLPs through #10.
 """
 
 import numpy as np
@@ -100,3 +101,40 @@ def eval_pretrained(args, model, augmenter, loss_fn, estimator, plan, data, gen)
     feats, labels = extract_features(model, augmenter, plan, data)
     preds = estimator.predict(feats).cpu().numpy()
     return mean_loss, eval_task_metrics(args, labels, preds)
+
+
+def class_logits(model, augmenter, plan, data):
+    """[nb, B, num_classes] f32 numpy: the class head's logits of every
+    batch of a plan, FFT-only inputs, eval forward."""
+    model.eval()
+    rows = []
+    with torch.no_grad():
+        for idx in plan.idx:
+            rows.append(model(augmenter.no(gather_batch(data, idx)), head="class").float())
+    return torch.stack(rows).cpu().numpy()
+
+
+def _np_cross_entropy(logits, labels, weight):
+    """Weighted mean cross-entropy in numpy on [B, C] host arrays."""
+    shifted = logits - logits.max(axis=-1, keepdims=True)
+    logp = shifted - np.log(np.exp(shifted).sum(axis=-1, keepdims=True))
+    per = -logp[np.arange(len(labels)), labels]
+    return float((per * weight).sum() / max(weight.sum(), 1.0))
+
+
+def eval_supervised(args, model, augmenter, plan, data):
+    """(mean loss, (accuracy, macro-F1, confusion)) of a split through the
+    class head: the loss is the mean of per-batch weighted means (the
+    reference's one loss per batch), the metrics over the unpadded rows."""
+    if "regression" in args.task:
+        raise NotImplementedError(f"regression task {args.task} is not ported yet: ROADMAP A8")
+    return supervised_metrics(args, class_logits(model, augmenter, plan, data), plan)
+
+
+def supervised_metrics(args, logits, plan):
+    """eval_supervised's numbers from the logits [nb, B, C] of a plan."""
+    losses = [_np_cross_entropy(logits[b], plan.labels[b], plan.weight[b])
+              for b in range(logits.shape[0])]
+    keep = plan.weight.reshape(-1) > 0
+    preds = logits.reshape(-1, logits.shape[-1]).argmax(-1)
+    return float(np.mean(losses)), eval_task_metrics(args, plan.labels.reshape(-1)[keep], preds[keep])

@@ -1,19 +1,26 @@
-"""Stage loops (port of the JAX package's ``train/loops.py``): FOCAL
-pretraining on one device.
+"""Stage loops (port of the JAX package's ``train/loops.py``) on one
+device: FOCAL pretraining (``pretrain``), supervised training
+(``supervised_train``) and finetuning (``finetune``).
 
-Epochs of pretrain steps over the device-resident train split; validation
-after epochs 0, val_epochs, 2 val_epochs, ... and the last: a KNN probe
-fitted on the train split's encoder features, then the pretrain loss and
-the probe's metrics on val and test. Every validation point saves the
-backbone (`_latest`; `_best` when the val loss is the lowest so far) and the
-full state (`_resume`). A non-finite train loss stops the run.
+Epochs of steps over the device-resident train split; validation after
+epochs 0, val_epochs, 2 val_epochs, ... and the last. Pretraining fits a
+KNN probe on the train split's encoder features and reports the pretrain
+loss and the probe's metrics on val and test; its `_best` has the lowest
+val loss. The classifier stages report the class head's loss and metrics
+(``evaluate.eval_supervised``); their `_best` has the highest val accuracy.
+Supervised training draws the fixed augmenter pool; finetuning loads the
+pretrained backbone (pretraining's `_latest`, without its class layer),
+trains only ``class_layer`` and ``mod_fusion_layer`` and runs the
+augmenter ``no``. Every validation point saves the model (`_latest`, and
+`_best`) and the full state (`_resume`). A non-finite train loss stops the
+run.
 
 Randomness is derived, never carried: an epoch's permutation from (seed,
-epoch), a step's views and dropout from (seed, update count), a
+epoch), a step's augmentation and dropout from (seed, update count), a
 validation's views from (seed, epoch). A run resumed from `_resume` thus
-takes the steps a straight run takes. Unlike the JAX loop, `_resume` holds
-the best val loss after this point's update, so that a resumed run also
-picks `_best` as a straight run does.
+takes the steps a straight run takes. Unlike the JAX loops, `_resume` holds
+the best val loss (accuracy) after this point's update, so that a resumed
+run also picks `_best` as a straight run does.
 """
 
 import logging
@@ -33,7 +40,7 @@ from focal_tpu_torch.train import checkpoint as ckpt
 from focal_tpu_torch.train import evaluate as ev
 from focal_tpu_torch.train.losses import make_focal_loss
 from focal_tpu_torch.train.state import create_train_state
-from focal_tpu_torch.train.steps import make_pretrain_step
+from focal_tpu_torch.train.steps import make_pretrain_step, make_supervised_train_step
 
 _PERMUTATION, _EVAL = 1, 2  # generator streams derived from the seed
 _RESIDENT_SHARE = 0.6  # of device memory a resident train split may take
@@ -72,7 +79,7 @@ class Run:
                      f"test {len(self.splits['test'])}; device {self.device}")
         self.augmenter = build_augmenter(args)
         model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
-                               pallas_conv=args.pallas_conv)
+                               pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp)
         self.model = init_params(model, seed=args.seed).to(self.device)
         self._plans = {}
 
@@ -167,3 +174,77 @@ def pretrain(args):
         block_t0, block_samples = time.time(), 0
     logging.info(f"[pretrain] total time {time.time() - start:.1f}s, best val loss {best_val_loss:.5f}")
     return state, best_val_loss, points
+
+
+def supervised_train(args):
+    """Supervised training of ``args`` (parse_train_params, -learn_framework
+    no): the backbone's recipe schedule and fixed augmenter pool. Returns
+    (state, best val accuracy, validation points)."""
+    return _classifier_loop(args, "supervised", fixed_aug=True,
+                            scheduler=args.dataset_config[args.model]["lr_scheduler"])
+
+
+def finetune(args):
+    """Finetuning of a FOCAL-pretrained backbone (-stage finetune): the
+    framework's finetune recipe, augmenter ``no``. Returns (state, best val
+    accuracy, validation points)."""
+    return _classifier_loop(args, "finetune", fixed_aug=False,
+                            scheduler=args.dataset_config[args.learn_framework]["finetune_lr_scheduler"])
+
+
+def _classifier_loop(args, stage, fixed_aug, scheduler):
+    """The loop the two classifier stages share (they differ in
+    augmentation and in the initial weights)."""
+    select_device(args.device)  # no card and no -device cpu: raise before any folder is made
+    set_model_weight_folder(args)
+    run = Run(args)
+    train_epochs = args.epochs or scheduler["train_epochs"]
+    if stage == "finetune":
+        pretrain_latest = checkpoint_paths(args, stage="pretrain")[1]
+        logging.info(f"= Loading the pretrained backbone from {pretrain_latest}")
+        ckpt.load_params_into(run.model, pretrain_latest, load_class_layer=False)
+    steps_per_epoch = len(run.train_loader)
+    state = create_train_state(args, run.model, steps_per_epoch, seed=args.seed)
+    logging.info(f"= Model params: {sum(p.numel() for p in run.model.parameters()):,} "
+                 f"({sum(p.numel() for p in state.optimizer.params):,} trained)")
+    step = make_supervised_train_step(run.model, run.augmenter, fixed_aug=fixed_aug)
+    best_path, latest_path, resume_path = checkpoint_paths(args)
+    val_epochs = args.val_epochs or 5
+    best_val_acc, start_epoch = -1.0, 0
+    if args.resume:
+        epoch, best_val_acc = ckpt.restore_state(resume_path, state)
+        start_epoch = epoch + 1
+        logging.info(f"= Resumed from {resume_path} at epoch {start_epoch}, best {best_val_acc:.5f}")
+    train = run.splits["train"]
+    points = []
+    start = block_t0 = time.time()
+    block_samples = 0
+    for epoch in range(start_epoch, train_epochs):
+        metrics = [step(state, train.data, train.device_labels, idx)[1]
+                   for idx in run.train_batches(epoch)]
+        block_samples += steps_per_epoch * run.train_loader.batch_size
+        if epoch % val_epochs and epoch != train_epochs - 1:
+            continue
+        train_loss = float(torch.stack([m["loss"] for m in metrics]).mean())
+        train_acc = float(torch.stack([m["acc"] for m in metrics]).mean())
+        _nan_guard(train_loss, stage, epoch)
+        logging.info(f"[{stage}] epoch {epoch}: train loss {train_loss:.5f}, train acc "
+                     f"{train_acc:.5f} ({block_samples / max(time.time() - block_t0, 1e-9):.1f} "
+                     "samples/s)")
+        val_loss, val_metrics = ev.eval_supervised(args, run.model, run.augmenter,
+                                                   run.eval_plan("val"), run.splits["val"].data)
+        test_loss, test_metrics = ev.eval_supervised(args, run.model, run.augmenter,
+                                                     run.eval_plan("test"), run.splits["test"].data)
+        log_val_test(stage, epoch, val_loss, val_metrics, test_loss, test_metrics)
+        ckpt.save_params(latest_path, run.model)
+        if val_metrics[0] > best_val_acc:
+            best_val_acc = val_metrics[0]
+            ckpt.save_params(best_path, run.model)
+        ckpt.save_state(resume_path, state, epoch, best_val_acc)
+        points.append({"epoch": epoch, "train_loss": train_loss, "train_acc": train_acc,
+                       "val_loss": val_loss, "val_acc": val_metrics[0], "val_f1": val_metrics[1],
+                       "test_loss": test_loss, "test_acc": test_metrics[0],
+                       "test_f1": test_metrics[1]})
+        block_t0, block_samples = time.time(), 0
+    logging.info(f"[{stage}] total time {time.time() - start:.1f}s, best val acc {best_val_acc:.5f}")
+    return state, best_val_acc, points

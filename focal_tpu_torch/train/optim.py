@@ -55,10 +55,30 @@ def make_epoch_schedule(scheduler_config, optimizer_config):
     raise ValueError(f"Unknown LR scheduler: {name}")
 
 
-def trainable_mask(model):
-    """{parameter name: trainable}: pretraining freezes every
-    ``patch_embed`` parameter."""
-    return {name: "patch_embed" not in name for name, _ in model.named_parameters()}
+def _stage_configs(args):
+    """The (optimizer, scheduler) recipe sections of the run's stage:
+    ``[model]`` optimizer/lr_scheduler for supervised training, the
+    framework's pretrain_* or finetune_* ones otherwise."""
+    if args.train_mode == "supervised":
+        section = args.dataset_config[args.model]
+        return section["optimizer"], section["lr_scheduler"]
+    section = args.dataset_config[args.learn_framework]
+    if args.stage in ("pretrain", "finetune"):
+        return section[f"{args.stage}_optimizer"], section[f"{args.stage}_lr_scheduler"]
+    raise ValueError(f"No optimizer defined for stage {args.stage}")
+
+
+def trainable_mask(model, args=None):
+    """{parameter name: trainable}, the JAX package's freezing rules:
+    contrastive pretraining (the default without ``args``) freezes every
+    ``patch_embed`` parameter; finetuning trains only ``class_layer`` and
+    ``mod_fusion_layer``; supervised training trains everything."""
+    names = [name for name, _ in model.named_parameters()]
+    if args is None or (args.train_mode != "supervised" and args.stage == "pretrain"):
+        return {n: "patch_embed" not in n for n in names}
+    if args.train_mode != "supervised" and args.stage == "finetune":
+        return {n: "class_layer" in n or "mod_fusion_layer" in n for n in names}
+    return {n: True for n in names}
 
 
 class StepOptimizer:
@@ -100,14 +120,12 @@ def clip_by_global_norm(grads, max_norm):
 
 def build_optimizer(args, model, steps_per_epoch):
     """(StepOptimizer over the trainable parameters, lr(epoch)) from the
-    framework's pretrain recipe; a run's -epochs, when given, is also the
+    stage's recipe sections; a run's -epochs, when given, is also the
     schedule's length, as in the JAX package. Frozen parameters
-    (``trainable_mask``) get requires_grad False here."""
-    if args.train_mode == "supervised" or args.stage != "pretrain":
-        raise NotImplementedError("only contrastive pretraining is ported: ROADMAP A4")
-    section = args.dataset_config[args.learn_framework]
-    optimizer_config = section["pretrain_optimizer"]
-    scheduler_config = section["pretrain_lr_scheduler"]
+    (``trainable_mask``) get requires_grad False here: autograd then skips
+    them, where the JAX step computes their gradients and zeroes the
+    updates (the parameters come out the same)."""
+    optimizer_config, scheduler_config = _stage_configs(args)
     if getattr(args, "epochs", None):
         scheduler_config = dict(scheduler_config, train_epochs=args.epochs)
     lr_epoch = make_epoch_schedule(scheduler_config, optimizer_config)
@@ -116,7 +134,7 @@ def build_optimizer(args, model, steps_per_epoch):
         wd = wd[args.model]
     wd = float(wd)
 
-    mask = trainable_mask(model)
+    mask = trainable_mask(model, args)
     params = []
     for name, p in model.named_parameters():
         p.requires_grad_(mask[name])

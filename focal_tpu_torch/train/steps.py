@@ -1,12 +1,15 @@
 """Training steps (port of the JAX package's ``train/steps.py``).
 
 A step gathers its batch from data already resident on the device (``idx``
-selects the rows, as the JAX package's jitted steps do), draws two
-augmented views, runs the model, the loss and the update, and returns its
-metrics as device tensors: nothing in the step waits for the device.
+selects the rows, as the JAX package's jitted steps do), augments it (two
+random views for pretraining; the fixed pool or none for the classifier
+stages), runs the model, the loss and the update, and returns its metrics
+as device tensors: nothing in the step waits for the device.
 """
 
 import torch
+
+from focal_tpu_torch.train.losses import cross_entropy
 
 
 def gather_batch(data, idx):
@@ -50,5 +53,38 @@ def make_pretrain_step(model, augmenter, focal_loss, fused_views=True):
         state.optimizer.step(state.step)
         state.step += 1
         return state, {"loss": loss.detach(), **{k: v.detach() for k, v in parts.items()}}
+
+    return step
+
+
+def make_supervised_train_step(model, augmenter, fixed_aug=True):
+    """A classifier step, supervised (``fixed_aug``: the fixed augmenter
+    pool) or finetune (augmenter ``no``), as the JAX package's
+    ``make_supervised_train_step`` and classifier epoch: augment -> the
+    class head -> cross-entropy (hard labels, or mixup's soft targets) ->
+    update. Returns step(state, data, labels, idx) -> (state, metrics) with
+    metrics {"loss", "acc"} as device tensors; ``labels`` are the split's
+    device labels. A backbone with BatchNorm updates its running statistics
+    in the training forward, frozen or not, as the JAX step carries
+    ``batch_stats``."""
+
+    def step(state, data, labels, idx):
+        rngs = state.generators()
+        batch = gather_batch(data, idx)
+        batch_labels = labels.index_select(0, idx)
+        if fixed_aug:
+            freq_x, targets = augmenter.fixed(rngs.host, batch, batch_labels)
+        else:
+            freq_x, targets = augmenter.no(batch), batch_labels
+        model.train()
+        logits = model(freq_x, head="class", rng=rngs)
+        loss = cross_entropy(logits, targets)
+        state.optimizer.zero_grad()
+        loss.backward()
+        state.optimizer.step(state.step)
+        state.step += 1
+        hard = targets.argmax(-1) if targets.dim() > 1 else targets
+        acc = (logits.detach().argmax(-1) == hard).to(torch.float32).mean()
+        return state, {"loss": loss.detach(), "acc": acc}
 
     return step

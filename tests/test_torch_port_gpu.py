@@ -406,3 +406,94 @@ def test_conv_tower_raises_on_what_its_plan_cannot_take():
         fused_conv_tower(x0.double(), cfgs, *params, masks, False)
     with pytest.raises(ValueError):  # 3 mask rows do not divide R = 40
         fused_conv_tower(x0, cfgs, *params, [m[:3] for m in masks], False)
+
+
+# ---------------------------------------------------------------------------
+# the fused MLP (#10, #11, #12): rows T, width C, hidden 4C at the MOD
+# widths, T not a multiple of the kernels' 32-row tile
+
+
+def _mlp_args(rng, T, C, dev):
+    H = 4 * C
+    shapes = [(T, C), (C, H), (H,), (H, C), (C,)]
+    scales = [1.0, C**-0.5, 0.1, H**-0.5, 0.1]
+    return [torch.from_numpy((rng.normal(size=s) * k).astype(np.float32)).to(dev)
+            for s, k in zip(shapes, scales)]
+
+
+def _mlp_rel(got, want):
+    return max(float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(2311, 64), (1170, 128), (301, 256), (77, 32)])
+def test_fused_mlp_forward_matches_plain(T, C):
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    x, w1, b1, w2, b2 = _mlp_args(np.random.default_rng(T), T, C, dev)
+    before = fm.fused_mlp_forward.launches
+    y = fm.fused_mlp_forward(x, w1, b1, w2, b2)
+    torch.cuda.synchronize()
+    assert fm.fused_mlp_forward.launches == before + 1
+    assert float((y - fm.fused_mlp_reference(x, w1, b1, w2, b2)).abs().max()) <= 1e-4
+    keep1, keep2 = fm.mlp_keep_masks(7, T, C, 4 * C, 0.2, dev)
+    yd = fm.fused_mlp_dropout_forward(x, w1, b1, w2, b2, 7, 0.2)
+    want = fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2, 0.2)
+    assert float((yd - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(2311, 64), (301, 256)])
+@pytest.mark.parametrize("seed", [None, 11])
+def test_fused_mlp_backward_matches_autograd_of_plain_and_repeats(T, C, seed):
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    rng = np.random.default_rng(T + C)
+    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev)
+    keep = (None, None) if seed is None else fm.mlp_keep_masks(seed, T, C, 4 * C, 0.2, dev)
+    args = (x, w1, b1, w1.t().contiguous(), w2.t().contiguous(), g, seed, 0.2)
+    got = fm.fused_mlp_backward(*args)
+    again = fm.fused_mlp_backward(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, g, *keep, 0.2)
+    assert _mlp_rel(got, want) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_fused_mlp_keep_rates_and_autograd_counts():
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    T, C = 4096, 64
+    keep1, keep2 = fm.mlp_keep_masks(3, T, C, 4 * C, 0.2, dev)
+    for k in (keep1, keep2):
+        rate = float(k.double().mean())
+        assert abs(rate - 0.8) <= 5 * (0.16 / k.numel()) ** 0.5
+    assert not torch.equal(keep1, fm.mlp_keep_masks(4, T, C, 4 * C, 0.2, dev)[0])
+    x, w1, b1, w2, b2 = [t.requires_grad_(True) for t in _mlp_args(np.random.default_rng(1), T, C, dev)]
+    counts = [fm.fused_mlp_forward.launches, fm.fused_mlp_dropout_forward.launches,
+              fm.fused_mlp_backward.launches]
+    fm.fused_mlp_dropout(x, w1, b1, w2, b2, 5, 0.2).sum().backward()
+    fm.fused_mlp(x, w1, b1, w2, b2).sum().backward()
+    assert [fm.fused_mlp_forward.launches, fm.fused_mlp_dropout_forward.launches,
+            fm.fused_mlp_backward.launches] == [counts[0] + 1, counts[1] + 1, counts[2] + 2]
+
+
+@pytest.mark.gpu
+def test_fused_mlp_raises_on_a_width_it_cannot_take():
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    x, w1, b1, w2, b2 = _mlp_args(np.random.default_rng(2), 64, 512, dev)
+    with pytest.raises(ValueError, match="unsupported width"):
+        fm.fused_mlp_forward(x, w1, b1, w2, b2)
+    x, w1, b1, w2, b2 = _mlp_args(np.random.default_rng(2), 64, 64, dev)
+    with pytest.raises(ValueError, match="unsupported width"):
+        fm.fused_mlp_forward(x[:, :62].contiguous(), w1[:62].contiguous(), b1, w2[:, :62].contiguous(),
+                             b2[:62].contiguous())
+    with pytest.raises(TypeError):
+        fm.fused_mlp_forward(x.double(), w1, b1, w2, b2)

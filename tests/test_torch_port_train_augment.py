@@ -148,22 +148,40 @@ def test_random_choice_is_uniform_over_the_pool():
 
 
 def test_no_pool_is_the_fft_and_waiting_augmenters_raise():
+    """The pool ["no"] is the FFT alone; the augmenters that once waited for
+    the supervised stage (jitter, channel_shuffle, time_mask, freq_mask,
+    mixup) now build."""
     aug = _aug({"time_augmenters": ["no"], "freq_augmenters": ["no"]})
     x = {"shake": {"seismic": torch.from_numpy(_x(7, (2, 1, 10, 20)))}}
     out = aug.random(torch.Generator().manual_seed(0), x)
     torch.testing.assert_close(out["shake"]["seismic"], fft_preprocess(x)["shake"]["seismic"],
                                rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _aug({"time_augmenters": ["jitter"], "freq_augmenters": ["no"]})
+    built = _aug({"time_augmenters": ["jitter", "channel_shuffle", "time_mask", "mixup"],
+                  "freq_augmenters": ["freq_mask"]})
+    assert built.time_aug_names == ["jitter", "channel_shuffle", "time_mask", "mixup"]
 
 
 def test_unknown_augmenter_and_unported_stages_raise():
+    """An unknown name raises; each stage gets the JAX package's pool: the
+    random pool for pretraining, the backbone's fixed pool otherwise, and
+    mixup is refused in a random pool."""
     from types import SimpleNamespace
 
     with pytest.raises(ValueError, match="Invalid augmenter"):
         _aug({"time_augmenters": ["phase_shift"], "freq_augmenters": ["no"]})
-    for mode, stage in (("contrastive", "finetune"), ("supervised", "pretrain")):
-        args = SimpleNamespace(dataset_config=CFG, train_mode=mode, stage=stage,
-                               learn_framework="FOCAL")
-        with pytest.raises(NotImplementedError, match="ROADMAP A4"):
-            taug.build_augmenter(args)
+    for mode, stage, want in (("contrastive", "finetune", CFG["SW_Transformer"]["fixed_augmenters"]),
+                              ("supervised", "pretrain", CFG["SW_Transformer"]["fixed_augmenters"]),
+                              ("contrastive", "pretrain", CFG["FOCAL"]["random_augmenters"])):
+        args = SimpleNamespace(dataset_config=CFG, train_mode=mode, stage=stage, dataset="MOD_TINY",
+                               learn_framework="FOCAL", model="SW_Transformer",
+                               task="vehicle_classification")
+        aug = taug.build_augmenter(args)
+        assert aug.time_aug_names == list(want["time_augmenters"])
+        assert aug.freq_aug_names == list(want["freq_augmenters"])
+    cfg = dict(CFG, FOCAL=dict(CFG["FOCAL"], random_augmenters={
+        "time_augmenters": ["mixup"], "freq_augmenters": ["no"]}))
+    args = SimpleNamespace(dataset_config=cfg, train_mode="contrastive", stage="pretrain",
+                           dataset="MOD_TINY", learn_framework="FOCAL", model="SW_Transformer",
+                           task="vehicle_classification")
+    with pytest.raises(ValueError, match="mixup"):
+        taug.build_augmenter(args)
