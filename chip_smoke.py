@@ -114,7 +114,34 @@ result line if any fails):
      of phase 3's (the cuBLAS MLP, same weights);
  21. timing of #10, #11 and #12 per geometry (kernel, plain version, the
      cuBLAS chain addmm -> GELU -> addmm with F.dropout for #11 and its
-     autograd backward for #12 as the library yardstick, and the bound).
+     autograd backward for #12 as the library yardstick, and the bound);
+ 22. the attention-only kernels (-no_pallas_block) vs plain at every
+     attention geometry: MOD at the served batch (128) and the training
+     batch (256, views fused to 512), MOD_WIDE's 16 blocks at 64 fused to
+     128 (hd 64 to 256), shifted and unshifted: #6, and #7 fed its own mask
+     (window_attention_keep_mask), <= 1e-4 absolute; #8, and #9 with the
+     mask, every gradient <= 1e-4 relative (absolutely to 1e-6 where both
+     sides are below it) and the same bits on a second call; #7's keep rate
+     within 5 sigma of 0.8 and its mask equal to #2's (#4's where #2 does
+     not launch) bit for bit at the same seed and geometry;
+ 23. MOD pretrain steps with -no_pallas_block at batch 256: 3 warm-up + 20
+     timed (#7 and #9 16 a step, nothing of #1-#5), p50, samples/s, peak
+     memory, a profiled step's idle share and top device kernels; a rate-0
+     step from the initial state, kernels (#6 and #8 16 each) vs plain:
+     loss <= 1e-5 relative, gradients <= 1e-4;
+ 24. the entry points in-process at MOD with -no_pallas_block -synthetic
+     (512 samples): supervised 1 epoch, -resume to 2, test on its _best;
+     FOCAL pretrain 1 epoch, finetune 1 epoch (#7 only: the backbone is
+     frozen), test on its _best: launches per step and per eval forward (#6
+     16) held exactly; then Predictor(pallas_block=False) over ~1,000
+     samples (#6 16 a batch), its probabilities within 1e-5 of phase 3's
+     (#1's route, same weights), and a torch.profiler trace of one served
+     batch (#6's device time);
+ 25. timing of #6-#9 per geometry (kernel, plain version, the library
+     yardstick F.scaled_dot_product_attention with the bias materialised as
+     attn_mask, dropout_p for #7, its autograd backward for #8/#9, and the
+     bound), summed over one served MOD forward (#6) and one MOD training
+     step (#7, #9; #8 at rate 0).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
@@ -349,16 +376,18 @@ def check_counts(what, got, want):
 
 
 def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, dev, tag,
-                    rate0_at_init=False):
+                    rate0_from="trained", rate0_launches=None):
     """Pretrain steps of the SW_Transformer at full width (flax-style init,
     seed 0, synthetic data resident on the card, a fixed idx as bench.py
-    uses): warm-up, then timed steps with each kernel's launches per step
-    checked; then one step with every drop rate at 0 through the kernels
-    and through the plain versions, held to LOSS_TOL and GRAD_TOL: from the
-    trained state, or with ``rate0_at_init`` from the initial one, and then
-    from the trained state as well, reported beside the same plain step on
-    the host's CPU (another f32 summation order) but not held. Returns
-    (summary, (state, step, data, idx))."""
+    uses; the attention-only route with -no_pallas_block): warm-up, then
+    timed steps with each kernel's launches per step checked; then one step
+    with every drop rate at 0 through the kernels and through the plain
+    versions, held to LOSS_TOL and GRAD_TOL (and, given
+    ``rate0_launches``, the kernels' launches in it held to those): from
+    the state ``rate0_from`` names, "trained" or "initial"; with
+    "initial+trained" from the trained state as well, reported beside the
+    same plain step on the host's CPU (another f32 summation order) but not
+    held. Returns (summary, (state, step, data, idx))."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import build_backbone
     from focal_tpu_torch.models import swin as swin_mod
@@ -372,7 +401,9 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
     host_data, labels, _ = synthetic_arrays(targs.dataset_config, targs.task, 2 * batch, seed=0)
     tdata = to_device(host_data, dev)
     idx = torch.arange(batch, device=dev) % len(labels)  # fixed, as bench.py
-    model = build_backbone(targs.dataset_config, targs.model, targs.task, targs.learn_framework)
+    pallas_block = not targs.no_pallas_block
+    model = build_backbone(targs.dataset_config, targs.model, targs.task, targs.learn_framework,
+                           pallas_block=pallas_block)
     init_params(model, seed=0)
     initial = {k: v.detach().clone() for k, v in model.state_dict().items()}
     model.to(dev)
@@ -382,8 +413,9 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
     for _ in range(warmup):
         state, metrics = step(state, tdata, idx)
     torch.cuda.synchronize()
-    log(f"[{tag}] {targs.dataset} SW_Transformer pretrain, batch {batch} (views fused to "
-        f"{2 * batch}), {sum(p.numel() for p in model.parameters())} parameters; "
+    log(f"[{tag}] {targs.dataset} SW_Transformer pretrain{'' if pallas_block else ' -no_pallas_block'}"
+        f", batch {batch} (views fused to {2 * batch}), "
+        f"{sum(p.numel() for p in model.parameters())} parameters; "
         f"{warmup} warm-up steps in {time.time() - t0:.2f}s")
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
@@ -431,26 +463,39 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
     args0.dataset_config = cfg0
     trained = {k: v.detach().clone() for k, v in model.state_dict().items()}
 
-    def rate0_step(weights, window_block, forward, device):
-        """(loss, {name: gradient on the CPU}) of one rate-0 step."""
-        m = build_backbone(cfg0, targs.model, targs.task, targs.learn_framework)
+    # the Swin module's kernel entry points and their plain versions
+    entry_points = {"window_block": pk.window_block_reference,
+                    "window_block_forward": pk.fused_window_block_reference,
+                    "window_attention": pk.window_attention_reference,
+                    "fused_window_attention": pk.fused_window_attention_reference}
+
+    def rate0_step(weights, plain, device):
+        """(loss, {name: gradient on the CPU}, launches) of one rate-0 step,
+        through the kernels or, with ``plain``, their plain versions."""
+        m = build_backbone(cfg0, targs.model, targs.task, targs.learn_framework,
+                           pallas_block=pallas_block)
         m.load_state_dict(weights)
         m.to(device)
         st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
         st.step = state.step
         data = {loc: {k: a.to(device) for k, a in mods.items()} for loc, mods in tdata.items()}
-        swin_mod.window_block, swin_mod.window_block_forward = window_block, forward
+        if plain:
+            for name, fn in entry_points.items():
+                setattr(swin_mod, name, fn)
+        zero_counts(kernels)
         try:
             _, mt = make_pretrain_step(m, build_augmenter(args0), make_focal_loss(args0))(
                 st, data, idx.to(device))
+            loss = float(mt["loss"])
         finally:
-            swin_mod.window_block, swin_mod.window_block_forward = pk.window_block, pk.window_block_forward
-        return float(mt["loss"]), {n: None if p.grad is None else p.grad.cpu()
-                                   for n, p in m.named_parameters() if p.requires_grad}
+            for name in entry_points:
+                setattr(swin_mod, name, getattr(pk, name))
+        return loss, {n: None if p.grad is None else p.grad.cpu()
+                      for n, p in m.named_parameters() if p.requires_grad}, counts(kernels)
 
     def differ(a, b):
         """(relative loss difference, worst relative gradient difference, its name)."""
-        (loss_a, grads_a), (loss_b, grads_b) = a, b
+        (loss_a, grads_a, _), (loss_b, grads_b, _) = a, b
         worst_err, worst = 0.0, ""
         for name, gb in grads_b.items():
             ga = grads_a[name]
@@ -463,27 +508,31 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
                 worst_err, worst = e, name
         return abs(loss_a - loss_b) / abs(loss_b), worst_err, worst
 
-    gated = initial if rate0_at_init else trained
-    kern = rate0_step(gated, pk.window_block, pk.window_block_forward, dev)
-    plain = rate0_step(gated, pk.window_block_reference, pk.fused_window_block_reference, dev)
+    where = rate0_from.split("+")[0]
+    kern = rate0_step(initial if where == "initial" else trained, False, dev)
+    plain = rate0_step(initial if where == "initial" else trained, True, dev)
     loss_rel, step_grad_err, worst = differ(kern, plain)
-    where = "initial" if rate0_at_init else "trained"
     train.update(rate0_state=where, rate0_loss_kernel=kern[0], rate0_loss_plain=plain[0],
-                 rate0_loss_rel=loss_rel, rate0_max_grad_rel=step_grad_err, rate0_worst=worst)
+                 rate0_loss_rel=loss_rel, rate0_max_grad_rel=step_grad_err, rate0_worst=worst,
+                 rate0_launches=kern[2])
     log(f"[{tag}] rate-0 step from the {where} state, kernels vs plain: loss {kern[0]:.6f} vs "
-        f"{plain[0]:.6f} (rel {loss_rel:.2e}), max grad rel err {step_grad_err:.2e} ({worst})")
+        f"{plain[0]:.6f} (rel {loss_rel:.2e}), max grad rel err {step_grad_err:.2e} ({worst}); "
+        f"launches {kern[2]}")
     if not loss_rel <= LOSS_TOL:
         raise AssertionError(f"rate-0 loss differs: {kern[0]} vs {plain[0]}")
     if not step_grad_err <= GRAD_TOL:
         raise AssertionError(f"rate-0 gradients differ: {step_grad_err} at {worst}")
+    if rate0_launches is not None:
+        check_counts(f"{tag}: rate-0 step (kernels)", kern[2],
+                     {k.__name__: rate0_launches.get(k.__name__, 0) for k in kernels})
+        check_counts(f"{tag}: rate-0 step (plain)", plain[2], {k.__name__: 0 for k in kernels})
     del kern, plain
-    if rate0_at_init:
+    if rate0_from == "initial+trained":
         # the trained state, not held: the same comparison, and the plain
         # step on the card against the plain step on the CPU
-        kern = rate0_step(trained, pk.window_block, pk.window_block_forward, dev)
-        plain = rate0_step(trained, pk.window_block_reference, pk.fused_window_block_reference, dev)
-        host = rate0_step(trained, pk.window_block_reference, pk.fused_window_block_reference,
-                          torch.device("cpu"))
+        kern = rate0_step(trained, False, dev)
+        plain = rate0_step(trained, True, dev)
+        host = rate0_step(trained, True, torch.device("cpu"))
         kp, pc = differ(kern, plain), differ(plain, host)
         train.update(trained_rate0_kernel_vs_plain=kp, trained_rate0_plain_card_vs_cpu=pc,
                      trained_rate0_losses=[kern[0], plain[0], host[0]])
@@ -925,6 +974,78 @@ def supervised_rate0_step(torch, sargs, weights, dev, plain):
                                 if p.grad is not None}, counts(kernels))
 
 
+# ---------------------------------------------------------------------------
+# the attention-only kernels (#6-#9) of -no_pallas_block
+
+# operations a score besides the products: forward the bias and mask adds,
+# the max, exp, sum and scale (6); backward the softmax again (6), the
+# row dot a . da and ds (4)
+ATTN_ELEM_FWD = 6
+ATTN_ELEM_BWD = 10
+ATTN_SRC = "focal_tpu_torch/csrc/window_attention.cu"
+
+
+def attention_geometries(cfg, batch, dataset):
+    """block_geometries with the head width hd: the attention's q, k, v
+    are [windows, heads, N, hd]."""
+    geos = block_geometries(cfg, batch)
+    for g in geos:
+        g["name"] = f"{dataset} {g['name']}"
+        g["hd"] = g["C"] // g["heads"]
+    return geos
+
+
+def attention_work(g, backward):
+    """(FLOPs, bytes) of one launch. FLOPs: the products, 4 N^2 hd a
+    (window, head) pair forward (q k^T, a v) and 10 N^2 hd backward (q k^T
+    again, g v^T, dq, dk, dv), plus ATTN_ELEM_* a score (the Philox words of
+    #7/#9 are integer work, not counted). Bytes: q, k, v (and g) read once,
+    out (dq, dk, dv) written once, rel_bias (and drel_bias) and the shift
+    mask once; no keep mask is stored."""
+    pairs, N, hd, H = g["windows"] * g["heads"], g["N"], g["hd"], g["heads"]
+    mask = g["nW"] * N * N if g["mask"] is not None else 0
+    if backward:
+        flops = pairs * (10 * N * N * hd + ATTN_ELEM_BWD * N * N)
+        elems = 7 * pairs * N * hd + 2 * H * N * N + mask
+    else:
+        flops = pairs * (4 * N * N * hd + ATTN_ELEM_FWD * N * N)
+        elems = 4 * pairs * N * hd + H * N * N + mask
+    return flops, 4 * elems
+
+
+def attention_inputs(torch, np, g, seed, dev):
+    """q (pre-scaled by hd**-0.5), k, v, the output gradient gy, rel_bias
+    at a trained model's scale and the geometry's shift mask (or None)."""
+    rng = np.random.default_rng(seed)
+    shape = (g["windows"], g["heads"], g["N"], g["hd"])
+    q, k, v, gy = (rng.normal(size=shape).astype(np.float32) for _ in range(4))
+    q *= np.float32(g["hd"] ** -0.5)
+    rel_bias = (0.02 * rng.normal(size=(g["heads"], g["N"], g["N"]))).astype(np.float32)
+    out = [torch.from_numpy(a).to(dev) for a in (q, k, v, rel_bias)]
+    mask = None if g["mask"] is None else torch.from_numpy(g["mask"]).to(dev)
+    return out + [mask, torch.from_numpy(gy).to(dev)]
+
+
+def library_attention(torch, q, k, v, attn_mask, rate=0.0):
+    """Yardstick only: PyTorch's scaled_dot_product_attention with the bias
+    and shift mask materialised as attn_mask (q is pre-scaled: scale 1)."""
+    return torch.nn.functional.scaled_dot_product_attention(
+        q, k, v, attn_mask=attn_mask, dropout_p=rate, scale=1.0)
+
+
+def grads_differ(got, want):
+    """Worst max|got - want| / max|want| over the gradients, each compared
+    absolutely (to TINY_GRAD) where both sides are below TINY_GRAD."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if max(float(a.abs().max()), float(b.abs().max())) < TINY_GRAD:
+            if float((a - b).abs().max()) > TINY_GRAD:
+                return math.inf
+            continue
+        worst = max(worst, rel_err(a, b))
+    return worst
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for the per-geometry JSON")
@@ -956,7 +1077,10 @@ def main():
     ph_fwd, ph_bwd = pk.fused_window_block_perhead, pk.fused_window_block_perhead_backward
     ct_fwd, ct_bwd = ct.fused_conv_tower, ct.fused_conv_tower_backward
     mlp_fwd, mlp_drop, mlp_bwd = fm.fused_mlp_forward, fm.fused_mlp_dropout_forward, fm.fused_mlp_backward
-    all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd, mlp_fwd, mlp_drop, mlp_bwd)
+    at_fwd, at_drop = pk.fused_window_attention, pk.fused_window_attention_dropout
+    at_bwd, at_drop_bwd = pk.fused_window_attention_backward, pk.fused_window_attention_dropout_backward
+    all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd, mlp_fwd, mlp_drop, mlp_bwd,
+                   at_fwd, at_drop, at_bwd, at_drop_bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1264,7 +1388,7 @@ def main():
                                  "-batch_size", str(WIDE_BATCH)])
     wide, (state, step, tdata, idx) = run_train_steps(
         torch, np, wtargs, WIDE_BATCH, TRAIN_WARMUP, WIDE_STEPS, all_kernels, wide_per_step, dev,
-        "train-wide", rate0_at_init=True)
+        "train-wide", rate0_from="initial+trained")
     wide_profile = profile_device(torch, lambda: step(state, tdata, idx))
     log_profile("profile-wide", "one MOD_WIDE training step", wide_profile, top=15)
     wide["idle_share"] = 1 - wide_profile["device_busy_ms"] / wide_profile["wall_ms"]
@@ -1666,7 +1790,7 @@ def main():
 
     cls_runs = []
 
-    def run_cli(what, fn, argv, per_step, epochs, points_want):
+    def run_cli(what, fn, argv, per_step, epochs, points_want, evals=eval_fwd, runs=None):
         steps_per_epoch, evals_per_point, test_evals = cli_plan(argv)
         zero_counts(all_kernels)
         t0 = time.time()
@@ -1689,9 +1813,9 @@ def main():
                     raise AssertionError(f"{what}: non-finite loss at a validation point: {p}")
             summary = {"best": best, "points": points, "step": st.step}
         want = {k.__name__: per_step.get(k.__name__, 0) * n_steps
-                + eval_fwd.get(k.__name__, 0) * n_evals for k in all_kernels}
+                + evals.get(k.__name__, 0) * n_evals for k in all_kernels}
         check_counts(what, got, want)
-        cls_runs.append({"what": what, "seconds": secs, "steps": n_steps, "eval_forwards": n_evals,
+        (cls_runs if runs is None else runs).append({"what": what, "seconds": secs, "steps": n_steps, "eval_forwards": n_evals,
                          "launches": got, **summary})
         log(f"[classifier-cli] {what}: {n_steps} steps, {n_evals} eval forwards in {secs:.1f}s; "
             f"launches {got}; " + ("; ".join(
@@ -1822,7 +1946,222 @@ def main():
     log(f"[time-mlp] share of the -pallas_mlp supervised p50 step (MOD): "
         f"{(mod_mlp['drop_ms'] + mod_mlp['bwd_ms']) / sup_runs['supervised-pallas-mlp']['p50_ms']:.3f}")
     torch.cuda.empty_cache()
-    log(f"[smoke] {time.time() - t_start:.1f}s after the build started")
+
+    # ---- 22. #6-#9 vs plain at every attention geometry: MOD served (128)
+    # and training (256, views fused to 512), MOD_WIDE's 16 blocks (64 fused
+    # to 128); #7's mask against #2's (#4's where #2 does not launch)
+    agen = {"serve": attention_geometries(cfg, SERVE_BATCH, "MOD"),
+            "train": attention_geometries(cfg, 2 * TRAIN_BATCH, "MOD"),
+            "wide": attention_geometries(wcfg, 2 * WIDE_BATCH, "MOD_WIDE")}
+    at_err = {"fwd": 0.0, "drop": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    t22 = time.time()
+    for kind, ags in agen.items():
+        a_rate = wrate if kind == "wide" else rate
+        for gi, g in enumerate(ags):
+            B, H, N, C = g["windows"], g["heads"], g["N"], g["C"]
+            seed = 6000 + 100 * len(kind) + gi
+            q, k, v, rel_bias, mask, gy = attention_inputs(torch, np, g, seed, dev)
+            y = at_fwd(q, k, v, rel_bias, mask)
+            yd = at_drop(q, k, v, rel_bias, mask, seed, a_rate)
+            keep = pk.window_attention_keep_mask(seed, B, H, N, a_rate, dev)
+            blk = fwd_drop if pk.wblock_fits(N, C, H) else ph_fwd
+            blk_keep = blk(*make_inputs(torch, g, gen, dev), seed, a_rate)[1]
+            torch.cuda.synchronize()
+            same_mask = bool(torch.equal(blk_keep, keep))
+            del blk_keep
+            err = float((y - pk.fused_window_attention_reference(q, k, v, rel_bias, mask)).abs().max())
+            derr = float((yd - pk.fused_window_attention_dropout_reference(
+                q, k, v, rel_bias, mask, keep, a_rate)).abs().max())
+            kept = float(keep.double().mean())
+            sigma = math.sqrt(a_rate * (1 - a_rate) / keep.numel())
+            errs, same = {}, True
+            for tag, sd, kp in (("mask", seed, keep), ("nomask", None, None)):
+                r = a_rate if sd is not None else 0.0
+                got = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, gy, sd, r)
+                again = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, gy, sd, r)
+                torch.cuda.synchronize()
+                same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+                want = pk.fused_window_attention_backward_reference(q, k, v, rel_bias, mask, gy, kp, r)
+                errs[tag] = grads_differ(got, want)
+                at_err["bwd_abs"] = max(at_err["bwd_abs"], *(float((a - b).abs().max())
+                                                              for a, b in zip(got, want)))
+                del got, again, want
+            g.update(max_abs_err_fwd=err, max_abs_err_dropout=derr, keep_rate=kept,
+                     keep_sigma=sigma, mask_equals_whole_block=same_mask,
+                     max_rel_err_bwd=errs["mask"], max_rel_err_bwd_nomask=errs["nomask"],
+                     repeatable=same)
+            at_err["fwd"], at_err["drop"] = max(at_err["fwd"], err), max(at_err["drop"], derr)
+            at_err["bwd"] = max(at_err["bwd"], *errs.values())
+            log(f"[check-attn] {g['name']}: windows {B} heads {H} N {N} hd {g['hd']} nW {g['nW']}: "
+                f"#6 max|kernel-plain| {err:.3e}, #7 {derr:.3e} (its own mask), keep rate {kept:.5f} "
+                f"({(kept - 1 + a_rate) / sigma:+.2f} sigma), mask == {blk.__name__}'s: {same_mask}; "
+                f"#9 max rel err {errs['mask']:.3e}, #8 {errs['nomask']:.3e}; same bits on a second "
+                f"call: {same}")
+            if not max(err, derr) <= KERNEL_TOL:
+                raise AssertionError(f"{g['name']}: #6/#7 differ from plain by {err}, {derr}")
+            if not abs(kept - (1 - a_rate)) <= 5 * sigma:
+                raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {a_rate} within 5 sigma")
+            if not same_mask:
+                raise AssertionError(f"{g['name']}: #7's keep mask differs from {blk.__name__}'s")
+            if not max(errs.values()) <= GRAD_TOL:
+                raise AssertionError(f"{g['name']}: #8/#9 gradients differ from plain by {errs}")
+            if not same:
+                raise AssertionError(f"{g['name']}: #8/#9 give other bits on a second call")
+            del q, k, v, rel_bias, mask, gy, y, yd, keep
+    torch.cuda.empty_cache()
+    log(f"[check-attn] {sum(len(a) for a in agen.values())} geometries in {time.time() - t22:.1f}s")
+
+    # ---- 23. MOD pretrain steps with -no_pallas_block at batch 256; the
+    # rate-0 step from the initial state (#6 and #8), kernels vs plain
+    attn_step = {at_drop.__name__: per_fwd, at_drop_bwd.__name__: per_fwd}
+    nargs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer",
+                                "-learn_framework", "FOCAL", "-stage", "pretrain",
+                                "-no_pallas_block", "-batch_size", str(TRAIN_BATCH)])
+    attn_train, (state, step, tdata, idx) = run_train_steps(
+        torch, np, nargs, TRAIN_BATCH, TRAIN_WARMUP, TRAIN_STEPS, all_kernels, attn_step, dev,
+        "train-no-pallas-block", rate0_from="initial",
+        rate0_launches={at_fwd.__name__: per_fwd, at_bwd.__name__: per_fwd})
+    attn_profile = profile_device(torch, lambda: step(state, tdata, idx))
+    log_profile("profile-no-pallas-block", "one -no_pallas_block training step", attn_profile, top=15)
+    attn_train["idle_share"] = 1 - attn_profile["device_busy_ms"] / attn_profile["wall_ms"]
+    attn_train["attention_kernels_device_ms"] = {
+        kern: sum(r["device_ms"] for r in attn_profile["rows"] if f"{kern}<true>" in r["name"])
+        for kern in ("wattn_fwd_kernel", "wattn_bwd_kernel")}
+    log(f"[train-no-pallas-block] device time in the profiled step: #7 "
+        f"{attn_train['attention_kernels_device_ms']['wattn_fwd_kernel']:.4f} ms, #9 "
+        f"{attn_train['attention_kernels_device_ms']['wattn_bwd_kernel']:.4f} ms (16 launches each; "
+        f"#9's ordered d rel_bias pass apart); beside the default route's step of "
+        f"phases 7 and 9: p50 {attn_train['p50_ms']:.3f} vs {p50_ms:.3f} ms, idle share "
+        f"{attn_train['idle_share']:.3f} vs {train['idle_share']:.3f}, peak memory "
+        f"{attn_train['peak_mb']:.1f} vs {train['peak_mb']:.1f} MiB")
+    del state, step, tdata, idx
+    torch.cuda.empty_cache()
+
+    # ---- 24. the entry points at MOD with -no_pallas_block: supervised 1
+    # epoch, -resume to 2, test; FOCAL pretrain 1 epoch, finetune 1 epoch,
+    # test; then Predictor(pallas_block=False)
+    run_dir = os.path.join(HERE, "build", "chip_smoke_no_pallas_block")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    nbase = ["-dataset", "MOD", "-model", "SW_Transformer", "-no_pallas_block", "-synthetic",
+             "-synthetic_samples", str(SUP_SAMPLES), "-val_epochs", "1", "-output_dir", run_dir]
+    nsup = nbase + ["-learn_framework", "no", "-batch_size", str(SUP_BATCH)]
+    nft = nbase + ["-learn_framework", "FOCAL", "-stage", "finetune", "-batch_size", str(SUP_BATCH)]
+    attn_eval = {at_fwd.__name__: per_fwd}
+    attn_runs = []
+    for what, fn, argv, per_step, epochs, points_want in (
+            ("supervised -epochs 1", train_cli.main, nsup + ["-epochs", "1"], attn_step, 1, [0]),
+            ("supervised -epochs 2 -resume", train_cli.main, nsup + ["-epochs", "2", "-resume"],
+             attn_step, 1, [1]),
+            ("test (supervised _best)", test_cli.main, nsup, {}, 0, None),
+            ("pretrain -epochs 1", train_cli.main,
+             nbase + ["-learn_framework", "FOCAL", "-stage", "pretrain", "-epochs", "1"],
+             attn_step, 1, [0]),
+            ("finetune -epochs 1", train_cli.main, nft + ["-epochs", "1"],
+             {at_drop.__name__: per_fwd}, 1, [0]),  # the frozen backbone takes no backward
+            ("test (finetune _best)", test_cli.main, nft, {}, 0, None)):
+        run_cli(f"-no_pallas_block {what}", fn, argv, per_step, epochs, points_want,
+                evals=attn_eval, runs=attn_runs)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    predictor = Predictor(cfg, "SW_Transformer", task, None, batch_size=SERVE_BATCH,
+                          device="cuda", seed=0, pallas_block=False)
+    zero_counts(all_kernels)
+    attn_result = predictor.predict(data)
+    attn_serve_launches = counts(all_kernels)
+    attn_batches = attn_result["latency"]["batches"]
+    check_counts("serving -no_pallas_block", attn_serve_launches,
+                 {k.__name__: attn_eval.get(k.__name__, 0) * attn_batches for k in all_kernels})
+    attn_serve_err = float(np.abs(attn_result["probs"] - probs).max())
+    attn_lat = attn_result["latency"]
+    log(f"[serve-no-pallas-block] {n} samples in {attn_batches} batches of {SERVE_BATCH}: launches "
+        f"{attn_serve_launches}; p50 batch {attn_lat['p50_s'] * 1e3:.3f} ms (#1's route "
+        f"{lat['p50_s'] * 1e3:.3f}), {attn_lat['windows_per_s']:.1f} samples/s; max|dprobs| vs "
+        f"#1's route {attn_serve_err:.3e}")
+    if not attn_serve_err <= SLICE_TOL:
+        raise AssertionError(f"-no_pallas_block served probabilities differ by {attn_serve_err}")
+    predictor._forward(first)
+    attn_serve_profile = profile_device(torch, lambda: predictor._forward(first))
+    log_profile("profile-serve-no-pallas-block", "one -no_pallas_block served batch",
+                attn_serve_profile)
+    attn_serve_device_ms = sum(r["device_ms"] for r in attn_serve_profile["rows"]
+                               if "wattn_fwd_kernel<false>" in r["name"])
+    log(f"[serve-no-pallas-block] device time of #6 in the profiled batch: "
+        f"{attn_serve_device_ms:.4f} ms ({per_fwd} launches)")
+    del predictor
+    torch.cuda.empty_cache()
+
+    # ---- 25. #6-#9 timing per geometry: kernel, plain version, the library
+    # yardstick (scaled_dot_product_attention with the bias as attn_mask,
+    # its autograd backward) and the bound; #6 over one served forward, #7,
+    # #8 (rate 0) and #9 over one training step
+    atot = {}
+    for kind, keys in (("serve", ("fwd",)), ("train", ("drop", "bwd", "drop_bwd"))):
+        tot_k = atot.setdefault(kind, {})
+        for gi, g in enumerate(agen[kind]):
+            q, k, v, rel_bias, mask, gy = attention_inputs(torch, np, g, 7000 + gi, dev)
+            attn_mask = library_mask(torch, g, rel_bias, mask)
+            fb = {"fwd": attention_work(g, False), "bwd": attention_work(g, True)}
+            fb["drop"], fb["drop_bwd"] = fb["fwd"], fb["bwd"]
+            with torch.no_grad():
+                if kind == "serve":
+                    g["fwd_ms"] = time_ms(torch, lambda: at_fwd(q, k, v, rel_bias, mask))
+                    g["fwd_plain_ms"] = time_ms(
+                        torch, lambda: pk.fused_window_attention_reference(q, k, v, rel_bias, mask))
+                    g["fwd_library_ms"] = time_ms(
+                        torch, lambda: library_attention(torch, q, k, v, attn_mask))
+                else:
+                    keep = pk.window_attention_keep_mask(7, g["windows"], g["heads"], g["N"], rate,
+                                                         dev)
+                    g["drop_ms"] = time_ms(torch, lambda: at_drop(q, k, v, rel_bias, mask, 7, rate))
+                    g["drop_plain_ms"] = time_ms(torch, lambda: pk.fused_window_attention_reference(
+                        q, k, v, rel_bias, mask, keep, rate))
+                    g["drop_library_ms"] = time_ms(
+                        torch, lambda: library_attention(torch, q, k, v, attn_mask, rate))
+            if kind == "train":
+                g["bwd_ms"] = time_ms(torch, lambda: at_bwd(q, k, v, rel_bias, mask, gy))
+                g["drop_bwd_ms"] = time_ms(
+                    torch, lambda: at_drop_bwd(q, k, v, rel_bias, mask, gy, 7, rate))
+                g["bwd_plain_ms"] = time_ms(torch, lambda: pk.fused_window_attention_backward_reference(
+                    q, k, v, rel_bias, mask, gy))
+                g["drop_bwd_plain_ms"] = time_ms(
+                    torch, lambda: pk.fused_window_attention_backward_reference(
+                        q, k, v, rel_bias, mask, gy, keep, rate))
+                for r, key in ((0.0, "bwd_library_ms"), (rate, "drop_bwd_library_ms")):
+                    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+                    am = attn_mask.clone().requires_grad_(True)
+                    ly = library_attention(torch, *leaves, am, r)
+                    g[key] = time_ms(torch, lambda: torch.autograd.grad(ly, leaves + [am], gy,
+                                                                        retain_graph=True))
+                    del ly, leaves, am
+                del keep
+            for d in keys:
+                g[f"{d}_flops_bytes"] = fb[d]
+                g[f"{d}_bound_ms"], g[f"{d}_bound_by"] = bound(*fb[d])
+                for s in ("", "_plain", "_library", "_bound"):
+                    tot_k[f"{d}{s}_ms"] = tot_k.get(f"{d}{s}_ms", 0.0) + g["per_forward"] * g[f"{d}{s}_ms"]
+                tot_k[f"{d}_flops"] = tot_k.get(f"{d}_flops", 0) + g["per_forward"] * fb[d][0]
+                tot_k[f"{d}_bytes"] = tot_k.get(f"{d}_bytes", 0) + g["per_forward"] * fb[d][1]
+            log(f"[time-attn] {g['name']} (windows {g['windows']}, hd {g['hd']}): " + "; ".join(
+                f"{d} {g[f'{d}_ms']:.4f} ms (plain {g[f'{d}_plain_ms']:.4f}, library "
+                f"{g[f'{d}_library_ms']:.4f}, bound {g[f'{d}_bound_ms']:.4f} by {g[f'{d}_bound_by']}, "
+                f"{fb[d][1] / g[f'{d}_ms'] / 1e6:.1f} GB/s)" for d in keys))
+            del q, k, v, rel_bias, mask, gy, attn_mask
+    names = {"fwd": "#6", "drop": "#7", "bwd": "#8 (rate 0)", "drop_bwd": "#9"}
+    for kind, tot_k in atot.items():
+        what = (f"one served MOD forward at batch {SERVE_BATCH}" if kind == "serve" else
+                f"one MOD training step at batch {TRAIN_BATCH} (views fused to {2 * TRAIN_BATCH})")
+        log(f"[time-attn] {what}, {per_fwd} launches each: " + "; ".join(
+            f"{names[d]} {tot_k[f'{d}_ms']:.3f} ms (plain {tot_k[f'{d}_plain_ms']:.3f}, library "
+            f"{tot_k[f'{d}_library_ms']:.3f}, bound {tot_k[f'{d}_bound_ms']:.3f}, "
+            f"{tot_k[f'{d}_bytes'] / 1e9:.3f} GB, {tot_k[f'{d}_flops'] / 1e9:.3f} GFLOP)"
+            for d in ("fwd", "drop", "bwd", "drop_bwd") if f"{d}_ms" in tot_k))
+    a_train = atot["train"]
+    log(f"[time-attn] share of the -no_pallas_block p50 step (MOD): "
+        f"{(a_train['drop_ms'] + a_train['drop_bwd_ms']) / attn_train['p50_ms']:.3f}")
+    torch.cuda.empty_cache()
+    log(f"[smoke] phases 22-25 in {time.time() - t22:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
 
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
@@ -1842,6 +2181,13 @@ def main():
                 "mlp_geometries": mgeos, "mlp_per_forward": mtot, "supervised_steps": sup_runs,
                 "supervised_rate0": sup_rate0, "classifier_cli": cls_runs,
                 "serve_pallas_mlp_latency": mlp_lat, "serve_pallas_mlp_err": mlp_serve_err,
+                "attention_geometries": {kind: [{k: v for k, v in g.items() if k != "mask"}
+                                                for g in ags] for kind, ags in agen.items()},
+                "attention_totals": atot, "no_pallas_block_steps": attn_train,
+                "no_pallas_block_profile": attn_profile, "no_pallas_block_cli": attn_runs,
+                "serve_no_pallas_block_latency": attn_lat,
+                "serve_no_pallas_block_err": attn_serve_err,
+                "serve_no_pallas_block_profile": attn_serve_profile,
             }, f, indent=1)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -1870,7 +2216,13 @@ def main():
                             "supervised_rate0_step_MOD": sup_rate0["launches"].get(k.__name__, 0),
                             "classifier_cli_MOD_pallas_mlp":
                                 sum(r["launches"][k.__name__] for r in cls_runs),
-                            "serve_MOD_pallas_mlp": mlp_serve_launches[k.__name__]}
+                            "serve_MOD_pallas_mlp": mlp_serve_launches[k.__name__],
+                            "pretrain_steps_MOD_no_pallas_block": attn_train["launches"][k.__name__],
+                            "pretrain_rate0_step_MOD_no_pallas_block":
+                                attn_train["rate0_launches"][k.__name__],
+                            "classifier_cli_MOD_no_pallas_block":
+                                sum(r["launches"][k.__name__] for r in attn_runs),
+                            "serve_MOD_no_pallas_block": attn_serve_launches[k.__name__]}
                for k in all_kernels}
     cli_launches = by_path[ph_fwd.__name__]["train_cli_MOD_WIDE"]
     train_per = (f"times: one pretrain step at batch {TRAIN_BATCH} (views fused to "
@@ -1964,6 +2316,40 @@ def main():
               source=MLP_SRC, replaces_also=[f"{PK}:601"], launches_per_step=per_fwd_mlp,
               steps=TRAIN_STEPS, max_rel_err=mlp_err["bwd"], ms_without_masks=mod_mlp["bwd_nomask_ms"],
               mod_wide_stage0=per_wide_mlp("bwd"), launches_by_path=by_path[mlp_bwd.__name__]),
+    ]
+    a_serve = atot["serve"]
+    attn_step_per = (f"times: the {per_fwd} launches of one MOD training step at batch "
+                     f"{TRAIN_BATCH} (views fused to {2 * TRAIN_BATCH}; dropout {rate})")
+
+    def attn_entry(name, line, kernel, d, tot_k, per, err, **extra):
+        return entry(name, f"{PK}:{line}", extra.pop("launches"), err, tot_k[f"{d}_ms"],
+                     tot_k[f"{d}_plain_ms"], tot_k[f"{d}_bound_ms"],
+                     (tot_k[f"{d}_flops"], tot_k[f"{d}_bytes"]), tot_k[f"{d}_library_ms"], per,
+                     source=ATTN_SRC, launches_by_path=by_path[kernel.__name__], **extra)
+
+    kernels += [
+        attn_entry("fused_window_attention", 119, at_fwd, "fwd", a_serve,
+                   f"times: the {per_fwd} launches of one MOD forward at batch {SERVE_BATCH}; "
+                   f"launches: the -no_pallas_block served run ({attn_batches} forwards); "
+                   "max_abs_err: worst over the MOD and MOD_WIDE geometries", at_err["fwd"],
+                   launches=attn_serve_launches[at_fwd.__name__], launches_per_forward=per_fwd,
+                   forwards=attn_batches, device_ms_in_profiled_batch=attn_serve_device_ms),
+        attn_entry("fused_window_attention_dropout", 129, at_drop, "drop", a_train,
+                   attn_step_per + f"; launches: {TRAIN_STEPS} timed -no_pallas_block pretrain steps",
+                   at_err["drop"], launches=attn_train["launches"][at_drop.__name__],
+                   launches_per_step=per_fwd, steps=TRAIN_STEPS, device_ms_in_profiled_step=
+                   attn_train["attention_kernels_device_ms"]["wattn_fwd_kernel"]),
+        attn_entry("fused_window_attention_backward", 189, at_bwd, "bwd", a_train,
+                   attn_step_per.replace(f"dropout {rate}", "every drop rate 0")
+                   + "; launches: the -no_pallas_block rate-0 step", at_err["bwd_abs"],
+                   launches=attn_train["rate0_launches"][at_bwd.__name__],
+                   launches_per_step=per_fwd, max_rel_err=at_err["bwd"]),
+        attn_entry("fused_window_attention_dropout_backward", 200, at_drop_bwd, "drop_bwd", a_train,
+                   attn_step_per + f"; launches: {TRAIN_STEPS} timed -no_pallas_block pretrain steps",
+                   at_err["bwd_abs"], launches=attn_train["launches"][at_drop_bwd.__name__],
+                   launches_per_step=per_fwd, steps=TRAIN_STEPS, max_rel_err=at_err["bwd"],
+                   device_ms_in_profiled_step=
+                   attn_train["attention_kernels_device_ms"]["wattn_bwd_kernel"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -49,6 +49,8 @@
 
 #include <algorithm>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -60,25 +62,12 @@ constexpr int kSiteHidden = 0;    // keep1, after the GELU
 constexpr int kSiteOut = 1;       // keep2, after fc2
 constexpr size_t kMaxPartialBytes = 64ull << 20;
 
-// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-// 3", SC 2011): four independent 32-bit words per (counter, key).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
 // The keep bits of columns 4*col4 .. 4*col4 + 3 of `row` at `site`: word u
-// belongs to column 4*col4 + u. Every kernel here draws through this.
+// belongs to column 4*col4 + u (Philox4x32-10, philox.cuh). Every kernel
+// here draws through this.
 __device__ __forceinline__ uint4 keep_bits(unsigned long long seed, int row, int col4, int site) {
-  return philox4x32_10(make_uint4((unsigned)row, (unsigned)col4, (unsigned)site, 0u),
-                       make_uint2((unsigned)seed, (unsigned)(seed >> 32)));
+  return focal::philox4x32_10(make_uint4((unsigned)row, (unsigned)col4, (unsigned)site, 0u),
+                              focal::philox_key(seed));
 }
 
 __device__ __forceinline__ unsigned word(const uint4& r, int u) {

@@ -66,6 +66,8 @@
 
 #include <algorithm>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int kMaxN = 16;            // window tokens a thread keeps in registers
@@ -239,44 +241,21 @@ __device__ __forceinline__ float dot4(const float* a, const float* b, int n) {
   return d;
 }
 
-// Philox4x32-10 (Salmon et al., "Parallel random numbers: as easy as 1, 2,
-// 3", SC 2011): four independent 32-bit words per (counter, key).
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    const unsigned hi0 = __umulhi(0xD2511F53u, c.x), lo0 = 0xD2511F53u * c.x;
-    const unsigned hi1 = __umulhi(0xCD9E8D57u, c.z), lo1 = 0xCD9E8D57u * c.z;
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-    k.x += 0x9E3779B9u;
-    k.y += 0xBB67AE85u;
-  }
-  return c;
-}
-
-// Attention dropout of one (window, head, query row): key j is kept iff its
-// Philox word (counter (window, head * kMaxN + row, word block), one call per
-// four keys; keyed by the seed) is >= threshold. Writes the row's keep bytes
-// to kr and scales the kept weights by inv_keep, zeroing the rest. #2 and #4
-// both draw through here, so the mask depends on (seed, geometry) only.
+// Attention dropout of one (window, head, query row): the keep flags of
+// focal::attn_keep_row (philox.cuh, the counter rule #7 and #9 share).
+// Writes the row's keep bytes to kr and scales the kept weights by inv_keep,
+// zeroing the rest. #2 and #4 both draw through here, so the mask depends on
+// (seed, geometry) only.
 __device__ __forceinline__ void drop_row(float (&p)[kMaxN], int N, unsigned window, int h, int i,
                                          unsigned long long seed, unsigned threshold,
                                          float inv_keep, unsigned char* __restrict__ kr) {
-  const uint2 key = make_uint2((unsigned)seed, (unsigned)(seed >> 32));
+  bool kept[kMaxN];
+  focal::attn_keep_row(seed, window, h, i, N, threshold, kept);
 #pragma unroll
-  for (int jb = 0; jb < kMaxN / 4; ++jb) {
-    if (jb * 4 < N) {
-      const uint4 r =
-          philox4x32_10(make_uint4(window, (unsigned)(h * kMaxN + i), (unsigned)jb, 0u), key);
-      const unsigned bits[4] = {r.x, r.y, r.z, r.w};
-#pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const int j = jb * 4 + t;
-        if (j < N) {
-          const bool kp = bits[t] >= threshold;
-          kr[j] = kp ? 1 : 0;
-          p[j] = kp ? p[j] * inv_keep : 0.f;
-        }
-      }
+  for (int j = 0; j < kMaxN; ++j) {
+    if (j < N) {
+      kr[j] = kept[j] ? 1 : 0;
+      p[j] = kept[j] ? p[j] * inv_keep : 0.f;
     }
   }
 }

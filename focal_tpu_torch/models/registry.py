@@ -4,7 +4,7 @@ from focal_tpu_torch.params import get_train_mode
 
 
 def build_backbone(dataset_config, model, task, learn_framework="no", pallas_conv=False,
-                   pallas_mlp=False):
+                   pallas_mlp=False, pallas_block=True):
     """Instantiate the backbone named `model` (on the CPU; move it after).
 
     The class head is linear for supervised training or when the recipe's
@@ -12,7 +12,10 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
     (DeepSense only) trains the conv blocks through the fused conv-tower
     kernels, as the JAX package's ``-pallas_conv``; ``pallas_mlp``
     (SW_Transformer only) runs the Swin MLPs through the fused MLP kernels,
-    as its ``-pallas_mlp``."""
+    as its ``-pallas_mlp``; ``pallas_block=False`` (SW_Transformer only; the
+    DeepSense branch never reads it, as in the JAX package) runs window
+    attention through the attention-only kernels, as its
+    ``-no_pallas_block``."""
     if model not in ("SW_Transformer", "DeepSense"):
         raise ValueError(f"Invalid model provided: {model}")
     linear_head = (
@@ -23,7 +26,7 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
         from focal_tpu_torch.models.sw_transformer import SWTransformer
 
         return SWTransformer(dataset_config, task, linear_class_head=linear_head,
-                             pallas_mlp=pallas_mlp)
+                             pallas_mlp=pallas_mlp, pallas_block=pallas_block)
     from focal_tpu_torch.models.deepsense import DeepSense
 
     return DeepSense(dataset_config, task, linear_class_head=linear_head, use_pallas=pallas_conv)

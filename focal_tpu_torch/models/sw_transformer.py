@@ -11,7 +11,10 @@ Submodules are registered under the flax tree's names
 (``patch_embed_{loc}_{mod}``, ``stage{i}_{loc}_{mod}``,
 ``mod_in_layer_{loc}_{mod}``, ``mod_projector_{mod}``, ``mod_fusion_layer``,
 ``class_layer``). ``pallas_mlp`` (the CLI's ``-pallas_mlp``) routes each
-Swin block's MLP through the fused MLP kernels where ``mlp_fits``.
+Swin block's MLP through the fused MLP kernels where ``mlp_fits``;
+``pallas_block`` off (the CLI's ``-no_pallas_block``) routes its window
+attention through the attention-only kernels (#6-#9) instead of the
+whole-block ones.
 """
 
 import math
@@ -62,7 +65,8 @@ def mod_geometry(dataset_config, loc, mod):
 
 
 class SWTransformer(nn.Module):
-    def __init__(self, dataset_config, task, linear_class_head=True, pallas_mlp=False):
+    def __init__(self, dataset_config, task, linear_class_head=True, pallas_mlp=False,
+                 pallas_block=True):
         super().__init__()
         cfgs = dataset_config
         config = cfgs["SW_Transformer"]
@@ -101,6 +105,7 @@ class SWTransformer(nn.Module):
                         attn_drop=config.get("attn_drop_rate", 0.0),
                         drop_path=tuple(dpr[sum(block_num[:i]): sum(block_num[: i + 1])]),
                         downsample=i < len(block_num) - 1, pallas_mlp=pallas_mlp,
+                        pallas_block=pallas_block,
                     ))
                 (fh, fw), final_dim = geo["stages"][-1]
                 self.add_module(f"mod_in_layer_{loc}_{mod}",

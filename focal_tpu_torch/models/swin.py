@@ -6,8 +6,12 @@ resolved to constants when a block is built. Window attention goes through
 the whole-block kernels with the q scale folded into the qkv weights, as the
 JAX path does: ``window_block_forward`` (#1, or #4 for blocks too wide for
 it) in eval, ``window_block`` (#2 or #1 forward and #3 backward, or #4 and
-#5) in training. With ``pallas_mlp`` each block's MLP goes through the fused
-MLP kernels (#10-#12) where ``mlp_fits``.
+#5) in training. With ``pallas_block`` off (the CLI's ``-no_pallas_block``)
+it takes the JAX package's attention-only route instead: the qkv and proj
+Linears around ``fused_window_attention`` (#6) in eval and
+``window_attention`` (#7 or #6 forward, #9 or #8 backward) in training.
+With ``pallas_mlp`` each block's MLP goes through the fused MLP kernels
+(#10-#12) where ``mlp_fits``.
 
 In training every module takes ``rng``, the step's ``ops.dropout.StepRngs``:
 one kernel seed per block from its host generator, DropPath and the other
@@ -25,7 +29,8 @@ import torch.nn.functional as F
 
 from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
 from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_fits
-from focal_tpu_torch.ops.pallas_kernels import window_block, window_block_forward
+from focal_tpu_torch.ops.pallas_kernels import (fused_window_attention, window_attention,
+                                                window_block, window_block_forward)
 
 
 def window_partition(x, wh, ww):
@@ -89,12 +94,16 @@ def block_geometry(input_resolution, window_size, shift_size):
 
 
 class WindowAttention(nn.Module):
-    """W-MSA with relative position bias, through the whole-block kernels;
-    attention dropout in the kernel, ``proj_drop`` on its output."""
+    """W-MSA with relative position bias, through the whole-block kernels, or
+    with ``pallas_block`` off through the attention-only kernels between the
+    qkv and proj Linears; attention dropout in the kernel, ``proj_drop`` on
+    its output."""
 
-    def __init__(self, dim, window_size, num_heads, qkv_bias=True, attn_drop=0.0, proj_drop=0.0):
+    def __init__(self, dim, window_size, num_heads, qkv_bias=True, attn_drop=0.0, proj_drop=0.0,
+                 pallas_block=True):
         super().__init__()
         self.dim = dim
+        self.pallas_block = bool(pallas_block)
         self.window_size = tuple(window_size)
         self.num_heads = num_heads
         self.attn_drop = float(attn_drop)
@@ -112,21 +121,24 @@ class WindowAttention(nn.Module):
         )
         self._kernel_key = None  # (data_ptr, _version) of each parameter when folded
 
+    def _rel_bias(self):
+        """[H, N, N]: the bias table gathered by the relative position index."""
+        N = self.window_size[0] * self.window_size[1]
+        bias = self.relative_position_bias_table[self.relative_position_index]
+        return bias.reshape(N, N, self.num_heads).permute(2, 0, 1).contiguous()
+
     def _fold(self):
         """(wqkv_t [3C, C] with the q scale folded in, bqkv, wproj_t [C, C],
         bproj, rel_bias [H, N, N]): the weights in nn.Linear's [out, in]
         layout, the transpose of what the kernels take."""
         C, H = self.dim, self.num_heads
-        N = self.window_size[0] * self.window_size[1]
         scale = (C // H) ** -0.5
         dev = self.qkv.weight.device
         scale_vec = torch.cat([torch.full((C,), scale, device=dev), torch.ones(2 * C, device=dev)])
         wqkv_t = self.qkv.weight * scale_vec[:, None]
         bqkv = self.qkv.bias if self.qkv.bias is not None else torch.zeros(3 * C, device=dev)
         bqkv = (bqkv * scale_vec).contiguous()
-        bias = self.relative_position_bias_table[self.relative_position_index]
-        rel_bias = bias.reshape(N, N, H).permute(2, 0, 1).contiguous()
-        return wqkv_t, bqkv, self.proj.weight, self.proj.bias, rel_bias
+        return wqkv_t, bqkv, self.proj.weight, self.proj.bias, self._rel_bias()
 
     def kernel_args(self):
         """(wqkv [C, 3C] with the q scale folded in, bqkv, wproj [C, C],
@@ -147,17 +159,36 @@ class WindowAttention(nn.Module):
             self._kernel_key, self._kernel_src = key, [p.detach() for p in self.parameters()]
         return self._kernel_args
 
+    def _attention_only(self, x, mask, rng):
+        """The JAX package's route without the whole-block kernel
+        (``focal_tpu/models/swin.py:258-295``): qkv Linear, q * scale after
+        it, the attention kernels on [B_, H, N, hd] views, proj Linear."""
+        B_, N, C = x.shape
+        H = self.num_heads
+        hd = C // H
+        q, k, v = self.qkv(x).reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
+        q = q * hd**-0.5
+        if self.training:
+            seed = needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
+            out = window_attention(q, k, v, self._rel_bias(), mask, seed, self.attn_drop)
+        else:
+            out = fused_window_attention(q, k, v, self._rel_bias(), mask)
+        return self.proj(out.transpose(1, 2).reshape(B_, N, C))
+
     def forward(self, x, mask=None, rng=None):
-        if not self.training:
+        if not self.pallas_block:
+            out = self._attention_only(x, mask, rng)
+        elif not self.training:
             return window_block_forward(x.contiguous(), *self.folded_kernel_args(), mask)
-        # training folds with grad, so the weights' gradients flow back
-        # through the q scale, the transposes and the bias-table gather
-        seed = needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
-        wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
-        out = window_block(x.contiguous(), wqkv_t.t().contiguous(), bqkv, wproj_t.t().contiguous(),
-                           bproj, rel_bias, mask, seed, self.attn_drop,
-                           wqkv_t=wqkv_t, wproj_t=wproj_t)
-        if self.proj_drop > 0.0:
+        else:
+            # training folds with grad, so the weights' gradients flow back
+            # through the q scale, the transposes and the bias-table gather
+            seed = needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
+            wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
+            out = window_block(x.contiguous(), wqkv_t.t().contiguous(), bqkv,
+                               wproj_t.t().contiguous(), bproj, rel_bias, mask, seed,
+                               self.attn_drop, wqkv_t=wqkv_t, wproj_t=wproj_t)
+        if self.training and self.proj_drop > 0.0:
             out = remat_dropout(out, self.proj_drop, needs_rng(rng, "proj_drop").device)
         return out
 
@@ -224,7 +255,7 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim, input_resolution, num_heads, window_size, shift_size,
                  mlp_ratio=4.0, qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=0.0,
-                 pallas_mlp=False):
+                 pallas_mlp=False, pallas_block=True):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         H, W = self.input_resolution
@@ -238,7 +269,7 @@ class SwinBlock(nn.Module):
         self.register_buffer("attn_mask", mask, persistent=False)
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = WindowAttention(dim, (self.wh, self.ww), num_heads, qkv_bias,
-                                    attn_drop=attn_drop, proj_drop=drop)
+                                    attn_drop=attn_drop, proj_drop=drop, pallas_block=pallas_block)
         self.drop_path1 = DropPath(drop_path)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, use_pallas=pallas_mlp)
@@ -285,7 +316,7 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim, input_resolution, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=(0.0,), downsample=False,
-                 pallas_mlp=False):
+                 pallas_mlp=False, pallas_block=True):
         super().__init__()
         self.depth = depth
         for i in range(depth):
@@ -294,7 +325,7 @@ class BasicLayer(nn.Module):
             self.add_module(f"block{i}", SwinBlock(
                 dim, input_resolution, num_heads, window_size, shift,
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, drop=drop, attn_drop=attn_drop,
-                drop_path=dp, pallas_mlp=pallas_mlp,
+                drop_path=dp, pallas_mlp=pallas_mlp, pallas_block=pallas_block,
             ))
         self.downsample = PatchMerging(input_resolution, dim) if downsample else None
 

@@ -4,8 +4,9 @@ Each source under ``focal_tpu_torch/csrc/`` becomes one shared library with
 a plain C interface, compiled for ``sm_90a`` on first use into
 ``build/focal_tpu_torch/`` beside the package, named by a content hash of
 the sources and flags (a changed source builds anew, an unchanged one is
-reused). A failed build raises with nvcc's output. Nothing here runs at
-import time.
+reused). The hash covers the shared headers (``*.cuh``, such as
+``philox.cuh``) as well. A failed build raises with nvcc's output. Nothing
+here runs at import time.
 """
 
 import ctypes
@@ -17,7 +18,7 @@ import subprocess
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "focal_tpu_torch")
-SOURCES = ("window_block.cu", "conv_tower.cu", "fused_mlp.cu")
+SOURCES = ("window_block.cu", "window_attention.cu", "conv_tower.cu", "fused_mlp.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -8,8 +8,9 @@ reader looks for its TPU counterpart. Every kernel has beside it:
     by one each time the kernel itself is launched.
 A CUDA tensor goes to the kernel or the wrapper raises; there is no fallback.
 
-Kernels (all in ``csrc/window_block.cu``):
-  #1 ``fused_window_block``: whole-block window attention, forward;
+Whole-block kernels (``csrc/window_block.cu``): the qkv projection,
+attention and output projection of a window in one kernel:
+  #1 ``fused_window_block``: forward;
   #2 ``fused_window_block_dropout``: #1 with attention dropout, returning
      its uint8 keep mask [B_, H, N, N];
   #3 ``fused_window_block_backward``: the VJP of #1 and #2;
@@ -18,6 +19,18 @@ Kernels (all in ``csrc/window_block.cu``):
   #5 ``fused_window_block_perhead_backward``: the VJP of #4.
 ``window_block_forward`` (eval) and ``window_block`` (training, an autograd
 pair) route each geometry to #1-#3 or to #4/#5.
+
+Attention-only kernels (``csrc/window_attention.cu``), the route of the
+CLI's ``-no_pallas_block``: softmax(q k^T + bias) v on q, k, v [B_, H, N,
+hd], the projections outside:
+  #6 ``fused_window_attention``: forward;
+  #7 ``fused_window_attention_dropout``: #6 with attention dropout, the mask
+     drawn from #2's Philox counters and not stored;
+  #8 ``fused_window_attention_backward``: the VJP of #6;
+  #9 ``fused_window_attention_dropout_backward``: the VJP of #7, its mask
+     drawn again from the seed.
+``window_attention`` is their autograd pair (#6 or #7 forward, #8 or #9
+backward); ``window_attention_keep_mask`` writes #7's mask out for checks.
 """
 
 import ctypes
@@ -27,7 +40,9 @@ import torch
 from focal_tpu_torch.ops import _build
 
 _WINDOW_BLOCK_SRC = "window_block.cu"
-_MAX_N = 16  # kMaxN in csrc/window_block.cu
+_WINDOW_ATTENTION_SRC = "window_attention.cu"
+_MAX_N = 16  # kMaxN in csrc/window_block.cu and csrc/window_attention.cu
+_MAX_HD = 256  # kMaxHd in csrc/window_attention.cu
 _MONO_BWD_BUDGET = 112640  # kBwdBudget in csrc/window_block.cu
 
 
@@ -61,16 +76,25 @@ def fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=Non
     hd = C // H
     qkv = torch.matmul(x, wqkv) + bqkv  # [B, N, 3C], q pre-scaled
     qkv = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, N, hd]
-    q, k, v = qkv[0], qkv[1], qkv[2]
+    out = fused_window_attention_reference(qkv[0], qkv[1], qkv[2], rel_bias, mask, keep, rate)
+    return torch.matmul(out.transpose(1, 2).reshape(B, N, C), wproj) + bproj
+
+
+def fused_window_attention_reference(q, k, v, rel_bias, mask=None, keep=None, rate=0.0):
+    """Plain PyTorch window attention, the math of the JAX package's
+    ``fused_window_attention``: softmax(q k^T + rel_bias + mask[w % nW]) v
+    per (window w, head), q pre-scaled. q, k, v: [B_, H, N, hd]; rel_bias
+    [H, N, N]; mask [nW, N, N] or None. With ``keep`` (uint8 [B_, H, N, N])
+    the weights are dropped where keep is 0 and scaled by 1 / (1 - rate)
+    where it is 1. Returns [B_, H, N, hd]."""
     scores = torch.matmul(q, k.transpose(-1, -2)) + rel_bias[None]
     if mask is not None:
-        idx = torch.arange(B, device=x.device) % mask.shape[0]
+        idx = torch.arange(q.shape[0], device=q.device) % mask.shape[0]
         scores = scores + mask[idx][:, None]
     attn = torch.softmax(scores, dim=-1)
     if keep is not None:
         attn = torch.where(keep.bool(), attn * (1.0 / (1.0 - rate)), 0.0)
-    out = torch.matmul(attn, v).transpose(1, 2).reshape(B, N, C)
-    return torch.matmul(out, wproj) + bproj
+    return torch.matmul(attn, v)
 
 
 def draw_keep_mask(seed, shape, rate, device):
@@ -99,15 +123,15 @@ def fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
         return torch.autograd.grad(y, leaves, dy)
 
 
-def _check(name, t, shape, device, dtype=torch.float32):
+def _check(name, t, shape, device, dtype=torch.float32, who="fused_window_block"):
     if t.dtype != dtype:
-        raise TypeError(f"fused_window_block: {name} must be {dtype}, got {t.dtype}")
+        raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"fused_window_block: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
-        raise ValueError(f"fused_window_block: {name} is on {t.device}, x on {device}")
+        raise ValueError(f"{who}: {name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
-        raise ValueError(f"fused_window_block: {name} must be contiguous")
+        raise ValueError(f"{who}: {name} must be contiguous")
 
 
 def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask):
@@ -140,13 +164,14 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(name, fn, dev, *args):
-    """Run one C entry point on the current stream of ``dev``; raise on error."""
+def _launch(name, fn, dev, *args, lib=None):
+    """Run one C entry point on the current stream of ``dev``; raise on error
+    (``lib``, the library of ``fn``, names it: window_block.cu's by default)."""
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(*args, stream)
     if err != 0:
-        msg = _window_block_lib().focal_cuda_error_string(err).decode()
+        msg = (lib or _window_block_lib()).focal_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed ({err}): {msg}")
 
 
@@ -414,6 +439,293 @@ def window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, see
         B, N, _ = x.shape
         keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
     return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, rate)
+
+
+# ---------------------------------------------------------------------------
+# the attention-only kernels (#6-#9)
+
+
+def fused_window_attention_dropout_reference(q, k, v, rel_bias, mask, keep, rate):
+    """Plain version of #7, given its keep mask."""
+    return fused_window_attention_reference(q, k, v, rel_bias, mask, keep, rate)
+
+
+def fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g, keep=None, rate=0.0):
+    """Plain version of #8 (keep None) and #9: autograd through
+    fused_window_attention_reference with the keep mask applied. Returns
+    (dq, dk, dv, drel_bias)."""
+    with torch.enable_grad():
+        leaves = [t.detach().requires_grad_(True) for t in (q, k, v, rel_bias)]
+        out = fused_window_attention_reference(*leaves, mask, keep, rate)
+        return torch.autograd.grad(out, leaves, g)
+
+
+def _takes_rows(t):
+    """Whether the attention kernels read ``t`` in place: f32 rows of hd
+    contiguous floats, 16-byte aligned, every stride a multiple of 4."""
+    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+            and t.data_ptr() % 16 == 0)
+
+
+def _check_rows(who, name, t, shape, device):
+    """A [B_, H, N, hd] operand: any strides the kernels read (``_takes_rows``)."""
+    if t.dtype != torch.float32:
+        raise TypeError(f"{who}: {name} must be torch.float32, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if t.device != device:
+        raise ValueError(f"{who}: {name} is on {t.device}, expected {device}")
+    if not _takes_rows(t):
+        raise ValueError(f"{who}: {name} needs contiguous, 16-byte aligned rows "
+                         f"(strides {t.stride()})")
+
+
+def _check_attention_args(who, q, k, v, rel_bias, mask):
+    """Validate the CUDA path's inputs; returns (B, H, N, hd, nW)."""
+    if q.device.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {q.device}")
+    if q.dim() != 4:
+        raise ValueError(f"{who}: q must be [B_, H, N, hd], got {tuple(q.shape)}")
+    B, H, N, hd = q.shape
+    if not 1 <= N <= _MAX_N or hd % 4 or not 4 <= hd <= _MAX_HD:
+        raise ValueError(f"{who}: unsupported geometry N={N} hd={hd}")
+    dev = q.device
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_rows(who, name, t, (B, H, N, hd), dev)
+    _check("rel_bias", rel_bias, (H, N, N), dev, who=who)
+    nW = 1
+    if mask is not None:
+        nW = mask.shape[0]
+        _check("mask", mask, (nW, N, N), dev, who=who)
+    return B, H, N, hd, nW
+
+
+def _strides(*ts):
+    """The (B_, H, N) element strides of each operand, as the C side reads them."""
+    vals = [s for t in ts for s in t.stride()[:3]]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _dropout_args(seed, rate):
+    """(dropout flag, seed, u32 threshold, 1 / (1 - rate)) for the C side."""
+    if rate > 0.0:
+        return 1, int(seed) % 2**64, _keep_threshold(rate), 1.0 / (1.0 - rate)
+    return 0, 0, 0, 1.0
+
+
+def _attention_forward(who, q, k, v, rel_bias, mask, seed, rate):
+    B, H, N, hd, nW = _check_attention_args(who, q, k, v, rel_bias, mask)
+    out = torch.empty((B, H, N, hd), dtype=torch.float32, device=q.device)
+    lib = _window_attention_lib()
+    _launch(who, lib.focal_wattn_fwd, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            _strides(q, k, v), rel_bias.data_ptr(), _ptr(mask), out.data_ptr(), B, H, N, hd, nW,
+            *_dropout_args(seed, rate), lib=lib)
+    return out
+
+
+def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate):
+    B, H, N, hd, nW = _check_attention_args(who, q, k, v, rel_bias, mask)
+    dev = q.device
+    _check_rows(who, "g", g, (B, H, N, hd), dev)
+    lib = _window_attention_lib()
+    dropout = _dropout_args(seed, rate)
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = lib.focal_wattn_bwd_workspace(B, H, N, hd, dropout[0], ctypes.byref(floats))
+    if err != 0:
+        msg = lib.focal_cuda_error_string(err).decode()
+        raise RuntimeError(f"{who}: no launch plan ({err}): {msg}")
+    ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    dq, dk, dv = (torch.empty((B, H, N, hd), dtype=torch.float32, device=dev) for _ in range(3))
+    drel_bias = (torch.zeros if B == 0 else torch.empty)((H, N, N), dtype=torch.float32, device=dev)
+    _launch(who, lib.focal_wattn_bwd, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+            _strides(q, k, v, g), rel_bias.data_ptr(), _ptr(mask), dq.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(), B, H, N, hd, nW, *dropout, lib=lib)
+    return dq, dk, dv, drel_bias
+
+
+def _check_rate(who, rate):
+    if not 0.0 < rate < 1.0:
+        raise ValueError(f"{who}: rate must be in (0, 1), got {rate}")
+
+
+def fused_window_attention(q, k, v, rel_bias, mask=None):
+    """softmax(q k^T + rel_bias + mask[w % nW]) v over windows, one kernel
+    (#6): q, k, v [B_, H, N, hd] f32 (q pre-scaled by hd**-0.5; any strides
+    whose rows of hd floats are contiguous and 16-byte aligned, such as the
+    views of the qkv projection), rel_bias [H, N, N], mask [nW, N, N] or
+    None (window w takes mask[w % nW]). Returns contiguous [B_, H, N, hd].
+    N <= 16 and hd a multiple of 4 up to 256; anything else raises.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_attention
+    (_attn_fwd_kernel). CPU tensors take the plain version; CUDA tensors
+    launch csrc/window_attention.cu.
+    """
+    if q.device.type == "cpu":
+        return fused_window_attention_reference(q, k, v, rel_bias, mask)
+    out = _attention_forward("fused_window_attention", q, k, v, rel_bias, mask, 0, 0.0)
+    fused_window_attention.launches += 1
+    return out
+
+
+fused_window_attention.launches = 0
+
+
+def fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate):
+    """#6 with attention dropout (#7): each (window, head, query, key) weight
+    is kept iff its 32 Philox bits are >= rate * 2**32 (#2's counters, keyed
+    by ``seed``: #2's mask bit for bit) and scaled by 1 / (1 - rate). No
+    mask is stored: the backward (#9) draws it again from the seed, and
+    ``window_attention_keep_mask`` writes it out for checks. Returns [B_, H,
+    N, hd].
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_attention_dropout
+    (_attn_fwd_dropout_kernel). On the CPU the mask comes from
+    draw_keep_mask and the output from the plain version.
+    """
+    _check_rate("fused_window_attention_dropout", rate)
+    if q.device.type == "cpu":
+        B, H, N, _ = q.shape
+        keep = draw_keep_mask(seed, (B, H, N, N), rate, q.device)
+        return fused_window_attention_dropout_reference(q, k, v, rel_bias, mask, keep, rate)
+    out = _attention_forward("fused_window_attention_dropout", q, k, v, rel_bias, mask, seed, rate)
+    fused_window_attention_dropout.launches += 1
+    return out
+
+
+fused_window_attention_dropout.launches = 0
+
+
+def fused_window_attention_backward(q, k, v, rel_bias, mask, g, seed=None, rate=0.0):
+    """VJP of #6 (#8): recomputes the softmax from q and k, as the TPU kernel
+    does, and returns (dq, dk, dv [B_, H, N, hd], drel_bias [H, N, N]).
+    drel_bias sums the score gradients over every window in a fixed order:
+    two calls give the same bits. The mask gets no gradient. With ``seed``
+    (and its ``rate``) it is the VJP of #7 instead, which
+    fused_window_attention_dropout_backward (#9) computes. ``g`` takes the
+    strides q does.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_bwd_impl (_attn_bwd_kernel).
+    CPU tensors take the plain version.
+    """
+    if seed is not None:
+        return fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, rate)
+    if q.device.type == "cpu":
+        return fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g)
+    grads = _attention_backward("fused_window_attention_backward", q, k, v, rel_bias, mask, g,
+                                0, 0.0)
+    fused_window_attention_backward.launches += 1
+    return grads
+
+
+fused_window_attention_backward.launches = 0
+
+
+def fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, rate):
+    """VJP of #7 (#9): #8 with #7's mask drawn again from ``seed``; dv takes
+    the dropped weights, the score gradients the softmax before dropout.
+    Returns (dq, dk, dv, drel_bias), bitwise repeatable.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_bwd_impl with a seed
+    (_attn_bwd_dropout_kernel). On the CPU the plain version with
+    draw_keep_mask's mask, the one the CPU forward drew.
+    """
+    _check_rate("fused_window_attention_dropout_backward", rate)
+    if q.device.type == "cpu":
+        B, H, N, _ = q.shape
+        keep = draw_keep_mask(seed, (B, H, N, N), rate, q.device)
+        return fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g, keep, rate)
+    grads = _attention_backward("fused_window_attention_dropout_backward", q, k, v, rel_bias, mask,
+                                g, seed, rate)
+    fused_window_attention_dropout_backward.launches += 1
+    return grads
+
+
+fused_window_attention_dropout_backward.launches = 0
+
+
+def window_attention_keep_mask(seed, B, H, N, rate, device):
+    """The keep mask that #7 and #9 draw for ``seed`` over B windows of H
+    heads and N tokens, as uint8 [B, H, N, N] (1 kept): on a CUDA device
+    written by a kernel from their Philox counters, on the CPU
+    draw_keep_mask's (the mask the CPU wrappers draw). For checks; the
+    kernels never store it."""
+    _check_rate("window_attention_keep_mask", rate)
+    device = torch.device(device)
+    if device.type == "cpu":
+        return draw_keep_mask(seed, (B, H, N, N), rate, device)
+    if not 1 <= N <= _MAX_N:
+        raise ValueError(f"window_attention_keep_mask: unsupported window size N={N}")
+    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=device)
+    lib = _window_attention_lib()
+    _launch("window_attention_keep_mask", lib.focal_wattn_keep_mask, device, keep.data_ptr(), B, H,
+            N, int(seed) % 2**64, _keep_threshold(rate), lib=lib)
+    return keep
+
+
+def _rows(t):
+    """``t``, or a contiguous copy of it where the kernels cannot read its
+    layout (the plain versions read any)."""
+    return t if t.device.type == "cpu" or _takes_rows(t) else t.contiguous()
+
+
+class _WindowAttention(torch.autograd.Function):
+    """#7 (or #6 at rate 0) forward, #9 (or #8) backward; the seed is the
+    only residual of the dropout."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, rel_bias, mask, seed, rate):
+        if rate > 0.0:
+            out = fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate)
+            ctx.seed = seed
+        else:
+            out = fused_window_attention(q, k, v, rel_bias, mask)
+            ctx.seed = None
+        ctx.save_for_backward(q, k, v, rel_bias, mask)
+        ctx.rate = rate
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, rel_bias, mask = ctx.saved_tensors
+        grads = fused_window_attention_backward(q, k, v, rel_bias, mask, _rows(g), ctx.seed,
+                                                ctx.rate)
+        return (*grads, None, None, None)
+
+
+def window_attention(q, k, v, rel_bias, mask=None, seed=0, rate=0.0):
+    """Differentiable window attention for training: forward by #7 (rate >
+    0) or #6, backward by #9 or #8; gradients in q, k, v and rel_bias.
+    Arguments as fused_window_attention_dropout."""
+    return _WindowAttention.apply(_rows(q), _rows(k), _rows(v), rel_bias, mask, seed, float(rate))
+
+
+def window_attention_reference(q, k, v, rel_bias, mask=None, seed=0, rate=0.0):
+    """Plain version of window_attention on any device (draw_keep_mask's
+    mask, autograd through fused_window_attention_reference), with its
+    arguments so that it can stand in for it."""
+    keep = None
+    if rate > 0.0:
+        B, H, N, _ = q.shape
+        keep = draw_keep_mask(seed, (B, H, N, N), rate, q.device)
+    return fused_window_attention_reference(q, k, v, rel_bias, mask, keep, rate)
+
+
+def _window_attention_lib():
+    lib = _build.load(_WINDOW_ATTENTION_SRC)
+    if lib.focal_wattn_fwd.argtypes is None:
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
+        drop = [i, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p]  # dropout .. stream
+        lib.focal_wattn_fwd.argtypes = [p] * 3 + [ll] + [p] * 3 + [i] * 5 + drop
+        lib.focal_wattn_bwd_workspace.argtypes = [i] * 5 + [ll]
+        lib.focal_wattn_bwd.argtypes = [p] * 4 + [ll] + [p] * 7 + [i] * 5 + drop
+        lib.focal_wattn_keep_mask.argtypes = [p, i, i, i, ctypes.c_ulonglong, ctypes.c_uint, p]
+        for fn in (lib.focal_wattn_fwd, lib.focal_wattn_bwd_workspace, lib.focal_wattn_bwd,
+                   lib.focal_wattn_keep_mask):
+            fn.restype = ctypes.c_int
+        lib.focal_cuda_error_string.argtypes = [ctypes.c_int]
+        lib.focal_cuda_error_string.restype = ctypes.c_char_p
+    return lib
 
 
 def _window_block_lib():

@@ -90,6 +90,10 @@ def build_parser():
     parser.add_argument("-pallas_mlp", action="store_true",
                         help="SW_Transformer: run the Swin MLPs through the fused MLP kernel "
                         "(#10; opt-in, as in the JAX CLI).")
+    parser.add_argument("-no_pallas_block", action="store_true",
+                        help="SW_Transformer: disable the whole-block attention kernels (qkv + "
+                        "attention + proj fused per window; #1-#5) and run the attention-only "
+                        "kernels (#6-#9) between the qkv and proj Linears, as in the JAX CLI.")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     return parser
 
@@ -149,6 +153,10 @@ def build_train_parser():
     parser.add_argument("-pallas_mlp", action="store_true",
                         help="SW_Transformer: run the Swin MLPs through the fused MLP kernels "
                         "(#10-#12; opt-in, as in the JAX CLI).")
+    parser.add_argument("-no_pallas_block", action="store_true",
+                        help="SW_Transformer: disable the whole-block attention kernels (qkv + "
+                        "attention + proj fused per window; #1-#5) and run the attention-only "
+                        "kernels (#6-#9) between the qkv and proj Linears, as in the JAX CLI.")
     parser.add_argument("-mixup_labels", action="store_true",
                         help="Supervised: train on mixup's soft labels (off by default: the "
                         "reference discards them).")
@@ -163,8 +171,6 @@ def build_train_parser():
     parser.add_argument("-py_aug_draws", action="store_true", help="Not ported yet (ROADMAP A8).")
     parser.add_argument("-init_weight", type=str, default=None, help="Not ported yet (ROADMAP A8).")
     parser.add_argument("-ref_lr_timing", action="store_true", help="Not ported yet (ROADMAP A8).")
-    parser.add_argument("-no_pallas_block", action="store_true",
-                        help="Not ported yet (ROADMAP B, kernels #6-#9).")
     return parser
 
 
@@ -173,7 +179,7 @@ _PORTED_VALUES = {
     "grad_accum": ({1}, "A7"), "data_parallel": ({0, 1}, "A7"), "model_parallel": ({1}, "A7"),
     "data_layout": ({"auto", "replicated"}, "A7"), "ragged_tail": ({False}, "A8"),
     "py_aug_draws": ({False}, "A8"), "init_weight": ({None}, "A8"),
-    "ref_lr_timing": ({False}, "A8"), "no_pallas_block": ({False}, "B (#6-#9)"),
+    "ref_lr_timing": ({False}, "A8"),
 }
 
 

@@ -7,7 +7,9 @@
 ``-synthetic`` serves a synthetic batch instead of ``-input``; without
 ``-model_weight`` the weights are a seeded random init (smoke runs). Runs on
 the CUDA card unless ``-device cpu`` is given; ``-pallas_mlp`` serves the
-SW_Transformer with its MLPs through the fused MLP kernel (#10). Prints a latency summary
+SW_Transformer with its MLPs through the fused MLP kernel (#10),
+``-no_pallas_block`` with its window attention through the attention-only
+kernel (#6) between the qkv and proj Linears. Prints a latency summary
 (warm-up excluded, host-device copies included) and, when the inputs carry
 labels, accuracy as a sanity check.
 """
@@ -30,7 +32,7 @@ def predict(args):
     predictor = Predictor(
         args.dataset_config, args.model, args.task, args.model_weight, args.batch_size,
         device=args.device, learn_framework=args.learn_framework, seed=args.seed,
-        pallas_mlp=args.pallas_mlp,
+        pallas_mlp=args.pallas_mlp, pallas_block=not args.no_pallas_block,
     )
     n = len(names)
     print(f"Predicting {n} samples (batch {predictor.batch_size}, "

@@ -35,16 +35,22 @@ class Predictor:
       device: "cuda" (default) or "cpu"; "cuda" with no card raises.
       pallas_mlp: SW_Transformer's MLPs through the fused MLP kernel (#10),
         as the CLI's -pallas_mlp.
+      pallas_block: SW_Transformer's window attention through the
+        whole-block kernel (#1, #4 for wide blocks); False takes the
+        attention-only kernel (#6) between the qkv and proj Linears, as the
+        CLI's -no_pallas_block.
     """
 
     def __init__(self, dataset_config, model, task, state_dict=None, batch_size=128,
-                 device="cuda", learn_framework="no", seed=0, pallas_mlp=False):
+                 device="cuda", learn_framework="no", seed=0, pallas_mlp=False,
+                 pallas_block=True):
         self.device = select_device(device)
         self.task = task
         self.batch_size = int(batch_size or 128)
         self.num_classes = dataset_config[task]["num_classes"]
         self.augmenter = Augmenter(dataset_config)
-        net = build_backbone(dataset_config, model, task, learn_framework, pallas_mlp=pallas_mlp)
+        net = build_backbone(dataset_config, model, task, learn_framework, pallas_mlp=pallas_mlp,
+                             pallas_block=pallas_block)
         if state_dict is None:
             init_params(net, seed)
             self.checkpoint_path = f"random init (seed {seed})"

@@ -8,7 +8,8 @@ no``, finetuned with ``-stage finetune``) from -model_weight's folder or the
 newest matching experiment folder, runs the test split through the class
 head and prints the test loss, accuracy, macro-F1 and confusion matrix. On
 the CUDA card, or on the CPU with ``-device cpu``; ``-pallas_mlp`` runs the
-Swin MLPs through the fused MLP kernel (#10).
+Swin MLPs through the fused MLP kernel (#10), ``-no_pallas_block`` the
+window attention through the attention-only kernel (#6).
 """
 
 import logging
@@ -30,7 +31,8 @@ def test(args):
     args.classifier_weight = checkpoint_paths(args)[0]
     split = load_split("test", args).to(device)
     model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
-                           pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp)
+                           pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
+                           pallas_block=not args.no_pallas_block)
     logging.info(f"= Loading classifier weight: {args.classifier_weight}")
     ckpt.load_params_into(model, args.classifier_weight, load_class_layer=True)
     model.to(device)

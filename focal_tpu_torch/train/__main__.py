@@ -9,7 +9,9 @@ supervised_train``), ``-learn_framework FOCAL`` pretrains (``-stage
 pretrain``, the default) or finetunes the newest pretrained run (``-stage
 finetune``). On the CUDA card, or on the CPU with ``-device cpu``;
 ``-resume`` goes on from the stage's `_resume` checkpoint; ``-pallas_mlp``
-runs the Swin MLPs through the fused MLP kernels.
+runs the Swin MLPs through the fused MLP kernels; ``-no_pallas_block`` runs
+window attention through the attention-only kernels (#6-#9) between the qkv
+and proj Linears instead of the whole-block kernels (#1-#5).
 """
 
 from focal_tpu_torch.params import parse_train_params

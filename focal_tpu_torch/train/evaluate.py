@@ -5,8 +5,8 @@ head's loss over a split (``eval_supervised``), and the task metrics
 
 A split's batches follow an ``EvalPlan``: every unit once, in order, the
 ragged tail padded and weighted 0. The model runs in eval mode, so its
-window attention goes through the eval kernels (#1, or #4 for wide blocks)
-and, with -pallas_mlp, its MLPs through #10.
+window attention goes through the eval kernels (#1, or #4 for wide blocks;
+#6 with -no_pallas_block) and, with -pallas_mlp, its MLPs through #10.
 """
 
 import numpy as np

@@ -79,7 +79,8 @@ class Run:
                      f"test {len(self.splits['test'])}; device {self.device}")
         self.augmenter = build_augmenter(args)
         model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
-                               pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp)
+                               pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
+                               pallas_block=not args.no_pallas_block)
         self.model = init_params(model, seed=args.seed).to(self.device)
         self._plans = {}
 

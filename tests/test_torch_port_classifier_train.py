@@ -8,7 +8,9 @@ focal_tpu_torch.test``) in-process.
     step is deterministic), from the JAX initial parameters and batch
     statistics carried in by ``params_from_flax``: SW_Transformer without
     and with -pallas_mlp (the JAX attention and fused MLP kernels in
-    interpret mode; the port's plain versions) and DeepSense. Loss 1e-5
+    interpret mode; the port's plain versions), each also with
+    -no_pallas_block on the port's side (its attention-only route: the qkv
+    and proj Linears around #6/#8's plain versions), and DeepSense. Loss 1e-5
     relative; each gradient 1e-4 relative (max|port - jax| / max|jax|), absolutely (1e-4) where both
     are below 1e-2 (conv biases before a BatchNorm); running statistics
     1e-5 relative.
@@ -159,11 +161,13 @@ def _jax_step(tmp, model, stage, pallas_mlp=False):
             "mask": jo.trainable_mask(state.params, args)}
 
 
-def _port_step(ref, model, stage, pallas_mlp=False):
+def _port_step(ref, model, stage, pallas_mlp=False, pallas_block=True):
     argv = _argv(model, stage) + (["-stage", "finetune"] if stage == "finetune" else [])
-    args = parse_train_params(argv + ["-device", "cpu"] + (["-pallas_mlp"] if pallas_mlp else []))
+    argv += (["-pallas_mlp"] if pallas_mlp else []) + ([] if pallas_block else ["-no_pallas_block"])
+    args = parse_train_params(argv + ["-device", "cpu"])
     args.dataset_config = cfg = ref["cfg"]
-    net = build_backbone(cfg, model, TASK, args.learn_framework, pallas_mlp=pallas_mlp)
+    net = build_backbone(cfg, model, TASK, args.learn_framework, pallas_mlp=args.pallas_mlp,
+                         pallas_block=not args.no_pallas_block)
     net.load_state_dict(params_from_flax(*ref["init"], cfg), strict=True)
     state = create_train_state(args, net, steps_per_epoch=STEPS_PER_EPOCH)
     host, labels, _ = synthetic_arrays(cfg, TASK, 2 * BATCH, seed=0)
@@ -180,11 +184,16 @@ def _grad_err(got, want):
     return float(np.abs(g - w).max() / np.abs(w).max())
 
 
-@pytest.mark.parametrize("model,pallas_mlp", [("SW_Transformer", False), ("SW_Transformer", True),
-                                              ("DeepSense", False)])
-def test_supervised_step_matches_jax(model, pallas_mlp, tmp_path):
+@pytest.mark.parametrize("model,pallas_mlp,pallas_block", [
+    pytest.param("SW_Transformer", False, True, id="SW_Transformer-False"),
+    pytest.param("SW_Transformer", True, True, id="SW_Transformer-True"),
+    pytest.param("DeepSense", False, True, id="DeepSense-False"),
+    pytest.param("SW_Transformer", False, False, id="SW_Transformer-False-no_pallas_block"),
+    pytest.param("SW_Transformer", True, False, id="SW_Transformer-True-no_pallas_block"),
+])
+def test_supervised_step_matches_jax(model, pallas_mlp, pallas_block, tmp_path):
     ref = _jax_step(tmp_path, model, "supervised", pallas_mlp)
-    _, net, loss, grads = _port_step(ref, model, "supervised", pallas_mlp)
+    _, net, loss, grads = _port_step(ref, model, "supervised", pallas_mlp, pallas_block)
     np.testing.assert_allclose(loss, ref["loss"], rtol=1e-5)
     assert set(grads) == set(ref["grads"])
     for name, want in ref["grads"].items():

@@ -250,9 +250,23 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
                         "-synthetic", "-output_dir", str(tmp_path)])
 
 
-@pytest.mark.parametrize("flag,item", [("-init_weight", "A8"), ("-no_pallas_block", "B \\(#6-#9\\)")])
+@pytest.mark.parametrize("flag,item", [("-init_weight", "A8"), ("-no_pallas_block", None)])
 def test_unported_kernel_flags_raise(flag, item):
+    """-init_weight raises naming its ROADMAP item; -no_pallas_block parses,
+    reaches the SW_Transformer's attention-only route and is ignored by
+    DeepSense, as in the JAX package."""
     assert parse_train_params(["-model", "DeepSense", "-pallas_conv"]).pallas_conv
     argv = [flag, "w.pt"] if flag == "-init_weight" else [flag]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        parse_train_params(argv)
+    if item is not None:
+        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            parse_train_params(argv)
+        return
+    cfg = load_dataset_config("MOD_TINY")
+    for model in ("SW_Transformer", "DeepSense"):
+        args = parse_train_params(argv + ["-model", model])
+        assert args.no_pallas_block
+        net = build_backbone(cfg, model, args.task, args.learn_framework,
+                             pallas_block=not args.no_pallas_block)
+        attns = [m for m in net.modules() if type(m).__name__ == "WindowAttention"]
+        assert (model == "DeepSense") == (not attns)
+        assert all(not m.pallas_block for m in attns)

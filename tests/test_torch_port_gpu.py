@@ -497,3 +497,148 @@ def test_fused_mlp_raises_on_a_width_it_cannot_take():
                              b2[:62].contiguous())
     with pytest.raises(TypeError):
         fm.fused_mlp_forward(x.double(), w1, b1, w2, b2)
+
+
+# ---------------------------------------------------------------------------
+# attention-only kernels (-no_pallas_block): #6 (forward), #7 (forward with
+# attention dropout), #8 and #9 (their backwards) on q, k, v [B_, H, N, hd]
+# at the MOD head widths (16, 32, 64) and MOD_WIDE's (128, 256), window
+# batches that are not a multiple of the kernels' pairs per block or of nW.
+# #6, and #7 against the plain forward fed #7's mask, 1e-4 absolute; #8/#9
+# 1e-4 relative per gradient and the same bits on a second call.
+
+
+def _attn_args(rng, B, H, N, hd, nW, dev):
+    """q (pre-scaled by hd**-0.5), k, v, the output gradient g, rel_bias
+    and a shift-style mask of 0 / -100 (or None)."""
+    q, k, v, g = (rng.normal(size=(B, H, N, hd)).astype(np.float32) for _ in range(4))
+    q *= np.float32(hd**-0.5)
+    rel_bias = (0.02 * rng.normal(size=(H, N, N))).astype(np.float32)
+    mask = None
+    if nW:
+        mask = np.where(rng.random((nW, N, N)) < 0.3, -100.0, 0.0).astype(np.float32)
+    return [None if a is None else torch.from_numpy(a).to(dev) for a in (q, k, v, rel_bias, mask, g)]
+
+
+ATTN_GEOMETRIES = [(509, 4, 9, 16, 16), (512, 4, 9, 32, 64), (511, 4, 9, 64, 0),
+                   (130, 4, 9, 128, 4), (67, 4, 9, 256, 4), (37, 2, 4, 8, 3), (64, 4, 16, 256, 8),
+                   (33, 2, 9, 4, 0)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd,nW", ATTN_GEOMETRIES)
+def test_attention_forwards_match_plain(B, H, N, hd, nW):
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    q, k, v, rel_bias, mask, _ = _attn_args(np.random.default_rng(B + hd), B, H, N, hd, nW, dev)
+    before = [pk.fused_window_attention.launches, pk.fused_window_attention_dropout.launches]
+    y = pk.fused_window_attention(q, k, v, rel_bias, mask)
+    yd = pk.fused_window_attention_dropout(q, k, v, rel_bias, mask, 21, 0.2)
+    keep = pk.window_attention_keep_mask(21, B, H, N, 0.2, dev)
+    torch.cuda.synchronize()
+    assert [pk.fused_window_attention.launches,
+            pk.fused_window_attention_dropout.launches] == [before[0] + 1, before[1] + 1]
+    ref = pk.fused_window_attention_reference(q, k, v, rel_bias, mask)
+    assert y.shape == ref.shape and float((y - ref).abs().max()) <= 1e-4
+    ref_d = pk.fused_window_attention_dropout_reference(q, k, v, rel_bias, mask, keep, 0.2)
+    assert float((yd - ref_d).abs().max()) <= 1e-4
+    assert keep.dtype == torch.uint8 and keep.shape == (B, H, N, N) and int(keep.max()) <= 1
+    kept = float(keep.double().mean())
+    assert abs(kept - 0.8) <= 5 * (0.16 / keep.numel()) ** 0.5, kept
+    assert torch.equal(yd, pk.fused_window_attention_dropout(q, k, v, rel_bias, mask, 21, 0.2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd,nW", ATTN_GEOMETRIES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_backward_matches_autograd_of_plain_and_repeats(B, H, N, hd, nW, rate):
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    q, k, v, rel_bias, mask, g = _attn_args(np.random.default_rng(B + hd + 1), B, H, N, hd, nW, dev)
+    seed, keep = None, None
+    if rate:
+        seed, keep = 5, pk.window_attention_keep_mask(5, B, H, N, rate, dev)
+    kernel = pk.fused_window_attention_dropout_backward if rate else pk.fused_window_attention_backward
+    before = kernel.launches
+    got = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, g, seed, rate)
+    again = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, g, seed, rate)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))  # no atomics: the same bits
+    want = pk.fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g, keep, rate)
+    for name, a, w in zip(["dq", "dk", "dv", "drel_bias"], got, want):
+        assert a.shape == w.shape, name
+        assert _rel(a, w) <= 1e-4, (name, _rel(a, w))
+
+
+@pytest.mark.gpu
+def test_attention_mask_equals_the_whole_block_kernels_mask():
+    """#7 draws #2's mask: the same seed and geometry give the same bits."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    B, N, C, H, nW = 300, 9, 64, 4, 4
+    args = _args(np.random.default_rng(8), B, N, C, H, nW, dev)
+    _, keep2 = pk.fused_window_block_dropout(*args, seed=31, rate=0.2)
+    keep7 = pk.window_attention_keep_mask(31, B, H, N, 0.2, dev)
+    assert torch.equal(keep2, keep7)
+    assert not torch.equal(keep7, pk.window_attention_keep_mask(32, B, H, N, 0.2, dev))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_window_attention_function_on_qkv_views(rate):
+    """The autograd pair on strided views of one qkv tensor, as the Swin
+    block hands them over: #7 (or #6) forward, #9 (or #8) backward, its
+    gradients in qkv and rel_bias against autograd of the plain version
+    with the same mask."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    B, H, N, hd, nW = 130, 4, 9, 16, 4
+    rng = np.random.default_rng(13)
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3, H, hd)).astype(np.float32)).to(dev)
+    _, _, _, rel_bias, mask, g = _attn_args(rng, B, H, N, hd, nW, dev)
+    keep = pk.window_attention_keep_mask(17, B, H, N, rate, dev) if rate else None
+    kernels = ((pk.fused_window_attention_dropout, pk.fused_window_attention_dropout_backward)
+               if rate else (pk.fused_window_attention, pk.fused_window_attention_backward))
+    before = [f.launches for f in kernels]
+    runs = []
+    for kernel in (True, False):
+        leaves = [qkv.clone().requires_grad_(True), rel_bias.clone().requires_grad_(True)]
+        q, k, v = leaves[0].permute(2, 0, 3, 1, 4).unbind(0)
+        q = q * hd**-0.5
+        if kernel:
+            y = pk.window_attention(q, k, v, leaves[1], mask, seed=17, rate=rate)
+        else:
+            y = pk.fused_window_attention_reference(q, k, v, leaves[1], mask, keep, rate)
+        runs.append((y.detach(), torch.autograd.grad(y, leaves, g)))
+    torch.cuda.synchronize()
+    assert [f.launches for f in kernels] == [b + 1 for b in before]
+    (y, got), (ref, want) = runs
+    assert float((y - ref).abs().max()) <= 1e-4
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_attention_wrappers_raise_on_what_the_kernels_cannot_take():
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    q, k, v, rel_bias, mask, g = _attn_args(np.random.default_rng(4), 8, 4, 9, 16, 4, dev)
+    with pytest.raises(TypeError):
+        pk.fused_window_attention(q.double(), k, v, rel_bias, mask)
+    with pytest.raises(ValueError, match="geometry"):  # N above the register tile
+        pk.fused_window_attention(*_attn_args(np.random.default_rng(5), 2, 4, 17, 16, 0, dev)[:5])
+    with pytest.raises(ValueError, match="geometry"):  # hd not a multiple of 4
+        pk.fused_window_attention(*_attn_args(np.random.default_rng(6), 2, 4, 9, 18, 0, dev)[:5])
+    with pytest.raises(ValueError, match="geometry"):  # hd above 256
+        pk.fused_window_attention(*_attn_args(np.random.default_rng(7), 2, 1, 9, 260, 0, dev)[:5])
+    wide = torch.zeros((8, 4, 9, 17), device=dev)[..., :16]  # rows of 17 floats: not aligned
+    with pytest.raises(ValueError, match="rows"):
+        pk.fused_window_attention(wide, k, v, rel_bias, mask)
+    with pytest.raises(ValueError, match="mask"):
+        pk.fused_window_attention(q, k, v, rel_bias, mask[:, :8])

@@ -119,9 +119,11 @@ def test_resume_continues_as_a_straight_run(straight, tmp_path):
 
 def test_unported_stages_and_flags_raise(tmp_path):
     """The three stages dispatch (finetune without a pretrained run finds
-    no folder); the flags of what is not ported raise naming ROADMAP."""
+    no folder); the flags of what is not ported raise naming ROADMAP;
+    -no_pallas_block, ported, parses."""
     sup = parse_train_params(["-learn_framework", "no", "-pallas_mlp", "-label_ratio", "0.5"])
     assert sup.train_mode == "supervised" and sup.pallas_mlp and sup.batch_size == 256
+    assert parse_train_params(["-no_pallas_block"]).no_pallas_block
     assert parse_train_params(["-stage", "finetune"]).batch_size == 128
     with pytest.raises(FileNotFoundError, match="contrastive_FOCAL"):
         train_cli.main(["-stage", "finetune", "-dataset", "MOD_TINY", "-synthetic", "-device",
@@ -129,8 +131,7 @@ def test_unported_stages_and_flags_raise(tmp_path):
     for flags, item in ((["-grad_accum", "2"], "A7"), (["-model_parallel", "2"], "A7"),
                         (["-data_parallel", "4"], "A7"), (["-ragged_tail"], "A8"),
                         (["-py_aug_draws"], "A8"), (["-data_layout", "sharded"], "A7"),
-                        (["-init_weight", "w.pt"], "A8"), (["-ref_lr_timing"], "A8"),
-                        (["-no_pallas_block"], "B \\(#6-#9\\)")):
+                        (["-init_weight", "w.pt"], "A8"), (["-ref_lr_timing"], "A8")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             parse_train_params(flags)
 

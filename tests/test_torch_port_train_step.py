@@ -6,7 +6,10 @@ MOD_TINY SW_Transformer, batch 8 (two subsequences of 4), every drop rate
 deterministic), starting from the JAX initial parameters carried into the
 port by ``params_from_flax``. The JAX step runs with ``args.force_pallas``,
 so its whole-block kernels (#1 forward, #3 backward) run in interpret mode;
-the port's run their plain versions.
+the port's run their plain versions. The port's step under
+``-no_pallas_block`` (the attention-only route: qkv and proj Linears around
+#6/#8's plain versions) is held to the same JAX step, whose function it
+computes.
 
 Tolerances (both f32; summation order only):
   * loss and each part: 1e-5 relative;
@@ -102,10 +105,12 @@ def jax_step(tmp_path_factory):
     }
 
 
-def _port_step(cfg, init, fused_views=True):
-    args = parse_train_params(["-dataset", "MOD_TINY", "-batch_size", str(BATCH)])
+def _port_step(cfg, init, fused_views=True, pallas_block=True):
+    args = parse_train_params(["-dataset", "MOD_TINY", "-batch_size", str(BATCH)]
+                              + ([] if pallas_block else ["-no_pallas_block"]))
     args.dataset_config = _deterministic(args.dataset_config)
-    model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework)
+    model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
+                           pallas_block=not args.no_pallas_block)
     model.load_state_dict(params_from_flax(init, {}, args.dataset_config), strict=True)
     state = create_train_state(args, model, steps_per_epoch=STEPS_PER_EPOCH)
     data = to_device(synthetic_arrays(args.dataset_config, args.task, 2 * BATCH, seed=0)[0], "cpu")
@@ -124,6 +129,19 @@ def test_loss_and_parts_match_jax(jax_step):
 
 def test_gradients_and_update_match_jax(jax_step):
     state, _, grads = _port_step(jax_step["cfg"], jax_step["init"])
+    _check_gradients_and_update(jax_step, state, grads)
+
+
+def test_attention_only_route_takes_the_jax_step(jax_step):
+    """-no_pallas_block: the same loss and parts (1e-5), gradients (1e-4)
+    and update as the JAX step."""
+    state, metrics, grads = _port_step(jax_step["cfg"], jax_step["init"], pallas_block=False)
+    for k, v in metrics.items():
+        np.testing.assert_allclose(v, jax_step["metrics"][k], rtol=1e-5, err_msg=k)
+    _check_gradients_and_update(jax_step, state, grads)
+
+
+def _check_gradients_and_update(jax_step, state, grads):
     cfg = jax_step["cfg"]
     g_ref = params_from_flax(jax_step["grads"], {}, cfg)
     p0 = params_from_flax(jax_step["init"], {}, cfg)
