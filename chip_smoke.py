@@ -48,8 +48,9 @@ result line if any fails):
      samples, views fused to 128): #4 at rate 0 (1e-4 absolute), #4 with
      dropout against the plain forward fed its own mask (1e-4 absolute,
      keep rate within 5 sigma), #4's mask equal to #2's bit for bit at
-     C = 512, #5's six gradients with #4's mask and without (1e-4
-     relative) and the same bits on a second call;
+     every per-head geometry (#2 launches at C = 1024 too), #5's six
+     gradients with #4's mask and without (1e-4 relative) and the same bits
+     on a second call;
  11. the training entry point: python -m focal_tpu_torch.train at MOD_WIDE
      (512 synthetic samples, batch 64, 2 epochs, validation every epoch)
      run in-process, then -resume to epoch 3: finite losses, two validation
@@ -62,10 +63,17 @@ result line if any fails):
      state (and from the trained state beside the plain step on the CPU,
      reported but not held: AdamW at lr 1e-3 grows the 184M-parameter
      model's attention logits, so any f32 summation order moves its loss),
-     and a torch.profiler trace of one step;
+     and a torch.profiler trace of one step (#4's and #5's device time in
+     it by phase); p50, samples/s, idle share and peak memory printed beside
+     PR 3's (the per-window #4/#5);
  13. timing of #4 and #5 at each per-head geometry (kernel, plain, library,
-     bound), and beside them #1 and #3 at the C = 512 geometries, where
-     they launch too;
+     bound on the f32 CUDA cores and on the TF32 tensor cores, TFLOP/s),
+     and beside them #1 and #3 at the C = 512 geometries, where they launch
+     too; then one profiled call of each of #4 and #5 at every per-head
+     geometry (audio stage 1 among them), which fails the run if any device
+     kernel it launches is not one of csrc/window_block.cu's, and their
+     time split by kernel name into GEMM, attention, weight gradient and
+     reduction;
  14. kernels #13 (fused_conv_tower) and #14 (fused_conv_tower_backward) vs
      plain at every conv-tower geometry of the DeepSense pretrain step: MOD
      (batch 256, views fused to 512: R 5,120 rows of S 20, C 64) and
@@ -154,6 +162,7 @@ import copy
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -161,8 +170,10 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3
+# H100 SXM peaks (NVIDIA data sheet): f32 outside the tensor cores, HBM3;
+# TF32 on the tensor cores (#4 and #5 run 3 TF32 products per f32 one)
 F32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_PER_S = 3.35e12
 SERVE_BATCH = 128
 SERVE_SAMPLES = 1000
@@ -177,10 +188,28 @@ GRAD_TOL = 1e-4           # relative: max|kernel - plain| / max|plain|
 SLICE_TOL = 1e-5
 LOSS_TOL = 1e-5           # relative
 PK = "focal_tpu/ops/pallas_kernels.py"
+# the MOD_WIDE pretrain step with PR 3's per-window #4/#5 (PERF.md, PR 3:
+# p50, samples/s and idle share from call 5, peak memory from call 2; NVIDIA
+# H100 80GB HBM3, 700.00 W)
+PR3_WIDE_STEP = {"p50_ms": 490.762, "samples_per_s": 130.4, "idle_share": 0.004,
+                 "peak_mb": 9720.5}
 
 
 def log(msg):
     print(msg, flush=True)
+
+
+def kernel_of(ptxas_line):
+    """The kernel a ptxas "Compiling entry function" line names, read from
+    its mangled name (a length-prefixed identifier ending in _kernel, with
+    <true> or <false> for a bool template argument)."""
+    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", ptxas_line):
+        n, ident = int(m.group(1)), m.group(2)
+        if len(ident) >= n and ident[:n].endswith("_kernel"):
+            rest = ident[n:]
+            return ident[:n] + ("<true>" if rest.startswith("ILb1E") else
+                                "<false>" if rest.startswith("ILb0E") else "")
+    return ptxas_line.strip()
 
 
 def card_line():
@@ -224,6 +253,12 @@ def block_geometries(cfg, batch):
 def bound(flops, nbytes):
     t_ops, t_bytes = flops / F32_FLOPS, nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def tc_bound(flops, nbytes):
+    """The bound of #4 / #5 on the units they run on: 3 TF32 products an f32
+    one (3xTF32) at the tensor cores' TF32 peak, or the bytes."""
+    return 1e3 * max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S)
 
 
 def work(g):
@@ -357,6 +392,88 @@ def log_profile(tag, what, breakdown, top=12):
         f"idle share {1 - b['device_busy_ms'] / b['wall_ms']:.3f}, {b['device_ops']} device operations")
     for r in b["rows"][:top]:
         log(f"[{tag}] {r['device_ms']:.4f} ms x{r['count']}: {r['name'][:90]}")
+
+
+def window_block_kernels():
+    """The names of the __global__ kernels of csrc/window_block.cu, read
+    from the source."""
+    with open(os.path.join(HERE, "focal_tpu_torch", "csrc", "window_block.cu")) as f:
+        return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+                              f.read()))
+
+
+# the phase of #4 and #5 each of their window_block.cu kernels serves, and
+# how many times one call of #4 (fwd) or #5 (bwd) launches it
+WB_PHASES = {"proj_gemm_kernel": "GEMM", "attn_fwd_kernel": "attention",
+             "attn_bwd_kernel": "attention", "wgrad_gemm_kernel": "weight gradient",
+             "reduce_partials_kernel": "reduction"}
+PH_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
+               "bwd": {"proj_gemm_kernel": 2, "attn_bwd_kernel": 1, "wgrad_gemm_kernel": 1,
+                       "reduce_partials_kernel": 2}}
+PROFILE_REPS = 5
+
+
+def kernel_phase_split(torch, fn, launches):
+    """PROFILE_REPS calls of fn under torch.profiler; each kernel's device
+    time per call (its mean per launch times ``launches[name]``: a short
+    trace may lose a few records) and those times by WB_PHASES. Raises if a
+    device kernel (or copy) ran that is not one of window_block.cu's (no
+    cuBLAS or library kernel may run under the per-head wrappers), or not
+    one of ``launches``, or if one of ``launches`` left no record."""
+    def calls():
+        # pauses around the calls: in a process that had traced before, a
+        # trace of one call (a few milliseconds) lost some or all records
+        time.sleep(0.05)
+        for _ in range(PROFILE_REPS):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    prof = profile_device(torch, calls)
+    ours = window_block_kernels()
+    kernels = {}
+    for r in prof["rows"]:
+        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", r["name"])
+        name = m.group(1) if m else None
+        if name not in ours:
+            raise AssertionError(f"a device kernel outside csrc/window_block.cu ran: {r['name']}")
+        if name not in launches:
+            raise AssertionError(f"{name} ran; expected only {sorted(launches)}")
+        k = kernels.setdefault(name, {"device_ms": 0.0, "count": 0})
+        k["device_ms"] += r["device_ms"]
+        k["count"] += r["count"]
+    missing = set(launches) - set(kernels)
+    if missing:
+        raise AssertionError(f"the profile holds no record of {sorted(missing)}")
+    phases = {}
+    for name, k in kernels.items():
+        k["ms_per_call"] = k["device_ms"] / k["count"] * launches[name]
+        phases[WB_PHASES[name]] = phases.get(WB_PHASES[name], 0.0) + k["ms_per_call"]
+    return {"device_ms": sum(phases.values()), "phases": phases, "kernels": kernels,
+            "complete": all(k["count"] == PROFILE_REPS * launches[n] for n, k in kernels.items())}
+
+
+def perhead_profiles(torch, pk, g, gen, dev, rate):
+    """#4 (with dropout) and #5 at geometry g profiled after a warm-up
+    call, split by kernel name (kernel_phase_split)."""
+    args = make_inputs(torch, g, gen, dev)
+    tr = transposed(args)
+    dy = torch.randn(args[0].shape, generator=gen).to(dev)
+    _, keep = pk.fused_window_block_perhead(*args, 7, rate)
+    pk.fused_window_block_perhead_backward(*args, dy, keep, rate, *tr)
+    torch.cuda.synchronize()
+    out = {"fwd": kernel_phase_split(torch, lambda: pk.fused_window_block_perhead(*args, 7, rate),
+                                     PH_LAUNCHES["fwd"]),
+           "bwd": kernel_phase_split(torch, lambda: pk.fused_window_block_perhead_backward(
+               *args, dy, keep, rate, *tr), PH_LAUNCHES["bwd"])}
+    for d, name in (("fwd", "#4"), ("bwd", "#5")):
+        s = out[d]
+        log(f"[profile-perhead] {g['name']} (windows {g['windows']}, C {g['C']}) {name}: device "
+            f"{s['device_ms']:.4f} ms a call; " + ", ".join(
+                f"{p} {ms:.4f}" for p, ms in sorted(s["phases"].items(), key=lambda kv: -kv[1]))
+            + "; records " + ", ".join(f"{k} x{v['count']}" for k, v in s["kernels"].items())
+            + f" of {PROFILE_REPS} calls")
+    return out
 
 
 def zero_counts(kernels):
@@ -1093,7 +1210,9 @@ def main():
     for src in _build.SOURCES:
         with open(_build.log_path(src)) as f:
             for line in f.read().splitlines():
-                if "registers" in line or "smem" in line or "spill" in line:
+                if "Compiling entry function" in line:
+                    log(f"[build] {src}: {kernel_of(line)}")
+                elif "registers" in line or "smem" in line or "spill" in line:
                     log(f"[build] {src}: {line.strip()}")
 
     # ---- 2. #1 vs plain at every block geometry of the MOD forward
@@ -1299,9 +1418,7 @@ def main():
         err = float((y - pk.fused_window_block_reference(*args, keep, wrate)).abs().max())
         kept = float(keep.double().mean())
         sigma = math.sqrt(wrate * (1 - wrate) / keep.numel())
-        same_mask = None
-        if g["C"] == 512:
-            same_mask = bool(torch.equal(fwd_drop(*args, 2000 + gi, wrate)[1], keep))
+        same_mask = bool(torch.equal(fwd_drop(*args, 2000 + gi, wrate)[1], keep))
         dy = torch.randn(y.shape, generator=gen).to(dev)
         tr = transposed(args)
         errs = {}
@@ -1327,7 +1444,7 @@ def main():
             raise AssertionError(f"{g['name']}: #4 differs from plain by {err0}, {err}")
         if not abs(kept - (1 - wrate)) <= 5 * sigma:
             raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {wrate} within 5 sigma")
-        if same_mask is False:
+        if not same_mask:
             raise AssertionError(f"{g['name']}: #4's keep mask differs from #2's")
         if not max(errs.values()) <= GRAD_TOL:
             raise AssertionError(f"{g['name']}: #5 gradients differ from plain by {errs}")
@@ -1392,13 +1509,24 @@ def main():
     wide_profile = profile_device(torch, lambda: step(state, tdata, idx))
     log_profile("profile-wide", "one MOD_WIDE training step", wide_profile, top=15)
     wide["idle_share"] = 1 - wide_profile["device_busy_ms"] / wide_profile["wall_ms"]
+    wide["perhead_device_ms"] = {}  # reduce_partials_kernel is #3's too
+    for r in wide_profile["rows"]:
+        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", r["name"])
+        if m and m.group(1) in WB_PHASES and m.group(1) != "reduce_partials_kernel":
+            phase = WB_PHASES[m.group(1)]
+            wide["perhead_device_ms"][phase] = wide["perhead_device_ms"].get(phase, 0.0) + r["device_ms"]
+    log(f"[train-wide] beside PR 3 (per-window #4/#5, {PR3_WIDE_STEP}): p50 {wide['p50_ms']:.3f} ms "
+        f"({wide['p50_ms'] / PR3_WIDE_STEP['p50_ms']:.3f}x), {wide['samples_per_s']:.1f} samples/s, "
+        f"idle share {wide['idle_share']:.3f}, peak memory {wide['peak_mb']:.1f} MiB; #4/#5 device "
+        f"time in the profiled step by phase (ms): {wide['perhead_device_ms']}")
     del state, step, tdata, idx
     torch.cuda.empty_cache()
 
     # ---- 13. #4 and #5 timing per geometry; #1 and #3 beside them at C = 512
     wtot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
                              "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms",
-                             "eval_ms", "eval_plain_ms", "eval_library_ms", "eval_bound_ms")}
+                             "eval_ms", "eval_plain_ms", "eval_library_ms", "eval_bound_ms",
+                             "fwd_bound_tc_ms", "bwd_bound_tc_ms", "eval_bound_tc_ms")}
     wflops = {"fwd": [0, 0], "bwd": [0, 0]}
     for g in pgeos:
         args = make_inputs(torch, g, gen, dev)
@@ -1420,9 +1548,13 @@ def main():
         g["bwd_plain_ms"] = time_ms(
             torch, lambda: pk.fused_window_block_backward_reference(*args, dy, keep, wrate))
         g["bwd_library_ms"] = library_backward_ms(torch, g, args, dy, wrate)
-        _, _, g["eval_bound_ms"], _ = work(g)
+        f0, _, g["eval_bound_ms"], _ = work(g)
         f, b, g["fwd_bound_ms"], g["fwd_bound_by"] = work_dropout(g)
         f2, b2, g["bwd_bound_ms"], g["bwd_bound_by"] = work_backward(g, True)
+        g["fwd_bound_tc_ms"], g["bwd_bound_tc_ms"] = tc_bound(f, b), tc_bound(f2, b2)
+        g["eval_bound_tc_ms"] = tc_bound(f0, work(g)[1])
+        g["eval_tflops"], g["fwd_tflops"], g["bwd_tflops"] = (
+            f0 / g["eval_ms"] / 1e9, f / g["fwd_ms"] / 1e9, f2 / g["bwd_ms"] / 1e9)
         wflops["fwd"] = [wflops["fwd"][0] + f * g["per_forward"], wflops["fwd"][1] + b * g["per_forward"]]
         wflops["bwd"] = [wflops["bwd"][0] + f2 * g["per_forward"], wflops["bwd"][1] + b2 * g["per_forward"]]
         mono_note = ""
@@ -1433,11 +1565,14 @@ def main():
                          f"#3 {g['mono_bwd_ms']:.4f} ms")
         log(f"[time-wide] {g['name']}: #4 {g['eval_ms']:.4f} ms at rate 0 (plain "
             f"{g['eval_plain_ms']:.4f}, library {g['eval_library_ms']:.4f}, bound "
-            f"{g['eval_bound_ms']:.4f}), {g['fwd_ms']:.4f} ms with dropout (plain "
+            f"{g['eval_bound_ms']:.4f}, tensor cores {g['eval_bound_tc_ms']:.4f}, "
+            f"{g['eval_tflops']:.2f} TFLOP/s), {g['fwd_ms']:.4f} ms with dropout (plain "
             f"{g['fwd_plain_ms']:.4f}, library {g['fwd_library_ms']:.4f}, bound "
-            f"{g['fwd_bound_ms']:.4f}, {f / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #5 {g['bwd_ms']:.4f} ms "
-            f"(plain {g['bwd_plain_ms']:.4f}, library {g['bwd_library_ms']:.4f}, bound "
-            f"{g['bwd_bound_ms']:.4f}, {f2 / g['bwd_ms'] / 1e9:.2f} TFLOP/s){mono_note}")
+            f"{g['fwd_bound_ms']:.4f}, tensor cores {g['fwd_bound_tc_ms']:.4f}, "
+            f"{g['fwd_tflops']:.2f} TFLOP/s); #5 {g['bwd_ms']:.4f} ms (plain "
+            f"{g['bwd_plain_ms']:.4f}, library {g['bwd_library_ms']:.4f}, bound "
+            f"{g['bwd_bound_ms']:.4f}, tensor cores {g['bwd_bound_tc_ms']:.4f}, "
+            f"{g['bwd_tflops']:.2f} TFLOP/s){mono_note}")
         for k in wtot:
             wtot[k] += g["per_forward"] * g[k]
         del args, x, wqkv, keep, dy, tr, attn_mask
@@ -1447,7 +1582,21 @@ def main():
         f"{wtot['fwd_bound_ms']:.3f}); #5 {wtot['bwd_ms']:.3f} ms (plain {wtot['bwd_plain_ms']:.3f}, "
         f"library {wtot['bwd_library_ms']:.3f}, bound {wtot['bwd_bound_ms']:.3f}); share of the "
         f"p50 step {(wtot['fwd_ms'] + wtot['bwd_ms']) / wide['p50_ms']:.3f}; one eval forward's "
-        f"#4 {wtot['eval_ms']:.3f} ms")
+        f"#4 {wtot['eval_ms']:.3f} ms; bounds on the TF32 tensor cores (3 passes): #4 "
+        f"{wtot['fwd_bound_tc_ms']:.3f}, #5 {wtot['bwd_bound_tc_ms']:.3f} ms; "
+        f"{wflops['fwd'][0] / wtot['fwd_ms'] / 1e9:.2f} and "
+        f"{wflops['bwd'][0] / wtot['bwd_ms'] / 1e9:.2f} TFLOP/s")
+    # #4 and #5 profiled at each per-head geometry (kernel_phase_split): only
+    # window_block.cu's kernels may run; their time by phase, summed per step
+    ph_split = {"fwd": {}, "bwd": {}}
+    for g in pgeos:
+        g["profile"] = perhead_profiles(torch, pk, g, gen, dev, wrate)
+        for d in ("fwd", "bwd"):
+            for phase, ms in g["profile"][d]["phases"].items():
+                ph_split[d][phase] = ph_split[d].get(phase, 0.0) + g["per_forward"] * ms
+    log(f"[profile-perhead] one MOD_WIDE step, device ms by phase: #4 {ph_split['fwd']}; "
+        f"#5 {ph_split['bwd']}")
+    torch.cuda.empty_cache()
 
     # ---- 14. #13 and #14 vs plain at every tower geometry of the DeepSense
     # pretrain step: MOD (batch 256, views fused to 512, C 64) and MOD_WIDE
@@ -2171,7 +2320,8 @@ def main():
                 "geometries": [{k: v for k, v in g.items() if k != "mask"} for g in geos],
                 "train_geometries": [{k: v for k, v in g.items() if k != "mask"} for g in tgeos],
                 "wide_geometries": [{k: v for k, v in g.items() if k != "mask"} for g in pgeos],
-                "per_forward": tot, "per_step": ttot, "wide_per_step": wtot, "latency": lat,
+                "per_forward": tot, "per_step": ttot, "wide_per_step": wtot,
+                "wide_perhead_device_ms_by_phase": ph_split, "latency": lat,
                 "launches": launches, "slice_err": slice_err, "profile": serve_profile,
                 "train": train, "train_profile": train_profile, "wide": wide,
                 "wide_profile": wide_profile, "train_cli": cli_runs,
@@ -2277,11 +2427,13 @@ def main():
               max(ph_err, ph_drop_err), wtot["fwd_ms"], wtot["fwd_plain_ms"], wtot["fwd_bound_ms"],
               wflops["fwd"], wtot["fwd_library_ms"], wide_per, launches_per_step=n_ph,
               launches_per_eval_forward=wide_per_eval[ph_fwd.__name__],
-              eval_forward_ms=wtot["eval_ms"], launches_by_path=by_path[ph_fwd.__name__]),
+              eval_forward_ms=wtot["eval_ms"], bound_ms_tensor_cores=wtot["fwd_bound_tc_ms"],
+              device_ms_by_phase=ph_split["fwd"], launches_by_path=by_path[ph_fwd.__name__]),
         entry("fused_window_block_perhead_backward", f"{PK}:1166",
               by_path[ph_bwd.__name__]["train_cli_MOD_WIDE"], ph_grad_abs, wtot["bwd_ms"],
               wtot["bwd_plain_ms"], wtot["bwd_bound_ms"], wflops["bwd"], wtot["bwd_library_ms"],
               wide_per, launches_per_step=n_ph, max_rel_err=ph_grad_err,
+              bound_ms_tensor_cores=wtot["bwd_bound_tc_ms"], device_ms_by_phase=ph_split["bwd"],
               launches_by_path=by_path[ph_bwd.__name__]),
         entry("fused_conv_tower", f"{CT}:174", by_path[ct_fwd.__name__][
                   "pretrain_steps_MOD_DeepSense_pallas_conv"], ct_fwd_err, mod_tot["fwd_ms"],

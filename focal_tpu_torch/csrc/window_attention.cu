@@ -50,40 +50,21 @@
 #include <algorithm>
 
 #include "philox.cuh"
+#include "window_rows.cuh"
 
 namespace {
 
-constexpr int kMaxN = 16;      // window tokens a thread keeps in registers
-constexpr int kMaxHd = 256;    // widest head
-constexpr int kMaxLanes = 8;   // lanes a query row may take
-constexpr int kThreads = 256;  // threads of every block launched here
-constexpr unsigned kFull = 0xffffffffu;
-
-// Element strides of a [B, H, N, hd] operand whose hd axis is contiguous.
-struct Strides {
-  long long b, h, n;
-};
-
-// Launch geometry of a (B, H, N, hd) call.
-struct Geo {
-  int B, H, N, hd, c4;  // c4 = hd / 4 float4 columns
-  int lanes;            // G: lanes a query row takes
-  int pairs;            // P: (window, head) pairs a block stages at once
-  int stride;           // shared-memory row stride in floats, hd + 4
-  long long total;      // B * H pairs
-};
-
-Geo make_geo(int B, int H, int N, int hd) {
-  Geo g;
-  g.B = B, g.H = H, g.N = N, g.hd = hd, g.c4 = hd / 4;
-  int lanes = 1;  // a power of two dividing c4, at least two columns a lane
-  while (2 * lanes <= kMaxLanes && g.c4 % (2 * lanes) == 0 && 4 * lanes <= g.c4) lanes *= 2;
-  g.lanes = lanes;
-  g.pairs = std::max(1, kThreads / (N * lanes));
-  g.stride = hd + 4;
-  g.total = (long long)B * H;
-  return g;
-}
+using focal::Geo;
+using focal::make_geo;
+using focal::Row;
+using focal::row_dots;
+using focal::softmax_row;
+using focal::Strides;
+using focal::stage_rows;
+using focal::thread_row;
+constexpr int kMaxN = focal::kAttnMaxN;
+constexpr int kMaxHd = focal::kAttnMaxHd;
+constexpr int kThreads = focal::kAttnThreads;
 
 size_t fwd_smem_floats(const Geo& g) { return (size_t)3 * g.pairs * g.N * g.stride; }
 
@@ -97,102 +78,6 @@ int check_geometry(int B, int H, int N, int hd, const void* mask, int nW) {
       (long long)B * H * N > 0x7fffffffLL || (mask != nullptr && nW < 1))
     return (int)cudaErrorInvalidValue;
   return 0;
-}
-
-// ---------------------------------------------------------------------------
-// device helpers
-
-// Stage the rows of pairs p0 .. p0 + np - 1 of `src` into shared memory, row
-// r = (pair - p0) * N + i at dst + r * S, float4 at a time.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ src, Strides st, int p0,
-                                           int np, const Geo& g, float* dst) {
-  const int c4 = g.c4;
-  for (int e = threadIdx.x; e < np * g.N * c4; e += kThreads) {
-    const int r = e / c4, c = e - r * c4;
-    const int pl = r / g.N, i = r - pl * g.N;
-    const int pair = p0 + pl;
-    const int b = pair / g.H, h = pair - b * g.H;
-    const float4* row =
-        reinterpret_cast<const float4*>(src + b * st.b + h * st.h + i * st.n);
-    *reinterpret_cast<float4*>(dst + r * g.stride + 4 * c) = __ldg(row + c);
-  }
-}
-
-// d[j] = a . b_j for j < N over hd floats, where a is one shared row and b_j
-// the rows b0 + j * S: each of the G lanes sums its float4 columns, then a
-// butterfly of shuffles adds the lanes (every lane ends with the same bits:
-// each step adds the same two numbers, in either order). Every lane of the
-// warp must call it.
-__device__ __forceinline__ void row_dots(const float* a, const float* b0, const Geo& g, int lane,
-                                         float (&d)[kMaxN]) {
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) d[j] = 0.f;
-  for (int c = lane; c < g.c4; c += g.lanes) {
-    const float4 x = *reinterpret_cast<const float4*>(a + 4 * c);
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < g.N) {
-        const float4 y = *reinterpret_cast<const float4*>(b0 + j * g.stride + 4 * c);
-        d[j] = fmaf(x.x, y.x, d[j]);
-        d[j] = fmaf(x.y, y.y, d[j]);
-        d[j] = fmaf(x.z, y.z, d[j]);
-        d[j] = fmaf(x.w, y.w, d[j]);
-      }
-    }
-  }
-  for (int off = g.lanes / 2; off > 0; off >>= 1) {
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j)
-      if (j < g.N) d[j] += __shfl_xor_sync(kFull, d[j], off);
-  }
-}
-
-// p = softmax(s + rel_bias row + mask row) over the first N entries.
-__device__ __forceinline__ void softmax_row(float (&p)[kMaxN], const float* __restrict__ bias,
-                                            const float* __restrict__ m, int N) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      p[j] += __ldg(bias + j);
-      if (m) p[j] += __ldg(m + j);
-      mx = fmaxf(mx, p[j]);
-    }
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      p[j] = expf(p[j] - mx);
-      sum += p[j];
-    }
-  }
-  const float inv = 1.f / sum;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j)
-    if (j < N) p[j] *= inv;
-}
-
-// The thread's query row: threads tid = r * G + lane serve row r of the
-// block's chunk; rows past the chunk (its last pairs, or threads past P N G)
-// work on row 0 and write nothing, so every lane reaches the shuffles.
-struct Row {
-  bool active;
-  int lane, r, pl, i, pair, w, h;
-};
-
-__device__ __forceinline__ Row thread_row(const Geo& g, int p0, int np) {
-  Row t;
-  const int r = threadIdx.x / g.lanes;
-  t.lane = threadIdx.x - r * g.lanes;
-  t.active = r < np * g.N;
-  t.r = t.active ? r : 0;
-  t.pl = t.r / g.N;
-  t.i = t.r - t.pl * g.N;
-  t.pair = p0 + t.pl;
-  t.w = t.pair / g.H;
-  t.h = t.pair - t.w * g.H;
-  return t;
 }
 
 // ---------------------------------------------------------------------------

@@ -1,7 +1,6 @@
 // Whole-block Swin window attention for Hopper (sm_90a): forward (#1),
 // forward with attention dropout (#2) and backward (#3), and the same
-// function walked one head at a time for wide blocks: forward (#4) and
-// backward (#5).
+// function for blocks too wide for them: forward (#4) and backward (#5).
 //
 // Replaces the TPU kernels of focal_tpu/ops/pallas_kernels.py:
 //   #1 _wblock_fwd_kernel (fused_window_block -> _wblock_fwd_impl -> pl.pallas_call)
@@ -14,18 +13,17 @@
 // Per window w of x [B, N, C] (f32, row-major):
 //   qkv = x Wqkv + bqkv                      (q columns pre-scaled by the caller)
 //   a_h = softmax(q_h k_h^T + rel_bias[h] + mask[w % nW])   for each head h
-//   a_h = keep ? a_h / (1 - rate) : 0        (#2 only)
+//   a_h = keep ? a_h / (1 - rate) : 0        (#2, #4 with dropout)
 //   y   = concat_h(a_h v_h) Wproj + bproj
-// All products run in these kernels' bodies; qkv and the attention output
-// never leave shared memory in the forward.
 //
-// What bounds them on this card: operations. At the MOD geometries (N = 9,
-// C = 64..256) a window does 2*9*C*4C multiply-adds of projection in the
-// forward (2*9*C*11C in the backward) for 9*C*2 floats of activations in and
-// out: 69-234 FLOP per byte, above the f32 CUDA-core ridge (67 TFLOP/s over
-// 3.35 TB/s = 20 FLOP/byte), so f32 FMA throughput is the limit, not HBM.
+// What bounds them on this card: operations. A window does 2*9*C*4C
+// multiply-adds of projection in the forward (2*9*C*11C in the backward) for
+// 9*C*2 floats of activations in and out: at C = 64..1024 that is 69-900
+// FLOP per byte, above the f32 CUDA-core ridge (67 TFLOP/s over 3.35 TB/s =
+// 20 FLOP/byte) and the TF32 tensor-core ridge (495 TFLOP/s, 148 FLOP/byte)
+// at C >= 256. About 99 % of the FLOPs are the projections.
 //
-// What the design does about it:
+// #1-#3 (C <= 256, MOD and MOD_WIDE stage 0), f32 on the CUDA cores:
 //   * A block owns a few windows whose activations sit in dynamic shared
 //     memory (forward: x and qkv, ~74 KB; backward: x, dy, qkv, d(attn out)
 //     and dqkv, ~110 KB), so two blocks fit one SM. Each projection thread
@@ -47,26 +45,45 @@
 //     order. No atomics, so two runs give the same bits.
 //   * f32 throughout with fmaf and expf: no TF32, no bf16 (the TPU kernel's
 //     bf16 downcast at C >= 128 was a VMEM workaround that does not apply).
-//   * Wide blocks (#4, #5): #3 keeps qkv, dqkv and d(attention output) of
-//     all heads per window, N (8C + 10) floats, which passes the 227 KB a
-//     block may hold at C = 1024. #4 and #5 keep the whole-row tensors (x,
-//     y; x, dy, dx) per window and only ONE head's q|k|v (and dq|dk|dv, g =
-//     dy Wproj_h^T, its attention output) at a time, N (2C + 4hd) floats
-//     forward and N (3C + 8hd) backward: y and dx sum the heads in head
-//     order in shared memory, no atomics. The head's attention is spread
-//     over (window, query, key) and (window, row, dim) items instead of one
-//     thread per row, so hd = 256 does not serialise it. #5 writes dq|dk|dv
-//     and the attention output into the same workspace layout as #3, and
-//     the weight gradients come from the same split-K kernel. #4 draws its
-//     mask with #2's Philox counters, so #2 and #4 agree bit for bit.
-//   * Not yet: wgmma / tensor cores, TMA. Those are the later performance work.
+//
+// #4 and #5 (C = 512, 1024: MOD_WIDE stages 1-2). The TPU kernels walk the
+// heads of a lane-tile of 128 windows in VMEM, so each weight they load
+// feeds a thousand rows. Kept per window, as the first port did, a block
+// held one or two windows (x, dy, dx rows are ~186 KB a window at C = 1024)
+// and each weight fed 9 or 18 FMAs from L2: 4-6 TFLOP/s. Here the fused
+// per-window structure is dropped for the card's:
+//   * The projections are matrix products over all R = B N rows of the
+//     launch, 128 x 128 output tiles a block, staged by a 3-deep cp.async
+//     ring and run on the tensor cores with mma.sync (gemm_3xtf32.cuh). Each
+//     staged weight feeds 128 rows. 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi
+//     b_hi) keeps f32 accuracy: the ~1e-4 gates of the f32 kernels hold; one
+//     TF32 product would not. Bound on these units: 3x the FLOPs at 495
+//     TFLOP/s.
+//       #4: qkv = x Wqkv + bqkv into a workspace [R, 3C]; the attention;
+//           y = ao Wproj + bproj.
+//       #5: qkv and g = dy Wproj^T (one launch); the attention backward
+//           (dq | dk | dv into [R, 3C], the attention output into [R, C]);
+//           dx = dqkv Wqkv^T; the weight gradients x^T dqkv and ao^T dy with
+//           their column sums as fixed split-K partials (A read transposed
+//           in the tile loads: no copies); the ordered reductions.
+//   * The attention (<1 % of the FLOPs, bound by bytes) is the row-parallel
+//     design of the attention-only kernels #6-#9 (window_rows.cuh): a block
+//     stages a few (window, head) pairs' rows, G lanes a query row, scores
+//     and softmax in registers. #4 draws its mask with #2's Philox counters
+//     (#2 and #4 agree bit for bit) and writes it; #5 reads it back.
+//   * No float atomics anywhere: the same bits on every call.
+//   * Not yet: wgmma and TMA (the tf32 wgmma takes K-major operands only;
+//     wqkv_t and wproj_t are that layout already), and fusing the attention
+//     into the projections' epilogues.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "gemm_3xtf32.cuh"
 #include "philox.cuh"
+#include "window_rows.cuh"
 
 namespace {
 
@@ -78,6 +95,9 @@ constexpr int kActBudget = 73728;    // forward: bytes of x + qkv per block (two
 constexpr int kBwdBudget = 112640;   // backward: bytes of activations per block (two per SM)
 constexpr int kTile = 64;            // weight-gradient output tile (rows and columns)
 constexpr int kTileK = 16;           // weight-gradient rows per shared-memory stage
+static_assert(kMaxN == focal::kAttnMaxN && kThreads == focal::kAttnThreads &&
+                  kThreads == focal::kGemmThreads,
+              "one block size and window bound for every kernel here");
 
 int windows_per_block(int N, int C) {
   const int wpb = kActBudget / (N * 16 * C);
@@ -114,27 +134,11 @@ __device__ __forceinline__ void store_rows(const float* s, int stride, float* __
   }
 }
 
-// Copy `rows` rows of `ncols` floats (% 4 == 0) from rows `s_stride` floats
-// apart to rows `d_stride` floats apart, float4 at a time (16-byte aligned
-// rows on both sides).
-__device__ __forceinline__ void copy_rows(const float* s, int s_stride, float* d, int d_stride,
-                                          int ncols, int rows) {
-  const int c4 = ncols / 4;
-  for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
-    const int row = i / c4, col = i - row * c4;
-    *reinterpret_cast<float4*>(d + (size_t)row * d_stride + col * 4) =
-        *reinterpret_cast<const float4*>(s + (size_t)row * s_stride + col * 4);
-  }
-}
-
 // dst[w][r][j] = sum_k src[w][r][k] W[k][j] (+ bias[j]) for nwin windows of N
 // rows, j < ncols, k < K (K % 4 == 0). src is shared memory with rows of
 // src_stride floats (% 4 == 0); W is global [K][ldw]; dst rows are
 // dst_stride floats apart and windows dst_win_stride floats apart (shared or
-// global memory). One (window, column) per item, all N rows at once. With
-// kAccumulate the sum is added to dst instead (each item keeps its thread
-// from call to call, so repeated calls need no barrier between them).
-template <bool kAccumulate = false>
+// global memory). One (window, column) per item, all N rows at once.
 __device__ __forceinline__ void project_rows(const float* src, int src_stride, int K,
                                              const float* __restrict__ W, int ldw, int ncols,
                                              const float* __restrict__ bias, float* dst,
@@ -166,12 +170,7 @@ __device__ __forceinline__ void project_rows(const float* src, int src_stride, i
     float* dw = dst + w * dst_win_stride;
 #pragma unroll
     for (int r = 0; r < kMaxN; ++r) {
-      if (r < N) {
-        if (kAccumulate)
-          dw[r * dst_stride + j] += acc[r] + bj;
-        else
-          dw[r * dst_stride + j] = acc[r] + bj;
-      }
+      if (r < N) dw[r * dst_stride + j] = acc[r] + bj;
     }
   }
 }
@@ -191,15 +190,6 @@ __device__ __forceinline__ void softmax_from_max(float (&p)[kMaxN], float mx, in
 #pragma unroll
   for (int j = 0; j < kMaxN; ++j)
     if (j < N) p[j] *= inv;
-}
-
-// p = softmax(p) over the first N entries, in registers.
-__device__ __forceinline__ void softmax_regs(float (&p)[kMaxN], int N) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j)
-    if (j < N) mx = fmaxf(mx, p[j]);
-  softmax_from_max(p, mx, N);
 }
 
 // p[j] = softmax_j(q . k_j + bias[j] + mask[j]) for one query row. q and the
@@ -224,21 +214,6 @@ __device__ __forceinline__ void softmax_row(const float* q, const float* kr0, in
     }
   }
   softmax_from_max(p, mx, N);
-}
-
-// a . b over n floats (n % 4 == 0, both 16-byte aligned).
-__device__ __forceinline__ float dot4(const float* a, const float* b, int n) {
-  const float4* a4 = reinterpret_cast<const float4*>(a);
-  const float4* b4 = reinterpret_cast<const float4*>(b);
-  float d = 0.f;
-  for (int t = 0; t < n / 4; ++t) {
-    const float4 u = a4[t], v = b4[t];
-    d = fmaf(u.x, v.x, d);
-    d = fmaf(u.y, v.y, d);
-    d = fmaf(u.z, v.z, d);
-    d = fmaf(u.w, v.w, d);
-  }
-  return d;
 }
 
 // Attention dropout of one (window, head, query row): the keep flags of
@@ -318,141 +293,6 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
 
   // 4. y = attn_out Wproj + bproj, written straight to global memory
   project_rows(xs, xs_stride, C, wproj, C, C, bproj, y + (size_t)w0 * N * C, C, N * C, nwin, N);
-}
-
-// ---------------------------------------------------------------------------
-// per-head forward (#4; with kDropout, #4 with attention dropout)
-
-// Shared-memory layout of the per-head kernels, in floats. Per window: rows
-// of C + 4 for x and y (forward) or x, dy and dx (backward); rows of 3hd + 4
-// for one head's q|k|v (backward also dq|dk|dv); rows of hd + 4 for its
-// attention output (backward also g = dy Wproj_h^T); N x N for its
-// attention weights (backward also their gradients). The backward adds the
-// block's d rel_bias [H, N, N] once.
-struct PhLayout {
-  int wpb, cs, qs, hs;  // windows per block; row strides
-  size_t x, y, dx, qkv, dqkv, ao, g, p, dp, dacc, total;
-};
-
-PhLayout ph_layout(int wpb, int N, int C, int H, bool backward) {
-  const int hd = C / H;
-  PhLayout L;
-  L.wpb = wpb;
-  L.cs = C + 4;
-  L.qs = 3 * hd + 4;
-  L.hs = hd + 4;
-  const size_t rows = (size_t)wpb * N, nn = (size_t)wpb * N * N;
-  size_t o = 0;
-  L.x = o, o += rows * L.cs;
-  L.y = o, o += rows * L.cs;  // y, or dy in the backward
-  L.dx = o, o += backward ? rows * L.cs : 0;
-  L.qkv = o, o += rows * L.qs;
-  L.dqkv = o, o += backward ? rows * L.qs : 0;
-  L.ao = o, o += rows * L.hs;
-  L.g = o, o += backward ? rows * L.hs : 0;
-  L.p = o, o += nn;  // float4 rows end here: the N x N blocks need no alignment
-  L.dp = o, o += backward ? nn : 0;
-  L.dacc = o, o += backward ? (size_t)H * N * N : 0;
-  L.total = o;
-  return L;
-}
-
-// Windows per block of a per-head kernel: as many as `budget` bytes hold,
-// at least one; 0 when one window does not fit the card's opt-in limit.
-int ph_windows(int N, int C, int H, bool backward, size_t budget, size_t optin) {
-  const PhLayout one = ph_layout(1, N, C, H, backward);
-  if (one.total * sizeof(float) > optin) return 0;
-  const size_t fixed = (one.total - one.dacc) * sizeof(float);  // d rel_bias, once a block
-  const size_t per_window = one.dacc * sizeof(float);
-  const size_t room = budget > fixed ? budget - fixed : 0;
-  return std::max(1, (int)(room / per_window));
-}
-
-// Per window, for each head h in order: q|k|v of h, its scores, softmax (and
-// dropout), attention output, and y += ao_h Wproj[h hd:(h+1) hd, :] (y starts
-// at bproj with head 0).
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-wblock_ph_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                     const float* __restrict__ bqkv, const float* __restrict__ wproj,
-                     const float* __restrict__ bproj, const float* __restrict__ rel_bias,
-                     const float* __restrict__ mask, float* __restrict__ y,
-                     unsigned char* __restrict__ keep, unsigned long long seed,
-                     unsigned threshold, float inv_keep, int B, int N, int C, int H, int nW,
-                     PhLayout L) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* xs = smem + L.x;
-  float* ys = smem + L.y;
-  float* qs = smem + L.qkv;
-  float* os = smem + L.ao;
-  float* ps = smem + L.p;
-  const int hd = C / H;
-  const int w0 = blockIdx.x * L.wpb;
-  const int nwin = min(L.wpb, B - w0);
-
-  load_rows(x + (size_t)w0 * N * C, C, xs, L.cs, nwin * N);
-  __syncthreads();
-  for (int h = 0; h < H; ++h) {
-    // 1. q | k | v of head h: three hd-column blocks of the fused [C, 3C]
-    for (int part = 0; part < 3; ++part)
-      project_rows(xs, L.cs, C, wqkv + part * C + h * hd, 3 * C, hd, bqkv + part * C + h * hd,
-                   qs + part * hd, L.qs, N * L.qs, nwin, N);
-    __syncthreads();
-
-    // 2. scores per (window, query i, key j)
-    for (int item = threadIdx.x; item < nwin * N * N; item += kThreads) {
-      const int j = item % N, r = item / N;
-      const int w = r / N, i = r - w * N;
-      float s = dot4(qs + r * L.qs, qs + (w * N + j) * L.qs + hd, hd);
-      s += __ldg(rel_bias + (h * N + i) * N + j);
-      if (mask) s += __ldg(mask + ((size_t)((w0 + w) % nW) * N + i) * N + j);
-      ps[item] = s;
-    }
-    __syncthreads();
-
-    // 3. softmax (and dropout) per (window, query row), in place
-    for (int item = threadIdx.x; item < nwin * N; item += kThreads) {
-      const int w = item / N, i = item - w * N;
-      float* prow = ps + item * N;
-      float p[kMaxN];
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j)
-        if (j < N) p[j] = prow[j];
-      softmax_regs(p, N);
-      if (kDropout)
-        drop_row(p, N, (unsigned)(w0 + w), h, i, seed, threshold, inv_keep,
-                 keep + (((size_t)(w0 + w) * H + h) * N + i) * N);
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j)
-        if (j < N) prow[j] = p[j];
-    }
-    __syncthreads();
-
-    // 4. attention output per (window, row, dim)
-    for (int item = threadIdx.x; item < nwin * N * hd; item += kThreads) {
-      const int t = item % hd, r = item / hd;
-      const int w = r / N;
-      const float* prow = ps + r * N;
-      const float* vcol = qs + w * N * L.qs + 2 * hd + t;
-      float a = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j)
-        if (j < N) a = fmaf(prow[j], vcol[j * L.qs], a);
-      os[r * L.hs + t] = a;
-    }
-    __syncthreads();
-
-    // 5. y (+)= ao_h Wproj[h hd:(h+1) hd, :]; the next head's steps 1-3
-    //    touch neither os nor ys, so no barrier until step 4 reuses os
-    if (h == 0)
-      project_rows(os, L.hs, hd, wproj, C, C, bproj, ys, L.cs, N * L.cs, nwin, N);
-    else
-      project_rows<true>(os, L.hs, hd, wproj + (size_t)h * hd * C, C, C, nullptr, ys, L.cs,
-                         N * L.cs, nwin, N);
-  }
-  __syncthreads();
-  store_rows(ys, L.cs, y + (size_t)w0 * N * C, C, nwin * N);
 }
 
 // ---------------------------------------------------------------------------
@@ -667,164 +507,8 @@ wblock_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
   for (int e = threadIdx.x; e < nn; e += blockDim.x) dbias_part[(size_t)blockIdx.x * nn + e] = dacc[e];
 }
 
-// ---------------------------------------------------------------------------
-// per-head backward (#5)
-
-// Per window, for each head h in order: recompute q|k|v of h and its
-// softmax, g = dy Wproj_h^T, then the weights' and scores' gradients, dq,
-// dk, dv and the attention output, and dx (+)= dq|dk|dv Wqkv_h^T. dq|dk|dv
-// and the attention output go to the workspace in #3's layout ([R, 3C] and
-// [R, C]), where the weight-gradient kernel reads them. Blocks walk window
-// chunks with a fixed stride and sum their score gradients in window and
-// head order into one d rel_bias partial, as #3 does.
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-wblock_ph_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                     const float* __restrict__ bqkv, const float* __restrict__ wqkv_t,
-                     const float* __restrict__ wproj_t, const float* __restrict__ rel_bias,
-                     const float* __restrict__ mask, const float* __restrict__ dy,
-                     const unsigned char* __restrict__ keep, float inv_keep,
-                     float* __restrict__ dx, float* __restrict__ dqkv_out,
-                     float* __restrict__ ao_out, float* __restrict__ dbias_part, int B, int N,
-                     int C, int H, int nW, PhLayout L) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* xs = smem + L.x;
-  float* dys = smem + L.y;
-  float* dxs = smem + L.dx;
-  float* qs = smem + L.qkv;
-  float* dqs = smem + L.dqkv;
-  float* os = smem + L.ao;
-  float* gs = smem + L.g;
-  float* ps = smem + L.p;
-  float* dps = smem + L.dp;
-  float* dacc = smem + L.dacc;
-  const int hd = C / H;
-  const int nn = N * N;
-  const int nchunks = (B + L.wpb - 1) / L.wpb;
-
-  for (int e = threadIdx.x; e < H * nn; e += kThreads) dacc[e] = 0.f;
-
-  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
-    const int w0 = chunk * L.wpb;
-    const int nwin = min(L.wpb, B - w0);
-    __syncthreads();  // the previous chunk's readers are done with shared memory
-    load_rows(x + (size_t)w0 * N * C, C, xs, L.cs, nwin * N);
-    load_rows(dy + (size_t)w0 * N * C, C, dys, L.cs, nwin * N);
-    __syncthreads();
-
-    for (int h = 0; h < H; ++h) {
-      // 1. q | k | v of head h (recomputed) and g = dy Wproj_h^T, the
-      //    gradient of its attention output
-      for (int part = 0; part < 3; ++part)
-        project_rows(xs, L.cs, C, wqkv + part * C + h * hd, 3 * C, hd, bqkv + part * C + h * hd,
-                     qs + part * hd, L.qs, N * L.qs, nwin, N);
-      project_rows(dys, L.cs, C, wproj_t + h * hd, C, hd, nullptr, gs, L.hs, N * L.hs, nwin, N);
-      __syncthreads();
-
-      // 2. per (window, query i, key j): the score and d(weight) = g_i . v_j
-      for (int item = threadIdx.x; item < nwin * nn; item += kThreads) {
-        const int j = item % N, r = item / N;
-        const int w = r / N, i = r - w * N;
-        const float* kv = qs + (w * N + j) * L.qs;
-        float s = dot4(qs + r * L.qs, kv + hd, hd);
-        s += __ldg(rel_bias + (h * N + i) * N + j);
-        if (mask) s += __ldg(mask + ((size_t)((w0 + w) % nW) * N + i) * N + j);
-        ps[item] = s;
-        dps[item] = dot4(gs + r * L.hs, kv + 2 * hd, hd);
-      }
-      __syncthreads();
-
-      // 3. per (window, query row): softmax p; the weights as applied to v
-      //    (a, into ps) and the score gradients ds (into dps)
-      for (int item = threadIdx.x; item < nwin * N; item += kThreads) {
-        const int w = item / N, i = item - w * N;
-        float* prow = ps + item * N;
-        float* drow = dps + item * N;
-        const unsigned char* kr =
-            kDropout ? keep + (((size_t)(w0 + w) * H + h) * N + i) * N : nullptr;
-        float p[kMaxN];
-#pragma unroll
-        for (int j = 0; j < kMaxN; ++j)
-          if (j < N) p[j] = prow[j];
-        softmax_regs(p, N);
-        float da[kMaxN];
-        float dot = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxN; ++j) {
-          if (j < N) {
-            const bool kp = kDropout ? kr[j] != 0 : true;
-            prow[j] = kDropout ? (kp ? p[j] * inv_keep : 0.f) : p[j];
-            da[j] = kDropout ? (kp ? drow[j] * inv_keep : 0.f) : drow[j];
-            dot = fmaf(da[j], p[j], dot);
-          }
-        }
-#pragma unroll
-        for (int j = 0; j < kMaxN; ++j)
-          if (j < N) drow[j] = p[j] * (da[j] - dot);
-      }
-      __syncthreads();
-
-      // 4. per (window, row, dim): attention output, dq, dk, dv; and the
-      //    block's d rel_bias += ds (windows in order)
-      for (int item = threadIdx.x; item < nwin * N * hd; item += kThreads) {
-        const int t = item % hd, r = item / hd;
-        const int w = r / N, i = r - w * N;
-        const float* arow = ps + r * N;              // a[i][.]
-        const float* drow = dps + r * N;             // ds[i][.]
-        const float* acol = ps + w * nn + i;         // a[.][i]
-        const float* dcol = dps + w * nn + i;        // ds[.][i]
-        const float* qkv_w = qs + w * N * L.qs + t;  // q|k|v rows of the window
-        const float* g_w = gs + w * N * L.hs + t;
-        float ao = 0.f, dq = 0.f, dk = 0.f, dv = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxN; ++j) {
-          if (j < N) {
-            const float* row = qkv_w + j * L.qs;
-            ao = fmaf(arow[j], row[2 * hd], ao);
-            dq = fmaf(drow[j], row[hd], dq);
-            dk = fmaf(dcol[j * N], row[0], dk);
-            dv = fmaf(acol[j * N], g_w[j * L.hs], dv);
-          }
-        }
-        os[r * L.hs + t] = ao;
-        float* d = dqs + r * L.qs + t;
-        d[0] = dq;
-        d[hd] = dk;
-        d[2 * hd] = dv;
-      }
-      for (int e = threadIdx.x; e < nn; e += kThreads) {
-        float acc = dacc[h * nn + e];
-        for (int w = 0; w < nwin; ++w) acc += dps[w * nn + e];
-        dacc[h * nn + e] = acc;
-      }
-      __syncthreads();
-
-      // 5. dx (+)= dq Wq_h^T + dk Wk_h^T + dv Wv_h^T (rows part C + h hd of
-      //    the [3C, C] transpose); dq|dk|dv and the attention output to the
-      //    workspace. The next head's steps 1-3 touch none of dqs, os, dxs.
-      for (int part = 0; part < 3; ++part) {
-        const float* wt = wqkv_t + (size_t)(part * C + h * hd) * C;
-        if (h == 0 && part == 0)
-          project_rows(dqs, L.qs, hd, wt, C, C, nullptr, dxs, L.cs, N * L.cs, nwin, N);
-        else
-          project_rows<true>(dqs + part * hd, L.qs, hd, wt, C, C, nullptr, dxs, L.cs, N * L.cs,
-                             nwin, N);
-        copy_rows(dqs + part * hd, L.qs, dqkv_out + (size_t)w0 * N * 3 * C + part * C + h * hd,
-                  3 * C, hd, nwin * N);
-      }
-      copy_rows(os, L.hs, ao_out + (size_t)w0 * N * C + h * hd, C, hd, nwin * N);
-    }
-    __syncthreads();
-    store_rows(dxs, L.cs, dx + (size_t)w0 * N * C, C, nwin * N);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < H * nn; e += kThreads)
-    dbias_part[(size_t)blockIdx.x * H * nn + e] = dacc[e];
-}
-
-// Weight gradients as split-K products over the B*N rows: block (tile,
-// split) computes one 64x64 tile of
+// #3's weight gradients as split-K products over the B*N rows on the CUDA
+// cores: block (tile, split) computes one 64x64 tile of
 //   dWqkv = x^T dqkv  [C, 3C]   or   dWproj = ao^T dy  [C, C]
 // over its split's fixed row range, plus (first row tile) the column sums
 // dbqkv / dbproj, and writes them to its split's partial. Each thread holds
@@ -923,17 +607,313 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int S, in
   out[e] = acc;
 }
 
-// Launch plan of a backward (#3, or #5 with `perhead`): per-window blocks
-// (a fixed, occupancy-sized grid walking the window chunks) and the
-// weight-gradient splits.
-struct BwdPlan {
-  bool perhead;
-  BwdLayout L;  // #3
-  PhLayout P;   // #5
-  size_t smem, ws_floats;
-  int wpb, grid, splits, rows_per_split, wtiles, E;
-  cudaError_t err;
+// ---------------------------------------------------------------------------
+// per-head kernels (#4 forward, #5 backward): row-tiled projections on the
+// tensor cores, attention per (window, head) pair between them
+
+// Projections over all R = B N rows of a launch, one 128 x 128 output tile a
+// block (focal::gemm_tile, 3xTF32): c = a b (+ bias) with a [M, K] row-major
+// (lda), b [K, N] (ldb), c [M, N] (ldc). One launch may run two problems:
+// blocks [0, p0.tiles) take p0, the rest p1.
+struct ProjGemm {
+  const float* a;
+  const float* b;
+  const float* bias;  // [N] or null
+  float* c;
+  int lda, ldb, ldc, M, N, K, tiles_n, tiles;
 };
+
+ProjGemm proj_gemm(const float* a, int lda, const float* b, int ldb, const float* bias, float* c,
+                   int ldc, int M, int N, int K) {
+  ProjGemm p{a, b, bias, c, lda, ldb, ldc, M, N, K, 0, 0};
+  p.tiles_n = (N + focal::kGemmBN - 1) / focal::kGemmBN;
+  p.tiles = ((M + focal::kGemmBM - 1) / focal::kGemmBM) * p.tiles_n;
+  return p;
+}
+
+__global__ void __launch_bounds__(focal::kGemmThreads)
+proj_gemm_kernel(ProjGemm p0, ProjGemm p1) {
+  extern __shared__ float4 smem4[];
+  int tile = blockIdx.x;
+  const ProjGemm p = tile < p0.tiles ? p0 : p1;
+  if (tile >= p0.tiles) tile -= p0.tiles;
+  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * focal::kGemmBN;
+  float acc[4][4][4], csum = 0.f;
+  focal::gemm_tile<false, false>(p.a, p.lda, p.b, p.ldb, p.M, p.N, m0, n0, 0, p.K,
+                                 reinterpret_cast<float*>(smem4), acc, csum);
+  focal::gemm_for_each_output(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+    if (p.bias) {
+      v0 += __ldg(p.bias + col);
+      v1 += __ldg(p.bias + col + 1);
+    }
+    *reinterpret_cast<float2*>(p.c + (size_t)row * p.ldc + col) = make_float2(v0, v1);
+  });
+}
+
+// Weight gradients as fixed split-K partials: block (tile, split) computes
+// one 128 x 128 tile of a^T b over its split's rows, a [R, M] and b [R, N]
+// read as they lie (a transposed in the tile loads), plus, in the first row
+// tile, b's column sums over those rows (the bias gradients). It writes
+// them to its split's partial at `out` ([M, N]) and `sums_out` ([N]); the
+// partials are summed in split order by reduce_partials_kernel. Two problems
+// a launch, as proj_gemm_kernel.
+struct WgradGemm {
+  const float* a;
+  const float* b;
+  int M, N, tiles_n, tiles;
+  size_t out, sums_out;  // offsets in a partial, in floats
+};
+
+WgradGemm wgrad_gemm(const float* a, const float* b, int M, int N, size_t out, size_t sums_out) {
+  WgradGemm p{a, b, M, N, 0, 0, out, sums_out};
+  p.tiles_n = (N + focal::kGemmBN - 1) / focal::kGemmBN;
+  p.tiles = ((M + focal::kGemmBM - 1) / focal::kGemmBM) * p.tiles_n;
+  return p;
+}
+
+__global__ void __launch_bounds__(focal::kGemmThreads)
+wgrad_gemm_kernel(WgradGemm p0, WgradGemm p1, int R, int rows_per_split, float* __restrict__ part,
+                  size_t E) {
+  extern __shared__ float4 smem4[];
+  int tile = blockIdx.x;
+  const WgradGemm p = tile < p0.tiles ? p0 : p1;
+  if (tile >= p0.tiles) tile -= p0.tiles;
+  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * focal::kGemmBN;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  float acc[4][4][4], csum = 0.f;
+  focal::gemm_tile<true, true>(p.a, p.M, p.b, p.N, p.M, p.N, m0, n0, r_begin, r_end,
+                               reinterpret_cast<float*>(smem4), acc, csum);
+  float* out = part + (size_t)blockIdx.y * E;
+  focal::gemm_for_each_output(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+    *reinterpret_cast<float2*>(out + p.out + (size_t)row * p.N + col) = make_float2(v0, v1);
+  });
+  if (m0 == 0 && threadIdx.x < focal::kGemmBN && n0 + threadIdx.x < p.N)
+    out[p.sums_out + n0 + threadIdx.x] = csum;
+}
+
+// Element strides of head h's q (k, v: add C, 2C) columns in the [R, 3C]
+// qkv (or dqkv) workspace, and of its columns in an [R, C] tensor, as
+// [B, H, N, hd] operands.
+__device__ __forceinline__ focal::Strides qkv_strides(int N, int C, int hd) {
+  return {(long long)N * 3 * C, hd, 3 * C};
+}
+__device__ __forceinline__ focal::Strides row_strides(int N, int C, int hd) {
+  return {(long long)N * C, hd, C};
+}
+
+// Attention of #4 per (window, head) pair (the row-parallel design of
+// window_attention.cu, focal/window_rows.cuh): q, k, v from the qkv
+// workspace, the softmax of q k^T + rel_bias + mask, dropout with #2's
+// Philox counters (kDropout; the keep flags written out as uint8 [B, H, N,
+// N]), and the attention output a v to ao [R, C] at the head's columns.
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+attn_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bias,
+                const float* __restrict__ mask, float* __restrict__ ao,
+                unsigned char* __restrict__ keep, unsigned long long seed, unsigned threshold,
+                float inv_keep, focal::Geo g, int C, int nW) {
+  extern __shared__ float4 smem4[];
+  const int N = g.N, slab = g.pairs * N * g.stride;
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + slab;
+  float* vs = ks + slab;
+  const int p0 = blockIdx.x * g.pairs;
+  const int np = (int)min((long long)g.pairs, g.total - p0);
+  const focal::Strides sq = qkv_strides(N, C, g.hd);
+  focal::stage_rows(qkv, sq, p0, np, g, qs);
+  focal::stage_rows(qkv + C, sq, p0, np, g, ks);
+  focal::stage_rows(qkv + 2 * C, sq, p0, np, g, vs);
+  __syncthreads();
+
+  const focal::Row t = focal::thread_row(g, p0, np);
+  float p[kMaxN];
+  focal::row_dots(qs + t.r * g.stride, ks + t.pl * N * g.stride, g, t.lane, p);
+  focal::softmax_row(p, rel_bias + (t.h * N + t.i) * N,
+                     mask ? mask + ((size_t)(t.w % nW) * N + t.i) * N : nullptr, N);
+  if (kDropout) {
+    bool kept[kMaxN];
+    focal::attn_keep_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, kept);
+    unsigned char* kr = keep + (((size_t)t.w * g.H + t.h) * N + t.i) * N;
+#pragma unroll
+    for (int j = 0; j < kMaxN; ++j) {
+      if (j < N) {
+        if (t.active && t.lane == 0) kr[j] = kept[j] ? 1 : 0;
+        p[j] = kept[j] ? p[j] * inv_keep : 0.f;
+      }
+    }
+  }
+  const float* vb = vs + t.pl * N * g.stride;
+  float4* o = reinterpret_cast<float4*>(ao + ((size_t)t.w * N + t.i) * C + t.h * g.hd);
+  for (int c = t.lane; c < g.c4; c += g.lanes) {
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int j = 0; j < kMaxN; ++j) {
+      if (j < N) {
+        const float4 y = *reinterpret_cast<const float4*>(vb + j * g.stride + 4 * c);
+        acc.x = fmaf(p[j], y.x, acc.x);
+        acc.y = fmaf(p[j], y.y, acc.y);
+        acc.z = fmaf(p[j], y.z, acc.z);
+        acc.w = fmaf(p[j], y.w, acc.w);
+      }
+    }
+    if (t.active) o[c] = acc;
+  }
+}
+
+// Attention backward of #5 per (window, head) pair: from q, k, v (the qkv
+// workspace), g = dy Wproj^T ([R, C]) and #4's keep mask, per query row i
+// the softmax p, the weights as applied to v (a_v), the score gradients ds,
+// dq_i = ds k and the attention output a_v v (into ao, for dWproj); per key
+// row j dk_j = ds^T q and dv_j = a_v^T g; dq | dk | dv into the dqkv
+// workspace at the head's columns. Blocks walk the chunks of pairs with a
+// fixed stride and sum the chunks' ds per head in pair order into one
+// d rel_bias partial each: no atomics.
+template <bool kDropout>
+__global__ void __launch_bounds__(kThreads)
+attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ gao,
+                const float* __restrict__ rel_bias, const float* __restrict__ mask,
+                const unsigned char* __restrict__ keep, float inv_keep,
+                float* __restrict__ dqkv, float* __restrict__ ao, float* __restrict__ dbias_part,
+                focal::Geo g, int C, int nW) {
+  extern __shared__ float4 smem4[];
+  const int N = g.N, nn = N * N, slab = g.pairs * N * g.stride;
+  float* qs = reinterpret_cast<float*>(smem4);
+  float* ks = qs + slab;
+  float* vs = ks + slab;
+  float* gs = vs + slab;
+  float* dss = gs + slab;            // [P][N][N] score gradients
+  float* avs = dss + g.pairs * nn;   // [P][N][N] weights as applied to v
+  float* dacc = avs + g.pairs * nn;  // [H][N][N] this block's d rel_bias
+  const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
+  const focal::Strides sq = qkv_strides(N, C, g.hd), sg = row_strides(N, C, g.hd);
+
+  for (int e = threadIdx.x; e < g.H * nn; e += kThreads) dacc[e] = 0.f;
+
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
+    const int p0 = chunk * g.pairs;
+    const int np = (int)min((long long)g.pairs, g.total - p0);
+    __syncthreads();  // the previous chunk's readers are done with shared memory
+    focal::stage_rows(qkv, sq, p0, np, g, qs);
+    focal::stage_rows(qkv + C, sq, p0, np, g, ks);
+    focal::stage_rows(qkv + 2 * C, sq, p0, np, g, vs);
+    focal::stage_rows(gao, sg, p0, np, g, gs);
+    __syncthreads();
+
+    // query row i of pair pl
+    const focal::Row t = focal::thread_row(g, p0, np);
+    const float* kb = ks + t.pl * N * g.stride;
+    const float* vb = vs + t.pl * N * g.stride;
+    float p[kMaxN], ds[kMaxN], av[kMaxN];
+    focal::row_dots(qs + t.r * g.stride, kb, g, t.lane, p);
+    focal::row_dots(gs + t.r * g.stride, vb, g, t.lane, ds);  // d(weights) = g_i . v_j
+    focal::softmax_row(p, rel_bias + (t.h * N + t.i) * N,
+                       mask ? mask + ((size_t)(t.w % nW) * N + t.i) * N : nullptr, N);
+    const unsigned char* kr = kDropout ? keep + (((size_t)t.w * g.H + t.h) * N + t.i) * N : nullptr;
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxN; ++j) {
+      if (j < N) {
+        const bool kp = kDropout ? kr[j] != 0 : true;
+        av[j] = kDropout ? (kp ? p[j] * inv_keep : 0.f) : p[j];
+        if (kDropout) ds[j] = kp ? ds[j] * inv_keep : 0.f;
+        dot = fmaf(ds[j], p[j], dot);
+      }
+    }
+    float* avrow = avs + t.r * N;
+    float* dsrow = dss + t.r * N;
+#pragma unroll
+    for (int j = 0; j < kMaxN; ++j) {
+      if (j < N) {
+        ds[j] = p[j] * (ds[j] - dot);
+        if (t.active && t.lane == 0) {
+          avrow[j] = av[j];
+          dsrow[j] = ds[j];
+        }
+      }
+    }
+    const size_t row = (size_t)t.w * N + t.i;
+    float4* dqo = reinterpret_cast<float4*>(dqkv + row * 3 * C + t.h * g.hd);
+    float4* aoo = reinterpret_cast<float4*>(ao + row * C + t.h * g.hd);
+    for (int c = t.lane; c < g.c4; c += g.lanes) {
+      float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+#pragma unroll
+      for (int j = 0; j < kMaxN; ++j) {
+        if (j < N) {
+          const float4 x = *reinterpret_cast<const float4*>(kb + j * g.stride + 4 * c);
+          const float4 y = *reinterpret_cast<const float4*>(vb + j * g.stride + 4 * c);
+          a.x = fmaf(ds[j], x.x, a.x);
+          a.y = fmaf(ds[j], x.y, a.y);
+          a.z = fmaf(ds[j], x.z, a.z);
+          a.w = fmaf(ds[j], x.w, a.w);
+          b.x = fmaf(av[j], y.x, b.x);
+          b.y = fmaf(av[j], y.y, b.y);
+          b.z = fmaf(av[j], y.z, b.z);
+          b.w = fmaf(av[j], y.w, b.w);
+        }
+      }
+      if (t.active) {
+        dqo[c] = a;
+        aoo[c] = b;
+      }
+    }
+    __syncthreads();
+
+    // key row j = t.i of pair pl
+    if (t.active) {
+      const int j = t.i;
+      const float* dsc = dss + t.pl * nn + j;  // ds[.][j]
+      const float* avc = avs + t.pl * nn + j;  // a_v[.][j]
+      const float* qb = qs + t.pl * N * g.stride;
+      const float* gb = gs + t.pl * N * g.stride;
+      float dsj[kMaxN], avj[kMaxN];
+#pragma unroll
+      for (int i = 0; i < kMaxN; ++i) {
+        if (i < N) {
+          dsj[i] = dsc[i * N];
+          avj[i] = avc[i * N];
+        }
+      }
+      float* base = dqkv + row * 3 * C + t.h * g.hd;
+      float4* dko = reinterpret_cast<float4*>(base + C);
+      float4* dvo = reinterpret_cast<float4*>(base + 2 * C);
+      for (int c = t.lane; c < g.c4; c += g.lanes) {
+        float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
+#pragma unroll
+        for (int i = 0; i < kMaxN; ++i) {
+          if (i < N) {
+            const float4 x = *reinterpret_cast<const float4*>(qb + i * g.stride + 4 * c);
+            const float4 y = *reinterpret_cast<const float4*>(gb + i * g.stride + 4 * c);
+            a.x = fmaf(dsj[i], x.x, a.x);
+            a.y = fmaf(dsj[i], x.y, a.y);
+            a.z = fmaf(dsj[i], x.z, a.z);
+            a.w = fmaf(dsj[i], x.w, a.w);
+            b.x = fmaf(avj[i], y.x, b.x);
+            b.y = fmaf(avj[i], y.y, b.y);
+            b.z = fmaf(avj[i], y.z, b.z);
+            b.w = fmaf(avj[i], y.w, b.w);
+          }
+        }
+        dko[c] = a;
+        dvo[c] = b;
+      }
+    }
+    // the block's d rel_bias: element (h, i, j) adds the chunk's pairs of
+    // head h in pair order (each element keeps its thread across chunks)
+    for (int e = threadIdx.x; e < g.H * nn; e += kThreads) {
+      const int h = e / nn, ij = e - h * nn;
+      float acc = dacc[e];
+      for (int pl = ((h - p0 % g.H) + g.H) % g.H; pl < np; pl += g.H) acc += dss[pl * nn + ij];
+      dacc[e] = acc;
+    }
+  }
+  __syncthreads();
+  for (int e = threadIdx.x; e < g.H * nn; e += kThreads)
+    dbias_part[(size_t)blockIdx.x * g.H * nn + e] = dacc[e];
+}
+
+// ---------------------------------------------------------------------------
+// launch plans
 
 // Raise `kernel`'s dynamic shared memory limit to `smem` bytes and, when
 // asked, report how many of its blocks fit one SM.
@@ -946,44 +926,35 @@ cudaError_t set_smem(Kernel kernel, size_t smem, int* blocks_per_sm) {
   return err;
 }
 
-// The current device's SM count and the shared memory one block may opt in
-// to (232,448 bytes on the H100).
-cudaError_t device_limits(int* sms, int* smem_optin) {
+// The current device's SM count.
+cudaError_t device_sms(int* sms) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(smem_optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   return err;
 }
 
-BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout, bool perhead) {
+// Launch plan of #3: per-window blocks (a fixed, occupancy-sized grid
+// walking the window chunks) and the weight-gradient splits.
+struct BwdPlan {
+  BwdLayout L;
+  size_t smem, ws_floats;
+  int grid, splits, rows_per_split, wtiles, E;
+  cudaError_t err;
+};
+
+BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
   BwdPlan P{};
-  P.perhead = perhead;
-  int sms = 0, optin = 0, per_sm = 0;
-  P.err = device_limits(&sms, &optin);
+  int sms = 0, per_sm = 0;
+  P.err = device_sms(&sms);
   if (P.err != cudaSuccess) return P;
-  if (perhead) {
-    // one block per SM: the window count is sized by the card's limit
-    P.wpb = ph_windows(N, C, H, true, optin, optin);
-    if (P.wpb == 0) {
-      P.err = cudaErrorInvalidConfiguration;
-      return P;
-    }
-    P.P = ph_layout(P.wpb, N, C, H, true);
-    P.smem = P.P.total * sizeof(float);
-    P.err = dropout ? set_smem(wblock_ph_bwd_kernel<true>, P.smem, &per_sm)
-                    : set_smem(wblock_ph_bwd_kernel<false>, P.smem, &per_sm);
-  } else {
-    P.L = bwd_plan_layout(N, C, H);
-    P.wpb = P.L.wpb;
-    P.smem = P.L.total * sizeof(float);
-    P.err = dropout ? set_smem(wblock_bwd_kernel<true>, P.smem, &per_sm)
-                    : set_smem(wblock_bwd_kernel<false>, P.smem, &per_sm);
-  }
+  P.L = bwd_plan_layout(N, C, H);
+  P.smem = P.L.total * sizeof(float);
+  P.err = dropout ? set_smem(wblock_bwd_kernel<true>, P.smem, &per_sm)
+                  : set_smem(wblock_bwd_kernel<false>, P.smem, &per_sm);
   if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
   if (P.err != cudaSuccess) return P;
-  const int nchunks = (B + P.wpb - 1) / P.wpb;
+  const int nchunks = (B + P.L.wpb - 1) / P.L.wpb;
   P.grid = std::min(nchunks, per_sm * sms);
   const int R = B * N;
   const int tiles_c = (C + kTile - 1) / kTile;
@@ -1001,43 +972,98 @@ BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout, bool perhead) {
   return P;
 }
 
+// Launch plan of #5 and its workspace, in floats: qkv and dqkv [R, 3C], g
+// and the attention output [R, C], the attention blocks' d rel_bias
+// partials, and the weight-gradient split partials.
+struct PhBwdPlan {
+  focal::Geo geo;
+  size_t attn_smem;
+  int attn_grid, wtiles, splits, rows_per_split;
+  size_t E, qkv, dqkv, g, ao, dbias, wpart, total;
+  cudaError_t err;
+};
+
+size_t attn_fwd_smem(const focal::Geo& g) {
+  return (size_t)3 * g.pairs * g.N * g.stride * sizeof(float);
+}
+
+size_t attn_bwd_smem(const focal::Geo& g) {
+  return ((size_t)4 * g.pairs * g.N * g.stride + (size_t)2 * g.pairs * g.N * g.N +
+          (size_t)g.H * g.N * g.N) * sizeof(float);
+}
+
+PhBwdPlan ph_bwd_plan(int B, int N, int C, int H, bool dropout) {
+  PhBwdPlan P{};
+  int sms = 0, per_sm = 0;
+  P.err = device_sms(&sms);
+  if (P.err != cudaSuccess) return P;
+  P.geo = focal::make_geo(B, H, N, C / H);
+  P.attn_smem = attn_bwd_smem(P.geo);
+  P.err = dropout ? set_smem(attn_bwd_kernel<true>, P.attn_smem, &per_sm)
+                  : set_smem(attn_bwd_kernel<false>, P.attn_smem, &per_sm);
+  if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
+  if (P.err != cudaSuccess) return P;
+  const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
+  P.attn_grid = (int)std::min<long long>(nchunks, (long long)per_sm * sms);
+  // split the rows so that the weight-gradient tiles fill the card about
+  // four times over (two blocks an SM), each split at least 256 rows
+  const int R = B * N;
+  const int tiles_c = (C + focal::kGemmBM - 1) / focal::kGemmBM;
+  P.wtiles = tiles_c * ((3 * C + focal::kGemmBN - 1) / focal::kGemmBN) +
+             tiles_c * ((C + focal::kGemmBN - 1) / focal::kGemmBN);
+  int splits = (4 * sms + P.wtiles - 1) / P.wtiles;
+  splits = std::max(1, std::min(splits, (R + 255) / 256));
+  int rps = (R + splits - 1) / splits;
+  rps = (rps + focal::kGemmBK - 1) / focal::kGemmBK * focal::kGemmBK;
+  P.rows_per_split = rps;
+  P.splits = (R + rps - 1) / rps;
+  P.E = (size_t)4 * C * C + 4 * C;
+  size_t o = 0;
+  P.qkv = o, o += (size_t)R * 3 * C;
+  P.dqkv = o, o += (size_t)R * 3 * C;
+  P.g = o, o += (size_t)R * C;
+  P.ao = o, o += (size_t)R * C;
+  P.dbias = o, o += ((size_t)P.attn_grid * H * N * N + 3) / 4 * 4;  // keeps wpart 16-byte aligned
+  P.wpart = o, o += (size_t)P.splits * P.E;
+  P.total = o;
+  return P;
+}
+
 int check_geometry(int N, int C, int H) {
   if (N < 1 || N > kMaxN || C < 4 || C % 4 != 0 || H < 1 || C % H != 0) return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-// The per-head kernels also read a head's columns as float4: hd % 4 == 0.
+// The per-head kernels' attention reads a head's columns as float4 (hd % 4
+// == 0) and stages whole heads in shared memory (hd <= 256).
 int check_ph_geometry(int N, int C, int H) {
-  if (check_geometry(N, C, H) || (C / H) % 4 != 0) return (int)cudaErrorInvalidValue;
+  if (check_geometry(N, C, H) || (C / H) % 4 != 0 || C / H > focal::kAttnMaxHd)
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
-int bwd_workspace(int B, int N, int C, int H, int dropout, bool perhead, long long* floats) {
-  if (perhead ? check_ph_geometry(N, C, H) : check_geometry(N, C, H))
-    return (int)cudaErrorInvalidValue;
+int bwd_workspace(int B, int N, int C, int H, int dropout, long long* floats) {
+  if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
   if (B == 0) {
     *floats = 0;
     return 0;
   }
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0, perhead);
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   *floats = (long long)P.ws_floats;
   return 0;
 }
 
-// The four launches of a backward on `stream`: the per-window kernel (#3,
-// or #5 with `perhead`), the weight-gradient partials, and the two ordered
-// reductions.
-int run_backward(bool perhead, const void* x, const void* wqkv, const void* bqkv,
-                 const void* wqkv_t, const void* wproj_t, const void* rel_bias, const void* mask,
-                 const void* dy, const void* keep, float inv_keep, void* dx, void* dweights,
-                 void* drel_bias, void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  if ((perhead ? check_ph_geometry(N, C, H) : check_geometry(N, C, H)) ||
-      (mask != nullptr && nW < 1))
-    return (int)cudaErrorInvalidValue;
+// The four launches of #3 on `stream`: the per-window kernel, the
+// weight-gradient partials, and the two ordered reductions.
+int run_backward(const void* x, const void* wqkv, const void* bqkv, const void* wqkv_t,
+                 const void* wproj_t, const void* rel_bias, const void* mask, const void* dy,
+                 const void* keep, float inv_keep, void* dx, void* dweights, void* drel_bias,
+                 void* ws, int B, int N, int C, int H, int nW, void* stream) {
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const bool dropout = keep != nullptr;
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout, perhead);
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const size_t R = (size_t)B * N;
@@ -1053,15 +1079,11 @@ int run_backward(bool perhead, const void* x, const void* wqkv, const void* bqkv
       static_cast<const float*>(wproj_t), static_cast<const float*>(rel_bias),                \
       static_cast<const float*>(mask), static_cast<const float*>(dy),                         \
       static_cast<const unsigned char*>(keep), inv_keep, static_cast<float*>(dx), dqkv, ao, \
-      dbias_part, B, N, C, H, nw
-  if (perhead && dropout)
-    wblock_ph_bwd_kernel<true><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.P);
-  else if (perhead)
-    wblock_ph_bwd_kernel<false><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.P);
-  else if (dropout)
-    wblock_bwd_kernel<true><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.L);
+      dbias_part, B, N, C, H, nw, P.L
+  if (dropout)
+    wblock_bwd_kernel<true><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS);
   else
-    wblock_bwd_kernel<false><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS, P.L);
+    wblock_bwd_kernel<false><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS);
 #undef FOCAL_BWD_ARGS
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
@@ -1078,6 +1100,14 @@ int run_backward(bool perhead, const void* x, const void* wqkv, const void* bqkv
   reduce_partials_kernel<<<(nn + kThreads - 1) / kThreads, kThreads, 0, s>>>(
       dbias_part, P.grid, nn, static_cast<float*>(drel_bias));
   return (int)cudaGetLastError();
+}
+
+// One projection launch (one or two problems) on `stream`.
+cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) {
+  cudaError_t err = set_smem(proj_gemm_kernel, focal::kGemmSmemBytes, nullptr);
+  if (err != cudaSuccess) return err;
+  proj_gemm_kernel<<<p0.tiles + p1.tiles, focal::kGemmThreads, focal::kGemmSmemBytes, s>>>(p0, p1);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -1134,45 +1164,58 @@ extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const v
   return (int)cudaGetLastError();
 }
 
+// Workspace of the per-head forward (#4), in floats: the qkv projection
+// [R, 3C] and the attention output [R, C], R = B N.
+extern "C" int focal_wblock_ph_fwd_workspace(int B, int N, int C, int H, long long* floats) {
+  if (check_geometry(N, C, H) || B < 0) return (int)cudaErrorInvalidValue;
+  *floats = (long long)B * N * 4 * C;
+  return 0;
+}
+
 // Per-head forward (#4), with attention dropout when `keep` is not null:
 // the function of focal_wblock_fwd (keep null) or focal_wblock_fwd_dropout,
-// the same mask bits for the same seed. Needs (C / H) % 4 == 0. Returns
-// cudaErrorInvalidConfiguration when one window does not fit a block.
+// the same mask bits for the same seed. `ws` holds
+// focal_wblock_ph_fwd_workspace floats. Three launches on `stream`: qkv =
+// x Wqkv + bqkv, the attention per (window, head), y = ao Wproj + bproj.
+// Needs (C / H) % 4 == 0 and C / H <= 256.
 extern "C" int focal_wblock_ph_fwd(const void* x, const void* wqkv, const void* bqkv,
                                    const void* wproj, const void* bproj, const void* rel_bias,
-                                   const void* mask, void* y, void* keep, int B, int N, int C,
-                                   int H, int nW, unsigned long long seed, unsigned threshold,
-                                   float inv_keep, void* stream) {
+                                   const void* mask, void* y, void* keep, void* ws, int B, int N,
+                                   int C, int H, int nW, unsigned long long seed,
+                                   unsigned threshold, float inv_keep, void* stream) {
   if (check_ph_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  int sms = 0, optin = 0;
-  cudaError_t err = device_limits(&sms, &optin);
-  if (err != cudaSuccess) return (int)err;
-  // two blocks per SM where one window allows it (each block also holds
-  // 1 KB of the SM's 228 KB for the runtime)
-  const int wpb = ph_windows(N, C, H, false, (size_t)optin / 2 - 1024, optin);
-  if (wpb == 0) return (int)cudaErrorInvalidConfiguration;
-  const PhLayout L = ph_layout(wpb, N, C, H, false);
-  const size_t smem = L.total * sizeof(float);
-  const bool dropout = keep != nullptr;
-  err = dropout ? set_smem(wblock_ph_fwd_kernel<true>, smem, nullptr)
-                : set_smem(wblock_ph_fwd_kernel<false>, smem, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + wpb - 1) / wpb;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FOCAL_PH_FWD_ARGS                                                                     \
-  static_cast<const float*>(x), static_cast<const float*>(wqkv),                              \
-      static_cast<const float*>(bqkv), static_cast<const float*>(wproj),                      \
-      static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),                  \
-      static_cast<const float*>(mask), static_cast<float*>(y),                                \
-      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, B, N, C, H,               \
-      mask != nullptr ? nW : 1, L
+  const int R = B * N;
+  float* qkv = static_cast<float*>(ws);
+  float* ao = qkv + (size_t)R * 3 * C;
+  cudaError_t err = launch_proj(
+      proj_gemm(static_cast<const float*>(x), C, static_cast<const float*>(wqkv), 3 * C,
+                static_cast<const float*>(bqkv), qkv, 3 * C, R, 3 * C, C),
+      ProjGemm{}, s);
+  if (err != cudaSuccess) return (int)err;
+  const focal::Geo g = focal::make_geo(B, H, N, C / H);
+  const size_t smem = attn_fwd_smem(g);
+  const bool dropout = keep != nullptr;
+  err = dropout ? set_smem(attn_fwd_kernel<true>, smem, nullptr)
+                : set_smem(attn_fwd_kernel<false>, smem, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)((g.total + g.pairs - 1) / g.pairs);
+#define FOCAL_PH_ATTN_ARGS                                                                    \
+  qkv, static_cast<const float*>(rel_bias), static_cast<const float*>(mask), ao,              \
+      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, g, C,                     \
+      mask != nullptr ? nW : 1
   if (dropout)
-    wblock_ph_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_PH_FWD_ARGS);
+    attn_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_PH_ATTN_ARGS);
   else
-    wblock_ph_fwd_kernel<false><<<grid, kThreads, smem, s>>>(FOCAL_PH_FWD_ARGS);
-#undef FOCAL_PH_FWD_ARGS
-  return (int)cudaGetLastError();
+    attn_fwd_kernel<false><<<grid, kThreads, smem, s>>>(FOCAL_PH_ATTN_ARGS);
+#undef FOCAL_PH_ATTN_ARGS
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return (int)launch_proj(proj_gemm(ao, C, static_cast<const float*>(wproj), C,
+                                    static_cast<const float*>(bproj), static_cast<float*>(y), C,
+                                    R, C, C),
+                          ProjGemm{}, s);
 }
 
 // Workspace the backward needs, in floats, for this geometry on the current
@@ -1180,7 +1223,7 @@ extern "C" int focal_wblock_ph_fwd(const void* x, const void* wqkv, const void* 
 // weight-gradient partials).
 extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
                                           long long* floats) {
-  return bwd_workspace(B, N, C, H, dropout, false, floats);
+  return bwd_workspace(B, N, C, H, dropout, floats);
 }
 
 // Backward (#3). Inputs: x, wqkv [C, 3C] and its transpose [3C, C], bqkv,
@@ -1195,25 +1238,110 @@ extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqk
                                 const void* mask, const void* dy, const void* keep,
                                 float inv_keep, void* dx, void* dweights, void* drel_bias,
                                 void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  return run_backward(false, x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep,
-                      dx, dweights, drel_bias, ws, B, N, C, H, nW, stream);
+  return run_backward(x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep, dx,
+                      dweights, drel_bias, ws, B, N, C, H, nW, stream);
 }
 
-// Per-head backward (#5): focal_wblock_bwd_workspace and focal_wblock_bwd
-// with the per-window kernel walking the heads. Same arguments and outputs;
-// keep comes from #4.
+// Workspace of the per-head backward (#5), in floats, for this geometry on
+// the current device (ph_bwd_plan).
 extern "C" int focal_wblock_ph_bwd_workspace(int B, int N, int C, int H, int dropout,
                                              long long* floats) {
-  return bwd_workspace(B, N, C, H, dropout, true, floats);
+  if (check_ph_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
+  if (B == 0) {
+    *floats = 0;
+    return 0;
+  }
+  const PhBwdPlan P = ph_bwd_plan(B, N, C, H, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  *floats = (long long)P.total;
+  return 0;
 }
 
+// Per-head backward (#5): focal_wblock_bwd's arguments and outputs, keep
+// from #4; `ws` holds focal_wblock_ph_bwd_workspace floats. Six launches on
+// `stream`: qkv = x Wqkv + bqkv and g = dy Wproj^T (one launch), the
+// attention backward (dqkv, the attention output, d rel_bias partials), dx =
+// dqkv Wqkv^T, the weight-gradient split partials (x^T dqkv, ao^T dy and
+// the column sums), and the two ordered reductions.
 extern "C" int focal_wblock_ph_bwd(const void* x, const void* wqkv, const void* bqkv,
                                    const void* wqkv_t, const void* wproj_t, const void* rel_bias,
                                    const void* mask, const void* dy, const void* keep,
                                    float inv_keep, void* dx, void* dweights, void* drel_bias,
                                    void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  return run_backward(true, x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep,
-                      dx, dweights, drel_bias, ws, B, N, C, H, nW, stream);
+  if (check_ph_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const bool dropout = keep != nullptr;
+  const PhBwdPlan P = ph_bwd_plan(B, N, C, H, dropout);
+  if (P.err != cudaSuccess) return (int)P.err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = B * N;
+  float* w = static_cast<float*>(ws);
+  float *qkv = w + P.qkv, *dqkv = w + P.dqkv, *g = w + P.g, *ao = w + P.ao;
+  const float* xf = static_cast<const float*>(x);
+  const float* dyf = static_cast<const float*>(dy);
+  // 1. qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
+  cudaError_t err = launch_proj(
+      proj_gemm(xf, C, static_cast<const float*>(wqkv), 3 * C, static_cast<const float*>(bqkv),
+                qkv, 3 * C, R, 3 * C, C),
+      proj_gemm(dyf, C, static_cast<const float*>(wproj_t), C, nullptr, g, C, R, C, C), s);
+  if (err != cudaSuccess) return (int)err;
+  // 2. the attention backward per (window, head)
+#define FOCAL_PH_ATTN_ARGS                                                                    \
+  qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),               \
+      static_cast<const unsigned char*>(keep), inv_keep, dqkv, ao, w + P.dbias, P.geo, C,    \
+      mask != nullptr ? nW : 1
+  if (dropout)
+    attn_bwd_kernel<true><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_PH_ATTN_ARGS);
+  else
+    attn_bwd_kernel<false><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_PH_ATTN_ARGS);
+#undef FOCAL_PH_ATTN_ARGS
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 3. dx = dqkv Wqkv^T
+  err = launch_proj(proj_gemm(dqkv, 3 * C, static_cast<const float*>(wqkv_t), C, nullptr,
+                              static_cast<float*>(dx), C, R, C, 3 * C),
+                    ProjGemm{}, s);
+  if (err != cudaSuccess) return (int)err;
+  // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
+  const size_t q = (size_t)3 * C * C;
+  err = set_smem(wgrad_gemm_kernel, focal::kGemmSmemBytes, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  wgrad_gemm_kernel<<<dim3(P.wtiles, P.splits), focal::kGemmThreads, focal::kGemmSmemBytes, s>>>(
+      wgrad_gemm(xf, dqkv, C, 3 * C, 0, q),
+      wgrad_gemm(ao, dyf, C, C, q + 3 * C, q + 3 * C + (size_t)C * C),
+      R, P.rows_per_split, w + P.wpart, P.E);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 5. the partials summed in split order, and d rel_bias in block order
+  reduce_partials_kernel<<<(int)((P.E + kThreads - 1) / kThreads), kThreads, 0, s>>>(
+      w + P.wpart, P.splits, (int)P.E, static_cast<float*>(dweights));
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int nn = H * N * N;
+  reduce_partials_kernel<<<(nn + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      w + P.dbias, P.attn_grid, nn, static_cast<float*>(drel_bias));
+  return (int)cudaGetLastError();
+}
+
+// The projections' product alone, for the checks: c = a b with a [M, K]
+// row-major or, with a_trans, c = a^T b with a stored [K, M], followed in c
+// by b's column sums (c then holds M N + N floats). b is [K, N]; N and
+// (a_trans ? M : K) must be multiples of 4. One launch on `stream`.
+extern "C" int focal_gemm_3xtf32(const void* a, const void* b, void* c, int M, int N, int K,
+                                 int a_trans, void* stream) {
+  if (M < 1 || N < 1 || K < 1 || N % 4 != 0 || (a_trans ? M : K) % 4 != 0)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* af = static_cast<const float*>(a);
+  const float* bf = static_cast<const float*>(b);
+  float* cf = static_cast<float*>(c);
+  if (!a_trans) return (int)launch_proj(proj_gemm(af, K, bf, N, nullptr, cf, N, M, N, K), ProjGemm{}, s);
+  cudaError_t err = set_smem(wgrad_gemm_kernel, focal::kGemmSmemBytes, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  const WgradGemm p = wgrad_gemm(af, bf, M, N, 0, (size_t)M * N);
+  wgrad_gemm_kernel<<<dim3(p.tiles, 1), focal::kGemmThreads, focal::kGemmSmemBytes, s>>>(
+      p, WgradGemm{}, K, K, cf, 0);
+  return (int)cudaGetLastError();
 }
 
 extern "C" const char* focal_cuda_error_string(int err) {

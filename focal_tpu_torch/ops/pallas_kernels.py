@@ -14,9 +14,10 @@ attention and output projection of a window in one kernel:
   #2 ``fused_window_block_dropout``: #1 with attention dropout, returning
      its uint8 keep mask [B_, H, N, N];
   #3 ``fused_window_block_backward``: the VJP of #1 and #2;
-  #4 ``fused_window_block_perhead``: #1 or #2 walking the heads one at a
-     time, for blocks too wide for #3 (``wblock_fits``);
-  #5 ``fused_window_block_perhead_backward``: the VJP of #4.
+  #4 ``fused_window_block_perhead``: #1 or #2 for blocks too wide for #3
+     (``wblock_fits``), as row-tiled projections over every row of the call
+     (tensor cores, 3xTF32) around an attention kernel per (window, head);
+  #5 ``fused_window_block_perhead_backward``: the VJP of #4, the same way.
 ``window_block_forward`` (eval) and ``window_block`` (training, an autograd
 pair) route each geometry to #1-#3 or to #4/#5.
 
@@ -267,6 +268,28 @@ def fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
 fused_window_block_backward.launches = 0
 
 
+def _check_perhead(name, C, H, *operands):
+    """The per-head kernels' extra needs: a head width that is a multiple of
+    4, and the projections' operands 16-byte aligned (float4 tile copies)."""
+    if (C // H) % 4:
+        raise ValueError(f"{name}: head width {C // H} is not a multiple of 4")
+    for t in operands:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: operands must be 16-byte aligned")
+
+
+def _workspace(name, lib, fn, dev, *geometry):
+    """A workspace of the floats the C entry point ``fn`` asks for this
+    geometry (its launch plan); raises if it has none."""
+    floats = ctypes.c_longlong(0)
+    with torch.cuda.device(dev):
+        err = fn(*geometry, ctypes.byref(floats))
+    if err != 0:
+        msg = lib.focal_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: no launch plan ({err}): {msg}")
+    return torch.empty(floats.value, dtype=torch.float32, device=dev)
+
+
 def _launch_backward(name, perhead, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate,
                      wqkv_t, wproj_t):
     """The CUDA path of #3 (or #5 with ``perhead``): validate, size the
@@ -274,31 +297,25 @@ def _launch_backward(name, perhead, x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
     B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
     dev = x.device
     _check("dy", dy, (B, N, C), dev)
-    if perhead and (C // H) % 4:
-        raise ValueError(f"{name}: head width {C // H} is not a multiple of 4")
     if keep is not None:
         if not 0.0 < rate < 1.0:
             raise ValueError(f"{name}: rate must be in (0, 1), got {rate}")
         _check("keep", keep, (B, H, N, N), dev, torch.uint8)
-    lib = _window_block_lib()
-    workspace, run = ((lib.focal_wblock_ph_bwd_workspace, lib.focal_wblock_ph_bwd) if perhead
-                      else (lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd))
-    floats = ctypes.c_longlong(0)
-    with torch.cuda.device(dev):
-        err = workspace(B, N, C, H, int(keep is not None), ctypes.byref(floats))
-    if err != 0:
-        msg = lib.focal_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: no launch plan ({err}): {msg}")
-    ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
-    dx = torch.empty_like(x)
-    dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
-    drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
     if wqkv_t is None:
         wqkv_t = wqkv.t().contiguous()
     if wproj_t is None:
         wproj_t = wproj.t().contiguous()
     _check("wqkv_t", wqkv_t, (3 * C, C), dev)
     _check("wproj_t", wproj_t, (C, C), dev)
+    if perhead:
+        _check_perhead(name, C, H, wqkv, wqkv_t, wproj_t, dy)
+    lib = _window_block_lib()
+    workspace, run = ((lib.focal_wblock_ph_bwd_workspace, lib.focal_wblock_ph_bwd) if perhead
+                      else (lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd))
+    ws = _workspace(name, lib, workspace, dev, B, N, C, H, int(keep is not None))
+    dx = torch.empty_like(x)
+    dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
+    drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
     _launch(name, run, dev,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wqkv_t.data_ptr(), wproj_t.data_ptr(),
@@ -316,11 +333,12 @@ def _launch_backward(name, perhead, x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
 def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
                                rate=0.0):
     """The function of #1 (rate 0) or #2 (rate > 0) for blocks too wide for
-    them (``wblock_fits`` false), walking the heads one at a time (#4): a
-    block keeps x, y and one head's q|k|v in shared memory, not every
-    head's. Arguments as fused_window_block_dropout; with rate > 0 the keep
-    mask is drawn from the same Philox counters as #2's, so #2 and #4 give
-    the same mask for the same seed and geometry.
+    them (``wblock_fits`` false) (#4): the qkv projection over all B_ N rows
+    of the call, the attention per (window, head) pair, the output
+    projection, the projections on the tensor cores (3xTF32, f32-accurate).
+    Arguments as fused_window_block_dropout; with rate > 0 the keep mask is
+    drawn from the same Philox counters as #2's, so #2 and #4 give the same
+    mask for the same seed and geometry.
 
     Returns (y [B_, N, C] f32, keep uint8 [B_, H, N, N], or None at rate 0).
 
@@ -337,15 +355,17 @@ def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None,
             keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
         return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
                                             rate), keep
+    name = "fused_window_block_perhead"
     B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-    if (C // H) % 4:
-        raise ValueError(f"fused_window_block_perhead: head width {C // H} is not a multiple of 4")
+    _check_perhead(name, C, H, wqkv, wproj)
+    lib = _window_block_lib()
+    ws = _workspace(name, lib, lib.focal_wblock_ph_fwd_workspace, x.device, B, N, C, H)
     y = torch.empty_like(x)
     keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
-    _launch("fused_window_block_perhead", _window_block_lib().focal_wblock_ph_fwd, x.device,
+    _launch(name, lib.focal_wblock_ph_fwd, x.device,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep), B, N, C, H, nW,
-            int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
+            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep), ws.data_ptr(), B, N, C, H,
+            nW, int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
     fused_window_block_perhead.launches += 1
     return y, keep
 
@@ -355,10 +375,11 @@ fused_window_block_perhead.launches = 0
 
 def fused_window_block_perhead_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
                                         keep=None, rate=0.0, wqkv_t=None, wproj_t=None):
-    """VJP of #4 (#5): fused_window_block_backward's arguments and results,
-    walking the heads one at a time; ``keep`` is #4's mask. The weight and
-    bias-table gradients come from the same fixed-order sums as #3's: two
-    calls give the same bits.
+    """VJP of #4 (#5): fused_window_block_backward's arguments and results;
+    ``keep`` is #4's mask. The projections (qkv and g = dy Wproj^T
+    recomputed, dx) and the weight gradients are row-tiled tensor-core
+    products (3xTF32); the weight and bias-table gradients are fixed-order
+    split sums: two calls give the same bits.
 
     Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_bwd_impl
     (_wblock_ph_bwd_kernel). CPU tensors take the plain version.
@@ -373,6 +394,50 @@ def fused_window_block_perhead_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, m
 
 
 fused_window_block_perhead_backward.launches = 0
+
+
+def tf32_round(t):
+    """``t`` (f32) rounded to TF32 as ``cvt.rna.tf32.f32`` rounds it: to
+    nearest on the low 13 mantissa bits, ties away from zero, those bits
+    then clear (an f32 with 11 significant bits)."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def gemm_3xtf32_reference(a, b, passes=3):
+    """Plain emulation of the per-head kernels' tensor-core product (csrc/
+    gemm_3xtf32.cuh): a = a_hi + a_lo, b = b_hi + b_lo, each part rounded to
+    TF32, and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi in f32. ``passes=1``
+    is one TF32 product, a_hi b_hi alone."""
+    a_hi, b_hi = tf32_round(a), tf32_round(b)
+    if passes == 1:
+        return a_hi @ b_hi
+    a_lo, b_lo = tf32_round(a - a_hi), tf32_round(b - b_hi)
+    return a_lo @ b_hi + a_hi @ b_lo + a_hi @ b_hi
+
+
+def gemm_3xtf32(a, b, transpose_a=False):
+    """a b (a [M, K]), or a^T b (a [K, M]) with ``transpose_a``, by the
+    tensor-core product core of #4 and #5 alone: the projections' kernel, or
+    with ``transpose_a`` the weight gradients' (one split), f32 [K, N] b.
+    For the checks; the per-head wrappers launch it themselves. CPU tensors
+    take gemm_3xtf32_reference."""
+    if a.device.type == "cpu":
+        return gemm_3xtf32_reference(a.t() if transpose_a else a, b)
+    K, M = a.shape if transpose_a else a.shape[::-1]
+    N = b.shape[1]
+    for name, t, shape in (("a", a, tuple(a.shape)), ("b", b, (K, N))):
+        _check(name, t, shape, a.device, who="gemm_3xtf32")
+        if t.data_ptr() % 16:
+            raise ValueError(f"gemm_3xtf32: {name} must be 16-byte aligned")
+    c = torch.empty(M * N + (N if transpose_a else 0), dtype=torch.float32, device=a.device)
+    _launch("gemm_3xtf32", _window_block_lib().focal_gemm_3xtf32, a.device, a.data_ptr(),
+            b.data_ptr(), c.data_ptr(), M, N, K, int(transpose_a))
+    gemm_3xtf32.launches += 1
+    return c[:M * N].view(M, N)
+
+
+gemm_3xtf32.launches = 0
 
 
 def window_block_forward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
@@ -529,13 +594,7 @@ def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate):
     _check_rows(who, "g", g, (B, H, N, hd), dev)
     lib = _window_attention_lib()
     dropout = _dropout_args(seed, rate)
-    floats = ctypes.c_longlong(0)
-    with torch.cuda.device(dev):
-        err = lib.focal_wattn_bwd_workspace(B, H, N, hd, dropout[0], ctypes.byref(floats))
-    if err != 0:
-        msg = lib.focal_cuda_error_string(err).decode()
-        raise RuntimeError(f"{who}: no launch plan ({err}): {msg}")
-    ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    ws = _workspace(who, lib, lib.focal_wattn_bwd_workspace, dev, B, H, N, hd, dropout[0])
     dq, dk, dv = (torch.empty((B, H, N, hd), dtype=torch.float32, device=dev) for _ in range(3))
     drel_bias = (torch.zeros if B == 0 else torch.empty)((H, N, N), dtype=torch.float32, device=dev)
     _launch(who, lib.focal_wattn_bwd, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
@@ -735,15 +794,20 @@ def _window_block_lib():
         lib.focal_wblock_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.focal_wblock_fwd_dropout.argtypes = (
             [p] * 9 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
-        lib.focal_wblock_ph_fwd.argtypes = lib.focal_wblock_fwd_dropout.argtypes
+        lib.focal_wblock_ph_fwd_workspace.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.focal_wblock_ph_fwd.argtypes = (
+            [p] * 10 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
         for fn in (lib.focal_wblock_bwd_workspace, lib.focal_wblock_ph_bwd_workspace):
             fn.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
         for fn in (lib.focal_wblock_bwd, lib.focal_wblock_ph_bwd):
             fn.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
-        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_dropout, lib.focal_wblock_ph_fwd,
+        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_dropout,
+                   lib.focal_wblock_ph_fwd_workspace, lib.focal_wblock_ph_fwd,
                    lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd,
                    lib.focal_wblock_ph_bwd_workspace, lib.focal_wblock_ph_bwd):
             fn.restype = ctypes.c_int
+        lib.focal_gemm_3xtf32.argtypes = [p] * 3 + [i] * 4 + [p]
+        lib.focal_gemm_3xtf32.restype = ctypes.c_int
         lib.focal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.focal_cuda_error_string.restype = ctypes.c_char_p
     return lib

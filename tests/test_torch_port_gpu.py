@@ -185,20 +185,22 @@ def test_window_block_function_gradients_on_card(transposed):
 
 # ---------------------------------------------------------------------------
 # per-head kernels: #4 (forward, with and without dropout) and #5 (backward)
-# at the MOD_WIDE widths C = 512 (hd 128) and 1024 (hd 256), 4 heads; window
-# batches that are not a multiple of the windows per block (2 or 1). Same
-# tolerances as #1-#3.
+# at the MOD_WIDE widths C = 512 (hd 128) and 1024 (hd 256), 4 heads; row
+# counts R = 9 B_ that are not a multiple of the 128-row projection tile
+# (B_ = 3, 37, 131). Same tolerances as #1-#3; the projections' tensor-core
+# product (3xTF32) also against its plain emulation.
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [37, 131])
 @pytest.mark.parametrize("C", [512, 1024])
 @pytest.mark.parametrize("nW", [0, 4])
-def test_perhead_forward_matches_plain(C, nW):
+def test_perhead_forward_matches_plain(B, C, nW):
     from focal_tpu_torch.ops.pallas_kernels import (
         fused_window_block_perhead, fused_window_block_reference)
 
     dev = _card()
-    B, N, H = 131, 9, 4
-    args = _args(np.random.default_rng(C + nW), B, N, C, H, nW, dev)
+    N, H = 9, 4
+    args = _args(np.random.default_rng(C + nW + B), B, N, C, H, nW, dev)
     before = fused_window_block_perhead.launches
     y, keep = fused_window_block_perhead(*args)
     torch.cuda.synchronize()
@@ -211,17 +213,20 @@ def test_perhead_forward_matches_plain(C, nW):
     assert float((y - fused_window_block_reference(*args, keep, rate)).abs().max()) <= 1e-4
     kept = float(keep.double().mean())
     assert abs(kept - (1 - rate)) <= 5 * (rate * (1 - rate) / keep.numel()) ** 0.5, kept
+    y2, keep2 = fused_window_block_perhead(*args, seed=77, rate=rate)
+    assert torch.equal(y, y2) and torch.equal(keep, keep2)
 
 
 @pytest.mark.gpu
-def test_perhead_mask_equals_dropout_kernels_mask():
+@pytest.mark.parametrize("C", [512, 1024])
+def test_perhead_mask_equals_dropout_kernels_mask(C):
     """#4 draws from #2's Philox counters: the same seed and geometry give
-    the same keep mask bit for bit (C = 512, where #2 also launches)."""
+    the same keep mask bit for bit (#2 launches at both widths)."""
     from focal_tpu_torch.ops.pallas_kernels import (
         fused_window_block_dropout, fused_window_block_perhead)
 
     dev = _card()
-    args = _args(np.random.default_rng(3), 70, 9, 512, 4, 4, dev)
+    args = _args(np.random.default_rng(3), 70, 9, C, 4, 4, dev)
     _, k2 = fused_window_block_dropout(*args, seed=2024, rate=0.2)
     _, k4 = fused_window_block_perhead(*args, seed=2024, rate=0.2)
     torch.cuda.synchronize()
@@ -229,16 +234,17 @@ def test_perhead_mask_equals_dropout_kernels_mask():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B", [3, 131])
 @pytest.mark.parametrize("C", [512, 1024])
 @pytest.mark.parametrize("nW,rate", [(0, 0.0), (4, 0.0), (4, 0.2)])
-def test_perhead_backward_matches_autograd_of_plain(C, nW, rate):
+def test_perhead_backward_matches_autograd_of_plain(B, C, nW, rate):
     from focal_tpu_torch.ops.pallas_kernels import (
         fused_window_block_backward_reference, fused_window_block_perhead,
         fused_window_block_perhead_backward)
 
     dev = _card()
-    B, N, H = 131, 9, 4
-    rng = np.random.default_rng(C + nW + 1)
+    N, H = 9, 4
+    rng = np.random.default_rng(C + nW + B + 1)
     args = _args(rng, B, N, C, H, nW, dev)
     dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
     keep = fused_window_block_perhead(*args, seed=5, rate=rate)[1] if rate else None
@@ -253,6 +259,35 @@ def test_perhead_backward_matches_autograd_of_plain(C, nW, rate):
     again = fused_window_block_perhead_backward(*args, dy, keep, rate)
     for g, h in zip(got, again):  # fixed-order sums: bitwise repeatable
         assert torch.equal(g, h)
+
+
+# (M, N, K, a transposed): the projections at MOD_WIDE shapes with ragged
+# rows (qkv at C 512, dx at C 1024: K = 3C) and the weight gradients with a
+# ragged row count K
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K,trans", [
+    (333, 1536, 512, False), (4608, 1024, 3072, False), (512, 1536, 333, True),
+    (1024, 1024, 4608, True),
+])
+def test_gemm_3xtf32_matches_its_emulation(M, N, K, trans):
+    """The tensor-core core of #4/#5 against its plain emulation
+    (gemm_3xtf32_reference) and the exact product: within 1e-5 of both,
+    relative; one TF32 product is ~4x outside the f32 gates."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(M + N + K)
+    a = rng.normal(size=(K, M) if trans else (M, K)).astype(np.float32)
+    b = (rng.normal(size=(K, N)) * K**-0.5).astype(np.float32)
+    before = pk.gemm_3xtf32.launches
+    got = pk.gemm_3xtf32(torch.from_numpy(a).to(dev), torch.from_numpy(b).to(dev), trans)
+    torch.cuda.synchronize()
+    assert pk.gemm_3xtf32.launches == before + 1 and got.shape == (M, N)
+    at = torch.from_numpy(a.T.copy() if trans else a)
+    emulated = pk.gemm_3xtf32_reference(at, torch.from_numpy(b))
+    exact = torch.from_numpy((at.double().numpy() @ b.astype(np.float64)))
+    assert _rel(got.cpu(), emulated) <= 1e-5
+    assert _rel(got.cpu().double(), exact) <= 1e-5
 
 
 @pytest.mark.gpu
@@ -287,7 +322,8 @@ def test_window_block_routes_wide_blocks_to_the_perhead_kernels():
 @pytest.mark.gpu
 def test_wrappers_raise_on_a_failed_launch_plan():
     """A geometry whose window does not fit a block raises; nothing falls
-    back: #3 at C = 1024 (the reason #5 exists), #4 and #5 at C = 4096."""
+    back: #3 at C = 1024 (the reason #5 exists), #4 and #5 at C = 4096
+    (hd 1024: a head's rows do not fit the attention's shared memory)."""
     from focal_tpu_torch.ops import pallas_kernels as pk
 
     dev = _card()
