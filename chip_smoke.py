@@ -28,8 +28,9 @@ result line if any fails):
      plain forward fed #2's own keep mask (1e-4 absolute), #2's keep rate
      within 5 sigma of 1 - attn_drop_rate per launch, #3's six gradients
      (with #2's mask, and without a mask) against autograd of the plain
-     version as max|kernel - plain| / max|plain| <= 1e-4 (long f32 sums),
-     #3 given the weights' [out, in] copies as the Swin block gives them;
+     version as max|kernel - plain| / max|plain| <= 1e-4 (long f32 sums)
+     and the same bits on a second call, #3 given the weights' [out, in]
+     copies as the Swin block gives them;
   7. the training path: FOCAL pretrain steps of the MOD SW_Transformer at
      full width (flax-style init, seed 0, batch 256, synthetic data resident
      on the card, a fixed idx as bench.py uses): warm-up, then timed steps
@@ -41,8 +42,16 @@ result line if any fails):
      max|delta| / max|plain| <= 1e-4;
   8. timing of #2 and #3 at each training geometry: kernel, plain, library
      (scaled_dot_product_attention with dropout; the autograd backward of
-     the library block) and bound;
-  9. a torch.profiler trace of one training step;
+     the library block), the bounds on the f32 CUDA cores, on the TF32
+     tensor cores (3 passes) and by the bytes the design moves
+     (design_bytes), TFLOP/s; then five profiled calls of each of #2 and
+     #3 at every training geometry, which fail the run if any device
+     kernel they launch is not one of csrc/window_block.cu's, their time
+     split by kernel name into GEMM, attention, weight gradient and
+     reduction;
+  9. a torch.profiler trace of one training step (#2/#3's device time in
+     it by phase), the step beside the one with the per-window #2/#3
+     (PARENT_STEPS);
  10. kernels #4 and #5 vs plain at every per-head block geometry of
      MOD_WIDE (C 512 and 1024, 4 heads) at the wide training batch (64
      samples, views fused to 128): #4 at rate 0 (1e-4 absolute), #4 with
@@ -63,17 +72,14 @@ result line if any fails):
      state (and from the trained state beside the plain step on the CPU,
      reported but not held: AdamW at lr 1e-3 grows the 184M-parameter
      model's attention logits, so any f32 summation order moves its loss),
-     and a torch.profiler trace of one step (#4's and #5's device time in
-     it by phase); p50, samples/s, idle share and peak memory printed beside
-     PR 3's (the per-window #4/#5);
+     and a torch.profiler trace of one step (#2-#5's device time in it by
+     phase); p50, samples/s, idle share and peak memory printed beside the
+     step with the per-window #2/#3 (PARENT_STEPS);
  13. timing of #4 and #5 at each per-head geometry (kernel, plain, library,
-     bound on the f32 CUDA cores and on the TF32 tensor cores, TFLOP/s),
-     and beside them #1 and #3 at the C = 512 geometries, where they launch
-     too; then one profiled call of each of #4 and #5 at every per-head
-     geometry (audio stage 1 among them), which fails the run if any device
-     kernel it launches is not one of csrc/window_block.cu's, and their
-     time split by kernel name into GEMM, attention, weight gradient and
-     reduction;
+     bounds and TFLOP/s as phase 8 times #2 and #3; #4 at rate 0, and #1
+     beside it at C = 512), #2 and #3 at MOD_WIDE stage 0 as phase 8; then
+     the profiled calls of phase 8 for #2/#3 at stage 0 and for #4/#5 at
+     every per-head geometry;
  14. kernels #13 (fused_conv_tower) and #14 (fused_conv_tower_backward) vs
      plain at every conv-tower geometry of the DeepSense pretrain step: MOD
      (batch 256, views fused to 512: R 5,120 rows of S 20, C 64) and
@@ -188,11 +194,10 @@ GRAD_TOL = 1e-4           # relative: max|kernel - plain| / max|plain|
 SLICE_TOL = 1e-5
 LOSS_TOL = 1e-5           # relative
 PK = "focal_tpu/ops/pallas_kernels.py"
-# the MOD_WIDE pretrain step with PR 3's per-window #4/#5 (PERF.md, PR 3:
-# p50, samples/s and idle share from call 5, peak memory from call 2; NVIDIA
-# H100 80GB HBM3, 700.00 W)
-PR3_WIDE_STEP = {"p50_ms": 490.762, "samples_per_s": 130.4, "idle_share": 0.004,
-                 "peak_mb": 9720.5}
+# the pretrain steps with the per-window #2 and #3, before they ran on the
+# tensor cores (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W)
+PARENT_STEPS = {"MOD": {"p50_ms": 135.740, "idle_share": 0.256, "peak_mb": 6938.5},
+                "MOD_WIDE": {"p50_ms": 210.455, "idle_share": 0.021, "peak_mb": 9716.9}}
 
 
 def log(msg):
@@ -202,13 +207,15 @@ def log(msg):
 def kernel_of(ptxas_line):
     """The kernel a ptxas "Compiling entry function" line names, read from
     its mangled name (a length-prefixed identifier ending in _kernel, with
-    <true> or <false> for a bool template argument)."""
+    its bool or int template argument: <true>, <false>, <64>)."""
     for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", ptxas_line):
         n, ident = int(m.group(1)), m.group(2)
         if len(ident) >= n and ident[:n].endswith("_kernel"):
-            rest = ident[n:]
-            return ident[:n] + ("<true>" if rest.startswith("ILb1E") else
-                                "<false>" if rest.startswith("ILb0E") else "")
+            t = re.match(r"IL([bi])(\d+)E", ident[n:])
+            if not t:
+                return ident[:n]
+            arg = {"1": "true", "0": "false"}[t.group(2)] if t.group(1) == "b" else t.group(2)
+            return f"{ident[:n]}<{arg}>"
     return ptxas_line.strip()
 
 
@@ -256,9 +263,31 @@ def bound(flops, nbytes):
 
 
 def tc_bound(flops, nbytes):
-    """The bound of #4 / #5 on the units they run on: 3 TF32 products an f32
+    """The bound of #2-#5 on the units they run on: 3 TF32 products an f32
     one (3xTF32) at the tensor cores' TF32 peak, or the bytes."""
     return 1e3 * max(3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S)
+
+
+def design_bytes(g, backward, sms):
+    """Bytes that #2-#5 as designed move, each workspace written once and
+    read once a phase: forward x -> qkv, qkv -> ao, ao -> y (10 C floats a
+    row); backward x, dy -> qkv, g; qkv, g -> dqkv, ao; dqkv -> dx; x,
+    dqkv, ao, dy -> the weight gradients (24 C); the keep mask, the weights
+    and, in the backward, the split partials written and read (the split
+    count as csrc/window_block.cu's bwd_plan sets it on ``sms`` SMs). What
+    the algorithm needs is work()/work_backward()'s count."""
+    B, N, C, H = g["windows"], g["N"], g["C"], g["heads"]
+    R = B * N
+    keep = B * H * N * N
+    if not backward:
+        return 4 * (10 * R * C + 4 * C * C + 4 * C + H * N * N) + keep
+    bn = 128 if C % 128 == 0 else 64  # the tile width (tile_bn)
+    wtiles = -(-C // 128) * (-(-3 * C // bn) + -(-C // bn))
+    splits = max(1, min(-(-4 * sms // wtiles), -(-R // 256)))
+    rps = -(-R // splits)
+    rps = -(-rps // 32) * 32
+    E = 4 * C * C + 4 * C
+    return 4 * (24 * R * C + 7 * C * C + 3 * C + 2 * H * N * N + 2 * -(-R // rps) * E + E) + keep
 
 
 def work(g):
@@ -355,6 +384,59 @@ def library_backward_ms(torch, g, args, dy, rate):
     return ms
 
 
+def time_training(torch, pk, fwd, bwd, names, g, gen, dev, rate, sms, tag):
+    """The training forward ``fwd`` (#2 or #4, with dropout) and backward
+    ``bwd`` (#3 or #5) at geometry g, stored in g: kernel, plain version and
+    library yardstick times; the f32 bound (work_dropout, work_backward),
+    the 3xTF32 one (tc_bound), the bound of the bytes the design moves
+    (design_bytes); TFLOP/s."""
+    args = make_inputs(torch, g, gen, dev)
+    x, wqkv, bqkv, wproj, bproj, rel_bias, mask = args
+    attn_mask = library_mask(torch, g, rel_bias, mask)
+    _, keep = fwd(*args, 7, rate)
+    dy = torch.randn(x.shape, generator=gen).to(dev)
+    tr = transposed(args)
+    g["fwd_ms"] = time_ms(torch, lambda: fwd(*args, 7, rate))
+    g["fwd_plain_ms"] = time_ms(
+        torch, lambda: pk.fused_window_block_dropout_reference(*args, keep, rate))
+    g["fwd_library_ms"] = time_ms(torch, lambda: library_block(
+        torch, x, wqkv, bqkv, wproj, bproj, attn_mask, g["heads"], rate))
+    g["bwd_ms"] = time_ms(torch, lambda: bwd(*args, dy, keep, rate, *tr))
+    g["bwd_plain_ms"] = time_ms(
+        torch, lambda: pk.fused_window_block_backward_reference(*args, dy, keep, rate))
+    g["bwd_library_ms"] = library_backward_ms(torch, g, args, dy, rate)
+    for d, (f, b, bound_ms, by) in (("fwd", work_dropout(g)), ("bwd", work_backward(g, True))):
+        g.update({f"{d}_flops": f, f"{d}_bytes": b, f"{d}_bound_ms": bound_ms,
+                  f"{d}_bound_by": by, f"{d}_bound_tc_ms": tc_bound(f, b),
+                  f"{d}_design_bytes": design_bytes(g, d == "bwd", sms),
+                  f"{d}_tflops": f / g[f"{d}_ms"] / 1e9})
+        g[f"{d}_bound_design_ms"] = 1e3 * g[f"{d}_design_bytes"] / HBM_BYTES_PER_S
+    log(f"[{tag}] {g['name']} (windows {g['windows']}, C {g['C']}): " + "; ".join(
+        f"{name} {g[f'{d}_ms']:.4f} ms (plain {g[f'{d}_plain_ms']:.4f}, library "
+        f"{g[f'{d}_library_ms']:.4f}, bound f32 {g[f'{d}_bound_ms']:.4f}, TF32x3 "
+        f"{g[f'{d}_bound_tc_ms']:.4f}, design bytes {g[f'{d}_bound_design_ms']:.4f}, "
+        f"{g[f'{d}_tflops']:.2f} TFLOP/s)" for d, name in zip(("fwd", "bwd"), names)))
+
+
+TRAIN_KEYS = tuple(f"{d}_{k}" for d in ("fwd", "bwd") for k in (
+    "ms", "plain_ms", "library_ms", "bound_ms", "bound_tc_ms", "bound_design_ms", "flops",
+    "bytes", "design_bytes"))
+
+
+def step_totals(geos, tag, names, launches):
+    """time_training's numbers summed over one step (each geometry times
+    its launches a forward), logged."""
+    tot = {k: sum(g["per_forward"] * g[k] for g in geos) for k in TRAIN_KEYS}
+    log(f"[{tag}] one step ({launches} launches each): " + "; ".join(
+        f"{name} {tot[f'{d}_ms']:.3f} ms (plain {tot[f'{d}_plain_ms']:.3f}, library "
+        f"{tot[f'{d}_library_ms']:.3f}, bound f32 {tot[f'{d}_bound_ms']:.3f}, TF32x3 "
+        f"{tot[f'{d}_bound_tc_ms']:.3f}, design bytes {tot[f'{d}_bound_design_ms']:.3f} "
+        f"({tot[f'{d}_design_bytes'] / 1e9:.3f} GB), {tot[f'{d}_flops'] / 1e9:.1f} GFLOP, "
+        f"{tot[f'{d}_flops'] / tot[f'{d}_ms'] / 1e9:.2f} TFLOP/s)"
+        for d, name in zip(("fwd", "bwd"), names)))
+    return tot
+
+
 def transposed(args):
     """wqkv and wproj in nn.Linear's [out, in] layout, which #3 and #5 read
     and the Swin block passes them."""
@@ -402,12 +484,12 @@ def window_block_kernels():
                               f.read()))
 
 
-# the phase of #4 and #5 each of their window_block.cu kernels serves, and
-# how many times one call of #4 (fwd) or #5 (bwd) launches it
+# the phase of #2-#5 each of their window_block.cu kernels serves, and how
+# many times one call of #2 or #4 (fwd) or of #3 or #5 (bwd) launches it
 WB_PHASES = {"proj_gemm_kernel": "GEMM", "attn_fwd_kernel": "attention",
              "attn_bwd_kernel": "attention", "wgrad_gemm_kernel": "weight gradient",
              "reduce_partials_kernel": "reduction"}
-PH_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
+WB_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
                "bwd": {"proj_gemm_kernel": 2, "attn_bwd_kernel": 1, "wgrad_gemm_kernel": 1,
                        "reduce_partials_kernel": 2}}
 PROFILE_REPS = 5
@@ -418,7 +500,7 @@ def kernel_phase_split(torch, fn, launches):
     time per call (its mean per launch times ``launches[name]``: a short
     trace may lose a few records) and those times by WB_PHASES. Raises if a
     device kernel (or copy) ran that is not one of window_block.cu's (no
-    cuBLAS or library kernel may run under the per-head wrappers), or not
+    cuBLAS or library kernel may run under the training wrappers), or not
     one of ``launches``, or if one of ``launches`` left no record."""
     def calls():
         # pauses around the calls: in a process that had traced before, a
@@ -453,27 +535,62 @@ def kernel_phase_split(torch, fn, launches):
             "complete": all(k["count"] == PROFILE_REPS * launches[n] for n, k in kernels.items())}
 
 
-def perhead_profiles(torch, pk, g, gen, dev, rate):
-    """#4 (with dropout) and #5 at geometry g profiled after a warm-up
-    call, split by kernel name (kernel_phase_split)."""
+def block_profiles(torch, fwd, bwd, names, g, gen, dev, rate, tag):
+    """The training forward ``fwd`` (#2 or #4, with dropout) and its
+    backward ``bwd`` (#3 or #5) at geometry g profiled after a warm-up
+    call, split by kernel name (kernel_phase_split); ``names`` label them."""
     args = make_inputs(torch, g, gen, dev)
     tr = transposed(args)
     dy = torch.randn(args[0].shape, generator=gen).to(dev)
-    _, keep = pk.fused_window_block_perhead(*args, 7, rate)
-    pk.fused_window_block_perhead_backward(*args, dy, keep, rate, *tr)
+    _, keep = fwd(*args, 7, rate)
+    bwd(*args, dy, keep, rate, *tr)
     torch.cuda.synchronize()
-    out = {"fwd": kernel_phase_split(torch, lambda: pk.fused_window_block_perhead(*args, 7, rate),
-                                     PH_LAUNCHES["fwd"]),
-           "bwd": kernel_phase_split(torch, lambda: pk.fused_window_block_perhead_backward(
-               *args, dy, keep, rate, *tr), PH_LAUNCHES["bwd"])}
-    for d, name in (("fwd", "#4"), ("bwd", "#5")):
+    out = {"fwd": kernel_phase_split(torch, lambda: fwd(*args, 7, rate), WB_LAUNCHES["fwd"]),
+           "bwd": kernel_phase_split(torch, lambda: bwd(*args, dy, keep, rate, *tr),
+                                     WB_LAUNCHES["bwd"])}
+    for d, name in zip(("fwd", "bwd"), names):
         s = out[d]
-        log(f"[profile-perhead] {g['name']} (windows {g['windows']}, C {g['C']}) {name}: device "
+        log(f"[{tag}] {g['name']} (windows {g['windows']}, C {g['C']}) {name}: device "
             f"{s['device_ms']:.4f} ms a call; " + ", ".join(
                 f"{p} {ms:.4f}" for p, ms in sorted(s["phases"].items(), key=lambda kv: -kv[1]))
             + "; records " + ", ".join(f"{k} x{v['count']}" for k, v in s["kernels"].items())
             + f" of {PROFILE_REPS} calls")
     return out
+
+
+def profile_split(torch, fwd, bwd, names, geos, gen, dev, rate, tag):
+    """block_profiles at every geometry of ``geos``; the device time by
+    phase summed over one step (each geometry times its launches a
+    forward)."""
+    split = {"fwd": {}, "bwd": {}}
+    for g in geos:
+        g["profile"] = block_profiles(torch, fwd, bwd, names, g, gen, dev, rate, tag)
+        for d in ("fwd", "bwd"):
+            for phase, ms in g["profile"][d]["phases"].items():
+                split[d][phase] = split[d].get(phase, 0.0) + g["per_forward"] * ms
+    log(f"[{tag}] one step, device ms by phase: {names[0]} {split['fwd']}; "
+        f"{names[1]} {split['bwd']}")
+    return split
+
+
+def block_device_ms(prof):
+    """The device time of #2-#5's kernels in a profiled step, by phase."""
+    out = {}
+    for r in prof["rows"]:
+        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", r["name"])
+        if m and m.group(1) in WB_PHASES:
+            out[WB_PHASES[m.group(1)]] = out.get(WB_PHASES[m.group(1)], 0.0) + r["device_ms"]
+    return out
+
+
+def beside_parent(tag, dataset, run):
+    """The step beside the parent's (PARENT_STEPS)."""
+    p = PARENT_STEPS[dataset]
+    log(f"[{tag}] beside the per-window #2/#3 ({dataset}: p50 {p['p50_ms']:.3f} ms, idle share "
+        f"{p['idle_share']:.3f}, peak {p['peak_mb']:.1f} MiB): p50 {run['p50_ms']:.3f} ms "
+        f"({run['p50_ms'] / p['p50_ms']:.3f}x), {run['samples_per_s']:.1f} samples/s, idle share "
+        f"{run['idle_share']:.3f}, peak memory {run['peak_mb']:.1f} MiB; #2-#5 device time in the "
+        f"profiled step by phase (ms): {run['block_device_ms']}")
 
 
 def zero_counts(kernels):
@@ -1315,7 +1432,10 @@ def main():
         errs = {}
         for tag, kp in (("keep", keep), ("nomask", None)):
             got = bwd(*args, dy, kp, rate, *tr)
+            again = bwd(*args, dy, kp, rate, *tr)
             torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{g['name']}: #3 gives other bits on a second call ({tag})")
             want = pk.fused_window_block_backward_reference(*args, dy, kp, rate)
             errs[tag] = max(rel_err(a, b) for a, b in zip(got, want))
             grad_abs = max(grad_abs, *(float((a - b).abs().max()) for a, b in zip(got, want)))
@@ -1324,7 +1444,8 @@ def main():
         drop_err, grad_err = max(drop_err, err), max(grad_err, *errs.values())
         log(f"[check-train] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']}: "
             f"#2 max|kernel-plain| {err:.3e}, keep rate {kept:.5f} ({(kept - 1 + rate) / sigma:+.2f} "
-            f"sigma); #3 max rel err {errs['keep']:.3e} (mask), {errs['nomask']:.3e} (no mask)")
+            f"sigma); #3 max rel err {errs['keep']:.3e} (mask), {errs['nomask']:.3e} (no mask), "
+            "repeatable")
         if not err <= KERNEL_TOL:
             raise AssertionError(f"{g['name']}: #2 differs from plain by {err}")
         if not abs(kept - (1 - rate)) <= 5 * sigma:
@@ -1342,50 +1463,22 @@ def main():
     train_launches = train["launches"]
     p50_ms = train["p50_ms"]
 
-    # ---- 8. #2 and #3 timing per training geometry
-    ttot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
-                             "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms")}
-    tflops = {"fwd": [0, 0], "bwd": [0, 0]}
-    for gi, g in enumerate(tgeos):
-        args = make_inputs(torch, g, gen, dev)
-        x, wqkv, bqkv, wproj, bproj, rel_bias, mask = args
-        attn_mask = library_mask(torch, g, rel_bias, mask)
-        _, keep = fwd_drop(*args, 7, rate)
-        dy = torch.randn(x.shape, generator=gen).to(dev)
-        g["fwd_ms"] = time_ms(torch, lambda: fwd_drop(*args, 7, rate))
-        g["fwd_plain_ms"] = time_ms(
-            torch, lambda: pk.fused_window_block_dropout_reference(*args, keep, rate))
-        g["fwd_library_ms"] = time_ms(torch, lambda: library_block(
-            torch, x, wqkv, bqkv, wproj, bproj, attn_mask, g["heads"], rate))
-        tr = transposed(args)
-        g["bwd_ms"] = time_ms(torch, lambda: bwd(*args, dy, keep, rate, *tr))
-        g["bwd_plain_ms"] = time_ms(
-            torch, lambda: pk.fused_window_block_backward_reference(*args, dy, keep, rate))
-        g["bwd_library_ms"] = library_backward_ms(torch, g, args, dy, rate)
-        f, b, g["fwd_bound_ms"], g["fwd_bound_by"] = work_dropout(g)
-        tflops["fwd"][0] += f * g["per_forward"]
-        tflops["fwd"][1] += b * g["per_forward"]
-        f2, b2, g["bwd_bound_ms"], g["bwd_bound_by"] = work_backward(g, True)
-        tflops["bwd"][0] += f2 * g["per_forward"]
-        tflops["bwd"][1] += b2 * g["per_forward"]
-        g["fwd_gflop"], g["bwd_gflop"] = f / 1e9, f2 / 1e9
-        log(f"[time-train] {g['name']}: #2 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
-            f"library {g['fwd_library_ms']:.4f}, bound {g['fwd_bound_ms']:.4f}, "
-            f"{f / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #3 {g['bwd_ms']:.4f} ms (plain "
-            f"{g['bwd_plain_ms']:.4f}, library {g['bwd_library_ms']:.4f}, bound "
-            f"{g['bwd_bound_ms']:.4f}, {f2 / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
-        for k in ttot:
-            ttot[k] += g["per_forward"] * g[k]
-    log(f"[time-train] one step (16 launches each): #2 {ttot['fwd_ms']:.3f} ms (plain "
-        f"{ttot['fwd_plain_ms']:.3f}, library {ttot['fwd_library_ms']:.3f}, bound "
-        f"{ttot['fwd_bound_ms']:.3f}); #3 {ttot['bwd_ms']:.3f} ms (plain {ttot['bwd_plain_ms']:.3f}, "
-        f"library {ttot['bwd_library_ms']:.3f}, bound {ttot['bwd_bound_ms']:.3f}); "
-        f"share of the p50 step {(ttot['fwd_ms'] + ttot['bwd_ms']) / p50_ms:.3f}")
+    # ---- 8. #2 and #3 timing per training geometry, and profiled by phase
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for g in tgeos:
+        time_training(torch, pk, fwd_drop, bwd, ("#2", "#3"), g, gen, dev, rate, sms, "time-train")
+    ttot = step_totals(tgeos, "time-train", ("#2", "#3"), per_fwd)
+    log(f"[time-train] share of the p50 step {(ttot['fwd_ms'] + ttot['bwd_ms']) / p50_ms:.3f}")
+    train_split = profile_split(torch, fwd_drop, bwd, ("#2", "#3"), tgeos, gen, dev, rate,
+                                "profile-train-kernels")
+    torch.cuda.empty_cache()
 
     # ---- 9. where one training step's time goes on the device
     train_profile = profile_device(torch, lambda: step(state, tdata, idx))
     log_profile("profile-train", "one training step", train_profile, top=15)
     train["idle_share"] = 1 - train_profile["device_busy_ms"] / train_profile["wall_ms"]
+    train["block_device_ms"] = block_device_ms(train_profile)
+    beside_parent("train", "MOD", train)
     del state, step, tdata, idx
     torch.cuda.empty_cache()
 
@@ -1509,93 +1602,50 @@ def main():
     wide_profile = profile_device(torch, lambda: step(state, tdata, idx))
     log_profile("profile-wide", "one MOD_WIDE training step", wide_profile, top=15)
     wide["idle_share"] = 1 - wide_profile["device_busy_ms"] / wide_profile["wall_ms"]
-    wide["perhead_device_ms"] = {}  # reduce_partials_kernel is #3's too
-    for r in wide_profile["rows"]:
-        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", r["name"])
-        if m and m.group(1) in WB_PHASES and m.group(1) != "reduce_partials_kernel":
-            phase = WB_PHASES[m.group(1)]
-            wide["perhead_device_ms"][phase] = wide["perhead_device_ms"].get(phase, 0.0) + r["device_ms"]
-    log(f"[train-wide] beside PR 3 (per-window #4/#5, {PR3_WIDE_STEP}): p50 {wide['p50_ms']:.3f} ms "
-        f"({wide['p50_ms'] / PR3_WIDE_STEP['p50_ms']:.3f}x), {wide['samples_per_s']:.1f} samples/s, "
-        f"idle share {wide['idle_share']:.3f}, peak memory {wide['peak_mb']:.1f} MiB; #4/#5 device "
-        f"time in the profiled step by phase (ms): {wide['perhead_device_ms']}")
+    wide["block_device_ms"] = block_device_ms(wide_profile)
+    beside_parent("train-wide", "MOD_WIDE", wide)
     del state, step, tdata, idx
     torch.cuda.empty_cache()
 
-    # ---- 13. #4 and #5 timing per geometry; #1 and #3 beside them at C = 512
-    wtot = {k: 0.0 for k in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "fwd_bound_ms",
-                             "bwd_ms", "bwd_plain_ms", "bwd_library_ms", "bwd_bound_ms",
-                             "eval_ms", "eval_plain_ms", "eval_library_ms", "eval_bound_ms",
-                             "fwd_bound_tc_ms", "bwd_bound_tc_ms", "eval_bound_tc_ms")}
-    wflops = {"fwd": [0, 0], "bwd": [0, 0]}
+    # ---- 13. #4 and #5 timing per geometry (#4 at rate 0 too, #1 beside it
+    # at C = 512), #2 and #3 at MOD_WIDE stage 0, each profiled by phase
     for g in pgeos:
+        time_training(torch, pk, ph_fwd, ph_bwd, ("#4", "#5"), g, gen, dev, wrate, sms, "time-wide")
         args = make_inputs(torch, g, gen, dev)
         x, wqkv, bqkv, wproj, bproj, rel_bias, mask = args
         attn_mask = library_mask(torch, g, rel_bias, mask)
-        _, keep = ph_fwd(*args, 7, wrate)
-        dy = torch.randn(x.shape, generator=gen).to(dev)
-        tr = transposed(args)
         g["eval_ms"] = time_ms(torch, lambda: ph_fwd(*args))
         g["eval_plain_ms"] = time_ms(torch, lambda: pk.fused_window_block_reference(*args))
         g["eval_library_ms"] = time_ms(torch, lambda: library_block(
             torch, x, wqkv, bqkv, wproj, bproj, attn_mask, g["heads"]))
-        g["fwd_ms"] = time_ms(torch, lambda: ph_fwd(*args, 7, wrate))
-        g["fwd_plain_ms"] = time_ms(
-            torch, lambda: pk.fused_window_block_reference(*args, keep, wrate))
-        g["fwd_library_ms"] = time_ms(torch, lambda: library_block(
-            torch, x, wqkv, bqkv, wproj, bproj, attn_mask, g["heads"], wrate))
-        g["bwd_ms"] = time_ms(torch, lambda: ph_bwd(*args, dy, keep, wrate, *tr))
-        g["bwd_plain_ms"] = time_ms(
-            torch, lambda: pk.fused_window_block_backward_reference(*args, dy, keep, wrate))
-        g["bwd_library_ms"] = library_backward_ms(torch, g, args, dy, wrate)
-        f0, _, g["eval_bound_ms"], _ = work(g)
-        f, b, g["fwd_bound_ms"], g["fwd_bound_by"] = work_dropout(g)
-        f2, b2, g["bwd_bound_ms"], g["bwd_bound_by"] = work_backward(g, True)
-        g["fwd_bound_tc_ms"], g["bwd_bound_tc_ms"] = tc_bound(f, b), tc_bound(f2, b2)
-        g["eval_bound_tc_ms"] = tc_bound(f0, work(g)[1])
-        g["eval_tflops"], g["fwd_tflops"], g["bwd_tflops"] = (
-            f0 / g["eval_ms"] / 1e9, f / g["fwd_ms"] / 1e9, f2 / g["bwd_ms"] / 1e9)
-        wflops["fwd"] = [wflops["fwd"][0] + f * g["per_forward"], wflops["fwd"][1] + b * g["per_forward"]]
-        wflops["bwd"] = [wflops["bwd"][0] + f2 * g["per_forward"], wflops["bwd"][1] + b2 * g["per_forward"]]
-        mono_note = ""
-        if g["C"] == 512:  # the monolithic kernels launch at this width too
+        f0, b0, g["eval_bound_ms"], _ = work(g)
+        g["eval_bound_tc_ms"] = tc_bound(f0, b0)
+        note = ""
+        if g["C"] == 512:  # #1, per window, takes this width too (ROADMAP A14)
             g["mono_eval_ms"] = time_ms(torch, lambda: fwd(*args))
-            g["mono_bwd_ms"] = time_ms(torch, lambda: bwd(*args, dy, keep, wrate, *tr))
-            mono_note = (f"; beside them #1 {g['mono_eval_ms']:.4f} ms, "
-                         f"#3 {g['mono_bwd_ms']:.4f} ms")
-        log(f"[time-wide] {g['name']}: #4 {g['eval_ms']:.4f} ms at rate 0 (plain "
-            f"{g['eval_plain_ms']:.4f}, library {g['eval_library_ms']:.4f}, bound "
-            f"{g['eval_bound_ms']:.4f}, tensor cores {g['eval_bound_tc_ms']:.4f}, "
-            f"{g['eval_tflops']:.2f} TFLOP/s), {g['fwd_ms']:.4f} ms with dropout (plain "
-            f"{g['fwd_plain_ms']:.4f}, library {g['fwd_library_ms']:.4f}, bound "
-            f"{g['fwd_bound_ms']:.4f}, tensor cores {g['fwd_bound_tc_ms']:.4f}, "
-            f"{g['fwd_tflops']:.2f} TFLOP/s); #5 {g['bwd_ms']:.4f} ms (plain "
-            f"{g['bwd_plain_ms']:.4f}, library {g['bwd_library_ms']:.4f}, bound "
-            f"{g['bwd_bound_ms']:.4f}, tensor cores {g['bwd_bound_tc_ms']:.4f}, "
-            f"{g['bwd_tflops']:.2f} TFLOP/s){mono_note}")
-        for k in wtot:
-            wtot[k] += g["per_forward"] * g[k]
-        del args, x, wqkv, keep, dy, tr, attn_mask
+            note = f"; beside it #1 {g['mono_eval_ms']:.4f} ms"
+        log(f"[time-wide] {g['name']}: #4 at rate 0 (eval) {g['eval_ms']:.4f} ms (plain "
+            f"{g['eval_plain_ms']:.4f}, library {g['eval_library_ms']:.4f}, bound f32 "
+            f"{g['eval_bound_ms']:.4f}, TF32x3 {g['eval_bound_tc_ms']:.4f}, "
+            f"{f0 / g['eval_ms'] / 1e9:.2f} TFLOP/s){note}")
+        del args, x, wqkv, attn_mask
     n_ph = wide_per_step[ph_fwd.__name__]
-    log(f"[time-wide] one MOD_WIDE step ({n_ph} launches each): #4 {wtot['fwd_ms']:.3f} ms (plain "
-        f"{wtot['fwd_plain_ms']:.3f}, library {wtot['fwd_library_ms']:.3f}, bound "
-        f"{wtot['fwd_bound_ms']:.3f}); #5 {wtot['bwd_ms']:.3f} ms (plain {wtot['bwd_plain_ms']:.3f}, "
-        f"library {wtot['bwd_library_ms']:.3f}, bound {wtot['bwd_bound_ms']:.3f}); share of the "
-        f"p50 step {(wtot['fwd_ms'] + wtot['bwd_ms']) / wide['p50_ms']:.3f}; one eval forward's "
-        f"#4 {wtot['eval_ms']:.3f} ms; bounds on the TF32 tensor cores (3 passes): #4 "
-        f"{wtot['fwd_bound_tc_ms']:.3f}, #5 {wtot['bwd_bound_tc_ms']:.3f} ms; "
-        f"{wflops['fwd'][0] / wtot['fwd_ms'] / 1e9:.2f} and "
-        f"{wflops['bwd'][0] / wtot['bwd_ms'] / 1e9:.2f} TFLOP/s")
-    # #4 and #5 profiled at each per-head geometry (kernel_phase_split): only
-    # window_block.cu's kernels may run; their time by phase, summed per step
-    ph_split = {"fwd": {}, "bwd": {}}
-    for g in pgeos:
-        g["profile"] = perhead_profiles(torch, pk, g, gen, dev, wrate)
-        for d in ("fwd", "bwd"):
-            for phase, ms in g["profile"][d]["phases"].items():
-                ph_split[d][phase] = ph_split[d].get(phase, 0.0) + g["per_forward"] * ms
-    log(f"[profile-perhead] one MOD_WIDE step, device ms by phase: #4 {ph_split['fwd']}; "
-        f"#5 {ph_split['bwd']}")
+    wtot = step_totals(pgeos, "time-wide", ("#4", "#5"), n_ph)
+    wtot.update({k: sum(g["per_forward"] * g[k] for g in pgeos) for k in (
+        "eval_ms", "eval_plain_ms", "eval_library_ms", "eval_bound_ms", "eval_bound_tc_ms")})
+    log(f"[time-wide] #4/#5 share of the p50 step {(wtot['fwd_ms'] + wtot['bwd_ms']) / wide['p50_ms']:.3f}; "
+        f"one eval forward's #4 {wtot['eval_ms']:.3f} ms (plain {wtot['eval_plain_ms']:.3f}, library "
+        f"{wtot['eval_library_ms']:.3f}, bound f32 {wtot['eval_bound_ms']:.3f}, TF32x3 "
+        f"{wtot['eval_bound_tc_ms']:.3f})")
+    for g in mono:
+        time_training(torch, pk, fwd_drop, bwd, ("#2", "#3"), g, gen, dev, wrate, sms, "time-wide")
+    stot = step_totals(mono, "time-wide", ("#2", "#3"), wide_per_step[fwd_drop.__name__])
+    # profiled at each geometry (kernel_phase_split): only window_block.cu's
+    # kernels may run; their time by phase, summed per step
+    wide_split = profile_split(torch, fwd_drop, bwd, ("#2", "#3"), mono, gen, dev, wrate,
+                               "profile-wide-kernels")
+    ph_split = profile_split(torch, ph_fwd, ph_bwd, ("#4", "#5"), pgeos, gen, dev, wrate,
+                             "profile-perhead")
     torch.cuda.empty_cache()
 
     # ---- 14. #13 and #14 vs plain at every tower geometry of the DeepSense
@@ -2320,7 +2370,11 @@ def main():
                 "geometries": [{k: v for k, v in g.items() if k != "mask"} for g in geos],
                 "train_geometries": [{k: v for k, v in g.items() if k != "mask"} for g in tgeos],
                 "wide_geometries": [{k: v for k, v in g.items() if k != "mask"} for g in pgeos],
+                "wide_stage0_geometries": [{k: v for k, v in g.items() if k != "mask"}
+                                           for g in mono],
                 "per_forward": tot, "per_step": ttot, "wide_per_step": wtot,
+                "wide_stage0_per_step": stot, "train_device_ms_by_phase": train_split,
+                "wide_stage0_device_ms_by_phase": wide_split,
                 "wide_perhead_device_ms_by_phase": ph_split, "latency": lat,
                 "launches": launches, "slice_err": slice_err, "profile": serve_profile,
                 "train": train, "train_profile": train_profile, "wide": wide,
@@ -2395,6 +2449,18 @@ def main():
                     "supervised steps; max_abs_err: worst over the MOD and MOD_WIDE stage-0 "
                     "geometries")
 
+    def train_extra(d):
+        """#2's or #3's bounds on the tensor cores and by the design's bytes,
+        device time by phase, and the MOD_WIDE stage-0 step's figures."""
+        return {"bound_ms_tensor_cores": ttot[f"{d}_bound_tc_ms"],
+                "bound_ms_design_bytes": ttot[f"{d}_bound_design_ms"],
+                "device_ms_by_phase": train_split[d],
+                "mod_wide_stage0": {
+                    k: stot[f"{d}_{k}"] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                  "bound_tc_ms", "bound_design_ms")}
+                | {"device_ms_by_phase": wide_split[d],
+                   "launches_per_step": wide_per_step[fwd_drop.__name__]}}
+
     def per_wide_mlp(d):
         w = mtot["MOD_WIDE"]
         key = "fwd" if d == "drop" else d
@@ -2415,23 +2481,25 @@ def main():
               f"geometries; launches: all {batches} forwards of the served run",
               launches_per_forward=per_fwd, forwards=batches, launches_by_path=by_path[fwd.__name__]),
         entry("fused_window_block_dropout", f"{PK}:1432", train_launches[fwd_drop.__name__],
-              drop_err, ttot["fwd_ms"], ttot["fwd_plain_ms"], ttot["fwd_bound_ms"], tflops["fwd"],
-              ttot["fwd_library_ms"], train_per, launches_per_step=per_fwd, steps=TRAIN_STEPS,
+              drop_err, ttot["fwd_ms"], ttot["fwd_plain_ms"], ttot["fwd_bound_ms"],
+              (ttot["fwd_flops"], ttot["fwd_bytes"]), ttot["fwd_library_ms"], train_per,
+              launches_per_step=per_fwd, steps=TRAIN_STEPS, **train_extra("fwd"),
               launches_by_path=by_path[fwd_drop.__name__]),
         entry("fused_window_block_backward", f"{PK}:971",
               train_launches[bwd.__name__], grad_abs, ttot["bwd_ms"],
-              ttot["bwd_plain_ms"], ttot["bwd_bound_ms"], tflops["bwd"], ttot["bwd_library_ms"],
-              train_per, launches_per_step=per_fwd, steps=TRAIN_STEPS, max_rel_err=grad_err,
-              launches_by_path=by_path[bwd.__name__]),
+              ttot["bwd_plain_ms"], ttot["bwd_bound_ms"], (ttot["bwd_flops"], ttot["bwd_bytes"]),
+              ttot["bwd_library_ms"], train_per, launches_per_step=per_fwd, steps=TRAIN_STEPS,
+              max_rel_err=grad_err, **train_extra("bwd"), launches_by_path=by_path[bwd.__name__]),
         entry("fused_window_block_perhead", f"{PK}:1123", cli_launches,
               max(ph_err, ph_drop_err), wtot["fwd_ms"], wtot["fwd_plain_ms"], wtot["fwd_bound_ms"],
-              wflops["fwd"], wtot["fwd_library_ms"], wide_per, launches_per_step=n_ph,
+              (wtot["fwd_flops"], wtot["fwd_bytes"]), wtot["fwd_library_ms"], wide_per, launches_per_step=n_ph,
               launches_per_eval_forward=wide_per_eval[ph_fwd.__name__],
               eval_forward_ms=wtot["eval_ms"], bound_ms_tensor_cores=wtot["fwd_bound_tc_ms"],
               device_ms_by_phase=ph_split["fwd"], launches_by_path=by_path[ph_fwd.__name__]),
         entry("fused_window_block_perhead_backward", f"{PK}:1166",
               by_path[ph_bwd.__name__]["train_cli_MOD_WIDE"], ph_grad_abs, wtot["bwd_ms"],
-              wtot["bwd_plain_ms"], wtot["bwd_bound_ms"], wflops["bwd"], wtot["bwd_library_ms"],
+              wtot["bwd_plain_ms"], wtot["bwd_bound_ms"], (wtot["bwd_flops"], wtot["bwd_bytes"]),
+              wtot["bwd_library_ms"],
               wide_per, launches_per_step=n_ph, max_rel_err=ph_grad_err,
               bound_ms_tensor_cores=wtot["bwd_bound_tc_ms"], device_ms_by_phase=ph_split["bwd"],
               launches_by_path=by_path[ph_bwd.__name__]),

@@ -1,6 +1,7 @@
-// Whole-block Swin window attention for Hopper (sm_90a): forward (#1),
-// forward with attention dropout (#2) and backward (#3), and the same
-// function for blocks too wide for them: forward (#4) and backward (#5).
+// Whole-block Swin window attention for Hopper (sm_90a): the eval forward
+// (#1), the training forward with attention dropout (#2) and its backward
+// (#3), and the same training pair for the blocks the JAX package routes to
+// its per-head kernels (#4 forward, with or without dropout; #5 backward).
 //
 // Replaces the TPU kernels of focal_tpu/ops/pallas_kernels.py:
 //   #1 _wblock_fwd_kernel (fused_window_block -> _wblock_fwd_impl -> pl.pallas_call)
@@ -13,7 +14,7 @@
 // Per window w of x [B, N, C] (f32, row-major):
 //   qkv = x Wqkv + bqkv                      (q columns pre-scaled by the caller)
 //   a_h = softmax(q_h k_h^T + rel_bias[h] + mask[w % nW])   for each head h
-//   a_h = keep ? a_h / (1 - rate) : 0        (#2, #4 with dropout)
+//   a_h = keep ? a_h / (1 - rate) : 0        (training with dropout)
 //   y   = concat_h(a_h v_h) Wproj + bproj
 //
 // What bounds them on this card: operations. A window does 2*9*C*4C
@@ -23,58 +24,57 @@
 // 20 FLOP/byte) and the TF32 tensor-core ridge (495 TFLOP/s, 148 FLOP/byte)
 // at C >= 256. About 99 % of the FLOPs are the projections.
 //
-// #1-#3 (C <= 256, MOD and MOD_WIDE stage 0), f32 on the CUDA cores:
-//   * A block owns a few windows whose activations sit in dynamic shared
-//     memory (forward: x and qkv, ~74 KB; backward: x, dy, qkv, d(attn out)
-//     and dqkv, ~110 KB), so two blocks fit one SM. Each projection thread
-//     computes one output column for all N rows of one window: every weight
-//     it loads from global memory (L2 resident; consecutive threads read
-//     consecutive columns) feeds N FMAs, and the activation operand is a
-//     float4 broadcast from shared memory (project_rows).
-//   * The attention (2% of the FLOPs) is one thread per (window, head, row)
-//     with an exact N-long softmax: rows are not padded to a power of two.
-//   * Dropout bits come from Philox4x32-10 keyed by the seed and counted by
-//     (window, head, row): the mask is a pure function of (seed, geometry),
-//     whatever the block shape. #2 writes it out as uint8 [B, H, N, N] and
-//     #3 reads it back, as the TPU kernels store theirs.
-//   * The backward's cross-window sums (dWqkv, dbqkv, dWproj, dbproj: a
-//     reduction over B*N rows; d rel_bias: over B windows) are deterministic:
-//     the per-window kernel writes dqkv and the attention output to a
-//     workspace, a split-K kernel with a fixed row range per block writes
-//     one partial per split, and a second kernel sums the partials in split
-//     order. No atomics, so two runs give the same bits.
-//   * f32 throughout with fmaf and expf: no TF32, no bf16 (the TPU kernel's
-//     bf16 downcast at C >= 128 was a VMEM workaround that does not apply).
-//
-// #4 and #5 (C = 512, 1024: MOD_WIDE stages 1-2). The TPU kernels walk the
-// heads of a lane-tile of 128 windows in VMEM, so each weight they load
-// feeds a thousand rows. Kept per window, as the first port did, a block
-// held one or two windows (x, dy, dx rows are ~186 KB a window at C = 1024)
-// and each weight fed 9 or 18 FMAs from L2: 4-6 TFLOP/s. Here the fused
-// per-window structure is dropped for the card's:
+// The training kernels (#2-#5, every width). The TPU kernels walk a
+// lane-tile of 128 windows in VMEM, so each weight they load feeds a
+// thousand rows. Kept per window, as the first port did, a block held one to
+// eight windows and fetched each weight from L2 for 9-72 FMAs on the CUDA
+// cores: 5-8 TFLOP/s. Here the per-window fusion is dropped for the card's
+// shape:
 //   * The projections are matrix products over all R = B N rows of the
-//     launch, 128 x 128 output tiles a block, staged by a 3-deep cp.async
+//     launch, 128 x 128 output tiles a block (128 x 64 where a product's
+//     width is not a multiple of 128: C = 64), staged by a 3-deep cp.async
 //     ring and run on the tensor cores with mma.sync (gemm_3xtf32.cuh). Each
 //     staged weight feeds 128 rows. 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi
-//     b_hi) keeps f32 accuracy: the ~1e-4 gates of the f32 kernels hold; one
-//     TF32 product would not. Bound on these units: 3x the FLOPs at 495
-//     TFLOP/s.
-//       #4: qkv = x Wqkv + bqkv into a workspace [R, 3C]; the attention;
-//           y = ao Wproj + bproj.
-//       #5: qkv and g = dy Wproj^T (one launch); the attention backward
-//           (dq | dk | dv into [R, 3C], the attention output into [R, C]);
-//           dx = dqkv Wqkv^T; the weight gradients x^T dqkv and ao^T dy with
-//           their column sums as fixed split-K partials (A read transposed
-//           in the tile loads: no copies); the ordered reductions.
-//   * The attention (<1 % of the FLOPs, bound by bytes) is the row-parallel
+//     b_hi) keeps f32 accuracy: the ~1e-4 gates of f32 hold; one TF32
+//     product would not. Bound on these units: 3x the FLOPs at 495 TFLOP/s.
+//       forward (#2, #4): qkv = x Wqkv + bqkv into a workspace [R, 3C]; the
+//           attention into ao [R, C]; y = ao Wproj + bproj.
+//       backward (#3, #5): qkv and g = dy Wproj^T (one launch); the
+//           attention backward (dq | dk | dv into [R, 3C], the attention
+//           output into [R, C]); dx = dqkv Wqkv^T; the weight gradients x^T
+//           dqkv and ao^T dy with their column sums as fixed split-K
+//           partials (A read transposed in the tile loads: no copies); the
+//           ordered reductions.
+//     What sets their pace, even at C = 64, is the throughput of three
+//     mma.sync passes (~45 TFLOP/s of f32 work on the H100), not the
+//     workspaces' round trip (~10 C floats a row forward, ~24 C backward):
+//     at C = 64 the products take ~4x the time their bytes need.
+//   * The attention (<2 % of the FLOPs, bound by bytes) is the row-parallel
 //     design of the attention-only kernels #6-#9 (window_rows.cuh): a block
 //     stages a few (window, head) pairs' rows, G lanes a query row, scores
-//     and softmax in registers. #4 draws its mask with #2's Philox counters
-//     (#2 and #4 agree bit for bit) and writes it; #5 reads it back.
+//     and softmax in registers. Any head width: one that is not a multiple
+//     of 4 is staged by scalar loads, zero-padded, and written back by
+//     scalar stores; a head too wide for kThreads / (N G) pairs' rows in
+//     shared memory takes fewer pairs a block. Dropout bits come from
+//     Philox4x32-10 keyed by the seed and counted by (window, head, row)
+//     (philox.cuh, shared with #7 and #9): the forward writes the mask as
+//     uint8 [B, H, N, N], the backward reads it back.
 //   * No float atomics anywhere: the same bits on every call.
+//   * #2 and #4 (and #3 and #5) run the same code; they differ in the
+//     geometries the Python side routes to them (wblock_fits, the JAX
+//     package's gate) and in their launch counts.
 //   * Not yet: wgmma and TMA (the tf32 wgmma takes K-major operands only;
 //     wqkv_t and wproj_t are that layout already), and fusing the attention
 //     into the projections' epilogues.
+//
+// #1 (eval and serving, C <= 256), f32 on the CUDA cores, per window: a
+// block owns a few windows whose x and qkv sit in dynamic shared memory
+// (~74 KB, two blocks an SM). Each projection thread computes one output
+// column for all N rows of one window: every weight it loads from global
+// memory (L2 resident; consecutive threads read consecutive columns) feeds
+// N FMAs, and the activation operand is a float4 broadcast from shared
+// memory (project_rows). The attention is one thread per (window, head,
+// row) with an exact N-long softmax.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -91,10 +91,7 @@ constexpr int kMaxN = 16;            // window tokens a thread keeps in register
 // Threads of every block launched here. The block-wide loops step by this
 // constant, not by blockDim.x: the runtime stride cost #1 5 % on the H100.
 constexpr int kThreads = 256;
-constexpr int kActBudget = 73728;    // forward: bytes of x + qkv per block (two blocks per SM)
-constexpr int kBwdBudget = 112640;   // backward: bytes of activations per block (two per SM)
-constexpr int kTile = 64;            // weight-gradient output tile (rows and columns)
-constexpr int kTileK = 16;           // weight-gradient rows per shared-memory stage
+constexpr int kActBudget = 73728;    // #1: bytes of x + qkv per block (two blocks per SM)
 static_assert(kMaxN == focal::kAttnMaxN && kThreads == focal::kAttnThreads &&
                   kThreads == focal::kGemmThreads,
               "one block size and window bound for every kernel here");
@@ -109,7 +106,7 @@ size_t smem_bytes(int wpb, int N, int C) {
 }
 
 // ---------------------------------------------------------------------------
-// shared device helpers
+// #1: the per-window forward
 
 // Copy `rows` rows of C floats (contiguous in global memory) into shared
 // memory rows of `stride` floats (stride % 4 == 0), float4 at a time.
@@ -120,17 +117,6 @@ __device__ __forceinline__ void load_rows(const float* __restrict__ g, int C, fl
   for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
     const int row = i / c4, col = i - row * c4;
     *reinterpret_cast<float4*>(s + row * stride + col * 4) = g4[i];
-  }
-}
-
-// The reverse of load_rows.
-__device__ __forceinline__ void store_rows(const float* s, int stride, float* __restrict__ g,
-                                           int C, int rows) {
-  const int c4 = C / 4;
-  float4* g4 = reinterpret_cast<float4*>(g);
-  for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
-    const int row = i / c4, col = i - row * c4;
-    g4[i] = *reinterpret_cast<const float4*>(s + row * stride + col * 4);
   }
 }
 
@@ -175,23 +161,6 @@ __device__ __forceinline__ void project_rows(const float* src, int src_stride, i
   }
 }
 
-// p = exp(p - mx) / sum over the first N entries, in registers; mx is
-// their maximum.
-__device__ __forceinline__ void softmax_from_max(float (&p)[kMaxN], float mx, int N) {
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      p[j] = expf(p[j] - mx);
-      sum += p[j];
-    }
-  }
-  const float inv = 1.f / sum;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j)
-    if (j < N) p[j] *= inv;
-}
-
 // p[j] = softmax_j(q . k_j + bias[j] + mask[j]) for one query row. q and the
 // k rows (kr0 + j * stride) hold hd floats of one head. The maximum is taken
 // in the score loop: split into a loop of its own, #1 lost 1.5 % on the
@@ -213,40 +182,26 @@ __device__ __forceinline__ void softmax_row(const float* q, const float* kr0, in
       mx = fmaxf(mx, d);
     }
   }
-  softmax_from_max(p, mx, N);
-}
-
-// Attention dropout of one (window, head, query row): the keep flags of
-// focal::attn_keep_row (philox.cuh, the counter rule #7 and #9 share).
-// Writes the row's keep bytes to kr and scales the kept weights by inv_keep,
-// zeroing the rest. #2 and #4 both draw through here, so the mask depends on
-// (seed, geometry) only.
-__device__ __forceinline__ void drop_row(float (&p)[kMaxN], int N, unsigned window, int h, int i,
-                                         unsigned long long seed, unsigned threshold,
-                                         float inv_keep, unsigned char* __restrict__ kr) {
-  bool kept[kMaxN];
-  focal::attn_keep_row(seed, window, h, i, N, threshold, kept);
+  float sum = 0.f;
 #pragma unroll
   for (int j = 0; j < kMaxN; ++j) {
     if (j < N) {
-      kr[j] = kept[j] ? 1 : 0;
-      p[j] = kept[j] ? p[j] * inv_keep : 0.f;
+      p[j] = expf(p[j] - mx);
+      sum += p[j];
     }
   }
+  const float inv = 1.f / sum;
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j)
+    if (j < N) p[j] *= inv;
 }
 
-// ---------------------------------------------------------------------------
-// forward (#1; #2 with kDropout)
-
-template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
                   const float* __restrict__ bqkv, const float* __restrict__ wproj,
                   const float* __restrict__ bproj, const float* __restrict__ rel_bias,
-                  const float* __restrict__ mask, float* __restrict__ y,
-                  unsigned char* __restrict__ keep, unsigned long long seed,
-                  unsigned threshold, float inv_keep, int B, int N, int C, int H, int nW,
-                  int wpb) {
+                  const float* __restrict__ mask, float* __restrict__ y, int B, int N, int C,
+                  int H, int nW, int wpb) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int xs_stride = C + 4;      // x rows, later the attention output rows
@@ -276,9 +231,6 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
     float s[kMaxN];
     softmax_row(qw + i * qs_stride + h * hd, qw + C + h * hd, qs_stride, hd,
                 rel_bias + (h * N + i) * N, m, N, s);
-    if (kDropout)
-      drop_row(s, N, (unsigned)(w0 + w), h, i, seed, threshold, inv_keep,
-               keep + (((size_t)(w0 + w) * H + h) * N + i) * N);
     const float* vbase = qw + 2 * C + h * hd;
     float* o = xs + (w * N + i) * xs_stride + h * hd;
     for (int t = 0; t < hd; ++t) {
@@ -296,305 +248,8 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
 }
 
 // ---------------------------------------------------------------------------
-// backward (#3)
-
-// Shared-memory layout of the per-window backward, in floats.
-struct BwdLayout {
-  int wpb;
-  int dq_stride, xs_stride, qs_stride, gs_stride;
-  size_t dq, xs, qs, gs, ps, ds, dacc, total;
-};
-
-BwdLayout bwd_layout(int wpb, int N, int C, int H) {
-  BwdLayout L;
-  L.wpb = wpb;
-  L.dq_stride = 3 * C + 4;  // dy, then dqkv (float4 rows)
-  L.xs_stride = C + 4;      // x, then the attention output (float4 rows)
-  L.qs_stride = 3 * C + 1;  // qkv
-  L.gs_stride = C + 1;      // d(attention output) = dy Wproj^T
-  const size_t nn = (size_t)H * N * N;
-  L.dq = 0;
-  L.xs = L.dq + (size_t)wpb * N * L.dq_stride;
-  L.qs = L.xs + (size_t)wpb * N * L.xs_stride;
-  L.gs = L.qs + (size_t)wpb * N * L.qs_stride;
-  L.ps = L.gs + (size_t)wpb * N * L.gs_stride;  // attention weights as applied to v
-  L.ds = L.ps + wpb * nn;                       // score gradients
-  L.dacc = L.ds + wpb * nn;                     // this block's d rel_bias
-  L.total = L.dacc + nn;
-  return L;
-}
-
-BwdLayout bwd_plan_layout(int N, int C, int H) {
-  const BwdLayout one = bwd_layout(1, N, C, H);
-  const size_t per_window = (one.total - (size_t)H * N * N) * sizeof(float);
-  int wpb = (int)(kBwdBudget / per_window);
-  return bwd_layout(wpb < 1 ? 1 : wpb, N, C, H);
-}
-
-// Per window: recompute qkv and the softmax, then dqkv, dx, the attention
-// output (for dWproj) and the score gradients. dqkv and the attention output
-// go to the workspace for the weight-gradient kernel; each block sums the
-// score gradients of its windows (in window order) into one d rel_bias
-// partial. Blocks walk the window chunks with a fixed stride, so the
-// partials do not depend on timing.
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-wblock_bwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                  const float* __restrict__ bqkv, const float* __restrict__ wqkv_t,
-                  const float* __restrict__ wproj_t, const float* __restrict__ rel_bias,
-                  const float* __restrict__ mask, const float* __restrict__ dy,
-                  const unsigned char* __restrict__ keep, float inv_keep,
-                  float* __restrict__ dx, float* __restrict__ dqkv_out,
-                  float* __restrict__ ao_out, float* __restrict__ dbias_part, int B, int N,
-                  int C, int H, int nW, BwdLayout L) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* dqs = smem + L.dq;
-  float* xs = smem + L.xs;
-  float* qs = smem + L.qs;
-  float* gs = smem + L.gs;
-  float* ps = smem + L.ps;
-  float* dss = smem + L.ds;
-  float* dacc = smem + L.dacc;
-  const int hd = C / H;
-  const int nn = H * N * N;
-  const int wpb = L.wpb;
-  const int nchunks = (B + wpb - 1) / wpb;
-
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) dacc[e] = 0.f;
-
-  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
-    const int w0 = chunk * wpb;
-    const int nwin = min(wpb, B - w0);
-    __syncthreads();  // the previous chunk's readers are done with shared memory
-
-    // 1. x and dy of the chunk's windows
-    load_rows(x + (size_t)w0 * N * C, C, xs, L.xs_stride, nwin * N);
-    load_rows(dy + (size_t)w0 * N * C, C, dqs, L.dq_stride, nwin * N);
-    __syncthreads();
-
-    // 2. qkv = x Wqkv + bqkv (recomputed: the forward keeps no residual but
-    //    x) and g = dy Wproj^T, the gradient of the attention output
-    project_rows(xs, L.xs_stride, C, wqkv, 3 * C, 3 * C, bqkv, qs, L.qs_stride,
-                 N * L.qs_stride, nwin, N);
-    project_rows(dqs, L.dq_stride, C, wproj_t, C, C, nullptr, gs, L.gs_stride,
-                 N * L.gs_stride, nwin, N);
-    __syncthreads();
-
-    // 3. per (window, head, query row i): softmax p, the weights applied to
-    //    v (a), the attention output (into xs, consumed by step 2), the
-    //    score gradient ds and dq (into dqs, whose dy step 2 consumed)
-    for (int item = threadIdx.x; item < nwin * H * N; item += kThreads) {
-      const int i = item % N;
-      const int h = (item / N) % H;
-      const int w = item / (N * H);
-      const float* qw = qs + w * N * L.qs_stride;
-      const float* m = mask ? mask + ((size_t)((w0 + w) % nW) * N + i) * N : nullptr;
-      float p[kMaxN];
-      softmax_row(qw + i * L.qs_stride + h * hd, qw + C + h * hd, L.qs_stride, hd,
-                  rel_bias + (h * N + i) * N, m, N, p);
-      float a[kMaxN], da[kMaxN];
-      bool kp[kMaxN];
-      const unsigned char* kr =
-          kDropout ? keep + (((size_t)(w0 + w) * H + h) * N + i) * N : nullptr;
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j) {
-        if (j < N) {
-          kp[j] = kDropout ? kr[j] != 0 : true;
-          a[j] = kDropout ? (kp[j] ? p[j] * inv_keep : 0.f) : p[j];
-        }
-      }
-      float* prow = ps + ((w * H + h) * N + i) * N;
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j)
-        if (j < N) prow[j] = a[j];
-
-      const float* vbase = qw + 2 * C + h * hd;
-      const float* grow = gs + (w * N + i) * L.gs_stride + h * hd;
-      float* o = xs + (w * N + i) * L.xs_stride + h * hd;
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j)
-        if (j < N) da[j] = 0.f;
-      for (int t = 0; t < hd; ++t) {
-        const float gt = grow[t];
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxN; ++j) {
-          if (j < N) {
-            const float vj = vbase[j * L.qs_stride + t];
-            acc = fmaf(a[j], vj, acc);
-            da[j] = fmaf(gt, vj, da[j]);
-          }
-        }
-        o[t] = acc;
-      }
-      float dot = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j) {
-        if (j < N) {
-          if (kDropout) da[j] = kp[j] ? da[j] * inv_keep : 0.f;
-          dot = fmaf(da[j], p[j], dot);
-        }
-      }
-      float* dsrow = dss + ((w * H + h) * N + i) * N;
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j) {
-        if (j < N) {
-          da[j] = p[j] * (da[j] - dot);  // ds
-          dsrow[j] = da[j];
-        }
-      }
-      const float* kbase = qw + C + h * hd;
-      float* dq = dqs + (w * N + i) * L.dq_stride + h * hd;
-      for (int t = 0; t < hd; ++t) {
-        float acc = 0.f;
-#pragma unroll
-        for (int j = 0; j < kMaxN; ++j)
-          if (j < N) acc = fmaf(da[j], kbase[j * L.qs_stride + t], acc);
-        dq[t] = acc;
-      }
-    }
-    __syncthreads();
-
-    // 4. per (window, head, key row j): dk_j = sum_i ds[i][j] q_i and
-    //    dv_j = sum_i a[i][j] g_i; and this block's d rel_bias += ds
-    for (int item = threadIdx.x; item < nwin * H * N; item += kThreads) {
-      const int j = item % N;
-      const int h = (item / N) % H;
-      const int w = item / (N * H);
-      const float* qw = qs + w * N * L.qs_stride;
-      const float* dsc = dss + (w * H + h) * N * N + j;
-      const float* pc = ps + (w * H + h) * N * N + j;
-      float dsj[kMaxN], aj[kMaxN];
-#pragma unroll
-      for (int i = 0; i < kMaxN; ++i) {
-        if (i < N) {
-          dsj[i] = dsc[i * N];
-          aj[i] = pc[i * N];
-        }
-      }
-      const float* qbase = qw + h * hd;
-      const float* gbase = gs + w * N * L.gs_stride + h * hd;
-      float* drow = dqs + (w * N + j) * L.dq_stride + h * hd;
-      for (int t = 0; t < hd; ++t) {
-        float dk = 0.f, dv = 0.f;
-#pragma unroll
-        for (int i = 0; i < kMaxN; ++i) {
-          if (i < N) {
-            dk = fmaf(dsj[i], qbase[i * L.qs_stride + t], dk);
-            dv = fmaf(aj[i], gbase[i * L.gs_stride + t], dv);
-          }
-        }
-        drow[C + t] = dk;
-        drow[2 * C + t] = dv;
-      }
-    }
-    for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-      float acc = dacc[e];
-      for (int w = 0; w < nwin; ++w) acc += dss[w * nn + e];
-      dacc[e] = acc;
-    }
-    __syncthreads();
-
-    // 5. dx = dqkv Wqkv^T to global memory; dqkv and the attention output
-    //    to the workspace
-    project_rows(dqs, L.dq_stride, 3 * C, wqkv_t, C, C, nullptr, dx + (size_t)w0 * N * C, C,
-                 N * C, nwin, N);
-    store_rows(dqs, L.dq_stride, dqkv_out + (size_t)w0 * N * 3 * C, 3 * C, nwin * N);
-    store_rows(xs, L.xs_stride, ao_out + (size_t)w0 * N * C, C, nwin * N);
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) dbias_part[(size_t)blockIdx.x * nn + e] = dacc[e];
-}
-
-// #3's weight gradients as split-K products over the B*N rows on the CUDA
-// cores: block (tile, split) computes one 64x64 tile of
-//   dWqkv = x^T dqkv  [C, 3C]   or   dWproj = ao^T dy  [C, C]
-// over its split's fixed row range, plus (first row tile) the column sums
-// dbqkv / dbproj, and writes them to its split's partial. Each thread holds
-// a 4x4 tile of the output; rows are staged 16 at a time in shared memory.
-// Partial layout per split: [dWqkv C*3C | dbqkv 3C | dWproj C*C | dbproj C].
-__global__ void __launch_bounds__(kThreads)
-wgrad_kernel(const float* __restrict__ x, const float* __restrict__ dqkv,
-             const float* __restrict__ ao, const float* __restrict__ dy, int R, int C,
-             int rows_per_split, float* __restrict__ part, int E) {
-  __shared__ __align__(16) float As[kTileK][kTile];
-  __shared__ __align__(16) float Bs[kTileK][kTile];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int tiles_c = (C + kTile - 1) / kTile;
-  const int tiles_q = tiles_c * ((3 * C + kTile - 1) / kTile);
-  int tile = blockIdx.x;
-  const float* A;
-  const float* Bm;
-  int J;
-  float* out = part + (size_t)blockIdx.y * E;
-  if (tile < tiles_q) {
-    A = x;
-    Bm = dqkv;
-    J = 3 * C;
-  } else {
-    tile -= tiles_q;
-    A = ao;
-    Bm = dy;
-    J = C;
-    out += 3 * C * C + 3 * C;
-  }
-  float* out_b = out + C * J;
-  const int tiles_j = (J + kTile - 1) / kTile;
-  const int c0 = (tile / tiles_j) * kTile;
-  const int j0 = (tile % tiles_j) * kTile;
-  const bool col_sums = c0 == 0;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-
-  float acc[4][4];
-#pragma unroll
-  for (int a = 0; a < 4; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
-  float bsum = 0.f;
-  const int lr = tid / 16, lc = (tid % 16) * 4;
-  for (int r = r_begin; r < r_end; r += kTileK) {
-    const int rr = r + lr;
-    float4 av = make_float4(0.f, 0.f, 0.f, 0.f), bv = av;
-    if (rr < r_end) {
-      if (c0 + lc < C) av = *reinterpret_cast<const float4*>(A + (size_t)rr * C + c0 + lc);
-      if (j0 + lc < J) bv = *reinterpret_cast<const float4*>(Bm + (size_t)rr * J + j0 + lc);
-    }
-    *reinterpret_cast<float4*>(&As[lr][lc]) = av;
-    *reinterpret_cast<float4*>(&Bs[lr][lc]) = bv;
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kTileK; ++k) {
-      const float4 a4 = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
-      const float4 b4 = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
-      const float ar[4] = {a4.x, a4.y, a4.z, a4.w};
-      const float br[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-      for (int a = 0; a < 4; ++a)
-#pragma unroll
-        for (int b = 0; b < 4; ++b) acc[a][b] = fmaf(ar[a], br[b], acc[a][b]);
-    }
-    if (col_sums && tid < kTile) {
-#pragma unroll
-      for (int k = 0; k < kTileK; ++k) bsum += Bs[k][tid];
-    }
-    __syncthreads();
-  }
-#pragma unroll
-  for (int a = 0; a < 4; ++a) {
-    const int c = c0 + ty * 4 + a;
-    if (c < C) {
-#pragma unroll
-      for (int b = 0; b < 4; ++b) {
-        const int j = j0 + tx * 4 + b;
-        if (j < J) out[(size_t)c * J + j] = acc[a][b];
-      }
-    }
-  }
-  if (col_sums && tid < kTile && j0 + tid < J) out_b[j0 + tid] = bsum;
-}
+// the training kernels (#2-#5): row-tiled projections on the tensor cores,
+// attention per (window, head) pair between them
 
 // out[e] = sum over s (in order) of part[s][e]: the deterministic second
 // pass of the cross-block reductions.
@@ -607,14 +262,21 @@ __global__ void reduce_partials_kernel(const float* __restrict__ part, int S, in
   out[e] = acc;
 }
 
-// ---------------------------------------------------------------------------
-// per-head kernels (#4 forward, #5 backward): row-tiled projections on the
-// tensor cores, attention per (window, head) pair between them
+// The output tile width of a launch of products of widths n0 and n1 (0 for
+// none): 128 columns, or 64 where one is not a multiple of 128 (C = 64: 64
+// and 192), so that no column of a tile idles.
+int tile_bn(int n0, int n1) { return n0 % 128 == 0 && n1 % 128 == 0 ? 128 : 64; }
 
-// Projections over all R = B N rows of a launch, one 128 x 128 output tile a
-// block (focal::gemm_tile, 3xTF32): c = a b (+ bias) with a [M, K] row-major
-// (lda), b [K, N] (ldb), c [M, N] (ldc). One launch may run two problems:
-// blocks [0, p0.tiles) take p0, the rest p1.
+// (row tiles x column tiles) of an M x N product in kGemmBM x bn tiles.
+void set_tiles(int M, int N, int bn, int* tiles_n, int* tiles) {
+  *tiles_n = (N + bn - 1) / bn;
+  *tiles = ((M + focal::kGemmBM - 1) / focal::kGemmBM) * *tiles_n;
+}
+
+// Projections over all R = B N rows of a launch, one 128 x kBN output tile
+// a block (focal::gemm_tile, 3xTF32): c = a b (+ bias) with a [M, K]
+// row-major (lda), b [K, N] (ldb), c [M, N] (ldc). One launch may run two
+// problems: blocks [0, p0.tiles) take p0, the rest p1.
 struct ProjGemm {
   const float* a;
   const float* b;
@@ -625,23 +287,22 @@ struct ProjGemm {
 
 ProjGemm proj_gemm(const float* a, int lda, const float* b, int ldb, const float* bias, float* c,
                    int ldc, int M, int N, int K) {
-  ProjGemm p{a, b, bias, c, lda, ldb, ldc, M, N, K, 0, 0};
-  p.tiles_n = (N + focal::kGemmBN - 1) / focal::kGemmBN;
-  p.tiles = ((M + focal::kGemmBM - 1) / focal::kGemmBM) * p.tiles_n;
-  return p;
+  return ProjGemm{a, b, bias, c, lda, ldb, ldc, M, N, K, 0, 0};
 }
 
-__global__ void __launch_bounds__(focal::kGemmThreads)
+// Two blocks an SM at 64 columns (<= 128 registers), one at 128.
+template <int kBN>
+__global__ void __launch_bounds__(focal::kGemmThreads, kBN == 64 ? 2 : 1)
 proj_gemm_kernel(ProjGemm p0, ProjGemm p1) {
   extern __shared__ float4 smem4[];
   int tile = blockIdx.x;
   const ProjGemm p = tile < p0.tiles ? p0 : p1;
   if (tile >= p0.tiles) tile -= p0.tiles;
-  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * focal::kGemmBN;
-  float acc[4][4][4], csum = 0.f;
-  focal::gemm_tile<false, false>(p.a, p.lda, p.b, p.ldb, p.M, p.N, m0, n0, 0, p.K,
-                                 reinterpret_cast<float*>(smem4), acc, csum);
-  focal::gemm_for_each_output(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
+  float acc[4][focal::gemm_nt<kBN>()][4], csum = 0.f;
+  focal::gemm_tile<false, false, kBN>(p.a, p.lda, p.b, p.ldb, p.M, p.N, m0, n0, 0, p.K,
+                                      reinterpret_cast<float*>(smem4), acc, csum);
+  focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
     if (p.bias) {
       v0 += __ldg(p.bias + col);
       v1 += __ldg(p.bias + col + 1);
@@ -651,7 +312,7 @@ proj_gemm_kernel(ProjGemm p0, ProjGemm p1) {
 }
 
 // Weight gradients as fixed split-K partials: block (tile, split) computes
-// one 128 x 128 tile of a^T b over its split's rows, a [R, M] and b [R, N]
+// one 128 x kBN tile of a^T b over its split's rows, a [R, M] and b [R, N]
 // read as they lie (a transposed in the tile loads), plus, in the first row
 // tile, b's column sums over those rows (the bias gradients). It writes
 // them to its split's partial at `out` ([M, N]) and `sums_out` ([N]); the
@@ -664,31 +325,32 @@ struct WgradGemm {
   size_t out, sums_out;  // offsets in a partial, in floats
 };
 
-WgradGemm wgrad_gemm(const float* a, const float* b, int M, int N, size_t out, size_t sums_out) {
+WgradGemm wgrad_gemm(const float* a, const float* b, int M, int N, size_t out, size_t sums_out,
+                     int bn) {
   WgradGemm p{a, b, M, N, 0, 0, out, sums_out};
-  p.tiles_n = (N + focal::kGemmBN - 1) / focal::kGemmBN;
-  p.tiles = ((M + focal::kGemmBM - 1) / focal::kGemmBM) * p.tiles_n;
+  set_tiles(M, N, bn, &p.tiles_n, &p.tiles);
   return p;
 }
 
-__global__ void __launch_bounds__(focal::kGemmThreads)
+template <int kBN>
+__global__ void __launch_bounds__(focal::kGemmThreads, kBN == 64 ? 2 : 1)
 wgrad_gemm_kernel(WgradGemm p0, WgradGemm p1, int R, int rows_per_split, float* __restrict__ part,
                   size_t E) {
   extern __shared__ float4 smem4[];
   int tile = blockIdx.x;
   const WgradGemm p = tile < p0.tiles ? p0 : p1;
   if (tile >= p0.tiles) tile -= p0.tiles;
-  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * focal::kGemmBN;
+  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
   const int r_begin = blockIdx.y * rows_per_split;
   const int r_end = min(R, r_begin + rows_per_split);
-  float acc[4][4][4], csum = 0.f;
-  focal::gemm_tile<true, true>(p.a, p.M, p.b, p.N, p.M, p.N, m0, n0, r_begin, r_end,
-                               reinterpret_cast<float*>(smem4), acc, csum);
+  float acc[4][focal::gemm_nt<kBN>()][4], csum = 0.f;
+  focal::gemm_tile<true, true, kBN>(p.a, p.M, p.b, p.N, p.M, p.N, m0, n0, r_begin, r_end,
+                                    reinterpret_cast<float*>(smem4), acc, csum);
   float* out = part + (size_t)blockIdx.y * E;
-  focal::gemm_for_each_output(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+  focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
     *reinterpret_cast<float2*>(out + p.out + (size_t)row * p.N + col) = make_float2(v0, v1);
   });
-  if (m0 == 0 && threadIdx.x < focal::kGemmBN && n0 + threadIdx.x < p.N)
+  if (m0 == 0 && (int)threadIdx.x < kBN && n0 + (int)threadIdx.x < p.N)
     out[p.sums_out + n0 + threadIdx.x] = csum;
 }
 
@@ -702,11 +364,26 @@ __device__ __forceinline__ focal::Strides row_strides(int N, int C, int hd) {
   return {(long long)N * C, hd, C};
 }
 
-// Attention of #4 per (window, head) pair (the row-parallel design of
-// window_attention.cu, focal/window_rows.cuh): q, k, v from the qkv
-// workspace, the softmax of q k^T + rel_bias + mask, dropout with #2's
-// Philox counters (kDropout; the keep flags written out as uint8 [B, H, N,
-// N]), and the attention output a v to ao [R, C] at the head's columns.
+// Columns 4c .. 4c + 3 of one head's row (hd floats at `row`): a float4
+// store where hd % 4 == 0 (the row is then 16-byte aligned), else the
+// columns below hd one at a time.
+__device__ __forceinline__ void store_cols(float* row, int c, float4 v, int hd) {
+  if (hd % 4 == 0) {
+    reinterpret_cast<float4*>(row)[c] = v;
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (4 * c + k < hd) row[4 * c + k] = e[k];
+}
+
+// The attention of the forward per (window, head) pair (the row-parallel
+// design of window_attention.cu, focal/window_rows.cuh): q, k, v from the
+// qkv workspace, the softmax of q k^T + rel_bias + mask, dropout by
+// focal::attn_keep_row's Philox counters, which #7 and #9 draw too (kDropout;
+// the keep flags written out as uint8 [B, H, N, N]), and the attention
+// output a v to ao [R, C] at the head's columns.
 template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
 attn_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bias,
@@ -721,9 +398,9 @@ attn_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bia
   const int p0 = blockIdx.x * g.pairs;
   const int np = (int)min((long long)g.pairs, g.total - p0);
   const focal::Strides sq = qkv_strides(N, C, g.hd);
-  focal::stage_rows(qkv, sq, p0, np, g, qs);
-  focal::stage_rows(qkv + C, sq, p0, np, g, ks);
-  focal::stage_rows(qkv + 2 * C, sq, p0, np, g, vs);
+  focal::stage_rows<true>(qkv, sq, p0, np, g, qs);
+  focal::stage_rows<true>(qkv + C, sq, p0, np, g, ks);
+  focal::stage_rows<true>(qkv + 2 * C, sq, p0, np, g, vs);
   __syncthreads();
 
   const focal::Row t = focal::thread_row(g, p0, np);
@@ -744,7 +421,7 @@ attn_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bia
     }
   }
   const float* vb = vs + t.pl * N * g.stride;
-  float4* o = reinterpret_cast<float4*>(ao + ((size_t)t.w * N + t.i) * C + t.h * g.hd);
+  float* o = ao + ((size_t)t.w * N + t.i) * C + t.h * g.hd;
   for (int c = t.lane; c < g.c4; c += g.lanes) {
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -757,17 +434,17 @@ attn_fwd_kernel(const float* __restrict__ qkv, const float* __restrict__ rel_bia
         acc.w = fmaf(p[j], y.w, acc.w);
       }
     }
-    if (t.active) o[c] = acc;
+    if (t.active) store_cols(o, c, acc, g.hd);
   }
 }
 
-// Attention backward of #5 per (window, head) pair: from q, k, v (the qkv
-// workspace), g = dy Wproj^T ([R, C]) and #4's keep mask, per query row i
-// the softmax p, the weights as applied to v (a_v), the score gradients ds,
-// dq_i = ds k and the attention output a_v v (into ao, for dWproj); per key
-// row j dk_j = ds^T q and dv_j = a_v^T g; dq | dk | dv into the dqkv
-// workspace at the head's columns. Blocks walk the chunks of pairs with a
-// fixed stride and sum the chunks' ds per head in pair order into one
+// The attention backward per (window, head) pair: from q, k, v (the qkv
+// workspace), g = dy Wproj^T ([R, C]) and the forward's keep mask, per query
+// row i the softmax p, the weights as applied to v (a_v), the score
+// gradients ds, dq_i = ds k and the attention output a_v v (into ao, for
+// dWproj); per key row j dk_j = ds^T q and dv_j = a_v^T g; dq | dk | dv into
+// the dqkv workspace at the head's columns. Blocks walk the chunks of pairs
+// with a fixed stride and sum the chunks' ds per head in pair order into one
 // d rel_bias partial each: no atomics.
 template <bool kDropout>
 __global__ void __launch_bounds__(kThreads)
@@ -794,10 +471,10 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ gao,
     const int p0 = chunk * g.pairs;
     const int np = (int)min((long long)g.pairs, g.total - p0);
     __syncthreads();  // the previous chunk's readers are done with shared memory
-    focal::stage_rows(qkv, sq, p0, np, g, qs);
-    focal::stage_rows(qkv + C, sq, p0, np, g, ks);
-    focal::stage_rows(qkv + 2 * C, sq, p0, np, g, vs);
-    focal::stage_rows(gao, sg, p0, np, g, gs);
+    focal::stage_rows<true>(qkv, sq, p0, np, g, qs);
+    focal::stage_rows<true>(qkv + C, sq, p0, np, g, ks);
+    focal::stage_rows<true>(qkv + 2 * C, sq, p0, np, g, vs);
+    focal::stage_rows<true>(gao, sg, p0, np, g, gs);
     __syncthreads();
 
     // query row i of pair pl
@@ -833,8 +510,8 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ gao,
       }
     }
     const size_t row = (size_t)t.w * N + t.i;
-    float4* dqo = reinterpret_cast<float4*>(dqkv + row * 3 * C + t.h * g.hd);
-    float4* aoo = reinterpret_cast<float4*>(ao + row * C + t.h * g.hd);
+    float* dqo = dqkv + row * 3 * C + t.h * g.hd;
+    float* aoo = ao + row * C + t.h * g.hd;
     for (int c = t.lane; c < g.c4; c += g.lanes) {
       float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
 #pragma unroll
@@ -853,8 +530,8 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ gao,
         }
       }
       if (t.active) {
-        dqo[c] = a;
-        aoo[c] = b;
+        store_cols(dqo, c, a, g.hd);
+        store_cols(aoo, c, b, g.hd);
       }
     }
     __syncthreads();
@@ -875,8 +552,6 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ gao,
         }
       }
       float* base = dqkv + row * 3 * C + t.h * g.hd;
-      float4* dko = reinterpret_cast<float4*>(base + C);
-      float4* dvo = reinterpret_cast<float4*>(base + 2 * C);
       for (int c = t.lane; c < g.c4; c += g.lanes) {
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
 #pragma unroll
@@ -894,8 +569,8 @@ attn_bwd_kernel(const float* __restrict__ qkv, const float* __restrict__ gao,
             b.w = fmaf(avj[i], y.w, b.w);
           }
         }
-        dko[c] = a;
-        dvo[c] = b;
+        store_cols(base + C, c, a, g.hd);
+        store_cols(base + 2 * C, c, b, g.hd);
       }
     }
     // the block's d rel_bias: element (h, i, j) adds the chunk's pairs of
@@ -926,62 +601,13 @@ cudaError_t set_smem(Kernel kernel, size_t smem, int* blocks_per_sm) {
   return err;
 }
 
-// The current device's SM count.
-cudaError_t device_sms(int* sms) {
+// The current device's attribute `attr`.
+cudaError_t device_attr(cudaDeviceAttr attr, int* value) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(value, attr, dev);
   return err;
 }
-
-// Launch plan of #3: per-window blocks (a fixed, occupancy-sized grid
-// walking the window chunks) and the weight-gradient splits.
-struct BwdPlan {
-  BwdLayout L;
-  size_t smem, ws_floats;
-  int grid, splits, rows_per_split, wtiles, E;
-  cudaError_t err;
-};
-
-BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
-  BwdPlan P{};
-  int sms = 0, per_sm = 0;
-  P.err = device_sms(&sms);
-  if (P.err != cudaSuccess) return P;
-  P.L = bwd_plan_layout(N, C, H);
-  P.smem = P.L.total * sizeof(float);
-  P.err = dropout ? set_smem(wblock_bwd_kernel<true>, P.smem, &per_sm)
-                  : set_smem(wblock_bwd_kernel<false>, P.smem, &per_sm);
-  if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
-  if (P.err != cudaSuccess) return P;
-  const int nchunks = (B + P.L.wpb - 1) / P.L.wpb;
-  P.grid = std::min(nchunks, per_sm * sms);
-  const int R = B * N;
-  const int tiles_c = (C + kTile - 1) / kTile;
-  P.wtiles = tiles_c * ((3 * C + kTile - 1) / kTile) + tiles_c * tiles_c;
-  int splits = (4 * sms + P.wtiles - 1) / P.wtiles;
-  const int max_splits = (R + 63) / 64;
-  splits = std::max(1, std::min(splits, max_splits));
-  int rps = (R + splits - 1) / splits;
-  rps = (rps + kTileK - 1) / kTileK * kTileK;
-  P.rows_per_split = rps;
-  P.splits = (R + rps - 1) / rps;
-  P.E = 4 * C * C + 4 * C;
-  P.ws_floats = (size_t)R * 3 * C + (size_t)R * C + (size_t)P.grid * H * N * N +
-                (size_t)P.splits * P.E;
-  return P;
-}
-
-// Launch plan of #5 and its workspace, in floats: qkv and dqkv [R, 3C], g
-// and the attention output [R, C], the attention blocks' d rel_bias
-// partials, and the weight-gradient split partials.
-struct PhBwdPlan {
-  focal::Geo geo;
-  size_t attn_smem;
-  int attn_grid, wtiles, splits, rows_per_split;
-  size_t E, qkv, dqkv, g, ao, dbias, wpart, total;
-  cudaError_t err;
-};
 
 size_t attn_fwd_smem(const focal::Geo& g) {
   return (size_t)3 * g.pairs * g.N * g.stride * sizeof(float);
@@ -992,13 +618,38 @@ size_t attn_bwd_smem(const focal::Geo& g) {
           (size_t)g.H * g.N * g.N) * sizeof(float);
 }
 
-PhBwdPlan ph_bwd_plan(int B, int N, int C, int H, bool dropout) {
-  PhBwdPlan P{};
+// The attention's geometry for (B, N, C, H) and its shared memory in bytes:
+// focal::make_geo's pairs a block, fewer where a head is too wide for them
+// to fit a block's shared memory (the backward's from C / H ~ 530 at N =
+// 9). An error where even one pair does not fit.
+cudaError_t attn_geo(int B, int N, int C, int H, size_t (*smem_of)(const focal::Geo&),
+                     focal::Geo* g, size_t* smem) {
+  int optin = 0;
+  cudaError_t err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
+  if (err != cudaSuccess) return err;
+  *g = focal::make_geo(B, H, N, C / H);
+  while (g->pairs > 1 && smem_of(*g) > (size_t)optin) --g->pairs;
+  *smem = smem_of(*g);
+  return *smem <= (size_t)optin ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// Launch plan of the backward (#3, #5) and its workspace, in floats: qkv
+// and dqkv [R, 3C], g and the attention output [R, C], the attention
+// blocks' d rel_bias partials, and the weight-gradient split partials.
+struct BwdPlan {
+  focal::Geo geo;
+  size_t attn_smem;
+  int attn_grid, wbn, wtiles, splits, rows_per_split;
+  size_t E, qkv, dqkv, g, ao, dbias, wpart, total;
+  cudaError_t err;
+};
+
+BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
+  BwdPlan P{};
   int sms = 0, per_sm = 0;
-  P.err = device_sms(&sms);
+  P.err = device_attr(cudaDevAttrMultiProcessorCount, &sms);
+  if (P.err == cudaSuccess) P.err = attn_geo(B, N, C, H, attn_bwd_smem, &P.geo, &P.attn_smem);
   if (P.err != cudaSuccess) return P;
-  P.geo = focal::make_geo(B, H, N, C / H);
-  P.attn_smem = attn_bwd_smem(P.geo);
   P.err = dropout ? set_smem(attn_bwd_kernel<true>, P.attn_smem, &per_sm)
                   : set_smem(attn_bwd_kernel<false>, P.attn_smem, &per_sm);
   if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
@@ -1006,11 +657,13 @@ PhBwdPlan ph_bwd_plan(int B, int N, int C, int H, bool dropout) {
   const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
   P.attn_grid = (int)std::min<long long>(nchunks, (long long)per_sm * sms);
   // split the rows so that the weight-gradient tiles fill the card about
-  // four times over (two blocks an SM), each split at least 256 rows
+  // four times over, each split at least 256 rows
   const int R = B * N;
-  const int tiles_c = (C + focal::kGemmBM - 1) / focal::kGemmBM;
-  P.wtiles = tiles_c * ((3 * C + focal::kGemmBN - 1) / focal::kGemmBN) +
-             tiles_c * ((C + focal::kGemmBN - 1) / focal::kGemmBN);
+  P.wbn = tile_bn(3 * C, C);
+  int tq = 0, tp = 0, unused = 0;
+  set_tiles(C, 3 * C, P.wbn, &unused, &tq);
+  set_tiles(C, C, P.wbn, &unused, &tp);
+  P.wtiles = tq + tp;
   int splits = (4 * sms + P.wtiles - 1) / P.wtiles;
   splits = std::max(1, std::min(splits, (R + 255) / 256));
   int rps = (R + splits - 1) / splits;
@@ -1034,79 +687,34 @@ int check_geometry(int N, int C, int H) {
   return 0;
 }
 
-// The per-head kernels' attention reads a head's columns as float4 (hd % 4
-// == 0) and stages whole heads in shared memory (hd <= 256).
-int check_ph_geometry(int N, int C, int H) {
-  if (check_geometry(N, C, H) || (C / H) % 4 != 0 || C / H > focal::kAttnMaxHd)
-    return (int)cudaErrorInvalidValue;
-  return 0;
-}
-
-int bwd_workspace(int B, int N, int C, int H, int dropout, long long* floats) {
-  if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
-  if (B == 0) {
-    *floats = 0;
-    return 0;
-  }
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0);
-  if (P.err != cudaSuccess) return (int)P.err;
-  *floats = (long long)P.ws_floats;
-  return 0;
-}
-
-// The four launches of #3 on `stream`: the per-window kernel, the
-// weight-gradient partials, and the two ordered reductions.
-int run_backward(const void* x, const void* wqkv, const void* bqkv, const void* wqkv_t,
-                 const void* wproj_t, const void* rel_bias, const void* mask, const void* dy,
-                 const void* keep, float inv_keep, void* dx, void* dweights, void* drel_bias,
-                 void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const bool dropout = keep != nullptr;
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
-  if (P.err != cudaSuccess) return (int)P.err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const size_t R = (size_t)B * N;
-  float* w = static_cast<float*>(ws);
-  float* dqkv = w;
-  float* ao = dqkv + R * 3 * C;
-  float* dbias_part = ao + R * C;
-  float* wpart = dbias_part + (size_t)P.grid * H * N * N;
-  const int nw = mask != nullptr ? nW : 1;
-#define FOCAL_BWD_ARGS                                                                        \
-  static_cast<const float*>(x), static_cast<const float*>(wqkv),                              \
-      static_cast<const float*>(bqkv), static_cast<const float*>(wqkv_t),                     \
-      static_cast<const float*>(wproj_t), static_cast<const float*>(rel_bias),                \
-      static_cast<const float*>(mask), static_cast<const float*>(dy),                         \
-      static_cast<const unsigned char*>(keep), inv_keep, static_cast<float*>(dx), dqkv, ao, \
-      dbias_part, B, N, C, H, nw, P.L
-  if (dropout)
-    wblock_bwd_kernel<true><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS);
-  else
-    wblock_bwd_kernel<false><<<P.grid, kThreads, P.smem, s>>>(FOCAL_BWD_ARGS);
-#undef FOCAL_BWD_ARGS
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  wgrad_kernel<<<dim3(P.wtiles, P.splits), kThreads, 0, s>>>(
-      static_cast<const float*>(x), dqkv, ao, static_cast<const float*>(dy), (int)R, C,
-      P.rows_per_split, wpart, P.E);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  reduce_partials_kernel<<<(P.E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      wpart, P.splits, P.E, static_cast<float*>(dweights));
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nn = H * N * N;
-  reduce_partials_kernel<<<(nn + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      dbias_part, P.grid, nn, static_cast<float*>(drel_bias));
-  return (int)cudaGetLastError();
-}
-
-// One projection launch (one or two problems) on `stream`.
-cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) {
-  cudaError_t err = set_smem(proj_gemm_kernel, focal::kGemmSmemBytes, nullptr);
+// One projection launch (one or two problems; p1 = ProjGemm{} for none) on
+// `stream`, in tiles of tile_bn columns.
+template <int kBN>
+cudaError_t launch_proj_bn(ProjGemm p0, ProjGemm p1, cudaStream_t s) {
+  set_tiles(p0.M, p0.N, kBN, &p0.tiles_n, &p0.tiles);
+  set_tiles(p1.M, p1.N, kBN, &p1.tiles_n, &p1.tiles);
+  const size_t smem = focal::gemm_smem_bytes(kBN);
+  cudaError_t err = set_smem(proj_gemm_kernel<kBN>, smem, nullptr);
   if (err != cudaSuccess) return err;
-  proj_gemm_kernel<<<p0.tiles + p1.tiles, focal::kGemmThreads, focal::kGemmSmemBytes, s>>>(p0, p1);
+  proj_gemm_kernel<kBN><<<p0.tiles + p1.tiles, focal::kGemmThreads, smem, s>>>(p0, p1);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) {
+  return tile_bn(p0.N, p1.N) == 128 ? launch_proj_bn<128>(p0, p1, s)
+                                    : launch_proj_bn<64>(p0, p1, s);
+}
+
+// One weight-gradient launch of `splits` row splits (partials E floats
+// apart at `part`) on `stream`, in tiles of kBN columns.
+template <int kBN>
+cudaError_t launch_wgrad(const WgradGemm& p0, const WgradGemm& p1, int R, int rows_per_split,
+                         int splits, float* part, size_t E, cudaStream_t s) {
+  const size_t smem = focal::gemm_smem_bytes(kBN);
+  cudaError_t err = set_smem(wgrad_gemm_kernel<kBN>, smem, nullptr);
+  if (err != cudaSuccess) return err;
+  wgrad_gemm_kernel<kBN><<<dim3(p0.tiles + p1.tiles, splits), focal::kGemmThreads, smem, s>>>(
+      p0, p1, R, rows_per_split, part, E);
   return cudaGetLastError();
 }
 
@@ -1124,92 +732,75 @@ extern "C" int focal_wblock_fwd(const void* x, const void* wqkv, const void* bqk
   const int wpb = windows_per_block(N, C);
   const size_t smem = smem_bytes(wpb, N, C);
   cudaError_t err = cudaFuncSetAttribute(
-      wblock_fwd_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      wblock_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int grid = (B + wpb - 1) / wpb;
-  wblock_fwd_kernel<false><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  wblock_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(x), static_cast<const float*>(wqkv),
       static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
       static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
-      static_cast<const float*>(mask), static_cast<float*>(y), nullptr, 0ull, 0u, 1.f, B, N, C,
-      H, mask != nullptr ? nW : 1, wpb);
-  return (int)cudaGetLastError();
-}
-
-// Forward with attention dropout (#2): as focal_wblock_fwd, and each
-// (window, head, query, key) weight is kept iff its Philox word (keyed by
-// `seed`) is >= `threshold`, then scaled by `inv_keep`. The keep mask is
-// written to `keep` as uint8 [B, H, N, N].
-extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const void* bqkv,
-                                        const void* wproj, const void* bproj,
-                                        const void* rel_bias, const void* mask, void* y,
-                                        void* keep, int B, int N, int C, int H, int nW,
-                                        unsigned long long seed, unsigned threshold,
-                                        float inv_keep, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const int wpb = windows_per_block(N, C);
-  const size_t smem = smem_bytes(wpb, N, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      wblock_fwd_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + wpb - 1) / wpb;
-  wblock_fwd_kernel<true><<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
-      static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
-      static_cast<const float*>(mask), static_cast<float*>(y),
-      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, B, N, C, H,
+      static_cast<const float*>(mask), static_cast<float*>(y), B, N, C, H,
       mask != nullptr ? nW : 1, wpb);
   return (int)cudaGetLastError();
 }
 
-// Workspace of the per-head forward (#4), in floats: the qkv projection
-// [R, 3C] and the attention output [R, C], R = B N.
-extern "C" int focal_wblock_ph_fwd_workspace(int B, int N, int C, int H, long long* floats) {
+// Workspace of the training forward (#2, #4), in floats: the qkv projection
+// [R, 3C] and the attention output [R, C], R = B N. An error where the
+// attention has no launch plan (a head too wide for shared memory).
+extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long* floats) {
   if (check_geometry(N, C, H) || B < 0) return (int)cudaErrorInvalidValue;
+  if (B > 0) {
+    focal::Geo g;
+    size_t smem = 0;
+    const cudaError_t err = attn_geo(B, N, C, H, attn_fwd_smem, &g, &smem);
+    if (err != cudaSuccess) return (int)err;
+  }
   *floats = (long long)B * N * 4 * C;
   return 0;
 }
 
-// Per-head forward (#4), with attention dropout when `keep` is not null:
-// the function of focal_wblock_fwd (keep null) or focal_wblock_fwd_dropout,
-// the same mask bits for the same seed. `ws` holds
-// focal_wblock_ph_fwd_workspace floats. Three launches on `stream`: qkv =
-// x Wqkv + bqkv, the attention per (window, head), y = ao Wproj + bproj.
-// Needs (C / H) % 4 == 0 and C / H <= 256.
-extern "C" int focal_wblock_ph_fwd(const void* x, const void* wqkv, const void* bqkv,
-                                   const void* wproj, const void* bproj, const void* rel_bias,
-                                   const void* mask, void* y, void* keep, void* ws, int B, int N,
-                                   int C, int H, int nW, unsigned long long seed,
-                                   unsigned threshold, float inv_keep, void* stream) {
-  if (check_ph_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+// Training forward (#2; #4): the function of focal_wblock_fwd with attention
+// dropout where `keep` is not null: each (window, head, query, key) weight
+// is kept iff its Philox word (keyed by `seed`) is >= `threshold`, then
+// scaled by `inv_keep`, and the keep mask is written to `keep` as uint8
+// [B, H, N, N]. `ws` holds focal_wblock_fwd_workspace floats, 16-byte
+// aligned, as x, wqkv and wproj must be. Three launches on `stream`: qkv = x
+// Wqkv + bqkv, the attention per (window, head), y = ao Wproj + bproj.
+extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const void* bqkv,
+                                        const void* wproj, const void* bproj,
+                                        const void* rel_bias, const void* mask, void* y,
+                                        void* keep, void* ws, int B, int N, int C, int H, int nW,
+                                        unsigned long long seed, unsigned threshold,
+                                        float inv_keep, void* stream) {
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
+  focal::Geo g;
+  size_t smem = 0;
+  cudaError_t err = attn_geo(B, N, C, H, attn_fwd_smem, &g, &smem);
+  const bool dropout = keep != nullptr;
+  if (err == cudaSuccess)
+    err = dropout ? set_smem(attn_fwd_kernel<true>, smem, nullptr)
+                  : set_smem(attn_fwd_kernel<false>, smem, nullptr);
+  if (err != cudaSuccess) return (int)err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * N;
   float* qkv = static_cast<float*>(ws);
   float* ao = qkv + (size_t)R * 3 * C;
-  cudaError_t err = launch_proj(
+  err = launch_proj(
       proj_gemm(static_cast<const float*>(x), C, static_cast<const float*>(wqkv), 3 * C,
                 static_cast<const float*>(bqkv), qkv, 3 * C, R, 3 * C, C),
       ProjGemm{}, s);
   if (err != cudaSuccess) return (int)err;
-  const focal::Geo g = focal::make_geo(B, H, N, C / H);
-  const size_t smem = attn_fwd_smem(g);
-  const bool dropout = keep != nullptr;
-  err = dropout ? set_smem(attn_fwd_kernel<true>, smem, nullptr)
-                : set_smem(attn_fwd_kernel<false>, smem, nullptr);
-  if (err != cudaSuccess) return (int)err;
   const int grid = (int)((g.total + g.pairs - 1) / g.pairs);
-#define FOCAL_PH_ATTN_ARGS                                                                    \
+#define FOCAL_ATTN_ARGS                                                                       \
   qkv, static_cast<const float*>(rel_bias), static_cast<const float*>(mask), ao,              \
       static_cast<unsigned char*>(keep), seed, threshold, inv_keep, g, C,                     \
       mask != nullptr ? nW : 1
   if (dropout)
-    attn_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_PH_ATTN_ARGS);
+    attn_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_ATTN_ARGS);
   else
-    attn_fwd_kernel<false><<<grid, kThreads, smem, s>>>(FOCAL_PH_ATTN_ARGS);
-#undef FOCAL_PH_ATTN_ARGS
+    attn_fwd_kernel<false><<<grid, kThreads, smem, s>>>(FOCAL_ATTN_ARGS);
+#undef FOCAL_ATTN_ARGS
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   return (int)launch_proj(proj_gemm(ao, C, static_cast<const float*>(wproj), C,
@@ -1218,60 +809,40 @@ extern "C" int focal_wblock_ph_fwd(const void* x, const void* wqkv, const void* 
                           ProjGemm{}, s);
 }
 
-// Workspace the backward needs, in floats, for this geometry on the current
-// device (dqkv and the attention output, the d rel_bias partials and the
-// weight-gradient partials).
+// Workspace the backward (#3, #5) needs, in floats, for this geometry on the
+// current device (bwd_plan).
 extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
                                           long long* floats) {
-  return bwd_workspace(B, N, C, H, dropout, floats);
-}
-
-// Backward (#3). Inputs: x, wqkv [C, 3C] and its transpose [3C, C], bqkv,
-// the transpose of wproj [C, C], rel_bias, mask (may be null), dy, keep
-// (uint8 [B, H, N, N] from #2, or null for no dropout) with inv_keep.
-// Outputs: dx [B, N, C]; dweights, flat [dWqkv C*3C | dbqkv 3C | dWproj C*C |
-// dbproj C]; drel_bias [H, N, N]. `ws` holds focal_wblock_bwd_workspace
-// floats. Four launches on `stream`: per-window backward, weight-gradient
-// partials, and the two ordered reductions.
-extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqkv,
-                                const void* wqkv_t, const void* wproj_t, const void* rel_bias,
-                                const void* mask, const void* dy, const void* keep,
-                                float inv_keep, void* dx, void* dweights, void* drel_bias,
-                                void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  return run_backward(x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep, dx,
-                      dweights, drel_bias, ws, B, N, C, H, nW, stream);
-}
-
-// Workspace of the per-head backward (#5), in floats, for this geometry on
-// the current device (ph_bwd_plan).
-extern "C" int focal_wblock_ph_bwd_workspace(int B, int N, int C, int H, int dropout,
-                                             long long* floats) {
-  if (check_ph_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
+  if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
   if (B == 0) {
     *floats = 0;
     return 0;
   }
-  const PhBwdPlan P = ph_bwd_plan(B, N, C, H, dropout != 0);
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   *floats = (long long)P.total;
   return 0;
 }
 
-// Per-head backward (#5): focal_wblock_bwd's arguments and outputs, keep
-// from #4; `ws` holds focal_wblock_ph_bwd_workspace floats. Six launches on
-// `stream`: qkv = x Wqkv + bqkv and g = dy Wproj^T (one launch), the
-// attention backward (dqkv, the attention output, d rel_bias partials), dx =
-// dqkv Wqkv^T, the weight-gradient split partials (x^T dqkv, ao^T dy and
-// the column sums), and the two ordered reductions.
-extern "C" int focal_wblock_ph_bwd(const void* x, const void* wqkv, const void* bqkv,
-                                   const void* wqkv_t, const void* wproj_t, const void* rel_bias,
-                                   const void* mask, const void* dy, const void* keep,
-                                   float inv_keep, void* dx, void* dweights, void* drel_bias,
-                                   void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  if (check_ph_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+// Backward (#3; #5). Inputs: x, wqkv [C, 3C] and its transpose [3C, C], bqkv,
+// the transpose of wproj [C, C], rel_bias, mask (may be null), dy, keep
+// (uint8 [B, H, N, N] from the forward, or null for no dropout) with
+// inv_keep; x, the weights, dy and `ws` 16-byte aligned. Outputs: dx [B, N,
+// C]; dweights, flat [dWqkv C*3C | dbqkv 3C | dWproj C*C | dbproj C];
+// drel_bias [H, N, N]. `ws` holds focal_wblock_bwd_workspace floats. Six
+// launches on `stream`: qkv = x Wqkv + bqkv and g = dy Wproj^T (one launch),
+// the attention backward (dqkv, the attention output, d rel_bias partials),
+// dx = dqkv Wqkv^T, the weight-gradient split partials (x^T dqkv, ao^T dy
+// and the column sums), and the two ordered reductions.
+extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqkv,
+                                const void* wqkv_t, const void* wproj_t, const void* rel_bias,
+                                const void* mask, const void* dy, const void* keep,
+                                float inv_keep, void* dx, void* dweights, void* drel_bias,
+                                void* ws, int B, int N, int C, int H, int nW, void* stream) {
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const bool dropout = keep != nullptr;
-  const PhBwdPlan P = ph_bwd_plan(B, N, C, H, dropout);
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * N;
@@ -1286,15 +857,15 @@ extern "C" int focal_wblock_ph_bwd(const void* x, const void* wqkv, const void* 
       proj_gemm(dyf, C, static_cast<const float*>(wproj_t), C, nullptr, g, C, R, C, C), s);
   if (err != cudaSuccess) return (int)err;
   // 2. the attention backward per (window, head)
-#define FOCAL_PH_ATTN_ARGS                                                                    \
+#define FOCAL_ATTN_ARGS                                                                       \
   qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),               \
       static_cast<const unsigned char*>(keep), inv_keep, dqkv, ao, w + P.dbias, P.geo, C,    \
       mask != nullptr ? nW : 1
   if (dropout)
-    attn_bwd_kernel<true><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_PH_ATTN_ARGS);
+    attn_bwd_kernel<true><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_ATTN_ARGS);
   else
-    attn_bwd_kernel<false><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_PH_ATTN_ARGS);
-#undef FOCAL_PH_ATTN_ARGS
+    attn_bwd_kernel<false><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_ATTN_ARGS);
+#undef FOCAL_ATTN_ARGS
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // 3. dx = dqkv Wqkv^T
@@ -1304,13 +875,11 @@ extern "C" int focal_wblock_ph_bwd(const void* x, const void* wqkv, const void* 
   if (err != cudaSuccess) return (int)err;
   // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
   const size_t q = (size_t)3 * C * C;
-  err = set_smem(wgrad_gemm_kernel, focal::kGemmSmemBytes, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  wgrad_gemm_kernel<<<dim3(P.wtiles, P.splits), focal::kGemmThreads, focal::kGemmSmemBytes, s>>>(
-      wgrad_gemm(xf, dqkv, C, 3 * C, 0, q),
-      wgrad_gemm(ao, dyf, C, C, q + 3 * C, q + 3 * C + (size_t)C * C),
-      R, P.rows_per_split, w + P.wpart, P.E);
-  err = cudaGetLastError();
+  const WgradGemm wq = wgrad_gemm(xf, dqkv, C, 3 * C, 0, q, P.wbn);
+  const WgradGemm wp = wgrad_gemm(ao, dyf, C, C, q + 3 * C, q + 3 * C + (size_t)C * C, P.wbn);
+  err = P.wbn == 128
+            ? launch_wgrad<128>(wq, wp, R, P.rows_per_split, P.splits, w + P.wpart, P.E, s)
+            : launch_wgrad<64>(wq, wp, R, P.rows_per_split, P.splits, w + P.wpart, P.E, s);
   if (err != cudaSuccess) return (int)err;
   // 5. the partials summed in split order, and d rel_bias in block order
   reduce_partials_kernel<<<(int)((P.E + kThreads - 1) / kThreads), kThreads, 0, s>>>(
@@ -1336,12 +905,10 @@ extern "C" int focal_gemm_3xtf32(const void* a, const void* b, void* c, int M, i
   const float* bf = static_cast<const float*>(b);
   float* cf = static_cast<float*>(c);
   if (!a_trans) return (int)launch_proj(proj_gemm(af, K, bf, N, nullptr, cf, N, M, N, K), ProjGemm{}, s);
-  cudaError_t err = set_smem(wgrad_gemm_kernel, focal::kGemmSmemBytes, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  const WgradGemm p = wgrad_gemm(af, bf, M, N, 0, (size_t)M * N);
-  wgrad_gemm_kernel<<<dim3(p.tiles, 1), focal::kGemmThreads, focal::kGemmSmemBytes, s>>>(
-      p, WgradGemm{}, K, K, cf, 0);
-  return (int)cudaGetLastError();
+  const int bn = tile_bn(N, 0);
+  const WgradGemm p = wgrad_gemm(af, bf, M, N, 0, (size_t)M * N, bn);
+  return (int)(bn == 128 ? launch_wgrad<128>(p, WgradGemm{}, K, K, 1, cf, 0, s)
+                         : launch_wgrad<64>(p, WgradGemm{}, K, K, 1, cf, 0, s));
 }
 
 extern "C" const char* focal_cuda_error_string(int err) {

@@ -1,6 +1,6 @@
 // Row-parallel window attention: the device helpers that the attention-only
 // kernels (#6-#9, window_attention.cu) and the attention phase of the
-// per-head window-block kernels (#4, #5, window_block.cu) share. A block
+// window-block training kernels (#2-#5, window_block.cu) share. A block
 // owns P consecutive (window, head) pairs of [B, H, N, hd] operands; G lanes
 // serve one query row; scores and softmax stay in registers (the design
 // note of window_attention.cu).
@@ -25,37 +25,59 @@ struct Strides {
 
 // Launch geometry of a (B, H, N, hd) call.
 struct Geo {
-  int B, H, N, hd, c4;  // c4 = hd / 4 float4 columns
+  int B, H, N, hd, c4;  // c4 = ceil(hd / 4) float4 columns
   int lanes;            // G: lanes a query row takes
   int pairs;            // P: (window, head) pairs a block stages at once
-  int stride;           // shared-memory row stride in floats, hd + 4
+  int stride;           // shared-memory row stride in floats, 4 c4 + 4
   long long total;      // B * H pairs
 };
 
 inline Geo make_geo(int B, int H, int N, int hd) {
   Geo g;
-  g.B = B, g.H = H, g.N = N, g.hd = hd, g.c4 = hd / 4;
+  g.B = B, g.H = H, g.N = N, g.hd = hd, g.c4 = (hd + 3) / 4;
   int lanes = 1;  // a power of two dividing c4, at least two columns a lane
   while (2 * lanes <= kAttnMaxLanes && g.c4 % (2 * lanes) == 0 && 4 * lanes <= g.c4) lanes *= 2;
   g.lanes = lanes;
   g.pairs = std::max(1, kAttnThreads / (N * lanes));
-  g.stride = hd + 4;
+  g.stride = 4 * g.c4 + 4;
   g.total = (long long)B * H;
   return g;
 }
 
+// The first float of row r = (pair - p0) * N + i of the block's pairs in
+// `src`.
+__device__ __forceinline__ const float* pair_row(const float* src, Strides st, int p0, int r,
+                                                 const Geo& g) {
+  const int pl = r / g.N, i = r - pl * g.N;
+  const int pair = p0 + pl;
+  const int b = pair / g.H, h = pair - b * g.H;
+  return src + b * st.b + h * st.h + i * st.n;
+}
+
 // Stage the rows of pairs p0 .. p0 + np - 1 of `src` into shared memory, row
-// r = (pair - p0) * N + i at dst + r * S, float4 at a time.
+// r = (pair - p0) * N + i at dst + r * S, float4 at a time. With kAnyHd, a
+// head width that is not a multiple of 4 (the whole-block kernels take any)
+// is read one float at a time and padded with zeros to 4 c4 columns; the
+// attention-only kernels, which take multiples of 4 only, compile without
+// that path (a branch in the float4 loop cost #8/#9 6-7 % on the H100).
+template <bool kAnyHd = false>
 __device__ __forceinline__ void stage_rows(const float* __restrict__ src, Strides st, int p0,
                                            int np, const Geo& g, float* dst) {
   const int c4 = g.c4;
+  if (kAnyHd && g.hd % 4 != 0) {
+    for (int e = threadIdx.x; e < np * g.N * c4; e += kAttnThreads) {
+      const int r = e / c4, c = e - r * c4;
+      const float* row = pair_row(src, st, p0, r, g);
+      float t[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) t[k] = 4 * c + k < g.hd ? __ldg(row + 4 * c + k) : 0.f;
+      *reinterpret_cast<float4*>(dst + r * g.stride + 4 * c) = make_float4(t[0], t[1], t[2], t[3]);
+    }
+    return;
+  }
   for (int e = threadIdx.x; e < np * g.N * c4; e += kAttnThreads) {
     const int r = e / c4, c = e - r * c4;
-    const int pl = r / g.N, i = r - pl * g.N;
-    const int pair = p0 + pl;
-    const int b = pair / g.H, h = pair - b * g.H;
-    const float4* row =
-        reinterpret_cast<const float4*>(src + b * st.b + h * st.h + i * st.n);
+    const float4* row = reinterpret_cast<const float4*>(pair_row(src, st, p0, r, g));
     *reinterpret_cast<float4*>(dst + r * g.stride + 4 * c) = __ldg(row + c);
   }
 }

@@ -9,17 +9,19 @@ reader looks for its TPU counterpart. Every kernel has beside it:
 A CUDA tensor goes to the kernel or the wrapper raises; there is no fallback.
 
 Whole-block kernels (``csrc/window_block.cu``): the qkv projection,
-attention and output projection of a window in one kernel:
-  #1 ``fused_window_block``: forward;
+attention and output projection of a window block:
+  #1 ``fused_window_block``: forward, per window in one kernel;
   #2 ``fused_window_block_dropout``: #1 with attention dropout, returning
-     its uint8 keep mask [B_, H, N, N];
-  #3 ``fused_window_block_backward``: the VJP of #1 and #2;
-  #4 ``fused_window_block_perhead``: #1 or #2 for blocks too wide for #3
-     (``wblock_fits``), as row-tiled projections over every row of the call
-     (tensor cores, 3xTF32) around an attention kernel per (window, head);
-  #5 ``fused_window_block_perhead_backward``: the VJP of #4, the same way.
-``window_block_forward`` (eval) and ``window_block`` (training, an autograd
-pair) route each geometry to #1-#3 or to #4/#5.
+     its uint8 keep mask [B_, H, N, N], as row-tiled projections over every
+     row of the call (tensor cores, 3xTF32) around an attention kernel per
+     (window, head);
+  #3 ``fused_window_block_backward``: the VJP of #1 and #2, the same way;
+  #4 ``fused_window_block_perhead``: #1 or #2 for the blocks that the JAX
+     package's ``wblock_fits`` sends to its per-head kernels;
+  #5 ``fused_window_block_perhead_backward``: the VJP of #4.
+#2 and #4 (#3 and #5) launch the same CUDA code; each counts its own
+launches. ``window_block_forward`` (eval) and ``window_block`` (training,
+an autograd pair) route each geometry to #1-#3 or to #4/#5.
 
 Attention-only kernels (``csrc/window_attention.cu``), the route of the
 CLI's ``-no_pallas_block``: softmax(q k^T + bias) v on q, k, v [B_, H, N,
@@ -44,18 +46,17 @@ _WINDOW_BLOCK_SRC = "window_block.cu"
 _WINDOW_ATTENTION_SRC = "window_attention.cu"
 _MAX_N = 16  # kMaxN in csrc/window_block.cu and csrc/window_attention.cu
 _MAX_HD = 256  # kMaxHd in csrc/window_attention.cu
-_MONO_BWD_BUDGET = 112640  # kBwdBudget in csrc/window_block.cu
+_MONO_BWD_BUDGET = 112640  # bytes: the first port's per-window #3 on two blocks an SM
 
 
 def wblock_fits(N, C, H):
-    """Whether the monolithic kernels (#1-#3) serve window size N, width C
-    and H heads; where not, the per-head kernels (#4, #5) do. The measure is
-    #3's shared memory for one window, N (8C + 10) + 2 H N^2 floats (x, dy,
-    qkv, d(attention output), dqkv, and each head's weights and their
-    gradients), against the budget that keeps two of #3's blocks on an SM.
-    At N = 9 that is C <= 256 (MOD and MOD_WIDE stage 0) monolithic and
-    C = 512, 1024 (MOD_WIDE stages 1, 2) per head, as the JAX package's
-    ``wblock_fits`` routes them."""
+    """Whether window size N, width C and H heads go to #1-#3; where not, to
+    #4 and #5. The gate is the first port's per-window #3: its shared memory
+    for one window, N (8C + 10) + 2 H N^2 floats, against the budget that
+    kept two of its blocks on an SM. At N = 9 that is C <= 256 (MOD and
+    MOD_WIDE stage 0) to #1-#3 and C = 512, 1024 (MOD_WIDE stages 1, 2) to
+    #4/#5, as the JAX package's ``wblock_fits`` routes them. #2/#3 and #4/#5
+    now run the same code, so the gate only sorts the launch counts."""
     return 4 * (N * (8 * C + 10) + 2 * H * N * N) <= _MONO_BWD_BUDGET
 
 
@@ -214,6 +215,11 @@ def fused_window_block_dropout(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed
     Returns (y [B_, N, C] f32, keep uint8 [B_, H, N, N]); the backward (#3)
     takes the keep mask back, as the TPU kernel stores its own.
 
+    On the card: qkv = x Wqkv + bqkv over all B_ N rows of the call, the
+    attention per (window, head) pair, y = ao Wproj + bproj, the
+    projections on the tensor cores (3xTF32, f32-accurate); x, wqkv and
+    wproj must be 16-byte aligned.
+
     Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block_dropout
     (_wblock_fwd_impl with rate > 0). On the CPU the keep mask comes from
     draw_keep_mask and y from the plain version.
@@ -226,13 +232,8 @@ def fused_window_block_dropout(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed
         y = fused_window_block_dropout_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                                                  keep, rate)
         return y, keep
-    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-    y = torch.empty_like(x)
-    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device)
-    _launch("fused_window_block_dropout", _window_block_lib().focal_wblock_fwd_dropout, x.device,
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), keep.data_ptr(), B, N, C, H, nW,
-            int(seed) % 2**64, _keep_threshold(rate), 1.0 / (1.0 - rate))
+    y, keep = _launch_forward("fused_window_block_dropout", x, wqkv, bqkv, wproj, bproj, rel_bias,
+                              mask, seed, rate)
     fused_window_block_dropout.launches += 1
     return y, keep
 
@@ -253,13 +254,18 @@ def fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
     [C, C] pass those in, as nn.Linear stores its weights; without them the
     wrapper makes a transposed copy of each.
 
+    On the card: qkv and g = dy Wproj^T recomputed over all B_ N rows, the
+    attention backward per (window, head) pair, dx = dqkv Wqkv^T, and the
+    weight gradients as fixed row-split partials, every product on the
+    tensor cores (3xTF32); x, dy and the weights must be 16-byte aligned.
+
     Replaces focal_tpu/ops/pallas_kernels.py::_wblock_bwd_impl
     (_wblock_bwd_kernel). CPU tensors take the plain version.
     """
     if x.device.type == "cpu":
         return fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                                                      dy, keep, rate)
-    grads = _launch_backward("fused_window_block_backward", False, x, wqkv, bqkv, wproj, bproj,
+    grads = _launch_backward("fused_window_block_backward", x, wqkv, bqkv, wproj, bproj,
                              rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t)
     fused_window_block_backward.launches += 1
     return grads
@@ -268,11 +274,9 @@ def fused_window_block_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
 fused_window_block_backward.launches = 0
 
 
-def _check_perhead(name, C, H, *operands):
-    """The per-head kernels' extra needs: a head width that is a multiple of
-    4, and the projections' operands 16-byte aligned (float4 tile copies)."""
-    if (C // H) % 4:
-        raise ValueError(f"{name}: head width {C // H} is not a multiple of 4")
+def _check_aligned(name, *operands):
+    """The projections copy their operands into shared memory 16 bytes at a
+    time: each must be 16-byte aligned."""
     for t in operands:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: operands must be 16-byte aligned")
@@ -290,10 +294,26 @@ def _workspace(name, lib, fn, dev, *geometry):
     return torch.empty(floats.value, dtype=torch.float32, device=dev)
 
 
-def _launch_backward(name, perhead, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate,
-                     wqkv_t, wproj_t):
-    """The CUDA path of #3 (or #5 with ``perhead``): validate, size the
-    workspace, launch, and split the flat weight gradients."""
+def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate):
+    """The CUDA path of #2 and #4: validate, size the workspace, launch.
+    Returns (y, keep), keep None at rate 0."""
+    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    _check_aligned(name, wqkv, wproj)
+    lib = _window_block_lib()
+    ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace, x.device, B, N, C, H)
+    y = torch.empty_like(x)
+    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
+    _launch(name, lib.focal_wblock_fwd_dropout, x.device,
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep), ws.data_ptr(), B, N, C, H,
+            nW, int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
+    return y, keep
+
+
+def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate, wqkv_t,
+                     wproj_t):
+    """The CUDA path of #3 and #5: validate, size the workspace, launch, and
+    split the flat weight gradients."""
     B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
     dev = x.device
     _check("dy", dy, (B, N, C), dev)
@@ -307,17 +327,15 @@ def _launch_backward(name, perhead, x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
         wproj_t = wproj.t().contiguous()
     _check("wqkv_t", wqkv_t, (3 * C, C), dev)
     _check("wproj_t", wproj_t, (C, C), dev)
-    if perhead:
-        _check_perhead(name, C, H, wqkv, wqkv_t, wproj_t, dy)
+    _check_aligned(name, wqkv, wqkv_t, wproj_t, dy)
     lib = _window_block_lib()
-    workspace, run = ((lib.focal_wblock_ph_bwd_workspace, lib.focal_wblock_ph_bwd) if perhead
-                      else (lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd))
-    ws = _workspace(name, lib, workspace, dev, B, N, C, H, int(keep is not None))
+    ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace, dev, B, N, C, H,
+                    int(keep is not None))
     dx = torch.empty_like(x)
     dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
     drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
-    _launch(name, run, dev,
+    _launch(name, lib.focal_wblock_bwd, dev,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wqkv_t.data_ptr(), wproj_t.data_ptr(),
             rel_bias.data_ptr(), _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep,
             dx.data_ptr(), dweights.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(),
@@ -332,13 +350,13 @@ def _launch_backward(name, perhead, x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
 
 def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
                                rate=0.0):
-    """The function of #1 (rate 0) or #2 (rate > 0) for blocks too wide for
-    them (``wblock_fits`` false) (#4): the qkv projection over all B_ N rows
-    of the call, the attention per (window, head) pair, the output
-    projection, the projections on the tensor cores (3xTF32, f32-accurate).
-    Arguments as fused_window_block_dropout; with rate > 0 the keep mask is
-    drawn from the same Philox counters as #2's, so #2 and #4 give the same
-    mask for the same seed and geometry.
+    """The function of #1 (rate 0) or #2 (rate > 0) for the blocks that
+    ``wblock_fits`` sends away from them (#4), computed as #2 computes it:
+    the qkv projection over all B_ N rows of the call, the attention per
+    (window, head) pair, the output projection, the projections on the
+    tensor cores (3xTF32, f32-accurate). Arguments as
+    fused_window_block_dropout; with rate > 0 #2 and #4 give the same mask
+    for the same seed and geometry.
 
     Returns (y [B_, N, C] f32, keep uint8 [B_, H, N, N], or None at rate 0).
 
@@ -355,17 +373,8 @@ def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None,
             keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
         return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
                                             rate), keep
-    name = "fused_window_block_perhead"
-    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-    _check_perhead(name, C, H, wqkv, wproj)
-    lib = _window_block_lib()
-    ws = _workspace(name, lib, lib.focal_wblock_ph_fwd_workspace, x.device, B, N, C, H)
-    y = torch.empty_like(x)
-    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
-    _launch(name, lib.focal_wblock_ph_fwd, x.device,
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep), ws.data_ptr(), B, N, C, H,
-            nW, int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
+    y, keep = _launch_forward("fused_window_block_perhead", x, wqkv, bqkv, wproj, bproj, rel_bias,
+                              mask, seed, rate)
     fused_window_block_perhead.launches += 1
     return y, keep
 
@@ -375,11 +384,11 @@ fused_window_block_perhead.launches = 0
 
 def fused_window_block_perhead_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
                                         keep=None, rate=0.0, wqkv_t=None, wproj_t=None):
-    """VJP of #4 (#5): fused_window_block_backward's arguments and results;
-    ``keep`` is #4's mask. The projections (qkv and g = dy Wproj^T
-    recomputed, dx) and the weight gradients are row-tiled tensor-core
-    products (3xTF32); the weight and bias-table gradients are fixed-order
-    split sums: two calls give the same bits.
+    """VJP of #4 (#5), computed as #3 computes it: fused_window_block_backward's
+    arguments and results; ``keep`` is #4's mask. The projections (qkv and
+    g = dy Wproj^T recomputed, dx) and the weight gradients are row-tiled
+    tensor-core products (3xTF32); the weight and bias-table gradients are
+    fixed-order split sums: two calls give the same bits.
 
     Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_bwd_impl
     (_wblock_ph_bwd_kernel). CPU tensors take the plain version.
@@ -387,8 +396,8 @@ def fused_window_block_perhead_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, m
     if x.device.type == "cpu":
         return fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                                                      dy, keep, rate)
-    grads = _launch_backward("fused_window_block_perhead_backward", True, x, wqkv, bqkv, wproj,
-                             bproj, rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t)
+    grads = _launch_backward("fused_window_block_perhead_backward", x, wqkv, bqkv, wproj, bproj,
+                             rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t)
     fused_window_block_perhead_backward.launches += 1
     return grads
 
@@ -405,7 +414,7 @@ def tf32_round(t):
 
 
 def gemm_3xtf32_reference(a, b, passes=3):
-    """Plain emulation of the per-head kernels' tensor-core product (csrc/
+    """Plain emulation of the training kernels' tensor-core product (csrc/
     gemm_3xtf32.cuh): a = a_hi + a_lo, b = b_hi + b_lo, each part rounded to
     TF32, and a b ~ a_lo b_hi + a_hi b_lo + a_hi b_hi in f32. ``passes=1``
     is one TF32 product, a_hi b_hi alone."""
@@ -418,9 +427,9 @@ def gemm_3xtf32_reference(a, b, passes=3):
 
 def gemm_3xtf32(a, b, transpose_a=False):
     """a b (a [M, K]), or a^T b (a [K, M]) with ``transpose_a``, by the
-    tensor-core product core of #4 and #5 alone: the projections' kernel, or
+    tensor-core product core of #2-#5 alone: the projections' kernel, or
     with ``transpose_a`` the weight gradients' (one split), f32 [K, N] b.
-    For the checks; the per-head wrappers launch it themselves. CPU tensors
+    For the checks; the training wrappers launch it themselves. CPU tensors
     take gemm_3xtf32_reference."""
     if a.device.type == "cpu":
         return gemm_3xtf32_reference(a.t() if transpose_a else a, b)
@@ -791,20 +800,16 @@ def _window_block_lib():
     lib = _build.load(_WINDOW_BLOCK_SRC)
     if lib.focal_wblock_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
+        ll = ctypes.POINTER(ctypes.c_longlong)
         lib.focal_wblock_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.focal_wblock_fwd_workspace.argtypes = [i] * 4 + [ll]
         lib.focal_wblock_fwd_dropout.argtypes = (
-            [p] * 9 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
-        lib.focal_wblock_ph_fwd_workspace.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-        lib.focal_wblock_ph_fwd.argtypes = (
             [p] * 10 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
-        for fn in (lib.focal_wblock_bwd_workspace, lib.focal_wblock_ph_bwd_workspace):
-            fn.argtypes = [i] * 5 + [ctypes.POINTER(ctypes.c_longlong)]
-        for fn in (lib.focal_wblock_bwd, lib.focal_wblock_ph_bwd):
-            fn.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
-        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_dropout,
-                   lib.focal_wblock_ph_fwd_workspace, lib.focal_wblock_ph_fwd,
-                   lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd,
-                   lib.focal_wblock_ph_bwd_workspace, lib.focal_wblock_ph_bwd):
+        lib.focal_wblock_bwd_workspace.argtypes = [i] * 5 + [ll]
+        lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
+        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_workspace,
+                   lib.focal_wblock_fwd_dropout, lib.focal_wblock_bwd_workspace,
+                   lib.focal_wblock_bwd):
             fn.restype = ctypes.c_int
         lib.focal_gemm_3xtf32.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.focal_gemm_3xtf32.restype = ctypes.c_int

@@ -71,9 +71,10 @@ def test_kernel_wrapper_raises_on_cuda_input_it_cannot_take():
 
 
 # ---------------------------------------------------------------------------
-# training kernels: #2 (forward with attention dropout) and #3 (backward).
-# #2 against the plain forward fed #2's own keep mask (1e-4 absolute, as
-# #1); #3 against autograd of the plain version with the same mask as
+# training kernels: #2 (forward with attention dropout) and #3 (backward),
+# row-tiled 3xTF32 products around the attention per (window, head). #2
+# against the plain forward fed #2's own keep mask (1e-4 absolute, as #1);
+# #3 against autograd of the plain version with the same mask as
 # max|kernel - plain| / max|plain| <= 1e-4 per gradient (long f32 sums over
 # every window, so the bound is relative).
 
@@ -120,9 +121,9 @@ def test_dropout_mask_is_a_function_of_the_seed():
     assert not torch.equal(k1, k3)
 
 
-# C = 64, 128, 256 (the MOD stage widths), nW 1 (no mask) and 4, window
-# batches that are not a multiple of the kernel's windows per block (5, 2, 1
-# at these widths) or of nW, with and without dropout
+# C = 64, 128, 256 (the MOD stage widths), nW 1 (no mask) and 4, a window
+# batch whose rows (9 B_) are not a multiple of the 128-row projection tile
+# and B_ not a multiple of nW, with and without dropout
 @pytest.mark.gpu
 @pytest.mark.parametrize("C", [64, 128, 256])
 @pytest.mark.parametrize("nW", [0, 4])
@@ -151,6 +152,96 @@ def test_backward_matches_autograd_of_plain(C, nW, rate):
     again = fused_window_block_backward(*args, dy, keep, rate)
     for g, h in zip(got, again):  # fixed-order sums: bitwise repeatable
         assert torch.equal(g, h)
+
+
+def _training_pair(args, dy, rate, seed):
+    """#2 (or no mask at rate 0) and #3 given the weights' [out, in] copies
+    (args[7:9], as the Swin block passes them): (y, keep, the six
+    gradients)."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    y, keep = (pk.fused_window_block_dropout(*args[:7], seed=seed, rate=rate) if rate
+               else (None, None))
+    return y, keep, pk.fused_window_block_backward(*args[:7], dy, keep, rate, *args[7:])
+
+
+def _with_transposes(args):
+    return args + [args[1].t().contiguous(), args[3].t().contiguous()]
+
+
+# (windows, tokens, channels, heads, shift-mask windows or 0): MOD_TINY's
+# stage 0 (hd 8) with a ragged window count, head widths that are not a
+# multiple of 4 (hd 6, hd 3: scalar staging), and one head of 1024 floats
+# (fewer (window, head) pairs a block than the attention's default). Held
+# against the plain version in float64: at hd 1024 these inputs (q not
+# scaled by hd**-0.5) give logits of std ~32, and there the f32 plain
+# version is itself ~5e-5 from the exact output, as far as the kernel is.
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,C,H,nW", [
+    (37, 9, 16, 2, 4), (131, 9, 24, 4, 4), (53, 4, 12, 4, 3), (19, 9, 1024, 1, 0),
+])
+def test_training_kernels_at_other_head_widths(B, N, C, H, nW):
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(B + C + H)
+    args = _args(rng, B, N, C, H, nW, dev)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    rate = 0.2
+    y, keep, got = _training_pair(_with_transposes(args), dy, rate, 21)
+    torch.cuda.synchronize()
+    assert keep.shape == (B, H, N, N)
+    exact = [None if a is None else a.double() for a in args]
+    ref = pk.fused_window_block_reference(*exact, keep, rate)
+    assert float((y.double() - ref).abs().max()) <= 1e-4
+    want = pk.fused_window_block_backward_reference(*exact, dy.double(), keep, rate)
+    for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got, want):
+        assert _rel(g.double(), w) <= 1e-4, (name, _rel(g.double(), w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_backward_repeats_bitwise_at_a_full_launch(rate):
+    """#3 at MOD's audio stage-0 width and a quarter of its window count
+    (73,728 rows: the weight gradients in ~130 row splits, the attention on
+    a full grid): the same bits on a second call, with #2's mask and
+    without one."""
+    dev = _card()
+    rng = np.random.default_rng(8)
+    args = _with_transposes(_args(rng, 8192, 9, 64, 4, 64, dev))
+    dy = torch.from_numpy(rng.normal(size=(8192, 9, 64)).astype(np.float32)).to(dev)
+    _, keep, got = _training_pair(args, dy, rate, 5)
+    _, _, again = _training_pair(args, dy, rate, 5)
+    torch.cuda.synchronize()
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.gpu
+def test_training_kernels_launch_only_window_block_kernels():
+    """A profiled call of #2 and of #3 (given the transposed weights, as the
+    Swin block passes them) runs only csrc/window_block.cu's kernels: the
+    projections, the attention, the weight gradients and the reductions,
+    and no cuBLAS or cuDNN kernel."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = _card()
+    rng = np.random.default_rng(9)
+    args = _with_transposes(_args(rng, 512, 9, 64, 4, 64, dev))
+    dy = torch.from_numpy(rng.normal(size=(512, 9, 64)).astype(np.float32)).to(dev)
+    _training_pair(args, dy, 0.2, 3)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _training_pair(args, dy, 0.2, 3)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    kernels = {m.group(1) if m else n for n in names
+               for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
+    assert kernels == {"proj_gemm_kernel", "attn_fwd_kernel", "attn_bwd_kernel",
+                       "wgrad_gemm_kernel", "reduce_partials_kernel"}, names
 
 
 @pytest.mark.gpu
@@ -263,11 +354,13 @@ def test_perhead_backward_matches_autograd_of_plain(B, C, nW, rate):
 
 # (M, N, K, a transposed): the projections at MOD_WIDE shapes with ragged
 # rows (qkv at C 512, dx at C 1024: K = 3C) and the weight gradients with a
-# ragged row count K
+# ragged row count K; at MOD's C = 64 (128 x 64 tiles: N = 192, 64) qkv with
+# ragged rows and dWqkv over a ragged row count
 @pytest.mark.gpu
 @pytest.mark.parametrize("M,N,K,trans", [
     (333, 1536, 512, False), (4608, 1024, 3072, False), (512, 1536, 333, True),
-    (1024, 1024, 4608, True),
+    (1024, 1024, 4608, True), (4617, 192, 64, False), (4617, 64, 192, False),
+    (64, 192, 4617, True),
 ])
 def test_gemm_3xtf32_matches_its_emulation(M, N, K, trans):
     """The tensor-core core of #4/#5 against its plain emulation
@@ -321,21 +414,27 @@ def test_window_block_routes_wide_blocks_to_the_perhead_kernels():
 
 @pytest.mark.gpu
 def test_wrappers_raise_on_a_failed_launch_plan():
-    """A geometry whose window does not fit a block raises; nothing falls
-    back: #3 at C = 1024 (the reason #5 exists), #4 and #5 at C = 4096
-    (hd 1024: a head's rows do not fit the attention's shared memory)."""
+    """A geometry that the kernels have no plan for raises before anything
+    launches; nothing falls back: #2-#5 at C = 4096 with one head (one
+    (window, head) pair's rows of 4,096 floats do not fit the attention's
+    shared memory). Narrower heads take fewer pairs a block
+    (test_training_kernels_at_other_head_widths)."""
     from focal_tpu_torch.ops import pallas_kernels as pk
 
     dev = _card()
-    args = _args(np.random.default_rng(2), 4, 9, 1024, 4, 0, dev)
-    dy = torch.zeros_like(args[0])
+    wide = _args(np.random.default_rng(3), 2, 9, 4096, 1, 0, dev)
+    dy = torch.zeros_like(wide[0])
+    before = [k.launches for k in (pk.fused_window_block_dropout, pk.fused_window_block_perhead)]
     with pytest.raises(RuntimeError, match="no launch plan"):
-        pk.fused_window_block_backward(*args, dy)
-    wide = _args(np.random.default_rng(3), 2, 9, 4096, 4, 0, dev)
-    with pytest.raises(RuntimeError, match="launch failed"):
+        pk.fused_window_block_dropout(*wide, seed=1, rate=0.2)
+    with pytest.raises(RuntimeError, match="no launch plan"):
         pk.fused_window_block_perhead(*wide)
     with pytest.raises(RuntimeError, match="no launch plan"):
-        pk.fused_window_block_perhead_backward(*wide, torch.zeros_like(wide[0]))
+        pk.fused_window_block_backward(*wide, dy)
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        pk.fused_window_block_perhead_backward(*wide, dy)
+    assert [k.launches for k in (pk.fused_window_block_dropout,
+                                 pk.fused_window_block_perhead)] == before
 
 
 # ---------------------------------------------------------------------------

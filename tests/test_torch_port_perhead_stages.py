@@ -73,11 +73,11 @@ def stages_forward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, keep=None, 
 
 
 def weight_splits(R, C, sms=132):
-    """Rows per split of #5's weight gradients, as ph_bwd_plan sets them on
-    a card of ``sms`` SMs (128 x 128 tiles, ~4 tiles an SM, >= 256 rows a
-    split, a multiple of 32)."""
-    tiles_c = -(-C // 128)
-    wtiles = tiles_c * -(-3 * C // 128) + tiles_c * tiles_c
+    """Rows per split of the weight gradients of #3 and #5, as bwd_plan sets
+    them on a card of ``sms`` SMs (128 x 128 tiles, 128 x 64 at C = 64; ~4
+    tiles an SM, >= 256 rows a split, a multiple of 32)."""
+    bn = 128 if C % 128 == 0 else 64
+    wtiles = -(-C // 128) * (-(-3 * C // bn) + -(-C // bn))
     splits = max(1, min(-(-4 * sms // wtiles), -(-R // 256)))
     rps = -(-R // splits)
     return -(-rps // 32) * 32
