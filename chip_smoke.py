@@ -114,9 +114,11 @@ result line if any fails):
  19. MOD supervised steps at batch 128 (fixed pool: mixup, phase_shift):
      3 warm-up + 20 timed on the default path (#2/#3 16 a step, no MLP
      kernel) and with -pallas_mlp (#2, #3, #11, #12 16 each), p50,
-     samples/s, peak memory, a profiled step's idle share and top device
-     kernels; a rate-0 step from the initial state, kernels (#1, #3, #10,
-     #12 16 each) vs plain: loss 1e-5 relative, gradients 1e-4;
+     samples/s, peak memory, a profiled step's idle share, top device
+     kernels and #10-#12's device time by phase; the -pallas_mlp step
+     beside the one with the CUDA-core #10-#12 (PARENT_STEPS); a rate-0
+     step from the initial state, kernels (#1, #3, #10, #12 16 each) vs
+     plain: loss 1e-5 relative, gradients 1e-4;
  20. the entry points in-process at MOD with -pallas_mlp and -synthetic (512
      samples): supervised 2 epochs, -resume to 3, focal_tpu_torch.test on
      its _best; FOCAL pretrain 1 epoch, finetune 2 epochs, -resume to 3,
@@ -128,7 +130,13 @@ result line if any fails):
      of phase 3's (the cuBLAS MLP, same weights);
  21. timing of #10, #11 and #12 per geometry (kernel, plain version, the
      cuBLAS chain addmm -> GELU -> addmm with F.dropout for #11 and its
-     autograd backward for #12 as the library yardstick, and the bound);
+     autograd backward for #12 as the library yardstick, the bounds on the
+     f32 CUDA cores and on the TF32 tensor cores (3 passes), TFLOP/s), then
+     profiled calls of each at every geometry (at least 5 and 20 ms of
+     them), which fail the run if
+     any device kernel they launch is not one of csrc/fused_mlp.cu's, their
+     time split by kernel name (hidden and output products, masked
+     gradient, weight gradient, reduction);
  22. the attention-only kernels (-no_pallas_block) vs plain at every
      attention geometry: MOD at the served batch (128) and the training
      batch (256, views fused to 512), MOD_WIDE's 16 blocks at 64 fused to
@@ -165,6 +173,7 @@ the profiles as JSON there.
 
 import argparse
 import copy
+import functools
 import json
 import math
 import os
@@ -197,7 +206,11 @@ PK = "focal_tpu/ops/pallas_kernels.py"
 # the pretrain steps with the per-window #2 and #3, before they ran on the
 # tensor cores (PERF.md; NVIDIA H100 80GB HBM3, 700.00 W)
 PARENT_STEPS = {"MOD": {"p50_ms": 135.740, "idle_share": 0.256, "peak_mb": 6938.5},
-                "MOD_WIDE": {"p50_ms": 210.455, "idle_share": 0.021, "peak_mb": 9716.9}}
+                "MOD_WIDE": {"p50_ms": 210.455, "idle_share": 0.021, "peak_mb": 9716.9},
+                # the -pallas_mlp MOD supervised step (batch 128) with #10-#12
+                # on the CUDA cores
+                "MOD_supervised_pallas_mlp": {"p50_ms": 102.901, "idle_share": 0.542,
+                                              "peak_mb": 1043.5}}
 
 
 def log(msg):
@@ -207,15 +220,21 @@ def log(msg):
 def kernel_of(ptxas_line):
     """The kernel a ptxas "Compiling entry function" line names, read from
     its mangled name (a length-prefixed identifier ending in _kernel, with
-    its bool or int template argument: <true>, <false>, <64>)."""
-    for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", ptxas_line):
-        n, ident = int(m.group(1)), m.group(2)
+    its bool or int template arguments and its source tag: <true>,
+    <128, true, false>, <64, FusedMlpSrc>). The last such identifier is
+    the kernel's: an anonymous namespace's hash may also end in one."""
+    found = [(int(m.group(1)), m.group(2))
+             for m in re.finditer(r"(?=(\d+)([A-Za-z_]\w*))", ptxas_line)]
+    for n, ident in reversed(found):
         if len(ident) >= n and ident[:n].endswith("_kernel"):
-            t = re.match(r"IL([bi])(\d+)E", ident[n:])
-            if not t:
+            rest = ident[n:]
+            if not rest.startswith("I"):
                 return ident[:n]
-            arg = {"1": "true", "0": "false"}[t.group(2)] if t.group(1) == "b" else t.group(2)
-            return f"{ident[:n]}<{arg}>"
+            args = [{"1": "true", "0": "false"}[v] if k == "b" else v
+                    for k, v in re.findall(r"L([bi])(\d+)E", rest)]
+            args += [t[:int(k)] for k, t in re.findall(r"(?=(\d+)([A-Za-z_]\w*))", rest)
+                     if t[:int(k)].endswith("Src")]
+            return f"{ident[:n]}<{', '.join(args)}>"
     return ptxas_line.strip()
 
 
@@ -476,49 +495,85 @@ def log_profile(tag, what, breakdown, top=12):
         log(f"[{tag}] {r['device_ms']:.4f} ms x{r['count']}: {r['name'][:90]}")
 
 
-def window_block_kernels():
-    """The names of the __global__ kernels of csrc/window_block.cu, read
-    from the source."""
-    with open(os.path.join(HERE, "focal_tpu_torch", "csrc", "window_block.cu")) as f:
-        return set(re.findall(r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
-                              f.read()))
+@functools.lru_cache(maxsize=None)
+def source_kernels(*files):
+    """The names of the __global__ kernels of csrc/ files, read from the
+    sources."""
+    names = set()
+    for name in files:
+        with open(os.path.join(HERE, "focal_tpu_torch", "csrc", name)) as f:
+            names |= set(re.findall(
+                r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)", f.read()))
+    return names
 
 
-# the phase of #2-#5 each of their window_block.cu kernels serves, and how
-# many times one call of #2 or #4 (fwd) or of #3 or #5 (bwd) launches it
-WB_PHASES = {"proj_gemm_kernel": "GEMM", "attn_fwd_kernel": "attention",
-             "attn_bwd_kernel": "attention", "wgrad_gemm_kernel": "weight gradient",
-             "reduce_partials_kernel": "reduction"}
+def kernel_name(row):
+    """The bare kernel name of a profiler row (None for a copy or memset)."""
+    m = re.search(r"::(\w+)(?:<[^()]*>)?\(", row)
+    return m.group(1) if m else None
+
+
+# a library's kernels: its source's, and gemm_splitk.cuh's (shared by
+# window_block.cu and fused_mlp.cu) as it instantiates them, with its tag
+# type in their names; the phase each kernel serves
+SPLITK = "gemm_splitk.cuh"
+WB_LIB = {"source": "window_block.cu", "tag": "WindowBlockSrc",
+          "phases": {"proj_gemm_kernel": "GEMM", "attn_fwd_kernel": "attention",
+                     "attn_bwd_kernel": "attention", "wgrad_gemm_kernel": "weight gradient",
+                     "reduce_partials_kernel": "reduction"}}
+MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
+                   "phases": {"mlp_hidden_kernel": "hidden GEMM", "mlp_out_kernel": "output GEMM",
+                              "mlp_g2_kernel": "masked gradient",
+                              "wgrad_gemm_kernel": "weight gradient",
+                              "reduce_partials_kernel": "reduction"}}
+# how many times one call of #2 or #4 (fwd) or of #3 or #5 (bwd) launches each
 WB_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
                "bwd": {"proj_gemm_kernel": 2, "attn_bwd_kernel": 1, "wgrad_gemm_kernel": 1,
                        "reduce_partials_kernel": 2}}
 PROFILE_REPS = 5
+PROFILE_TRACE_MS = 20.0
 
 
-def kernel_phase_split(torch, fn, launches):
-    """PROFILE_REPS calls of fn under torch.profiler; each kernel's device
+def owned_by(lib, row):
+    """Whether a profiler row is a kernel of ``lib`` (WB_LIB or
+    MLP_LIB)."""
+    name = kernel_name(row)
+    if name not in source_kernels(lib["source"], SPLITK):
+        return False
+    return name not in source_kernels(SPLITK) or lib["tag"] in row
+
+
+def mlp_launches(chunks, d):
+    """How many times one call of #10 or #11 (fwd) or of #12 with masks
+    (bwd) launches each fused_mlp.cu kernel, in ``chunks`` row chunks."""
+    if d == "fwd":
+        return {"mlp_hidden_kernel": chunks, "mlp_out_kernel": chunks}
+    return {"mlp_g2_kernel": chunks, "mlp_hidden_kernel": chunks, "mlp_out_kernel": chunks,
+            "wgrad_gemm_kernel": chunks, "reduce_partials_kernel": 1}
+
+
+def kernel_phase_split(torch, fn, launches, lib=WB_LIB, reps=PROFILE_REPS):
+    """``reps`` calls of fn under torch.profiler; each kernel's device
     time per call (its mean per launch times ``launches[name]``: a short
-    trace may lose a few records) and those times by WB_PHASES. Raises if a
-    device kernel (or copy) ran that is not one of window_block.cu's (no
-    cuBLAS or library kernel may run under the training wrappers), or not
-    one of ``launches``, or if one of ``launches`` left no record."""
+    trace may lose a few records) and those times by ``lib``'s phases.
+    Raises if a device kernel (or copy) ran that is not one of ``lib``'s
+    (no cuBLAS or library kernel may run under the kernels' wrappers), or
+    not one of ``launches``, or if one of ``launches`` left no record."""
     def calls():
         # pauses around the calls: in a process that had traced before, a
         # trace of one call (a few milliseconds) lost some or all records
         time.sleep(0.05)
-        for _ in range(PROFILE_REPS):
+        for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         time.sleep(0.05)
 
     prof = profile_device(torch, calls)
-    ours = window_block_kernels()
     kernels = {}
     for r in prof["rows"]:
-        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", r["name"])
-        name = m.group(1) if m else None
-        if name not in ours:
-            raise AssertionError(f"a device kernel outside csrc/window_block.cu ran: {r['name']}")
+        name = kernel_name(r["name"])
+        if not owned_by(lib, r["name"]):
+            raise AssertionError(f"a device kernel outside csrc/{lib['source']} ran: {r['name']}")
         if name not in launches:
             raise AssertionError(f"{name} ran; expected only {sorted(launches)}")
         k = kernels.setdefault(name, {"device_ms": 0.0, "count": 0})
@@ -530,9 +585,10 @@ def kernel_phase_split(torch, fn, launches):
     phases = {}
     for name, k in kernels.items():
         k["ms_per_call"] = k["device_ms"] / k["count"] * launches[name]
-        phases[WB_PHASES[name]] = phases.get(WB_PHASES[name], 0.0) + k["ms_per_call"]
+        phase = lib["phases"][name]
+        phases[phase] = phases.get(phase, 0.0) + k["ms_per_call"]
     return {"device_ms": sum(phases.values()), "phases": phases, "kernels": kernels,
-            "complete": all(k["count"] == PROFILE_REPS * launches[n] for n, k in kernels.items())}
+            "complete": all(k["count"] == reps * launches[n] for n, k in kernels.items())}
 
 
 def block_profiles(torch, fwd, bwd, names, g, gen, dev, rate, tag):
@@ -573,13 +629,14 @@ def profile_split(torch, fwd, bwd, names, geos, gen, dev, rate, tag):
     return split
 
 
-def block_device_ms(prof):
-    """The device time of #2-#5's kernels in a profiled step, by phase."""
+def block_device_ms(prof, lib=WB_LIB):
+    """The device time of ``lib``'s kernels (#2-#5's by default) in a
+    profiled step, by phase."""
     out = {}
     for r in prof["rows"]:
-        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", r["name"])
-        if m and m.group(1) in WB_PHASES:
-            out[WB_PHASES[m.group(1)]] = out.get(WB_PHASES[m.group(1)], 0.0) + r["device_ms"]
+        if owned_by(lib, r["name"]):
+            phase = lib["phases"][kernel_name(r["name"])]
+            out[phase] = out.get(phase, 0.0) + r["device_ms"]
     return out
 
 
@@ -1140,15 +1197,15 @@ def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_st
                  {k.__name__: per_step.get(k.__name__, 0) * steps for k in kernels})
     p50_ms = float(np.percentile(step_s, 50)) * 1e3
     profile = profile_device(torch, lambda: step(state, tdata, tlabels, idx))
-    mlp_ms = sum(r["device_ms"] for r in profile["rows"] if "mlp_" in r["name"]
-                 and "(anonymous namespace)" in r["name"])
+    mlp_split = block_device_ms(profile, MLP_LIB)
+    mlp_ms = sum(mlp_split.values())
     summary = {
         "steps": steps, "launches": launches, "p50_ms": p50_ms,
         "mean_ms": float(np.mean(step_s)) * 1e3, "min_ms": float(np.min(step_s)) * 1e3,
         "max_ms": float(np.max(step_s)) * 1e3, "samples_per_s": batch / (p50_ms / 1e3),
         "peak_mb": peak_mb, "loss_first": float(history[0][0]), "loss_last": float(history[-1][0]),
         "profile": profile, "idle_share": 1 - profile["device_busy_ms"] / profile["wall_ms"],
-        "mlp_kernels_device_ms": mlp_ms,
+        "mlp_kernels_device_ms": mlp_ms, "mlp_device_ms_by_phase": mlp_split,
     }
     log(f"[{tag}] {steps} steps: launches {launches}; loss {summary['loss_first']:.4f} -> "
         f"{summary['loss_last']:.4f}; p50 step {p50_ms:.3f} ms (mean {summary['mean_ms']:.3f}, "
@@ -1156,7 +1213,7 @@ def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_st
         f"{summary['samples_per_s']:.1f} samples/s, peak memory {peak_mb:.1f} MiB")
     log_profile(tag, "one profiled step", profile, top=15)
     log(f"[{tag}] device time of the fused MLP kernels (#10-#12) in the profiled step: "
-        f"{mlp_ms:.4f} ms")
+        f"{mlp_ms:.4f} ms ({mlp_split})")
     del state, step, tdata, idx, model
     return summary
 
@@ -1930,6 +1987,13 @@ def main():
         sup_runs[tag] = run_supervised_steps(torch, np, sargs, SUP_BATCH, TRAIN_WARMUP,
                                              TRAIN_STEPS, all_kernels, per_step, dev, tag)
         torch.cuda.empty_cache()
+    run, p = sup_runs["supervised-pallas-mlp"], PARENT_STEPS["MOD_supervised_pallas_mlp"]
+    log(f"[supervised-pallas-mlp] beside the CUDA-core #10-#12 (p50 {p['p50_ms']:.3f} ms, idle "
+        f"share {p['idle_share']:.3f}, peak {p['peak_mb']:.1f} MiB): p50 {run['p50_ms']:.3f} ms "
+        f"({run['p50_ms'] / p['p50_ms']:.3f}x), idle share {run['idle_share']:.3f}, device busy "
+        f"{run['profile']['device_busy_ms']:.3f} ms, peak {run['peak_mb']:.1f} MiB "
+        f"({run['peak_mb'] / p['peak_mb']:.3f}x; {run['peak_mb'] / sup_runs['supervised-default']['peak_mb']:.3f}x "
+        f"the default route's), #10-#12 device {run['mlp_kernels_device_ms']:.4f} ms")
     from focal_tpu_torch.models import build_backbone, init_params
 
     sup_initial = init_params(build_backbone(cfg, "SW_Transformer", task, "no", pallas_mlp=True),
@@ -2079,23 +2143,29 @@ def main():
 
     # ---- 21. #10, #11 and #12 timing per geometry: kernel, plain version,
     # the cuBLAS chain as the library yardstick (with F.dropout for #11 and
-    # its autograd backward for #12) and the bound
+    # its autograd backward for #12), the bounds on the f32 CUDA cores and
+    # on the TF32 tensor cores (3 passes), TFLOP/s; then profiled calls of
+    # each at every geometry, which fail the run if a device kernel they
+    # launch is not one of csrc/fused_mlp.cu's, split by kernel name
     mtot = {}
     for gi, g in enumerate(mgeos):
         T, C, H = g["T"], g["C"], g["H"]
         x, w1, b1, w2, b2, gy = mlp_inputs(torch, np, g, 500 + gi, dev)
         w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
         keep1, keep2 = fm.mlp_keep_masks(7, T, C, H, mlp_rate, dev)
+        calls = {"fwd": lambda: mlp_fwd(x, w1, b1, w2, b2),
+                 "drop": lambda: mlp_drop(x, w1, b1, w2, b2, 7, mlp_rate),
+                 "bwd": lambda: mlp_bwd(x, w1, b1, w1t, w2t, gy, 7, mlp_rate)}
         with torch.no_grad():
-            g["fwd_ms"] = time_ms(torch, lambda: mlp_fwd(x, w1, b1, w2, b2))
+            g["fwd_ms"] = time_ms(torch, calls["fwd"])
             g["fwd_plain_ms"] = time_ms(torch, lambda: fm.fused_mlp_reference(x, w1, b1, w2, b2))
             g["fwd_library_ms"] = time_ms(torch, lambda: library_mlp(torch, F, x, w1, b1, w2, b2))
-            g["drop_ms"] = time_ms(torch, lambda: mlp_drop(x, w1, b1, w2, b2, 7, mlp_rate))
+            g["drop_ms"] = time_ms(torch, calls["drop"])
             g["drop_plain_ms"] = time_ms(torch, lambda: fm.fused_mlp_dropout_reference(
                 x, w1, b1, w2, b2, keep1, keep2, mlp_rate))
             g["drop_library_ms"] = time_ms(
                 torch, lambda: library_mlp(torch, F, x, w1, b1, w2, b2, mlp_rate))
-        g["bwd_ms"] = time_ms(torch, lambda: mlp_bwd(x, w1, b1, w1t, w2t, gy, 7, mlp_rate))
+        g["bwd_ms"] = time_ms(torch, calls["bwd"])
         g["bwd_nomask_ms"] = time_ms(torch, lambda: mlp_bwd(x, w1, b1, w1t, w2t, gy))
         g["bwd_plain_ms"] = time_ms(torch, lambda: fm.fused_mlp_backward_reference(
             x, w1, b1, w2, b2, gy, keep1, keep2, mlp_rate))
@@ -2108,39 +2178,66 @@ def main():
         b_fl, b_by = mlp_work(g, True)
         g["fwd_bound_ms"], g["fwd_bound_by"] = bound(f_fl, f_by)
         g["bwd_bound_ms"], g["bwd_bound_by"] = bound(b_fl, b_by)
+        g["fwd_bound_tc_ms"], g["bwd_bound_tc_ms"] = tc_bound(f_fl, f_by), tc_bound(b_fl, b_by)
         g["fwd_gflop"], g["bwd_gflop"] = f_fl / 1e9, b_fl / 1e9
-        log(f"[time-mlp] {g['name']}: #10 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
-            f"library {g['fwd_library_ms']:.4f}, bound {g['fwd_bound_ms']:.4f}, "
+        g["chunks"] = fm.mlp_launch_plan(T, C, H, True, dev)[1]
+        log(f"[time-mlp] {g['name']} ({g['chunks']} row chunks): #10 {g['fwd_ms']:.4f} ms (plain "
+            f"{g['fwd_plain_ms']:.4f}, library {g['fwd_library_ms']:.4f}, bound f32 "
+            f"{g['fwd_bound_ms']:.4f}, TF32x3 {g['fwd_bound_tc_ms']:.4f}, "
             f"{f_fl / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #11 {g['drop_ms']:.4f} ms (plain "
-            f"{g['drop_plain_ms']:.4f}, library {g['drop_library_ms']:.4f}); #12 {g['bwd_ms']:.4f} "
-            f"ms, {g['bwd_nomask_ms']:.4f} without masks (plain {g['bwd_plain_ms']:.4f}, library "
-            f"{g['bwd_library_ms']:.4f}, bound {g['bwd_bound_ms']:.4f}, "
-            f"{b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+            f"{g['drop_plain_ms']:.4f}, library {g['drop_library_ms']:.4f}, "
+            f"{f_fl / g['drop_ms'] / 1e9:.2f} TFLOP/s); #12 {g['bwd_ms']:.4f} ms, "
+            f"{g['bwd_nomask_ms']:.4f} without masks (plain {g['bwd_plain_ms']:.4f}, library "
+            f"{g['bwd_library_ms']:.4f}, bound f32 {g['bwd_bound_ms']:.4f}, TF32x3 "
+            f"{g['bwd_bound_tc_ms']:.4f}, {b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+        for fn in calls.values():  # warm before the traces
+            fn()
+        torch.cuda.synchronize()
+        # a trace of well under a millisecond of kernels lost every record:
+        # at least PROFILE_TRACE_MS of calls
+        g["profile"] = {d: kernel_phase_split(
+            torch, fn, mlp_launches(g["chunks"], "bwd" if d == "bwd" else "fwd"), MLP_LIB,
+            reps=max(PROFILE_REPS, math.ceil(PROFILE_TRACE_MS / g[f"{d}_ms"])))
+            for d, fn in calls.items()}
+        log(f"[profile-mlp] {g['name']}: " + "; ".join(
+            f"{name} device {g['profile'][d]['device_ms']:.4f} ms a call (" + ", ".join(
+                f"{p} {ms:.4f}" for p, ms in sorted(g["profile"][d]["phases"].items(),
+                                                    key=lambda kv: -kv[1])) + ")"
+            for d, name in (("fwd", "#10"), ("drop", "#11"), ("bwd", "#12"))))
         ds = g["name"].split()[0]
         step_sum = mtot.setdefault(ds, {"fwd_flops": 0, "fwd_bytes": 0, "bwd_flops": 0,
-                                        "bwd_bytes": 0, "launches": 0})
+                                        "bwd_bytes": 0, "launches": 0,
+                                        "device_ms_by_phase": {"fwd": {}, "drop": {}, "bwd": {}}})
         k = g["per_forward"]
         for key in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "drop_ms", "drop_plain_ms",
                     "drop_library_ms", "bwd_ms", "bwd_nomask_ms", "bwd_plain_ms",
                     "bwd_library_ms"):
             step_sum[key] = step_sum.get(key, 0.0) + k * g[key]
+        for d, split in step_sum["device_ms_by_phase"].items():
+            for phase, ms in g["profile"][d]["phases"].items():
+                split[phase] = split.get(phase, 0.0) + k * ms
         step_sum["fwd_flops"] += k * f_fl
         step_sum["fwd_bytes"] += k * f_by
         step_sum["bwd_flops"] += k * b_fl
         step_sum["bwd_bytes"] += k * b_by
         step_sum["launches"] += k
-        del x, w1, b1, w2, b2, gy, w1t, w2t, keep1, keep2
+        del x, w1, b1, w2, b2, gy, w1t, w2t, keep1, keep2, calls
     for ds, step_sum in mtot.items():
-        step_sum["fwd_bound_ms"] = bound(step_sum["fwd_flops"], step_sum["fwd_bytes"])[0]
-        step_sum["bwd_bound_ms"] = bound(step_sum["bwd_flops"], step_sum["bwd_bytes"])[0]
+        for d in ("fwd", "bwd"):
+            fl, by = step_sum[f"{d}_flops"], step_sum[f"{d}_bytes"]
+            step_sum[f"{d}_bound_ms"], step_sum[f"{d}_bound_tc_ms"] = bound(fl, by)[0], tc_bound(fl, by)
         log(f"[time-mlp] one {ds} forward's MLPs ({step_sum['launches']} launches): #10 "
             f"{step_sum['fwd_ms']:.3f} ms (plain {step_sum['fwd_plain_ms']:.3f}, library "
-            f"{step_sum['fwd_library_ms']:.3f}, bound {step_sum['fwd_bound_ms']:.3f}, "
-            f"{step_sum['fwd_flops'] / 1e9:.2f} GFLOP); #11 {step_sum['drop_ms']:.3f} (plain "
-            f"{step_sum['drop_plain_ms']:.3f}, library {step_sum['drop_library_ms']:.3f}); #12 "
-            f"{step_sum['bwd_ms']:.3f} ms, {step_sum['bwd_nomask_ms']:.3f} without masks (plain "
-            f"{step_sum['bwd_plain_ms']:.3f}, library {step_sum['bwd_library_ms']:.3f}, bound "
-            f"{step_sum['bwd_bound_ms']:.3f}, {step_sum['bwd_flops'] / 1e9:.2f} GFLOP)")
+            f"{step_sum['fwd_library_ms']:.3f}, bound f32 {step_sum['fwd_bound_ms']:.3f}, TF32x3 "
+            f"{step_sum['fwd_bound_tc_ms']:.3f}, {step_sum['fwd_flops'] / 1e9:.2f} GFLOP, "
+            f"{step_sum['fwd_flops'] / step_sum['fwd_ms'] / 1e9:.2f} TFLOP/s); #11 "
+            f"{step_sum['drop_ms']:.3f} (plain {step_sum['drop_plain_ms']:.3f}, library "
+            f"{step_sum['drop_library_ms']:.3f}); #12 {step_sum['bwd_ms']:.3f} ms, "
+            f"{step_sum['bwd_nomask_ms']:.3f} without masks (plain {step_sum['bwd_plain_ms']:.3f}, "
+            f"library {step_sum['bwd_library_ms']:.3f}, bound f32 {step_sum['bwd_bound_ms']:.3f}, "
+            f"TF32x3 {step_sum['bwd_bound_tc_ms']:.3f}, {step_sum['bwd_flops'] / 1e9:.2f} GFLOP, "
+            f"{step_sum['bwd_flops'] / step_sum['bwd_ms'] / 1e9:.2f} TFLOP/s); device ms by "
+            f"phase: {step_sum['device_ms_by_phase']}")
     mod_mlp = mtot["MOD"]
     log(f"[time-mlp] share of the -pallas_mlp supervised p50 step (MOD): "
         f"{(mod_mlp['drop_ms'] + mod_mlp['bwd_ms']) / sup_runs['supervised-pallas-mlp']['p50_ms']:.3f}")
@@ -2461,12 +2558,19 @@ def main():
                 | {"device_ms_by_phase": wide_split[d],
                    "launches_per_step": wide_per_step[fwd_drop.__name__]}}
 
-    def per_wide_mlp(d):
-        w = mtot["MOD_WIDE"]
+    def mlp_extra(d):
+        """#10's, #11's or #12's bound on the tensor cores, device time by
+        phase, and the MOD_WIDE stage-0 figures."""
         key = "fwd" if d == "drop" else d
-        return {"ms": w[f"{d}_ms"], "plain_ms": w[f"{d}_plain_ms"],
-                "library_ms": w[f"{d}_library_ms"], "bound_ms": w[f"{key}_bound_ms"],
-                "rows_of_samples": 2 * WIDE_BATCH, "launches": w["launches"]}
+        w = mtot["MOD_WIDE"]
+        return {"bound_ms_tensor_cores": mod_mlp[f"{key}_bound_tc_ms"],
+                "device_ms_by_phase": mod_mlp["device_ms_by_phase"][d],
+                "mod_wide_stage0": {
+                    "ms": w[f"{d}_ms"], "plain_ms": w[f"{d}_plain_ms"],
+                    "library_ms": w[f"{d}_library_ms"], "bound_ms": w[f"{key}_bound_ms"],
+                    "bound_ms_tensor_cores": w[f"{key}_bound_tc_ms"],
+                    "device_ms_by_phase": w["device_ms_by_phase"][d],
+                    "rows_of_samples": 2 * WIDE_BATCH, "launches": w["launches"]}}
 
     def per_wide(d):
         w = ctot["MOD_WIDE"]
@@ -2524,18 +2628,18 @@ def main():
               mlp_err["fwd"], mod_mlp["fwd_ms"], mod_mlp["fwd_plain_ms"], mod_mlp["fwd_bound_ms"],
               (mod_mlp["fwd_flops"], mod_mlp["fwd_bytes"]), mod_mlp["fwd_library_ms"], mlp_per,
               source=MLP_SRC, launches_per_forward=per_fwd_mlp, forwards=mlp_batches,
-              mod_wide_stage0=per_wide_mlp("fwd"), launches_by_path=by_path[mlp_fwd.__name__]),
+              **mlp_extra("fwd"), launches_by_path=by_path[mlp_fwd.__name__]),
         entry("fused_mlp_dropout_forward", f"{PK}:537", sup_mlp_launches[mlp_drop.__name__],
               mlp_err["drop"], mod_mlp["drop_ms"], mod_mlp["drop_plain_ms"], mod_mlp["fwd_bound_ms"],
               (mod_mlp["fwd_flops"], mod_mlp["fwd_bytes"]), mod_mlp["drop_library_ms"], mlp_step_per,
               source=MLP_SRC, launches_per_step=per_fwd_mlp, steps=TRAIN_STEPS,
-              mod_wide_stage0=per_wide_mlp("drop"), launches_by_path=by_path[mlp_drop.__name__]),
+              **mlp_extra("drop"), launches_by_path=by_path[mlp_drop.__name__]),
         entry("fused_mlp_backward", f"{PK}:590", sup_mlp_launches[mlp_bwd.__name__],
               mlp_err["bwd_abs"], mod_mlp["bwd_ms"], mod_mlp["bwd_plain_ms"], mod_mlp["bwd_bound_ms"],
               (mod_mlp["bwd_flops"], mod_mlp["bwd_bytes"]), mod_mlp["bwd_library_ms"], mlp_step_per,
               source=MLP_SRC, replaces_also=[f"{PK}:601"], launches_per_step=per_fwd_mlp,
               steps=TRAIN_STEPS, max_rel_err=mlp_err["bwd"], ms_without_masks=mod_mlp["bwd_nomask_ms"],
-              mod_wide_stage0=per_wide_mlp("bwd"), launches_by_path=by_path[mlp_bwd.__name__]),
+              **mlp_extra("bwd"), launches_by_path=by_path[mlp_bwd.__name__]),
     ]
     a_serve = atot["serve"]
     attn_step_per = (f"times: the {per_fwd} launches of one MOD training step at batch "

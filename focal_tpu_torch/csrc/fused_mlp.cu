@@ -16,51 +16,66 @@
 // counted by (row, column / 4, site): kept iff bits >= threshold = rate*2^32,
 // as the TPU kernel draws them (pk:506-513). The masks are never stored:
 // the backward draws them again from the seed, as the TPU kernel does.
+// GELU is the exact erff one (the TPU kernel's erf is a polynomial).
 //
 // What bounds them on this card: operations. Each output of fc1 and fc2 is
 // a C- or H-long dot product; at C = 64 a row does 4CH = 65,536 FLOPs for
 // 2C*4 = 512 bytes of x and y, far above the f32 ridge of 20 FLOP/byte
-// (67 TFLOP/s over 3.35 TB/s). f32 on the CUDA cores; no tensor cores yet.
+// (67 TFLOP/s over 3.35 TB/s) and the TF32 tensor cores' 148.
 //
-// What the design does about it:
-//   * The [T, H] hidden never reaches device memory, in either pass. A
-//     forward block owns 32 rows: x in shared memory, then for each 32-wide
-//     chunk of H the chunk of W1 and of W2 staged in shared memory, z and
-//     h for 32 x 32 (one row x 4 columns a thread), and y += h W2[chunk] in
-//     registers (2 rows x 4 columns x C/64 a thread). At C = 256 that is
-//     ~100 KB of shared memory, two blocks an SM.
-//   * The backward needs two sums that cross the tiling: dx sums over H,
-//     the weight gradients over T. It runs two kernels that both recompute
-//     z and dh from x, g and the weights (14 TCH FLOPs against the 10 the
-//     function needs, and no [T, H] traffic): mlp_bwd_dx_kernel walks the
-//     chunks of H for a tile of rows like the forward and writes dx;
-//     mlp_bwd_dw_kernel owns one chunk of H and a fixed group of rows,
-//     keeps its chunk of dW1, dW2 and db1 (and db2, chunk 0) in registers
-//     over the group's tiles, and writes them to its group's partial. One
-//     ordered sum over the groups (reduce_partials_kernel) gives the
-//     gradients: no float atomics, so two calls give the same bits. The
-//     group count is bounded so that the partials stay under 64 MB.
-//   * Weights come in the layouts each product reads row by row: W1 [C, H]
-//     and W2 [H, C] for the forward, and also W1^T [H, C] and W2^T [C, H]
-//     (nn.Linear's own layouts) for the backward.
+// What the design does about it: every product is a row-tiled product on
+// the tensor cores over all the rows of a chunk, 128 x 128 output tiles a
+// block, or 128 x 64 (two blocks an SM) where the product's width is not a
+// multiple of 128 (C = 64) and for the hidden products of the backward and
+// of forwards at C < 256 (make_plan), 3xTF32 (gemm_3xtf32.cuh: f32
+// accuracy, the ~1e-4 gates hold), with the elementwise work in the
+// products' epilogues:
+//   forward (#10, #11): h = GELU(x W1 + b1) (keep1) into a workspace
+//       [rows, H]; y = h W2 + b2 (keep2). Two launches.
+//   backward (#12): g2 = g keep2 / (1 - rate) into [rows, C] (with dropout
+//       only; else g itself); one launch computes z = x W1 + b1 and then,
+//       in the same block over the same tile, dh = g2 W2^T, whose epilogue
+//       reads z back (its own thread's writes, still in L2) and writes dz
+//       and the h the forward used (keep1) over it; dx = dz W1^T (W1^T as
+//       nn.Linear holds it, [H, C]); the weight gradients x^T dz | sum dz
+//       and h^T g2 | sum g2 as fixed split-K partials (gemm_splitk.cuh,
+//       the core #3 and #5 use), summed in split order. 10 TCH FLOPs (the
+//       first port recomputed z and dh twice: 14), no float atomics: two
+//       calls give the same bits.
+// The workspaces are transient (one call) and capped: the rows are
+// processed in chunks so that one [rows, H] array stays within
+// kChunkFloats (128 MiB; MOD_WIDE's audio stage 0, [73,728, 1,024], takes
+// three chunks). Later chunks add their weight-gradient partials to the
+// first chunk's, in chunk order. So -pallas_mlp keeps its memory: autograd
+// saves only x and the weights.
+// The backward's hidden kernel (two products, then GELU' and the mask in
+// its epilogue) spills ~150 bytes a thread at 128 registers; without the
+// spill at one block an SM it was 6 % slower on the H100.
+// Not yet: keeping h on chip (fc2 accumulated over hidden chunks in
+// registers), wgmma and TMA.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
 
+#include "gemm_3xtf32.cuh"
+#include "gemm_splitk.cuh"
 #include "philox.cuh"
+
+namespace focal {
+struct FusedMlpSrc {};  // tags this library's instances of gemm_splitk.cuh's kernels
+}  // namespace focal
 
 namespace {
 
+using Src = focal::FusedMlpSrc;
 constexpr int kThreads = 256;
-constexpr int kRows = 32;         // token rows of a tile
-constexpr int kChunk = 32;        // hidden units of a chunk
-constexpr int kHS = kChunk + 4;   // padded row stride of [kRows][kChunk] tiles
-constexpr int kMaxC = 256;        // widest C: one thread per column in the db2 sum, 4 column passes
+constexpr int kMaxC = 256;        // the widest C the wrappers route here (mlp_fits)
 constexpr int kSiteHidden = 0;    // keep1, after the GELU
 constexpr int kSiteOut = 1;       // keep2, after fc2
-constexpr size_t kMaxPartialBytes = 64ull << 20;
+constexpr long long kChunkFloats = 1ll << 25;  // one [rows, H] workspace: 128 MiB at most
+static_assert(kThreads == focal::kGemmThreads, "one block size for every kernel here");
 
 // The keep bits of columns 4*col4 .. 4*col4 + 3 of `row` at `site`: word u
 // belongs to column 4*col4 + u (Philox4x32-10, philox.cuh). Every kernel
@@ -82,395 +97,139 @@ __device__ __forceinline__ float gelu_grad(float z) {
   return 0.5f * (1.f + erff(z * 0.7071067811865476f)) + z * expf(-0.5f * z * z) * 0.3989422804014327f;
 }
 
-struct MlpArgs {
-  const float* x;    // [T, C]
-  const float* w1;   // [C, H]
-  const float* b1;   // [H]
-  const float* w2;   // [H, C] (forward)
-  const float* b2;   // [C] (forward)
-  const float* w1t;  // [H, C] (backward, dx)
-  const float* w2t;  // [C, H] (backward, dh)
-  const float* g;    // [T, C] (backward)
-  float* out;        // forward: y [T, C]; backward: dx [T, C]
-  float* part;       // backward: [groups, E] weight-gradient partials
-  int T, C, H, rows_per_group;
+struct Keep {
   unsigned long long seed;
   unsigned threshold;
   float inv_keep;
 };
 
-// Rows [r0, r0 + kRows) of a [T, C] array into shared memory (row stride
-// C + 4), zero from row r_end on; with kMaskOut the values are g2 = g *
-// keep2 / (1 - rate).
-template <bool kMaskOut>
-__device__ __forceinline__ void load_rows(const float* __restrict__ src, float* dst, int r0,
-                                          int r_end, const MlpArgs& p) {
-  const int C = p.C, XS = C + 4, c4n = C / 4;
-  for (int e = threadIdx.x; e < kRows * c4n; e += kThreads) {
-    const int r = e / c4n, c4 = e - r * c4n;
-    const int row = r0 + r;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < r_end) {
-      v = __ldg(reinterpret_cast<const float4*>(src + (size_t)row * C) + c4);
-      if (kMaskOut) {
-        const uint4 b = keep_bits(p.seed, row, c4, kSiteOut);
-        v.x = b.x >= p.threshold ? v.x * p.inv_keep : 0.f;
-        v.y = b.y >= p.threshold ? v.y * p.inv_keep : 0.f;
-        v.z = b.z >= p.threshold ? v.z * p.inv_keep : 0.f;
-        v.w = b.w >= p.threshold ? v.w * p.inv_keep : 0.f;
+// Whether columns col and col + 1 (col even) of `row` are kept at `site`.
+__device__ __forceinline__ void kept_pair(const Keep& k, int row, int col, int site, bool& k0,
+                                          bool& k1) {
+  const uint4 b = keep_bits(k.seed, row, col >> 2, site);
+  const int u = col & 3;  // 0 or 2
+  k0 = word(b, u) >= k.threshold;
+  k1 = word(b, u + 1) >= k.threshold;
+}
+
+// v scaled by 1 / (1 - rate) where kept, else 0.
+__device__ __forceinline__ float keep_or_zero(bool kept, float v, const Keep& k) {
+  return kept ? v * k.inv_keep : 0.f;
+}
+
+// The hidden products of a chunk of `rows` rows (row0: its first row in
+// the call, which counts the Philox draws). Forward: h = GELU(x W1 + b1),
+// keep1 with kDropout. Backward: z = x W1 + b1, then dh = g2 W2^T over the
+// same tile, dz = dh GELU'(z) and the h the forward used, both with keep1.
+struct HiddenArgs {
+  const float* x;    // [rows, C]
+  const float* w1;   // [C, H]
+  const float* b1;   // [H]
+  const float* g2;   // [rows, C] (backward)
+  const float* w2t;  // [C, H] (backward): W2 transposed
+  float* h;          // [rows, H]: h (backward: z, then h as used)
+  float* dz;         // [rows, H] (backward)
+  int rows, C, H, row0;
+  Keep keep;
+};
+
+template <int kBN, bool kBackward, bool kDropout>
+__global__ void __launch_bounds__(kThreads, kBN == 64 ? 2 : 1) mlp_hidden_kernel(const HiddenArgs p) {
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const int tiles_n = (p.H + kBN - 1) / kBN;
+  const int m0 = (blockIdx.x / tiles_n) * focal::kGemmBM, n0 = (blockIdx.x % tiles_n) * kBN;
+  float acc[4][focal::gemm_nt<kBN>()][4], csum = 0.f;
+  focal::gemm_tile<false, false, kBN>(p.x, p.C, p.w1, p.H, p.rows, p.H, m0, n0, 0, p.C, smem, acc,
+                                      csum);
+  focal::gemm_for_each_output<kBN>(acc, p.rows, p.H, m0, n0, [&](int row, int col, float v0, float v1) {
+    v0 += __ldg(p.b1 + col);
+    v1 += __ldg(p.b1 + col + 1);
+    if (!kBackward) {
+      v0 = gelu(v0);
+      v1 = gelu(v1);
+      if (kDropout) {
+        bool k0, k1;
+        kept_pair(p.keep, p.row0 + row, col, kSiteHidden, k0, k1);
+        v0 = keep_or_zero(k0, v0, p.keep);
+        v1 = keep_or_zero(k1, v1, p.keep);
       }
     }
-    *reinterpret_cast<float4*>(&dst[r * XS + c4 * 4]) = v;
-  }
-}
-
-// Columns [j0, j0 + kChunk) of a [R, H] array into [R][kChunk], zero past H.
-__device__ __forceinline__ void load_col_chunk(const float* __restrict__ src, float* dst, int R,
-                                               int H, int j0) {
-  for (int e = threadIdx.x; e < R * kChunk; e += kThreads) {
-    const int r = e / kChunk, jj = e - r * kChunk;
-    dst[e] = j0 + jj < H ? __ldg(src + (size_t)r * H + j0 + jj) : 0.f;
-  }
-}
-
-// Rows [j0, j0 + kChunk) of a [H, C] array into [kChunk][C], zero past H.
-__device__ __forceinline__ void load_row_chunk(const float* __restrict__ src, float* dst, int C,
-                                               int H, int j0) {
-  for (int e = threadIdx.x; e < kChunk * C; e += kThreads) {
-    const int jj = e / C;
-    dst[e] = j0 + jj < H ? __ldg(src + (size_t)j0 * C + e) : 0.f;
-  }
-}
-
-// z (with b1) and, with kGrad, dh = g2 W2^T[:, chunk] for the thread's row
-// zr and chunk columns zc .. zc + 3, from the staged tiles.
-template <bool kGrad>
-__device__ __forceinline__ void chunk_products(const float* xs, const float* gs, const float* w1s,
-                                               const float* w2ts, const MlpArgs& p, int j0,
-                                               int zr, int zc, float (&z)[4], float (&dh)[4]) {
-  const int XS = p.C + 4;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    z[u] = j0 + zc + u < p.H ? __ldg(p.b1 + j0 + zc + u) : 0.f;
-    dh[u] = 0.f;
-  }
-  for (int c = 0; c < p.C; ++c) {
-    const float a = xs[zr * XS + c];
-    const float4 w = *reinterpret_cast<const float4*>(&w1s[c * kChunk + zc]);
-    z[0] = fmaf(a, w.x, z[0]);
-    z[1] = fmaf(a, w.y, z[1]);
-    z[2] = fmaf(a, w.z, z[2]);
-    z[3] = fmaf(a, w.w, z[3]);
-    if (kGrad) {
-      const float gv = gs[zr * XS + c];
-      const float4 v = *reinterpret_cast<const float4*>(&w2ts[c * kChunk + zc]);
-      dh[0] = fmaf(gv, v.x, dh[0]);
-      dh[1] = fmaf(gv, v.y, dh[1]);
-      dh[2] = fmaf(gv, v.z, dh[2]);
-      dh[3] = fmaf(gv, v.w, dh[3]);
-    }
-  }
-}
-
-// acc[i][q] += tile[rows ty, ty + 16][:] . wrows[:, columns tx*4 + 64q]: the
-// second product of the forward (h W2) and of dx (dz W1^T).
-template <int kQ>
-__device__ __forceinline__ void accumulate_rows(const float* tile, const float* wrows, int C, int tx,
-                                                int ty, float (&acc)[2][kQ][4]) {
-#pragma unroll 4
-  for (int j = 0; j < kChunk; ++j) {
-    const float a0 = tile[ty * kHS + j], a1 = tile[(ty + 16) * kHS + j];
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int col = q * 64 + tx * 4;
-      if (col < C) {
-        const float4 b = *reinterpret_cast<const float4*>(&wrows[j * C + col]);
-        acc[0][q][0] = fmaf(a0, b.x, acc[0][q][0]);
-        acc[0][q][1] = fmaf(a0, b.y, acc[0][q][1]);
-        acc[0][q][2] = fmaf(a0, b.z, acc[0][q][2]);
-        acc[0][q][3] = fmaf(a0, b.w, acc[0][q][3]);
-        acc[1][q][0] = fmaf(a1, b.x, acc[1][q][0]);
-        acc[1][q][1] = fmaf(a1, b.y, acc[1][q][1]);
-        acc[1][q][2] = fmaf(a1, b.z, acc[1][q][2]);
-        acc[1][q][3] = fmaf(a1, b.w, acc[1][q][3]);
-      }
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// forward (#10; #11 with kDropout)
-
-template <int kQ, bool kDropout>
-__global__ void __launch_bounds__(kThreads) mlp_fwd_kernel(const MlpArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = p.C, H = p.H, XS = C + 4;
-  float* xs = smem;                  // [kRows][XS]
-  float* w1s = xs + kRows * XS;      // [C][kChunk]
-  float* w2s = w1s + C * kChunk;     // [kChunk][C]
-  float* hs = w2s + kChunk * C;      // [kRows][kHS]
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kRows;
-  const int zr = tid / 8, zc = (tid % 8) * 4;   // z: one row, four chunk columns
-  const int tx = tid % 16, ty = tid / 16;       // y: rows ty, ty + 16; columns tx*4 + 64q
-  load_rows<false>(p.x, xs, r0, p.T, p);
-  float acc[2][kQ][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int q = 0; q < kQ; ++q)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[i][q][u] = 0.f;
-
-  for (int j0 = 0; j0 < H; j0 += kChunk) {
-    __syncthreads();  // x is staged; the last chunk's weights and h are read
-    load_col_chunk(p.w1, w1s, C, H, j0);
-    load_row_chunk(p.w2, w2s, C, H, j0);
-    __syncthreads();
-    float z[4], unused[4];
-    chunk_products<false>(xs, nullptr, w1s, nullptr, p, j0, zr, zc, z, unused);
-    uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-    if (kDropout) bits = keep_bits(p.seed, r0 + zr, (j0 + zc) >> 2, kSiteHidden);
-    float4 h;
-    float* hv = reinterpret_cast<float*>(&h);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      float v = gelu(z[u]);
-      if (kDropout) v = word(bits, u) >= p.threshold ? v * p.inv_keep : 0.f;
-      hv[u] = j0 + zc + u < H ? v : 0.f;
-    }
-    *reinterpret_cast<float4*>(&hs[zr * kHS + zc]) = h;
-    __syncthreads();
-    accumulate_rows<kQ>(hs, w2s, C, tx, ty, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + ty + 16 * i;
-    if (row >= p.T) continue;
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int col = q * 64 + tx * 4;
-      if (col >= C) continue;
-      uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-      if (kDropout) bits = keep_bits(p.seed, row, col >> 2, kSiteOut);
-      float4 o;
-      float* ov = reinterpret_cast<float*>(&o);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        float v = acc[i][q][u] + __ldg(p.b2 + col + u);
-        if (kDropout) v = word(bits, u) >= p.threshold ? v * p.inv_keep : 0.f;
-        ov[u] = v;
-      }
-      *reinterpret_cast<float4*>(p.out + (size_t)row * C + col) = o;
-    }
-  }
-}
-
-// ---------------------------------------------------------------------------
-// backward (#12): dz of the thread's row and four chunk columns, and the
-// h actually used (after keep1), from the recomputed z and dh
-
-template <bool kDropout>
-__device__ __forceinline__ void hidden_grads(const MlpArgs& p, int row, int j0, int zc,
-                                             const float (&z)[4], const float (&dh)[4],
-                                             float4& dz, float4& hu) {
-  uint4 bits = make_uint4(0u, 0u, 0u, 0u);
-  if (kDropout) bits = keep_bits(p.seed, row, (j0 + zc) >> 2, kSiteHidden);
-  float* dzv = reinterpret_cast<float*>(&dz);
-  float* huv = reinterpret_cast<float*>(&hu);
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    float d = dh[u] * gelu_grad(z[u]);
-    float h = gelu(z[u]);
+    *reinterpret_cast<float2*>(p.h + (size_t)row * p.H + col) = make_float2(v0, v1);
+  });
+  if (!kBackward) return;
+  __syncthreads();  // every warp is done with the first product's ring slots
+  focal::gemm_tile<false, false, kBN>(p.g2, p.C, p.w2t, p.H, p.rows, p.H, m0, n0, 0, p.C, smem, acc,
+                                      csum);
+  focal::gemm_for_each_output<kBN>(acc, p.rows, p.H, m0, n0, [&](int row, int col, float dh0, float dh1) {
+    float2* hz = reinterpret_cast<float2*>(p.h + (size_t)row * p.H + col);
+    const float2 z = *hz;  // this thread's own write above
+    float d0 = dh0 * gelu_grad(z.x), d1 = dh1 * gelu_grad(z.y);
+    float h0 = gelu(z.x), h1 = gelu(z.y);
     if (kDropout) {
-      const bool keep = word(bits, u) >= p.threshold;
-      d = keep ? d * p.inv_keep : 0.f;
-      h = keep ? h * p.inv_keep : 0.f;
+      bool k0, k1;
+      kept_pair(p.keep, p.row0 + row, col, kSiteHidden, k0, k1);
+      d0 = keep_or_zero(k0, d0, p.keep);
+      d1 = keep_or_zero(k1, d1, p.keep);
+      h0 = keep_or_zero(k0, h0, p.keep);
+      h1 = keep_or_zero(k1, h1, p.keep);
     }
-    const bool valid = j0 + zc + u < p.H;
-    dzv[u] = valid ? d : 0.f;
-    huv[u] = valid ? h : 0.f;
-  }
+    *hz = make_float2(h0, h1);
+    *reinterpret_cast<float2*>(p.dz + (size_t)row * p.H + col) = make_float2(d0, d1);
+  });
 }
 
-// dx for a tile of 32 rows, walking the chunks of H.
-template <int kQ, bool kDropout>
-__global__ void __launch_bounds__(kThreads) mlp_bwd_dx_kernel(const MlpArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = p.C, H = p.H, XS = C + 4;
-  float* xs = smem;                  // [kRows][XS]
-  float* gs = xs + kRows * XS;       // [kRows][XS]: g2
-  float* w1s = gs + kRows * XS;      // [C][kChunk]: W1[:, chunk]
-  float* w2ts = w1s + C * kChunk;    // [C][kChunk]: W2^T[:, chunk]
-  float* w1ts = w2ts + C * kChunk;   // [kChunk][C]: W1^T[chunk, :]
-  float* dzs = w1ts + kChunk * C;    // [kRows][kHS]
-  const int tid = threadIdx.x;
-  const int r0 = blockIdx.x * kRows;
-  const int zr = tid / 8, zc = (tid % 8) * 4;
-  const int tx = tid % 16, ty = tid / 16;
-  load_rows<false>(p.x, xs, r0, p.T, p);
-  load_rows<kDropout>(p.g, gs, r0, p.T, p);
-  float acc[2][kQ][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int q = 0; q < kQ; ++q)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[i][q][u] = 0.f;
+// out = a b (+ bias) for a chunk of `rows` rows: a [rows, K], b [K, N]
+// (N = C): y = h W2 + b2 (keep2 with kDropout) and dx = dz W1^T.
+struct OutArgs {
+  const float* a;
+  const float* b;
+  const float* bias;  // [N] or null
+  float* out;         // [rows, N]
+  int rows, K, N, row0;
+  Keep keep;
+};
 
-  for (int j0 = 0; j0 < H; j0 += kChunk) {
-    __syncthreads();
-    load_col_chunk(p.w1, w1s, C, H, j0);
-    load_col_chunk(p.w2t, w2ts, C, H, j0);
-    load_row_chunk(p.w1t, w1ts, C, H, j0);
-    __syncthreads();
-    float z[4], dh[4];
-    chunk_products<true>(xs, gs, w1s, w2ts, p, j0, zr, zc, z, dh);
-    float4 dz, hu;
-    hidden_grads<kDropout>(p, r0 + zr, j0, zc, z, dh, dz, hu);
-    *reinterpret_cast<float4*>(&dzs[zr * kHS + zc]) = dz;
-    __syncthreads();
-    accumulate_rows<kQ>(dzs, w1ts, C, tx, ty, acc);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int row = r0 + ty + 16 * i;
-    if (row >= p.T) continue;
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int col = q * 64 + tx * 4;
-      if (col < C)
-        *reinterpret_cast<float4*>(p.out + (size_t)row * C + col) =
-            make_float4(acc[i][q][0], acc[i][q][1], acc[i][q][2], acc[i][q][3]);
+template <int kBN, bool kDropout>
+__global__ void __launch_bounds__(kThreads, kBN == 64 ? 2 : 1) mlp_out_kernel(const OutArgs p) {
+  extern __shared__ float4 smem4[];
+  const int tiles_n = (p.N + kBN - 1) / kBN;
+  const int m0 = (blockIdx.x / tiles_n) * focal::kGemmBM, n0 = (blockIdx.x % tiles_n) * kBN;
+  float acc[4][focal::gemm_nt<kBN>()][4], csum = 0.f;
+  focal::gemm_tile<false, false, kBN>(p.a, p.K, p.b, p.N, p.rows, p.N, m0, n0, 0, p.K,
+                                      reinterpret_cast<float*>(smem4), acc, csum);
+  focal::gemm_for_each_output<kBN>(acc, p.rows, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+    if (p.bias) {
+      v0 += __ldg(p.bias + col);
+      v1 += __ldg(p.bias + col + 1);
     }
-  }
+    if (kDropout) {
+      bool k0, k1;
+      kept_pair(p.keep, p.row0 + row, col, kSiteOut, k0, k1);
+      v0 = keep_or_zero(k0, v0, p.keep);
+      v1 = keep_or_zero(k1, v1, p.keep);
+    }
+    *reinterpret_cast<float2*>(p.out + (size_t)row * p.N + col) = make_float2(v0, v1);
+  });
 }
 
-// The weight gradients of one chunk of H (blockIdx.x) over one group of
-// rows (blockIdx.y), into the group's partial [dW1 (C x H) | db1 (H) |
-// dW2 (H x C) | db2 (C)]. db2 is summed by the blocks of chunk 0.
-template <int kQ, bool kDropout>
-__global__ void __launch_bounds__(kThreads) mlp_bwd_dw_kernel(const MlpArgs p) {
-  extern __shared__ __align__(16) float smem[];
-  const int C = p.C, H = p.H, XS = C + 4;
-  float* w1s = smem;                 // [C][kChunk]
-  float* w2ts = w1s + C * kChunk;    // [C][kChunk]
-  float* xs = w2ts + C * kChunk;     // [kRows][XS]
-  float* gs = xs + kRows * XS;       // [kRows][XS]: g2
-  float* dzs = gs + kRows * XS;      // [kRows][kHS]
-  float* hus = dzs + kRows * kHS;    // [kRows][kHS]
-  const int tid = threadIdx.x;
-  const int j0 = blockIdx.x * kChunk;
-  const int g_begin = blockIdx.y * p.rows_per_group;
-  const int g_end = min(p.T, g_begin + p.rows_per_group);
-  const int zr = tid / 8, zc = (tid % 8) * 4;   // z, dz; dW1 rows zr + 32i, columns zc
-  const int tx = tid % 16, ty = tid / 16;       // dW2 rows ty, ty + 16; columns tx*4 + 64q
-  load_col_chunk(p.w1, w1s, C, H, j0);
-  load_col_chunk(p.w2t, w2ts, C, H, j0);
-  float acc1[2 * kQ][4], acc2[2][kQ][4];
-#pragma unroll
-  for (int i = 0; i < 2 * kQ; ++i)
-#pragma unroll
-    for (int u = 0; u < 4; ++u) acc1[i][u] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int q = 0; q < kQ; ++q)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc2[i][q][u] = 0.f;
-  float db1 = 0.f, db2 = 0.f;
-
-  for (int r0 = g_begin; r0 < g_end; r0 += kRows) {
-    __syncthreads();  // the weights are staged; the last tile is read
-    load_rows<false>(p.x, xs, r0, g_end, p);
-    load_rows<kDropout>(p.g, gs, r0, g_end, p);
-    __syncthreads();
-    float z[4], dh[4];
-    chunk_products<true>(xs, gs, w1s, w2ts, p, j0, zr, zc, z, dh);
-    float4 dz, hu;
-    hidden_grads<kDropout>(p, r0 + zr, j0, zc, z, dh, dz, hu);
-    *reinterpret_cast<float4*>(&dzs[zr * kHS + zc]) = dz;
-    *reinterpret_cast<float4*>(&hus[zr * kHS + zc]) = hu;
-    __syncthreads();
-    // dW1[c][chunk] += x^T dz; dW2[chunk][n] += h_used^T g2 (rows past
-    // g_end hold x = g2 = 0, so dz = 0 and h_used g2 = 0 there)
-#pragma unroll 2
-    for (int r = 0; r < kRows; ++r) {
-      const float4 d4 = *reinterpret_cast<const float4*>(&dzs[r * kHS + zc]);
-#pragma unroll
-      for (int i = 0; i < 2 * kQ; ++i) {
-        const int c = zr + 32 * i;
-        if (c < C) {
-          const float a = xs[r * XS + c];
-          acc1[i][0] = fmaf(a, d4.x, acc1[i][0]);
-          acc1[i][1] = fmaf(a, d4.y, acc1[i][1]);
-          acc1[i][2] = fmaf(a, d4.z, acc1[i][2]);
-          acc1[i][3] = fmaf(a, d4.w, acc1[i][3]);
-        }
-      }
-      const float h0 = hus[r * kHS + ty], h1 = hus[r * kHS + ty + 16];
-#pragma unroll
-      for (int q = 0; q < kQ; ++q) {
-        const int col = q * 64 + tx * 4;
-        if (col < C) {
-          const float4 g4 = *reinterpret_cast<const float4*>(&gs[r * XS + col]);
-          acc2[0][q][0] = fmaf(h0, g4.x, acc2[0][q][0]);
-          acc2[0][q][1] = fmaf(h0, g4.y, acc2[0][q][1]);
-          acc2[0][q][2] = fmaf(h0, g4.z, acc2[0][q][2]);
-          acc2[0][q][3] = fmaf(h0, g4.w, acc2[0][q][3]);
-          acc2[1][q][0] = fmaf(h1, g4.x, acc2[1][q][0]);
-          acc2[1][q][1] = fmaf(h1, g4.y, acc2[1][q][1]);
-          acc2[1][q][2] = fmaf(h1, g4.z, acc2[1][q][2]);
-          acc2[1][q][3] = fmaf(h1, g4.w, acc2[1][q][3]);
-        }
-      }
-    }
-    if (tid < kChunk)
-      for (int r = 0; r < kRows; ++r) db1 += dzs[r * kHS + tid];
-    if (blockIdx.x == 0 && tid < C)
-      for (int r = 0; r < kRows; ++r) db2 += gs[r * XS + tid];
+// g2 = g * keep2 / (1 - rate) for a chunk of `rows` rows of C columns.
+__global__ void __launch_bounds__(kThreads) mlp_g2_kernel(const float* __restrict__ g,
+                                                          float* __restrict__ g2, int rows, int C,
+                                                          int row0, Keep k) {
+  const int c4n = C / 4;
+  const size_t total = (size_t)rows * c4n;
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * kThreads) {
+    const int r = (int)(e / c4n), c4 = (int)(e - (size_t)r * c4n);
+    float4 v = __ldg(reinterpret_cast<const float4*>(g) + e);
+    const uint4 b = keep_bits(k.seed, row0 + r, c4, kSiteOut);
+    v.x = keep_or_zero(b.x >= k.threshold, v.x, k);
+    v.y = keep_or_zero(b.y >= k.threshold, v.y, k);
+    v.z = keep_or_zero(b.z >= k.threshold, v.z, k);
+    v.w = keep_or_zero(b.w >= k.threshold, v.w, k);
+    reinterpret_cast<float4*>(g2)[e] = v;
   }
-
-  const size_t E = 2 * (size_t)C * H + H + C;
-  float* out = p.part + (size_t)blockIdx.y * E;
-  float* out_db1 = out + (size_t)C * H;
-  float* out_dw2 = out_db1 + H;
-  float* out_db2 = out_dw2 + (size_t)H * C;
-#pragma unroll
-  for (int i = 0; i < 2 * kQ; ++i) {
-    const int c = zr + 32 * i;
-    if (c >= C) continue;
-#pragma unroll
-    for (int u = 0; u < 4; ++u)
-      if (j0 + zc + u < H) out[(size_t)c * H + j0 + zc + u] = acc1[i][u];
-  }
-  if (tid < kChunk && j0 + tid < H) out_db1[j0 + tid] = db1;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int j = j0 + ty + 16 * i;
-    if (j >= H) continue;
-#pragma unroll
-    for (int q = 0; q < kQ; ++q) {
-      const int col = q * 64 + tx * 4;
-      if (col >= C) continue;
-#pragma unroll
-      for (int u = 0; u < 4; ++u) out_dw2[(size_t)j * C + col + u] = acc2[i][q][u];
-    }
-  }
-  if (blockIdx.x == 0 && tid < C) out_db2[tid] = db2;
-}
-
-// out[e] = sum over s (in order) of part[s][e]: the deterministic second
-// pass of the weight gradients.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int S, size_t E,
-                                       float* __restrict__ out) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += part[(size_t)s * E + e];
-  out[e] = acc;
 }
 
 // keep1 [T, H] and keep2 [T, C] as bytes, from the same bits the kernels
@@ -501,15 +260,11 @@ __global__ void mlp_masks_kernel(unsigned long long seed, unsigned threshold, in
 // host side
 
 int check_dims(int T, int C, int H) {
-  if (T < 1 || C < 4 || C > kMaxC || C % 4 != 0 || H < 1 ||
+  if (T < 1 || C < 4 || C > kMaxC || C % 4 != 0 || H < 4 || H % 4 != 0 ||
       (long long)T * std::max(C, H) >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   return 0;
 }
-
-size_t fwd_smem(int C) { return sizeof(float) * ((size_t)kRows * (C + 4) + 2 * C * kChunk + kRows * kHS); }
-size_t dx_smem(int C) { return sizeof(float) * (2ull * kRows * (C + 4) + 3 * C * kChunk + kRows * kHS); }
-size_t dw_smem(int C) { return sizeof(float) * (2ull * kRows * (C + 4) + 2 * C * kChunk + 2 * kRows * kHS); }
 
 cudaError_t device_sms(int* sms) {
   int dev = 0;
@@ -518,132 +273,186 @@ cudaError_t device_sms(int* sms) {
   return err;
 }
 
-// The row groups of the weight-gradient kernel: enough (chunk, group)
-// blocks for four waves of the card, at most the row tiles, and partials
-// within kMaxPartialBytes.
-struct GroupPlan {
-  int groups, rows_per_group;
-  size_t E;
+// The launch plan of a call: row chunks of equal size (a multiple of
+// kGemmBM where there are several) with one [rows, H] array within
+// kChunkFloats; the tile widths of the hidden products (N = H), the output
+// products (N = C) and the weight gradients; the weight gradients' row
+// splits of a chunk; the workspace, in floats: h [rows, H] and, for the
+// backward, dz [rows, H], g2 [rows, C] and the split partials [splits, E]
+// (E = C H | H | H C | C: dW1, db1, dW2, db2).
+struct Plan {
+  int rows, chunks, hbn, obn, wbn, splits, rows_per_split;
+  size_t E, h, dz, g2, part, total;
 };
 
-GroupPlan group_plan(int T, int C, int H, int sms) {
-  GroupPlan P{};
+Plan make_plan(int T, int C, int H, bool backward, int sms) {
+  Plan P{};
+  const long long cap = std::max<long long>(
+      focal::kGemmBM, kChunkFloats / H / focal::kGemmBM * focal::kGemmBM);
+  const int chunks = (int)((T + cap - 1) / cap);
+  P.rows = (T + chunks - 1) / chunks;
+  if (chunks > 1) P.rows = (P.rows + focal::kGemmBM - 1) / focal::kGemmBM * focal::kGemmBM;
+  P.chunks = (T + P.rows - 1) / P.rows;
+  // the hidden products in 64-wide tiles, two blocks an SM, in the backward
+  // (two products a tile) and where K = C is short; 128-wide where the
+  // forward's K is 256 (on the H100: #12 15-22 % faster, #10 at MOD_WIDE
+  // 7 % slower at 64)
+  P.hbn = backward || C < 256 ? 64 : focal::tile_bn(H, 0);
+  P.obn = focal::tile_bn(C, 0);
+  P.wbn = focal::tile_bn(H, C);
+  int t1 = 0, t2 = 0, unused = 0;
+  focal::set_tiles(C, H, P.wbn, &unused, &t1);
+  focal::set_tiles(H, C, P.wbn, &unused, &t2);
+  const focal::RowSplits rs = focal::split_rows(P.rows, t1 + t2, sms);
+  P.splits = rs.splits;
+  P.rows_per_split = rs.rows_per_split;
   P.E = 2 * (size_t)C * H + H + C;
-  const int chunks = (H + kChunk - 1) / kChunk;
-  const int tiles = (T + kRows - 1) / kRows;
-  int g = (4 * sms + chunks - 1) / chunks;
-  g = std::min(g, tiles);
-  g = std::min<long long>(g, std::max<long long>(1, kMaxPartialBytes / (P.E * sizeof(float))));
-  g = std::max(g, 1);
-  const int tiles_per_group = (tiles + g - 1) / g;
-  P.rows_per_group = tiles_per_group * kRows;
-  P.groups = (T + P.rows_per_group - 1) / P.rows_per_group;
+  size_t o = 0;  // every size below is a multiple of 4 floats: each array 16-byte aligned
+  P.h = o, o += (size_t)P.rows * H;
+  if (backward) {
+    P.dz = o, o += (size_t)P.rows * H;
+    P.g2 = o, o += (size_t)P.rows * C;
+    P.part = o, o += (size_t)P.splits * P.E;
+  }
+  P.total = o;
   return P;
 }
 
-template <class Kernel>
-int launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s, const MlpArgs& p) {
+template <class Kernel, class Args>
+cudaError_t launch_gemm(Kernel kernel, int tiles, const Args& a, cudaStream_t s, int bn) {
+  const size_t smem = focal::gemm_smem_bytes(bn);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kThreads, smem, s>>>(p);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  kernel<<<tiles, kThreads, smem, s>>>(a);
+  return cudaGetLastError();
 }
 
-#define FOCAL_MLP_DISPATCH(KERNEL, GRID, SMEM)                                       \
-  switch ((p.C + 63) / 64) {                                                         \
-    case 1: return dropout ? launch(KERNEL<1, true>, GRID, SMEM, s, p)               \
-                           : launch(KERNEL<1, false>, GRID, SMEM, s, p);             \
-    case 2: return dropout ? launch(KERNEL<2, true>, GRID, SMEM, s, p)               \
-                           : launch(KERNEL<2, false>, GRID, SMEM, s, p);             \
-    case 3: return dropout ? launch(KERNEL<3, true>, GRID, SMEM, s, p)               \
-                           : launch(KERNEL<3, false>, GRID, SMEM, s, p);             \
-    case 4: return dropout ? launch(KERNEL<4, true>, GRID, SMEM, s, p)               \
-                           : launch(KERNEL<4, false>, GRID, SMEM, s, p);             \
-    default: return (int)cudaErrorInvalidValue;                                      \
+// The backward's hidden products run in 64-wide tiles only (make_plan).
+template <bool kBackward, bool kDropout>
+cudaError_t launch_hidden(const HiddenArgs& a, int bn, cudaStream_t s) {
+  int tiles_n = 0, tiles = 0;
+  focal::set_tiles(a.rows, a.H, bn, &tiles_n, &tiles);
+  if constexpr (kBackward) {
+    return launch_gemm(mlp_hidden_kernel<64, true, kDropout>, tiles, a, s, 64);
+  } else {
+    return bn == 128 ? launch_gemm(mlp_hidden_kernel<128, false, kDropout>, tiles, a, s, 128)
+                     : launch_gemm(mlp_hidden_kernel<64, false, kDropout>, tiles, a, s, 64);
   }
-
-int launch_fwd(const MlpArgs& p, bool dropout, cudaStream_t s) {
-  const dim3 grid((p.T + kRows - 1) / kRows);
-  FOCAL_MLP_DISPATCH(mlp_fwd_kernel, grid, fwd_smem(p.C))
 }
 
-int launch_dx(const MlpArgs& p, bool dropout, cudaStream_t s) {
-  const dim3 grid((p.T + kRows - 1) / kRows);
-  FOCAL_MLP_DISPATCH(mlp_bwd_dx_kernel, grid, dx_smem(p.C))
+template <bool kDropout>
+cudaError_t launch_out(const OutArgs& a, int bn, cudaStream_t s) {
+  int tiles_n = 0, tiles = 0;
+  focal::set_tiles(a.rows, a.N, bn, &tiles_n, &tiles);
+  return bn == 128 ? launch_gemm(mlp_out_kernel<128, kDropout>, tiles, a, s, 128)
+                   : launch_gemm(mlp_out_kernel<64, kDropout>, tiles, a, s, 64);
 }
 
-int launch_dw(const MlpArgs& p, bool dropout, int groups, cudaStream_t s) {
-  const dim3 grid((p.H + kChunk - 1) / kChunk, groups);
-  FOCAL_MLP_DISPATCH(mlp_bwd_dw_kernel, grid, dw_smem(p.C))
-}
-
-}  // namespace
-
-// #10 (dropout 0) or #11 (dropout 1): y [T, C] from x [T, C], w1 [C, H],
-// b1 [H], w2 [H, C], b2 [C]; with dropout both keep masks of `seed` at
-// `threshold`, survivors scaled by inv_keep. One launch on `stream`.
-extern "C" int focal_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                             const void* b2, void* y, int T, int C, int H, int dropout,
-                             unsigned long long seed, unsigned threshold, float inv_keep,
-                             void* stream) {
-  if (int e = check_dims(T, C, H)) return e;
-  MlpArgs p{};
-  p.x = static_cast<const float*>(x);
-  p.w1 = static_cast<const float*>(w1);
-  p.b1 = static_cast<const float*>(b1);
-  p.w2 = static_cast<const float*>(w2);
-  p.b2 = static_cast<const float*>(b2);
-  p.out = static_cast<float*>(y);
-  p.T = T, p.C = C, p.H = H, p.seed = seed, p.threshold = threshold, p.inv_keep = inv_keep;
-  return launch_fwd(p, dropout != 0, static_cast<cudaStream_t>(stream));
-}
-
-// Workspace of focal_mlp_bwd, in floats: the groups' weight-gradient
-// partials.
-extern "C" int focal_mlp_bwd_workspace(int T, int C, int H, long long* floats) {
+int plan_for(int T, int C, int H, bool backward, Plan* P) {
   if (int e = check_dims(T, C, H)) return e;
   int sms = 0;
   const cudaError_t err = device_sms(&sms);
   if (err != cudaSuccess) return (int)err;
-  const GroupPlan P = group_plan(T, C, H, sms);
-  *floats = (long long)P.groups * (long long)P.E;
+  *P = make_plan(T, C, H, backward, sms);
+  return 0;
+}
+
+}  // namespace
+
+// Workspace of focal_mlp_fwd (backward 0) or focal_mlp_bwd (backward 1),
+// in floats, and the row chunks a call takes, for this geometry on the
+// current device.
+extern "C" int focal_mlp_workspace(int T, int C, int H, int backward, long long* floats,
+                                   int* chunks) {
+  Plan P;
+  if (int e = plan_for(T, C, H, backward != 0, &P)) return e;
+  *floats = (long long)P.total;
+  *chunks = P.chunks;
+  return 0;
+}
+
+// #10 (dropout 0) or #11 (dropout 1): y [T, C] from x [T, C], w1 [C, H],
+// b1 [H], w2 [H, C], b2 [C]; with dropout both keep masks of `seed` at
+// `threshold`, survivors scaled by inv_keep. x, w1, w2, y and ws 16-byte
+// aligned; ws holds focal_mlp_workspace(.., 0) floats. Two launches a row
+// chunk on `stream`: h = GELU(x W1 + b1), y = h W2 + b2.
+extern "C" int focal_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
+                             const void* b2, void* y, void* ws, int T, int C, int H, int dropout,
+                             unsigned long long seed, unsigned threshold, float inv_keep,
+                             void* stream) {
+  Plan P;
+  if (int e = plan_for(T, C, H, false, &P)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Keep keep{seed, threshold, inv_keep};
+  float* h = static_cast<float*>(ws) + P.h;
+  for (int c = 0; c < P.chunks; ++c) {
+    const int r0 = c * P.rows, rows = std::min(P.rows, T - r0);
+    const HiddenArgs ha{static_cast<const float*>(x) + (size_t)r0 * C, static_cast<const float*>(w1),
+                        static_cast<const float*>(b1), nullptr, nullptr, h, nullptr, rows, C, H, r0,
+                        keep};
+    cudaError_t err = dropout ? launch_hidden<false, true>(ha, P.hbn, s)
+                              : launch_hidden<false, false>(ha, P.hbn, s);
+    if (err != cudaSuccess) return (int)err;
+    const OutArgs oa{h, static_cast<const float*>(w2), static_cast<const float*>(b2),
+                     static_cast<float*>(y) + (size_t)r0 * C, rows, H, C, r0, keep};
+    err = dropout ? launch_out<true>(oa, P.obn, s) : launch_out<false>(oa, P.obn, s);
+    if (err != cudaSuccess) return (int)err;
+  }
   return 0;
 }
 
 // #12: dx [T, C] and dweights = [dW1 (C x H) | db1 (H) | dW2 (H x C) |
 // db2 (C)] for the gradient g [T, C] of y, from x, w1 [C, H], b1, w1t
 // [H, C] (W1 transposed) and w2t [C, H] (W2 transposed); with dropout the
-// forward's masks are drawn again from `seed`. ws holds
-// focal_mlp_bwd_workspace floats. Three launches on `stream`: dx, the
-// groups' partials, their ordered sum.
+// forward's masks are drawn again from `seed`. x, w1, w1t, w2t, g, dx and
+// ws 16-byte aligned; ws holds focal_mlp_workspace(.., 1) floats. A row
+// chunk launches on `stream`: g2 (with dropout), z and dh (one launch), dx,
+// the weight-gradient partials; then one ordered sum of the partials.
 extern "C" int focal_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w1t,
                              const void* w2t, const void* g, void* dx, void* dweights, void* ws,
                              int T, int C, int H, int dropout, unsigned long long seed,
                              unsigned threshold, float inv_keep, void* stream) {
-  if (int e = check_dims(T, C, H)) return e;
-  int sms = 0;
-  cudaError_t cerr = device_sms(&sms);
-  if (cerr != cudaSuccess) return (int)cerr;
-  const GroupPlan P = group_plan(T, C, H, sms);
+  Plan P;
+  if (int e = plan_for(T, C, H, true, &P)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  MlpArgs p{};
-  p.x = static_cast<const float*>(x);
-  p.w1 = static_cast<const float*>(w1);
-  p.b1 = static_cast<const float*>(b1);
-  p.w1t = static_cast<const float*>(w1t);
-  p.w2t = static_cast<const float*>(w2t);
-  p.g = static_cast<const float*>(g);
-  p.out = static_cast<float*>(dx);
-  p.part = static_cast<float*>(ws);
-  p.T = T, p.C = C, p.H = H, p.rows_per_group = P.rows_per_group;
-  p.seed = seed, p.threshold = threshold, p.inv_keep = inv_keep;
-  int err = launch_dx(p, dropout != 0, s);
-  if (err) return err;
-  err = launch_dw(p, dropout != 0, P.groups, s);
-  if (err) return err;
-  reduce_partials_kernel<<<(unsigned)((P.E + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      p.part, P.groups, P.E, static_cast<float*>(dweights));
-  return (int)cudaGetLastError();
+  const Keep keep{seed, threshold, inv_keep};
+  float* w = static_cast<float*>(ws);
+  float *h = w + P.h, *dz = w + P.dz, *part = w + P.part;
+  const float* xf = static_cast<const float*>(x);
+  const float* gf = static_cast<const float*>(g);
+  const size_t ch = (size_t)C * H;
+  cudaError_t err = cudaSuccess;
+  for (int c = 0; c < P.chunks; ++c) {
+    const int r0 = c * P.rows, rows = std::min(P.rows, T - r0);
+    const float* xc = xf + (size_t)r0 * C;
+    const float* g2 = gf + (size_t)r0 * C;
+    if (dropout) {
+      const size_t n4 = (size_t)rows * (C / 4);
+      const int grid = (int)std::min<size_t>((n4 + kThreads - 1) / kThreads, 1u << 16);
+      mlp_g2_kernel<<<grid, kThreads, 0, s>>>(g2, w + P.g2, rows, C, r0, keep);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      g2 = w + P.g2;
+    }
+    // 1. z = x W1 + b1 and dh = g2 W2^T; dz and the h the forward used
+    const HiddenArgs ha{xc, static_cast<const float*>(w1), static_cast<const float*>(b1), g2,
+                        static_cast<const float*>(w2t), h, dz, rows, C, H, r0, keep};
+    err = dropout ? launch_hidden<true, true>(ha, P.hbn, s) : launch_hidden<true, false>(ha, P.hbn, s);
+    if (err != cudaSuccess) return (int)err;
+    // 2. dx = dz W1^T
+    const OutArgs oa{dz, static_cast<const float*>(w1t), nullptr,
+                     static_cast<float*>(dx) + (size_t)r0 * C, rows, H, C, r0, keep};
+    if ((err = launch_out<false>(oa, P.obn, s)) != cudaSuccess) return (int)err;
+    // 3. dW1 = x^T dz with db1, dW2 = h^T g2 with db2, per split, added to
+    //    the earlier chunks' partials
+    const focal::WgradGemm w1g = focal::wgrad_gemm(xc, dz, C, H, 0, ch, P.wbn);
+    const focal::WgradGemm w2g = focal::wgrad_gemm(h, g2, H, C, ch + H, 2 * ch + H, P.wbn);
+    const int splits = (rows + P.rows_per_split - 1) / P.rows_per_split;
+    err = focal::launch_wgrad<Src>(P.wbn, w1g, w2g, rows, P.rows_per_split, splits, part, P.E,
+                                   c > 0, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // 4. the partials summed in split order
+  return (int)focal::launch_reduce<Src>(part, P.splits, P.E, static_cast<float*>(dweights), s);
 }
 
 // The keep masks of `seed` as uint8: keep1 [T, H], keep2 [T, C].

@@ -44,7 +44,7 @@
 //           output into [R, C]); dx = dqkv Wqkv^T; the weight gradients x^T
 //           dqkv and ao^T dy with their column sums as fixed split-K
 //           partials (A read transposed in the tile loads: no copies); the
-//           ordered reductions.
+//           ordered reductions (gemm_splitk.cuh, shared with #12).
 //     What sets their pace, even at C = 64, is the throughput of three
 //     mma.sync passes (~45 TFLOP/s of f32 work on the H100), not the
 //     workspaces' round trip (~10 C floats a row forward, ~24 C backward):
@@ -82,10 +82,19 @@
 #include <algorithm>
 
 #include "gemm_3xtf32.cuh"
+#include "gemm_splitk.cuh"
 #include "philox.cuh"
 #include "window_rows.cuh"
 
+namespace focal {
+struct WindowBlockSrc {};  // tags this library's instances of gemm_splitk.cuh's kernels
+}  // namespace focal
+
 namespace {
+
+using Src = focal::WindowBlockSrc;
+using focal::set_tiles;
+using focal::tile_bn;
 
 constexpr int kMaxN = 16;            // window tokens a thread keeps in registers
 // Threads of every block launched here. The block-wide loops step by this
@@ -251,28 +260,6 @@ wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
 // the training kernels (#2-#5): row-tiled projections on the tensor cores,
 // attention per (window, head) pair between them
 
-// out[e] = sum over s (in order) of part[s][e]: the deterministic second
-// pass of the cross-block reductions.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int S, int E,
-                                       float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += part[(size_t)s * E + e];
-  out[e] = acc;
-}
-
-// The output tile width of a launch of products of widths n0 and n1 (0 for
-// none): 128 columns, or 64 where one is not a multiple of 128 (C = 64: 64
-// and 192), so that no column of a tile idles.
-int tile_bn(int n0, int n1) { return n0 % 128 == 0 && n1 % 128 == 0 ? 128 : 64; }
-
-// (row tiles x column tiles) of an M x N product in kGemmBM x bn tiles.
-void set_tiles(int M, int N, int bn, int* tiles_n, int* tiles) {
-  *tiles_n = (N + bn - 1) / bn;
-  *tiles = ((M + focal::kGemmBM - 1) / focal::kGemmBM) * *tiles_n;
-}
-
 // Projections over all R = B N rows of a launch, one 128 x kBN output tile
 // a block (focal::gemm_tile, 3xTF32): c = a b (+ bias) with a [M, K]
 // row-major (lda), b [K, N] (ldb), c [M, N] (ldc). One launch may run two
@@ -309,49 +296,6 @@ proj_gemm_kernel(ProjGemm p0, ProjGemm p1) {
     }
     *reinterpret_cast<float2*>(p.c + (size_t)row * p.ldc + col) = make_float2(v0, v1);
   });
-}
-
-// Weight gradients as fixed split-K partials: block (tile, split) computes
-// one 128 x kBN tile of a^T b over its split's rows, a [R, M] and b [R, N]
-// read as they lie (a transposed in the tile loads), plus, in the first row
-// tile, b's column sums over those rows (the bias gradients). It writes
-// them to its split's partial at `out` ([M, N]) and `sums_out` ([N]); the
-// partials are summed in split order by reduce_partials_kernel. Two problems
-// a launch, as proj_gemm_kernel.
-struct WgradGemm {
-  const float* a;
-  const float* b;
-  int M, N, tiles_n, tiles;
-  size_t out, sums_out;  // offsets in a partial, in floats
-};
-
-WgradGemm wgrad_gemm(const float* a, const float* b, int M, int N, size_t out, size_t sums_out,
-                     int bn) {
-  WgradGemm p{a, b, M, N, 0, 0, out, sums_out};
-  set_tiles(M, N, bn, &p.tiles_n, &p.tiles);
-  return p;
-}
-
-template <int kBN>
-__global__ void __launch_bounds__(focal::kGemmThreads, kBN == 64 ? 2 : 1)
-wgrad_gemm_kernel(WgradGemm p0, WgradGemm p1, int R, int rows_per_split, float* __restrict__ part,
-                  size_t E) {
-  extern __shared__ float4 smem4[];
-  int tile = blockIdx.x;
-  const WgradGemm p = tile < p0.tiles ? p0 : p1;
-  if (tile >= p0.tiles) tile -= p0.tiles;
-  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  float acc[4][focal::gemm_nt<kBN>()][4], csum = 0.f;
-  focal::gemm_tile<true, true, kBN>(p.a, p.M, p.b, p.N, p.M, p.N, m0, n0, r_begin, r_end,
-                                    reinterpret_cast<float*>(smem4), acc, csum);
-  float* out = part + (size_t)blockIdx.y * E;
-  focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
-    *reinterpret_cast<float2*>(out + p.out + (size_t)row * p.N + col) = make_float2(v0, v1);
-  });
-  if (m0 == 0 && (int)threadIdx.x < kBN && n0 + (int)threadIdx.x < p.N)
-    out[p.sums_out + n0 + threadIdx.x] = csum;
 }
 
 // Element strides of head h's q (k, v: add C, 2C) columns in the [R, 3C]
@@ -656,20 +600,15 @@ BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
   if (P.err != cudaSuccess) return P;
   const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
   P.attn_grid = (int)std::min<long long>(nchunks, (long long)per_sm * sms);
-  // split the rows so that the weight-gradient tiles fill the card about
-  // four times over, each split at least 256 rows
   const int R = B * N;
   P.wbn = tile_bn(3 * C, C);
   int tq = 0, tp = 0, unused = 0;
   set_tiles(C, 3 * C, P.wbn, &unused, &tq);
   set_tiles(C, C, P.wbn, &unused, &tp);
   P.wtiles = tq + tp;
-  int splits = (4 * sms + P.wtiles - 1) / P.wtiles;
-  splits = std::max(1, std::min(splits, (R + 255) / 256));
-  int rps = (R + splits - 1) / splits;
-  rps = (rps + focal::kGemmBK - 1) / focal::kGemmBK * focal::kGemmBK;
-  P.rows_per_split = rps;
-  P.splits = (R + rps - 1) / rps;
+  const focal::RowSplits rs = focal::split_rows(R, P.wtiles, sms);
+  P.splits = rs.splits;
+  P.rows_per_split = rs.rows_per_split;
   P.E = (size_t)4 * C * C + 4 * C;
   size_t o = 0;
   P.qkv = o, o += (size_t)R * 3 * C;
@@ -703,19 +642,6 @@ cudaError_t launch_proj_bn(ProjGemm p0, ProjGemm p1, cudaStream_t s) {
 cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) {
   return tile_bn(p0.N, p1.N) == 128 ? launch_proj_bn<128>(p0, p1, s)
                                     : launch_proj_bn<64>(p0, p1, s);
-}
-
-// One weight-gradient launch of `splits` row splits (partials E floats
-// apart at `part`) on `stream`, in tiles of kBN columns.
-template <int kBN>
-cudaError_t launch_wgrad(const WgradGemm& p0, const WgradGemm& p1, int R, int rows_per_split,
-                         int splits, float* part, size_t E, cudaStream_t s) {
-  const size_t smem = focal::gemm_smem_bytes(kBN);
-  cudaError_t err = set_smem(wgrad_gemm_kernel<kBN>, smem, nullptr);
-  if (err != cudaSuccess) return err;
-  wgrad_gemm_kernel<kBN><<<dim3(p0.tiles + p1.tiles, splits), focal::kGemmThreads, smem, s>>>(
-      p0, p1, R, rows_per_split, part, E);
-  return cudaGetLastError();
 }
 
 }  // namespace
@@ -875,21 +801,17 @@ extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqk
   if (err != cudaSuccess) return (int)err;
   // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
   const size_t q = (size_t)3 * C * C;
-  const WgradGemm wq = wgrad_gemm(xf, dqkv, C, 3 * C, 0, q, P.wbn);
-  const WgradGemm wp = wgrad_gemm(ao, dyf, C, C, q + 3 * C, q + 3 * C + (size_t)C * C, P.wbn);
-  err = P.wbn == 128
-            ? launch_wgrad<128>(wq, wp, R, P.rows_per_split, P.splits, w + P.wpart, P.E, s)
-            : launch_wgrad<64>(wq, wp, R, P.rows_per_split, P.splits, w + P.wpart, P.E, s);
+  const focal::WgradGemm wq = focal::wgrad_gemm(xf, dqkv, C, 3 * C, 0, q, P.wbn);
+  const focal::WgradGemm wp =
+      focal::wgrad_gemm(ao, dyf, C, C, q + 3 * C, q + 3 * C + (size_t)C * C, P.wbn);
+  err = focal::launch_wgrad<Src>(P.wbn, wq, wp, R, P.rows_per_split, P.splits, w + P.wpart, P.E,
+                                 false, s);
   if (err != cudaSuccess) return (int)err;
   // 5. the partials summed in split order, and d rel_bias in block order
-  reduce_partials_kernel<<<(int)((P.E + kThreads - 1) / kThreads), kThreads, 0, s>>>(
-      w + P.wpart, P.splits, (int)P.E, static_cast<float*>(dweights));
-  err = cudaGetLastError();
+  err = focal::launch_reduce<Src>(w + P.wpart, P.splits, P.E, static_cast<float*>(dweights), s);
   if (err != cudaSuccess) return (int)err;
-  const int nn = H * N * N;
-  reduce_partials_kernel<<<(nn + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      w + P.dbias, P.attn_grid, nn, static_cast<float*>(drel_bias));
-  return (int)cudaGetLastError();
+  return (int)focal::launch_reduce<Src>(w + P.dbias, P.attn_grid, (size_t)H * N * N,
+                                        static_cast<float*>(drel_bias), s);
 }
 
 // The projections' product alone, for the checks: c = a b with a [M, K]
@@ -906,9 +828,8 @@ extern "C" int focal_gemm_3xtf32(const void* a, const void* b, void* c, int M, i
   float* cf = static_cast<float*>(c);
   if (!a_trans) return (int)launch_proj(proj_gemm(af, K, bf, N, nullptr, cf, N, M, N, K), ProjGemm{}, s);
   const int bn = tile_bn(N, 0);
-  const WgradGemm p = wgrad_gemm(af, bf, M, N, 0, (size_t)M * N, bn);
-  return (int)(bn == 128 ? launch_wgrad<128>(p, WgradGemm{}, K, K, 1, cf, 0, s)
-                         : launch_wgrad<64>(p, WgradGemm{}, K, K, 1, cf, 0, s));
+  const focal::WgradGemm p = focal::wgrad_gemm(af, bf, M, N, 0, (size_t)M * N, bn);
+  return (int)focal::launch_wgrad<Src>(bn, p, focal::WgradGemm{}, K, K, 1, cf, 0, false, s);
 }
 
 extern "C" const char* focal_cuda_error_string(int err) {

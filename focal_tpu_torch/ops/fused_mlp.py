@@ -1,7 +1,8 @@
 """Fused Swin MLP (port of the JAX package's ``fused_mlp`` and
 ``fused_mlp_dropout``, ``focal_tpu/ops/pallas_kernels.py``): fc1 -> exact
-GELU -> fc2 on [T, C] token rows, the [T, 4C] hidden never written to
-device memory.
+GELU -> fc2 on [T, C] token rows. Autograd saves only x and the weights:
+the [T, 4C] hidden lives in a workspace for one call (chunks of rows, 128
+MiB at most, ``csrc/fused_mlp.cu``) and the backward computes it again.
 
 Kernels (``csrc/fused_mlp.cu``), each with a launch count on its wrapper:
   #10 ``fused_mlp_forward``: the forward at rate 0 (``_mlp_fwd_kernel``);
@@ -114,11 +115,12 @@ def _lib():
     if lib.focal_mlp_fwd.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         seed = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float]
-        lib.focal_mlp_fwd.argtypes = [p] * 6 + [i] * 4 + seed + [p]
-        lib.focal_mlp_bwd_workspace.argtypes = [i] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.focal_mlp_fwd.argtypes = [p] * 7 + [i] * 4 + seed + [p]
+        lib.focal_mlp_workspace.argtypes = [i] * 4 + [ctypes.POINTER(ctypes.c_longlong),
+                                                      ctypes.POINTER(ctypes.c_int)]
         lib.focal_mlp_bwd.argtypes = [p] * 9 + [i] * 4 + seed + [p]
         lib.focal_mlp_masks.argtypes = [ctypes.c_ulonglong, ctypes.c_uint] + [i] * 3 + [p] * 3
-        for fn in (lib.focal_mlp_fwd, lib.focal_mlp_bwd_workspace, lib.focal_mlp_bwd,
+        for fn in (lib.focal_mlp_fwd, lib.focal_mlp_workspace, lib.focal_mlp_bwd,
                    lib.focal_mlp_masks):
             fn.restype = ctypes.c_int
         lib.focal_cuda_error_string.argtypes = [i]
@@ -146,14 +148,19 @@ def _check_dims(x, w1):
                          f"{tuple(w1.shape)}")
     T, C = x.shape
     H = w1.shape[1]
-    if C % 4 or not 4 <= C <= MAX_C or H < 1 or T < 1:
+    if C % 4 or not 4 <= C <= MAX_C or H % 4 or H < 4 or T < 1:
         raise ValueError(f"fused_mlp: unsupported width C={C} H={H} T={T} (the kernels take "
-                         f"C a multiple of 4 up to {MAX_C})")
+                         f"C and H multiples of 4, C up to {MAX_C})")
     _check("x", x, (T, C), x.device)
     _check("w1", w1, (C, H), x.device)
-    if x.data_ptr() % 16:
-        raise ValueError("fused_mlp: x must be 16-byte aligned")
     return T, C, H
+
+
+def _check_aligned(name, **operands):
+    """The products read their operands 16 bytes at a time."""
+    for key, t in operands.items():
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must be 16-byte aligned")
 
 
 def _launch(name, fn, dev, *args):
@@ -170,16 +177,34 @@ def _dropout_args(seed, rate):
     return int(seed) % 2**64, _keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
+def mlp_launch_plan(T, C, H, backward, device):
+    """(workspace floats, row chunks) of a #10/#11 call (``backward`` False)
+    or a #12 call at rows T, width C and hidden H on a CUDA ``device``: the
+    kernels' own plan (csrc/fused_mlp.cu). Raises where they have none."""
+    lib = _lib()
+    floats, chunks = ctypes.c_longlong(0), ctypes.c_int(0)
+    with torch.cuda.device(device):
+        err = lib.focal_mlp_workspace(T, C, H, int(backward), ctypes.byref(floats),
+                                      ctypes.byref(chunks))
+    if err != 0:
+        raise RuntimeError(f"fused_mlp: no launch plan ({err}): "
+                           f"{lib.focal_cuda_error_string(err).decode()}")
+    return floats.value, chunks.value
+
+
 def _forward(name, x, w1, b1, w2, b2, dropout, seed, rate):
     T, C, H = _check_dims(x, w1)
     dev = x.device
     _check("b1", b1, (H,), dev)
     _check("w2", w2, (H, C), dev)
     _check("b2", b2, (C,), dev)
-    y = torch.empty_like(x)
+    _check_aligned(name, x=x, w1=w1, w2=w2)
     seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
+    ws = torch.empty(mlp_launch_plan(T, C, H, False, dev)[0], dtype=torch.float32, device=dev)
+    y = torch.empty_like(x)
     _launch(name, _lib().focal_mlp_fwd, dev, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
-            w2.data_ptr(), b2.data_ptr(), y.data_ptr(), T, C, H, int(dropout), seed_, thr, inv)
+            w2.data_ptr(), b2.data_ptr(), y.data_ptr(), ws.data_ptr(), T, C, H, int(dropout),
+            seed_, thr, inv)
     return y
 
 
@@ -224,7 +249,7 @@ def fused_mlp_backward(x, w1, b1, w1_t, w2_t, g, seed=None, rate=0.0):
     the masks drawn again). It recomputes z and h from x, as the TPU kernel
     does; w1_t [H, C] and w2_t [C, H] are w1 and w2 transposed (nn.Linear's
     own layouts), which dx and dh read. The weight gradients are sums over
-    the rows taken in a fixed order: two calls give the same bits.
+    fixed row splits added in a fixed order: two calls give the same bits.
     Replaces focal_tpu/ops/pallas_kernels.py::_mlp_bwd_impl
     (_mlp_bwd_kernel, _mlp_bwd_dropout_kernel). CPU tensors take autograd
     of the plain version, with draw_mlp_masks' masks for a seed."""
@@ -240,21 +265,13 @@ def fused_mlp_backward(x, w1, b1, w1_t, w2_t, g, seed=None, rate=0.0):
     _check("w1_t", w1_t, (H, C), dev)
     _check("w2_t", w2_t, (C, H), dev)
     _check("g", g, (T, C), dev)
-    if g.data_ptr() % 16:
-        raise ValueError("fused_mlp_backward: g must be 16-byte aligned")
+    _check_aligned("fused_mlp_backward", x=x, w1=w1, w1_t=w1_t, w2_t=w2_t, g=g)
     dropout = seed is not None
     seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
-    lib = _lib()
-    floats = ctypes.c_longlong(0)
-    with torch.cuda.device(dev):
-        err = lib.focal_mlp_bwd_workspace(T, C, H, ctypes.byref(floats))
-    if err != 0:
-        raise RuntimeError(f"fused_mlp_backward: no launch plan ({err}): "
-                           f"{lib.focal_cuda_error_string(err).decode()}")
-    ws = torch.empty(floats.value, dtype=torch.float32, device=dev)
+    ws = torch.empty(mlp_launch_plan(T, C, H, True, dev)[0], dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     dweights = torch.empty(2 * C * H + H + C, dtype=torch.float32, device=dev)
-    _launch("fused_mlp_backward", lib.focal_mlp_bwd, dev, x.data_ptr(), w1.data_ptr(),
+    _launch("fused_mlp_backward", _lib().focal_mlp_bwd, dev, x.data_ptr(), w1.data_ptr(),
             b1.data_ptr(), w1_t.data_ptr(), w2_t.data_ptr(), g.data_ptr(), dx.data_ptr(),
             dweights.data_ptr(), ws.data_ptr(), T, C, H, int(dropout), seed_, thr, inv)
     fused_mlp_backward.launches += 1
@@ -275,8 +292,8 @@ def mlp_keep_masks(seed, T, C, H, rate, device):
     device = torch.device(device)
     if device.type == "cpu":
         return draw_mlp_masks(seed, T, C, H, rate, device)
-    if C % 4 or not 4 <= C <= MAX_C:
-        raise ValueError(f"mlp_keep_masks: unsupported width C={C}")
+    if C % 4 or not 4 <= C <= MAX_C or H % 4 or H < 4:
+        raise ValueError(f"mlp_keep_masks: unsupported width C={C} H={H}")
     seed_, thr, _ = _dropout_args(seed, rate)
     keep1 = torch.empty((T, H), dtype=torch.uint8, device=device)
     keep2 = torch.empty((T, C), dtype=torch.uint8, device=device)

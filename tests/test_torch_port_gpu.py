@@ -361,9 +361,16 @@ def test_perhead_backward_matches_autograd_of_plain(B, C, nW, rate):
     (333, 1536, 512, False), (4608, 1024, 3072, False), (512, 1536, 333, True),
     (1024, 1024, 4608, True), (4617, 192, 64, False), (4617, 64, 192, False),
     (64, 192, 4617, True),
+    # #10-#12's products: z = x W1 and dh = g2 W2^T (K = C), y = h W2 and
+    # dx = dz W1^T (K = H) at MOD_WIDE stage 0 (C 256) and MOD stage 0 (C
+    # 64); x^T dz and h^T g2 over a split's rows (1,472 at MOD_WIDE audio
+    # stage 0, 448 at MOD seismic stage 0)
+    (4617, 1024, 256, False), (4617, 256, 1024, False), (4617, 256, 64, False),
+    (4617, 64, 256, False), (256, 1024, 1472, True), (1024, 256, 1472, True),
+    (64, 256, 448, True), (256, 64, 448, True),
 ])
 def test_gemm_3xtf32_matches_its_emulation(M, N, K, trans):
-    """The tensor-core core of #4/#5 against its plain emulation
+    """The tensor-core core of #2-#5 and #10-#12 against its plain emulation
     (gemm_3xtf32_reference) and the exact product: within 1e-5 of both,
     relative; one TF32 product is ~4x outside the f32 gates."""
     from focal_tpu_torch.ops import pallas_kernels as pk
@@ -632,6 +639,81 @@ def test_fused_mlp_raises_on_a_width_it_cannot_take():
                              b2[:62].contiguous())
     with pytest.raises(TypeError):
         fm.fused_mlp_forward(x.double(), w1, b1, w2, b2)
+
+
+def _mlp_calls(fm, x, w1, b1, w2, b2, g, seed, w1t, w2t):
+    """#10, #11 (``seed``, rate 0.2) and #12 with #11's masks and without;
+    w1t and w2t are w1 and w2 transposed."""
+    return (fm.fused_mlp_forward(x, w1, b1, w2, b2),
+            fm.fused_mlp_dropout_forward(x, w1, b1, w2, b2, seed, 0.2),
+            fm.fused_mlp_backward(x, w1, b1, w1t, w2t, g, seed, 0.2),
+            fm.fused_mlp_backward(x, w1, b1, w1t, w2t, g))
+
+
+@pytest.mark.gpu
+def test_fused_mlp_in_row_chunks_matches_plain_and_repeats_bitwise():
+    """A full MOD_WIDE stage-0 launch (audio: T 73,728 rows, C 256, H 1,024)
+    runs in three row chunks (each [rows, H] workspace within 128 MiB): #10,
+    and #11 fed its own masks, within 1e-4 of plain; #12's gradients with
+    the masks and without within 1e-4 relative; the same bits on a second
+    call of each."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    T, C = 73728, 256
+    rng = np.random.default_rng(21)
+    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev)
+    tr = w1.t().contiguous(), w2.t().contiguous()
+    for backward in (False, True):
+        floats, chunks = fm.mlp_launch_plan(T, C, 4 * C, backward, dev)
+        assert chunks == 3 and floats * 4 <= (1 + 2 * backward) * 2**27
+    got = _mlp_calls(fm, x, w1, b1, w2, b2, g, 9, *tr)
+    again = _mlp_calls(fm, x, w1, b1, w2, b2, g, 9, *tr)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert torch.equal(u, v)
+    keep1, keep2 = fm.mlp_keep_masks(9, T, C, 4 * C, 0.2, dev)
+    assert float((got[0] - fm.fused_mlp_reference(x, w1, b1, w2, b2)).abs().max()) <= 1e-4
+    want = fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2, 0.2)
+    assert float((got[1] - want).abs().max()) <= 1e-4
+    assert _mlp_rel(got[2], fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, g, keep1, keep2,
+                                                           0.2)) <= 1e-4
+    assert _mlp_rel(got[3], fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, g)) <= 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(2311, 64), (301, 256)])
+def test_fused_mlp_launches_only_fused_mlp_kernels(T, C):
+    """A profiled call of #10, #11 and #12 (with masks and without) runs only
+    csrc/fused_mlp.cu's kernels: the hidden and output products, the masked
+    gradient, and gemm_splitk.cuh's weight gradients and reduction as
+    instantiated for fused_mlp.cu; no cuBLAS kernel."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    rng = np.random.default_rng(T)
+    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev)
+    tr = w1.t().contiguous(), w2.t().contiguous()
+    _mlp_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _mlp_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    kernels = {m.group(1) if m else n for n in names
+               for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
+    assert kernels == {"mlp_hidden_kernel", "mlp_out_kernel", "mlp_g2_kernel",
+                       "wgrad_gemm_kernel", "reduce_partials_kernel"}, names
+    shared = [n for n in names if "wgrad_gemm_kernel" in n or "reduce_partials_kernel" in n]
+    assert shared and all("FusedMlpSrc" in n for n in shared), shared
 
 
 # ---------------------------------------------------------------------------
