@@ -88,13 +88,15 @@ result line if any fails):
      and variances <= 1e-5 relative, the five gradients <= 1e-4 relative
      (absolutely to 1e-2 where both are below 1e-2: conv biases before a
      BatchNorm), the same bits on a second call;
- 15. DeepSense MOD pretrain steps at batch 256 (flax-style init, synthetic
-     data resident on the card): 3 warm-up + 20 timed steps on the default
-     path (cuDNN convs, no kernel launched) and with -pallas_conv (#13 11
-     and #14 20 launches a step), p50, samples/s, peak memory and a
-     profiled step's idle share for both; a dropout-0 step, kernels vs
-     plain, from the initial state (loss 1e-5, gradients 1e-4 relative,
-     running statistics 1e-5) and from the trained one (reported);
+ 15. DeepSense pretrain steps (flax-style init, synthetic data resident on
+     the card), MOD_WIDE at batch 128 (views fused to 256; 3 warm-up + 10
+     timed) and MOD at batch 256 (3 + 20), on the default path (cuDNN
+     convs, no kernel launched) and with -pallas_conv (#13 11 and #14 20
+     launches a step at either): p50, samples/s, peak memory and a
+     profiled step's idle share, device busy time and #13/#14's share of
+     it; a dropout-0 MOD step, kernels vs plain, from the initial state
+     (loss 1e-5, gradients 1e-4 relative, running statistics 1e-5) and
+     from the trained one (reported);
  16. the entry point: python -m focal_tpu_torch.train -dataset MOD -model
      DeepSense -pallas_conv -synthetic in-process, 2 epochs with validation,
      then -resume to 3: finite losses, the three checkpoint files with the
@@ -103,7 +105,13 @@ result line if any fails):
      synthetic samples at batch 128 (no kernel launched);
  17. timing of #13 and #14 per tower geometry (kernel, plain version, the
      unfused cuDNN chain and its autograd backward as the library
-     yardstick, and the bound);
+     yardstick, the bounds on the f32 CUDA cores and on the TF32 tensor
+     cores (3 passes)), summed over a MOD and a MOD_WIDE step; then five
+     profiled calls of each at every geometry, which fail the run if a
+     device kernel other than csrc/conv_tower.cu's and PyTorch's own
+     [C]-sized steps between the wrappers' calls runs, their device time
+     split by kernel ([profile-tower]: products, weight gradients,
+     elementwise passes, reductions, the first conv on the CUDA cores);
  18. kernels #10 (fused_mlp_forward), #11 (fused_mlp_dropout_forward) and
      #12 (fused_mlp_backward) vs plain at every MLP geometry on the fused
      route: MOD at batch 128 (C 64/128/256, 16 blocks) and MOD_WIDE stage 0
@@ -587,8 +595,14 @@ def kernel_phase_split(torch, fn, launches, lib=WB_LIB, reps=PROFILE_REPS):
         k["ms_per_call"] = k["device_ms"] / k["count"] * launches[name]
         phase = lib["phases"][name]
         phases[phase] = phases.get(phase, 0.0) + k["ms_per_call"]
-    return {"device_ms": sum(phases.values()), "phases": phases, "kernels": kernels,
+    return {"device_ms": sum(phases.values()), "phases": phases, "kernels": kernels, "reps": reps,
             "complete": all(k["count"] == reps * launches[n] for n, k in kernels.items())}
+
+
+def trace_reps(torch, fn):
+    """Calls of fn (warmed here) that a profiled trace takes: at least
+    PROFILE_REPS and PROFILE_TRACE_MS of them by CUDA events."""
+    return max(PROFILE_REPS, math.ceil(PROFILE_TRACE_MS / time_ms(torch, fn, iters=3, warmup=1)))
 
 
 def block_profiles(torch, fwd, bwd, names, g, gen, dev, rate, tag):
@@ -599,18 +613,18 @@ def block_profiles(torch, fwd, bwd, names, g, gen, dev, rate, tag):
     tr = transposed(args)
     dy = torch.randn(args[0].shape, generator=gen).to(dev)
     _, keep = fwd(*args, 7, rate)
-    bwd(*args, dy, keep, rate, *tr)
-    torch.cuda.synchronize()
-    out = {"fwd": kernel_phase_split(torch, lambda: fwd(*args, 7, rate), WB_LAUNCHES["fwd"]),
-           "bwd": kernel_phase_split(torch, lambda: bwd(*args, dy, keep, rate, *tr),
-                                     WB_LAUNCHES["bwd"])}
+    calls = {"fwd": lambda: fwd(*args, 7, rate), "bwd": lambda: bwd(*args, dy, keep, rate, *tr)}
+    # at least PROFILE_TRACE_MS of calls: a trace of a few milliseconds can
+    # lose every record of a kernel
+    out = {d: kernel_phase_split(torch, fn, WB_LAUNCHES[d], reps=trace_reps(torch, fn))
+           for d, fn in calls.items()}
     for d, name in zip(("fwd", "bwd"), names):
         s = out[d]
         log(f"[{tag}] {g['name']} (windows {g['windows']}, C {g['C']}) {name}: device "
             f"{s['device_ms']:.4f} ms a call; " + ", ".join(
                 f"{p} {ms:.4f}" for p, ms in sorted(s["phases"].items(), key=lambda kv: -kv[1]))
             + "; records " + ", ".join(f"{k} x{v['count']}" for k, v in s["kernels"].items())
-            + f" of {PROFILE_REPS} calls")
+            + f" of {s['reps']} calls")
     return out
 
 
@@ -854,11 +868,21 @@ NEAR_ZERO = 1e-2
 FWD_ELEM_OPS = 27
 BWD_ELEM_OPS = 40
 CT = "focal_tpu/ops/conv_tower.py"
-# the device kernels of csrc/conv_tower.cu as the profiler names them (in
-# the source's anonymous namespace, unlike PyTorch's at::native ones)
-TOWER_KERNEL_NAMES = tuple(f"{v}(anonymous namespace)::{k}" for v in ("", "void ") for k in (
-    "conv_tile_kernel<", "elementwise_kernel<", "wgrad_kernel(", "bn_grad_sums_kernel(",
-    "reduce_partials_kernel("))
+# csrc/conv_tower.cu's kernels (and gemm_splitk.cuh's reduction as it
+# instantiates it, tagged ConvTowerSrc) and the part of #13/#14 each serves
+TOWER_LIB = {"source": "conv_tower.cu", "tag": "ConvTowerSrc",
+             "phases": {"conv_gemm_kernel": "products", "conv_wgrad_kernel": "weight gradients",
+                        "bn_elementwise_kernel": "elementwise passes",
+                        "tap_transpose_kernel": "elementwise passes",
+                        "bn_grad_sums_kernel": "reductions", "reduce_partials_kernel": "reductions",
+                        "bn_stats_kernel": "reductions", "bn_grad_stats_kernel": "reductions",
+                        "narrow_conv_kernel": "first conv (CUDA cores)",
+                        "narrow_convT_kernel": "first conv (CUDA cores)",
+                        "narrow_wgrad_kernel": "first conv (CUDA cores)"}}
+TOWER_KERNEL_NAMES = tuple(TOWER_LIB["phases"])
+# an external first conv's BN statistics and coefficients are PyTorch's
+# own kernels, between #13's calls
+TORCH_PHASE = "[C]-sized steps (PyTorch)"
 
 
 def tower_geometries(cfg, samples, dataset):
@@ -909,6 +933,53 @@ def tower_work(g):
     f_by = 4 * (RS * cin0 + params + masks + RS * C + 2 * len(g["cfgs"]) * C)
     b_by = 4 * (RS * C + saved + RS * cin0 + params + masks + RS * cin0 + params)
     return f_fl, f_by, b_fl, b_by
+
+
+def tower_tc_bounds(g):
+    """(forward, backward) bound in ms of the tower on the units it runs
+    on: its convs as three TF32 products an f32 one at the tensor cores'
+    peak, the elementwise operations at the f32 peak, or the bytes."""
+    f_fl, f_by, b_fl, b_by = tower_work(g)
+    conv = sum(0 if (k == 0 and g["external"]) else 2 * g["R"] * g["S"] * kw * cin * cout
+               for k, (kw, cin, cout, _) in enumerate(g["cfgs"]))
+    return tuple(1e3 * max(3 * c / TF32_FLOPS + (fl - c) / F32_FLOPS, by / HBM_BYTES_PER_S)
+                 for c, fl, by in ((conv, f_fl, f_by), (2 * conv, b_fl, b_by)))
+
+
+def tower_phase_split(torch, fn, strict=True):
+    """trace_reps calls of fn (#13's tower_forward or #14's backward) under
+    torch.profiler after a pause, each kernel's device time per call and
+    those times by TOWER_LIB's phases; PyTorch's own kernels and memsets
+    (the [C]-sized steps between the wrappers' calls) under TORCH_PHASE. With ``strict``
+    it raises on any other kernel (cuDNN, cuBLAS: none may run); without,
+    other kernels are kept by name (a parent checkout's)."""
+    reps = trace_reps(torch, fn)
+
+    def calls():
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    prof = profile_device(torch, calls)
+    kernels, phases = {}, {}
+    for r in prof["rows"]:
+        name = kernel_name(r["name"]) or r["name"]
+        if owned_by(TOWER_LIB, r["name"]):
+            phase = TOWER_LIB["phases"][name]
+        elif r["name"].startswith(("void at::native::", "at::native::", "Memset")) and not any(
+                w in r["name"].lower() for w in ("gemm", "conv", "cudnn", "cutlass", "cublas")):
+            phase = TORCH_PHASE
+        elif strict:
+            raise AssertionError(f"a device kernel outside csrc/conv_tower.cu ran: {r['name']}")
+        else:
+            phase = name
+        k = kernels.setdefault(name, {"device_ms": 0.0, "count": 0})
+        k["device_ms"] += r["device_ms"] / reps
+        k["count"] += r["count"]
+        phases[phase] = phases.get(phase, 0.0) + r["device_ms"] / reps
+    return {"device_ms": sum(phases.values()), "phases": phases, "kernels": kernels}
 
 
 def tower_inputs(torch, np, g, seed, dev):
@@ -1001,7 +1072,7 @@ def run_deepsense_steps(torch, np, targs, batch, warmup, steps, kernels, per_ste
     for _ in range(warmup):
         state, metrics = step(state, tdata, idx)
     torch.cuda.synchronize()
-    log(f"[{tag}] MOD DeepSense pretrain{' -pallas_conv' if targs.pallas_conv else ''}, batch "
+    log(f"[{tag}] {targs.dataset} DeepSense pretrain{' -pallas_conv' if targs.pallas_conv else ''}, batch "
         f"{batch} (views fused to {2 * batch}), {sum(p.numel() for p in model.parameters())} "
         f"parameters; {warmup} warm-up steps in {time.time() - t0:.2f}s")
     torch.cuda.reset_peak_memory_stats()
@@ -1023,7 +1094,7 @@ def run_deepsense_steps(torch, np, targs, batch, warmup, steps, kernels, per_ste
                  {k.__name__: per_step.get(k.__name__, 0) * steps for k in kernels})
     p50_ms = float(np.percentile(step_s, 50)) * 1e3
     profile = profile_device(torch, lambda: step(state, tdata, idx))
-    own_ms = sum(r["device_ms"] for r in profile["rows"] if r["name"].startswith(TOWER_KERNEL_NAMES))
+    own_ms = sum(r["device_ms"] for r in profile["rows"] if owned_by(TOWER_LIB, r["name"]))
     summary = {
         "steps": steps, "launches": launches, "p50_ms": p50_ms, "tower_kernels_device_ms": own_ms,
         "mean_ms": float(np.mean(step_s)) * 1e3, "min_ms": float(np.min(step_s)) * 1e3,
@@ -1031,6 +1102,7 @@ def run_deepsense_steps(torch, np, targs, batch, warmup, steps, kernels, per_ste
         "peak_mb": peak_mb, "loss_first": float(history[0][sorted(metrics).index("loss")]),
         "loss_last": float(history[-1][sorted(metrics).index("loss")]), "profile": profile,
         "idle_share": 1 - profile["device_busy_ms"] / profile["wall_ms"],
+        "device_busy_ms": profile["device_busy_ms"],
     }
     log(f"[{tag}] {steps} steps: launches {launches}; loss {summary['loss_first']:.4f} -> "
         f"{summary['loss_last']:.4f}; p50 step {p50_ms:.3f} ms (mean {summary['mean_ms']:.3f}, "
@@ -1748,25 +1820,42 @@ def main():
         del runs, grads, again, rgrads, x0, params, masks, dy
     torch.cuda.empty_cache()
 
-    # ---- 15. DeepSense MOD pretrain steps at batch 256: the default path
-    # (cuDNN convs, no kernel) and -pallas_conv (#13/#14), in one call
+    # ---- 15. DeepSense pretrain steps: the default path (cuDNN convs, no
+    # kernel) and -pallas_conv (#13/#14), in one call: MOD at batch 256 (3 +
+    # 20 steps), then MOD_WIDE at batch 128 (3 + 10), where the towers weigh
+    def tower_launches(geos):
+        """#13's and #14's wrapper calls in one step over the towers geos."""
+        return {ct_fwd.__name__: sum(len(g["cfgs"]) + (0 if g["external"] else 1) for g in geos),
+                ct_bwd.__name__: sum(2 * len(g["cfgs"]) for g in geos)}
+
     mod_geos = [g for g in cgeos if g["name"].startswith("MOD ")]
-    ds_per_step = {ct_fwd.__name__: sum(len(g["cfgs"]) + (0 if g["external"] else 1)
-                                        for g in mod_geos),
-                   ct_bwd.__name__: sum(2 * len(g["cfgs"]) for g in mod_geos)}
+    ds_per_step = tower_launches(mod_geos)
+    ds_wide_per_step = tower_launches([g for g in cgeos if g["name"].startswith("MOD_WIDE ")])
     ds_runs = {}
-    for pallas in (False, True):
-        dargs = parse_train_params(["-dataset", "MOD", "-model", "DeepSense", "-learn_framework",
-                                    "FOCAL", "-stage", "pretrain", "-batch_size", str(DS_BATCH)]
-                                   + (["-pallas_conv"] if pallas else []))
-        tag = "deepsense-pallas" if pallas else "deepsense-default"
-        ds_runs[tag], trained = run_deepsense_steps(
-            torch, np, dargs, DS_BATCH, TRAIN_WARMUP, TRAIN_STEPS, all_kernels,
-            ds_per_step if pallas else {}, dev, tag)
-        if pallas:
-            trained_sd = {k: v.detach().cpu().clone() for k, v in trained.state_dict().items()}
-        del trained
-        torch.cuda.empty_cache()
+    for dataset, batch, steps in (("MOD_WIDE", DS_WIDE_BATCH, WIDE_STEPS),
+                                  ("MOD", DS_BATCH, TRAIN_STEPS)):
+        for pallas in (False, True):
+            dargs = parse_train_params(["-dataset", dataset, "-model", "DeepSense",
+                                        "-learn_framework", "FOCAL", "-stage", "pretrain",
+                                        "-batch_size", str(batch)]
+                                       + (["-pallas_conv"] if pallas else []))
+            tag = ("deepsense-pallas" if pallas else "deepsense-default") + (
+                "-wide" if dataset == "MOD_WIDE" else "")
+            per_step = ds_per_step if dataset == "MOD" else ds_wide_per_step
+            ds_runs[tag], trained = run_deepsense_steps(
+                torch, np, dargs, batch, TRAIN_WARMUP, steps, all_kernels,
+                per_step if pallas else {}, dev, tag)
+            if pallas and dataset == "MOD":
+                trained_sd = {k: v.detach().cpu().clone() for k, v in trained.state_dict().items()}
+            del trained
+            torch.cuda.empty_cache()
+    w_def, w_pal = ds_runs["deepsense-default-wide"], ds_runs["deepsense-pallas-wide"]
+    log(f"[deepsense-wide] MOD_WIDE step, -pallas_conv vs default: p50 {w_pal['p50_ms']:.3f} vs "
+        f"{w_def['p50_ms']:.3f} ms, {w_pal['samples_per_s']:.1f} vs {w_def['samples_per_s']:.1f} "
+        f"samples/s, idle share {w_pal['idle_share']:.3f} vs {w_def['idle_share']:.3f}, device "
+        f"busy {w_pal['device_busy_ms']:.3f} vs {w_def['device_busy_ms']:.3f} ms (#13/#14 "
+        f"{w_pal['tower_kernels_device_ms']:.3f}), peak {w_pal['peak_mb']:.1f} vs "
+        f"{w_def['peak_mb']:.1f} MiB")
     # the rate-0 step, kernels vs plain: from the initial state (held) and
     # from the -pallas_conv run's trained state (reported)
     from focal_tpu_torch.models import build_backbone, init_params
@@ -1878,23 +1967,42 @@ def main():
         dyl = dy.permute(0, 2, 1).unsqueeze(2)
         g["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(ly, leaves, dyl,
                                                                          retain_graph=True))
-        del ly, saved
+        del ly
+        # device time by kernel: only conv_tower.cu's kernels and PyTorch's
+        # [C]-sized steps may run under #13 and #14
+        g["profile"] = {"fwd": tower_phase_split(torch, lambda: ct.tower_forward(
+                            x0, g["cfgs"], *params, masks, g["external"])),
+                        "bwd": tower_phase_split(torch, lambda: ct_bwd(saved, dy))}
+        del saved
         f_fl, f_by, b_fl, b_by = tower_work(g)
         g["fwd_gflop"], g["bwd_gflop"] = f_fl / 1e9, b_fl / 1e9
         g["fwd_bound_ms"], g["fwd_bound_by"] = bound(f_fl, f_by)
         g["bwd_bound_ms"], g["bwd_bound_by"] = bound(b_fl, b_by)
+        g["fwd_bound_tc_ms"], g["bwd_bound_tc_ms"] = tower_tc_bounds(g)
         g["fwd_flops_bytes"], g["bwd_flops_bytes"] = (f_fl, f_by), (b_fl, b_by)
         log(f"[time-tower] {g['name']}: #13 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
-            f"library {g['fwd_library_ms']:.4f}, bound {g['fwd_bound_ms']:.4f}, "
-            f"{f_fl / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #14 {g['bwd_ms']:.4f} ms (plain "
-            f"{g['bwd_plain_ms']:.4f}, library {g['bwd_library_ms']:.4f}, bound "
-            f"{g['bwd_bound_ms']:.4f}, {b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+            f"library {g['fwd_library_ms']:.4f}, bound f32 {g['fwd_bound_ms']:.4f}, TF32x3 "
+            f"{g['fwd_bound_tc_ms']:.4f}, {f_fl / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #14 "
+            f"{g['bwd_ms']:.4f} ms (plain {g['bwd_plain_ms']:.4f}, library "
+            f"{g['bwd_library_ms']:.4f}, bound f32 {g['bwd_bound_ms']:.4f}, TF32x3 "
+            f"{g['bwd_bound_tc_ms']:.4f}, {b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+        for d, what in (("fwd", "#13"), ("bwd", "#14")):
+            pr = g["profile"][d]
+            log(f"[profile-tower] {g['name']} {what}: device {pr['device_ms']:.4f} ms a call: "
+                + ", ".join(f"{ph} {ms:.4f}" for ph, ms in sorted(pr["phases"].items(),
+                                                                   key=lambda kv: -kv[1])))
         ds = g["name"].split()[0]
         step_sum = ctot.setdefault(ds, {"fwd_flops": 0, "fwd_bytes": 0, "bwd_flops": 0,
-                                        "bwd_bytes": 0})
+                                        "bwd_bytes": 0, "fwd_bound_tc_ms": 0.0,
+                                        "bwd_bound_tc_ms": 0.0,
+                                        "device_ms_by_phase": {"fwd": {}, "bwd": {}}})
         for k in ("fwd_ms", "fwd_plain_ms", "fwd_library_ms", "bwd_ms", "bwd_plain_ms",
-                  "bwd_library_ms"):
+                  "bwd_library_ms", "fwd_bound_tc_ms", "bwd_bound_tc_ms"):
             step_sum[k] = step_sum.get(k, 0.0) + g[k]
+        for d in ("fwd", "bwd"):
+            split = step_sum["device_ms_by_phase"][d]
+            for ph, ms in g["profile"][d]["phases"].items():
+                split[ph] = split.get(ph, 0.0) + ms
         step_sum["fwd_flops"] += f_fl
         step_sum["fwd_bytes"] += f_by
         step_sum["bwd_flops"] += b_fl
@@ -1905,13 +2013,17 @@ def main():
         step_sum["bwd_bound_ms"] = bound(step_sum["bwd_flops"], step_sum["bwd_bytes"])[0]
         log(f"[time-tower] one {ds} DeepSense step's towers: #13 {step_sum['fwd_ms']:.3f} ms "
             f"(plain {step_sum['fwd_plain_ms']:.3f}, library {step_sum['fwd_library_ms']:.3f}, "
-            f"bound {step_sum['fwd_bound_ms']:.3f}, {step_sum['fwd_flops'] / 1e9:.2f} GFLOP); #14 "
-            f"{step_sum['bwd_ms']:.3f} ms (plain {step_sum['bwd_plain_ms']:.3f}, library "
-            f"{step_sum['bwd_library_ms']:.3f}, bound {step_sum['bwd_bound_ms']:.3f}, "
+            f"bound f32 {step_sum['fwd_bound_ms']:.3f}, TF32x3 {step_sum['fwd_bound_tc_ms']:.3f}, "
+            f"{step_sum['fwd_flops'] / 1e9:.2f} GFLOP); #14 {step_sum['bwd_ms']:.3f} ms (plain "
+            f"{step_sum['bwd_plain_ms']:.3f}, library {step_sum['bwd_library_ms']:.3f}, bound f32 "
+            f"{step_sum['bwd_bound_ms']:.3f}, TF32x3 {step_sum['bwd_bound_tc_ms']:.3f}, "
             f"{step_sum['bwd_flops'] / 1e9:.2f} GFLOP)")
+        log(f"[profile-tower] one {ds} DeepSense step's towers, device ms by phase: "
+            f"#13 {step_sum['device_ms_by_phase']['fwd']}; #14 {step_sum['device_ms_by_phase']['bwd']}")
     mod_tot = ctot["MOD"]
-    log(f"[time-tower] share of the -pallas_conv p50 step (MOD): "
-        f"{(mod_tot['fwd_ms'] + mod_tot['bwd_ms']) / ds_runs['deepsense-pallas']['p50_ms']:.3f}")
+    for ds, tag in (("MOD", "deepsense-pallas"), ("MOD_WIDE", "deepsense-pallas-wide")):
+        log(f"[time-tower] share of the -pallas_conv p50 step ({ds}): "
+            f"{(ctot[ds]['fwd_ms'] + ctot[ds]['bwd_ms']) / ds_runs[tag]['p50_ms']:.3f}")
     torch.cuda.empty_cache()
     # ---- 18. #10, #11 and #12 vs plain at every MLP geometry on the fused
     # route: MOD at the classifier batch of 128, MOD_WIDE stage 0 at batch
@@ -2508,6 +2620,10 @@ def main():
                                 ds_runs["deepsense-default"]["launches"][k.__name__],
                             "pretrain_steps_MOD_DeepSense_pallas_conv":
                                 ds_runs["deepsense-pallas"]["launches"][k.__name__],
+                            "pretrain_steps_MOD_WIDE_DeepSense_default":
+                                ds_runs["deepsense-default-wide"]["launches"][k.__name__],
+                            "pretrain_steps_MOD_WIDE_DeepSense_pallas_conv":
+                                ds_runs["deepsense-pallas-wide"]["launches"][k.__name__],
                             "train_cli_MOD_DeepSense": sum(r["launches"][k.__name__] for r in ds_cli),
                             "serve_MOD_DeepSense": ds_serve_launches[k.__name__],
                             "supervised_steps_MOD_default":
@@ -2533,9 +2649,10 @@ def main():
                 f"({sum(r['steps'] for r in cli_runs)} steps, "
                 f"{sum(r['eval_forwards'] for r in cli_runs)} eval forwards)")
     tower_per = (f"times: the two conv towers of one MOD DeepSense pretrain step at batch "
-                 f"{DS_BATCH} (views fused to {2 * DS_BATCH}); launches: {TRAIN_STEPS} timed "
-                 f"-pallas_conv steps; max_abs_err: worst over the MOD and MOD_WIDE towers "
-                 f"(#14: every gradient, the near-zero conv-bias ones included)")
+                 f"{DS_BATCH} (views fused to {2 * DS_BATCH}; mod_wide_step: MOD_WIDE at "
+                 f"{DS_WIDE_BATCH}); launches: {TRAIN_STEPS} timed MOD -pallas_conv steps; "
+                 f"max_abs_err: worst over the MOD and MOD_WIDE towers (#14: every gradient, the "
+                 f"near-zero conv-bias ones included)")
 
     MLP_SRC = "focal_tpu_torch/csrc/fused_mlp.cu"
     sup_mlp_launches = sup_runs["supervised-pallas-mlp"]["launches"]
@@ -2576,7 +2693,9 @@ def main():
         w = ctot["MOD_WIDE"]
         return {"ms": w[f"{d}_ms"], "plain_ms": w[f"{d}_plain_ms"],
                 "library_ms": w[f"{d}_library_ms"], "bound_ms": w[f"{d}_bound_ms"],
-                "batch": DS_WIDE_BATCH}
+                "bound_ms_tensor_cores": w[f"{d}_bound_tc_ms"],
+                "device_ms_by_phase": w["device_ms_by_phase"][d], "batch": DS_WIDE_BATCH,
+                "launches_per_step": ds_wide_per_step[(ct_fwd if d == "fwd" else ct_bwd).__name__]}
 
     kernels = [
         entry("fused_window_block", f"{PK}:949", launches, max_err, tot["ms"], tot["plain_ms"],
@@ -2614,6 +2733,8 @@ def main():
               source="focal_tpu_torch/csrc/conv_tower.cu", replaces_also=[f"{CT}:163"],
               launches_per_step=ds_per_step[ct_fwd.__name__], steps=TRAIN_STEPS,
               max_rel_err=max(g["max_rel_err_fwd"] for g in cgeos),
+              bound_ms_tensor_cores=mod_tot["fwd_bound_tc_ms"],
+              device_ms_by_phase=mod_tot["device_ms_by_phase"]["fwd"],
               mod_wide_step=per_wide("fwd"), launches_by_path=by_path[ct_fwd.__name__]),
         entry("fused_conv_tower_backward", f"{CT}:230", by_path[ct_bwd.__name__][
                   "pretrain_steps_MOD_DeepSense_pallas_conv"], ct_grad_abs, mod_tot["bwd_ms"],
@@ -2623,6 +2744,8 @@ def main():
               replaces_also=[f"{CT}:206", f"{CT}:257"],
               launches_per_step=ds_per_step[ct_bwd.__name__], steps=TRAIN_STEPS,
               max_rel_err=ct_grad_rel, max_abs_err_near_zero=ct_grad_near,
+              bound_ms_tensor_cores=mod_tot["bwd_bound_tc_ms"],
+              device_ms_by_phase=mod_tot["device_ms_by_phase"]["bwd"],
               mod_wide_step=per_wide("bwd"), launches_by_path=by_path[ct_bwd.__name__]),
         entry("fused_mlp_forward", f"{PK}:527", by_path[mlp_fwd.__name__]["serve_MOD_pallas_mlp"],
               mlp_err["fwd"], mod_mlp["fwd_ms"], mod_mlp["fwd_plain_ms"], mod_mlp["fwd_bound_ms"],

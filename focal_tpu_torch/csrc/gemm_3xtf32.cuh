@@ -6,7 +6,9 @@
 // a tile idles) of
 //   acc = A[m0 : m0 + BM, k_begin : k_end] B[k_begin : k_end, n0 : n0 + BN]
 // with A either row-major [M, K] or stored transposed, [K, M] (kATrans: the
-// weight gradients x^T dqkv read x [R, C] as it lies), and B row-major [K, N].
+// weight gradients x^T dqkv read x [R, C] as it lies), or the im2col of a
+// (1, KW) convolution's input read in place (ConvStage, ConvWgradStage: the
+// conv tower's products), and B row-major [K, N].
 // Tiles of A and B are staged in shared memory by a kGemmStages-deep ring of
 // cp.async copies (zero-filled past the edges, so ragged M, N and K need no
 // padding), and eight warps (2 x 4) each issue mma.sync.m16n8k8 over a
@@ -78,6 +80,22 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// Stage the K-slice [k0, k0 + BK) of B's columns [n0, n0 + kBN) into the B
+// tile of a ring slot: kBN / 32 float4 copies per thread. N and the
+// contiguous extent of K are multiples of 4, so a float4 lies wholly inside
+// or wholly outside the matrix.
+template <int kBN>
+__device__ __forceinline__ void gemm_load_b(const float* B, int ldb, int N, int n0, int k0,
+                                            int k_end, float* Bs) {
+#pragma unroll
+  for (int i = 0; i < kBN / 32; ++i) {  // BK rows of kBN / 4 float4
+    const int idx = threadIdx.x + i * kGemmThreads;
+    const int r = idx / (kBN / 4), c = idx % (kBN / 4) * 4;
+    const bool ok = k0 + r < k_end && n0 + c < N;
+    cp_async16(Bs + r * gemm_b_stride(kBN) + c, ok ? B + (size_t)(k0 + r) * ldb + n0 + c : B, ok);
+  }
+}
+
 // Stage the K-slice [k0, k0 + BK) of the block's A rows and B columns into
 // one ring slot: 4 float4 copies of A and kBN / 32 of B per thread. M, N
 // and the contiguous extent of K are multiples of 4, so a float4 lies
@@ -87,7 +105,6 @@ __device__ __forceinline__ void gemm_load_stage(const float* A, int lda, const f
                                                 int M, int N, int m0, int n0, int k0, int k_end,
                                                 float* slot) {
   float* As = slot;
-  float* Bs = slot + kGemmAFloats;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int idx = threadIdx.x + i * kGemmThreads;
@@ -101,14 +118,90 @@ __device__ __forceinline__ void gemm_load_stage(const float* A, int lda, const f
       cp_async16(As + r * kGemmTStride + c, ok ? A + (size_t)(k0 + r) * lda + m0 + c : A, ok);
     }
   }
-#pragma unroll
-  for (int i = 0; i < kBN / 32; ++i) {  // BK rows of kBN / 4 float4
-    const int idx = threadIdx.x + i * kGemmThreads;
-    const int r = idx / (kBN / 4), c = idx % (kBN / 4) * 4;
-    const bool ok = k0 + r < k_end && n0 + c < N;
-    cp_async16(Bs + r * gemm_b_stride(kBN) + c, ok ? B + (size_t)(k0 + r) * ldb + n0 + c : B, ok);
-  }
+  gemm_load_b<kBN>(B, ldb, N, n0, k0, k_end, slot + kGemmAFloats);
 }
+
+// The A operand of a (1, KW) SAME convolution, read as its im2col without
+// storing it (implicit im2col). x [rows, cin] holds positions s = row % S of
+// whole samples; column k = j * cin + ci of im2col row g is x[g + d_j, ci]
+// with the shift d_j = sign * (j - lo) of tap j (sign -1: the transposed
+// conv), and zero where s + d_j leaves [0, S): cp.async's zero-fill is the
+// SAME padding. cin % 4 == 0 (the loaders' invariant): a float4 of a row
+// never straddles two taps.
+struct ShiftRows {
+  const float* x;
+  int cin, S, lo, sign;
+};
+
+// The loader of a conv product, im2col(x) [M, KW * cin] W [KW * cin, N]:
+// A staged in the row-major layout. A thread's 4 rows (tid / 8 + 32 i) and
+// its column in the slice (tid % 8 * 4) stay the same over the K loop, so
+// their positions are found once; a slice costs one division for its tap.
+template <int kBN>
+struct ConvStage {
+  ShiftRows a;
+  const float* B;
+  int N, n0, m0, k_end;
+  int s[4];  // the positions of the thread's rows, -1 past M
+
+  __device__ __forceinline__ ConvStage(const ShiftRows& a_, const float* B_, int M, int N_, int m0_,
+                                       int n0_, int k_end_)
+      : a(a_), B(B_), N(N_), n0(n0_), m0(m0_), k_end(k_end_) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = m0 + (threadIdx.x >> 3) + 32 * i;
+      s[i] = row < M ? row % a.S : -1;
+    }
+  }
+
+  __device__ __forceinline__ void operator()(int k0, float* slot) const {
+    const int c = (threadIdx.x & 7) * 4, k = k0 + c;
+    const int j = k / a.cin, ci = k - j * a.cin;
+    const int d = a.sign * (j - a.lo);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 3) + 32 * i;
+      const bool ok = k < k_end && s[i] >= 0 && (unsigned)(s[i] + d) < (unsigned)a.S;
+      cp_async16(slot + r * kGemmAStride + c,
+                 ok ? a.x + (size_t)(m0 + r + d) * a.cin + ci : a.x, ok);
+    }
+    gemm_load_b<kBN>(B, N, N, n0, k0, k_end, slot + kGemmAFloats);
+  }
+};
+
+// The loader of a conv's weight gradient, im2col(x)^T B over rows [.., k_end)
+// (B [rows, N]): A staged in the transposed layout, K running over the rows.
+// A thread's column m = m0 + tid % 32 * 4 of im2col, so its tap and channel,
+// stay the same over the K loop.
+template <int kBN>
+struct ConvWgradStage {
+  ShiftRows a;
+  const float* B;
+  int N, n0, k_end;
+  int d, off;  // the column's tap shift and its offset in x, d * cin + ci
+  bool m_ok;    // the column lies inside M
+
+  __device__ __forceinline__ ConvWgradStage(const ShiftRows& a_, const float* B_, int M, int N_,
+                                            int m0, int n0_, int k_end_)
+      : a(a_), B(B_), N(N_), n0(n0_), k_end(k_end_) {
+    const int m = m0 + (threadIdx.x & 31) * 4;
+    const int j = m / a.cin;
+    d = a.sign * (j - a.lo);
+    off = d * a.cin + (m - j * a.cin);
+    m_ok = m < M;
+  }
+
+  __device__ __forceinline__ void operator()(int k0, float* slot) const {
+    const int c = (threadIdx.x & 31) * 4;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = (threadIdx.x >> 5) + 8 * i, g = k0 + r;
+      const bool ok = m_ok && g < k_end && (unsigned)(g % a.S + d) < (unsigned)a.S;
+      cp_async16(slot + r * kGemmTStride + c, ok ? a.x + (size_t)g * a.cin + off : a.x, ok);
+    }
+    gemm_load_b<kBN>(B, N, N, n0, k0, k_end, slot + kGemmAFloats);
+  }
+};
 
 // The number of 8-column fragments of a warp's tile, kBN / 32.
 template <int kBN>
@@ -165,15 +258,16 @@ __device__ __forceinline__ void gemm_compute_stage(const float* slot,
   }
 }
 
-// The block's tile over K in [k_begin, k_end): acc (zeroed here) and, with
-// kColSums, csum += the sum over those rows of B's column n0 + threadIdx.x
-// (threads below kBN, rows in order: the same bits on every call). smem
-// holds gemm_smem_bytes(kBN). Nothing is in flight when it returns.
-template <bool kATrans, bool kColSums, int kBN>
-__device__ __forceinline__ void gemm_tile(const float* A, int lda, const float* B, int ldb, int M,
-                                          int N, int m0, int n0, int k_begin, int k_end,
-                                          float* smem, float (&acc)[4][gemm_nt<kBN>()][4],
-                                          float& csum) {
+// The block's tile over K in [k_begin, k_end), each K-slice staged into
+// its ring slot by load(k0, slot) (gemm_load_stage, ConvStage or
+// ConvWgradStage): acc (zeroed here) and, with kColSums, csum += the sum
+// over those rows of B's column n0 + threadIdx.x (threads below kBN, rows in
+// order: the same bits on every call). smem holds gemm_smem_bytes(kBN).
+// Nothing is in flight when it returns.
+template <bool kATrans, bool kColSums, int kBN, class Load>
+__device__ __forceinline__ void gemm_tile_staged(const Load& load, int k_begin, int k_end,
+                                                 float* smem, float (&acc)[4][gemm_nt<kBN>()][4],
+                                                 float& csum) {
   constexpr int kNT = gemm_nt<kBN>(), kSlot = gemm_stage_floats(kBN);
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -184,18 +278,14 @@ __device__ __forceinline__ void gemm_tile(const float* A, int lda, const float* 
   const int kt_n = (k_end - k_begin + kGemmBK - 1) / kGemmBK;
 #pragma unroll
   for (int s = 0; s < kGemmStages - 1; ++s) {
-    if (s < kt_n)
-      gemm_load_stage<kATrans, kBN>(A, lda, B, ldb, M, N, m0, n0, k_begin + s * kGemmBK, k_end,
-                                    smem + s * kSlot);
+    if (s < kt_n) load(k_begin + s * kGemmBK, smem + s * kSlot);
     cp_async_commit();
   }
   for (int kt = 0; kt < kt_n; ++kt) {
     cp_async_wait<kGemmStages - 2>();  // slice kt has landed
     __syncthreads();                   // and every warp is done with slice kt - 1's slot
     const int pf = kt + kGemmStages - 1;
-    if (pf < kt_n)
-      gemm_load_stage<kATrans, kBN>(A, lda, B, ldb, M, N, m0, n0, k_begin + pf * kGemmBK, k_end,
-                                    smem + (pf % kGemmStages) * kSlot);
+    if (pf < kt_n) load(k_begin + pf * kGemmBK, smem + (pf % kGemmStages) * kSlot);
     cp_async_commit();
     const float* slot = smem + (kt % kGemmStages) * kSlot;
     if (kColSums && threadIdx.x < kBN) {
@@ -222,6 +312,20 @@ __device__ __forceinline__ void gemm_tile(const float* A, int lda, const float* 
         for (int e = 0; e < 4; ++e) acc[mt][nt][e] += part[mt][nt][e];
   }
   cp_async_wait<0>();
+}
+
+// gemm_tile_staged over A [M, K] (or [K, M] with kATrans) and B [K, N] as
+// they lie in memory.
+template <bool kATrans, bool kColSums, int kBN>
+__device__ __forceinline__ void gemm_tile(const float* A, int lda, const float* B, int ldb, int M,
+                                          int N, int m0, int n0, int k_begin, int k_end,
+                                          float* smem, float (&acc)[4][gemm_nt<kBN>()][4],
+                                          float& csum) {
+  gemm_tile_staged<kATrans, kColSums, kBN>(
+      [&](int k0, float* slot) {
+        gemm_load_stage<kATrans, kBN>(A, lda, B, ldb, M, N, m0, n0, k0, k_end, slot);
+      },
+      k_begin, k_end, smem, acc, csum);
 }
 
 // Visit the thread's outputs of a tile: f(row, col, v0, v1) for the pairs

@@ -486,18 +486,17 @@ def _tower_grads(fn, cfgs, x0, params, masks, dy, external):
     return y, mus, vars_, torch.autograd.grad(y, leaves, dy)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("samples,C,external", [
-    (512, 64, False), (512, 64, True), (256, 256, False), (256, 256, True), (7, 64, False),
-])
-def test_conv_tower_matches_plain_on_card(samples, C, external):
+def _tower_case(samples, C, external, S=20, layers=5):
+    """A tower against autograd of its plain version on the card: output,
+    statistics and gradients within the gates above, and the same bits on
+    a second call."""
     from focal_tpu_torch.ops.conv_tower import fused_conv_tower, fused_conv_tower_reference
 
     dev = _card()
     rng = np.random.default_rng(samples + C + external)
     kw = 5 if external else 3
-    cfgs, x0, params, masks = _tower_args(rng, samples, 10, 20, C, kw, external, 5, dev)
-    dy = torch.from_numpy(rng.normal(size=(samples * 10, 20, C)).astype(np.float32)).to(dev)
+    cfgs, x0, params, masks = _tower_args(rng, samples, 10, S, C, kw, external, layers, dev)
+    dy = torch.from_numpy(rng.normal(size=(samples * 10, S, C)).astype(np.float32)).to(dev)
     got = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
     again = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
     want = _tower_grads(fused_conv_tower_reference, cfgs, x0, params, masks, dy, external)
@@ -512,6 +511,27 @@ def test_conv_tower_matches_plain_on_card(samples, C, external):
             assert _rel(g, w) <= 1e-4, (i, _rel(g, w))
     for a, b in zip([got[0], *got[1], *got[2], *got[3]], [again[0], *again[1], *again[2], *again[3]]):
         assert torch.equal(a, b)  # fixed-order sums: bitwise repeatable
+
+
+# (samples, C, external): MOD (C 64) and MOD_WIDE (C 256) at their fused
+# batches, and a few samples (ragged row tiles, weight-gradient splits) at
+# either width
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples,C,external", [
+    (512, 64, False), (512, 64, True), (256, 256, False), (256, 256, True), (7, 64, False),
+    (7, 256, True),
+])
+def test_conv_tower_matches_plain_on_card(samples, C, external):
+    _tower_case(samples, C, external)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,C", [(200, 64), (1, 16)])
+def test_conv_tower_at_other_spectra_and_widths(S, C):
+    """A spectrum longer than a 128-row tile, and a spectrum of one position
+    (every tap but the centre reads padding) at MOD_TINY's width C 16 (a
+    32-deep K-slice spans two taps)."""
+    _tower_case(5, C, False, S=S, layers=3)
 
 
 @pytest.mark.gpu
@@ -540,14 +560,101 @@ def test_conv_tower_raises_on_what_its_plan_cannot_take():
 
     dev = _card()
     rng = np.random.default_rng(6)
-    cfgs, x0, params, masks = _tower_args(rng, 4, 10, 200, 64, 3, False, 2, dev)
-    with pytest.raises(RuntimeError, match="no launch plan"):  # S = 200 > 128 rows a tile
+    cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 6, 3, False, 2, dev)
+    with pytest.raises(RuntimeError, match="no launch plan"):  # C 6: the products take C % 4 == 0
         fused_conv_tower(x0, cfgs, *params, masks, False)
     cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 64, 3, False, 2, dev)
     with pytest.raises(TypeError):
         fused_conv_tower(x0.double(), cfgs, *params, masks, False)
     with pytest.raises(ValueError):  # 3 mask rows do not divide R = 40
         fused_conv_tower(x0, cfgs, *params, [m[:3] for m in masks], False)
+
+
+@pytest.mark.gpu
+def test_conv_tower_workspaces_are_the_plan_models():
+    """focal_ct_workspace's sizes on this card equal ops/conv_tower.py's
+    layer_plan (the plan the CPU tests hold) at the MOD and MOD_WIDE tower
+    layers and at MOD_TINY's width."""
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for R, C, layers in ((5120, 64, [(3, 2), (3, 64), (5, 64)]),
+                         (2560, 256, [(3, 2), (3, 256), (5, 256)]), (50, 16, [(3, 2), (3, 16)])):
+        for kw, cin in layers:
+            want = ct.layer_plan(R, 20, kw, cin, C, sms)["workspace"]
+            got = {"forward": ct._workspace("forward", R, 20, cin, C, kw, dev),
+                   "bwd_stats": ct._workspace("bwd_stats", R, 20, C, C, 1, dev),
+                   "bwd_apply": ct._workspace("bwd_apply", R, 20, cin, C, kw, dev)}
+            assert {k: t.numel() for k, t in got.items()} == want, (R, C, kw, cin)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,external", [(64, False), (256, True)])
+def test_conv_tower_launches_only_conv_tower_kernels(C, external):
+    """Profiled calls of each wrapper of #13 (the first conv, the apply
+    with the next conv, the last apply) and #14 (the sums, the backward
+    apply of a residual and of the first layer, dc alone) runs only
+    csrc/conv_tower.cu's kernels, gemm_splitk.cuh's reduction of the weight
+    gradients as instantiated for it among them; no cuDNN, cuBLAS or
+    PyTorch kernel."""
+    import math
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    dev = _card()
+    rng = np.random.default_rng(C + external)
+    kw = 5 if external else 3
+    cfgs, x0, params, masks = _tower_args(rng, 16, 10, 20, C, kw, external, 3, dev)
+    x0, params = x0.detach(), [[p.detach() for p in g] for g in params]
+    _, _, _, sv = ct.tower_forward(x0, cfgs, *params, masks, external)
+    R, S = sv.R, sv.S
+    da = torch.from_numpy(rng.normal(size=(R * S, C)).astype(np.float32)).to(dev)
+    m = torch.zeros((2, C), dtype=torch.float32, device=dev)
+    ws = params[0]
+
+    def calls():
+        if not external:
+            ct._conv0(sv.x2, ws[0], params[1][0], params[2][0], params[3][0], kw, R, S)
+        ct._apply(sv.c_list[1], sv.rows_list[1], masks[1], sv.a_list[0],
+                  (ws[2], params[1][2], kw, params[2][2], params[3][2]), R, S)
+        ct._apply(sv.c_list[2], sv.rows_list[2], masks[2], sv.a_list[1], None, R, S)
+        ct._bwd_stats(da, sv.c_list[2], masks[2], sv.rows_list[2], R, S)
+        ct._bwd_apply(da, sv.c_list[2], masks[2], sv.rows_list[2], m, sv.a_list[1], ws[2], kw, True,
+                      R, S)
+        if external:
+            ct._bwd_dc(da, sv.c_list[0], masks[0], sv.rows_list[0], m, R, S)
+        else:
+            ct._bwd_apply(da, sv.c_list[0], masks[0], sv.rows_list[0], m, sv.x2, ws[0], kw, False,
+                          R, S)
+
+    calls()  # built and warm
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    calls()
+    end.record()
+    torch.cuda.synchronize()
+    # at least 20 ms of calls: a trace of a millisecond can lose a kernel's records
+    reps = max(5, math.ceil(20.0 / start.elapsed_time(end)))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            calls()
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    kernels = {m.group(1) if m else n for n in names
+               for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
+    want = {"bn_elementwise_kernel", "conv_gemm_kernel", "bn_stats_kernel", "bn_grad_sums_kernel",
+            "bn_grad_stats_kernel", "tap_transpose_kernel", "conv_wgrad_kernel",
+            "reduce_partials_kernel"}
+    want |= set() if external else {"narrow_conv_kernel", "narrow_convT_kernel",
+                                    "narrow_wgrad_kernel"}
+    assert kernels == want, names
+    shared = [n for n in names if "reduce_partials_kernel" in n]
+    assert shared and all("ConvTowerSrc" in n for n in shared), shared
 
 
 # ---------------------------------------------------------------------------
