@@ -71,7 +71,6 @@ namespace {
 
 using Src = focal::FusedMlpSrc;
 constexpr int kThreads = 256;
-constexpr int kMaxC = 256;        // the widest C the wrappers route here (mlp_fits)
 constexpr int kSiteHidden = 0;    // keep1, after the GELU
 constexpr int kSiteOut = 1;       // keep2, after fc2
 constexpr long long kChunkFloats = 1ll << 25;  // one [rows, H] workspace: 128 MiB at most
@@ -260,7 +259,7 @@ __global__ void mlp_masks_kernel(unsigned long long seed, unsigned threshold, in
 // host side
 
 int check_dims(int T, int C, int H) {
-  if (T < 1 || C < 4 || C > kMaxC || C % 4 != 0 || H < 4 || H % 4 != 0 ||
+  if (T < 1 || C < 4 || C % 4 != 0 || H < 4 || H % 4 != 0 ||
       (long long)T * std::max(C, H) >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   return 0;

@@ -19,7 +19,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from focal_tpu_torch.ops.conv_tower import BN_EPS, fused_conv_tower, tower_fits
+from focal_tpu_torch.ops.conv_tower import BN_EPS, fused_conv_tower, tower_takes
 from focal_tpu_torch.ops.dropout import keep_mask, needs_rng
 
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 running + 0.1 batch (torch momentum 0.1)
@@ -100,8 +100,9 @@ class ConvBlock(nn.Module):
     Input [b, i, s, cin] (NHWC) -> [b, i_out, out_channels] (i_out 1 when
     conv_lens[1][0] > 1 folds the intervals).
 
-    With ``use_pallas``, a training forward whose geometry ``tower_fits``
-    (as the JAX package's ConvBlock decides) runs the layers as the fused
+    With ``use_pallas``, a training forward whose geometry ``tower_takes``
+    (as the JAX package's ConvBlock decides, where the kernels take its
+    widths) runs the layers as the fused
     conv tower; a strided input conv stays a cuDNN conv and feeds the tower
     its output. Parameters and buffers are the same on both paths."""
 
@@ -136,13 +137,15 @@ class ConvBlock(nn.Module):
 
     def fused_geometry(self, x):
         """Whether the fused tower takes input x [b, i, s, c]: the JAX
-        package's ConvBlock._fused_geometry."""
+        package's ConvBlock._fused_geometry, where the kernels take the
+        widths (``tower_takes``)."""
         if self.conv_lens[0][0] != 1 or self.conv_lens[1][0] != 1:
             return False  # tall kernels fold the intervals
-        b, i, _, _ = x.shape
+        b, i, _, cin = x.shape
         kw_max = self.conv_lens[1][1] if self.strided else max(self.conv_lens[0][1],
                                                                 self.conv_lens[1][1])
-        return tower_fits(b * i, self.out_size[1], self.half, torch.float32, kw_max=kw_max)
+        cin = self.half if self.strided else cin
+        return tower_takes(b * i, self.out_size[1], self.half, cin, torch.float32, kw_max=kw_max)
 
     def forward(self, x, rng=None):
         if self.use_pallas and self.training and self.fused_geometry(x):

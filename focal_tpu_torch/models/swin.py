@@ -11,7 +11,10 @@ it takes the JAX package's attention-only route instead: the qkv and proj
 Linears around ``fused_window_attention`` (#6) in eval and
 ``window_attention`` (#7 or #6 forward, #9 or #8 backward) in training.
 With ``pallas_mlp`` each block's MLP goes through the fused MLP kernels
-(#10-#12) where ``mlp_fits``.
+(#10-#12) where ``mlp_takes``. A width that no kernel takes (C not a
+multiple of 4, N above 16: ``wblock_takes``, ``attention_takes``) runs the
+JAX package's XLA attention in plain PyTorch between the Linears, where
+the JAX package would run its kernel.
 
 In training every module takes ``rng``, the step's ``ops.dropout.StepRngs``:
 one kernel seed per block from its host generator, DropPath and the other
@@ -28,9 +31,10 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
-from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_fits
-from focal_tpu_torch.ops.pallas_kernels import (fused_window_attention, window_attention,
-                                                window_block, window_block_forward)
+from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_takes
+from focal_tpu_torch.ops.pallas_kernels import (attention_takes, fused_window_attention,
+                                                wblock_takes, window_attention, window_block,
+                                                window_block_forward)
 
 
 def window_partition(x, wh, ww):
@@ -175,9 +179,32 @@ class WindowAttention(nn.Module):
             out = fused_window_attention(q, k, v, self._rel_bias(), mask)
         return self.proj(out.transpose(1, 2).reshape(B_, N, C))
 
+    def _plain_attention(self, x, mask, rng):
+        """The JAX package's XLA route (``focal_tpu/models/swin.py:296-317``)
+        for the widths no kernel takes (``wblock_takes``,
+        ``attention_takes``): qkv Linear, softmax(q k^T + bias + mask) with
+        the quantised dropout of ``remat_dropout``, proj Linear."""
+        B_, N, C = x.shape
+        H = self.num_heads
+        hd = C // H
+        q, k, v = self.qkv(x).reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
+        attn = torch.matmul(q * hd**-0.5, k.transpose(-1, -2)) + self._rel_bias()[None]
+        if mask is not None:
+            nW = mask.shape[0]
+            attn = (attn.reshape(B_ // nW, nW, H, N, N) + mask[None, :, None]).reshape(B_, H, N, N)
+        attn = torch.softmax(attn, dim=-1)
+        if self.training and self.attn_drop > 0.0:
+            attn = remat_dropout(attn, self.attn_drop, needs_rng(rng, "attention dropout").device)
+        out = torch.matmul(attn, v)
+        return self.proj(out.transpose(1, 2).reshape(B_, N, C))
+
     def forward(self, x, mask=None, rng=None):
-        if not self.pallas_block:
-            out = self._attention_only(x, mask, rng)
+        N, C, H = x.shape[1], self.dim, self.num_heads
+        if not (self.pallas_block and wblock_takes(N, C, H)):
+            if attention_takes(N, C // H):
+                out = self._attention_only(x, mask, rng)
+            else:
+                out = self._plain_attention(x, mask, rng)
         elif not self.training:
             return window_block_forward(x.contiguous(), *self.folded_kernel_args(), mask)
         else:
@@ -214,8 +241,9 @@ class DropPath(nn.Module):
 class Mlp(nn.Module):
     """fc -> exact-erf GELU -> drop -> fc -> drop.
 
-    With ``use_pallas`` (the CLI's ``-pallas_mlp``) and ``mlp_fits`` at this
-    width, as the JAX package routes it, the whole MLP runs on the [rows, C]
+    With ``use_pallas`` (the CLI's ``-pallas_mlp``) and ``mlp_takes`` at this
+    width (the JAX package's ``mlp_fits``, where the kernels take the
+    width), the whole MLP runs on the [rows, C]
     tokens as the fused kernels: ``fused_mlp`` (#10, backward #12) in eval
     and at rate 0, ``fused_mlp_dropout`` (#11, backward #12) in training at
     rate > 0, one kernel seed per call from the step's host generator.
@@ -227,7 +255,7 @@ class Mlp(nn.Module):
         self.Dense_0 = nn.Linear(dim, hidden)
         self.Dense_1 = nn.Linear(hidden, out)
         self.drop = float(drop)
-        self.fused = bool(use_pallas) and out == dim and mlp_fits(dim, hidden)
+        self.fused = bool(use_pallas) and out == dim and mlp_takes(dim, hidden)
 
     def _drop(self, x, rng):
         if not self.training or self.drop == 0.0:

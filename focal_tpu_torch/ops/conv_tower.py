@@ -74,6 +74,31 @@ def tower_fits(R, S, C, dtype=torch.float32, kw_max=5):
     return _pick_trr(R, S, C, dtype, kw_max=kw_max) is not None
 
 
+MAX_CHANNELS = 4096  # kMaxChannels in csrc/conv_tower.cu
+
+
+def kernel_refuses(R, S, C, cin):
+    """Why the CUDA kernels (csrc/conv_tower.cu, check_rows and the entry
+    points' checks) cannot take a tower of R rows of S positions, C
+    channels and a first conv over cin channels, or None where they can:
+    the products' outputs move four channels at a time (C a multiple of 4),
+    at most MAX_CHANNELS channels, 32-bit element offsets."""
+    if C % 4 or not 4 <= C <= MAX_CHANNELS or not 1 <= cin <= MAX_CHANNELS:
+        return f"unsupported channels C={C} Cin={cin} (C a multiple of 4, both <= {MAX_CHANNELS})"
+    if R < 1 or S < 1 or R * S * max(C, cin) >= 2**31:
+        return f"unsupported rows R={R} S={S} at C={C} Cin={cin} (32-bit element offsets)"
+    return None
+
+
+def tower_takes(R, S, C, cin, dtype=torch.float32, kw_max=5):
+    """The fused route's gate: ``tower_fits`` (the JAX package's gate)
+    where the kernels take the geometry (``kernel_refuses``). Elsewhere the
+    block runs its cuDNN convs, as with the flag off; the JAX package runs
+    its kernel at such widths (C not a multiple of 4 among them), a
+    difference from it that no packaged recipe meets."""
+    return tower_fits(R, S, C, dtype, kw_max) and kernel_refuses(R, S, C, cin) is None
+
+
 # ---------------------------------------------------------------------------
 # GELU as the TPU kernels compute it (focal_tpu/ops/pallas_kernels.py:484-503)
 

@@ -30,7 +30,6 @@ import torch.nn.functional as F
 from focal_tpu_torch.ops import _build
 
 _FUSED_MLP_SRC = "fused_mlp.cu"
-MAX_C = 256  # kMaxC in csrc/fused_mlp.cu
 MLP_TILE = 1024  # the JAX kernel's max token rows per tile
 
 
@@ -50,11 +49,32 @@ def mlp_fits(C, H):
     JAX package's ``mlp_fits`` does (its TPU kernel keeps both weights and
     their gradients whole in 16 MB of VMEM), so both packages take the same
     route at every width: MOD's C 64/128/256, MOD_WIDE's stage 0 (C 256) and
-    not its C 512/1024 stages. The CUDA kernels take C <= 256 (MAX_C) and
-    raise above it."""
+    not its C 512/1024 stages. It admits C up to 412 at H = 4C, every one
+    of which the CUDA kernels take where C and H are multiples of 4
+    (``kernel_refuses``); ``mlp_takes`` is the route's gate."""
     weights = 4 * C * H * 4
     working = _mlp_tile(C, H) * (4 * H + 3 * C) * 4
     return weights + working <= int(16 * 1024 * 1024 * 0.9)
+
+
+def kernel_refuses(T, C, H):
+    """Why the CUDA kernels (csrc/fused_mlp.cu, check_dims) cannot take T
+    rows of width C and hidden H, or None where they can: their products
+    stage rows 16 bytes at a time, so C and H must be multiples of 4."""
+    if C % 4 or C < 4 or H % 4 or H < 4 or T < 1:
+        return f"unsupported width C={C} H={H} T={T} (the kernels take C and H multiples of 4)"
+    if T * max(C, H) >= 2**31:
+        return f"unsupported rows T={T} at C={C} H={H} (32-bit element offsets)"
+    return None
+
+
+def mlp_takes(C, H):
+    """The fused route's gate: ``mlp_fits`` (the JAX package's gate) where
+    the kernels take the width. A width that is not a multiple of 4 runs
+    the plain Linears, as the route would with the flag off; the JAX
+    package runs its kernel there, a difference from it that no packaged
+    recipe meets (all give C and H multiples of 4)."""
+    return mlp_fits(C, H) and kernel_refuses(1, C, H) is None
 
 
 def _keep_threshold(rate):
@@ -148,9 +168,9 @@ def _check_dims(x, w1):
                          f"{tuple(w1.shape)}")
     T, C = x.shape
     H = w1.shape[1]
-    if C % 4 or not 4 <= C <= MAX_C or H % 4 or H < 4 or T < 1:
-        raise ValueError(f"fused_mlp: unsupported width C={C} H={H} T={T} (the kernels take "
-                         f"C and H multiples of 4, C up to {MAX_C})")
+    reason = kernel_refuses(T, C, H)
+    if reason:
+        raise ValueError(f"fused_mlp: {reason}")
     _check("x", x, (T, C), x.device)
     _check("w1", w1, (C, H), x.device)
     return T, C, H
@@ -292,8 +312,9 @@ def mlp_keep_masks(seed, T, C, H, rate, device):
     device = torch.device(device)
     if device.type == "cpu":
         return draw_mlp_masks(seed, T, C, H, rate, device)
-    if C % 4 or not 4 <= C <= MAX_C or H % 4 or H < 4:
-        raise ValueError(f"mlp_keep_masks: unsupported width C={C} H={H}")
+    reason = kernel_refuses(T, C, H)
+    if reason:
+        raise ValueError(f"mlp_keep_masks: {reason}")
     seed_, thr, _ = _dropout_args(seed, rate)
     keep1 = torch.empty((T, H), dtype=torch.uint8, device=device)
     keep2 = torch.empty((T, C), dtype=torch.uint8, device=device)

@@ -47,6 +47,7 @@ _WINDOW_ATTENTION_SRC = "window_attention.cu"
 _MAX_N = 16  # kMaxN in csrc/window_block.cu and csrc/window_attention.cu
 _MAX_HD = 256  # kMaxHd in csrc/window_attention.cu
 _MONO_BWD_BUDGET = 112640  # bytes: the first port's per-window #3 on two blocks an SM
+_SMEM_OPTIN = 232448  # bytes of shared memory a block may opt in to on the H100 (sm_90)
 
 
 def wblock_fits(N, C, H):
@@ -58,6 +59,38 @@ def wblock_fits(N, C, H):
     #4/#5, as the JAX package's ``wblock_fits`` routes them. #2/#3 and #4/#5
     now run the same code, so the gate only sorts the launch counts."""
     return 4 * (N * (8 * C + 10) + 2 * H * N * N) <= _MONO_BWD_BUDGET
+
+
+def _c4(hd):
+    """float4 columns of a head of hd floats, as csrc/window_rows.cuh pads it."""
+    return (hd + 3) // 4
+
+
+def wblock_takes(N, C, H):
+    """Whether the whole-block kernels (#1-#5, csrc/window_block.cu) take
+    window size N, width C and H heads: N <= 16, C a multiple of 4 (the
+    projections stage rows 16 bytes at a time) and of H, and one (window,
+    head) pair's rows in the backward's attention within a block's shared
+    memory (attn_geo; heads up to ~1,500 floats at N = 9). The block's
+    route: where not, it takes the attention-only route, as with
+    ``-no_pallas_block``. The JAX package runs a whole-block kernel at such
+    widths (C not a multiple of 4 among them), a difference from it that no
+    packaged recipe meets."""
+    if not 1 <= N <= _MAX_N or C < 4 or C % 4 or C % H:
+        return False
+    stride = 4 * _c4(C // H) + 4
+    return 4 * (4 * N * stride + (2 + H) * N * N) <= _SMEM_OPTIN
+
+
+def attention_takes(N, hd):
+    """Whether the attention-only kernels (#6-#9, csrc/window_attention.cu)
+    take window size N and head width hd: N <= 16, hd a multiple of 4 from 4
+    to 256 (rows are staged 16 bytes at a time; a row's scores stay in
+    registers). Where not, the block runs the attention in plain PyTorch
+    between its Linears, as the JAX package's XLA route does; the JAX
+    package runs its kernel at such widths, a difference from it that no
+    packaged recipe meets."""
+    return 1 <= N <= _MAX_N and hd % 4 == 0 and 4 <= hd <= _MAX_HD
 
 
 def _keep_threshold(rate):
@@ -561,7 +594,7 @@ def _check_attention_args(who, q, k, v, rel_bias, mask):
     if q.dim() != 4:
         raise ValueError(f"{who}: q must be [B_, H, N, hd], got {tuple(q.shape)}")
     B, H, N, hd = q.shape
-    if not 1 <= N <= _MAX_N or hd % 4 or not 4 <= hd <= _MAX_HD:
+    if not attention_takes(N, hd):
         raise ValueError(f"{who}: unsupported geometry N={N} hd={hd}")
     dev = q.device
     for name, t in (("q", q), ("k", k), ("v", v)):

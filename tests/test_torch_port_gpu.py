@@ -556,12 +556,16 @@ def test_conv_tower_launch_counts(external):
 
 @pytest.mark.gpu
 def test_conv_tower_raises_on_what_its_plan_cannot_take():
-    from focal_tpu_torch.ops.conv_tower import fused_conv_tower
+    """C 6: the products take C % 4 == 0, so the wrapper raises and the
+    route's gate (``tower_takes``) sends such a block to its cuDNN convs
+    (``tower_fits``, the JAX package's gate, admits it)."""
+    from focal_tpu_torch.ops.conv_tower import fused_conv_tower, tower_fits, tower_takes
 
     dev = _card()
     rng = np.random.default_rng(6)
     cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 6, 3, False, 2, dev)
-    with pytest.raises(RuntimeError, match="no launch plan"):  # C 6: the products take C % 4 == 0
+    assert tower_fits(40, 20, 6, kw_max=3) and not tower_takes(40, 20, 6, 2, kw_max=3)
+    with pytest.raises(RuntimeError, match="no launch plan"):
         fused_conv_tower(x0, cfgs, *params, masks, False)
     cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 64, 3, False, 2, dev)
     with pytest.raises(TypeError):
@@ -734,18 +738,94 @@ def test_fused_mlp_keep_rates_and_autograd_counts():
 
 @pytest.mark.gpu
 def test_fused_mlp_raises_on_a_width_it_cannot_take():
+    """H or C not a multiple of 4 raises (the route's gate, ``mlp_takes``,
+    sends such widths to the Linears); any C that is one is taken: C 512 at
+    H 2048, which ``mlp_fits`` does not route, launches."""
     from focal_tpu_torch.ops import fused_mlp as fm
 
     dev = _card()
     x, w1, b1, w2, b2 = _mlp_args(np.random.default_rng(2), 64, 512, dev)
+    y = fm.fused_mlp_forward(x, w1, b1, w2, b2)
+    assert float((y - fm.fused_mlp_reference(x, w1, b1, w2, b2)).abs().max()) <= 1e-4
     with pytest.raises(ValueError, match="unsupported width"):
-        fm.fused_mlp_forward(x, w1, b1, w2, b2)
+        fm.fused_mlp_forward(x, w1[:, :2046].contiguous(), b1[:2046].contiguous(),
+                             w2[:2046].contiguous(), b2)
     x, w1, b1, w2, b2 = _mlp_args(np.random.default_rng(2), 64, 64, dev)
     with pytest.raises(ValueError, match="unsupported width"):
         fm.fused_mlp_forward(x[:, :62].contiguous(), w1[:62].contiguous(), b1, w2[:, :62].contiguous(),
                              b2[:62].contiguous())
     with pytest.raises(TypeError):
         fm.fused_mlp_forward(x.double(), w1, b1, w2, b2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(1537, 384), (405, 412)])
+def test_fused_mlp_at_the_widest_routed_widths(T, C):
+    """The widest widths ``mlp_takes`` routes to the kernels (C 384 / H
+    1,536, a Swin-T third stage; C 412 / H 1,648, whose columns end inside a
+    64-wide tile): #10, and #11 fed its own masks, within 1e-4 of plain;
+    #12 with the masks and without within 1e-4 relative; the same bits on a
+    second call."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    assert fm.mlp_takes(C, 4 * C)
+    rng = np.random.default_rng(C)
+    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev)
+    tr = w1.t().contiguous(), w2.t().contiguous()
+    got = _mlp_calls(fm, x, w1, b1, w2, b2, g, 9, *tr)
+    again = _mlp_calls(fm, x, w1, b1, w2, b2, g, 9, *tr)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert torch.equal(u, v)
+    keep1, keep2 = fm.mlp_keep_masks(9, T, C, 4 * C, 0.2, dev)
+    assert float((got[0] - fm.fused_mlp_reference(x, w1, b1, w2, b2)).abs().max()) <= 1e-4
+    want = fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2, 0.2)
+    assert float((got[1] - want).abs().max()) <= 1e-4
+    assert _mlp_rel(got[2], fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, g, keep1, keep2,
+                                                           0.2)) <= 1e-4
+    assert _mlp_rel(got[3], fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, g)) <= 1e-4
+
+
+@pytest.mark.gpu
+def test_every_width_a_gate_admits_has_a_launch_plan():
+    """Each route's gate admits only widths its kernels plan for, and the
+    window block's gate refuses only where they do: the MLP at every C
+    (H = 4C and 2C), the conv tower at every C it routes, the whole-block
+    kernels at every (C, H) from 4 to 2,048 columns a head, the
+    attention-only kernels at every head width. Plans only: nothing
+    launches."""
+    from focal_tpu_torch.ops import conv_tower as ct
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    for C in range(1, 480):
+        for H in (2 * C, 4 * C):
+            if fm.mlp_takes(C, H):
+                for backward in (False, True):
+                    fm.mlp_launch_plan(8192, C, H, backward, dev)
+    for C in range(1, 300):
+        for cin in (2, C):
+            if ct.tower_takes(5120, 20, C, cin, kw_max=5):
+                for kind, a, b in (("forward", cin, C), ("bwd_stats", C, C), ("bwd_apply", cin, C)):
+                    ct._workspace(kind, 5120, 20, a, b, 5, dev)
+    lib = pk._window_block_lib()
+    for H in (1, 2, 4):
+        for hd in list(range(1, 64)) + list(range(64, 2049, 16)):
+            C = H * hd
+            ok = all(lib.focal_wblock_bwd_workspace(7, 9, C, H, d, pk.ctypes.byref(
+                pk.ctypes.c_longlong(0))) == 0 for d in (0, 1))
+            ok = ok and lib.focal_wblock_fwd_workspace(7, 9, C, H, pk.ctypes.byref(
+                pk.ctypes.c_longlong(0))) == 0
+            assert ok == pk.wblock_takes(9, C, H), (C, H)
+    alib = pk._window_attention_lib()
+    for hd in range(1, 300):
+        ok = all(alib.focal_wattn_bwd_workspace(37, 4, 9, hd, d, pk.ctypes.byref(
+            pk.ctypes.c_longlong(0))) == 0 for d in (0, 1))
+        assert ok == pk.attention_takes(9, hd), hd
 
 
 def _mlp_calls(fm, x, w1, b1, w2, b2, g, seed, w1t, w2t):
