@@ -8,21 +8,24 @@ result line if any fails):
      from the sources in this checkout (nvcc, one run per source);
   2. kernel #1 vs plain: fused_window_block against its plain PyTorch
      version on the card at every MOD SW_Transformer block geometry (batch
-     128), shifted and unshifted, max abs error <= 1e-4 (both full f32: the
-     difference is summation order);
+     128), shifted and unshifted, max abs error <= 1e-4 (the kernel's
+     3xTF32 products and the plain f32 ones differ in summation order);
   3. the serving path: the MOD SW_Transformer at full width (seeded random
      init) served by focal_tpu_torch.serve.Predictor over ~1,000 synthetic
      samples at batch 128 (ragged tail included): probabilities finite and
      summing to 1, #1 launched 16 times per batch (and no other kernel),
      and the first batch equal (atol 1e-5) to the same model run with the
      plain block on the card;
-  4. timing of #1 with CUDA events after warm-up at each geometry: kernel,
+  4. timing of #1 with CUDA events after warm-up at each geometry (the
+     kernel over at least 20 ms of calls): kernel,
      plain version, a library yardstick (matmul + scaled_dot_product_attention
      + matmul, never called by the port) and the bound from the geometry's
      FLOP and byte counts; plus the Predictor's windows/s and p50 batch
      latency;
   5. a torch.profiler trace of one served batch: device busy time, idle
-     share, device operations and the device kernels by time;
+     share, device operations and the device kernels by time; #1's device
+     time by phase, failing the run if any window_block.cu kernel but the
+     row-tiled forward's products and its attention without dropout ran;
   6. kernels #2 and #3 vs plain at every block geometry of the training
      batch (256 samples, two views fused to 512): #2's output against the
      plain forward fed #2's own keep mask (1e-4 absolute), #2's keep rate
@@ -171,7 +174,12 @@ result line if any fails):
      yardstick F.scaled_dot_product_attention with the bias materialised as
      attn_mask, dropout_p for #7, its autograd backward for #8/#9, and the
      bound), summed over one served MOD forward (#6) and one MOD training
-     step (#7, #9; #8 at rate 0).
+     step (#7, #9; #8 at rate 0); the kernels over at least 20 ms of calls
+     each; then the backward of one Swin WindowAttention on the
+     -no_pallas_block route profiled with the ops' shapes (MOD stage 0's
+     training geometry): it fails if an aten stack or cat, or a copy of a
+     window-sized gradient, runs (#9 writes d(qkv) [B_, N, 3C] as the qkv
+     Linear takes it).
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
@@ -462,6 +470,30 @@ def step_totals(geos, tag, names, launches):
         f"{tot[f'{d}_flops'] / tot[f'{d}_ms'] / 1e9:.2f} TFLOP/s)"
         for d, name in zip(("fwd", "bwd"), names)))
     return tot
+
+
+def time_ms_long(torch, fn):
+    """time_ms over at least PROFILE_TRACE_MS of calls (and at least 20): a
+    one-off slow launch then moves the mean by little."""
+    return time_ms(torch, fn, iters=max(20, math.ceil(
+        PROFILE_TRACE_MS / time_ms(torch, fn, iters=3, warmup=1))))
+
+
+def device_ms_per_call(torch, fn):
+    """fn's device time a call (every kernel it launches, by a profile over
+    at least PROFILE_TRACE_MS of calls): unlike CUDA events, not the host's
+    time to enqueue a call where that is the longer."""
+    reps = trace_reps(torch, fn)
+    return profile_device(torch, lambda: [fn() for _ in range(reps)])["device_busy_ms"] / reps
+
+
+def attention_kernel_ms(rows, kernel, dropout):
+    """Device ms of window_attention.cu's ``kernel`` (wattn_fwd_kernel or
+    wattn_bwd_kernel) with or without dropout in a profile's rows (the
+    backward's instances also name their row tile and columns: <9, 2, true>)."""
+    flag = "true" if dropout else "false"
+    pat = re.compile(rf"\b{kernel}<(?:\d+, )*{flag}>")
+    return sum(r["device_ms"] for r in rows if pat.search(r["name"]))
 
 
 def transposed(args):
@@ -771,7 +803,7 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
     # the Swin module's kernel entry points and their plain versions
     entry_points = {"window_block": pk.window_block_reference,
                     "window_block_forward": pk.fused_window_block_reference,
-                    "window_attention": pk.window_attention_reference,
+                    "window_attention_qkv": pk.window_attention_qkv_reference,
                     "fused_window_attention": pk.fused_window_attention_reference}
 
     def rate0_step(weights, plain, device):
@@ -1396,6 +1428,62 @@ def library_attention(torch, q, k, v, attn_mask, rate=0.0):
         q, k, v, attn_mask=attn_mask, dropout_p=rate, scale=1.0)
 
 
+def route_backward_profile(torch, swin_mod, g, dev, rate):
+    """One Swin WindowAttention of the attention-only route (-no_pallas_block)
+    at geometry g in training (dropout ``rate``): a forward, then its
+    backward profiled with the ops' shapes (device times a backward). The qkv Linear takes d(qkv)
+    [B_, N, 3C] as #9 writes it: no aten stack or cat runs, and no copy or
+    clone of a window-sized gradient (B_ N hd floats or more). Returns the
+    device rows, #9's and the copy kernels' device ms, and such ops found
+    (raises if there are any)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from focal_tpu_torch.ops.dropout import StepRngs
+
+    C, H, N, B = g["C"], g["heads"], g["N"], g["windows"]
+    side = int(round(math.sqrt(N)))
+    attn = swin_mod.WindowAttention(C, (side, side), H, attn_drop=rate,
+                                    pallas_block=False).to(dev).train()
+    gen = torch.Generator().manual_seed(11)
+    x = torch.randn((B, N, C), generator=gen).to(dev).requires_grad_(True)
+    gy = torch.randn((B, N, C), generator=gen).to(dev)
+    mask = None if g["mask"] is None else torch.from_numpy(g["mask"]).to(dev)
+    rng = StepRngs(torch.Generator().manual_seed(0), torch.Generator(device=dev).manual_seed(0))
+    leaves = [x] + list(attn.parameters())
+    y = attn(x, mask, rng)
+
+    def backward():
+        return torch.autograd.grad(y, leaves, gy, retain_graph=True)
+
+    # at least PROFILE_TRACE_MS of backwards: a shorter trace lost the
+    # records of the port's kernels
+    reps = trace_reps(torch, backward)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
+        for _ in range(reps):
+            backward()
+        torch.cuda.synchronize()
+    big = B * N * (C // H)
+    moves = []
+    for e in prof.events():
+        if e.name in ("aten::stack", "aten::cat"):
+            moves.append((e.name, e.input_shapes))
+        elif e.name in ("aten::copy_", "aten::clone") and any(
+                math.prod(sh) >= big for sh in e.input_shapes if isinstance(sh, list) and sh
+                and all(isinstance(d, int) for d in sh)):
+            moves.append((e.name, e.input_shapes))
+    from torch.autograd import DeviceType
+    rows = [{"name": e.key, "device_ms": e.self_device_time_total / 1e3 / reps,
+             "count": e.count / reps}
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    rows.sort(key=lambda r: -r["device_ms"])
+    out = {"rows": rows, "bwd_kernel_ms": attention_kernel_ms(rows, "wattn_bwd_kernel", rate > 0),
+           "copy_kernel_ms": sum(r["device_ms"] for r in rows
+                                 if "copy" in r["name"].lower() or "cat" in r["name"].lower()),
+           "device_ms": sum(r["device_ms"] for r in rows), "moves": moves}
+    return out
+
+
 def grads_differ(got, want):
     """Worst max|got - want| / max|want| over the gradients, each compared
     absolutely (to TINY_GRAD) where both sides are below TINY_GRAD."""
@@ -1519,30 +1607,45 @@ def main():
         f"{lat['windows_per_s']:.1f} windows/s")
 
     # ---- 4. #1 timing per geometry
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "flops": 0, "bytes": 0}
+    tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
+           "flops": 0, "bytes": 0}
     for g in geos:
         x, wqkv, bqkv, wproj, bproj, rel_bias, mask = make_inputs(torch, g, gen, dev)
         attn_mask = library_mask(torch, g, rel_bias, mask)
         args = (x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-        g["ms"] = time_ms(torch, lambda: fwd(*args))
+        g["ms"] = time_ms_long(torch, lambda: fwd(*args))
+        g["device_ms"] = device_ms_per_call(torch, lambda: fwd(*args))
         g["plain_ms"] = time_ms(torch, lambda: pk.fused_window_block_reference(*args))
         g["library_ms"] = time_ms(
             torch, lambda: library_block(torch, x, wqkv, bqkv, wproj, bproj, attn_mask, g["heads"]))
         g["flops"], g["bytes"], g["bound_ms"], g["bound_by"] = work(g)
-        log(f"[time] {g['name']}: kernel {g['ms']:.4f} ms, plain {g['plain_ms']:.4f} ms, "
+        log(f"[time] {g['name']}: kernel {g['ms']:.4f} ms (device {g['device_ms']:.4f}), plain "
+            f"{g['plain_ms']:.4f} ms, "
             f"library {g['library_ms']:.4f} ms, bound {g['bound_ms']:.4f} ms ({g['bound_by']}), "
             f"{g['flops'] / g['ms'] / 1e9:.2f} TFLOP/s")
         for k in tot:
             tot[k] += g["per_forward"] * g[k]
-    log(f"[time] one forward at batch {SERVE_BATCH} (16 launches): kernel {tot['ms']:.4f} ms, "
+    log(f"[time] one forward at batch {SERVE_BATCH} (16 launches): kernel {tot['ms']:.4f} ms "
+        f"(device {tot['device_ms']:.4f}), "
         f"plain {tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
         f"bound {tot['bound_ms']:.4f} ms; kernel share of p50 batch "
         f"{tot['ms'] / (lat['p50_s'] * 1e3):.3f}")
 
-    # ---- 5. where one served batch's time goes on the device
+    # ---- 5. where one served batch's time goes on the device; #1 runs
+    # window_block.cu's row-tiled forward at rate 0 (its products and the
+    # attention without dropout) and no other kernel of that library
     predictor._forward(first)
     serve_profile = profile_device(torch, lambda: predictor._forward(first))
     log_profile("profile", "one served batch", serve_profile)
+    serve_block_ms = block_device_ms(serve_profile)
+    strays = [r["name"] for r in serve_profile["rows"]
+              if kernel_name(r["name"]) in source_kernels(WB_LIB["source"], SPLITK)
+              and not (kernel_name(r["name"]) == "proj_gemm_kernel"
+                       or re.search(r"\battn_fwd_kernel<false>", r["name"]))]
+    log(f"[profile] #1 in the served batch, device ms by phase: {serve_block_ms}")
+    if strays or set(serve_block_ms) != {"GEMM", "attention"}:
+        raise AssertionError(f"#1 ran other window_block.cu kernels than its row-tiled forward: "
+                             f"{strays}, phases {serve_block_ms}")
     del predictor
 
     # ---- 6. #2 and #3 vs plain at every block geometry of the training batch
@@ -1750,7 +1853,7 @@ def main():
         f0, b0, g["eval_bound_ms"], _ = work(g)
         g["eval_bound_tc_ms"] = tc_bound(f0, b0)
         note = ""
-        if g["C"] == 512:  # #1, per window, takes this width too (ROADMAP A14)
+        if g["C"] == 512:  # #1 takes this width too: the same row-tiled code at rate 0
             g["mono_eval_ms"] = time_ms(torch, lambda: fwd(*args))
             note = f"; beside it #1 {g['mono_eval_ms']:.4f} ms"
         log(f"[time-wide] {g['name']}: #4 at rate 0 (eval) {g['eval_ms']:.4f} ms (plain "
@@ -2433,7 +2536,7 @@ def main():
     log_profile("profile-no-pallas-block", "one -no_pallas_block training step", attn_profile, top=15)
     attn_train["idle_share"] = 1 - attn_profile["device_busy_ms"] / attn_profile["wall_ms"]
     attn_train["attention_kernels_device_ms"] = {
-        kern: sum(r["device_ms"] for r in attn_profile["rows"] if f"{kern}<true>" in r["name"])
+        kern: attention_kernel_ms(attn_profile["rows"], kern, True)
         for kern in ("wattn_fwd_kernel", "wattn_bwd_kernel")}
     log(f"[train-no-pallas-block] device time in the profiled step: #7 "
         f"{attn_train['attention_kernels_device_ms']['wattn_fwd_kernel']:.4f} ms, #9 "
@@ -2513,7 +2616,7 @@ def main():
             fb["drop"], fb["drop_bwd"] = fb["fwd"], fb["bwd"]
             with torch.no_grad():
                 if kind == "serve":
-                    g["fwd_ms"] = time_ms(torch, lambda: at_fwd(q, k, v, rel_bias, mask))
+                    g["fwd_ms"] = time_ms_long(torch, lambda: at_fwd(q, k, v, rel_bias, mask))
                     g["fwd_plain_ms"] = time_ms(
                         torch, lambda: pk.fused_window_attention_reference(q, k, v, rel_bias, mask))
                     g["fwd_library_ms"] = time_ms(
@@ -2521,14 +2624,22 @@ def main():
                 else:
                     keep = pk.window_attention_keep_mask(7, g["windows"], g["heads"], g["N"], rate,
                                                          dev)
-                    g["drop_ms"] = time_ms(torch, lambda: at_drop(q, k, v, rel_bias, mask, 7, rate))
+                    g["drop_ms"] = time_ms_long(
+                        torch, lambda: at_drop(q, k, v, rel_bias, mask, 7, rate))
                     g["drop_plain_ms"] = time_ms(torch, lambda: pk.fused_window_attention_reference(
                         q, k, v, rel_bias, mask, keep, rate))
                     g["drop_library_ms"] = time_ms(
                         torch, lambda: library_attention(torch, q, k, v, attn_mask, rate))
             if kind == "train":
-                g["bwd_ms"] = time_ms(torch, lambda: at_bwd(q, k, v, rel_bias, mask, gy))
-                g["drop_bwd_ms"] = time_ms(
+                g["bwd_device_ms"] = device_ms_per_call(
+                    torch, lambda: at_bwd(q, k, v, rel_bias, mask, gy))
+                g["drop_bwd_device_ms"] = device_ms_per_call(
+                    torch, lambda: at_drop_bwd(q, k, v, rel_bias, mask, gy, 7, rate))
+                for d in ("bwd", "drop_bwd"):
+                    tot_k[f"{d}_device_ms"] = (tot_k.get(f"{d}_device_ms", 0.0)
+                                               + g["per_forward"] * g[f"{d}_device_ms"])
+                g["bwd_ms"] = time_ms_long(torch, lambda: at_bwd(q, k, v, rel_bias, mask, gy))
+                g["drop_bwd_ms"] = time_ms_long(
                     torch, lambda: at_drop_bwd(q, k, v, rel_bias, mask, gy, 7, rate))
                 g["bwd_plain_ms"] = time_ms(torch, lambda: pk.fused_window_attention_backward_reference(
                     q, k, v, rel_bias, mask, gy))
@@ -2555,6 +2666,18 @@ def main():
                 f"{g[f'{d}_library_ms']:.4f}, bound {g[f'{d}_bound_ms']:.4f} by {g[f'{d}_bound_by']}, "
                 f"{fb[d][1] / g[f'{d}_ms'] / 1e6:.1f} GB/s)" for d in keys))
             del q, k, v, rel_bias, mask, gy, attn_mask
+    # the route's backward at MOD stage 0's first training geometry: d(qkv)
+    # goes to the qkv Linear as #9 writes it, with no stack or copy
+    route_bwd = route_backward_profile(torch, swin_mod, agen["train"][0], dev, rate)
+    for r in route_bwd["rows"][:12]:
+        log(f"[profile-attn-route] {r['device_ms']:.4f} ms x{r['count']:g}: {r['name'][:90]}")
+    log(f"[profile-attn-route] {agen['train'][0]['name']} backward of the -no_pallas_block "
+        f"route: device {route_bwd['device_ms']:.4f} ms, #9 {route_bwd['bwd_kernel_ms']:.4f} ms, "
+        f"copy kernels {route_bwd['copy_kernel_ms']:.4f} ms; stack, cat or window-sized "
+        f"copies: {route_bwd['moves']}")
+    if route_bwd["moves"] or not route_bwd["bwd_kernel_ms"] > 0:
+        raise AssertionError(f"the attention-only route's backward stacks or copies its "
+                             f"gradients: {route_bwd['moves']}")
     names = {"fwd": "#6", "drop": "#7", "bwd": "#8 (rate 0)", "drop_bwd": "#9"}
     for kind, tot_k in atot.items():
         what = (f"one served MOD forward at batch {SERVE_BATCH}" if kind == "serve" else
@@ -2562,8 +2685,9 @@ def main():
         log(f"[time-attn] {what}, {per_fwd} launches each: " + "; ".join(
             f"{names[d]} {tot_k[f'{d}_ms']:.3f} ms (plain {tot_k[f'{d}_plain_ms']:.3f}, library "
             f"{tot_k[f'{d}_library_ms']:.3f}, bound {tot_k[f'{d}_bound_ms']:.3f}, "
-            f"{tot_k[f'{d}_bytes'] / 1e9:.3f} GB, {tot_k[f'{d}_flops'] / 1e9:.3f} GFLOP)"
-            for d in ("fwd", "drop", "bwd", "drop_bwd") if f"{d}_ms" in tot_k))
+            f"{tot_k[f'{d}_bytes'] / 1e9:.3f} GB, {tot_k[f'{d}_flops'] / 1e9:.3f} GFLOP"
+            + (f"; device {tot_k[f'{d}_device_ms']:.3f} ms" if f"{d}_device_ms" in tot_k else "")
+            + ")" for d in ("fwd", "drop", "bwd", "drop_bwd") if f"{d}_ms" in tot_k))
     a_train = atot["train"]
     log(f"[time-attn] share of the -no_pallas_block p50 step (MOD): "
         f"{(a_train['drop_ms'] + a_train['drop_bwd_ms']) / attn_train['p50_ms']:.3f}")
@@ -2601,6 +2725,8 @@ def main():
                 "serve_no_pallas_block_latency": attn_lat,
                 "serve_no_pallas_block_err": attn_serve_err,
                 "serve_no_pallas_block_profile": attn_serve_profile,
+                "serve_window_block_device_ms": serve_block_ms,
+                "no_pallas_block_route_backward": route_bwd,
             }, f, indent=1)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -2702,7 +2828,8 @@ def main():
               tot["bound_ms"], (tot["flops"], tot["bytes"]), tot["library_ms"],
               f"times: one forward at batch {SERVE_BATCH}, 16 launches over {len(geos)} "
               f"geometries; launches: all {batches} forwards of the served run",
-              launches_per_forward=per_fwd, forwards=batches, launches_by_path=by_path[fwd.__name__]),
+              launches_per_forward=per_fwd, forwards=batches, device_ms=tot["device_ms"],
+              launches_by_path=by_path[fwd.__name__]),
         entry("fused_window_block_dropout", f"{PK}:1432", train_launches[fwd_drop.__name__],
               drop_err, ttot["fwd_ms"], ttot["fwd_plain_ms"], ttot["fwd_bound_ms"],
               (ttot["fwd_flops"], ttot["fwd_bytes"]), ttot["fwd_library_ms"], train_per,
@@ -2790,13 +2917,15 @@ def main():
                    attn_step_per.replace(f"dropout {rate}", "every drop rate 0")
                    + "; launches: the -no_pallas_block rate-0 step", at_err["bwd_abs"],
                    launches=attn_train["rate0_launches"][at_bwd.__name__],
-                   launches_per_step=per_fwd, max_rel_err=at_err["bwd"]),
+                   launches_per_step=per_fwd, max_rel_err=at_err["bwd"],
+                   device_ms=a_train["bwd_device_ms"]),
         attn_entry("fused_window_attention_dropout_backward", 200, at_drop_bwd, "drop_bwd", a_train,
                    attn_step_per + f"; launches: {TRAIN_STEPS} timed -no_pallas_block pretrain steps",
                    at_err["bwd_abs"], launches=attn_train["launches"][at_drop_bwd.__name__],
                    launches_per_step=per_fwd, steps=TRAIN_STEPS, max_rel_err=at_err["bwd"],
-                   device_ms_in_profiled_step=
-                   attn_train["attention_kernels_device_ms"]["wattn_bwd_kernel"]),
+                   device_ms=a_train["drop_bwd_device_ms"], device_ms_in_profiled_step=
+                   attn_train["attention_kernels_device_ms"]["wattn_bwd_kernel"],
+                   route_backward_copy_kernel_ms=route_bwd["copy_kernel_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

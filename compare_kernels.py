@@ -3,7 +3,7 @@ kernels (#6-#9), the fused MLP kernels (#10-#12) and the conv-tower kernels
 (#13, #14) of one or more checkouts of the repository on one card, so that
 two commits can be compared within one call.
 
-    python3 compare_kernels.py [--profile] DIR [DIR ...]
+    python3 compare_kernels.py [--profile] [--parts P,...] DIR [DIR ...]
 
 Each DIR holds a focal_tpu_torch/ package (for example the parent commit
 unpacked with git archive); each is built and timed in a process of its
@@ -20,10 +20,19 @@ memory), and #13 and #14 at every tower geometry and summed over one MOD
 and one MOD_WIDE DeepSense step (CUDA events, device time by kernel from
 five profiled calls, the host's enqueue time a call, the cuDNN chain's
 forward) with the -pallas_conv MOD_WIDE DeepSense step (3 + 10 steps at
-batch 128; p50, idle share, device busy, peak memory). With --profile, #2
-and #3 are also split by kernel name (chip_smoke.profile_split; the DIR's
-window_block.cu must have the kernels chip_smoke.py knows). Needs a CUDA
-card; imports no JAX.
+batch 128; p50, idle share, device busy, peak memory). #1 is summed over
+one served MOD forward (batch 128), and #1 and #6-#9 are timed over at
+least 20 ms of calls each, #6-#9 also by their device time in a profile
+and by the host's time to enqueue a call; the -no_pallas_block MOD
+pretrain step (3 + 20 steps at batch 256) gives its p50, a profiled
+step's device busy time, #7's and #9's device time and that of the copy
+and concatenation kernels.
+With --profile, #2 and #3 are also split by kernel name
+(chip_smoke.profile_split; the DIR's window_block.cu must have the kernels
+chip_smoke.py knows). --parts takes a comma list of window (#1-#5),
+attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
+-pallas_mlp step) and towers (#13, #14 and their step); all by default.
+Needs a CUDA card; imports no JAX.
 """
 
 import importlib.util
@@ -33,9 +42,10 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+PARTS = ("window", "attention", "mlp", "towers")
 
 
-def measure(root, profile):
+def measure(root, profile, parts):
     """Build and time the package under ``root`` (run in a child process)."""
     sys.path.insert(0, root)
     spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
@@ -45,9 +55,8 @@ def measure(root, profile):
     import torch
 
     from focal_tpu_torch.ops import _build
-    from focal_tpu_torch.ops import fused_mlp as fm
     from focal_tpu_torch.ops import pallas_kernels as pk
-    from focal_tpu_torch.params import load_yaml, parse_train_params
+    from focal_tpu_torch.params import load_yaml
 
     if not os.path.abspath(pk.__file__).startswith(root + os.sep):
         raise SystemExit(f"imported {pk.__file__}, not the package under {root}")
@@ -59,6 +68,31 @@ def measure(root, profile):
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rate = 0.2
+    if "window" in parts:
+        measure_window(cs, torch, root, dev, gen, rate, profile)
+    if "attention" in parts:
+        measure_attention(cs, torch, np, root, dev, rate)
+    if "mlp" in parts:
+        measure_mlp(cs, torch, np, root, dev, rate)
+    if "towers" in parts:
+        measure_towers(cs, torch, np, root, dev, load_yaml)
+
+
+def measure_window(cs, torch, root, dev, gen, rate, profile):
+    """#1 over one served MOD forward; #2/#3 and #4/#5 over a MOD and a
+    MOD_WIDE step."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_yaml
+
+    cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
+    total = device = 0.0
+    for g in cs.block_geometries(cfg, cs.SERVE_BATCH):
+        args = cs.make_inputs(torch, g, gen, dev)
+        total += g["per_forward"] * cs.time_ms_long(torch, lambda: pk.fused_window_block(*args))
+        device += g["per_forward"] * cs.device_ms_per_call(torch, lambda: pk.fused_window_block(*args))
+        del args
+    print(f"[{root}] MOD one served forward at batch {cs.SERVE_BATCH} (16 launches): #1 "
+          f"{total:.3f} ms (device {device:.3f})", flush=True)
     pairs = {("#2", "#3"): (pk.fused_window_block_dropout, pk.fused_window_block_backward),
              ("#4", "#5"): (pk.fused_window_block_perhead, pk.fused_window_block_perhead_backward)}
     for dataset, batch in (("MOD", 512), ("MOD_WIDE", 128)):
@@ -86,8 +120,16 @@ def measure(root, profile):
             cs.profile_split(torch, pk.fused_window_block_dropout, pk.fused_window_block_backward,
                              ("#2", "#3"), geos, gen, dev, rate, f"profile-{dataset}")
         torch.cuda.empty_cache()
+
+
+def measure_attention(cs, torch, np, root, dev, rate):
+    """#6-#9 over one MOD step's 16 launches, each over at least 20 ms of
+    calls; then the -no_pallas_block MOD pretrain step."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_yaml
+
     cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
-    tot = {"#6": 0.0, "#7": 0.0, "#8": 0.0, "#9": 0.0}
+    tot = {}
     for i, g in enumerate(cs.attention_geometries(cfg, 512, "MOD")):
         q, k, v, rb, mask, gy = cs.attention_inputs(torch, np, g, i, dev)
         runs = {"#6": lambda: pk.fused_window_attention(q, k, v, rb, mask),
@@ -95,11 +137,88 @@ def measure(root, profile):
                 "#8": lambda: pk.fused_window_attention_backward(q, k, v, rb, mask, gy),
                 "#9": lambda: pk.fused_window_attention_dropout_backward(q, k, v, rb, mask, gy,
                                                                          3, rate)}
-        for key, fn in runs.items():
-            tot[key] += g["per_forward"] * cs.time_ms(torch, fn)
-    print(f"[{root}] MOD one step (16 launches each): "
-          + ", ".join(f"{key} {ms:.3f} ms" for key, ms in tot.items()), flush=True)
+        ms = {key: cs.time_ms_long(torch, fn) for key, fn in runs.items()}
+        for key, fn in runs.items():  # device time a call, and the host's to enqueue one
+            ms[f"{key} device"] = cs.device_ms_per_call(torch, fn)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(20):
+                fn()
+            ms[f"{key} host"] = (time.perf_counter() - t0) * 1e3 / 20
+            torch.cuda.synchronize()
+        for key in ms:
+            tot[key] = tot.get(key, 0.0) + g["per_forward"] * ms[key]
+        nbytes = cs.attention_work(g, True)[1]
+        print(f"[{root}] {g['name']} (windows {g['windows']}, hd {g['hd']}, {g['per_forward']} a "
+              f"step): " + ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items())
+              + f"; #8/#9 {nbytes / 1e9:.4f} GB, #9's device time at "
+              f"{nbytes / ms['#9 device'] / 1e6:.1f} GB/s", flush=True)
+    print(f"[{root}] MOD one step (16 launches each; device: kernels only, by profile; host: "
+          "enqueue): " + ", ".join(f"{key} {ms:.3f} ms" for key, ms in tot.items()), flush=True)
     torch.cuda.empty_cache()
+    attention_step(cs, torch, root, dev)
+
+
+def attention_step(cs, torch, root, dev):
+    """The -no_pallas_block MOD pretrain step at batch 256 (views fused to
+    512; 3 warm-up and 20 timed steps, synthetic data on the card, a fixed
+    idx): p50, and from one profiled step the device busy time, #7's and
+    #9's device time and that of the copy and concatenation kernels."""
+    import numpy as np
+
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone
+    from focal_tpu_torch.models.sw_transformer import init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    batch = cs.TRAIN_BATCH
+    targs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer", "-learn_framework",
+                                "FOCAL", "-stage", "pretrain", "-no_pallas_block", "-batch_size",
+                                str(batch)])
+    host_data, labels, _ = synthetic_arrays(targs.dataset_config, targs.task, 2 * batch, seed=0)
+    tdata = to_device(host_data, dev)
+    idx = torch.arange(batch, device=dev) % len(labels)
+    model = build_backbone(targs.dataset_config, targs.model, targs.task, targs.learn_framework,
+                           pallas_block=False)
+    init_params(model, seed=0)
+    model.to(dev)
+    state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
+    step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
+    for _ in range(cs.TRAIN_WARMUP):
+        state, _ = step(state, tdata, idx)
+    step_s = []
+    for _ in range(cs.TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        state, _ = step(state, tdata, idx)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+    prof = cs.profile_device(torch, lambda: step(state, tdata, idx))
+    rows = prof["rows"]
+    copies = sum(r["device_ms"] for r in rows
+                 if "copy" in r["name"].lower() or "cat" in r["name"].lower())
+    print(f"[{root}] MOD -no_pallas_block pretrain step (batch {batch}): p50 "
+          f"{float(np.percentile(step_s, 50)) * 1e3:.3f} ms, device busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{1 - prof['device_busy_ms'] / prof['wall_ms']:.3f}; device ms: #7 "
+          f"{cs.attention_kernel_ms(rows, 'wattn_fwd_kernel', True):.3f}, #9 "
+          f"{cs.attention_kernel_ms(rows, 'wattn_bwd_kernel', True):.3f}, copy and concatenation "
+          f"kernels {copies:.3f}", flush=True)
+    del model, state, step, tdata
+    torch.cuda.empty_cache()
+
+
+def measure_mlp(cs, torch, np, root, dev, rate):
+    """#10-#12 per MLP geometry and over a MOD and a MOD_WIDE forward; the
+    -pallas_mlp MOD supervised step."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_yaml, parse_train_params
+
     for dataset in ("MOD", "MOD_WIDE"):
         cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", f"{dataset}.yaml"))
         tot = {"#10": 0.0, "#11": 0.0, "#12": 0.0}
@@ -118,7 +237,6 @@ def measure(root, profile):
         print(f"[{root}] {dataset} MLPs of one forward at batch 128: "
               + ", ".join(f"{key} {v:.3f} ms" for key, v in tot.items()), flush=True)
         torch.cuda.empty_cache()
-    measure_towers(cs, torch, np, root, dev, load_yaml)
     step = (pk.fused_window_block_dropout, pk.fused_window_block_backward,
             fm.fused_mlp_dropout_forward, fm.fused_mlp_backward)
     sargs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer", "-learn_framework",
@@ -192,15 +310,23 @@ def measure_towers(cs, torch, np, root, dev, load_yaml):
 
 def main():
     argv = sys.argv[1:]
+    parts = PARTS
+    if "--parts" in argv:
+        i = argv.index("--parts")
+        parts = tuple(argv[i + 1].split(","))
+        if not set(parts) <= set(PARTS):
+            sys.exit(f"--parts takes {', '.join(PARTS)}")
+        del argv[i:i + 2]
     if argv[:1] == ["--child"]:
-        measure(os.path.abspath(argv[1]), "--profile" in argv[2:])
+        measure(os.path.abspath(argv[1]), "--profile" in argv[2:], parts)
         return
     profile = "--profile" in argv
     dirs = [a for a in argv if a != "--profile"]
     if not dirs:
         sys.exit(__doc__)
     for d in dirs:
-        cmd = [sys.executable, os.path.abspath(__file__), "--child", d] + (["--profile"] if profile else [])
+        cmd = ([sys.executable, os.path.abspath(__file__), "--child", d, "--parts", ",".join(parts)]
+               + (["--profile"] if profile else []))
         subprocess.run(cmd, check=True)
 
 

@@ -30,11 +30,18 @@ __device__ __forceinline__ uint2 philox_key(unsigned long long seed) {
 // h * kAttnCounterRows + i, so windows of up to 16 tokens never share one.
 constexpr int kAttnCounterRows = 16;
 
-// Attention dropout's keep flags for keys 0..n-1 of one (window, head, query
-// row): key j is kept iff word j % 4 of Philox at counter (window, head *
-// kAttnCounterRows + row, j / 4, 0), keyed by the seed, is >= threshold. The
-// flags are a function of (seed, window, head, row) alone, whatever kernel
-// or block shape draws them.
+// Attention dropout's Philox words for keys 4 jb .. 4 jb + 3 of one (window,
+// head, query row): counter (window, head * kAttnCounterRows + row, jb, 0)
+// under the seed's key. Key j is kept iff word j % 4 of block j / 4 is >=
+// the threshold: the flags are a function of (seed, window, head, row)
+// alone, whatever kernel or block shape draws them.
+__device__ __forceinline__ uint4 attn_keep_words(uint2 key, unsigned window, int head, int row,
+                                                 int jb) {
+  return philox4x32_10(
+      make_uint4(window, (unsigned)(head * kAttnCounterRows + row), (unsigned)jb, 0u), key);
+}
+
+// The keep flags of keys 0..n-1 of one (window, head, query row).
 template <int kMaxKeys>
 __device__ __forceinline__ void attn_keep_row(unsigned long long seed, unsigned window, int head,
                                               int row, int n, unsigned threshold,
@@ -44,8 +51,7 @@ __device__ __forceinline__ void attn_keep_row(unsigned long long seed, unsigned 
 #pragma unroll
   for (int jb = 0; jb < kMaxKeys / 4; ++jb) {
     if (jb * 4 < n) {
-      const uint4 r = philox4x32_10(
-          make_uint4(window, (unsigned)(head * kAttnCounterRows + row), (unsigned)jb, 0u), key);
+      const uint4 r = attn_keep_words(key, window, head, row, jb);
       const unsigned bits[4] = {r.x, r.y, r.z, r.w};
 #pragma unroll
       for (int t = 0; t < 4; ++t) kept[jb * 4 + t] = bits[t] >= threshold;

@@ -36,19 +36,38 @@
 //     (philox.cuh): the same seed and geometry give #2's mask bit for bit.
 //     #9 draws the mask again from the seed; nothing is stored between the
 //     passes (focal_wattn_keep_mask writes it out for the checks only).
-//   * drel_bias sums ds over every window: backward blocks walk the chunks
-//     of pairs with a fixed stride, each sums its chunks' ds per head in
-//     pair order in shared memory, and one ordered pass adds the blocks'
-//     partials. No atomics: two calls give the same bits.
 //   * f32 throughout with fmaf and expf, as the TPU kernels' f32 softmax.
-//   * Not yet: overlapping the next chunk's loads with this chunk's math
-//     (cp.async or TMA); two or three blocks per SM do it coarsely.
+// The backward (#8, #9) keeps the load units busy while it computes:
+//   * A persistent grid (as many blocks as fit the card, two an SM at the
+//     MOD widths) walks the chunks of P pairs with a fixed stride. Each
+//     chunk's q, k, v and g are staged by cp.async into one slot of a
+//     two-deep ring while the block computes the chunk before it: the
+//     staging and the math no longer alternate. A thread's staging row is
+//     found once for its four operands.
+//   * At N = 9 (every packaged window) the kernel's row tile is exactly 9
+//     keys: no predicated-off lanes of a 16-wide tile in its unrolled loops.
+//     The G lanes of a query row share its Philox words (lane l draws words
+//     l, l + G, ...) instead of each drawing all of them.
+//   * dq, dk and dv are written at the caller's strides: contiguous [B, H,
+//     N, hd], or the head columns of one d(qkv) [B, N, 3C] with dq times the
+//     q scale, the layout the qkv Linear's backward takes; then autograd
+//     stacks and copies nothing.
+//   * drel_bias sums ds over every window: each block sums its chunks' ds
+//     per head in pair order in shared memory, and one ordered pass adds
+//     the blocks' partials. No atomics: two calls give the same bits.
+//   * Not yet: the forwards (#6, #7) stage synchronously and write [B, H,
+//     N, hd]; two or three blocks an SM overlap their loads coarsely.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <array>
+#include <map>
+#include <mutex>
+#include <utility>
 
+#include "gemm_3xtf32.cuh"
 #include "philox.cuh"
 #include "window_rows.cuh"
 
@@ -68,8 +87,10 @@ constexpr int kThreads = focal::kAttnThreads;
 
 size_t fwd_smem_floats(const Geo& g) { return (size_t)3 * g.pairs * g.N * g.stride; }
 
+// The backward's shared memory: the two-slot ring of q, k, v, g rows, ds
+// and a_v [P][N][N], and the block's d rel_bias [H][N][N].
 size_t bwd_smem_floats(const Geo& g) {
-  return (size_t)4 * g.pairs * g.N * g.stride + (size_t)2 * g.pairs * g.N * g.N +
+  return (size_t)8 * g.pairs * g.N * g.stride + (size_t)2 * g.pairs * g.N * g.N +
          (size_t)g.H * g.N * g.N;
 }
 
@@ -135,79 +156,168 @@ wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // ---------------------------------------------------------------------------
 // backward (#8; #9 with kDropout)
 
-// Per chunk of pairs: stage q, k, v, g; per query row i (stage 1) recompute
-// the softmax p, d_attn = g_i . v_j, the dropped weights a_v and the score
-// gradients ds (both to shared memory), and dq_i = ds k; then per key row j
-// (stage 2) dk_j = sum_i ds[i][j] q_i and dv_j = sum_i a_v[i][j] g_i, and the
-// block's d rel_bias += ds of the chunk's pairs, in pair order.
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-wattn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ gout, Strides sq,
-                 Strides sk, Strides sv, Strides sg, const float* __restrict__ rel_bias,
+// Output element strides of the backward: dq, dk and dv as [B, H, N, hd]
+// operands (contiguous, or the head columns of one d(qkv) [B, N, 3C]).
+struct OutStrides {
+  Strides dq, dk, dv;
+};
+
+// The keep flags of keys 0..N-1 of one (window, head, query row), as bit j
+// of the result, with the G lanes of the row sharing the Philox words: lane
+// l draws blocks jb = l, l + G, ... of focal::attn_keep_words (so the bits
+// are #2's and #7's) and a butterfly of shuffles ORs the lanes' bits.
+// Every lane of the warp must call it.
+__device__ __forceinline__ unsigned keep_bits_row(unsigned long long seed, unsigned window,
+                                                  int head, int row, int N, unsigned threshold,
+                                                  int lane, int lanes) {
+  const uint2 key = focal::philox_key(seed);
+  unsigned bits = 0u;
+  for (int jb = lane; jb * 4 < N; jb += lanes) {
+    const uint4 r = focal::attn_keep_words(key, window, head, row, jb);
+    bits |= (r.x >= threshold ? 1u : 0u) << (4 * jb);
+    bits |= (r.y >= threshold ? 2u : 0u) << (4 * jb);
+    bits |= (r.z >= threshold ? 4u : 0u) << (4 * jb);
+    bits |= (r.w >= threshold ? 8u : 0u) << (4 * jb);
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1) bits |= __shfl_xor_sync(focal::kAttnFull, bits, off);
+  return bits;
+}
+
+// The staging of one chunk: cp.async copies of its q, k, v and g rows into
+// a ring slot, 16 bytes each. Thread tid copies float4 column tid % c4 of
+// rows tid / c4, + R, + 2R, ... (R = kThreads / c4 rows a pass): the row's
+// (pair, token) is found once for its four operands.
+struct Operands {
+  const float* src[4];  // q, k, v, g
+  Strides st[4];
+};
+
+// The pairs chunk `chunk` holds (the last may hold fewer than P).
+__device__ __forceinline__ int chunk_pairs(const Geo& g, int chunk) {
+  return (int)min((long long)g.pairs, g.total - (long long)chunk * g.pairs);
+}
+
+__device__ __forceinline__ void stage_chunk_async(const Operands& in, int chunk, const Geo& g,
+                                                  float* slot) {
+  const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
+  const int per_pass = kThreads / g.c4;
+  const int c = threadIdx.x % g.c4, r0 = threadIdx.x / g.c4;
+  if (r0 >= per_pass) return;
+  const int slab = g.pairs * g.N * g.stride;
+  for (int r = r0; r < np * g.N; r += per_pass) {
+    const int pl = r / g.N, i = r - pl * g.N;
+    const int pair = p0 + pl;
+    const int b = pair / g.H, h = pair - b * g.H;
+#pragma unroll
+    for (int o = 0; o < 4; ++o) {
+      const float* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
+      focal::cp_async16(slot + o * slab + r * g.stride + 4 * c, row + 4 * c, true);
+    }
+  }
+}
+
+// A persistent grid: block b takes chunks b, b + grid, ... of P (window,
+// head) pairs. Each chunk's q, k, v and g are staged by cp.async into one
+// slot of a two-deep ring while the block computes the chunk before it:
+//   stage 1, query row i of each pair: the softmax p, d_attn = g_i . v_j,
+//     the dropped weights a_v and the score gradients ds (both to shared
+//     memory, [P][N][N]), and dq_i = ds k (times dq_scale);
+//   stage 2, key row j: dk_j = sum_i ds[i][j] q_i, dv_j = sum_i a_v[i][j]
+//     g_i, and the block's d rel_bias += ds of the chunk's pairs, in pair
+//     order.
+// Two barriers a chunk: the one after a chunk's copies land also frees the
+// other slot and ds / a_v (read by the chunk before), so the next chunk's
+// copies are issued right after it. kN = 9 is the 3 x 3 window's exact row
+// tile, kN = kAttnMaxN any N up to 16; kCols > 0 unrolls a lane's kCols
+// float4 columns (c4 = kCols G: 2 at hd 16, 32 and 64).
+template <int kN, int kCols, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 2)
+wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
                  const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
-                 float* __restrict__ dv, float* __restrict__ dbias_part, unsigned long long seed,
-                 unsigned threshold, float inv_keep, Geo g, int nW) {
+                 float* __restrict__ dv, float dq_scale, float* __restrict__ dbias_part,
+                 unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
   extern __shared__ float4 smem4[];
-  const int N = g.N, nn = N * N, slab = g.pairs * N * g.stride;
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + slab;
-  float* vs = ks + slab;
-  float* gs = vs + slab;
-  float* dss = gs + slab;              // [P][N][N] score gradients
-  float* avs = dss + g.pairs * nn;     // [P][N][N] weights as applied to v
-  float* dacc = avs + g.pairs * nn;    // [H][N][N] this block's d rel_bias
+  const int N = kN < kMaxN ? kN : g.N, nn = N * N, slab = g.pairs * N * g.stride;
+  float* ring = reinterpret_cast<float*>(smem4);  // [2][q, k, v, g][P][N][stride]
+  float* dss = ring + 8 * slab;                    // [P][N][N] score gradients
+  float* avs = dss + g.pairs * nn;                 // [P][N][N] weights as applied to v
+  float* dacc = avs + g.pairs * nn;                // [H][N][N] this block's d rel_bias
   const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
 
   for (int e = threadIdx.x; e < g.H * nn; e += kThreads) dacc[e] = 0.f;
+  stage_chunk_async(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  focal::cp_async_commit();
 
-  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x) {
-    const int p0 = chunk * g.pairs;
-    const int np = (int)min((long long)g.pairs, g.total - p0);
-    __syncthreads();  // the previous chunk's readers are done with shared memory
-    stage_rows(q, sq, p0, np, g, qs);
-    stage_rows(k, sk, p0, np, g, ks);
-    stage_rows(v, sv, p0, np, g, vs);
-    stage_rows(gout, sg, p0, np, g, gs);
-    __syncthreads();
+  int it = 0;
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x, ++it) {
+    const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
+    focal::cp_async_wait<0>();  // this chunk's copies have landed (each thread its own)
+    __syncthreads();            // and every thread's; the other slot and ds / a_v are free
+    const int next = chunk + gridDim.x;
+    if (next < nchunks)  // the next chunk's loads fly while this one computes
+      stage_chunk_async(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
+    focal::cp_async_commit();
+    const float* qs = ring + (it & 1) * 4 * slab;
+    const float* ks = qs + slab;
+    const float* vs = ks + slab;
+    const float* gs = vs + slab;
 
     // stage 1: query row i of pair pl
     const Row t = thread_row(g, p0, np);
-    const float* kb = ks + t.pl * N * g.stride;
-    float p[kMaxN], ds[kMaxN];
-    row_dots(qs + t.r * g.stride, kb, g, t.lane, p);
-    row_dots(gs + t.r * g.stride, vs + t.pl * N * g.stride, g, t.lane, ds);  // d_attn
-    softmax_row(p, rel_bias + (t.h * N + t.i) * N,
-                mask ? mask + ((size_t)(t.w % nW) * N + t.i) * N : nullptr, N);
-    bool kept[kMaxN];
-    if (kDropout) focal::attn_keep_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, kept);
-    float dot = 0.f;
-    float* avrow = avs + t.r * N;
-    float* dsrow = dss + t.r * N;
+    const float* brow = rel_bias + (t.h * N + t.i) * N;
+    const float* mrow = mask ? mask + ((size_t)(t.w % nW) * N + t.i) * N : nullptr;
+    float bias[kN];  // the row's bias and mask, loaded ahead of the products
 #pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        if (kDropout) ds[j] = kept[j] ? ds[j] * inv_keep : 0.f;  // da
+    for (int j = 0; j < kN; ++j)
+      if (focal::key_in_row<kN>(j, N)) bias[j] = __ldg(brow + j);
+    float mk[kN];
+    if (mrow) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (focal::key_in_row<kN>(j, N)) mk[j] = __ldg(mrow + j);
+    }
+    unsigned kept = ~0u;
+    if (kDropout)
+      kept = keep_bits_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, t.lane, g.lanes);
+    const float* kb = ks + t.pl * N * g.stride;
+    float p[kN], ds[kN];
+    row_dots<kCols>(qs + t.r * g.stride, kb, g, t.lane, p);
+    row_dots<kCols>(gs + t.r * g.stride, vs + t.pl * N * g.stride, g, t.lane, ds);  // d_attn
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        p[j] += bias[j];
+        if (mrow) p[j] += mk[j];
+      }
+    }
+    focal::softmax_scores(p, N);
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        if (kDropout) ds[j] = (kept >> j) & 1u ? ds[j] * inv_keep : 0.f;  // da
         dot = fmaf(ds[j], p[j], dot);
       }
     }
+    float* avrow = avs + t.r * N;
+    float* dsrow = dss + t.r * N;
 #pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        const float a_v = kDropout ? (kept[j] ? p[j] * inv_keep : 0.f) : p[j];
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        const float a_v = kDropout ? ((kept >> j) & 1u ? p[j] * inv_keep : 0.f) : p[j];
         ds[j] = p[j] * (ds[j] - dot);
-        if (t.active && t.lane == 0) {
+        if (t.active && j % g.lanes == t.lane) {
           avrow[j] = a_v;
           dsrow[j] = ds[j];
         }
       }
     }
-    float4* dqo = reinterpret_cast<float4*>(dq + ((size_t)t.pair * N + t.i) * g.hd);
-    for (int c = t.lane; c < g.c4; c += g.lanes) {
+    float4* dqo = reinterpret_cast<float4*>(dq + t.w * so.dq.b + t.h * so.dq.h + t.i * so.dq.n);
+    focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
-      for (int j = 0; j < kMaxN; ++j) {
-        if (j < N) {
+      for (int j = 0; j < kN; ++j) {
+        if (focal::key_in_row<kN>(j, N)) {
           const float4 y = *reinterpret_cast<const float4*>(kb + j * g.stride + 4 * c);
           acc.x = fmaf(ds[j], y.x, acc.x);
           acc.y = fmaf(ds[j], y.y, acc.y);
@@ -215,8 +325,10 @@ wattn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
           acc.w = fmaf(ds[j], y.w, acc.w);
         }
       }
-      if (t.active) dqo[c] = acc;
-    }
+      if (t.active)
+        dqo[c] = make_float4(acc.x * dq_scale, acc.y * dq_scale, acc.z * dq_scale,
+                             acc.w * dq_scale);
+    });
     __syncthreads();
 
     // stage 2: key row j = t.i of pair pl
@@ -226,22 +338,21 @@ wattn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
       const float* avc = avs + t.pl * nn + j;  // a_v[.][j]
       const float* qb = qs + t.pl * N * g.stride;
       const float* gb = gs + t.pl * N * g.stride;
-      float dsj[kMaxN], avj[kMaxN];
+      float dsj[kN], avj[kN];
 #pragma unroll
-      for (int i = 0; i < kMaxN; ++i) {
-        if (i < N) {
+      for (int i = 0; i < kN; ++i) {
+        if (focal::key_in_row<kN>(i, N)) {
           dsj[i] = dsc[i * N];
           avj[i] = avc[i * N];
         }
       }
-      const size_t row = ((size_t)t.pair * N + j) * g.hd;
-      float4* dko = reinterpret_cast<float4*>(dk + row);
-      float4* dvo = reinterpret_cast<float4*>(dv + row);
-      for (int c = t.lane; c < g.c4; c += g.lanes) {
+      float4* dko = reinterpret_cast<float4*>(dk + t.w * so.dk.b + t.h * so.dk.h + j * so.dk.n);
+      float4* dvo = reinterpret_cast<float4*>(dv + t.w * so.dv.b + t.h * so.dv.h + j * so.dv.n);
+      focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
 #pragma unroll
-        for (int i = 0; i < kMaxN; ++i) {
-          if (i < N) {
+        for (int i = 0; i < kN; ++i) {
+          if (focal::key_in_row<kN>(i, N)) {
             const float4 x = *reinterpret_cast<const float4*>(qb + i * g.stride + 4 * c);
             const float4 y = *reinterpret_cast<const float4*>(gb + i * g.stride + 4 * c);
             a.x = fmaf(dsj[i], x.x, a.x);
@@ -256,7 +367,7 @@ wattn_bwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
         }
         dko[c] = a;
         dvo[c] = b;
-      }
+      });
     }
     // the block's d rel_bias: element (h, i, j) adds the chunk's pairs of
     // head h in pair order (each element keeps its thread across chunks)
@@ -301,26 +412,88 @@ cudaError_t set_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }
 
-// The backward's grid: as many blocks as fit the card at once, at most one
-// a chunk. Deterministic for a geometry on a card, so the d rel_bias
-// partials (and their sum) are too.
-cudaError_t bwd_grid(const Geo& g, bool dropout, int* grid) {
-  int dev = 0, sms = 0, per_sm = 0;
+// set_smem that never lowers a kernel's limit below what an earlier plan
+// (bwd_plan keeps them) launches it with, on the current device.
+template <class Kernel>
+cudaError_t raise_smem(Kernel kernel, size_t bytes) {
+  static std::mutex mutex;
+  static std::map<std::pair<int, const void*>, size_t> limits;
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const size_t bytes = bwd_smem_floats(g) * sizeof(float);
-  if (err == cudaSuccess)
-    err = dropout ? set_smem(wattn_bwd_kernel<true>, bytes) : set_smem(wattn_bwd_kernel<false>, bytes);
-  if (err == cudaSuccess)
-    err = dropout ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wattn_bwd_kernel<true>,
-                                                                  kThreads, bytes)
-                  : cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wattn_bwd_kernel<false>,
-                                                                  kThreads, bytes);
   if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  const long long nchunks = (g.total + g.pairs - 1) / g.pairs;
-  *grid = (int)std::min<long long>(nchunks, (long long)per_sm * sms);
-  return cudaSuccess;
+  std::lock_guard<std::mutex> lock(mutex);
+  size_t& limit = limits[{dev, reinterpret_cast<const void*>(kernel)}];
+  if (bytes <= limit) return cudaSuccess;
+  err = set_smem(kernel, bytes);
+  if (err == cudaSuccess) limit = bytes;
+  return err;
+}
+
+using BwdKernel = void (*)(Operands, OutStrides, const float*, const float*, float*, float*,
+                          float*, float, float*, unsigned long long, unsigned, float, Geo, int);
+
+// The backward's instance: the exact 3 x 3 window tile with two float4
+// columns a lane (hd 16, 32, 64 at N = 9), or any N and head width.
+BwdKernel bwd_kernel(const Geo& g, bool dropout) {
+  if (g.N == 9 && g.c4 == 2 * g.lanes)
+    return dropout ? wattn_bwd_kernel<9, 2, true> : wattn_bwd_kernel<9, 2, false>;
+  return dropout ? wattn_bwd_kernel<kMaxN, 0, true> : wattn_bwd_kernel<kMaxN, 0, false>;
+}
+
+// The backward's launch plan on the current device: make_geo's pairs a
+// block, fewer where the ring does not fit a block's shared memory (from
+// hd ~ 256 at N = 9); a persistent grid of as many blocks as fit the card
+// at once, at most one a chunk. Deterministic for a geometry on a card, so
+// the d rel_bias partials (and their sum) are too.
+struct BwdPlan {
+  Geo geo;
+  BwdKernel kernel;
+  size_t smem;
+  int grid;
+  cudaError_t err;
+};
+
+BwdPlan make_bwd_plan(int B, int H, int N, int hd, bool dropout) {
+  BwdPlan P{};
+  int dev = 0, sms = 0, optin = 0, per_sm = 0;
+  P.err = cudaGetDevice(&dev);
+  if (P.err == cudaSuccess) P.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (P.err == cudaSuccess)
+    P.err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (P.err != cudaSuccess) return P;
+  P.geo = make_geo(B, H, N, hd);
+  while (P.geo.pairs > 1 && bwd_smem_floats(P.geo) * sizeof(float) > (size_t)optin) --P.geo.pairs;
+  P.smem = bwd_smem_floats(P.geo) * sizeof(float);
+  if (P.smem > (size_t)optin) {
+    P.err = cudaErrorInvalidValue;
+    return P;
+  }
+  P.kernel = bwd_kernel(P.geo, dropout);
+  P.err = raise_smem(P.kernel, P.smem);
+  if (P.err == cudaSuccess)
+    P.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, P.kernel, kThreads, P.smem);
+  if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
+  if (P.err != cudaSuccess) return P;
+  const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
+  P.grid = (int)std::min<long long>(nchunks, (long long)per_sm * sms);
+  return P;
+}
+
+// make_bwd_plan, once a geometry and device: its attribute and occupancy
+// queries cost more host time than a small launch takes on the card.
+BwdPlan bwd_plan(int B, int H, int N, int hd, bool dropout) {
+  static std::mutex mutex;
+  static std::map<std::array<int, 6>, BwdPlan> plans;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return BwdPlan{Geo{}, nullptr, 0, 0, err};
+  const std::array<int, 6> key{dev, B, H, N, hd, (int)dropout};
+  std::lock_guard<std::mutex> lock(mutex);
+  const auto it = plans.find(key);
+  if (it != plans.end()) return it->second;
+  const BwdPlan P = make_bwd_plan(B, H, N, hd, dropout);
+  if (P.err == cudaSuccess) plans.emplace(key, P);
+  return P;
 }
 
 Strides strides_at(const long long* s, int k) { return Strides{s[3 * k], s[3 * k + 1], s[3 * k + 2]}; }
@@ -362,7 +535,7 @@ extern "C" int focal_wattn_fwd(const void* q, const void* k, const void* v,
 }
 
 // Workspace of the backward, in floats, for this geometry on the current
-// device: the blocks' d rel_bias partials.
+// device: the blocks' d rel_bias partials. An error where it has no plan.
 extern "C" int focal_wattn_bwd_workspace(int B, int H, int N, int hd, int dropout,
                                          long long* floats) {
   if (int e = check_geometry(B, H, N, hd, nullptr, 1)) return e;
@@ -370,49 +543,48 @@ extern "C" int focal_wattn_bwd_workspace(int B, int H, int N, int hd, int dropou
     *floats = 0;
     return 0;
   }
-  const Geo g = make_geo(B, H, N, hd);
-  int grid = 0;
-  const cudaError_t err = bwd_grid(g, dropout != 0, &grid);
-  if (err != cudaSuccess) return (int)err;
-  *floats = (long long)grid * H * N * N;
+  const BwdPlan P = bwd_plan(B, H, N, hd, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  *floats = (long long)P.grid * H * N * N;
   return 0;
 }
 
 // Backward: #8 (dropout 0) or #9 (dropout 1, the forward's mask drawn again
 // from `seed`). q, k, v, g (the output's gradient) as focal_wattn_fwd's
-// operands, twelve strides; dq, dk, dv contiguous [B, H, N, hd]; drel_bias
-// [H, N, N]; `ws` holds focal_wattn_bwd_workspace floats. Two launches on
-// `stream`: the per-chunk kernel and the ordered sum of d rel_bias.
+// operands, twelve strides. dq, dk, dv: [B, H, N, hd] operands at the nine
+// element strides `out_strides` (each a multiple of 4, pointers 16-byte
+// aligned): contiguous, or the head columns of one d(qkv) [B, N, 3C]; dq is
+// multiplied by dq_scale (the q scale the caller applied before the
+// forward; 1 for none). drel_bias [H, N, N]; `ws` holds
+// focal_wattn_bwd_workspace floats. Two launches on `stream`: the
+// persistent chunk kernel and the ordered sum of d rel_bias.
 extern "C" int focal_wattn_bwd(const void* q, const void* k, const void* v, const void* g_out,
                                const long long* strides, const void* rel_bias, const void* mask,
-                               void* dq, void* dk, void* dv, void* drel_bias, void* ws, int B,
-                               int H, int N, int hd, int nW, int dropout, unsigned long long seed,
+                               void* dq, void* dk, void* dv, const long long* out_strides,
+                               float dq_scale, void* drel_bias, void* ws, int B, int H, int N,
+                               int hd, int nW, int dropout, unsigned long long seed,
                                unsigned threshold, float inv_keep, void* stream) {
   if (int e = check_geometry(B, H, N, hd, mask, nW)) return e;
   if (B == 0) return 0;
-  const Geo g = make_geo(B, H, N, hd);
-  int grid = 0;
-  cudaError_t err = bwd_grid(g, dropout != 0, &grid);
-  if (err != cudaSuccess) return (int)err;
-  const size_t bytes = bwd_smem_floats(g) * sizeof(float);
+  const BwdPlan P = bwd_plan(B, H, N, hd, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(ws);
-#define FOCAL_WATTN_BWD_ARGS                                                                   \
-  static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),    \
-      static_cast<const float*>(g_out), strides_at(strides, 0), strides_at(strides, 1),        \
-      strides_at(strides, 2), strides_at(strides, 3), static_cast<const float*>(rel_bias),     \
-      static_cast<const float*>(mask), static_cast<float*>(dq), static_cast<float*>(dk),       \
-      static_cast<float*>(dv), part, seed, threshold, inv_keep, g, mask != nullptr ? nW : 1
-  if (dropout)
-    wattn_bwd_kernel<true><<<grid, kThreads, bytes, s>>>(FOCAL_WATTN_BWD_ARGS);
-  else
-    wattn_bwd_kernel<false><<<grid, kThreads, bytes, s>>>(FOCAL_WATTN_BWD_ARGS);
-#undef FOCAL_WATTN_BWD_ARGS
-  err = cudaGetLastError();
+  const Operands in{{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), static_cast<const float*>(g_out)},
+                    {strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+                     strides_at(strides, 3)}};
+  const OutStrides so{strides_at(out_strides, 0), strides_at(out_strides, 1),
+                      strides_at(out_strides, 2)};
+  P.kernel<<<P.grid, kThreads, P.smem, s>>>(
+      in, so, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), dq_scale, part,
+      seed, threshold, inv_keep, P.geo, mask != nullptr ? nW : 1);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int E = H * N * N;
   reduce_partials_kernel<<<(E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part, grid, E, static_cast<float*>(drel_bias));
+      part, P.grid, E, static_cast<float*>(drel_bias));
   return (int)cudaGetLastError();
 }
 

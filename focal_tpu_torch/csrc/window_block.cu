@@ -1,7 +1,7 @@
 // Whole-block Swin window attention for Hopper (sm_90a): the eval forward
 // (#1), the training forward with attention dropout (#2) and its backward
-// (#3), and the same training pair for the blocks the JAX package routes to
-// its per-head kernels (#4 forward, with or without dropout; #5 backward).
+// (#3), and the same pair for the blocks the JAX package routes to its
+// per-head kernels (#4 forward, with or without dropout; #5 backward).
 //
 // Replaces the TPU kernels of focal_tpu/ops/pallas_kernels.py:
 //   #1 _wblock_fwd_kernel (fused_window_block -> _wblock_fwd_impl -> pl.pallas_call)
@@ -24,12 +24,11 @@
 // 20 FLOP/byte) and the TF32 tensor-core ridge (495 TFLOP/s, 148 FLOP/byte)
 // at C >= 256. About 99 % of the FLOPs are the projections.
 //
-// The training kernels (#2-#5, every width). The TPU kernels walk a
-// lane-tile of 128 windows in VMEM, so each weight they load feeds a
-// thousand rows. Kept per window, as the first port did, a block held one to
-// eight windows and fetched each weight from L2 for 9-72 FMAs on the CUDA
-// cores: 5-8 TFLOP/s. Here the per-window fusion is dropped for the card's
-// shape:
+// The TPU kernels walk a lane-tile of 128 windows in VMEM, so each weight
+// they load feeds a thousand rows. Kept per window, as the first port did,
+// a block held one to eight windows and fetched each weight from L2 for
+// 9-72 FMAs on the CUDA cores: 5-8 TFLOP/s. Here the per-window fusion is
+// dropped for the card's shape, at every width and for all five kernels:
 //   * The projections are matrix products over all R = B N rows of the
 //     launch, 128 x 128 output tiles a block (128 x 64 where a product's
 //     width is not a multiple of 128: C = 64), staged by a 3-deep cp.async
@@ -37,8 +36,9 @@
 //     staged weight feeds 128 rows. 3xTF32 (a_lo b_hi + a_hi b_lo + a_hi
 //     b_hi) keeps f32 accuracy: the ~1e-4 gates of f32 hold; one TF32
 //     product would not. Bound on these units: 3x the FLOPs at 495 TFLOP/s.
-//       forward (#2, #4): qkv = x Wqkv + bqkv into a workspace [R, 3C]; the
-//           attention into ao [R, C]; y = ao Wproj + bproj.
+//       forward (#1, #2, #4): qkv = x Wqkv + bqkv into a workspace [R, 3C];
+//           the attention into ao [R, C]; y = ao Wproj + bproj. #1 is the
+//           instance without dropout (no keep mask written).
 //       backward (#3, #5): qkv and g = dy Wproj^T (one launch); the
 //           attention backward (dq | dk | dv into [R, 3C], the attention
 //           output into [R, C]); dx = dqkv Wqkv^T; the weight gradients x^T
@@ -60,21 +60,12 @@
 //     (philox.cuh, shared with #7 and #9): the forward writes the mask as
 //     uint8 [B, H, N, N], the backward reads it back.
 //   * No float atomics anywhere: the same bits on every call.
-//   * #2 and #4 (and #3 and #5) run the same code; they differ in the
-//     geometries the Python side routes to them (wblock_fits, the JAX
-//     package's gate) and in their launch counts.
+//   * #1, #2 and #4 (and #3 and #5) run the same code; they differ in the
+//     geometries and rates the Python side routes to them (wblock_fits, the
+//     JAX package's gate) and in their launch counts.
 //   * Not yet: wgmma and TMA (the tf32 wgmma takes K-major operands only;
 //     wqkv_t and wproj_t are that layout already), and fusing the attention
 //     into the projections' epilogues.
-//
-// #1 (eval and serving, C <= 256), f32 on the CUDA cores, per window: a
-// block owns a few windows whose x and qkv sit in dynamic shared memory
-// (~74 KB, two blocks an SM). Each projection thread computes one output
-// column for all N rows of one window: every weight it loads from global
-// memory (L2 resident; consecutive threads read consecutive columns) feeds
-// N FMAs, and the activation operand is a float4 broadcast from shared
-// memory (project_rows). The attention is one thread per (window, head,
-// row) with an exact N-long softmax.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -98,167 +89,16 @@ using focal::tile_bn;
 
 constexpr int kMaxN = 16;            // window tokens a thread keeps in registers
 // Threads of every block launched here. The block-wide loops step by this
-// constant, not by blockDim.x: the runtime stride cost #1 5 % on the H100.
+// constant, not by blockDim.x: a runtime stride cost the first port 5 % on
+// the H100.
 constexpr int kThreads = 256;
-constexpr int kActBudget = 73728;    // #1: bytes of x + qkv per block (two blocks per SM)
 static_assert(kMaxN == focal::kAttnMaxN && kThreads == focal::kAttnThreads &&
                   kThreads == focal::kGemmThreads,
               "one block size and window bound for every kernel here");
 
-int windows_per_block(int N, int C) {
-  const int wpb = kActBudget / (N * 16 * C);
-  return wpb < 1 ? 1 : wpb;
-}
-
-size_t smem_bytes(int wpb, int N, int C) {
-  return (size_t)wpb * N * ((C + 4) + (3 * C + 1)) * sizeof(float);
-}
-
 // ---------------------------------------------------------------------------
-// #1: the per-window forward
-
-// Copy `rows` rows of C floats (contiguous in global memory) into shared
-// memory rows of `stride` floats (stride % 4 == 0), float4 at a time.
-__device__ __forceinline__ void load_rows(const float* __restrict__ g, int C, float* s,
-                                          int stride, int rows) {
-  const int c4 = C / 4;
-  const float4* g4 = reinterpret_cast<const float4*>(g);
-  for (int i = threadIdx.x; i < rows * c4; i += kThreads) {
-    const int row = i / c4, col = i - row * c4;
-    *reinterpret_cast<float4*>(s + row * stride + col * 4) = g4[i];
-  }
-}
-
-// dst[w][r][j] = sum_k src[w][r][k] W[k][j] (+ bias[j]) for nwin windows of N
-// rows, j < ncols, k < K (K % 4 == 0). src is shared memory with rows of
-// src_stride floats (% 4 == 0); W is global [K][ldw]; dst rows are
-// dst_stride floats apart and windows dst_win_stride floats apart (shared or
-// global memory). One (window, column) per item, all N rows at once.
-__device__ __forceinline__ void project_rows(const float* src, int src_stride, int K,
-                                             const float* __restrict__ W, int ldw, int ncols,
-                                             const float* __restrict__ bias, float* dst,
-                                             int dst_stride, int dst_win_stride, int nwin,
-                                             int N) {
-  for (int item = threadIdx.x; item < nwin * ncols; item += kThreads) {
-    const int w = item / ncols, j = item - w * ncols;
-    const float* sw = src + w * N * src_stride;
-    float acc[kMaxN];
-#pragma unroll
-    for (int r = 0; r < kMaxN; ++r) acc[r] = 0.f;
-    for (int k = 0; k < K; k += 4) {
-      const float b0 = __ldg(W + (size_t)(k + 0) * ldw + j);
-      const float b1 = __ldg(W + (size_t)(k + 1) * ldw + j);
-      const float b2 = __ldg(W + (size_t)(k + 2) * ldw + j);
-      const float b3 = __ldg(W + (size_t)(k + 3) * ldw + j);
-#pragma unroll
-      for (int r = 0; r < kMaxN; ++r) {
-        if (r < N) {
-          const float4 a = *reinterpret_cast<const float4*>(sw + r * src_stride + k);
-          acc[r] = fmaf(a.x, b0, acc[r]);
-          acc[r] = fmaf(a.y, b1, acc[r]);
-          acc[r] = fmaf(a.z, b2, acc[r]);
-          acc[r] = fmaf(a.w, b3, acc[r]);
-        }
-      }
-    }
-    const float bj = bias ? __ldg(bias + j) : 0.f;
-    float* dw = dst + w * dst_win_stride;
-#pragma unroll
-    for (int r = 0; r < kMaxN; ++r) {
-      if (r < N) dw[r * dst_stride + j] = acc[r] + bj;
-    }
-  }
-}
-
-// p[j] = softmax_j(q . k_j + bias[j] + mask[j]) for one query row. q and the
-// k rows (kr0 + j * stride) hold hd floats of one head. The maximum is taken
-// in the score loop: split into a loop of its own, #1 lost 1.5 % on the
-// H100 (48 registers and a spill instead of 75).
-__device__ __forceinline__ void softmax_row(const float* q, const float* kr0, int stride, int hd,
-                                            const float* __restrict__ bias,
-                                            const float* __restrict__ m, int N,
-                                            float (&p)[kMaxN]) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      const float* kr = kr0 + j * stride;
-      float d = 0.f;
-      for (int t = 0; t < hd; ++t) d = fmaf(q[t], kr[t], d);
-      d += __ldg(bias + j);
-      if (m) d += __ldg(m + j);
-      p[j] = d;
-      mx = fmaxf(mx, d);
-    }
-  }
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j) {
-    if (j < N) {
-      p[j] = expf(p[j] - mx);
-      sum += p[j];
-    }
-  }
-  const float inv = 1.f / sum;
-#pragma unroll
-  for (int j = 0; j < kMaxN; ++j)
-    if (j < N) p[j] *= inv;
-}
-
-__global__ void __launch_bounds__(kThreads)
-wblock_fwd_kernel(const float* __restrict__ x, const float* __restrict__ wqkv,
-                  const float* __restrict__ bqkv, const float* __restrict__ wproj,
-                  const float* __restrict__ bproj, const float* __restrict__ rel_bias,
-                  const float* __restrict__ mask, float* __restrict__ y, int B, int N, int C,
-                  int H, int nW, int wpb) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int xs_stride = C + 4;      // x rows, later the attention output rows
-  const int qs_stride = 3 * C + 1;  // qkv rows
-  float* xs = smem;                          // [wpb][N][C + 4]
-  float* qs = smem + wpb * N * xs_stride;    // [wpb][N][3C + 1]
-  const int w0 = blockIdx.x * wpb;
-  const int nwin = min(wpb, B - w0);
-  const int hd = C / H;
-
-  // 1. the block's windows are contiguous in x: stage them in shared memory
-  load_rows(x + (size_t)w0 * N * C, C, xs, xs_stride, nwin * N);
-  __syncthreads();
-
-  // 2. qkv = x Wqkv + bqkv
-  project_rows(xs, xs_stride, C, wqkv, 3 * C, 3 * C, bqkv, qs, qs_stride, N * qs_stride, nwin, N);
-  __syncthreads();
-
-  // 3. attention per (window, head, query row); the output overwrites x,
-  //    which step 2 has consumed
-  for (int item = threadIdx.x; item < nwin * H * N; item += kThreads) {
-    const int i = item % N;
-    const int h = (item / N) % H;
-    const int w = item / (N * H);
-    const float* qw = qs + w * N * qs_stride;
-    const float* m = mask ? mask + ((size_t)((w0 + w) % nW) * N + i) * N : nullptr;
-    float s[kMaxN];
-    softmax_row(qw + i * qs_stride + h * hd, qw + C + h * hd, qs_stride, hd,
-                rel_bias + (h * N + i) * N, m, N, s);
-    const float* vbase = qw + 2 * C + h * hd;
-    float* o = xs + (w * N + i) * xs_stride + h * hd;
-    for (int t = 0; t < hd; ++t) {
-      float a = 0.f;
-#pragma unroll
-      for (int j = 0; j < kMaxN; ++j)
-        if (j < N) a = fmaf(s[j], vbase[j * qs_stride + t], a);
-      o[t] = a;
-    }
-  }
-  __syncthreads();
-
-  // 4. y = attn_out Wproj + bproj, written straight to global memory
-  project_rows(xs, xs_stride, C, wproj, C, C, bproj, y + (size_t)w0 * N * C, C, N * C, nwin, N);
-}
-
-// ---------------------------------------------------------------------------
-// the training kernels (#2-#5): row-tiled projections on the tensor cores,
-// attention per (window, head) pair between them
+// row-tiled projections on the tensor cores, attention per (window, head)
+// pair between them
 
 // Projections over all R = B N rows of a launch, one 128 x kBN output tile
 // a block (focal::gemm_tile, 3xTF32): c = a b (+ bias) with a [M, K]
@@ -646,31 +486,7 @@ cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) 
 
 }  // namespace
 
-// Forward (#1). Launch on `stream`; returns cudaGetLastError() (0 on
-// success). Pointers are device pointers to contiguous f32 tensors; `mask`
-// may be null (nW ignored).
-extern "C" int focal_wblock_fwd(const void* x, const void* wqkv, const void* bqkv,
-                                const void* wproj, const void* bproj,
-                                const void* rel_bias, const void* mask, void* y,
-                                int B, int N, int C, int H, int nW, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const int wpb = windows_per_block(N, C);
-  const size_t smem = smem_bytes(wpb, N, C);
-  cudaError_t err = cudaFuncSetAttribute(
-      wblock_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (B + wpb - 1) / wpb;
-  wblock_fwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(x), static_cast<const float*>(wqkv),
-      static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
-      static_cast<const float*>(bproj), static_cast<const float*>(rel_bias),
-      static_cast<const float*>(mask), static_cast<float*>(y), B, N, C, H,
-      mask != nullptr ? nW : 1, wpb);
-  return (int)cudaGetLastError();
-}
-
-// Workspace of the training forward (#2, #4), in floats: the qkv projection
+// Workspace of the forward (#1, #2, #4), in floats: the qkv projection
 // [R, 3C] and the attention output [R, C], R = B N. An error where the
 // attention has no launch plan (a head too wide for shared memory).
 extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long* floats) {
@@ -685,11 +501,12 @@ extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long*
   return 0;
 }
 
-// Training forward (#2; #4): the function of focal_wblock_fwd with attention
-// dropout where `keep` is not null: each (window, head, query, key) weight
-// is kept iff its Philox word (keyed by `seed`) is >= `threshold`, then
-// scaled by `inv_keep`, and the keep mask is written to `keep` as uint8
-// [B, H, N, N]. `ws` holds focal_wblock_fwd_workspace floats, 16-byte
+// Forward (#1 with `keep` null; #2 and #4 with attention dropout where
+// `keep` is not null: each (window, head, query, key) weight is kept iff its
+// Philox word (keyed by `seed`) is >= `threshold`, then scaled by
+// `inv_keep`, and the keep mask is written to `keep` as uint8 [B, H, N, N]).
+// Pointers are device pointers to contiguous f32 tensors; `mask` may be
+// null (nW ignored). `ws` holds focal_wblock_fwd_workspace floats, 16-byte
 // aligned, as x, wqkv and wproj must be. Three launches on `stream`: qkv = x
 // Wqkv + bqkv, the attention per (window, head), y = ao Wproj + bproj.
 extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const void* bqkv,

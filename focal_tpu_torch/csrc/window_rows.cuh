@@ -82,20 +82,42 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src, Stride
   }
 }
 
+// Whether key j of a row tile of kN keys is one of the row's N: a tile
+// narrower than kAttnMaxN holds exactly N = kN keys (no test in its
+// unrolled loops), the kAttnMaxN tile any N up to it.
+template <int kN>
+__device__ __forceinline__ bool key_in_row(int j, int N) {
+  return kN < kAttnMaxN || j < N;
+}
+
+// f(c) for the float4 columns c = lane, lane + G, ... of a head: kCols of
+// them, unrolled, where the caller knows that a lane takes exactly kCols
+// (c4 = kCols G); with kCols 0 a loop up to c4.
+template <int kCols, class F>
+__device__ __forceinline__ void for_lane_cols(int lane, const Geo& g, F f) {
+  if (kCols > 0) {
+#pragma unroll
+    for (int k = 0; k < kCols; ++k) f(lane + k * g.lanes);
+  } else {
+    for (int c = lane; c < g.c4; c += g.lanes) f(c);
+  }
+}
+
 // d[j] = a . b_j for j < N over hd floats, where a is one shared row and b_j
 // the rows b0 + j * S: each of the G lanes sums its float4 columns, then a
 // butterfly of shuffles adds the lanes (every lane ends with the same bits:
 // each step adds the same two numbers, in either order). Every lane of the
 // warp must call it.
+template <int kCols = 0, int kN>
 __device__ __forceinline__ void row_dots(const float* a, const float* b0, const Geo& g, int lane,
-                                         float (&d)[kAttnMaxN]) {
+                                         float (&d)[kN]) {
 #pragma unroll
-  for (int j = 0; j < kAttnMaxN; ++j) d[j] = 0.f;
-  for (int c = lane; c < g.c4; c += g.lanes) {
+  for (int j = 0; j < kN; ++j) d[j] = 0.f;
+  for_lane_cols<kCols>(lane, g, [&](int c) {
     const float4 x = *reinterpret_cast<const float4*>(a + 4 * c);
 #pragma unroll
-    for (int j = 0; j < kAttnMaxN; ++j) {
-      if (j < g.N) {
+    for (int j = 0; j < kN; ++j) {
+      if (key_in_row<kN>(j, g.N)) {
         const float4 y = *reinterpret_cast<const float4*>(b0 + j * g.stride + 4 * c);
         d[j] = fmaf(x.x, y.x, d[j]);
         d[j] = fmaf(x.y, y.y, d[j]);
@@ -103,38 +125,48 @@ __device__ __forceinline__ void row_dots(const float* a, const float* b0, const 
         d[j] = fmaf(x.w, y.w, d[j]);
       }
     }
-  }
+  });
   for (int off = g.lanes / 2; off > 0; off >>= 1) {
 #pragma unroll
-    for (int j = 0; j < kAttnMaxN; ++j)
-      if (j < g.N) d[j] += __shfl_xor_sync(kAttnFull, d[j], off);
+    for (int j = 0; j < kN; ++j)
+      if (key_in_row<kN>(j, g.N)) d[j] += __shfl_xor_sync(kAttnFull, d[j], off);
   }
 }
 
-// p = softmax(s + rel_bias row + mask row) over the first N entries.
-__device__ __forceinline__ void softmax_row(float (&p)[kAttnMaxN], const float* __restrict__ bias,
-                                            const float* __restrict__ m, int N) {
+// p = softmax(p) over the first N entries, p holding the scores with their
+// bias and mask added.
+template <int kN>
+__device__ __forceinline__ void softmax_scores(float (&p)[kN], int N) {
   float mx = -INFINITY;
 #pragma unroll
-  for (int j = 0; j < kAttnMaxN; ++j) {
-    if (j < N) {
-      p[j] += __ldg(bias + j);
-      if (m) p[j] += __ldg(m + j);
-      mx = fmaxf(mx, p[j]);
-    }
-  }
+  for (int j = 0; j < kN; ++j)
+    if (key_in_row<kN>(j, N)) mx = fmaxf(mx, p[j]);
   float sum = 0.f;
 #pragma unroll
-  for (int j = 0; j < kAttnMaxN; ++j) {
-    if (j < N) {
+  for (int j = 0; j < kN; ++j) {
+    if (key_in_row<kN>(j, N)) {
       p[j] = expf(p[j] - mx);
       sum += p[j];
     }
   }
   const float inv = 1.f / sum;
 #pragma unroll
-  for (int j = 0; j < kAttnMaxN; ++j)
-    if (j < N) p[j] *= inv;
+  for (int j = 0; j < kN; ++j)
+    if (key_in_row<kN>(j, N)) p[j] *= inv;
+}
+
+// p = softmax(s + rel_bias row + mask row) over the first N entries.
+template <int kN>
+__device__ __forceinline__ void softmax_row(float (&p)[kN], const float* __restrict__ bias,
+                                            const float* __restrict__ m, int N) {
+#pragma unroll
+  for (int j = 0; j < kN; ++j) {
+    if (key_in_row<kN>(j, N)) {
+      p[j] += __ldg(bias + j);
+      if (m) p[j] += __ldg(m + j);
+    }
+  }
+  softmax_scores(p, N);
 }
 
 // The thread's query row: threads tid = r * G + lane serve row r of the

@@ -9,7 +9,7 @@ it) in eval, ``window_block`` (#2 or #1 forward and #3 backward, or #4 and
 #5) in training. With ``pallas_block`` off (the CLI's ``-no_pallas_block``)
 it takes the JAX package's attention-only route instead: the qkv and proj
 Linears around ``fused_window_attention`` (#6) in eval and
-``window_attention`` (#7 or #6 forward, #9 or #8 backward) in training.
+``window_attention_qkv`` (#7 or #6 forward, #9 or #8 backward) in training.
 With ``pallas_mlp`` each block's MLP goes through the fused MLP kernels
 (#10-#12) where ``mlp_takes``. A width that no kernel takes (C not a
 multiple of 4, N above 16: ``wblock_takes``, ``attention_takes``) runs the
@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
 from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_takes
 from focal_tpu_torch.ops.pallas_kernels import (attention_takes, fused_window_attention,
-                                                wblock_takes, window_attention, window_block,
+                                                wblock_takes, window_attention_qkv, window_block,
                                                 window_block_forward)
 
 
@@ -166,17 +166,19 @@ class WindowAttention(nn.Module):
     def _attention_only(self, x, mask, rng):
         """The JAX package's route without the whole-block kernel
         (``focal_tpu/models/swin.py:258-295``): qkv Linear, q * scale after
-        it, the attention kernels on [B_, H, N, hd] views, proj Linear."""
+        it, the attention kernels on [B_, H, N, hd] views, proj Linear. In
+        training the kernels' backward hands the qkv Linear its gradient as
+        one [B_, N, 3C] tensor (``window_attention_qkv``)."""
         B_, N, C = x.shape
         H = self.num_heads
         hd = C // H
-        q, k, v = self.qkv(x).reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
-        q = q * hd**-0.5
+        qkv = self.qkv(x)
         if self.training:
             seed = needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
-            out = window_attention(q, k, v, self._rel_bias(), mask, seed, self.attn_drop)
+            out = window_attention_qkv(qkv, H, self._rel_bias(), mask, seed, self.attn_drop)
         else:
-            out = fused_window_attention(q, k, v, self._rel_bias(), mask)
+            q, k, v = qkv.reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
+            out = fused_window_attention(q * hd**-0.5, k, v, self._rel_bias(), mask)
         return self.proj(out.transpose(1, 2).reshape(B_, N, C))
 
     def _plain_attention(self, x, mask, rng):

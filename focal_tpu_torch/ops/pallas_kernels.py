@@ -9,17 +9,17 @@ reader looks for its TPU counterpart. Every kernel has beside it:
 A CUDA tensor goes to the kernel or the wrapper raises; there is no fallback.
 
 Whole-block kernels (``csrc/window_block.cu``): the qkv projection,
-attention and output projection of a window block:
-  #1 ``fused_window_block``: forward, per window in one kernel;
+attention and output projection of a window block, as row-tiled
+projections over every row of the call (tensor cores, 3xTF32) around an
+attention kernel per (window, head):
+  #1 ``fused_window_block``: forward;
   #2 ``fused_window_block_dropout``: #1 with attention dropout, returning
-     its uint8 keep mask [B_, H, N, N], as row-tiled projections over every
-     row of the call (tensor cores, 3xTF32) around an attention kernel per
-     (window, head);
+     its uint8 keep mask [B_, H, N, N];
   #3 ``fused_window_block_backward``: the VJP of #1 and #2, the same way;
   #4 ``fused_window_block_perhead``: #1 or #2 for the blocks that the JAX
      package's ``wblock_fits`` sends to its per-head kernels;
   #5 ``fused_window_block_perhead_backward``: the VJP of #4.
-#2 and #4 (#3 and #5) launch the same CUDA code; each counts its own
+#1, #2 and #4 (#3 and #5) launch the same CUDA code; each counts its own
 launches. ``window_block_forward`` (eval) and ``window_block`` (training,
 an autograd pair) route each geometry to #1-#3 or to #4/#5.
 
@@ -32,8 +32,10 @@ hd], the projections outside:
   #8 ``fused_window_attention_backward``: the VJP of #6;
   #9 ``fused_window_attention_dropout_backward``: the VJP of #7, its mask
      drawn again from the seed.
-``window_attention`` is their autograd pair (#6 or #7 forward, #8 or #9
-backward); ``window_attention_keep_mask`` writes #7's mask out for checks.
+``window_attention_qkv`` is their autograd pair (#6 or #7 forward, #8 or
+#9 backward) on the qkv projection's [B_, N, 3C] output, whose gradient
+#8/#9 write in that layout; ``window_attention_keep_mask`` writes #7's mask
+out for checks.
 """
 
 import ctypes
@@ -61,11 +63,6 @@ def wblock_fits(N, C, H):
     return 4 * (N * (8 * C + 10) + 2 * H * N * N) <= _MONO_BWD_BUDGET
 
 
-def _c4(hd):
-    """float4 columns of a head of hd floats, as csrc/window_rows.cuh pads it."""
-    return (hd + 3) // 4
-
-
 def wblock_takes(N, C, H):
     """Whether the whole-block kernels (#1-#5, csrc/window_block.cu) take
     window size N, width C and H heads: N <= 16, C a multiple of 4 (the
@@ -78,7 +75,7 @@ def wblock_takes(N, C, H):
     packaged recipe meets."""
     if not 1 <= N <= _MAX_N or C < 4 or C % 4 or C % H:
         return False
-    stride = 4 * _c4(C // H) + 4
+    stride = 4 * ((C // H + 3) // 4) + 4  # a head's row in shared memory (window_rows.cuh)
     return 4 * (4 * N * stride + (2 + H) * N * N) <= _SMEM_OPTIN
 
 
@@ -211,8 +208,8 @@ def _launch(name, fn, dev, *args, lib=None):
 
 
 def fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
-    """proj(softmax(q k^T + rel_bias + mask) v) over windows, with the qkv
-    projection, attention and output projection fused in one kernel (#1).
+    """proj(softmax(q k^T + rel_bias + mask) v) over windows (#1): the qkv
+    projection, the attention and the output projection.
 
     x: [B_, N, C] f32; wqkv: [C, 3C] (column order part|head|dim, q columns
     pre-scaled by hd**-0.5); bqkv: [3C]; wproj: [C, C]; bproj: [C];
@@ -220,17 +217,19 @@ def fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
     mask[w % nW], windows sample-major as window_partition emits them).
     Returns [B_, N, C] f32.
 
+    On the card it is #2 at rate 0: qkv = x Wqkv + bqkv over all B_ N rows
+    of the call, the attention per (window, head) pair, y = ao Wproj +
+    bproj, the projections on the tensor cores (3xTF32, f32-accurate); x,
+    wqkv and wproj must be 16-byte aligned.
+
     Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block (forward,
     seed=None). CPU tensors take the plain version; CUDA tensors launch
     csrc/window_block.cu.
     """
     if x.device.type == "cpu":
         return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-    y = torch.empty_like(x)
-    _launch("fused_window_block", _window_block_lib().focal_wblock_fwd, x.device,
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), B, N, C, H, nW)
+    y, _ = _launch_forward("fused_window_block", x, wqkv, bqkv, wproj, bproj, rel_bias, mask, 0,
+                           0.0)
     fused_window_block.launches += 1
     return y
 
@@ -328,7 +327,7 @@ def _workspace(name, lib, fn, dev, *geometry):
 
 
 def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate):
-    """The CUDA path of #2 and #4: validate, size the workspace, launch.
+    """The CUDA path of #1, #2 and #4: validate, size the workspace, launch.
     Returns (y, keep), keep None at rate 0."""
     B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
     _check_aligned(name, wqkv, wproj)
@@ -630,19 +629,36 @@ def _attention_forward(who, q, k, v, rel_bias, mask, seed, rate):
     return out
 
 
-def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate):
+def _head_views(qkv, H):
+    """q, k, v [B_, H, N, hd] as views of the head columns of a [B_, N, 3C]
+    tensor (column order part | head | dim)."""
+    B, N, C3 = qkv.shape
+    return qkv.view(B, N, 3, H, C3 // (3 * H)).permute(2, 0, 3, 1, 4).unbind(0)
+
+
+def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate, dqkv=None, dq_scale=1.0):
+    """The CUDA path of #8 and #9: (dq, dk, dv, drel_bias), dq times
+    ``dq_scale``. With ``dqkv`` ([B_, N, 3C]) the kernel writes dq, dk and
+    dv into its head columns and they are returned as views of it."""
     B, H, N, hd, nW = _check_attention_args(who, q, k, v, rel_bias, mask)
     dev = q.device
     _check_rows(who, "g", g, (B, H, N, hd), dev)
     lib = _window_attention_lib()
     dropout = _dropout_args(seed, rate)
     ws = _workspace(who, lib, lib.focal_wattn_bwd_workspace, dev, B, H, N, hd, dropout[0])
-    dq, dk, dv = (torch.empty((B, H, N, hd), dtype=torch.float32, device=dev) for _ in range(3))
+    if dqkv is None:
+        outs = [torch.empty((B, H, N, hd), dtype=torch.float32, device=dev) for _ in range(3)]
+    else:
+        _check("dqkv", dqkv, (B, N, 3 * H * hd), dev, who=who)
+        outs = _head_views(dqkv, H)
+    for name, t in zip(("dq", "dk", "dv"), outs):
+        _check_rows(who, name, t, (B, H, N, hd), dev)
     drel_bias = (torch.zeros if B == 0 else torch.empty)((H, N, N), dtype=torch.float32, device=dev)
     _launch(who, lib.focal_wattn_bwd, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            _strides(q, k, v, g), rel_bias.data_ptr(), _ptr(mask), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(), B, H, N, hd, nW, *dropout, lib=lib)
-    return dq, dk, dv, drel_bias
+            _strides(q, k, v, g), rel_bias.data_ptr(), _ptr(mask), *(t.data_ptr() for t in outs),
+            _strides(*outs), float(dq_scale), drel_bias.data_ptr(), ws.data_ptr(), B, H, N, hd,
+            nW, *dropout, lib=lib)
+    return (*outs, drel_bias)
 
 
 def _check_rate(who, rate):
@@ -770,41 +786,71 @@ def _rows(t):
     return t if t.device.type == "cpu" or _takes_rows(t) else t.contiguous()
 
 
-class _WindowAttention(torch.autograd.Function):
-    """#7 (or #6 at rate 0) forward, #9 (or #8) backward; the seed is the
-    only residual of the dropout."""
+class _WindowAttentionQKV(torch.autograd.Function):
+    """#7 (or #6 at rate 0) forward and #9 (or #8) backward on the qkv
+    projection's output: q, k, v are head views of ``qkv`` [B_, N, 3C], q
+    scaled by hd**-0.5 before the forward; the backward writes d(qkv) into
+    one [B_, N, 3C] tensor, dq times the scale, so nothing stacks or copies
+    the three gradients. The seed is the only residual of the dropout."""
 
     @staticmethod
-    def forward(ctx, q, k, v, rel_bias, mask, seed, rate):
+    def forward(ctx, qkv, rel_bias, mask, H, seed, rate):
+        q, k, v = _head_views(qkv, H)
+        q = q * (q.shape[-1] ** -0.5)
         if rate > 0.0:
             out = fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate)
-            ctx.seed = seed
         else:
             out = fused_window_attention(q, k, v, rel_bias, mask)
-            ctx.seed = None
-        ctx.save_for_backward(q, k, v, rel_bias, mask)
-        ctx.rate = rate
+        ctx.save_for_backward(qkv, q, rel_bias, mask)
+        ctx.H, ctx.seed, ctx.rate = H, (seed if rate > 0.0 else None), rate
         return out
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v, rel_bias, mask = ctx.saved_tensors
-        grads = fused_window_attention_backward(q, k, v, rel_bias, mask, _rows(g), ctx.seed,
-                                                ctx.rate)
-        return (*grads, None, None, None)
+        qkv, q, rel_bias, mask = ctx.saved_tensors
+        _, k, v = _head_views(qkv, ctx.H)
+        scale = q.shape[-1] ** -0.5
+        if qkv.device.type == "cpu":
+            dq, dk, dv, drel_bias = fused_window_attention_backward(q, k, v, rel_bias, mask, g,
+                                                                    ctx.seed, ctx.rate)
+            B, H, N, hd = dq.shape
+            dqkv = torch.stack([dq * scale, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, 3 * H * hd)
+            return dqkv, drel_bias, None, None, None, None
+        dqkv = torch.empty_like(qkv)
+        if ctx.seed is None:
+            who, kernel = "fused_window_attention_backward", fused_window_attention_backward
+        else:
+            who, kernel = ("fused_window_attention_dropout_backward",
+                           fused_window_attention_dropout_backward)
+        drel_bias = _attention_backward(who, q, k, v, rel_bias, mask, _rows(g), ctx.seed, ctx.rate,
+                                        dqkv=dqkv, dq_scale=scale)[3]
+        kernel.launches += 1
+        return dqkv, drel_bias, None, None, None, None
 
 
-def window_attention(q, k, v, rel_bias, mask=None, seed=0, rate=0.0):
-    """Differentiable window attention for training: forward by #7 (rate >
-    0) or #6, backward by #9 or #8; gradients in q, k, v and rel_bias.
-    Arguments as fused_window_attention_dropout."""
-    return _WindowAttention.apply(_rows(q), _rows(k), _rows(v), rel_bias, mask, seed, float(rate))
+def window_attention_qkv(qkv, num_heads, rel_bias, mask=None, seed=0, rate=0.0):
+    """Differentiable window attention on the qkv projection's output, as
+    the attention-only route of the Swin block hands it over: qkv [B_, N,
+    3C] (column order part | head | dim, q unscaled), ``num_heads`` heads;
+    q is scaled by hd**-0.5, then #7 (rate > 0) or #6 forward and #9 or #8
+    backward, whose d(qkv) comes out as one [B_, N, 3C] tensor. Returns
+    [B_, H, N, hd]; gradients in qkv and rel_bias. qkv must be contiguous
+    (the Linear's output). CPU tensors take the plain versions."""
+    return _WindowAttentionQKV.apply(qkv.contiguous(), rel_bias, mask, int(num_heads), seed,
+                                     float(rate))
+
+
+def window_attention_qkv_reference(qkv, num_heads, rel_bias, mask=None, seed=0, rate=0.0):
+    """Plain version of window_attention_qkv on any device (autograd
+    through window_attention_reference on the scaled head views)."""
+    q, k, v = _head_views(qkv, num_heads)
+    return window_attention_reference(q * (q.shape[-1] ** -0.5), k, v, rel_bias, mask, seed, rate)
 
 
 def window_attention_reference(q, k, v, rel_bias, mask=None, seed=0, rate=0.0):
-    """Plain version of window_attention on any device (draw_keep_mask's
-    mask, autograd through fused_window_attention_reference), with its
-    arguments so that it can stand in for it."""
+    """The attention of window_attention_qkv_reference on q, k, v [B_, H,
+    N, hd] (q scaled): draw_keep_mask's mask, autograd through
+    fused_window_attention_reference."""
     keep = None
     if rate > 0.0:
         B, H, N, _ = q.shape
@@ -819,7 +865,8 @@ def _window_attention_lib():
         drop = [i, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p]  # dropout .. stream
         lib.focal_wattn_fwd.argtypes = [p] * 3 + [ll] + [p] * 3 + [i] * 5 + drop
         lib.focal_wattn_bwd_workspace.argtypes = [i] * 5 + [ll]
-        lib.focal_wattn_bwd.argtypes = [p] * 4 + [ll] + [p] * 7 + [i] * 5 + drop
+        lib.focal_wattn_bwd.argtypes = ([p] * 4 + [ll] + [p] * 5 + [ll, ctypes.c_float] + [p] * 2
+                                        + [i] * 5 + drop)
         lib.focal_wattn_keep_mask.argtypes = [p, i, i, i, ctypes.c_ulonglong, ctypes.c_uint, p]
         for fn in (lib.focal_wattn_fwd, lib.focal_wattn_bwd_workspace, lib.focal_wattn_bwd,
                    lib.focal_wattn_keep_mask):
@@ -831,17 +878,15 @@ def _window_attention_lib():
 
 def _window_block_lib():
     lib = _build.load(_WINDOW_BLOCK_SRC)
-    if lib.focal_wblock_fwd.argtypes is None:
+    if lib.focal_wblock_fwd_dropout.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ll = ctypes.POINTER(ctypes.c_longlong)
-        lib.focal_wblock_fwd.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.focal_wblock_fwd_workspace.argtypes = [i] * 4 + [ll]
         lib.focal_wblock_fwd_dropout.argtypes = (
             [p] * 10 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
         lib.focal_wblock_bwd_workspace.argtypes = [i] * 5 + [ll]
         lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
-        for fn in (lib.focal_wblock_fwd, lib.focal_wblock_fwd_workspace,
-                   lib.focal_wblock_fwd_dropout, lib.focal_wblock_bwd_workspace,
+        for fn in (lib.focal_wblock_fwd_workspace, lib.focal_wblock_fwd_dropout, lib.focal_wblock_bwd_workspace,
                    lib.focal_wblock_bwd):
             fn.restype = ctypes.c_int
         lib.focal_gemm_3xtf32.argtypes = [p] * 3 + [i] * 4 + [p]

@@ -144,20 +144,19 @@ def test_cpu_wrappers_take_the_plain_versions_and_launch_nothing():
 
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 def test_window_attention_function_matches_autograd_of_plain(rate):
-    """The autograd pair on views of one qkv tensor (as the Swin block hands
-    them over): its output and its gradients in q, k, v and rel_bias equal
+    """The autograd pair on the qkv projection's output (as the Swin block
+    hands it over): its output and its gradients in qkv and rel_bias equal
     autograd through the plain version with the same mask."""
     rng = np.random.default_rng(3)
     B, H, N, hd = 20, 2, 9, 8
-    qkv = torch.from_numpy(rng.normal(size=(B, N, 3, H, hd)).astype(np.float32))
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * hd)).astype(np.float32))
     rel_bias = torch.from_numpy((0.02 * rng.normal(size=(H, N, N))).astype(np.float32))
     mask = torch.from_numpy(shifted_window_mask(6, 6, 3, 3, 1, 1))
     g = torch.from_numpy(rng.normal(size=(B, H, N, hd)).astype(np.float32))
     runs = []
-    for fn in (pk.window_attention, pk.window_attention_reference):
+    for fn in (pk.window_attention_qkv, pk.window_attention_qkv_reference):
         leaves = [qkv.clone().requires_grad_(True), rel_bias.clone().requires_grad_(True)]
-        q, k, v = leaves[0].permute(2, 0, 3, 1, 4).unbind(0)
-        y = fn(q * hd**-0.5, k, v, leaves[1], mask, seed=9, rate=rate)
+        y = fn(leaves[0], H, leaves[1], mask, seed=9, rate=rate)
         runs.append((y.detach(), torch.autograd.grad(y, leaves, g)))
     (y1, g1), (y2, g2) = runs
     torch.testing.assert_close(y1, y2, rtol=0, atol=0)

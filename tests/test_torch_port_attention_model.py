@@ -11,7 +11,8 @@ takes, and the entry points.
     feature heads within 1e-4, as ROADMAP holds model outputs.
   * The route, with spies on the Swin module's kernel entry points: under
     ``-no_pallas_block`` every block calls ``fused_window_attention`` (#6)
-    once in eval and ``window_attention`` (#7/#9) once in training, and
+    once in eval and ``window_attention_qkv`` (#7/#9 on the qkv Linear's
+    output, d(qkv) in its layout) once in training, and
     never the whole-block ``window_block_forward`` / ``window_block``;
     without it, the reverse.
   * ``python -m focal_tpu_torch.train -no_pallas_block`` on ``-device cpu``
@@ -19,7 +20,7 @@ takes, and the entry points.
     then ``python -m focal_tpu_torch.test`` and ``python -m
     focal_tpu_torch.predict`` on the finetuned ``_best``: the files, finite
     metrics and probabilities of the expected shape, the training steps
-    through ``window_attention`` only.
+    through ``window_attention_qkv`` only.
 """
 
 import importlib
@@ -128,7 +129,7 @@ def test_attention_only_model_matches_flax_kernel_route(tiny_pair, head, monkeyp
 
 def _spy_calls(monkeypatch):
     calls = {}
-    for name in ("window_attention", "fused_window_attention", "window_block",
+    for name in ("window_attention_qkv", "fused_window_attention", "window_block",
                  "window_block_forward"):
         real = getattr(tswin, name)
 
@@ -160,7 +161,7 @@ def test_route_calls_one_kernel_entry_per_block(pallas_block, monkeypatch):
         assert calls == {"window_block": blocks}
     else:
         assert eval_calls == {"fused_window_attention": blocks}
-        assert calls == {"window_attention": blocks}
+        assert calls == {"window_attention_qkv": blocks}
     assert net.stage0_shake_audio.block0.attn.qkv.weight.grad.abs().max() > 0
 
 
@@ -175,7 +176,7 @@ def test_entry_points_run_the_attention_only_route(tmp_path, monkeypatch):
     state, _, points = train_cli.main(pre + ["-epochs", "2"])
     assert [p["epoch"] for p in points] == [0, 1] and state.step == 8
     # 8 steps of one fused [2B] forward through the 8 blocks; eval forwards don't train
-    assert calls["window_attention"] == 8 * 8 and "window_block" not in calls
+    assert calls["window_attention_qkv"] == 8 * 8 and "window_block" not in calls
     assert "window_block_forward" not in calls and calls["fused_window_attention"] > 0
     state, _, points = train_cli.main(pre + ["-epochs", "3", "-resume"])
     assert [p["epoch"] for p in points] == [2] and state.step == 12

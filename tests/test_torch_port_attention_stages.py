@@ -1,4 +1,19 @@
-"""Routes at the widths no kernel takes, on the CPU.
+"""The attention-only backward's phase order (#8, #9), #1 on the row-tiled
+forward, and the routes at the widths no kernel takes, on the CPU.
+
+#8 and #9 (csrc/window_attention.cu) walk chunks of P (window, head) pairs
+with a persistent grid (block b takes chunks b, b + grid, ...); per chunk
+they compute each query row's softmax, d_attn, ds and dq (times the q
+scale), then each key row's dk and dv, and add the chunk's ds to the
+block's d rel_bias per head in pair order; one ordered pass adds the
+blocks' partials. The route's backward writes d(qkv) as one [B_, N, 3C]
+tensor. ``stages_attention_backward`` writes that order out in plain
+PyTorch; here it runs at N 9, hd 16/32/64, 4 heads, window batches that
+end in a ragged chunk, shifted and unshifted, against the JAX
+``fused_window_attention`` VJP (its Pallas kernels in interpret mode) at
+rate 0 and the TPU kernels' ``_bwd_math`` fed the same numpy keep mask at
+rate 0.2. #1 runs #2's row-tiled forward at rate 0: the plain block equals
+that phase order (``stages_forward``) with f32 and 3xTF32 products.
 
 Each fused route has a gate that copies the JAX package's (``mlp_fits``,
 ``tower_fits``, ``wblock_fits``) and a gate the port routes by
@@ -10,8 +25,10 @@ convs, and for window attention the JAX package's XLA route in plain
 PyTorch (``WindowAttention._plain_attention``). The JAX package runs its
 kernel there; no packaged recipe has such a width.
 
-Tolerance: 1e-5 absolute against the JAX kernel in interpret mode (f32
-at these widths).
+Tolerances (f32 on both sides, summation order only): d(qkv) and
+d rel_bias 1e-5 relative (max|got - want| / max|want|); outputs 1e-5
+absolute, also against the JAX kernel in interpret mode at the narrow
+widths no kernel of the port takes.
 """
 
 import jax
@@ -24,6 +41,7 @@ from focal_tpu.models.swin import WindowAttention as JaxWindowAttention
 from focal_tpu.models.swin import shifted_window_mask
 from focal_tpu.ops.conv_tower import tower_fits as jax_tower_fits
 from focal_tpu.ops.pallas_kernels import expand_bias_lanes
+from focal_tpu.ops.pallas_kernels import fused_window_attention as jax_fused_window_attention
 from focal_tpu.ops.pallas_kernels import fused_window_block as jax_fused_window_block
 from focal_tpu.ops.pallas_kernels import mlp_fits as jax_mlp_fits
 from focal_tpu.ops.pallas_kernels import wblock_fits as jax_wblock_fits
@@ -33,6 +51,162 @@ from focal_tpu_torch.ops import conv_tower as ct
 from focal_tpu_torch.ops import fused_mlp as fm
 from focal_tpu_torch.ops import pallas_kernels as pk
 from focal_tpu_torch.weights import params_from_flax
+from test_torch_port_attention_kernel import _inputs, _jax_dropout
+from test_torch_port_perhead_stages import GEMMS, _abs, _case, _torch, stages_forward
+
+# ---------------------------------------------------------------------------
+# #8 and #9: the phase order of the persistent, ring-staged backward
+
+THREADS, MAX_LANES, SMEM_OPTIN = 256, 8, 232448  # csrc/window_rows.cuh; the H100's opt-in
+
+
+def attention_plan(B, H, N, hd):
+    """(lanes G, pairs P a chunk) as focal::make_geo and bwd_plan set them:
+    G a power of two up to 8 dividing the float4 columns with two columns
+    a lane; P = 256 / (N G), fewer where the two-slot ring of q, k, v, g
+    rows does not fit a block's shared memory."""
+    c4 = -(-hd // 4)
+    lanes = 1
+    while 2 * lanes <= MAX_LANES and c4 % (2 * lanes) == 0 and 4 * lanes <= c4:
+        lanes *= 2
+    pairs = max(1, THREADS // (N * lanes))
+    stride = 4 * c4 + 4
+    while pairs > 1 and 4 * (8 * pairs * N * stride + (2 * pairs + H) * N * N) > SMEM_OPTIN:
+        pairs -= 1
+    return lanes, pairs
+
+
+def stages_attention_backward(q, k, v, g, rel_bias, mask, keep, rate, dq_scale, grid):
+    """#8/#9's phase order: (d(qkv) [B_, N, 3C] with dq times ``dq_scale``,
+    drel_bias [H, N, N]) for q (already scaled), k, v, g [B_, H, N, hd]."""
+    B, H, N, hd = q.shape
+    _, P = attention_plan(B, H, N, hd)
+    total = B * H
+    nchunks = -(-total // P)
+    grads = torch.zeros(3, B, H, N, hd)
+    partials = []
+    for b in range(grid):
+        dacc = torch.zeros(H, N, N)
+        for chunk in range(b, nchunks, grid):
+            pairs = torch.arange(chunk * P, min(total, (chunk + 1) * P))
+            w, h = pairs // H, pairs % H
+            qc, kc, vc, gc = (t[w, h] for t in (q, k, v, g))
+            s = qc @ kc.transpose(-1, -2) + rel_bias[h]
+            if mask is not None:
+                s = s + mask[w % mask.shape[0]]
+            p = torch.softmax(s, dim=-1)
+            da = gc @ vc.transpose(-1, -2)
+            a_v = p
+            if keep is not None:
+                kp = keep[w, h].bool()
+                a_v = torch.where(kp, p / (1.0 - rate), 0.0)
+                da = torch.where(kp, da / (1.0 - rate), 0.0)
+            ds = p * (da - (da * p).sum(-1, keepdim=True))
+            grads[0, w, h] = (ds @ kc) * dq_scale
+            grads[1, w, h] = ds.transpose(-1, -2) @ qc
+            grads[2, w, h] = a_v.transpose(-1, -2) @ gc
+            for pl in range(len(pairs)):  # pair order, each head's running sum
+                dacc[h[pl]] = dacc[h[pl]] + ds[pl]
+        partials.append(dacc)
+    drel_bias = torch.zeros(H, N, N)
+    for part in partials:  # block order, as reduce_partials_kernel
+        drel_bias = drel_bias + part
+    return grads.permute(1, 3, 0, 2, 4).reshape(B, N, 3 * H * hd), drel_bias
+
+
+def _laid(dq, dk, dv, scale):
+    """[B_, H, N, hd] gradients as the route's d(qkv) [B_, N, 3C]."""
+    B, H, N, hd = dq.shape
+    return np.stack([dq * np.float32(scale), dk, dv]).transpose(1, 3, 0, 2, 4).reshape(
+        B, N, 3 * H * hd)
+
+
+ATTN_STAGE_GEOMETRIES = [(37, 4, 9, 16, 1), (37, 4, 9, 16, 4), (29, 4, 9, 32, 4),
+                         (13, 4, 9, 64, 1), (13, 4, 9, 64, 4)]
+
+
+def test_attention_plan_at_the_mod_widths():
+    """hd 16, 32, 64 take 2, 4 and 8 lanes a query row and 14, 7 and 3 pairs
+    a chunk; every test geometry ends in a ragged chunk."""
+    assert [attention_plan(512, 4, 9, hd) for hd in (16, 32, 64)] == [(2, 14), (4, 7), (8, 3)]
+    assert attention_plan(67, 4, 9, 256) == (8, 3)
+    for B, H, N, hd, _ in ATTN_STAGE_GEOMETRIES:
+        assert (B * H) % attention_plan(B, H, N, hd)[1] != 0
+
+
+@pytest.mark.parametrize("B,H,N,hd,nW", ATTN_STAGE_GEOMETRIES)
+@pytest.mark.parametrize("grid", [1, 3])
+def test_attention_stages_match_the_jax_kernel_at_rate_0(B, H, N, hd, nW, grid):
+    (q, k, v, g, rel_bias, mask), _ = _inputs(B + hd + nW, B, H, N, hd, nW)
+    scale = hd**-0.5
+    got, drb = stages_attention_backward(*(torch.from_numpy(a) for a in (q, k, v, g, rel_bias)),
+                                         _t(mask), None, 0.0, scale, grid)
+    bias_l = expand_bias_lanes(jnp.asarray(rel_bias), mask)
+    _, vjp = jax.vjp(jax.jit(jax_fused_window_attention), *(jnp.asarray(a) for a in (q, k, v)),
+                     bias_l)
+    dq, dk, dv, dbias_l = (np.asarray(a) for a in vjp(jnp.asarray(g)))
+    assert _rel(got.numpy(), _laid(dq, dk, dv, scale)) <= 1e-5
+    assert _rel(drb.numpy(), dbias_l.sum(-1)) <= 1e-5
+
+
+@pytest.mark.parametrize("B,H,N,hd,nW", ATTN_STAGE_GEOMETRIES)
+def test_attention_stages_match_the_tpu_kernels_math_with_dropout(B, H, N, hd, nW):
+    (q, k, v, g, rel_bias, mask), rng = _inputs(B + hd + 2 * nW, B, H, N, hd, nW)
+    rate, scale = 0.2, hd**-0.5
+    keep = (rng.random((B, H, N, N)) >= rate).astype(np.uint8)
+    got, drb = stages_attention_backward(*(torch.from_numpy(a) for a in (q, k, v, g, rel_bias)),
+                                         _t(mask), torch.from_numpy(keep), rate, scale, 3)
+    _, (dq, dk, dv, drel) = _jax_dropout(q, k, v, g, rel_bias, mask, keep, rate)
+    assert _rel(got.numpy(), _laid(dq, dk, dv, scale)) <= 1e-5
+    assert _rel(drb.numpy(), drel) <= 1e-5
+
+
+@pytest.mark.parametrize("hd", [16, 64])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_route_function_writes_the_qkv_layout(hd, rate):
+    """window_attention_qkv on the CPU (the route's autograd pair, the
+    plain versions inside): its d(qkv) and d rel_bias against the stage
+    emulation fed draw_keep_mask's mask, the one the CPU wrappers draw."""
+    B, H, N, nW = 37, 4, 9, 4
+    rng = np.random.default_rng(hd)
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * H * hd)).astype(np.float32))
+    rel_bias = torch.from_numpy((0.02 * rng.normal(size=(H, N, N))).astype(np.float32))
+    mask = torch.from_numpy(shifted_window_mask(6, 6, 3, 3, 1, 1))
+    gy = torch.from_numpy(rng.normal(size=(B, H, N, hd)).astype(np.float32))
+    leaves = [qkv.clone().requires_grad_(True), rel_bias.clone().requires_grad_(True)]
+    y = pk.window_attention_qkv(leaves[0], H, leaves[1], mask, seed=5, rate=rate)
+    got = torch.autograd.grad(y, leaves, gy)
+    q, k, v = qkv.view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    keep = pk.draw_keep_mask(5, (B, H, N, N), rate, "cpu") if rate else None
+    want = stages_attention_backward(q * hd**-0.5, k, v, gy, rel_bias, mask, keep, rate,
+                                     hd**-0.5, 3)
+    assert got[0].shape == (B, N, 3 * H * hd)
+    for a, w in zip(got, want):
+        assert _rel(a.numpy(), w.numpy()) <= 1e-5
+
+
+def _t(a):
+    return None if a is None else torch.from_numpy(a)
+
+
+def _rel(got, want):
+    return float(np.abs(got - want).max() / np.abs(want).max())
+
+
+# ---------------------------------------------------------------------------
+# #1: the row-tiled forward at rate 0
+
+
+@pytest.mark.parametrize("gemm", sorted(GEMMS))
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("nW", [1, 4])
+def test_window_block_at_rate_0_is_the_row_tiled_forward(gemm, C, nW):
+    """fused_window_block (its plain version here) equals #2's phase order
+    with no keep mask, which #1 launches on the card: 1e-5 absolute."""
+    arrs, mask, _ = _case(C, nW, 0.0, 5 * C + nW)
+    args, tmask, _, _ = _torch(arrs, mask, None)
+    y, _ = stages_forward(*args, tmask, gemm=GEMMS[gemm])
+    assert _abs(pk.fused_window_block(*args, tmask), y) <= 1e-5
 
 # ---------------------------------------------------------------------------
 # the gates
@@ -97,7 +271,7 @@ def test_window_gates_refuse_where_the_kernels_do():
 
 def _spy_routes(monkeypatch):
     calls = []
-    for name in ("window_attention", "fused_window_attention", "window_block",
+    for name in ("window_attention_qkv", "fused_window_attention", "window_block",
                  "window_block_forward"):
         def spy(*args, _name=name, **kw):
             calls.append(_name)

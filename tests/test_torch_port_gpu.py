@@ -56,6 +56,51 @@ def test_kernel_matches_plain_on_card(B, N, C, H, nW):
     assert y.shape == ref.shape and float((y - ref).abs().max()) <= 1e-4
 
 
+def _mod_block_geometries(batch):
+    """(windows, N, C, H, shift mask or None) of every distinct block of a
+    MOD SW_Transformer forward at ``batch`` samples: ten geometries."""
+    import os
+
+    from focal_tpu_torch.models.sw_transformer import mod_geometry
+    from focal_tpu_torch.models.swin import block_geometry, shifted_window_mask
+    from focal_tpu_torch.params import load_yaml
+
+    cfg = load_yaml(os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                                 "focal_tpu_torch", "configs", "MOD.yaml"))
+    heads = cfg["SW_Transformer"]["time_freq_head_num"]
+    out = set()
+    for mod in cfg["modality_names"]:
+        geo = mod_geometry(cfg, cfg["location_names"][0], mod)
+        for stage, ((H, W), C) in enumerate(geo["stages"]):
+            for i in range(geo["block_num"][stage]):
+                shift = [0, 0] if i % 2 == 0 else [w // 2 for w in geo["window"]]
+                wh, ww, sh, sw, shifted = block_geometry((H, W), geo["window"], shift)
+                nW = (H // wh) * (W // ww)
+                out.add((batch * nW, wh * ww, C, heads, (H, W, wh, ww, sh, sw) if shifted else None))
+    return [(B, N, C, Hh, None if m is None else shifted_window_mask(*m))
+            for B, N, C, Hh, m in sorted(out, key=str)]
+
+
+@pytest.mark.gpu
+def test_kernel_at_every_served_mod_geometry_repeats_bitwise():
+    """#1 (the row-tiled forward at rate 0) at the ten block geometries of a
+    served MOD batch of 128: within 1e-4 of plain, one launch counted a
+    call, the same bits on a second call."""
+    dev = _card()
+    geos = _mod_block_geometries(128)
+    assert len(geos) == 10
+    for B, N, C, H, mask in geos:
+        args = _args(np.random.default_rng(B + C), B, N, C, H, 0, dev)
+        args[-1] = None if mask is None else torch.from_numpy(mask).to(dev)
+        before = fused_window_block.launches
+        y = fused_window_block(*args)
+        again = fused_window_block(*args)
+        torch.cuda.synchronize()
+        assert fused_window_block.launches == before + 2
+        assert torch.equal(y, again), (B, N, C)
+        assert float((y - fused_window_block_reference(*args)).abs().max()) <= 1e-4, (B, N, C)
+
+
 @pytest.mark.gpu
 def test_kernel_wrapper_raises_on_cuda_input_it_cannot_take():
     dev = _card()
@@ -992,39 +1037,50 @@ def test_attention_mask_equals_the_whole_block_kernels_mask():
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd,nW", [(509, 4, 9, 16, 16), (512, 4, 9, 32, 64),
+                                         (511, 4, 9, 64, 0), (67, 4, 9, 256, 4),
+                                         (37, 2, 4, 8, 3), (33, 4, 16, 12, 2)])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
-def test_window_attention_function_on_qkv_views(rate):
-    """The autograd pair on strided views of one qkv tensor, as the Swin
-    block hands them over: #7 (or #6) forward, #9 (or #8) backward, its
-    gradients in qkv and rel_bias against autograd of the plain version
-    with the same mask."""
+def test_window_attention_function_on_qkv_views(B, H, N, hd, nW, rate):
+    """window_attention_qkv, the route's autograd pair on the qkv Linear's
+    [B_, N, 3C] output: #6/#7 forward, #8/#9 writing d(qkv) in that layout
+    with dq times the q scale. Output within 1e-4, d(qkv) and d rel_bias
+    within 1e-4 relative of autograd of the plain version fed the kernel's
+    mask; the same bits as the [B_, H, N, hd] backward scaled and laid out
+    on the host, and on a second call. Window batches that end in a ragged
+    chunk of pairs."""
     from focal_tpu_torch.ops import pallas_kernels as pk
 
     dev = _card()
-    B, H, N, hd, nW = 130, 4, 9, 16, 4
-    rng = np.random.default_rng(13)
-    qkv = torch.from_numpy(rng.normal(size=(B, N, 3, H, hd)).astype(np.float32)).to(dev)
-    _, _, _, rel_bias, mask, g = _attn_args(rng, B, H, N, hd, nW, dev)
-    keep = pk.window_attention_keep_mask(17, B, H, N, rate, dev) if rate else None
-    kernels = ((pk.fused_window_attention_dropout, pk.fused_window_attention_dropout_backward)
-               if rate else (pk.fused_window_attention, pk.fused_window_attention_backward))
-    before = [f.launches for f in kernels]
+    rng = np.random.default_rng(B + hd + 7)
+    C = H * hd
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(dev)
+    _, _, _, rel_bias, mask, _ = _attn_args(rng, B, H, N, hd, nW, dev)
+    gy = torch.from_numpy(rng.normal(size=(B, H, N, hd)).astype(np.float32)).to(dev)
+    keep = pk.window_attention_keep_mask(23, B, H, N, rate, dev) if rate else None
+    bwd = pk.fused_window_attention_dropout_backward if rate else pk.fused_window_attention_backward
     runs = []
-    for kernel in (True, False):
+    for _ in range(2):
         leaves = [qkv.clone().requires_grad_(True), rel_bias.clone().requires_grad_(True)]
-        q, k, v = leaves[0].permute(2, 0, 3, 1, 4).unbind(0)
-        q = q * hd**-0.5
-        if kernel:
-            y = pk.window_attention(q, k, v, leaves[1], mask, seed=17, rate=rate)
-        else:
-            y = pk.fused_window_attention_reference(q, k, v, leaves[1], mask, keep, rate)
-        runs.append((y.detach(), torch.autograd.grad(y, leaves, g)))
-    torch.cuda.synchronize()
-    assert [f.launches for f in kernels] == [b + 1 for b in before]
-    (y, got), (ref, want) = runs
-    assert float((y - ref).abs().max()) <= 1e-4
+        before = bwd.launches
+        y = pk.window_attention_qkv(leaves[0], H, leaves[1], mask, seed=23, rate=rate)
+        runs.append((y.detach(), torch.autograd.grad(y, leaves, gy)))
+        torch.cuda.synchronize()
+        assert bwd.launches == before + 1
+    (y, got), (y2, again) = runs
+    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(got, again))
+    leaves = [qkv.clone().requires_grad_(True), rel_bias.clone().requires_grad_(True)]
+    q, k, v = leaves[0].view(B, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
+    ref = pk.fused_window_attention_reference(q * hd**-0.5, k, v, leaves[1], mask, keep, rate)
+    want = torch.autograd.grad(ref, leaves, gy)
+    assert float((y - ref.detach()).abs().max()) <= 1e-4
     for a, w in zip(got, want):
-        assert _rel(a, w) <= 1e-4
+        assert a.shape == w.shape and _rel(a, w) <= 1e-4, _rel(a, w)
+    qs = (q * hd**-0.5).detach()
+    dq, dk, dv, drb = pk.fused_window_attention_backward(qs, k.detach(), v.detach(), rel_bias,
+                                                         mask, gy, 23 if rate else None, rate)
+    laid = torch.stack([dq * hd**-0.5, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, 3 * C)
+    assert torch.equal(got[0], laid) and torch.equal(got[1], drb)
 
 
 @pytest.mark.gpu
