@@ -133,14 +133,9 @@ __device__ __forceinline__ void row_dots(const float* a, const float* b0, const 
   }
 }
 
-// p = softmax(p) over the first N entries, p holding the scores with their
-// bias and mask added.
+// p = exp(p - mx) / sum over the first N entries, mx their maximum.
 template <int kN>
-__device__ __forceinline__ void softmax_scores(float (&p)[kN], int N) {
-  float mx = -INFINITY;
-#pragma unroll
-  for (int j = 0; j < kN; ++j)
-    if (key_in_row<kN>(j, N)) mx = fmaxf(mx, p[j]);
+__device__ __forceinline__ void softmax_from_max(float (&p)[kN], float mx, int N) {
   float sum = 0.f;
 #pragma unroll
   for (int j = 0; j < kN; ++j) {
@@ -155,18 +150,33 @@ __device__ __forceinline__ void softmax_scores(float (&p)[kN], int N) {
     if (key_in_row<kN>(j, N)) p[j] *= inv;
 }
 
-// p = softmax(s + rel_bias row + mask row) over the first N entries.
+// p = softmax(p) over the first N entries, p holding the scores with their
+// bias and mask added.
+template <int kN>
+__device__ __forceinline__ void softmax_scores(float (&p)[kN], int N) {
+  float mx = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < kN; ++j)
+    if (key_in_row<kN>(j, N)) mx = fmaxf(mx, p[j]);
+  softmax_from_max(p, mx, N);
+}
+
+// p = softmax(s + rel_bias row + mask row) over the first N entries. The
+// maximum is taken in the loop that adds the bias: in a loop of its own,
+// #2/#3 took ~1.5 % longer on the H100.
 template <int kN>
 __device__ __forceinline__ void softmax_row(float (&p)[kN], const float* __restrict__ bias,
                                             const float* __restrict__ m, int N) {
+  float mx = -INFINITY;
 #pragma unroll
   for (int j = 0; j < kN; ++j) {
     if (key_in_row<kN>(j, N)) {
       p[j] += __ldg(bias + j);
       if (m) p[j] += __ldg(m + j);
+      mx = fmaxf(mx, p[j]);
     }
   }
-  softmax_scores(p, N);
+  softmax_from_max(p, mx, N);
 }
 
 // The thread's query row: threads tid = r * G + lane serve row r of the

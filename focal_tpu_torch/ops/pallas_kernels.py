@@ -638,8 +638,9 @@ def _head_views(qkv, H):
 
 def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate, dqkv=None, dq_scale=1.0):
     """The CUDA path of #8 and #9: (dq, dk, dv, drel_bias), dq times
-    ``dq_scale``. With ``dqkv`` ([B_, N, 3C]) the kernel writes dq, dk and
-    dv into its head columns and they are returned as views of it."""
+    ``dq_scale``. With ``dqkv`` (a contiguous [B_, N, 3C] tensor of q's
+    device) the kernel writes dq, dk and dv into its head columns and they
+    are returned as views of it."""
     B, H, N, hd, nW = _check_attention_args(who, q, k, v, rel_bias, mask)
     dev = q.device
     _check_rows(who, "g", g, (B, H, N, hd), dev)
@@ -649,10 +650,7 @@ def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate, dqkv=None, 
     if dqkv is None:
         outs = [torch.empty((B, H, N, hd), dtype=torch.float32, device=dev) for _ in range(3)]
     else:
-        _check("dqkv", dqkv, (B, N, 3 * H * hd), dev, who=who)
         outs = _head_views(dqkv, H)
-    for name, t in zip(("dq", "dk", "dv"), outs):
-        _check_rows(who, name, t, (B, H, N, hd), dev)
     drel_bias = (torch.zeros if B == 0 else torch.empty)((H, N, N), dtype=torch.float32, device=dev)
     _launch(who, lib.focal_wattn_bwd, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             _strides(q, k, v, g), rel_bias.data_ptr(), _ptr(mask), *(t.data_ptr() for t in outs),
