@@ -487,6 +487,22 @@ def device_ms_per_call(torch, fn):
     return profile_device(torch, lambda: [fn() for _ in range(reps)])["device_busy_ms"] / reps
 
 
+def host_enqueue_ms(torch, fn, rounds=7, calls=30):
+    """The host's time to enqueue one call of fn (the card left to run
+    behind it): the median over ``rounds`` rounds of ``calls`` calls each,
+    each round started on an idle card. One round reads the host's jitter
+    (0.05-0.11 ms a call on the same code)."""
+    per = []
+    for _ in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        per.append((time.perf_counter() - t0) * 1e3 / calls)
+    torch.cuda.synchronize()
+    return sorted(per)[rounds // 2]
+
+
 def attention_kernel_ms(rows, kernel, dropout):
     """Device ms of window_attention.cu's ``kernel`` (wattn_fwd_kernel or
     wattn_bwd_kernel) with or without dropout in a profile's rows (the
@@ -1421,6 +1437,32 @@ def attention_inputs(torch, np, g, seed, dev):
     return out + [mask, torch.from_numpy(gy).to(dev)]
 
 
+def route_forms_equal(torch, pk, q, k, v, rel_bias, mask, gy, seed, rate):
+    """Whether the route's forms of #6, #7, #8 and #9 give the bits of the
+    calls on q * scale with contiguous outputs: q, k, v as the head views
+    of one [B_, N, 3C] tensor with q unscaled (q * sqrt(hd) here) and
+    ``q_scale``, #6/#7 writing into the head view of a [B_, N, C] tensor."""
+    B, H, N, hd = q.shape
+    s = hd**-0.5
+    qkv = torch.empty((B, N, 3 * H * hd), device=q.device)
+    qu, ku, vu = pk._head_views(qkv, H)
+    for dst, src in ((qu, q * hd**0.5), (ku, k), (vu, v)):
+        dst.copy_(src)
+    qs = qu * s
+    y = torch.empty((B, N, H * hd), device=q.device)
+    view = y.view(B, N, H, hd).transpose(1, 2)
+    got = [pk.fused_window_attention(qu, ku, vu, rel_bias, mask, q_scale=s, out=view)]
+    equal = [torch.equal(got[0], pk.fused_window_attention(qs, ku, vu, rel_bias, mask))]
+    pk.fused_window_attention_dropout(qu, ku, vu, rel_bias, mask, seed, rate, q_scale=s, out=view)
+    equal.append(torch.equal(view, pk.fused_window_attention_dropout(qs, ku, vu, rel_bias, mask,
+                                                                     seed, rate)))
+    for sd, r in ((None, 0.0), (seed, rate)):
+        a = pk.fused_window_attention_backward(qu, ku, vu, rel_bias, mask, gy, sd, r, q_scale=s)
+        b = pk.fused_window_attention_backward(qs, ku, vu, rel_bias, mask, gy, sd, r)
+        equal.append(all(torch.equal(x, z) for x, z in zip(a, b)))
+    return equal
+
+
 def library_attention(torch, q, k, v, attn_mask, rate=0.0):
     """Yardstick only: PyTorch's scaled_dot_product_attention with the bias
     and shift mask materialised as attn_mask (q is pre-scaled: scale 1)."""
@@ -1428,16 +1470,11 @@ def library_attention(torch, q, k, v, attn_mask, rate=0.0):
         q, k, v, attn_mask=attn_mask, dropout_p=rate, scale=1.0)
 
 
-def route_backward_profile(torch, swin_mod, g, dev, rate):
-    """One Swin WindowAttention of the attention-only route (-no_pallas_block)
-    at geometry g in training (dropout ``rate``): a forward, then its
-    backward profiled with the ops' shapes (device times a backward). The qkv Linear takes d(qkv)
-    [B_, N, 3C] as #9 writes it: no aten stack or cat runs, and no copy or
-    clone of a window-sized gradient (B_ N hd floats or more). Returns the
-    device rows, #9's and the copy kernels' device ms, and such ops found
-    (raises if there are any)."""
-    from torch.profiler import ProfilerActivity, profile
-
+def route_block(torch, swin_mod, g, dev, rate):
+    """One Swin WindowAttention of the attention-only route
+    (-no_pallas_block) at geometry g (attention dropout ``rate``), its
+    input x [B_, N, C] (requiring a gradient), an output gradient, the
+    shift mask and the step's generators."""
     from focal_tpu_torch.ops.dropout import StepRngs
 
     C, H, N, B = g["C"], g["heads"], g["N"], g["windows"]
@@ -1449,39 +1486,81 @@ def route_backward_profile(torch, swin_mod, g, dev, rate):
     gy = torch.randn((B, N, C), generator=gen).to(dev)
     mask = None if g["mask"] is None else torch.from_numpy(g["mask"]).to(dev)
     rng = StepRngs(torch.Generator().manual_seed(0), torch.Generator(device=dev).manual_seed(0))
-    leaves = [x] + list(attn.parameters())
-    y = attn(x, mask, rng)
+    return attn, x, gy, mask, rng
 
-    def backward():
-        return torch.autograd.grad(y, leaves, gy, retain_graph=True)
 
-    # at least PROFILE_TRACE_MS of backwards: a shorter trace lost the
-    # records of the port's kernels
-    reps = trace_reps(torch, backward)
+def route_profile(torch, g, fn, ops, kernel, dropout, skip_linears=False):
+    """Profile fn (at least PROFILE_TRACE_MS of calls) with the ops' shapes:
+    the device rows a call, ``kernel``'s and the copy kernels' device ms a
+    call, and the calls found of an aten stack or cat, or of one of the
+    aten ``ops`` on a tensor of B_ N hd floats or more (a q-sized or
+    window-sized one). With ``skip_linears`` the ops inside an aten linear
+    (the qkv and proj Linears, which may copy their bias into their
+    output) are not counted."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    # at least PROFILE_TRACE_MS of calls: a shorter trace lost the records
+    # of the port's kernels
+    reps = trace_reps(torch, fn)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], record_shapes=True) as prof:
         for _ in range(reps):
-            backward()
+            fn()
         torch.cuda.synchronize()
-    big = B * N * (C // H)
-    moves = []
-    for e in prof.events():
-        if e.name in ("aten::stack", "aten::cat"):
-            moves.append((e.name, e.input_shapes))
-        elif e.name in ("aten::copy_", "aten::clone") and any(
-                math.prod(sh) >= big for sh in e.input_shapes if isinstance(sh, list) and sh
-                and all(isinstance(d, int) for d in sh)):
-            moves.append((e.name, e.input_shapes))
-    from torch.autograd import DeviceType
+    big = g["windows"] * g["N"] * (g["C"] // g["heads"])
+    def sized(shapes):
+        return any(math.prod(sh) >= big for sh in shapes
+                   if isinstance(sh, list) and sh and all(isinstance(d, int) for d in sh))
+
+    def in_linear(e):
+        while e is not None:
+            if e.name == "aten::linear":
+                return True
+            e = e.cpu_parent
+        return False
+
+    moves = [(e.name, e.input_shapes) for e in prof.events()
+             if (e.name in ("aten::stack", "aten::cat") or e.name in ops and sized(e.input_shapes))
+             and not (skip_linears and in_linear(e))]
     rows = [{"name": e.key, "device_ms": e.self_device_time_total / 1e3 / reps,
              "count": e.count / reps}
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     rows.sort(key=lambda r: -r["device_ms"])
-    out = {"rows": rows, "bwd_kernel_ms": attention_kernel_ms(rows, "wattn_bwd_kernel", rate > 0),
-           "copy_kernel_ms": sum(r["device_ms"] for r in rows
-                                 if "copy" in r["name"].lower() or "cat" in r["name"].lower()),
-           "device_ms": sum(r["device_ms"] for r in rows), "moves": moves}
+    return {"rows": rows, "kernel_ms": attention_kernel_ms(rows, kernel, dropout),
+            "copy_kernel_ms": sum(r["device_ms"] for r in rows
+                                  if "copy" in r["name"].lower() or "cat" in r["name"].lower()),
+            "device_ms": sum(r["device_ms"] for r in rows), "moves": moves}
+
+
+def route_backward_profile(torch, swin_mod, g, dev, rate):
+    """The backward of one route block (route_block) in training, profiled
+    (route_profile). The qkv Linear takes d(qkv) [B_, N, 3C] as #9 writes
+    it: no aten stack or cat runs, and no copy or clone of a window-sized
+    gradient (B_ N hd floats or more)."""
+    attn, x, gy, mask, rng = route_block(torch, swin_mod, g, dev, rate)
+    leaves = [x] + list(attn.parameters())
+    y = attn(x, mask, rng)
+    out = route_profile(torch, g, lambda: torch.autograd.grad(y, leaves, gy, retain_graph=True),
+                        {"aten::copy_", "aten::clone"}, "wattn_bwd_kernel", rate > 0)
     return out
+
+
+def route_forward_profile(torch, swin_mod, g, dev, rate):
+    """The forward of one route block (route_block), profiled
+    (route_profile) in training (#7 at ``rate``, autograd recording) and in
+    eval (#6): q is scaled in the kernel and the kernel writes the proj
+    Linear's input, so no aten multiply or division of a q-sized tensor
+    (B_ N hd floats or more) runs, and no copy or clone of one."""
+    attn, x, _, mask, rng = route_block(torch, swin_mod, g, dev, rate)
+    ops = {"aten::mul", "aten::mul_", "aten::div", "aten::div_", "aten::copy_", "aten::clone"}
+    train = route_profile(torch, g, lambda: attn(x, mask, rng), ops, "wattn_fwd_kernel", rate > 0,
+                          skip_linears=True)
+    attn.eval()
+    with torch.no_grad():
+        infer = route_profile(torch, g, lambda: attn(x, mask), ops, "wattn_fwd_kernel", False,
+                              skip_linears=True)
+    return {"train": train, "eval": infer}
 
 
 def grads_differ(got, want):
@@ -2497,17 +2576,19 @@ def main():
                 at_err["bwd_abs"] = max(at_err["bwd_abs"], *(float((a - b).abs().max())
                                                               for a, b in zip(got, want)))
                 del got, again, want
+            forms = route_forms_equal(torch, pk, q, k, v, rel_bias, mask, gy, seed, a_rate)
             g.update(max_abs_err_fwd=err, max_abs_err_dropout=derr, keep_rate=kept,
                      keep_sigma=sigma, mask_equals_whole_block=same_mask,
                      max_rel_err_bwd=errs["mask"], max_rel_err_bwd_nomask=errs["nomask"],
-                     repeatable=same)
+                     repeatable=same, route_forms_bitwise=forms)
             at_err["fwd"], at_err["drop"] = max(at_err["fwd"], err), max(at_err["drop"], derr)
             at_err["bwd"] = max(at_err["bwd"], *errs.values())
             log(f"[check-attn] {g['name']}: windows {B} heads {H} N {N} hd {g['hd']} nW {g['nW']}: "
                 f"#6 max|kernel-plain| {err:.3e}, #7 {derr:.3e} (its own mask), keep rate {kept:.5f} "
                 f"({(kept - 1 + a_rate) / sigma:+.2f} sigma), mask == {blk.__name__}'s: {same_mask}; "
                 f"#9 max rel err {errs['mask']:.3e}, #8 {errs['nomask']:.3e}; same bits on a second "
-                f"call: {same}")
+                f"call: {same}; q_scale / out forms bitwise the pre-scaled, contiguous calls "
+                f"(#6, #7, #8, #9): {forms}")
             if not max(err, derr) <= KERNEL_TOL:
                 raise AssertionError(f"{g['name']}: #6/#7 differ from plain by {err}, {derr}")
             if not abs(kept - (1 - a_rate)) <= 5 * sigma:
@@ -2518,6 +2599,9 @@ def main():
                 raise AssertionError(f"{g['name']}: #8/#9 gradients differ from plain by {errs}")
             if not same:
                 raise AssertionError(f"{g['name']}: #8/#9 give other bits on a second call")
+            if not all(forms):
+                raise AssertionError(f"{g['name']}: the q_scale / out forms of #6-#9 differ from "
+                                     f"the pre-scaled, contiguous calls: {forms}")
             del q, k, v, rel_bias, mask, gy, y, yd, keep
     torch.cuda.empty_cache()
     log(f"[check-attn] {sum(len(a) for a in agen.values())} geometries in {time.time() - t22:.1f}s")
@@ -2595,8 +2679,8 @@ def main():
     attn_serve_profile = profile_device(torch, lambda: predictor._forward(first))
     log_profile("profile-serve-no-pallas-block", "one -no_pallas_block served batch",
                 attn_serve_profile)
-    attn_serve_device_ms = sum(r["device_ms"] for r in attn_serve_profile["rows"]
-                               if "wattn_fwd_kernel<false>" in r["name"])
+    attn_serve_device_ms = attention_kernel_ms(attn_serve_profile["rows"], "wattn_fwd_kernel",
+                                               False)
     log(f"[serve-no-pallas-block] device time of #6 in the profiled batch: "
         f"{attn_serve_device_ms:.4f} ms ({per_fwd} launches)")
     del predictor
@@ -2630,6 +2714,12 @@ def main():
                         q, k, v, rel_bias, mask, keep, rate))
                     g["drop_library_ms"] = time_ms(
                         torch, lambda: library_attention(torch, q, k, v, attn_mask, rate))
+            fwd_key = "fwd" if kind == "serve" else "drop"
+            g[f"{fwd_key}_device_ms"] = device_ms_per_call(torch, (
+                (lambda: at_fwd(q, k, v, rel_bias, mask)) if kind == "serve"
+                else (lambda: at_drop(q, k, v, rel_bias, mask, 7, rate))))
+            tot_k[f"{fwd_key}_device_ms"] = (tot_k.get(f"{fwd_key}_device_ms", 0.0)
+                                             + g["per_forward"] * g[f"{fwd_key}_device_ms"])
             if kind == "train":
                 g["bwd_device_ms"] = device_ms_per_call(
                     torch, lambda: at_bwd(q, k, v, rel_bias, mask, gy))
@@ -2672,12 +2762,27 @@ def main():
     for r in route_bwd["rows"][:12]:
         log(f"[profile-attn-route] {r['device_ms']:.4f} ms x{r['count']:g}: {r['name'][:90]}")
     log(f"[profile-attn-route] {agen['train'][0]['name']} backward of the -no_pallas_block "
-        f"route: device {route_bwd['device_ms']:.4f} ms, #9 {route_bwd['bwd_kernel_ms']:.4f} ms, "
+        f"route: device {route_bwd['device_ms']:.4f} ms, #9 {route_bwd['kernel_ms']:.4f} ms, "
         f"copy kernels {route_bwd['copy_kernel_ms']:.4f} ms; stack, cat or window-sized "
         f"copies: {route_bwd['moves']}")
-    if route_bwd["moves"] or not route_bwd["bwd_kernel_ms"] > 0:
+    if route_bwd["moves"] or not route_bwd["kernel_ms"] > 0:
         raise AssertionError(f"the attention-only route's backward stacks or copies its "
                              f"gradients: {route_bwd['moves']}")
+    # the route's forward there: q scaled in #7/#6, their output the proj
+    # Linear's input, with no q-sized multiply or copy
+    route_fwd = route_forward_profile(torch, swin_mod, agen["train"][0], dev, rate)
+    for mode, (num, prof_) in zip(("train", "eval"), (("#7", route_fwd["train"]),
+                                                       ("#6", route_fwd["eval"]))):
+        for r in prof_["rows"][:8]:
+            log(f"[profile-attn-route-fwd] {mode} {r['device_ms']:.4f} ms x{r['count']:g}: "
+                f"{r['name'][:90]}")
+        log(f"[profile-attn-route-fwd] {agen['train'][0]['name']} {mode} forward of the "
+            f"-no_pallas_block route: device {prof_['device_ms']:.4f} ms, {num} "
+            f"{prof_['kernel_ms']:.4f} ms, copy kernels {prof_['copy_kernel_ms']:.4f} ms; stack, "
+            f"cat, q-sized multiplies or copies: {prof_['moves']}")
+        if prof_["moves"] or not prof_["kernel_ms"] > 0:
+            raise AssertionError(f"the attention-only route's {mode} forward scales or copies q "
+                                 f"or its output: {prof_['moves']}")
     names = {"fwd": "#6", "drop": "#7", "bwd": "#8 (rate 0)", "drop_bwd": "#9"}
     for kind, tot_k in atot.items():
         what = (f"one served MOD forward at batch {SERVE_BATCH}" if kind == "serve" else
@@ -2727,6 +2832,7 @@ def main():
                 "serve_no_pallas_block_profile": attn_serve_profile,
                 "serve_window_block_device_ms": serve_block_ms,
                 "no_pallas_block_route_backward": route_bwd,
+                "no_pallas_block_route_forward": route_fwd,
             }, f, indent=1)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -2907,12 +3013,18 @@ def main():
                    f"launches: the -no_pallas_block served run ({attn_batches} forwards); "
                    "max_abs_err: worst over the MOD and MOD_WIDE geometries", at_err["fwd"],
                    launches=attn_serve_launches[at_fwd.__name__], launches_per_forward=per_fwd,
-                   forwards=attn_batches, device_ms_in_profiled_batch=attn_serve_device_ms),
+                   forwards=attn_batches, device_ms_in_profiled_batch=attn_serve_device_ms,
+                   device_ms=a_serve["fwd_device_ms"],
+                   bound_share_by_device_ms=a_serve["fwd_bound_ms"] / a_serve["fwd_device_ms"],
+                   route_forward_eval_copy_kernel_ms=route_fwd["eval"]["copy_kernel_ms"]),
         attn_entry("fused_window_attention_dropout", 129, at_drop, "drop", a_train,
                    attn_step_per + f"; launches: {TRAIN_STEPS} timed -no_pallas_block pretrain steps",
                    at_err["drop"], launches=attn_train["launches"][at_drop.__name__],
                    launches_per_step=per_fwd, steps=TRAIN_STEPS, device_ms_in_profiled_step=
-                   attn_train["attention_kernels_device_ms"]["wattn_fwd_kernel"]),
+                   attn_train["attention_kernels_device_ms"]["wattn_fwd_kernel"],
+                   device_ms=a_train["drop_device_ms"],
+                   bound_share_by_device_ms=a_train["drop_bound_ms"] / a_train["drop_device_ms"],
+                   route_forward_train_copy_kernel_ms=route_fwd["train"]["copy_kernel_ms"]),
         attn_entry("fused_window_attention_backward", 189, at_bwd, "bwd", a_train,
                    attn_step_per.replace(f"dropout {rate}", "every drop rate 0")
                    + "; launches: the -no_pallas_block rate-0 step", at_err["bwd_abs"],

@@ -12,8 +12,8 @@ Per DIR it prints, from chip_smoke.py's helpers (CUDA events after
 warm-up): #2 and #3 summed over one MOD pretrain step (batch 256, views
 fused to 512) and over MOD_WIDE stage 0's launches (batch 64 fused to
 128), #4 and #5 over MOD_WIDE's per-head launches of that step, #6-#9 over
-one MOD step's 16 launches, and #10, #11 and #12 at every MLP geometry and
-summed over one MOD forward's 16 MLPs (batch 128) and MOD_WIDE stage 0's 4
+one MOD step's 16 launches (#6 also over a served MOD forward's), and #10,
+#11 and #12 at every MLP geometry and summed over one MOD forward's 16 MLPs (batch 128) and MOD_WIDE stage 0's 4
 (batch 128), and the -pallas_mlp MOD supervised step (chip_smoke's phase
 19: 3 + 20 steps at batch 128; p50, idle share, device busy time, peak
 memory), and #13 and #14 at every tower geometry and summed over one MOD
@@ -24,9 +24,9 @@ batch 128; p50, idle share, device busy, peak memory). #1 is summed over
 one served MOD forward (batch 128), and #1 and #6-#9 are timed over at
 least 20 ms of calls each, #6-#9 also by their device time in a profile
 and by the host's time to enqueue a call; the -no_pallas_block MOD
-pretrain step (3 + 20 steps at batch 256) gives its p50, a profiled
-step's device busy time, #7's and #9's device time and that of the copy
-and concatenation kernels.
+pretrain step (3 + 20 steps at batch 256) gives its p50, peak memory, a
+profiled step's device busy time, #7's and #9's device time and that of
+the copy and concatenation kernels and of PyTorch's elementwise kernels.
 With --profile, #2 and #3 are also split by kernel name
 (chip_smoke.profile_split; the DIR's window_block.cu must have the kernels
 chip_smoke.py knows). --parts takes a comma list of window (#1-#5),
@@ -123,47 +123,52 @@ def measure_window(cs, torch, root, dev, gen, rate, profile):
 
 
 def measure_attention(cs, torch, np, root, dev, rate):
-    """#6-#9 over one MOD step's 16 launches, each over at least 20 ms of
-    calls; then the -no_pallas_block MOD pretrain step."""
+    """#6 over one served MOD forward's 16 launches (batch 128) and #6-#9
+    over one MOD step's (batch 256, views fused to 512), each over at least
+    20 ms of calls; then the -no_pallas_block MOD pretrain step."""
     from focal_tpu_torch.ops import pallas_kernels as pk
     from focal_tpu_torch.params import load_yaml
 
     cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
-    tot = {}
-    for i, g in enumerate(cs.attention_geometries(cfg, 512, "MOD")):
-        q, k, v, rb, mask, gy = cs.attention_inputs(torch, np, g, i, dev)
-        runs = {"#6": lambda: pk.fused_window_attention(q, k, v, rb, mask),
-                "#7": lambda: pk.fused_window_attention_dropout(q, k, v, rb, mask, 3, rate),
-                "#8": lambda: pk.fused_window_attention_backward(q, k, v, rb, mask, gy),
-                "#9": lambda: pk.fused_window_attention_dropout_backward(q, k, v, rb, mask, gy,
-                                                                         3, rate)}
-        ms = {key: cs.time_ms_long(torch, fn) for key, fn in runs.items()}
-        for key, fn in runs.items():  # device time a call, and the host's to enqueue one
-            ms[f"{key} device"] = cs.device_ms_per_call(torch, fn)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(20):
-                fn()
-            ms[f"{key} host"] = (time.perf_counter() - t0) * 1e3 / 20
-            torch.cuda.synchronize()
-        for key in ms:
-            tot[key] = tot.get(key, 0.0) + g["per_forward"] * ms[key]
-        nbytes = cs.attention_work(g, True)[1]
-        print(f"[{root}] {g['name']} (windows {g['windows']}, hd {g['hd']}, {g['per_forward']} a "
-              f"step): " + ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items())
-              + f"; #8/#9 {nbytes / 1e9:.4f} GB, #9's device time at "
-              f"{nbytes / ms['#9 device'] / 1e6:.1f} GB/s", flush=True)
-    print(f"[{root}] MOD one step (16 launches each; device: kernels only, by profile; host: "
-          "enqueue): " + ", ".join(f"{key} {ms:.3f} ms" for key, ms in tot.items()), flush=True)
-    torch.cuda.empty_cache()
+    for what, batch, keys in (("one served forward", cs.SERVE_BATCH, ("#6",)),
+                              ("one step", 2 * cs.TRAIN_BATCH, ("#6", "#7", "#8", "#9"))):
+        tot = {}
+        for i, g in enumerate(cs.attention_geometries(cfg, batch, "MOD")):
+            q, k, v, rb, mask, gy = cs.attention_inputs(torch, np, g, i, dev)
+            runs = {"#6": lambda: pk.fused_window_attention(q, k, v, rb, mask),
+                    "#7": lambda: pk.fused_window_attention_dropout(q, k, v, rb, mask, 3, rate),
+                    "#8": lambda: pk.fused_window_attention_backward(q, k, v, rb, mask, gy),
+                    "#9": lambda: pk.fused_window_attention_dropout_backward(q, k, v, rb, mask,
+                                                                             gy, 3, rate)}
+            runs = {key: runs[key] for key in keys}
+            ms = {key: cs.time_ms_long(torch, fn) for key, fn in runs.items()}
+            for key, fn in runs.items():  # device time a call, and the host's to enqueue one
+                ms[f"{key} device"] = cs.device_ms_per_call(torch, fn)
+                ms[f"{key} host"] = cs.host_enqueue_ms(torch, fn)
+            for key in ms:
+                tot[key] = tot.get(key, 0.0) + g["per_forward"] * ms[key]
+            fwd_bytes, bwd_bytes = cs.attention_work(g, False)[1], cs.attention_work(g, True)[1]
+            print(f"[{root}] {g['name']} (windows {g['windows']}, hd {g['hd']}, {g['per_forward']} "
+                  f"a forward): " + ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items())
+                  + f"; #6/#7 {fwd_bytes / 1e9:.4f} GB, #6's device time at "
+                  f"{fwd_bytes / ms['#6 device'] / 1e6:.1f} GB/s"
+                  + (f"; #8/#9 {bwd_bytes / 1e9:.4f} GB, #9's device time at "
+                     f"{bwd_bytes / ms['#9 device'] / 1e6:.1f} GB/s" if "#9" in ms else ""),
+                  flush=True)
+            del q, k, v, rb, mask, gy, runs
+        print(f"[{root}] MOD {what} at batch {batch} (16 launches each; device: kernels only, by "
+              "profile; host: the median enqueue of a launch, summed): "
+              + ", ".join(f"{key} {ms:.3f} ms" for key, ms in tot.items()), flush=True)
+        torch.cuda.empty_cache()
     attention_step(cs, torch, root, dev)
 
 
 def attention_step(cs, torch, root, dev):
     """The -no_pallas_block MOD pretrain step at batch 256 (views fused to
     512; 3 warm-up and 20 timed steps, synthetic data on the card, a fixed
-    idx): p50, and from one profiled step the device busy time, #7's and
-    #9's device time and that of the copy and concatenation kernels."""
+    idx): p50 and peak memory, and from one profiled step the device busy
+    time, #7's and #9's device time and that of the copy and concatenation
+    kernels and of PyTorch's elementwise kernels."""
     import numpy as np
 
     from focal_tpu_torch.data import synthetic_arrays, to_device
@@ -190,6 +195,8 @@ def attention_step(cs, torch, root, dev):
     step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
     for _ in range(cs.TRAIN_WARMUP):
         state, _ = step(state, tdata, idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     step_s = []
     for _ in range(cs.TRAIN_STEPS):
         torch.cuda.synchronize()
@@ -197,17 +204,19 @@ def attention_step(cs, torch, root, dev):
         state, _ = step(state, tdata, idx)
         torch.cuda.synchronize()
         step_s.append(time.time() - t0)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
     prof = cs.profile_device(torch, lambda: step(state, tdata, idx))
     rows = prof["rows"]
     copies = sum(r["device_ms"] for r in rows
                  if "copy" in r["name"].lower() or "cat" in r["name"].lower())
+    elementwise = sum(r["device_ms"] for r in rows if "elementwise" in r["name"].lower())
     print(f"[{root}] MOD -no_pallas_block pretrain step (batch {batch}): p50 "
-          f"{float(np.percentile(step_s, 50)) * 1e3:.3f} ms, device busy "
+          f"{float(np.percentile(step_s, 50)) * 1e3:.3f} ms, peak {peak_mb:.1f} MiB, device busy "
           f"{prof['device_busy_ms']:.3f} ms, idle share "
           f"{1 - prof['device_busy_ms'] / prof['wall_ms']:.3f}; device ms: #7 "
           f"{cs.attention_kernel_ms(rows, 'wattn_fwd_kernel', True):.3f}, #9 "
           f"{cs.attention_kernel_ms(rows, 'wattn_bwd_kernel', True):.3f}, copy and concatenation "
-          f"kernels {copies:.3f}", flush=True)
+          f"kernels {copies:.3f}, elementwise kernels {elementwise:.3f}", flush=True)
     del model, state, step, tdata
     torch.cuda.empty_cache()
 

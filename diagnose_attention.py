@@ -1,22 +1,23 @@
-"""Where the attention-only backward (#8/#9, csrc/window_attention.cu) spends
-its time on the card, by two diagnostic builds of a copy of the port.
+"""Where the attention-only backward (#8/#9) or, with --forward, forward
+(#6/#7) of csrc/window_attention.cu spends its time on the card, by two
+diagnostic builds of a copy of the port.
 
-    python3 diagnose_attention.py
+    python3 diagnose_attention.py [--forward]
 
 Each build is a copy of focal_tpu_torch/ under build/diagnose/ with its
 window_attention.cu patched (the patches anchor on the source's text and
 fail where it changed):
-  * phases: clock64() counters around each phase of wattn_bwd_kernel,
-    summed over every warp (one atomicAdd a warp at the end) and read back
-    by an added focal_debug_cycles();
+  * phases: clock64() counters around each phase of wattn_bwd_kernel (or
+    wattn_fwd_kernel), summed over every warp (one atomicAdd a warp at the
+    end) and read back by an added focal_debug_cycles();
   * staging: the same grid, chunks and cp.async ring, with the math
-    replaced by copying each row through (dq = q + g, dk = k, dv = v): what
-    the staging alone takes.
+    replaced by copying each row through (dq = q + g, dk = k, dv = v; out
+    = q + k + v): what the staging alone takes, the ring's ceiling.
 For each MOD training geometry (batch 256, views fused to 512) it prints
-#9's device time a call (chip_smoke.device_ms_per_call) on this checkout,
-on the staging build and on the phases build, and the phases build's
-cycles a warp spends on each phase of a chunk. Each build runs in a process
-of its own. Needs a CUDA card; imports no JAX.
+#9's (#7's) device time a call (chip_smoke.device_ms_per_call) on this
+checkout, on the staging build and on the phases build, and the phases
+build's cycles a warp spends on each phase of a chunk. Each build runs in
+a process of its own. Needs a CUDA card; imports no JAX.
 """
 
 import os
@@ -28,6 +29,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "build", "diagnose")
 PHASES = ("wait", "issue", "keep bits + bias", "products", "softmax..ds", "dq", "barrier",
           "stage 2")
+FWD_PHASES = ("wait", "scale q", "barrier", "issue", "keep bits + bias", "products",
+              "softmax + dropout", "a v + write")
 SRC = os.path.join("focal_tpu_torch", "csrc", "window_attention.cu")
 
 
@@ -41,31 +44,44 @@ def _tick(name):
     return f"    {{ const unsigned long long n = clock64(); {name} += n - tc; tc = n; }}\n"
 
 
+def _segment(src, start, end):
+    """(the text before ``start``, from it to ``end``, from ``end`` on): the
+    patches of one kernel anchor within its own text."""
+    i, j = src.index(start), src.index(end)
+    return src[:i], src[i:j], src[j:]
+
+
+COUNTERS = "__device__ unsigned long long g_phase_cycles[9];\n\n"
+
+
 def patch_phases(src):
     """wattn_bwd_kernel with a clock64() counter around each phase."""
-    src = _replace(src, "template <int kN, int kCols, bool kDropout>\n__global__",
-                   "__device__ unsigned long long g_phase_cycles[9];\n\n"
-                   "template <int kN, int kCols, bool kDropout>\n__global__")
-    src = _replace(src, "  int it = 0;\n", "  int it = 0;\n  unsigned long long tc, c[8] = {};\n")
-    src = _replace(src, "    focal::cp_async_wait<0>();",
-                   "    tc = clock64();\n    focal::cp_async_wait<0>();")
-    src = _replace(src, "the other slot and ds / a_v are free\n",
-                   "the other slot and ds / a_v are free\n" + _tick("c[0]"))
-    src = _replace(src, "    focal::cp_async_commit();\n    const float* qs",
-                   "    focal::cp_async_commit();\n" + _tick("c[1]") + "    const float* qs")
-    src = _replace(src, "    const float* kb = ks + t.pl * N * g.stride;\n",
-                   _tick("c[2]") + "    const float* kb = ks + t.pl * N * g.stride;\n")
-    src = _replace(src, "g, t.lane, ds);  // d_attn\n", "g, t.lane, ds);  // d_attn\n" + _tick("c[3]"))
-    src = _replace(src, "    float4* dqo = ", _tick("c[4]") + "    float4* dqo = ")
-    src = _replace(src, "    });\n    __syncthreads();\n\n    // stage 2",
-                   "    });\n" + _tick("c[5]") + "    __syncthreads();\n" + _tick("c[6]")
-                   + "\n    // stage 2")
-    src = _replace(src, "      dacc[e] = acc;\n    }\n  }\n",
-                   "      dacc[e] = acc;\n    }\n" + _tick("c[7]") + "  }\n"
-                   "  if (threadIdx.x % 32 == 0) {\n"
-                   "    for (int q = 0; q < 8; ++q) atomicAdd(&g_phase_cycles[q], c[q]);\n"
-                   "    atomicAdd(&g_phase_cycles[8], (unsigned long long)it);\n  }\n")
-    return src + '''
+    head, body, tail = _segment(src, "// backward (#8; #9 with kDropout)",
+                                "// out[e] = sum over s (in order)")
+    body = _replace(body, "  int it = 0;\n", "  int it = 0;\n  unsigned long long tc, c[8] = {};\n")
+    body = _replace(body, "    focal::cp_async_wait<0>();",
+                    "    tc = clock64();\n    focal::cp_async_wait<0>();")
+    body = _replace(body, "the other slot and ds / a_v are free\n",
+                    "the other slot and ds / a_v are free\n" + _tick("c[0]"))
+    body = _replace(body, "    focal::cp_async_commit();\n    const float* ks",
+                    "    focal::cp_async_commit();\n" + _tick("c[1]") + "    const float* ks")
+    body = _replace(body, "    const float* kb = ks + t.pl * N * g.stride;\n",
+                    _tick("c[2]") + "    const float* kb = ks + t.pl * N * g.stride;\n")
+    body = _replace(body, "g, t.lane, ds);  // d_attn\n",
+                    "g, t.lane, ds);  // d_attn\n" + _tick("c[3]"))
+    body = _replace(body, "    float4* dqo = ", _tick("c[4]") + "    float4* dqo = ")
+    body = _replace(body, "    });\n    __syncthreads();\n\n    // stage 2",
+                    "    });\n" + _tick("c[5]") + "    __syncthreads();\n" + _tick("c[6]")
+                    + "\n    // stage 2")
+    body = _replace(body, "      dacc[e] = acc;\n    }\n  }\n",
+                    "      dacc[e] = acc;\n    }\n" + _tick("c[7]") + "  }\n"
+                    "  if (threadIdx.x % 32 == 0) {\n"
+                    "    for (int q = 0; q < 8; ++q) atomicAdd(&g_phase_cycles[q], c[q]);\n"
+                    "    atomicAdd(&g_phase_cycles[8], (unsigned long long)it);\n  }\n")
+    return head + COUNTERS + body + tail + READBACK
+
+
+READBACK = '''
 // The counters summed over every warp (8 phases, then the warps' chunks),
 // or with reset their zeroing.
 extern "C" int focal_debug_cycles(unsigned long long* host, int reset) {
@@ -74,6 +90,53 @@ extern "C" int focal_debug_cycles(unsigned long long* host, int reset) {
   return (int)cudaMemcpyFromSymbol(host, g_phase_cycles, sizeof(zero));
 }
 '''
+
+
+def _forward_kernel(src):
+    return _segment(src, "// forward (#6; #7 with kDropout)", "// backward (#8; #9 with kDropout)")
+
+
+def patch_fwd_phases(src):
+    """wattn_fwd_kernel with a clock64() counter around each phase."""
+    head, body, tail = _forward_kernel(src)
+    body = _replace(body, "  int it = 0;\n", "  int it = 0;\n  unsigned long long tc, c[8] = {};\n")
+    wait = "    focal::cp_async_wait<0>();  // this thread's copies of the chunk have landed\n"
+    body = _replace(body, wait, "    tc = clock64();\n" + wait + _tick("c[0]"))
+    scale = "    if (q_scale != 1.f) scale_staged_q(chunk, g, qs, q_scale);\n"
+    body = _replace(body, scale, scale + _tick("c[1]"))
+    bar = "    __syncthreads();  // and every thread's, scaled; the other slot is free\n"
+    body = _replace(body, bar, bar + _tick("c[2]"))
+    body = _replace(body, "    focal::cp_async_commit();\n    const float* ks",
+                    "    focal::cp_async_commit();\n" + _tick("c[3]") + "    const float* ks")
+    body = _replace(body, "    float p[kN];\n", _tick("c[4]") + "    float p[kN];\n")
+    body = _replace(body, "    focal::softmax_scores(p, N);\n",
+                    _tick("c[5]") + "    focal::softmax_scores(p, N);\n")
+    body = _replace(body, "    const float* vb = vs", _tick("c[6]") + "    const float* vb = vs")
+    body = _replace(body, "      if (t.active) o[c] = acc;\n    });\n  }\n}\n",
+                    "      if (t.active) o[c] = acc;\n    });\n" + _tick("c[7]") + "  }\n"
+                    "  if (threadIdx.x % 32 == 0) {\n"
+                    "    for (int q = 0; q < 8; ++q) atomicAdd(&g_phase_cycles[q], c[q]);\n"
+                    "    atomicAdd(&g_phase_cycles[8], (unsigned long long)it);\n  }\n}\n")
+    return head + COUNTERS + body + tail + READBACK
+
+
+def patch_fwd_staging(src):
+    """wattn_fwd_kernel with the math replaced by copying rows through."""
+    head, body, tail = _forward_kernel(src)
+    start = body.index("    const Row t = thread_row(g, p0, np);\n")
+    return head + body[:start] + '''    const Row t = thread_row(g, p0, np);
+    float4* o = reinterpret_cast<float4*>(out + t.w * so.b + t.h * so.h + t.i * so.n);
+    focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
+      const float4 x = *reinterpret_cast<const float4*>(qs + t.r * g.stride + 4 * c);
+      const float4 y = *reinterpret_cast<const float4*>(ks + t.r * g.stride + 4 * c);
+      const float4 z = *reinterpret_cast<const float4*>(vs + t.r * g.stride + 4 * c);
+      if (t.active) o[c] = make_float4(x.x + y.x + z.x, x.y + y.y + z.y, x.z + y.z + z.z,
+                                       x.w + y.w + z.w);
+    });
+  }
+}
+
+''' + tail
 
 
 def patch_staging(src):
@@ -114,9 +177,10 @@ def build_copy(name, patch):
     return root
 
 
-def measure(name, root):
-    """#9's device time per MOD training geometry for the package under
-    ``root``; with the phases build, its cycles a warp and chunk."""
+def measure(name, root, forward):
+    """#9's (with ``forward`` #7's) device time per MOD training geometry
+    for the package under ``root``; with a phases build, its cycles a warp
+    and chunk."""
     import ctypes
     import importlib.util
 
@@ -138,17 +202,20 @@ def measure(name, root):
     lib = pk._window_attention_lib()
     if name == "phases":
         lib.focal_debug_cycles.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    kernel, phases = ("#7", FWD_PHASES) if forward else ("#9", PHASES)
     cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
     total = 0.0
     for i, g in enumerate(cs.attention_geometries(cfg, 2 * cs.TRAIN_BATCH, "MOD")):
         q, k, v, rb, mask, gy = cs.attention_inputs(torch, np, g, i, dev)
 
         def fn():
+            if forward:
+                return pk.fused_window_attention_dropout(q, k, v, rb, mask, 3, 0.2)
             return pk.fused_window_attention_dropout_backward(q, k, v, rb, mask, gy, 3, 0.2)
 
         ms = cs.device_ms_per_call(torch, fn)
         total += g["per_forward"] * ms
-        line = f"[{name}] {g['name']} (windows {g['windows']}, hd {g['hd']}): #9 {ms:.4f} ms"
+        line = f"[{name}] {g['name']} (windows {g['windows']}, hd {g['hd']}): {kernel} {ms:.4f} ms"
         if name == "phases":
             torch.cuda.synchronize()
             lib.focal_debug_cycles(None, 1)
@@ -158,20 +225,24 @@ def measure(name, root):
             c = (ctypes.c_ulonglong * 9)()
             lib.focal_debug_cycles(ctypes.cast(c, ctypes.c_void_p), 0)
             line += "; cycles a warp and chunk: " + ", ".join(
-                f"{p} {c[j] // max(c[8], 1)}" for j, p in enumerate(PHASES))
+                f"{p} {c[j] // max(c[8], 1)}" for j, p in enumerate(phases))
         print(line, flush=True)
-    print(f"[{name}] one MOD step (16 launches): #9 {total:.3f} ms of device time", flush=True)
+    print(f"[{name}] one MOD step (16 launches): {kernel} {total:.3f} ms of device time",
+          flush=True)
 
 
 def main():
     if sys.argv[1:2] == ["--child"]:
-        measure(sys.argv[2], sys.argv[3])
+        measure(sys.argv[2], sys.argv[3], sys.argv[4:5] == ["--forward"])
         return
-    roots = {"tree": HERE, "staging": build_copy("staging", patch_staging),
-             "phases": build_copy("phases", patch_phases)}
+    forward = sys.argv[1:2] == ["--forward"]
+    patches = ((patch_fwd_staging, patch_fwd_phases) if forward
+               else (patch_staging, patch_phases))
+    roots = {"tree": HERE, "staging": build_copy("staging", patches[0]),
+             "phases": build_copy("phases", patches[1])}
     for name, root in roots.items():
-        subprocess.run([sys.executable, os.path.abspath(__file__), "--child", name, root],
-                       check=True)
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--child", name, root]
+                       + (["--forward"] if forward else []), check=True)
 
 
 if __name__ == "__main__":

@@ -8,7 +8,8 @@
 //   #7 _attn_fwd_dropout_kernel (pk:129; fused_window_attention_dropout, pk:241)
 //   #8 _attn_bwd_kernel (pk:189; the VJP of #6, _call_backward, pk:266)
 //   #9 _attn_bwd_dropout_kernel (pk:200; the VJP of #7, pk:274)
-// Per (window w, head h) pair of q, k, v [B, H, N, hd] (f32, q pre-scaled):
+// Per (window w, head h) pair of q, k, v [B, H, N, hd] (f32, q scaled by
+// hd^-0.5, by the caller or in the kernel):
 //   a   = softmax(q k^T + rel_bias[h] + mask[w % nW])
 //   a_v = keep ? a / (1 - rate) : 0            (#7, #9; a_v = a otherwise)
 //   out = a_v v
@@ -22,10 +23,10 @@
 // 3.2 FLOP per byte, far under the f32 ridge of 20 FLOP per byte (67 TFLOP/s
 // over 3.35 TB/s). What the design does about it is move each input and
 // output once, and nothing else:
-//   * A block owns P consecutive (window, head) pairs. Their q, k, v (and g)
-//     rows are staged in shared memory with coalesced float4 loads (rows
-//     padded to hd + 4 floats), from any row strides: the caller's views of
-//     the qkv projection need no copy.
+//   * A block takes P consecutive (window, head) pairs at a time. Their q,
+//     k, v (and g) rows are staged in shared memory with coalesced 16-byte
+//     copies (rows padded to hd + 4 floats), from any row strides: the
+//     caller's views of the qkv projection need no copy.
 //   * G lanes serve one query row (G a power of two up to 8, lane l taking
 //     the float4 columns l, l + G, ...). Their partial dot products are
 //     summed by a butterfly of warp shuffles, which leaves the same bits in
@@ -37,26 +38,37 @@
 //     #9 draws the mask again from the seed; nothing is stored between the
 //     passes (focal_wattn_keep_mask writes it out for the checks only).
 //   * f32 throughout with fmaf and expf, as the TPU kernels' f32 softmax.
-// The backward (#8, #9) keeps the load units busy while it computes:
-//   * A persistent grid (as many blocks as fit the card, two an SM at the
-//     MOD widths) walks the chunks of P pairs with a fixed stride. Each
-//     chunk's q, k, v and g are staged by cp.async into one slot of a
-//     two-deep ring while the block computes the chunk before it: the
+// All four keep the load units busy while they compute:
+//   * A persistent grid (as many blocks as fit the card at once, at most one
+//     a chunk) walks chunks of P (window, head) pairs with a fixed stride.
+//     Each chunk's q, k, v (and g) rows are staged by cp.async into one slot
+//     of a two-deep ring while the block computes the chunk before it: the
 //     staging and the math no longer alternate. A thread's staging row is
-//     found once for its four operands.
-//   * At N = 9 (every packaged window) the kernel's row tile is exactly 9
-//     keys: no predicated-off lanes of a 16-wide tile in its unrolled loops.
-//     The G lanes of a query row share its Philox words (lane l draws words
-//     l, l + G, ...) instead of each drawing all of them.
-//   * dq, dk and dv are written at the caller's strides: contiguous [B, H,
-//     N, hd], or the head columns of one d(qkv) [B, N, 3C] with dq times the
-//     q scale, the layout the qkv Linear's backward takes; then autograd
-//     stacks and copies nothing.
+//     found once for all its operands. The forward needs one barrier a
+//     chunk (the one after the chunk's copies land also frees the other
+//     slot), the backward two (it keeps ds and a_v in shared memory).
+//   * q arrives unscaled where the caller passes its scale: each thread
+//     multiplies the q float4s it staged itself, after its own copies land
+//     and before the chunk's barrier. The f32 product rounds as the
+//     caller's q * scale does, so the kernels see the same bits, and no
+//     scaled copy of q is written or kept.
+//   * At N = 9 (every packaged window) the row tile is exactly 9 keys with
+//     a lane's two float4 columns unrolled (hd 16, 32, 64): no
+//     predicated-off lanes of a 16-wide tile. The G lanes of a query row
+//     share its Philox words (lane l draws words l, l + G, ...) instead of
+//     each drawing all of them.
+//   * Outputs are written at the caller's strides: the forward's out as
+//     contiguous [B, H, N, hd] or as the head columns of one [B, N, C]
+//     tensor (the output projection's input, which then needs no copy);
+//     dq, dk and dv as contiguous [B, H, N, hd] or the head columns of one
+//     d(qkv) [B, N, 3C] with dq times the q scale, the layout the qkv
+//     Linear's backward takes. Then autograd stacks and copies nothing.
+//   * Each kernel's launch plan (pairs a chunk, grid, shared memory) is made
+//     once a geometry and device: the host's per-call path makes no
+//     attribute or occupancy query.
 //   * drel_bias sums ds over every window: each block sums its chunks' ds
 //     per head in pair order in shared memory, and one ordered pass adds
 //     the blocks' partials. No atomics: two calls give the same bits.
-//   * Not yet: the forwards (#6, #7) stage synchronously and write [B, H,
-//     N, hd]; two or three blocks an SM overlap their loads coarsely.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -77,15 +89,14 @@ using focal::Geo;
 using focal::make_geo;
 using focal::Row;
 using focal::row_dots;
-using focal::softmax_row;
 using focal::Strides;
-using focal::stage_rows;
 using focal::thread_row;
 constexpr int kMaxN = focal::kAttnMaxN;
 constexpr int kMaxHd = focal::kAttnMaxHd;
 constexpr int kThreads = focal::kAttnThreads;
 
-size_t fwd_smem_floats(const Geo& g) { return (size_t)3 * g.pairs * g.N * g.stride; }
+// The forward's shared memory: the two-slot ring of q, k, v rows.
+size_t fwd_smem_floats(const Geo& g) { return (size_t)6 * g.pairs * g.N * g.stride; }
 
 // The backward's shared memory: the two-slot ring of q, k, v, g rows, ds
 // and a_v [P][N][N], and the block's d rel_bias [H][N][N].
@@ -102,71 +113,65 @@ int check_geometry(int B, int H, int N, int hd, const void* mask, int nW) {
 }
 
 // ---------------------------------------------------------------------------
-// forward (#6; #7 with kDropout)
+// the staging both directions share
 
-template <bool kDropout>
-__global__ void __launch_bounds__(kThreads)
-wattn_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, Strides sq, Strides sk, Strides sv,
-                 const float* __restrict__ rel_bias, const float* __restrict__ mask,
-                 float* __restrict__ out, unsigned long long seed, unsigned threshold,
-                 float inv_keep, Geo g, int nW) {
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);
-  float* ks = qs + g.pairs * g.N * g.stride;
-  float* vs = ks + g.pairs * g.N * g.stride;
-  const int p0 = blockIdx.x * g.pairs;
-  const int np = (int)min((long long)g.pairs, g.total - p0);
-  stage_rows(q, sq, p0, np, g, qs);
-  stage_rows(k, sk, p0, np, g, ks);
-  stage_rows(v, sv, p0, np, g, vs);
-  __syncthreads();
+// The operands a chunk stages: q, k, v (the forward's three), g (the
+// backward's fourth), each [B, H, N, hd] at its own element strides.
+struct Operands {
+  const float* src[4];
+  Strides st[4];
+};
 
-  const Row t = thread_row(g, p0, np);
-  const int N = g.N;
-  float p[kMaxN];
-  row_dots(qs + t.r * g.stride, ks + t.pl * N * g.stride, g, t.lane, p);
-  softmax_row(p, rel_bias + (t.h * N + t.i) * N,
-              mask ? mask + ((size_t)(t.w % nW) * N + t.i) * N : nullptr, N);
-  if (kDropout) {
-    bool kept[kMaxN];
-    focal::attn_keep_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, kept);
+// The pairs chunk `chunk` holds (the last may hold fewer than P).
+__device__ __forceinline__ int chunk_pairs(const Geo& g, int chunk) {
+  return (int)min((long long)g.pairs, g.total - (long long)chunk * g.pairs);
+}
+
+// The staging of one chunk: cp.async copies of its rows of the first kOps
+// operands into a ring slot ([kOps][P][N][stride]), 16 bytes each. Thread
+// tid copies float4 column tid % c4 of rows tid / c4, + R, + 2R, ... (R =
+// kThreads / c4 rows a pass): the row's (pair, token) is found once for
+// its kOps operands.
+template <int kOps>
+__device__ __forceinline__ void stage_chunk_async(const Operands& in, int chunk, const Geo& g,
+                                                  float* slot) {
+  const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
+  const int per_pass = kThreads / g.c4;
+  const int c = threadIdx.x % g.c4, r0 = threadIdx.x / g.c4;
+  if (r0 >= per_pass) return;
+  const int slab = g.pairs * g.N * g.stride;
+  for (int r = r0; r < np * g.N; r += per_pass) {
+    const int pl = r / g.N, i = r - pl * g.N;
+    const int pair = p0 + pl;
+    const int b = pair / g.H, h = pair - b * g.H;
 #pragma unroll
-    for (int j = 0; j < kMaxN; ++j)
-      if (j < N) p[j] = kept[j] ? p[j] * inv_keep : 0.f;
-  }
-  const float* vb = vs + t.pl * N * g.stride;
-  float4* o = reinterpret_cast<float4*>(out + ((size_t)t.pair * N + t.i) * g.hd);
-  for (int c = t.lane; c < g.c4; c += g.lanes) {
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int j = 0; j < kMaxN; ++j) {
-      if (j < N) {
-        const float4 y = *reinterpret_cast<const float4*>(vb + j * g.stride + 4 * c);
-        acc.x = fmaf(p[j], y.x, acc.x);
-        acc.y = fmaf(p[j], y.y, acc.y);
-        acc.z = fmaf(p[j], y.z, acc.z);
-        acc.w = fmaf(p[j], y.w, acc.w);
-      }
+    for (int o = 0; o < kOps; ++o) {
+      const float* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
+      focal::cp_async16(slot + o * slab + r * g.stride + 4 * c, row + 4 * c, true);
     }
-    if (t.active) o[c] = acc;
   }
 }
 
-// ---------------------------------------------------------------------------
-// backward (#8; #9 with kDropout)
-
-// Output element strides of the backward: dq, dk and dv as [B, H, N, hd]
-// operands (contiguous, or the head columns of one d(qkv) [B, N, 3C]).
-struct OutStrides {
-  Strides dq, dk, dv;
-};
+// Multiply the chunk's q rows in a ring slot by `scale`: each thread scales
+// the float4s it copied itself (stage_chunk_async's mapping), so it may do
+// so right after its own cp_async_wait, before the chunk's barrier.
+__device__ __forceinline__ void scale_staged_q(int chunk, const Geo& g, float* qs, float scale) {
+  const int np = chunk_pairs(g, chunk);
+  const int per_pass = kThreads / g.c4;
+  const int c = threadIdx.x % g.c4, r0 = threadIdx.x / g.c4;
+  if (r0 >= per_pass) return;
+  for (int r = r0; r < np * g.N; r += per_pass) {
+    float4* x = reinterpret_cast<float4*>(qs + r * g.stride + 4 * c);
+    const float4 y = *x;
+    *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
+  }
+}
 
 // The keep flags of keys 0..N-1 of one (window, head, query row), as bit j
 // of the result, with the G lanes of the row sharing the Philox words: lane
 // l draws blocks jb = l, l + G, ... of focal::attn_keep_words (so the bits
-// are #2's and #7's) and a butterfly of shuffles ORs the lanes' bits.
-// Every lane of the warp must call it.
+// are #2's) and a butterfly of shuffles ORs the lanes' bits. Every lane of
+// the warp must call it.
 __device__ __forceinline__ unsigned keep_bits_row(unsigned long long seed, unsigned window,
                                                   int head, int row, int N, unsigned threshold,
                                                   int lane, int lanes) {
@@ -183,38 +188,102 @@ __device__ __forceinline__ unsigned keep_bits_row(unsigned long long seed, unsig
   return bits;
 }
 
-// The staging of one chunk: cp.async copies of its q, k, v and g rows into
-// a ring slot, 16 bytes each. Thread tid copies float4 column tid % c4 of
-// rows tid / c4, + R, + 2R, ... (R = kThreads / c4 rows a pass): the row's
-// (pair, token) is found once for its four operands.
-struct Operands {
-  const float* src[4];  // q, k, v, g
-  Strides st[4];
-};
+// ---------------------------------------------------------------------------
+// forward (#6; #7 with kDropout)
 
-// The pairs chunk `chunk` holds (the last may hold fewer than P).
-__device__ __forceinline__ int chunk_pairs(const Geo& g, int chunk) {
-  return (int)min((long long)g.pairs, g.total - (long long)chunk * g.pairs);
-}
+// A persistent grid: block b takes chunks b, b + grid, ... of P (window,
+// head) pairs. Each chunk's q, k and v are staged by cp.async into one slot
+// of a two-deep ring while the block computes the chunk before it. Query
+// row i of each pair: the scores, softmax and dropout in registers, then
+// out_i = a_v v, written at the caller's strides `so`. One barrier a chunk:
+// the one after a chunk's copies land (and its q is scaled) also frees the
+// other slot, which the chunk before was read from, so the next chunk's
+// copies are issued right after it. kN and kCols as in wattn_bwd_kernel.
+template <int kN, int kCols, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 2)
+wattn_fwd_kernel(Operands in, Strides so, const float* __restrict__ rel_bias,
+                 const float* __restrict__ mask, float* __restrict__ out, float q_scale,
+                 unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
+  extern __shared__ float4 smem4[];
+  const int N = kN < kMaxN ? kN : g.N, slab = g.pairs * N * g.stride;
+  float* ring = reinterpret_cast<float*>(smem4);  // [2][q, k, v][P][N][stride]
+  const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
 
-__device__ __forceinline__ void stage_chunk_async(const Operands& in, int chunk, const Geo& g,
-                                                  float* slot) {
-  const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
-  const int per_pass = kThreads / g.c4;
-  const int c = threadIdx.x % g.c4, r0 = threadIdx.x / g.c4;
-  if (r0 >= per_pass) return;
-  const int slab = g.pairs * g.N * g.stride;
-  for (int r = r0; r < np * g.N; r += per_pass) {
-    const int pl = r / g.N, i = r - pl * g.N;
-    const int pair = p0 + pl;
-    const int b = pair / g.H, h = pair - b * g.H;
+  stage_chunk_async<3>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  focal::cp_async_commit();
+
+  int it = 0;
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x, ++it) {
+    const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
+    float* qs = ring + (it & 1) * 3 * slab;
+    focal::cp_async_wait<0>();  // this thread's copies of the chunk have landed
+    if (q_scale != 1.f) scale_staged_q(chunk, g, qs, q_scale);
+    __syncthreads();  // and every thread's, scaled; the other slot is free
+    const int next = chunk + gridDim.x;
+    if (next < nchunks)  // the next chunk's loads fly while this one computes
+      stage_chunk_async<3>(in, next, g, ring + ((it + 1) & 1) * 3 * slab);
+    focal::cp_async_commit();
+    const float* ks = qs + slab;
+    const float* vs = ks + slab;
+
+    const Row t = thread_row(g, p0, np);
+    const float* brow = rel_bias + (t.h * N + t.i) * N;
+    const float* mrow = mask ? mask + ((size_t)(t.w % nW) * N + t.i) * N : nullptr;
+    float bias[kN];  // the row's bias and mask, loaded ahead of the products
 #pragma unroll
-    for (int o = 0; o < 4; ++o) {
-      const float* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
-      focal::cp_async16(slot + o * slab + r * g.stride + 4 * c, row + 4 * c, true);
+    for (int j = 0; j < kN; ++j)
+      if (focal::key_in_row<kN>(j, N)) bias[j] = __ldg(brow + j);
+    float mk[kN];
+    if (mrow) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (focal::key_in_row<kN>(j, N)) mk[j] = __ldg(mrow + j);
     }
+    unsigned kept = ~0u;
+    if (kDropout)
+      kept = keep_bits_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, t.lane, g.lanes);
+    float p[kN];
+    row_dots<kCols>(qs + t.r * g.stride, ks + t.pl * N * g.stride, g, t.lane, p);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        p[j] += bias[j];
+        if (mrow) p[j] += mk[j];
+      }
+    }
+    focal::softmax_scores(p, N);
+    if (kDropout) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (focal::key_in_row<kN>(j, N)) p[j] = (kept >> j) & 1u ? p[j] * inv_keep : 0.f;
+    }
+    const float* vb = vs + t.pl * N * g.stride;
+    float4* o = reinterpret_cast<float4*>(out + t.w * so.b + t.h * so.h + t.i * so.n);
+    focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        if (focal::key_in_row<kN>(j, N)) {
+          const float4 y = *reinterpret_cast<const float4*>(vb + j * g.stride + 4 * c);
+          acc.x = fmaf(p[j], y.x, acc.x);
+          acc.y = fmaf(p[j], y.y, acc.y);
+          acc.z = fmaf(p[j], y.z, acc.z);
+          acc.w = fmaf(p[j], y.w, acc.w);
+        }
+      }
+      if (t.active) o[c] = acc;
+    });
   }
 }
+
+// ---------------------------------------------------------------------------
+// backward (#8; #9 with kDropout)
+
+// Output element strides of the backward: dq, dk and dv as [B, H, N, hd]
+// operands (contiguous, or the head columns of one d(qkv) [B, N, 3C]).
+struct OutStrides {
+  Strides dq, dk, dv;
+};
 
 // A persistent grid: block b takes chunks b, b + grid, ... of P (window,
 // head) pairs. Each chunk's q, k, v and g are staged by cp.async into one
@@ -225,17 +294,19 @@ __device__ __forceinline__ void stage_chunk_async(const Operands& in, int chunk,
 //   stage 2, key row j: dk_j = sum_i ds[i][j] q_i, dv_j = sum_i a_v[i][j]
 //     g_i, and the block's d rel_bias += ds of the chunk's pairs, in pair
 //     order.
-// Two barriers a chunk: the one after a chunk's copies land also frees the
-// other slot and ds / a_v (read by the chunk before), so the next chunk's
-// copies are issued right after it. kN = 9 is the 3 x 3 window's exact row
-// tile, kN = kAttnMaxN any N up to 16; kCols > 0 unrolls a lane's kCols
-// float4 columns (c4 = kCols G: 2 at hd 16, 32 and 64).
+// Two barriers a chunk: the one after a chunk's copies land (and its q is
+// scaled by q_scale) also frees the other slot and ds / a_v (read by the
+// chunk before), so the next chunk's copies are issued right after it. kN
+// = 9 is the 3 x 3 window's exact row tile, kN = kAttnMaxN any N up to 16;
+// kCols > 0 unrolls a lane's kCols float4 columns (c4 = kCols G: 2 at hd
+// 16, 32 and 64).
 template <int kN, int kCols, bool kDropout>
 __global__ void __launch_bounds__(kThreads, 2)
 wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
                  const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
-                 float* __restrict__ dv, float dq_scale, float* __restrict__ dbias_part,
-                 unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
+                 float* __restrict__ dv, float q_scale, float dq_scale,
+                 float* __restrict__ dbias_part, unsigned long long seed, unsigned threshold,
+                 float inv_keep, Geo g, int nW) {
   extern __shared__ float4 smem4[];
   const int N = kN < kMaxN ? kN : g.N, nn = N * N, slab = g.pairs * N * g.stride;
   float* ring = reinterpret_cast<float*>(smem4);  // [2][q, k, v, g][P][N][stride]
@@ -245,19 +316,20 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
   const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
 
   for (int e = threadIdx.x; e < g.H * nn; e += kThreads) dacc[e] = 0.f;
-  stage_chunk_async(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  stage_chunk_async<4>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
   focal::cp_async_commit();
 
   int it = 0;
   for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x, ++it) {
     const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
+    float* qs = ring + (it & 1) * 4 * slab;
     focal::cp_async_wait<0>();  // this chunk's copies have landed (each thread its own)
+    if (q_scale != 1.f) scale_staged_q(chunk, g, qs, q_scale);
     __syncthreads();            // and every thread's; the other slot and ds / a_v are free
     const int next = chunk + gridDim.x;
     if (next < nchunks)  // the next chunk's loads fly while this one computes
-      stage_chunk_async(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
+      stage_chunk_async<4>(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
     focal::cp_async_commit();
-    const float* qs = ring + (it & 1) * 4 * slab;
     const float* ks = qs + slab;
     const float* vs = ks + slab;
     const float* gs = vs + slab;
@@ -407,13 +479,9 @@ __global__ void keep_mask_kernel(unsigned char* __restrict__ keep, int B, int H,
   }
 }
 
-template <class Kernel>
-cudaError_t set_smem(Kernel kernel, size_t bytes) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-}
-
-// set_smem that never lowers a kernel's limit below what an earlier plan
-// (bwd_plan keeps them) launches it with, on the current device.
+// Raise a kernel's dynamic shared memory limit to `bytes` on the current
+// device, never lowering it below what an earlier plan (the cached plans
+// keep them) launches it with.
 template <class Kernel>
 cudaError_t raise_smem(Kernel kernel, size_t bytes) {
   static std::mutex mutex;
@@ -424,37 +492,49 @@ cudaError_t raise_smem(Kernel kernel, size_t bytes) {
   std::lock_guard<std::mutex> lock(mutex);
   size_t& limit = limits[{dev, reinterpret_cast<const void*>(kernel)}];
   if (bytes <= limit) return cudaSuccess;
-  err = set_smem(kernel, bytes);
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
   if (err == cudaSuccess) limit = bytes;
   return err;
 }
 
+using FwdKernel = void (*)(Operands, Strides, const float*, const float*, float*, float,
+                          unsigned long long, unsigned, float, Geo, int);
 using BwdKernel = void (*)(Operands, OutStrides, const float*, const float*, float*, float*,
-                          float*, float, float*, unsigned long long, unsigned, float, Geo, int);
+                          float*, float, float, float*, unsigned long long, unsigned, float, Geo,
+                          int);
 
-// The backward's instance: the exact 3 x 3 window tile with two float4
+// Each direction's instance: the exact 3 x 3 window tile with two float4
 // columns a lane (hd 16, 32, 64 at N = 9), or any N and head width.
+FwdKernel fwd_kernel(const Geo& g, bool dropout) {
+  if (g.N == 9 && g.c4 == 2 * g.lanes)
+    return dropout ? wattn_fwd_kernel<9, 2, true> : wattn_fwd_kernel<9, 2, false>;
+  return dropout ? wattn_fwd_kernel<kMaxN, 0, true> : wattn_fwd_kernel<kMaxN, 0, false>;
+}
+
 BwdKernel bwd_kernel(const Geo& g, bool dropout) {
   if (g.N == 9 && g.c4 == 2 * g.lanes)
     return dropout ? wattn_bwd_kernel<9, 2, true> : wattn_bwd_kernel<9, 2, false>;
   return dropout ? wattn_bwd_kernel<kMaxN, 0, true> : wattn_bwd_kernel<kMaxN, 0, false>;
 }
 
-// The backward's launch plan on the current device: make_geo's pairs a
-// block, fewer where the ring does not fit a block's shared memory (from
+// A launch plan on the current device: make_geo's pairs a block, fewer
+// where the ring does not fit a block's shared memory (the backward's from
 // hd ~ 256 at N = 9); a persistent grid of as many blocks as fit the card
 // at once, at most one a chunk. Deterministic for a geometry on a card, so
-// the d rel_bias partials (and their sum) are too.
-struct BwdPlan {
+// the backward's d rel_bias partials (and their sum) are too.
+template <class Kernel>
+struct Plan {
   Geo geo;
-  BwdKernel kernel;
+  Kernel kernel;
   size_t smem;
   int grid;
   cudaError_t err;
 };
 
-BwdPlan make_bwd_plan(int B, int H, int N, int hd, bool dropout) {
-  BwdPlan P{};
+template <class Kernel>
+Plan<Kernel> make_plan(int B, int H, int N, int hd, bool dropout,
+                       Kernel (*pick)(const Geo&, bool), size_t (*smem_floats)(const Geo&)) {
+  Plan<Kernel> P{};
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   P.err = cudaGetDevice(&dev);
   if (P.err == cudaSuccess) P.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
@@ -462,13 +542,13 @@ BwdPlan make_bwd_plan(int B, int H, int N, int hd, bool dropout) {
     P.err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (P.err != cudaSuccess) return P;
   P.geo = make_geo(B, H, N, hd);
-  while (P.geo.pairs > 1 && bwd_smem_floats(P.geo) * sizeof(float) > (size_t)optin) --P.geo.pairs;
-  P.smem = bwd_smem_floats(P.geo) * sizeof(float);
+  while (P.geo.pairs > 1 && smem_floats(P.geo) * sizeof(float) > (size_t)optin) --P.geo.pairs;
+  P.smem = smem_floats(P.geo) * sizeof(float);
   if (P.smem > (size_t)optin) {
     P.err = cudaErrorInvalidValue;
     return P;
   }
-  P.kernel = bwd_kernel(P.geo, dropout);
+  P.kernel = pick(P.geo, dropout);
   P.err = raise_smem(P.kernel, P.smem);
   if (P.err == cudaSuccess)
     P.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, P.kernel, kThreads, P.smem);
@@ -479,21 +559,32 @@ BwdPlan make_bwd_plan(int B, int H, int N, int hd, bool dropout) {
   return P;
 }
 
-// make_bwd_plan, once a geometry and device: its attribute and occupancy
-// queries cost more host time than a small launch takes on the card.
-BwdPlan bwd_plan(int B, int H, int N, int hd, bool dropout) {
+// make_plan, once a geometry and device (one cache a direction): its
+// attribute and occupancy queries cost more host time than a small launch
+// takes on the card.
+template <class Kernel>
+Plan<Kernel> cached_plan(int B, int H, int N, int hd, bool dropout,
+                         Kernel (*pick)(const Geo&, bool), size_t (*smem_floats)(const Geo&)) {
   static std::mutex mutex;
-  static std::map<std::array<int, 6>, BwdPlan> plans;
+  static std::map<std::array<int, 6>, Plan<Kernel>> plans;
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return BwdPlan{Geo{}, nullptr, 0, 0, err};
+  if (err != cudaSuccess) return Plan<Kernel>{Geo{}, nullptr, 0, 0, err};
   const std::array<int, 6> key{dev, B, H, N, hd, (int)dropout};
   std::lock_guard<std::mutex> lock(mutex);
   const auto it = plans.find(key);
   if (it != plans.end()) return it->second;
-  const BwdPlan P = make_bwd_plan(B, H, N, hd, dropout);
+  const Plan<Kernel> P = make_plan(B, H, N, hd, dropout, pick, smem_floats);
   if (P.err == cudaSuccess) plans.emplace(key, P);
   return P;
+}
+
+Plan<FwdKernel> fwd_plan(int B, int H, int N, int hd, bool dropout) {
+  return cached_plan(B, H, N, hd, dropout, fwd_kernel, fwd_smem_floats);
+}
+
+Plan<BwdKernel> bwd_plan(int B, int H, int N, int hd, bool dropout) {
+  return cached_plan(B, H, N, hd, dropout, bwd_kernel, bwd_smem_floats);
 }
 
 Strides strides_at(const long long* s, int k) { return Strides{s[3 * k], s[3 * k + 1], s[3 * k + 2]}; }
@@ -502,35 +593,31 @@ Strides strides_at(const long long* s, int k) { return Strides{s[3 * k], s[3 * k
 
 // Forward: #6 (dropout 0) or #7 (dropout 1: each weight kept iff its Philox
 // word, keyed by `seed`, is >= `threshold`, then scaled by `inv_keep`).
-// q, k, v are device pointers to [B, H, N, hd] f32 with hd contiguous;
-// `strides` holds their element strides over (B, H, N), nine in all (each a
-// multiple of 4, pointers 16-byte aligned). rel_bias [H, N, N]; mask [nW, N,
-// N] or null (window w takes mask[w % nW]); out contiguous [B, H, N, hd].
-// Launches on `stream`; returns cudaGetLastError() (0 on success).
-extern "C" int focal_wattn_fwd(const void* q, const void* k, const void* v,
-                               const long long* strides, const void* rel_bias, const void* mask,
-                               void* out, int B, int H, int N, int hd, int nW, int dropout,
+// q, k, v are device pointers to [B, H, N, hd] f32 with hd contiguous; q is
+// multiplied by `q_scale` as it is staged (1 for q already scaled). out is
+// a [B, H, N, hd] operand too: contiguous, or the head columns of one [B,
+// N, C] tensor. `strides` holds the element strides over (B, H, N) of q, k,
+// v and out, twelve in all (each a multiple of 4, pointers 16-byte
+// aligned). rel_bias [H, N, N]; mask [nW, N, N] or null (window w takes
+// mask[w % nW]). Launches on `stream`; returns cudaGetLastError() (0 on
+// success), or the error of the launch plan.
+extern "C" int focal_wattn_fwd(const void* q, const void* k, const void* v, const void* rel_bias,
+                               const void* mask, void* out, const long long* strides,
+                               float q_scale, int B, int H, int N, int hd, int nW, int dropout,
                                unsigned long long seed, unsigned threshold, float inv_keep,
                                void* stream) {
   if (int e = check_geometry(B, H, N, hd, mask, nW)) return e;
   if (B == 0) return 0;
-  const Geo g = make_geo(B, H, N, hd);
-  const size_t bytes = fwd_smem_floats(g) * sizeof(float);
-  cudaError_t err = dropout ? set_smem(wattn_fwd_kernel<true>, bytes)
-                            : set_smem(wattn_fwd_kernel<false>, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (int)((g.total + g.pairs - 1) / g.pairs);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FOCAL_WATTN_FWD_ARGS                                                                   \
-  static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),    \
-      strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),                  \
-      static_cast<const float*>(rel_bias), static_cast<const float*>(mask),                    \
-      static_cast<float*>(out), seed, threshold, inv_keep, g, mask != nullptr ? nW : 1
-  if (dropout)
-    wattn_fwd_kernel<true><<<grid, kThreads, bytes, s>>>(FOCAL_WATTN_FWD_ARGS);
-  else
-    wattn_fwd_kernel<false><<<grid, kThreads, bytes, s>>>(FOCAL_WATTN_FWD_ARGS);
-#undef FOCAL_WATTN_FWD_ARGS
+  const Plan<FwdKernel> P = fwd_plan(B, H, N, hd, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  const Operands in{{static_cast<const float*>(q), static_cast<const float*>(k),
+                     static_cast<const float*>(v), nullptr},
+                    {strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+                     Strides{}}};
+  P.kernel<<<P.grid, kThreads, P.smem, static_cast<cudaStream_t>(stream)>>>(
+      in, strides_at(strides, 3), static_cast<const float*>(rel_bias),
+      static_cast<const float*>(mask), static_cast<float*>(out), q_scale, seed, threshold,
+      inv_keep, P.geo, mask != nullptr ? nW : 1);
   return (int)cudaGetLastError();
 }
 
@@ -543,7 +630,7 @@ extern "C" int focal_wattn_bwd_workspace(int B, int H, int N, int hd, int dropou
     *floats = 0;
     return 0;
   }
-  const BwdPlan P = bwd_plan(B, H, N, hd, dropout != 0);
+  const Plan<BwdKernel> P = bwd_plan(B, H, N, hd, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   *floats = (long long)P.grid * H * N * N;
   return 0;
@@ -551,22 +638,23 @@ extern "C" int focal_wattn_bwd_workspace(int B, int H, int N, int hd, int dropou
 
 // Backward: #8 (dropout 0) or #9 (dropout 1, the forward's mask drawn again
 // from `seed`). q, k, v, g (the output's gradient) as focal_wattn_fwd's
-// operands, twelve strides. dq, dk, dv: [B, H, N, hd] operands at the nine
-// element strides `out_strides` (each a multiple of 4, pointers 16-byte
-// aligned): contiguous, or the head columns of one d(qkv) [B, N, 3C]; dq is
-// multiplied by dq_scale (the q scale the caller applied before the
-// forward; 1 for none). drel_bias [H, N, N]; `ws` holds
-// focal_wattn_bwd_workspace floats. Two launches on `stream`: the
-// persistent chunk kernel and the ordered sum of d rel_bias.
+// operands (q times `q_scale` as it is staged), twelve strides. dq, dk, dv:
+// [B, H, N, hd] operands at the nine element strides `out_strides` (each a
+// multiple of 4, pointers 16-byte aligned): contiguous, or the head columns
+// of one d(qkv) [B, N, 3C]; dq (the gradient of the scaled q) is
+// multiplied by dq_scale (the q scale, for the gradient of q before it;
+// 1 for none). drel_bias [H, N, N]; `ws` holds focal_wattn_bwd_workspace
+// floats. Two launches on `stream`: the persistent chunk kernel and the
+// ordered sum of d rel_bias.
 extern "C" int focal_wattn_bwd(const void* q, const void* k, const void* v, const void* g_out,
                                const long long* strides, const void* rel_bias, const void* mask,
                                void* dq, void* dk, void* dv, const long long* out_strides,
-                               float dq_scale, void* drel_bias, void* ws, int B, int H, int N,
-                               int hd, int nW, int dropout, unsigned long long seed,
+                               float q_scale, float dq_scale, void* drel_bias, void* ws, int B,
+                               int H, int N, int hd, int nW, int dropout, unsigned long long seed,
                                unsigned threshold, float inv_keep, void* stream) {
   if (int e = check_geometry(B, H, N, hd, mask, nW)) return e;
   if (B == 0) return 0;
-  const BwdPlan P = bwd_plan(B, H, N, hd, dropout != 0);
+  const Plan<BwdKernel> P = bwd_plan(B, H, N, hd, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(ws);
@@ -578,8 +666,8 @@ extern "C" int focal_wattn_bwd(const void* q, const void* k, const void* v, cons
                       strides_at(out_strides, 2)};
   P.kernel<<<P.grid, kThreads, P.smem, s>>>(
       in, so, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
-      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), dq_scale, part,
-      seed, threshold, inv_keep, P.geo, mask != nullptr ? nW : 1);
+      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), q_scale,
+      dq_scale, part, seed, threshold, inv_keep, P.geo, mask != nullptr ? nW : 1);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int E = H * N * N;

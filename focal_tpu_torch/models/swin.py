@@ -165,10 +165,13 @@ class WindowAttention(nn.Module):
 
     def _attention_only(self, x, mask, rng):
         """The JAX package's route without the whole-block kernel
-        (``focal_tpu/models/swin.py:258-295``): qkv Linear, q * scale after
-        it, the attention kernels on [B_, H, N, hd] views, proj Linear. In
-        training the kernels' backward hands the qkv Linear its gradient as
-        one [B_, N, 3C] tensor (``window_attention_qkv``)."""
+        (``focal_tpu/models/swin.py:258-295``): qkv Linear, the attention
+        kernels on [B_, H, N, hd] views of its output with q * scale in the
+        kernel, proj Linear. The kernels write their output as the head view
+        of the proj Linear's [B_, N, C] input, so nothing scales q or lays
+        the output out in between. In training the kernels' backward hands
+        the qkv Linear its gradient as one [B_, N, 3C] tensor
+        (``window_attention_qkv``)."""
         B_, N, C = x.shape
         H = self.num_heads
         hd = C // H
@@ -178,7 +181,9 @@ class WindowAttention(nn.Module):
             out = window_attention_qkv(qkv, H, self._rel_bias(), mask, seed, self.attn_drop)
         else:
             q, k, v = qkv.reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
-            out = fused_window_attention(q * hd**-0.5, k, v, self._rel_bias(), mask)
+            y = torch.empty((B_, N, C), dtype=qkv.dtype, device=qkv.device)
+            out = fused_window_attention(q, k, v, self._rel_bias(), mask, q_scale=hd**-0.5,
+                                         out=y.view(B_, N, H, hd).transpose(1, 2))
         return self.proj(out.transpose(1, 2).reshape(B_, N, C))
 
     def _plain_attention(self, x, mask, rng):

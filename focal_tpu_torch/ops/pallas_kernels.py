@@ -39,6 +39,7 @@ out for checks.
 """
 
 import ctypes
+import functools
 
 import torch
 
@@ -197,11 +198,15 @@ def _ptr(t):
 
 
 def _launch(name, fn, dev, *args, lib=None):
-    """Run one C entry point on the current stream of ``dev``; raise on error
-    (``lib``, the library of ``fn``, names it: window_block.cu's by default)."""
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
+    """Run one C entry point on the current stream of ``dev``, with ``dev``
+    the current device; raise on error (``lib``, the library of ``fn``,
+    names it: window_block.cu's by default)."""
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if dev.index == torch.cuda.current_device():
         err = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            err = fn(*args, stream)
     if err != 0:
         msg = (lib or _window_block_lib()).focal_cuda_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed ({err}): {msg}")
@@ -567,8 +572,8 @@ def fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g, keep=N
 
 
 def _takes_rows(t):
-    """Whether the attention kernels read ``t`` in place: f32 rows of hd
-    contiguous floats, 16-byte aligned, every stride a multiple of 4."""
+    """Whether the attention kernels read (or write) ``t`` in place: f32 rows
+    of hd contiguous floats, 16-byte aligned, every stride a multiple of 4."""
     return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)
 
@@ -577,7 +582,7 @@ def _check_rows(who, name, t, shape, device):
     """A [B_, H, N, hd] operand: any strides the kernels read (``_takes_rows``)."""
     if t.dtype != torch.float32:
         raise TypeError(f"{who}: {name} must be torch.float32, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
+    if t.shape != shape:
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
         raise ValueError(f"{who}: {name} is on {t.device}, expected {device}")
@@ -586,30 +591,42 @@ def _check_rows(who, name, t, shape, device):
                          f"(strides {t.stride()})")
 
 
-def _check_attention_args(who, q, k, v, rel_bias, mask):
-    """Validate the CUDA path's inputs; returns (B, H, N, hd, nW)."""
-    if q.device.type != "cuda":
-        raise ValueError(f"{who}: unsupported device {q.device}")
+def _check_attention_args(who, q, k, v, rel_bias, mask, *more):
+    """Validate the CUDA path's inputs and the further [B_, H, N, hd]
+    operands ``more`` (name, tensor); returns (B, H, N, hd, nW, the (B_, H,
+    N) element strides of q, k, v and ``more`` as the C side reads them).
+    One test a row operand on the per-call path; _check_rows names what
+    failed."""
+    dev = q.device
+    if dev.type != "cuda":
+        raise ValueError(f"{who}: unsupported device {dev}")
     if q.dim() != 4:
         raise ValueError(f"{who}: q must be [B_, H, N, hd], got {tuple(q.shape)}")
-    B, H, N, hd = q.shape
+    shape = q.shape
+    B, H, N, hd = shape
     if not attention_takes(N, hd):
         raise ValueError(f"{who}: unsupported geometry N={N} hd={hd}")
-    dev = q.device
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _check_rows(who, name, t, (B, H, N, hd), dev)
+    index, strides = dev.index, []
+    for name, t in (("q", q), ("k", k), ("v", v), *more):
+        st = t.stride()
+        if (t.dtype != torch.float32 or t.shape != shape or t.get_device() != index or st[3] != 1
+                or st[0] % 4 or st[1] % 4 or st[2] % 4 or t.data_ptr() % 16):
+            _check_rows(who, name, t, shape, dev)
+            raise ValueError(f"{who}: {name} cannot be read in place")
+        strides += st[:3]
     _check("rel_bias", rel_bias, (H, N, N), dev, who=who)
     nW = 1
     if mask is not None:
         nW = mask.shape[0]
         _check("mask", mask, (nW, N, N), dev, who=who)
-    return B, H, N, hd, nW
+    return B, H, N, hd, nW, _stride_array(tuple(strides))
 
 
-def _strides(*ts):
-    """The (B_, H, N) element strides of each operand, as the C side reads them."""
-    vals = [s for t in ts for s in t.stride()[:3]]
-    return (ctypes.c_longlong * len(vals))(*vals)
+@functools.lru_cache(maxsize=1024)
+def _stride_array(strides):
+    """A ctypes array of ``strides``, made once: the route calls each
+    geometry with the same layouts on every step."""
+    return (ctypes.c_longlong * len(strides))(*strides)
 
 
 def _dropout_args(seed, rate):
@@ -619,13 +636,26 @@ def _dropout_args(seed, rate):
     return 0, 0, 0, 1.0
 
 
-def _attention_forward(who, q, k, v, rel_bias, mask, seed, rate):
-    B, H, N, hd, nW = _check_attention_args(who, q, k, v, rel_bias, mask)
-    out = torch.empty((B, H, N, hd), dtype=torch.float32, device=q.device)
+def _scaled(q, q_scale):
+    """q times ``q_scale`` as the plain versions take it (q itself at 1)."""
+    return q if q_scale == 1.0 else q * q_scale
+
+
+def _into(out, y):
+    """``y``, or ``out`` with y written into it."""
+    return y if out is None else out.copy_(y)
+
+
+def _attention_forward(who, q, k, v, rel_bias, mask, seed, rate, q_scale, out):
+    """The CUDA path of #6 and #7: validate, launch; returns ``out`` (a new
+    contiguous [B_, H, N, hd] tensor where it is None)."""
+    if out is None:
+        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    B, H, N, hd, nW, strides = _check_attention_args(who, q, k, v, rel_bias, mask, ("out", out))
     lib = _window_attention_lib()
     _launch(who, lib.focal_wattn_fwd, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            _strides(q, k, v), rel_bias.data_ptr(), _ptr(mask), out.data_ptr(), B, H, N, hd, nW,
-            *_dropout_args(seed, rate), lib=lib)
+            rel_bias.data_ptr(), _ptr(mask), out.data_ptr(), strides, float(q_scale), B, H, N, hd,
+            nW, *_dropout_args(seed, rate), lib=lib)
     return out
 
 
@@ -636,14 +666,22 @@ def _head_views(qkv, H):
     return qkv.view(B, N, 3, H, C3 // (3 * H)).permute(2, 0, 3, 1, 4).unbind(0)
 
 
-def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate, dqkv=None, dq_scale=1.0):
-    """The CUDA path of #8 and #9: (dq, dk, dv, drel_bias), dq times
-    ``dq_scale``. With ``dqkv`` (a contiguous [B_, N, 3C] tensor of q's
-    device) the kernel writes dq, dk and dv into its head columns and they
-    are returned as views of it."""
-    B, H, N, hd, nW = _check_attention_args(who, q, k, v, rel_bias, mask)
+def _heads(y, H):
+    """A [B_, N, C] tensor as its [B_, H, N, hd] head view (no copy where y
+    is contiguous)."""
+    B, N, C = y.shape
+    return y.reshape(B, N, H, C // H).transpose(1, 2)
+
+
+def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate, dqkv=None, dq_scale=1.0,
+                        q_scale=1.0):
+    """The CUDA path of #8 and #9: (dq, dk, dv, drel_bias) for q times
+    ``q_scale``, dq (the gradient of the scaled q) times ``dq_scale``. With
+    ``dqkv`` (a contiguous [B_, N, 3C] tensor of q's device) the kernel
+    writes dq, dk and dv into its head columns and they are returned as
+    views of it."""
+    B, H, N, hd, nW, strides = _check_attention_args(who, q, k, v, rel_bias, mask, ("g", g))
     dev = q.device
-    _check_rows(who, "g", g, (B, H, N, hd), dev)
     lib = _window_attention_lib()
     dropout = _dropout_args(seed, rate)
     ws = _workspace(who, lib, lib.focal_wattn_bwd_workspace, dev, B, H, N, hd, dropout[0])
@@ -653,9 +691,10 @@ def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate, dqkv=None, 
         outs = _head_views(dqkv, H)
     drel_bias = (torch.zeros if B == 0 else torch.empty)((H, N, N), dtype=torch.float32, device=dev)
     _launch(who, lib.focal_wattn_bwd, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
-            _strides(q, k, v, g), rel_bias.data_ptr(), _ptr(mask), *(t.data_ptr() for t in outs),
-            _strides(*outs), float(dq_scale), drel_bias.data_ptr(), ws.data_ptr(), B, H, N, hd,
-            nW, *dropout, lib=lib)
+            strides, rel_bias.data_ptr(), _ptr(mask), *(t.data_ptr() for t in outs),
+            _stride_array(tuple(s for t in outs for s in t.stride()[:3])), float(q_scale),
+            float(dq_scale), drel_bias.data_ptr(), ws.data_ptr(), B, H, N, hd, nW, *dropout,
+            lib=lib)
     return (*outs, drel_bias)
 
 
@@ -664,21 +703,28 @@ def _check_rate(who, rate):
         raise ValueError(f"{who}: rate must be in (0, 1), got {rate}")
 
 
-def fused_window_attention(q, k, v, rel_bias, mask=None):
+def fused_window_attention(q, k, v, rel_bias, mask=None, q_scale=1.0, out=None):
     """softmax(q k^T + rel_bias + mask[w % nW]) v over windows, one kernel
-    (#6): q, k, v [B_, H, N, hd] f32 (q pre-scaled by hd**-0.5; any strides
-    whose rows of hd floats are contiguous and 16-byte aligned, such as the
-    views of the qkv projection), rel_bias [H, N, N], mask [nW, N, N] or
-    None (window w takes mask[w % nW]). Returns contiguous [B_, H, N, hd].
+    (#6): q, k, v [B_, H, N, hd] f32 (q pre-scaled by hd**-0.5, or scaled
+    by ``q_scale`` in the kernel; any strides whose rows of hd floats are
+    contiguous and 16-byte aligned, such as the views of the qkv
+    projection), rel_bias [H, N, N], mask [nW, N, N] or None (window w
+    takes mask[w % nW]). Returns contiguous [B_, H, N, hd], or ``out``
+    written (a [B_, H, N, hd] destination at such strides: the head view of
+    the output projection's [B_, N, C] input, which then needs no copy).
     N <= 16 and hd a multiple of 4 up to 256; anything else raises.
+    ``q_scale`` rounds as ``q * q_scale`` does: the same bits as the call on
+    the scaled q.
 
     Replaces focal_tpu/ops/pallas_kernels.py::fused_window_attention
-    (_attn_fwd_kernel). CPU tensors take the plain version; CUDA tensors
-    launch csrc/window_attention.cu.
+    (_attn_fwd_kernel). CPU tensors take the plain version (on q times
+    q_scale); CUDA tensors launch csrc/window_attention.cu.
     """
     if q.device.type == "cpu":
-        return fused_window_attention_reference(q, k, v, rel_bias, mask)
-    out = _attention_forward("fused_window_attention", q, k, v, rel_bias, mask, 0, 0.0)
+        return _into(out, fused_window_attention_reference(_scaled(q, q_scale), k, v, rel_bias,
+                                                           mask))
+    out = _attention_forward("fused_window_attention", q, k, v, rel_bias, mask, 0, 0.0, q_scale,
+                             out)
     fused_window_attention.launches += 1
     return out
 
@@ -686,13 +732,13 @@ def fused_window_attention(q, k, v, rel_bias, mask=None):
 fused_window_attention.launches = 0
 
 
-def fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate):
+def fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate, q_scale=1.0, out=None):
     """#6 with attention dropout (#7): each (window, head, query, key) weight
     is kept iff its 32 Philox bits are >= rate * 2**32 (#2's counters, keyed
     by ``seed``: #2's mask bit for bit) and scaled by 1 / (1 - rate). No
     mask is stored: the backward (#9) draws it again from the seed, and
-    ``window_attention_keep_mask`` writes it out for checks. Returns [B_, H,
-    N, hd].
+    ``window_attention_keep_mask`` writes it out for checks. ``q_scale`` and
+    ``out`` as fused_window_attention. Returns [B_, H, N, hd].
 
     Replaces focal_tpu/ops/pallas_kernels.py::fused_window_attention_dropout
     (_attn_fwd_dropout_kernel). On the CPU the mask comes from
@@ -702,8 +748,10 @@ def fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate):
     if q.device.type == "cpu":
         B, H, N, _ = q.shape
         keep = draw_keep_mask(seed, (B, H, N, N), rate, q.device)
-        return fused_window_attention_dropout_reference(q, k, v, rel_bias, mask, keep, rate)
-    out = _attention_forward("fused_window_attention_dropout", q, k, v, rel_bias, mask, seed, rate)
+        return _into(out, fused_window_attention_dropout_reference(
+            _scaled(q, q_scale), k, v, rel_bias, mask, keep, rate))
+    out = _attention_forward("fused_window_attention_dropout", q, k, v, rel_bias, mask, seed, rate,
+                             q_scale, out)
     fused_window_attention_dropout.launches += 1
     return out
 
@@ -711,24 +759,28 @@ def fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate):
 fused_window_attention_dropout.launches = 0
 
 
-def fused_window_attention_backward(q, k, v, rel_bias, mask, g, seed=None, rate=0.0):
+def fused_window_attention_backward(q, k, v, rel_bias, mask, g, seed=None, rate=0.0, q_scale=1.0):
     """VJP of #6 (#8): recomputes the softmax from q and k, as the TPU kernel
     does, and returns (dq, dk, dv [B_, H, N, hd], drel_bias [H, N, N]).
     drel_bias sums the score gradients over every window in a fixed order:
     two calls give the same bits. The mask gets no gradient. With ``seed``
     (and its ``rate``) it is the VJP of #7 instead, which
     fused_window_attention_dropout_backward (#9) computes. ``g`` takes the
-    strides q does.
+    strides q does. With ``q_scale`` q is scaled in the kernel, as the
+    forward scales it, and dq is the gradient of the scaled q: the same
+    bits as the call on the scaled q.
 
     Replaces focal_tpu/ops/pallas_kernels.py::_bwd_impl (_attn_bwd_kernel).
     CPU tensors take the plain version.
     """
     if seed is not None:
-        return fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, rate)
+        return fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, rate,
+                                                       q_scale)
     if q.device.type == "cpu":
-        return fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g)
+        return fused_window_attention_backward_reference(_scaled(q, q_scale), k, v, rel_bias,
+                                                         mask, g)
     grads = _attention_backward("fused_window_attention_backward", q, k, v, rel_bias, mask, g,
-                                0, 0.0)
+                                0, 0.0, q_scale=q_scale)
     fused_window_attention_backward.launches += 1
     return grads
 
@@ -736,10 +788,11 @@ def fused_window_attention_backward(q, k, v, rel_bias, mask, g, seed=None, rate=
 fused_window_attention_backward.launches = 0
 
 
-def fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, rate):
+def fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, rate, q_scale=1.0):
     """VJP of #7 (#9): #8 with #7's mask drawn again from ``seed``; dv takes
     the dropped weights, the score gradients the softmax before dropout.
-    Returns (dq, dk, dv, drel_bias), bitwise repeatable.
+    Returns (dq, dk, dv, drel_bias), bitwise repeatable; ``q_scale`` as
+    fused_window_attention_backward.
 
     Replaces focal_tpu/ops/pallas_kernels.py::_bwd_impl with a seed
     (_attn_bwd_dropout_kernel). On the CPU the plain version with
@@ -749,9 +802,10 @@ def fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, ra
     if q.device.type == "cpu":
         B, H, N, _ = q.shape
         keep = draw_keep_mask(seed, (B, H, N, N), rate, q.device)
-        return fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g, keep, rate)
+        return fused_window_attention_backward_reference(_scaled(q, q_scale), k, v, rel_bias,
+                                                         mask, g, keep, rate)
     grads = _attention_backward("fused_window_attention_dropout_backward", q, k, v, rel_bias, mask,
-                                g, seed, rate)
+                                g, seed, rate, q_scale=q_scale)
     fused_window_attention_dropout_backward.launches += 1
     return grads
 
@@ -787,30 +841,37 @@ def _rows(t):
 class _WindowAttentionQKV(torch.autograd.Function):
     """#7 (or #6 at rate 0) forward and #9 (or #8) backward on the qkv
     projection's output: q, k, v are head views of ``qkv`` [B_, N, 3C], q
-    scaled by hd**-0.5 before the forward; the backward writes d(qkv) into
-    one [B_, N, 3C] tensor, dq times the scale, so nothing stacks or copies
-    the three gradients. The seed is the only residual of the dropout."""
+    scaled by hd**-0.5 in the kernels; the forward writes its output as one
+    [B_, N, C] tensor (the output projection's input), the backward d(qkv)
+    as one [B_, N, 3C] tensor, dq times the scale, so nothing scales,
+    stacks or copies q, the output or the three gradients. The residuals
+    are qkv, rel_bias and the mask; the seed is the only one of the
+    dropout."""
 
     @staticmethod
     def forward(ctx, qkv, rel_bias, mask, H, seed, rate):
         q, k, v = _head_views(qkv, H)
-        q = q * (q.shape[-1] ** -0.5)
+        scale = q.shape[-1] ** -0.5
+        B, N, C3 = qkv.shape
+        y = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
         if rate > 0.0:
-            out = fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate)
+            fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate, q_scale=scale,
+                                           out=_heads(y, H))
         else:
-            out = fused_window_attention(q, k, v, rel_bias, mask)
-        ctx.save_for_backward(qkv, q, rel_bias, mask)
+            fused_window_attention(q, k, v, rel_bias, mask, q_scale=scale, out=_heads(y, H))
+        ctx.save_for_backward(qkv, rel_bias, mask)
         ctx.H, ctx.seed, ctx.rate = H, (seed if rate > 0.0 else None), rate
-        return out
+        return y
 
     @staticmethod
-    def backward(ctx, g):
-        qkv, q, rel_bias, mask = ctx.saved_tensors
-        _, k, v = _head_views(qkv, ctx.H)
+    def backward(ctx, gy):
+        qkv, rel_bias, mask = ctx.saved_tensors
+        q, k, v = _head_views(qkv, ctx.H)
         scale = q.shape[-1] ** -0.5
+        g = _heads(gy, ctx.H)
         if qkv.device.type == "cpu":
-            dq, dk, dv, drel_bias = fused_window_attention_backward(q, k, v, rel_bias, mask, g,
-                                                                    ctx.seed, ctx.rate)
+            dq, dk, dv, drel_bias = fused_window_attention_backward(
+                q, k, v, rel_bias, mask, g, ctx.seed, ctx.rate, q_scale=scale)
             B, H, N, hd = dq.shape
             dqkv = torch.stack([dq * scale, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, 3 * H * hd)
             return dqkv, drel_bias, None, None, None, None
@@ -821,7 +882,7 @@ class _WindowAttentionQKV(torch.autograd.Function):
             who, kernel = ("fused_window_attention_dropout_backward",
                            fused_window_attention_dropout_backward)
         drel_bias = _attention_backward(who, q, k, v, rel_bias, mask, _rows(g), ctx.seed, ctx.rate,
-                                        dqkv=dqkv, dq_scale=scale)[3]
+                                        dqkv=dqkv, dq_scale=scale, q_scale=scale)[3]
         kernel.launches += 1
         return dqkv, drel_bias, None, None, None, None
 
@@ -830,12 +891,15 @@ def window_attention_qkv(qkv, num_heads, rel_bias, mask=None, seed=0, rate=0.0):
     """Differentiable window attention on the qkv projection's output, as
     the attention-only route of the Swin block hands it over: qkv [B_, N,
     3C] (column order part | head | dim, q unscaled), ``num_heads`` heads;
-    q is scaled by hd**-0.5, then #7 (rate > 0) or #6 forward and #9 or #8
-    backward, whose d(qkv) comes out as one [B_, N, 3C] tensor. Returns
-    [B_, H, N, hd]; gradients in qkv and rel_bias. qkv must be contiguous
-    (the Linear's output). CPU tensors take the plain versions."""
-    return _WindowAttentionQKV.apply(qkv.contiguous(), rel_bias, mask, int(num_heads), seed,
-                                     float(rate))
+    q scaled by hd**-0.5 in the kernels, #7 (rate > 0) or #6 forward and #9
+    or #8 backward, whose d(qkv) comes out as one [B_, N, 3C] tensor.
+    Returns [B_, H, N, hd], the head view of a contiguous [B_, N, C] tensor
+    (``out.transpose(1, 2).reshape(B_, N, C)`` is a view); gradients in qkv
+    and rel_bias. qkv must be contiguous (the Linear's output). CPU tensors
+    take the plain versions."""
+    y = _WindowAttentionQKV.apply(qkv.contiguous(), rel_bias, mask, int(num_heads), seed,
+                                  float(rate))
+    return _heads(y, int(num_heads))
 
 
 def window_attention_qkv_reference(qkv, num_heads, rel_bias, mask=None, seed=0, rate=0.0):
@@ -861,10 +925,10 @@ def _window_attention_lib():
     if lib.focal_wattn_fwd.argtypes is None:
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)
         drop = [i, ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p]  # dropout .. stream
-        lib.focal_wattn_fwd.argtypes = [p] * 3 + [ll] + [p] * 3 + [i] * 5 + drop
+        f = ctypes.c_float
+        lib.focal_wattn_fwd.argtypes = [p] * 6 + [ll, f] + [i] * 5 + drop
         lib.focal_wattn_bwd_workspace.argtypes = [i] * 5 + [ll]
-        lib.focal_wattn_bwd.argtypes = ([p] * 4 + [ll] + [p] * 5 + [ll, ctypes.c_float] + [p] * 2
-                                        + [i] * 5 + drop)
+        lib.focal_wattn_bwd.argtypes = [p] * 4 + [ll] + [p] * 5 + [ll, f, f] + [p] * 2 + [i] * 5 + drop
         lib.focal_wattn_keep_mask.argtypes = [p, i, i, i, ctypes.c_ulonglong, ctypes.c_uint, p]
         for fn in (lib.focal_wattn_fwd, lib.focal_wattn_bwd_workspace, lib.focal_wattn_bwd,
                    lib.focal_wattn_keep_mask):

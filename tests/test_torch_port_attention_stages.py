@@ -60,25 +60,35 @@ from test_torch_port_perhead_stages import GEMMS, _abs, _case, _torch, stages_fo
 THREADS, MAX_LANES, SMEM_OPTIN = 256, 8, 232448  # csrc/window_rows.cuh; the H100's opt-in
 
 
-def attention_plan(B, H, N, hd):
-    """(lanes G, pairs P a chunk) as focal::make_geo and bwd_plan set them:
-    G a power of two up to 8 dividing the float4 columns with two columns
-    a lane; P = 256 / (N G), fewer where the two-slot ring of q, k, v, g
-    rows does not fit a block's shared memory."""
+def attention_plan(B, H, N, hd, forward=False):
+    """(lanes G, pairs P a chunk) as focal::make_geo and the launch plans
+    set them: G a power of two up to 8 dividing the float4 columns with two
+    columns a lane; P = 256 / (N G), fewer where the two-slot ring (q, k, v
+    rows in the forward; q, k, v, g rows, ds, a_v and the block's d
+    rel_bias in the backward) does not fit a block's shared memory."""
     c4 = -(-hd // 4)
     lanes = 1
     while 2 * lanes <= MAX_LANES and c4 % (2 * lanes) == 0 and 4 * lanes <= c4:
         lanes *= 2
     pairs = max(1, THREADS // (N * lanes))
     stride = 4 * c4 + 4
-    while pairs > 1 and 4 * (8 * pairs * N * stride + (2 * pairs + H) * N * N) > SMEM_OPTIN:
+
+    def floats(p):
+        if forward:
+            return 6 * p * N * stride
+        return 8 * p * N * stride + (2 * p + H) * N * N
+
+    while pairs > 1 and 4 * floats(pairs) > SMEM_OPTIN:
         pairs -= 1
     return lanes, pairs
 
 
-def stages_attention_backward(q, k, v, g, rel_bias, mask, keep, rate, dq_scale, grid):
+def stages_attention_backward(q, k, v, g, rel_bias, mask, keep, rate, dq_scale, grid,
+                              q_scale=1.0):
     """#8/#9's phase order: (d(qkv) [B_, N, 3C] with dq times ``dq_scale``,
-    drel_bias [H, N, N]) for q (already scaled), k, v, g [B_, H, N, hd]."""
+    drel_bias [H, N, N]) for q times ``q_scale`` (each chunk's staged rows
+    scaled in place, as the kernel scales its ring slot), k, v, g [B_, H,
+    N, hd]."""
     B, H, N, hd = q.shape
     _, P = attention_plan(B, H, N, hd)
     total = B * H
@@ -91,6 +101,8 @@ def stages_attention_backward(q, k, v, g, rel_bias, mask, keep, rate, dq_scale, 
             pairs = torch.arange(chunk * P, min(total, (chunk + 1) * P))
             w, h = pairs // H, pairs % H
             qc, kc, vc, gc = (t[w, h] for t in (q, k, v, g))
+            if q_scale != 1.0:
+                qc.mul_(q_scale)
             s = qc @ kc.transpose(-1, -2) + rel_bias[h]
             if mask is not None:
                 s = s + mask[w % mask.shape[0]]
@@ -147,6 +159,23 @@ def test_attention_stages_match_the_jax_kernel_at_rate_0(B, H, N, hd, nW, grid):
     dq, dk, dv, dbias_l = (np.asarray(a) for a in vjp(jnp.asarray(g)))
     assert _rel(got.numpy(), _laid(dq, dk, dv, scale)) <= 1e-5
     assert _rel(drb.numpy(), dbias_l.sum(-1)) <= 1e-5
+
+
+@pytest.mark.parametrize("B,H,N,hd,nW", ATTN_STAGE_GEOMETRIES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_attention_stages_scale_q_as_the_caller_did(B, H, N, hd, nW, rate):
+    """q unscaled with ``q_scale``: the same bits as the call on q * scale
+    (the route's q, scaled in the kernel and never saved)."""
+    (_, k, v, g, rel_bias, mask), rng = _inputs(B + hd + 3 * nW, B, H, N, hd, nW)
+    q = rng.normal(size=(B, H, N, hd)).astype(np.float32)
+    keep = torch.from_numpy((rng.random((B, H, N, N)) >= rate).astype(np.uint8)) if rate else None
+    scale = hd**-0.5
+    rest = [torch.from_numpy(a) for a in (k, v, g, rel_bias)]
+    want = stages_attention_backward(torch.from_numpy(q * np.float32(scale)), *rest, _t(mask), keep,
+                                     rate, scale, 3)
+    got = stages_attention_backward(torch.from_numpy(q), *rest, _t(mask), keep, rate, scale, 3,
+                                    q_scale=scale)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
 @pytest.mark.parametrize("B,H,N,hd,nW", ATTN_STAGE_GEOMETRIES)

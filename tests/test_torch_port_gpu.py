@@ -1023,6 +1023,44 @@ def test_attention_backward_matches_autograd_of_plain_and_repeats(B, H, N, hd, n
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd,nW", ATTN_GEOMETRIES)
+def test_attention_q_scale_and_out_forms_are_the_prescaled_calls_bitwise(B, H, N, hd, nW):
+    """The route's forms: q unscaled (the head view of a [B_, N, 3C]
+    tensor) with ``q_scale``, #6/#7 writing into the head view of a [B_,
+    N, C] tensor, #8/#9 with ``q_scale``: the same bits as the calls on q *
+    scale with contiguous outputs (the kernels' f32 multiply rounds as the
+    caller's), one launch counted a call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(B + hd + 11)
+    C, s = H * hd, hd**-0.5
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(dev)
+    q, k, v = pk._head_views(qkv, H)
+    qs = q * s
+    _, _, _, rel_bias, mask, g = _attn_args(rng, B, H, N, hd, nW, dev)
+    kernels = (pk.fused_window_attention, pk.fused_window_attention_dropout,
+               pk.fused_window_attention_backward, pk.fused_window_attention_dropout_backward)
+    before = [f.launches for f in kernels]
+    for seed, rate in ((None, 0.0), (17, 0.2)):
+        y = torch.empty((B, N, C), device=dev)
+        view = y.view(B, N, H, hd).transpose(1, 2)
+        if rate:
+            want = pk.fused_window_attention_dropout(qs, k, v, rel_bias, mask, seed, rate)
+            got = pk.fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate, q_scale=s,
+                                                    out=view)
+        else:
+            want = pk.fused_window_attention(qs, k, v, rel_bias, mask)
+            got = pk.fused_window_attention(q, k, v, rel_bias, mask, q_scale=s, out=view)
+        assert got is view and torch.equal(y, want.transpose(1, 2).reshape(B, N, C))
+        want = pk.fused_window_attention_backward(qs, k, v, rel_bias, mask, g, seed, rate)
+        got = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, g, seed, rate, q_scale=s)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(kernels, before)] == [2, 2, 2, 2]
+
+
+@pytest.mark.gpu
 def test_attention_mask_equals_the_whole_block_kernels_mask():
     """#7 draws #2's mask: the same seed and geometry give the same bits."""
     from focal_tpu_torch.ops import pallas_kernels as pk
