@@ -251,20 +251,26 @@ class BiGRU(nn.Module):
 
 
 class MultiHeadDotProductAttention(nn.Module):
-    """flax ``nn.MultiHeadDotProductAttention`` (no mask, eval): per-head
-    q/k/v projections, query scaled by hd**-0.5, softmax over keys, output
+    """flax ``nn.MultiHeadDotProductAttention`` (no mask): per-head q/k/v
+    projections, query scaled by hd**-0.5, softmax over keys, output
     projection. Each flax DenseGeneral kernel ([c, H, hd] for q/k/v,
-    [H, hd, c] for out) is held as an ``nn.Linear`` over the flattened heads."""
+    [H, hd, c] for out) is held as an ``nn.Linear`` over the flattened heads.
 
-    def __init__(self, dim, num_heads):
+    In ``train()`` mode with ``dropout_rate`` > 0 the softmaxed weights are
+    dropped as flax's ``broadcast_dropout`` does: one keep mask of shape
+    [1, 1, Lq, Lk] a call, shared by every sample and head, scaling the
+    kept weights by 1 / (1 - rate); it is drawn from ``rng.device``."""
+
+    def __init__(self, dim, num_heads, dropout_rate=0.0):
         super().__init__()
         self.num_heads = num_heads
+        self.dropout_rate = float(dropout_rate)
         self.query = nn.Linear(dim, dim)
         self.key = nn.Linear(dim, dim)
         self.value = nn.Linear(dim, dim)
         self.out = nn.Linear(dim, dim)
 
-    def forward(self, q_in, kv_in):
+    def forward(self, q_in, kv_in, rng=None):
         b, lq, c = q_in.shape
         lk = kv_in.shape[1]
         H = self.num_heads
@@ -273,26 +279,31 @@ class MultiHeadDotProductAttention(nn.Module):
         k = self.key(kv_in).reshape(b, lk, H, hd).transpose(1, 2)
         v = self.value(kv_in).reshape(b, lk, H, hd).transpose(1, 2)
         attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+        if self.training and self.dropout_rate > 0.0:
+            gen = needs_rng(rng, "attention dropout").device
+            attn = attn * keep_mask((1, 1, lq, lk), self.dropout_rate, gen)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
         return self.out(out)
 
 
 class AttentionFusion(nn.Module):
-    """LayerNorm + mean-query multi-head attention pooling.
+    """LayerNorm + mean-query multi-head attention pooling, with the
+    attention's broadcast dropout at ``dropout_ratio`` in training.
 
     Input [b, i, n, c] -> Output [b, i, c]: the mean over the n fused items
     queries them."""
 
-    def __init__(self, dim, num_heads):
+    def __init__(self, dim, num_heads, dropout_ratio=0.0):
         super().__init__()
         self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
-        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, num_heads)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, num_heads,
+                                                                           dropout_ratio)
 
-    def forward(self, x):
+    def forward(self, x, rng=None):
         b, i, n, c = x.shape
         x = self.LayerNorm_0(x.reshape(b * i, n, c))
         query = x.mean(dim=1, keepdim=True)
-        return self.MultiHeadDotProductAttention_0(query, x).reshape(b, i, c)
+        return self.MultiHeadDotProductAttention_0(query, x, rng).reshape(b, i, c)
 
 
 class ProjectionHead(nn.Module):

@@ -115,7 +115,8 @@ class SWTransformer(nn.Module):
         emb_dim = cfgs["FOCAL"]["emb_dim"]
         for mod in self.modalities:
             self.add_module(f"mod_projector_{mod}", ProjectionHead(loc_out, emb_dim))
-        self.mod_fusion_layer = AttentionFusion(loc_out, config["loc_head_num"])
+        self.mod_fusion_layer = AttentionFusion(loc_out, config["loc_head_num"],
+                                                config["dropout_ratio"])
         self.class_layer = ClassHead(
             loc_out, cfgs[task]["num_classes"], config["fc_dim"], linear=linear_class_head
         )
@@ -157,7 +158,7 @@ class SWTransformer(nn.Module):
         if head == "proj":
             return proj
         stacked = torch.stack([mod_features[m] for m in self.modalities], dim=1)  # [b, n_mod, c]
-        fused = self.mod_fusion_layer(stacked[:, None])[:, 0]
+        fused = self.mod_fusion_layer(stacked[:, None], rng)[:, 0]
         logits = self.class_layer(fused).to(torch.float32)
         if head == "class":
             return logits
