@@ -1,8 +1,8 @@
 """DeepSense backbone (port of the JAX package's ``models/deepsense.py``):
-per-(loc, mod) conv encoder -> per-mod bidirectional GRU over the
-intervals -> heads. Single location only: the location fusion
-(``MeanFusion`` + ``mod_extractors``) of multi-location recipes is not
-ported yet (ROADMAP A5).
+per-(loc, mod) conv encoder -> (several locations: the mean over
+locations, ``loc_fusion_{mod}``, then a conv block over the fused
+features, ``mod_extractor_{mod}``) -> per-mod bidirectional GRU over the
+intervals -> heads.
 
 Inputs are the frequency-domain {loc: {mod: [b, 2c, i, s]}}, read as NHWC
 [b, i, s, 2c] by the conv blocks. ``use_pallas`` (the CLI's
@@ -14,8 +14,11 @@ no kernel. In ``train()`` mode the forward takes the step's ``rng``
 Heads (``head=``): ``class`` -> logits [b, num_classes]; ``proj`` -> {mod:
 [b, emb_dim]} (FOCAL pretrain views); ``feat`` -> {mod: [b, 2H]} (the KNN
 probe's features); ``both`` -> (logits, proj). Submodules carry the flax
-tree's names (``loc_mod_extractor_{loc}_{mod}``, ``recurrent_{mod}``,
-``mod_projector_{mod}``, ``class_layer``).
+tree's names (``loc_mod_extractor_{loc}_{mod}``, ``mod_extractor_{mod}``,
+``recurrent_{mod}``, ``mod_projector_{mod}``, ``class_layer``). The
+``mod_extractor`` reads the fused [b, i, c] map as NHWC [b, i, c, 1]: one
+input channel, spectrum c; with ``use_pallas`` it trains through the fused
+tower where ``tower_takes`` admits it, as every conv block does.
 """
 
 import math
@@ -25,7 +28,7 @@ import torch
 import torch.nn as nn
 
 from focal_tpu_torch.models.layers import (BatchNorm, BiGRU, BiGRULayer, ClassHead, ConvBlock,
-                                           ProjectionHead)
+                                           MeanFusion, ProjectionHead)
 from focal_tpu_torch.models.sw_transformer import trunc_normal
 
 
@@ -36,11 +39,7 @@ class DeepSense(nn.Module):
         config = cfgs["DeepSense"]
         self.modalities = cfgs["modality_names"]
         self.locations = cfgs["location_names"]
-        if len(self.locations) > 1:
-            raise NotImplementedError(
-                "multi-location DeepSense (MeanFusion + mod_extractors) is not ported yet: "
-                "ROADMAP A5")
-        loc = self.locations[0]
+        self.multi_location = len(self.locations) > 1
         out_channels = config["loc_mod_out_channels"]
         H = config["recurrent_dim"]
         for mod in self.modalities:
@@ -49,13 +48,23 @@ class DeepSense(nn.Module):
                 in_stride = config["loc_mod_in_conv_stride"][mod]
             else:
                 conv_lens, in_stride = config["loc_mod_conv_lens"], (1, 1)
-            self.add_module(f"loc_mod_extractor_{loc}_{mod}", ConvBlock(
-                cfgs["loc_mod_in_freq_channels"][loc][mod],
-                (cfgs["num_segments"], cfgs["loc_mod_spectrum_len"][loc][mod]),
-                out_channels, conv_lens, config["loc_mod_conv_inter_layers"], in_stride,
-                config["dropout_ratio"], use_pallas))
+            for loc in self.locations:
+                self.add_module(f"loc_mod_extractor_{loc}_{mod}", ConvBlock(
+                    cfgs["loc_mod_in_freq_channels"][loc][mod],
+                    (cfgs["num_segments"], cfgs["loc_mod_spectrum_len"][loc][mod]),
+                    out_channels, conv_lens, config["loc_mod_conv_inter_layers"], in_stride,
+                    config["dropout_ratio"], use_pallas))
+            feat_channels = out_channels
+            if self.multi_location:
+                i_out = 1 if conv_lens[1][0] > 1 else cfgs["num_segments"]
+                self.add_module(f"loc_fusion_{mod}", MeanFusion())
+                self.add_module(f"mod_extractor_{mod}", ConvBlock(
+                    1, (i_out, out_channels), config["loc_out_channels"],
+                    config["loc_conv_lens"], config["loc_conv_inter_layers"], (1, 1),
+                    config["dropout_ratio"], use_pallas))
+                feat_channels = config["loc_out_channels"]
             self.add_module(f"recurrent_{mod}", BiGRU(
-                out_channels, H, config["recurrent_layers"], config["dropout_ratio"]))
+                feat_channels, H, config["recurrent_layers"], config["dropout_ratio"]))
         emb_dim = cfgs["FOCAL"]["emb_dim"]
         for mod in self.modalities:
             self.add_module(f"mod_projector_{mod}", ProjectionHead(2 * H, emb_dim))
@@ -64,11 +73,18 @@ class DeepSense(nn.Module):
 
     def encode(self, freq_x, rng=None):
         """-> {mod: [b, 2 * recurrent_dim]}."""
-        loc = self.locations[0]
         feats = {}
         for mod in self.modalities:
-            x = freq_x[loc][mod].to(torch.float32).permute(0, 2, 3, 1)  # [b, i, s, c]
-            x = getattr(self, f"loc_mod_extractor_{loc}_{mod}")(x, rng)
+            per_loc = [
+                getattr(self, f"loc_mod_extractor_{loc}_{mod}")(
+                    freq_x[loc][mod].to(torch.float32).permute(0, 2, 3, 1), rng)  # [b, i, s, c]
+                for loc in self.locations
+            ]
+            if self.multi_location:
+                fused = getattr(self, f"loc_fusion_{mod}")(torch.stack(per_loc, dim=2))
+                x = getattr(self, f"mod_extractor_{mod}")(fused[..., None], rng)
+            else:
+                x = per_loc[0]
             feats[mod] = getattr(self, f"recurrent_{mod}")(x, rng)
         return feats
 

@@ -1,6 +1,6 @@
 """Shared building blocks (port of the JAX package's ``models/layers.py``):
-DeepSense's conv blocks and bidirectional GRU, and the heads and fusion
-blocks of both backbones.
+DeepSense's conv blocks and bidirectional GRU, the heads and fusion
+blocks of both backbones, and SW_Transformer's location-context layer.
 
 Conv blocks take NHWC input ([b, interval, spectrum, channel]), as the JAX
 package's do. The unfused path convolves in NCHW with cuDNN in full f32
@@ -304,6 +304,42 @@ class AttentionFusion(nn.Module):
         x = self.LayerNorm_0(x.reshape(b * i, n, c))
         query = x.mean(dim=1, keepdim=True)
         return self.MultiHeadDotProductAttention_0(query, x, rng).reshape(b, i, c)
+
+
+class MeanFusion(nn.Module):
+    """Mean over the location axis: [b, i, n_loc, c] -> [b, i, c]."""
+
+    def forward(self, x):
+        return x.mean(dim=2)
+
+
+class TransformerEncoderLayer(nn.Module):
+    """Post-norm self-attention + ReLU FFN layer (the JAX package's
+    multi-location context layer): x = LN0(x + drop(MHA(x))), then
+    LN1(x + drop(Dense_1(drop(relu(Dense_0(x)))))), LayerNorm eps 1e-5.
+    In training the attention drops its weights with flax's broadcast mask
+    and the three ``drop`` are elementwise masks, all at ``dropout`` and
+    drawn from ``rng.device``. [b, n, dim] -> [b, n, dim]."""
+
+    def __init__(self, dim, num_heads, ffn_dim, dropout=0.0):
+        super().__init__()
+        self.dropout = float(dropout)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, num_heads, dropout)
+        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
+        self.Dense_0 = nn.Linear(dim, ffn_dim)
+        self.Dense_1 = nn.Linear(ffn_dim, dim)
+        self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-5)
+
+    def _drop(self, x, rng):
+        if self.training and self.dropout > 0.0:
+            return x * keep_mask(x.shape, self.dropout, needs_rng(rng, "Dropout").device)
+        return x
+
+    def forward(self, x, rng=None):
+        attn = self.MultiHeadDotProductAttention_0(x, x, rng)
+        x = self.LayerNorm_0(x + self._drop(attn, rng))
+        y = self.Dense_1(self._drop(F.relu(self.Dense_0(x)), rng))
+        return self.LayerNorm_1(x + self._drop(y, rng))
 
 
 class ProjectionHead(nn.Module):

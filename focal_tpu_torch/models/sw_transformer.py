@@ -1,6 +1,9 @@
 """SW_Transformer backbone: hierarchical shifted-window attention over
 time-frequency patches per (loc, mod), with attention fusion over
-modalities. Port of the JAX package's ``models/sw_transformer.py``. In
+modalities; with several locations each modality's per-location features
+first pass ``loc_block_num`` location-context layers
+(``TransformerEncoderLayer``) and an attention fusion over the locations.
+Port of the JAX package's ``models/sw_transformer.py``. In
 ``train()`` mode the forward takes the step's ``rng`` (``ops.dropout.
 StepRngs``); the pretrain path reads ``head="proj"`` and does not run
 ``mod_fusion_layer``.
@@ -9,8 +12,8 @@ Input spectra are folded by ``in_stride`` and zero-padded to a
 Swin-divisible size; stages halve the resolution and double the channels.
 Submodules are registered under the flax tree's names
 (``patch_embed_{loc}_{mod}``, ``stage{i}_{loc}_{mod}``,
-``mod_in_layer_{loc}_{mod}``, ``mod_projector_{mod}``, ``mod_fusion_layer``,
-``class_layer``). ``pallas_mlp`` (the CLI's ``-pallas_mlp``) routes each
+``mod_in_layer_{loc}_{mod}``, ``loc_context_{mod}_{i}``, ``loc_fusion_{mod}``,
+``mod_projector_{mod}``, ``mod_fusion_layer``, ``class_layer``). ``pallas_mlp`` (the CLI's ``-pallas_mlp``) routes each
 Swin block's MLP through the fused MLP kernels where ``mlp_takes``;
 ``pallas_block`` off (the CLI's ``-no_pallas_block``) routes its window
 attention through the attention-only kernels (#6-#9) instead of the
@@ -24,7 +27,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from focal_tpu_torch.models.layers import AttentionFusion, ClassHead, ProjectionHead
+from focal_tpu_torch.models.layers import (AttentionFusion, ClassHead, ProjectionHead,
+                                           TransformerEncoderLayer)
 from focal_tpu_torch.models.swin import BasicLayer, PatchEmbed
 
 
@@ -72,11 +76,7 @@ class SWTransformer(nn.Module):
         config = cfgs["SW_Transformer"]
         self.modalities = cfgs["modality_names"]
         self.locations = cfgs["location_names"]
-        if len(self.locations) > 1:
-            raise NotImplementedError(
-                "multi-location SW_Transformer (TransformerEncoderLayer location "
-                "context) is not ported yet: ROADMAP A5"
-            )
+        self.multi_location = len(self.locations) > 1
         embed_dim = config["time_freq_out_channels"]
         self.geometries = {}
         for loc in self.locations:
@@ -112,6 +112,14 @@ class SWTransformer(nn.Module):
                                 nn.Linear(fh * fw * final_dim, config["loc_out_channels"]))
 
         loc_out = config["loc_out_channels"]
+        self.loc_block_num = config["loc_block_num"] if self.multi_location else 0
+        if self.multi_location:  # per-mod location context, then fusion over locations
+            for mod in self.modalities:
+                for i in range(self.loc_block_num):
+                    self.add_module(f"loc_context_{mod}_{i}", TransformerEncoderLayer(
+                        loc_out, config["loc_head_num"], loc_out, config["dropout_ratio"]))
+                self.add_module(f"loc_fusion_{mod}", AttentionFusion(
+                    loc_out, config["loc_head_num"], config["dropout_ratio"]))
         emb_dim = cfgs["FOCAL"]["emb_dim"]
         for mod in self.modalities:
             self.add_module(f"mod_projector_{mod}", ProjectionHead(loc_out, emb_dim))
@@ -137,17 +145,26 @@ class SWTransformer(nn.Module):
 
     def encode(self, freq_x, rng=None):
         """-> {mod: [b, loc_out_channels]}."""
-        loc = self.locations[0]
+        mod_loc_features = {mod: [] for mod in self.modalities}
+        for loc in self.locations:
+            for mod in self.modalities:
+                x = self.pad_input(freq_x[loc][mod].to(torch.float32), loc, mod)
+                x = getattr(self, f"patch_embed_{loc}_{mod}")(x)
+                ape = getattr(self, f"absolute_pos_embed_{loc}_{mod}", None)
+                if ape is not None:
+                    x = x + ape
+                for stage in self.stages(loc, mod):
+                    x = stage(x, rng)
+                mod_loc_features[mod].append(
+                    getattr(self, f"mod_in_layer_{loc}_{mod}")(x.reshape(x.shape[0], -1)))
+        if not self.multi_location:
+            return {mod: feats[0] for mod, feats in mod_loc_features.items()}
         mod_features = {}
-        for mod in self.modalities:
-            x = self.pad_input(freq_x[loc][mod].to(torch.float32), loc, mod)
-            x = getattr(self, f"patch_embed_{loc}_{mod}")(x)
-            ape = getattr(self, f"absolute_pos_embed_{loc}_{mod}", None)
-            if ape is not None:
-                x = x + ape
-            for stage in self.stages(loc, mod):
-                x = stage(x, rng)
-            mod_features[mod] = getattr(self, f"mod_in_layer_{loc}_{mod}")(x.reshape(x.shape[0], -1))
+        for mod, feats in mod_loc_features.items():
+            x = torch.stack(feats, dim=1)  # [b, n_loc, c]
+            for i in range(self.loc_block_num):
+                x = getattr(self, f"loc_context_{mod}_{i}")(x, rng)
+            mod_features[mod] = getattr(self, f"loc_fusion_{mod}")(x[:, None], rng)[:, 0]
         return mod_features
 
     def forward(self, freq_x, head="class", rng=None):
@@ -179,7 +196,9 @@ def init_params(model, seed=0):
     generator: lecun-normal weights (``nn.initializers.lecun_normal``:
     truncated normal with std fan_in**-0.5 / 0.8796, so the truncated
     values have std fan_in**-0.5), zero biases, unit LayerNorm scales, bias
-    tables and position embeddings ``truncated_normal(0.02)``."""
+    tables and position embeddings ``truncated_normal(0.02)``. An
+    attention's q/k/v and out Linears take fan_in C (= H * hd for out), as
+    flax's DenseGeneral kernels [C, H, hd] and [H, hd, C] do."""
     g = torch.Generator().manual_seed(int(seed))
     with torch.no_grad():
         for mod in model.modules():

@@ -35,11 +35,8 @@ def _linear_weight(kernel, contract_leading):
 def params_from_flax(params, batch_stats, dataset_config):
     """flax ``params`` (+ ``batch_stats``) -> port state_dict {name: tensor}.
 
-    ``dataset_config`` is the recipe the tree was built for; multi-location
-    recipes are refused because their location-context layers are not
-    ported."""
-    if len(dataset_config["location_names"]) > 1:
-        raise NotImplementedError("multi-location recipes are not ported yet: ROADMAP A5")
+    ``dataset_config`` is the recipe the tree was built for; every layout
+    below is the same at one location or several."""
     out = {}
 
     def walk(tree, path):

@@ -101,11 +101,3 @@ def test_state_dict_names_follow_flax_tree(tiny_pair):
     assert "stage0_shake_audio.block1.attn.qkv.weight" in names
     assert "patch_embed_shake_seismic.proj.weight" in names
     assert "mod_fusion_layer.MultiHeadDotProductAttention_0.out.weight" in names
-
-
-def test_unported_backbones_raise():
-    cfg = load_dataset_config("MOD_TINY")
-    multi = dict(cfg, location_names=["a", "b"])
-    for model in ("SW_Transformer", "DeepSense"):  # single-location DeepSense is ported
-        with pytest.raises(NotImplementedError, match="ROADMAP A5"):
-            build_backbone(multi, model, TASK)
