@@ -179,7 +179,30 @@ result line if any fails):
      -no_pallas_block route profiled with the ops' shapes (MOD stage 0's
      training geometry): it fails if an aten stack or cat, or a copy of a
      window-sized gradient, runs (#9 writes d(qkv) [B_, N, 3C] as the qkv
-     Linear takes it).
+     Linear takes it);
+ 26. the JAX package's ACIDS, PAMAP2 and RealWorld_HAR recipes as packaged
+     (configs/{recipe}.yaml, full width, synthetic data, random init), each
+     in turn: #1 vs plain at the served geometries (RealWorld_HAR's shifted
+     blocks have 48 and 12 windows a sample, where the JAX package takes its
+     XLA attention: ROADMAP C8), #2/#3 and #6-#9 at the training batch (256,
+     views fused to 512), #10-#12 at the classifier batch (128) and #13/#14
+     at the DeepSense towers (cin 6 at S 20 or 25 on the CUDA cores; S 41
+     after ACIDS's strided first conv) by the gates of phases 2, 6, 14, 18
+     and 22, #13/#14 timed per tower as phase 17 times them; then a served
+     batch of 128 of each backbone (#1 once a block; DeepSense none), 3 + 5
+     SW_Transformer pretrain steps at 256 (#2/#3 once a block a step; the
+     rate-0 step from the initial state, kernels vs plain), 3 + 5 DeepSense
+     -pallas_conv pretrain steps at 256 (#13/#14 over every tower; its rate-0
+     step) and 3 + 5 -pallas_mlp supervised steps at 128 (#2, #3, #11, #12),
+     the launches held exactly, p50, samples/s, peak memory and a profiled
+     step's idle share;
+ 27. MOD copied with a second location (as the JAX package's
+     tests/test_multi_location.py builds one) at full width: #13/#14 vs
+     plain and timed at the mod_extractor tower (cin 1, kw 4 in every layer,
+     S 128, C 64); for SW_Transformer (location context and fusion) and
+     DeepSense -pallas_conv (mean over locations, the mod_extractor towers)
+     a served batch and 3 + 5 pretrain steps with the launches held
+     exactly, and each backbone's rate-0 step, kernels vs plain.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
@@ -263,33 +286,38 @@ def card_line():
 
 
 def block_geometries(cfg, batch):
-    """Every distinct (modality, stage, shifted) launch of the forward,
-    with how many times one forward makes it."""
+    """Every distinct (stage, shifted) launch geometry of the forward, over
+    every location and modality, with how many times one forward makes it
+    (locations or modalities of one geometry share it)."""
     from focal_tpu_torch.models.sw_transformer import mod_geometry
     from focal_tpu_torch.models.swin import block_geometry, shifted_window_mask
 
     sw = cfg["SW_Transformer"]
-    loc = cfg["location_names"][0]
-    geos = []
-    for mod in cfg["modality_names"]:
-        geo = mod_geometry(cfg, loc, mod)
-        for stage, ((H, W), C) in enumerate(geo["stages"]):
-            depth = geo["block_num"][stage]
-            kinds = {}  # (wh, ww, shifted) -> [sh, sw, blocks]; no mask -> shifts unused
-            for i in range(depth):
-                shift = [0, 0] if i % 2 == 0 else [w // 2 for w in geo["window"]]
-                wh, ww, sh, sws, shifted = block_geometry((H, W), geo["window"], shift)
-                kinds.setdefault((wh, ww, shifted), [sh, sws, 0])[2] += 1
-            for (wh, ww, shifted), (sh, sws, count) in kinds.items():
-                nW = (H // wh) * (W // ww)
-                geos.append({
-                    "name": f"{mod}/stage{stage}/{'shifted' if shifted else 'plain'}",
-                    "H": H, "W": W, "C": C, "heads": sw["time_freq_head_num"],
-                    "N": wh * ww, "nW": nW, "windows": batch * nW,
-                    "mask": shifted_window_mask(H, W, wh, ww, sh, sws) if shifted else None,
-                    "per_forward": count,
-                })
-    return geos
+    geos = {}
+    for loc in cfg["location_names"]:
+        for mod in cfg["modality_names"]:
+            geo = mod_geometry(cfg, loc, mod)
+            for stage, ((H, W), C) in enumerate(geo["stages"]):
+                depth = geo["block_num"][stage]
+                kinds = {}  # (wh, ww, shifted) -> [sh, sw, blocks]; no mask -> shifts unused
+                for i in range(depth):
+                    shift = [0, 0] if i % 2 == 0 else [w // 2 for w in geo["window"]]
+                    wh, ww, sh, sws, shifted = block_geometry((H, W), geo["window"], shift)
+                    kinds.setdefault((wh, ww, shifted), [sh, sws, 0])[2] += 1
+                for (wh, ww, shifted), (sh, sws, count) in kinds.items():
+                    key = (H, W, C, wh, ww, sh, sws, shifted)
+                    if key in geos:
+                        geos[key]["per_forward"] += count
+                        continue
+                    nW = (H // wh) * (W // ww)
+                    geos[key] = {
+                        "name": f"{mod}/stage{stage}/{'shifted' if shifted else 'plain'}",
+                        "H": H, "W": W, "C": C, "heads": sw["time_freq_head_num"],
+                        "N": wh * ww, "nW": nW, "windows": batch * nW,
+                        "mask": shifted_window_mask(H, W, wh, ww, sh, sws) if shifted else None,
+                        "per_forward": count,
+                    }
+    return list(geos.values())
 
 
 def bound(flops, nbytes):
@@ -847,7 +875,11 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
                       for n, p in m.named_parameters() if p.requires_grad}, counts(kernels)
 
     def differ(a, b):
-        """(relative loss difference, worst relative gradient difference, its name)."""
+        """(relative loss difference, worst relative gradient difference, its
+        name). A true gradient of 0 (the fusion attention's key bias, with
+        several locations: its softmax is blind to it) is rounding noise on
+        both sides: below TINY_GRAD on both, it is held to TINY_GRAD
+        absolutely (C7)."""
         (loss_a, grads_a, _), (loss_b, grads_b, _) = a, b
         worst_err, worst = 0.0, ""
         for name, gb in grads_b.items():
@@ -856,7 +888,10 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
                 if (ga is None) != (gb is None):
                     raise AssertionError(f"{name}: gradient on one path only")
                 continue
-            e = rel_err(ga, gb)
+            if max(float(ga.abs().max()), float(gb.abs().max())) < TINY_GRAD:
+                e = 0.0 if float((ga - gb).abs().max()) <= TINY_GRAD else math.inf
+            else:
+                e = rel_err(ga, gb)
             if e > worst_err:
                 worst_err, worst = e, name
         return abs(loss_a - loss_b) / abs(loss_b), worst_err, worst
@@ -935,26 +970,52 @@ TORCH_PHASE = "[C]-sized steps (PyTorch)"
 
 def tower_geometries(cfg, samples, dataset):
     """The conv towers of one DeepSense train forward at ``samples`` (the
-    views fused): per modality R = samples * intervals rows of S positions,
-    its layer configs and whether the first conv runs outside."""
+    views fused), over every location and modality (one entry a distinct
+    geometry, ``towers`` the blocks that run it): R = samples * intervals
+    rows of S positions, its layer configs and whether the first conv runs
+    outside. With several locations, each modality's ``mod_extractor`` too
+    (cin 1, S = loc_mod_out_channels)."""
     ds = cfg["DeepSense"]
-    loc = cfg["location_names"][0]
     half = ds["loc_mod_out_channels"] // 2
-    geos = []
-    for mod in cfg["modality_names"]:
-        lens = ds["loc_mod_conv_lens"][mod]
-        stride = ds["loc_mod_in_conv_stride"][mod]
-        s = cfg["loc_mod_spectrum_len"][loc][mod]
-        external = max(stride) > 1
-        S = (s - lens[0][1]) // stride[1] + 1 if external else s
-        cin0 = cfg["loc_mod_in_freq_channels"][loc][mod]
-        L = 1 + ds["loc_mod_conv_inter_layers"]
-        cfgs = tuple((lens[0][1] if k == 0 else lens[1][1], cin0 if k == 0 else half, half, k > 0)
-                     for k in range(L))
-        geos.append({"name": f"{dataset} {mod}", "samples": samples,
-                     "intervals": cfg["num_segments"], "R": samples * cfg["num_segments"], "S": S,
-                     "C": half, "cfgs": cfgs, "external": external})
-    return geos
+    geos = {}
+
+    def add(name, S, cfgs, external):
+        key = (S, cfgs, external)
+        if key in geos:
+            geos[key]["towers"] += 1
+            return
+        geos[key] = {"name": f"{dataset} {name}", "samples": samples,
+                     "intervals": cfg["num_segments"], "R": samples * cfg["num_segments"],
+                     "S": S, "C": cfgs[0][2], "cfgs": cfgs, "external": external, "towers": 1}
+
+    for loc in cfg["location_names"]:
+        for mod in cfg["modality_names"]:
+            lens = ds["loc_mod_conv_lens"][mod]
+            stride = ds["loc_mod_in_conv_stride"][mod]
+            s = cfg["loc_mod_spectrum_len"][loc][mod]
+            external = max(stride) > 1
+            S = (s - lens[0][1]) // stride[1] + 1 if external else s
+            cin0 = cfg["loc_mod_in_freq_channels"][loc][mod]
+            L = 1 + ds["loc_mod_conv_inter_layers"]
+            add(mod, S, tuple((lens[0][1] if k == 0 else lens[1][1], cin0 if k == 0 else half, half,
+                               k > 0) for k in range(L)), external)
+    if len(cfg["location_names"]) > 1:
+        ext_half = ds["loc_out_channels"] // 2
+        lens = ds["loc_conv_lens"]
+        L = 1 + ds["loc_conv_inter_layers"]
+        for mod in cfg["modality_names"]:
+            add(f"{mod} mod_extractor", ds["loc_mod_out_channels"],
+                tuple((lens[0][1] if k == 0 else lens[1][1], 1 if k == 0 else ext_half, ext_half,
+                       k > 0) for k in range(L)), False)
+    return list(geos.values())
+
+
+def tower_launches(geos):
+    """#13's and #14's wrapper calls (fused_conv_tower, fused_conv_tower_backward)
+    in one step over the towers geos."""
+    return {"fused_conv_tower": sum(g["towers"] * (len(g["cfgs"]) + (0 if g["external"] else 1))
+                                    for g in geos),
+            "fused_conv_tower_backward": sum(g["towers"] * 2 * len(g["cfgs"]) for g in geos)}
 
 
 def tower_work(g):
@@ -1088,7 +1149,11 @@ def library_tower(torch, F, x0, g, params, masks):
             c = x
         else:
             w4 = ws[k].view(kw, cin, cout).permute(2, 1, 0).unsqueeze(2)  # [Cout, Cin, 1, KW]
-            c = F.conv2d(a if k > 0 else x, w4, bs[k], padding=(0, (kw - 1) // 2))
+            inp = a if k > 0 else x
+            if kw % 2:
+                c = F.conv2d(inp, w4, bs[k], padding=(0, (kw - 1) // 2))
+            else:  # SAME for an even width: (kw - 1) // 2 before, kw // 2 after
+                c = F.conv2d(F.pad(inp, ((kw - 1) // 2, kw // 2)), w4, bs[k])
         y = F.batch_norm(c, None, None, scales[k], biases[k], training=True, eps=1e-5)
         m = masks[k].repeat_interleave(R // masks[k].shape[0], dim=0)[:, :, None, None]
         z = F.gelu(y, approximate="none") * m
@@ -1212,23 +1277,29 @@ TINY_GRAD = 1e-6          # a gradient tensor below this on both sides is compar
 
 
 def mlp_geometries(cfg, batch, dataset):
-    """Every (modality, stage) whose Swin MLPs take the fused route
-    (``mlp_fits``) in one forward at ``batch`` samples: T rows, width C,
-    hidden H and the blocks (launches) a forward makes there."""
+    """Every distinct geometry whose Swin MLPs take the fused route
+    (``mlp_fits``) in one forward at ``batch`` samples, over every location
+    and modality: T rows, width C, hidden H and the blocks (launches) a
+    forward makes there."""
     from focal_tpu_torch.models.sw_transformer import mod_geometry
     from focal_tpu_torch.ops.fused_mlp import mlp_fits
 
     sw = cfg["SW_Transformer"]
-    loc = cfg["location_names"][0]
-    geos = []
-    for mod in cfg["modality_names"]:
-        geo = mod_geometry(cfg, loc, mod)
-        for stage, ((H, W), C) in enumerate(geo["stages"]):
-            hidden = int(C * float(sw.get("mlp_ratio", 4.0)))
-            if mlp_fits(C, hidden):
-                geos.append({"name": f"{dataset} {mod}/stage{stage}", "T": batch * H * W, "C": C,
-                             "H": hidden, "per_forward": geo["block_num"][stage]})
-    return geos
+    geos = {}
+    for loc in cfg["location_names"]:
+        for mod in cfg["modality_names"]:
+            geo = mod_geometry(cfg, loc, mod)
+            for stage, ((H, W), C) in enumerate(geo["stages"]):
+                hidden = int(C * float(sw.get("mlp_ratio", 4.0)))
+                if not mlp_fits(C, hidden):
+                    continue
+                key = (batch * H * W, C, hidden)
+                if key in geos:
+                    geos[key]["per_forward"] += geo["block_num"][stage]
+                    continue
+                geos[key] = {"name": f"{dataset} {mod}/stage{stage}", "T": batch * H * W, "C": C,
+                             "H": hidden, "per_forward": geo["block_num"][stage]}
+    return list(geos.values())
 
 
 def mlp_work(g, backward):
@@ -1296,7 +1367,7 @@ def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_st
     for _ in range(warmup):
         state, metrics = step(state, tdata, tlabels, idx)
     torch.cuda.synchronize()
-    log(f"[{tag}] MOD SW_Transformer supervised{' -pallas_mlp' if sargs.pallas_mlp else ''}, "
+    log(f"[{tag}] {sargs.dataset} SW_Transformer supervised{' -pallas_mlp' if sargs.pallas_mlp else ''}, "
         f"batch {batch}; {warmup} warm-up steps in {time.time() - t0:.2f}s")
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
@@ -1576,6 +1647,580 @@ def grads_differ(got, want):
     return worst
 
 
+# ---------------------------------------------------------------------------
+# the JAX package's other recipes (26) and two locations (27)
+
+RECIPES = ("ACIDS", "PAMAP2", "RealWorld_HAR")
+RECIPE_STEPS = 5          # timed steps a path at each recipe, after TRAIN_WARMUP
+
+
+def two_locations(cfg):
+    """A recipe copied with a second location ``tower`` shaped as the
+    first, as the JAX package's tests/test_multi_location.py builds one."""
+    cfg = copy.deepcopy(cfg)
+    first = cfg["location_names"][0]
+    cfg["location_names"] = [first, "tower"]
+    cfg["num_location"] = 2
+    for key in ("loc_modalities", "loc_mod_in_freq_channels", "loc_mod_in_time_channels",
+                "loc_mod_spectrum_len"):
+        cfg[key]["tower"] = copy.deepcopy(cfg[key][first])
+    return cfg
+
+
+def serve_one_batch(torch, np, cfg, model, task, kernels, want, tag, dev):
+    """Predictor over one synthetic batch of SERVE_BATCH at full width
+    (seeded random init): the launches held to ``want`` a batch, the
+    probabilities finite and summing to 1; an SW_Transformer's also equal
+    (SLICE_TOL) to the same model with the plain block. Returns (p50 ms,
+    launches)."""
+    from focal_tpu_torch.data import synthetic_arrays
+    from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.serve import Predictor
+
+    data = synthetic_arrays(cfg, task, SERVE_BATCH, seed=5)[0]
+    predictor = Predictor(cfg, model, task, None, batch_size=SERVE_BATCH, device=dev.type, seed=0)
+    zero_counts(kernels)
+    result = predictor.predict(data)
+    got = counts(kernels)
+    check_counts(f"{tag}: one served batch", got,
+                 {k.__name__: want.get(k.__name__, 0) for k in kernels})
+    probs = result["probs"]
+    if probs.shape != (SERVE_BATCH, cfg[task]["num_classes"]) or not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: bad probabilities, shape {probs.shape}")
+    sum_err = float(np.abs(probs.sum(-1) - 1.0).max())
+    if sum_err > 1e-5:
+        raise AssertionError(f"{tag}: probabilities do not sum to 1 (max error {sum_err})")
+    plain_err = None
+    if model == "SW_Transformer":
+        swin_mod.window_block_forward = pk.fused_window_block_reference
+        try:
+            plain_err = float(np.abs(predictor._forward(data) - probs).max())
+        finally:
+            swin_mod.window_block_forward = pk.window_block_forward
+        if not plain_err <= SLICE_TOL:
+            raise AssertionError(f"{tag}: served probabilities differ from the plain block's by "
+                                 f"{plain_err}")
+    p50 = result["latency"]["p50_s"] * 1e3
+    log(f"[{tag}] {model} served batch of {SERVE_BATCH}: launches {got}; p50 {p50:.3f} ms; "
+        f"max|dprobs| vs the plain block {plain_err}")
+    del predictor
+    torch.cuda.empty_cache()
+    return p50, got
+
+
+def deepsense_rate0(torch, dargs, tag, dev):
+    """The -pallas_conv DeepSense rate-0 step from the initial state,
+    kernels vs plain, held to phase 15's gates."""
+    from focal_tpu_torch.models import build_backbone, init_params
+
+    cfg = dargs.dataset_config
+    weights = init_params(build_backbone(cfg, "DeepSense", dargs.task, "FOCAL"),
+                          seed=0).state_dict()
+    kern = deepsense_rate0_step(torch, dargs, weights, dev, plain=False)
+    plain = deepsense_rate0_step(torch, dargs, weights, dev, plain=True)
+    loss_rel = abs(kern[0] - plain[0]) / abs(plain[0])
+    g_rel, g_near, _ = grad_errors([kern[1][n] for n in plain[1]], list(plain[1].values()))
+    stats_rel = max(rel_err(kern[2][n], plain[2][n]) for n in plain[2])
+    out = {"loss_kernel": kern[0], "loss_plain": plain[0], "loss_rel": loss_rel,
+           "max_grad_rel": g_rel, "max_grad_abs_near_zero": g_near, "max_stats_rel": stats_rel}
+    log(f"[{tag}] DeepSense rate-0 step from the initial state, kernels vs plain: loss "
+        f"{kern[0]:.6f} vs {plain[0]:.6f} (rel {loss_rel:.2e}), max grad rel err {g_rel:.2e} "
+        f"(near-zero max abs {g_near:.2e}), running statistics max rel err {stats_rel:.2e}")
+    if not (loss_rel <= LOSS_TOL and g_rel <= GRAD_TOL and g_near <= NEAR_ZERO
+            and stats_rel <= TOWER_TOL):
+        raise AssertionError(f"{tag}: DeepSense rate-0 step, kernels vs plain: {out}")
+    torch.cuda.empty_cache()
+    return out
+
+
+def profiled_idle(torch, run, fn, tag, what):
+    """One profiled call of fn: its idle share and device busy time into run."""
+    prof = profile_device(torch, fn)
+    log_profile(tag, what, prof)
+    run["idle_share"] = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+    run["device_busy_ms"] = prof["device_busy_ms"]
+
+
+def step_line(tag, run):
+    log(f"[{tag}] p50 {run['p50_ms']:.3f} ms, {run['samples_per_s']:.1f} samples/s, peak "
+        f"{run['peak_mb']:.1f} MiB, idle share {run['idle_share']:.3f}, launches {run['launches']}")
+
+
+def time_new_towers(torch, np, ct, F, geos, dev, seed0):
+    """time_tower at each geometry; their per-geometry figures."""
+    out = []
+    for gi, g in enumerate(geos):
+        time_tower(torch, np, ct, F, g, seed0 + gi, dev)
+        out.append({k: g[k] for k in (
+            "name", "R", "S", "C", "external", "towers", "fwd_ms", "fwd_plain_ms",
+            "fwd_library_ms", "fwd_bound_ms", "fwd_bound_tc_ms", "bwd_ms", "bwd_plain_ms",
+            "bwd_library_ms", "bwd_bound_ms", "bwd_bound_tc_ms")}
+                   | {"cin": g["cfgs"][0][1], "kw": [c[0] for c in g["cfgs"]],
+                      "max_rel_err_fwd": g["max_rel_err_fwd"],
+                      "max_rel_err_bwd": g["max_rel_err_bwd"],
+                      "device_ms_by_phase": {d: g["profile"][d]["phases"] for d in ("fwd", "bwd")}})
+    torch.cuda.empty_cache()
+    return out
+
+
+def backbone_paths(torch, np, kernels, dev, dataset, cfg, task, cgeos, tag, supervised=False):
+    """The paths of phases 26-27 at the configuration ``cfg`` (the recipe
+    ``dataset``, or a copy of it), at full width: a served batch of each
+    backbone (#1 once a Swin block; DeepSense none), 3 + RECIPE_STEPS
+    SW_Transformer pretrain steps at TRAIN_BATCH (#2/#3 once a block a
+    step; the rate-0 step from the initial state, kernels vs plain, #1/#3),
+    3 + RECIPE_STEPS DeepSense -pallas_conv pretrain steps at DS_BATCH
+    (#13/#14 over the towers ``cgeos``; its rate-0 step) and, with
+    ``supervised``, 3 + RECIPE_STEPS -pallas_mlp supervised steps at
+    SUP_BATCH (#2, #3, #11, #12): launches held exactly, p50, samples/s,
+    peak memory and a profiled step's idle share. Returns {path: run}."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import parse_train_params
+
+    fwd, fwd_drop, bwd = (pk.fused_window_block, pk.fused_window_block_dropout,
+                          pk.fused_window_block_backward)
+    n_blocks = sum(g["per_forward"] for g in block_geometries(cfg, SERVE_BATCH))
+    paths = {}
+    for model, want in (("SW_Transformer", {fwd.__name__: n_blocks}), ("DeepSense", {})):
+        p50, got = serve_one_batch(torch, np, cfg, model, task, kernels, want, f"{tag}-serve",
+                                   dev)
+        paths[f"serve_{model}"] = {"p50_ms": p50, "launches": got}
+
+    def train_args(model, batch, *flags):
+        args = parse_train_params(["-dataset", dataset, "-model", model, "-batch_size",
+                                   str(batch), *flags])
+        args.dataset_config = cfg
+        return args
+
+    # SW_Transformer pretrain steps, and the rate-0 step from the initial state
+    targs = train_args("SW_Transformer", TRAIN_BATCH, "-learn_framework", "FOCAL")
+    run, (state, step, tdata, idx) = run_train_steps(
+        torch, np, targs, TRAIN_BATCH, TRAIN_WARMUP, RECIPE_STEPS, kernels,
+        {fwd_drop.__name__: n_blocks, bwd.__name__: n_blocks}, dev, f"{tag}-sw-pretrain",
+        rate0_from="initial", rate0_launches={fwd.__name__: n_blocks, bwd.__name__: n_blocks})
+    profiled_idle(torch, run, lambda: step(state, tdata, idx), f"{tag}-sw-pretrain",
+                  "one profiled step")
+    del state, step, tdata, idx
+    step_line(f"{tag}-sw-pretrain", run)
+    paths["pretrain_steps_SW_Transformer"] = run
+    torch.cuda.empty_cache()
+
+    # DeepSense -pallas_conv pretrain steps, and its rate-0 step
+    dargs = train_args("DeepSense", DS_BATCH, "-learn_framework", "FOCAL", "-pallas_conv")
+    run, _ = run_deepsense_steps(torch, np, dargs, DS_BATCH, TRAIN_WARMUP, RECIPE_STEPS, kernels,
+                                 tower_launches(cgeos), dev, f"{tag}-deepsense-pallas")
+    run["rate0"] = deepsense_rate0(torch, dargs, f"{tag}-deepsense-rate0", dev)
+    run.pop("profile")
+    step_line(f"{tag}-deepsense-pallas", run)
+    paths["pretrain_steps_DeepSense_pallas_conv"] = run
+    torch.cuda.empty_cache()
+    if not supervised:
+        return paths
+
+    # SW_Transformer -pallas_mlp supervised steps
+    n_mlp = sum(g["per_forward"] for g in mlp_geometries(cfg, SUP_BATCH, dataset))
+    sargs = train_args("SW_Transformer", SUP_BATCH, "-learn_framework", "no", "-pallas_mlp")
+    run = run_supervised_steps(
+        torch, np, sargs, SUP_BATCH, TRAIN_WARMUP, RECIPE_STEPS, kernels,
+        {fwd_drop.__name__: n_blocks, bwd.__name__: n_blocks,
+         fm.fused_mlp_dropout_forward.__name__: n_mlp, fm.fused_mlp_backward.__name__: n_mlp},
+        dev, f"{tag}-supervised-pallas-mlp")
+    run.pop("profile")
+    step_line(f"{tag}-supervised-pallas-mlp", run)
+    paths["supervised_steps_SW_Transformer_pallas_mlp"] = run
+    torch.cuda.empty_cache()
+    return paths
+
+
+def recipe_paths(torch, np, kernels, gen, dev, recipe):
+    """Phase 26 at one recipe, as packaged at full width, synthetic data and
+    random init: every kernel vs plain at the recipe's geometries (#1 at the
+    served batch; #2/#3, #6-#9 at the training batch fused to 512; #10-#12
+    at the classifier batch; #13/#14 at the DeepSense towers fused to 512)
+    and #13/#14 timed there; then a served batch of each backbone, 3 + 5
+    SW_Transformer pretrain steps at TRAIN_BATCH (#2/#3; the rate-0 step
+    from the initial state, kernels vs plain), 3 + 5 DeepSense -pallas_conv
+    pretrain steps at DS_BATCH (#13/#14; its rate-0 step), 3 + 5
+    SW_Transformer -pallas_mlp supervised steps at SUP_BATCH (#2, #3, #11,
+    #12), launches held exactly, each with a profiled step's idle share."""
+    import torch.nn.functional as F
+
+    from focal_tpu_torch.ops import conv_tower as ct
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import DATASET_DEFAULT_TASK, load_dataset_config
+
+    cfg = load_dataset_config(recipe)
+    task = DATASET_DEFAULT_TASK[recipe]
+    tag = f"recipe-{recipe}"
+    t0 = time.time()
+    sw = cfg["SW_Transformer"]
+    rate, mlp_rate = float(sw["attn_drop_rate"]), float(sw["dropout_ratio"])
+    out = {"errors": {}, "paths": {}}
+    sgeos = block_geometries(cfg, SERVE_BATCH)
+    tgeos = block_geometries(cfg, 2 * TRAIN_BATCH)
+    n_blocks = sum(g["per_forward"] for g in sgeos)
+    for g in sgeos + tgeos:
+        g["name"] = f"{recipe} {g['name']}"
+        if not pk.wblock_takes(g["N"], g["C"], g["heads"]) or not pk.wblock_fits(
+                g["N"], g["C"], g["heads"]):
+            raise AssertionError(f"{g['name']}: not on #1-#3's route")
+    log(f"[{tag}] {len(sgeos)} block geometries (nW "
+        f"{sorted({g['nW'] for g in sgeos if g['mask'] is not None})} shifted), "
+        f"{n_blocks} Swin blocks a forward")
+    e = out["errors"]
+    e["fused_window_block"] = check_block_forward(torch, pk, sgeos, gen, dev)
+    drop_err, grad_err, grad_abs = check_block_training(torch, pk, tgeos, gen, dev, rate)
+    e["fused_window_block_dropout"] = drop_err
+    e["fused_window_block_backward"] = grad_abs
+    e["fused_window_block_backward_rel"] = grad_err
+    at_err = {"fwd": 0.0, "drop": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    agen = attention_geometries(cfg, 2 * TRAIN_BATCH, recipe)
+    check_attention(torch, np, pk, agen, gen, dev, rate, 8000, at_err)
+    e.update(fused_window_attention=at_err["fwd"], fused_window_attention_dropout=at_err["drop"],
+             fused_window_attention_backward=at_err["bwd_abs"],
+             fused_window_attention_dropout_backward=at_err["bwd_abs"],
+             fused_window_attention_backward_rel=at_err["bwd"])
+    mgeos = mlp_geometries(cfg, SUP_BATCH, recipe)
+    mlp_err = check_mlps(torch, np, fm, mgeos, dev, mlp_rate, seed0=500)
+    e.update(fused_mlp_forward=mlp_err["fwd"], fused_mlp_dropout_forward=mlp_err["drop"],
+             fused_mlp_backward=mlp_err["bwd_abs"], fused_mlp_backward_rel=mlp_err["bwd"])
+    cgeos = tower_geometries(cfg, 2 * DS_BATCH, recipe)
+    ct_fwd_err, ct_rel, ct_near, ct_abs = check_towers(torch, np, ct, cgeos, dev, seed0=600,
+                                                       exact=True)
+    e.update(fused_conv_tower=ct_fwd_err, fused_conv_tower_backward=ct_abs,
+             fused_conv_tower_backward_rel=ct_rel, fused_conv_tower_backward_near_zero=ct_near)
+    torch.cuda.empty_cache()
+    out["towers"] = time_new_towers(torch, np, ct, F, cgeos, dev, 700)
+    log(f"[{tag}] kernels vs plain at {len(sgeos)} served, {len(tgeos)} training, {len(mgeos)} "
+        f"MLP and {len(cgeos)} tower geometries: {e}")
+
+    out["paths"] = backbone_paths(torch, np, kernels, dev, recipe, cfg, task, cgeos, tag,
+                                  supervised=True)
+    out["seconds"] = time.time() - t0
+    log(f"[{tag}] phase 26 at {recipe} in {out['seconds']:.1f}s")
+    return out
+
+
+def two_location_paths(torch, np, kernels, gen, dev):
+    """Phase 27: MOD copied with a second location (two_locations), at
+    full width: #13/#14 vs plain and timed at the mod_extractor geometry
+    (cin 1, kw 4, S 128, C 64, batch 256 fused to 512); for SW_Transformer
+    and DeepSense -pallas_conv a served batch and 3 + 5 pretrain steps with
+    the launches held exactly (#2/#3 32 a step; #13/#14 over the four
+    location towers and the two mod_extractor towers), and each backbone's
+    rate-0 step from the initial state, kernels vs plain."""
+    import torch.nn.functional as F
+
+    from focal_tpu_torch.ops import conv_tower as ct
+    from focal_tpu_torch.params import load_dataset_config
+
+    tag = "two-locations"
+    t0 = time.time()
+    cfg = two_locations(load_dataset_config("MOD"))
+    task = "vehicle_classification"
+    out = {"errors": {}, "paths": {}}
+    cgeos = tower_geometries(cfg, 2 * DS_BATCH, "MOD two-location")
+    egeos = [g for g in cgeos if g["name"].endswith("mod_extractor")]
+    if len(egeos) != 1 or egeos[0]["cfgs"][0][:2] != (4, 1) or egeos[0]["S"] != 128:
+        raise AssertionError(f"{tag}: unexpected mod_extractor geometry {egeos}")
+    ct_fwd_err, ct_rel, ct_near, ct_abs = check_towers(torch, np, ct, egeos, dev, seed0=900,
+                                                       exact=True)
+    out["errors"].update(fused_conv_tower=ct_fwd_err, fused_conv_tower_backward=ct_abs,
+                         fused_conv_tower_backward_rel=ct_rel,
+                         fused_conv_tower_backward_near_zero=ct_near)
+    out["towers"] = time_new_towers(torch, np, ct, F, egeos, dev, 950)
+
+    out["paths"] = backbone_paths(torch, np, kernels, dev, "MOD", cfg, task, cgeos, tag)
+    out["seconds"] = time.time() - t0
+    log(f"[{tag}] phase 27 in {out['seconds']:.1f}s")
+    return out
+
+
+def check_block_forward(torch, pk, geos, gen, dev):
+    """#1 vs plain at each geometry, phase 2's gate; returns the worst
+    absolute error (and keeps each in its geometry)."""
+    fwd = pk.fused_window_block
+    max_err = 0.0
+    for g in geos:
+        args = make_inputs(torch, g, gen, dev)
+        y = fwd(*args)
+        torch.cuda.synchronize()
+        err = float((y - pk.fused_window_block_reference(*args)).abs().max())
+        g["max_abs_err"] = err
+        max_err = max(max_err, err)
+        log(f"[check] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']} "
+            f"max|kernel-plain| {err:.3e}")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{g['name']}: kernel differs from plain by {err} > {KERNEL_TOL}")
+    torch.cuda.synchronize()
+    return max_err
+
+
+def check_block_training(torch, pk, geos, gen, dev, rate):
+    """#2 and #3 vs plain at each training geometry, phase 6's gates;
+    returns (#2's worst absolute error, #3's worst relative and absolute
+    gradient errors)."""
+    fwd_drop, bwd = pk.fused_window_block_dropout, pk.fused_window_block_backward
+    drop_err = grad_err = grad_abs = 0.0
+    for gi, g in enumerate(geos):
+        args = make_inputs(torch, g, gen, dev)
+        y, keep = fwd_drop(*args, 1000 + gi, rate)
+        torch.cuda.synchronize()
+        err = float((y - pk.fused_window_block_dropout_reference(*args, keep, rate)).abs().max())
+        kept = float(keep.double().mean())
+        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+        dy = torch.randn(y.shape, generator=gen).to(dev)
+        tr = transposed(args)
+        errs = {}
+        for tag, kp in (("keep", keep), ("nomask", None)):
+            got = bwd(*args, dy, kp, rate, *tr)
+            again = bwd(*args, dy, kp, rate, *tr)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{g['name']}: #3 gives other bits on a second call ({tag})")
+            want = pk.fused_window_block_backward_reference(*args, dy, kp, rate)
+            errs[tag] = max(rel_err(a, b) for a, b in zip(got, want))
+            grad_abs = max(grad_abs, *(float((a - b).abs().max()) for a, b in zip(got, want)))
+        g.update(max_abs_err_fwd=err, keep_rate=kept, keep_sigma=sigma, max_rel_err_bwd=errs["keep"],
+                 max_rel_err_bwd_nomask=errs["nomask"])
+        drop_err, grad_err = max(drop_err, err), max(grad_err, *errs.values())
+        log(f"[check-train] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']}: "
+            f"#2 max|kernel-plain| {err:.3e}, keep rate {kept:.5f} ({(kept - 1 + rate) / sigma:+.2f} "
+            f"sigma); #3 max rel err {errs['keep']:.3e} (mask), {errs['nomask']:.3e} (no mask), "
+            "repeatable")
+        if not err <= KERNEL_TOL:
+            raise AssertionError(f"{g['name']}: #2 differs from plain by {err}")
+        if not abs(kept - (1 - rate)) <= 5 * sigma:
+            raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {rate} within 5 sigma")
+        if not max(errs.values()) <= GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #3 gradients differ from plain by {errs}")
+    return drop_err, grad_err, grad_abs
+
+
+def check_towers(torch, np, ct, geos, dev, seed0=100, exact=False):
+    """#13 and #14 vs plain at each tower geometry, phase 14's gates;
+    returns (#13's worst absolute error, #14's worst relative, near-zero
+    and absolute gradient errors). With ``exact`` the plain version runs in
+    float64: a conv bias before a BatchNorm has a true gradient of 0, and
+    the f32 plain version's cancellation noise there grows with the rows
+    summed (~2e-2 at S 128's 6.6e5 rows, past NEAR_ZERO)."""
+    ct_fwd = ct.fused_conv_tower
+    ct_fwd_err = ct_grad_rel = ct_grad_near = ct_grad_abs = 0.0
+    for gi, g in enumerate(geos):
+        x0, params, masks, dy = tower_inputs(torch, np, g, seed0 + gi, dev)
+        runs = []
+        for fn in (ct_fwd, ct_fwd, ct.fused_conv_tower_reference):
+            args = (x0, params, masks, dy)
+            if exact and fn is ct.fused_conv_tower_reference:
+                args = (x0.double(), [[p.double() for p in grp] for grp in params],
+                        [m.double() for m in masks], dy.double())
+            xl, pl_, leaves = tower_leaves(torch, args[0], args[1], g["external"])
+            y, mus, vars_ = fn(xl, g["cfgs"], *pl_, args[2], g["external"])
+            runs.append((y.detach(), mus, vars_, torch.autograd.grad(y, leaves, args[3])))
+            del y
+        torch.cuda.synchronize()
+        (y, mus, vars_, grads), again, (ry, rmus, rvars, rgrads) = runs
+        fwd_rel = max([rel_err(y, ry)] + [rel_err(a, b) for a, b in zip(mus + vars_, rmus + rvars)])
+        fwd_abs = max([float((y - ry).abs().max())]
+                      + [float((a - b).abs().max()) for a, b in zip(mus + vars_, rmus + rvars)])
+        g_rel, g_near, g_abs = grad_errors(grads, rgrads)
+        same = (torch.equal(y, again[0]) and all(torch.equal(a, b) for a, b in zip(mus, again[1]))
+                and all(torch.equal(a, b) for a, b in zip(grads, again[3])))
+        g.update(max_rel_err_fwd=fwd_rel, max_abs_err_fwd=fwd_abs, max_rel_err_bwd=g_rel,
+                 max_abs_err_bwd_near_zero=g_near, max_abs_err_bwd=g_abs, repeatable=same)
+        ct_fwd_err = max(ct_fwd_err, fwd_abs)
+        ct_grad_rel, ct_grad_near, ct_grad_abs = (max(ct_grad_rel, g_rel), max(ct_grad_near, g_near),
+                                                  max(ct_grad_abs, g_abs))
+        log(f"[check-tower] {g['name']}: R {g['R']} S {g['S']} C {g['C']} layers {len(g['cfgs'])}"
+            f"{' (first conv outside)' if g['external'] else ''}: #13 max rel err {fwd_rel:.3e} "
+            f"(output, means, variances); #14 max rel err {g_rel:.3e}, near-zero max abs err "
+            f"{g_near:.3e}; same bits on a second call: {same}")
+        if not fwd_rel <= TOWER_TOL:
+            raise AssertionError(f"{g['name']}: #13 differs from plain by {fwd_rel}")
+        if not (g_rel <= GRAD_TOL and g_near <= NEAR_ZERO):
+            raise AssertionError(f"{g['name']}: #14 gradients differ from plain: {g_rel}, {g_near}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #13/#14 give other bits on a second call")
+        del runs, grads, again, rgrads, x0, params, masks, dy
+    return ct_fwd_err, ct_grad_rel, ct_grad_near, ct_grad_abs
+
+
+def time_tower(torch, np, ct, F, g, seed, dev):
+    """Phase 17's timing of #13 and #14 at one tower geometry, into g: the
+    kernels, the plain versions, the library yardstick (the unfused cuDNN
+    chain and its autograd backward), the bounds and the device time by
+    phase (failing on a kernel outside csrc/conv_tower.cu)."""
+    ct_bwd = ct.fused_conv_tower_backward
+    x0, params, masks, dy = tower_inputs(torch, np, g, seed, dev)
+    _, _, _, saved = ct.tower_forward(x0, g["cfgs"], *params, masks, g["external"])
+    g["fwd_ms"] = time_ms(torch, lambda: ct.tower_forward(x0, g["cfgs"], *params, masks,
+                                                          g["external"]))
+    g["bwd_ms"] = time_ms(torch, lambda: ct_bwd(saved, dy))
+    with torch.no_grad():
+        g["fwd_plain_ms"] = time_ms(torch, lambda: ct.fused_conv_tower_reference(
+            x0, g["cfgs"], *params, masks, g["external"]))
+        g["fwd_library_ms"] = time_ms(torch, lambda: library_tower(torch, F, x0, g, params, masks))
+    xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
+    ry = ct.fused_conv_tower_reference(xl, g["cfgs"], *pl_, masks, g["external"])[0]
+    g["bwd_plain_ms"] = time_ms(torch, lambda: torch.autograd.grad(ry, leaves, dy,
+                                                                   retain_graph=True))
+    del ry
+    xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
+    ly = library_tower(torch, F, xl, g, pl_, masks)
+    dyl = dy.permute(0, 2, 1).unsqueeze(2)
+    g["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(ly, leaves, dyl,
+                                                                     retain_graph=True))
+    del ly
+    # device time by kernel: only conv_tower.cu's kernels and PyTorch's
+    # [C]-sized steps may run under #13 and #14
+    g["profile"] = {"fwd": tower_phase_split(torch, lambda: ct.tower_forward(
+                        x0, g["cfgs"], *params, masks, g["external"])),
+                    "bwd": tower_phase_split(torch, lambda: ct_bwd(saved, dy))}
+    del saved
+    f_fl, f_by, b_fl, b_by = tower_work(g)
+    g["fwd_gflop"], g["bwd_gflop"] = f_fl / 1e9, b_fl / 1e9
+    g["fwd_bound_ms"], g["fwd_bound_by"] = bound(f_fl, f_by)
+    g["bwd_bound_ms"], g["bwd_bound_by"] = bound(b_fl, b_by)
+    g["fwd_bound_tc_ms"], g["bwd_bound_tc_ms"] = tower_tc_bounds(g)
+    g["fwd_flops_bytes"], g["bwd_flops_bytes"] = (f_fl, f_by), (b_fl, b_by)
+    log(f"[time-tower] {g['name']}: #13 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
+        f"library {g['fwd_library_ms']:.4f}, bound f32 {g['fwd_bound_ms']:.4f}, TF32x3 "
+        f"{g['fwd_bound_tc_ms']:.4f}, {f_fl / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #14 "
+        f"{g['bwd_ms']:.4f} ms (plain {g['bwd_plain_ms']:.4f}, library "
+        f"{g['bwd_library_ms']:.4f}, bound f32 {g['bwd_bound_ms']:.4f}, TF32x3 "
+        f"{g['bwd_bound_tc_ms']:.4f}, {b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
+    for d, what in (("fwd", "#13"), ("bwd", "#14")):
+        pr = g["profile"][d]
+        log(f"[profile-tower] {g['name']} {what}: device {pr['device_ms']:.4f} ms a call: "
+            + ", ".join(f"{ph} {ms:.4f}" for ph, ms in sorted(pr["phases"].items(),
+                                                               key=lambda kv: -kv[1])))
+    del x0, params, masks, dy, xl, pl_, leaves
+    return f_fl, f_by, b_fl, b_by
+
+
+def check_mlps(torch, np, fm, geos, dev, mlp_rate, seed0=300):
+    """#10, #11 and #12 vs plain at each MLP geometry, phase 18's gates;
+    returns the worst errors {"fwd", "drop", "bwd" (relative), "bwd_abs"}."""
+    mlp_fwd, mlp_drop, mlp_bwd = fm.fused_mlp_forward, fm.fused_mlp_dropout_forward, fm.fused_mlp_backward
+    mlp_err = {"fwd": 0.0, "drop": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    for gi, g in enumerate(geos):
+        T, C, H = g["T"], g["C"], g["H"]
+        x, w1, b1, w2, b2, gy = mlp_inputs(torch, np, g, seed0 + gi, dev)
+        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+        seed = seed0 + 3700 + gi
+        y, y_again = mlp_fwd(x, w1, b1, w2, b2), mlp_fwd(x, w1, b1, w2, b2)
+        yd = mlp_drop(x, w1, b1, w2, b2, seed, mlp_rate)
+        yd_again = mlp_drop(x, w1, b1, w2, b2, seed, mlp_rate)
+        keep1, keep2 = fm.mlp_keep_masks(seed, T, C, H, mlp_rate, dev)
+        torch.cuda.synchronize()
+        err = float((y - fm.fused_mlp_reference(x, w1, b1, w2, b2)).abs().max())
+        derr = float((yd - fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2,
+                                                          mlp_rate)).abs().max())
+        rates = {}
+        for name, k in (("keep1", keep1), ("keep2", keep2)):
+            kept = float(k.double().mean())
+            rates[name] = (kept, (kept - 1 + mlp_rate) / math.sqrt(mlp_rate * (1 - mlp_rate) / k.numel()))
+        same = torch.equal(y, y_again) and torch.equal(yd, yd_again)
+        errs = {}
+        for tag, sd, keeps in (("mask", seed, (keep1, keep2)), ("nomask", None, (None, None))):
+            got = mlp_bwd(x, w1, b1, w1t, w2t, gy, sd, mlp_rate)
+            again = mlp_bwd(x, w1, b1, w1t, w2t, gy, sd, mlp_rate)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+            want = fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, gy, *keeps, mlp_rate)
+            errs[tag] = max(rel_err(a, b) for a, b in zip(got, want))
+            mlp_err["bwd_abs"] = max(mlp_err["bwd_abs"], *(float((a - b).abs().max())
+                                                            for a, b in zip(got, want)))
+            del got, again, want
+        g.update(max_abs_err_fwd=err, max_abs_err_dropout=derr, keep_rates=rates,
+                 max_rel_err_bwd=errs["mask"], max_rel_err_bwd_nomask=errs["nomask"],
+                 repeatable=same)
+        mlp_err["fwd"], mlp_err["drop"] = max(mlp_err["fwd"], err), max(mlp_err["drop"], derr)
+        mlp_err["bwd"] = max(mlp_err["bwd"], *errs.values())
+        log(f"[check-mlp] {g['name']}: T {T} C {C} H {H} ({g['per_forward']} a forward): #10 "
+            f"max|kernel-plain| {err:.3e}, #11 {derr:.3e} (its own masks), keep rates "
+            + ", ".join(f"{k} {v[0]:.5f} ({v[1]:+.2f} sigma)" for k, v in rates.items())
+            + f"; #12 max rel err {errs['mask']:.3e} (masks), {errs['nomask']:.3e} (none); "
+            f"same bits on a second call: {same}")
+        if not max(err, derr) <= KERNEL_TOL:
+            raise AssertionError(f"{g['name']}: #10/#11 differ from plain by {err}, {derr}")
+        if not all(abs(v[1]) <= 5 for v in rates.values()):
+            raise AssertionError(f"{g['name']}: keep rates {rates} not 1 - {mlp_rate} within 5 sigma")
+        if not max(errs.values()) <= GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #12 gradients differ from plain by {errs}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #10/#11/#12 give other bits on a second call")
+        del x, w1, b1, w2, b2, gy, w1t, w2t, y, y_again, yd, yd_again, keep1, keep2
+    return mlp_err
+
+
+def check_attention(torch, np, pk, geos, gen, dev, a_rate, seed0, at_err):
+    """#6-#9 vs plain at each attention geometry, phase 22's gates, #7's
+    mask against #2's (#4's where #2 does not launch); the worst errors go
+    into at_err {"fwd", "drop", "bwd" (relative), "bwd_abs"}."""
+    at_fwd, at_drop = pk.fused_window_attention, pk.fused_window_attention_dropout
+    fwd_drop, ph_fwd = pk.fused_window_block_dropout, pk.fused_window_block_perhead
+    for gi, g in enumerate(geos):
+        B, H, N, C = g["windows"], g["heads"], g["N"], g["C"]
+        seed = seed0 + gi
+        q, k, v, rel_bias, mask, gy = attention_inputs(torch, np, g, seed, dev)
+        y = at_fwd(q, k, v, rel_bias, mask)
+        yd = at_drop(q, k, v, rel_bias, mask, seed, a_rate)
+        keep = pk.window_attention_keep_mask(seed, B, H, N, a_rate, dev)
+        blk = fwd_drop if pk.wblock_fits(N, C, H) else ph_fwd
+        blk_keep = blk(*make_inputs(torch, g, gen, dev), seed, a_rate)[1]
+        torch.cuda.synchronize()
+        same_mask = bool(torch.equal(blk_keep, keep))
+        del blk_keep
+        err = float((y - pk.fused_window_attention_reference(q, k, v, rel_bias, mask)).abs().max())
+        derr = float((yd - pk.fused_window_attention_dropout_reference(
+            q, k, v, rel_bias, mask, keep, a_rate)).abs().max())
+        kept = float(keep.double().mean())
+        sigma = math.sqrt(a_rate * (1 - a_rate) / keep.numel())
+        errs, same = {}, True
+        for tag, sd, kp in (("mask", seed, keep), ("nomask", None, None)):
+            r = a_rate if sd is not None else 0.0
+            got = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, gy, sd, r)
+            again = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, gy, sd, r)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+            want = pk.fused_window_attention_backward_reference(q, k, v, rel_bias, mask, gy, kp, r)
+            errs[tag] = grads_differ(got, want)
+            at_err["bwd_abs"] = max(at_err["bwd_abs"], *(float((a - b).abs().max())
+                                                          for a, b in zip(got, want)))
+            del got, again, want
+        forms = route_forms_equal(torch, pk, q, k, v, rel_bias, mask, gy, seed, a_rate)
+        g.update(max_abs_err_fwd=err, max_abs_err_dropout=derr, keep_rate=kept,
+                 keep_sigma=sigma, mask_equals_whole_block=same_mask,
+                 max_rel_err_bwd=errs["mask"], max_rel_err_bwd_nomask=errs["nomask"],
+                 repeatable=same, route_forms_bitwise=forms)
+        at_err["fwd"], at_err["drop"] = max(at_err["fwd"], err), max(at_err["drop"], derr)
+        at_err["bwd"] = max(at_err["bwd"], *errs.values())
+        log(f"[check-attn] {g['name']}: windows {B} heads {H} N {N} hd {g['hd']} nW {g['nW']}: "
+            f"#6 max|kernel-plain| {err:.3e}, #7 {derr:.3e} (its own mask), keep rate {kept:.5f} "
+            f"({(kept - 1 + a_rate) / sigma:+.2f} sigma), mask == {blk.__name__}'s: {same_mask}; "
+            f"#9 max rel err {errs['mask']:.3e}, #8 {errs['nomask']:.3e}; same bits on a second "
+            f"call: {same}; q_scale / out forms bitwise the pre-scaled, contiguous calls "
+            f"(#6, #7, #8, #9): {forms}")
+        if not max(err, derr) <= KERNEL_TOL:
+            raise AssertionError(f"{g['name']}: #6/#7 differ from plain by {err}, {derr}")
+        if not abs(kept - (1 - a_rate)) <= 5 * sigma:
+            raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {a_rate} within 5 sigma")
+        if not same_mask:
+            raise AssertionError(f"{g['name']}: #7's keep mask differs from {blk.__name__}'s")
+        if not max(errs.values()) <= GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #8/#9 gradients differ from plain by {errs}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #8/#9 give other bits on a second call")
+        if not all(forms):
+            raise AssertionError(f"{g['name']}: the q_scale / out forms of #6-#9 differ from "
+                                 f"the pre-scaled, contiguous calls: {forms}")
+        del q, k, v, rel_bias, mask, gy, y, yd, keep
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for the per-geometry JSON")
@@ -1633,19 +2278,7 @@ def main():
     task = "vehicle_classification"
     geos = block_geometries(cfg, SERVE_BATCH)
     gen = torch.Generator().manual_seed(0)
-    max_err = 0.0
-    for g in geos:
-        args = make_inputs(torch, g, gen, dev)
-        y = fwd(*args)
-        torch.cuda.synchronize()
-        err = float((y - pk.fused_window_block_reference(*args)).abs().max())
-        g["max_abs_err"] = err
-        max_err = max(max_err, err)
-        log(f"[check] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']} "
-            f"max|kernel-plain| {err:.3e}")
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"{g['name']}: kernel differs from plain by {err} > {KERNEL_TOL}")
-    torch.cuda.synchronize()
+    max_err = check_block_forward(torch, pk, geos, gen, dev)
 
     # ---- 3. the serving path: full-width MOD SW_Transformer served by the Predictor
     data, labels, names = synthetic_arrays(cfg, task, SERVE_SAMPLES, seed=3)
@@ -1730,39 +2363,7 @@ def main():
     # ---- 6. #2 and #3 vs plain at every block geometry of the training batch
     rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
     tgeos = block_geometries(cfg, 2 * TRAIN_BATCH)
-    drop_err = grad_err = grad_abs = 0.0
-    for gi, g in enumerate(tgeos):
-        args = make_inputs(torch, g, gen, dev)
-        y, keep = fwd_drop(*args, 1000 + gi, rate)
-        torch.cuda.synchronize()
-        err = float((y - pk.fused_window_block_dropout_reference(*args, keep, rate)).abs().max())
-        kept = float(keep.double().mean())
-        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
-        dy = torch.randn(y.shape, generator=gen).to(dev)
-        tr = transposed(args)
-        errs = {}
-        for tag, kp in (("keep", keep), ("nomask", None)):
-            got = bwd(*args, dy, kp, rate, *tr)
-            again = bwd(*args, dy, kp, rate, *tr)
-            torch.cuda.synchronize()
-            if not all(torch.equal(a, b) for a, b in zip(got, again)):
-                raise AssertionError(f"{g['name']}: #3 gives other bits on a second call ({tag})")
-            want = pk.fused_window_block_backward_reference(*args, dy, kp, rate)
-            errs[tag] = max(rel_err(a, b) for a, b in zip(got, want))
-            grad_abs = max(grad_abs, *(float((a - b).abs().max()) for a, b in zip(got, want)))
-        g.update(max_abs_err_fwd=err, keep_rate=kept, keep_sigma=sigma, max_rel_err_bwd=errs["keep"],
-                 max_rel_err_bwd_nomask=errs["nomask"])
-        drop_err, grad_err = max(drop_err, err), max(grad_err, *errs.values())
-        log(f"[check-train] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']}: "
-            f"#2 max|kernel-plain| {err:.3e}, keep rate {kept:.5f} ({(kept - 1 + rate) / sigma:+.2f} "
-            f"sigma); #3 max rel err {errs['keep']:.3e} (mask), {errs['nomask']:.3e} (no mask), "
-            "repeatable")
-        if not err <= KERNEL_TOL:
-            raise AssertionError(f"{g['name']}: #2 differs from plain by {err}")
-        if not abs(kept - (1 - rate)) <= 5 * sigma:
-            raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {rate} within 5 sigma")
-        if not max(errs.values()) <= GRAD_TOL:
-            raise AssertionError(f"{g['name']}: #3 gradients differ from plain by {errs}")
+    drop_err, grad_err, grad_abs = check_block_training(torch, pk, tgeos, gen, dev, rate)
 
     # ---- 7. the training path: FOCAL pretrain steps at full width
     targs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer",
@@ -1967,49 +2568,12 @@ def main():
 
     cgeos = (tower_geometries(cfg, 2 * DS_BATCH, "MOD")
              + tower_geometries(wcfg, 2 * DS_WIDE_BATCH, "MOD_WIDE"))
-    ct_fwd_err = ct_grad_rel = ct_grad_near = ct_grad_abs = 0.0
-    for gi, g in enumerate(cgeos):
-        x0, params, masks, dy = tower_inputs(torch, np, g, 100 + gi, dev)
-        runs = []
-        for fn in (ct_fwd, ct_fwd, ct.fused_conv_tower_reference):
-            xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
-            y, mus, vars_ = fn(xl, g["cfgs"], *pl_, masks, g["external"])
-            runs.append((y.detach(), mus, vars_, torch.autograd.grad(y, leaves, dy)))
-            del y
-        torch.cuda.synchronize()
-        (y, mus, vars_, grads), again, (ry, rmus, rvars, rgrads) = runs
-        fwd_rel = max([rel_err(y, ry)] + [rel_err(a, b) for a, b in zip(mus + vars_, rmus + rvars)])
-        fwd_abs = max([float((y - ry).abs().max())]
-                      + [float((a - b).abs().max()) for a, b in zip(mus + vars_, rmus + rvars)])
-        g_rel, g_near, g_abs = grad_errors(grads, rgrads)
-        same = (torch.equal(y, again[0]) and all(torch.equal(a, b) for a, b in zip(mus, again[1]))
-                and all(torch.equal(a, b) for a, b in zip(grads, again[3])))
-        g.update(max_rel_err_fwd=fwd_rel, max_abs_err_fwd=fwd_abs, max_rel_err_bwd=g_rel,
-                 max_abs_err_bwd_near_zero=g_near, max_abs_err_bwd=g_abs, repeatable=same)
-        ct_fwd_err = max(ct_fwd_err, fwd_abs)
-        ct_grad_rel, ct_grad_near, ct_grad_abs = (max(ct_grad_rel, g_rel), max(ct_grad_near, g_near),
-                                                  max(ct_grad_abs, g_abs))
-        log(f"[check-tower] {g['name']}: R {g['R']} S {g['S']} C {g['C']} layers {len(g['cfgs'])}"
-            f"{' (first conv outside)' if g['external'] else ''}: #13 max rel err {fwd_rel:.3e} "
-            f"(output, means, variances); #14 max rel err {g_rel:.3e}, near-zero max abs err "
-            f"{g_near:.3e}; same bits on a second call: {same}")
-        if not fwd_rel <= TOWER_TOL:
-            raise AssertionError(f"{g['name']}: #13 differs from plain by {fwd_rel}")
-        if not (g_rel <= GRAD_TOL and g_near <= NEAR_ZERO):
-            raise AssertionError(f"{g['name']}: #14 gradients differ from plain: {g_rel}, {g_near}")
-        if not same:
-            raise AssertionError(f"{g['name']}: #13/#14 give other bits on a second call")
-        del runs, grads, again, rgrads, x0, params, masks, dy
+    ct_fwd_err, ct_grad_rel, ct_grad_near, ct_grad_abs = check_towers(torch, np, ct, cgeos, dev)
     torch.cuda.empty_cache()
 
     # ---- 15. DeepSense pretrain steps: the default path (cuDNN convs, no
     # kernel) and -pallas_conv (#13/#14), in one call: MOD at batch 256 (3 +
     # 20 steps), then MOD_WIDE at batch 128 (3 + 10), where the towers weigh
-    def tower_launches(geos):
-        """#13's and #14's wrapper calls in one step over the towers geos."""
-        return {ct_fwd.__name__: sum(len(g["cfgs"]) + (0 if g["external"] else 1) for g in geos),
-                ct_bwd.__name__: sum(2 * len(g["cfgs"]) for g in geos)}
-
     mod_geos = [g for g in cgeos if g["name"].startswith("MOD ")]
     ds_per_step = tower_launches(mod_geos)
     ds_wide_per_step = tower_launches([g for g in cgeos if g["name"].startswith("MOD_WIDE ")])
@@ -2130,49 +2694,7 @@ def main():
     # autograd backward) and the bound
     ctot = {}
     for gi, g in enumerate(cgeos):
-        x0, params, masks, dy = tower_inputs(torch, np, g, 200 + gi, dev)
-        _, _, _, saved = ct.tower_forward(x0, g["cfgs"], *params, masks, g["external"])
-        g["fwd_ms"] = time_ms(torch, lambda: ct.tower_forward(x0, g["cfgs"], *params, masks,
-                                                              g["external"]))
-        g["bwd_ms"] = time_ms(torch, lambda: ct_bwd(saved, dy))
-        with torch.no_grad():
-            g["fwd_plain_ms"] = time_ms(torch, lambda: ct.fused_conv_tower_reference(
-                x0, g["cfgs"], *params, masks, g["external"]))
-            g["fwd_library_ms"] = time_ms(torch, lambda: library_tower(torch, F, x0, g, params, masks))
-        xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
-        ry = ct.fused_conv_tower_reference(xl, g["cfgs"], *pl_, masks, g["external"])[0]
-        g["bwd_plain_ms"] = time_ms(torch, lambda: torch.autograd.grad(ry, leaves, dy,
-                                                                       retain_graph=True))
-        del ry
-        xl, pl_, leaves = tower_leaves(torch, x0, params, g["external"])
-        ly = library_tower(torch, F, xl, g, pl_, masks)
-        dyl = dy.permute(0, 2, 1).unsqueeze(2)
-        g["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(ly, leaves, dyl,
-                                                                         retain_graph=True))
-        del ly
-        # device time by kernel: only conv_tower.cu's kernels and PyTorch's
-        # [C]-sized steps may run under #13 and #14
-        g["profile"] = {"fwd": tower_phase_split(torch, lambda: ct.tower_forward(
-                            x0, g["cfgs"], *params, masks, g["external"])),
-                        "bwd": tower_phase_split(torch, lambda: ct_bwd(saved, dy))}
-        del saved
-        f_fl, f_by, b_fl, b_by = tower_work(g)
-        g["fwd_gflop"], g["bwd_gflop"] = f_fl / 1e9, b_fl / 1e9
-        g["fwd_bound_ms"], g["fwd_bound_by"] = bound(f_fl, f_by)
-        g["bwd_bound_ms"], g["bwd_bound_by"] = bound(b_fl, b_by)
-        g["fwd_bound_tc_ms"], g["bwd_bound_tc_ms"] = tower_tc_bounds(g)
-        g["fwd_flops_bytes"], g["bwd_flops_bytes"] = (f_fl, f_by), (b_fl, b_by)
-        log(f"[time-tower] {g['name']}: #13 {g['fwd_ms']:.4f} ms (plain {g['fwd_plain_ms']:.4f}, "
-            f"library {g['fwd_library_ms']:.4f}, bound f32 {g['fwd_bound_ms']:.4f}, TF32x3 "
-            f"{g['fwd_bound_tc_ms']:.4f}, {f_fl / g['fwd_ms'] / 1e9:.2f} TFLOP/s); #14 "
-            f"{g['bwd_ms']:.4f} ms (plain {g['bwd_plain_ms']:.4f}, library "
-            f"{g['bwd_library_ms']:.4f}, bound f32 {g['bwd_bound_ms']:.4f}, TF32x3 "
-            f"{g['bwd_bound_tc_ms']:.4f}, {b_fl / g['bwd_ms'] / 1e9:.2f} TFLOP/s)")
-        for d, what in (("fwd", "#13"), ("bwd", "#14")):
-            pr = g["profile"][d]
-            log(f"[profile-tower] {g['name']} {what}: device {pr['device_ms']:.4f} ms a call: "
-                + ", ".join(f"{ph} {ms:.4f}" for ph, ms in sorted(pr["phases"].items(),
-                                                                   key=lambda kv: -kv[1])))
+        f_fl, f_by, b_fl, b_by = time_tower(torch, np, ct, F, g, 200 + gi, dev)
         ds = g["name"].split()[0]
         step_sum = ctot.setdefault(ds, {"fwd_flops": 0, "fwd_bytes": 0, "bwd_flops": 0,
                                         "bwd_bytes": 0, "fwd_bound_tc_ms": 0.0,
@@ -2189,7 +2711,6 @@ def main():
         step_sum["fwd_bytes"] += f_by
         step_sum["bwd_flops"] += b_fl
         step_sum["bwd_bytes"] += b_by
-        del x0, params, masks, dy, xl, pl_, leaves
     for ds, step_sum in ctot.items():
         step_sum["fwd_bound_ms"] = bound(step_sum["fwd_flops"], step_sum["fwd_bytes"])[0]
         step_sum["bwd_bound_ms"] = bound(step_sum["bwd_flops"], step_sum["bwd_bytes"])[0]
@@ -2213,55 +2734,7 @@ def main():
     mgeos = (mlp_geometries(cfg, SUP_BATCH, "MOD")
              + mlp_geometries(wcfg, 2 * WIDE_BATCH, "MOD_WIDE"))
     mlp_rate = float(cfg["SW_Transformer"]["dropout_ratio"])
-    mlp_err = {"fwd": 0.0, "drop": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
-    for gi, g in enumerate(mgeos):
-        T, C, H = g["T"], g["C"], g["H"]
-        x, w1, b1, w2, b2, gy = mlp_inputs(torch, np, g, 300 + gi, dev)
-        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-        seed = 4000 + gi
-        y, y_again = mlp_fwd(x, w1, b1, w2, b2), mlp_fwd(x, w1, b1, w2, b2)
-        yd = mlp_drop(x, w1, b1, w2, b2, seed, mlp_rate)
-        yd_again = mlp_drop(x, w1, b1, w2, b2, seed, mlp_rate)
-        keep1, keep2 = fm.mlp_keep_masks(seed, T, C, H, mlp_rate, dev)
-        torch.cuda.synchronize()
-        err = float((y - fm.fused_mlp_reference(x, w1, b1, w2, b2)).abs().max())
-        derr = float((yd - fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2,
-                                                          mlp_rate)).abs().max())
-        rates = {}
-        for name, k in (("keep1", keep1), ("keep2", keep2)):
-            kept = float(k.double().mean())
-            rates[name] = (kept, (kept - 1 + mlp_rate) / math.sqrt(mlp_rate * (1 - mlp_rate) / k.numel()))
-        same = torch.equal(y, y_again) and torch.equal(yd, yd_again)
-        errs = {}
-        for tag, sd, keeps in (("mask", seed, (keep1, keep2)), ("nomask", None, (None, None))):
-            got = mlp_bwd(x, w1, b1, w1t, w2t, gy, sd, mlp_rate)
-            again = mlp_bwd(x, w1, b1, w1t, w2t, gy, sd, mlp_rate)
-            torch.cuda.synchronize()
-            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
-            want = fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, gy, *keeps, mlp_rate)
-            errs[tag] = max(rel_err(a, b) for a, b in zip(got, want))
-            mlp_err["bwd_abs"] = max(mlp_err["bwd_abs"], *(float((a - b).abs().max())
-                                                            for a, b in zip(got, want)))
-            del got, again, want
-        g.update(max_abs_err_fwd=err, max_abs_err_dropout=derr, keep_rates=rates,
-                 max_rel_err_bwd=errs["mask"], max_rel_err_bwd_nomask=errs["nomask"],
-                 repeatable=same)
-        mlp_err["fwd"], mlp_err["drop"] = max(mlp_err["fwd"], err), max(mlp_err["drop"], derr)
-        mlp_err["bwd"] = max(mlp_err["bwd"], *errs.values())
-        log(f"[check-mlp] {g['name']}: T {T} C {C} H {H} ({g['per_forward']} a forward): #10 "
-            f"max|kernel-plain| {err:.3e}, #11 {derr:.3e} (its own masks), keep rates "
-            + ", ".join(f"{k} {v[0]:.5f} ({v[1]:+.2f} sigma)" for k, v in rates.items())
-            + f"; #12 max rel err {errs['mask']:.3e} (masks), {errs['nomask']:.3e} (none); "
-            f"same bits on a second call: {same}")
-        if not max(err, derr) <= KERNEL_TOL:
-            raise AssertionError(f"{g['name']}: #10/#11 differ from plain by {err}, {derr}")
-        if not all(abs(v[1]) <= 5 for v in rates.values()):
-            raise AssertionError(f"{g['name']}: keep rates {rates} not 1 - {mlp_rate} within 5 sigma")
-        if not max(errs.values()) <= GRAD_TOL:
-            raise AssertionError(f"{g['name']}: #12 gradients differ from plain by {errs}")
-        if not same:
-            raise AssertionError(f"{g['name']}: #10/#11/#12 give other bits on a second call")
-        del x, w1, b1, w2, b2, gy, w1t, w2t, y, y_again, yd, yd_again, keep1, keep2
+    mlp_err = check_mlps(torch, np, fm, mgeos, dev, mlp_rate)
     torch.cuda.empty_cache()
 
     # ---- 19. MOD supervised steps at batch 128, the default path and
@@ -2546,63 +3019,8 @@ def main():
     at_err = {"fwd": 0.0, "drop": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
     t22 = time.time()
     for kind, ags in agen.items():
-        a_rate = wrate if kind == "wide" else rate
-        for gi, g in enumerate(ags):
-            B, H, N, C = g["windows"], g["heads"], g["N"], g["C"]
-            seed = 6000 + 100 * len(kind) + gi
-            q, k, v, rel_bias, mask, gy = attention_inputs(torch, np, g, seed, dev)
-            y = at_fwd(q, k, v, rel_bias, mask)
-            yd = at_drop(q, k, v, rel_bias, mask, seed, a_rate)
-            keep = pk.window_attention_keep_mask(seed, B, H, N, a_rate, dev)
-            blk = fwd_drop if pk.wblock_fits(N, C, H) else ph_fwd
-            blk_keep = blk(*make_inputs(torch, g, gen, dev), seed, a_rate)[1]
-            torch.cuda.synchronize()
-            same_mask = bool(torch.equal(blk_keep, keep))
-            del blk_keep
-            err = float((y - pk.fused_window_attention_reference(q, k, v, rel_bias, mask)).abs().max())
-            derr = float((yd - pk.fused_window_attention_dropout_reference(
-                q, k, v, rel_bias, mask, keep, a_rate)).abs().max())
-            kept = float(keep.double().mean())
-            sigma = math.sqrt(a_rate * (1 - a_rate) / keep.numel())
-            errs, same = {}, True
-            for tag, sd, kp in (("mask", seed, keep), ("nomask", None, None)):
-                r = a_rate if sd is not None else 0.0
-                got = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, gy, sd, r)
-                again = pk.fused_window_attention_backward(q, k, v, rel_bias, mask, gy, sd, r)
-                torch.cuda.synchronize()
-                same = same and all(torch.equal(a, b) for a, b in zip(got, again))
-                want = pk.fused_window_attention_backward_reference(q, k, v, rel_bias, mask, gy, kp, r)
-                errs[tag] = grads_differ(got, want)
-                at_err["bwd_abs"] = max(at_err["bwd_abs"], *(float((a - b).abs().max())
-                                                              for a, b in zip(got, want)))
-                del got, again, want
-            forms = route_forms_equal(torch, pk, q, k, v, rel_bias, mask, gy, seed, a_rate)
-            g.update(max_abs_err_fwd=err, max_abs_err_dropout=derr, keep_rate=kept,
-                     keep_sigma=sigma, mask_equals_whole_block=same_mask,
-                     max_rel_err_bwd=errs["mask"], max_rel_err_bwd_nomask=errs["nomask"],
-                     repeatable=same, route_forms_bitwise=forms)
-            at_err["fwd"], at_err["drop"] = max(at_err["fwd"], err), max(at_err["drop"], derr)
-            at_err["bwd"] = max(at_err["bwd"], *errs.values())
-            log(f"[check-attn] {g['name']}: windows {B} heads {H} N {N} hd {g['hd']} nW {g['nW']}: "
-                f"#6 max|kernel-plain| {err:.3e}, #7 {derr:.3e} (its own mask), keep rate {kept:.5f} "
-                f"({(kept - 1 + a_rate) / sigma:+.2f} sigma), mask == {blk.__name__}'s: {same_mask}; "
-                f"#9 max rel err {errs['mask']:.3e}, #8 {errs['nomask']:.3e}; same bits on a second "
-                f"call: {same}; q_scale / out forms bitwise the pre-scaled, contiguous calls "
-                f"(#6, #7, #8, #9): {forms}")
-            if not max(err, derr) <= KERNEL_TOL:
-                raise AssertionError(f"{g['name']}: #6/#7 differ from plain by {err}, {derr}")
-            if not abs(kept - (1 - a_rate)) <= 5 * sigma:
-                raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {a_rate} within 5 sigma")
-            if not same_mask:
-                raise AssertionError(f"{g['name']}: #7's keep mask differs from {blk.__name__}'s")
-            if not max(errs.values()) <= GRAD_TOL:
-                raise AssertionError(f"{g['name']}: #8/#9 gradients differ from plain by {errs}")
-            if not same:
-                raise AssertionError(f"{g['name']}: #8/#9 give other bits on a second call")
-            if not all(forms):
-                raise AssertionError(f"{g['name']}: the q_scale / out forms of #6-#9 differ from "
-                                     f"the pre-scaled, contiguous calls: {forms}")
-            del q, k, v, rel_bias, mask, gy, y, yd, keep
+        check_attention(torch, np, pk, ags, gen, dev, wrate if kind == "wide" else rate,
+                        6000 + 100 * len(kind), at_err)
     torch.cuda.empty_cache()
     log(f"[check-attn] {sum(len(a) for a in agen.values())} geometries in {time.time() - t22:.1f}s")
 
@@ -2800,6 +3218,19 @@ def main():
     log(f"[smoke] phases 22-25 in {time.time() - t22:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
 
+    # ---- 26. the JAX package's ACIDS, PAMAP2 and RealWorld_HAR recipes at
+    # full width: every kernel vs plain at their geometries, the served
+    # batch, pretrain and supervised steps of both backbones
+    recipes = {r: recipe_paths(torch, np, all_kernels, gen, dev, r) for r in RECIPES}
+
+    # ---- 27. two locations at MOD's full width
+    two_loc = two_location_paths(torch, np, all_kernels, gen, dev)
+    new_runs = {f"{path}_{r}": run for r, res in recipes.items()
+                for path, run in res["paths"].items()}
+    new_runs.update({f"{path}_MOD_two_locations": run for path, run in two_loc["paths"].items()})
+    log(f"[smoke] phases 26-27 in {sum(r['seconds'] for r in recipes.values()) + two_loc['seconds']:.1f}s;"
+        f" {time.time() - t_start:.1f}s after the build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -2833,7 +3264,8 @@ def main():
                 "serve_window_block_device_ms": serve_block_ms,
                 "no_pallas_block_route_backward": route_bwd,
                 "no_pallas_block_route_forward": route_fwd,
-            }, f, indent=1)
+                "recipes": recipes, "two_locations": two_loc,
+            }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
               source="focal_tpu_torch/csrc/window_block.cu", **extra):
@@ -2873,6 +3305,17 @@ def main():
                                 sum(r["launches"][k.__name__] for r in attn_runs),
                             "serve_MOD_no_pallas_block": attn_serve_launches[k.__name__]}
                for k in all_kernels}
+    for path, run in new_runs.items():
+        for k in all_kernels:
+            by_path[k.__name__][path] = run["launches"][k.__name__]
+    new_errors = [res["errors"] for res in recipes.values()] + [two_loc["errors"]]
+
+    def new_err(name):
+        """The worst error of a kernel at phases 26-27's geometries (None where it ran none)."""
+        errs = [e[name] for e in new_errors if name in e]
+        return max(errs) if errs else None
+
+    tower_new = [t for res in list(recipes.values()) + [two_loc] for t in res["towers"]]
     cli_launches = by_path[ph_fwd.__name__]["train_cli_MOD_WIDE"]
     train_per = (f"times: one pretrain step at batch {TRAIN_BATCH} (views fused to "
                  f"{2 * TRAIN_BATCH}), 16 launches; launches: {TRAIN_STEPS} timed steps")
@@ -3039,6 +3482,15 @@ def main():
                    attn_train["attention_kernels_device_ms"]["wattn_bwd_kernel"],
                    route_backward_copy_kernel_ms=route_bwd["copy_kernel_ms"]),
     ]
+    for k in kernels:
+        k["max_abs_err_recipes_and_two_locations"] = new_err(k["name"])
+        if k["name"].startswith("fused_conv_tower"):
+            d = "bwd" if k["name"].endswith("backward") else "fwd"
+            k["recipes_and_two_locations_geometries"] = [
+                {key: t[key] for key in ("name", "R", "S", "C", "cin", "kw", "external", "towers")}
+                | {"ms": t[f"{d}_ms"], "plain_ms": t[f"{d}_plain_ms"],
+                   "library_ms": t[f"{d}_library_ms"], "bound_ms": t[f"{d}_bound_ms"],
+                   "bound_ms_tensor_cores": t[f"{d}_bound_tc_ms"]} for t in tower_new]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -13,7 +13,8 @@ Swin-divisible size; stages halve the resolution and double the channels.
 Submodules are registered under the flax tree's names
 (``patch_embed_{loc}_{mod}``, ``stage{i}_{loc}_{mod}``,
 ``mod_in_layer_{loc}_{mod}``, ``loc_context_{mod}_{i}``, ``loc_fusion_{mod}``,
-``mod_projector_{mod}``, ``mod_fusion_layer``, ``class_layer``). ``pallas_mlp`` (the CLI's ``-pallas_mlp``) routes each
+``mod_projector_{mod}``, ``mod_fusion_layer``, ``class_layer``).
+``pallas_mlp`` (the CLI's ``-pallas_mlp``) routes each
 Swin block's MLP through the fused MLP kernels where ``mlp_takes``;
 ``pallas_block`` off (the CLI's ``-no_pallas_block``) routes its window
 attention through the attention-only kernels (#6-#9) instead of the

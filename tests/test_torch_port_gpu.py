@@ -44,6 +44,8 @@ def _args(rng, B, N, C, H, nW, dev):
 @pytest.mark.parametrize("B,N,C,H,nW", [
     (512, 9, 64, 4, 64), (509, 9, 128, 4, 16), (511, 9, 256, 4, 0),
     (37, 4, 32, 2, 3), (64, 16, 64, 4, 8),
+    # RealWorld_HAR's shifted stages: 48 (stage 0) and 12 (stage 1) windows a sample
+    (528, 9, 64, 4, 48), (516, 9, 128, 4, 12),
 ])
 def test_kernel_matches_plain_on_card(B, N, C, H, nW):
     dev = _card()
@@ -130,6 +132,7 @@ def _rel(a, b):
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,N,C,H,nW", [
     (512, 9, 64, 4, 64), (509, 9, 128, 4, 16), (511, 9, 256, 4, 0), (37, 4, 32, 2, 3),
+    (528, 9, 64, 4, 48), (516, 9, 128, 4, 12),
 ])
 def test_dropout_forward_matches_plain_given_its_mask(B, N, C, H, nW):
     from focal_tpu_torch.ops.pallas_kernels import (
@@ -174,6 +177,19 @@ def test_dropout_mask_is_a_function_of_the_seed():
 @pytest.mark.parametrize("nW", [0, 4])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 def test_backward_matches_autograd_of_plain(C, nW, rate):
+    _backward_case(C, nW, rate)
+
+
+# RealWorld_HAR's shifted stages (ROADMAP C8): 48 windows a sample at C 64,
+# 12 at C 128, where the JAX package's fused gate refuses (128 % nW)
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,nW", [(64, 48), (128, 12)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_backward_at_realworld_har_window_counts(C, nW, rate):
+    _backward_case(C, nW, rate)
+
+
+def _backward_case(C, nW, rate):
     from focal_tpu_torch.ops.pallas_kernels import (
         fused_window_block_backward, fused_window_block_backward_reference,
         fused_window_block_dropout)
@@ -500,9 +516,12 @@ def test_wrappers_raise_on_a_failed_launch_plan():
 # gradient of 0: both sides sum ~1e5 rows of cancellation noise, ~1e-3);
 # a second call gives the same bits.
 
-def _tower_args(rng, samples, intervals, S, C, kw, external, layers, dev):
+def _tower_args(rng, samples, intervals, S, C, kw, external, layers, dev, cin=2):
+    """A tower's inputs: its first conv over ``cin`` channels (C for an
+    external one, whose width 80 is a placeholder), every later one of
+    width ``kw``."""
     R = samples * intervals
-    cin0 = C if external else 2
+    cin0 = C if external else cin
     cfgs = tuple((kw if k else (kw if not external else 80), cin0 if k == 0 else C, C, k > 0)
                  for k in range(layers))
     x0 = rng.normal(size=(R, S, cin0)).astype(np.float32)
@@ -531,20 +550,36 @@ def _tower_grads(fn, cfgs, x0, params, masks, dy, external):
     return y, mus, vars_, torch.autograd.grad(y, leaves, dy)
 
 
-def _tower_case(samples, C, external, S=20, layers=5):
+def _exact(t):
+    return t.detach().double().requires_grad_(t.requires_grad)
+
+
+def _tower_case(samples, C, external, S=20, layers=5, cin=2, kw=None, exact=False):
     """A tower against autograd of its plain version on the card: output,
     statistics and gradients within the gates above, and the same bits on
-    a second call."""
+    a second call. The first conv takes ``cin`` channels; every conv but
+    an external first one has width ``kw`` (5 after an external first
+    conv, else 3). With ``exact`` the plain version runs in float64: a conv
+    bias before a BatchNorm has a true gradient of 0, and where the tower
+    sums ~6.6e5 rows (S 128) the f32 plain version's cancellation noise
+    there reaches ~2e-2, past the 1e-2 absolute gate, while the float64
+    one stays ~1e-10."""
     from focal_tpu_torch.ops.conv_tower import fused_conv_tower, fused_conv_tower_reference
 
     dev = _card()
     rng = np.random.default_rng(samples + C + external)
-    kw = 5 if external else 3
-    cfgs, x0, params, masks = _tower_args(rng, samples, 10, S, C, kw, external, layers, dev)
+    if kw is None:
+        kw = 5 if external else 3
+    cfgs, x0, params, masks = _tower_args(rng, samples, 10, S, C, kw, external, layers, dev, cin)
     dy = torch.from_numpy(rng.normal(size=(samples * 10, S, C)).astype(np.float32)).to(dev)
     got = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
     again = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
-    want = _tower_grads(fused_conv_tower_reference, cfgs, x0, params, masks, dy, external)
+    if exact:
+        want = _tower_grads(fused_conv_tower_reference, cfgs, _exact(x0),
+                            [[_exact(p) for p in group] for group in params],
+                            [m.double() for m in masks], dy.double(), external)
+    else:
+        want = _tower_grads(fused_conv_tower_reference, cfgs, x0, params, masks, dy, external)
     torch.cuda.synchronize()
     assert _rel(got[0].detach(), want[0].detach()) <= 1e-5
     for a, b in zip(got[1] + got[2], want[1] + want[2]):
@@ -577,6 +612,23 @@ def test_conv_tower_at_other_spectra_and_widths(S, C):
     (every tap but the centre reads padding) at MOD_TINY's width C 16 (a
     32-deep K-slice spans two taps)."""
     _tower_case(5, C, False, S=S, layers=3)
+
+
+# The towers of the ACIDS, PAMAP2 and RealWorld_HAR recipes and of the
+# two-location mod_extractor, at their fused batch (512 samples) and at 7
+# samples: cin 6 (the narrow first conv on the CUDA cores) at S 20 and 25;
+# ACIDS's S 41 after its strided first conv (kw 3 inside); cin 1 with kw 4
+# (even: SAME pads one position before, two after) in every layer at S 128.
+# Held against the plain version in float64 (``_tower_case``'s ``exact``).
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples,S,cin,kw,external,layers", [
+    (512, 20, 6, 3, False, 5), (512, 25, 6, 3, False, 5), (7, 25, 6, 3, False, 5),
+    (512, 41, 64, 3, True, 5), (7, 41, 64, 3, True, 5),
+    (512, 128, 1, 4, False, 4), (7, 128, 1, 4, False, 4),
+])
+def test_conv_tower_at_the_recipe_and_two_location_geometries(samples, S, cin, kw, external,
+                                                              layers):
+    _tower_case(samples, 64, external, S=S, layers=layers, cin=cin, kw=kw, exact=True)
 
 
 @pytest.mark.gpu
@@ -971,7 +1023,9 @@ def _attn_args(rng, B, H, N, hd, nW, dev):
 
 ATTN_GEOMETRIES = [(509, 4, 9, 16, 16), (512, 4, 9, 32, 64), (511, 4, 9, 64, 0),
                    (130, 4, 9, 128, 4), (67, 4, 9, 256, 4), (37, 2, 4, 8, 3), (64, 4, 16, 256, 8),
-                   (33, 2, 9, 4, 0)]
+                   (33, 2, 9, 4, 0),
+                   # RealWorld_HAR's shifted stages: nW 48 at hd 16, nW 12 at hd 32
+                   (528, 4, 9, 16, 48), (516, 4, 9, 32, 12)]
 
 
 @pytest.mark.gpu
@@ -1077,7 +1131,8 @@ def test_attention_mask_equals_the_whole_block_kernels_mask():
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,H,N,hd,nW", [(509, 4, 9, 16, 16), (512, 4, 9, 32, 64),
                                          (511, 4, 9, 64, 0), (67, 4, 9, 256, 4),
-                                         (37, 2, 4, 8, 3), (33, 4, 16, 12, 2)])
+                                         (37, 2, 4, 8, 3), (33, 4, 16, 12, 2),
+                                         (528, 4, 9, 16, 48), (516, 4, 9, 32, 12)])
 @pytest.mark.parametrize("rate", [0.0, 0.2])
 def test_window_attention_function_on_qkv_views(B, H, N, hd, nW, rate):
     """window_attention_qkv, the route's autograd pair on the qkv Linear's

@@ -38,7 +38,6 @@ from focal_tpu_torch.ops import conv_tower
 from focal_tpu_torch.ops.dropout import StepRngs
 from focal_tpu_torch.params import load_dataset_config
 from focal_tpu_torch.weights import params_from_flax
-from test_torch_port_recipes import _random_variables
 
 TASK = "vehicle_classification"
 MODELS = ["SW_Transformer", "DeepSense"]
@@ -74,6 +73,31 @@ def _perturb(params, seed, scale=0.05):
     rng = np.random.default_rng(seed)
     return jax.tree_util.tree_map(
         lambda a: (np.asarray(a) + scale * rng.normal(size=np.shape(a))).astype(np.float32), params)
+
+
+def _random_variables(jmodel, xx, seed):
+    """Parameters and running statistics of the JAX model's tree drawn in
+    numpy (the tree's shapes from ``jax.eval_shape``, no init compiled):
+    kernels N(0, 1/fan_in) with fan_in all axes but the last, biases
+    0.02 N(0, 1), LayerNorm and BatchNorm scales 1 + 0.02 N(0, 1), running
+    means 0.1 N(0, 1) and variances 0.5 + U(0, 1)."""
+    shapes = jax.eval_shape(
+        lambda: jmodel.init({"params": jax.random.key(0)}, xx, train=False, head="both"))
+    rng = np.random.default_rng(seed)
+
+    def draw(path, leaf):
+        name, shape = jax.tree_util.keystr(path[-1:]), leaf.shape
+        if "scale" in name:
+            a = 1.0 + 0.02 * rng.normal(size=shape)
+        elif "var" in name:
+            a = 0.5 + rng.random(size=shape)
+        elif "mean" in name or len(shape) < 2:
+            a = (0.1 if "mean" in name else 0.02) * rng.normal(size=shape)
+        else:
+            a = rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))
+        return a.astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(draw, dict(shapes))
 
 
 def _freq_batch(cfg, b, seed):

@@ -32,8 +32,7 @@ from focal_tpu_torch.params import load_dataset_config, parse_train_params
 from focal_tpu_torch.train.state import create_train_state
 from focal_tpu_torch.train.steps import make_supervised_train_step
 from focal_tpu_torch.weights import params_from_flax
-from test_torch_port_multi_location import MODELS, TASK, two_locations
-from test_torch_port_recipes import _random_variables
+from test_torch_port_multi_location import MODELS, TASK, _random_variables, two_locations
 
 BATCH = 8
 STEPS_PER_EPOCH = 10

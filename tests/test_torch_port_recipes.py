@@ -55,6 +55,7 @@ from focal_tpu_torch.ops.dropout import StepRngs
 from focal_tpu_torch.params import load_dataset_config
 from focal_tpu_torch.train import losses as tl
 from focal_tpu_torch.weights import params_from_flax
+from test_torch_port_multi_location import _random_variables, two_locations
 
 RECIPES = ["ACIDS", "PAMAP2", "RealWorld_HAR"]
 JAX_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -82,16 +83,6 @@ def test_recipe_is_the_jax_package_bytes(recipe):
         assert f.read() == want
 
 
-def _two_locations(cfg):
-    cfg = copy.deepcopy(cfg)
-    first = cfg["location_names"][0]
-    cfg["location_names"] = [first, "second"]
-    for key in ("loc_modalities", "loc_mod_in_freq_channels", "loc_mod_in_time_channels",
-                "loc_mod_spectrum_len"):
-        cfg[key]["second"] = copy.deepcopy(cfg[key][first])
-    return cfg
-
-
 def _swin_blocks(model):
     for loc, mod in model.geometries:
         for stage in model.stages(loc, mod):
@@ -112,7 +103,7 @@ def test_gates_equal_the_jax_gates_at_every_block_and_tower(recipe):
         assert pk.attention_takes(N, C // H)
         hidden = blk.mlp.Dense_0.out_features
         assert fm.mlp_takes(C, hidden) and jax_mlp_fits(C, hidden), (C, hidden)
-    for loc_cfg in (cfg, _two_locations(cfg)):
+    for loc_cfg in (cfg, two_locations(cfg)):
         ds = build_backbone(loc_cfg, "DeepSense", _task(recipe))
         towers = [(name, m) for name, m in ds.named_children()
                   if name.startswith(("loc_mod_extractor_", "mod_extractor_"))]
@@ -193,31 +184,6 @@ def _freq_batch(cfg, b, seed):
                                         cfg["num_segments"],
                                         cfg["loc_mod_spectrum_len"][loc][mod])).astype(np.float32)
                   for mod in cfg["modality_names"]}}
-
-
-def _random_variables(jmodel, xx, seed):
-    """Parameters and running statistics of the JAX model's tree drawn in
-    numpy (the tree's shapes from ``jax.eval_shape``, no init compiled):
-    kernels N(0, 1/fan_in) with fan_in all axes but the last, biases
-    0.02 N(0, 1), LayerNorm and BatchNorm scales 1 + 0.02 N(0, 1), running
-    means 0.1 N(0, 1) and variances 0.5 + U(0, 1)."""
-    shapes = jax.eval_shape(
-        lambda: jmodel.init({"params": jax.random.key(0)}, xx, train=False, head="both"))
-    rng = np.random.default_rng(seed)
-
-    def draw(path, leaf):
-        name, shape = jax.tree_util.keystr(path[-1:]), leaf.shape
-        if "scale" in name:
-            a = 1.0 + 0.02 * rng.normal(size=shape)
-        elif "var" in name:
-            a = 0.5 + rng.random(size=shape)
-        elif "mean" in name or len(shape) < 2:
-            a = (0.1 if "mean" in name else 0.02) * rng.normal(size=shape)
-        else:
-            a = rng.normal(size=shape) / np.sqrt(np.prod(shape[:-1]))
-        return a.astype(np.float32)
-
-    return jax.tree_util.tree_map_with_path(draw, dict(shapes))
 
 
 JAX_MODELS = {"SW_Transformer": JaxSWTransformer, "DeepSense": JaxDeepSense}
