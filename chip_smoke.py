@@ -202,7 +202,28 @@ result line if any fails):
      S 128, C 64); for SW_Transformer (location context and fusion) and
      DeepSense -pallas_conv (mean over locations, the mod_extractor towers)
      a served batch and 3 + 5 pretrain steps with the launches held
-     exactly, and each backbone's rate-0 step, kernels vs plain.
+     exactly, and each backbone's rate-0 step, kernels vs plain;
+ 28. the attribution arms, the sweep and the reference format at MOD's
+     full width, in-process through the entry points, on a synthetic split
+     of 2 full steps of 256 and a tail of 3 subsequences (524 samples):
+     #2/#3 and #13/#14 vs plain at the tail step's geometries (12 samples,
+     views fused to 24; phases 6 and 14's gates) and timed there as phases
+     8 and 17 time them; the tail step at rate 0
+     from the initial state, kernels vs plain, for SW_Transformer (#1/#3;
+     phase 26's gates) and DeepSense -pallas_conv (#13/#14; phase 15's,
+     running statistics included); 3 + 10 full and tail steps of each
+     timed from one state (launches held a step); python -m
+     focal_tpu_torch.train -ragged_tail for 2 epochs of SW_Transformer (with
+     -py_aug_draws -ref_lr_timing: #2/#3 16 x 3 x 2, #1 16 an eval forward;
+     the table's shape and each epoch's lr printed) and of DeepSense
+     -pallas_conv (#13 11 x 3 x 2, #14 20 x 3 x 2); a split whose tail is
+     one subsequence runs its 2 full steps alone; both pretrained backbones
+     exported to the reference format (python -m
+     focal_tpu_torch.export_torch) and imported back bitwise; a -pallas_mlp
+     supervised run from the SW_Transformer import through -init_weight
+     (#2, #3, #11, #12 a step; #1, #10 an eval forward); python -m
+     focal_tpu_torch.sweep finetuning it over -ratios 0.1,1.0 (#2 a step,
+     #1 an eval forward) and printing its table.
 
 Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
 {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
@@ -1939,6 +1960,369 @@ def two_location_paths(torch, np, kernels, gen, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# the attribution arms, the sweep and the reference format (28)
+
+TAIL_UNITS = 3            # subsequences phase 28's split leaves after its full steps
+TAIL_REPS = 10            # timed full and tail steps
+
+
+def stage_plan(argv):
+    """(train steps an epoch, eval forwards a validation point) of a stage
+    run in-process with ``argv``: pretraining's validation embeds the train
+    split for the KNN probe and runs two views and the features of val and
+    test; the classifier stages' one forward of each val and test batch."""
+    from focal_tpu_torch.data import DeviceDataLoader, load_split, sequence_batches
+    from focal_tpu_torch.params import parse_train_params
+
+    a = parse_train_params(argv)
+    seq = sequence_batches(a)
+    n = {o: len(DeviceDataLoader(load_split(o, a), a.batch_size, sequence=seq))
+         for o in ("train", "val", "test")}
+    steps = len(DeviceDataLoader(load_split("train", a), a.batch_size, drop_last=True,
+                                 sequence=seq))
+    return steps, (n["train"] + 3 * (n["val"] + n["test"]) if seq else n["val"] + n["test"])
+
+
+def rate0_tail_step(torch, targs, weights, dev, plain):
+    """One SW_Transformer pretrain step at every drop rate 0 from
+    ``weights`` on the first targs.batch_size rows of a synthetic split
+    (whole subsequences): through the kernels, or with ``plain`` through
+    their plain versions. Returns (loss, [gradients on the CPU], launches)."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone
+    from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    cfg0 = copy.deepcopy(targs.dataset_config)
+    sw0 = cfg0["SW_Transformer"]
+    sw0["dropout_ratio"] = sw0["drop_path_rate"] = sw0["attn_drop_rate"] = 0.0
+    args0 = copy.copy(targs)
+    args0.dataset_config = cfg0
+    data = to_device(synthetic_arrays(cfg0, targs.task, 2 * targs.batch_size, seed=0)[0], dev)
+    idx = torch.arange(targs.batch_size, device=dev)
+    m = build_backbone(cfg0, "SW_Transformer", targs.task, targs.learn_framework)
+    m.load_state_dict(weights)
+    m.to(dev)
+    st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
+    entry_points = {"window_block": pk.window_block_reference,
+                    "window_block_forward": pk.fused_window_block_reference}
+    if plain:
+        for name, fn in entry_points.items():
+            setattr(swin_mod, name, fn)
+    kernels = (pk.fused_window_block, pk.fused_window_block_dropout,
+               pk.fused_window_block_backward)
+    zero_counts(kernels)
+    try:
+        _, mt = make_pretrain_step(m, build_augmenter(args0), make_focal_loss(args0))(
+            st, data, idx)
+    finally:
+        for name in entry_points:
+            setattr(swin_mod, name, getattr(pk, name))
+    return (float(mt["loss"]), [p.grad.cpu() for p in m.parameters() if p.grad is not None],
+            counts(kernels))
+
+
+def time_tail_steps(torch, np, targs, kernels, per_step, dev, tag):
+    """TRAIN_WARMUP + TAIL_REPS pretrain steps on a full batch (TRAIN_BATCH
+    samples) and on a tail of TAIL_UNITS subsequences, from one state, at
+    full width: each step's launches held to ``per_step`` and its loss
+    finite. Returns their p50s (ms) and launches."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    cfg = targs.dataset_config
+    tail_rows = TAIL_UNITS * cfg["seq_len"]
+    data = to_device(synthetic_arrays(cfg, targs.task, TRAIN_BATCH + tail_rows, seed=0)[0], dev)
+    model = build_backbone(cfg, targs.model, targs.task, targs.learn_framework,
+                           pallas_conv=targs.pallas_conv)
+    init_params(model, seed=0).to(dev)
+    state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
+    step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
+    out = {}
+    for name, idx in (("full", torch.arange(TRAIN_BATCH, device=dev)),
+                      ("tail", torch.arange(TRAIN_BATCH, TRAIN_BATCH + tail_rows, device=dev))):
+        for _ in range(TRAIN_WARMUP):
+            step(state, data, idx)
+        zero_counts(kernels)
+        step_s, losses = [], []
+        for _ in range(TAIL_REPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, metrics = step(state, data, idx)
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t0)
+            losses.append(float(metrics["loss"]))
+        got = counts(kernels)
+        check_counts(f"{tag}: {TAIL_REPS} {name} steps", got,
+                     {k.__name__: per_step.get(k.__name__, 0) * TAIL_REPS for k in kernels})
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{tag}: non-finite loss in a {name} step: {losses}")
+        out[name] = {"rows": int(idx.numel()), "p50_ms": float(np.percentile(step_s, 50)) * 1e3,
+                     "min_ms": float(np.min(step_s)) * 1e3, "launches": got}
+    log(f"[{tag}] {targs.model} pretrain step at full width: a full batch of "
+        f"{out['full']['rows']} samples (views fused to {2 * out['full']['rows']}) p50 "
+        f"{out['full']['p50_ms']:.3f} ms, the tail of {TAIL_UNITS} subsequences "
+        f"({out['tail']['rows']} samples, fused to {2 * out['tail']['rows']}) p50 "
+        f"{out['tail']['p50_ms']:.3f} ms; launches a step {per_step}")
+    del state, step, data, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def attribution_paths(torch, np, kernels, gen, dev):
+    """Phase 28 at MOD's full width: the pretraining attribution arms, the
+    label-ratio sweep and the reference format, through the entry points,
+    in-process, on a synthetic split of 2 full steps of TRAIN_BATCH and a
+    tail of TAIL_UNITS subsequences. -ragged_tail's tail step takes the
+    training kernels at a second, small geometry (24 fused samples): #2/#3
+    and #13/#14 held to phases 6 and 14's gates there and timed, the step
+    held kernels vs plain at rate 0 from the initial state and timed
+    beside a full step, and its launches held exactly in 2-epoch runs of
+    SW_Transformer (with -py_aug_draws -ref_lr_timing) and DeepSense
+    -pallas_conv; a split whose tail is one subsequence runs its full steps
+    alone. Both pretrained backbones go to the reference format and back,
+    bitwise; the SW_Transformer import starts a -pallas_mlp supervised run
+    through -init_weight; the sweep finetunes it over two ratios."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from focal_tpu_torch import export_torch, sweep
+    from focal_tpu_torch.data import create_dataloader, load_split
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops import conv_tower as ct
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import load_dataset_config, parse_train_params
+    from focal_tpu_torch.train.loops import aug_id_table
+    from focal_tpu_torch.train.optim import make_epoch_schedule
+    from focal_tpu_torch.utils import torch_import
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    tag = "attribution"
+    t_phase = time.time()
+    cfg = load_dataset_config("MOD")
+    task = "vehicle_classification"
+    seq = cfg["seq_len"]
+    per = TRAIN_BATCH // seq
+    samples = seq * (2 * per + TAIL_UNITS)
+    fwd, fwd_drop, bwd = (pk.fused_window_block, pk.fused_window_block_dropout,
+                          pk.fused_window_block_backward)
+    n_blocks = sum(g["per_forward"] for g in block_geometries(cfg, SERVE_BATCH))
+    n_mlp = sum(g["per_forward"] for g in mlp_geometries(cfg, SUP_BATCH, "MOD"))
+    tower = tower_launches(tower_geometries(cfg, 2 * DS_BATCH, "MOD"))
+    sw_step = {fwd_drop.__name__: n_blocks, bwd.__name__: n_blocks}
+    out = {"samples": samples, "tail_units": TAIL_UNITS, "paths": {}}
+    run_dir = os.path.join(HERE, "build", "chip_smoke_attribution")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    base = ["-dataset", "MOD", "-synthetic", "-synthetic_samples", str(samples), "-val_epochs",
+            "1", "-output_dir", run_dir]
+    pre = base + ["-learn_framework", "FOCAL", "-stage", "pretrain", "-batch_size",
+                  str(TRAIN_BATCH), "-epochs", "2", "-ragged_tail"]
+
+    def run_entry(what, fn, argv, per_step, per_eval, steps, evals, **summary):
+        zero_counts(kernels)
+        t0 = time.time()
+        result = fn(argv)
+        torch.cuda.synchronize()
+        got = counts(kernels)
+        check_counts(f"{tag}: {what}", got, {k.__name__: per_step.get(k.__name__, 0) * steps
+                                             + per_eval.get(k.__name__, 0) * evals
+                                             for k in kernels})
+        out["paths"][what] = {"seconds": time.time() - t0, "steps": steps,
+                              "eval_forwards": evals, "launches": got, **summary}
+        log(f"[{tag}] {what}: {steps} steps, {evals} eval forwards in "
+            f"{time.time() - t0:.1f}s; launches {got}")
+        return result
+
+    # #2/#3 and #13/#14 at the tail step's geometries: the gates, the times
+    tail_rows = TAIL_UNITS * seq
+    rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
+    tgeos = block_geometries(cfg, 2 * tail_rows)
+    for g in tgeos:
+        g["name"] = f"MOD tail {g['name']}"
+    drop_err, grad_err, grad_abs = check_block_training(torch, pk, tgeos, gen, dev, rate)
+    cgeos = tower_geometries(cfg, 2 * tail_rows, "MOD tail")
+    ct_fwd_err, ct_rel, ct_near, ct_abs = check_towers(torch, np, ct, cgeos, dev, seed0=1100)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for g in tgeos:
+        time_training(torch, pk, fwd_drop, bwd, ("#2", "#3"), g, gen, dev, rate, sms,
+                      f"{tag}-time-tail")
+    wtot = step_totals(tgeos, f"{tag}-time-tail", ("#2", "#3"), n_blocks)
+    towers = time_new_towers(torch, np, ct, F, cgeos, dev, 1200)
+    tower_tot = {f"{d}_{k}": sum(t["towers"] * t[f"{d}_{k}"] for t in towers)
+                 for d in ("fwd", "bwd") for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                                   "bound_tc_ms")}
+    out["tail_kernels"] = {
+        "fused_window_block_dropout": {k[4:]: wtot[k] for k in TRAIN_KEYS if k.startswith("fwd")}
+        | {"max_abs_err": drop_err, "launches_per_step": n_blocks},
+        "fused_window_block_backward": {k[4:]: wtot[k] for k in TRAIN_KEYS if k.startswith("bwd")}
+        | {"max_abs_err": grad_abs, "max_rel_err": grad_err, "launches_per_step": n_blocks},
+        "fused_conv_tower": {k[4:]: v for k, v in tower_tot.items() if k.startswith("fwd")}
+        | {"max_abs_err": ct_fwd_err, "launches_per_step": tower["fused_conv_tower"]},
+        "fused_conv_tower_backward": {k[4:]: v for k, v in tower_tot.items() if k.startswith("bwd")}
+        | {"max_abs_err": ct_abs, "max_rel_err": ct_rel, "max_abs_err_near_zero": ct_near,
+           "launches_per_step": tower["fused_conv_tower_backward"]},
+        "towers": towers}
+    log(f"[{tag}] the tail step's kernels ({tail_rows} samples, views fused to "
+        f"{2 * tail_rows}), summed over a step: #2 {wtot['fwd_ms']:.4f} ms, #3 "
+        f"{wtot['bwd_ms']:.4f} ms, #13 {tower_tot['fwd_ms']:.4f} ms, #14 "
+        f"{tower_tot['bwd_ms']:.4f} ms; worst errors #2 {drop_err:.2e}, #3 {grad_err:.2e} rel, "
+        f"#13 {ct_fwd_err:.2e}, #14 {ct_rel:.2e} rel ({ct_near:.2e} near zero)")
+    torch.cuda.empty_cache()
+
+    # the tail step, kernels vs plain at rate 0 from the initial state
+    sargs = parse_train_params(["-dataset", "MOD", "-learn_framework", "FOCAL", "-batch_size",
+                                str(TAIL_UNITS * seq)])
+    initial = init_params(build_backbone(cfg, "SW_Transformer", task, "FOCAL"), seed=0).state_dict()
+    kern = rate0_tail_step(torch, sargs, initial, dev, plain=False)
+    plain = rate0_tail_step(torch, sargs, initial, dev, plain=True)
+    loss_rel = abs(kern[0] - plain[0]) / abs(plain[0])
+    grad_rel = grads_differ(kern[1], plain[1])
+    out["sw_tail_rate0"] = {"loss_kernel": kern[0], "loss_plain": plain[0], "loss_rel": loss_rel,
+                            "max_grad_rel": grad_rel, "launches": kern[2]}
+    log(f"[{tag}] SW_Transformer tail step ({TAIL_UNITS} subsequences) at rate 0 from the "
+        f"initial state, kernels vs plain: loss {kern[0]:.6f} vs {plain[0]:.6f} (rel "
+        f"{loss_rel:.2e}), max grad rel err {grad_rel:.2e}; launches {kern[2]}")
+    check_counts(f"{tag}: the SW_Transformer rate-0 tail step", kern[2],
+                 {fwd.__name__: n_blocks, fwd_drop.__name__: 0, bwd.__name__: n_blocks})
+    if not (loss_rel <= LOSS_TOL and grad_rel <= GRAD_TOL):
+        raise AssertionError(f"{tag}: SW_Transformer rate-0 tail step, kernels vs plain: "
+                             f"{out['sw_tail_rate0']}")
+    del kern, plain, initial
+    dargs = parse_train_params(["-dataset", "MOD", "-model", "DeepSense", "-learn_framework",
+                                "FOCAL", "-pallas_conv", "-batch_size", str(TAIL_UNITS * seq)])
+    zero_counts(kernels)
+    out["deepsense_tail_rate0"] = deepsense_rate0(torch, dargs, f"{tag}-deepsense-tail", dev)
+    check_counts(f"{tag}: the DeepSense rate-0 tail steps (kernels, then plain)", counts(kernels),
+                 {k.__name__: tower.get(k.__name__, 0) for k in kernels})
+
+    # the tail step timed beside a full one
+    out["sw_step_times"] = time_tail_steps(
+        torch, np, parse_train_params(["-dataset", "MOD", "-learn_framework", "FOCAL"]), kernels,
+        sw_step, dev, f"{tag}-sw-steps")
+    out["deepsense_step_times"] = time_tail_steps(
+        torch, np, parse_train_params(["-dataset", "MOD", "-model", "DeepSense",
+                                       "-learn_framework", "FOCAL", "-pallas_conv"]),
+        kernels, tower, dev, f"{tag}-deepsense-steps")
+
+    # -ragged_tail -py_aug_draws -ref_lr_timing: SW_Transformer, 2 epochs
+    sw_argv = pre + ["-model", "SW_Transformer", "-py_aug_draws", "-ref_lr_timing"]
+    steps, evals = stage_plan(sw_argv)
+    if steps != 2:
+        raise AssertionError(f"{tag}: {steps} full steps an epoch, not 2")
+    st, _, points = run_entry("pretrain SW_Transformer -ragged_tail -py_aug_draws "
+                              "-ref_lr_timing -epochs 2", train_cli.main, sw_argv, sw_step,
+                              {fwd.__name__: n_blocks}, 2 * (steps + 1), 2 * evals)
+    if st.step != 2 * (steps + 1) or [p["epoch"] for p in points] != [0, 1]:
+        raise AssertionError(f"{tag}: {st.step} updates, points {points}")
+    for p in points:
+        if not all(math.isfinite(p[k]) for k in ("train_loss", "val_loss", "test_loss")):
+            raise AssertionError(f"{tag}: non-finite loss at a validation point: {p}")
+    a = parse_train_params(sw_argv)
+    table = aug_id_table(create_dataloader("train", load_split("train", a), a),
+                         build_augmenter(a), 2, a.seed, a.ragged_tail)
+    lrs = [st.optimizer.lr(e * (steps + 1)) for e in range(2)]
+    sch = dict(cfg["FOCAL"]["pretrain_lr_scheduler"], train_epochs=2)
+    recipe = [make_epoch_schedule(sch, cfg["FOCAL"]["pretrain_optimizer"])(e) for e in range(2)]
+    if lrs != [recipe[0], recipe[0]] or st.optimizer.steps_per_epoch != steps + 1:
+        raise AssertionError(f"{tag}: -ref_lr_timing lr {lrs}, recipe {recipe}")
+    out["paths"]["pretrain SW_Transformer -ragged_tail -py_aug_draws -ref_lr_timing -epochs 2"
+                 ].update(updates=st.step, table_shape=list(table.shape), lr_by_epoch=lrs,
+                          recipe_lr_by_epoch=recipe, points=points)
+    log(f"[{tag}] -py_aug_draws table {list(table.shape)} (epochs, full steps + the tail, views), "
+        f"epoch 0 {table[0].tolist()}; -ref_lr_timing lr by epoch {lrs} (the recipe's lr(e): "
+        f"{recipe}); {st.step} updates; points " + "; ".join(
+            f"epoch {p['epoch']} train {p['train_loss']:.4f} val {p['val_loss']:.4f}"
+            for p in points))
+    sw_folder = os.path.join(run_dir, "weights", "MOD_SW_Transformer", "exp0_contrastive_FOCAL")
+    sw_latest = os.path.join(sw_folder, "MOD_SW_Transformer_pretrain_latest.pt")
+    del st
+
+    # -ragged_tail: DeepSense -pallas_conv, 2 epochs (eval forwards launch nothing)
+    ds_argv = pre + ["-model", "DeepSense", "-pallas_conv"]
+    st, _, points = run_entry("pretrain DeepSense -pallas_conv -ragged_tail -epochs 2",
+                              train_cli.main, ds_argv, tower, {}, 2 * (steps + 1), 2 * evals)
+    if st.step != 2 * (steps + 1):
+        raise AssertionError(f"{tag}: DeepSense {st.step} updates")
+    ds_latest = os.path.join(run_dir, "weights", "MOD_DeepSense", "exp0_contrastive_FOCAL",
+                             "MOD_DeepSense_pretrain_latest.pt")
+    del st
+
+    # a tail of one subsequence stays dropped: the full steps alone
+    one_argv = ["-dataset", "MOD", "-synthetic", "-synthetic_samples", str(seq * (2 * per + 1)),
+                "-val_epochs", "1", "-output_dir", os.path.join(run_dir, "one"),
+                "-learn_framework", "FOCAL", "-stage", "pretrain", "-batch_size",
+                str(TRAIN_BATCH), "-epochs", "1", "-ragged_tail", "-model", "DeepSense",
+                "-pallas_conv"]
+    st, _, _ = run_entry("pretrain DeepSense -pallas_conv -ragged_tail, a tail of one "
+                         "subsequence, -epochs 1", train_cli.main, one_argv, tower, {}, 2, 0)
+    if st.step != 2:
+        raise AssertionError(f"{tag}: a one-subsequence tail ran: {st.step} updates")
+    del st
+    torch.cuda.empty_cache()
+
+    # the reference format: export both pretrained backbones, import them back
+    for model, latest in (("SW_Transformer", sw_latest), ("DeepSense", ds_latest)):
+        ref = os.path.join(run_dir, f"MOD_{model}_reference.pt")
+        export_torch.main(["-dataset", "MOD", "-model", model, "-learn_framework", "FOCAL",
+                           "-model_weight", latest, "-torch_out", ref])
+        saved = torch.load(latest, map_location="cpu", weights_only=True)
+        back = torch_import.import_state_dict(model, torch_import.load_torch_state_dict(ref),
+                                              saved, cfg)
+        same = set(back) == set(saved) and all(
+            back[k].dtype == saved[k].dtype and torch.equal(back[k], saved[k]) for k in saved)
+        if not same:
+            raise AssertionError(f"{tag}: {model}'s reference-format round trip is not bitwise")
+        out[f"reference_format_{model}"] = {"tensors": len(back), "bitwise": same,
+                                            "bytes": os.path.getsize(ref)}
+        log(f"[{tag}] {model} pretrain _latest -> reference format ({os.path.getsize(ref)} "
+            f"bytes) -> the port's state_dict: {len(back)} tensors, bitwise")
+        if model == "SW_Transformer":
+            imported = os.path.join(run_dir, "MOD_SW_Transformer_imported.pt")
+            torch.save(back, imported)
+
+    # a -pallas_mlp supervised run from the import (-init_weight)
+    sup_argv = base + ["-learn_framework", "no", "-model", "SW_Transformer", "-pallas_mlp",
+                       "-batch_size", str(SUP_BATCH), "-epochs", "1", "-init_weight", imported]
+    steps, evals = stage_plan(sup_argv)
+    run_entry("supervised SW_Transformer -pallas_mlp -init_weight (the import) -epochs 1",
+              train_cli.main, sup_argv,
+              {fwd_drop.__name__: n_blocks, bwd.__name__: n_blocks,
+               fm.fused_mlp_dropout_forward.__name__: n_mlp, fm.fused_mlp_backward.__name__: n_mlp},
+              {fwd.__name__: n_blocks, fm.fused_mlp_forward.__name__: n_mlp}, steps, evals)
+
+    # the sweep: finetune the SW_Transformer pretrain over two ratios, 1 epoch each
+    ratios = (0.1, 1.0)
+    ft_argv = base + ["-learn_framework", "FOCAL", "-stage", "finetune", "-model",
+                      "SW_Transformer", "-batch_size", str(SUP_BATCH), "-epochs", "1"]
+    plans = [stage_plan(ft_argv + ["-label_ratio", str(r)]) for r in ratios]
+    rows = run_entry("sweep SW_Transformer finetune -ratios 0.1,1.0", sweep.main,
+                     ft_argv + ["-ratios", ",".join(map(str, ratios)), "-out",
+                                os.path.join(run_dir, "sweep.json")],
+                     {fwd_drop.__name__: n_blocks}, {fwd.__name__: n_blocks},
+                     sum(s for s, _ in plans), sum(e for _, e in plans))
+    if [r["label_ratio"] for r in rows] != list(ratios) or not all(
+            0.0 <= r["best_val_acc"] <= 1.0 for r in rows):
+        raise AssertionError(f"{tag}: sweep rows {rows}")
+    out["sweep_rows"] = rows
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"[{tag}] phase 28 in {out['seconds']:.1f}s")
+    return out
+
+
 def check_block_forward(torch, pk, geos, gen, dev):
     """#1 vs plain at each geometry, phase 2's gate; returns the worst
     absolute error (and keeps each in its geometry)."""
@@ -3231,6 +3615,12 @@ def main():
     log(f"[smoke] phases 26-27 in {sum(r['seconds'] for r in recipes.values()) + two_loc['seconds']:.1f}s;"
         f" {time.time() - t_start:.1f}s after the build started")
 
+    # ---- 28. the attribution arms (-ragged_tail's tail step through the
+    # kernels), the sweep and the reference format at MOD's full width
+    attribution = attribution_paths(torch, np, all_kernels, gen, dev)
+    log(f"[smoke] phase 28 in {attribution['seconds']:.1f}s; {time.time() - t_start:.1f}s after "
+        "the build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -3264,7 +3654,7 @@ def main():
                 "serve_window_block_device_ms": serve_block_ms,
                 "no_pallas_block_route_backward": route_bwd,
                 "no_pallas_block_route_forward": route_fwd,
-                "recipes": recipes, "two_locations": two_loc,
+                "recipes": recipes, "two_locations": two_loc, "attribution": attribution,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -3308,6 +3698,9 @@ def main():
     for path, run in new_runs.items():
         for k in all_kernels:
             by_path[k.__name__][path] = run["launches"][k.__name__]
+    for path, run in attribution["paths"].items():
+        for k in all_kernels:
+            by_path[k.__name__][f"MOD {path}"] = run["launches"][k.__name__]
     new_errors = [res["errors"] for res in recipes.values()] + [two_loc["errors"]]
 
     def new_err(name):
@@ -3491,6 +3884,11 @@ def main():
                 | {"ms": t[f"{d}_ms"], "plain_ms": t[f"{d}_plain_ms"],
                    "library_ms": t[f"{d}_library_ms"], "bound_ms": t[f"{d}_bound_ms"],
                    "bound_ms_tensor_cores": t[f"{d}_bound_tc_ms"]} for t in tower_new]
+    for k in kernels:
+        if k["name"] in attribution["tail_kernels"]:
+            k["ragged_tail_step"] = attribution["tail_kernels"][k["name"]] | {
+                "launches_by_path": {p: r["launches"][k["name"]]
+                                     for p, r in attribution["paths"].items()}}
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

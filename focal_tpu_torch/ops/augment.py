@@ -357,10 +357,15 @@ class Augmenter:
                 out[loc][mod] = x
         return out
 
-    def random(self, gen, time_loc_inputs):
-        """One random augmenter from the combined pool, in its domain."""
+    def random(self, gen, time_loc_inputs, force_aug_id=None):
+        """One random augmenter from the combined pool, in its domain.
+        ``force_aug_id`` (an index into the pool, time augmenters first)
+        replaces the drawn choice; the draw is still made, so the
+        augmenter's own draws come from ``gen`` as they would unforced."""
         n_time = len(self.time_aug_names)
         aug_id = int(torch.randint(0, n_time + len(self.freq_aug_names), (), generator=gen))
+        if force_aug_id is not None:
+            aug_id = int(force_aug_id)
         x = time_loc_inputs
         if aug_id < n_time:
             x = self._apply_one(self.time_aug_names[aug_id], TIME_AUGMENTERS, gen, x)

@@ -167,19 +167,31 @@ def build_train_parser():
     parser.add_argument("-model_parallel", type=int, default=1, help="Not ported yet (ROADMAP A7).")
     parser.add_argument("-data_layout", type=str, default="auto",
                         help="auto | replicated; sharded is not ported yet (ROADMAP A7).")
-    parser.add_argument("-ragged_tail", action="store_true", help="Not ported yet (ROADMAP A8).")
-    parser.add_argument("-py_aug_draws", action="store_true", help="Not ported yet (ROADMAP A8).")
-    parser.add_argument("-init_weight", type=str, default=None, help="Not ported yet (ROADMAP A8).")
-    parser.add_argument("-ref_lr_timing", action="store_true", help="Not ported yet (ROADMAP A8).")
+    # the attribution arms (pretraining; the classifier stages ignore the
+    # first two, as in the JAX package)
+    parser.add_argument("-ragged_tail", action="store_true",
+                        help="Pretrain: one extra update an epoch on the permutation's leftover "
+                        "subsequences, as the reference's sampler yields them (a tail of one "
+                        "subsequence stays dropped: its ranking loss is NaN).")
+    parser.add_argument("-py_aug_draws", action="store_true",
+                        help="Pretrain: pick each view's augmenter from a table of Python "
+                        "random.Random(-seed) draws, as the reference does on the host.")
+    parser.add_argument("-init_weight", type=str, default=None,
+                        help="Initialise the parameters (and BatchNorm statistics) from this "
+                        "params file (a _latest/_best file, or an import saved with save_params) "
+                        "before training, in any stage.")
+    parser.add_argument("-ref_lr_timing", action="store_true",
+                        help="The reference loop's epoch-end scheduler step: epoch e trains at "
+                        "lr(e - 1), epoch 0 at lr(0).")
+    parser.add_argument("-torch_out", type=str, default=None,
+                        help="export_torch: the reference-format .pt file to write.")
     return parser
 
 
 # flag -> (the values the port runs, the ROADMAP item that brings the rest)
 _PORTED_VALUES = {
     "grad_accum": ({1}, "A7"), "data_parallel": ({0, 1}, "A7"), "model_parallel": ({1}, "A7"),
-    "data_layout": ({"auto", "replicated"}, "A7"), "ragged_tail": ({False}, "A8"),
-    "py_aug_draws": ({False}, "A8"), "init_weight": ({None}, "A8"),
-    "ref_lr_timing": ({False}, "A8"),
+    "data_layout": ({"auto", "replicated"}, "A7"),
 }
 
 
@@ -187,8 +199,19 @@ def parse_train_params(argv=None, option="train"):
     """Parse training flags and fill the derived fields (recipe, task,
     train_mode, batch_size, option). A flag of what is not ported raises
     NotImplementedError naming its ROADMAP item."""
-    args = build_train_parser().parse_args(argv)
+    return fill_train_params(build_train_parser().parse_args(argv), option)
+
+
+def fill_train_params(args, option="train"):
+    """parse_train_params's checks and derived fields on parsed ``args``
+    (the sweep fills each of its runs so). The attribution arms refuse
+    accumulation and a sharded layout, as the JAX package's pretraining
+    does."""
     args.option = option
+    if (args.py_aug_draws or args.ragged_tail) and (
+            args.grad_accum > 1 or args.data_layout == "sharded"):
+        raise ValueError("-py_aug_draws/-ragged_tail are attribution arms for the replicated "
+                         "single-step layout (no streaming/sharded/grad_accum)")
     for name, (values, item) in _PORTED_VALUES.items():
         if getattr(args, name) not in values:
             raise NotImplementedError(

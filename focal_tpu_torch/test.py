@@ -6,7 +6,8 @@
 Loads the stage's `_best` classifier (supervised with ``-learn_framework
 no``, finetuned with ``-stage finetune``) from -model_weight's folder or the
 newest matching experiment folder, runs the test split through the class
-head and prints the test loss, accuracy, macro-F1 and confusion matrix. On
+head and prints the test loss, accuracy, macro-F1 and confusion matrix (a
+regression task: the loss and the MSE). On
 the CUDA card, or on the CPU with ``-device cpu``; ``-pallas_mlp`` runs the
 Swin MLPs through the fused MLP kernel (#10), ``-no_pallas_block`` the
 window attention through the attention-only kernel (#6).
@@ -25,7 +26,8 @@ from focal_tpu_torch.train import evaluate as ev
 
 def test(args):
     """(test loss, accuracy, macro-F1) of the stage's `_best` file on the
-    test split (the confusion matrix is printed)."""
+    test split (the confusion matrix is printed); (test loss, MSE) for a
+    regression task."""
     device = select_device(args.device)
     set_model_weight_folder(args)
     args.classifier_weight = checkpoint_paths(args)[0]
@@ -39,6 +41,9 @@ def test(args):
     plan = ev.EvalPlan(DeviceDataLoader(split, args.batch_size), device)
     test_loss, metrics = ev.eval_supervised(args, model, Augmenter(args.dataset_config), plan,
                                             split.data)
+    if "regression" in args.task:
+        print(f"Test classifier loss: {test_loss: .5f}, test mse: {metrics[0]: .5f}")
+        return test_loss, metrics[0]
     print(f"Test classifier loss: {test_loss: .5f}")
     print(f"Test acc: {metrics[0]: .5f}, test f1: {metrics[1]: .5f}")
     print(f"Test confusion matrix:\n {metrics[2]}")

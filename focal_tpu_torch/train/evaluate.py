@@ -125,14 +125,24 @@ def _np_cross_entropy(logits, labels, weight):
 def eval_supervised(args, model, augmenter, plan, data):
     """(mean loss, (accuracy, macro-F1, confusion)) of a split through the
     class head: the loss is the mean of per-batch weighted means (the
-    reference's one loss per batch), the metrics over the unpadded rows."""
-    if "regression" in args.task:
-        raise NotImplementedError(f"regression task {args.task} is not ported yet: ROADMAP A8")
+    reference's one loss per batch), the metrics over the unpadded rows.
+    A task whose name holds "regression" gives (mean weighted MSE, (MSE,)),
+    the head's first output regressing the label, as in the JAX package."""
     return supervised_metrics(args, class_logits(model, augmenter, plan, data), plan)
 
 
 def supervised_metrics(args, logits, plan):
-    """eval_supervised's numbers from the logits [nb, B, C] of a plan."""
+    """eval_supervised's numbers from the logits [nb, B, C] of a plan (a
+    regression task's predictions may come as [nb, B])."""
+    if "regression" in args.task:
+        preds = logits[..., 0] if logits.ndim == 3 else logits
+        y = plan.labels.astype(np.float32)
+        w = plan.weight
+        batch_mse = [float(((preds[b] - y[b]) ** 2 * w[b]).sum() / max(w[b].sum(), 1.0))
+                     for b in range(preds.shape[0])]
+        keep = w.reshape(-1) > 0
+        mse = float(((preds.reshape(-1) - y.reshape(-1))[keep] ** 2).mean())
+        return float(np.mean(batch_mse)), (mse,)
     losses = [_np_cross_entropy(logits[b], plan.labels[b], plan.weight[b])
               for b in range(logits.shape[0])]
     keep = plan.weight.reshape(-1) > 0

@@ -18,13 +18,22 @@ run.
 Randomness is derived, never carried: an epoch's permutation from (seed,
 epoch), a step's augmentation and dropout from (seed, update count), a
 validation's views from (seed, epoch). A run resumed from `_resume` thus
-takes the steps a straight run takes. Unlike the JAX loops, `_resume` holds
+takes the steps a straight run takes.
+
+``-init_weight`` loads a params file into the model before any stage
+trains (finetuning then loads the pretrained backbone over it). The
+pretraining attribution arms, as in the JAX package: ``-ragged_tail`` runs
+one more update an epoch on the permutation's leftover subsequences (at
+least two; the schedule counts it, so lr still paces by epochs);
+``-py_aug_draws`` forces each view's augmenter from a table of Python
+``random.Random(seed)`` draws, the JAX package's table exactly. Unlike the JAX loops, `_resume` holds
 the best val loss (accuracy) after this point's update, so that a resumed
 run also picks `_best` as a straight run does.
 """
 
 import logging
 import math
+import random
 import time
 
 import numpy as np
@@ -82,6 +91,9 @@ class Run:
                                pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
                                pallas_block=not args.no_pallas_block)
         self.model = init_params(model, seed=args.seed).to(self.device)
+        if args.init_weight:
+            logging.info(f"= Initialising params from {args.init_weight}")
+            ckpt.load_params_into(self.model, args.init_weight, load_class_layer=True)
         self._plans = {}
 
     def eval_plan(self, split):
@@ -93,14 +105,38 @@ class Run:
         return self._plans[split]
 
     def train_batches(self, epoch):
-        """[steps, rows] on the device: each step's rows of an epoch, from a
-        permutation of the train units keyed by (seed, epoch), ``per`` units
-        a step, the ragged tail dropped. One copy an epoch, so no step waits
-        on the host."""
+        """([steps, rows], [tail rows]) on the device: each full step's rows
+        of an epoch, from a permutation of the train units keyed by (seed,
+        epoch), ``per`` units a step, and the rows of the permutation's
+        leftover units (the ragged tail, which only -ragged_tail trains
+        on). One copy an epoch, so no step waits on the host."""
         loader = self.train_loader
         perm = torch.randperm(loader.units, generator=_generator(self.args.seed, _PERMUTATION, epoch))
-        rows = loader.rows(perm.numpy()[:len(loader) * loader.per]).astype(np.int64)
-        return torch.from_numpy(rows).to(self.device).view(len(loader), -1)
+        rows = torch.from_numpy(loader.rows(perm.numpy()).astype(np.int64)).to(self.device)
+        full = len(loader) * loader.batch_size
+        return rows[:full].view(len(loader), -1), rows[full:]
+
+
+def tail_steps(loader, ragged_tail):
+    """1 where -ragged_tail trains on the tail of the train ``loader``'s
+    epoch: two or more leftover subsequences (a tail of one has a NaN
+    ranking loss and stays dropped, as in the JAX package), or any leftover
+    samples; else 0."""
+    tail = loader.units % loader.per
+    return int(bool(ragged_tail) and (tail >= 2 if loader.sequence else tail > 0))
+
+
+def aug_id_table(loader, augmenter, epochs, seed, ragged_tail):
+    """-py_aug_draws: int32 [epochs, columns, 2] indices into the
+    augmenter's pool from ``random.Random(seed)``, drawn in the JAX
+    package's order: epoch, step, view. A column for each full step of the
+    train ``loader``, and one for the tail when -ragged_tail leaves one,
+    even a tail of one subsequence."""
+    cols = len(loader) + int(bool(ragged_tail) and loader.units % loader.per > 0)
+    n_augs = len(augmenter.time_aug_names) + len(augmenter.freq_aug_names)
+    draws = random.Random(seed)
+    return np.asarray([[[draws.randrange(n_augs) for _ in range(2)] for _ in range(cols)]
+                       for _ in range(epochs)], dtype=np.int32)
 
 
 def _nan_guard(train_loss, stage, epoch):
@@ -129,8 +165,18 @@ def pretrain(args):
     train_epochs = args.epochs or (
         args.dataset_config[args.learn_framework]["pretrain_lr_scheduler"]["train_epochs"])
     steps_per_epoch = len(run.train_loader)
-    state = create_train_state(args, run.model, steps_per_epoch, seed=args.seed)
+    tail = tail_steps(run.train_loader, args.ragged_tail)
+    # the tail's update is one more an epoch; the schedule counts it, so
+    # lr(epoch) still paces by epochs
+    state = create_train_state(args, run.model, steps_per_epoch + tail, seed=args.seed)
     logging.info(f"= Model params: {sum(p.numel() for p in run.model.parameters()):,}")
+    table = None
+    if args.py_aug_draws:
+        table = aug_id_table(run.train_loader, run.augmenter, train_epochs, args.seed,
+                             args.ragged_tail)
+        logging.info(f"= -py_aug_draws: augmenter table {list(table.shape)} over "
+                     f"{len(run.augmenter.time_aug_names) + len(run.augmenter.freq_aug_names)} "
+                     "augmenters")
     focal_loss = make_focal_loss(args)
     step = make_pretrain_step(run.model, run.augmenter, focal_loss,
                               fused_views=not args.no_fused_views)
@@ -147,8 +193,13 @@ def pretrain(args):
     start = block_t0 = time.time()
     block_samples = 0
     for epoch in range(start_epoch, train_epochs):
-        losses = [step(state, data, idx)[1]["loss"] for idx in run.train_batches(epoch)]
-        block_samples += steps_per_epoch * run.train_loader.batch_size
+        batches, tail_rows = run.train_batches(epoch)
+        ids = table[epoch] if table is not None else None
+        if tail:
+            batches = list(batches) + [tail_rows]  # the tail takes column `steps` of the table
+        losses = [step(state, data, idx, None if ids is None else ids[i])[1]["loss"]
+                  for i, idx in enumerate(batches)]
+        block_samples += sum(len(idx) for idx in batches)
         if epoch % val_epochs and epoch != train_epochs - 1:
             continue
         train_loss = float(torch.stack(losses).mean())
@@ -222,7 +273,7 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
     block_samples = 0
     for epoch in range(start_epoch, train_epochs):
         metrics = [step(state, train.data, train.device_labels, idx)[1]
-                   for idx in run.train_batches(epoch)]
+                   for idx in run.train_batches(epoch)[0]]
         block_samples += steps_per_epoch * run.train_loader.batch_size
         if epoch % val_epochs and epoch != train_epochs - 1:
             continue

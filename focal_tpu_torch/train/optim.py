@@ -121,7 +121,8 @@ def clip_by_global_norm(grads, max_norm):
 def build_optimizer(args, model, steps_per_epoch):
     """(StepOptimizer over the trainable parameters, lr(epoch)) from the
     stage's recipe sections; a run's -epochs, when given, is also the
-    schedule's length, as in the JAX package. Frozen parameters
+    schedule's length, as in the JAX package; -ref_lr_timing shifts the
+    schedule one epoch later. Frozen parameters
     (``trainable_mask``) get requires_grad False here: autograd then skips
     them, where the JAX step computes their gradients and zeroes the
     updates (the parameters come out the same)."""
@@ -129,6 +130,13 @@ def build_optimizer(args, model, steps_per_epoch):
     if getattr(args, "epochs", None):
         scheduler_config = dict(scheduler_config, train_epochs=args.epochs)
     lr_epoch = make_epoch_schedule(scheduler_config, optimizer_config)
+    if getattr(args, "ref_lr_timing", False):
+        # the reference steps timm's scheduler at the epoch's end: epoch e
+        # trains at lr(e - 1), epoch 0 at the constructor's lr(0)
+        base_lr_epoch = lr_epoch
+
+        def lr_epoch(epoch):
+            return base_lr_epoch(max(epoch - 1, 0))
     wd = optimizer_config.get("weight_decay", 0.0)
     if isinstance(wd, dict):
         wd = wd[args.model]

@@ -19,9 +19,12 @@ def gather_batch(data, idx):
 
 def make_pretrain_step(model, augmenter, focal_loss, fused_views=True):
     """FOCAL pretraining: two random views -> projector features -> loss ->
-    update. Returns step(state, data, idx) -> (state, metrics) with metrics
-    {"loss", "shared", "private", "orthogonality", "ranking"}; the state is
-    updated in place and the gradients of the update stay in ``.grad``.
+    update. Returns step(state, data, idx, aug_ids=None) -> (state, metrics)
+    with metrics {"loss", "shared", "private", "orthogonality", "ranking"};
+    the state is updated in place and the gradients of the update stay in
+    ``.grad``. ``aug_ids`` (-py_aug_draws) forces each view's augmenter.
+    Any number of rows is a step: the epoch's ragged tail (-ragged_tail)
+    runs through the same function.
 
     fused_views runs both views through the backbone as ONE [2B] batch (the
     JAX package's default); otherwise as two forwards. A backbone with
@@ -29,11 +32,12 @@ def make_pretrain_step(model, augmenter, focal_loss, fused_views=True):
     forward, as the JAX step carries ``batch_stats``: once from the [2B]
     batch, or view 1's update and then view 2's."""
 
-    def step(state, data, idx):
+    def step(state, data, idx, aug_ids=None):
         rngs = state.generators()
         batch = gather_batch(data, idx)
-        view1 = augmenter.random(rngs.host, batch)
-        view2 = augmenter.random(rngs.host, batch)
+        a1, a2 = (None, None) if aug_ids is None else aug_ids
+        view1 = augmenter.random(rngs.host, batch, force_aug_id=a1)
+        view2 = augmenter.random(rngs.host, batch, force_aug_id=a2)
         model.train()
         if fused_views:
             b = idx.shape[0]

@@ -1,4 +1,4 @@
-"""Carry a flax parameter tree into the port's state_dict.
+"""Carry a flax parameter tree into the port's state_dict, and back.
 
 The flax tree is read as nested dicts of numpy arrays (as ``jax.device_get``
 gives them); the port's module names are the flax names joined by dots, so
@@ -18,6 +18,12 @@ gives them); the port's module names are the flax names joined by dots, so
     their names (the GRU's stacked wi, bi, wh, bh among them).
   * ``batch_stats`` (BatchNorm's running ``mean`` and ``var``) become the
     buffers of the same names.
+
+``flax_from_params`` is the exact inverse: it takes the flax shapes the
+flattening lost (the heads of the qkv and attention kernels, the patch
+grid of a PatchEmbed kernel) from the recipe, so the reference-format
+mapping (``utils/torch_import.py``, ``utils/torch_export.py``) runs on the
+flax tree as the JAX package's does.
 """
 
 from collections.abc import Mapping
@@ -65,3 +71,63 @@ def params_from_flax(params, batch_stats, dataset_config):
     walk(params, [])
     walk(batch_stats or {}, [])
     return out
+
+
+def _patch_size(name, dataset_config):
+    """The (ph, pw) of the PatchEmbed module ``patch_embed_{loc}_{mod}``."""
+    for loc in dataset_config["location_names"]:
+        for mod in dataset_config["modality_names"]:
+            if name == f"patch_embed_{loc}_{mod}":
+                return dataset_config["SW_Transformer"]["patch_size"]["freq"][mod]
+    raise KeyError(f"no (location, modality) of the recipe names {name}")
+
+
+def _flax_leaf(path, key, arr, dataset_config):
+    """(flax key, flax array) of one state_dict entry: params_from_flax's
+    layout changes undone."""
+    module = path[-1] if path else ""
+    mha = len(path) >= 2 and path[-2].startswith("MultiHeadDotProductAttention")
+    if key == "weight" and module == "Conv_0":
+        return "kernel", np.transpose(arr, (2, 3, 1, 0))
+    if key == "weight" and arr.ndim == 1:
+        return "scale", arr
+    if key == "weight":
+        k = arr.T
+        if len(path) >= 2 and path[-2].startswith("patch_embed"):
+            ph, pw = _patch_size(path[-2], dataset_config)
+            return "kernel", k.reshape(ph, pw, -1, k.shape[-1])
+        if module == "qkv":
+            heads = dataset_config["SW_Transformer"]["time_freq_head_num"]
+            return "kernel", k.reshape(k.shape[0], 3, heads, -1)
+        if mha and module in ("query", "key", "value"):
+            heads = dataset_config["SW_Transformer"]["loc_head_num"]
+            return "kernel", k.reshape(k.shape[0], heads, -1)
+        if mha and module == "out":
+            heads = dataset_config["SW_Transformer"]["loc_head_num"]
+            return "kernel", k.reshape(heads, -1, k.shape[-1])
+        return "kernel", k
+    if key == "bias" and module == "qkv":
+        return key, arr.reshape(3, dataset_config["SW_Transformer"]["time_freq_head_num"], -1)
+    if key == "bias" and mha and module in ("query", "key", "value"):
+        return key, arr.reshape(dataset_config["SW_Transformer"]["loc_head_num"], -1)
+    return key, arr
+
+
+def flax_from_params(state_dict, dataset_config):
+    """Port state_dict {name: tensor} -> flax (params, batch_stats) as
+    nested dicts of float32 numpy arrays: the inverse of params_from_flax,
+    ``flax_from_params(params_from_flax(p, s, cfg), cfg) == (p, s)``
+    bitwise. ``dataset_config`` is the recipe the model was built for."""
+    params, batch_stats = {}, {}
+    for name, t in state_dict.items():
+        *path, key = name.split(".")
+        arr = t.detach().cpu().numpy().astype(np.float32) if hasattr(t, "detach") else t
+        arr = np.asarray(arr, np.float32)
+        stats = key in ("mean", "var") and bool(path) and path[-1].startswith("BatchNorm")
+        if not stats:
+            key, arr = _flax_leaf(path, key, arr, dataset_config)
+        node = batch_stats if stats else params
+        for part in path:
+            node = node.setdefault(part, {})
+        node[key] = np.array(arr, np.float32, order="C")
+    return params, batch_stats

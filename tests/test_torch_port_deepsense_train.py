@@ -252,14 +252,14 @@ def test_entry_points_default_to_the_card(monkeypatch, tmp_path):
 
 @pytest.mark.parametrize("flag,item", [("-init_weight", "A8"), ("-no_pallas_block", None)])
 def test_unported_kernel_flags_raise(flag, item):
-    """-init_weight raises naming its ROADMAP item; -no_pallas_block parses,
-    reaches the SW_Transformer's attention-only route and is ignored by
-    DeepSense, as in the JAX package."""
+    """-init_weight (ported with its ROADMAP item, A8) parses for DeepSense;
+    -no_pallas_block parses, reaches the SW_Transformer's attention-only
+    route and is ignored by DeepSense, as in the JAX package."""
     assert parse_train_params(["-model", "DeepSense", "-pallas_conv"]).pallas_conv
     argv = [flag, "w.pt"] if flag == "-init_weight" else [flag]
     if item is not None:
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            parse_train_params(argv)
+        args = parse_train_params(["-model", "DeepSense", "-pallas_conv"] + argv)
+        assert args.init_weight == "w.pt" and args.pallas_conv
         return
     cfg = load_dataset_config("MOD_TINY")
     for model in ("SW_Transformer", "DeepSense"):

@@ -1195,3 +1195,111 @@ def test_attention_wrappers_raise_on_what_the_kernels_cannot_take():
         pk.fused_window_attention(wide, k, v, rel_bias, mask)
     with pytest.raises(ValueError, match="mask"):
         pk.fused_window_attention(q, k, v, rel_bias, mask[:, :8])
+
+
+# ---------------------------------------------------------------------------
+# the epoch's ragged tail (-ragged_tail): a MOD pretrain step on 3 or 2
+# leftover subsequences of 4 samples, the two views fused to 24 or 16
+# samples. #2/#3 at every block geometry of such a step and #13/#14 at its
+# two towers, to the gates of the full-batch tests; then the full batch's
+# and the tail's plans alternating in one process, each call the same bits
+# as the first of its geometry.
+
+TAIL_SAMPLES = (24, 16)  # fused samples of a 3- and a 2-subsequence tail
+
+
+def _block_training_outputs(B, N, C, H, mask, check=True):
+    """[y, keep, six gradients] of #2/#3 (rate 0.2, one seed) at one block
+    geometry; with ``check`` held to the plain versions: #2's output given
+    its mask 1e-4 absolute, #3's gradients 1e-4 relative."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(B + C)
+    args = _args(rng, B, N, C, H, 0, dev)
+    args[-1] = None if mask is None else torch.from_numpy(mask).to(dev)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    rate = 0.2
+    y, keep, got = _training_pair(_with_transposes(args), dy, rate, 17)
+    torch.cuda.synchronize()
+    if check:
+        ref = pk.fused_window_block_dropout_reference(*args, keep, rate)
+        assert float((y - ref).abs().max()) <= 1e-4, (B, N, C)
+        want = pk.fused_window_block_backward_reference(*args, dy, keep, rate)
+        for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got,
+                              want):
+            assert _rel(g, w) <= 1e-4, (B, N, C, name, _rel(g, w))
+    return [y, keep, *got]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples", TAIL_SAMPLES)
+def test_training_kernels_at_the_tail_geometries(samples):
+    """#2 and #3 at the ten block geometries of a MOD tail step: the plain
+    gates, one launch each a call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    geos = _mod_block_geometries(samples)
+    assert len(geos) == 10
+    f0, b0 = pk.fused_window_block_dropout.launches, pk.fused_window_block_backward.launches
+    for B, N, C, H, mask in geos:
+        _block_training_outputs(B, N, C, H, mask)
+    assert pk.fused_window_block_dropout.launches - f0 == 10
+    assert pk.fused_window_block_backward.launches - b0 == 10
+
+
+@pytest.mark.gpu
+def test_training_kernels_alternating_full_and_tail_plans_repeat_bitwise():
+    """A full MOD batch (512 fused samples) and a tail (24) at each block
+    geometry, called full, tail, full, tail: each call the same bits as the
+    first at its geometry (the same seed draws the same mask)."""
+    firsts = {}
+    for rnd in range(2):
+        for samples in (512, 24):
+            for B, N, C, H, mask in _mod_block_geometries(samples):
+                out = _block_training_outputs(B, N, C, H, mask, check=False)
+                key = (B, N, C, None if mask is None else mask.tobytes())
+                if rnd == 0:
+                    firsts[key] = out
+                    continue
+                for a, b in zip(out, firsts[key]):
+                    assert torch.equal(a, b), key
+
+
+# MOD's two towers at the tail's fused samples: seismic (first conv inside,
+# kw 3, cin 2) and audio (first conv outside, kw 5), S 20, C 64
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples", TAIL_SAMPLES)
+@pytest.mark.parametrize("external", [False, True])
+def test_conv_tower_at_the_tail_geometries(samples, external):
+    _tower_case(samples, 64, external)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("external", [False, True])
+def test_conv_tower_alternating_full_and_tail_plans_repeat_bitwise(external):
+    """The full MOD batch's tower (512 fused samples) and the tail's (24),
+    forward and backward, called full, tail, full, tail: each call the same
+    bits as the first of its geometry."""
+    from focal_tpu_torch.ops.conv_tower import fused_conv_tower
+
+    dev = _card()
+    cases = {}
+    for samples in (512, 24):
+        rng = np.random.default_rng(samples + external)
+        kw = 5 if external else 3
+        cfgs, x0, params, masks = _tower_args(rng, samples, 10, 20, 64, kw, external, 5, dev)
+        dy = torch.from_numpy(rng.normal(size=(samples * 10, 20, 64)).astype(np.float32)).to(dev)
+        cases[samples] = (cfgs, x0, params, masks, dy)
+    firsts = {}
+    for rnd in range(2):
+        for samples, (cfgs, x0, params, masks, dy) in cases.items():
+            y, mus, vars_, grads = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy,
+                                                external)
+            torch.cuda.synchronize()
+            out = [y.detach(), *mus, *vars_, *grads]
+            if rnd == 0:
+                firsts[samples] = out
+            else:
+                for a, b in zip(out, firsts[samples]):
+                    assert torch.equal(a, b), samples

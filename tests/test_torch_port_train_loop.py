@@ -119,8 +119,9 @@ def test_resume_continues_as_a_straight_run(straight, tmp_path):
 
 def test_unported_stages_and_flags_raise(tmp_path):
     """The three stages dispatch (finetune without a pretrained run finds
-    no folder); the flags of what is not ported raise naming ROADMAP;
-    -no_pallas_block, ported, parses."""
+    no folder); the flags of what is not ported (ROADMAP A7) raise naming
+    ROADMAP; -no_pallas_block and the attribution flags (ROADMAP A8),
+    ported, parse."""
     sup = parse_train_params(["-learn_framework", "no", "-pallas_mlp", "-label_ratio", "0.5"])
     assert sup.train_mode == "supervised" and sup.pallas_mlp and sup.batch_size == 256
     assert parse_train_params(["-no_pallas_block"]).no_pallas_block
@@ -129,11 +130,14 @@ def test_unported_stages_and_flags_raise(tmp_path):
         train_cli.main(["-stage", "finetune", "-dataset", "MOD_TINY", "-synthetic", "-device",
                         "cpu", "-output_dir", str(tmp_path)])
     for flags, item in ((["-grad_accum", "2"], "A7"), (["-model_parallel", "2"], "A7"),
-                        (["-data_parallel", "4"], "A7"), (["-ragged_tail"], "A8"),
-                        (["-py_aug_draws"], "A8"), (["-data_layout", "sharded"], "A7"),
-                        (["-init_weight", "w.pt"], "A8"), (["-ref_lr_timing"], "A8")):
+                        (["-data_parallel", "4"], "A7"), (["-data_layout", "sharded"], "A7")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             parse_train_params(flags)
+    for flags, name, value in ((["-ragged_tail"], "ragged_tail", True),
+                               (["-py_aug_draws"], "py_aug_draws", True),
+                               (["-init_weight", "w.pt"], "init_weight", "w.pt"),
+                               (["-ref_lr_timing"], "ref_lr_timing", True)):
+        assert getattr(parse_train_params(flags), name) == value
 
 
 @pytest.mark.parametrize("n,d,classes", [(200, 16, 7), (37, 5, 3)])
