@@ -207,8 +207,8 @@ result line if any fails):
      full width, in-process through the entry points, on a synthetic split
      of 2 full steps of 256 and a tail of 3 subsequences (524 samples):
      #2/#3 and #13/#14 vs plain at the tail step's geometries (12 samples,
-     views fused to 24; phases 6 and 14's gates) and timed there as phases
-     8 and 17 time them; the tail step at rate 0
+     views fused to 24; phases 6 and 14's gates) and timed and profiled
+     there as phases 8 and 17 do; the tail step at rate 0
      from the initial state, kernels vs plain, for SW_Transformer (#1/#3;
      phase 26's gates) and DeepSense -pallas_conv (#13/#14; phase 15's,
      running statistics included); 3 + 10 full and tail steps of each
@@ -2159,25 +2159,38 @@ def attribution_paths(torch, np, kernels, gen, dev):
         time_training(torch, pk, fwd_drop, bwd, ("#2", "#3"), g, gen, dev, rate, sms,
                       f"{tag}-time-tail")
     wtot = step_totals(tgeos, f"{tag}-time-tail", ("#2", "#3"), n_blocks)
+    # events read the host's enqueue at geometries this small: device time too
+    wsplit = profile_split(torch, fwd_drop, bwd, ("#2", "#3"), tgeos, gen, dev, rate,
+                           f"{tag}-profile-tail")
     towers = time_new_towers(torch, np, ct, F, cgeos, dev, 1200)
     tower_tot = {f"{d}_{k}": sum(t["towers"] * t[f"{d}_{k}"] for t in towers)
                  for d in ("fwd", "bwd") for k in ("ms", "plain_ms", "library_ms", "bound_ms",
                                                    "bound_tc_ms")}
     out["tail_kernels"] = {
         "fused_window_block_dropout": {k[4:]: wtot[k] for k in TRAIN_KEYS if k.startswith("fwd")}
-        | {"max_abs_err": drop_err, "launches_per_step": n_blocks},
+        | {"device_ms": sum(wsplit["fwd"].values()), "device_ms_by_phase": wsplit["fwd"],
+           "max_abs_err": drop_err, "launches_per_step": n_blocks},
         "fused_window_block_backward": {k[4:]: wtot[k] for k in TRAIN_KEYS if k.startswith("bwd")}
-        | {"max_abs_err": grad_abs, "max_rel_err": grad_err, "launches_per_step": n_blocks},
+        | {"device_ms": sum(wsplit["bwd"].values()), "device_ms_by_phase": wsplit["bwd"],
+           "max_abs_err": grad_abs, "max_rel_err": grad_err, "launches_per_step": n_blocks},
         "fused_conv_tower": {k[4:]: v for k, v in tower_tot.items() if k.startswith("fwd")}
-        | {"max_abs_err": ct_fwd_err, "launches_per_step": tower["fused_conv_tower"]},
+        | {"device_ms": sum(t["towers"] * sum(t["device_ms_by_phase"]["fwd"].values())
+                            for t in towers),
+           "max_abs_err": ct_fwd_err, "launches_per_step": tower["fused_conv_tower"]},
         "fused_conv_tower_backward": {k[4:]: v for k, v in tower_tot.items() if k.startswith("bwd")}
-        | {"max_abs_err": ct_abs, "max_rel_err": ct_rel, "max_abs_err_near_zero": ct_near,
+        | {"device_ms": sum(t["towers"] * sum(t["device_ms_by_phase"]["bwd"].values())
+                            for t in towers),
+           "max_abs_err": ct_abs, "max_rel_err": ct_rel, "max_abs_err_near_zero": ct_near,
            "launches_per_step": tower["fused_conv_tower_backward"]},
         "towers": towers}
+    tk = out["tail_kernels"]
     log(f"[{tag}] the tail step's kernels ({tail_rows} samples, views fused to "
-        f"{2 * tail_rows}), summed over a step: #2 {wtot['fwd_ms']:.4f} ms, #3 "
-        f"{wtot['bwd_ms']:.4f} ms, #13 {tower_tot['fwd_ms']:.4f} ms, #14 "
-        f"{tower_tot['bwd_ms']:.4f} ms; worst errors #2 {drop_err:.2e}, #3 {grad_err:.2e} rel, "
+        f"{2 * tail_rows}), summed over a step, by events (device): #2 {wtot['fwd_ms']:.4f} "
+        f"({tk['fused_window_block_dropout']['device_ms']:.4f}) ms, #3 {wtot['bwd_ms']:.4f} "
+        f"({tk['fused_window_block_backward']['device_ms']:.4f}) ms, #13 "
+        f"{tower_tot['fwd_ms']:.4f} ({tk['fused_conv_tower']['device_ms']:.4f}) ms, #14 "
+        f"{tower_tot['bwd_ms']:.4f} ({tk['fused_conv_tower_backward']['device_ms']:.4f}) ms; "
+        f"worst errors #2 {drop_err:.2e}, #3 {grad_err:.2e} rel, "
         f"#13 {ct_fwd_err:.2e}, #14 {ct_rel:.2e} rel ({ct_near:.2e} near zero)")
     torch.cuda.empty_cache()
 

@@ -15,9 +15,10 @@ and the JAX package's numpy mapping runs on it line for line, so the
 export of ``params_from_flax(tree)`` equals the JAX package's export of
 ``tree`` key for key and bitwise. One difference: a single-location
 DeepSense carries the reference's dead ``mod_extractors`` blocks, which
-the JAX package fills with a flax init from its own random key; the port
-fills them with its own seeded init of the same ConvBlock (the same
-shapes; the reference never runs them).
+the JAX package fills with a flax init from its own random key (whose
+values follow its configured PRNG: threefry on the CPU, rbg on the TPU);
+the port fills them with its own seeded init of the same ConvBlock (the
+same shapes; the reference never runs them).
 
 Use ``export_state_dict`` to build the dict from the port's state_dict
 (``export_deepsense_state_dict`` and ``export_sw_transformer_state_dict``
