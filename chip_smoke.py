@@ -223,10 +223,29 @@ result line if any fails):
      supervised run from the SW_Transformer import through -init_weight
      (#2, #3, #11, #12 a step; #1, #10 an eval forward); python -m
      focal_tpu_torch.sweep finetuning it over -ratios 0.1,1.0 (#2 a step,
-     #1 an eval forward) and printing its table.
+     #1 an eval forward) and printing its table;
+ 29. -compute_dtype bfloat16 at MOD's full width: #1-bf16
+     (fused_window_block_bf16) at the served geometries (batch 128),
+     #2-bf16 and #3-bf16 at the training ones (256 fused to 512), against
+     their bf16 plain versions on the same bf16 inputs: y within 8e-3 of
+     max|y|, #2-bf16 fed its own mask, its keep rate within 5 sigma, #3-bf16
+     with the mask and without, every gradient within 1e-2 relative
+     (absolutely to TINY_GRAD where both sides are below it), the same bits
+     on a second call; each timed (events over >= 20 ms, device time split
+     by kernel; plain, the library yardstick in bf16, the bound at 989
+     TFLOP/s or the bf16 bytes); python -m focal_tpu_torch.train
+     -compute_dtype bfloat16 in-process: pretrain -ragged_tail 2 epochs
+     (#2-bf16/#3-bf16 16 a step, #1-bf16 16 an eval forward), supervised 1
+     epoch and the test CLI on its _best, launches held exactly; a served
+     bf16 batch of 128 (#1-bf16 16) against the bf16 plain block (1e-2); a
+     rate-0 pretrain step at 256 from one state, bf16 kernels against f32
+     (loss 1e-2 relative) and against the bf16 plain versions (loss 1e-2),
+     gradients f32; 3 + 20 bf16 and f32 MOD pretrain steps from one init
+     beside each other (p50, samples/s, peak memory, idle share, device
+     time by window_block.cu phase, top kernels).
 
-Prints a {"kernels": [...]} line, the nvidia-smi line, and as its last line
-{"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
+Prints a {"kernels": [...]} line (#1-#14 and #1-bf16 to #3-bf16), the
+nvidia-smi line, and as its last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
 nothing of the JAX package. --out DIR writes the per-geometry details and
 the profiles as JSON there.
 """
@@ -625,7 +644,8 @@ SPLITK = "gemm_splitk.cuh"
 WB_LIB = {"source": "window_block.cu", "tag": "WindowBlockSrc",
           "phases": {"proj_gemm_kernel": "GEMM", "attn_fwd_kernel": "attention",
                      "attn_bwd_kernel": "attention", "wgrad_gemm_kernel": "weight gradient",
-                     "reduce_partials_kernel": "reduction"}}
+                     "reduce_partials_kernel": "reduction", "bf16_proj_kernel": "GEMM",
+                     "bf16_wgrad_kernel": "weight gradient"}}
 MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
                    "phases": {"mlp_hidden_kernel": "hidden GEMM", "mlp_out_kernel": "output GEMM",
                               "mlp_g2_kernel": "masked gradient",
@@ -1984,11 +2004,12 @@ def stage_plan(argv):
     return steps, (n["train"] + 3 * (n["val"] + n["test"]) if seq else n["val"] + n["test"])
 
 
-def rate0_tail_step(torch, targs, weights, dev, plain):
+def rate0_tail_step(torch, targs, weights, dev, plain, kernels=None):
     """One SW_Transformer pretrain step at every drop rate 0 from
     ``weights`` on the first targs.batch_size rows of a synthetic split
-    (whole subsequences): through the kernels, or with ``plain`` through
-    their plain versions. Returns (loss, [gradients on the CPU], launches)."""
+    (whole subsequences), at targs.compute_dtype: through the kernels, or
+    with ``plain`` through their plain versions. Returns (loss, [gradients
+    on the CPU], launches of ``kernels``, #1-#3 by default)."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import build_backbone
     from focal_tpu_torch.models import swin as swin_mod
@@ -2005,7 +2026,8 @@ def rate0_tail_step(torch, targs, weights, dev, plain):
     args0.dataset_config = cfg0
     data = to_device(synthetic_arrays(cfg0, targs.task, 2 * targs.batch_size, seed=0)[0], dev)
     idx = torch.arange(targs.batch_size, device=dev)
-    m = build_backbone(cfg0, "SW_Transformer", targs.task, targs.learn_framework)
+    m = build_backbone(cfg0, "SW_Transformer", targs.task, targs.learn_framework,
+                       compute_dtype=targs.compute_dtype)
     m.load_state_dict(weights)
     m.to(dev)
     st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
@@ -2014,8 +2036,8 @@ def rate0_tail_step(torch, targs, weights, dev, plain):
     if plain:
         for name, fn in entry_points.items():
             setattr(swin_mod, name, fn)
-    kernels = (pk.fused_window_block, pk.fused_window_block_dropout,
-               pk.fused_window_block_backward)
+    kernels = kernels or (pk.fused_window_block, pk.fused_window_block_dropout,
+                          pk.fused_window_block_backward)
     zero_counts(kernels)
     try:
         _, mt = make_pretrain_step(m, build_augmenter(args0), make_focal_loss(args0))(
@@ -2336,6 +2358,430 @@ def attribution_paths(torch, np, kernels, gen, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# -compute_dtype bfloat16 (29): the bf16 forms of #1-#3
+
+BF16_FLOPS = 989e12       # H100 SXM bf16 tensor cores, dense (NVIDIA data sheet)
+BF16_FWD_TOL = 8e-3       # max|kernel - plain| / max|plain| of a bf16 y (one bf16 step is 2^-8)
+BF16_GRAD_TOL = 1e-2      # relative, each gradient of #3-bf16 (dx in bf16, the rest f32)
+BF16_SERVE_TOL = 1e-2     # served probabilities, #1-bf16's route vs the bf16 plain block
+BF16_LOSS_TOL = 1e-2      # relative: the rate-0 bf16 step's loss vs the f32 step's
+WB_LAUNCHES_BF16 = {"fwd": {"bf16_proj_kernel": 2, "attn_fwd_kernel": 1},
+                    "bwd": {"bf16_proj_kernel": 2, "attn_bwd_kernel": 1, "bf16_wgrad_kernel": 1,
+                            "reduce_partials_kernel": 2}}
+
+
+def bf16_inputs(torch, g, gen, dev):
+    """make_inputs with x, wqkv and wproj rounded to bf16 (the biases, the
+    bias table and the shift mask stay f32, as the Swin block hands them)."""
+    x, wqkv, bqkv, wproj, bproj, rel_bias, mask = make_inputs(torch, g, gen, dev)
+    bf = torch.bfloat16
+    return x.to(bf), wqkv.to(bf), bqkv, wproj.to(bf), bproj, rel_bias, mask
+
+
+def bf16_work(g, backward=False, with_keep=False):
+    """FLOPs of #1-bf16/#2-bf16 (or #3-bf16): work()'s and work_backward()'s
+    counts; bytes at the types they move: x, y (dy, dx) and the weights in
+    bf16, the biases, bias table, mask and the gradients in f32, the keep
+    mask in uint8, each read or written once. Returns (flops, bytes,
+    bound ms at the bf16 tensor cores' peak or the bytes, what bounds)."""
+    B, N, C, H = g["windows"], g["N"], g["C"], g["heads"]
+    fixed = 4 * (4 * C + H * N * N) + (4 * g["nW"] * N * N if g["mask"] is not None else 0)
+    fixed += B * H * N * N if with_keep else 0
+    if backward:
+        flops = B * (22 * N * C * C + 12 * N * N * C)
+        nbytes = 2 * (3 * B * N * C + 4 * C * C) + fixed + 4 * (4 * C * C + 4 * C + H * N * N)
+    else:
+        flops = B * (8 * N * C * C + 4 * N * N * C)
+        nbytes = 2 * (2 * B * N * C + 4 * C * C) + fixed
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def bf16_grad_err(got, want):
+    """grads_differ in f32 (dx comes in bf16)."""
+    return grads_differ([a.float() for a in got], [b.float() for b in want])
+
+
+def check_block_bf16(torch, pk, sgeos, tgeos, gen, dev, rate):
+    """#1-bf16 at the served geometries, #2-bf16 and #3-bf16 at the training
+    ones, against their bf16 plain versions on the same bf16 inputs, in the
+    working type: y (bf16) to BF16_FWD_TOL of max|y|; #2-bf16 fed its own
+    keep mask, its keep rate within 5 sigma of 1 - rate; #3-bf16 with the
+    mask and without, every gradient to BF16_GRAD_TOL relative (absolutely
+    to TINY_GRAD where both sides are below it, C7), the same bits on a
+    second call. Returns the worst errors."""
+    worst = {"fwd": 0.0, "fwd_abs": 0.0, "drop": 0.0, "drop_abs": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    for g in sgeos:
+        args = bf16_inputs(torch, g, gen, dev)
+        y = pk.fused_window_block_bf16(*args)
+        torch.cuda.synchronize()
+        want = pk.fused_window_block_bf16_reference(*args).float()
+        err = rel_err(y.float(), want)
+        g["bf16_rel_err"] = err
+        worst["fwd"] = max(worst["fwd"], err)
+        worst["fwd_abs"] = max(worst["fwd_abs"], float((y.float() - want).abs().max()))
+        log(f"[bf16-check] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']}: #1-bf16 "
+            f"max|kernel-plain| / max|plain| {err:.3e}")
+        if not err <= BF16_FWD_TOL:
+            raise AssertionError(f"{g['name']}: #1-bf16 differs from plain by {err}")
+    for gi, g in enumerate(tgeos):
+        args = bf16_inputs(torch, g, gen, dev)
+        y, keep = pk.fused_window_block_dropout_bf16(*args, 1500 + gi, rate)
+        torch.cuda.synchronize()
+        want = pk.fused_window_block_bf16_reference(*args, keep, rate).float()
+        err = rel_err(y.float(), want)
+        worst["drop_abs"] = max(worst["drop_abs"], float((y.float() - want).abs().max()))
+        kept = float(keep.double().mean())
+        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+        dy = torch.randn(y.shape, generator=gen).to(dev).to(torch.bfloat16)
+        tr = transposed(args)
+        errs = {}
+        for tag, kp in (("keep", keep), ("nomask", None)):
+            got = pk.fused_window_block_backward_bf16(*args, dy, kp, rate, *tr)
+            again = pk.fused_window_block_backward_bf16(*args, dy, kp, rate, *tr)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{g['name']}: #3-bf16 gives other bits on a second call")
+            want = pk.fused_window_block_backward_bf16_reference(*args, dy, kp, rate)
+            errs[tag] = bf16_grad_err(got, want)
+            worst["bwd_abs"] = max(worst["bwd_abs"], *(float((a.float() - b.float()).abs().max())
+                                                       for a, b in zip(got, want)))
+        g.update(bf16_rel_err_fwd=err, bf16_keep_rate=kept, bf16_rel_err_bwd=errs["keep"],
+                 bf16_rel_err_bwd_nomask=errs["nomask"])
+        worst["drop"] = max(worst["drop"], err)
+        worst["bwd"] = max(worst["bwd"], *errs.values())
+        log(f"[bf16-check] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']}: #2-bf16 "
+            f"rel err {err:.3e}, keep rate {kept:.5f} ({(kept - 1 + rate) / sigma:+.2f} sigma); "
+            f"#3-bf16 max rel err {errs['keep']:.3e} (mask), {errs['nomask']:.3e} (no mask), "
+            "repeatable")
+        if not err <= BF16_FWD_TOL:
+            raise AssertionError(f"{g['name']}: #2-bf16 differs from plain by {err}")
+        if not abs(kept - (1 - rate)) <= 5 * sigma:
+            raise AssertionError(f"{g['name']}: #2-bf16 keep rate {kept} is not 1 - {rate} "
+                                 "within 5 sigma")
+        if not max(errs.values()) <= BF16_GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #3-bf16 gradients differ from plain by {errs}")
+    return worst
+
+
+def library_bf16_ms(torch, g, args, dy, rate):
+    """The library yardstick in bf16, timed: cuBLAS bf16 products around
+    scaled_dot_product_attention on bf16 q, k, v with the bias and mask as
+    a bf16 attn_mask, forward, and its autograd backward."""
+    bf = torch.bfloat16
+    x, wqkv, bqkv, wproj, bproj, rel_bias, mask = args
+    am = library_mask(torch, g, rel_bias, mask).to(bf)
+    fwd = time_ms(torch, lambda: library_block(torch, x, wqkv, bqkv.to(bf), wproj, bproj.to(bf),
+                                               am, g["heads"], rate))
+    leaves = [t.clone().requires_grad_(True) for t in (x, wqkv, bqkv.to(bf), wproj, bproj.to(bf))]
+    am = am.clone().requires_grad_(True)
+    out = library_block(torch, *leaves, am, g["heads"], rate)
+    bwd = time_ms(torch, lambda: torch.autograd.grad(out, leaves + [am], dy, retain_graph=True))
+    return fwd, bwd
+
+
+def time_block_bf16(torch, pk, g, gen, dev, rate, train):
+    """#1-bf16 (eval geometry) or #2-bf16 and #3-bf16 (training geometry) at
+    g, stored in g: events over at least PROFILE_TRACE_MS of calls, device
+    time from a profile split by kernel (kernel_phase_split: it fails on a
+    kernel outside csrc/window_block.cu), the plain versions, the library
+    yardstick and the bound (bf16_work)."""
+    args = bf16_inputs(torch, g, gen, dev)
+    dy = torch.randn(args[0].shape, generator=gen).to(dev).to(torch.bfloat16)
+    tr = transposed(args)
+    if train:
+        _, keep = pk.fused_window_block_dropout_bf16(*args, 7, rate)
+        calls = {"fwd": (lambda: pk.fused_window_block_dropout_bf16(*args, 7, rate),
+                         lambda: pk.fused_window_block_bf16_reference(*args, keep, rate)),
+                 "bwd": (lambda: pk.fused_window_block_backward_bf16(*args, dy, keep, rate, *tr),
+                         lambda: pk.fused_window_block_backward_bf16_reference(*args, dy, keep,
+                                                                               rate))}
+    else:
+        calls = {"fwd": (lambda: pk.fused_window_block_bf16(*args),
+                         lambda: pk.fused_window_block_bf16_reference(*args))}
+    lib = library_bf16_ms(torch, g, args, dy, rate if train else 0.0)
+    for d, (kernel, plain) in calls.items():
+        split = kernel_phase_split(torch, kernel, WB_LAUNCHES_BF16[d],
+                                   reps=trace_reps(torch, kernel))
+        flops, nbytes, bnd, by = bf16_work(g, backward=d == "bwd", with_keep=train)
+        g[f"bf16_{d}"] = {"ms": time_ms_long(torch, kernel), "device_ms": split["device_ms"],
+                          "device_ms_by_phase": split["phases"],
+                          "plain_ms": time_ms(torch, plain),
+                          "library_ms": lib[0] if d == "fwd" else lib[1], "bound_ms": bnd,
+                          "bound_by": by, "flops": flops, "bytes": nbytes}
+        r = g[f"bf16_{d}"]
+        log(f"[bf16-time] {g['name']} (windows {g['windows']}, C {g['C']}) "
+            f"{('#2-bf16' if train else '#1-bf16') if d == 'fwd' else '#3-bf16'}: "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {bnd:.4f} ({by}), {flops / r['device_ms'] / 1e9:.2f} "
+            f"TFLOP/s by device time; by phase {split['phases']}")
+
+
+def bf16_step_runs(torch, np, kernels, dev, tag):
+    """MOD pretrain steps at TRAIN_BATCH (views fused), f32 and bf16 from one
+    init (seed 0) on the same resident synthetic data and fixed idx, in one
+    process: TRAIN_WARMUP + TRAIN_STEPS each, launches held a step (f32: #2
+    and #3; bf16: #2-bf16 and #3-bf16, once a block each), losses finite;
+    p50, samples/s, peak memory, and a profiled step's idle share and
+    device time by window_block.cu phase and top kernels."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    out = {}
+    data = None
+    for dtype in ("float32", "bfloat16"):
+        targs = parse_train_params(["-dataset", "MOD", "-learn_framework", "FOCAL",
+                                    "-compute_dtype", dtype])
+        cfg = targs.dataset_config
+        n_blocks = sum(g["per_forward"] for g in block_geometries(cfg, SERVE_BATCH))
+        fwd, bwd = ((pk.fused_window_block_dropout, pk.fused_window_block_backward)
+                    if dtype == "float32" else
+                    (pk.fused_window_block_dropout_bf16, pk.fused_window_block_backward_bf16))
+        if data is None:
+            data = to_device(synthetic_arrays(cfg, targs.task, 2 * TRAIN_BATCH, seed=0)[0], dev)
+        idx = torch.arange(TRAIN_BATCH, device=dev)
+        model = init_params(build_backbone(cfg, "SW_Transformer", targs.task, "FOCAL",
+                                           compute_dtype=dtype), seed=0).to(dev)
+        state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
+        step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
+        for _ in range(TRAIN_WARMUP):
+            step(state, data, idx)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        step_s, losses = [], []
+        for _ in range(TRAIN_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            _, metrics = step(state, data, idx)
+            torch.cuda.synchronize()
+            step_s.append(time.time() - t0)
+            losses.append(float(metrics["loss"]))
+        got = counts(kernels)
+        per_step = {fwd.__name__: n_blocks, bwd.__name__: n_blocks}
+        check_counts(f"{tag}: {TRAIN_STEPS} {dtype} steps", got,
+                     {k.__name__: per_step.get(k.__name__, 0) * TRAIN_STEPS for k in kernels})
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{tag}: non-finite {dtype} loss: {losses}")
+        p50 = float(np.percentile(step_s, 50)) * 1e3
+        run = {"p50_ms": p50, "mean_ms": float(np.mean(step_s)) * 1e3,
+               "min_ms": float(np.min(step_s)) * 1e3, "samples_per_s": TRAIN_BATCH / (p50 / 1e3),
+               "peak_mb": torch.cuda.max_memory_allocated() / 2**20, "launches": got,
+               "loss_first": losses[0], "loss_last": losses[-1],
+               "grad_dtypes": sorted({str(p.grad.dtype) for p in model.parameters()
+                                      if p.grad is not None}),
+               "param_dtypes": sorted({str(p.dtype) for p in model.parameters()})}
+        prof = profile_device(torch, lambda: step(state, data, idx))
+        run["idle_share"] = 1 - prof["device_busy_ms"] / prof["wall_ms"]
+        run["device_busy_ms"] = prof["device_busy_ms"]
+        run["block_device_ms"] = block_device_ms(prof)
+        run["top_kernels"] = prof["rows"][:12]
+        if run["grad_dtypes"] != ["torch.float32"] or run["param_dtypes"] != ["torch.float32"]:
+            raise AssertionError(f"{tag}: {dtype} step's parameters or gradients are not f32: "
+                                 f"{run['param_dtypes']}, {run['grad_dtypes']}")
+        out[dtype] = run
+        log_profile(tag, f"one {dtype} MOD pretrain step", prof, top=8)
+        log(f"[{tag}] {dtype}: p50 {p50:.3f} ms (mean {run['mean_ms']:.3f}, min "
+            f"{run['min_ms']:.3f}), {run['samples_per_s']:.1f} samples/s, peak memory "
+            f"{run['peak_mb']:.1f} MiB, idle share {run['idle_share']:.3f}, device busy "
+            f"{run['device_busy_ms']:.3f} ms; window_block.cu device ms by phase "
+            f"{run['block_device_ms']}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {got}")
+        del state, step, model
+        torch.cuda.empty_cache()
+    f, b = out["float32"], out["bfloat16"]
+    log(f"[{tag}] bf16 beside f32: p50 {b['p50_ms']:.3f} vs {f['p50_ms']:.3f} ms "
+        f"({b['p50_ms'] / f['p50_ms']:.3f}x), device busy {b['device_busy_ms']:.3f} vs "
+        f"{f['device_busy_ms']:.3f} ms, peak {b['peak_mb']:.1f} vs {f['peak_mb']:.1f} MiB, idle "
+        f"share {b['idle_share']:.3f} vs {f['idle_share']:.3f}")
+    return out
+
+
+def bf16_paths(torch, np, kernels, gen, dev):
+    """Phase 29, -compute_dtype bfloat16 at MOD's full width: #1-bf16 at the
+    served geometries and #2-bf16/#3-bf16 at the training ones against their
+    bf16 plain versions (check_block_bf16's gates), and timed there; the
+    entry points in-process with -compute_dtype bfloat16 (pretrain with
+    -ragged_tail for 2 epochs, supervised for 1 and the test CLI on its
+    _best) with every launch held exactly; a served batch through
+    Predictor(compute_dtype="bfloat16") against the bf16 plain block
+    (BF16_SERVE_TOL); a rate-0 pretrain step in bf16 against the f32 step
+    from one state (BF16_LOSS_TOL) and against the bf16 plain versions; the
+    bf16 pretrain step timed beside the f32 one."""
+    import importlib
+
+    from focal_tpu_torch import test as test_cli
+    from focal_tpu_torch.data import DeviceDataLoader, load_split, synthetic_arrays
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_dataset_config, parse_train_params
+    from focal_tpu_torch.serve import Predictor
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    tag = "bf16"
+    t_phase = time.time()
+    cfg = load_dataset_config("MOD")
+    task = "vehicle_classification"
+    rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
+    fwd, fwd_drop, bwd = (pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
+                          pk.fused_window_block_backward_bf16)
+    sgeos = block_geometries(cfg, SERVE_BATCH)
+    tgeos = block_geometries(cfg, 2 * TRAIN_BATCH)
+    n_blocks = sum(g["per_forward"] for g in sgeos)
+    out = {"paths": {}}
+
+    # the kernels against their bf16 plain versions, then timed
+    out["errors"] = check_block_bf16(torch, pk, sgeos, tgeos, gen, dev, rate)
+    for g in sgeos:
+        time_block_bf16(torch, pk, g, gen, dev, rate, train=False)
+    for g in tgeos:
+        time_block_bf16(torch, pk, g, gen, dev, rate, train=True)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")
+    out["serve_forward"] = {k: sum(g["per_forward"] * g["bf16_fwd"][k] for g in sgeos)
+                            for k in keys}
+    out["train_step"] = {d: {k: sum(g["per_forward"] * g[f"bf16_{d}"][k] for g in tgeos)
+                             for k in keys} for d in ("fwd", "bwd")}
+    for d, geos_d, where in (("fwd", sgeos, "serve"), ("fwd", tgeos, "train"),
+                             ("bwd", tgeos, "train")):
+        split = {}
+        for g in geos_d:
+            for ph, ms in g[f"bf16_{d}"]["device_ms_by_phase"].items():
+                split[ph] = split.get(ph, 0.0) + g["per_forward"] * ms
+        out[f"{where}_{d}_device_ms_by_phase"] = split
+    s, t = out["serve_forward"], out["train_step"]
+    log(f"[bf16-time] one served forward at {SERVE_BATCH} ({n_blocks} launches): #1-bf16 "
+        f"{s['ms']:.4f} ms (device {s['device_ms']:.4f}), plain {s['plain_ms']:.4f}, library "
+        f"{s['library_ms']:.4f}, bound {s['bound_ms']:.4f}; one training step at "
+        f"{2 * TRAIN_BATCH}: #2-bf16 {t['fwd']['ms']:.4f} (device {t['fwd']['device_ms']:.4f}, "
+        f"plain {t['fwd']['plain_ms']:.4f}, library {t['fwd']['library_ms']:.4f}, bound "
+        f"{t['fwd']['bound_ms']:.4f}), #3-bf16 {t['bwd']['ms']:.4f} (device "
+        f"{t['bwd']['device_ms']:.4f}, plain {t['bwd']['plain_ms']:.4f}, library "
+        f"{t['bwd']['library_ms']:.4f}, bound {t['bwd']['bound_ms']:.4f})")
+    out["geometries"] = [{k: v for k, v in g.items() if k != "mask"} for g in sgeos + tgeos]
+    torch.cuda.empty_cache()
+
+    def run_entry(what, fn, argv, per_step, per_eval, steps, evals):
+        zero_counts(kernels)
+        t0 = time.time()
+        result = fn(argv)
+        torch.cuda.synchronize()
+        got = counts(kernels)
+        check_counts(f"{tag}: {what}", got, {k.__name__: per_step.get(k.__name__, 0) * steps
+                                             + per_eval.get(k.__name__, 0) * evals
+                                             for k in kernels})
+        out["paths"][what] = {"seconds": time.time() - t0, "steps": steps,
+                              "eval_forwards": evals, "launches": got}
+        log(f"[{tag}] {what}: {steps} steps, {evals} eval forwards in {time.time() - t0:.1f}s; "
+            f"launches {got}")
+        return result
+
+    # the entry points with -compute_dtype bfloat16
+    run_dir = os.path.join(HERE, "build", "chip_smoke_bf16")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    seq = cfg["seq_len"]
+    samples = seq * (2 * (TRAIN_BATCH // seq) + TAIL_UNITS)
+    base = ["-dataset", "MOD", "-model", "SW_Transformer", "-synthetic", "-synthetic_samples",
+            str(samples), "-val_epochs", "1", "-output_dir", run_dir, "-compute_dtype", "bfloat16"]
+    step_bf16 = {fwd_drop.__name__: n_blocks, bwd.__name__: n_blocks}
+    pre = base + ["-learn_framework", "FOCAL", "-stage", "pretrain", "-batch_size",
+                  str(TRAIN_BATCH), "-epochs", "2", "-ragged_tail"]
+    steps, evals = stage_plan(pre)
+    st, _, points = run_entry("pretrain -compute_dtype bfloat16 -ragged_tail -epochs 2",
+                              train_cli.main, pre, step_bf16, {fwd.__name__: n_blocks},
+                              2 * (steps + 1), 2 * evals)
+    if st.step != 2 * (steps + 1) or [p["epoch"] for p in points] != [0, 1]:
+        raise AssertionError(f"{tag}: {st.step} updates, points {points}")
+    for p in points:
+        if not all(math.isfinite(p[k]) for k in ("train_loss", "val_loss", "test_loss")):
+            raise AssertionError(f"{tag}: non-finite loss at a validation point: {p}")
+    out["paths"]["pretrain -compute_dtype bfloat16 -ragged_tail -epochs 2"]["points"] = points
+    del st
+    sup = base + ["-learn_framework", "no", "-batch_size", str(SUP_BATCH), "-epochs", "1"]
+    steps, evals = stage_plan(sup)
+    st, _, points = run_entry("supervised -compute_dtype bfloat16 -epochs 1", train_cli.main, sup,
+                              step_bf16, {fwd.__name__: n_blocks}, steps, evals)
+    if not all(math.isfinite(p[k]) for p in points for k in ("train_loss", "val_loss")):
+        raise AssertionError(f"{tag}: non-finite supervised loss: {points}")
+    del st
+    test_batches = len(DeviceDataLoader(load_split("test", parse_train_params(sup)), SUP_BATCH))
+    result = run_entry("test -compute_dtype bfloat16 (the supervised _best)", test_cli.main, sup,
+                       {}, {fwd.__name__: n_blocks}, 0, test_batches)
+    if not all(math.isfinite(v) for v in result):
+        raise AssertionError(f"{tag}: the test CLI's numbers are not finite: {result}")
+    out["test_result"] = list(result)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # a served bf16 batch, kernels vs the bf16 plain block
+    data = synthetic_arrays(cfg, task, SERVE_BATCH, seed=5)[0]
+    predictor = Predictor(cfg, "SW_Transformer", task, None, batch_size=SERVE_BATCH,
+                          device=dev.type, seed=0, compute_dtype="bfloat16")
+    zero_counts(kernels)
+    served = predictor.predict(data)
+    got = counts(kernels)
+    check_counts(f"{tag}: one served bf16 batch", got,
+                 {k.__name__: n_blocks if k is fwd else 0 for k in kernels})
+    probs = served["probs"]
+    if probs.dtype != np.float32 or not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: bad probabilities ({probs.dtype})")
+    swin_mod.window_block_forward = pk.fused_window_block_reference
+    try:
+        serve_err = float(np.abs(predictor._forward(data) - probs).max())
+    finally:
+        swin_mod.window_block_forward = pk.window_block_forward
+    out["serve"] = {"p50_ms": served["latency"]["p50_s"] * 1e3, "launches": got,
+                    "max_abs_err_vs_plain": serve_err}
+    log(f"[{tag}] served bf16 batch of {SERVE_BATCH}: launches {got}, p50 "
+        f"{out['serve']['p50_ms']:.3f} ms; max|dprobs| vs the bf16 plain block {serve_err:.3e}")
+    if not serve_err <= BF16_SERVE_TOL:
+        raise AssertionError(f"{tag}: served bf16 probabilities differ from the plain block's by "
+                             f"{serve_err}")
+    del predictor
+
+    # a rate-0 pretrain step from one state: bf16 kernels, bf16 plain, f32 kernels
+    initial = init_params(build_backbone(cfg, "SW_Transformer", task, "FOCAL"), seed=0).state_dict()
+    rargs = {d: parse_train_params(["-dataset", "MOD", "-learn_framework", "FOCAL", "-batch_size",
+                                    str(TRAIN_BATCH), "-compute_dtype", d])
+             for d in ("float32", "bfloat16")}
+    kern = rate0_tail_step(torch, rargs["bfloat16"], initial, dev, plain=False, kernels=kernels)
+    plain = rate0_tail_step(torch, rargs["bfloat16"], initial, dev, plain=True, kernels=kernels)
+    f32 = rate0_tail_step(torch, rargs["float32"], initial, dev, plain=False, kernels=kernels)
+    check_counts(f"{tag}: the rate-0 bf16 step", kern[2],
+                 {k.__name__: n_blocks if k in (fwd, bwd) else 0 for k in kernels})
+    vs_f32 = abs(kern[0] - f32[0]) / abs(f32[0])
+    vs_plain = abs(kern[0] - plain[0]) / abs(plain[0])
+    out["rate0"] = {"loss_bf16_kernels": kern[0], "loss_bf16_plain": plain[0],
+                    "loss_f32_kernels": f32[0], "loss_rel_vs_f32": vs_f32,
+                    "loss_rel_vs_bf16_plain": vs_plain,
+                    "max_grad_rel_vs_bf16_plain": grads_differ(kern[1], plain[1]),
+                    "max_grad_rel_vs_f32": grads_differ(kern[1], f32[1]),
+                    "grad_dtypes": sorted({str(g.dtype) for g in kern[1]})}
+    r = out["rate0"]
+    log(f"[{tag}] rate-0 pretrain step at {TRAIN_BATCH} from the initial state: loss bf16 "
+        f"{kern[0]:.6f}, bf16 plain {plain[0]:.6f}, f32 {f32[0]:.6f}; bf16 vs f32 rel "
+        f"{vs_f32:.2e}, vs the bf16 plain versions {vs_plain:.2e}; max grad rel vs bf16 plain "
+        f"{r['max_grad_rel_vs_bf16_plain']:.2e}, vs f32 {r['max_grad_rel_vs_f32']:.2e}; gradients "
+        f"{r['grad_dtypes']}")
+    if not (vs_f32 <= BF16_LOSS_TOL and vs_plain <= BF16_LOSS_TOL):
+        raise AssertionError(f"{tag}: rate-0 bf16 step loss: {r}")
+    if r["grad_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"{tag}: bf16 step gradients are not f32: {r['grad_dtypes']}")
+    del kern, plain, f32, initial
+    torch.cuda.empty_cache()
+
+    out["steps"] = bf16_step_runs(torch, np, kernels, dev, f"{tag}-steps")
+    out["seconds"] = time.time() - t_phase
+    log(f"[{tag}] phase 29 in {out['seconds']:.1f}s")
+    return out
+
+
 def check_block_forward(torch, pk, geos, gen, dev):
     """#1 vs plain at each geometry, phase 2's gate; returns the worst
     absolute error (and keeps each in its geometry)."""
@@ -2651,8 +3097,10 @@ def main():
     mlp_fwd, mlp_drop, mlp_bwd = fm.fused_mlp_forward, fm.fused_mlp_dropout_forward, fm.fused_mlp_backward
     at_fwd, at_drop = pk.fused_window_attention, pk.fused_window_attention_dropout
     at_bwd, at_drop_bwd = pk.fused_window_attention_backward, pk.fused_window_attention_dropout_backward
+    bf_fwd, bf_drop, bf_bwd = (pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
+                               pk.fused_window_block_backward_bf16)
     all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd, mlp_fwd, mlp_drop, mlp_bwd,
-                   at_fwd, at_drop, at_bwd, at_drop_bwd)
+                   at_fwd, at_drop, at_bwd, at_drop_bwd, bf_fwd, bf_drop, bf_bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -3634,6 +4082,13 @@ def main():
     log(f"[smoke] phase 28 in {attribution['seconds']:.1f}s; {time.time() - t_start:.1f}s after "
         "the build started")
 
+    # ---- 29. -compute_dtype bfloat16: #1-bf16 to #3-bf16 vs their bf16 plain
+    # versions and timed; the entry points, a served batch, the rate-0 step
+    # against f32 and the bf16 step timed beside the f32 one
+    bf16 = bf16_paths(torch, np, all_kernels, gen, dev)
+    log(f"[smoke] phase 29 in {bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -3668,6 +4123,7 @@ def main():
                 "no_pallas_block_route_backward": route_bwd,
                 "no_pallas_block_route_forward": route_fwd,
                 "recipes": recipes, "two_locations": two_loc, "attribution": attribution,
+                "bf16": bf16,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -3902,6 +4358,43 @@ def main():
             k["ragged_tail_step"] = attribution["tail_kernels"][k["name"]] | {
                 "launches_by_path": {p: r["launches"][k["name"]]
                                      for p, r in attribution["paths"].items()}}
+    def bf16_entry(name, num, line, launches_, err, tot, per, **extra):
+        by = ("operations" if tot["flops"] / BF16_FLOPS >= tot["bytes"] / HBM_BYTES_PER_S
+              else "bytes")
+        return {"name": name, "kernel": num, "route": "cuda",
+                "source": "focal_tpu_torch/csrc/window_block.cu", "replaces": f"{PK}:{line}",
+                "launches": launches_, "max_abs_err": err, "ms": tot["ms"],
+                "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": by,
+                "library_ms": tot["library_ms"], "per": per, "device_ms": tot["device_ms"],
+                "flops": tot["flops"], "bytes": tot["bytes"], **extra}
+
+    be, bpaths = bf16["errors"], bf16["paths"]
+    bf_pre = bpaths["pretrain -compute_dtype bfloat16 -ragged_tail -epochs 2"]["launches"]
+    bf_step_launches = bf16["steps"]["bfloat16"]["launches"]
+    bf16_step_per = (f"times: the {per_fwd} launches of one MOD bf16 training step at batch "
+                     f"{TRAIN_BATCH} (views fused to {2 * TRAIN_BATCH}); launches: "
+                     f"{TRAIN_STEPS} timed bf16 pretrain steps; bound at 989 TFLOP/s bf16 or "
+                     "3.35 TB/s at bf16 activation bytes")
+    kernels += [
+        bf16_entry("fused_window_block_bf16", "#1-bf16", 949, bf_pre[bf_fwd.__name__],
+                   be["fwd_abs"], bf16["serve_forward"],
+                   f"times: the {per_fwd} launches of one MOD bf16 forward at batch "
+                   f"{SERVE_BATCH}; launches: the bf16 pretrain entry point's eval forwards; "
+                   "bound at 989 TFLOP/s bf16 or 3.35 TB/s at bf16 activation bytes",
+                   max_rel_err=be["fwd"], device_ms_by_phase=bf16["serve_fwd_device_ms_by_phase"],
+                   launches_by_path={p: r["launches"][bf_fwd.__name__] for p, r in bpaths.items()}
+                   | {"serve_MOD_bf16": bf16["serve"]["launches"][bf_fwd.__name__]}),
+        bf16_entry("fused_window_block_dropout_bf16", "#2-bf16", 1432,
+                   bf_step_launches[bf_drop.__name__], be["drop_abs"], bf16["train_step"]["fwd"],
+                   bf16_step_per, max_rel_err=be["drop"], launches_per_step=per_fwd,
+                   device_ms_by_phase=bf16["train_fwd_device_ms_by_phase"],
+                   launches_by_path={p: r["launches"][bf_drop.__name__] for p, r in bpaths.items()}),
+        bf16_entry("fused_window_block_backward_bf16", "#3-bf16", 971,
+                   bf_step_launches[bf_bwd.__name__], be["bwd_abs"], bf16["train_step"]["bwd"],
+                   bf16_step_per, max_rel_err=be["bwd"], launches_per_step=per_fwd,
+                   device_ms_by_phase=bf16["train_bwd_device_ms_by_phase"],
+                   launches_by_path={p: r["launches"][bf_bwd.__name__] for p, r in bpaths.items()}),
+    ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

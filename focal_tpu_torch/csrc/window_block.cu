@@ -66,6 +66,21 @@
 //   * Not yet: wgmma and TMA (the tf32 wgmma takes K-major operands only;
 //     wqkv_t and wproj_t are that layout already), and fusing the attention
 //     into the projections' epilogues.
+//
+// The bf16 forms (-compute_dtype bfloat16): #1-bf16 and #2-bf16 (the forward
+// at rate 0 and with dropout) and #3-bf16 (their backward) replace the same
+// TPU kernels fed bf16 operands (pk:908-938, 971-1072: bf16 dots with f32
+// accumulation, the softmax in f32). They run #1-#3's phases with the
+// products on the bf16 tensor cores (gemm_bf16.cuh: one mma.sync pass of
+// m16n8k16, 989 TFLOP/s dense on the H100, where 3xTF32 takes three at
+// 495) and the same f32 attention kernels between them, rounding where the
+// TPU kernels round: qkv = x Wqkv + bqkv kept in f32; the attention output
+// rounded to bf16 before the output projection; y = ao Wproj + bproj stored
+// as bf16; in the backward qkv and g = dy Wproj^T recomputed in f32, dq, dk,
+// dv and the attention output rounded to bf16 where the dx and weight
+// products stage them, dbqkv and d rel_bias from the f32 values, dbproj the
+// f32 sum of dy, dx stored as bf16. Activations in and out take half the
+// bytes; the workspaces stay f32.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -73,6 +88,7 @@
 #include <algorithm>
 
 #include "gemm_3xtf32.cuh"
+#include "gemm_bf16.cuh"
 #include "gemm_splitk.cuh"
 #include "philox.cuh"
 #include "window_rows.cuh"
@@ -136,6 +152,94 @@ proj_gemm_kernel(ProjGemm p0, ProjGemm p1) {
     }
     *reinterpret_cast<float2*>(p.c + (size_t)row * p.ldc + col) = make_float2(v0, v1);
   });
+}
+
+// The bf16 forms (#1-bf16, #2-bf16, #3-bf16): the same products on the
+// bf16 tensor cores (gemm_bf16.cuh), with bf16 x, dy, weights, y and dx and
+// f32 workspaces. c = a b (+ bias) over all rows of a launch, a [M, K]
+// row-major, b [K, N]; c f32 or, with c_bf16, rounded to bf16 once (after
+// the bias). One launch may run two problems, as ProjGemm.
+struct BfGemm {
+  focal::BfOperand a, b;
+  const float* bias;  // [N] or null
+  void* c;
+  int ldc, c_bf16, M, N, K, tiles_n, tiles;
+};
+
+BfGemm bf_gemm(focal::BfOperand a, focal::BfOperand b, const float* bias, void* c, int ldc,
+               bool c_bf16, int M, int N, int K) {
+  return BfGemm{a, b, bias, c, ldc, c_bf16 ? 1 : 0, M, N, K, 0, 0};
+}
+
+// Two blocks an SM at 64 columns, one at 128; 40 KB of static shared memory
+// at 128.
+template <int kBN>
+__global__ void __launch_bounds__(focal::kGemmThreads, kBN == 64 ? 2 : 1)
+bf16_proj_kernel(BfGemm p0, BfGemm p1) {
+  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
+  int tile = blockIdx.x;
+  const BfGemm p = tile < p0.tiles ? p0 : p1;
+  if (tile >= p0.tiles) tile -= p0.tiles;
+  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
+  float acc[4][focal::gemm_nt<kBN>()][4], sums[2][8];
+  focal::bf_gemm_tile<false, false, kBN>(p.a, p.b, p.M, p.N, m0, n0, 0, p.K, smem, acc, sums,
+                                         false);
+  focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+    if (p.bias) {
+      v0 += __ldg(p.bias + col);
+      v1 += __ldg(p.bias + col + 1);
+    }
+    const size_t at = (size_t)row * p.ldc + col;
+    if (p.c_bf16)
+      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.c) + at) = focal::pack_bf16x2(v0, v1);
+    else
+      *reinterpret_cast<float2*>(static_cast<float*>(p.c) + at) = make_float2(v0, v1);
+  });
+}
+
+// A weight gradient of #3-bf16: a^T b over the rows, a [R, M] and b [R, N]
+// (bf16, or f32 rounded as staged), into [M, N] at offset `out` of a split
+// partial and b's f32 column sums at `sums_out`, as gemm_splitk.cuh's
+// WgradGemm; reduce_partials_kernel sums the partials in split order.
+struct BfWgrad {
+  focal::BfOperand a, b;
+  int M, N, tiles_n, tiles;
+  size_t out, sums_out;
+};
+
+BfWgrad bf_wgrad(focal::BfOperand a, focal::BfOperand b, int M, int N, size_t out,
+                 size_t sums_out, int bn) {
+  BfWgrad p{a, b, M, N, 0, 0, out, sums_out};
+  set_tiles(M, N, bn, &p.tiles_n, &p.tiles);
+  return p;
+}
+
+template <int kBN>
+__global__ void __launch_bounds__(focal::kGemmThreads, kBN == 64 ? 2 : 1)
+bf16_wgrad_kernel(BfWgrad p0, BfWgrad p1, int R, int rows_per_split, float* __restrict__ part,
+                  size_t E) {
+  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
+  int tile = blockIdx.x;
+  const BfWgrad p = tile < p0.tiles ? p0 : p1;
+  if (tile >= p0.tiles) tile -= p0.tiles;
+  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
+  const int r_begin = blockIdx.y * rows_per_split;
+  const int r_end = min(R, r_begin + rows_per_split);
+  const bool with_sums = m0 == 0;  // the first row tile writes the column sums
+  float acc[4][focal::gemm_nt<kBN>()][4], sums[2][8];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) sums[i][j] = 0.f;
+  focal::bf_gemm_tile<true, true, kBN>(p.a, p.b, p.M, p.N, m0, n0, r_begin, r_end, smem, acc, sums,
+                                       with_sums);
+  float* out = part + (size_t)blockIdx.y * E;
+  focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+    *reinterpret_cast<float2*>(out + p.out + (size_t)row * p.N + col) = make_float2(v0, v1);
+  });
+  if (with_sums)
+    focal::bf_reduce_sums<kBN>(p.b, p.N, n0, sums,
+                               [&](int col, float v) { out[p.sums_out + col] = v; });
 }
 
 // Element strides of head h's q (k, v: add C, 2C) columns in the [R, 3C]
@@ -484,9 +588,174 @@ cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) 
                                     : launch_proj_bn<64>(p0, p1, s);
 }
 
+template <int kBN>
+cudaError_t launch_bf16_proj_bn(BfGemm p0, BfGemm p1, cudaStream_t s) {
+  set_tiles(p0.M, p0.N, kBN, &p0.tiles_n, &p0.tiles);
+  set_tiles(p1.M, p1.N, kBN, &p1.tiles_n, &p1.tiles);
+  bf16_proj_kernel<kBN><<<p0.tiles + p1.tiles, focal::kGemmThreads, 0, s>>>(p0, p1);
+  return cudaGetLastError();
+}
+
+// One bf16 projection launch (one or two problems; p1 = BfGemm{} for none).
+cudaError_t launch_bf16_proj(const BfGemm& p0, const BfGemm& p1, cudaStream_t s) {
+  return tile_bn(p0.N, p1.N) == 128 ? launch_bf16_proj_bn<128>(p0, p1, s)
+                                    : launch_bf16_proj_bn<64>(p0, p1, s);
+}
+
+// One bf16 weight-gradient launch of `splits` row splits (bf_wgrad's tiles
+// of bn columns).
+cudaError_t launch_bf16_wgrad(int bn, const BfWgrad& p0, const BfWgrad& p1, int R,
+                              int rows_per_split, int splits, float* part, size_t E,
+                              cudaStream_t s) {
+  const dim3 grid(p0.tiles + p1.tiles, splits);
+  if (bn == 128)
+    bf16_wgrad_kernel<128><<<grid, focal::kGemmThreads, 0, s>>>(p0, p1, R, rows_per_split, part, E);
+  else
+    bf16_wgrad_kernel<64><<<grid, focal::kGemmThreads, 0, s>>>(p0, p1, R, rows_per_split, part, E);
+  return cudaGetLastError();
+}
+
+focal::BfOperand bf16_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 0}; }
+focal::BfOperand f32_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 1}; }
+
+// The forward's three launches on `stream` (focal_wblock_fwd_dropout and
+// focal_wblock_fwd_bf16): qkv = x Wqkv + bqkv into the f32 workspace, the
+// attention per (window, head), y = ao Wproj + bproj; with bf16 the
+// products on the bf16 tensor cores (x, Wqkv, Wproj and y bf16; ao rounded
+// to bf16 as the output projection stages it).
+int wblock_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+               const void* bproj, const void* rel_bias, const void* mask, void* y, void* keep,
+               void* ws, int B, int N, int C, int H, int nW, unsigned long long seed,
+               unsigned threshold, float inv_keep, void* stream, bool bf16) {
+  if (check_geometry(N, C, H) || (bf16 && C % 8 != 0) || (mask != nullptr && nW < 1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  focal::Geo g;
+  size_t smem = 0;
+  cudaError_t err = attn_geo(B, N, C, H, attn_fwd_smem, &g, &smem);
+  const bool dropout = keep != nullptr;
+  if (err == cudaSuccess)
+    err = dropout ? set_smem(attn_fwd_kernel<true>, smem, nullptr)
+                  : set_smem(attn_fwd_kernel<false>, smem, nullptr);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = B * N;
+  float* qkv = static_cast<float*>(ws);
+  float* ao = qkv + (size_t)R * 3 * C;
+  const float* bq = static_cast<const float*>(bqkv);
+  err = bf16 ? launch_bf16_proj(bf_gemm(bf16_operand(x, C), bf16_operand(wqkv, 3 * C), bq, qkv,
+                                        3 * C, false, R, 3 * C, C),
+                                BfGemm{}, s)
+             : launch_proj(proj_gemm(static_cast<const float*>(x), C,
+                                     static_cast<const float*>(wqkv), 3 * C, bq, qkv, 3 * C, R,
+                                     3 * C, C),
+                           ProjGemm{}, s);
+  if (err != cudaSuccess) return (int)err;
+  const int grid = (int)((g.total + g.pairs - 1) / g.pairs);
+#define FOCAL_ATTN_ARGS                                                                       \
+  qkv, static_cast<const float*>(rel_bias), static_cast<const float*>(mask), ao,              \
+      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, g, C,                     \
+      mask != nullptr ? nW : 1
+  if (dropout)
+    attn_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_ATTN_ARGS);
+  else
+    attn_fwd_kernel<false><<<grid, kThreads, smem, s>>>(FOCAL_ATTN_ARGS);
+#undef FOCAL_ATTN_ARGS
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const float* bp = static_cast<const float*>(bproj);
+  if (bf16)
+    return (int)launch_bf16_proj(
+        bf_gemm(f32_operand(ao, C), bf16_operand(wproj, C), bp, y, C, true, R, C, C), BfGemm{}, s);
+  return (int)launch_proj(proj_gemm(ao, C, static_cast<const float*>(wproj), C, bp,
+                                    static_cast<float*>(y), C, R, C, C),
+                          ProjGemm{}, s);
+}
+
+// The backward's six launches on `stream` (focal_wblock_bwd and
+// focal_wblock_bwd_bf16): qkv = x Wqkv + bqkv and g = dy Wproj^T (one
+// launch, f32 into the workspace), the attention backward (dqkv, the
+// attention output, d rel_bias partials; f32), dx = dqkv Wqkv^T, the
+// weight-gradient split partials (x^T dqkv, ao^T dy and the column sums),
+// and the two ordered reductions. With bf16 the products run on the bf16
+// tensor cores: x, dy, the weights and dx bf16; dqkv and ao rounded to bf16
+// as the products stage them, the bias gradients summed from f32 dqkv and
+// dy.
+int wblock_bwd(const void* x, const void* wqkv, const void* bqkv, const void* wqkv_t,
+               const void* wproj_t, const void* rel_bias, const void* mask, const void* dy,
+               const void* keep, float inv_keep, void* dx, void* dweights, void* drel_bias,
+               void* ws, int B, int N, int C, int H, int nW, void* stream, bool bf16) {
+  if (check_geometry(N, C, H) || (bf16 && C % 8 != 0) || (mask != nullptr && nW < 1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const bool dropout = keep != nullptr;
+  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
+  if (P.err != cudaSuccess) return (int)P.err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = B * N;
+  float* w = static_cast<float*>(ws);
+  float *qkv = w + P.qkv, *dqkv = w + P.dqkv, *g = w + P.g, *ao = w + P.ao;
+  const float* bq = static_cast<const float*>(bqkv);
+  // 1. qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
+  cudaError_t err =
+      bf16 ? launch_bf16_proj(
+                 bf_gemm(bf16_operand(x, C), bf16_operand(wqkv, 3 * C), bq, qkv, 3 * C, false, R,
+                         3 * C, C),
+                 bf_gemm(bf16_operand(dy, C), bf16_operand(wproj_t, C), nullptr, g, C, false, R,
+                         C, C),
+                 s)
+           : launch_proj(proj_gemm(static_cast<const float*>(x), C,
+                                   static_cast<const float*>(wqkv), 3 * C, bq, qkv, 3 * C, R,
+                                   3 * C, C),
+                         proj_gemm(static_cast<const float*>(dy), C,
+                                   static_cast<const float*>(wproj_t), C, nullptr, g, C, R, C, C),
+                         s);
+  if (err != cudaSuccess) return (int)err;
+  // 2. the attention backward per (window, head)
+#define FOCAL_ATTN_ARGS                                                                       \
+  qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),               \
+      static_cast<const unsigned char*>(keep), inv_keep, dqkv, ao, w + P.dbias, P.geo, C,    \
+      mask != nullptr ? nW : 1
+  if (dropout)
+    attn_bwd_kernel<true><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_ATTN_ARGS);
+  else
+    attn_bwd_kernel<false><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_ATTN_ARGS);
+#undef FOCAL_ATTN_ARGS
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  // 3. dx = dqkv Wqkv^T
+  err = bf16 ? launch_bf16_proj(bf_gemm(f32_operand(dqkv, 3 * C), bf16_operand(wqkv_t, C),
+                                        nullptr, dx, C, true, R, C, 3 * C),
+                                BfGemm{}, s)
+             : launch_proj(proj_gemm(dqkv, 3 * C, static_cast<const float*>(wqkv_t), C, nullptr,
+                                     static_cast<float*>(dx), C, R, C, 3 * C),
+                           ProjGemm{}, s);
+  if (err != cudaSuccess) return (int)err;
+  // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
+  const size_t q = (size_t)3 * C * C, p_out = q + 3 * C, p_sums = p_out + (size_t)C * C;
+  if (bf16) {
+    err = launch_bf16_wgrad(
+        P.wbn, bf_wgrad(bf16_operand(x, C), f32_operand(dqkv, 3 * C), C, 3 * C, 0, q, P.wbn),
+        bf_wgrad(f32_operand(ao, C), bf16_operand(dy, C), C, C, p_out, p_sums, P.wbn), R,
+        P.rows_per_split, P.splits, w + P.wpart, P.E, s);
+  } else {
+    const float* xf = static_cast<const float*>(x);
+    const float* dyf = static_cast<const float*>(dy);
+    err = focal::launch_wgrad<Src>(P.wbn, focal::wgrad_gemm(xf, dqkv, C, 3 * C, 0, q, P.wbn),
+                                   focal::wgrad_gemm(ao, dyf, C, C, p_out, p_sums, P.wbn), R,
+                                   P.rows_per_split, P.splits, w + P.wpart, P.E, false, s);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // 5. the partials summed in split order, and d rel_bias in block order
+  err = focal::launch_reduce<Src>(w + P.wpart, P.splits, P.E, static_cast<float*>(dweights), s);
+  if (err != cudaSuccess) return (int)err;
+  return (int)focal::launch_reduce<Src>(w + P.dbias, P.attn_grid, (size_t)H * N * N,
+                                        static_cast<float*>(drel_bias), s);
+}
+
 }  // namespace
 
-// Workspace of the forward (#1, #2, #4), in floats: the qkv projection
+// Workspace of the forward (#1, #2, #4 and #1-bf16, #2-bf16), in floats: the qkv projection
 // [R, 3C] and the attention output [R, C], R = B N. An error where the
 // attention has no launch plan (a head too wide for shared memory).
 extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long* floats) {
@@ -515,45 +784,24 @@ extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const v
                                         void* keep, void* ws, int B, int N, int C, int H, int nW,
                                         unsigned long long seed, unsigned threshold,
                                         float inv_keep, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  focal::Geo g;
-  size_t smem = 0;
-  cudaError_t err = attn_geo(B, N, C, H, attn_fwd_smem, &g, &smem);
-  const bool dropout = keep != nullptr;
-  if (err == cudaSuccess)
-    err = dropout ? set_smem(attn_fwd_kernel<true>, smem, nullptr)
-                  : set_smem(attn_fwd_kernel<false>, smem, nullptr);
-  if (err != cudaSuccess) return (int)err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = B * N;
-  float* qkv = static_cast<float*>(ws);
-  float* ao = qkv + (size_t)R * 3 * C;
-  err = launch_proj(
-      proj_gemm(static_cast<const float*>(x), C, static_cast<const float*>(wqkv), 3 * C,
-                static_cast<const float*>(bqkv), qkv, 3 * C, R, 3 * C, C),
-      ProjGemm{}, s);
-  if (err != cudaSuccess) return (int)err;
-  const int grid = (int)((g.total + g.pairs - 1) / g.pairs);
-#define FOCAL_ATTN_ARGS                                                                       \
-  qkv, static_cast<const float*>(rel_bias), static_cast<const float*>(mask), ao,              \
-      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, g, C,                     \
-      mask != nullptr ? nW : 1
-  if (dropout)
-    attn_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_ATTN_ARGS);
-  else
-    attn_fwd_kernel<false><<<grid, kThreads, smem, s>>>(FOCAL_ATTN_ARGS);
-#undef FOCAL_ATTN_ARGS
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  return (int)launch_proj(proj_gemm(ao, C, static_cast<const float*>(wproj), C,
-                                    static_cast<const float*>(bproj), static_cast<float*>(y), C,
-                                    R, C, C),
-                          ProjGemm{}, s);
+  return wblock_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, y, keep, ws, B, N, C, H, nW,
+                    seed, threshold, inv_keep, stream, false);
 }
 
-// Workspace the backward (#3, #5) needs, in floats, for this geometry on the
-// current device (bwd_plan).
+// The forward in bf16 (#1-bf16 with `keep` null, #2-bf16 with it): as
+// focal_wblock_fwd_dropout, with x, wqkv, wproj and y bf16 (bqkv, bproj,
+// rel_bias and mask f32) and C a multiple of 8; the same workspace.
+extern "C" int focal_wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv,
+                                     const void* wproj, const void* bproj, const void* rel_bias,
+                                     const void* mask, void* y, void* keep, void* ws, int B, int N,
+                                     int C, int H, int nW, unsigned long long seed,
+                                     unsigned threshold, float inv_keep, void* stream) {
+  return wblock_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, y, keep, ws, B, N, C, H, nW,
+                    seed, threshold, inv_keep, stream, true);
+}
+
+// Workspace the backward (#3, #5, #3-bf16) needs, in floats, for this
+// geometry on the current device (bwd_plan).
 extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
                                           long long* floats) {
   if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
@@ -573,62 +821,26 @@ extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropou
 // inv_keep; x, the weights, dy and `ws` 16-byte aligned. Outputs: dx [B, N,
 // C]; dweights, flat [dWqkv C*3C | dbqkv 3C | dWproj C*C | dbproj C];
 // drel_bias [H, N, N]. `ws` holds focal_wblock_bwd_workspace floats. Six
-// launches on `stream`: qkv = x Wqkv + bqkv and g = dy Wproj^T (one launch),
-// the attention backward (dqkv, the attention output, d rel_bias partials),
-// dx = dqkv Wqkv^T, the weight-gradient split partials (x^T dqkv, ao^T dy
-// and the column sums), and the two ordered reductions.
+// launches on `stream` (wblock_bwd).
 extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqkv,
                                 const void* wqkv_t, const void* wproj_t, const void* rel_bias,
                                 const void* mask, const void* dy, const void* keep,
                                 float inv_keep, void* dx, void* dweights, void* drel_bias,
                                 void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
-  if (B == 0) return 0;
-  const bool dropout = keep != nullptr;
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
-  if (P.err != cudaSuccess) return (int)P.err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = B * N;
-  float* w = static_cast<float*>(ws);
-  float *qkv = w + P.qkv, *dqkv = w + P.dqkv, *g = w + P.g, *ao = w + P.ao;
-  const float* xf = static_cast<const float*>(x);
-  const float* dyf = static_cast<const float*>(dy);
-  // 1. qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
-  cudaError_t err = launch_proj(
-      proj_gemm(xf, C, static_cast<const float*>(wqkv), 3 * C, static_cast<const float*>(bqkv),
-                qkv, 3 * C, R, 3 * C, C),
-      proj_gemm(dyf, C, static_cast<const float*>(wproj_t), C, nullptr, g, C, R, C, C), s);
-  if (err != cudaSuccess) return (int)err;
-  // 2. the attention backward per (window, head)
-#define FOCAL_ATTN_ARGS                                                                       \
-  qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),               \
-      static_cast<const unsigned char*>(keep), inv_keep, dqkv, ao, w + P.dbias, P.geo, C,    \
-      mask != nullptr ? nW : 1
-  if (dropout)
-    attn_bwd_kernel<true><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_ATTN_ARGS);
-  else
-    attn_bwd_kernel<false><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_ATTN_ARGS);
-#undef FOCAL_ATTN_ARGS
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  // 3. dx = dqkv Wqkv^T
-  err = launch_proj(proj_gemm(dqkv, 3 * C, static_cast<const float*>(wqkv_t), C, nullptr,
-                              static_cast<float*>(dx), C, R, C, 3 * C),
-                    ProjGemm{}, s);
-  if (err != cudaSuccess) return (int)err;
-  // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
-  const size_t q = (size_t)3 * C * C;
-  const focal::WgradGemm wq = focal::wgrad_gemm(xf, dqkv, C, 3 * C, 0, q, P.wbn);
-  const focal::WgradGemm wp =
-      focal::wgrad_gemm(ao, dyf, C, C, q + 3 * C, q + 3 * C + (size_t)C * C, P.wbn);
-  err = focal::launch_wgrad<Src>(P.wbn, wq, wp, R, P.rows_per_split, P.splits, w + P.wpart, P.E,
-                                 false, s);
-  if (err != cudaSuccess) return (int)err;
-  // 5. the partials summed in split order, and d rel_bias in block order
-  err = focal::launch_reduce<Src>(w + P.wpart, P.splits, P.E, static_cast<float*>(dweights), s);
-  if (err != cudaSuccess) return (int)err;
-  return (int)focal::launch_reduce<Src>(w + P.dbias, P.attn_grid, (size_t)H * N * N,
-                                        static_cast<float*>(drel_bias), s);
+  return wblock_bwd(x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep, dx,
+                    dweights, drel_bias, ws, B, N, C, H, nW, stream, false);
+}
+
+// The backward in bf16 (#3-bf16): as focal_wblock_bwd, with x, the three
+// weights, dy and dx bf16 (C a multiple of 8); the weight, bias and
+// bias-table gradients f32.
+extern "C" int focal_wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv,
+                                     const void* wqkv_t, const void* wproj_t, const void* rel_bias,
+                                     const void* mask, const void* dy, const void* keep,
+                                     float inv_keep, void* dx, void* dweights, void* drel_bias,
+                                     void* ws, int B, int N, int C, int H, int nW, void* stream) {
+  return wblock_bwd(x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep, dx,
+                    dweights, drel_bias, ws, B, N, C, H, nW, stream, true);
 }
 
 // The projections' product alone, for the checks: c = a b with a [M, K]

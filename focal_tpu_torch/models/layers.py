@@ -25,6 +25,55 @@ from focal_tpu_torch.ops.dropout import keep_mask, needs_rng
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 running + 0.1 batch (torch momentum 0.1)
 
 
+class Dense(nn.Linear):
+    """nn.Linear that computes in ``compute_dtype`` as flax's ``nn.Dense(dtype=
+    ...)`` does: the f32 parameters cast at use, x W^T rounded to the dtype,
+    then the bias added in it (two roundings, as flax's dot and ``y +=
+    bias``). In f32 it is nn.Linear. The parameters stay f32 whatever the
+    dtype; their gradients reach them through the casts."""
+
+    def __init__(self, in_features, out_features, bias=True, compute_dtype=torch.float32):
+        super().__init__(in_features, out_features, bias=bias)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt == torch.float32:
+            return super().forward(x)
+        y = F.linear(x.to(dt), self.weight.to(dt))
+        return y if self.bias is None else y + self.bias.to(dt)
+
+
+def gelu(x):
+    """Exact (erf) GELU in x's type. f32 is F.gelu; a lower precision rounds
+    where the JAX package's ``nn.gelu(approximate=False)`` does, each op in
+    the type: (0.5 x) erfc(-x sqrt(0.5)), sqrt(0.5) itself rounded (F.gelu
+    on bf16 rounds once, at the end, and differs in a third of the values)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    return (0.5 * x) * torch.special.erfc(-x * torch.tensor(0.5**0.5, dtype=x.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """nn.LayerNorm that computes in ``compute_dtype`` as flax 0.12's
+    ``nn.LayerNorm(dtype=...)`` does (``force_float32_reductions``): the
+    statistics, the normalisation, scale and bias in f32 on the upcast
+    input, the result rounded to the dtype. In f32 it is nn.LayerNorm. (The
+    f32 statistics are PyTorch's, as the f32 path's are, where flax takes
+    E[x^2] - E[x]^2: they differ in f32 rounding only, far below the bf16
+    rounding of the output; one fused op, where the formula written out cost
+    ~30 eager ops a LayerNorm in a training step.)"""
+
+    def __init__(self, dim, eps=1e-5, compute_dtype=torch.float32):
+        super().__init__(dim, eps=eps)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        if self.compute_dtype == torch.float32:
+            return super().forward(x)
+        return super().forward(x.to(torch.float32)).to(self.compute_dtype)
+
+
 def conv2d_f32(x, weight, bias, stride):
     """F.conv2d (NCHW, no padding) with cuDNN's TF32 off: full f32."""
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
@@ -259,29 +308,41 @@ class MultiHeadDotProductAttention(nn.Module):
     In ``train()`` mode with ``dropout_rate`` > 0 the softmaxed weights are
     dropped as flax's ``broadcast_dropout`` does: one keep mask of shape
     [1, 1, Lq, Lk] a call, shared by every sample and head, scaling the
-    kept weights by 1 / (1 - rate); it is drawn from ``rng.device``."""
+    kept weights by 1 / (1 - rate); it is drawn from ``rng.device``.
 
-    def __init__(self, dim, num_heads, dropout_rate=0.0):
+    In bf16 (``compute_dtype``) every step rounds as flax's does at
+    ``dtype=bfloat16``: q divided by sqrt(hd) rounded to bf16, the scores,
+    the softmax's exp, sum and quotient, the dropout and the weighted sum
+    each in bf16."""
+
+    def __init__(self, dim, num_heads, dropout_rate=0.0, compute_dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dropout_rate = float(dropout_rate)
-        self.query = nn.Linear(dim, dim)
-        self.key = nn.Linear(dim, dim)
-        self.value = nn.Linear(dim, dim)
-        self.out = nn.Linear(dim, dim)
+        self.compute_dtype = compute_dtype
+        self.query = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.key = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.value = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.out = Dense(dim, dim, compute_dtype=compute_dtype)
 
     def forward(self, q_in, kv_in, rng=None):
         b, lq, c = q_in.shape
         lk = kv_in.shape[1]
         H = self.num_heads
         hd = c // H
-        q = self.query(q_in).reshape(b, lq, H, hd).transpose(1, 2) / hd**0.5
+        dt = self.compute_dtype
+        q = self.query(q_in).reshape(b, lq, H, hd).transpose(1, 2)
         k = self.key(kv_in).reshape(b, lk, H, hd).transpose(1, 2)
         v = self.value(kv_in).reshape(b, lk, H, hd).transpose(1, 2)
-        attn = torch.softmax(torch.matmul(q, k.transpose(-1, -2)), dim=-1)
+        if dt == torch.float32:
+            attn = torch.softmax(torch.matmul(q / hd**0.5, k.transpose(-1, -2)), dim=-1)
+        else:
+            scores = torch.matmul(q / torch.tensor(hd**0.5, dtype=dt), k.transpose(-1, -2))
+            e = torch.exp(scores - scores.amax(dim=-1, keepdim=True))
+            attn = e / e.sum(dim=-1, keepdim=True)
         if self.training and self.dropout_rate > 0.0:
             gen = needs_rng(rng, "attention dropout").device
-            attn = attn * keep_mask((1, 1, lq, lk), self.dropout_rate, gen)
+            attn = attn * keep_mask((1, 1, lq, lk), self.dropout_rate, gen).to(dt)
         out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
         return self.out(out)
 
@@ -293,11 +354,11 @@ class AttentionFusion(nn.Module):
     Input [b, i, n, c] -> Output [b, i, c]: the mean over the n fused items
     queries them."""
 
-    def __init__(self, dim, num_heads, dropout_ratio=0.0):
+    def __init__(self, dim, num_heads, dropout_ratio=0.0, compute_dtype=torch.float32):
         super().__init__()
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
-        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, num_heads,
-                                                                           dropout_ratio)
+        self.LayerNorm_0 = LayerNorm(dim, eps=1e-5, compute_dtype=compute_dtype)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            dim, num_heads, dropout_ratio, compute_dtype=compute_dtype)
 
     def forward(self, x, rng=None):
         b, i, n, c = x.shape
@@ -319,20 +380,22 @@ class TransformerEncoderLayer(nn.Module):
     LN1(x + drop(Dense_1(drop(relu(Dense_0(x)))))), LayerNorm eps 1e-5.
     In training the attention drops its weights with flax's broadcast mask
     and the three ``drop`` are elementwise masks, all at ``dropout`` and
-    drawn from ``rng.device``. [b, n, dim] -> [b, n, dim]."""
+    drawn from ``rng.device``. [b, n, dim] -> [b, n, dim]. ``compute_dtype``
+    as the layers it is made of."""
 
-    def __init__(self, dim, num_heads, ffn_dim, dropout=0.0):
+    def __init__(self, dim, num_heads, ffn_dim, dropout=0.0, compute_dtype=torch.float32):
         super().__init__()
         self.dropout = float(dropout)
-        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(dim, num_heads, dropout)
-        self.LayerNorm_0 = nn.LayerNorm(dim, eps=1e-5)
-        self.Dense_0 = nn.Linear(dim, ffn_dim)
-        self.Dense_1 = nn.Linear(ffn_dim, dim)
-        self.LayerNorm_1 = nn.LayerNorm(dim, eps=1e-5)
+        self.MultiHeadDotProductAttention_0 = MultiHeadDotProductAttention(
+            dim, num_heads, dropout, compute_dtype=compute_dtype)
+        self.LayerNorm_0 = LayerNorm(dim, eps=1e-5, compute_dtype=compute_dtype)
+        self.Dense_0 = Dense(dim, ffn_dim, compute_dtype=compute_dtype)
+        self.Dense_1 = Dense(ffn_dim, dim, compute_dtype=compute_dtype)
+        self.LayerNorm_1 = LayerNorm(dim, eps=1e-5, compute_dtype=compute_dtype)
 
     def _drop(self, x, rng):
         if self.training and self.dropout > 0.0:
-            return x * keep_mask(x.shape, self.dropout, needs_rng(rng, "Dropout").device)
+            return x * keep_mask(x.shape, self.dropout, needs_rng(rng, "Dropout").device).to(x.dtype)
         return x
 
     def forward(self, x, rng=None):
@@ -343,30 +406,31 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class ProjectionHead(nn.Module):
-    """Linear -> ReLU -> Linear."""
+    """Linear -> ReLU -> Linear, in ``compute_dtype``."""
 
-    def __init__(self, in_dim, out_dim):
+    def __init__(self, in_dim, out_dim, compute_dtype=torch.float32):
         super().__init__()
-        self.Dense_0 = nn.Linear(in_dim, out_dim)
-        self.Dense_1 = nn.Linear(out_dim, out_dim)
+        self.Dense_0 = Dense(in_dim, out_dim, compute_dtype=compute_dtype)
+        self.Dense_1 = Dense(out_dim, out_dim, compute_dtype=compute_dtype)
 
     def forward(self, x):
         return self.Dense_1(F.relu(self.Dense_0(x)))
 
 
 class ClassHead(nn.Module):
-    """Linear classifier, or Linear -> exact GELU -> Linear (SSL head)."""
+    """Linear classifier, or Linear -> exact GELU -> Linear (SSL head), in
+    ``compute_dtype``."""
 
-    def __init__(self, in_dim, num_classes, fc_dim, linear=True):
+    def __init__(self, in_dim, num_classes, fc_dim, linear=True, compute_dtype=torch.float32):
         super().__init__()
         self.linear = linear
         if linear:
-            self.Dense_0 = nn.Linear(in_dim, num_classes)
+            self.Dense_0 = Dense(in_dim, num_classes, compute_dtype=compute_dtype)
         else:
-            self.Dense_0 = nn.Linear(in_dim, fc_dim)
-            self.Dense_1 = nn.Linear(fc_dim, num_classes)
+            self.Dense_0 = Dense(in_dim, fc_dim, compute_dtype=compute_dtype)
+            self.Dense_1 = Dense(fc_dim, num_classes, compute_dtype=compute_dtype)
 
     def forward(self, x):
         if self.linear:
             return self.Dense_0(x)
-        return self.Dense_1(F.gelu(self.Dense_0(x), approximate="none"))
+        return self.Dense_1(gelu(self.Dense_0(x)))

@@ -1,10 +1,14 @@
 """Backbone registry: build a backbone by name, and its flax-style init."""
 
+import torch
+
 from focal_tpu_torch.params import get_train_mode
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 def build_backbone(dataset_config, model, task, learn_framework="no", pallas_conv=False,
-                   pallas_mlp=False, pallas_block=True):
+                   pallas_mlp=False, pallas_block=True, compute_dtype="float32"):
     """Instantiate the backbone named `model` (on the CPU; move it after).
 
     The class head is linear for supervised training or when the recipe's
@@ -15,9 +19,19 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
     as its ``-pallas_mlp``; ``pallas_block=False`` (SW_Transformer only; the
     DeepSense branch never reads it, as in the JAX package) runs window
     attention through the attention-only kernels, as its
-    ``-no_pallas_block``."""
+    ``-no_pallas_block``. ``compute_dtype`` ("float32" or "bfloat16", the
+    JAX package's ``-compute_dtype``) is the activations' type over f32
+    parameters; bf16 runs SW_Transformer's whole-block route (#1-bf16 to
+    #3-bf16) and raises NotImplementedError naming ROADMAP A6 for what has
+    no bf16 form yet: DeepSense, -pallas_mlp, -no_pallas_block and the
+    blocks that go to #4/#5 (MOD_WIDE's stages 1 and 2)."""
     if model not in ("SW_Transformer", "DeepSense"):
         raise ValueError(f"Invalid model provided: {model}")
+    dtype = COMPUTE_DTYPES[compute_dtype]
+    if dtype != torch.float32 and model == "DeepSense":
+        raise NotImplementedError("-compute_dtype bfloat16 with DeepSense needs the bf16 forms of "
+                                  "its conv blocks, GRU and BatchNorm (and of #13/#14), not ported "
+                                  "yet: ROADMAP A6")
     linear_head = (
         get_train_mode(learn_framework) == "supervised"
         or dataset_config[model].get("pretrained_head", "linear") == "linear"
@@ -26,7 +40,8 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
         from focal_tpu_torch.models.sw_transformer import SWTransformer
 
         return SWTransformer(dataset_config, task, linear_class_head=linear_head,
-                             pallas_mlp=pallas_mlp, pallas_block=pallas_block)
+                             pallas_mlp=pallas_mlp, pallas_block=pallas_block,
+                             compute_dtype=dtype)
     from focal_tpu_torch.models.deepsense import DeepSense
 
     return DeepSense(dataset_config, task, linear_class_head=linear_head, use_pallas=pallas_conv)

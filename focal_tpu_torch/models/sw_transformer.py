@@ -18,7 +18,10 @@ Submodules are registered under the flax tree's names
 Swin block's MLP through the fused MLP kernels where ``mlp_takes``;
 ``pallas_block`` off (the CLI's ``-no_pallas_block``) routes its window
 attention through the attention-only kernels (#6-#9) instead of the
-whole-block ones.
+whole-block ones. ``compute_dtype`` (the CLI's ``-compute_dtype``) is the
+activations' type, as the JAX package's ``dtype``: the input spectra and
+the position embedding are cast to it, every layer computes in it over f32
+parameters (``models.swin``), and the class logits come out in f32.
 """
 
 import math
@@ -28,7 +31,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from focal_tpu_torch.models.layers import (AttentionFusion, ClassHead, ProjectionHead,
+from focal_tpu_torch.models.layers import (AttentionFusion, ClassHead, Dense, ProjectionHead,
                                            TransformerEncoderLayer)
 from focal_tpu_torch.models.swin import BasicLayer, PatchEmbed
 
@@ -71,8 +74,9 @@ def mod_geometry(dataset_config, loc, mod):
 
 class SWTransformer(nn.Module):
     def __init__(self, dataset_config, task, linear_class_head=True, pallas_mlp=False,
-                 pallas_block=True):
+                 pallas_block=True, compute_dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = dt = compute_dtype
         cfgs = dataset_config
         config = cfgs["SW_Transformer"]
         self.modalities = cfgs["modality_names"]
@@ -86,7 +90,8 @@ class SWTransformer(nn.Module):
                 self.geometries[(loc, mod)] = geo
                 in_chans = 2 * cfgs["loc_mod_in_time_channels"][loc][mod] * geo["stride"]
                 self.add_module(f"patch_embed_{loc}_{mod}", PatchEmbed(
-                    geo["patch"], in_chans, embed_dim, norm=config.get("patch_norm", True)))
+                    geo["patch"], in_chans, embed_dim, norm=config.get("patch_norm", True),
+                    compute_dtype=dt))
                 if config.get("APE", False):
                     n_patches = geo["patches_res"][0] * geo["patches_res"][1]
                     self.register_parameter(
@@ -106,11 +111,12 @@ class SWTransformer(nn.Module):
                         attn_drop=config.get("attn_drop_rate", 0.0),
                         drop_path=tuple(dpr[sum(block_num[:i]): sum(block_num[: i + 1])]),
                         downsample=i < len(block_num) - 1, pallas_mlp=pallas_mlp,
-                        pallas_block=pallas_block,
+                        pallas_block=pallas_block, compute_dtype=dt,
                     ))
                 (fh, fw), final_dim = geo["stages"][-1]
                 self.add_module(f"mod_in_layer_{loc}_{mod}",
-                                nn.Linear(fh * fw * final_dim, config["loc_out_channels"]))
+                                Dense(fh * fw * final_dim, config["loc_out_channels"],
+                                      compute_dtype=dt))
 
         loc_out = config["loc_out_channels"]
         self.loc_block_num = config["loc_block_num"] if self.multi_location else 0
@@ -118,16 +124,19 @@ class SWTransformer(nn.Module):
             for mod in self.modalities:
                 for i in range(self.loc_block_num):
                     self.add_module(f"loc_context_{mod}_{i}", TransformerEncoderLayer(
-                        loc_out, config["loc_head_num"], loc_out, config["dropout_ratio"]))
+                        loc_out, config["loc_head_num"], loc_out, config["dropout_ratio"],
+                        compute_dtype=dt))
                 self.add_module(f"loc_fusion_{mod}", AttentionFusion(
-                    loc_out, config["loc_head_num"], config["dropout_ratio"]))
+                    loc_out, config["loc_head_num"], config["dropout_ratio"], compute_dtype=dt))
         emb_dim = cfgs["FOCAL"]["emb_dim"]
         for mod in self.modalities:
-            self.add_module(f"mod_projector_{mod}", ProjectionHead(loc_out, emb_dim))
+            self.add_module(f"mod_projector_{mod}",
+                            ProjectionHead(loc_out, emb_dim, compute_dtype=dt))
         self.mod_fusion_layer = AttentionFusion(loc_out, config["loc_head_num"],
-                                                config["dropout_ratio"])
+                                                config["dropout_ratio"], compute_dtype=dt)
         self.class_layer = ClassHead(
-            loc_out, cfgs[task]["num_classes"], config["fc_dim"], linear=linear_class_head
+            loc_out, cfgs[task]["num_classes"], config["fc_dim"], linear=linear_class_head,
+            compute_dtype=dt,
         )
 
     def stages(self, loc, mod):
@@ -149,11 +158,11 @@ class SWTransformer(nn.Module):
         mod_loc_features = {mod: [] for mod in self.modalities}
         for loc in self.locations:
             for mod in self.modalities:
-                x = self.pad_input(freq_x[loc][mod].to(torch.float32), loc, mod)
+                x = self.pad_input(freq_x[loc][mod].to(self.compute_dtype), loc, mod)
                 x = getattr(self, f"patch_embed_{loc}_{mod}")(x)
                 ape = getattr(self, f"absolute_pos_embed_{loc}_{mod}", None)
                 if ape is not None:
-                    x = x + ape
+                    x = x + ape.to(self.compute_dtype)
                 for stage in self.stages(loc, mod):
                     x = stage(x, rng)
                 mod_loc_features[mod].append(
@@ -177,7 +186,7 @@ class SWTransformer(nn.Module):
             return proj
         stacked = torch.stack([mod_features[m] for m in self.modalities], dim=1)  # [b, n_mod, c]
         fused = self.mod_fusion_layer(stacked[:, None], rng)[:, 0]
-        logits = self.class_layer(fused).to(torch.float32)
+        logits = self.class_layer(fused.to(self.compute_dtype)).to(torch.float32)
         if head == "class":
             return logits
         if head == "both":

@@ -20,6 +20,17 @@ In training every module takes ``rng``, the step's ``ops.dropout.StepRngs``:
 one kernel seed per block from its host generator, DropPath and the other
 dropouts from its device generator.
 
+``compute_dtype`` (the CLI's ``-compute_dtype``) is the activations' type,
+as flax's ``dtype=``: in bf16 each Linear and LayerNorm casts its f32
+parameters at use (``models.layers.Dense``, ``models.layers.LayerNorm``),
+the residual stream, the MLP and the dropouts run in bf16, and window
+attention takes the bf16 whole-block kernels (#1-bf16 in eval, #2-bf16 or
+#1-bf16 forward and #3-bf16 backward in training) with the q scale folded
+into the f32 qkv weights before they are rounded. The routes whose bf16
+forms are not ported (the attention-only and XLA routes, the per-head
+kernels #4/#5) raise NotImplementedError naming ROADMAP A6 when the block
+is built.
+
 Parameter names follow the flax tree (``norm1``, ``attn.qkv``, ``mlp.Dense_0``,
 ``downsample.reduction`` ...) so a reader can map one to the other; weights
 use torch's ``nn.Linear`` layout ``[out, in]``.
@@ -28,13 +39,13 @@ use torch's ``nn.Linear`` layout ``[out, in]``.
 import numpy as np
 import torch
 import torch.nn as nn
-import torch.nn.functional as F
 
+from focal_tpu_torch.models.layers import Dense, LayerNorm, gelu
 from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
 from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_takes
 from focal_tpu_torch.ops.pallas_kernels import (attention_takes, fused_window_attention,
-                                                wblock_takes, window_attention_qkv, window_block,
-                                                window_block_forward)
+                                                wblock_fits, wblock_takes, window_attention_qkv,
+                                                window_block, window_block_forward)
 
 
 def window_partition(x, wh, ww):
@@ -101,10 +112,11 @@ class WindowAttention(nn.Module):
     """W-MSA with relative position bias, through the whole-block kernels, or
     with ``pallas_block`` off through the attention-only kernels between the
     qkv and proj Linears; attention dropout in the kernel, ``proj_drop`` on
-    its output."""
+    its output. In bf16 only the whole-block route is ported: a block of
+    another route, or one that ``wblock_fits`` sends to #4/#5, raises."""
 
     def __init__(self, dim, window_size, num_heads, qkv_bias=True, attn_drop=0.0, proj_drop=0.0,
-                 pallas_block=True):
+                 pallas_block=True, compute_dtype=torch.float32):
         super().__init__()
         self.dim = dim
         self.pallas_block = bool(pallas_block)
@@ -112,7 +124,10 @@ class WindowAttention(nn.Module):
         self.num_heads = num_heads
         self.attn_drop = float(attn_drop)
         self.proj_drop = float(proj_drop)
+        self.compute_dtype = compute_dtype
         wh, ww = self.window_size
+        if compute_dtype != torch.float32:
+            _refuse_low_precision_route(wh * ww, dim, num_heads, self.pallas_block)
         self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)  # columns part|head|dim
         self.proj = nn.Linear(dim, dim)
         self.relative_position_bias_table = nn.Parameter(
@@ -146,15 +161,18 @@ class WindowAttention(nn.Module):
 
     def kernel_args(self):
         """(wqkv [C, 3C] with the q scale folded in, bqkv, wproj [C, C],
-        bproj, rel_bias [H, N, N]) as the kernel takes them."""
+        bproj, rel_bias [H, N, N]) as the kernel takes them; in bf16 wqkv
+        (folded in f32 first) and wproj rounded to bf16, the rest f32."""
         wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
-        return wqkv_t.t().contiguous(), bqkv, wproj_t.t().contiguous(), bproj, rel_bias
+        dt = self.compute_dtype
+        return (wqkv_t.t().contiguous().to(dt), bqkv, wproj_t.t().contiguous().to(dt), bproj,
+                rel_bias)
 
     def folded_kernel_args(self):
-        """kernel_args(), folded once and reused until a parameter is replaced
-        (load_state_dict, .to()) or written in place: a served model pays
-        for the folding on its first batch only. Eval only: the fold carries
-        no gradient."""
+        """kernel_args(), folded (and in bf16 rounded) once and reused until a
+        parameter is replaced (load_state_dict, .to()) or written in place:
+        a served model pays for the folding on its first batch only. Eval
+        only: the fold carries no gradient."""
         key = [(p.data_ptr(), p._version) for p in self.parameters()]
         if key != self._kernel_key:
             with torch.no_grad():
@@ -217,6 +235,7 @@ class WindowAttention(nn.Module):
         else:
             # training folds with grad, so the weights' gradients flow back
             # through the q scale, the transposes and the bias-table gather
+            # (in bf16 window_block rounds the folded weights itself)
             seed = needs_rng(rng, "attention dropout").seed() if self.attn_drop > 0.0 else 0
             wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
             out = window_block(x.contiguous(), wqkv_t.t().contiguous(), bqkv,
@@ -225,6 +244,26 @@ class WindowAttention(nn.Module):
         if self.training and self.proj_drop > 0.0:
             out = remat_dropout(out, self.proj_drop, needs_rng(rng, "proj_drop").device)
         return out
+
+
+def _refuse_low_precision_route(N, C, H, pallas_block):
+    """Raise NotImplementedError, naming ROADMAP A6, for a bf16 window
+    attention of window size N, width C and H heads on a route whose bf16
+    form is not ported: the attention-only kernels (-no_pallas_block, #6-#9),
+    the XLA route of widths no kernel takes (and C not a multiple of 8, which
+    #1-bf16 to #3-bf16 stage 8 values at a time), the per-head #4/#5."""
+    if not pallas_block:
+        raise NotImplementedError(
+            "-compute_dtype bfloat16 with -no_pallas_block needs the bf16 forms of the "
+            "attention-only kernels #6-#9, not ported yet: ROADMAP A6")
+    if not wblock_takes(N, C, H) or C % 8:
+        raise NotImplementedError(
+            f"-compute_dtype bfloat16 at N={N} C={C} H={H}: no bf16 whole-block kernel takes "
+            "this width, not ported yet: ROADMAP A6")
+    if not wblock_fits(N, C, H):
+        raise NotImplementedError(
+            f"-compute_dtype bfloat16 at N={N} C={C} H={H} goes to the per-head kernels #4/#5, "
+            "whose bf16 forms are not ported yet: ROADMAP A6")
 
 
 class DropPath(nn.Module):
@@ -257,10 +296,13 @@ class Mlp(nn.Module):
     Otherwise two nn.Linear layers with the dropouts of
     ``ops.dropout.remat_dropout``."""
 
-    def __init__(self, dim, hidden, out, drop=0.0, use_pallas=False):
+    def __init__(self, dim, hidden, out, drop=0.0, use_pallas=False, compute_dtype=torch.float32):
         super().__init__()
-        self.Dense_0 = nn.Linear(dim, hidden)
-        self.Dense_1 = nn.Linear(hidden, out)
+        if use_pallas and compute_dtype != torch.float32:
+            raise NotImplementedError("-compute_dtype bfloat16 with -pallas_mlp needs the bf16 "
+                                      "forms of #10-#12, not ported yet: ROADMAP A6")
+        self.Dense_0 = Dense(dim, hidden, compute_dtype=compute_dtype)
+        self.Dense_1 = Dense(hidden, out, compute_dtype=compute_dtype)
         self.drop = float(drop)
         self.fused = bool(use_pallas) and out == dim and mlp_takes(dim, hidden)
 
@@ -281,7 +323,7 @@ class Mlp(nn.Module):
             else:
                 y = fused_mlp(x2, *w, w1_t=w1_t, w2_t=w2_t)
             return y.reshape(*lead, C)
-        x = self._drop(F.gelu(self.Dense_0(x), approximate="none"), rng)
+        x = self._drop(gelu(self.Dense_0(x)), rng)
         return self._drop(self.Dense_1(x), rng)
 
 
@@ -290,7 +332,7 @@ class SwinBlock(nn.Module):
 
     def __init__(self, dim, input_resolution, num_heads, window_size, shift_size,
                  mlp_ratio=4.0, qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=0.0,
-                 pallas_mlp=False, pallas_block=True):
+                 pallas_mlp=False, pallas_block=True, compute_dtype=torch.float32):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
         H, W = self.input_resolution
@@ -302,12 +344,14 @@ class SwinBlock(nn.Module):
             if self.shifted else None
         )
         self.register_buffer("attn_mask", mask, persistent=False)
-        self.norm1 = nn.LayerNorm(dim, eps=1e-5)
+        self.norm1 = LayerNorm(dim, eps=1e-5, compute_dtype=compute_dtype)
         self.attn = WindowAttention(dim, (self.wh, self.ww), num_heads, qkv_bias,
-                                    attn_drop=attn_drop, proj_drop=drop, pallas_block=pallas_block)
+                                    attn_drop=attn_drop, proj_drop=drop, pallas_block=pallas_block,
+                                    compute_dtype=compute_dtype)
         self.drop_path1 = DropPath(drop_path)
-        self.norm2 = nn.LayerNorm(dim, eps=1e-5)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, use_pallas=pallas_mlp)
+        self.norm2 = LayerNorm(dim, eps=1e-5, compute_dtype=compute_dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, drop, use_pallas=pallas_mlp,
+                       compute_dtype=compute_dtype)
         self.drop_path2 = DropPath(drop_path)
 
     def forward(self, x, rng=None):
@@ -328,11 +372,11 @@ class SwinBlock(nn.Module):
 class PatchMerging(nn.Module):
     """2x2 patch concat + LayerNorm + linear reduce."""
 
-    def __init__(self, input_resolution, dim):
+    def __init__(self, input_resolution, dim, compute_dtype=torch.float32):
         super().__init__()
         self.input_resolution = tuple(input_resolution)
-        self.LayerNorm_0 = nn.LayerNorm(4 * dim, eps=1e-5)
-        self.reduction = nn.Linear(4 * dim, 2 * dim, bias=False)
+        self.LayerNorm_0 = LayerNorm(4 * dim, eps=1e-5, compute_dtype=compute_dtype)
+        self.reduction = Dense(4 * dim, 2 * dim, bias=False, compute_dtype=compute_dtype)
 
     def forward(self, x):
         H, W = self.input_resolution
@@ -351,7 +395,7 @@ class BasicLayer(nn.Module):
 
     def __init__(self, dim, input_resolution, depth, num_heads, window_size, mlp_ratio=4.0,
                  qkv_bias=True, drop=0.0, attn_drop=0.0, drop_path=(0.0,), downsample=False,
-                 pallas_mlp=False, pallas_block=True):
+                 pallas_mlp=False, pallas_block=True, compute_dtype=torch.float32):
         super().__init__()
         self.depth = depth
         for i in range(depth):
@@ -361,8 +405,10 @@ class BasicLayer(nn.Module):
                 dim, input_resolution, num_heads, window_size, shift,
                 mlp_ratio=mlp_ratio, qkv_bias=qkv_bias, drop=drop, attn_drop=attn_drop,
                 drop_path=dp, pallas_mlp=pallas_mlp, pallas_block=pallas_block,
+                compute_dtype=compute_dtype,
             ))
-        self.downsample = PatchMerging(input_resolution, dim) if downsample else None
+        self.downsample = (PatchMerging(input_resolution, dim, compute_dtype=compute_dtype)
+                           if downsample else None)
 
     def blocks(self):
         return [getattr(self, f"block{i}") for i in range(self.depth)]
@@ -379,15 +425,17 @@ class PatchEmbed(nn.Module):
     """Patchify + optional LayerNorm. The flax package uses a conv with
     kernel = stride; here it is a patch reshape plus a matmul, which is the
     same sum and stays in full f32 on the card (cuDNN convolutions default
-    to TF32). ``proj.weight`` is the conv kernel [kh, kw, in, out] flattened
-    to [(kh*kw*in), out] and transposed."""
+    to TF32), or in bf16 rounds as flax's bf16 conv does (``compute_dtype``).
+    ``proj.weight`` is the conv kernel [kh, kw, in, out] flattened to
+    [(kh*kw*in), out] and transposed."""
 
-    def __init__(self, patch_size, in_chans, embed_dim, norm=True):
+    def __init__(self, patch_size, in_chans, embed_dim, norm=True, compute_dtype=torch.float32):
         super().__init__()
         self.patch_size = tuple(patch_size)
         ph, pw = self.patch_size
-        self.proj = nn.Linear(ph * pw * in_chans, embed_dim)
-        self.LayerNorm_0 = nn.LayerNorm(embed_dim, eps=1e-5) if norm else None
+        self.proj = Dense(ph * pw * in_chans, embed_dim, compute_dtype=compute_dtype)
+        self.LayerNorm_0 = (LayerNorm(embed_dim, eps=1e-5, compute_dtype=compute_dtype) if norm
+                            else None)
 
     def forward(self, x):
         # x: [B, H, W, C] NHWC

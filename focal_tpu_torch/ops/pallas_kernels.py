@@ -23,6 +23,14 @@ attention kernel per (window, head):
 launches. ``window_block_forward`` (eval) and ``window_block`` (training,
 an autograd pair) route each geometry to #1-#3 or to #4/#5.
 
+The bf16 forms (``-compute_dtype bfloat16``): ``fused_window_block_bf16``
+(#1-bf16), ``fused_window_block_dropout_bf16`` (#2-bf16) and
+``fused_window_block_backward_bf16`` (#3-bf16) take bf16 x, weights and dy
+and give bf16 y and dx, the products on the bf16 tensor cores, rounding
+where the JAX package's kernel does when it is fed bf16 (see
+``fused_window_block_bf16_reference``). The routes take them for a bf16
+x; a bf16 block that ``wblock_fits`` sends to #4/#5 raises (ROADMAP A6).
+
 Attention-only kernels (``csrc/window_attention.cu``), the route of the
 CLI's ``-no_pallas_block``: softmax(q k^T + bias) v on q, k, v [B_, H, N,
 hd], the projections outside:
@@ -103,7 +111,11 @@ def fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=Non
     package's ``_xla_attention`` with the bias and shift mask summed as
     ``expand_bias_lanes`` does). Window w takes mask[w % nW]. With ``keep``
     (uint8 [B_, H, N, N]) the attention weights are dropped where keep is 0
-    and scaled by 1 / (1 - rate) where it is 1."""
+    and scaled by 1 / (1 - rate) where it is 1. A bf16 x takes
+    fused_window_block_bf16_reference."""
+    if x.dtype == torch.bfloat16:
+        return fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
+                                                 rate)
     B, N, C = x.shape
     H = rel_bias.shape[0]
     hd = C // H
@@ -149,11 +161,64 @@ def fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
                                           keep=None, rate=0.0):
     """Plain version of #3: autograd through fused_window_block_reference
     with the keep mask applied. Returns (dx, dwqkv, dbqkv, dwproj, dbproj,
-    drel_bias)."""
+    drel_bias). A bf16 x takes fused_window_block_backward_bf16_reference."""
+    if x.dtype == torch.bfloat16:
+        return fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                                          mask, dy, keep, rate)
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(True) for t in (x, wqkv, bqkv, wproj, bproj, rel_bias)]
         y = fused_window_block_reference(*leaves, mask, keep, rate)
         return torch.autograd.grad(y, leaves, dy)
+
+
+def fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None,
+                                      keep=None, rate=0.0):
+    """Plain version of #1-bf16 (and of #2-bf16 given its keep mask): the
+    rounding points of the JAX package's ``_wblock_fwd_math`` fed bf16 x,
+    wqkv and wproj (``focal_tpu/ops/pallas_kernels.py:908-938``). The bf16
+    operands are upcast, so each f32 product is exact and only its
+    summation order differs from the kernel's: qkv = x Wqkv + bqkv in f32,
+    the softmax and dropout in f32, the attention output rounded to bf16,
+    y = ao Wproj + bproj rounded to bf16. bqkv, bproj, rel_bias and the
+    mask are f32."""
+    f32 = torch.float32
+    B, N, C = x.shape
+    qkv = torch.matmul(x.to(f32), wqkv.to(f32)) + bqkv
+    q, k, v = _head_views(qkv, rel_bias.shape[0])
+    out = fused_window_attention_reference(q, k, v, rel_bias, mask, keep, rate)
+    ao = out.transpose(1, 2).reshape(B, N, C).to(torch.bfloat16).to(f32)
+    return (torch.matmul(ao, wproj.to(f32)) + bproj).to(torch.bfloat16)
+
+
+def fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+                                               keep=None, rate=0.0):
+    """Plain version of #3-bf16: the rounding points of the JAX package's
+    ``_wblock_bwd_kernel`` fed bf16 (``pk:971-1072``). qkv and g = dy
+    Wproj^T recomputed in f32 from the bf16 operands; the attention
+    backward in f32 (autograd through fused_window_attention_reference);
+    dq, dk, dv rounded to bf16 for dx = dqkv Wqkv^T (stored as bf16) and
+    dWqkv = x^T dqkv; the attention output rounded to bf16 for dWproj = ao^T
+    dy; dbqkv and d rel_bias from the f32 values, dbproj the f32 sum of dy.
+    Returns (dx bf16, dwqkv, dbqkv, dwproj, dbproj, drel_bias f32)."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    B, N, C = x.shape
+    x, wqkv, bqkv, wproj, dy = (t.detach() for t in (x, wqkv, bqkv, wproj, dy))
+    xf, dyf, wq = x.to(f32).reshape(B * N, C), dy.to(f32), wqkv.to(f32)
+    g = torch.matmul(dyf, wproj.to(f32).t())
+    with torch.enable_grad():
+        qkv = (torch.matmul(xf, wq) + bqkv).reshape(B, N, 3 * C).requires_grad_(True)
+        rb = rel_bias.detach().requires_grad_(True)
+        q, k, v = _head_views(qkv, rel_bias.shape[0])
+        out = fused_window_attention_reference(q, k, v, rb, mask, keep, rate)
+        ao = out.transpose(1, 2).reshape(B, N, C)
+        dqkv, drel_bias = torch.autograd.grad(ao, (qkv, rb), g)
+    dqkv = dqkv.reshape(B * N, 3 * C)
+    dqkv_b = dqkv.to(bf16).to(f32)
+    ao_b = ao.detach().reshape(B * N, C).to(bf16).to(f32)
+    dyf = dyf.reshape(B * N, C)
+    dx = torch.matmul(dqkv_b, wq.t()).to(bf16).reshape(B, N, C)
+    return (dx, torch.matmul(xf.t(), dqkv_b), dqkv.sum(0), torch.matmul(ao_b.t(), dyf),
+            dyf.sum(0), drel_bias)
 
 
 def _check(name, t, shape, device, dtype=torch.float32, who="fused_window_block"):
@@ -167,21 +232,23 @@ def _check(name, t, shape, device, dtype=torch.float32, who="fused_window_block"
         raise ValueError(f"{who}: {name} must be contiguous")
 
 
-def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask):
-    """Validate the CUDA path's inputs; returns (B, N, C, H, nW)."""
+def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype=torch.float32):
+    """Validate the CUDA path's inputs, x, wqkv and wproj of ``dtype`` (f32,
+    or bf16 for #1-bf16 to #3-bf16, whose rows are staged 8 values at a
+    time: C a multiple of 8); returns (B, N, C, H, nW)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_window_block: unsupported device {x.device}")
     if x.dim() != 3:
         raise ValueError(f"fused_window_block: x must be [B_, N, C], got {tuple(x.shape)}")
     B, N, C = x.shape
     H = rel_bias.shape[0]
-    if not 1 <= N <= _MAX_N or C % 4 or C % H:
-        raise ValueError(f"fused_window_block: unsupported geometry N={N} C={C} H={H}")
+    if not 1 <= N <= _MAX_N or C % (8 if dtype == torch.bfloat16 else 4) or C % H:
+        raise ValueError(f"fused_window_block: unsupported geometry N={N} C={C} H={H} ({dtype})")
     dev = x.device
-    _check("x", x, (B, N, C), dev)
-    _check("wqkv", wqkv, (C, 3 * C), dev)
+    _check("x", x, (B, N, C), dev, dtype)
+    _check("wqkv", wqkv, (C, 3 * C), dev, dtype)
     _check("bqkv", bqkv, (3 * C,), dev)
-    _check("wproj", wproj, (C, C), dev)
+    _check("wproj", wproj, (C, C), dev, dtype)
     _check("bproj", bproj, (C,), dev)
     _check("rel_bias", rel_bias, (H, N, N), dev)
     nW = 1
@@ -331,16 +398,18 @@ def _workspace(name, lib, fn, dev, *geometry):
     return torch.empty(floats.value, dtype=torch.float32, device=dev)
 
 
-def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate):
-    """The CUDA path of #1, #2 and #4: validate, size the workspace, launch.
-    Returns (y, keep), keep None at rate 0."""
-    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, bf16=False):
+    """The CUDA path of #1, #2 and #4 (with ``bf16``, #1-bf16 and #2-bf16):
+    validate, size the workspace, launch. Returns (y, keep), keep None at
+    rate 0."""
+    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                       torch.bfloat16 if bf16 else torch.float32)
     _check_aligned(name, wqkv, wproj)
     lib = _window_block_lib()
     ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace, x.device, B, N, C, H)
     y = torch.empty_like(x)
     keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
-    _launch(name, lib.focal_wblock_fwd_dropout, x.device,
+    _launch(name, lib.focal_wblock_fwd_bf16 if bf16 else lib.focal_wblock_fwd_dropout, x.device,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
             rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep), ws.data_ptr(), B, N, C, H,
             nW, int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
@@ -348,12 +417,13 @@ def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rat
 
 
 def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate, wqkv_t,
-                     wproj_t):
-    """The CUDA path of #3 and #5: validate, size the workspace, launch, and
-    split the flat weight gradients."""
-    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+                     wproj_t, bf16=False):
+    """The CUDA path of #3 and #5 (with ``bf16``, #3-bf16): validate, size
+    the workspace, launch, and split the flat weight gradients."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype)
     dev = x.device
-    _check("dy", dy, (B, N, C), dev)
+    _check("dy", dy, (B, N, C), dev, dtype)
     if keep is not None:
         if not 0.0 < rate < 1.0:
             raise ValueError(f"{name}: rate must be in (0, 1), got {rate}")
@@ -362,8 +432,8 @@ def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep
         wqkv_t = wqkv.t().contiguous()
     if wproj_t is None:
         wproj_t = wproj.t().contiguous()
-    _check("wqkv_t", wqkv_t, (3 * C, C), dev)
-    _check("wproj_t", wproj_t, (C, C), dev)
+    _check("wqkv_t", wqkv_t, (3 * C, C), dev, dtype)
+    _check("wproj_t", wproj_t, (C, C), dev, dtype)
     _check_aligned(name, wqkv, wqkv_t, wproj_t, dy)
     lib = _window_block_lib()
     ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace, dev, B, N, C, H,
@@ -372,7 +442,7 @@ def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep
     dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
     drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
-    _launch(name, lib.focal_wblock_bwd, dev,
+    _launch(name, lib.focal_wblock_bwd_bf16 if bf16 else lib.focal_wblock_bwd, dev,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wqkv_t.data_ptr(), wproj_t.data_ptr(),
             rel_bias.data_ptr(), _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep,
             dx.data_ptr(), dweights.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(),
@@ -487,8 +557,14 @@ gemm_3xtf32.launches = 0
 
 
 def window_block_forward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
-    """The eval forward, routed: #1 where ``wblock_fits``, else #4 at rate 0.
-    Arguments and result as fused_window_block."""
+    """The eval forward, routed: #1 where ``wblock_fits``, else #4 at rate 0;
+    a bf16 x takes #1-bf16 (its weights rounded to bf16 where they come in
+    f32) and raises where #4 would run. Arguments and result as
+    fused_window_block."""
+    if x.dtype == torch.bfloat16:
+        _bf16_fits(x, rel_bias)
+        return fused_window_block_bf16(x, wqkv.to(x.dtype), bqkv, wproj.to(x.dtype), bproj,
+                                       rel_bias, mask)
     if wblock_fits(x.shape[1], x.shape[2], rel_bias.shape[0]):
         return fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
     return fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)[0]
@@ -534,7 +610,12 @@ def window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=
     forward by #4 and backward by #5; gradients in x, wqkv, bqkv, wproj,
     bproj and rel_bias. ``wqkv_t`` and ``wproj_t``, when given, are the same
     weights transposed, which #3 and #5 read (see
-    fused_window_block_backward)."""
+    fused_window_block_backward). A bf16 x takes #2-bf16 (or #1-bf16) and
+    #3-bf16 (``_WindowBlockBf16``: f32 weights rounded inside, their
+    gradients f32), and raises where #4/#5 would run."""
+    if x.dtype == torch.bfloat16:
+        return _WindowBlockBf16.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed,
+                                      float(rate), wqkv_t, wproj_t, False)
     return _WindowBlock.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, float(rate),
                               wqkv_t, wproj_t)
 
@@ -544,12 +625,150 @@ def window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, see
     """Plain version of window_block on any device: the keep mask from
     draw_keep_mask, autograd through fused_window_block_reference. It takes
     window_block's arguments so that it can stand in for it; the
-    transposed weights go unread."""
+    transposed weights go unread. A bf16 x takes the bf16 plain versions
+    (``_WindowBlockBf16`` with ``plain``)."""
+    if x.dtype == torch.bfloat16:
+        return _WindowBlockBf16.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed,
+                                      float(rate), None, None, True)
     keep = None
     if rate > 0.0:
         B, N, _ = x.shape
         keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
     return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, rate)
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forms of the whole-block kernels (#1-bf16, #2-bf16, #3-bf16)
+
+
+def _bf16_fits(x, rel_bias):
+    """Raise where a bf16 block would go to #4/#5, whose bf16 forms are not
+    ported."""
+    N, C, H = x.shape[1], x.shape[2], rel_bias.shape[0]
+    if not wblock_fits(N, C, H):
+        raise NotImplementedError(
+            f"bf16 window block at N={N} C={C} H={H} goes to the per-head kernels #4/#5, whose "
+            "bf16 forms are not ported yet: ROADMAP A6")
+
+
+def fused_window_block_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
+    """#1 in bf16 (#1-bf16): fused_window_block's function on bf16 x [B_, N,
+    C], wqkv [C, 3C] (q columns pre-scaled) and wproj [C, C], with f32 bqkv,
+    bproj, rel_bias and mask; returns bf16 y. C a multiple of 8.
+
+    On the card: qkv = x Wqkv + bqkv over all B_ N rows in f32, the
+    attention per (window, head) in f32, y = ao Wproj + bproj with ao
+    rounded to bf16, the products on the bf16 tensor cores (one mma.sync
+    m16n8k16 pass, f32 sums); x, wqkv and wproj 16-byte aligned.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block fed bf16
+    (_wblock_fwd_kernel at rate 0). CPU tensors take
+    fused_window_block_bf16_reference; CUDA tensors launch
+    csrc/window_block.cu's focal_wblock_fwd_bf16.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+    y, _ = _launch_forward("fused_window_block_bf16", x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                           0, 0.0, bf16=True)
+    fused_window_block_bf16.launches += 1
+    return y
+
+
+fused_window_block_bf16.launches = 0
+
+
+def fused_window_block_dropout_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate):
+    """#2 in bf16 (#2-bf16): #1-bf16 with attention dropout, the mask drawn
+    as #2 draws it (the same seed and geometry give #2's mask). Returns (y
+    bf16, keep uint8 [B_, H, N, N]).
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block_dropout fed
+    bf16. On the CPU the keep mask comes from draw_keep_mask and y from
+    fused_window_block_bf16_reference.
+    """
+    _check_rate("fused_window_block_dropout_bf16", rate)
+    if x.device.type == "cpu":
+        B, N, _ = x.shape
+        keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+        return fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
+                                                 rate), keep
+    y, keep = _launch_forward("fused_window_block_dropout_bf16", x, wqkv, bqkv, wproj, bproj,
+                              rel_bias, mask, seed, rate, bf16=True)
+    fused_window_block_dropout_bf16.launches += 1
+    return y, keep
+
+
+fused_window_block_dropout_bf16.launches = 0
+
+
+def fused_window_block_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep=None,
+                                     rate=0.0, wqkv_t=None, wproj_t=None):
+    """VJP of #1-bf16 or #2-bf16 (#3-bf16): fused_window_block_backward's
+    arguments with bf16 x, weights (and their transposes) and dy. Returns
+    (dx bf16, dwqkv, dbqkv, dwproj, dbproj, drel_bias f32), the weight and
+    bias-table gradients fixed-order sums: two calls give the same bits.
+
+    On the card: qkv and g = dy Wproj^T recomputed in f32, the attention
+    backward in f32, dx = dqkv Wqkv^T and the weight gradients x^T dqkv and
+    ao^T dy on the bf16 tensor cores with dqkv and ao rounded to bf16 as
+    they are staged, dbqkv summed from the f32 dqkv.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_bwd_impl fed bf16
+    (_wblock_bwd_kernel). CPU tensors take
+    fused_window_block_backward_bf16_reference.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                                          mask, dy, keep, rate)
+    grads = _launch_backward("fused_window_block_backward_bf16", x, wqkv, bqkv, wproj, bproj,
+                             rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t, bf16=True)
+    fused_window_block_backward_bf16.launches += 1
+    return grads
+
+
+fused_window_block_backward_bf16.launches = 0
+
+
+class _WindowBlockBf16(torch.autograd.Function):
+    """#2-bf16 (or #1-bf16 at rate 0) forward and #3-bf16 backward, or with
+    ``plain`` their plain versions (the mask from draw_keep_mask). The
+    weights come in f32 and are rounded to bf16 here, so their gradients
+    leave in f32 unrounded, as the JAX package's VJP hands them to the f32
+    parameters; dx leaves in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, wqkv_t, wproj_t,
+                plain):
+        _bf16_fits(x, rel_bias)
+        bf16 = torch.bfloat16
+        wq, wp = wqkv.to(bf16), wproj.to(bf16)
+        keep = None
+        if plain:
+            if rate > 0.0:
+                B, N, _ = x.shape
+                keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+            y = fused_window_block_bf16_reference(x, wq, bqkv, wp, bproj, rel_bias, mask, keep, rate)
+        elif rate > 0.0:
+            y, keep = fused_window_block_dropout_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask, seed,
+                                                      rate)
+        else:
+            y = fused_window_block_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask)
+        wq_t = None if wqkv_t is None else wqkv_t.to(bf16)
+        wp_t = None if wproj_t is None else wproj_t.to(bf16)
+        ctx.save_for_backward(x, wq, bqkv, wp, bproj, rel_bias, mask, keep, wq_t, wp_t)
+        ctx.rate, ctx.plain = rate, plain
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wq, bqkv, wp, bproj, rel_bias, mask, keep, wq_t, wp_t = ctx.saved_tensors
+        if ctx.plain:
+            grads = fused_window_block_backward_bf16_reference(x, wq, bqkv, wp, bproj, rel_bias,
+                                                               mask, dy, keep, ctx.rate)
+        else:
+            grads = fused_window_block_backward_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask,
+                                                     dy.contiguous(), keep, ctx.rate, wq_t, wp_t)
+        return (*grads, None, None, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -948,8 +1167,10 @@ def _window_block_lib():
             [p] * 10 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
         lib.focal_wblock_bwd_workspace.argtypes = [i] * 5 + [ll]
         lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
+        lib.focal_wblock_fwd_bf16.argtypes = lib.focal_wblock_fwd_dropout.argtypes
+        lib.focal_wblock_bwd_bf16.argtypes = lib.focal_wblock_bwd.argtypes
         for fn in (lib.focal_wblock_fwd_workspace, lib.focal_wblock_fwd_dropout, lib.focal_wblock_bwd_workspace,
-                   lib.focal_wblock_bwd):
+                   lib.focal_wblock_bwd, lib.focal_wblock_fwd_bf16, lib.focal_wblock_bwd_bf16):
             fn.restype = ctypes.c_int
         lib.focal_gemm_3xtf32.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.focal_gemm_3xtf32.restype = ctypes.c_int

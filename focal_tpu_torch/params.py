@@ -94,6 +94,12 @@ def build_parser():
                         help="SW_Transformer: disable the whole-block attention kernels (qkv + "
                         "attention + proj fused per window; #1-#5) and run the attention-only "
                         "kernels (#6-#9) between the qkv and proj Linears, as in the JAX CLI.")
+    parser.add_argument("-compute_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="Activation and matmul type on the device (parameters, gradients and "
+                        "the optimizer stay float32); bfloat16 runs SW_Transformer's whole-block "
+                        "kernels in bf16 (#1-bf16 to #3-bf16). Default float32, as the JAX CLI's "
+                        "off the TPU.")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     return parser
 
@@ -160,6 +166,12 @@ def build_train_parser():
     parser.add_argument("-mixup_labels", action="store_true",
                         help="Supervised: train on mixup's soft labels (off by default: the "
                         "reference discards them).")
+    parser.add_argument("-compute_dtype", type=str, default="float32",
+                        choices=["float32", "bfloat16"],
+                        help="Activation and matmul type on the device (parameters, gradients and "
+                        "the optimizer stay float32); bfloat16 runs SW_Transformer's whole-block "
+                        "kernels in bf16 (#1-bf16 to #3-bf16). Default float32, as the JAX CLI's "
+                        "off the TPU.")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     # the JAX CLI's flags for what the port does not run yet
     parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7).")

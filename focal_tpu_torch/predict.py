@@ -9,7 +9,8 @@
 the CUDA card unless ``-device cpu`` is given; ``-pallas_mlp`` serves the
 SW_Transformer with its MLPs through the fused MLP kernel (#10),
 ``-no_pallas_block`` with its window attention through the attention-only
-kernel (#6) between the qkv and proj Linears. Prints a latency summary
+kernel (#6) between the qkv and proj Linears, ``-compute_dtype bfloat16``
+in bf16 (#1-bf16). Prints a latency summary
 (warm-up excluded, host-device copies included) and, when the inputs carry
 labels, accuracy as a sanity check.
 """
@@ -33,6 +34,7 @@ def predict(args):
         args.dataset_config, args.model, args.task, args.model_weight, args.batch_size,
         device=args.device, learn_framework=args.learn_framework, seed=args.seed,
         pallas_mlp=args.pallas_mlp, pallas_block=not args.no_pallas_block,
+        compute_dtype=args.compute_dtype,
     )
     n = len(names)
     print(f"Predicting {n} samples (batch {predictor.batch_size}, "

@@ -39,18 +39,22 @@ class Predictor:
         whole-block kernel (#1, #4 for wide blocks); False takes the
         attention-only kernel (#6) between the qkv and proj Linears, as the
         CLI's -no_pallas_block.
+      compute_dtype: "float32" (default) or "bfloat16", as the CLI's
+        -compute_dtype: the activations' type (the weights stay f32; bf16
+        serves SW_Transformer through #1-bf16). The probabilities are
+        computed in f32 either way.
     """
 
     def __init__(self, dataset_config, model, task, state_dict=None, batch_size=128,
                  device="cuda", learn_framework="no", seed=0, pallas_mlp=False,
-                 pallas_block=True):
+                 pallas_block=True, compute_dtype="float32"):
         self.device = select_device(device)
         self.task = task
         self.batch_size = int(batch_size or 128)
         self.num_classes = dataset_config[task]["num_classes"]
         self.augmenter = Augmenter(dataset_config)
         net = build_backbone(dataset_config, model, task, learn_framework, pallas_mlp=pallas_mlp,
-                             pallas_block=pallas_block)
+                             pallas_block=pallas_block, compute_dtype=compute_dtype)
         if state_dict is None:
             init_params(net, seed)
             self.checkpoint_path = f"random init (seed {seed})"

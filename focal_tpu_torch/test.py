@@ -10,7 +10,8 @@ head and prints the test loss, accuracy, macro-F1 and confusion matrix (a
 regression task: the loss and the MSE). On
 the CUDA card, or on the CPU with ``-device cpu``; ``-pallas_mlp`` runs the
 Swin MLPs through the fused MLP kernel (#10), ``-no_pallas_block`` the
-window attention through the attention-only kernel (#6).
+window attention through the attention-only kernel (#6),
+``-compute_dtype bfloat16`` the model in bf16 (#1-bf16).
 """
 
 import logging
@@ -34,7 +35,8 @@ def test(args):
     split = load_split("test", args).to(device)
     model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
                            pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
-                           pallas_block=not args.no_pallas_block)
+                           pallas_block=not args.no_pallas_block,
+                           compute_dtype=args.compute_dtype)
     logging.info(f"= Loading classifier weight: {args.classifier_weight}")
     ckpt.load_params_into(model, args.classifier_weight, load_class_layer=True)
     model.to(device)

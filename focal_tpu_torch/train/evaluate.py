@@ -32,13 +32,14 @@ class EvalPlan:
 def extract_features(model, augmenter, plan, data):
     """Per-mod encoder features (no projection) of every batch of a plan,
     concatenated in mod-name order, the padded rows dropped -> (features
-    [n, d] on the device, labels [n] numpy)."""
+    [n, d] f32 on the device, whatever the compute dtype; labels [n]
+    numpy)."""
     model.eval()
     rows = []
     with torch.no_grad():
         for idx in plan.idx:
             feats = model(augmenter.no(gather_batch(data, idx)), head="feat")
-            rows.append(torch.cat([feats[m] for m in sorted(feats)], dim=-1))
+            rows.append(torch.cat([feats[m] for m in sorted(feats)], dim=-1).to(torch.float32))
     keep = plan.weight.reshape(-1) > 0
     stacked = torch.cat(rows)
     return stacked[torch.from_numpy(keep).to(stacked.device)], plan.labels.reshape(-1)[keep]

@@ -89,7 +89,8 @@ class Run:
         self.augmenter = build_augmenter(args)
         model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
                                pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
-                               pallas_block=not args.no_pallas_block)
+                               pallas_block=not args.no_pallas_block,
+                               compute_dtype=args.compute_dtype)
         self.model = init_params(model, seed=args.seed).to(self.device)
         if args.init_weight:
             logging.info(f"= Initialising params from {args.init_weight}")

@@ -1,0 +1,137 @@
+"""``-compute_dtype`` in the port: the flag in every parser and in
+``Predictor``, the f32 default, the entry points at bf16 on the CPU, and
+the routes whose bf16 forms are not ported, which raise
+NotImplementedError naming ROADMAP A6 instead of running f32.
+"""
+
+import logging
+
+import numpy as np
+import pytest
+import torch
+
+from focal_tpu_torch import predict, test as test_cli
+from focal_tpu_torch.data import synthetic_arrays
+from focal_tpu_torch.models import build_backbone, swin
+from focal_tpu_torch.params import (load_dataset_config, parse_predict_params, parse_test_params,
+                                    parse_train_params)
+from focal_tpu_torch.serve import Predictor
+from focal_tpu_torch.train.__main__ import main as train_main
+
+TASK = "vehicle_classification"
+
+
+@pytest.fixture(autouse=True)
+def _root_logger_restored():
+    """The training CLI points the root logger at its run folder; give the
+    next test the logger it had."""
+    root = logging.getLogger()
+    handlers, level = root.handlers[:], root.level
+    yield
+    for h in root.handlers[:]:
+        if h not in handlers:
+            root.removeHandler(h)
+            h.close()
+    root.setLevel(level)
+
+
+@pytest.mark.parametrize("parse", [parse_train_params, parse_test_params, parse_predict_params],
+                         ids=["train", "test", "predict"])
+def test_every_parser_takes_the_flag_with_the_f32_default(parse):
+    assert parse(["-dataset", "MOD_TINY"]).compute_dtype == "float32"
+    assert parse(["-dataset", "MOD_TINY", "-compute_dtype", "bfloat16"]).compute_dtype == "bfloat16"
+    with pytest.raises(SystemExit):
+        parse(["-dataset", "MOD_TINY", "-compute_dtype", "float16"])
+
+
+def test_the_default_builds_the_f32_model():
+    """No compute_dtype: every layer computes in f32, as before the flag."""
+    model = build_backbone(load_dataset_config("MOD_TINY"), "SW_Transformer", TASK)
+    dtypes = {m.compute_dtype for m in model.modules() if hasattr(m, "compute_dtype")}
+    assert dtypes == {torch.float32}
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("model,kwargs,what", [
+    ("DeepSense", {}, "DeepSense"),
+    ("SW_Transformer", {"pallas_mlp": True}, "-pallas_mlp"),
+    ("SW_Transformer", {"pallas_block": False}, "-no_pallas_block"),
+])
+def test_unported_routes_refuse_bf16(model, kwargs, what):
+    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A6"):
+        build_backbone(load_dataset_config("MOD_TINY"), model, TASK, compute_dtype="bfloat16",
+                       **kwargs)
+
+
+def test_blocks_of_the_per_head_kernels_refuse_bf16():
+    """MOD_WIDE's stages 1 and 2 (C 512, 1024) go to #4/#5."""
+    with pytest.raises(NotImplementedError, match="#4/#5.*ROADMAP A6"):
+        build_backbone(load_dataset_config("MOD_WIDE"), "SW_Transformer", TASK,
+                       compute_dtype="bfloat16")
+
+
+@pytest.mark.parametrize("dim,heads", [(12, 2), (20, 4)], ids=["C12", "C20"])
+def test_widths_no_bf16_kernel_takes_refuse(dim, heads):
+    """C not a multiple of 8: #1-bf16 to #3-bf16 stage rows 8 values at a
+    time; the f32 route takes these widths."""
+    swin.WindowAttention(dim, (3, 3), heads)
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        swin.WindowAttention(dim, (3, 3), heads, compute_dtype=torch.bfloat16)
+
+
+def test_predictor_serves_bf16_in_f32_probabilities():
+    cfg = load_dataset_config("MOD_TINY")
+    data, labels, _ = synthetic_arrays(cfg, TASK, 6, seed=0)  # a ragged last batch of 4
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        p = Predictor(cfg, "SW_Transformer", TASK, None, batch_size=4, device="cpu", seed=1,
+                      compute_dtype=dtype)
+        assert {m.compute_dtype for m in p.model.modules()
+                if hasattr(m, "compute_dtype")} == {getattr(torch, dtype)}
+        out[dtype] = p.predict(data)["probs"]
+        assert out[dtype].dtype == np.float32 and out[dtype].shape == (len(labels), 7)
+        np.testing.assert_allclose(out[dtype].sum(-1), 1.0, atol=1e-5)
+    # the same weights, two dtypes: close, not equal
+    assert 0.0 < np.abs(out["float32"] - out["bfloat16"]).max() < 5e-2
+
+
+def test_entry_points_run_bf16_and_save_f32(tmp_path, capsys):
+    """The training CLI at bf16 (supervised, 1 epoch), the test CLI on its
+    _best and the predict CLI, on the CPU: finite numbers, checkpoints of
+    f32 tensors; DeepSense at bf16 raises before training."""
+    argv = ["-dataset", "MOD_TINY", "-learn_framework", "no", "-synthetic", "-synthetic_samples",
+            "32", "-batch_size", "8", "-epochs", "1", "-val_epochs", "1", "-device", "cpu",
+            "-output_dir", str(tmp_path), "-compute_dtype", "bfloat16"]
+    state, best, points = train_main(argv)
+    assert points and all(np.isfinite(p["train_loss"]) for p in points)
+    folder = next((tmp_path / "weights" / "MOD_TINY_SW_Transformer").iterdir())
+    saved = torch.load(next(folder.glob("*_best.pt")), map_location="cpu", weights_only=True)
+    assert saved and all(t.dtype == torch.float32 for t in saved.values())
+    loss, acc, f1 = test_cli.main(argv)
+    assert np.isfinite(loss) and 0.0 <= acc <= 1.0
+    result = predict.main(["-dataset", "MOD_TINY", "-synthetic", "-synthetic_samples", "6",
+                           "-batch_size", "4", "-device", "cpu", "-compute_dtype", "bfloat16"])
+    assert np.isfinite(result["probs"]).all()
+    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
+        train_main(argv + ["-model", "DeepSense"])
+
+
+def test_dropouts_scale_in_the_tensors_type():
+    """remat_dropout and DropPath on bf16 tensors stay bf16 and scale the
+    kept values by 1 / keep in bf16, as the JAX package's ``x *
+    _inv_keep(rate)`` and ``x / keep`` do; their gradients are bf16."""
+    from focal_tpu_torch.ops.dropout import StepRngs, keep_scale, remat_dropout
+
+    x = torch.randn(64, 32).to(torch.bfloat16).requires_grad_(True)
+    y = remat_dropout(x, 0.2, torch.Generator().manual_seed(0))
+    kept = y != 0
+    assert y.dtype == torch.bfloat16 and 0 < int(kept.sum()) < x.numel()
+    assert torch.equal(y[kept], (x.detach() * keep_scale(0.2))[kept])
+    (g,) = torch.autograd.grad(y.float().sum(), x)
+    assert g.dtype == torch.bfloat16
+    dp = swin.DropPath(0.25).train()
+    xs = x.detach().reshape(64, 1, 32)
+    z = dp(xs, StepRngs(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2)))
+    rows = z.reshape(64, -1).abs().sum(-1) > 0
+    assert z.dtype == torch.bfloat16 and 0 < int(rows.sum()) < 64
+    assert torch.equal(z[rows], (xs / 0.75)[rows])

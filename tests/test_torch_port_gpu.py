@@ -1303,3 +1303,121 @@ def test_conv_tower_alternating_full_and_tail_plans_repeat_bitwise(external):
             else:
                 for a, b in zip(out, firsts[samples]):
                     assert torch.equal(a, b), samples
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forms of the whole-block kernels (#1-bf16, #2-bf16, #3-bf16):
+# against their bf16 plain versions on the same bf16 inputs, in the working
+# type. Gates as chip_smoke.py's phase 29: y within 8e-3 of max|y| (one bf16
+# step is 2^-8), every gradient within 1e-2 relative (measured on the H100
+# <= 3.5e-3 and <= 4.3e-3).
+
+
+def _bf16_args(rng, B, N, C, H, nW, dev):
+    args = _args(rng, B, N, C, H, nW, dev)
+    for i in (0, 1, 3):  # x, wqkv, wproj
+        args[i] = args[i].to(torch.bfloat16)
+    return args
+
+
+def _rel(a, b):
+    return float((a.float() - b.float()).abs().max()) / float(b.float().abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,C,H,nW", [
+    (512, 9, 64, 4, 64), (509, 9, 128, 4, 16), (511, 9, 256, 4, 0), (37, 4, 32, 2, 3),
+    (64, 16, 64, 4, 8),
+])
+def test_bf16_forward_matches_plain_on_card(B, N, C, H, nW):
+    """#1-bf16, and #2-bf16 fed its own keep mask (keep rate within 5
+    sigma), against the bf16 plain version; one launch counted a call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    args = _bf16_args(np.random.default_rng(B + C), B, N, C, H, nW, dev)
+    before = (pk.fused_window_block_bf16.launches, pk.fused_window_block_dropout_bf16.launches)
+    y = pk.fused_window_block_bf16(*args)
+    y2, keep = pk.fused_window_block_dropout_bf16(*args, 11, 0.2)
+    torch.cuda.synchronize()
+    assert (pk.fused_window_block_bf16.launches, pk.fused_window_block_dropout_bf16.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert y.dtype == y2.dtype == torch.bfloat16 and keep.dtype == torch.uint8
+    assert _rel(y, pk.fused_window_block_bf16_reference(*args)) <= 8e-3
+    assert _rel(y2, pk.fused_window_block_bf16_reference(*args, keep, 0.2)) <= 8e-3
+    kept = float(keep.double().mean())
+    assert abs(kept - 0.8) <= 5 * (0.16 / keep.numel()) ** 0.5
+    # the same seed and geometry give #2's mask
+    f32 = [a.float() if a is not None and a.dtype == torch.bfloat16 else a for a in args]
+    assert torch.equal(pk.fused_window_block_dropout(*f32, 11, 0.2)[1], keep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C", [64, 128, 256])
+@pytest.mark.parametrize("nW,rate", [(0, 0.0), (4, 0.2)])
+def test_bf16_backward_matches_plain_and_repeats_bitwise(C, nW, rate):
+    """#3-bf16 against its plain version: dx bf16, the rest f32, each within
+    1e-2 relative; the same bits on a second call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    B, N, H = 1031, 9, 4
+    rng = np.random.default_rng(C + nW)
+    args = _bf16_args(rng, B, N, C, H, nW, dev)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    keep = pk.fused_window_block_dropout_bf16(*args, 5, rate)[1] if rate else None
+    tr = (args[1].t().contiguous(), args[3].t().contiguous())
+    got = pk.fused_window_block_backward_bf16(*args, dy, keep, rate, *tr)
+    again = pk.fused_window_block_backward_bf16(*args, dy, keep, rate, *tr)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = pk.fused_window_block_backward_bf16_reference(*args, dy, keep, rate)
+    for g, w in zip(got, want):
+        assert _rel(g, w) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_bf16_window_block_on_card_launches_the_bf16_kernels_only():
+    """window_block at rate 0 on a bf16 x with f32 weights: #1-bf16
+    forward, #3-bf16 backward, no f32 kernel; gradients of the f32 weights
+    in f32 within 1e-2 of the plain stand-in's; bf16 at a per-head width
+    raises."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(7)
+    args = _args(rng, 300, 9, 128, 4, 4, dev)
+    x = args[0].to(torch.bfloat16)
+    kernels = (pk.fused_window_block, pk.fused_window_block_dropout, pk.fused_window_block_backward,
+               pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
+               pk.fused_window_block_backward_bf16)
+    before = [k.launches for k in kernels]
+    runs = []
+    for fn in (pk.window_block, pk.window_block_reference):
+        leaves = [x.clone().requires_grad_(True)] + [a.clone().requires_grad_(True)
+                                                     for a in args[1:6]]
+        y = fn(*leaves, args[6], seed=3, rate=0.0)
+        runs.append(torch.autograd.grad(y.float().square().sum(), leaves))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 0, 1, 0, 1]
+    for g, w in zip(*runs):
+        assert g.dtype == w.dtype and _rel(g, w) <= 1e-2
+    wide = _args(rng, 8, 9, 512, 4, 0, dev)
+    with pytest.raises(NotImplementedError):
+        pk.window_block_forward(wide[0].to(torch.bfloat16), *wide[1:])
+
+
+@pytest.mark.gpu
+def test_bf16_wrappers_raise_on_what_they_cannot_take():
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    args = _bf16_args(np.random.default_rng(0), 8, 9, 64, 4, 0, dev)
+    with pytest.raises(TypeError):  # f32 weights to the bf16 kernel
+        pk.fused_window_block_bf16(args[0], args[1].float(), *args[2:])
+    with pytest.raises(ValueError):  # C not a multiple of 8
+        pk.fused_window_block_bf16(*_bf16_args(np.random.default_rng(1), 8, 9, 20, 4, 0, dev))
+    with pytest.raises(ValueError):  # not 16-byte aligned
+        x = torch.empty(8 * 9 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(8, 9, 64)
+        pk.fused_window_block_bf16(x, *args[1:])
