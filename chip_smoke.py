@@ -258,6 +258,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import time
@@ -2009,7 +2010,8 @@ def rate0_tail_step(torch, targs, weights, dev, plain, kernels=None):
     ``weights`` on the first targs.batch_size rows of a synthetic split
     (whole subsequences), at targs.compute_dtype: through the kernels, or
     with ``plain`` through their plain versions. Returns (loss, [gradients
-    on the CPU], launches of ``kernels``, #1-#3 by default)."""
+    on the CPU], launches of ``kernels``, #1-#3 by default, [the gradients'
+    parameter names])."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import build_backbone
     from focal_tpu_torch.models import swin as swin_mod
@@ -2046,7 +2048,7 @@ def rate0_tail_step(torch, targs, weights, dev, plain, kernels=None):
         for name in entry_points:
             setattr(swin_mod, name, getattr(pk, name))
     return (float(mt["loss"]), [p.grad.cpu() for p in m.parameters() if p.grad is not None],
-            counts(kernels))
+            counts(kernels), [n for n, p in m.named_parameters() if p.grad is not None])
 
 
 def time_tail_steps(torch, np, targs, kernels, per_step, dev, tag):
@@ -2366,6 +2368,8 @@ BF16_FWD_TOL = 8e-3       # max|kernel - plain| / max|plain| of a bf16 y (one bf
 BF16_GRAD_TOL = 1e-2      # relative, each gradient of #3-bf16 (dx in bf16, the rest f32)
 BF16_SERVE_TOL = 1e-2     # served probabilities, #1-bf16's route vs the bf16 plain block
 BF16_LOSS_TOL = 1e-2      # relative: the rate-0 bf16 step's loss vs the f32 step's
+BF16_GRAD_MIN_COS = 0.9   # each gradient's cosine to the bf16 plain versions' (C11)
+BF16_GRAD_MEDIAN_TOL = 5e-2  # median over the tensors of ||g - g_plain|| / ||g_plain|| (C11)
 WB_LAUNCHES_BF16 = {"fwd": {"bf16_proj_kernel": 2, "attn_fwd_kernel": 1},
                     "bwd": {"bf16_proj_kernel": 2, "attn_bwd_kernel": 1, "bf16_wgrad_kernel": 1,
                             "reduce_partials_kernel": 2}}
@@ -2401,6 +2405,54 @@ def bf16_work(g, backward=False, with_keep=False):
 def bf16_grad_err(got, want):
     """grads_differ in f32 (dx comes in bf16)."""
     return grads_differ([a.float() for a in got], [b.float() for b in want])
+
+
+def zero_true_gradient(name):
+    """A parameter whose true gradient is 0, so that both sides of a
+    comparison compute only rounding noise there (C7): a fusion attention's
+    key bias (the softmax ignores a shift of a row's scores) and a conv
+    bias that feeds a BatchNorm (the batch mean takes it away)."""
+    return name.endswith("key.bias") or name.endswith("Conv_0.bias")
+
+
+def bf16_grad_gates(tag, names, got, want):
+    """C11: a rate-0 bf16 step's gradients, kernels (got) against the bf16
+    plain versions (want), held to the CPU step test's gates
+    (tests/test_torch_port_bf16_step.py): each tensor's cosine at least
+    BF16_GRAD_MIN_COS and the median over the tensors of ||g - g_plain|| /
+    ||g_plain|| at most BF16_GRAD_MEDIAN_TOL. Tensors whose true gradient is
+    0 (zero_true_gradient) are held absolutely, to NEAR_ZERO, instead.
+    Logs the worst tensors by name and raises where a gate fails."""
+    cos, rel, noise = {}, {}, {}
+    for name, a, b in zip(names, got, want):
+        a, b = a.double(), b.double()
+        if zero_true_gradient(name):
+            noise[name] = float((a - b).abs().max())
+            continue
+        same = bool((a == b).all())
+        den = float(a.norm() * b.norm())
+        cos[name] = float((a * b).sum()) / den if den > 0 else float(same)
+        rel[name] = float((a - b).norm() / b.norm()) if float(b.norm()) > 0 else (
+            0.0 if same else math.inf)
+    worst_cos = min(cos, key=cos.get)
+    worst_rel = max(rel, key=rel.get)
+    median = statistics.median(rel.values())
+    worst_noise = max(noise, key=noise.get) if noise else None
+    out = {"tensors": len(cos), "min_cos": cos[worst_cos], "min_cos_tensor": worst_cos,
+           "median_rel": median, "max_rel": rel[worst_rel], "max_rel_tensor": worst_rel,
+           "zero_true_gradient_tensors": len(noise),
+           "zero_true_gradient_max_abs": noise[worst_noise] if noise else 0.0,
+           "zero_true_gradient_worst_tensor": worst_noise}
+    log(f"[{tag}] gradients, kernels vs the bf16 plain versions, over {len(cos)} tensors: min "
+        f"cosine {cos[worst_cos]:.5f} ({worst_cos}), median rel {median:.3e}, max rel "
+        f"{rel[worst_rel]:.3e} ({worst_rel}); {len(noise)} tensors of true gradient 0 held "
+        f"absolutely: max abs {out['zero_true_gradient_max_abs']:.3e} ({worst_noise})")
+    if not (cos[worst_cos] >= BF16_GRAD_MIN_COS and median <= BF16_GRAD_MEDIAN_TOL
+            and out["zero_true_gradient_max_abs"] <= NEAR_ZERO):
+        raise AssertionError(f"{tag}: bf16 step gradients fail the gates (cosine >= "
+                             f"{BF16_GRAD_MIN_COS}, median rel <= {BF16_GRAD_MEDIAN_TOL}, "
+                             f"zero-gradient tensors within {NEAR_ZERO}): {out}")
+    return out
 
 
 def check_block_bf16(torch, pk, sgeos, tgeos, gen, dev, rate):
@@ -2773,6 +2825,7 @@ def bf16_paths(torch, np, kernels, gen, dev):
         raise AssertionError(f"{tag}: rate-0 bf16 step loss: {r}")
     if r["grad_dtypes"] != ["torch.float32"]:
         raise AssertionError(f"{tag}: bf16 step gradients are not f32: {r['grad_dtypes']}")
+    r["grad_gates"] = bf16_grad_gates(tag, kern[3], kern[1], plain[1])
     del kern, plain, f32, initial
     torch.cuda.empty_cache()
 
