@@ -242,9 +242,32 @@ result line if any fails):
      (loss 1e-2 relative) and against the bf16 plain versions (loss 1e-2),
      gradients f32; 3 + 20 bf16 and f32 MOD pretrain steps from one init
      beside each other (p50, samples/s, peak memory, idle share, device
-     time by window_block.cu phase, top kernels).
+     time by window_block.cu phase, top kernels); the rate-0 step's
+     gradients held to the CPU step test's gates (C11: each tensor's cosine
+     >= 0.9 to the bf16 plain versions', the median relative error <= 5e-2,
+     the worst tensor named; the tensors of true gradient 0 absolutely to
+     1e-2);
+ 30. DeepSense at -compute_dtype bfloat16: #13-bf16 and #14-bf16
+     (fused_conv_tower_bf16, fused_conv_tower_backward_bf16) against the
+     bf16 plain tower (its f32 steps in float64) at every tower geometry of
+     MOD, MOD_WIDE, ACIDS, PAMAP2, RealWorld_HAR and the two-location
+     mod_extractor, masks of rate 0.2: the output within 8e-3 of max|a|, the
+     statistics 1e-3, the gradients 1e-2 relative (absolutely to 1e-2 where
+     both sides are below it), the same bits on a second call, the launches
+     counted; timed at MOD's geometries beside #13/#14 in f32 and the cuDNN
+     bf16 chain (events, device time by kernel, plain, bound at 989 TFLOP/s
+     for the convs or the bf16 bytes); a served bf16 batch of 128 (no
+     kernel) against the same model on the CPU (1e-2); rate-0 pretrain (256)
+     and supervised (128) steps from one init: -pallas_conv's kernels
+     against their bf16 plain versions (loss 1e-2, C11's gradient gates),
+     the cuDNN route's bf16 step against its f32 step (loss 1e-2); python -m
+     focal_tpu_torch.train -pallas_conv -compute_dtype bfloat16 for 1 epoch
+     with its launches held; 3 + 20 MOD pretrain steps at 256 of both
+     routes, bf16 beside f32 from one init (p50, device busy, idle share,
+     device operations, peak memory).
 
-Prints a {"kernels": [...]} line (#1-#14 and #1-bf16 to #3-bf16), the
+Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #3-bf16, #13-bf16 and
+#14-bf16), the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
 nothing of the JAX package. --out DIR writes the per-geometry details and
 the profiles as JSON there.
@@ -1003,7 +1026,11 @@ TOWER_LIB = {"source": "conv_tower.cu", "tag": "ConvTowerSrc",
                         "bn_stats_kernel": "reductions", "bn_grad_stats_kernel": "reductions",
                         "narrow_conv_kernel": "first conv (CUDA cores)",
                         "narrow_convT_kernel": "first conv (CUDA cores)",
-                        "narrow_wgrad_kernel": "first conv (CUDA cores)"}}
+                        "narrow_wgrad_kernel": "first conv (CUDA cores)",
+                        "bf16_conv_gemm_kernel": "products",
+                        "bf16_conv_wgrad_kernel": "weight gradients",
+                        "bn_dc_sums_kernel": "elementwise passes",
+                        "column_total_kernel": "reductions"}}
 TOWER_KERNEL_NAMES = tuple(TOWER_LIB["phases"])
 # an external first conv's BN statistics and coefficients are PyTorch's
 # own kernels, between #13's calls
@@ -1219,7 +1246,7 @@ def run_deepsense_steps(torch, np, targs, batch, warmup, steps, kernels, per_ste
     tdata = to_device(host_data, dev)
     idx = torch.arange(batch, device=dev) % len(labels)
     model = build_backbone(targs.dataset_config, "DeepSense", targs.task, targs.learn_framework,
-                           pallas_conv=targs.pallas_conv)
+                           pallas_conv=targs.pallas_conv, compute_dtype=targs.compute_dtype)
     init_params(model, seed=0).to(dev)
     state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
     step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
@@ -1252,6 +1279,7 @@ def run_deepsense_steps(torch, np, targs, batch, warmup, steps, kernels, per_ste
     own_ms = sum(r["device_ms"] for r in profile["rows"] if owned_by(TOWER_LIB, r["name"]))
     summary = {
         "steps": steps, "launches": launches, "p50_ms": p50_ms, "tower_kernels_device_ms": own_ms,
+        "device_ops": profile["device_ops"],
         "mean_ms": float(np.mean(step_s)) * 1e3, "min_ms": float(np.min(step_s)) * 1e3,
         "max_ms": float(np.max(step_s)) * 1e3, "samples_per_s": batch / (p50_ms / 1e3),
         "peak_mb": peak_mb, "loss_first": float(history[0][sorted(metrics).index("loss")]),
@@ -1271,10 +1299,12 @@ def run_deepsense_steps(torch, np, targs, batch, warmup, steps, kernels, per_ste
 
 
 def deepsense_rate0_step(torch, targs, weights, dev, plain):
-    """One pretrain step of DeepSense at dropout 0 with -pallas_conv from
-    ``weights`` (a state_dict): through the tower's kernels, or with
-    ``plain`` through its plain version. Returns (loss, {name: gradient},
-    {name: running statistic}) on the CPU."""
+    """One step of DeepSense at dropout 0 from ``weights`` (a state_dict):
+    FOCAL pretraining, or a supervised step where targs.learn_framework is
+    "no", at targs.compute_dtype; with targs.pallas_conv through the
+    tower's kernels, or with ``plain`` through its plain version (else on
+    the cuDNN route). Returns (loss, {name: gradient}, {name: running
+    statistic}) on the CPU."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import build_backbone
     from focal_tpu_torch.models import layers as layers_mod
@@ -1282,7 +1312,7 @@ def deepsense_rate0_step(torch, targs, weights, dev, plain):
     from focal_tpu_torch.ops.augment import build_augmenter
     from focal_tpu_torch.train.losses import make_focal_loss
     from focal_tpu_torch.train.state import create_train_state
-    from focal_tpu_torch.train.steps import make_pretrain_step
+    from focal_tpu_torch.train.steps import make_pretrain_step, make_supervised_train_step
 
     cfg0 = copy.deepcopy(targs.dataset_config)
     cfg0["DeepSense"]["dropout_ratio"] = 0.0
@@ -1291,14 +1321,20 @@ def deepsense_rate0_step(torch, targs, weights, dev, plain):
     host_data, labels, _ = synthetic_arrays(cfg0, targs.task, 2 * targs.batch_size, seed=0)
     data = to_device(host_data, dev)
     idx = torch.arange(targs.batch_size, device=dev) % len(labels)
-    m = build_backbone(cfg0, "DeepSense", targs.task, targs.learn_framework, pallas_conv=True)
+    m = build_backbone(cfg0, "DeepSense", targs.task, targs.learn_framework,
+                       pallas_conv=targs.pallas_conv, compute_dtype=targs.compute_dtype)
     m.load_state_dict(weights)
     m.to(dev)
     st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
     if plain:
         layers_mod.fused_conv_tower = ct.fused_conv_tower_reference
     try:
-        _, mt = make_pretrain_step(m, build_augmenter(args0), make_focal_loss(args0))(st, data, idx)
+        if targs.learn_framework == "no":
+            _, mt = make_supervised_train_step(m, build_augmenter(args0))(
+                st, data, torch.from_numpy(labels).long().to(dev), idx)
+        else:
+            _, mt = make_pretrain_step(m, build_augmenter(args0), make_focal_loss(args0))(
+                st, data, idx)
     finally:
         layers_mod.fused_conv_tower = ct.fused_conv_tower
     return (float(mt["loss"]), {n: p.grad.cpu() for n, p in m.named_parameters() if p.grad is not None},
@@ -2834,6 +2870,374 @@ def bf16_paths(torch, np, kernels, gen, dev):
     log(f"[{tag}] phase 29 in {out['seconds']:.1f}s")
     return out
 
+# ---------------------------------------------------------------------------
+# DeepSense at -compute_dtype bfloat16 (30): #13-bf16 and #14-bf16
+
+DS_BF16_STATS_TOL = 1e-3  # relative: the bf16 tower's batch means and variances vs plain
+# rows at which C7's NEAR_ZERO was set: a conv bias before a BatchNorm has a
+# true gradient of 0, and the f32 value the kernels sum for it is set by the
+# rounding of the batch mean over the rows (n ulp(mu)), which grows with n
+NEAR_ZERO_ROWS = 1e5
+
+
+def tower_bf16_inputs(torch, np, g, seed, dev):
+    """tower_inputs with x0 and dy rounded to bf16 (the parameters and the
+    masks stay f32, as ConvBlock hands them)."""
+    x0, params, masks, dy = tower_inputs(torch, np, g, seed, dev)
+    return x0.to(torch.bfloat16), params, masks, dy.to(torch.bfloat16)
+
+
+def check_towers_bf16(torch, np, ct, geos, dev, seed0):
+    """#13-bf16 and #14-bf16 (fused_conv_tower on bf16 x0) against the bf16
+    plain tower with its f32 steps in float64 (a conv bias before a
+    BatchNorm has a true gradient of 0, which the f32 plain version misses
+    by up to ~2e-2 over 1e5 rows) on the same inputs, Dropout2d masks of
+    rate 0.2 drawn on the host: the output to BF16_FWD_TOL of max|a|, the
+    batch statistics to DS_BF16_STATS_TOL, every gradient to BF16_GRAD_TOL
+    relative (absolutely to NEAR_ZERO where both sides are below it), two
+    calls the same bits, and each call's launches counted; the conv biases'
+    gradients (true value 0) absolutely, to NEAR_ZERO times R*S /
+    NEAR_ZERO_ROWS where the rows exceed NEAR_ZERO_ROWS. Returns the worst
+    errors."""
+    worst = {"fwd": 0.0, "fwd_abs": 0.0, "stats": 0.0, "bwd": 0.0, "bwd_near": 0.0,
+             "bwd_abs": 0.0, "conv_bias_abs": 0.0}
+    fwd_k, bwd_k = ct.fused_conv_tower_bf16, ct.fused_conv_tower_backward_bf16
+    for gi, g in enumerate(geos):
+        x0, params, masks, dy = tower_bf16_inputs(torch, np, g, seed0 + gi, dev)
+        runs = []
+        before = (fwd_k.launches, bwd_k.launches)
+        for fn, exact in ((ct.fused_conv_tower_bf16, False), (ct.fused_conv_tower_bf16, False),
+                          (ct.fused_conv_tower_reference, True)):
+            p = [[q.double() for q in grp] for grp in params] if exact else params
+            m = [mm.double() for mm in masks] if exact else masks
+            xl, pl_, leaves = tower_leaves(torch, x0, p, g["external"])
+            y, mus, vars_ = fn(xl, g["cfgs"], *pl_, m, g["external"])
+            runs.append((y.detach(), mus, vars_, torch.autograd.grad(y, leaves, dy)))
+            del y
+        torch.cuda.synchronize()
+        # which leaf is a conv bias: tower_leaves' order, x0 then the groups
+        is_bias = [False] + [gi == 1 for gi, grp in enumerate(pl_) for q in grp if q.requires_grad]
+        L = len(g["cfgs"])
+        check_counts(f"{g['name']}: two bf16 tower calls",
+                     {fwd_k.__name__: fwd_k.launches - before[0],
+                      bwd_k.__name__: bwd_k.launches - before[1]},
+                     {fwd_k.__name__: 2 * (L + (0 if g["external"] else 1)),
+                      bwd_k.__name__: 2 * 2 * L})
+        (y, mus, vars_, grads), again, (ry, rmus, rvars, rgrads) = runs
+        fwd = rel_err(y.float(), ry.float())
+        stats = max(rel_err(a, b) for a, b in zip(mus + vars_, rmus + rvars))
+        g_rel, g_near, g_abs = grad_errors(
+            [a.float() for a, bias in zip(grads, is_bias) if not bias],
+            [b.float() for b, bias in zip(rgrads, is_bias) if not bias])
+        cb_abs = max(float((a.float() - b.float()).abs().max())
+                     for a, b, bias in zip(grads, rgrads, is_bias) if bias)
+        cb_tol = NEAR_ZERO * max(1.0, g["R"] * g["S"] / NEAR_ZERO_ROWS)
+        same = (torch.equal(y, again[0]) and all(torch.equal(a, b) for a, b in zip(mus, again[1]))
+                and all(torch.equal(a, b) for a, b in zip(grads, again[3])))
+        g.update(bf16_rel_err_fwd=fwd, bf16_rel_err_stats=stats, bf16_rel_err_bwd=g_rel,
+                 bf16_abs_err_bwd_near_zero=g_near, bf16_abs_err_conv_bias=cb_abs,
+                 bf16_repeatable=same)
+        worst = {"fwd": max(worst["fwd"], fwd), "stats": max(worst["stats"], stats),
+                 "fwd_abs": max(worst["fwd_abs"], float((y.float() - ry.float()).abs().max())),
+                 "bwd": max(worst["bwd"], g_rel), "bwd_near": max(worst["bwd_near"], g_near),
+                 "bwd_abs": max(worst["bwd_abs"], g_abs, cb_abs),
+                 "conv_bias_abs": max(worst["conv_bias_abs"], cb_abs)}
+        log(f"[bf16-tower-check] {g['name']}: R {g['R']} S {g['S']} C {g['C']} layers {L}"
+            f"{' (first conv outside)' if g['external'] else ''}: #13-bf16 max|kernel-plain| / "
+            f"max|plain| {fwd:.3e}, statistics {stats:.3e}; #14-bf16 max rel err {g_rel:.3e}, "
+            f"near-zero max abs err {g_near:.3e}, conv biases (true 0) max abs err {cb_abs:.3e} "
+            f"(gate {cb_tol:.2e}); same bits on a second call: {same}")
+        if not (fwd <= BF16_FWD_TOL and stats <= DS_BF16_STATS_TOL):
+            raise AssertionError(f"{g['name']}: #13-bf16 differs from plain: {fwd}, {stats}")
+        if not (g_rel <= BF16_GRAD_TOL and g_near <= NEAR_ZERO and cb_abs <= cb_tol):
+            raise AssertionError(f"{g['name']}: #14-bf16 differs from plain: {g_rel}, {g_near}, "
+                                 f"conv biases {cb_abs}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #13-bf16/#14-bf16 give other bits on a second call")
+        del runs, grads, again, rgrads, x0, params, masks, dy
+    torch.cuda.empty_cache()
+    return worst
+
+
+def tower_bf16_work(g):
+    """(forward FLOPs, bytes, bound ms, bound_by; the same backward) of the
+    bf16 tower at g: tower_work's operations, the convs at the bf16 tensor
+    cores' peak and the rest at the f32 peak; the bytes at the types they
+    move: the rows (x0, the output, dy, the saved c and a, dx0) and the
+    weights in bf16 at 2 bytes, the other parameters, masks, statistics and
+    parameter gradients at 4."""
+    R, S, C = g["R"], g["S"], g["C"]
+    RS = R * S
+    f_fl, _, b_fl, _ = tower_work(g)
+    conv = sum(0 if (k == 0 and g["external"]) else 2 * RS * kw * cin * cout
+               for k, (kw, cin, cout, _) in enumerate(g["cfgs"]))
+    weights = sum(0 if (k == 0 and g["external"]) else kw * cin * cout
+                  for k, (kw, cin, cout, _) in enumerate(g["cfgs"]))
+    L = len(g["cfgs"])
+    cin0 = g["cfgs"][0][2] if g["external"] else g["cfgs"][0][1]
+    small = 4 * (3 * L * C + L * g["samples"] * C)  # biases, BN affines, masks
+    f_by = 2 * (RS * cin0 + weights + RS * C) + small + 4 * 2 * L * C
+    b_by = 2 * (RS * C + 2 * L * RS * C + weights + RS * cin0) + small + 4 * (weights + 3 * L * C)
+    out = []
+    for fl, cv, by in ((f_fl, conv, f_by), (b_fl, 2 * conv, b_by)):
+        t_ops = cv / BF16_FLOPS + (fl - cv) / F32_FLOPS
+        t_by = by / HBM_BYTES_PER_S
+        out += [fl, by, 1e3 * max(t_ops, t_by), "operations" if t_ops >= t_by else "bytes"]
+    return out
+
+
+def time_tower_bf16(torch, np, ct, F, g, seed, dev):
+    """#13-bf16 and #14-bf16 at one tower geometry, into g["bf16"]: by
+    events and by device time (tower_phase_split: only conv_tower.cu's
+    kernels and PyTorch's [C]-sized steps may run), the bf16 plain
+    versions, the cuDNN bf16 chain (library_tower on bf16 rows) as the
+    library yardstick (forward and its autograd backward), the bound
+    (tower_bf16_work); and #13/#14 in f32
+    at the same geometry by the same means (time_tower)."""
+    bf = torch.bfloat16
+    x0, params, masks, dy = tower_bf16_inputs(torch, np, g, seed, dev)
+    kp = [[w.to(bf) for w in params[0]]] + params[1:]
+    # the cuDNN bf16 chain's operands: bf16 weights, conv biases and masks,
+    # the BatchNorm affine f32 (batch_norm takes bf16 rows with it)
+    lp, lm = [kp[0], [b.to(bf) for b in params[1]]] + params[2:], [m.to(bf) for m in masks]
+    cfgs, ext = g["cfgs"], g["external"]
+    _, _, _, saved = ct.tower_forward(x0, cfgs, *kp, masks, ext)
+    r = {"ms_fwd": time_ms_long(torch, lambda: ct.tower_forward(x0, cfgs, *kp, masks, ext)),
+         "ms_bwd": time_ms_long(torch, lambda: ct.fused_conv_tower_backward_bf16(saved, dy))}
+    with torch.no_grad():
+        r["plain_ms_fwd"] = time_ms(torch, lambda: ct.tower_forward_bf16_reference(
+            x0, cfgs, *params, masks, ext))
+        _, _, _, psaved = ct.tower_forward_bf16_reference(x0, cfgs, *params, masks, ext)
+        r["plain_ms_bwd"] = time_ms(torch, lambda: ct.tower_backward_bf16_reference(
+            psaved, cfgs, masks, dy, ext))
+        r["library_ms_fwd"] = time_ms(torch, lambda: library_tower(torch, F, x0, g, lp, lm))
+    del psaved
+    xl, pl_, leaves = tower_leaves(torch, x0, lp, ext)
+    ly = library_tower(torch, F, xl, g, pl_, lm)
+    dyl = dy.permute(0, 2, 1).unsqueeze(2)
+    r["library_ms_bwd"] = time_ms(torch, lambda: torch.autograd.grad(ly, leaves, dyl,
+                                                                     retain_graph=True))
+    del ly
+    r["profile"] = {"fwd": tower_phase_split(torch, lambda: ct.tower_forward(x0, cfgs, *kp, masks,
+                                                                            ext)),
+                    "bwd": tower_phase_split(torch, lambda: ct.fused_conv_tower_backward_bf16(
+                        saved, dy))}
+    r["device_ms_fwd"], r["device_ms_bwd"] = (r["profile"][d]["device_ms"] for d in ("fwd", "bwd"))
+    f_fl, f_by, r["bound_ms_fwd"], r["bound_by_fwd"], b_fl, b_by, r["bound_ms_bwd"], \
+        r["bound_by_bwd"] = tower_bf16_work(g)
+    r.update(flops_fwd=f_fl, bytes_fwd=f_by, flops_bwd=b_fl, bytes_bwd=b_by)
+    del saved, x0, params, masks, dy, xl, pl_, leaves
+    g["bf16"] = r
+    time_tower(torch, np, ct, F, g, seed, dev)  # the f32 forms beside them, in this phase
+    log(f"[bf16-tower-time] {g['name']}: #13-bf16 {r['ms_fwd']:.4f} ms (device "
+        f"{r['device_ms_fwd']:.4f}; f32 #13 {g['fwd_ms']:.4f}, plain {r['plain_ms_fwd']:.4f}, "
+        f"cuDNN bf16 chain {r['library_ms_fwd']:.4f}, bound {r['bound_ms_fwd']:.4f} "
+        f"({r['bound_by_fwd']})); #14-bf16 {r['ms_bwd']:.4f} ms (device {r['device_ms_bwd']:.4f}; "
+        f"f32 #14 {g['bwd_ms']:.4f}, plain {r['plain_ms_bwd']:.4f}, cuDNN bf16 chain "
+        f"{r['library_ms_bwd']:.4f}, bound {r['bound_ms_bwd']:.4f} ({r['bound_by_bwd']}))")
+    for d, what in (("fwd", "#13-bf16"), ("bwd", "#14-bf16")):
+        pr = r["profile"][d]
+        log(f"[profile-tower-bf16] {g['name']} {what}: device {pr['device_ms']:.4f} ms a call: "
+            + ", ".join(f"{ph} {ms:.4f}" for ph, ms in sorted(pr["phases"].items(),
+                                                               key=lambda kv: -kv[1])))
+    torch.cuda.empty_cache()
+
+
+def deepsense_bf16_paths(torch, np, kernels, dev):
+    """Phase 30, DeepSense at -compute_dtype bfloat16 at MOD's full width:
+    #13-bf16/#14-bf16 against the bf16 plain tower at every tower geometry
+    of MOD, MOD_WIDE, the three other recipes and two-location MOD
+    (check_towers_bf16) and timed at MOD's beside #13/#14 in f32 and the
+    cuDNN bf16 chain; a served bf16 batch against the same model on the
+    CPU; rate-0 pretrain and supervised steps from one init, -pallas_conv's
+    kernels against their bf16 plain versions (the loss to BF16_LOSS_TOL,
+    the gradients to C11's gates) and the cuDNN route's bf16 step against
+    its f32 step (the loss); the pretrain entry point with -pallas_conv in
+    bf16 with its launches held; MOD pretrain steps at DS_BATCH, bf16
+    beside f32 on both routes."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops import conv_tower as ct
+    from focal_tpu_torch.params import load_dataset_config, parse_train_params
+    from focal_tpu_torch.serve import Predictor
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    tag = "ds-bf16"
+    t_phase = time.time()
+    cfg = load_dataset_config("MOD")
+    task = "vehicle_classification"
+    fwd_k, bwd_k = ct.fused_conv_tower_bf16, ct.fused_conv_tower_backward_bf16
+    out = {"paths": {}}
+
+    # the kernels against the bf16 plain tower at every geometry
+    geos = (tower_geometries(cfg, 2 * DS_BATCH, "MOD")
+            + tower_geometries(load_dataset_config("MOD_WIDE"), 2 * DS_WIDE_BATCH, "MOD_WIDE")
+            + [g for r in RECIPES for g in tower_geometries(load_dataset_config(r), 2 * DS_BATCH, r)]
+            + [g for g in tower_geometries(two_locations(cfg), 2 * DS_BATCH, "MOD two-location")
+               if g["name"].endswith("mod_extractor")])
+    out["errors"] = check_towers_bf16(torch, np, ct, geos, dev, seed0=3000)
+    mod_geos = [g for g in geos if g["name"].startswith("MOD ") and "two-location" not in g["name"]]
+    for gi, g in enumerate(mod_geos):
+        time_tower_bf16(torch, np, ct, F, g, 3100 + gi, dev)
+    per_step = {fwd_k.__name__: tower_launches(mod_geos)["fused_conv_tower"],
+                bwd_k.__name__: tower_launches(mod_geos)["fused_conv_tower_backward"]}
+    step = {}
+    for d in ("fwd", "bwd"):
+        step[d] = {k: sum(g["towers"] * g["bf16"][f"{k}_{d}"] for g in mod_geos) for k in (
+            "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")}
+        step[d]["f32_ms"] = sum(g["towers"] * g[f"{d}_ms"] for g in mod_geos)
+        step[d]["f32_device_ms"] = sum(g["towers"] * g["profile"][d]["device_ms"] for g in mod_geos)
+        split = {}
+        for g in mod_geos:
+            for ph, ms in g["bf16"]["profile"][d]["phases"].items():
+                split[ph] = split.get(ph, 0.0) + g["towers"] * ms
+        step[d]["device_ms_by_phase"] = split
+        step[d]["bound_by"] = ("bytes" if all(g["bf16"][f"bound_by_{d}"] == "bytes"
+                                              for g in mod_geos) else "operations")
+    out["step"] = step
+    out["geometries"] = [{k: v for k, v in g.items() if k not in ("cfgs", "profile")}
+                         | {"bf16": {k: v for k, v in g.get("bf16", {}).items() if k != "profile"}}
+                         for g in geos]
+    f, b = step["fwd"], step["bwd"]
+    log(f"[{tag}] the towers of one MOD step at {DS_BATCH} (views fused to {2 * DS_BATCH}): "
+        f"#13-bf16 {f['ms']:.4f} ms (device {f['device_ms']:.4f}; f32 #13 {f['f32_ms']:.4f}, "
+        f"device {f['f32_device_ms']:.4f}; plain {f['plain_ms']:.4f}, cuDNN bf16 chain "
+        f"{f['library_ms']:.4f}, bound {f['bound_ms']:.4f}); #14-bf16 {b['ms']:.4f} ms (device "
+        f"{b['device_ms']:.4f}; f32 #14 {b['f32_ms']:.4f}, device {b['f32_device_ms']:.4f}; plain "
+        f"{b['plain_ms']:.4f}, cuDNN bf16 chain {b['library_ms']:.4f}, bound {b['bound_ms']:.4f})")
+
+    # a served bf16 batch: the card against the same model on the CPU
+    from focal_tpu_torch.data import synthetic_arrays
+
+    data = synthetic_arrays(cfg, task, SERVE_BATCH, seed=5)[0]
+    served = {}
+    for where in ("cuda", "cpu"):
+        pred = Predictor(cfg, "DeepSense", task, None, batch_size=SERVE_BATCH, device=where,
+                         seed=0, compute_dtype="bfloat16")
+        zero_counts(kernels)
+        res = pred.predict(data)
+        if where == "cuda":
+            check_counts(f"{tag}: one served bf16 batch", counts(kernels),
+                         {k.__name__: 0 for k in kernels})
+            out["serve"] = {"p50_ms": res["latency"]["p50_s"] * 1e3}
+        served[where] = res["probs"]
+        del pred
+    probs = served["cuda"]
+    if probs.dtype != np.float32 or not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: bad served probabilities ({probs.dtype})")
+    serve_err = float(np.abs(probs - served["cpu"]).max())
+    out["serve"]["max_abs_err_vs_cpu"] = serve_err
+    log(f"[{tag}] served DeepSense bf16 batch of {SERVE_BATCH}: p50 {out['serve']['p50_ms']:.3f} "
+        f"ms, no kernel launched; max|dprobs| vs the same model on the CPU {serve_err:.3e}")
+    if not serve_err <= BF16_SERVE_TOL:
+        raise AssertionError(f"{tag}: served bf16 probabilities differ from the CPU's by {serve_err}")
+    torch.cuda.empty_cache()
+
+    # rate-0 steps from one init: pretrain at DS_BATCH (views fused), supervised at SUP_BATCH
+    initial = init_params(build_backbone(cfg, "DeepSense", task, "FOCAL"), seed=0).state_dict()
+    out["rate0"] = {}
+    for stage, framework, batch in (("pretrain", "FOCAL", DS_BATCH), ("supervised", "no", SUP_BATCH)):
+        def step_once(dtype, pallas, plain=False):
+            sargs = parse_train_params(["-dataset", "MOD", "-model", "DeepSense", "-learn_framework",
+                                        framework, "-batch_size", str(batch), "-compute_dtype",
+                                        dtype] + (["-pallas_conv"] if pallas else []))
+            zero_counts(kernels)
+            loss, grads, _ = deepsense_rate0_step(torch, sargs, initial, dev, plain)
+            torch.cuda.synchronize()
+            return loss, list(grads.values()), list(grads), counts(kernels)
+
+        kern = step_once("bfloat16", True)
+        plain = step_once("bfloat16", True, plain=True)
+        cud = step_once("bfloat16", False)
+        f32 = step_once("float32", False)
+        n = tower_launches(tower_geometries(cfg, 2 * batch if stage == "pretrain" else batch, "MOD"))
+        check_counts(f"{tag}: the rate-0 -pallas_conv bf16 {stage} step", kern[3],
+                     {k.__name__: {fwd_k.__name__: n["fused_conv_tower"],
+                                   bwd_k.__name__: n["fused_conv_tower_backward"]}.get(k.__name__, 0)
+                      for k in kernels})
+        for what, run in (("plain", plain), ("cuDNN route", cud), ("f32", f32)):
+            check_counts(f"{tag}: the {what} rate-0 {stage} step", run[3],
+                         {k.__name__: 0 for k in kernels})
+        r = {"loss_kernels": kern[0], "loss_plain": plain[0], "loss_cudnn_bf16": cud[0],
+             "loss_cudnn_f32": f32[0],
+             "loss_rel_vs_plain": abs(kern[0] - plain[0]) / abs(plain[0]),
+             "loss_rel_cudnn_vs_f32": abs(cud[0] - f32[0]) / abs(f32[0]),
+             "grad_dtypes": sorted({str(g.dtype) for g in kern[1] + cud[1]})}
+        log(f"[{tag}] rate-0 {stage} step: loss -pallas_conv bf16 {kern[0]:.6f}, its plain "
+            f"{plain[0]:.6f} (rel {r['loss_rel_vs_plain']:.2e}); cuDNN route bf16 {cud[0]:.6f}, "
+            f"f32 {f32[0]:.6f} (rel {r['loss_rel_cudnn_vs_f32']:.2e}); gradients {r['grad_dtypes']}")
+        r["grad_gates"] = bf16_grad_gates(f"{tag}-{stage}", kern[2], kern[1], plain[1])
+        if not (r["loss_rel_vs_plain"] <= BF16_LOSS_TOL and r["loss_rel_cudnn_vs_f32"] <= BF16_LOSS_TOL):
+            raise AssertionError(f"{tag}: rate-0 {stage} step losses: {r}")
+        if r["grad_dtypes"] != ["torch.float32"]:
+            raise AssertionError(f"{tag}: bf16 step gradients are not f32: {r['grad_dtypes']}")
+        out["rate0"][stage] = r
+        del kern, plain, cud, f32
+        torch.cuda.empty_cache()
+
+    # the pretrain entry point with -pallas_conv in bf16, launches held
+    run_dir = os.path.join(HERE, "build", "chip_smoke_ds_bf16")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    argv = ["-dataset", "MOD", "-model", "DeepSense", "-learn_framework", "FOCAL", "-stage",
+            "pretrain", "-pallas_conv", "-synthetic", "-synthetic_samples", str(DS_SAMPLES),
+            "-batch_size", str(DS_BATCH), "-val_epochs", "1", "-epochs", "1", "-output_dir",
+            run_dir, "-compute_dtype", "bfloat16"]
+    steps, _ = stage_plan(argv)
+    zero_counts(kernels)
+    t0 = time.time()
+    st, _, points = train_cli.main(argv)
+    torch.cuda.synchronize()
+    got = counts(kernels)
+    # eval forwards launch nothing: the counts are the steps' alone
+    check_counts(f"{tag}: pretrain -pallas_conv -compute_dtype bfloat16 -epochs 1", got,
+                 {k.__name__: per_step.get(k.__name__, 0) * steps for k in kernels})
+    if st.step != steps or not all(math.isfinite(p[k]) for p in points
+                                   for k in ("train_loss", "val_loss", "test_loss")):
+        raise AssertionError(f"{tag}: {st.step} updates of {steps}, points {points}")
+    if any(p.dtype != torch.float32 for p in st.model.parameters()):
+        raise AssertionError(f"{tag}: the bf16 run's parameters are not f32")
+    out["paths"]["pretrain -pallas_conv -compute_dtype bfloat16 -epochs 1"] = {
+        "seconds": time.time() - t0, "steps": steps, "launches": got, "points": points}
+    log(f"[{tag}] pretrain -pallas_conv -compute_dtype bfloat16: {steps} steps in "
+        f"{time.time() - t0:.1f}s; launches {got}")
+    del st
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # timed MOD pretrain steps, bf16 beside f32, on both routes
+    out["steps"] = {}
+    for pallas in (False, True):
+        for dtype in ("float32", "bfloat16"):
+            dargs = parse_train_params(["-dataset", "MOD", "-model", "DeepSense",
+                                        "-learn_framework", "FOCAL", "-stage", "pretrain",
+                                        "-batch_size", str(DS_BATCH), "-compute_dtype", dtype]
+                                       + (["-pallas_conv"] if pallas else []))
+            run_tag = f"{tag}-{'pallas' if pallas else 'cudnn'}-{dtype}"
+            want = {}
+            if pallas:
+                want = ({fwd_k.__name__: per_step[fwd_k.__name__],
+                         bwd_k.__name__: per_step[bwd_k.__name__]} if dtype == "bfloat16"
+                        else tower_launches(mod_geos))
+            summary, trained = run_deepsense_steps(torch, np, dargs, DS_BATCH, TRAIN_WARMUP,
+                                                   TRAIN_STEPS, kernels, want, dev, run_tag)
+            summary.pop("profile")
+            out["steps"][run_tag] = summary
+            del trained
+            torch.cuda.empty_cache()
+    for route in ("cudnn", "pallas"):
+        a, b = out["steps"][f"{tag}-{route}-float32"], out["steps"][f"{tag}-{route}-bfloat16"]
+        log(f"[{tag}] {route} route, bf16 beside f32: p50 {b['p50_ms']:.3f} vs {a['p50_ms']:.3f} "
+            f"ms, device busy {b['device_busy_ms']:.3f} vs {a['device_busy_ms']:.3f} ms, idle "
+            f"share {b['idle_share']:.3f} vs {a['idle_share']:.3f}, device operations "
+            f"{b['device_ops']} vs {a['device_ops']}, peak {b['peak_mb']:.1f} vs "
+            f"{a['peak_mb']:.1f} MiB")
+    out["seconds"] = time.time() - t_phase
+    log(f"[{tag}] phase 30 in {out['seconds']:.1f}s")
+    return out
+
 
 def check_block_forward(torch, pk, geos, gen, dev):
     """#1 vs plain at each geometry, phase 2's gate; returns the worst
@@ -3152,8 +3556,10 @@ def main():
     at_bwd, at_drop_bwd = pk.fused_window_attention_backward, pk.fused_window_attention_dropout_backward
     bf_fwd, bf_drop, bf_bwd = (pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
                                pk.fused_window_block_backward_bf16)
+    ct_bf_fwd, ct_bf_bwd = ct.fused_conv_tower_bf16, ct.fused_conv_tower_backward_bf16
     all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd, mlp_fwd, mlp_drop, mlp_bwd,
-                   at_fwd, at_drop, at_bwd, at_drop_bwd, bf_fwd, bf_drop, bf_bwd)
+                   at_fwd, at_drop, at_bwd, at_drop_bwd, bf_fwd, bf_drop, bf_bwd, ct_bf_fwd,
+                   ct_bf_bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4142,6 +4548,13 @@ def main():
     log(f"[smoke] phase 29 in {bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
 
+    # ---- 30. DeepSense at -compute_dtype bfloat16: #13-bf16/#14-bf16 vs
+    # their bf16 plain versions at every tower geometry and timed; a served
+    # batch, the rate-0 steps, the entry point and the timed steps
+    ds_bf16 = deepsense_bf16_paths(torch, np, all_kernels, dev)
+    log(f"[smoke] phase 30 in {ds_bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -4176,7 +4589,7 @@ def main():
                 "no_pallas_block_route_backward": route_bwd,
                 "no_pallas_block_route_forward": route_fwd,
                 "recipes": recipes, "two_locations": two_loc, "attribution": attribution,
-                "bf16": bf16,
+                "bf16": bf16, "deepsense_bf16": ds_bf16,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -4447,6 +4860,35 @@ def main():
                    bf16_step_per, max_rel_err=be["bwd"], launches_per_step=per_fwd,
                    device_ms_by_phase=bf16["train_bwd_device_ms_by_phase"],
                    launches_by_path={p: r["launches"][bf_bwd.__name__] for p, r in bpaths.items()}),
+    ]
+    de, dstep = ds_bf16["errors"], ds_bf16["step"]
+    ds_bf16_launches = ds_bf16["steps"]["ds-bf16-pallas-bfloat16"]["launches"]
+    ds_bf16_per = (f"times: the towers of one MOD DeepSense bf16 pretrain step at batch "
+                   f"{DS_BATCH} (views fused to {2 * DS_BATCH}); launches: {TRAIN_STEPS} timed "
+                   "-pallas_conv bf16 pretrain steps; max_abs_err: worst over the MOD, MOD_WIDE, "
+                   "recipe and two-location towers against the bf16 plain tower; bound: the convs "
+                   "at 989 TFLOP/s bf16 and the rest at the f32 peak, or the bytes at bf16 rows")
+
+    def tower_bf16_entry(name, num, line, d, err, **extra):
+        t = dstep[d]
+        return {"name": name, "kernel": num, "route": "cuda",
+                "source": "focal_tpu_torch/csrc/conv_tower.cu", "replaces": f"{CT}:{line}",
+                "launches": ds_bf16_launches[name], "max_abs_err": err, "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "per": ds_bf16_per, "device_ms": t["device_ms"],
+                "f32_ms": t["f32_ms"], "f32_device_ms": t["f32_device_ms"],
+                "device_ms_by_phase": t["device_ms_by_phase"], "flops": t["flops"],
+                "bytes": t["bytes"], "launches_per_step": ds_bf16_launches[name] // TRAIN_STEPS,
+                "launches_by_path": {p: r["launches"][name]
+                                     for p, r in ds_bf16["paths"].items()}, **extra}
+
+    kernels += [
+        tower_bf16_entry(ct_bf_fwd.__name__, "#13-bf16", 174, "fwd", de["fwd_abs"],
+                         replaces_also=[f"{CT}:163"], max_rel_err=de["fwd"],
+                         max_rel_err_stats=de["stats"]),
+        tower_bf16_entry(ct_bf_bwd.__name__, "#14-bf16", 230, "bwd", de["bwd_abs"],
+                         replaces_also=[f"{CT}:206", f"{CT}:257"], max_rel_err=de["bwd"],
+                         max_abs_err_near_zero=de["bwd_near"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -19,6 +19,12 @@ tree's names (``loc_mod_extractor_{loc}_{mod}``, ``mod_extractor_{mod}``,
 ``mod_extractor`` reads the fused [b, i, c] map as NHWC [b, i, c, 1]: one
 input channel, spectrum c; with ``use_pallas`` it trains through the fused
 tower where ``tower_takes`` admits it, as every conv block does.
+
+``compute_dtype`` (the CLI's ``-compute_dtype``) is the activations' type,
+as flax's ``dtype=``: in bf16 the inputs are cast to it, the conv blocks,
+the location mean and the projection and class heads compute in it (the
+fused towers through #13-bf16/#14-bf16), the GRUs in f32 (so the ``feat``
+head is f32), and the class logits are cast to f32. Parameters stay f32.
 """
 
 import math
@@ -33,8 +39,10 @@ from focal_tpu_torch.models.sw_transformer import trunc_normal
 
 
 class DeepSense(nn.Module):
-    def __init__(self, dataset_config, task, linear_class_head=True, use_pallas=False):
+    def __init__(self, dataset_config, task, linear_class_head=True, use_pallas=False,
+                 compute_dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         cfgs = dataset_config
         config = cfgs["DeepSense"]
         self.modalities = cfgs["modality_names"]
@@ -53,7 +61,7 @@ class DeepSense(nn.Module):
                     cfgs["loc_mod_in_freq_channels"][loc][mod],
                     (cfgs["num_segments"], cfgs["loc_mod_spectrum_len"][loc][mod]),
                     out_channels, conv_lens, config["loc_mod_conv_inter_layers"], in_stride,
-                    config["dropout_ratio"], use_pallas))
+                    config["dropout_ratio"], use_pallas, compute_dtype))
             feat_channels = out_channels
             if self.multi_location:
                 i_out = 1 if conv_lens[1][0] > 1 else cfgs["num_segments"]
@@ -61,15 +69,16 @@ class DeepSense(nn.Module):
                 self.add_module(f"mod_extractor_{mod}", ConvBlock(
                     1, (i_out, out_channels), config["loc_out_channels"],
                     config["loc_conv_lens"], config["loc_conv_inter_layers"], (1, 1),
-                    config["dropout_ratio"], use_pallas))
+                    config["dropout_ratio"], use_pallas, compute_dtype))
                 feat_channels = config["loc_out_channels"]
             self.add_module(f"recurrent_{mod}", BiGRU(
                 feat_channels, H, config["recurrent_layers"], config["dropout_ratio"]))
         emb_dim = cfgs["FOCAL"]["emb_dim"]
         for mod in self.modalities:
-            self.add_module(f"mod_projector_{mod}", ProjectionHead(2 * H, emb_dim))
+            self.add_module(f"mod_projector_{mod}", ProjectionHead(2 * H, emb_dim, compute_dtype))
         self.class_layer = ClassHead(len(self.modalities) * 2 * H, cfgs[task]["num_classes"],
-                                     config["fc_dim"], linear=linear_class_head)
+                                     config["fc_dim"], linear=linear_class_head,
+                                     compute_dtype=compute_dtype)
 
     def encode(self, freq_x, rng=None):
         """-> {mod: [b, 2 * recurrent_dim]}."""
@@ -77,7 +86,7 @@ class DeepSense(nn.Module):
         for mod in self.modalities:
             per_loc = [
                 getattr(self, f"loc_mod_extractor_{loc}_{mod}")(
-                    freq_x[loc][mod].to(torch.float32).permute(0, 2, 3, 1), rng)  # [b, i, s, c]
+                    freq_x[loc][mod].to(self.compute_dtype).permute(0, 2, 3, 1), rng)  # [b, i, s, c]
                 for loc in self.locations
             ]
             if self.multi_location:
@@ -95,7 +104,8 @@ class DeepSense(nn.Module):
         proj = {m: getattr(self, f"mod_projector_{m}")(feats[m]) for m in self.modalities}
         if head == "proj":
             return proj
-        logits = self.class_layer(torch.cat([feats[m] for m in self.modalities], dim=1))
+        logits = self.class_layer(torch.cat([feats[m] for m in self.modalities], dim=1)
+                                  ).to(torch.float32)
         if head == "class":
             return logits
         if head == "both":

@@ -13,6 +13,11 @@ and ``var``.
 
 In ``train()`` mode the dropout of a block takes the step's ``rng``
 (``ops.dropout.StepRngs``) and draws its masks from ``rng.device``.
+
+``compute_dtype`` bf16 rounds where flax does at ``dtype=bfloat16``: a conv
+block's convs, BatchNorms, GELUs, dropouts, residual adds and ``out_proj``
+in bf16 (``conv2d_low``, ``BatchNorm``'s f32 normalisation rounded once),
+its fused tower through #13-bf16/#14-bf16; the GRU in f32.
 """
 
 import torch
@@ -74,6 +79,23 @@ class LayerNorm(nn.LayerNorm):
         return super().forward(x.to(torch.float32)).to(self.compute_dtype)
 
 
+def conv2d_low(x, weight, bias, stride, dtype):
+    """flax's ``nn.Conv(dtype=...)`` below f32 (NCHW, no padding): x and the
+    f32 kernel cast to ``dtype``, the conv's f32 sums rounded to it once,
+    then the bias added in it (flax's ``y += bias``). On the card a cuDNN
+    conv in ``dtype``; on the CPU an f32 conv of the cast operands rounded
+    once, which is what XLA's CPU conv gives bit for bit (torch's CPU bf16
+    conv lands 1 ulp off in ~0.02 % of the outputs). The gradients of x,
+    the kernel and the bias come back through the casts, rounded to the
+    dtype as the JAX package's are."""
+    xd, wd = x.to(dtype), weight.to(dtype)
+    if x.device.type == "cpu":
+        y = F.conv2d(xd.to(torch.float32), wd.to(torch.float32), None, stride).to(dtype)
+    else:
+        y = F.conv2d(xd, wd, None, stride)
+    return y + bias.to(dtype)[:, None, None]
+
+
 def conv2d_f32(x, weight, bias, stride):
     """F.conv2d (NCHW, no padding) with cuDNN's TF32 off: full f32."""
     with torch.backends.cudnn.flags(enabled=torch.backends.cudnn.enabled,
@@ -88,7 +110,10 @@ class BatchNorm(nn.Module):
     the channels (dim 1). Training normalises with the batch's mean and its
     biased variance by the fast formula, E[x^2] - E[x]^2 clipped at 0, and
     folds them into the running ``mean``/``var`` with momentum 0.9; eval
-    normalises with the running ones."""
+    normalises with the running ones. A bf16 x is upcast: the statistics
+    and the normalisation run in f32 and the result is rounded to bf16
+    once (flax 0.12's ``force_float32_reductions``); the running
+    statistics stay f32."""
 
     def __init__(self, features):
         super().__init__()
@@ -104,6 +129,8 @@ class BatchNorm(nn.Module):
         self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
 
     def forward(self, x):
+        dtype = x.dtype
+        x = x.to(torch.float32)
         dims = [d for d in range(x.dim()) if d != 1]
         if self.training:
             mu = x.mean(dim=dims)
@@ -113,19 +140,24 @@ class BatchNorm(nn.Module):
             mu, var = self.mean, self.var
         shape = [1, -1] + [1] * (x.dim() - 2)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
-        return (x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)
+        return ((x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(dtype)
 
 
 class ConvLayer2D(nn.Module):
     """conv2d + BatchNorm + exact GELU + Dropout2d (whole (sample, channel)
     planes), NCHW in and out. Padding SAME at stride 1 (flax's split:
-    (k-1)//2 before), VALID otherwise."""
+    (k-1)//2 before), VALID otherwise. Below f32 (``compute_dtype``) each
+    step rounds as flax's does: ``conv2d_low``, the BatchNorm rounded once,
+    ``gelu`` in the dtype, and the dropout as flax's ``nn.Dropout``, the
+    kept values divided by 1 - rate rounded to the dtype."""
 
-    def __init__(self, cin, features, kernel_size, stride=(1, 1), dropout_ratio=0.0):
+    def __init__(self, cin, features, kernel_size, stride=(1, 1), dropout_ratio=0.0,
+                 compute_dtype=torch.float32):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.stride = tuple(stride)
         self.dropout_ratio = float(dropout_ratio)
+        self.compute_dtype = compute_dtype
         self.Conv_0 = nn.Conv2d(cin, features, self.kernel_size, self.stride)
         self.BatchNorm_0 = BatchNorm(features)
 
@@ -133,13 +165,20 @@ class ConvLayer2D(nn.Module):
         if max(self.stride) == 1:
             kh, kw = self.kernel_size
             x = F.pad(x, ((kw - 1) // 2, kw // 2, (kh - 1) // 2, kh // 2))
-        return conv2d_f32(x, self.Conv_0.weight, self.Conv_0.bias, self.stride)
+        if self.compute_dtype == torch.float32:
+            return conv2d_f32(x, self.Conv_0.weight, self.Conv_0.bias, self.stride)
+        return conv2d_low(x, self.Conv_0.weight, self.Conv_0.bias, self.stride, self.compute_dtype)
 
     def forward(self, x, rng=None):
-        x = F.gelu(self.BatchNorm_0(self.conv(x)), approximate="none")
+        x = gelu(self.BatchNorm_0(self.conv(x)))
         if self.training and self.dropout_ratio > 0.0:
             gen = needs_rng(rng, "Dropout2d").device
-            x = x * keep_mask(x.shape[:2], self.dropout_ratio, gen)[:, :, None, None]
+            mask = keep_mask(x.shape[:2], self.dropout_ratio, gen)[:, :, None, None]
+            if x.dtype == torch.float32:
+                x = x * mask
+            else:  # flax: select(keep, x / keep_prob, 0), keep_prob a weak-typed scalar
+                keep_prob = torch.tensor(1.0 - self.dropout_ratio, dtype=x.dtype)
+                x = torch.where(mask != 0, x / keep_prob, torch.zeros((), dtype=x.dtype))
         return x
 
 
@@ -153,11 +192,16 @@ class ConvBlock(nn.Module):
     (as the JAX package's ConvBlock decides, where the kernels take its
     widths) runs the layers as the fused
     conv tower; a strided input conv stays a cuDNN conv and feeds the tower
-    its output. Parameters and buffers are the same on both paths."""
+    its output. Parameters and buffers are the same on both paths.
+    ``compute_dtype`` bf16: the layers, the residual adds and ``out_proj``
+    in bf16, the fused tower through #13-bf16/#14-bf16 (the gate in bf16:
+    a geometry it refuses runs the cuDNN bf16 convs)."""
 
     def __init__(self, cin, in_size, out_channels, conv_lens, num_inter_layers,
-                 in_stride=(1, 1), dropout_ratio=0.0, use_pallas=False):
+                 in_stride=(1, 1), dropout_ratio=0.0, use_pallas=False,
+                 compute_dtype=torch.float32):
         super().__init__()
+        self.compute_dtype = compute_dtype
         self.half = out_channels // 2
         self.conv_lens = [tuple(c) for c in conv_lens]
         self.stride = tuple(in_stride) if not isinstance(in_stride, int) else (1, in_stride)
@@ -165,17 +209,17 @@ class ConvBlock(nn.Module):
         self.dropout_ratio = float(dropout_ratio)
         self.use_pallas = use_pallas
         self.add_module("ConvLayer2D_0", ConvLayer2D(cin, self.half, self.conv_lens[0], self.stride,
-                                                     dropout_ratio))
+                                                     dropout_ratio, compute_dtype))
         for k in range(1, self.num_layers):
             self.add_module(f"ConvLayer2D_{k}", ConvLayer2D(self.half, self.half, self.conv_lens[1],
-                                                            (1, 1), dropout_ratio))
+                                                            (1, 1), dropout_ratio, compute_dtype))
         i, s = in_size
         if self.strided:
             i = (i - self.conv_lens[0][0]) // self.stride[0] + 1
             s = (s - self.conv_lens[0][1]) // self.stride[1] + 1
         self.out_size = (i, s)
         flat = i * s * self.half if self.conv_lens[1][0] > 1 else s * self.half
-        self.out_proj = nn.Linear(flat, out_channels)
+        self.out_proj = Dense(flat, out_channels, compute_dtype=compute_dtype)
 
     @property
     def strided(self):
@@ -194,7 +238,8 @@ class ConvBlock(nn.Module):
         kw_max = self.conv_lens[1][1] if self.strided else max(self.conv_lens[0][1],
                                                                 self.conv_lens[1][1])
         cin = self.half if self.strided else cin
-        return tower_takes(b * i, self.out_size[1], self.half, cin, torch.float32, kw_max=kw_max)
+        return tower_takes(b * i, self.out_size[1], self.half, cin, self.compute_dtype,
+                           kw_max=kw_max)
 
     def forward(self, x, rng=None):
         if self.use_pallas and self.training and self.fused_geometry(x):
@@ -234,7 +279,7 @@ class ConvBlock(nn.Module):
                 masks.append(keep_mask((b, self.half), self.dropout_ratio,
                                        needs_rng(rng, "Dropout2d").device))
             else:
-                masks.append(x0.new_ones((b, self.half)))
+                masks.append(torch.ones((b, self.half), device=x0.device))  # f32, as keep_mask's
         a, mus, vars_ = fused_conv_tower(x0, cfgs, ws, bs, scales, biases, masks,
                                          external_c0=self.strided)
         for layer, mu, var in zip(layers, mus, vars_):
@@ -368,10 +413,11 @@ class AttentionFusion(nn.Module):
 
 
 class MeanFusion(nn.Module):
-    """Mean over the location axis: [b, i, n_loc, c] -> [b, i, c]."""
+    """Mean over the location axis: [b, i, n_loc, c] -> [b, i, c]; a bf16 x
+    summed in f32 and the mean rounded to bf16 once (``jnp.mean``)."""
 
     def forward(self, x):
-        return x.mean(dim=2)
+        return x.to(torch.float32).mean(dim=2).to(x.dtype)
 
 
 class TransformerEncoderLayer(nn.Module):

@@ -22,16 +22,14 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
     ``-no_pallas_block``. ``compute_dtype`` ("float32" or "bfloat16", the
     JAX package's ``-compute_dtype``) is the activations' type over f32
     parameters; bf16 runs SW_Transformer's whole-block route (#1-bf16 to
-    #3-bf16) and raises NotImplementedError naming ROADMAP A6 for what has
-    no bf16 form yet: DeepSense, -pallas_mlp, -no_pallas_block and the
-    blocks that go to #4/#5 (MOD_WIDE's stages 1 and 2)."""
+    #3-bf16) and DeepSense (its conv blocks on cuDNN's bf16 convs, or with
+    ``pallas_conv`` through the conv tower's bf16 forms #13-bf16/#14-bf16),
+    and raises NotImplementedError naming ROADMAP A6 for what has no bf16
+    form yet: -pallas_mlp, -no_pallas_block and the blocks that go to
+    #4/#5 (MOD_WIDE's stages 1 and 2)."""
     if model not in ("SW_Transformer", "DeepSense"):
         raise ValueError(f"Invalid model provided: {model}")
     dtype = COMPUTE_DTYPES[compute_dtype]
-    if dtype != torch.float32 and model == "DeepSense":
-        raise NotImplementedError("-compute_dtype bfloat16 with DeepSense needs the bf16 forms of "
-                                  "its conv blocks, GRU and BatchNorm (and of #13/#14), not ported "
-                                  "yet: ROADMAP A6")
     linear_head = (
         get_train_mode(learn_framework) == "supervised"
         or dataset_config[model].get("pretrained_head", "linear") == "linear"
@@ -44,7 +42,8 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
                              compute_dtype=dtype)
     from focal_tpu_torch.models.deepsense import DeepSense
 
-    return DeepSense(dataset_config, task, linear_class_head=linear_head, use_pallas=pallas_conv)
+    return DeepSense(dataset_config, task, linear_class_head=linear_head, use_pallas=pallas_conv,
+                     compute_dtype=dtype)
 
 
 def init_params(model, seed=0):

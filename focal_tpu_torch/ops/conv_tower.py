@@ -25,12 +25,22 @@ public function:
 An external first conv's statistics are torch's (``_finalize_stats``), as
 the JAX package computes that layer's in XLA.
 
+The bf16 forms (``-compute_dtype bfloat16``), #13-bf16 and #14-bf16: the
+same launches on bf16 rows (x0, c, a, da, dc and dprev stored in bf16; the
+weights rounded to bf16; the BN rows, masks, sums and parameter gradients
+f32), the products on the bf16 tensor cores (``csrc/gemm_bf16.cuh``),
+rounding where the JAX package's tower does at ``store_dtype`` bfloat16
+(``tower_forward_bf16_reference``, ``tower_backward_bf16_reference``). A bf16
+x0 takes them; ``fused_conv_tower_bf16.launches`` and
+``fused_conv_tower_backward_bf16.launches`` count their calls.
+
 ``layer_plan``, ``stages_forward`` and ``stages_backward`` model the
 kernels' plan and the order of their sums in plain PyTorch, for the tests.
 
 ``fused_conv_tower`` is an autograd function over the whole chain. A CPU
 tensor takes the plain version (``fused_conv_tower_reference``, autograd
-through torch ops); a CUDA tensor takes the kernels or raises.
+through torch ops; in bf16 the plain forward and its VJP written out); a
+CUDA tensor takes the kernels or raises.
 """
 
 import collections
@@ -77,26 +87,37 @@ def tower_fits(R, S, C, dtype=torch.float32, kw_max=5):
 MAX_CHANNELS = 4096  # kMaxChannels in csrc/conv_tower.cu
 
 
-def kernel_refuses(R, S, C, cin):
+def channel_multiple(dtype=torch.float32):
+    """The multiple of C the kernels take: 4 in f32 (the products' outputs
+    move four channels at a time), 8 in bf16 (the bf16 products stage 16
+    bytes, eight channels, of a row at a time, and every layer after the
+    first runs on the tensor cores)."""
+    return 8 if dtype == torch.bfloat16 else 4
+
+
+def kernel_refuses(R, S, C, cin, dtype=torch.float32):
     """Why the CUDA kernels (csrc/conv_tower.cu, check_rows and the entry
     points' checks) cannot take a tower of R rows of S positions, C
-    channels and a first conv over cin channels, or None where they can:
-    the products' outputs move four channels at a time (C a multiple of 4),
-    at most MAX_CHANNELS channels, 32-bit element offsets."""
-    if C % 4 or not 4 <= C <= MAX_CHANNELS or not 1 <= cin <= MAX_CHANNELS:
-        return f"unsupported channels C={C} Cin={cin} (C a multiple of 4, both <= {MAX_CHANNELS})"
+    channels and a first conv over cin channels in ``dtype``, or None where
+    they can: C a multiple of ``channel_multiple(dtype)``, at most
+    MAX_CHANNELS channels, 32-bit element offsets."""
+    mult = channel_multiple(dtype)
+    if C % mult or not mult <= C <= MAX_CHANNELS or not 1 <= cin <= MAX_CHANNELS:
+        return (f"unsupported channels C={C} Cin={cin} (C a multiple of {mult}, both <= "
+                f"{MAX_CHANNELS})")
     if R < 1 or S < 1 or R * S * max(C, cin) >= 2**31:
         return f"unsupported rows R={R} S={S} at C={C} Cin={cin} (32-bit element offsets)"
     return None
 
 
 def tower_takes(R, S, C, cin, dtype=torch.float32, kw_max=5):
-    """The fused route's gate: ``tower_fits`` (the JAX package's gate)
-    where the kernels take the geometry (``kernel_refuses``). Elsewhere the
-    block runs its cuDNN convs, as with the flag off; the JAX package runs
-    its kernel at such widths (C not a multiple of 4 among them), a
-    difference from it that no packaged recipe meets."""
-    return tower_fits(R, S, C, dtype, kw_max) and kernel_refuses(R, S, C, cin) is None
+    """The fused route's gate: ``tower_fits`` (the JAX package's gate, in
+    ``dtype``: a bf16 row tile is a multiple of 16 rows) where the kernels
+    take the geometry (``kernel_refuses``). Elsewhere the block runs its
+    cuDNN convs in its dtype, as with the flag off; the JAX package runs
+    its kernel at such widths (C not a multiple of 4, or of 8 in bf16,
+    among them), a difference from it that no packaged recipe meets."""
+    return tower_fits(R, S, C, dtype, kw_max) and kernel_refuses(R, S, C, cin, dtype) is None
 
 
 # ---------------------------------------------------------------------------
@@ -140,7 +161,14 @@ def fused_conv_tower_reference(x0, layer_cfgs, ws, bs, scales, biases, masks,
                                external_c0=False):
     """Plain PyTorch version of fused_conv_tower (the math of the JAX
     package's tests/test_conv_tower.py replica), differentiable by
-    autograd. Arguments and results as fused_conv_tower."""
+    autograd. Arguments and results as fused_conv_tower. A bf16 x0 takes
+    the bf16 plain versions (``_ConvTowerBf16`` with ``plain``)."""
+    if x0.dtype == torch.bfloat16:
+        cfgs = tuple(tuple(int(v) for v in c) for c in layer_cfgs)
+        L = len(cfgs)
+        out = _ConvTowerBf16.apply(cfgs, bool(external_c0), True, x0, *ws, *bs, *scales, *biases,
+                                   *masks)
+        return out[0], tuple(out[1:1 + L]), tuple(out[1 + L:])
     R = x0.shape[0]
     a = None
     mus, vars_ = [], []
@@ -159,6 +187,130 @@ def fused_conv_tower_reference(x0, layer_cfgs, ws, bs, scales, biases, masks,
     return a, tuple(mus), tuple(vars_)
 
 
+def round_bf16(t):
+    """t rounded to bf16 (round to nearest even), kept in t's type."""
+    return t.to(torch.bfloat16).to(t.dtype)
+
+
+def tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False):
+    """Plain version of #13-bf16: the JAX package's tower at store_dtype
+    bfloat16 (focal_tpu/ops/conv_tower.py:163-203, 403-421): c = im2col(x)
+    W (bf16 operands, f32 sums) + b rounded to bf16; the BN sums of the
+    stored bf16 c; the statistics, y = c A + B, GELU (the kernels' erf), the
+    mask and the residual in f32, a rounded to bf16 once. x0 bf16 (or its
+    values in f32), ws f32 or bf16 (rounded here). The f32 steps run in the
+    biases' type: float64 biases give a version whose only rounding is to
+    bf16, against which a conv bias's true gradient of 0 shows as ~0.
+    Returns (a_last bf16 [R, S, C], mus, vars, saved) with saved = {x2, a,
+    c, rows, ws} in that type holding bf16 values, for
+    tower_backward_bf16_reference."""
+    R, S, _ = x0.shape
+    n = float(R * S)
+    work = bs[0].dtype
+    x2 = x0.reshape(R * S, x0.shape[-1]).to(work)
+    wb = [round_bf16(w.detach().to(work)) for w in ws]
+    if external_c0:
+        c = x2
+    else:
+        c = round_bf16(_conv_same(x2.view(R, S, -1), wb[0], cfgs[0][0]).view(R * S, -1) + bs[0])
+    saved = {"x2": x2, "a": [], "c": [], "rows": [], "ws": wb}
+    a = None
+    mus, vars_ = [], []
+    for k, (_, _, cout, residual) in enumerate(cfgs):
+        rows, mu, var = _finalize_stats(torch.stack([c.sum(0), (c * c).sum(0)]), n,
+                                        scales[k].detach(), biases[k].detach())
+        z = gelu_exact(c * rows[0] + rows[1]) * _rows_of(masks[k], R).repeat_interleave(S, dim=0)
+        a = round_bf16(z + (a if k > 0 else x2) if residual else z)
+        for key, v in (("a", a), ("c", c), ("rows", rows)):
+            saved[key].append(v)
+        mus.append(mu)
+        vars_.append(var)
+        if k + 1 < len(cfgs):
+            kw = cfgs[k + 1][0]
+            c = round_bf16(_conv_same(a.view(R, S, -1), wb[k + 1], kw).view(R * S, -1) + bs[k + 1])
+    return a.view(R, S, cfgs[-1][2]).to(torch.bfloat16), tuple(mus), tuple(vars_), saved
+
+
+def tower_backward_bf16_reference(saved, cfgs, masks, da_last, external_c0=False):
+    """Plain version of #14-bf16, the JAX tower's VJP at store_dtype
+    bfloat16 (focal_tpu/ops/conv_tower.py:146-160, 206-270, 474-511): gy and
+    x̂ in f32 from the bf16 da and c; dc in f32, rounded to bf16 for the
+    transposed conv and dW; db the sum of the f32 dc; dprev = convT(dc, W) +
+    da rounded to bf16 once; dW in f32. Returns (dx0 bf16, dws, dbs,
+    dscales, dbiases) as fused_conv_tower_backward."""
+    x2 = saved["x2"]
+    RS = x2.shape[0]
+    R, S, C = da_last.shape
+    n = float(RS)
+    da = da_last.reshape(RS, C).to(x2.dtype)
+    L = len(cfgs)
+    dws, dbs, dscales, dbiases = ([None] * L for _ in range(4))
+    for k in range(L - 1, -1, -1):
+        kw, cin, cout, residual = cfgs[k]
+        c, rows = saved["c"][k], saved["rows"][k]
+        mask = _rows_of(masks[k], R).repeat_interleave(S, dim=0)
+        gy = da * mask * _gelu_grad(c * rows[0] + rows[1])
+        xhat = c * rows[2] - rows[3]
+        s2 = torch.stack([gy.sum(0), (gy * xhat).sum(0)])
+        m = s2 * rows[4] / n
+        dscales[k], dbiases[k] = s2[1], s2[0]
+        dc = rows[2] * (gy * rows[4] - m[0] - xhat * m[1])
+        if k == 0 and external_c0:
+            dws[0], dbs[0] = torch.zeros_like(saved["ws"][0]), torch.zeros_like(dc[0])
+            dx0 = dc
+            break
+        dcs = round_bf16(dc)
+        aprev = saved["a"][k - 1] if k > 0 else x2
+        dprev = torch.matmul(im2col_rows(dcs, kw, S, sign=-1),
+                             tap_transpose(saved["ws"][k], kw, cin, cout))
+        da = round_bf16(dprev + da if residual else dprev)
+        dws[k] = torch.matmul(im2col_rows(aprev, kw, S).t(), dcs)
+        dbs[k] = dc.sum(0)
+        dx0 = da
+    return (dx0.to(torch.bfloat16).view(R, S, dx0.shape[-1]), dws, dbs, dscales, dbiases)
+
+
+class _ConvTowerBf16(torch.autograd.Function):
+    """#13-bf16 forward and #14-bf16 backward, or with ``plain`` their plain
+    versions. The weights come in f32 and are rounded to bf16 here, so
+    their gradients leave in f32 unrounded, as the JAX package's VJP hands
+    them to the f32 parameters; dx0 leaves in bf16."""
+
+    @staticmethod
+    def forward(ctx, cfgs, external_c0, plain, x0, *flat):
+        L = len(cfgs)
+        ws, bs, scales, biases, masks = (list(flat[i * L:(i + 1) * L]) for i in range(5))
+        ctx.meta = (cfgs, external_c0, plain)
+        if plain:
+            aL, mus, vars_, saved = tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases,
+                                                                 masks, external_c0)
+            ctx.saved = (saved, masks)
+        else:
+            wb = [w.to(torch.bfloat16).contiguous() for w in ws]
+            aL, mus, vars_, saved = tower_forward(x0, cfgs, wb, bs, scales, biases, masks,
+                                                  external_c0)
+            ctx.save_for_backward(saved.x2, *saved.a_list, *saved.c_list, *saved.rows_list,
+                                  *saved.ws, *saved.masks)
+            ctx.R, ctx.S = saved.R, saved.S
+        ctx.mark_non_differentiable(*mus, *vars_)
+        return (aL, *mus, *vars_)
+
+    @staticmethod
+    def backward(ctx, da, *_):
+        cfgs, external_c0, plain = ctx.meta
+        L = len(cfgs)
+        if plain:
+            saved, masks = ctx.saved
+            grads = tower_backward_bf16_reference(saved, cfgs, masks, da, external_c0)
+        else:
+            t = ctx.saved_tensors
+            x2, parts = t[0], [list(t[1 + i * L:1 + (i + 1) * L]) for i in range(5)]
+            grads = fused_conv_tower_backward(
+                TowerSaved(cfgs, external_c0, ctx.R, ctx.S, x2, *parts), da)
+        return (None, None, None, *grads[0:1], *grads[1], *grads[2], *grads[3], *grads[4],
+                *([None] * L))
+
+
 # ---------------------------------------------------------------------------
 # the kernels' plan and phase order in plain PyTorch, for the tests: what
 # csrc/conv_tower.cu launches and in which order it sums, every product
@@ -169,10 +321,11 @@ GEMM_BM = 128     # rows of a product tile (kGemmBM)
 STAT_ROWS = 256   # rows of a column-sum block and of the narrow first conv (kStatRows)
 
 
-def on_tensor_cores(cin):
+def on_tensor_cores(cin, dtype=torch.float32):
     """Whether a conv over cin input channels runs as products on the tensor
-    cores: a float4 of its im2col rows never straddles two taps."""
-    return cin % 4 == 0
+    cores: a 16-byte piece of its im2col rows (four f32 channels, eight
+    bf16) never straddles two taps."""
+    return cin % channel_multiple(dtype) == 0
 
 
 def _ceil(a, b):
@@ -193,30 +346,46 @@ def split_rows(rows, tiles, sms):
     return _ceil(rows, rps), rps
 
 
-def layer_plan(R, S, kw, cin, C, sms=132):
+def bf16_floats(n):
+    """Floats a workspace gives n bf16 values, rounded up to 16 bytes."""
+    return _ceil(n, 8) * 4
+
+
+def layer_plan(R, S, kw, cin, C, sms=132, dtype=torch.float32):
     """The launch plan of one layer on a card of ``sms`` SMs, as
     csrc/conv_tower.cu sets it: the route of its conv, its transposed conv
     and its weight gradient; the forward conv's column-sum partials, the
     backward sums' blocks, the weight gradient's tiles and row splits, and
-    the workspaces in floats (focal_ct_workspace's kinds 0, 1, 2)."""
+    the workspaces in floats (focal_ct_workspace's kinds 0, 1, 2). In bf16
+    the weight gradient's partials hold dW alone (E = KW*cin*C: db is the
+    sum of the f32 dc, per 256-row block of the dc pass, ``stat_blocks``)
+    and the backward apply's workspace holds dc and W^T in bf16 and those
+    blocks' sums."""
     RS = R * S
-    tc = on_tensor_cores(cin)
-    E = kw * cin * C + C
+    bf16 = dtype == torch.bfloat16
+    tc = on_tensor_cores(cin, dtype)
+    E = kw * cin * C + (0 if bf16 else C)
     tiles = _ceil(kw * cin, GEMM_BM) * _ceil(C, tile_bn(C)) if tc else 1
     splits, rps = split_rows(RS, tiles, sms)
     partials = _ceil(RS, GEMM_BM) if tc else _ceil(RS, STAT_ROWS)
+    blocks = _ceil(RS, STAT_ROWS)
+    if bf16:
+        bwd_apply = (bf16_floats(RS * C) + (bf16_floats(kw * C * cin) if tc else 0)
+                     + blocks * 2 * C + splits * E)
+    else:
+        bwd_apply = RS * C + (kw * C * cin if tc else 0) + splits * E
     return {"tensor_cores": tc, "bn": tile_bn(C) if tc else None, "fwd_partials": partials,
-            "stat_blocks": _ceil(RS, STAT_ROWS), "wgrad_tiles": tiles, "splits": splits,
+            "stat_blocks": blocks, "wgrad_tiles": tiles, "splits": splits,
             "rows_per_split": rps, "E": E,
-            "workspace": {"forward": partials * 2 * C, "bwd_stats": _ceil(RS, STAT_ROWS) * 2 * C,
-                          "bwd_apply": RS * C + (kw * C * cin if tc else 0) + splits * E}}
+            "workspace": {"forward": partials * 2 * C, "bwd_stats": blocks * 2 * C,
+                          "bwd_apply": bwd_apply}}
 
 
 def shift_rows(x, d, S):
     """x [R*S, cin] with row g replaced by row g + d where its position
     g % S + d stays inside the sample, else by zeros: the loaders' tap
     shift and cp.async's zero-fill (the SAME padding)."""
-    g = torch.arange(x.shape[0])
+    g = torch.arange(x.shape[0], device=x.device)
     ok = ((g % S + d) >= 0) & ((g % S + d) < S)
     return torch.where(ok[:, None], x[torch.clamp(g + d, 0, x.shape[0] - 1)], 0.0)
 
@@ -247,60 +416,76 @@ def _tile_sums(c, rows):
     return [torch.stack([t.sum(0), (t * t).sum(0)]) for t in c.split(rows)]
 
 
-def stages_conv(x, w, b, kw, S, gemm=torch.matmul):
+def _store(t, dtype):
+    """t as the kernels store it: rounded to bf16 (kept in f32) in bf16."""
+    return round_bf16(t) if dtype == torch.bfloat16 else t
+
+
+def stages_conv(x, w, b, kw, S, gemm=torch.matmul, dtype=torch.float32):
     """A forward conv as #13 runs it: c = im2col(x) w + b, through ``gemm``
     on the tensor cores or in f32 on the CUDA cores (the narrow first conv),
     and its sums [2, C]: per 128-row tile (256-row block) Σc and Σc²,
-    summed in tile order. Returns (c, sums, partials)."""
-    tc = on_tensor_cores(x.shape[1])
-    c = (gemm if tc else torch.matmul)(im2col_rows(x, kw, S), w) + b
+    summed in tile order. In bf16 x and w hold bf16 values and c is rounded
+    to bf16 before its sums. Returns (c, sums, partials)."""
+    tc = on_tensor_cores(x.shape[1], dtype)
+    c = _store((gemm if tc else torch.matmul)(im2col_rows(x, kw, S), w) + b, dtype)
     partials = _tile_sums(c, GEMM_BM if tc else STAT_ROWS)
     return c, ordered_sum(partials), partials
 
 
-def stages_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False, gemm=torch.matmul):
+def stages_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False, gemm=torch.matmul,
+                   dtype=torch.float32):
     """#13's phase order: per layer the BN coefficients from the sums, the
     apply pass a_k = GELU(c_k A + B) mask (+ a_{k-1}), then the next conv
-    with its tile sums. Returns (a_last [R, S, C], mus, vars, saved) with
-    saved = {x2, a, c, rows} per layer for stages_backward."""
+    with its tile sums. With ``dtype`` bf16, #13-bf16's: x0 and the weights
+    rounded to bf16, c and a stored in bf16 (f32 tensors of bf16 values
+    here). Returns (a_last [R, S, C], mus, vars, saved) with saved = {x2,
+    a, c, rows, ws} per layer for stages_backward."""
     R, S, _ = x0.shape
     n = float(R * S)
-    x2 = x0.reshape(R * S, x0.shape[-1])
+    x2 = _store(x0.reshape(R * S, x0.shape[-1]).to(torch.float32), dtype)
+    ws = [_store(w.to(torch.float32), dtype) for w in ws]
     if external_c0:
         c = x2
         sums = torch.stack([c.sum(dim=0), (c * c).sum(dim=0)])  # tower_forward's, in torch
     else:
-        c, sums, _ = stages_conv(x2, ws[0], bs[0], cfgs[0][0], S, gemm)
-    saved = {"x2": x2, "a": [], "c": [], "rows": []}
+        c, sums, _ = stages_conv(x2, ws[0], bs[0], cfgs[0][0], S, gemm, dtype)
+    saved = {"x2": x2, "a": [], "c": [], "rows": [], "ws": ws}
     mus, vars_ = [], []
     a = None
     for k, (_, _, _, residual) in enumerate(cfgs):
         rows, mu, var = _finalize_stats(sums, n, scales[k], biases[k])
         z = gelu_exact(c * rows[0] + rows[1]) * _rows_of(masks[k], R).repeat_interleave(S, dim=0)
         aprev = (a if k > 0 else x2) if residual else None
-        a = z + aprev if aprev is not None else z
+        a = _store(z + aprev if aprev is not None else z, dtype)
         for key, v in (("a", a), ("c", c), ("rows", rows)):
             saved[key].append(v)
         mus.append(mu)
         vars_.append(var)
         if k + 1 < len(cfgs):
-            c, sums, _ = stages_conv(a, ws[k + 1], bs[k + 1], cfgs[k + 1][0], S, gemm)
+            c, sums, _ = stages_conv(a, ws[k + 1], bs[k + 1], cfgs[k + 1][0], S, gemm, dtype)
     return a.view(R, S, cfgs[-1][2]), tuple(mus), tuple(vars_), saved
 
 
 def stages_backward(saved, cfgs, ws, masks, da_last, external_c0=False, gemm=torch.matmul,
-                    sms=132):
+                    sms=132, dtype=torch.float32):
     """#14's phase order from stages_forward's saved: per layer in reverse
     Σgy and Σgy·x̂ per 256-row block summed in block order, dc, the
     transposed conv (the shifts negated, B the per-tap W^T; + da for a
     residual) and dW | db as partials over the layer plan's fixed row
-    splits summed in split order. Returns (dx0, dws, dbs, dscales,
-    dbiases) as fused_conv_tower_backward, and the layers' partials."""
+    splits summed in split order. With ``dtype`` bf16, #14-bf16's: da
+    rounded to bf16, dc rounded to bf16 for the transposed conv and dW
+    (the weights saved's bf16 ones), dprev stored in bf16, and db the f32
+    dc's column sums per 256-row block of the dc pass, summed in block
+    order. Returns (dx0, dws, dbs, dscales, dbiases) as
+    fused_conv_tower_backward, and the layers' partials."""
     x2 = saved["x2"]
     RS = x2.shape[0]
     R, S, C = da_last.shape
     n = float(RS)
-    da = da_last.reshape(RS, C)
+    bf16 = dtype == torch.bfloat16
+    ws = saved["ws"] if bf16 else ws
+    da = _store(da_last.reshape(RS, C).to(torch.float32), dtype)
     L = len(cfgs)
     dws, dbs, dscales, dbiases, partials = ([None] * L for _ in range(5))
     for k in range(L - 1, -1, -1):
@@ -316,21 +501,28 @@ def stages_backward(saved, cfgs, ws, masks, da_last, external_c0=False, gemm=tor
         dc = rows[2] * (gy * rows[4] - m[0] - xhat * m[1])
         if k == 0 and external_c0:
             dws[0], dbs[0] = torch.zeros_like(ws[0]), torch.zeros(cout)
-            dx0 = dc
+            dx0 = _store(dc, dtype)
             break
         aprev = saved["a"][k - 1] if k > 0 else x2
-        tc = on_tensor_cores(cin)
-        dprev = (gemm if tc else torch.matmul)(im2col_rows(dc, kw, S, sign=-1),
+        tc = on_tensor_cores(cin, dtype)
+        dcs = _store(dc, dtype)
+        dprev = (gemm if tc else torch.matmul)(im2col_rows(dcs, kw, S, sign=-1),
                                               tap_transpose(ws[k], kw, cin, cout))
         if residual:
             dprev = dprev + da
+        dprev = _store(dprev, dtype)
         cols = im2col_rows(aprev, kw, S)
-        rps = layer_plan(R, S, kw, cin, cout, sms)["rows_per_split"]
+        rps = layer_plan(R, S, kw, cin, cout, sms, dtype)["rows_per_split"]
         parts = [torch.cat([(gemm if tc else torch.matmul)(cols[r0:r0 + rps].t().contiguous(),
-                                                           dc[r0:r0 + rps]).flatten(),
-                            dc[r0:r0 + rps].sum(0)]) for r0 in range(0, RS, rps)]
+                                                           dcs[r0:r0 + rps]).flatten()]
+                           + ([] if bf16 else [dc[r0:r0 + rps].sum(0)]))
+                 for r0 in range(0, RS, rps)]
         total = ordered_sum(parts)
-        dws[k], dbs[k] = total[:-cout].view(kw * cin, cout), total[-cout:]
+        if bf16:
+            dws[k] = total.view(kw * cin, cout)
+            dbs[k] = ordered_sum([t.sum(0) for t in dc.split(STAT_ROWS)])
+        else:
+            dws[k], dbs[k] = total[:-cout].view(kw * cin, cout), total[-cout:]
         partials[k] = parts
         da = dprev
         dx0 = dprev
@@ -351,12 +543,12 @@ def _lib():
     lib = _build.load(_CONV_TOWER_SRC)
     if lib.focal_ct_conv0.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.focal_ct_workspace.argtypes = [i] * 6 + [ctypes.POINTER(ctypes.c_longlong)]
-        lib.focal_ct_conv0.argtypes = [p] * 10 + [i] * 5 + [p]
-        lib.focal_ct_apply.argtypes = [p] * 14 + [i] * 6 + [p]
-        lib.focal_ct_bwd_stats.argtypes = [p] * 7 + [i] * 4 + [p]
-        lib.focal_ct_bwd_apply.argtypes = [p] * 10 + [i] * 7 + [p]
-        lib.focal_ct_bwd_dc.argtypes = [p] * 6 + [i] * 4 + [p]
+        lib.focal_ct_workspace.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
+        lib.focal_ct_conv0.argtypes = [p] * 10 + [i] * 6 + [p]
+        lib.focal_ct_apply.argtypes = [p] * 14 + [i] * 7 + [p]
+        lib.focal_ct_bwd_stats.argtypes = [p] * 7 + [i] * 5 + [p]
+        lib.focal_ct_bwd_apply.argtypes = [p] * 10 + [i] * 8 + [p]
+        lib.focal_ct_bwd_dc.argtypes = [p] * 6 + [i] * 5 + [p]
         for fn in (lib.focal_ct_workspace, lib.focal_ct_conv0, lib.focal_ct_apply,
                    lib.focal_ct_bwd_stats, lib.focal_ct_bwd_apply, lib.focal_ct_bwd_dc):
             fn.restype = ctypes.c_int
@@ -365,9 +557,9 @@ def _lib():
     return lib
 
 
-def _check(name, t, shape, device):
-    if t.dtype != torch.float32:
-        raise TypeError(f"conv tower: {name} must be float32, got {t.dtype}")
+def _check(name, t, shape, device, dtype=torch.float32):
+    if t.dtype != dtype:
+        raise TypeError(f"conv tower: {name} must be {dtype}, got {t.dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"conv tower: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
@@ -386,11 +578,26 @@ def _aligned(t):
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _workspace(kind, R, S, cin, cout, kw, dev):
+def _is_bf16(t):
+    """The kernels' row-type flag: 1 for bf16 rows (#13-bf16, #14-bf16)."""
+    return int(t.dtype == torch.bfloat16)
+
+
+def _forward_count(t):
+    """The function whose launch count a forward call on rows t adds to."""
+    return fused_conv_tower_bf16 if _is_bf16(t) else fused_conv_tower
+
+
+def _backward_count(t):
+    return fused_conv_tower_backward_bf16 if _is_bf16(t) else fused_conv_tower_backward
+
+
+def _workspace(kind, R, S, cin, cout, kw, dev, bf16=0):
     lib = _lib()
     floats = ctypes.c_longlong(0)
     with torch.cuda.device(dev):
-        err = lib.focal_ct_workspace(_KINDS[kind], R, S, cin, cout, kw, ctypes.byref(floats))
+        err = lib.focal_ct_workspace(_KINDS[kind], R, S, cin, cout, kw, bf16,
+                                     ctypes.byref(floats))
     if err != 0:
         raise RuntimeError(f"conv tower {kind}: no launch plan for R={R} S={S} Cin={cin} "
                            f"Cout={cout} KW={kw} ({err}): {lib.focal_cuda_error_string(err).decode()}")
@@ -415,20 +622,22 @@ def _bn_outputs(cout, dev):
 def _conv0(x2, w, b, scale, bias, kw, R, S):
     """First conv of an internal-c0 tower: x [R*S, Cin] -> c [R*S, Cout] and
     from its batch statistics the BN rows [5, Cout] (scale and bias: its
-    BatchNorm's affine), mu and var. Returns (c, rows, mu, var)."""
+    BatchNorm's affine), mu and var. Returns (c, rows, mu, var). x, w and
+    c are f32, or bf16 for #13-bf16."""
     dev = x2.device
     cin = x2.shape[1]
     cout = w.shape[1]
-    _check("w", w, (kw * cin, cout), dev)
+    _check("w", w, (kw * cin, cout), dev, x2.dtype)
     for name, t in (("b", b), ("scale", scale), ("bias", bias)):
         _check(name, t, (cout,), dev)
-    ws = _workspace("forward", R, S, cin, cout, kw, dev)
-    c = torch.empty((R * S, cout), dtype=torch.float32, device=dev)
+    bf16 = _is_bf16(x2)
+    ws = _workspace("forward", R, S, cin, cout, kw, dev, bf16)
+    c = torch.empty((R * S, cout), dtype=x2.dtype, device=dev)
     rows, mu, var = _bn_outputs(cout, dev)
     _launch("conv0", _lib().focal_ct_conv0, dev, x2.data_ptr(), w.data_ptr(), b.data_ptr(),
             scale.data_ptr(), bias.data_ptr(), c.data_ptr(), rows.data_ptr(), mu.data_ptr(),
-            var.data_ptr(), ws.data_ptr(), R, S, cin, cout, kw)
-    fused_conv_tower.launches += 1
+            var.data_ptr(), ws.data_ptr(), R, S, cin, cout, kw, bf16)
+    _forward_count(x2).launches += 1
     return c, rows, mu, var
 
 
@@ -436,13 +645,14 @@ def _apply(c, rows, mask, aprev, nxt, R, S):
     """Layer k's apply: a = GELU(c*A + B) * mask [+ aprev]; with ``nxt`` =
     (w, b, kw, scale, bias) of layer k+1 also its conv and, from that conv's
     batch statistics, its BN rows, mu and var. Returns (a, c_next,
-    rows_next, mu_next, var_next), all but a None without ``nxt``."""
+    rows_next, mu_next, var_next), all but a None without ``nxt``. The rows
+    (c, aprev, a, w, c_next) are f32, or bf16 for #13-bf16."""
     dev = c.device
     C = c.shape[1]
     _check("rows", rows, (5, C), dev)
     _check("mask", mask, (mask.shape[0], C), dev)
     if aprev is not None:
-        _check("aprev", aprev, (R * S, C), dev)
+        _check("aprev", aprev, (R * S, C), dev, c.dtype)
     a = torch.empty_like(c)
     c_next = ws = w = b = scale = bias = None
     st = (None, None, None)
@@ -450,16 +660,16 @@ def _apply(c, rows, mask, aprev, nxt, R, S):
     if nxt is not None:
         w, b, kw, scale, bias = nxt
         cout = w.shape[1]
-        _check("w", w, (kw * C, cout), dev)
+        _check("w", w, (kw * C, cout), dev, c.dtype)
         for name, t in (("b", b), ("scale", scale), ("bias", bias)):
             _check(name, t, (cout,), dev)
-        ws = _workspace("forward", R, S, C, cout, kw, dev)
-        c_next = torch.empty((R * S, cout), dtype=torch.float32, device=dev)
+        ws = _workspace("forward", R, S, C, cout, kw, dev, _is_bf16(c))
+        c_next = torch.empty((R * S, cout), dtype=c.dtype, device=dev)
         st = _bn_outputs(cout, dev)
     _launch("apply", _lib().focal_ct_apply, dev, c.data_ptr(), rows.data_ptr(), mask.data_ptr(),
             _ptr(aprev), _ptr(w), _ptr(b), _ptr(scale), _ptr(bias), a.data_ptr(), _ptr(c_next),
-            *(_ptr(t) for t in st), _ptr(ws), R, S, mask.shape[0], C, cout, kw)
-    fused_conv_tower.launches += 1
+            *(_ptr(t) for t in st), _ptr(ws), R, S, mask.shape[0], C, cout, kw, _is_bf16(c))
+    _forward_count(c).launches += 1
     return (a, c_next, *st)
 
 
@@ -469,36 +679,38 @@ def _bwd_stats(da, c, mask, rows, R, S):
     scale / n, the means of dx̂ and dx̂·x̂ (dx̂ = gy scale)."""
     dev = c.device
     C = c.shape[1]
-    _check("da", da, (R * S, C), dev)
-    ws = _workspace("bwd_stats", R, S, C, C, 1, dev)
+    _check("da", da, (R * S, C), dev, c.dtype)
+    ws = _workspace("bwd_stats", R, S, C, C, 1, dev, _is_bf16(c))
     s2 = torch.empty((2, C), dtype=torch.float32, device=dev)
     m = torch.empty((2, C), dtype=torch.float32, device=dev)
     _launch("bwd_stats", _lib().focal_ct_bwd_stats, dev, da.data_ptr(), c.data_ptr(),
             mask.data_ptr(), rows.data_ptr(), s2.data_ptr(), m.data_ptr(), ws.data_ptr(), R, S,
-            mask.shape[0], C)
-    fused_conv_tower_backward.launches += 1
+            mask.shape[0], C, _is_bf16(c))
+    _backward_count(c).launches += 1
     return s2, m
 
 
 def _bwd_apply(da, c, mask, rows, m, aprev, w, kw, residual, R, S):
     """dc (the BN input gradient), then dprev = convT(dc, W) [+ da], dW
-    [KW*Cin, Cout] and db [Cout]. Returns (dprev, dW, db)."""
+    [KW*Cin, Cout] and db [Cout]. Returns (dprev, dW, db): dprev in the
+    rows' type (bf16 for #14-bf16), dW and db f32."""
     dev = c.device
     C = c.shape[1]
     cin = aprev.shape[1]
-    _check("da", da, (R * S, C), dev)
-    _check("aprev", aprev, (R * S, cin), dev)
-    _check("w", w, (kw * cin, C), dev)
+    _check("da", da, (R * S, C), dev, c.dtype)
+    _check("aprev", aprev, (R * S, cin), dev, c.dtype)
+    _check("w", w, (kw * cin, C), dev, c.dtype)
     if residual and cin != C:
         raise ValueError(f"conv tower: a residual layer needs Cin == Cout, got {cin} and {C}")
-    ws = _workspace("bwd_apply", R, S, cin, C, kw, dev)
-    dprev = torch.empty((R * S, cin), dtype=torch.float32, device=dev)
+    bf16 = _is_bf16(c)
+    ws = _workspace("bwd_apply", R, S, cin, C, kw, dev, bf16)
+    dprev = torch.empty((R * S, cin), dtype=c.dtype, device=dev)
     dwb = torch.empty(kw * cin * C + C, dtype=torch.float32, device=dev)
     _launch("bwd_apply", _lib().focal_ct_bwd_apply, dev, da.data_ptr(), c.data_ptr(),
             mask.data_ptr(), rows.data_ptr(), m.data_ptr(), aprev.data_ptr(), w.data_ptr(),
             dprev.data_ptr(), dwb.data_ptr(), ws.data_ptr(), R, S, mask.shape[0], C, cin, kw,
-            int(bool(residual)))
-    fused_conv_tower_backward.launches += 1
+            int(bool(residual)), bf16)
+    _backward_count(c).launches += 1
     return dprev, dwb[:kw * cin * C].view(kw * cin, C), dwb[kw * cin * C:]
 
 
@@ -506,11 +718,11 @@ def _bwd_dc(da, c, mask, rows, m, R, S):
     """dc alone: the input gradient of an external first conv's output."""
     dev = c.device
     C = c.shape[1]
-    _check("da", da, (R * S, C), dev)
+    _check("da", da, (R * S, C), dev, c.dtype)
     dc = torch.empty_like(c)
     _launch("bwd_dc", _lib().focal_ct_bwd_dc, dev, da.data_ptr(), c.data_ptr(), mask.data_ptr(),
-            rows.data_ptr(), m.data_ptr(), dc.data_ptr(), R, S, mask.shape[0], C)
-    fused_conv_tower_backward.launches += 1
+            rows.data_ptr(), m.data_ptr(), dc.data_ptr(), R, S, mask.shape[0], C, _is_bf16(c))
+    _backward_count(c).launches += 1
     return dc
 
 
@@ -541,7 +753,9 @@ def _check_tower(x0, cfgs, masks, external_c0):
     if x0.dim() != 3:
         raise ValueError(f"fused_conv_tower: x0 must be [R, S, C], got {tuple(x0.shape)}")
     R, S = x0.shape[:2]
-    _check("x0", x0, (R, S, cfgs[0][2] if external_c0 else cfgs[0][1]), dev)
+    if x0.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"fused_conv_tower: x0 must be float32 or bfloat16, got {x0.dtype}")
+    _check("x0", x0, (R, S, cfgs[0][2] if external_c0 else cfgs[0][1]), dev, x0.dtype)
     for k, (kw, cin, cout, residual) in enumerate(cfgs):
         if k > 0 and cin != cfgs[k - 1][2]:
             raise ValueError(f"fused_conv_tower: layer {k} takes {cin} channels, gets {cfgs[k - 1][2]}")
@@ -555,8 +769,9 @@ def _check_tower(x0, cfgs, masks, external_c0):
 
 
 def tower_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0):
-    """#13 over the chain on the card: (a_last [R, S, C], mus, vars,
-    TowerSaved for the backward)."""
+    """#13 over the chain on the card (#13-bf16 for a bf16 x0, whose
+    weights ws must then be bf16): (a_last [R, S, C], mus, vars, TowerSaved
+    for the backward)."""
     _check_tower(x0, cfgs, masks, external_c0)
     R, S, _ = x0.shape
     n = float(R * S)
@@ -565,7 +780,8 @@ def tower_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0):
     L = len(cfgs)
     if external_c0:  # its BN statistics in torch: no conv of the tower produced them
         c = x2
-        rows, mu, var = _finalize_stats(torch.stack([c.sum(dim=0), (c * c).sum(dim=0)]), n,
+        cf = c.float()
+        rows, mu, var = _finalize_stats(torch.stack([cf.sum(dim=0), (cf * cf).sum(dim=0)]), n,
                                         scales[0], biases[0])
     else:
         c, rows, mu, var = _conv0(x2, ws[0], bs[0], scales[0], biases[0], cfgs[0][0], R, S)
@@ -668,15 +884,54 @@ def fused_conv_tower(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0=
     biased batch variance, for the caller's running averages (flax
     semantics); they carry no gradient.
 
+    A bf16 x0 takes #13-bf16 and #14-bf16 (``-compute_dtype bfloat16``):
+    ws stay f32 (the parameters' views) and are rounded to bf16 inside,
+    a_last and the gradient of x0 are bf16, the other gradients f32.
+
     Replaces focal_tpu/ops/conv_tower.py::fused_conv_tower (_conv0_kernel,
-    _apply_kernel; their VJP #14). CPU tensors take the plain version."""
+    _apply_kernel; their VJP #14), fed f32 or bf16. CPU tensors take the
+    plain version."""
     cfgs = tuple(tuple(int(v) for v in c) for c in layer_cfgs)
     if x0.device.type == "cpu":
         return fused_conv_tower_reference(x0, cfgs, ws, bs, scales, biases, masks, external_c0)
     L = len(cfgs)
-    out = _ConvTower.apply(cfgs, bool(external_c0), x0, *ws, *bs, *scales, *biases, *masks)
+    if x0.dtype == torch.bfloat16:
+        out = _ConvTowerBf16.apply(cfgs, bool(external_c0), False, x0, *ws, *bs, *scales, *biases,
+                                   *masks)
+    else:
+        out = _ConvTower.apply(cfgs, bool(external_c0), x0, *ws, *bs, *scales, *biases, *masks)
     return out[0], tuple(out[1:1 + L]), tuple(out[1 + L:])
 
 
 fused_conv_tower.launches = 0
 
+
+
+def fused_conv_tower_bf16(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0=False):
+    """#13-bf16, with #14-bf16 (``fused_conv_tower_backward_bf16``) as its
+    backward: ``fused_conv_tower`` on a bf16 x0 (f32 ws rounded inside).
+    ``fused_conv_tower_bf16.launches`` counts #13-bf16's kernel calls, as
+    ``fused_conv_tower.launches`` counts #13's.
+
+    Replaces focal_tpu/ops/conv_tower.py::fused_conv_tower fed bf16
+    (store_dtype bfloat16)."""
+    if x0.dtype != torch.bfloat16:
+        raise TypeError(f"fused_conv_tower_bf16: x0 must be bfloat16, got {x0.dtype}")
+    return fused_conv_tower(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0)
+
+
+fused_conv_tower_bf16.launches = 0
+
+
+def fused_conv_tower_backward_bf16(saved, da_last):
+    """#14-bf16: ``fused_conv_tower_backward`` at a bf16 tower's saved
+    (tower_forward on bf16 rows and weights); dx0 bf16, the rest f32.
+    ``fused_conv_tower_backward_bf16.launches`` counts its kernel calls.
+
+    Replaces focal_tpu/ops/conv_tower.py's op_bwd at store_dtype bfloat16."""
+    if saved.x2.dtype != torch.bfloat16:
+        raise TypeError(f"fused_conv_tower_backward_bf16: saved rows are {saved.x2.dtype}")
+    return fused_conv_tower_backward(saved, da_last)
+
+
+fused_conv_tower_backward_bf16.launches = 0

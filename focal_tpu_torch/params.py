@@ -98,8 +98,9 @@ def build_parser():
                         choices=["float32", "bfloat16"],
                         help="Activation and matmul type on the device (parameters, gradients and "
                         "the optimizer stay float32); bfloat16 runs SW_Transformer's whole-block "
-                        "kernels in bf16 (#1-bf16 to #3-bf16). Default float32, as the JAX CLI's "
-                        "off the TPU.")
+                        "kernels in bf16 (#1-bf16 to #3-bf16) and DeepSense's conv blocks in bf16 "
+                        "(with -pallas_conv, #13-bf16/#14-bf16). Default float32, as the JAX "
+                        "CLI's off the TPU.")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     return parser
 
@@ -170,8 +171,9 @@ def build_train_parser():
                         choices=["float32", "bfloat16"],
                         help="Activation and matmul type on the device (parameters, gradients and "
                         "the optimizer stay float32); bfloat16 runs SW_Transformer's whole-block "
-                        "kernels in bf16 (#1-bf16 to #3-bf16). Default float32, as the JAX CLI's "
-                        "off the TPU.")
+                        "kernels in bf16 (#1-bf16 to #3-bf16) and DeepSense's conv blocks in bf16 "
+                        "(with -pallas_conv, #13-bf16/#14-bf16). Default float32, as the JAX "
+                        "CLI's off the TPU.")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
     # the JAX CLI's flags for what the port does not run yet
     parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7).")

@@ -41,8 +41,8 @@ class Predictor:
         CLI's -no_pallas_block.
       compute_dtype: "float32" (default) or "bfloat16", as the CLI's
         -compute_dtype: the activations' type (the weights stay f32; bf16
-        serves SW_Transformer through #1-bf16). The probabilities are
-        computed in f32 either way.
+        serves SW_Transformer through #1-bf16, DeepSense on cuDNN's bf16
+        convs). The probabilities are computed in f32 either way.
     """
 
     def __init__(self, dataset_config, model, task, state_dict=None, batch_size=128,

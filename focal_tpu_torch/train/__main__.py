@@ -12,8 +12,10 @@ finetune``). On the CUDA card, or on the CPU with ``-device cpu``;
 runs the Swin MLPs through the fused MLP kernels; ``-no_pallas_block`` runs
 window attention through the attention-only kernels (#6-#9) between the qkv
 and proj Linears instead of the whole-block kernels (#1-#5);
-``-compute_dtype bfloat16`` trains SW_Transformer with bf16 activations over
-f32 parameters, gradients and optimizer (#1-bf16 to #3-bf16).
+``-compute_dtype bfloat16`` trains with bf16 activations over f32
+parameters, gradients and optimizer (SW_Transformer through #1-bf16 to
+#3-bf16; DeepSense on cuDNN's bf16 convs, or with ``-pallas_conv`` through
+#13-bf16/#14-bf16).
 """
 
 from focal_tpu_torch.params import parse_train_params

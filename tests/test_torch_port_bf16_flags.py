@@ -1,6 +1,6 @@
 """``-compute_dtype`` in the port: the flag in every parser and in
-``Predictor``, the f32 default, the entry points at bf16 on the CPU, and
-the routes whose bf16 forms are not ported, which raise
+``Predictor``, the f32 default, the entry points at bf16 on the CPU (both
+backbones), and the routes whose bf16 forms are not ported, which raise
 NotImplementedError naming ROADMAP A6 instead of running f32.
 """
 
@@ -58,9 +58,18 @@ def test_the_default_builds_the_f32_model():
     ("SW_Transformer", {"pallas_block": False}, "-no_pallas_block"),
 ])
 def test_unported_routes_refuse_bf16(model, kwargs, what):
+    """-pallas_mlp and -no_pallas_block raise in bf16. DeepSense, ported in
+    bf16 since (ROADMAP A6.1), builds instead: every layer in bf16 over f32
+    parameters."""
+    cfg = load_dataset_config("MOD_TINY")
+    if model == "DeepSense":
+        net = build_backbone(cfg, model, TASK, compute_dtype="bfloat16", **kwargs)
+        assert {m.compute_dtype for m in net.modules()
+                if hasattr(m, "compute_dtype")} == {torch.bfloat16}
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+        return
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A6"):
-        build_backbone(load_dataset_config("MOD_TINY"), model, TASK, compute_dtype="bfloat16",
-                       **kwargs)
+        build_backbone(cfg, model, TASK, compute_dtype="bfloat16", **kwargs)
 
 
 def test_blocks_of_the_per_head_kernels_refuse_bf16():
@@ -98,7 +107,7 @@ def test_predictor_serves_bf16_in_f32_probabilities():
 def test_entry_points_run_bf16_and_save_f32(tmp_path, capsys):
     """The training CLI at bf16 (supervised, 1 epoch), the test CLI on its
     _best and the predict CLI, on the CPU: finite numbers, checkpoints of
-    f32 tensors; DeepSense at bf16 raises before training."""
+    f32 tensors; DeepSense at bf16 trains the same way."""
     argv = ["-dataset", "MOD_TINY", "-learn_framework", "no", "-synthetic", "-synthetic_samples",
             "32", "-batch_size", "8", "-epochs", "1", "-val_epochs", "1", "-device", "cpu",
             "-output_dir", str(tmp_path), "-compute_dtype", "bfloat16"]
@@ -112,8 +121,12 @@ def test_entry_points_run_bf16_and_save_f32(tmp_path, capsys):
     result = predict.main(["-dataset", "MOD_TINY", "-synthetic", "-synthetic_samples", "6",
                            "-batch_size", "4", "-device", "cpu", "-compute_dtype", "bfloat16"])
     assert np.isfinite(result["probs"]).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        train_main(argv + ["-model", "DeepSense"])
+    state, _, points = train_main(argv + ["-model", "DeepSense"])
+    assert points and all(np.isfinite(p["train_loss"]) for p in points)
+    assert all(p.dtype == torch.float32 for p in state.model.parameters())
+    folder = next((tmp_path / "weights" / "MOD_TINY_DeepSense").iterdir())
+    saved = torch.load(next(folder.glob("*_best.pt")), map_location="cpu", weights_only=True)
+    assert saved and all(t.dtype == torch.float32 for t in saved.values())
 
 
 def test_dropouts_scale_in_the_tensors_type():

@@ -1421,3 +1421,155 @@ def test_bf16_wrappers_raise_on_what_they_cannot_take():
     with pytest.raises(ValueError):  # not 16-byte aligned
         x = torch.empty(8 * 9 * 64 + 1, dtype=torch.bfloat16, device=dev)[1:].view(8, 9, 64)
         pk.fused_window_block_bf16(x, *args[1:])
+
+
+# ---------------------------------------------------------------------------
+# the conv tower's bf16 forms (#13-bf16, #14-bf16) against the bf16 plain
+# tower on the same bf16 inputs, at the MOD (C 64, 512 samples) and MOD_WIDE
+# (C 256, 256 samples) geometries, the recipes' and the two-location
+# mod_extractor's, and a few samples: the output within 8e-3 of max|a| (one
+# bf16 step is 2^-8), the statistics 1e-3 relative, the gradients 1e-2
+# relative (the conv biases', true value 0, absolutely to 1e-2); the same
+# bits on a second call.
+
+def _tower_case_bf16(samples, C, external, S=20, layers=5, cin=2, kw=None, exact=False):
+    """With ``exact`` the plain version's f32 steps run in float64 (its
+    roundings to bf16 kept): a conv bias before a BatchNorm has a true
+    gradient of 0, and over 6.6e5 rows (S 128) the f32 plain version's
+    value there, set by the rounding of the batch mean, reaches ~1.6e-2."""
+    from focal_tpu_torch.ops.conv_tower import fused_conv_tower, fused_conv_tower_reference
+
+    dev = _card()
+    rng = np.random.default_rng(samples + C + external + 1)
+    if kw is None:
+        kw = 5 if external else 3
+    cfgs, x0, params, masks = _tower_args(rng, samples, 10, S, C, kw, external, layers, dev, cin)
+    x0 = x0.detach().to(torch.bfloat16).requires_grad_(True)
+    dy = torch.from_numpy(rng.normal(size=(samples * 10, S, C)).astype(np.float32)).to(dev)
+    dy = dy.to(torch.bfloat16)
+    got = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
+    again = _tower_grads(fused_conv_tower, cfgs, x0, params, masks, dy, external)
+    if exact:
+        want = _tower_grads(fused_conv_tower_reference, cfgs, x0,
+                            [[_exact(p) for p in group] for group in params],
+                            [m.double() for m in masks], dy, external)
+    else:
+        want = _tower_grads(fused_conv_tower_reference, cfgs, x0, params, masks, dy, external)
+    torch.cuda.synchronize()
+    assert got[0].dtype == torch.bfloat16 and got[3][0].dtype == torch.bfloat16
+    assert all(g.dtype == torch.float32 for g in got[3][1:])
+    assert _rel(got[0].detach().float(), want[0].detach().float()) <= 8e-3
+    for a, b in zip(got[1] + got[2], want[1] + want[2]):
+        assert _rel(a, b) <= 1e-3
+    for i, (g, w) in enumerate(zip(got[3], want[3])):
+        g, w = g.float(), w.float()
+        if max(float(g.abs().max()), float(w.abs().max())) < 1e-2:
+            assert float((g - w).abs().max()) <= 1e-2, i
+        else:
+            assert _rel(g, w) <= 1e-2, (i, _rel(g, w))
+    for a, b in zip([got[0], *got[1], *got[2], *got[3]], [again[0], *again[1], *again[2], *again[3]]):
+        assert torch.equal(a, b)  # fixed-order sums: bitwise repeatable
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples,C,external", [
+    (512, 64, False), (512, 64, True), (256, 256, False), (256, 256, True), (7, 64, False),
+    (7, 256, True),
+])
+def test_conv_tower_bf16_matches_plain_on_card(samples, C, external):
+    _tower_case_bf16(samples, C, external)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples,S,C,cin,kw,external,layers", [
+    (512, 20, 64, 6, 3, False, 5), (512, 25, 64, 6, 3, False, 5), (512, 41, 64, 64, 3, True, 5),
+    (512, 128, 64, 1, 4, False, 4), (7, 128, 64, 1, 4, False, 4), (5, 200, 64, 8, 3, False, 3),
+    (5, 1, 16, 2, 3, False, 3),
+])
+def test_conv_tower_bf16_at_the_recipe_and_other_geometries(samples, S, C, cin, kw, external,
+                                                            layers):
+    """The recipes' cin 6 and the mod_extractor's cin 1 (the narrow bf16
+    first conv), ACIDS's strided first conv, cin 8 (the first conv on the
+    bf16 tensor cores), a spectrum past a 128-row tile and one of a single
+    position at MOD_TINY's width. Held against the plain version with its
+    f32 steps in float64 (``exact``)."""
+    _tower_case_bf16(samples, C, external, S=S, layers=layers, cin=cin, kw=kw, exact=True)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("external", [False, True])
+def test_conv_tower_bf16_launch_counts_and_kernels(external):
+    """A bf16 tower launches #13-bf16/#14-bf16 (their own counts) as often
+    as the f32 one launches #13/#14, and its wrappers' calls run only csrc/conv_tower.cu's
+    kernels (the bf16 products, the dc pass with its block sums, no f32
+    product), gemm_splitk.cuh's reduction as instantiated for it among
+    them."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    dev = _card()
+    rng = np.random.default_rng(40 + external)
+    kw = 5 if external else 3
+    cfgs, x0, params, masks = _tower_args(rng, 16, 10, 20, 64, kw, external, 5, dev)
+    x0 = x0.detach().to(torch.bfloat16).requires_grad_(True)
+    counters = (ct.fused_conv_tower, ct.fused_conv_tower_backward, ct.fused_conv_tower_bf16,
+                ct.fused_conv_tower_backward_bf16)
+    before = [k.launches for k in counters]
+    y, _, _ = ct.fused_conv_tower_bf16(x0, cfgs, *params, masks, external)
+    y.float().sum().backward()
+    torch.cuda.synchronize()
+    assert [k.launches - n for k, n in zip(counters, before)] == [0, 0, 5 if external else 6, 10]
+    wb = [w.detach().to(torch.bfloat16) for w in params[0]]
+    p = [[t.detach() for t in g] for g in params[1:]]
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            _, _, _, sv = ct.tower_forward(x0.detach(), cfgs, wb, *p, masks, external)
+            ct.fused_conv_tower_backward(sv, torch.ones_like(y))
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+    def short(n):
+        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", n)
+        return m.group(1) if m else n
+
+    want = {"bn_elementwise_kernel", "bf16_conv_gemm_kernel", "bn_stats_kernel",
+            "bn_grad_sums_kernel", "bn_grad_stats_kernel", "bn_dc_sums_kernel",
+            "column_total_kernel", "tap_transpose_kernel", "bf16_conv_wgrad_kernel",
+            "reduce_partials_kernel"}
+    want |= set() if external else {"narrow_conv_kernel", "narrow_convT_kernel",
+                                    "narrow_wgrad_kernel"}
+    # PyTorch's own kernels: an external first conv's [C]-sized statistics,
+    # the placeholders' zero gradients
+    others = [n for n in names if short(n) not in want and not n.startswith(("void at::", "Memset"))]
+    assert want <= {short(n) for n in names} and not others, names
+
+
+@pytest.mark.gpu
+def test_conv_tower_bf16_workspaces_and_refusals():
+    """focal_ct_workspace's bf16 sizes equal layer_plan's; C 12 (not a
+    multiple of 8) has no bf16 launch plan; bf16 rows with f32 weights
+    raise."""
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    dev = _card()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for R, C, layers in ((5120, 64, [(3, 2), (3, 64), (5, 64)]),
+                         (2560, 256, [(3, 2), (3, 256), (5, 256)]), (50, 16, [(3, 8), (3, 16)])):
+        for kw, cin in layers:
+            want = ct.layer_plan(R, 20, kw, cin, C, sms, torch.bfloat16)["workspace"]
+            got = {"forward": ct._workspace("forward", R, 20, cin, C, kw, dev, 1),
+                   "bwd_stats": ct._workspace("bwd_stats", R, 20, C, C, 1, dev, 1),
+                   "bwd_apply": ct._workspace("bwd_apply", R, 20, cin, C, kw, dev, 1)}
+            assert {k: t.numel() for k, t in got.items()} == want, (R, C, kw, cin)
+    rng = np.random.default_rng(12)
+    cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 12, 3, False, 2, dev)
+    with pytest.raises(RuntimeError, match="no launch plan"):
+        ct.fused_conv_tower(x0.detach().to(torch.bfloat16), cfgs, *params, masks, False)
+    cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 64, 3, False, 2, dev)
+    with pytest.raises(TypeError):
+        ct.tower_forward(x0.detach().to(torch.bfloat16), cfgs, *[[t.detach() for t in g]
+                                                                  for g in params], masks, False)
