@@ -264,9 +264,39 @@ result line if any fails):
      focal_tpu_torch.train -pallas_conv -compute_dtype bfloat16 for 1 epoch
      with its launches held; 3 + 20 MOD pretrain steps at 256 of both
      routes, bf16 beside f32 from one init (p50, device busy, idle share,
-     device operations, peak memory).
+     device operations, peak memory);
+ 31. MOD_WIDE at -compute_dtype bfloat16: #4-bf16 and #5-bf16
+     (fused_window_block_perhead_bf16, fused_window_block_perhead_backward_bf16)
+     against their bf16 plain versions (those of #1-#3) at every per-head
+     geometry of the wide training batch (stages 1 and 2, C 512 and 1024,
+     shifted and unshifted), #4-bf16 at rate 0 and 0.2 (fed its own mask:
+     its keep rate within 5 sigma, the mask #2's), #5-bf16 with the mask and
+     without, phase 29's gates, the same bits on a second call; timed there
+     (events, device time by kernel, plain, cuBLAS bf16 + SDPA bf16 under
+     autograd, the bound at 989 TFLOP/s or the bf16 bytes); 3 + 10 MOD_WIDE
+     pretrain steps at batch 64, bf16 beside f32 from one init (#2-bf16 and
+     #3-bf16 4, #4-bf16 and #5-bf16 12 a step: p50, device busy, idle share,
+     device operations, peak memory); the rate-0 bf16 step, kernels against
+     the bf16 plain versions (loss 1e-2, C11's gradient gates); python -m
+     focal_tpu_torch.train -dataset MOD_WIDE -compute_dtype bfloat16 for an
+     epoch and a served MOD_WIDE bf16 batch (against the bf16 plain block,
+     1e-2), the launches held exactly;
+ 32. -pallas_mlp at -compute_dtype bfloat16: #10-bf16, #11-bf16 and #12-bf16
+     (fused_mlp_forward_bf16, fused_mlp_dropout_forward_bf16,
+     fused_mlp_backward_bf16) against their bf16 plain versions at every
+     MLP geometry of MOD (batch 128) and MOD_WIDE's stage 0 (64 fused to
+     128): y within 8e-3 of max|y|, #11-bf16 fed #11's masks (keep rates
+     within 5 sigma), #12-bf16 with them and without, gradients 1e-2
+     relative, the same bits on a second call; timed there (the library
+     bf16 addmm -> GELU -> addmm); 3 + 10 MOD bf16 supervised steps at 128
+     on the cuBLAS-MLP route and with -pallas_mlp from one init (#11-bf16
+     and #12-bf16 16 a step); the rate-0 -pallas_mlp bf16 step, kernels
+     against the bf16 plain versions (loss 1e-2, C11's gates); the
+     supervised entry point for an epoch and the test CLI on its _best, and
+     a served batch (#10-bf16 16) against the bf16 plain route (1e-2), the
+     launches held exactly.
 
-Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #3-bf16, #13-bf16 and
+Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #5-bf16, #10-bf16 to
 #14-bf16), the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
 nothing of the JAX package. --out DIR writes the per-geometry details and
@@ -674,7 +704,11 @@ MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
                    "phases": {"mlp_hidden_kernel": "hidden GEMM", "mlp_out_kernel": "output GEMM",
                               "mlp_g2_kernel": "masked gradient",
                               "wgrad_gemm_kernel": "weight gradient",
-                              "reduce_partials_kernel": "reduction"}}
+                              "reduce_partials_kernel": "reduction",
+                              "mlp_bf16_hidden_kernel": "hidden GEMM",
+                              "mlp_bf16_out_kernel": "output GEMM",
+                              "mlp_bf16_g2_kernel": "masked gradient",
+                              "bf16_wgrad_kernel": "weight gradient"}}
 # how many times one call of #2 or #4 (fwd) or of #3 or #5 (bwd) launches each
 WB_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
                "bwd": {"proj_gemm_kernel": 2, "attn_bwd_kernel": 1, "wgrad_gemm_kernel": 1,
@@ -1414,10 +1448,11 @@ def library_mlp(torch, F, x, w1, b1, w2, b2, rate=0.0):
 
 
 def plain_mlp(x, w1, b1, w2, b2, w1_t=None, w2_t=None):
-    """fused_mlp's plain version with its signature (for the rate-0 step)."""
-    from focal_tpu_torch.ops.fused_mlp import fused_mlp_reference
+    """fused_mlp's plain version with its signature (for the rate-0 step),
+    on any device: for a bf16 x the bf16 plain pair."""
+    from focal_tpu_torch.ops.fused_mlp import fused_mlp_plain
 
-    return fused_mlp_reference(x, w1, b1, w2, b2)
+    return fused_mlp_plain(x, w1, b1, w2, b2)
 
 
 def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_step, dev, tag):
@@ -1437,7 +1472,7 @@ def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_st
     tlabels = torch.from_numpy(labels).long().to(dev)
     idx = torch.arange(batch, device=dev) % len(labels)
     model = build_backbone(sargs.dataset_config, "SW_Transformer", sargs.task, "no",
-                           pallas_mlp=sargs.pallas_mlp)
+                           pallas_mlp=sargs.pallas_mlp, compute_dtype=sargs.compute_dtype)
     init_params(model, seed=0).to(dev)
     state = create_train_state(sargs, model, steps_per_epoch=100, seed=0)
     step = make_supervised_train_step(model, build_augmenter(sargs), fixed_aug=True)
@@ -1445,8 +1480,9 @@ def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_st
     for _ in range(warmup):
         state, metrics = step(state, tdata, tlabels, idx)
     torch.cuda.synchronize()
-    log(f"[{tag}] {sargs.dataset} SW_Transformer supervised{' -pallas_mlp' if sargs.pallas_mlp else ''}, "
-        f"batch {batch}; {warmup} warm-up steps in {time.time() - t0:.2f}s")
+    log(f"[{tag}] {sargs.dataset} SW_Transformer supervised{' -pallas_mlp' if sargs.pallas_mlp else ''}"
+        f" ({sargs.compute_dtype}), batch {batch}; {warmup} warm-up steps in "
+        f"{time.time() - t0:.2f}s")
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
     step_s, history = [], []
@@ -1474,6 +1510,7 @@ def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_st
         "max_ms": float(np.max(step_s)) * 1e3, "samples_per_s": batch / (p50_ms / 1e3),
         "peak_mb": peak_mb, "loss_first": float(history[0][0]), "loss_last": float(history[-1][0]),
         "profile": profile, "idle_share": 1 - profile["device_busy_ms"] / profile["wall_ms"],
+        "device_busy_ms": profile["device_busy_ms"], "device_ops": profile["device_ops"],
         "mlp_kernels_device_ms": mlp_ms, "mlp_device_ms_by_phase": mlp_split,
     }
     log(f"[{tag}] {steps} steps: launches {launches}; loss {summary['loss_first']:.4f} -> "
@@ -1487,12 +1524,13 @@ def run_supervised_steps(torch, np, sargs, batch, warmup, steps, kernels, per_st
     return summary
 
 
-def supervised_rate0_step(torch, sargs, weights, dev, plain):
+def supervised_rate0_step(torch, sargs, weights, dev, plain, kernels=None):
     """One supervised step of the MOD SW_Transformer at every drop rate 0
-    with -pallas_mlp from ``weights``: through the kernels (#1/#3, #10/#12),
-    or with ``plain`` through their plain versions. The fixed pool is
-    replaced by ["no"] so both take the same inputs. Returns (loss,
-    {name: gradient}) on the CPU and the launches."""
+    with -pallas_mlp from ``weights``, at sargs.compute_dtype: through the
+    kernels (#1/#3, #10/#12, or their bf16 forms), or with ``plain``
+    through their plain versions. The fixed pool is replaced by ["no"] so
+    both take the same inputs. Returns (loss, {name: gradient}) on the CPU
+    and the launches of ``kernels`` (the f32 ones by default)."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import build_backbone
     from focal_tpu_torch.models import swin as swin_mod
@@ -1512,7 +1550,8 @@ def supervised_rate0_step(torch, sargs, weights, dev, plain):
     data = to_device(host_data, dev)
     tlabels = torch.from_numpy(labels).long().to(dev)
     idx = torch.arange(sargs.batch_size, device=dev) % len(labels)
-    m = build_backbone(cfg0, "SW_Transformer", sargs.task, "no", pallas_mlp=True)
+    m = build_backbone(cfg0, "SW_Transformer", sargs.task, "no", pallas_mlp=True,
+                       compute_dtype=sargs.compute_dtype)
     m.load_state_dict(weights)
     m.to(dev)
     st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
@@ -1520,8 +1559,9 @@ def supervised_rate0_step(torch, sargs, weights, dev, plain):
         swin_mod.window_block, swin_mod.window_block_forward = (pk.window_block_reference,
                                                                 pk.fused_window_block_reference)
         swin_mod.fused_mlp = plain_mlp
-    kernels = (pk.fused_window_block, pk.fused_window_block_backward, fm.fused_mlp_forward,
-               fm.fused_mlp_backward, pk.fused_window_block_dropout, fm.fused_mlp_dropout_forward)
+    kernels = kernels or (pk.fused_window_block, pk.fused_window_block_backward,
+                          fm.fused_mlp_forward, fm.fused_mlp_backward,
+                          pk.fused_window_block_dropout, fm.fused_mlp_dropout_forward)
     zero_counts(kernels)
     try:
         _, mt = make_supervised_train_step(m, build_augmenter(args0), fixed_aug=True)(
@@ -2569,20 +2609,24 @@ def library_bf16_ms(torch, g, args, dy, rate):
     return fwd, bwd
 
 
-def time_block_bf16(torch, pk, g, gen, dev, rate, train):
-    """#1-bf16 (eval geometry) or #2-bf16 and #3-bf16 (training geometry) at
-    g, stored in g: events over at least PROFILE_TRACE_MS of calls, device
-    time from a profile split by kernel (kernel_phase_split: it fails on a
-    kernel outside csrc/window_block.cu), the plain versions, the library
-    yardstick and the bound (bf16_work)."""
+def time_block_bf16(torch, pk, g, gen, dev, rate, train, perhead=False):
+    """#1-bf16 (eval geometry) or #2-bf16 and #3-bf16 (training geometry;
+    with ``perhead`` #4-bf16 and #5-bf16) at g, stored in g: events over at
+    least PROFILE_TRACE_MS of calls, device time from a profile split by
+    kernel (kernel_phase_split: it fails on a kernel outside
+    csrc/window_block.cu), the plain versions, the library yardstick and the
+    bound (bf16_work)."""
     args = bf16_inputs(torch, g, gen, dev)
     dy = torch.randn(args[0].shape, generator=gen).to(dev).to(torch.bfloat16)
     tr = transposed(args)
+    fwd_k, bwd_k = ((pk.fused_window_block_perhead_bf16, pk.fused_window_block_perhead_backward_bf16)
+                    if perhead else
+                    (pk.fused_window_block_dropout_bf16, pk.fused_window_block_backward_bf16))
     if train:
-        _, keep = pk.fused_window_block_dropout_bf16(*args, 7, rate)
-        calls = {"fwd": (lambda: pk.fused_window_block_dropout_bf16(*args, 7, rate),
+        _, keep = fwd_k(*args, 7, rate)
+        calls = {"fwd": (lambda: fwd_k(*args, 7, rate),
                          lambda: pk.fused_window_block_bf16_reference(*args, keep, rate)),
-                 "bwd": (lambda: pk.fused_window_block_backward_bf16(*args, dy, keep, rate, *tr),
+                 "bwd": (lambda: bwd_k(*args, dy, keep, rate, *tr),
                          lambda: pk.fused_window_block_backward_bf16_reference(*args, dy, keep,
                                                                                rate))}
     else:
@@ -2599,19 +2643,24 @@ def time_block_bf16(torch, pk, g, gen, dev, rate, train):
                           "library_ms": lib[0] if d == "fwd" else lib[1], "bound_ms": bnd,
                           "bound_by": by, "flops": flops, "bytes": nbytes}
         r = g[f"bf16_{d}"]
+        names = ("#4-bf16", "#5-bf16") if perhead else ("#2-bf16" if train else "#1-bf16",
+                                                          "#3-bf16")
         log(f"[bf16-time] {g['name']} (windows {g['windows']}, C {g['C']}) "
-            f"{('#2-bf16' if train else '#1-bf16') if d == 'fwd' else '#3-bf16'}: "
+            f"{names[0] if d == 'fwd' else names[1]}: "
             f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms']:.4f}, bound {bnd:.4f} ({by}), {flops / r['device_ms'] / 1e9:.2f} "
             f"TFLOP/s by device time; by phase {split['phases']}")
 
 
-def bf16_step_runs(torch, np, kernels, dev, tag):
-    """MOD pretrain steps at TRAIN_BATCH (views fused), f32 and bf16 from one
-    init (seed 0) on the same resident synthetic data and fixed idx, in one
-    process: TRAIN_WARMUP + TRAIN_STEPS each, launches held a step (f32: #2
-    and #3; bf16: #2-bf16 and #3-bf16, once a block each), losses finite;
-    p50, samples/s, peak memory, and a profiled step's idle share and
+def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATCH,
+                   steps=TRAIN_STEPS, per_step=None):
+    """``dataset`` pretrain steps at ``batch`` (views fused; MOD at
+    TRAIN_BATCH by default), f32 and bf16 from one init (seed 0) on the same
+    resident synthetic data and fixed idx, in one process: TRAIN_WARMUP +
+    ``steps`` each, launches held a step (``per_step``: {dtype: {kernel
+    name: launches}}; by default #2 and #3 in f32, #2-bf16 and #3-bf16 in
+    bf16, once a block each), losses finite; p50, samples/s, peak memory,
+    and a profiled step's idle share, device busy time, device operations,
     device time by window_block.cu phase and top kernels."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import build_backbone, init_params
@@ -2625,16 +2674,20 @@ def bf16_step_runs(torch, np, kernels, dev, tag):
     out = {}
     data = None
     for dtype in ("float32", "bfloat16"):
-        targs = parse_train_params(["-dataset", "MOD", "-learn_framework", "FOCAL",
+        targs = parse_train_params(["-dataset", dataset, "-learn_framework", "FOCAL",
                                     "-compute_dtype", dtype])
         cfg = targs.dataset_config
-        n_blocks = sum(g["per_forward"] for g in block_geometries(cfg, SERVE_BATCH))
-        fwd, bwd = ((pk.fused_window_block_dropout, pk.fused_window_block_backward)
-                    if dtype == "float32" else
-                    (pk.fused_window_block_dropout_bf16, pk.fused_window_block_backward_bf16))
+        if per_step is None:
+            n_blocks = sum(g["per_forward"] for g in block_geometries(cfg, SERVE_BATCH))
+            fwd, bwd = ((pk.fused_window_block_dropout, pk.fused_window_block_backward)
+                        if dtype == "float32" else
+                        (pk.fused_window_block_dropout_bf16, pk.fused_window_block_backward_bf16))
+            step_launches = {fwd.__name__: n_blocks, bwd.__name__: n_blocks}
+        else:
+            step_launches = per_step[dtype]
         if data is None:
-            data = to_device(synthetic_arrays(cfg, targs.task, 2 * TRAIN_BATCH, seed=0)[0], dev)
-        idx = torch.arange(TRAIN_BATCH, device=dev)
+            data = to_device(synthetic_arrays(cfg, targs.task, 2 * batch, seed=0)[0], dev)
+        idx = torch.arange(batch, device=dev)
         model = init_params(build_backbone(cfg, "SW_Transformer", targs.task, "FOCAL",
                                            compute_dtype=dtype), seed=0).to(dev)
         state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
@@ -2645,7 +2698,7 @@ def bf16_step_runs(torch, np, kernels, dev, tag):
         torch.cuda.reset_peak_memory_stats()
         zero_counts(kernels)
         step_s, losses = [], []
-        for _ in range(TRAIN_STEPS):
+        for _ in range(steps):
             torch.cuda.synchronize()
             t0 = time.time()
             _, metrics = step(state, data, idx)
@@ -2653,14 +2706,13 @@ def bf16_step_runs(torch, np, kernels, dev, tag):
             step_s.append(time.time() - t0)
             losses.append(float(metrics["loss"]))
         got = counts(kernels)
-        per_step = {fwd.__name__: n_blocks, bwd.__name__: n_blocks}
-        check_counts(f"{tag}: {TRAIN_STEPS} {dtype} steps", got,
-                     {k.__name__: per_step.get(k.__name__, 0) * TRAIN_STEPS for k in kernels})
+        check_counts(f"{tag}: {steps} {dtype} steps", got,
+                     {k.__name__: step_launches.get(k.__name__, 0) * steps for k in kernels})
         if not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"{tag}: non-finite {dtype} loss: {losses}")
         p50 = float(np.percentile(step_s, 50)) * 1e3
         run = {"p50_ms": p50, "mean_ms": float(np.mean(step_s)) * 1e3,
-               "min_ms": float(np.min(step_s)) * 1e3, "samples_per_s": TRAIN_BATCH / (p50 / 1e3),
+               "min_ms": float(np.min(step_s)) * 1e3, "samples_per_s": batch / (p50 / 1e3),
                "peak_mb": torch.cuda.max_memory_allocated() / 2**20, "launches": got,
                "loss_first": losses[0], "loss_last": losses[-1],
                "grad_dtypes": sorted({str(p.grad.dtype) for p in model.parameters()
@@ -2669,17 +2721,19 @@ def bf16_step_runs(torch, np, kernels, dev, tag):
         prof = profile_device(torch, lambda: step(state, data, idx))
         run["idle_share"] = 1 - prof["device_busy_ms"] / prof["wall_ms"]
         run["device_busy_ms"] = prof["device_busy_ms"]
+        run["device_ops"] = prof["device_ops"]
         run["block_device_ms"] = block_device_ms(prof)
         run["top_kernels"] = prof["rows"][:12]
         if run["grad_dtypes"] != ["torch.float32"] or run["param_dtypes"] != ["torch.float32"]:
             raise AssertionError(f"{tag}: {dtype} step's parameters or gradients are not f32: "
                                  f"{run['param_dtypes']}, {run['grad_dtypes']}")
         out[dtype] = run
-        log_profile(tag, f"one {dtype} MOD pretrain step", prof, top=8)
+        log_profile(tag, f"one {dtype} {dataset} pretrain step", prof, top=8)
         log(f"[{tag}] {dtype}: p50 {p50:.3f} ms (mean {run['mean_ms']:.3f}, min "
             f"{run['min_ms']:.3f}), {run['samples_per_s']:.1f} samples/s, peak memory "
             f"{run['peak_mb']:.1f} MiB, idle share {run['idle_share']:.3f}, device busy "
-            f"{run['device_busy_ms']:.3f} ms; window_block.cu device ms by phase "
+            f"{run['device_busy_ms']:.3f} ms, {run['device_ops']} device operations; "
+            f"window_block.cu device ms by phase "
             f"{run['block_device_ms']}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {got}")
         del state, step, model
         torch.cuda.empty_cache()
@@ -2687,7 +2741,8 @@ def bf16_step_runs(torch, np, kernels, dev, tag):
     log(f"[{tag}] bf16 beside f32: p50 {b['p50_ms']:.3f} vs {f['p50_ms']:.3f} ms "
         f"({b['p50_ms'] / f['p50_ms']:.3f}x), device busy {b['device_busy_ms']:.3f} vs "
         f"{f['device_busy_ms']:.3f} ms, peak {b['peak_mb']:.1f} vs {f['peak_mb']:.1f} MiB, idle "
-        f"share {b['idle_share']:.3f} vs {f['idle_share']:.3f}")
+        f"share {b['idle_share']:.3f} vs {f['idle_share']:.3f}, device operations "
+        f"{b['device_ops']} vs {f['device_ops']}")
     return out
 
 
@@ -3239,6 +3294,551 @@ def deepsense_bf16_paths(torch, np, kernels, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# MOD_WIDE in bf16 (31): #4-bf16 and #5-bf16; -pallas_mlp in bf16 (32):
+# #10-bf16 to #12-bf16
+
+WIDE_BF16_SAMPLES = 256  # MOD_WIDE synthetic train split of phase 31's entry-point run
+MLP_BF16_STEPS = 10      # timed supervised steps of each route in phase 32
+
+
+def check_perhead_bf16(torch, pk, geos, gen, dev, rate):
+    """#4-bf16 and #5-bf16 against their bf16 plain versions (those of #1-#3)
+    at the per-head geometries, in the working type: #4-bf16 at rate 0 and
+    with dropout (fed its own mask), y to BF16_FWD_TOL of max|y|, the keep
+    rate within 5 sigma of 1 - rate and the mask #2's for the same seed;
+    #5-bf16 with the mask and without, every gradient to BF16_GRAD_TOL
+    relative (absolutely to TINY_GRAD where both sides are below it, C7),
+    the same bits on a second call. Returns the worst errors."""
+    ph_fwd, ph_bwd = pk.fused_window_block_perhead_bf16, pk.fused_window_block_perhead_backward_bf16
+    worst = {"fwd": 0.0, "fwd_abs": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    for gi, g in enumerate(geos):
+        args = bf16_inputs(torch, g, gen, dev)
+        y0, none = ph_fwd(*args)
+        y, keep = ph_fwd(*args, 3100 + gi, rate)
+        f32 = [a.float() if a is not None and a.dtype == torch.bfloat16 else a for a in args]
+        same_mask = bool(torch.equal(pk.fused_window_block_dropout(*f32, 3100 + gi, rate)[1], keep))
+        torch.cuda.synchronize()
+        if none is not None:
+            raise AssertionError(f"{g['name']}: #4-bf16 at rate 0 returned a keep mask")
+        errs_f = {}
+        for tag, yy, kp in (("rate0", y0, None), ("dropout", y, keep)):
+            want = pk.fused_window_block_bf16_reference(*args, kp, rate if kp is not None else 0.0)
+            errs_f[tag] = rel_err(yy.float(), want.float())
+            worst["fwd_abs"] = max(worst["fwd_abs"], float((yy.float() - want.float()).abs().max()))
+        kept = float(keep.double().mean())
+        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+        dy = torch.randn(y.shape, generator=gen).to(dev).to(torch.bfloat16)
+        tr = transposed(args)
+        errs = {}
+        for tag, kp in (("keep", keep), ("nomask", None)):
+            got = ph_bwd(*args, dy, kp, rate, *tr)
+            again = ph_bwd(*args, dy, kp, rate, *tr)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{g['name']}: #5-bf16 gives other bits on a second call")
+            want = pk.fused_window_block_backward_bf16_reference(*args, dy, kp, rate)
+            errs[tag] = bf16_grad_err(got, want)
+            worst["bwd_abs"] = max(worst["bwd_abs"], *(float((a.float() - b.float()).abs().max())
+                                                       for a, b in zip(got, want)))
+            del got, again, want
+        g.update(bf16_rel_err_fwd=errs_f["rate0"], bf16_rel_err_dropout=errs_f["dropout"],
+                 bf16_keep_rate=kept, bf16_mask_is_2s=same_mask, bf16_rel_err_bwd=errs["keep"],
+                 bf16_rel_err_bwd_nomask=errs["nomask"])
+        worst["fwd"] = max(worst["fwd"], *errs_f.values())
+        worst["bwd"] = max(worst["bwd"], *errs.values())
+        log(f"[wide-bf16-check] {g['name']}: windows {g['windows']} C {g['C']} nW {g['nW']}: "
+            f"#4-bf16 rel err {errs_f['rate0']:.3e} (rate 0), {errs_f['dropout']:.3e} (dropout), "
+            f"keep rate {kept:.5f} ({(kept - 1 + rate) / sigma:+.2f} sigma), #2's mask "
+            f"{same_mask}; #5-bf16 max rel err {errs['keep']:.3e} (mask), {errs['nomask']:.3e} "
+            "(no mask), repeatable")
+        if not max(errs_f.values()) <= BF16_FWD_TOL:
+            raise AssertionError(f"{g['name']}: #4-bf16 differs from plain by {errs_f}")
+        if not (abs(kept - (1 - rate)) <= 5 * sigma and same_mask):
+            raise AssertionError(f"{g['name']}: #4-bf16's mask (keep rate {kept}, #2's: "
+                                 f"{same_mask})")
+        if not max(errs.values()) <= BF16_GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #5-bf16 gradients differ from plain by {errs}")
+    return worst
+
+
+def run_entry_points(torch, kernels, out, tag, what, fn, argv, per_step, per_eval, steps, evals):
+    """fn(argv) in-process with the launches of ``kernels`` counted from 0
+    and held to per_step x steps + per_eval x evals; records the run in
+    out["paths"][what]. Returns fn's result."""
+    zero_counts(kernels)
+    t0 = time.time()
+    result = fn(argv)
+    torch.cuda.synchronize()
+    got = counts(kernels)
+    check_counts(f"{tag}: {what}", got, {k.__name__: per_step.get(k.__name__, 0) * steps
+                                         + per_eval.get(k.__name__, 0) * evals for k in kernels})
+    out["paths"][what] = {"seconds": time.time() - t0, "steps": steps, "eval_forwards": evals,
+                          "launches": got}
+    log(f"[{tag}] {what}: {steps} steps, {evals} eval forwards in {time.time() - t0:.1f}s; "
+        f"launches {got}")
+    return result
+
+
+def wide_bf16_paths(torch, np, kernels, gen, dev):
+    """Phase 31, MOD_WIDE's SW_Transformer at -compute_dtype bfloat16: #4-bf16
+    and #5-bf16 against their bf16 plain versions at every per-head geometry
+    of the wide training batch (check_perhead_bf16's gates) and timed there;
+    3 + 10 bf16 and f32 pretrain steps at WIDE_BATCH from one init, beside
+    each other (#2-bf16/#3-bf16 4 and #4-bf16/#5-bf16 12 a step); the rate-0
+    bf16 step, kernels against the bf16 plain versions (BF16_LOSS_TOL, C11's
+    gradient gates); the pretrain entry point for an epoch and a served
+    batch against the bf16 plain block, launches held exactly."""
+    import importlib
+
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_dataset_config, parse_train_params
+    from focal_tpu_torch.serve import Predictor
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    tag = "wide-bf16"
+    t_phase = time.time()
+    cfg = load_dataset_config("MOD_WIDE")
+    task = "vehicle_classification"
+    rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
+    wgeos = block_geometries(cfg, 2 * WIDE_BATCH)
+    mono = [g for g in wgeos if pk.wblock_fits(g["N"], g["C"], g["heads"])]
+    pgeos = [g for g in wgeos if not pk.wblock_fits(g["N"], g["C"], g["heads"])]
+    n_mono, n_ph = (sum(g["per_forward"] for g in gs) for gs in (mono, pgeos))
+    bf_fwd, bf_drop, bf_bwd = (pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
+                               pk.fused_window_block_backward_bf16)
+    ph_fwd, ph_bwd = pk.fused_window_block_perhead_bf16, pk.fused_window_block_perhead_backward_bf16
+    step_bf16 = {bf_drop.__name__: n_mono, bf_bwd.__name__: n_mono, ph_fwd.__name__: n_ph,
+                 ph_bwd.__name__: n_ph}
+    eval_bf16 = {bf_fwd.__name__: n_mono, ph_fwd.__name__: n_ph}
+    step_f32 = {pk.fused_window_block_dropout.__name__: n_mono,
+                pk.fused_window_block_backward.__name__: n_mono,
+                pk.fused_window_block_perhead.__name__: n_ph,
+                pk.fused_window_block_perhead_backward.__name__: n_ph}
+    log(f"[{tag}] MOD_WIDE at batch {WIDE_BATCH} (views fused to {2 * WIDE_BATCH}): {len(pgeos)} "
+        f"per-head geometries (C {sorted({g['C'] for g in pgeos})}), {n_ph} per-head and {n_mono} "
+        f"whole-block launches a forward")
+    out = {"paths": {}, "launches_per_step": step_bf16}
+
+    # the kernels against their bf16 plain versions, then timed
+    out["errors"] = check_perhead_bf16(torch, pk, pgeos, gen, dev, rate)
+    for g in pgeos:
+        time_block_bf16(torch, pk, g, gen, dev, rate, train=True, perhead=True)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")
+    out["train_step"] = {d: {k: sum(g["per_forward"] * g[f"bf16_{d}"][k] for g in pgeos)
+                             for k in keys} for d in ("fwd", "bwd")}
+    for d in ("fwd", "bwd"):
+        split = {}
+        for g in pgeos:
+            for ph, ms in g[f"bf16_{d}"]["device_ms_by_phase"].items():
+                split[ph] = split.get(ph, 0.0) + g["per_forward"] * ms
+        out[f"train_{d}_device_ms_by_phase"] = split
+    t = out["train_step"]
+    log(f"[{tag}] one MOD_WIDE bf16 step's {n_ph} per-head launches: #4-bf16 {t['fwd']['ms']:.4f} "
+        f"ms (device {t['fwd']['device_ms']:.4f}, plain {t['fwd']['plain_ms']:.4f}, library "
+        f"{t['fwd']['library_ms']:.4f}, bound {t['fwd']['bound_ms']:.4f}), #5-bf16 "
+        f"{t['bwd']['ms']:.4f} (device {t['bwd']['device_ms']:.4f}, plain "
+        f"{t['bwd']['plain_ms']:.4f}, library {t['bwd']['library_ms']:.4f}, bound "
+        f"{t['bwd']['bound_ms']:.4f})")
+    out["geometries"] = [{k: v for k, v in g.items() if k != "mask"} for g in pgeos]
+    torch.cuda.empty_cache()
+
+    # the bf16 pretrain steps beside the f32 ones, from one init
+    out["steps"] = bf16_step_runs(torch, np, kernels, dev, f"{tag}-steps", dataset="MOD_WIDE",
+                                  batch=WIDE_BATCH, steps=WIDE_STEPS,
+                                  per_step={"float32": step_f32, "bfloat16": step_bf16})
+    torch.cuda.empty_cache()
+
+    # the rate-0 bf16 step from one state: kernels against the bf16 plain versions
+    initial = init_params(build_backbone(cfg, "SW_Transformer", task, "FOCAL"), seed=0).state_dict()
+    rargs = parse_train_params(["-dataset", "MOD_WIDE", "-learn_framework", "FOCAL",
+                                "-batch_size", str(WIDE_BATCH), "-compute_dtype", "bfloat16"])
+    kern = rate0_tail_step(torch, rargs, initial, dev, plain=False, kernels=kernels)
+    plain = rate0_tail_step(torch, rargs, initial, dev, plain=True, kernels=kernels)
+    check_counts(f"{tag}: the rate-0 bf16 step", kern[2],
+                 {k.__name__: {bf_fwd.__name__: n_mono, bf_bwd.__name__: n_mono,
+                               ph_fwd.__name__: n_ph, ph_bwd.__name__: n_ph}.get(k.__name__, 0)
+                  for k in kernels})
+    check_counts(f"{tag}: the rate-0 bf16 plain step", plain[2], {k.__name__: 0 for k in kernels})
+    vs_plain = abs(kern[0] - plain[0]) / abs(plain[0])
+    out["rate0"] = {"loss_bf16_kernels": kern[0], "loss_bf16_plain": plain[0],
+                    "loss_rel_vs_bf16_plain": vs_plain, "launches": kern[2],
+                    "grad_dtypes": sorted({str(g.dtype) for g in kern[1]})}
+    log(f"[{tag}] rate-0 MOD_WIDE bf16 pretrain step at {WIDE_BATCH} from the initial state: "
+        f"loss {kern[0]:.6f}, bf16 plain {plain[0]:.6f} (rel {vs_plain:.2e}); launches {kern[2]}")
+    if not vs_plain <= BF16_LOSS_TOL:
+        raise AssertionError(f"{tag}: rate-0 bf16 step loss: {out['rate0']}")
+    if out["rate0"]["grad_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"{tag}: bf16 step gradients are not f32: {out['rate0']}")
+    out["rate0"]["grad_gates"] = bf16_grad_gates(tag, kern[3], kern[1], plain[1])
+    del kern, plain, initial
+    torch.cuda.empty_cache()
+
+    # the pretrain entry point in bf16 for an epoch
+    run_dir = os.path.join(HERE, "build", "chip_smoke_wide_bf16")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    pre = ["-dataset", "MOD_WIDE", "-model", "SW_Transformer", "-synthetic", "-synthetic_samples",
+           str(WIDE_BF16_SAMPLES), "-val_epochs", "1", "-output_dir", run_dir, "-compute_dtype",
+           "bfloat16", "-learn_framework", "FOCAL", "-stage", "pretrain", "-batch_size",
+           str(WIDE_BATCH), "-epochs", "1"]
+    steps, evals = stage_plan(pre)
+    st, _, points = run_entry_points(torch, kernels, out, tag,
+                                     "pretrain MOD_WIDE -compute_dtype bfloat16 -epochs 1",
+                                     train_cli.main, pre, step_bf16, eval_bf16, steps, evals)
+    if st.step != steps or not all(math.isfinite(p[k]) for p in points
+                                   for k in ("train_loss", "val_loss", "test_loss")):
+        raise AssertionError(f"{tag}: {st.step} updates of {steps}, points {points}")
+    del st
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # a served bf16 batch, kernels vs the bf16 plain block
+    from focal_tpu_torch.data import synthetic_arrays
+
+    data = synthetic_arrays(cfg, task, WIDE_BATCH, seed=5)[0]
+    predictor = Predictor(cfg, "SW_Transformer", task, None, batch_size=WIDE_BATCH,
+                          device=dev.type, seed=0, compute_dtype="bfloat16")
+    zero_counts(kernels)
+    served = predictor.predict(data)
+    got = counts(kernels)
+    check_counts(f"{tag}: one served MOD_WIDE bf16 batch", got,
+                 {k.__name__: eval_bf16.get(k.__name__, 0) for k in kernels})
+    probs = served["probs"]
+    if probs.dtype != np.float32 or not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: bad probabilities ({probs.dtype})")
+    swin_mod.window_block_forward = pk.fused_window_block_reference
+    try:
+        serve_err = float(np.abs(predictor._forward(data) - probs).max())
+    finally:
+        swin_mod.window_block_forward = pk.window_block_forward
+    out["serve"] = {"p50_ms": served["latency"]["p50_s"] * 1e3, "launches": got,
+                    "max_abs_err_vs_plain": serve_err}
+    log(f"[{tag}] served MOD_WIDE bf16 batch of {WIDE_BATCH}: launches {got}, p50 "
+        f"{out['serve']['p50_ms']:.3f} ms; max|dprobs| vs the bf16 plain block {serve_err:.3e}")
+    if not serve_err <= BF16_SERVE_TOL:
+        raise AssertionError(f"{tag}: served bf16 probabilities differ from the plain block's by "
+                             f"{serve_err}")
+    del predictor
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"[{tag}] phase 31 in {out['seconds']:.1f}s")
+    return out
+
+
+def mlp_bf16_inputs(torch, np, g, seed, dev):
+    """mlp_inputs with x and the gradient rounded to bf16 (the weights and
+    biases stay f32, as the Swin Mlp hands them)."""
+    x, w1, b1, w2, b2, gy = mlp_inputs(torch, np, g, seed, dev)
+    return x.to(torch.bfloat16), w1, b1, w2, b2, gy.to(torch.bfloat16)
+
+
+def mlp_bf16_work(g, backward):
+    """(FLOPs, bytes, bound ms, what bounds) of one #10-bf16/#11-bf16 or
+    #12-bf16 launch: mlp_work's FLOPs; bytes at the types they move (x, y, g
+    and dx bf16; the weights read and their gradients written in f32), each
+    once; the bound at the bf16 tensor cores' peak or the bytes."""
+    T, C, H = g["T"], g["C"], g["H"]
+    flops = mlp_work(g, backward)[0]
+    if backward:
+        nbytes = 2 * 3 * T * C + 4 * (4 * C * H + 2 * H + C)
+    else:
+        nbytes = 2 * 2 * T * C + 4 * (2 * C * H + H + C)
+    t_ops, t_bytes = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
+
+
+def mlp_bf16_launches(chunks, d):
+    """How many times one call of #10-bf16 or #11-bf16 (fwd) or of #12-bf16
+    with masks (bwd) launches each fused_mlp.cu kernel, in ``chunks`` row
+    chunks."""
+    if d == "fwd":
+        return {"mlp_bf16_hidden_kernel": chunks, "mlp_bf16_out_kernel": chunks}
+    return {"mlp_bf16_g2_kernel": chunks, "mlp_bf16_hidden_kernel": chunks,
+            "mlp_bf16_out_kernel": chunks, "bf16_wgrad_kernel": chunks,
+            "reduce_partials_kernel": 1}
+
+
+def check_mlps_bf16(torch, np, fm, geos, dev, rate, seed0=700):
+    """#10-bf16, #11-bf16 and #12-bf16 against their bf16 plain versions at
+    each MLP geometry: y to BF16_FWD_TOL of max|y| (#11-bf16 fed its own
+    masks, mlp_keep_masks: #11's), each mask's keep rate within 5 sigma,
+    #12-bf16 with the masks and without, every gradient to BF16_GRAD_TOL
+    relative (absolutely to TINY_GRAD where both sides are below it), the
+    same bits on a second call of each. Returns the worst errors."""
+    fwd, drop, bwd = (fm.fused_mlp_forward_bf16, fm.fused_mlp_dropout_forward_bf16,
+                      fm.fused_mlp_backward_bf16)
+    worst = {"fwd": 0.0, "fwd_abs": 0.0, "drop": 0.0, "drop_abs": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    for gi, g in enumerate(geos):
+        T, C, H = g["T"], g["C"], g["H"]
+        x, w1, b1, w2, b2, gy = mlp_bf16_inputs(torch, np, g, seed0 + gi, dev)
+        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+        seed = seed0 + 3700 + gi
+        y, y_again = fwd(x, w1, b1, w2, b2), fwd(x, w1, b1, w2, b2)
+        yd, yd_again = drop(x, w1, b1, w2, b2, seed, rate), drop(x, w1, b1, w2, b2, seed, rate)
+        keep1, keep2 = fm.mlp_keep_masks(seed, T, C, H, rate, dev)
+        torch.cuda.synchronize()
+        same = torch.equal(y, y_again) and torch.equal(yd, yd_again)
+        errs_f = {}
+        for tag, yy, masks in (("fwd", y, ()), ("drop", yd, (keep1, keep2, rate))):
+            want = fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2, *masks).float()
+            errs_f[tag] = rel_err(yy.float(), want)
+            worst[f"{tag}_abs"] = max(worst[f"{tag}_abs"], float((yy.float() - want).abs().max()))
+        rates = {}
+        for name, k in (("keep1", keep1), ("keep2", keep2)):
+            kept = float(k.double().mean())
+            rates[name] = (kept, (kept - 1 + rate) / math.sqrt(rate * (1 - rate) / k.numel()))
+        errs = {}
+        for tag, sd, masks in (("mask", seed, (keep1, keep2, rate)), ("nomask", None, ())):
+            got = bwd(x, w1, b1, w1t, w2t, gy, sd, rate)
+            again = bwd(x, w1, b1, w1t, w2t, gy, sd, rate)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+            want = fm.fused_mlp_backward_bf16_reference(x, w1, b1, w2, b2, gy, *masks)
+            errs[tag] = bf16_grad_err(got, want)
+            worst["bwd_abs"] = max(worst["bwd_abs"], *(float((a.float() - b.float()).abs().max())
+                                                       for a, b in zip(got, want)))
+            del got, again, want
+        g.update(bf16_rel_err_fwd=errs_f["fwd"], bf16_rel_err_dropout=errs_f["drop"],
+                 bf16_keep_rates=rates, bf16_rel_err_bwd=errs["mask"],
+                 bf16_rel_err_bwd_nomask=errs["nomask"], bf16_repeatable=same)
+        worst["fwd"], worst["drop"] = max(worst["fwd"], errs_f["fwd"]), max(worst["drop"],
+                                                                           errs_f["drop"])
+        worst["bwd"] = max(worst["bwd"], *errs.values())
+        log(f"[mlp-bf16-check] {g['name']}: T {T} C {C} H {H} ({g['per_forward']} a forward): "
+            f"#10-bf16 rel err {errs_f['fwd']:.3e}, #11-bf16 {errs_f['drop']:.3e} (its own masks), "
+            "keep rates " + ", ".join(f"{k} {v[0]:.5f} ({v[1]:+.2f} sigma)" for k, v in rates.items())
+            + f"; #12-bf16 max rel err {errs['mask']:.3e} (masks), {errs['nomask']:.3e} (none); "
+            f"same bits on a second call: {same}")
+        if not max(errs_f.values()) <= BF16_FWD_TOL:
+            raise AssertionError(f"{g['name']}: #10-bf16/#11-bf16 differ from plain by {errs_f}")
+        if not all(abs(v[1]) <= 5 for v in rates.values()):
+            raise AssertionError(f"{g['name']}: keep rates {rates} not 1 - {rate} within 5 sigma")
+        if not max(errs.values()) <= BF16_GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #12-bf16 gradients differ from plain by {errs}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #10-#12-bf16 give other bits on a second call")
+        del x, w1, b1, w2, b2, gy, w1t, w2t, y, y_again, yd, yd_again, keep1, keep2
+    return worst
+
+
+def time_mlp_bf16(torch, np, fm, F, g, seed, dev, rate):
+    """#10-bf16, #11-bf16 and #12-bf16 at g, stored in g["bf16"]: events
+    over at least PROFILE_TRACE_MS of calls, device time from a profile
+    split by kernel (kernel_phase_split: it fails on a kernel outside
+    csrc/fused_mlp.cu), the plain versions, the library yardstick in bf16
+    (addmm -> GELU -> addmm on bf16 weights, F.dropout for #11, its
+    autograd backward for #12) and the bound (mlp_bf16_work)."""
+    T, C, H = g["T"], g["C"], g["H"]
+    x, w1, b1, w2, b2, gy = mlp_bf16_inputs(torch, np, g, seed, dev)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    keep1, keep2 = fm.mlp_keep_masks(7, T, C, H, rate, dev)
+    lib_w = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+    chunks = fm.mlp_launch_plan(T, C, H, True, dev, torch.bfloat16)[1]
+    calls = {
+        "fwd": (lambda: fm.fused_mlp_forward_bf16(x, w1, b1, w2, b2),
+                lambda: fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2),
+                lambda: library_mlp(torch, F, x, *lib_w)),
+        "drop": (lambda: fm.fused_mlp_dropout_forward_bf16(x, w1, b1, w2, b2, 7, rate),
+                 lambda: fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2, keep1, keep2, rate),
+                 lambda: library_mlp(torch, F, x, *lib_w, rate)),
+        "bwd": (lambda: fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, gy, 7, rate),
+                lambda: fm.fused_mlp_backward_bf16_reference(x, w1, b1, w2, b2, gy, keep1, keep2,
+                                                             rate), None)}
+    leaves = [t.clone().requires_grad_(True) for t in [x] + lib_w]
+    ly = library_mlp(torch, F, *leaves, rate)
+    bwd_library = time_ms(torch, lambda: torch.autograd.grad(ly, leaves, gy, retain_graph=True))
+    del ly, leaves
+    out = {}
+    for d, (kernel, plain, library) in calls.items():
+        with torch.no_grad():
+            kernel()
+            torch.cuda.synchronize()
+            split = kernel_phase_split(torch, kernel, mlp_bf16_launches(
+                chunks, "bwd" if d == "bwd" else "fwd"), MLP_LIB, reps=trace_reps(torch, kernel))
+            flops, nbytes, bnd, by = mlp_bf16_work(g, backward=d == "bwd")
+            out[d] = {"ms": time_ms_long(torch, kernel), "device_ms": split["device_ms"],
+                      "device_ms_by_phase": split["phases"], "plain_ms": time_ms(torch, plain),
+                      "library_ms": time_ms(torch, library) if library else bwd_library,
+                      "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes}
+        r = out[d]
+        log(f"[mlp-bf16-time] {g['name']} (T {T}, C {C}, {chunks} chunks) "
+            f"{ {'fwd': '#10-bf16', 'drop': '#11-bf16', 'bwd': '#12-bf16'}[d]}: {r['ms']:.4f} ms "
+            f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {bnd:.4f} ({by}), {flops / r['device_ms'] / 1e9:.2f} "
+            f"TFLOP/s by device time; by phase {split['phases']}")
+    g["bf16"] = out
+    g["bf16_chunks"] = chunks
+
+
+def mlp_bf16_paths(torch, np, kernels, dev):
+    """Phase 32, -pallas_mlp at -compute_dtype bfloat16: #10-bf16 to
+    #12-bf16 against their bf16 plain versions at MOD's MLP geometries (batch
+    128) and MOD_WIDE's stage 0 (64 fused to 128) (check_mlps_bf16's gates)
+    and timed there; 3 + MLP_BF16_STEPS MOD bf16 supervised steps at 128 on
+    the cuBLAS-MLP route and with -pallas_mlp from one init, beside each
+    other (#11-bf16/#12-bf16 16 a step); the rate-0 -pallas_mlp bf16 step,
+    kernels against the bf16 plain versions (BF16_LOSS_TOL, C11's gradient
+    gates); the supervised entry point for an epoch and the test CLI on its
+    _best; a served batch against the bf16 plain route, launches held
+    exactly (#10-bf16 16 a batch)."""
+    import importlib
+
+    import torch.nn.functional as F
+
+    from focal_tpu_torch import test as test_cli
+    from focal_tpu_torch.data import DeviceDataLoader, load_split, synthetic_arrays
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_dataset_config, parse_train_params
+    from focal_tpu_torch.serve import Predictor
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    tag = "mlp-bf16"
+    t_phase = time.time()
+    cfg, wcfg = load_dataset_config("MOD"), load_dataset_config("MOD_WIDE")
+    task = "vehicle_classification"
+    rate = float(cfg["SW_Transformer"]["dropout_ratio"])
+    mgeos = (mlp_geometries(cfg, SUP_BATCH, "MOD")
+             + mlp_geometries(wcfg, 2 * WIDE_BATCH, "MOD_WIDE"))
+    n_blocks = sum(g["per_forward"] for g in block_geometries(cfg, SUP_BATCH))
+    n_mlp = sum(g["per_forward"] for g in mgeos if g["name"].startswith("MOD "))
+    bf_fwd, bf_drop, bf_bwd = (pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
+                               pk.fused_window_block_backward_bf16)
+    m_fwd, m_drop, m_bwd = (fm.fused_mlp_forward_bf16, fm.fused_mlp_dropout_forward_bf16,
+                            fm.fused_mlp_backward_bf16)
+    step_mlp = {bf_drop.__name__: n_blocks, bf_bwd.__name__: n_blocks, m_drop.__name__: n_mlp,
+                m_bwd.__name__: n_mlp}
+    eval_mlp = {bf_fwd.__name__: n_blocks, m_fwd.__name__: n_mlp}
+    out = {"paths": {}, "launches_per_step": step_mlp, "launches_per_eval_forward": eval_mlp}
+
+    # the kernels against their bf16 plain versions, then timed
+    out["errors"] = check_mlps_bf16(torch, np, fm, mgeos, dev, rate)
+    for gi, g in enumerate(mgeos):
+        time_mlp_bf16(torch, np, fm, F, g, 900 + gi, dev, rate)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")
+    for ds in ("MOD", "MOD_WIDE"):
+        gs = [g for g in mgeos if g["name"].split()[0] == ds]
+        out[f"{ds}_forward"] = {d: {k: sum(g["per_forward"] * g["bf16"][d][k] for g in gs)
+                                    for k in keys} for d in ("fwd", "drop", "bwd")}
+        for d in ("fwd", "drop", "bwd"):
+            split = {}
+            for g in gs:
+                for ph, ms in g["bf16"][d]["device_ms_by_phase"].items():
+                    split[ph] = split.get(ph, 0.0) + g["per_forward"] * ms
+            out[f"{ds}_forward"][d]["device_ms_by_phase"] = split
+        t = out[f"{ds}_forward"]
+        log(f"[{tag}] the MLPs of one {ds} forward ({sum(g['per_forward'] for g in gs)} launches): "
+            + "; ".join(f"{n} {t[d]['ms']:.4f} ms (device {t[d]['device_ms']:.4f}, plain "
+                        f"{t[d]['plain_ms']:.4f}, library {t[d]['library_ms']:.4f}, bound "
+                        f"{t[d]['bound_ms']:.4f})"
+                        for d, n in (("fwd", "#10-bf16"), ("drop", "#11-bf16"),
+                                     ("bwd", "#12-bf16"))))
+    out["geometries"] = mgeos
+    torch.cuda.empty_cache()
+
+    # bf16 supervised steps: the cuBLAS-MLP route and -pallas_mlp, from one init
+    out["steps"] = {}
+    for pallas in (False, True):
+        sargs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer",
+                                    "-learn_framework", "no", "-batch_size", str(SUP_BATCH),
+                                    "-compute_dtype", "bfloat16"]
+                                   + (["-pallas_mlp"] if pallas else []))
+        run_tag = f"{tag}-steps-{'pallas-mlp' if pallas else 'default'}"
+        per_step = step_mlp if pallas else {bf_drop.__name__: n_blocks, bf_bwd.__name__: n_blocks}
+        out["steps"][run_tag] = run_supervised_steps(torch, np, sargs, SUP_BATCH, TRAIN_WARMUP,
+                                                     MLP_BF16_STEPS, kernels, per_step, dev,
+                                                     run_tag)
+        torch.cuda.empty_cache()
+    d, p = out["steps"][f"{tag}-steps-default"], out["steps"][f"{tag}-steps-pallas-mlp"]
+    log(f"[{tag}] bf16 -pallas_mlp beside the bf16 cuBLAS-MLP route: p50 {p['p50_ms']:.3f} vs "
+        f"{d['p50_ms']:.3f} ms ({p['p50_ms'] / d['p50_ms']:.3f}x), device busy "
+        f"{p['device_busy_ms']:.3f} vs {d['device_busy_ms']:.3f} ms, idle share "
+        f"{p['idle_share']:.3f} vs {d['idle_share']:.3f}, device operations {p['device_ops']} vs "
+        f"{d['device_ops']}, peak {p['peak_mb']:.1f} vs {d['peak_mb']:.1f} MiB")
+
+    # the rate-0 -pallas_mlp bf16 step from one state: kernels vs the bf16 plain versions
+    initial = init_params(build_backbone(cfg, "SW_Transformer", task, "no", pallas_mlp=True),
+                          seed=0).state_dict()
+    kern = supervised_rate0_step(torch, sargs, initial, dev, plain=False, kernels=kernels)
+    plain = supervised_rate0_step(torch, sargs, initial, dev, plain=True, kernels=kernels)
+    check_counts(f"{tag}: the rate-0 bf16 -pallas_mlp step", kern[2],
+                 {k.__name__: {bf_fwd.__name__: n_blocks, bf_bwd.__name__: n_blocks,
+                               m_fwd.__name__: n_mlp, m_bwd.__name__: n_mlp}.get(k.__name__, 0)
+                  for k in kernels})
+    check_counts(f"{tag}: the rate-0 bf16 plain step", plain[2], {k.__name__: 0 for k in kernels})
+    vs_plain = abs(kern[0] - plain[0]) / abs(plain[0])
+    out["rate0"] = {"loss_bf16_kernels": kern[0], "loss_bf16_plain": plain[0],
+                    "loss_rel_vs_bf16_plain": vs_plain, "launches": kern[2],
+                    "grad_dtypes": sorted({str(g.dtype) for g in kern[1].values()})}
+    log(f"[{tag}] rate-0 MOD bf16 -pallas_mlp supervised step at {SUP_BATCH} from the initial "
+        f"state: loss {kern[0]:.6f}, bf16 plain {plain[0]:.6f} (rel {vs_plain:.2e}); launches "
+        f"{kern[2]}")
+    if not vs_plain <= BF16_LOSS_TOL or out["rate0"]["grad_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"{tag}: rate-0 bf16 -pallas_mlp step: {out['rate0']}")
+    names = sorted(plain[1])
+    out["rate0"]["grad_gates"] = bf16_grad_gates(tag, names, [kern[1][n] for n in names],
+                                                 [plain[1][n] for n in names])
+    del kern, plain, initial
+    torch.cuda.empty_cache()
+
+    # the supervised entry point with -pallas_mlp in bf16 for an epoch, the test CLI on its _best
+    run_dir = os.path.join(HERE, "build", "chip_smoke_mlp_bf16")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    sup = ["-dataset", "MOD", "-model", "SW_Transformer", "-synthetic", "-synthetic_samples",
+           "512", "-val_epochs", "1", "-output_dir", run_dir, "-compute_dtype", "bfloat16",
+           "-pallas_mlp", "-learn_framework", "no", "-batch_size", str(SUP_BATCH), "-epochs", "1"]
+    steps, evals = stage_plan(sup)
+    st, _, points = run_entry_points(torch, kernels, out, tag,
+                                     "supervised -pallas_mlp -compute_dtype bfloat16 -epochs 1",
+                                     train_cli.main, sup, step_mlp, eval_mlp, steps, evals)
+    if not all(math.isfinite(p[k]) for p in points for k in ("train_loss", "val_loss")):
+        raise AssertionError(f"{tag}: non-finite supervised loss: {points}")
+    del st
+    test_batches = len(DeviceDataLoader(load_split("test", parse_train_params(sup)), SUP_BATCH))
+    result = run_entry_points(torch, kernels, out, tag,
+                              "test -pallas_mlp -compute_dtype bfloat16 (the supervised _best)",
+                              test_cli.main, sup, {}, eval_mlp, 0, test_batches)
+    if not all(math.isfinite(v) for v in result):
+        raise AssertionError(f"{tag}: the test CLI's numbers are not finite: {result}")
+    out["test_result"] = list(result)
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # a served bf16 -pallas_mlp batch, kernels vs the bf16 plain route
+    data = synthetic_arrays(cfg, task, SERVE_BATCH, seed=6)[0]
+    predictor = Predictor(cfg, "SW_Transformer", task, None, batch_size=SERVE_BATCH,
+                          device=dev.type, seed=0, pallas_mlp=True, compute_dtype="bfloat16")
+    zero_counts(kernels)
+    served = predictor.predict(data)
+    got = counts(kernels)
+    check_counts(f"{tag}: one served bf16 -pallas_mlp batch", got,
+                 {k.__name__: eval_mlp.get(k.__name__, 0) for k in kernels})
+    probs = served["probs"]
+    if probs.dtype != np.float32 or not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: bad probabilities ({probs.dtype})")
+    swin_mod.window_block_forward, swin_mod.fused_mlp = pk.fused_window_block_reference, plain_mlp
+    try:
+        serve_err = float(np.abs(predictor._forward(data) - probs).max())
+    finally:
+        swin_mod.window_block_forward, swin_mod.fused_mlp = pk.window_block_forward, fm.fused_mlp
+    out["serve"] = {"p50_ms": served["latency"]["p50_s"] * 1e3, "launches": got,
+                    "max_abs_err_vs_plain": serve_err}
+    log(f"[{tag}] served bf16 -pallas_mlp batch of {SERVE_BATCH}: launches {got}, p50 "
+        f"{out['serve']['p50_ms']:.3f} ms; max|dprobs| vs the bf16 plain route {serve_err:.3e}")
+    if not serve_err <= BF16_SERVE_TOL:
+        raise AssertionError(f"{tag}: served probabilities differ from the plain route's by "
+                             f"{serve_err}")
+    del predictor
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t_phase
+    log(f"[{tag}] phase 32 in {out['seconds']:.1f}s")
+    return out
+
+
 def check_block_forward(torch, pk, geos, gen, dev):
     """#1 vs plain at each geometry, phase 2's gate; returns the worst
     absolute error (and keeps each in its geometry)."""
@@ -3557,9 +4157,12 @@ def main():
     bf_fwd, bf_drop, bf_bwd = (pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
                                pk.fused_window_block_backward_bf16)
     ct_bf_fwd, ct_bf_bwd = ct.fused_conv_tower_bf16, ct.fused_conv_tower_backward_bf16
+    ph_bf_fwd, ph_bf_bwd = pk.fused_window_block_perhead_bf16, pk.fused_window_block_perhead_backward_bf16
+    mlp_bf_fwd, mlp_bf_drop, mlp_bf_bwd = (fm.fused_mlp_forward_bf16, fm.fused_mlp_dropout_forward_bf16,
+                                           fm.fused_mlp_backward_bf16)
     all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd, mlp_fwd, mlp_drop, mlp_bwd,
                    at_fwd, at_drop, at_bwd, at_drop_bwd, bf_fwd, bf_drop, bf_bwd, ct_bf_fwd,
-                   ct_bf_bwd)
+                   ct_bf_bwd, ph_bf_fwd, ph_bf_bwd, mlp_bf_fwd, mlp_bf_drop, mlp_bf_bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -4555,6 +5158,20 @@ def main():
     log(f"[smoke] phase 30 in {ds_bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
 
+    # ---- 31. MOD_WIDE at -compute_dtype bfloat16: #4-bf16/#5-bf16 vs their
+    # bf16 plain versions and timed; the bf16 steps beside the f32 ones, the
+    # rate-0 step, the entry point and a served batch
+    wide_bf16 = wide_bf16_paths(torch, np, all_kernels, gen, dev)
+    log(f"[smoke] phase 31 in {wide_bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
+    # ---- 32. -pallas_mlp at -compute_dtype bfloat16: #10-bf16 to #12-bf16 vs
+    # their bf16 plain versions and timed; the supervised steps of both
+    # routes, the rate-0 step, the entry points and a served batch
+    mlp_bf16 = mlp_bf16_paths(torch, np, all_kernels, dev)
+    log(f"[smoke] phase 32 in {mlp_bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -4589,7 +5206,8 @@ def main():
                 "no_pallas_block_route_backward": route_bwd,
                 "no_pallas_block_route_forward": route_fwd,
                 "recipes": recipes, "two_locations": two_loc, "attribution": attribution,
-                "bf16": bf16, "deepsense_bf16": ds_bf16,
+                "bf16": bf16, "deepsense_bf16": ds_bf16, "wide_bf16": wide_bf16,
+                "mlp_bf16": mlp_bf16,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -4824,11 +5442,12 @@ def main():
             k["ragged_tail_step"] = attribution["tail_kernels"][k["name"]] | {
                 "launches_by_path": {p: r["launches"][k["name"]]
                                      for p, r in attribution["paths"].items()}}
-    def bf16_entry(name, num, line, launches_, err, tot, per, **extra):
+    def bf16_entry(name, num, line, launches_, err, tot, per,
+                   source="focal_tpu_torch/csrc/window_block.cu", **extra):
         by = ("operations" if tot["flops"] / BF16_FLOPS >= tot["bytes"] / HBM_BYTES_PER_S
               else "bytes")
         return {"name": name, "kernel": num, "route": "cuda",
-                "source": "focal_tpu_torch/csrc/window_block.cu", "replaces": f"{PK}:{line}",
+                "source": source, "replaces": f"{PK}:{line}",
                 "launches": launches_, "max_abs_err": err, "ms": tot["ms"],
                 "plain_ms": tot["plain_ms"], "bound_ms": tot["bound_ms"], "bound_by": by,
                 "library_ms": tot["library_ms"], "per": per, "device_ms": tot["device_ms"],
@@ -4889,6 +5508,64 @@ def main():
         tower_bf16_entry(ct_bf_bwd.__name__, "#14-bf16", 230, "bwd", de["bwd_abs"],
                          replaces_also=[f"{CT}:206", f"{CT}:257"], max_rel_err=de["bwd"],
                          max_abs_err_near_zero=de["bwd_near"]),
+    ]
+    we, wstep = wide_bf16["errors"], wide_bf16["train_step"]
+    wide_bf16_launches = wide_bf16["steps"]["bfloat16"]["launches"]
+    wide_bf16_per = (f"times: the {wide_bf16['launches_per_step'][ph_bf_fwd.__name__]} per-head "
+                     f"launches of one MOD_WIDE bf16 training step at batch {WIDE_BATCH} (views "
+                     f"fused to {2 * WIDE_BATCH}); launches: {WIDE_STEPS} timed MOD_WIDE bf16 "
+                     "pretrain steps; bound at 989 TFLOP/s bf16 or 3.35 TB/s at bf16 activation "
+                     "bytes")
+
+    def wide_bf16_entry(name, num, line, d, err, **extra):
+        return bf16_entry(name, num, line, wide_bf16_launches[name], err, wstep[d], wide_bf16_per,
+                          launches_per_step=wide_bf16["launches_per_step"][name],
+                          steps=WIDE_STEPS, device_ms_by_phase=wide_bf16[f"train_{d}_device_ms_by_phase"],
+                          launches_by_path={p: r["launches"][name]
+                                            for p, r in wide_bf16["paths"].items()}
+                          | {"serve_MOD_WIDE_bf16": wide_bf16["serve"]["launches"][name],
+                             "rate0_step_MOD_WIDE_bf16": wide_bf16["rate0"]["launches"][name]},
+                          **extra)
+
+    kernels += [
+        wide_bf16_entry(ph_bf_fwd.__name__, "#4-bf16", 1123, "fwd", we["fwd_abs"],
+                        max_rel_err=we["fwd"]),
+        wide_bf16_entry(ph_bf_bwd.__name__, "#5-bf16", 1166, "bwd", we["bwd_abs"],
+                        max_rel_err=we["bwd"]),
+    ]
+    me, mpaths = mlp_bf16["errors"], mlp_bf16["paths"]
+    mlp_bf16_launches = mlp_bf16["steps"]["mlp-bf16-steps-pallas-mlp"]["launches"]
+    mlp_bf16_serve = mlp_bf16["serve"]["launches"]
+    mlp_bf16_per = (f"times: the {mlp_bf16['launches_per_step'][mlp_bf_drop.__name__]} MLPs of one "
+                    f"MOD forward at batch {SUP_BATCH} (mod_wide_stage0: MOD_WIDE stage 0 at "
+                    f"{WIDE_BATCH} fused to {2 * WIDE_BATCH}); launches: {MLP_BF16_STEPS} timed "
+                    "bf16 -pallas_mlp supervised steps (#10-bf16: the served bf16 -pallas_mlp "
+                    "batch); max_abs_err: worst over the MOD and MOD_WIDE stage-0 geometries; "
+                    "bound at 989 TFLOP/s bf16 or 3.35 TB/s at bf16 activation bytes")
+
+    def mlp_bf16_entry(name, num, line, d, launches_, err, **extra):
+        return bf16_entry(name, num, line, launches_, err, mlp_bf16["MOD_forward"][d],
+                          mlp_bf16_per, source=MLP_SRC,
+                          device_ms_by_phase=mlp_bf16["MOD_forward"][d]["device_ms_by_phase"],
+                          mod_wide_stage0={k: v for k, v in mlp_bf16["MOD_WIDE_forward"][d].items()},
+                          launches_by_path={p: r["launches"][name] for p, r in mpaths.items()}
+                          | {"serve_MOD_bf16_pallas_mlp": mlp_bf16_serve[name],
+                             "rate0_step_MOD_bf16_pallas_mlp": mlp_bf16["rate0"]["launches"][name]},
+                          **extra)
+
+    kernels += [
+        mlp_bf16_entry(mlp_bf_fwd.__name__, "#10-bf16", 527, "fwd", mlp_bf16_serve[mlp_bf_fwd.__name__],
+                       me["fwd_abs"], max_rel_err=me["fwd"],
+                       launches_per_forward=mlp_bf16["launches_per_eval_forward"][mlp_bf_fwd.__name__]),
+        mlp_bf16_entry(mlp_bf_drop.__name__, "#11-bf16", 537, "drop",
+                       mlp_bf16_launches[mlp_bf_drop.__name__], me["drop_abs"], max_rel_err=me["drop"],
+                       launches_per_step=mlp_bf16["launches_per_step"][mlp_bf_drop.__name__],
+                       steps=MLP_BF16_STEPS),
+        mlp_bf16_entry(mlp_bf_bwd.__name__, "#12-bf16", 590, "bwd",
+                       mlp_bf16_launches[mlp_bf_bwd.__name__], me["bwd_abs"], max_rel_err=me["bwd"],
+                       replaces_also=[f"{PK}:601"],
+                       launches_per_step=mlp_bf16["launches_per_step"][mlp_bf_bwd.__name__],
+                       steps=MLP_BF16_STEPS),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -53,6 +53,29 @@
 // spill at one block an SM it was 6 % slower on the H100.
 // Not yet: keeping h on chip (fc2 accumulated over hidden chunks in
 // registers), wgmma and TMA.
+//
+// The bf16 forms (-compute_dtype bfloat16): #10-bf16 (forward), #11-bf16
+// (forward with dropout) and #12-bf16 (backward) replace the same TPU
+// kernels fed a bf16 x (pk:516-609, called with the f32 weights uncast by
+// focal_tpu/models/swin.py:431-446). They run #10-#12's launch plan with
+// every product on the bf16 tensor cores (gemm_bf16.cuh: one mma.sync pass
+// of m16n8k16, 989 TFLOP/s dense on the H100) and round where the TPU
+// kernel rounds:
+//   * the f32 weights are read as they lie and rounded to bf16 as they are
+//     staged (w1_ref[...].astype(x.dtype)): no cast kernels;
+//   * z = x W1 + b1 and the GELU in f32, with the TPU kernel's erf (the A-S
+//     polynomial, pk:484-503: ROADMAP C6), h (with keep1) stored as bf16,
+//     y = h W2 + b2 (keep2 in f32) stored as bf16;
+//   * backward: g2 = g keep2 / (1 - rate) in f32 (g itself without
+//     dropout), rounded to bf16 as dh = g2 W2^T and dW2 stage it; dz = dh
+//     keep1 / (1 - rate) GELU'(z) in f32, rounded to bf16 as dx = dz W1^T
+//     and dW1 = x^T dz stage it, while db1 sums the f32 dz (pk:564) and db2
+//     the f32 g2; dW2 = bf16(h as used)^T g2; dx stored as bf16, the weight
+//     and bias gradients f32.
+// The masks are #11's Philox draws (keep_bits): the same seed gives #11's
+// masks. The split-K weight gradients are gemm_splitk.cuh's bf16 form,
+// which #3-bf16/#5-bf16 use too.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -60,6 +83,7 @@
 #include <algorithm>
 
 #include "gemm_3xtf32.cuh"
+#include "gemm_bf16.cuh"
 #include "gemm_splitk.cuh"
 #include "philox.cuh"
 
@@ -256,6 +280,150 @@ __global__ void mlp_masks_kernel(unsigned long long seed, unsigned threshold, in
 }
 
 // ---------------------------------------------------------------------------
+// the bf16 forms (#10-bf16, #11-bf16, #12-bf16)
+
+// erf by Abramowitz & Stegun 7.1.26, as the TPU kernel computes it
+// (pk:484-494; conv_tower.cu's), and the GELU and GELU' built on it.
+__device__ __forceinline__ float erf_as(float x) {
+  const float ax = fabsf(x);
+  const float t = 1.f / (1.f + 0.3275911f * ax);
+  const float poly =
+      ((((1.061405429f * t - 1.453152027f) * t + 1.421413741f) * t - 0.284496736f) * t +
+       0.254829592f) * t;
+  return copysignf(1.f - poly * expf(-ax * ax), x);
+}
+
+__device__ __forceinline__ float gelu_as(float z) {
+  return 0.5f * z * (1.f + erf_as(z * 0.7071067811865476f));
+}
+
+__device__ __forceinline__ float gelu_grad_as(float z) {
+  const float cdf = 0.5f * (1.f + erf_as(z * 0.7071067811865476f));
+  return cdf + z * expf(-0.5f * z * z) * 0.3989422804014327f;
+}
+
+// The hidden products of a chunk in bf16. Forward: h = GELU(x W1 + b1)
+// (keep1) stored as bf16. Backward: z = x W1 + b1 into dz (f32), then dh =
+// g2 W2^T over the same tile; its epilogue reads z back (its own thread's
+// writes), writes dz = dh keep1 / (1 - rate) GELU'(z) over it in f32 and the
+// h the forward used (keep1) as bf16.
+struct BfHiddenArgs {
+  focal::BfOperand x;    // [rows, C] bf16
+  focal::BfOperand w1;   // [C, H] f32, rounded as staged
+  const float* b1;       // [H]
+  focal::BfOperand g2;   // [rows, C] (backward): g (bf16) or g2 (f32)
+  focal::BfOperand w2t;  // [C, H] f32 (backward): W2 transposed
+  __nv_bfloat16* h;      // [rows, H]: h (backward: h as used)
+  float* dz;             // [rows, H] (backward): z, then dz
+  int rows, C, H, row0;
+  Keep keep;
+};
+
+template <int kBN, bool kBackward, bool kDropout>
+__global__ void __launch_bounds__(kThreads, kBN == 64 ? 2 : 1)
+mlp_bf16_hidden_kernel(const BfHiddenArgs p) {
+  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
+  const int tiles_n = (p.H + kBN - 1) / kBN;
+  const int m0 = (blockIdx.x / tiles_n) * focal::kGemmBM, n0 = (blockIdx.x % tiles_n) * kBN;
+  float acc[4][focal::gemm_nt<kBN>()][4], sums[2][8];
+  focal::bf_gemm_tile<false, false, kBN>(p.x, p.w1, p.rows, p.H, m0, n0, 0, p.C, smem, acc, sums,
+                                         false);
+  focal::gemm_for_each_output<kBN>(acc, p.rows, p.H, m0, n0, [&](int row, int col, float v0, float v1) {
+    v0 += __ldg(p.b1 + col);
+    v1 += __ldg(p.b1 + col + 1);
+    const size_t at = (size_t)row * p.H + col;
+    if (kBackward) {
+      *reinterpret_cast<float2*>(p.dz + at) = make_float2(v0, v1);
+      return;
+    }
+    v0 = gelu_as(v0);
+    v1 = gelu_as(v1);
+    if (kDropout) {
+      bool k0, k1;
+      kept_pair(p.keep, p.row0 + row, col, kSiteHidden, k0, k1);
+      v0 = keep_or_zero(k0, v0, p.keep);
+      v1 = keep_or_zero(k1, v1, p.keep);
+    }
+    *reinterpret_cast<uint32_t*>(p.h + at) = focal::pack_bf16x2(v0, v1);
+  });
+  if (!kBackward) return;
+  __syncthreads();  // every warp is done with the first product's stages
+  focal::bf_gemm_tile<false, false, kBN>(p.g2, p.w2t, p.rows, p.H, m0, n0, 0, p.C, smem, acc, sums,
+                                         false);
+  focal::gemm_for_each_output<kBN>(acc, p.rows, p.H, m0, n0, [&](int row, int col, float dh0, float dh1) {
+    const size_t at = (size_t)row * p.H + col;
+    float2* zd = reinterpret_cast<float2*>(p.dz + at);
+    const float2 z = *zd;  // this thread's own write above
+    float h0 = gelu_as(z.x), h1 = gelu_as(z.y);
+    if (kDropout) {
+      bool k0, k1;
+      kept_pair(p.keep, p.row0 + row, col, kSiteHidden, k0, k1);
+      dh0 = keep_or_zero(k0, dh0, p.keep);
+      dh1 = keep_or_zero(k1, dh1, p.keep);
+      h0 = keep_or_zero(k0, h0, p.keep);
+      h1 = keep_or_zero(k1, h1, p.keep);
+    }
+    *zd = make_float2(dh0 * gelu_grad_as(z.x), dh1 * gelu_grad_as(z.y));
+    *reinterpret_cast<uint32_t*>(p.h + at) = focal::pack_bf16x2(h0, h1);
+  });
+}
+
+// out = a b (+ bias) for a chunk in bf16, stored as bf16: y = h W2 + b2
+// (keep2 with kDropout) and dx = dz W1^T.
+struct BfOutArgs {
+  focal::BfOperand a;  // [rows, K]
+  focal::BfOperand b;  // [K, N] f32, rounded as staged
+  const float* bias;   // [N] or null
+  __nv_bfloat16* out;  // [rows, N]
+  int rows, K, N, row0;
+  Keep keep;
+};
+
+template <int kBN, bool kDropout>
+__global__ void __launch_bounds__(kThreads, kBN == 64 ? 2 : 1) mlp_bf16_out_kernel(const BfOutArgs p) {
+  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
+  const int tiles_n = (p.N + kBN - 1) / kBN;
+  const int m0 = (blockIdx.x / tiles_n) * focal::kGemmBM, n0 = (blockIdx.x % tiles_n) * kBN;
+  float acc[4][focal::gemm_nt<kBN>()][4], sums[2][8];
+  focal::bf_gemm_tile<false, false, kBN>(p.a, p.b, p.rows, p.N, m0, n0, 0, p.K, smem, acc, sums,
+                                         false);
+  focal::gemm_for_each_output<kBN>(acc, p.rows, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
+    if (p.bias) {
+      v0 += __ldg(p.bias + col);
+      v1 += __ldg(p.bias + col + 1);
+    }
+    if (kDropout) {
+      bool k0, k1;
+      kept_pair(p.keep, p.row0 + row, col, kSiteOut, k0, k1);
+      v0 = keep_or_zero(k0, v0, p.keep);
+      v1 = keep_or_zero(k1, v1, p.keep);
+    }
+    *reinterpret_cast<uint32_t*>(p.out + (size_t)row * p.N + col) = focal::pack_bf16x2(v0, v1);
+  });
+}
+
+// g2 = g * keep2 / (1 - rate) in f32 from a bf16 g, for a chunk of `rows`
+// rows of C columns (a multiple of 8).
+__global__ void __launch_bounds__(kThreads) mlp_bf16_g2_kernel(const __nv_bfloat16* __restrict__ g,
+                                                               float* __restrict__ g2, int rows,
+                                                               int C, int row0, Keep k) {
+  const int c4n = C / 4;
+  const size_t total = (size_t)rows * c4n;
+  for (size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x; e < total;
+       e += (size_t)gridDim.x * kThreads) {
+    const int r = (int)(e / c4n), c4 = (int)(e - (size_t)r * c4n);
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(g) + e);
+    const uint4 b = keep_bits(k.seed, row0 + r, c4, kSiteOut);
+    float4 v;
+    v.x = keep_or_zero(b.x >= k.threshold, __uint_as_float(raw.x << 16), k);
+    v.y = keep_or_zero(b.y >= k.threshold, __uint_as_float(raw.x & 0xffff0000u), k);
+    v.z = keep_or_zero(b.z >= k.threshold, __uint_as_float(raw.y << 16), k);
+    v.w = keep_or_zero(b.w >= k.threshold, __uint_as_float(raw.y & 0xffff0000u), k);
+    reinterpret_cast<float4*>(g2)[e] = v;
+  }
+}
+
+// ---------------------------------------------------------------------------
 // host side
 
 int check_dims(int T, int C, int H) {
@@ -347,6 +515,33 @@ cudaError_t launch_out(const OutArgs& a, int bn, cudaStream_t s) {
                    : launch_gemm(mlp_out_kernel<64, kDropout>, tiles, a, s, 64);
 }
 
+// The bf16 kernels' launches (static shared memory): the hidden products
+// of the backward in 64-wide tiles only, as the f32 ones (make_plan).
+template <bool kBackward, bool kDropout>
+cudaError_t launch_bf16_hidden(const BfHiddenArgs& a, int bn, cudaStream_t s) {
+  int tiles_n = 0, tiles = 0;
+  focal::set_tiles(a.rows, a.H, bn, &tiles_n, &tiles);
+  if (kBackward || bn == 64)
+    mlp_bf16_hidden_kernel<64, kBackward, kDropout><<<tiles, kThreads, 0, s>>>(a);
+  else
+    mlp_bf16_hidden_kernel<128, false, kDropout><<<tiles, kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+template <bool kDropout>
+cudaError_t launch_bf16_out(const BfOutArgs& a, int bn, cudaStream_t s) {
+  int tiles_n = 0, tiles = 0;
+  focal::set_tiles(a.rows, a.N, bn, &tiles_n, &tiles);
+  if (bn == 128)
+    mlp_bf16_out_kernel<128, kDropout><<<tiles, kThreads, 0, s>>>(a);
+  else
+    mlp_bf16_out_kernel<64, kDropout><<<tiles, kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+focal::BfOperand bf16_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 0}; }
+focal::BfOperand f32_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 1}; }
+
 int plan_for(int T, int C, int H, bool backward, Plan* P) {
   if (int e = check_dims(T, C, H)) return e;
   int sms = 0;
@@ -368,6 +563,14 @@ extern "C" int focal_mlp_workspace(int T, int C, int H, int backward, long long*
   *floats = (long long)P.total;
   *chunks = P.chunks;
   return 0;
+}
+
+// The same for focal_mlp_fwd_bf16 and focal_mlp_bwd_bf16: an error where C
+// or H is not a multiple of 8, which their bf16 rows need.
+extern "C" int focal_mlp_workspace_bf16(int T, int C, int H, int backward, long long* floats,
+                                        int* chunks) {
+  if (C % 8 != 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
+  return focal_mlp_workspace(T, C, H, backward, floats, chunks);
 }
 
 // #10 (dropout 0) or #11 (dropout 1): y [T, C] from x [T, C], w1 [C, H],
@@ -448,6 +651,98 @@ extern "C" int focal_mlp_bwd(const void* x, const void* w1, const void* b1, cons
     const int splits = (rows + P.rows_per_split - 1) / P.rows_per_split;
     err = focal::launch_wgrad<Src>(P.wbn, w1g, w2g, rows, P.rows_per_split, splits, part, P.E,
                                    c > 0, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  // 4. the partials summed in split order
+  return (int)focal::launch_reduce<Src>(part, P.splits, P.E, static_cast<float*>(dweights), s);
+}
+
+// #10-bf16 (dropout 0) or #11-bf16 (dropout 1): focal_mlp_fwd with a bf16 x
+// and y (w1, b1, w2, b2 f32, the weights rounded to bf16 as they are
+// staged) and C and H multiples of 8; the same workspace. Two launches a
+// row chunk on `stream`: h = GELU(x W1 + b1) as bf16, y = h W2 + b2.
+extern "C" int focal_mlp_fwd_bf16(const void* x, const void* w1, const void* b1, const void* w2,
+                                  const void* b2, void* y, void* ws, int T, int C, int H,
+                                  int dropout, unsigned long long seed, unsigned threshold,
+                                  float inv_keep, void* stream) {
+  Plan P;
+  if (C % 8 != 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (int e = plan_for(T, C, H, false, &P)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Keep keep{seed, threshold, inv_keep};
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(static_cast<float*>(ws) + P.h);
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  __nv_bfloat16* yb = static_cast<__nv_bfloat16*>(y);
+  for (int c = 0; c < P.chunks; ++c) {
+    const int r0 = c * P.rows, rows = std::min(P.rows, T - r0);
+    const BfHiddenArgs ha{bf16_operand(xb + (size_t)r0 * C, C), f32_operand(w1, H),
+                          static_cast<const float*>(b1), focal::BfOperand{}, focal::BfOperand{},
+                          h, nullptr, rows, C, H, r0, keep};
+    cudaError_t err = dropout ? launch_bf16_hidden<false, true>(ha, P.hbn, s)
+                              : launch_bf16_hidden<false, false>(ha, P.hbn, s);
+    if (err != cudaSuccess) return (int)err;
+    const BfOutArgs oa{bf16_operand(h, H), f32_operand(w2, C), static_cast<const float*>(b2),
+                       yb + (size_t)r0 * C, rows, H, C, r0, keep};
+    err = dropout ? launch_bf16_out<true>(oa, P.obn, s) : launch_bf16_out<false>(oa, P.obn, s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return 0;
+}
+
+// #12-bf16: focal_mlp_bwd with a bf16 x, g and dx (w1, b1, w1t, w2t f32,
+// rounded to bf16 as they are staged), C and H multiples of 8; dweights f32
+// as focal_mlp_bwd's; the same workspace. A row chunk launches on `stream`:
+// g2 (with dropout), z and dh (one launch), dx, the weight-gradient
+// partials; then one ordered sum of the partials.
+extern "C" int focal_mlp_bwd_bf16(const void* x, const void* w1, const void* b1, const void* w1t,
+                                  const void* w2t, const void* g, void* dx, void* dweights,
+                                  void* ws, int T, int C, int H, int dropout,
+                                  unsigned long long seed, unsigned threshold, float inv_keep,
+                                  void* stream) {
+  Plan P;
+  if (C % 8 != 0 || H % 8 != 0) return (int)cudaErrorInvalidValue;
+  if (int e = plan_for(T, C, H, true, &P)) return e;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const Keep keep{seed, threshold, inv_keep};
+  float* w = static_cast<float*>(ws);
+  __nv_bfloat16* h = reinterpret_cast<__nv_bfloat16*>(w + P.h);
+  float *dz = w + P.dz, *part = w + P.part;
+  const __nv_bfloat16* xb = static_cast<const __nv_bfloat16*>(x);
+  const __nv_bfloat16* gb = static_cast<const __nv_bfloat16*>(g);
+  __nv_bfloat16* dxb = static_cast<__nv_bfloat16*>(dx);
+  const size_t ch = (size_t)C * H;
+  cudaError_t err = cudaSuccess;
+  for (int c = 0; c < P.chunks; ++c) {
+    const int r0 = c * P.rows, rows = std::min(P.rows, T - r0);
+    const __nv_bfloat16* xc = xb + (size_t)r0 * C;
+    focal::BfOperand g2 = bf16_operand(gb + (size_t)r0 * C, C);
+    if (dropout) {
+      const size_t n4 = (size_t)rows * (C / 4);
+      const int grid = (int)std::min<size_t>((n4 + kThreads - 1) / kThreads, 1u << 16);
+      mlp_bf16_g2_kernel<<<grid, kThreads, 0, s>>>(gb + (size_t)r0 * C, w + P.g2, rows, C, r0,
+                                                   keep);
+      if ((err = cudaGetLastError()) != cudaSuccess) return (int)err;
+      g2 = f32_operand(w + P.g2, C);
+    }
+    // 1. z = x W1 + b1 and dh = g2 W2^T; dz and the h the forward used
+    const BfHiddenArgs ha{bf16_operand(xc, C), f32_operand(w1, H), static_cast<const float*>(b1),
+                          g2, f32_operand(w2t, H), h, dz, rows, C, H, r0, keep};
+    err = dropout ? launch_bf16_hidden<true, true>(ha, P.hbn, s)
+                  : launch_bf16_hidden<true, false>(ha, P.hbn, s);
+    if (err != cudaSuccess) return (int)err;
+    // 2. dx = dz W1^T
+    const BfOutArgs oa{f32_operand(dz, H), f32_operand(w1t, C), nullptr, dxb + (size_t)r0 * C,
+                       rows, H, C, r0, keep};
+    if ((err = launch_bf16_out<false>(oa, P.obn, s)) != cudaSuccess) return (int)err;
+    // 3. dW1 = x^T dz with db1 (the f32 dz), dW2 = h^T g2 with db2, per split,
+    //    added to the earlier chunks' partials
+    const focal::BfWgrad w1g = focal::bf_wgrad(bf16_operand(xc, C), f32_operand(dz, H), C, H, 0,
+                                               ch, P.wbn);
+    const focal::BfWgrad w2g = focal::bf_wgrad(bf16_operand(h, H), g2, H, C, ch + H, 2 * ch + H,
+                                               P.wbn);
+    const int splits = (rows + P.rows_per_split - 1) / P.rows_per_split;
+    err = focal::launch_bf16_wgrad<Src>(P.wbn, w1g, w2g, rows, P.rows_per_split, splits, part, P.E,
+                                        c > 0, s);
     if (err != cudaSuccess) return (int)err;
   }
   // 4. the partials summed in split order

@@ -1,6 +1,8 @@
 // Block-tiled matrix products on the bf16 tensor cores for Hopper (sm_90a;
 // mma.sync works from sm_80 on): the bf16 forms of the window-block kernels'
-// projections and weight gradients (#1-bf16 to #3-bf16, window_block.cu).
+// projections and weight gradients (#1-bf16 to #5-bf16, window_block.cu),
+// of the fused MLP's products (#10-bf16 to #12-bf16, fused_mlp.cu) and of
+// the conv tower's (#13-bf16, #14-bf16, conv_tower.cu).
 //
 // One block of kGemmThreads threads computes a kGemmBM x kBN output tile
 // (kBN 128, or 64 for products whose width is not a multiple of 128), eight

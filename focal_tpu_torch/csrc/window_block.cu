@@ -68,7 +68,9 @@
 //     into the projections' epilogues.
 //
 // The bf16 forms (-compute_dtype bfloat16): #1-bf16 and #2-bf16 (the forward
-// at rate 0 and with dropout) and #3-bf16 (their backward) replace the same
+// at rate 0 and with dropout) and #3-bf16 (their backward), and #4-bf16 and
+// #5-bf16 (the same code at the per-head geometries, whose TPU kernels fed
+// bf16 round at the same points), replace the same
 // TPU kernels fed bf16 operands (pk:908-938, 971-1072: bf16 dots with f32
 // accumulation, the softmax in f32). They run #1-#3's phases with the
 // products on the bf16 tensor cores (gemm_bf16.cuh: one mma.sync pass of
@@ -154,7 +156,7 @@ proj_gemm_kernel(ProjGemm p0, ProjGemm p1) {
   });
 }
 
-// The bf16 forms (#1-bf16, #2-bf16, #3-bf16): the same products on the
+// The bf16 forms (#1-bf16 to #5-bf16): the same products on the
 // bf16 tensor cores (gemm_bf16.cuh), with bf16 x, dy, weights, y and dx and
 // f32 workspaces. c = a b (+ bias) over all rows of a launch, a [M, K]
 // row-major, b [K, N]; c f32 or, with c_bf16, rounded to bf16 once (after
@@ -195,51 +197,6 @@ bf16_proj_kernel(BfGemm p0, BfGemm p1) {
     else
       *reinterpret_cast<float2*>(static_cast<float*>(p.c) + at) = make_float2(v0, v1);
   });
-}
-
-// A weight gradient of #3-bf16: a^T b over the rows, a [R, M] and b [R, N]
-// (bf16, or f32 rounded as staged), into [M, N] at offset `out` of a split
-// partial and b's f32 column sums at `sums_out`, as gemm_splitk.cuh's
-// WgradGemm; reduce_partials_kernel sums the partials in split order.
-struct BfWgrad {
-  focal::BfOperand a, b;
-  int M, N, tiles_n, tiles;
-  size_t out, sums_out;
-};
-
-BfWgrad bf_wgrad(focal::BfOperand a, focal::BfOperand b, int M, int N, size_t out,
-                 size_t sums_out, int bn) {
-  BfWgrad p{a, b, M, N, 0, 0, out, sums_out};
-  set_tiles(M, N, bn, &p.tiles_n, &p.tiles);
-  return p;
-}
-
-template <int kBN>
-__global__ void __launch_bounds__(focal::kGemmThreads, kBN == 64 ? 2 : 1)
-bf16_wgrad_kernel(BfWgrad p0, BfWgrad p1, int R, int rows_per_split, float* __restrict__ part,
-                  size_t E) {
-  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
-  int tile = blockIdx.x;
-  const BfWgrad p = tile < p0.tiles ? p0 : p1;
-  if (tile >= p0.tiles) tile -= p0.tiles;
-  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const bool with_sums = m0 == 0;  // the first row tile writes the column sums
-  float acc[4][focal::gemm_nt<kBN>()][4], sums[2][8];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sums[i][j] = 0.f;
-  focal::bf_gemm_tile<true, true, kBN>(p.a, p.b, p.M, p.N, m0, n0, r_begin, r_end, smem, acc, sums,
-                                       with_sums);
-  float* out = part + (size_t)blockIdx.y * E;
-  focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
-    *reinterpret_cast<float2*>(out + p.out + (size_t)row * p.N + col) = make_float2(v0, v1);
-  });
-  if (with_sums)
-    focal::bf_reduce_sums<kBN>(p.b, p.N, n0, sums,
-                               [&](int col, float v) { out[p.sums_out + col] = v; });
 }
 
 // Element strides of head h's q (k, v: add C, 2C) columns in the [R, 3C]
@@ -602,19 +559,6 @@ cudaError_t launch_bf16_proj(const BfGemm& p0, const BfGemm& p1, cudaStream_t s)
                                     : launch_bf16_proj_bn<64>(p0, p1, s);
 }
 
-// One bf16 weight-gradient launch of `splits` row splits (bf_wgrad's tiles
-// of bn columns).
-cudaError_t launch_bf16_wgrad(int bn, const BfWgrad& p0, const BfWgrad& p1, int R,
-                              int rows_per_split, int splits, float* part, size_t E,
-                              cudaStream_t s) {
-  const dim3 grid(p0.tiles + p1.tiles, splits);
-  if (bn == 128)
-    bf16_wgrad_kernel<128><<<grid, focal::kGemmThreads, 0, s>>>(p0, p1, R, rows_per_split, part, E);
-  else
-    bf16_wgrad_kernel<64><<<grid, focal::kGemmThreads, 0, s>>>(p0, p1, R, rows_per_split, part, E);
-  return cudaGetLastError();
-}
-
 focal::BfOperand bf16_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 0}; }
 focal::BfOperand f32_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 1}; }
 
@@ -734,10 +678,10 @@ int wblock_bwd(const void* x, const void* wqkv, const void* bqkv, const void* wq
   // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
   const size_t q = (size_t)3 * C * C, p_out = q + 3 * C, p_sums = p_out + (size_t)C * C;
   if (bf16) {
-    err = launch_bf16_wgrad(
-        P.wbn, bf_wgrad(bf16_operand(x, C), f32_operand(dqkv, 3 * C), C, 3 * C, 0, q, P.wbn),
-        bf_wgrad(f32_operand(ao, C), bf16_operand(dy, C), C, C, p_out, p_sums, P.wbn), R,
-        P.rows_per_split, P.splits, w + P.wpart, P.E, s);
+    err = focal::launch_bf16_wgrad<Src>(
+        P.wbn, focal::bf_wgrad(bf16_operand(x, C), f32_operand(dqkv, 3 * C), C, 3 * C, 0, q, P.wbn),
+        focal::bf_wgrad(f32_operand(ao, C), bf16_operand(dy, C), C, C, p_out, p_sums, P.wbn), R,
+        P.rows_per_split, P.splits, w + P.wpart, P.E, false, s);
   } else {
     const float* xf = static_cast<const float*>(x);
     const float* dyf = static_cast<const float*>(dy);
@@ -755,7 +699,7 @@ int wblock_bwd(const void* x, const void* wqkv, const void* bqkv, const void* wq
 
 }  // namespace
 
-// Workspace of the forward (#1, #2, #4 and #1-bf16, #2-bf16), in floats: the qkv projection
+// Workspace of the forward (#1, #2, #4 and their bf16 forms), in floats: the qkv projection
 // [R, 3C] and the attention output [R, C], R = B N. An error where the
 // attention has no launch plan (a head too wide for shared memory).
 extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long* floats) {
@@ -788,7 +732,7 @@ extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const v
                     seed, threshold, inv_keep, stream, false);
 }
 
-// The forward in bf16 (#1-bf16 with `keep` null, #2-bf16 with it): as
+// The forward in bf16 (#1-bf16 with `keep` null, #2-bf16 with it; #4-bf16): as
 // focal_wblock_fwd_dropout, with x, wqkv, wproj and y bf16 (bqkv, bproj,
 // rel_bias and mask f32) and C a multiple of 8; the same workspace.
 extern "C" int focal_wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv,
@@ -800,7 +744,7 @@ extern "C" int focal_wblock_fwd_bf16(const void* x, const void* wqkv, const void
                     seed, threshold, inv_keep, stream, true);
 }
 
-// Workspace the backward (#3, #5, #3-bf16) needs, in floats, for this
+// Workspace the backward (#3, #5, #3-bf16, #5-bf16) needs, in floats, for this
 // geometry on the current device (bwd_plan).
 extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
                                           long long* floats) {
@@ -831,7 +775,7 @@ extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqk
                     dweights, drel_bias, ws, B, N, C, H, nW, stream, false);
 }
 
-// The backward in bf16 (#3-bf16): as focal_wblock_bwd, with x, the three
+// The backward in bf16 (#3-bf16; #5-bf16): as focal_wblock_bwd, with x, the three
 // weights, dy and dx bf16 (C a multiple of 8); the weight, bias and
 // bias-table gradients f32.
 extern "C" int focal_wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv,

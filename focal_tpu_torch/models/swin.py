@@ -25,11 +25,13 @@ as flax's ``dtype=``: in bf16 each Linear and LayerNorm casts its f32
 parameters at use (``models.layers.Dense``, ``models.layers.LayerNorm``),
 the residual stream, the MLP and the dropouts run in bf16, and window
 attention takes the bf16 whole-block kernels (#1-bf16 in eval, #2-bf16 or
-#1-bf16 forward and #3-bf16 backward in training) with the q scale folded
-into the f32 qkv weights before they are rounded. The routes whose bf16
-forms are not ported (the attention-only and XLA routes, the per-head
-kernels #4/#5) raise NotImplementedError naming ROADMAP A6 when the block
-is built.
+#1-bf16 forward and #3-bf16 backward in training; #4-bf16 and #5-bf16 for
+the blocks ``wblock_fits`` sends to the per-head kernels) with the q scale
+folded into the f32 qkv weights before they are rounded; with
+``pallas_mlp`` the MLP takes #10-bf16 to #12-bf16 over its f32 weights.
+The routes whose bf16 forms are not ported (the attention-only and XLA
+routes) raise NotImplementedError naming ROADMAP A6 when the block is
+built.
 
 Parameter names follow the flax tree (``norm1``, ``attn.qkv``, ``mlp.Dense_0``,
 ``downsample.reduction`` ...) so a reader can map one to the other; weights
@@ -44,8 +46,8 @@ from focal_tpu_torch.models.layers import Dense, LayerNorm, gelu
 from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
 from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_takes
 from focal_tpu_torch.ops.pallas_kernels import (attention_takes, fused_window_attention,
-                                                wblock_fits, wblock_takes, window_attention_qkv,
-                                                window_block, window_block_forward)
+                                                wblock_takes, window_attention_qkv, window_block,
+                                                window_block_forward)
 
 
 def window_partition(x, wh, ww):
@@ -112,8 +114,8 @@ class WindowAttention(nn.Module):
     """W-MSA with relative position bias, through the whole-block kernels, or
     with ``pallas_block`` off through the attention-only kernels between the
     qkv and proj Linears; attention dropout in the kernel, ``proj_drop`` on
-    its output. In bf16 only the whole-block route is ported: a block of
-    another route, or one that ``wblock_fits`` sends to #4/#5, raises."""
+    its output. In bf16 only the whole-block route is ported (#1-bf16 to
+    #5-bf16): a block of another route raises."""
 
     def __init__(self, dim, window_size, num_heads, qkv_bias=True, attn_drop=0.0, proj_drop=0.0,
                  pallas_block=True, compute_dtype=torch.float32):
@@ -249,21 +251,17 @@ class WindowAttention(nn.Module):
 def _refuse_low_precision_route(N, C, H, pallas_block):
     """Raise NotImplementedError, naming ROADMAP A6, for a bf16 window
     attention of window size N, width C and H heads on a route whose bf16
-    form is not ported: the attention-only kernels (-no_pallas_block, #6-#9),
-    the XLA route of widths no kernel takes (and C not a multiple of 8, which
-    #1-bf16 to #3-bf16 stage 8 values at a time), the per-head #4/#5."""
+    form is not ported: the attention-only kernels (-no_pallas_block, #6-#9)
+    and the XLA route of widths no kernel takes (and C not a multiple of 8,
+    which #1-bf16 to #5-bf16 stage 8 values at a time)."""
     if not pallas_block:
         raise NotImplementedError(
             "-compute_dtype bfloat16 with -no_pallas_block needs the bf16 forms of the "
             "attention-only kernels #6-#9, not ported yet: ROADMAP A6")
-    if not wblock_takes(N, C, H) or C % 8:
+    if not wblock_takes(N, C, H, torch.bfloat16):
         raise NotImplementedError(
             f"-compute_dtype bfloat16 at N={N} C={C} H={H}: no bf16 whole-block kernel takes "
             "this width, not ported yet: ROADMAP A6")
-    if not wblock_fits(N, C, H):
-        raise NotImplementedError(
-            f"-compute_dtype bfloat16 at N={N} C={C} H={H} goes to the per-head kernels #4/#5, "
-            "whose bf16 forms are not ported yet: ROADMAP A6")
 
 
 class DropPath(nn.Module):
@@ -288,23 +286,21 @@ class Mlp(nn.Module):
     """fc -> exact-erf GELU -> drop -> fc -> drop.
 
     With ``use_pallas`` (the CLI's ``-pallas_mlp``) and ``mlp_takes`` at this
-    width (the JAX package's ``mlp_fits``, where the kernels take the
-    width), the whole MLP runs on the [rows, C]
+    width in ``compute_dtype`` (the JAX package's ``mlp_fits``, where the
+    kernels take the width), the whole MLP runs on the [rows, C]
     tokens as the fused kernels: ``fused_mlp`` (#10, backward #12) in eval
     and at rate 0, ``fused_mlp_dropout`` (#11, backward #12) in training at
-    rate > 0, one kernel seed per call from the step's host generator.
+    rate > 0, one kernel seed per call from the step's host generator; in
+    bf16 their bf16 forms (#10-bf16 to #12-bf16) over the f32 weights.
     Otherwise two nn.Linear layers with the dropouts of
-    ``ops.dropout.remat_dropout``."""
+    ``ops.dropout.remat_dropout``, in ``compute_dtype``."""
 
     def __init__(self, dim, hidden, out, drop=0.0, use_pallas=False, compute_dtype=torch.float32):
         super().__init__()
-        if use_pallas and compute_dtype != torch.float32:
-            raise NotImplementedError("-compute_dtype bfloat16 with -pallas_mlp needs the bf16 "
-                                      "forms of #10-#12, not ported yet: ROADMAP A6")
         self.Dense_0 = Dense(dim, hidden, compute_dtype=compute_dtype)
         self.Dense_1 = Dense(hidden, out, compute_dtype=compute_dtype)
         self.drop = float(drop)
-        self.fused = bool(use_pallas) and out == dim and mlp_takes(dim, hidden)
+        self.fused = bool(use_pallas) and out == dim and mlp_takes(dim, hidden, compute_dtype)
 
     def _drop(self, x, rng):
         if not self.training or self.drop == 0.0:

@@ -249,7 +249,7 @@ def tower_backward_bf16_reference(saved, cfgs, masks, da_last, external_c0=False
         kw, cin, cout, residual = cfgs[k]
         c, rows = saved["c"][k], saved["rows"][k]
         mask = _rows_of(masks[k], R).repeat_interleave(S, dim=0)
-        gy = da * mask * _gelu_grad(c * rows[0] + rows[1])
+        gy = da * mask * gelu_grad_exact(c * rows[0] + rows[1])
         xhat = c * rows[2] - rows[3]
         s2 = torch.stack([gy.sum(0), (gy * xhat).sum(0)])
         m = s2 * rows[4] / n
@@ -492,7 +492,7 @@ def stages_backward(saved, cfgs, ws, masks, da_last, external_c0=False, gemm=tor
         kw, cin, cout, residual = cfgs[k]
         c, rows = saved["c"][k], saved["rows"][k]
         mask = _rows_of(masks[k], R).repeat_interleave(S, dim=0)
-        gy = da * mask * _gelu_grad(c * rows[0] + rows[1])
+        gy = da * mask * gelu_grad_exact(c * rows[0] + rows[1])
         xhat = c * rows[2] - rows[3]
         s2 = ordered_sum([torch.stack([g.sum(0), (g * x).sum(0)])
                           for g, x in zip(gy.split(STAT_ROWS), xhat.split(STAT_ROWS))])
@@ -529,7 +529,7 @@ def stages_backward(saved, cfgs, ws, masks, da_last, external_c0=False, gemm=tor
     return (dx0.view(R, S, dx0.shape[-1]), dws, dbs, dscales, dbiases), partials
 
 
-def _gelu_grad(z):
+def gelu_grad_exact(z):
     """GELU'(z) with the kernels' erf."""
     return (0.5 * (1.0 + _erf(z * 0.7071067811865476))
             + z * torch.exp(-0.5 * z * z) * 0.3989422804014327)

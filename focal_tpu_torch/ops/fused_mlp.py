@@ -15,6 +15,15 @@ Kernels (``csrc/fused_mlp.cu``), each with a launch count on its wrapper:
 them. A CPU tensor takes the plain versions (``*_reference``, autograd
 through torch ops); a CUDA tensor takes the kernels or raises.
 
+The bf16 forms (``-compute_dtype bfloat16``): ``fused_mlp_forward_bf16``
+(#10-bf16), ``fused_mlp_dropout_forward_bf16`` (#11-bf16) and
+``fused_mlp_backward_bf16`` (#12-bf16) take a bf16 x (and g) with the f32
+weights and biases as they lie, and give a bf16 y (and dx) and f32 weight
+and bias gradients, rounding where the JAX package's kernel does when it is
+fed bf16 (see ``fused_mlp_bf16_reference``), the GELU with the TPU
+kernel's erf (ROADMAP C6). ``fused_mlp`` and ``fused_mlp_dropout`` take
+them for a bf16 x (``_FusedMlpBf16``).
+
 Dropout is the TPU kernel's: a 32-bit draw per element, kept iff bits >=
 rate * 2**32, survivors scaled by 1 / (1 - rate) (not ``ops.dropout``'s
 1/256 quantisation, which the JAX package uses only off the fused route).
@@ -28,6 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from focal_tpu_torch.ops import _build
+from focal_tpu_torch.ops.conv_tower import gelu_exact, gelu_grad_exact
 
 _FUSED_MLP_SRC = "fused_mlp.cu"
 MLP_TILE = 1024  # the JAX kernel's max token rows per tile
@@ -57,24 +67,28 @@ def mlp_fits(C, H):
     return weights + working <= int(16 * 1024 * 1024 * 0.9)
 
 
-def kernel_refuses(T, C, H):
+def kernel_refuses(T, C, H, dtype=torch.float32):
     """Why the CUDA kernels (csrc/fused_mlp.cu, check_dims) cannot take T
-    rows of width C and hidden H, or None where they can: their products
-    stage rows 16 bytes at a time, so C and H must be multiples of 4."""
-    if C % 4 or C < 4 or H % 4 or H < 4 or T < 1:
-        return f"unsupported width C={C} H={H} T={T} (the kernels take C and H multiples of 4)"
+    rows of width C and hidden H in ``dtype``, or None where they can: their
+    products stage rows 16 bytes at a time, so C and H must be multiples of
+    4, or of 8 for the bf16 forms."""
+    mult = 8 if dtype == torch.bfloat16 else 4
+    if C % mult or C < mult or H % mult or H < mult or T < 1:
+        return (f"unsupported width C={C} H={H} T={T} (the kernels take C and H multiples of "
+                f"{mult} in {dtype})")
     if T * max(C, H) >= 2**31:
         return f"unsupported rows T={T} at C={C} H={H} (32-bit element offsets)"
     return None
 
 
-def mlp_takes(C, H):
-    """The fused route's gate: ``mlp_fits`` (the JAX package's gate) where
-    the kernels take the width. A width that is not a multiple of 4 runs
-    the plain Linears, as the route would with the flag off; the JAX
-    package runs its kernel there, a difference from it that no packaged
-    recipe meets (all give C and H multiples of 4)."""
-    return mlp_fits(C, H) and kernel_refuses(1, C, H) is None
+def mlp_takes(C, H, dtype=torch.float32):
+    """The fused route's gate in ``dtype``: ``mlp_fits`` (the JAX package's
+    gate) where the kernels take the width. A width that is not a multiple
+    of 4 (of 8 in bf16, whose forms stage 8 values at a time) runs the
+    plain Linears, as the route would with the flag off; the JAX package
+    runs its kernel there, a difference from it that no packaged recipe
+    meets (all give C and H multiples of 16)."""
+    return mlp_fits(C, H) and kernel_refuses(1, C, H, dtype) is None
 
 
 def _keep_threshold(rate):
@@ -115,6 +129,55 @@ def fused_mlp_backward_reference(x, w1, b1, w2, b2, g, keep1=None, keep2=None, r
         return torch.autograd.grad(y, leaves, g)
 
 
+def fused_mlp_bf16_reference(x, w1, b1, w2, b2, keep1=None, keep2=None, rate=0.0):
+    """Plain version of #10-bf16 (and of #11-bf16 given its masks): the
+    rounding points of the JAX package's ``_mlp_fwd_core`` fed a bf16 x and
+    f32 weights (``focal_tpu/ops/pallas_kernels.py:516-534``). The weights
+    are rounded to bf16 and every operand upcast, so each f32 product is
+    exact and only its summation order differs from the kernel's: z = x W1
+    + b1 in f32, h = GELU(z) with the TPU kernel's erf (keep1 in f32),
+    rounded to bf16, y = h W2 + b2 in f32 (keep2), stored as bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    inv = 1.0 / (1.0 - rate) if keep1 is not None else 1.0
+    z = torch.matmul(x.to(f32), w1.to(bf16).to(f32)) + b1
+    h = gelu_exact(z)
+    if keep1 is not None:
+        h = torch.where(keep1.bool(), h * inv, 0.0)
+    y = torch.matmul(h.to(bf16).to(f32), w2.to(bf16).to(f32)) + b2
+    if keep2 is not None:
+        y = torch.where(keep2.bool(), y * inv, 0.0)
+    return y.to(bf16)
+
+
+def fused_mlp_backward_bf16_reference(x, w1, b1, w2, b2, g, keep1=None, keep2=None, rate=0.0):
+    """Plain version of #12-bf16: the rounding points of the JAX package's
+    ``_mlp_bwd_math`` fed a bf16 x and g and f32 weights (``pk:548-568``):
+    z and h recomputed in f32; g2 = g keep2 / (1 - rate) in f32, rounded to
+    bf16 for dh = g2 W2^T and dW2; dz = dh keep1 / (1 - rate) GELU'(z) in
+    f32, rounded to bf16 for dx = dz W1^T (stored as bf16) and dW1 = x^T
+    dz; db1 the sum of the f32 dz, db2 of the f32 g2; dW2 = bf16(h as
+    used)^T g2. Returns (dx bf16, dw1, db1, dw2, db2 f32); b2 takes no part."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    x, w1, b1, w2, g = (t.detach() for t in (x, w1, b1, w2, g))
+    inv = 1.0 / (1.0 - rate)
+    xf, w1b, w2b = x.to(f32), w1.to(bf16).to(f32), w2.to(bf16).to(f32)
+    z = torch.matmul(xf, w1b) + b1
+    h = gelu_exact(z)
+    g2 = g.to(f32)
+    if keep2 is not None:
+        g2 = torch.where(keep2.bool(), g2 * inv, 0.0)
+    g2b = g2.to(bf16).to(f32)
+    dh = torch.matmul(g2b, w2b.t())
+    if keep1 is not None:
+        h = torch.where(keep1.bool(), h * inv, 0.0)
+        dh = torch.where(keep1.bool(), dh * inv, 0.0)
+    dz = dh * gelu_grad_exact(z)
+    dzb = dz.to(bf16).to(f32)
+    dx = torch.matmul(dzb, w1b.t()).to(bf16)
+    return (dx, torch.matmul(xf.t(), dzb), dz.sum(0),
+            torch.matmul(h.to(bf16).to(f32).t(), g2b), g2.sum(0))
+
+
 def draw_mlp_masks(seed, T, C, H, rate, device):
     """The plain version's masks: uint8 keep1 [T, H] and keep2 [T, C], 1
     where a 32-bit draw from torch's generator seeded with ``seed`` is >=
@@ -140,8 +203,12 @@ def _lib():
                                                       ctypes.POINTER(ctypes.c_int)]
         lib.focal_mlp_bwd.argtypes = [p] * 9 + [i] * 4 + seed + [p]
         lib.focal_mlp_masks.argtypes = [ctypes.c_ulonglong, ctypes.c_uint] + [i] * 3 + [p] * 3
+        lib.focal_mlp_fwd_bf16.argtypes = lib.focal_mlp_fwd.argtypes
+        lib.focal_mlp_bwd_bf16.argtypes = lib.focal_mlp_bwd.argtypes
+        lib.focal_mlp_workspace_bf16.argtypes = lib.focal_mlp_workspace.argtypes
         for fn in (lib.focal_mlp_fwd, lib.focal_mlp_workspace, lib.focal_mlp_bwd,
-                   lib.focal_mlp_masks):
+                   lib.focal_mlp_masks, lib.focal_mlp_fwd_bf16, lib.focal_mlp_bwd_bf16,
+                   lib.focal_mlp_workspace_bf16):
             fn.restype = ctypes.c_int
         lib.focal_cuda_error_string.argtypes = [i]
         lib.focal_cuda_error_string.restype = ctypes.c_char_p
@@ -159,8 +226,9 @@ def _check(name, t, shape, device, dtype=torch.float32):
         raise ValueError(f"fused_mlp: {name} must be contiguous")
 
 
-def _check_dims(x, w1):
-    """Validate x and w1 for the kernels; returns (T, C, H)."""
+def _check_dims(x, w1, dtype=torch.float32):
+    """Validate x (of ``dtype``: f32, or bf16 for #10-bf16 to #12-bf16) and
+    w1 (f32) for the kernels; returns (T, C, H)."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_mlp: unsupported device {x.device}")
     if x.dim() != 2 or w1.dim() != 2:
@@ -168,10 +236,10 @@ def _check_dims(x, w1):
                          f"{tuple(w1.shape)}")
     T, C = x.shape
     H = w1.shape[1]
-    reason = kernel_refuses(T, C, H)
+    reason = kernel_refuses(T, C, H, dtype)
     if reason:
         raise ValueError(f"fused_mlp: {reason}")
-    _check("x", x, (T, C), x.device)
+    _check("x", x, (T, C), x.device, dtype)
     _check("w1", w1, (C, H), x.device)
     return T, C, H
 
@@ -197,32 +265,38 @@ def _dropout_args(seed, rate):
     return int(seed) % 2**64, _keep_threshold(rate), 1.0 / (1.0 - rate)
 
 
-def mlp_launch_plan(T, C, H, backward, device):
+def mlp_launch_plan(T, C, H, backward, device, dtype=torch.float32):
     """(workspace floats, row chunks) of a #10/#11 call (``backward`` False)
-    or a #12 call at rows T, width C and hidden H on a CUDA ``device``: the
-    kernels' own plan (csrc/fused_mlp.cu). Raises where they have none."""
+    or a #12 call at rows T, width C and hidden H on a CUDA ``device``, or
+    of their bf16 forms (``dtype`` bf16): the kernels' own plan
+    (csrc/fused_mlp.cu). Raises where they have none."""
     lib = _lib()
+    fn = lib.focal_mlp_workspace_bf16 if dtype == torch.bfloat16 else lib.focal_mlp_workspace
     floats, chunks = ctypes.c_longlong(0), ctypes.c_int(0)
     with torch.cuda.device(device):
-        err = lib.focal_mlp_workspace(T, C, H, int(backward), ctypes.byref(floats),
-                                      ctypes.byref(chunks))
+        err = fn(T, C, H, int(backward), ctypes.byref(floats), ctypes.byref(chunks))
     if err != 0:
         raise RuntimeError(f"fused_mlp: no launch plan ({err}): "
                            f"{lib.focal_cuda_error_string(err).decode()}")
     return floats.value, chunks.value
 
 
-def _forward(name, x, w1, b1, w2, b2, dropout, seed, rate):
-    T, C, H = _check_dims(x, w1)
+def _forward(name, x, w1, b1, w2, b2, dropout, seed, rate, bf16=False):
+    """The CUDA path of #10 and #11 (with ``bf16``, #10-bf16 and #11-bf16):
+    validate, size the workspace, launch; returns y."""
+    T, C, H = _check_dims(x, w1, torch.bfloat16 if bf16 else torch.float32)
     dev = x.device
     _check("b1", b1, (H,), dev)
     _check("w2", w2, (H, C), dev)
     _check("b2", b2, (C,), dev)
     _check_aligned(name, x=x, w1=w1, w2=w2)
     seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
-    ws = torch.empty(mlp_launch_plan(T, C, H, False, dev)[0], dtype=torch.float32, device=dev)
+    ws = torch.empty(mlp_launch_plan(T, C, H, False, dev, x.dtype)[0], dtype=torch.float32,
+                     device=dev)
     y = torch.empty_like(x)
-    _launch(name, _lib().focal_mlp_fwd, dev, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+    lib = _lib()
+    _launch(name, lib.focal_mlp_fwd_bf16 if bf16 else lib.focal_mlp_fwd, dev, x.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(),
             w2.data_ptr(), b2.data_ptr(), y.data_ptr(), ws.data_ptr(), T, C, H, int(dropout),
             seed_, thr, inv)
     return y
@@ -279,22 +353,36 @@ def fused_mlp_backward(x, w1, b1, w1_t, w2_t, g, seed=None, rate=0.0):
             keep1, keep2 = draw_mlp_masks(seed, x.shape[0], x.shape[1], w1.shape[1], rate, x.device)
         b2 = torch.zeros(x.shape[1], dtype=x.dtype)  # y's bias: no part in the gradients
         return fused_mlp_backward_reference(x, w1, b1, w2_t.t(), b2, g, keep1, keep2, rate)
-    T, C, H = _check_dims(x, w1)
+    grads = _backward("fused_mlp_backward", x, w1, b1, w1_t, w2_t, g, seed, rate)
+    fused_mlp_backward.launches += 1
+    return grads
+
+
+fused_mlp_backward.launches = 0
+
+
+def _backward(name, x, w1, b1, w1_t, w2_t, g, seed, rate, bf16=False):
+    """The CUDA path of #12 (with ``bf16``, #12-bf16): validate, size the
+    workspace, launch, and split the flat weight gradients."""
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    T, C, H = _check_dims(x, w1, dtype)
     dev = x.device
     _check("b1", b1, (H,), dev)
     _check("w1_t", w1_t, (H, C), dev)
     _check("w2_t", w2_t, (C, H), dev)
-    _check("g", g, (T, C), dev)
-    _check_aligned("fused_mlp_backward", x=x, w1=w1, w1_t=w1_t, w2_t=w2_t, g=g)
+    _check("g", g, (T, C), dev, dtype)
+    _check_aligned(name, x=x, w1=w1, w1_t=w1_t, w2_t=w2_t, g=g)
     dropout = seed is not None
     seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
-    ws = torch.empty(mlp_launch_plan(T, C, H, True, dev)[0], dtype=torch.float32, device=dev)
+    ws = torch.empty(mlp_launch_plan(T, C, H, True, dev, dtype)[0], dtype=torch.float32,
+                     device=dev)
     dx = torch.empty_like(x)
     dweights = torch.empty(2 * C * H + H + C, dtype=torch.float32, device=dev)
-    _launch("fused_mlp_backward", _lib().focal_mlp_bwd, dev, x.data_ptr(), w1.data_ptr(),
-            b1.data_ptr(), w1_t.data_ptr(), w2_t.data_ptr(), g.data_ptr(), dx.data_ptr(),
-            dweights.data_ptr(), ws.data_ptr(), T, C, H, int(dropout), seed_, thr, inv)
-    fused_mlp_backward.launches += 1
+    lib = _lib()
+    _launch(name, lib.focal_mlp_bwd_bf16 if bf16 else lib.focal_mlp_bwd, dev, x.data_ptr(),
+            w1.data_ptr(), b1.data_ptr(), w1_t.data_ptr(), w2_t.data_ptr(), g.data_ptr(),
+            dx.data_ptr(), dweights.data_ptr(), ws.data_ptr(), T, C, H, int(dropout), seed_, thr,
+            inv)
     dw1 = dweights[:C * H].view(C, H)
     db1 = dweights[C * H:C * H + H]
     dw2 = dweights[C * H + H:2 * C * H + H].view(H, C)
@@ -302,7 +390,63 @@ def fused_mlp_backward(x, w1, b1, w1_t, w2_t, g, seed=None, rate=0.0):
     return dx, dw1, db1, dw2, db2
 
 
-fused_mlp_backward.launches = 0
+def fused_mlp_forward_bf16(x, w1, b1, w2, b2):
+    """#10-bf16: #10's function on a bf16 x [T, C] with the f32 w1 [C, H],
+    b1, w2 [H, C] and b2 as they lie (rounded to bf16 as the kernel stages
+    them); returns bf16 y. C and H multiples of 8. On the card: h = GELU(x
+    W1 + b1) in f32 stored as bf16, y = h W2 + b2 in f32 stored as bf16,
+    the products on the bf16 tensor cores. Replaces
+    focal_tpu/ops/pallas_kernels.py::_mlp_fwd_impl (_mlp_fwd_kernel) fed
+    bf16. CPU tensors take fused_mlp_bf16_reference."""
+    if x.device.type == "cpu":
+        return fused_mlp_bf16_reference(x, w1, b1, w2, b2)
+    y = _forward("fused_mlp_forward_bf16", x, w1, b1, w2, b2, False, 0, 0.0, bf16=True)
+    fused_mlp_forward_bf16.launches += 1
+    return y
+
+
+fused_mlp_forward_bf16.launches = 0
+
+
+def fused_mlp_dropout_forward_bf16(x, w1, b1, w2, b2, seed, rate):
+    """#11-bf16: #10-bf16 with both dropouts, the masks #11 draws for the
+    same seed (``mlp_keep_masks``). Replaces
+    focal_tpu/ops/pallas_kernels.py::_mlp_fwd_impl with a seed
+    (_mlp_fwd_dropout_kernel) fed bf16. On the CPU the masks come from
+    draw_mlp_masks and y from fused_mlp_bf16_reference."""
+    if x.device.type == "cpu":
+        T, C = x.shape
+        keep1, keep2 = draw_mlp_masks(seed, T, C, w1.shape[1], rate, x.device)
+        return fused_mlp_bf16_reference(x, w1, b1, w2, b2, keep1, keep2, rate)
+    y = _forward("fused_mlp_dropout_forward_bf16", x, w1, b1, w2, b2, True, seed, rate, bf16=True)
+    fused_mlp_dropout_forward_bf16.launches += 1
+    return y
+
+
+fused_mlp_dropout_forward_bf16.launches = 0
+
+
+def fused_mlp_backward_bf16(x, w1, b1, w1_t, w2_t, g, seed=None, rate=0.0):
+    """#12-bf16: fused_mlp_backward's arguments with a bf16 x and g (the
+    weights f32); returns (dx bf16, dw1, db1, dw2, db2 f32), the weight
+    gradients fixed-order sums: two calls give the same bits. On the card:
+    z and dh = g2 W2^T in one launch, dz in f32 (db1 sums it) rounded to
+    bf16 as dx = dz W1^T and dW1 = x^T dz stage it, dW2 = h^T g2 with h and
+    g2 rounded as staged. Replaces focal_tpu/ops/pallas_kernels.py::
+    _mlp_bwd_impl (_mlp_bwd_kernel, _mlp_bwd_dropout_kernel) fed bf16. CPU
+    tensors take fused_mlp_backward_bf16_reference, with draw_mlp_masks'
+    masks for a seed."""
+    if x.device.type == "cpu":
+        keep1 = keep2 = None
+        if seed is not None:
+            keep1, keep2 = draw_mlp_masks(seed, x.shape[0], x.shape[1], w1.shape[1], rate, x.device)
+        return fused_mlp_backward_bf16_reference(x, w1, b1, w2_t.t(), None, g, keep1, keep2, rate)
+    grads = _backward("fused_mlp_backward_bf16", x, w1, b1, w1_t, w2_t, g, seed, rate, bf16=True)
+    fused_mlp_backward_bf16.launches += 1
+    return grads
+
+
+fused_mlp_backward_bf16.launches = 0
 
 
 def mlp_keep_masks(seed, T, C, H, rate, device):
@@ -350,6 +494,41 @@ class _FusedMlp(torch.autograd.Function):
         return (*grads, None, None, None, None)
 
 
+class _FusedMlpBf16(torch.autograd.Function):
+    """#10-bf16 (seed None) or #11-bf16 forward and #12-bf16 backward, or
+    with ``plain`` their plain versions (the masks from draw_mlp_masks). The
+    f32 weights go to the kernels as they lie, so their gradients leave in
+    f32 unrounded, as the JAX package's VJP hands them to the f32
+    parameters; dx leaves in bf16."""
+
+    @staticmethod
+    def forward(ctx, x, w1, b1, w2, b2, seed, rate, w1_t, w2_t, plain):
+        keep1 = keep2 = None
+        if plain:
+            if seed is not None:
+                keep1, keep2 = draw_mlp_masks(seed, x.shape[0], x.shape[1], w1.shape[1], rate,
+                                              x.device)
+            y = fused_mlp_bf16_reference(x, w1, b1, w2, b2, keep1, keep2, rate)
+        elif seed is None:
+            y = fused_mlp_forward_bf16(x, w1, b1, w2, b2)
+        else:
+            y = fused_mlp_dropout_forward_bf16(x, w1, b1, w2, b2, seed, rate)
+        ctx.save_for_backward(x, w1, b1, w2, w1_t, w2_t, keep1, keep2)
+        ctx.seed, ctx.rate, ctx.plain = seed, rate, plain
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w1, b1, w2, w1_t, w2_t, keep1, keep2 = ctx.saved_tensors
+        if ctx.plain:
+            grads = fused_mlp_backward_bf16_reference(x, w1, b1, w2, None, g, keep1, keep2,
+                                                      ctx.rate)
+        else:
+            grads = fused_mlp_backward_bf16(x, w1, b1, w1_t, w2_t, g.contiguous(), ctx.seed,
+                                            ctx.rate)
+        return (*grads, None, None, None, None, None)
+
+
 def _transposes(w1, w2, w1_t, w2_t):
     return (w1.t().contiguous() if w1_t is None else w1_t,
             w2.t().contiguous() if w2_t is None else w2_t)
@@ -360,18 +539,35 @@ def fused_mlp(x, w1, b1, w2, b2, w1_t=None, w2_t=None):
     gradients in x, w1, b1, w2 and b2. ``w1_t`` [H, C] and ``w2_t`` [C, H],
     when given, are w1 and w2 transposed (nn.Linear's weights), which #12
     reads; else the wrapper makes them. On the CPU: the plain version under
-    autograd."""
+    autograd. A bf16 x takes #10-bf16 and #12-bf16 (``_FusedMlpBf16``; on
+    the CPU their plain versions)."""
+    if x.dtype == torch.bfloat16:
+        return _FusedMlpBf16.apply(x, w1, b1, w2, b2, None, 0.0, *_transposes(w1, w2, w1_t, w2_t),
+                                   x.device.type == "cpu")
     if x.device.type == "cpu":
         return fused_mlp_reference(x, w1, b1, w2, b2)
     w1_t, w2_t = _transposes(w1, w2, w1_t, w2_t)
     return _FusedMlp.apply(x, w1, b1, w2, b2, None, 0.0, w1_t, w2_t)
 
 
+def fused_mlp_plain(x, w1, b1, w2, b2, w1_t=None, w2_t=None):
+    """Plain version of fused_mlp on any device, with its arguments (the
+    transposed weights go unread): autograd through fused_mlp_reference, or
+    for a bf16 x the bf16 plain pair (``_FusedMlpBf16`` with ``plain``)."""
+    if x.dtype == torch.bfloat16:
+        return _FusedMlpBf16.apply(x, w1, b1, w2, b2, None, 0.0, None, None, True)
+    return fused_mlp_reference(x, w1, b1, w2, b2)
+
+
 def fused_mlp_dropout(x, w1, b1, w2, b2, seed, rate, w1_t=None, w2_t=None):
     """fused_mlp with dropout after the GELU and after fc2 (the rate of the
     Swin Mlp, one mask each): forward #11, backward #12 with the masks of
     ``seed`` drawn again. On the CPU: the plain version with
-    draw_mlp_masks' masks, under autograd."""
+    draw_mlp_masks' masks, under autograd. A bf16 x takes #11-bf16 and
+    #12-bf16 (``_FusedMlpBf16``)."""
+    if x.dtype == torch.bfloat16:
+        return _FusedMlpBf16.apply(x, w1, b1, w2, b2, int(seed), float(rate),
+                                   *_transposes(w1, w2, w1_t, w2_t), x.device.type == "cpu")
     if x.device.type == "cpu":
         keep1, keep2 = draw_mlp_masks(seed, x.shape[0], x.shape[1], w1.shape[1], rate, x.device)
         return fused_mlp_dropout_reference(x, w1, b1, w2, b2, keep1, keep2, rate)

@@ -28,8 +28,11 @@ The bf16 forms (``-compute_dtype bfloat16``): ``fused_window_block_bf16``
 ``fused_window_block_backward_bf16`` (#3-bf16) take bf16 x, weights and dy
 and give bf16 y and dx, the products on the bf16 tensor cores, rounding
 where the JAX package's kernel does when it is fed bf16 (see
-``fused_window_block_bf16_reference``). The routes take them for a bf16
-x; a bf16 block that ``wblock_fits`` sends to #4/#5 raises (ROADMAP A6).
+``fused_window_block_bf16_reference``); ``fused_window_block_perhead_bf16``
+(#4-bf16) and ``fused_window_block_perhead_backward_bf16`` (#5-bf16) are
+the same for the blocks that ``wblock_fits`` sends to #4/#5, whose JAX
+kernels fed bf16 round at the same points. The routes take them for a bf16
+x, by ``wblock_fits`` as in f32.
 
 Attention-only kernels (``csrc/window_attention.cu``), the route of the
 CLI's ``-no_pallas_block``: softmax(q k^T + bias) v on q, k, v [B_, H, N,
@@ -72,17 +75,18 @@ def wblock_fits(N, C, H):
     return 4 * (N * (8 * C + 10) + 2 * H * N * N) <= _MONO_BWD_BUDGET
 
 
-def wblock_takes(N, C, H):
-    """Whether the whole-block kernels (#1-#5, csrc/window_block.cu) take
-    window size N, width C and H heads: N <= 16, C a multiple of 4 (the
-    projections stage rows 16 bytes at a time) and of H, and one (window,
-    head) pair's rows in the backward's attention within a block's shared
-    memory (attn_geo; heads up to ~1,500 floats at N = 9). The block's
-    route: where not, it takes the attention-only route, as with
-    ``-no_pallas_block``. The JAX package runs a whole-block kernel at such
-    widths (C not a multiple of 4 among them), a difference from it that no
-    packaged recipe meets."""
-    if not 1 <= N <= _MAX_N or C < 4 or C % 4 or C % H:
+def wblock_takes(N, C, H, dtype=torch.float32):
+    """Whether the whole-block kernels (#1-#5, csrc/window_block.cu), or
+    with ``dtype`` bf16 their bf16 forms, take window size N, width C and H
+    heads: N <= 16, C a multiple of 4 (the projections stage rows 16 bytes
+    at a time; of 8 in bf16) and of H, and one (window, head) pair's rows in
+    the backward's attention within a block's shared memory (attn_geo;
+    heads up to ~1,500 floats at N = 9). The block's route: where not, it
+    takes the attention-only route, as with ``-no_pallas_block``. The JAX
+    package runs a whole-block kernel at such widths (C not a multiple of 4
+    among them), a difference from it that no packaged recipe meets."""
+    mult = 8 if dtype == torch.bfloat16 else 4
+    if not 1 <= N <= _MAX_N or C < mult or C % mult or C % H:
         return False
     stride = 4 * ((C // H + 3) // 4) + 4  # a head's row in shared memory (window_rows.cuh)
     return 4 * (4 * N * stride + (2 + H) * N * N) <= _SMEM_OPTIN
@@ -558,14 +562,15 @@ gemm_3xtf32.launches = 0
 
 def window_block_forward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
     """The eval forward, routed: #1 where ``wblock_fits``, else #4 at rate 0;
-    a bf16 x takes #1-bf16 (its weights rounded to bf16 where they come in
-    f32) and raises where #4 would run. Arguments and result as
-    fused_window_block."""
+    a bf16 x takes #1-bf16 or #4-bf16 alike (its weights rounded to bf16
+    where they come in f32). Arguments and result as fused_window_block."""
+    fits = wblock_fits(x.shape[1], x.shape[2], rel_bias.shape[0])
     if x.dtype == torch.bfloat16:
-        _bf16_fits(x, rel_bias)
-        return fused_window_block_bf16(x, wqkv.to(x.dtype), bqkv, wproj.to(x.dtype), bproj,
-                                       rel_bias, mask)
-    if wblock_fits(x.shape[1], x.shape[2], rel_bias.shape[0]):
+        wq, wp = wqkv.to(x.dtype), wproj.to(x.dtype)
+        if fits:
+            return fused_window_block_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask)
+        return fused_window_block_perhead_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask)[0]
+    if fits:
         return fused_window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
     return fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask)[0]
 
@@ -611,8 +616,8 @@ def window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=
     bproj and rel_bias. ``wqkv_t`` and ``wproj_t``, when given, are the same
     weights transposed, which #3 and #5 read (see
     fused_window_block_backward). A bf16 x takes #2-bf16 (or #1-bf16) and
-    #3-bf16 (``_WindowBlockBf16``: f32 weights rounded inside, their
-    gradients f32), and raises where #4/#5 would run."""
+    #3-bf16, or #4-bf16 and #5-bf16, by the same gate (``_WindowBlockBf16``:
+    f32 weights rounded inside, their gradients f32)."""
     if x.dtype == torch.bfloat16:
         return _WindowBlockBf16.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed,
                                       float(rate), wqkv_t, wproj_t, False)
@@ -638,17 +643,7 @@ def window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, see
 
 
 # ---------------------------------------------------------------------------
-# the bf16 forms of the whole-block kernels (#1-bf16, #2-bf16, #3-bf16)
-
-
-def _bf16_fits(x, rel_bias):
-    """Raise where a bf16 block would go to #4/#5, whose bf16 forms are not
-    ported."""
-    N, C, H = x.shape[1], x.shape[2], rel_bias.shape[0]
-    if not wblock_fits(N, C, H):
-        raise NotImplementedError(
-            f"bf16 window block at N={N} C={C} H={H} goes to the per-head kernels #4/#5, whose "
-            "bf16 forms are not ported yet: ROADMAP A6")
+# the bf16 forms of the whole-block kernels (#1-bf16 to #5-bf16)
 
 
 def fused_window_block_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
@@ -729,8 +724,67 @@ def fused_window_block_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask
 fused_window_block_backward_bf16.launches = 0
 
 
+def fused_window_block_perhead_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
+                                    rate=0.0):
+    """#4 in bf16 (#4-bf16): the function of #1-bf16 (rate 0) or #2-bf16
+    (rate > 0) for the blocks that ``wblock_fits`` sends away from them,
+    computed as #2-bf16 computes it (the same CUDA code: the products on the
+    bf16 tensor cores over all B_ N rows, the attention per (window, head)
+    in f32, ao rounded to bf16 before the output projection). Arguments as
+    fused_window_block_dropout_bf16; returns (y bf16, keep uint8 [B_, H, N,
+    N], or None at rate 0), the mask #2's for the same seed and geometry.
+
+    The JAX per-head kernel fed bf16 rounds where the whole-block one does
+    (y and dx summed over the heads in f32, then stored as bf16), so its
+    plain version is fused_window_block_bf16_reference.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_fwd_impl
+    (_wblock_ph_fwd_kernel) fed bf16. CPU tensors take the plain version,
+    with draw_keep_mask's mask at rate > 0.
+    """
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"fused_window_block_perhead_bf16: rate must be in [0, 1), got {rate}")
+    if x.device.type == "cpu":
+        keep = None
+        if rate > 0.0:
+            B, N, _ = x.shape
+            keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+        return fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
+                                                 rate), keep
+    y, keep = _launch_forward("fused_window_block_perhead_bf16", x, wqkv, bqkv, wproj, bproj,
+                              rel_bias, mask, seed, rate, bf16=True)
+    fused_window_block_perhead_bf16.launches += 1
+    return y, keep
+
+
+fused_window_block_perhead_bf16.launches = 0
+
+
+def fused_window_block_perhead_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+                                             keep=None, rate=0.0, wqkv_t=None, wproj_t=None):
+    """VJP of #4-bf16 (#5-bf16), computed as #3-bf16 computes it:
+    fused_window_block_backward_bf16's arguments and results; ``keep`` is
+    #4-bf16's mask. Two calls give the same bits.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_bwd_impl
+    (_wblock_ph_bwd_kernel) fed bf16. CPU tensors take
+    fused_window_block_backward_bf16_reference.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                                          mask, dy, keep, rate)
+    grads = _launch_backward("fused_window_block_perhead_backward_bf16", x, wqkv, bqkv, wproj,
+                             bproj, rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t, bf16=True)
+    fused_window_block_perhead_backward_bf16.launches += 1
+    return grads
+
+
+fused_window_block_perhead_backward_bf16.launches = 0
+
+
 class _WindowBlockBf16(torch.autograd.Function):
-    """#2-bf16 (or #1-bf16 at rate 0) forward and #3-bf16 backward, or with
+    """#2-bf16 (or #1-bf16 at rate 0) forward and #3-bf16 backward where
+    ``wblock_fits``, else #4-bf16 forward and #5-bf16 backward, or with
     ``plain`` their plain versions (the mask from draw_keep_mask). The
     weights come in f32 and are rounded to bf16 here, so their gradients
     leave in f32 unrounded, as the JAX package's VJP hands them to the f32
@@ -739,15 +793,18 @@ class _WindowBlockBf16(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, wqkv_t, wproj_t,
                 plain):
-        _bf16_fits(x, rel_bias)
         bf16 = torch.bfloat16
         wq, wp = wqkv.to(bf16), wproj.to(bf16)
         keep = None
+        ctx.mono = wblock_fits(x.shape[1], x.shape[2], rel_bias.shape[0])
         if plain:
             if rate > 0.0:
                 B, N, _ = x.shape
                 keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
             y = fused_window_block_bf16_reference(x, wq, bqkv, wp, bproj, rel_bias, mask, keep, rate)
+        elif not ctx.mono:
+            y, keep = fused_window_block_perhead_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask, seed,
+                                                      rate)
         elif rate > 0.0:
             y, keep = fused_window_block_dropout_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask, seed,
                                                       rate)
@@ -766,8 +823,10 @@ class _WindowBlockBf16(torch.autograd.Function):
             grads = fused_window_block_backward_bf16_reference(x, wq, bqkv, wp, bproj, rel_bias,
                                                                mask, dy, keep, ctx.rate)
         else:
-            grads = fused_window_block_backward_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask,
-                                                     dy.contiguous(), keep, ctx.rate, wq_t, wp_t)
+            backward = (fused_window_block_backward_bf16 if ctx.mono
+                        else fused_window_block_perhead_backward_bf16)
+            grads = backward(x, wq, bqkv, wp, bproj, rel_bias, mask, dy.contiguous(), keep,
+                             ctx.rate, wq_t, wp_t)
         return (*grads, None, None, None, None, None, None)
 
 

@@ -1,7 +1,9 @@
 """``-compute_dtype`` in the port: the flag in every parser and in
 ``Predictor``, the f32 default, the entry points at bf16 on the CPU (both
-backbones), and the routes whose bf16 forms are not ported, which raise
-NotImplementedError naming ROADMAP A6 instead of running f32.
+backbones), the bf16 routes ported since (DeepSense, ``-pallas_mlp``,
+MOD_WIDE's per-head blocks), and the routes whose bf16 forms are not
+ported, which raise NotImplementedError naming ROADMAP A6 instead of
+running f32.
 """
 
 import logging
@@ -57,26 +59,63 @@ def test_the_default_builds_the_f32_model():
     ("SW_Transformer", {"pallas_mlp": True}, "-pallas_mlp"),
     ("SW_Transformer", {"pallas_block": False}, "-no_pallas_block"),
 ])
-def test_unported_routes_refuse_bf16(model, kwargs, what):
-    """-pallas_mlp and -no_pallas_block raise in bf16. DeepSense, ported in
-    bf16 since (ROADMAP A6.1), builds instead: every layer in bf16 over f32
-    parameters."""
+def test_unported_routes_refuse_bf16(model, kwargs, what, monkeypatch):
+    """-no_pallas_block raises in bf16. DeepSense (ROADMAP A6.1) and
+    -pallas_mlp (A6.3), ported in bf16 since, build instead: every layer in
+    bf16 over f32 parameters; the -pallas_mlp backbone runs a forward and a
+    backward with every Swin block's MLP, in every stage, on the fused bf16
+    route (its plain pair here)."""
     cfg = load_dataset_config("MOD_TINY")
-    if model == "DeepSense":
+    if model == "DeepSense" or kwargs.get("pallas_mlp"):
         net = build_backbone(cfg, model, TASK, compute_dtype="bfloat16", **kwargs)
         assert {m.compute_dtype for m in net.modules()
                 if hasattr(m, "compute_dtype")} == {torch.bfloat16}
         assert all(p.dtype == torch.float32 for p in net.parameters())
+        if model == "DeepSense":
+            return
+        from focal_tpu_torch.ops import fused_mlp as fm
+
+        mlps = [m for m in net.modules() if isinstance(m, swin.Mlp)]
+        assert mlps and all(m.fused for m in mlps)
+        runs = []
+        real = fm._FusedMlpBf16.apply
+        monkeypatch.setattr(fm._FusedMlpBf16, "apply",
+                            lambda *a: runs.append(a[0].shape[-1]) or real(*a))
+        rng = np.random.default_rng(0)
+        batch = {loc: {mod: torch.from_numpy(rng.normal(size=(
+            3, 2 * cfg["loc_mod_in_time_channels"][loc][mod], cfg["num_segments"],
+            cfg["loc_mod_spectrum_len"][loc][mod])).astype(np.float32))
+            for mod in cfg["modality_names"]} for loc in cfg["location_names"]}
+        from focal_tpu_torch.ops.dropout import StepRngs
+
+        rngs = StepRngs(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
+        logits = net.train()(batch, rng=rngs)  # dropout: #11-bf16's plain version
+        assert len(runs) == len(mlps)
+        assert sorted(set(runs)) == sorted({m.Dense_0.in_features for m in mlps})
+        logits.float().sum().backward()
+        assert all(m.Dense_0.weight.grad is not None and m.Dense_0.weight.grad.dtype == torch.float32
+                   for m in mlps)
         return
     with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A6"):
         build_backbone(cfg, model, TASK, compute_dtype="bfloat16", **kwargs)
 
 
 def test_blocks_of_the_per_head_kernels_refuse_bf16():
-    """MOD_WIDE's stages 1 and 2 (C 512, 1024) go to #4/#5."""
-    with pytest.raises(NotImplementedError, match="#4/#5.*ROADMAP A6"):
-        build_backbone(load_dataset_config("MOD_WIDE"), "SW_Transformer", TASK,
-                       compute_dtype="bfloat16")
+    """MOD_WIDE's stages 1 and 2 (C 512, 1024) go to #4/#5, whose bf16
+    forms (#4-bf16, #5-bf16) are ported since (ROADMAP A6.3): the bf16
+    MOD_WIDE SW_Transformer builds (on the meta device, its 184M parameters
+    unallocated), with and without -pallas_mlp, and no block refuses."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    for kwargs in ({}, {"pallas_mlp": True}):
+        with torch.device("meta"):
+            net = build_backbone(load_dataset_config("MOD_WIDE"), "SW_Transformer", TASK,
+                                 compute_dtype="bfloat16", **kwargs)
+        attns = [m for m in net.modules() if isinstance(m, swin.WindowAttention)]
+        perhead = {m.dim for m in attns
+                   if not pk.wblock_fits(m.window_size[0] * m.window_size[1], m.dim, m.num_heads)}
+        assert perhead == {512, 1024}
+        assert all(m.compute_dtype == torch.bfloat16 for m in attns)
 
 
 @pytest.mark.parametrize("dim,heads", [(12, 2), (20, 4)], ids=["C12", "C20"])

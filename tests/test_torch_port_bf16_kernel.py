@@ -180,17 +180,30 @@ def test_bf16_window_block_gradients_reach_f32_weights_unrounded(rate):
 
 def test_bf16_routes_refuse_the_per_head_geometries():
     """A bf16 block that wblock_fits sends to #4/#5 (MOD_WIDE's C 512 and
-    1024) raises NotImplementedError naming ROADMAP A6, in eval and in
-    training; it does not run f32."""
-    N, C, H = 9, 512, 4
-    assert not pk.wblock_fits(N, C, H)
-    x = torch.zeros(2, N, C, dtype=torch.bfloat16)
-    w = (torch.zeros(C, 3 * C), torch.zeros(3 * C), torch.zeros(C, C), torch.zeros(C),
-         torch.zeros(H, N, N))
-    with pytest.raises(NotImplementedError, match="A6"):
-        pk.window_block_forward(x, *w)
-    with pytest.raises(NotImplementedError, match="A6"):
-        pk.window_block(x, *w)
+    1024) no longer refuses: it takes #4-bf16 and #5-bf16 (ROADMAP A6.3),
+    in eval and in training, and gives what their plain versions (the bf16
+    plain versions of #1-#3) give, in bf16, its f32 weights' gradients f32;
+    nothing runs f32."""
+    N, H = 9, 4
+    for C in (512, 1024):
+        assert not pk.wblock_fits(N, C, H)
+        rng = np.random.default_rng(C)
+        x = torch.from_numpy(rng.normal(size=(2, N, C)).astype(np.float32)).to(torch.bfloat16)
+        w = [torch.from_numpy((rng.normal(size=s) * k).astype(np.float32)) for s, k in
+             (((C, 3 * C), C**-0.5), ((3 * C,), 0.1), ((C, C), C**-0.5), ((C,), 0.1),
+              ((H, N, N), 0.02))]
+        wb = (w[0].to(torch.bfloat16), w[1], w[2].to(torch.bfloat16), w[3], w[4])
+        want = pk.fused_window_block_bf16_reference(x, *wb)
+        assert torch.equal(pk.window_block_forward(x, *w), want)
+        leaves = [x.clone().requires_grad_(True)] + [t.clone().requires_grad_(True) for t in w]
+        y = pk.window_block(*leaves)
+        assert y.dtype == torch.bfloat16 and torch.equal(y.detach(), want)
+        dy = torch.ones_like(y)
+        grads = torch.autograd.grad(y, leaves, dy)
+        ref = pk.fused_window_block_backward_bf16_reference(x, *wb, None, dy)
+        assert grads[0].dtype == torch.bfloat16
+        for g, r in zip(grads, ref):
+            assert g.dtype == r.dtype and torch.equal(g, r)
 
 
 def test_bf16_fold_rounds_after_the_q_scale_and_refolds_on_change():

@@ -892,8 +892,9 @@ def test_every_width_a_gate_admits_has_a_launch_plan():
     window block's gate refuses only where they do: the MLP at every C
     (H = 4C and 2C), the conv tower at every C it routes, the whole-block
     kernels at every (C, H) from 4 to 2,048 columns a head, the
-    attention-only kernels at every head width. Plans only: nothing
-    launches."""
+    attention-only kernels at every head width; the bf16 MLP gate and the
+    bf16 whole-block gate (#1-bf16 to #5-bf16) exactly where the bf16
+    kernels plan. Plans only: nothing launches."""
     from focal_tpu_torch.ops import conv_tower as ct
     from focal_tpu_torch.ops import fused_mlp as fm
     from focal_tpu_torch.ops import pallas_kernels as pk
@@ -918,6 +919,29 @@ def test_every_width_a_gate_admits_has_a_launch_plan():
             ok = ok and lib.focal_wblock_fwd_workspace(7, 9, C, H, pk.ctypes.byref(
                 pk.ctypes.c_longlong(0))) == 0
             assert ok == pk.wblock_takes(9, C, H), (C, H)
+    for C in range(1, 480):
+        for H in (2 * C, 4 * C):
+            if fm.mlp_fits(C, H):
+                ok = True
+                for backward in (False, True):
+                    try:
+                        fm.mlp_launch_plan(8192, C, H, backward, dev, torch.bfloat16)
+                    except RuntimeError:
+                        ok = False
+                assert ok == fm.mlp_takes(C, H, torch.bfloat16), (C, H)
+    null = [None] * 10
+    for H in (1, 2, 4):
+        for hd in list(range(1, 64)) + list(range(64, 2049, 16)):
+            C = H * hd
+            ok = all(lib.focal_wblock_bwd_workspace(7, 9, C, H, d, pk.ctypes.byref(
+                pk.ctypes.c_longlong(0))) == 0 for d in (0, 1))
+            ok = ok and lib.focal_wblock_fwd_workspace(7, 9, C, H, pk.ctypes.byref(
+                pk.ctypes.c_longlong(0))) == 0
+            # zero windows: the bf16 entry points check the geometry and launch nothing
+            ok = ok and lib.focal_wblock_fwd_bf16(*null, 0, 9, C, H, 1, 0, 0, 1.0, None) == 0
+            ok = ok and lib.focal_wblock_bwd_bf16(*null[:9], 1.0, *null[:4], 0, 9, C, H, 1,
+                                                  None) == 0
+            assert ok == pk.wblock_takes(9, C, H, torch.bfloat16), (C, H)
     alib = pk._window_attention_lib()
     for hd in range(1, 300):
         ok = all(alib.focal_wattn_bwd_workspace(37, 4, 9, hd, d, pk.ctypes.byref(
@@ -1381,8 +1405,8 @@ def test_bf16_backward_matches_plain_and_repeats_bitwise(C, nW, rate):
 def test_bf16_window_block_on_card_launches_the_bf16_kernels_only():
     """window_block at rate 0 on a bf16 x with f32 weights: #1-bf16
     forward, #3-bf16 backward, no f32 kernel; gradients of the f32 weights
-    in f32 within 1e-2 of the plain stand-in's; bf16 at a per-head width
-    raises."""
+    in f32 within 1e-2 of the plain stand-in's; the eval route at a
+    per-head width launches #4-bf16."""
     from focal_tpu_torch.ops import pallas_kernels as pk
 
     dev = _card()
@@ -1404,8 +1428,10 @@ def test_bf16_window_block_on_card_launches_the_bf16_kernels_only():
     for g, w in zip(*runs):
         assert g.dtype == w.dtype and _rel(g, w) <= 1e-2
     wide = _args(rng, 8, 9, 512, 4, 0, dev)
-    with pytest.raises(NotImplementedError):
-        pk.window_block_forward(wide[0].to(torch.bfloat16), *wide[1:])
+    before = pk.fused_window_block_perhead_bf16.launches
+    y = pk.window_block_forward(wide[0].to(torch.bfloat16), *wide[1:])
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and pk.fused_window_block_perhead_bf16.launches == before + 1
 
 
 @pytest.mark.gpu
@@ -1573,3 +1599,205 @@ def test_conv_tower_bf16_workspaces_and_refusals():
     with pytest.raises(TypeError):
         ct.tower_forward(x0.detach().to(torch.bfloat16), cfgs, *[[t.detach() for t in g]
                                                                   for g in params], masks, False)
+
+
+# ---------------------------------------------------------------------------
+# the per-head kernels' bf16 forms (#4-bf16, #5-bf16) at MOD_WIDE's per-head
+# widths (C 512, hd 128; C 1024, hd 256; 4 heads) and the fused MLP's (#10-
+# bf16 to #12-bf16) at MOD's C 64/128/256 and MOD_WIDE stage 0 (C 256 at
+# the audio stage's 73,728 rows: three row chunks), against their bf16 plain
+# versions on the same bf16 inputs: y within 8e-3 of max|y|, every gradient
+# within 1e-2 relative, the same bits on a second call; the masks #2's (#4-
+# bf16) and #11's (#11-bf16, #12-bf16).
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B", [37, 131])
+@pytest.mark.parametrize("C", [512, 1024])
+@pytest.mark.parametrize("nW,rate", [(0, 0.0), (4, 0.2)])
+def test_perhead_bf16_matches_plain_and_repeats_bitwise(B, C, nW, rate):
+    """#4-bf16 (its mask #2's for the same seed; keep rate within 5 sigma)
+    and #5-bf16 with that mask against the bf16 plain versions; one launch
+    counted a call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    N, H = 9, 4
+    rng = np.random.default_rng(C + nW + B + 7)
+    args = _bf16_args(rng, B, N, C, H, nW, dev)
+    dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    before = (pk.fused_window_block_perhead_bf16.launches,
+              pk.fused_window_block_perhead_backward_bf16.launches)
+    y, keep = pk.fused_window_block_perhead_bf16(*args, seed=31, rate=rate)
+    tr = (args[1].t().contiguous(), args[3].t().contiguous())
+    got = pk.fused_window_block_perhead_backward_bf16(*args, dy, keep, rate, *tr)
+    again = pk.fused_window_block_perhead_backward_bf16(*args, dy, keep, rate, *tr)
+    torch.cuda.synchronize()
+    assert (pk.fused_window_block_perhead_bf16.launches,
+            pk.fused_window_block_perhead_backward_bf16.launches) == (before[0] + 1, before[1] + 2)
+    assert y.dtype == torch.bfloat16
+    assert _rel(y, pk.fused_window_block_bf16_reference(*args, keep, rate)) <= 8e-3
+    if rate:
+        kept = float(keep.double().mean())
+        assert abs(kept - 0.8) <= 5 * (0.16 / keep.numel()) ** 0.5
+        f32 = [a.float() if a is not None and a.dtype == torch.bfloat16 else a for a in args]
+        assert torch.equal(pk.fused_window_block_dropout(*f32, 31, rate)[1], keep)
+    else:
+        assert keep is None
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    want = pk.fused_window_block_backward_bf16_reference(*args, dy, keep, rate)
+    for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got, want):
+        assert _rel(g, w) <= 1e-2, (name, _rel(g, w))
+
+
+@pytest.mark.gpu
+def test_window_block_bf16_routes_wide_blocks_to_the_perhead_bf16_kernels():
+    """At C 512 in bf16 the autograd pair launches #4-bf16 and #5-bf16 and
+    no other whole-block kernel; the f32 weights' gradients in f32 within
+    1e-2 of the plain stand-in's."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(13)
+    args = _args(rng, 40, 9, 512, 4, 4, dev)
+    kernels = (pk.fused_window_block_dropout, pk.fused_window_block_backward,
+               pk.fused_window_block_perhead, pk.fused_window_block_perhead_backward,
+               pk.fused_window_block_bf16, pk.fused_window_block_dropout_bf16,
+               pk.fused_window_block_backward_bf16, pk.fused_window_block_perhead_bf16,
+               pk.fused_window_block_perhead_backward_bf16)
+    before = [k.launches for k in kernels]
+    runs = []
+    for fn in (pk.window_block, pk.window_block_reference):
+        leaves = [args[0].to(torch.bfloat16).requires_grad_(True)] + [
+            a.clone().requires_grad_(True) for a in args[1:6]]
+        y = fn(*leaves, args[6], seed=3, rate=0.0)
+        runs.append(torch.autograd.grad(y.float().square().sum(), leaves))
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 0, 0, 0, 0, 0, 1, 1]
+    for g, w in zip(*runs):
+        assert g.dtype == w.dtype and _rel(g, w) <= 1e-2
+
+
+def _mlp_bf16_args(rng, T, C, dev):
+    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev)
+    return [x.to(torch.bfloat16), w1, b1, w2, b2]
+
+
+def _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, seed, w1t, w2t):
+    """#10-bf16, #11-bf16 (``seed``, rate 0.2) and #12-bf16 with #11's masks
+    and without."""
+    return (fm.fused_mlp_forward_bf16(x, w1, b1, w2, b2),
+            fm.fused_mlp_dropout_forward_bf16(x, w1, b1, w2, b2, seed, 0.2),
+            fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, g, seed, 0.2),
+            fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, g))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(2311, 64), (1170, 128), (301, 256), (73728, 256)])
+def test_fused_mlp_bf16_matches_plain_and_repeats_bitwise(T, C):
+    """#10-bf16, and #11-bf16 against the bf16 plain version fed #11's own
+    masks (mlp_keep_masks), y within 8e-3 of max|y|; #12-bf16 with the masks
+    and without, dx bf16 and the rest f32, each within 1e-2 relative; the
+    same bits on a second call; one launch counted a call. T 73,728 at C
+    256 is MOD_WIDE's audio stage 0: three row chunks."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    rng = np.random.default_rng(T + C)
+    x, w1, b1, w2, b2 = _mlp_bf16_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    tr = w1.t().contiguous(), w2.t().contiguous()
+    kernels = (fm.fused_mlp_forward_bf16, fm.fused_mlp_dropout_forward_bf16,
+               fm.fused_mlp_backward_bf16)
+    before = [k.launches for k in kernels]
+    got = _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, 9, *tr)
+    again = _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, 9, *tr)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [2, 2, 4]
+    for a, b in zip(got, again):
+        for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
+            assert torch.equal(u, v)
+    assert got[0].dtype == got[1].dtype == torch.bfloat16
+    keep1, keep2 = fm.mlp_keep_masks(9, T, C, 4 * C, 0.2, dev)
+    assert _rel(got[0], fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2)) <= 8e-3
+    assert _rel(got[1], fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2, keep1, keep2, 0.2)) <= 8e-3
+    for grads, masks in ((got[2], (keep1, keep2, 0.2)), (got[3], ())):
+        want = fm.fused_mlp_backward_bf16_reference(x, w1, b1, w2, b2, g, *masks)
+        assert grads[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32
+                                                        for t in grads[1:])
+        for name, a, b in zip(["dx", "dw1", "db1", "dw2", "db2"], grads, want):
+            assert _rel(a, b) <= 1e-2, (name, _rel(a, b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", [(2311, 64), (301, 256)])
+def test_fused_mlp_bf16_launches_only_fused_mlp_kernels(T, C):
+    """A profiled call of #10-bf16, #11-bf16 and #12-bf16 (with masks and
+    without) runs only csrc/fused_mlp.cu's bf16 kernels and gemm_splitk.cuh's
+    bf16 weight gradients and reduction as instantiated for fused_mlp.cu; no
+    cast, no cuBLAS kernel."""
+    import re
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    rng = np.random.default_rng(T)
+    x, w1, b1, w2, b2 = _mlp_bf16_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    tr = w1.t().contiguous(), w2.t().contiguous()
+    _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)  # built and warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+    kernels = {m.group(1) if m else n for n in names
+               for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
+    assert kernels == {"mlp_bf16_hidden_kernel", "mlp_bf16_out_kernel", "mlp_bf16_g2_kernel",
+                       "bf16_wgrad_kernel", "reduce_partials_kernel"}, names
+    shared = [n for n in names if "bf16_wgrad_kernel" in n or "reduce_partials_kernel" in n]
+    assert shared and all("FusedMlpSrc" in n for n in shared), shared
+
+
+@pytest.mark.gpu
+def test_fused_mlp_bf16_route_and_refusals():
+    """fused_mlp and fused_mlp_dropout on a bf16 x with f32 weights launch
+    #10-bf16/#11-bf16 and #12-bf16 and no f32 kernel, the weights'
+    gradients f32 within 1e-2 of the plain bf16 pair's (same masks); the
+    wrappers refuse f32 x, bf16 weights and C not a multiple of 8."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    T, C = 999, 64
+    rng = np.random.default_rng(5)
+    x, w1, b1, w2, b2 = _mlp_bf16_args(rng, T, C, dev)
+    kernels = (fm.fused_mlp_forward, fm.fused_mlp_dropout_forward, fm.fused_mlp_backward,
+               fm.fused_mlp_forward_bf16, fm.fused_mlp_dropout_forward_bf16,
+               fm.fused_mlp_backward_bf16)
+    before = [k.launches for k in kernels]
+    leaves = [x.clone().requires_grad_(True)] + [t.clone().requires_grad_(True)
+                                                for t in (w1, b1, w2, b2)]
+    y0 = fm.fused_mlp(*leaves)
+    y1 = fm.fused_mlp_dropout(*leaves, 4, 0.2)
+    got = torch.autograd.grad(y0.float().square().sum() + y1.float().square().sum(), leaves)
+    torch.cuda.synchronize()
+    assert [k.launches - b for k, b in zip(kernels, before)] == [0, 0, 0, 1, 1, 2]
+    keep1, keep2 = fm.mlp_keep_masks(4, T, C, 4 * C, 0.2, dev)
+    pl = [t.detach().clone().requires_grad_(True) for t in leaves]
+    p0 = fm.fused_mlp_bf16_reference(*pl)
+    p1 = fm.fused_mlp_bf16_reference(*pl, keep1, keep2, 0.2)
+    g0 = fm.fused_mlp_backward_bf16_reference(*[t.detach() for t in pl], 2 * p0.float().to(
+        torch.bfloat16))
+    g1 = fm.fused_mlp_backward_bf16_reference(*[t.detach() for t in pl], 2 * p1.float().to(
+        torch.bfloat16), keep1, keep2, 0.2)
+    assert got[0].dtype == torch.bfloat16 and all(t.dtype == torch.float32 for t in got[1:])
+    for a, b, c in zip(got, g0, g1):
+        assert _rel(a.float(), b.float() + c.float()) <= 2e-2
+    with pytest.raises(TypeError):
+        fm.fused_mlp_forward_bf16(x.float(), w1, b1, w2, b2)
+    with pytest.raises(ValueError):
+        fm.fused_mlp_forward_bf16(*_mlp_bf16_args(rng, 8, 20, dev))
