@@ -176,7 +176,7 @@ def fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
 
 
 def fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None,
-                                      keep=None, rate=0.0):
+                                      keep=None, rate=0.0, acc=torch.float32):
     """Plain version of #1-bf16 (and of #2-bf16 given its keep mask): the
     rounding points of the JAX package's ``_wblock_fwd_math`` fed bf16 x,
     wqkv and wproj (``focal_tpu/ops/pallas_kernels.py:908-938``). The bf16
@@ -184,18 +184,21 @@ def fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mas
     summation order differs from the kernel's: qkv = x Wqkv + bqkv in f32,
     the softmax and dropout in f32, the attention output rounded to bf16,
     y = ao Wproj + bproj rounded to bf16. bqkv, bproj, rel_bias and the
-    mask are f32."""
-    f32 = torch.float32
+    mask are f32. ``acc`` is the type the f32 steps run in: float64 gives
+    an exact reference, its values rounded to f32 where they are rounded to
+    bf16."""
+    f32, bf16 = torch.float32, torch.bfloat16
     B, N, C = x.shape
-    qkv = torch.matmul(x.to(f32), wqkv.to(f32)) + bqkv
+    qkv = torch.matmul(x.to(acc), wqkv.to(acc)) + bqkv.to(acc)
     q, k, v = _head_views(qkv, rel_bias.shape[0])
-    out = fused_window_attention_reference(q, k, v, rel_bias, mask, keep, rate)
-    ao = out.transpose(1, 2).reshape(B, N, C).to(torch.bfloat16).to(f32)
-    return (torch.matmul(ao, wproj.to(f32)) + bproj).to(torch.bfloat16)
+    out = fused_window_attention_reference(q, k, v, rel_bias.to(acc),
+                                           None if mask is None else mask.to(acc), keep, rate)
+    ao = out.transpose(1, 2).reshape(B, N, C).to(f32).to(bf16).to(acc)
+    return (torch.matmul(ao, wproj.to(acc)) + bproj.to(acc)).to(f32).to(bf16)
 
 
 def fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
-                                               keep=None, rate=0.0):
+                                               keep=None, rate=0.0, acc=torch.float32):
     """Plain version of #3-bf16: the rounding points of the JAX package's
     ``_wblock_bwd_kernel`` fed bf16 (``pk:971-1072``). qkv and g = dy
     Wproj^T recomputed in f32 from the bf16 operands; the attention
@@ -203,26 +206,29 @@ def fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_
     dq, dk, dv rounded to bf16 for dx = dqkv Wqkv^T (stored as bf16) and
     dWqkv = x^T dqkv; the attention output rounded to bf16 for dWproj = ao^T
     dy; dbqkv and d rel_bias from the f32 values, dbproj the f32 sum of dy.
-    Returns (dx bf16, dwqkv, dbqkv, dwproj, dbproj, drel_bias f32)."""
+    ``acc`` as fused_window_block_bf16_reference's. Returns (dx bf16, dwqkv,
+    dbqkv, dwproj, dbproj, drel_bias f32)."""
     f32, bf16 = torch.float32, torch.bfloat16
     B, N, C = x.shape
     x, wqkv, bqkv, wproj, dy = (t.detach() for t in (x, wqkv, bqkv, wproj, dy))
-    xf, dyf, wq = x.to(f32).reshape(B * N, C), dy.to(f32), wqkv.to(f32)
-    g = torch.matmul(dyf, wproj.to(f32).t())
+    xf, dyf, wq = x.to(acc).reshape(B * N, C), dy.to(acc), wqkv.to(acc)
+    g = torch.matmul(dyf, wproj.to(acc).t())
     with torch.enable_grad():
-        qkv = (torch.matmul(xf, wq) + bqkv).reshape(B, N, 3 * C).requires_grad_(True)
-        rb = rel_bias.detach().requires_grad_(True)
+        qkv = (torch.matmul(xf, wq) + bqkv.to(acc)).reshape(B, N, 3 * C).requires_grad_(True)
+        rb = rel_bias.detach().to(acc).requires_grad_(True)
         q, k, v = _head_views(qkv, rel_bias.shape[0])
-        out = fused_window_attention_reference(q, k, v, rb, mask, keep, rate)
+        out = fused_window_attention_reference(q, k, v, rb, None if mask is None else mask.to(acc),
+                                               keep, rate)
         ao = out.transpose(1, 2).reshape(B, N, C)
         dqkv, drel_bias = torch.autograd.grad(ao, (qkv, rb), g)
     dqkv = dqkv.reshape(B * N, 3 * C)
-    dqkv_b = dqkv.to(bf16).to(f32)
-    ao_b = ao.detach().reshape(B * N, C).to(bf16).to(f32)
+    dqkv_b = dqkv.to(f32).to(bf16).to(acc)
+    ao_b = ao.detach().reshape(B * N, C).to(f32).to(bf16).to(acc)
     dyf = dyf.reshape(B * N, C)
-    dx = torch.matmul(dqkv_b, wq.t()).to(bf16).reshape(B, N, C)
-    return (dx, torch.matmul(xf.t(), dqkv_b), dqkv.sum(0), torch.matmul(ao_b.t(), dyf),
-            dyf.sum(0), drel_bias)
+    dx = torch.matmul(dqkv_b, wq.t()).to(f32).to(bf16).reshape(B, N, C)
+    return tuple(t.to(f32) if t.dtype != bf16 else t for t in (
+        dx, torch.matmul(xf.t(), dqkv_b), dqkv.sum(0), torch.matmul(ao_b.t(), dyf), dyf.sum(0),
+        drel_bias))
 
 
 def _check(name, t, shape, device, dtype=torch.float32, who="fused_window_block"):

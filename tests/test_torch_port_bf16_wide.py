@@ -107,6 +107,9 @@ def test_bf16_plain_forward_matches_jax_perhead_kernel(C, nW):
     assert _rel(y, want) <= FWD_TOL
     ones = torch.ones(B, H, N, N, dtype=torch.uint8)
     assert _rel(pk.fused_window_block_bf16_reference(*port_args, ones, 1e-7), want) <= FWD_TOL
+    # the exact plain version (float64 sums), the card's floor reference (C14)
+    y64 = pk.fused_window_block_bf16_reference(*port_args, acc=torch.float64)
+    assert y64.dtype == torch.bfloat16 and _rel(y64, want) <= FWD_TOL
 
 
 @pytest.mark.parametrize("C,nW", CASES)
@@ -125,9 +128,13 @@ def test_bf16_plain_backward_matches_jax_perhead_kernel(C, nW, rate):
     tkeep = None if keep is None else torch.from_numpy(keep)
     got = pk.fused_window_block_perhead_backward_bf16(*port_args, dy, tkeep, rate)
     assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
-    for name, g, w in zip(NAMES, got, want):
+    exact = pk.fused_window_block_backward_bf16_reference(*port_args, dy, tkeep, rate,
+                                                          acc=torch.float64)
+    assert [g.dtype for g in exact] == [g.dtype for g in got]
+    for name, g, e, w in zip(NAMES, got, exact, want):
         assert tuple(g.shape) == w.shape, name
         assert _rel(g, w) <= GRAD_TOL, (name, _rel(g, w))
+        assert _rel(e, w) <= GRAD_TOL, (name, _rel(e, w))
 
 
 @pytest.mark.parametrize("shifted", [False, True])

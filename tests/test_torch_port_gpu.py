@@ -949,6 +949,19 @@ def test_every_width_a_gate_admits_has_a_launch_plan():
         assert ok == pk.attention_takes(9, hd), hd
 
 
+def _traced(calls, reps=5):
+    """``calls`` ``reps`` times between pauses, synchronised: a trace of one
+    round of small launches can lose the records of its shortest kernels
+    (the masked gradient's), as chip_smoke.py's kernel_phase_split found."""
+    import time
+
+    time.sleep(0.05)
+    for _ in range(reps):
+        calls()
+    torch.cuda.synchronize()
+    time.sleep(0.05)
+
+
 def _mlp_calls(fm, x, w1, b1, w2, b2, g, seed, w1t, w2t):
     """#10, #11 (``seed``, rate 0.2) and #12 with #11's masks and without;
     w1t and w2t are w1 and w2 transposed."""
@@ -1013,8 +1026,7 @@ def test_fused_mlp_launches_only_fused_mlp_kernels(T, C):
     _mlp_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)  # built and warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _mlp_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)
-        torch.cuda.synchronize()
+        _traced(lambda: _mlp_calls(fm, x, w1, b1, w2, b2, g, 3, *tr))
     names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     kernels = {m.group(1) if m else n for n in names
                for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
@@ -1752,8 +1764,7 @@ def test_fused_mlp_bf16_launches_only_fused_mlp_kernels(T, C):
     _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)  # built and warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, 3, *tr)
-        torch.cuda.synchronize()
+        _traced(lambda: _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, 3, *tr))
     names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     kernels = {m.group(1) if m else n for n in names
                for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
