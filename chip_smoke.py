@@ -296,10 +296,29 @@ result line if any fails):
      against the bf16 plain versions (loss 1e-2, C11's gates); the
      supervised entry point for an epoch and the test CLI on its _best, and
      a served batch (#10-bf16 16) against the bf16 plain route (1e-2), the
-     launches held exactly.
+     launches held exactly;
+ 33. -no_pallas_block at -compute_dtype bfloat16: #6-bf16 to #9-bf16
+     (fused_window_attention_bf16, fused_window_attention_dropout_bf16,
+     fused_window_attention_backward_bf16,
+     fused_window_attention_dropout_backward_bf16) against their bf16 plain
+     versions at every attention geometry of MOD's served batch (128) and
+     training step (256 fused to 512), q unscaled with q_scale as the route
+     passes it: y within 8e-3 of max|y|, #7-bf16 fed #7's mask (keep rate
+     within 5 sigma; the weights it drops, read through a one-hot v, #7's
+     mask bit for bit), #8-bf16/#9-bf16 every gradient within 1e-2
+     relative, the same bits on a second call; timed there (events, device
+     time, plain, SDPA in bf16 with a bf16 attn_mask under autograd, the
+     bound at the f32 peak or the bf16 bytes); 3 + 10 MOD -no_pallas_block
+     pretrain steps at 256, bf16 beside f32 from one init (#7-bf16/#9-bf16
+     16 a step, no whole-block kernel; p50, device busy, idle share, device
+     operations, peak); the rate-0 bf16 step, kernels (#6-bf16/#8-bf16 16
+     each) against the bf16 plain versions (loss 1e-2, C11's gates); python
+     -m focal_tpu_torch.train -no_pallas_block -compute_dtype bfloat16 for
+     an epoch; a served bf16 batch (#6-bf16 16) against the bf16 plain route
+     (1e-2); a bf16 WindowAttention at C 12 (no kernel takes it) forward and
+     backward on the card, launching nothing.
 
-Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #5-bf16, #10-bf16 to
-#14-bf16), the
+Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #14-bf16), the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
 nothing of the JAX package. --out DIR writes the per-geometry details and
 the profiles as JSON there.
@@ -2100,7 +2119,8 @@ def run_entry_points(torch, kernels, out, tag, what, fn, argv, per_step, per_eva
 def rate0_tail_step(torch, targs, weights, dev, plain, kernels=None):
     """One SW_Transformer pretrain step at every drop rate 0 from
     ``weights`` on the first targs.batch_size rows of a synthetic split
-    (whole subsequences), at targs.compute_dtype: through the kernels, or
+    (whole subsequences), at targs.compute_dtype on the route targs names
+    (-no_pallas_block: the attention-only one): through the kernels, or
     with ``plain`` through their plain versions. Returns (loss, [gradients
     on the CPU], launches of ``kernels``, #1-#3 by default, [the gradients'
     parameter names])."""
@@ -2121,12 +2141,13 @@ def rate0_tail_step(torch, targs, weights, dev, plain, kernels=None):
     data = to_device(synthetic_arrays(cfg0, targs.task, 2 * targs.batch_size, seed=0)[0], dev)
     idx = torch.arange(targs.batch_size, device=dev)
     m = build_backbone(cfg0, "SW_Transformer", targs.task, targs.learn_framework,
-                       compute_dtype=targs.compute_dtype)
+                       pallas_block=not targs.no_pallas_block, compute_dtype=targs.compute_dtype)
     m.load_state_dict(weights)
     m.to(dev)
     st = create_train_state(args0, m, steps_per_epoch=100, seed=0)
     entry_points = {"window_block": pk.window_block_reference,
-                    "window_block_forward": pk.fused_window_block_reference}
+                    "window_block_forward": pk.fused_window_block_reference,
+                    "window_attention_qkv": pk.window_attention_qkv_reference}
     if plain:
         for name, fn in entry_points.items():
             setattr(swin_mod, name, fn)
@@ -2671,7 +2692,7 @@ def time_block_bf16(torch, pk, g, gen, dev, rate, train, perhead=False):
 
 
 def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATCH,
-                   steps=TRAIN_STEPS, per_step=None):
+                   steps=TRAIN_STEPS, per_step=None, pallas_block=True):
     """``dataset`` pretrain steps at ``batch`` (views fused; MOD at
     TRAIN_BATCH by default), f32 and bf16 from one init (seed 0) on the same
     resident synthetic data and fixed idx, in one process: TRAIN_WARMUP +
@@ -2679,7 +2700,9 @@ def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATC
     name: launches}}; by default #2 and #3 in f32, #2-bf16 and #3-bf16 in
     bf16, once a block each), losses finite; p50, samples/s, peak memory,
     and a profiled step's idle share, device busy time, device operations,
-    device time by window_block.cu phase and top kernels."""
+    device time by window_block.cu phase, window_attention.cu's device time
+    and top kernels. ``pallas_block`` False takes the attention-only route
+    (-no_pallas_block)."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import build_backbone, init_params
     from focal_tpu_torch.ops import pallas_kernels as pk
@@ -2693,7 +2716,8 @@ def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATC
     data = None
     for dtype in ("float32", "bfloat16"):
         targs = parse_train_params(["-dataset", dataset, "-learn_framework", "FOCAL",
-                                    "-compute_dtype", dtype])
+                                    "-compute_dtype", dtype]
+                                   + ([] if pallas_block else ["-no_pallas_block"]))
         cfg = targs.dataset_config
         if per_step is None:
             n_blocks = sum(g["per_forward"] for g in block_geometries(cfg, SERVE_BATCH))
@@ -2707,7 +2731,8 @@ def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATC
             data = to_device(synthetic_arrays(cfg, targs.task, 2 * batch, seed=0)[0], dev)
         idx = torch.arange(batch, device=dev)
         model = init_params(build_backbone(cfg, "SW_Transformer", targs.task, "FOCAL",
-                                           compute_dtype=dtype), seed=0).to(dev)
+                                           pallas_block=pallas_block, compute_dtype=dtype),
+                            seed=0).to(dev)
         state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
         step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
         for _ in range(TRAIN_WARMUP):
@@ -2741,6 +2766,9 @@ def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATC
         run["device_busy_ms"] = prof["device_busy_ms"]
         run["device_ops"] = prof["device_ops"]
         run["block_device_ms"] = block_device_ms(prof)
+        run["attention_device_ms"] = sum(
+            r["device_ms"] for r in prof["rows"]
+            if kernel_name(r["name"]) in source_kernels("window_attention.cu"))
         run["top_kernels"] = prof["rows"][:12]
         if run["grad_dtypes"] != ["torch.float32"] or run["param_dtypes"] != ["torch.float32"]:
             raise AssertionError(f"{tag}: {dtype} step's parameters or gradients are not f32: "
@@ -2752,7 +2780,8 @@ def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATC
             f"{run['peak_mb']:.1f} MiB, idle share {run['idle_share']:.3f}, device busy "
             f"{run['device_busy_ms']:.3f} ms, {run['device_ops']} device operations; "
             f"window_block.cu device ms by phase "
-            f"{run['block_device_ms']}; loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {got}")
+            f"{run['block_device_ms']}, window_attention.cu {run['attention_device_ms']:.3f} ms; "
+            f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {got}")
         del state, step, model
         torch.cuda.empty_cache()
     f, b = out["float32"], out["bfloat16"]
@@ -3840,6 +3869,389 @@ def mlp_bf16_paths(torch, np, kernels, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# -no_pallas_block at -compute_dtype bfloat16 (33): #6-bf16 to #9-bf16
+
+ATTN_BF16_STEPS = 10      # timed bf16 and f32 -no_pallas_block pretrain steps in phase 33
+C12_WIDTH = (12, 2)       # (C, heads) of phase 33's bf16 WindowAttention that no kernel takes
+
+
+def attention_bf16_inputs(torch, np, g, seed, dev):
+    """qkv [windows, N, 3C] bf16 with q unscaled, as the qkv Linear hands it
+    over, rel_bias at a trained model's scale, the geometry's shift mask (or
+    None) and the output gradient [windows, N, C] bf16."""
+    rng = np.random.default_rng(seed)
+    B, N, C = g["windows"], g["N"], g["C"]
+    qkv, gy = (torch.from_numpy(rng.normal(size=(B, N, c)).astype(np.float32)).to(dev).to(
+        torch.bfloat16) for c in (3 * C, C))
+    rel_bias = torch.from_numpy(
+        (0.02 * rng.normal(size=(g["heads"], N, N))).astype(np.float32)).to(dev)
+    mask = None if g["mask"] is None else torch.from_numpy(g["mask"]).to(dev)
+    return qkv, rel_bias, mask, gy
+
+
+def attention_bf16_work(g, backward):
+    """(FLOPs, bytes, bound ms, what bounds) of one #6-bf16/#7-bf16 or
+    #8-bf16/#9-bf16 launch: attention_work's FLOPs at the f32 peak (the math
+    between the bf16 edges is f32 on the CUDA cores); bytes with q, k, v, g,
+    out, dq, dk and dv at 2 bytes, rel_bias, drel_bias and the mask at 4,
+    each read or written once."""
+    pairs, N, hd, H = g["windows"] * g["heads"], g["N"], g["hd"], g["heads"]
+    mask = g["nW"] * N * N if g["mask"] is not None else 0
+    flops = attention_work(g, backward)[0]
+    if backward:
+        nbytes = 2 * 7 * pairs * N * hd + 4 * (2 * H * N * N + mask)
+    else:
+        nbytes = 2 * 4 * pairs * N * hd + 4 * (H * N * N + mask)
+    return (flops, nbytes, *bound(flops, nbytes))
+
+
+def bf16_keep_pattern(torch, pk, g, seed, rate, dev):
+    """The weights #7-bf16 keeps at g's (windows, heads, N) for ``seed``, as
+    uint8 [B_, H, N, N]: with v one-hot per key (v[j] = e_j, hd >= N) and no
+    shift mask its output's first N columns are the dropped weights, nonzero
+    exactly where one is kept."""
+    B, H, N, hd = g["windows"], g["heads"], g["N"], g["hd"]
+    gen = torch.Generator().manual_seed(seed)
+    q, k = (torch.randn((B, H, N, hd), generator=gen).to(dev).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.zeros((B, H, N, hd), dtype=torch.bfloat16, device=dev)
+    v[..., torch.arange(N), torch.arange(N)] = 1
+    y = pk.fused_window_attention_dropout_bf16(q, k, v, torch.zeros((H, N, N), device=dev), None,
+                                               seed, rate, q_scale=hd**-0.5)
+    return (y[..., :N] != 0).to(torch.uint8)
+
+
+def check_attention_bf16(torch, np, pk, geos, dev, rate, seed0):
+    """#6-bf16 to #9-bf16 against their bf16 plain versions at each attention
+    geometry, q unscaled with q_scale as the route passes it: #6-bf16
+    (writing the head view of a [B_, N, C] tensor) and #7-bf16 fed #7's
+    mask (window_attention_keep_mask) to BF16_FWD_TOL of max|y|; #7-bf16's
+    keep rate within 5 sigma and the weights it drops (bf16_keep_pattern)
+    #7's mask bit for bit; #8-bf16 and #9-bf16 every gradient to
+    BF16_GRAD_TOL relative (absolutely to TINY_GRAD where both sides are
+    below it); the same bits on a second call of each. Returns the worst
+    errors."""
+    worst = {"fwd": 0.0, "fwd_abs": 0.0, "drop": 0.0, "drop_abs": 0.0, "bwd": 0.0, "bwd_abs": 0.0}
+    for gi, g in enumerate(geos):
+        B, H, N, hd = g["windows"], g["heads"], g["N"], g["hd"]
+        seed, s = seed0 + gi, hd**-0.5
+        qkv, rel_bias, mask, gy = attention_bf16_inputs(torch, np, g, seed, dev)
+        q, k, v = pk._head_views(qkv, H)
+        gh = pk._heads(gy, H)
+        y = torch.empty((B, N, H * hd), dtype=torch.bfloat16, device=dev)
+        pk.fused_window_attention_bf16(q, k, v, rel_bias, mask, q_scale=s, out=pk._heads(y, H))
+        y2 = pk.fused_window_attention_bf16(q, k, v, rel_bias, mask, q_scale=s)
+        yd = pk.fused_window_attention_dropout_bf16(q, k, v, rel_bias, mask, seed, rate, q_scale=s)
+        yd2 = pk.fused_window_attention_dropout_bf16(q, k, v, rel_bias, mask, seed, rate, q_scale=s)
+        keep = pk.window_attention_keep_mask(seed, B, H, N, rate, dev)
+        same_mask = bool(torch.equal(bf16_keep_pattern(torch, pk, g, seed, rate, dev), keep))
+        torch.cuda.synchronize()
+        same = torch.equal(pk._heads(y, H), y2) and torch.equal(yd, yd2)
+        errs_f = {}
+        for tag, got, kp, r in (("fwd", y2, None, 0.0), ("drop", yd, keep, rate)):
+            want = pk.fused_window_attention_bf16_reference(q, k, v, rel_bias, mask, kp, r,
+                                                            s).float()
+            errs_f[tag] = rel_err(got.float(), want)
+            worst[f"{tag}_abs"] = max(worst[f"{tag}_abs"], float((got.float() - want).abs().max()))
+        kept = float(keep.double().mean())
+        sigma = math.sqrt(rate * (1 - rate) / keep.numel())
+        errs = {}
+        for tag, sd, kp, r in (("mask", seed, keep, rate), ("nomask", None, None, 0.0)):
+            got = pk.fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, gh, sd, r,
+                                                          q_scale=s)
+            again = pk.fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, gh, sd, r,
+                                                            q_scale=s)
+            torch.cuda.synchronize()
+            same = same and all(torch.equal(a, b) for a, b in zip(got, again))
+            if [t.dtype for t in got] != [torch.bfloat16] * 3 + [torch.float32]:
+                raise AssertionError(f"{g['name']}: #8-bf16/#9-bf16 give {[t.dtype for t in got]}")
+            want = pk.fused_window_attention_backward_bf16_reference(q, k, v, rel_bias, mask, gh,
+                                                                     kp, r, s)
+            errs[tag] = bf16_grad_err(got, want)
+            worst["bwd_abs"] = max(worst["bwd_abs"], *(float((a.float() - b.float()).abs().max())
+                                                       for a, b in zip(got, want)))
+            del got, again, want
+        g.update(bf16_rel_err_fwd=errs_f["fwd"], bf16_rel_err_dropout=errs_f["drop"],
+                 bf16_keep_rate=kept, bf16_mask_equals_f32_kernels=same_mask,
+                 bf16_rel_err_bwd=errs["mask"], bf16_rel_err_bwd_nomask=errs["nomask"],
+                 bf16_repeatable=same)
+        worst["fwd"], worst["drop"] = max(worst["fwd"], errs_f["fwd"]), max(worst["drop"],
+                                                                           errs_f["drop"])
+        worst["bwd"] = max(worst["bwd"], *errs.values())
+        log(f"[attn-bf16-check] {g['name']}: windows {B} heads {H} N {N} hd {hd} nW {g['nW']}: "
+            f"#6-bf16 rel err {errs_f['fwd']:.3e}, #7-bf16 {errs_f['drop']:.3e} (#7's mask), keep "
+            f"rate {kept:.5f} ({(kept - 1 + rate) / sigma:+.2f} sigma), its dropped weights == "
+            f"#7's mask: {same_mask}; #9-bf16 max rel err {errs['mask']:.3e}, #8-bf16 "
+            f"{errs['nomask']:.3e}; same bits on a second call: {same}")
+        if not max(errs_f.values()) <= BF16_FWD_TOL:
+            raise AssertionError(f"{g['name']}: #6-bf16/#7-bf16 differ from plain by {errs_f}")
+        if not abs(kept - (1 - rate)) <= 5 * sigma:
+            raise AssertionError(f"{g['name']}: keep rate {kept} is not 1 - {rate} within 5 sigma")
+        if not same_mask:
+            raise AssertionError(f"{g['name']}: #7-bf16 drops other weights than #7's mask")
+        if not max(errs.values()) <= BF16_GRAD_TOL:
+            raise AssertionError(f"{g['name']}: #8-bf16/#9-bf16 gradients differ from plain by "
+                                 f"{errs}")
+        if not same:
+            raise AssertionError(f"{g['name']}: #6-bf16 to #9-bf16 give other bits on a second "
+                                 "call")
+        del qkv, rel_bias, mask, gy, y, y2, yd, yd2, keep
+    return worst
+
+
+def time_attention_bf16(torch, np, pk, g, seed, dev, rate, train):
+    """#6-bf16 (a served geometry) or #7-bf16, #8-bf16 (rate 0) and #9-bf16
+    (a training geometry) at g, stored in g["bf16"]: events over at least
+    PROFILE_TRACE_MS of calls, device time a call from a profile, the plain
+    versions, the library yardstick (scaled_dot_product_attention on bf16
+    q, k, v with the bias and mask as a bf16 attn_mask, dropout_p for
+    #7-bf16; its autograd backward for #8-bf16/#9-bf16) and the bound
+    (attention_bf16_work)."""
+    B, H, N, hd = g["windows"], g["heads"], g["N"], g["hd"]
+    s = hd**-0.5
+    qkv, rel_bias, mask, gy = attention_bf16_inputs(torch, np, g, seed, dev)
+    q, k, v = pk._head_views(qkv, H)
+    gh = pk._heads(gy, H)
+    keep = pk.window_attention_keep_mask(7, B, H, N, rate, dev)
+    am = library_mask(torch, g, rel_bias, mask).to(torch.bfloat16)
+    lq = [t.contiguous() for t in (pk.scale_bf16(q, s), k, v)]  # q scaled as the route's
+    if train:
+        calls = {
+            "drop": (lambda: pk.fused_window_attention_dropout_bf16(q, k, v, rel_bias, mask, 7,
+                                                                    rate, q_scale=s),
+                     lambda: pk.fused_window_attention_bf16_reference(q, k, v, rel_bias, mask,
+                                                                      keep, rate, s), rate, False),
+            "bwd": (lambda: pk.fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, gh,
+                                                                    q_scale=s),
+                    lambda: pk.fused_window_attention_backward_bf16_reference(
+                        q, k, v, rel_bias, mask, gh, None, 0.0, s), 0.0, True),
+            "drop_bwd": (lambda: pk.fused_window_attention_dropout_backward_bf16(
+                q, k, v, rel_bias, mask, gh, 7, rate, q_scale=s),
+                lambda: pk.fused_window_attention_backward_bf16_reference(
+                    q, k, v, rel_bias, mask, gh, keep, rate, s), rate, True)}
+    else:
+        calls = {"fwd": (lambda: pk.fused_window_attention_bf16(q, k, v, rel_bias, mask, q_scale=s),
+                         lambda: pk.fused_window_attention_bf16_reference(q, k, v, rel_bias, mask,
+                                                                          q_scale=s), 0.0, False)}
+    out = {}
+    for d, (kernel, plain, lib_rate, backward) in calls.items():
+        if backward:
+            leaves = [t.clone().requires_grad_(True) for t in lq]
+            amg = am.clone().requires_grad_(True)
+            ly = library_attention(torch, *leaves, amg, lib_rate)
+            lib_ms = time_ms(torch, lambda: torch.autograd.grad(ly, leaves + [amg], gh,
+                                                                retain_graph=True))
+            del ly, leaves, amg
+        else:
+            with torch.no_grad():
+                lib_ms = time_ms(torch, lambda: library_attention(torch, *lq, am, lib_rate))
+        with torch.no_grad():
+            flops, nbytes, bnd, by = attention_bf16_work(g, backward)
+            out[d] = {"ms": time_ms_long(torch, kernel), "device_ms": device_ms_per_call(torch, kernel),
+                      "plain_ms": time_ms(torch, plain), "library_ms": lib_ms, "bound_ms": bnd,
+                      "bound_by": by, "flops": flops, "bytes": nbytes}
+        r = out[d]
+        log(f"[attn-bf16-time] {g['name']} (windows {B}, hd {hd}) "
+            f"{ {'fwd': '#6-bf16', 'drop': '#7-bf16', 'bwd': '#8-bf16', 'drop_bwd': '#9-bf16'}[d]}: "
+            f"{r['ms']:.4f} ms (device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
+            f"{r['library_ms']:.4f}, bound {bnd:.4f} ({by}), {nbytes / r['device_ms'] / 1e6:.1f} "
+            "GB/s by device time")
+    g["bf16"] = out
+    del qkv, rel_bias, mask, gy, keep, am, lq
+
+
+def attention_bf16_paths(torch, np, kernels, dev):
+    """Phase 33, -no_pallas_block at -compute_dtype bfloat16 at MOD's full
+    width: #6-bf16 at the served geometries (batch 128) and #6-bf16 to
+    #9-bf16 at the training ones (256 fused to 512) against their bf16 plain
+    versions (check_attention_bf16's gates), and timed there; 3 +
+    ATTN_BF16_STEPS MOD pretrain steps at 256 on the route, bf16 beside f32
+    from one init (#7-bf16/#9-bf16 16 a step, no whole-block kernel); the
+    rate-0 bf16 step, kernels (#6-bf16, #8-bf16) against the bf16 plain
+    versions (BF16_LOSS_TOL, C11's gradient gates); python -m
+    focal_tpu_torch.train for an epoch; a served batch (#6-bf16 16) against
+    the bf16 plain route (BF16_SERVE_TOL); a bf16 WindowAttention at C12's
+    width (C12_WIDTH: no kernel takes it) forward and backward on the card,
+    launching nothing."""
+    import importlib
+
+    from focal_tpu_torch.data import synthetic_arrays
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.models import swin as swin_mod
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.ops.dropout import StepRngs
+    from focal_tpu_torch.params import load_dataset_config, parse_train_params
+    from focal_tpu_torch.serve import Predictor
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    tag = "attn-bf16"
+    t_phase = time.time()
+    cfg = load_dataset_config("MOD")
+    task = "vehicle_classification"
+    rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
+    fwd, drop, bwd, drop_bwd = (pk.fused_window_attention_bf16,
+                                pk.fused_window_attention_dropout_bf16,
+                                pk.fused_window_attention_backward_bf16,
+                                pk.fused_window_attention_dropout_backward_bf16)
+    sgeos = attention_geometries(cfg, SERVE_BATCH, "MOD")
+    tgeos = attention_geometries(cfg, 2 * TRAIN_BATCH, "MOD")
+    n_blocks = sum(g["per_forward"] for g in sgeos)
+    step_bf16 = {drop.__name__: n_blocks, drop_bwd.__name__: n_blocks}
+    eval_bf16 = {fwd.__name__: n_blocks}
+    out = {"paths": {}, "launches_per_step": step_bf16, "launches_per_eval_forward": eval_bf16}
+
+    # the kernels against their bf16 plain versions, then timed
+    parts = {}
+    t_part = time.time()
+
+    def part_done(name):
+        nonlocal t_part
+        parts[name] = time.time() - t_part
+        t_part = time.time()
+
+    out["errors"] = check_attention_bf16(torch, np, pk, sgeos + tgeos, dev, rate, 9300)
+    part_done("checks")
+    for gi, g in enumerate(sgeos):
+        time_attention_bf16(torch, np, pk, g, 9400 + gi, dev, rate, train=False)
+    for gi, g in enumerate(tgeos):
+        time_attention_bf16(torch, np, pk, g, 9500 + gi, dev, rate, train=True)
+    keys = ("ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")
+    out["serve_forward"] = {k: sum(g["per_forward"] * g["bf16"]["fwd"][k] for g in sgeos)
+                            for k in keys}
+    out["train_step"] = {d: {k: sum(g["per_forward"] * g["bf16"][d][k] for g in tgeos)
+                             for k in keys} for d in ("drop", "bwd", "drop_bwd")}
+    s, t = out["serve_forward"], out["train_step"]
+    log(f"[{tag}] one served MOD forward at {SERVE_BATCH} ({n_blocks} launches): #6-bf16 "
+        f"{s['ms']:.4f} ms (device {s['device_ms']:.4f}), plain {s['plain_ms']:.4f}, library "
+        f"{s['library_ms']:.4f}, bound {s['bound_ms']:.4f}; one training step at "
+        f"{2 * TRAIN_BATCH}: " + "; ".join(
+            f"{n} {t[d]['ms']:.4f} ms (device {t[d]['device_ms']:.4f}, plain "
+            f"{t[d]['plain_ms']:.4f}, library {t[d]['library_ms']:.4f}, bound "
+            f"{t[d]['bound_ms']:.4f})"
+            for d, n in (("drop", "#7-bf16"), ("bwd", "#8-bf16"), ("drop_bwd", "#9-bf16"))))
+    out["geometries"] = [{k: v for k, v in g.items() if k != "mask"} for g in sgeos + tgeos]
+    torch.cuda.empty_cache()
+    part_done("timing")
+
+    # bf16 and f32 -no_pallas_block pretrain steps from one init
+    f32_step = {pk.fused_window_attention_dropout.__name__: n_blocks,
+                pk.fused_window_attention_dropout_backward.__name__: n_blocks}
+    out["steps"] = bf16_step_runs(torch, np, kernels, dev, f"{tag}-steps", steps=ATTN_BF16_STEPS,
+                                  per_step={"float32": f32_step, "bfloat16": step_bf16},
+                                  pallas_block=False)
+    part_done("steps")
+
+    # the rate-0 bf16 step from one state: kernels vs the bf16 plain versions
+    initial = init_params(build_backbone(cfg, "SW_Transformer", task, "FOCAL", pallas_block=False),
+                          seed=0).state_dict()
+    rargs = parse_train_params(["-dataset", "MOD", "-learn_framework", "FOCAL", "-batch_size",
+                                str(TRAIN_BATCH), "-compute_dtype", "bfloat16",
+                                "-no_pallas_block"])
+    kern = rate0_tail_step(torch, rargs, initial, dev, plain=False, kernels=kernels)
+    plain = rate0_tail_step(torch, rargs, initial, dev, plain=True, kernels=kernels)
+    check_counts(f"{tag}: the rate-0 bf16 step", kern[2],
+                 {k.__name__: n_blocks if k in (fwd, bwd) else 0 for k in kernels})
+    check_counts(f"{tag}: the rate-0 bf16 plain step", plain[2], {k.__name__: 0 for k in kernels})
+    vs_plain = abs(kern[0] - plain[0]) / abs(plain[0])
+    out["rate0"] = {"loss_bf16_kernels": kern[0], "loss_bf16_plain": plain[0],
+                    "loss_rel_vs_bf16_plain": vs_plain, "launches": kern[2],
+                    "grad_dtypes": sorted({str(g.dtype) for g in kern[1]})}
+    log(f"[{tag}] rate-0 MOD bf16 -no_pallas_block pretrain step at {TRAIN_BATCH} from the "
+        f"initial state: loss {kern[0]:.6f}, bf16 plain {plain[0]:.6f} (rel {vs_plain:.2e}); "
+        f"launches {kern[2]}")
+    if not vs_plain <= BF16_LOSS_TOL or out["rate0"]["grad_dtypes"] != ["torch.float32"]:
+        raise AssertionError(f"{tag}: rate-0 bf16 -no_pallas_block step: {out['rate0']}")
+    out["rate0"]["grad_gates"] = bf16_grad_gates(tag, kern[3], kern[1], plain[1])
+    del kern, plain, initial
+    torch.cuda.empty_cache()
+    part_done("rate-0 step")
+
+    # the training entry point for an epoch
+    run_dir = os.path.join(HERE, "build", "chip_smoke_attn_bf16")
+    shutil.rmtree(run_dir, ignore_errors=True)
+    pre = ["-dataset", "MOD", "-model", "SW_Transformer", "-no_pallas_block", "-compute_dtype",
+           "bfloat16", "-synthetic", "-synthetic_samples", str(SUP_SAMPLES), "-val_epochs", "1",
+           "-output_dir", run_dir, "-learn_framework", "FOCAL", "-stage", "pretrain",
+           "-batch_size", str(TRAIN_BATCH), "-epochs", "1"]
+    steps, evals = stage_plan(pre)
+    st, _, points = run_entry_points(torch, kernels, out, tag,
+                                     "pretrain -no_pallas_block -compute_dtype bfloat16 -epochs 1",
+                                     train_cli.main, pre, step_bf16, eval_bf16, steps, evals)
+    if not all(math.isfinite(p[k]) for p in points for k in ("train_loss", "val_loss")):
+        raise AssertionError(f"{tag}: non-finite pretrain loss: {points}")
+    del st
+    shutil.rmtree(run_dir, ignore_errors=True)
+    torch.cuda.empty_cache()
+    part_done("entry point")
+
+    # a served bf16 batch, kernels vs the bf16 plain route
+    data = synthetic_arrays(cfg, task, SERVE_BATCH, seed=7)[0]
+    predictor = Predictor(cfg, "SW_Transformer", task, None, batch_size=SERVE_BATCH,
+                          device=dev.type, seed=0, pallas_block=False, compute_dtype="bfloat16")
+    zero_counts(kernels)
+    served = predictor.predict(data)
+    got = counts(kernels)
+    check_counts(f"{tag}: one served bf16 -no_pallas_block batch", got,
+                 {k.__name__: eval_bf16.get(k.__name__, 0) for k in kernels})
+    probs = served["probs"]
+    if probs.dtype != np.float32 or not np.isfinite(probs).all():
+        raise AssertionError(f"{tag}: bad probabilities ({probs.dtype})")
+    swin_mod.fused_window_attention_bf16 = (
+        lambda q, k, v, rb, m, q_scale=1.0, out=None: pk._into(
+            out, pk.fused_window_attention_bf16_reference(q, k, v, rb, m, q_scale=q_scale)))
+    try:
+        serve_err = float(np.abs(predictor._forward(data) - probs).max())
+    finally:
+        swin_mod.fused_window_attention_bf16 = pk.fused_window_attention_bf16
+    out["serve"] = {"p50_ms": served["latency"]["p50_s"] * 1e3, "launches": got,
+                    "max_abs_err_vs_plain": serve_err}
+    log(f"[{tag}] served bf16 -no_pallas_block batch of {SERVE_BATCH}: launches {got}, p50 "
+        f"{out['serve']['p50_ms']:.3f} ms; max|dprobs| vs the bf16 plain route {serve_err:.3e}")
+    if not serve_err <= BF16_SERVE_TOL:
+        raise AssertionError(f"{tag}: served probabilities differ from the plain route's by "
+                             f"{serve_err}")
+    del predictor
+    torch.cuda.empty_cache()
+
+    # C12: a bf16 WindowAttention at a width no kernel takes runs the XLA route on the card
+    C, H = C12_WIDTH
+    attn = swin_mod.WindowAttention(C, (3, 3), H, attn_drop=rate,
+                                    compute_dtype=torch.bfloat16).to(dev)
+    gen = torch.Generator().manual_seed(12)
+    x = torch.randn((SERVE_BATCH, 9, C), generator=gen).to(torch.bfloat16)
+    zero_counts(kernels)
+    with torch.no_grad():
+        y = attn.eval()(x.to(dev))
+        y_cpu = attn.to("cpu")(x)
+    attn.to(dev)
+    xt = x.to(dev).requires_grad_(True)
+    rngs = StepRngs(torch.Generator().manual_seed(0), torch.Generator(device=dev).manual_seed(0))
+    attn.train()(xt, None, rngs).float().square().sum().backward()
+    torch.cuda.synchronize()
+    got = counts(kernels)
+    c12_err = rel_err(y.float().cpu(), y_cpu.float())
+    finite = bool(torch.isfinite(xt.grad.float()).all()) and all(
+        p.grad.dtype == torch.float32 and bool(torch.isfinite(p.grad).all())
+        for p in attn.parameters())
+    out["c12"] = {"C": C, "heads": H, "launches": got, "rel_err_vs_cpu": c12_err,
+                  "finite_f32_gradients": finite}
+    log(f"[{tag}] C12: bf16 WindowAttention at C {C}, {H} heads (hd {C // H}) on the card: eval "
+        f"forward vs the CPU's rel {c12_err:.3e}; a training forward and backward, gradients f32 "
+        f"and finite: {finite}; launches {got}")
+    check_counts(f"{tag}: the C12 width's bf16 forward and backward", got,
+                 {k.__name__: 0 for k in kernels})
+    if not (finite and c12_err <= BF16_FWD_TOL):
+        raise AssertionError(f"{tag}: the C12 width's bf16 route: {out['c12']}")
+    del attn, x, xt
+    torch.cuda.empty_cache()
+    part_done("serve and C12")
+    out["seconds"], out["seconds_by_part"] = time.time() - t_phase, parts
+    log(f"[{tag}] phase 33 in {out['seconds']:.1f}s: " + ", ".join(
+        f"{k} {v:.1f}s" for k, v in parts.items()))
+    return out
+
+
 def check_block_forward(torch, pk, geos, gen, dev):
     """#1 vs plain at each geometry, phase 2's gate; returns the worst
     absolute error (and keeps each in its geometry)."""
@@ -4161,9 +4573,13 @@ def main():
     ph_bf_fwd, ph_bf_bwd = pk.fused_window_block_perhead_bf16, pk.fused_window_block_perhead_backward_bf16
     mlp_bf_fwd, mlp_bf_drop, mlp_bf_bwd = (fm.fused_mlp_forward_bf16, fm.fused_mlp_dropout_forward_bf16,
                                            fm.fused_mlp_backward_bf16)
+    at_bf_fwd, at_bf_drop, at_bf_bwd, at_bf_drop_bwd = (
+        pk.fused_window_attention_bf16, pk.fused_window_attention_dropout_bf16,
+        pk.fused_window_attention_backward_bf16, pk.fused_window_attention_dropout_backward_bf16)
     all_kernels = (fwd, fwd_drop, bwd, ph_fwd, ph_bwd, ct_fwd, ct_bwd, mlp_fwd, mlp_drop, mlp_bwd,
                    at_fwd, at_drop, at_bwd, at_drop_bwd, bf_fwd, bf_drop, bf_bwd, ct_bf_fwd,
-                   ct_bf_bwd, ph_bf_fwd, ph_bf_bwd, mlp_bf_fwd, mlp_bf_drop, mlp_bf_bwd)
+                   ct_bf_bwd, ph_bf_fwd, ph_bf_bwd, mlp_bf_fwd, mlp_bf_drop, mlp_bf_bwd, at_bf_fwd,
+                   at_bf_drop, at_bf_bwd, at_bf_drop_bwd)
     dev = torch.device("cuda")
     card = card_line()
     log(f"card: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -5173,6 +5589,13 @@ def main():
     log(f"[smoke] phase 32 in {mlp_bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
 
+    # ---- 33. -no_pallas_block at -compute_dtype bfloat16: #6-bf16 to #9-bf16
+    # vs their bf16 plain versions and timed; the bf16 steps beside the f32
+    # ones, the rate-0 step, the entry point, a served batch and C12's width
+    attn_bf16 = attention_bf16_paths(torch, np, all_kernels, dev)
+    log(f"[smoke] phase 33 in {attn_bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -5208,7 +5631,7 @@ def main():
                 "no_pallas_block_route_forward": route_fwd,
                 "recipes": recipes, "two_locations": two_loc, "attribution": attribution,
                 "bf16": bf16, "deepsense_bf16": ds_bf16, "wide_bf16": wide_bf16,
-                "mlp_bf16": mlp_bf16,
+                "mlp_bf16": mlp_bf16, "attention_bf16": attn_bf16,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -5567,6 +5990,44 @@ def main():
                        replaces_also=[f"{PK}:601"],
                        launches_per_step=mlp_bf16["launches_per_step"][mlp_bf_bwd.__name__],
                        steps=MLP_BF16_STEPS),
+    ]
+    ae, apaths = attn_bf16["errors"], attn_bf16["paths"]
+    attn_bf16_launches = attn_bf16["steps"]["bfloat16"]["launches"]
+    attn_bf16_per = (f"times: the {per_fwd} launches of one MOD bf16 -no_pallas_block training "
+                     f"step at batch {TRAIN_BATCH} (views fused to {2 * TRAIN_BATCH}; #8-bf16 at "
+                     f"every drop rate 0); launches: {ATTN_BF16_STEPS} timed bf16 -no_pallas_block "
+                     "pretrain steps (#8-bf16: the rate-0 step); max_abs_err: worst over the served "
+                     "and training geometries; bound: the f32 math at 67 TFLOP/s or 3.35 TB/s at "
+                     "bf16 rows")
+
+    def attn_bf16_entry(name, num, line, launches_, tot, err, per=attn_bf16_per, **extra):
+        return bf16_entry(name, num, line, launches_, err, tot, per, source=ATTN_SRC,
+                          bound_by=bound(tot["flops"], tot["bytes"])[1], launches_by_path={p: r["launches"][name] for p, r in apaths.items()}
+                          | {"serve_MOD_bf16_no_pallas_block": attn_bf16["serve"]["launches"][name],
+                             "rate0_step_MOD_bf16_no_pallas_block":
+                                 attn_bf16["rate0"]["launches"][name]}, **extra)
+
+    kernels += [
+        attn_bf16_entry(at_bf_fwd.__name__, "#6-bf16", 119,
+                        attn_bf16["serve"]["launches"][at_bf_fwd.__name__], attn_bf16["serve_forward"],
+                        ae["fwd_abs"],
+                        per=(f"times: the {per_fwd} launches of one MOD bf16 -no_pallas_block "
+                             f"forward at batch {SERVE_BATCH}; launches: the served bf16 "
+                             "-no_pallas_block batch; bound: the f32 math at 67 TFLOP/s or "
+                             "3.35 TB/s at bf16 rows"),
+                        max_rel_err=ae["fwd"], launches_per_forward=per_fwd),
+        attn_bf16_entry(at_bf_drop.__name__, "#7-bf16", 129,
+                        attn_bf16_launches[at_bf_drop.__name__], attn_bf16["train_step"]["drop"],
+                        ae["drop_abs"], max_rel_err=ae["drop"], launches_per_step=per_fwd,
+                        steps=ATTN_BF16_STEPS),
+        attn_bf16_entry(at_bf_bwd.__name__, "#8-bf16", 189,
+                        attn_bf16["rate0"]["launches"][at_bf_bwd.__name__],
+                        attn_bf16["train_step"]["bwd"], ae["bwd_abs"], max_rel_err=ae["bwd"],
+                        launches_per_step=per_fwd),
+        attn_bf16_entry(at_bf_drop_bwd.__name__, "#9-bf16", 200,
+                        attn_bf16_launches[at_bf_drop_bwd.__name__],
+                        attn_bf16["train_step"]["drop_bwd"], ae["bwd_abs"], max_rel_err=ae["bwd"],
+                        launches_per_step=per_fwd, steps=ATTN_BF16_STEPS),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

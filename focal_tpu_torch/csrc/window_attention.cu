@@ -69,6 +69,28 @@
 //   * drel_bias sums ds over every window: each block sums its chunks' ds
 //     per head in pair order in shared memory, and one ordered pass adds
 //     the blocks' partials. No atomics: two calls give the same bits.
+//
+// The bf16 forms (-compute_dtype bfloat16): #6-bf16 to #9-bf16
+// (focal_wattn_fwd_bf16, focal_wattn_bwd_bf16) replace the same TPU kernels
+// fed bf16 q, k, v and g (pk:119, :129, :189, :200), which upcast them to
+// f32 first, compute as in f32 and store out, dq, dk and dv in the inputs'
+// type (pk:235, :254-256), dbias in f32 (pk:257). So do these: the same
+// kernel bodies, instantiated on the element type.
+//   * Rows are staged 16 bytes (8 bf16) at a time by the same cp.async
+//     ring, into the upper half of the 32 bytes each 8 values take in f32;
+//     once its copies land, each thread widens them to f32 in place, before
+//     the chunk's barrier (as it scales f32 q). The ring's layout, the math
+//     and the shared memory stay the f32 kernels' (hd a multiple of 8).
+//   * q_scale is rounded to bf16 once and each q to bf16(q bf16(scale)) as
+//     it is widened: the rounding of the JAX caller's bf16 `qkv[0] * scale`
+//     (focal_tpu/models/swin.py:270).
+//   * Softmax, dropout and every sum stay in f32 with fmaf and expf; out,
+//     dq, dk and dv are rounded to bf16 once as they are stored, the q
+//     columns of d(qkv) as bf16(bf16(dq) bf16(scale)), the VJP of that
+//     multiply; drel_bias stays f32 in the same fixed order.
+//   * What bounds them is bytes, as in f32 (the rows at 2 bytes move half
+//     as many): no tensor-core product is needed.
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -77,6 +99,7 @@
 #include <array>
 #include <map>
 #include <mutex>
+#include <type_traits>
 #include <utility>
 
 #include "gemm_3xtf32.cuh"
@@ -94,6 +117,7 @@ using focal::thread_row;
 constexpr int kMaxN = focal::kAttnMaxN;
 constexpr int kMaxHd = focal::kAttnMaxHd;
 constexpr int kThreads = focal::kAttnThreads;
+using bf16 = __nv_bfloat16;
 
 // The forward's shared memory: the two-slot ring of q, k, v rows.
 size_t fwd_smem_floats(const Geo& g) { return (size_t)6 * g.pairs * g.N * g.stride; }
@@ -105,8 +129,17 @@ size_t bwd_smem_floats(const Geo& g) {
          (size_t)g.H * g.N * g.N;
 }
 
+// The head widths a row of element type T is staged at: multiples of 4
+// floats or of 8 bf16 (16 bytes).
+template <class T>
+constexpr int hd_multiple() {
+  return std::is_same<T, float>::value ? 4 : 8;
+}
+
+template <class T>
 int check_geometry(int B, int H, int N, int hd, const void* mask, int nW) {
-  if (B < 0 || H < 1 || N < 1 || N > kMaxN || hd < 4 || hd > kMaxHd || hd % 4 != 0 ||
+  constexpr int m = hd_multiple<T>();
+  if (B < 0 || H < 1 || N < 1 || N > kMaxN || hd < m || hd > kMaxHd || hd % m != 0 ||
       (long long)B * H * N > 0x7fffffffLL || (mask != nullptr && nW < 1))
     return (int)cudaErrorInvalidValue;
   return 0;
@@ -116,9 +149,10 @@ int check_geometry(int B, int H, int N, int hd, const void* mask, int nW) {
 // the staging both directions share
 
 // The operands a chunk stages: q, k, v (the forward's three), g (the
-// backward's fourth), each [B, H, N, hd] at its own element strides.
+// backward's fourth), each [B, H, N, hd] of T at its own element strides.
+template <class T>
 struct Operands {
-  const float* src[4];
+  const T* src[4];
   Strides st[4];
 };
 
@@ -133,8 +167,8 @@ __device__ __forceinline__ int chunk_pairs(const Geo& g, int chunk) {
 // kThreads / c4 rows a pass): the row's (pair, token) is found once for
 // its kOps operands.
 template <int kOps>
-__device__ __forceinline__ void stage_chunk_async(const Operands& in, int chunk, const Geo& g,
-                                                  float* slot) {
+__device__ __forceinline__ void stage_chunk_async(const Operands<float>& in, int chunk,
+                                                  const Geo& g, float* slot) {
   const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
   const int per_pass = kThreads / g.c4;
   const int c = threadIdx.x % g.c4, r0 = threadIdx.x / g.c4;
@@ -165,6 +199,121 @@ __device__ __forceinline__ void scale_staged_q(int chunk, const Geo& g, float* q
     const float4 y = *x;
     *x = make_float4(y.x * scale, y.y * scale, y.z * scale, y.w * scale);
   }
+}
+
+// x rounded to the nearest bf16 (ties to even), on the card or the host.
+__host__ __device__ inline float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// The staging of one chunk of bf16 operands: stage_chunk_async's ring
+// layout and thread mapping over 8-column groups (c8 = hd / 8 of them):
+// thread tid copies the 16 bytes of group tid % c8 of rows tid / c8, + R,
+// ... (R = kThreads / c8) by cp.async into the upper half of the 32 bytes
+// the group takes in f32, where widen_staged_bf16 later reads them.
+template <int kOps>
+__device__ __forceinline__ void stage_chunk_async_bf16(const Operands<bf16>& in, int chunk,
+                                                       const Geo& g, float* slot) {
+  const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
+  const int c8 = g.c4 / 2;
+  const int per_pass = kThreads / c8;
+  const int c = threadIdx.x % c8, r0 = threadIdx.x / c8;
+  if (r0 >= per_pass) return;
+  const int slab = g.pairs * g.N * g.stride;
+  for (int r = r0; r < np * g.N; r += per_pass) {
+    const int pl = r / g.N, i = r - pl * g.N;
+    const int pair = p0 + pl;
+    const int b = pair / g.H, h = pair - b * g.H;
+#pragma unroll
+    for (int o = 0; o < kOps; ++o) {
+      const bf16* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
+      focal::cp_async16(slot + o * slab + r * g.stride + 8 * c + 4,
+                        reinterpret_cast<const float*>(row + 8 * c), true);
+    }
+  }
+}
+
+// Widen the chunk's bf16 rows in a ring slot to f32 in place: each thread
+// reads the 16 bytes it copied itself (stage_chunk_async_bf16's mapping)
+// and writes the group's 8 floats over them, so it may do so right after
+// its own cp_async_wait, before the chunk's barrier. q (operand 0) becomes
+// bf16(q q_scale) where q_scale != 1 (q_scale is a bf16 value: the product
+// of two is exact in f32, then rounded once).
+template <int kOps>
+__device__ __forceinline__ void widen_staged_bf16(int chunk, const Geo& g, float* slot,
+                                                  float q_scale) {
+  const int np = chunk_pairs(g, chunk);
+  const int c8 = g.c4 / 2;
+  const int per_pass = kThreads / c8;
+  const int c = threadIdx.x % c8, r0 = threadIdx.x / c8;
+  if (r0 >= per_pass) return;
+  const int slab = g.pairs * g.N * g.stride;
+  for (int r = r0; r < np * g.N; r += per_pass) {
+#pragma unroll
+    for (int o = 0; o < kOps; ++o) {
+      float4* d = reinterpret_cast<float4*>(slot + o * slab + r * g.stride + 8 * c);
+      const uint4 u = *reinterpret_cast<const uint4*>(d + 1);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+      float f[8];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {  // the lower bf16 of a word is the lower address
+        f[2 * e] = __uint_as_float(w[e] << 16);
+        f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
+      }
+      if (o == 0 && q_scale != 1.f) {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) f[e] = round_bf16(f[e] * q_scale);
+      }
+      d[0] = make_float4(f[0], f[1], f[2], f[3]);
+      d[1] = make_float4(f[4], f[5], f[6], f[7]);
+    }
+  }
+}
+
+// A chunk's staging by element type, both by cp.async: f32 rows, or bf16
+// rows that land_chunk widens.
+template <int kOps>
+__device__ __forceinline__ void stage_chunk(const Operands<float>& in, int chunk, const Geo& g,
+                                            float* slot) {
+  stage_chunk_async<kOps>(in, chunk, g, slot);
+}
+
+template <int kOps>
+__device__ __forceinline__ void stage_chunk(const Operands<bf16>& in, int chunk, const Geo& g,
+                                            float* slot) {
+  stage_chunk_async_bf16<kOps>(in, chunk, g, slot);
+}
+
+// What a thread does to its own copies of a chunk once they have landed,
+// before the chunk's barrier: scale the f32 q rows (scale_staged_q), or
+// widen the bf16 rows to f32, q scaled and rounded (widen_staged_bf16).
+template <class T, int kOps>
+__device__ __forceinline__ void land_chunk(int chunk, const Geo& g, float* slot, float q_scale) {
+  if (std::is_same<T, float>::value) {
+    if (q_scale != 1.f) scale_staged_q(chunk, g, slot, q_scale);
+  } else {
+    widen_staged_bf16<kOps>(chunk, g, slot, q_scale);
+  }
+}
+
+// Four f32 results stored at p: as a float4, or rounded to bf16 (8 bytes).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// dq as it leaves for d(qkv): times dq_scale in f32, or in bf16 the VJP of
+// the caller's bf16 q * scale, bf16(bf16(dq) scale) (store4 rounds last).
+template <class T>
+__device__ __forceinline__ float4 scaled_dq(float4 a, float s) {
+  if (std::is_same<T, float>::value) return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
+  return make_float4(round_bf16(a.x) * s, round_bf16(a.y) * s, round_bf16(a.z) * s,
+                     round_bf16(a.w) * s);
 }
 
 // The keep flags of keys 0..N-1 of one (window, head, query row), as bit j
@@ -198,18 +347,21 @@ __device__ __forceinline__ unsigned keep_bits_row(unsigned long long seed, unsig
 // out_i = a_v v, written at the caller's strides `so`. One barrier a chunk:
 // the one after a chunk's copies land (and its q is scaled) also frees the
 // other slot, which the chunk before was read from, so the next chunk's
-// copies are issued right after it. kN and kCols as in wattn_bwd_kernel.
-template <int kN, int kCols, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
-wattn_fwd_kernel(Operands in, Strides so, const float* __restrict__ rel_bias,
-                 const float* __restrict__ mask, float* __restrict__ out, float q_scale,
-                 unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
+// copies are issued right after it. kN and kCols as in wattn_bwd; T the
+// element type of q, k, v and out (float, or bf16: stage_chunk_async_bf16).
+template <class T, int kN, int kCols, bool kDropout>
+__device__ __forceinline__ void wattn_fwd(const Operands<T>& in, Strides so,
+                                          const float* __restrict__ rel_bias,
+                                          const float* __restrict__ mask, T* __restrict__ out,
+                                          float q_scale, unsigned long long seed,
+                                          unsigned threshold, float inv_keep, const Geo& g,
+                                          int nW) {
   extern __shared__ float4 smem4[];
   const int N = kN < kMaxN ? kN : g.N, slab = g.pairs * N * g.stride;
   float* ring = reinterpret_cast<float*>(smem4);  // [2][q, k, v][P][N][stride]
   const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
 
-  stage_chunk_async<3>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  stage_chunk<3>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
   focal::cp_async_commit();
 
   int it = 0;
@@ -217,11 +369,11 @@ wattn_fwd_kernel(Operands in, Strides so, const float* __restrict__ rel_bias,
     const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
     float* qs = ring + (it & 1) * 3 * slab;
     focal::cp_async_wait<0>();  // this thread's copies of the chunk have landed
-    if (q_scale != 1.f) scale_staged_q(chunk, g, qs, q_scale);
-    __syncthreads();  // and every thread's, scaled; the other slot is free
+    land_chunk<T, 3>(chunk, g, qs, q_scale);
+    __syncthreads();  // and every thread's, scaled (widened); the other slot is free
     const int next = chunk + gridDim.x;
     if (next < nchunks)  // the next chunk's loads fly while this one computes
-      stage_chunk_async<3>(in, next, g, ring + ((it + 1) & 1) * 3 * slab);
+      stage_chunk<3>(in, next, g, ring + ((it + 1) & 1) * 3 * slab);
     focal::cp_async_commit();
     const float* ks = qs + slab;
     const float* vs = ks + slab;
@@ -258,7 +410,7 @@ wattn_fwd_kernel(Operands in, Strides so, const float* __restrict__ rel_bias,
         if (focal::key_in_row<kN>(j, N)) p[j] = (kept >> j) & 1u ? p[j] * inv_keep : 0.f;
     }
     const float* vb = vs + t.pl * N * g.stride;
-    float4* o = reinterpret_cast<float4*>(out + t.w * so.b + t.h * so.h + t.i * so.n);
+    T* o = out + t.w * so.b + t.h * so.h + t.i * so.n;
     focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -271,9 +423,27 @@ wattn_fwd_kernel(Operands in, Strides so, const float* __restrict__ rel_bias,
           acc.w = fmaf(p[j], y.w, acc.w);
         }
       }
-      if (t.active) o[c] = acc;
+      if (t.active) store4(o + 4 * c, acc);
     });
   }
+}
+
+template <int kN, int kCols, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 2)
+wattn_fwd_kernel(Operands<float> in, Strides so, const float* __restrict__ rel_bias,
+                 const float* __restrict__ mask, float* __restrict__ out, float q_scale,
+                 unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
+  wattn_fwd<float, kN, kCols, kDropout>(in, so, rel_bias, mask, out, q_scale, seed, threshold,
+                                        inv_keep, g, nW);
+}
+
+template <int kN, int kCols, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 2)
+wattn_fwd_bf16_kernel(Operands<bf16> in, Strides so, const float* __restrict__ rel_bias,
+                      const float* __restrict__ mask, bf16* __restrict__ out, float q_scale,
+                      unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
+  wattn_fwd<bf16, kN, kCols, kDropout>(in, so, rel_bias, mask, out, q_scale, seed, threshold,
+                                       inv_keep, g, nW);
 }
 
 // ---------------------------------------------------------------------------
@@ -299,14 +469,15 @@ struct OutStrides {
 // chunk before), so the next chunk's copies are issued right after it. kN
 // = 9 is the 3 x 3 window's exact row tile, kN = kAttnMaxN any N up to 16;
 // kCols > 0 unrolls a lane's kCols float4 columns (c4 = kCols G: 2 at hd
-// 16, 32 and 64).
-template <int kN, int kCols, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
-wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
-                 const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
-                 float* __restrict__ dv, float q_scale, float dq_scale,
-                 float* __restrict__ dbias_part, unsigned long long seed, unsigned threshold,
-                 float inv_keep, Geo g, int nW) {
+// 16, 32 and 64). T is the element type of q, k, v, g, dq, dk and dv.
+template <class T, int kN, int kCols, bool kDropout>
+__device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStrides& so,
+                                          const float* __restrict__ rel_bias,
+                                          const float* __restrict__ mask, T* __restrict__ dq,
+                                          T* __restrict__ dk, T* __restrict__ dv, float q_scale,
+                                          float dq_scale, float* __restrict__ dbias_part,
+                                          unsigned long long seed, unsigned threshold,
+                                          float inv_keep, const Geo& g, int nW) {
   extern __shared__ float4 smem4[];
   const int N = kN < kMaxN ? kN : g.N, nn = N * N, slab = g.pairs * N * g.stride;
   float* ring = reinterpret_cast<float*>(smem4);  // [2][q, k, v, g][P][N][stride]
@@ -316,7 +487,7 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
   const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
 
   for (int e = threadIdx.x; e < g.H * nn; e += kThreads) dacc[e] = 0.f;
-  stage_chunk_async<4>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  stage_chunk<4>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
   focal::cp_async_commit();
 
   int it = 0;
@@ -324,11 +495,11 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
     const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
     float* qs = ring + (it & 1) * 4 * slab;
     focal::cp_async_wait<0>();  // this chunk's copies have landed (each thread its own)
-    if (q_scale != 1.f) scale_staged_q(chunk, g, qs, q_scale);
+    land_chunk<T, 4>(chunk, g, qs, q_scale);
     __syncthreads();            // and every thread's; the other slot and ds / a_v are free
     const int next = chunk + gridDim.x;
     if (next < nchunks)  // the next chunk's loads fly while this one computes
-      stage_chunk_async<4>(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
+      stage_chunk<4>(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
     focal::cp_async_commit();
     const float* ks = qs + slab;
     const float* vs = ks + slab;
@@ -384,7 +555,7 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
         }
       }
     }
-    float4* dqo = reinterpret_cast<float4*>(dq + t.w * so.dq.b + t.h * so.dq.h + t.i * so.dq.n);
+    T* dqo = dq + t.w * so.dq.b + t.h * so.dq.h + t.i * so.dq.n;
     focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -397,9 +568,7 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
           acc.w = fmaf(ds[j], y.w, acc.w);
         }
       }
-      if (t.active)
-        dqo[c] = make_float4(acc.x * dq_scale, acc.y * dq_scale, acc.z * dq_scale,
-                             acc.w * dq_scale);
+      if (t.active) store4(dqo + 4 * c, scaled_dq<T>(acc, dq_scale));
     });
     __syncthreads();
 
@@ -418,8 +587,8 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
           avj[i] = avc[i * N];
         }
       }
-      float4* dko = reinterpret_cast<float4*>(dk + t.w * so.dk.b + t.h * so.dk.h + j * so.dk.n);
-      float4* dvo = reinterpret_cast<float4*>(dv + t.w * so.dv.b + t.h * so.dv.h + j * so.dv.n);
+      T* dko = dk + t.w * so.dk.b + t.h * so.dk.h + j * so.dk.n;
+      T* dvo = dv + t.w * so.dv.b + t.h * so.dv.h + j * so.dv.n;
       focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
 #pragma unroll
@@ -437,8 +606,8 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
             b.w = fmaf(avj[i], y.w, b.w);
           }
         }
-        dko[c] = a;
-        dvo[c] = b;
+        store4(dko + 4 * c, a);
+        store4(dvo + 4 * c, b);
       });
     }
     // the block's d rel_bias: element (h, i, j) adds the chunk's pairs of
@@ -453,6 +622,28 @@ wattn_bwd_kernel(Operands in, OutStrides so, const float* __restrict__ rel_bias,
   __syncthreads();
   for (int e = threadIdx.x; e < g.H * nn; e += kThreads)
     dbias_part[(size_t)blockIdx.x * g.H * nn + e] = dacc[e];
+}
+
+template <int kN, int kCols, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 2)
+wattn_bwd_kernel(Operands<float> in, OutStrides so, const float* __restrict__ rel_bias,
+                 const float* __restrict__ mask, float* __restrict__ dq, float* __restrict__ dk,
+                 float* __restrict__ dv, float q_scale, float dq_scale,
+                 float* __restrict__ dbias_part, unsigned long long seed, unsigned threshold,
+                 float inv_keep, Geo g, int nW) {
+  wattn_bwd<float, kN, kCols, kDropout>(in, so, rel_bias, mask, dq, dk, dv, q_scale, dq_scale,
+                                        dbias_part, seed, threshold, inv_keep, g, nW);
+}
+
+template <int kN, int kCols, bool kDropout>
+__global__ void __launch_bounds__(kThreads, 2)
+wattn_bwd_bf16_kernel(Operands<bf16> in, OutStrides so, const float* __restrict__ rel_bias,
+                      const float* __restrict__ mask, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, float q_scale, float dq_scale,
+                      float* __restrict__ dbias_part, unsigned long long seed, unsigned threshold,
+                      float inv_keep, Geo g, int nW) {
+  wattn_bwd<bf16, kN, kCols, kDropout>(in, so, rel_bias, mask, dq, dk, dv, q_scale, dq_scale,
+                                       dbias_part, seed, threshold, inv_keep, g, nW);
 }
 
 // out[e] = sum over s (in order) of part[s][e]: the ordered second pass of
@@ -497,24 +688,40 @@ cudaError_t raise_smem(Kernel kernel, size_t bytes) {
   return err;
 }
 
-using FwdKernel = void (*)(Operands, Strides, const float*, const float*, float*, float,
-                          unsigned long long, unsigned, float, Geo, int);
-using BwdKernel = void (*)(Operands, OutStrides, const float*, const float*, float*, float*,
-                          float*, float, float, float*, unsigned long long, unsigned, float, Geo,
-                          int);
+template <class T>
+using FwdKernel = void (*)(Operands<T>, Strides, const float*, const float*, T*, float,
+                           unsigned long long, unsigned, float, Geo, int);
+template <class T>
+using BwdKernel = void (*)(Operands<T>, OutStrides, const float*, const float*, T*, T*, T*, float,
+                           float, float*, unsigned long long, unsigned, float, Geo, int);
+
+// A kernel instance of element type T: the f32 kernels, or their bf16 twins.
+template <class T, int kN, int kCols, bool kDropout>
+FwdKernel<T> fwd_instance() {
+  if constexpr (std::is_same<T, float>::value) return wattn_fwd_kernel<kN, kCols, kDropout>;
+  else return wattn_fwd_bf16_kernel<kN, kCols, kDropout>;
+}
+
+template <class T, int kN, int kCols, bool kDropout>
+BwdKernel<T> bwd_instance() {
+  if constexpr (std::is_same<T, float>::value) return wattn_bwd_kernel<kN, kCols, kDropout>;
+  else return wattn_bwd_bf16_kernel<kN, kCols, kDropout>;
+}
 
 // Each direction's instance: the exact 3 x 3 window tile with two float4
 // columns a lane (hd 16, 32, 64 at N = 9), or any N and head width.
-FwdKernel fwd_kernel(const Geo& g, bool dropout) {
+template <class T>
+FwdKernel<T> fwd_kernel(const Geo& g, bool dropout) {
   if (g.N == 9 && g.c4 == 2 * g.lanes)
-    return dropout ? wattn_fwd_kernel<9, 2, true> : wattn_fwd_kernel<9, 2, false>;
-  return dropout ? wattn_fwd_kernel<kMaxN, 0, true> : wattn_fwd_kernel<kMaxN, 0, false>;
+    return dropout ? fwd_instance<T, 9, 2, true>() : fwd_instance<T, 9, 2, false>();
+  return dropout ? fwd_instance<T, kMaxN, 0, true>() : fwd_instance<T, kMaxN, 0, false>();
 }
 
-BwdKernel bwd_kernel(const Geo& g, bool dropout) {
+template <class T>
+BwdKernel<T> bwd_kernel(const Geo& g, bool dropout) {
   if (g.N == 9 && g.c4 == 2 * g.lanes)
-    return dropout ? wattn_bwd_kernel<9, 2, true> : wattn_bwd_kernel<9, 2, false>;
-  return dropout ? wattn_bwd_kernel<kMaxN, 0, true> : wattn_bwd_kernel<kMaxN, 0, false>;
+    return dropout ? bwd_instance<T, 9, 2, true>() : bwd_instance<T, 9, 2, false>();
+  return dropout ? bwd_instance<T, kMaxN, 0, true>() : bwd_instance<T, kMaxN, 0, false>();
 }
 
 // A launch plan on the current device: make_geo's pairs a block, fewer
@@ -579,15 +786,81 @@ Plan<Kernel> cached_plan(int B, int H, int N, int hd, bool dropout,
   return P;
 }
 
-Plan<FwdKernel> fwd_plan(int B, int H, int N, int hd, bool dropout) {
-  return cached_plan(B, H, N, hd, dropout, fwd_kernel, fwd_smem_floats);
+template <class T>
+Plan<FwdKernel<T>> fwd_plan(int B, int H, int N, int hd, bool dropout) {
+  return cached_plan(B, H, N, hd, dropout, fwd_kernel<T>, fwd_smem_floats);
 }
 
-Plan<BwdKernel> bwd_plan(int B, int H, int N, int hd, bool dropout) {
-  return cached_plan(B, H, N, hd, dropout, bwd_kernel, bwd_smem_floats);
+template <class T>
+Plan<BwdKernel<T>> bwd_plan(int B, int H, int N, int hd, bool dropout) {
+  return cached_plan(B, H, N, hd, dropout, bwd_kernel<T>, bwd_smem_floats);
 }
 
 Strides strides_at(const long long* s, int k) { return Strides{s[3 * k], s[3 * k + 1], s[3 * k + 2]}; }
+
+template <class T>
+int wattn_fwd_launch(const void* q, const void* k, const void* v, const void* rel_bias,
+                     const void* mask, void* out, const long long* strides, float q_scale, int B,
+                     int H, int N, int hd, int nW, int dropout, unsigned long long seed,
+                     unsigned threshold, float inv_keep, void* stream) {
+  if (int e = check_geometry<T>(B, H, N, hd, mask, nW)) return e;
+  if (B == 0) return 0;
+  const Plan<FwdKernel<T>> P = fwd_plan<T>(B, H, N, hd, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  const Operands<T> in{{static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), nullptr},
+                       {strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+                        Strides{}}};
+  P.kernel<<<P.grid, kThreads, P.smem, static_cast<cudaStream_t>(stream)>>>(
+      in, strides_at(strides, 3), static_cast<const float*>(rel_bias),
+      static_cast<const float*>(mask), static_cast<T*>(out), q_scale, seed, threshold, inv_keep,
+      P.geo, mask != nullptr ? nW : 1);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int wattn_bwd_workspace(int B, int H, int N, int hd, int dropout, long long* floats) {
+  if (int e = check_geometry<T>(B, H, N, hd, nullptr, 1)) return e;
+  if (B == 0) {
+    *floats = 0;
+    return 0;
+  }
+  const Plan<BwdKernel<T>> P = bwd_plan<T>(B, H, N, hd, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  *floats = (long long)P.grid * H * N * N;
+  return 0;
+}
+
+template <class T>
+int wattn_bwd_launch(const void* q, const void* k, const void* v, const void* g_out,
+                     const long long* strides, const void* rel_bias, const void* mask, void* dq,
+                     void* dk, void* dv, const long long* out_strides, float q_scale,
+                     float dq_scale, void* drel_bias, void* ws, int B, int H, int N, int hd,
+                     int nW, int dropout, unsigned long long seed, unsigned threshold,
+                     float inv_keep, void* stream) {
+  if (int e = check_geometry<T>(B, H, N, hd, mask, nW)) return e;
+  if (B == 0) return 0;
+  const Plan<BwdKernel<T>> P = bwd_plan<T>(B, H, N, hd, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  float* part = static_cast<float*>(ws);
+  const Operands<T> in{{static_cast<const T*>(q), static_cast<const T*>(k),
+                        static_cast<const T*>(v), static_cast<const T*>(g_out)},
+                       {strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
+                        strides_at(strides, 3)}};
+  const OutStrides so{strides_at(out_strides, 0), strides_at(out_strides, 1),
+                      strides_at(out_strides, 2)};
+  P.kernel<<<P.grid, kThreads, P.smem, s>>>(
+      in, so, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
+      static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), q_scale, dq_scale, part, seed,
+      threshold, inv_keep, P.geo, mask != nullptr ? nW : 1);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int E = H * N * N;
+  reduce_partials_kernel<<<(E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
+      part, P.grid, E, static_cast<float*>(drel_bias));
+  return (int)cudaGetLastError();
+}
 
 }  // namespace
 
@@ -606,34 +879,34 @@ extern "C" int focal_wattn_fwd(const void* q, const void* k, const void* v, cons
                                float q_scale, int B, int H, int N, int hd, int nW, int dropout,
                                unsigned long long seed, unsigned threshold, float inv_keep,
                                void* stream) {
-  if (int e = check_geometry(B, H, N, hd, mask, nW)) return e;
-  if (B == 0) return 0;
-  const Plan<FwdKernel> P = fwd_plan(B, H, N, hd, dropout != 0);
-  if (P.err != cudaSuccess) return (int)P.err;
-  const Operands in{{static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), nullptr},
-                    {strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
-                     Strides{}}};
-  P.kernel<<<P.grid, kThreads, P.smem, static_cast<cudaStream_t>(stream)>>>(
-      in, strides_at(strides, 3), static_cast<const float*>(rel_bias),
-      static_cast<const float*>(mask), static_cast<float*>(out), q_scale, seed, threshold,
-      inv_keep, P.geo, mask != nullptr ? nW : 1);
-  return (int)cudaGetLastError();
+  return wattn_fwd_launch<float>(q, k, v, rel_bias, mask, out, strides, q_scale, B, H, N, hd, nW,
+                                 dropout, seed, threshold, inv_keep, stream);
+}
+
+// #6-bf16 / #7-bf16: focal_wattn_fwd's arguments with q, k, v and out bf16
+// (hd a multiple of 8; every stride a multiple of 8 elements and the
+// pointers 16-byte aligned), rel_bias and mask f32. q_scale is rounded to
+// bf16 here, and each q to bf16(q q_scale) as it is widened.
+extern "C" int focal_wattn_fwd_bf16(const void* q, const void* k, const void* v,
+                                    const void* rel_bias, const void* mask, void* out,
+                                    const long long* strides, float q_scale, int B, int H, int N,
+                                    int hd, int nW, int dropout, unsigned long long seed,
+                                    unsigned threshold, float inv_keep, void* stream) {
+  return wattn_fwd_launch<bf16>(q, k, v, rel_bias, mask, out, strides, round_bf16(q_scale), B, H,
+                                N, hd, nW, dropout, seed, threshold, inv_keep, stream);
 }
 
 // Workspace of the backward, in floats, for this geometry on the current
 // device: the blocks' d rel_bias partials. An error where it has no plan.
 extern "C" int focal_wattn_bwd_workspace(int B, int H, int N, int hd, int dropout,
                                          long long* floats) {
-  if (int e = check_geometry(B, H, N, hd, nullptr, 1)) return e;
-  if (B == 0) {
-    *floats = 0;
-    return 0;
-  }
-  const Plan<BwdKernel> P = bwd_plan(B, H, N, hd, dropout != 0);
-  if (P.err != cudaSuccess) return (int)P.err;
-  *floats = (long long)P.grid * H * N * N;
-  return 0;
+  return wattn_bwd_workspace<float>(B, H, N, hd, dropout, floats);
+}
+
+// The workspace of focal_wattn_bwd_bf16 (its own plan), as above.
+extern "C" int focal_wattn_bwd_workspace_bf16(int B, int H, int N, int hd, int dropout,
+                                              long long* floats) {
+  return wattn_bwd_workspace<bf16>(B, H, N, hd, dropout, floats);
 }
 
 // Backward: #8 (dropout 0) or #9 (dropout 1, the forward's mask drawn again
@@ -652,28 +925,26 @@ extern "C" int focal_wattn_bwd(const void* q, const void* k, const void* v, cons
                                float q_scale, float dq_scale, void* drel_bias, void* ws, int B,
                                int H, int N, int hd, int nW, int dropout, unsigned long long seed,
                                unsigned threshold, float inv_keep, void* stream) {
-  if (int e = check_geometry(B, H, N, hd, mask, nW)) return e;
-  if (B == 0) return 0;
-  const Plan<BwdKernel> P = bwd_plan(B, H, N, hd, dropout != 0);
-  if (P.err != cudaSuccess) return (int)P.err;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  float* part = static_cast<float*>(ws);
-  const Operands in{{static_cast<const float*>(q), static_cast<const float*>(k),
-                     static_cast<const float*>(v), static_cast<const float*>(g_out)},
-                    {strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
-                     strides_at(strides, 3)}};
-  const OutStrides so{strides_at(out_strides, 0), strides_at(out_strides, 1),
-                      strides_at(out_strides, 2)};
-  P.kernel<<<P.grid, kThreads, P.smem, s>>>(
-      in, so, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
-      static_cast<float*>(dq), static_cast<float*>(dk), static_cast<float*>(dv), q_scale,
-      dq_scale, part, seed, threshold, inv_keep, P.geo, mask != nullptr ? nW : 1);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int E = H * N * N;
-  reduce_partials_kernel<<<(E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part, P.grid, E, static_cast<float*>(drel_bias));
-  return (int)cudaGetLastError();
+  return wattn_bwd_launch<float>(q, k, v, g_out, strides, rel_bias, mask, dq, dk, dv, out_strides,
+                                 q_scale, dq_scale, drel_bias, ws, B, H, N, hd, nW, dropout, seed,
+                                 threshold, inv_keep, stream);
+}
+
+// #8-bf16 / #9-bf16: focal_wattn_bwd's arguments with q, k, v, g, dq, dk and
+// dv bf16 (strides and pointers as focal_wattn_fwd_bf16's), `ws` holding
+// focal_wattn_bwd_workspace_bf16 floats; drel_bias f32. q_scale and dq_scale
+// are rounded to bf16 here; dq leaves as bf16(bf16(dq) dq_scale), the
+// gradient of the caller's bf16 q before its bf16 multiply by the scale.
+extern "C" int focal_wattn_bwd_bf16(const void* q, const void* k, const void* v,
+                                    const void* g_out, const long long* strides,
+                                    const void* rel_bias, const void* mask, void* dq, void* dk,
+                                    void* dv, const long long* out_strides, float q_scale,
+                                    float dq_scale, void* drel_bias, void* ws, int B, int H, int N,
+                                    int hd, int nW, int dropout, unsigned long long seed,
+                                    unsigned threshold, float inv_keep, void* stream) {
+  return wattn_bwd_launch<bf16>(q, k, v, g_out, strides, rel_bias, mask, dq, dk, dv, out_strides,
+                                round_bf16(q_scale), round_bf16(dq_scale), drel_bias, ws, B, H, N,
+                                hd, nW, dropout, seed, threshold, inv_keep, stream);
 }
 
 // The keep mask #7 and #9 draw for `seed` at this geometry, written out as
@@ -681,7 +952,7 @@ extern "C" int focal_wattn_bwd(const void* q, const void* k, const void* v, cons
 // themselves never store it.
 extern "C" int focal_wattn_keep_mask(void* keep, int B, int H, int N, unsigned long long seed,
                                      unsigned threshold, void* stream) {
-  if (int e = check_geometry(B, H, N, 4, nullptr, 1)) return e;
+  if (int e = check_geometry<float>(B, H, N, 4, nullptr, 1)) return e;
   if (B == 0) return 0;
   const int rows = B * H * N;
   const int grid = std::min((rows + kThreads - 1) / kThreads, 4096);

@@ -21,12 +21,13 @@ def build_backbone(dataset_config, model, task, learn_framework="no", pallas_con
     attention through the attention-only kernels, as its
     ``-no_pallas_block``. ``compute_dtype`` ("float32" or "bfloat16", the
     JAX package's ``-compute_dtype``) is the activations' type over f32
-    parameters; bf16 runs SW_Transformer's whole-block route (#1-bf16 to
-    #3-bf16) and DeepSense (its conv blocks on cuDNN's bf16 convs, or with
-    ``pallas_conv`` through the conv tower's bf16 forms #13-bf16/#14-bf16),
-    and raises NotImplementedError naming ROADMAP A6 for what has no bf16
-    form yet: -pallas_mlp, -no_pallas_block and the blocks that go to
-    #4/#5 (MOD_WIDE's stages 1 and 2)."""
+    parameters; bf16 runs every route of both backbones in its bf16 form:
+    SW_Transformer's whole-block route (#1-bf16 to #5-bf16), with
+    ``pallas_mlp`` its MLPs through #10-bf16 to #12-bf16, with
+    ``pallas_block=False`` its attention through #6-bf16 to #9-bf16, and
+    the XLA attention in bf16 at widths no bf16 kernel takes; DeepSense on
+    cuDNN's bf16 convs, or with ``pallas_conv`` through the conv tower's
+    bf16 forms #13-bf16/#14-bf16."""
     if model not in ("SW_Transformer", "DeepSense"):
         raise ValueError(f"Invalid model provided: {model}")
     dtype = COMPUTE_DTYPES[compute_dtype]

@@ -29,9 +29,11 @@ attention takes the bf16 whole-block kernels (#1-bf16 in eval, #2-bf16 or
 the blocks ``wblock_fits`` sends to the per-head kernels) with the q scale
 folded into the f32 qkv weights before they are rounded; with
 ``pallas_mlp`` the MLP takes #10-bf16 to #12-bf16 over its f32 weights.
-The routes whose bf16 forms are not ported (the attention-only and XLA
-routes) raise NotImplementedError naming ROADMAP A6 when the block is
-built.
+With ``pallas_block`` off it takes the bf16 qkv and proj Linears around
+the bf16 attention-only kernels (#6-bf16 in eval, #7-bf16 or #6-bf16
+forward and #9-bf16 or #8-bf16 backward in training); a width that no bf16
+kernel takes runs the XLA route in bf16, rounding where the JAX package's
+does op by op.
 
 Parameter names follow the flax tree (``norm1``, ``attn.qkv``, ``mlp.Dense_0``,
 ``downsample.reduction`` ...) so a reader can map one to the other; weights
@@ -46,6 +48,7 @@ from focal_tpu_torch.models.layers import Dense, LayerNorm, gelu
 from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
 from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_takes
 from focal_tpu_torch.ops.pallas_kernels import (attention_takes, fused_window_attention,
+                                                fused_window_attention_bf16, scale_bf16,
                                                 wblock_takes, window_attention_qkv, window_block,
                                                 window_block_forward)
 
@@ -114,8 +117,9 @@ class WindowAttention(nn.Module):
     """W-MSA with relative position bias, through the whole-block kernels, or
     with ``pallas_block`` off through the attention-only kernels between the
     qkv and proj Linears; attention dropout in the kernel, ``proj_drop`` on
-    its output. In bf16 only the whole-block route is ported (#1-bf16 to
-    #5-bf16): a block of another route raises."""
+    its output. Each route has its bf16 form, the Linears ``Dense`` layers
+    that compute in ``compute_dtype``; a width that no kernel takes in that
+    type runs the plain XLA route."""
 
     def __init__(self, dim, window_size, num_heads, qkv_bias=True, attn_drop=0.0, proj_drop=0.0,
                  pallas_block=True, compute_dtype=torch.float32):
@@ -128,10 +132,9 @@ class WindowAttention(nn.Module):
         self.proj_drop = float(proj_drop)
         self.compute_dtype = compute_dtype
         wh, ww = self.window_size
-        if compute_dtype != torch.float32:
-            _refuse_low_precision_route(wh * ww, dim, num_heads, self.pallas_block)
-        self.qkv = nn.Linear(dim, 3 * dim, bias=qkv_bias)  # columns part|head|dim
-        self.proj = nn.Linear(dim, dim)
+        # columns part|head|dim
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, compute_dtype=compute_dtype)
+        self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads)
         )
@@ -191,7 +194,9 @@ class WindowAttention(nn.Module):
         of the proj Linear's [B_, N, C] input, so nothing scales q or lays
         the output out in between. In training the kernels' backward hands
         the qkv Linear its gradient as one [B_, N, 3C] tensor
-        (``window_attention_qkv``)."""
+        (``window_attention_qkv``). In bf16 the Linears compute in bf16 and
+        the bf16 kernels (#6-bf16 to #9-bf16) round q * scale as the JAX
+        package's bf16 multiply does."""
         B_, N, C = x.shape
         H = self.num_heads
         hd = C // H
@@ -202,33 +207,52 @@ class WindowAttention(nn.Module):
         else:
             q, k, v = qkv.reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
             y = torch.empty((B_, N, C), dtype=qkv.dtype, device=qkv.device)
-            out = fused_window_attention(q, k, v, self._rel_bias(), mask, q_scale=hd**-0.5,
-                                         out=y.view(B_, N, H, hd).transpose(1, 2))
+            attend = (fused_window_attention_bf16 if qkv.dtype == torch.bfloat16
+                      else fused_window_attention)
+            out = attend(q, k, v, self._rel_bias(), mask, q_scale=hd**-0.5,
+                         out=y.view(B_, N, H, hd).transpose(1, 2))
         return self.proj(out.transpose(1, 2).reshape(B_, N, C))
 
     def _plain_attention(self, x, mask, rng):
         """The JAX package's XLA route (``focal_tpu/models/swin.py:296-317``)
         for the widths no kernel takes (``wblock_takes``,
         ``attention_takes``): qkv Linear, softmax(q k^T + bias + mask) with
-        the quantised dropout of ``remat_dropout``, proj Linear."""
+        the quantised dropout of ``remat_dropout``, proj Linear. In bf16 it
+        rounds where JAX's route does when run op by op: q * scale as
+        ``scale_bf16``; at N <= 16 (its ``small_window``) the scores and
+        the weighted sum as bf16 products summed in f32 and rounded once,
+        else bf16 matmuls; the bias, mask and softmax in f32, the weights
+        rounded to bf16 before the dropout."""
         B_, N, C = x.shape
         H = self.num_heads
         hd = C // H
         q, k, v = self.qkv(x).reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
-        attn = torch.matmul(q * hd**-0.5, k.transpose(-1, -2)) + self._rel_bias()[None]
+        low = q.dtype != torch.float32
+        if low:
+            q = scale_bf16(q, hd**-0.5)
+            if N <= 16:
+                attn = (q[:, :, :, None, :] * k[:, :, None, :, :]).sum(-1)
+            else:
+                attn = torch.matmul(q, k.transpose(-1, -2))
+            attn = attn.float() + self._rel_bias()[None]
+        else:
+            attn = torch.matmul(q * hd**-0.5, k.transpose(-1, -2)) + self._rel_bias()[None]
         if mask is not None:
             nW = mask.shape[0]
             attn = (attn.reshape(B_ // nW, nW, H, N, N) + mask[None, :, None]).reshape(B_, H, N, N)
-        attn = torch.softmax(attn, dim=-1)
+        attn = torch.softmax(attn, dim=-1).to(q.dtype)
         if self.training and self.attn_drop > 0.0:
             attn = remat_dropout(attn, self.attn_drop, needs_rng(rng, "attention dropout").device)
-        out = torch.matmul(attn, v)
+        if low and N <= 16:
+            out = (attn[..., None] * v[:, :, None, :, :]).sum(-2)
+        else:
+            out = torch.matmul(attn, v)
         return self.proj(out.transpose(1, 2).reshape(B_, N, C))
 
     def forward(self, x, mask=None, rng=None):
-        N, C, H = x.shape[1], self.dim, self.num_heads
-        if not (self.pallas_block and wblock_takes(N, C, H)):
-            if attention_takes(N, C // H):
+        N, C, H, dt = x.shape[1], self.dim, self.num_heads, self.compute_dtype
+        if not (self.pallas_block and wblock_takes(N, C, H, dt)):
+            if attention_takes(N, C // H, dt):
                 out = self._attention_only(x, mask, rng)
             else:
                 out = self._plain_attention(x, mask, rng)
@@ -246,22 +270,6 @@ class WindowAttention(nn.Module):
         if self.training and self.proj_drop > 0.0:
             out = remat_dropout(out, self.proj_drop, needs_rng(rng, "proj_drop").device)
         return out
-
-
-def _refuse_low_precision_route(N, C, H, pallas_block):
-    """Raise NotImplementedError, naming ROADMAP A6, for a bf16 window
-    attention of window size N, width C and H heads on a route whose bf16
-    form is not ported: the attention-only kernels (-no_pallas_block, #6-#9)
-    and the XLA route of widths no kernel takes (and C not a multiple of 8,
-    which #1-bf16 to #5-bf16 stage 8 values at a time)."""
-    if not pallas_block:
-        raise NotImplementedError(
-            "-compute_dtype bfloat16 with -no_pallas_block needs the bf16 forms of the "
-            "attention-only kernels #6-#9, not ported yet: ROADMAP A6")
-    if not wblock_takes(N, C, H, torch.bfloat16):
-        raise NotImplementedError(
-            f"-compute_dtype bfloat16 at N={N} C={C} H={H}: no bf16 whole-block kernel takes "
-            "this width, not ported yet: ROADMAP A6")
 
 
 class DropPath(nn.Module):

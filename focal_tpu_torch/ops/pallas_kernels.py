@@ -46,7 +46,14 @@ hd], the projections outside:
 ``window_attention_qkv`` is their autograd pair (#6 or #7 forward, #8 or
 #9 backward) on the qkv projection's [B_, N, 3C] output, whose gradient
 #8/#9 write in that layout; ``window_attention_keep_mask`` writes #7's mask
-out for checks.
+out for checks. Their bf16 forms, ``fused_window_attention_bf16`` (#6-bf16),
+``fused_window_attention_dropout_bf16`` (#7-bf16),
+``fused_window_attention_backward_bf16`` (#8-bf16) and
+``fused_window_attention_dropout_backward_bf16`` (#9-bf16), take bf16 q, k,
+v and g and give bf16 out, dq, dk and dv (f32 drel_bias), the math in f32
+between, as the JAX package's kernels fed bf16 compute it (see
+``fused_window_attention_bf16_reference``); ``window_attention_qkv`` takes
+them for a bf16 qkv.
 """
 
 import ctypes
@@ -85,22 +92,29 @@ def wblock_takes(N, C, H, dtype=torch.float32):
     takes the attention-only route, as with ``-no_pallas_block``. The JAX
     package runs a whole-block kernel at such widths (C not a multiple of 4
     among them), a difference from it that no packaged recipe meets."""
-    mult = 8 if dtype == torch.bfloat16 else 4
+    mult = _row_multiple(dtype)
     if not 1 <= N <= _MAX_N or C < mult or C % mult or C % H:
         return False
     stride = 4 * ((C // H + 3) // 4) + 4  # a head's row in shared memory (window_rows.cuh)
     return 4 * (4 * N * stride + (2 + H) * N * N) <= _SMEM_OPTIN
 
 
-def attention_takes(N, hd):
-    """Whether the attention-only kernels (#6-#9, csrc/window_attention.cu)
-    take window size N and head width hd: N <= 16, hd a multiple of 4 from 4
-    to 256 (rows are staged 16 bytes at a time; a row's scores stay in
-    registers). Where not, the block runs the attention in plain PyTorch
-    between its Linears, as the JAX package's XLA route does; the JAX
-    package runs its kernel at such widths, a difference from it that no
-    packaged recipe meets."""
-    return 1 <= N <= _MAX_N and hd % 4 == 0 and 4 <= hd <= _MAX_HD
+def attention_takes(N, hd, dtype=torch.float32):
+    """Whether the attention-only kernels (#6-#9, csrc/window_attention.cu),
+    or with ``dtype`` bf16 their bf16 forms, take window size N and head
+    width hd: N <= 16, hd a multiple of 4 (of 8 in bf16) up to 256 (rows are
+    staged 16 bytes at a time; a row's scores stay in registers). Where not,
+    the block runs the attention in plain PyTorch between its Linears, as
+    the JAX package's XLA route does; the JAX package runs its kernel at such
+    widths, a difference from it that no packaged recipe meets."""
+    mult = _row_multiple(dtype)
+    return 1 <= N <= _MAX_N and hd % mult == 0 and mult <= hd <= _MAX_HD
+
+
+def _row_multiple(dtype):
+    """Elements of ``dtype`` in the 16 bytes the kernels stage rows by: 4
+    f32, 8 bf16."""
+    return 8 if dtype == torch.bfloat16 else 4
 
 
 def _keep_threshold(rate):
@@ -252,7 +266,7 @@ def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype=torch.f
         raise ValueError(f"fused_window_block: x must be [B_, N, C], got {tuple(x.shape)}")
     B, N, C = x.shape
     H = rel_bias.shape[0]
-    if not 1 <= N <= _MAX_N or C % (8 if dtype == torch.bfloat16 else 4) or C % H:
+    if not 1 <= N <= _MAX_N or C % _row_multiple(dtype) or C % H:
         raise ValueError(f"fused_window_block: unsupported geometry N={N} C={C} H={H} ({dtype})")
     dev = x.device
     _check("x", x, (B, N, C), dev, dtype)
@@ -856,16 +870,19 @@ def fused_window_attention_backward_reference(q, k, v, rel_bias, mask, g, keep=N
 
 
 def _takes_rows(t):
-    """Whether the attention kernels read (or write) ``t`` in place: f32 rows
-    of hd contiguous floats, 16-byte aligned, every stride a multiple of 4."""
-    return (t.stride(-1) == 1 and all(s % 4 == 0 for s in t.stride()[:-1])
+    """Whether the attention kernels read (or write) ``t`` in place: rows of
+    hd contiguous elements, 16-byte aligned, every stride a multiple of 16
+    bytes (4 f32, 8 bf16)."""
+    mult = _row_multiple(t.dtype)
+    return (t.stride(-1) == 1 and all(s % mult == 0 for s in t.stride()[:-1])
             and t.data_ptr() % 16 == 0)
 
 
-def _check_rows(who, name, t, shape, device):
-    """A [B_, H, N, hd] operand: any strides the kernels read (``_takes_rows``)."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{who}: {name} must be torch.float32, got {t.dtype}")
+def _check_rows(who, name, t, shape, device, dtype=torch.float32):
+    """A [B_, H, N, hd] operand of ``dtype``: any strides the kernels read
+    (``_takes_rows``)."""
+    if t.dtype != dtype:
+        raise TypeError(f"{who}: {name} must be {dtype}, got {t.dtype}")
     if t.shape != shape:
         raise ValueError(f"{who}: {name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if t.device != device:
@@ -875,12 +892,13 @@ def _check_rows(who, name, t, shape, device):
                          f"(strides {t.stride()})")
 
 
-def _check_attention_args(who, q, k, v, rel_bias, mask, *more):
+def _check_attention_args(who, q, k, v, rel_bias, mask, *more, dtype=torch.float32):
     """Validate the CUDA path's inputs and the further [B_, H, N, hd]
-    operands ``more`` (name, tensor); returns (B, H, N, hd, nW, the (B_, H,
-    N) element strides of q, k, v and ``more`` as the C side reads them).
-    One test a row operand on the per-call path; _check_rows names what
-    failed."""
+    operands ``more`` (name, tensor), the row operands of ``dtype`` (f32 for
+    #6-#9, bf16 for their bf16 forms), rel_bias and the mask f32; returns
+    (B, H, N, hd, nW, the (B_, H, N) element strides of q, k, v and ``more``
+    as the C side reads them). One test a row operand on the per-call path;
+    _check_rows names what failed."""
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"{who}: unsupported device {dev}")
@@ -888,14 +906,14 @@ def _check_attention_args(who, q, k, v, rel_bias, mask, *more):
         raise ValueError(f"{who}: q must be [B_, H, N, hd], got {tuple(q.shape)}")
     shape = q.shape
     B, H, N, hd = shape
-    if not attention_takes(N, hd):
-        raise ValueError(f"{who}: unsupported geometry N={N} hd={hd}")
-    index, strides = dev.index, []
+    if not attention_takes(N, hd, dtype):
+        raise ValueError(f"{who}: unsupported geometry N={N} hd={hd} ({dtype})")
+    index, strides, m = dev.index, [], _row_multiple(dtype)
     for name, t in (("q", q), ("k", k), ("v", v), *more):
         st = t.stride()
-        if (t.dtype != torch.float32 or t.shape != shape or t.get_device() != index or st[3] != 1
-                or st[0] % 4 or st[1] % 4 or st[2] % 4 or t.data_ptr() % 16):
-            _check_rows(who, name, t, shape, dev)
+        if (t.dtype != dtype or t.shape != shape or t.get_device() != index or st[3] != 1
+                or st[0] % m or st[1] % m or st[2] % m or t.data_ptr() % 16):
+            _check_rows(who, name, t, shape, dev, dtype)
             raise ValueError(f"{who}: {name} cannot be read in place")
         strides += st[:3]
     _check("rel_bias", rel_bias, (H, N, N), dev, who=who)
@@ -930,16 +948,20 @@ def _into(out, y):
     return y if out is None else out.copy_(y)
 
 
-def _attention_forward(who, q, k, v, rel_bias, mask, seed, rate, q_scale, out):
-    """The CUDA path of #6 and #7: validate, launch; returns ``out`` (a new
-    contiguous [B_, H, N, hd] tensor where it is None)."""
+def _attention_forward(who, q, k, v, rel_bias, mask, seed, rate, q_scale, out,
+                       dtype=torch.float32):
+    """The CUDA path of #6 and #7, or with ``dtype`` bf16 of #6-bf16 and
+    #7-bf16: validate, launch; returns ``out`` (a new contiguous [B_, H, N,
+    hd] tensor where it is None)."""
     if out is None:
-        out = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    B, H, N, hd, nW, strides = _check_attention_args(who, q, k, v, rel_bias, mask, ("out", out))
+        out = torch.empty(q.shape, dtype=dtype, device=q.device)
+    B, H, N, hd, nW, strides = _check_attention_args(who, q, k, v, rel_bias, mask, ("out", out),
+                                                     dtype=dtype)
     lib = _window_attention_lib()
-    _launch(who, lib.focal_wattn_fwd, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            rel_bias.data_ptr(), _ptr(mask), out.data_ptr(), strides, float(q_scale), B, H, N, hd,
-            nW, *_dropout_args(seed, rate), lib=lib)
+    fn = lib.focal_wattn_fwd_bf16 if dtype == torch.bfloat16 else lib.focal_wattn_fwd
+    _launch(who, fn, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), rel_bias.data_ptr(),
+            _ptr(mask), out.data_ptr(), strides, float(q_scale), B, H, N, hd, nW,
+            *_dropout_args(seed, rate), lib=lib)
     return out
 
 
@@ -958,23 +980,29 @@ def _heads(y, H):
 
 
 def _attention_backward(who, q, k, v, rel_bias, mask, g, seed, rate, dqkv=None, dq_scale=1.0,
-                        q_scale=1.0):
-    """The CUDA path of #8 and #9: (dq, dk, dv, drel_bias) for q times
-    ``q_scale``, dq (the gradient of the scaled q) times ``dq_scale``. With
-    ``dqkv`` (a contiguous [B_, N, 3C] tensor of q's device) the kernel
-    writes dq, dk and dv into its head columns and they are returned as
-    views of it."""
-    B, H, N, hd, nW, strides = _check_attention_args(who, q, k, v, rel_bias, mask, ("g", g))
+                        q_scale=1.0, dtype=torch.float32):
+    """The CUDA path of #8 and #9, or with ``dtype`` bf16 of #8-bf16 and
+    #9-bf16: (dq, dk, dv, drel_bias) for q times ``q_scale``, dq (the
+    gradient of the scaled q) times ``dq_scale`` (in bf16 both scales
+    rounded to bf16, dq to bf16 before its product). With ``dqkv`` (a
+    contiguous [B_, N, 3C] tensor of q's device and type) the kernel writes
+    dq, dk and dv into its head columns and they are returned as views of
+    it."""
+    B, H, N, hd, nW, strides = _check_attention_args(who, q, k, v, rel_bias, mask, ("g", g),
+                                                     dtype=dtype)
     dev = q.device
     lib = _window_attention_lib()
+    bf16 = dtype == torch.bfloat16
     dropout = _dropout_args(seed, rate)
-    ws = _workspace(who, lib, lib.focal_wattn_bwd_workspace, dev, B, H, N, hd, dropout[0])
+    ws = _workspace(who, lib, lib.focal_wattn_bwd_workspace_bf16 if bf16
+                    else lib.focal_wattn_bwd_workspace, dev, B, H, N, hd, dropout[0])
     if dqkv is None:
-        outs = [torch.empty((B, H, N, hd), dtype=torch.float32, device=dev) for _ in range(3)]
+        outs = [torch.empty((B, H, N, hd), dtype=dtype, device=dev) for _ in range(3)]
     else:
         outs = _head_views(dqkv, H)
     drel_bias = (torch.zeros if B == 0 else torch.empty)((H, N, N), dtype=torch.float32, device=dev)
-    _launch(who, lib.focal_wattn_bwd, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
+    fn = lib.focal_wattn_bwd_bf16 if bf16 else lib.focal_wattn_bwd
+    _launch(who, fn, dev, q.data_ptr(), k.data_ptr(), v.data_ptr(), g.data_ptr(),
             strides, rel_bias.data_ptr(), _ptr(mask), *(t.data_ptr() for t in outs),
             _stride_array(tuple(s for t in outs for s in t.stride()[:3])), float(q_scale),
             float(dq_scale), drel_bias.data_ptr(), ws.data_ptr(), B, H, N, hd, nW, *dropout,
@@ -1097,6 +1125,150 @@ def fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, g, seed, ra
 fused_window_attention_dropout_backward.launches = 0
 
 
+# ---------------------------------------------------------------------------
+# the bf16 forms of the attention-only kernels (#6-bf16 to #9-bf16)
+
+
+def scale_bf16(q, q_scale):
+    """bf16 q times ``q_scale`` as the JAX package's bf16 ``qkv[0] * scale``
+    rounds it (focal_tpu/models/swin.py:270): the scale rounded to bf16,
+    then the product (exact in f32) rounded to bf16; q itself at 1."""
+    if q_scale == 1.0:
+        return q
+    return q * torch.tensor(q_scale, dtype=torch.bfloat16, device=q.device)
+
+
+def fused_window_attention_bf16_reference(q, k, v, rel_bias, mask=None, keep=None, rate=0.0,
+                                          q_scale=1.0):
+    """Plain version of #6-bf16 (and of #7-bf16 given its keep mask): the
+    rounding points of the JAX package's ``_attn_fwd_kernel`` fed bf16
+    (``pk:119-137``), which upcasts q, k and v to f32, computes as in f32
+    and stores the output in the inputs' type: q (times ``q_scale``, rounded
+    as ``scale_bf16``), k and v upcast, fused_window_attention_reference's
+    f32 math, the output rounded to bf16 once. rel_bias and the mask f32."""
+    f32 = torch.float32
+    out = fused_window_attention_reference(scale_bf16(q, q_scale).to(f32), k.to(f32), v.to(f32),
+                                           rel_bias, mask, keep, rate)
+    return out.to(torch.bfloat16)
+
+
+def fused_window_attention_backward_bf16_reference(q, k, v, rel_bias, mask, g, keep=None,
+                                                   rate=0.0, q_scale=1.0):
+    """Plain version of #8-bf16 (keep None) and #9-bf16: the JAX package's
+    ``_attn_bwd_kernel`` fed bf16 (``pk:189-210``): q (scaled as in the
+    forward), k, v and g upcast, the f32 VJP of
+    fused_window_attention_backward_reference, dq, dk and dv rounded to
+    bf16, drel_bias f32. dq is the gradient of the scaled q. Returns (dq,
+    dk, dv, drel_bias)."""
+    f32 = torch.float32
+    grads = fused_window_attention_backward_reference(
+        scale_bf16(q, q_scale).to(f32), k.to(f32), v.to(f32), rel_bias, mask, g.to(f32), keep,
+        rate)
+    return (*(t.to(torch.bfloat16) for t in grads[:3]), grads[3])
+
+
+def fused_window_attention_bf16(q, k, v, rel_bias, mask=None, q_scale=1.0, out=None):
+    """#6 in bf16 (#6-bf16): fused_window_attention's function on bf16 q, k,
+    v [B_, H, N, hd] (rows 16-byte aligned, strides multiples of 8) with f32
+    rel_bias and mask; returns bf16 out (or ``out`` written, a bf16
+    destination at such strides). hd a multiple of 8 up to 256. ``q_scale``
+    is rounded to bf16 and each q to bf16(q * scale), as the JAX caller's
+    bf16 multiply rounds; the math between is f32, the output rounded once.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_attention fed
+    bf16 (_attn_fwd_kernel). CPU tensors take
+    fused_window_attention_bf16_reference; CUDA tensors launch
+    csrc/window_attention.cu's focal_wattn_fwd_bf16.
+    """
+    if q.device.type == "cpu":
+        return _into(out, fused_window_attention_bf16_reference(q, k, v, rel_bias, mask,
+                                                                q_scale=q_scale))
+    out = _attention_forward("fused_window_attention_bf16", q, k, v, rel_bias, mask, 0, 0.0,
+                             q_scale, out, torch.bfloat16)
+    fused_window_attention_bf16.launches += 1
+    return out
+
+
+fused_window_attention_bf16.launches = 0
+
+
+def fused_window_attention_dropout_bf16(q, k, v, rel_bias, mask, seed, rate, q_scale=1.0,
+                                        out=None):
+    """#7 in bf16 (#7-bf16): #6-bf16 with attention dropout, the mask #7's
+    (and #2's) for the same seed and geometry, not stored. Returns bf16 [B_,
+    H, N, hd] (or ``out``).
+
+    Replaces focal_tpu/ops/pallas_kernels.py::fused_window_attention_dropout
+    fed bf16 (_attn_fwd_dropout_kernel). On the CPU the mask comes from
+    draw_keep_mask and the output from the plain version.
+    """
+    _check_rate("fused_window_attention_dropout_bf16", rate)
+    if q.device.type == "cpu":
+        B, H, N, _ = q.shape
+        keep = draw_keep_mask(seed, (B, H, N, N), rate, q.device)
+        return _into(out, fused_window_attention_bf16_reference(q, k, v, rel_bias, mask, keep,
+                                                                rate, q_scale))
+    out = _attention_forward("fused_window_attention_dropout_bf16", q, k, v, rel_bias, mask, seed,
+                             rate, q_scale, out, torch.bfloat16)
+    fused_window_attention_dropout_bf16.launches += 1
+    return out
+
+
+fused_window_attention_dropout_bf16.launches = 0
+
+
+def fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, g, seed=None, rate=0.0,
+                                         q_scale=1.0):
+    """VJP of #6-bf16 (#8-bf16): bf16 q, k, v and g (any strides #6-bf16
+    reads); returns (dq, dk, dv bf16 [B_, H, N, hd], drel_bias f32 [H, N,
+    N]), drel_bias summed in a fixed order: two calls give the same bits.
+    With ``seed`` (and its ``rate``) it is the VJP of #7-bf16, which
+    fused_window_attention_dropout_backward_bf16 (#9-bf16) computes.
+    ``q_scale`` as #6-bf16's; dq is the gradient of the scaled q.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_bwd_impl fed bf16
+    (_attn_bwd_kernel). CPU tensors take
+    fused_window_attention_backward_bf16_reference.
+    """
+    if seed is not None:
+        return fused_window_attention_dropout_backward_bf16(q, k, v, rel_bias, mask, g, seed,
+                                                            rate, q_scale)
+    if q.device.type == "cpu":
+        return fused_window_attention_backward_bf16_reference(q, k, v, rel_bias, mask, g,
+                                                              q_scale=q_scale)
+    grads = _attention_backward("fused_window_attention_backward_bf16", q, k, v, rel_bias, mask, g,
+                                0, 0.0, q_scale=q_scale, dtype=torch.bfloat16)
+    fused_window_attention_backward_bf16.launches += 1
+    return grads
+
+
+fused_window_attention_backward_bf16.launches = 0
+
+
+def fused_window_attention_dropout_backward_bf16(q, k, v, rel_bias, mask, g, seed, rate,
+                                                 q_scale=1.0):
+    """VJP of #7-bf16 (#9-bf16): #8-bf16 with #7's mask drawn again from
+    ``seed``. Returns (dq, dk, dv bf16, drel_bias f32), bitwise repeatable.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_bwd_impl with a seed fed bf16
+    (_attn_bwd_dropout_kernel). On the CPU the plain version with
+    draw_keep_mask's mask, the one the CPU forward drew.
+    """
+    _check_rate("fused_window_attention_dropout_backward_bf16", rate)
+    if q.device.type == "cpu":
+        B, H, N, _ = q.shape
+        keep = draw_keep_mask(seed, (B, H, N, N), rate, q.device)
+        return fused_window_attention_backward_bf16_reference(q, k, v, rel_bias, mask, g, keep,
+                                                              rate, q_scale)
+    grads = _attention_backward("fused_window_attention_dropout_backward_bf16", q, k, v, rel_bias,
+                                mask, g, seed, rate, q_scale=q_scale, dtype=torch.bfloat16)
+    fused_window_attention_dropout_backward_bf16.launches += 1
+    return grads
+
+
+fused_window_attention_dropout_backward_bf16.launches = 0
+
+
 def window_attention_keep_mask(seed, B, H, N, rate, device):
     """The keep mask that #7 and #9 draw for ``seed`` over B windows of H
     heads and N tokens, as uint8 [B, H, N, N] (1 kept): on a CUDA device
@@ -1124,13 +1296,14 @@ def _rows(t):
 
 class _WindowAttentionQKV(torch.autograd.Function):
     """#7 (or #6 at rate 0) forward and #9 (or #8) backward on the qkv
-    projection's output: q, k, v are head views of ``qkv`` [B_, N, 3C], q
-    scaled by hd**-0.5 in the kernels; the forward writes its output as one
-    [B_, N, C] tensor (the output projection's input), the backward d(qkv)
-    as one [B_, N, 3C] tensor, dq times the scale, so nothing scales,
-    stacks or copies q, the output or the three gradients. The residuals
-    are qkv, rel_bias and the mask; the seed is the only one of the
-    dropout."""
+    projection's output, or for a bf16 qkv their bf16 forms: q, k, v are
+    head views of ``qkv`` [B_, N, 3C], q scaled by hd**-0.5 in the kernels;
+    the forward writes its output as one [B_, N, C] tensor (the output
+    projection's input), the backward d(qkv) as one [B_, N, 3C] tensor of
+    qkv's type, dq times the scale (in bf16 bf16(bf16(dq) bf16(scale)), the
+    VJP of the JAX caller's bf16 multiply), so nothing scales, stacks or
+    copies q, the output or the three gradients. The residuals are qkv,
+    rel_bias and the mask; the seed is the only one of the dropout."""
 
     @staticmethod
     def forward(ctx, qkv, rel_bias, mask, H, seed, rate):
@@ -1138,11 +1311,13 @@ class _WindowAttentionQKV(torch.autograd.Function):
         scale = q.shape[-1] ** -0.5
         B, N, C3 = qkv.shape
         y = torch.empty((B, N, C3 // 3), dtype=qkv.dtype, device=qkv.device)
+        bf16 = qkv.dtype == torch.bfloat16
         if rate > 0.0:
-            fused_window_attention_dropout(q, k, v, rel_bias, mask, seed, rate, q_scale=scale,
-                                           out=_heads(y, H))
+            fwd = fused_window_attention_dropout_bf16 if bf16 else fused_window_attention_dropout
+            fwd(q, k, v, rel_bias, mask, seed, rate, q_scale=scale, out=_heads(y, H))
         else:
-            fused_window_attention(q, k, v, rel_bias, mask, q_scale=scale, out=_heads(y, H))
+            fwd = fused_window_attention_bf16 if bf16 else fused_window_attention
+            fwd(q, k, v, rel_bias, mask, q_scale=scale, out=_heads(y, H))
         ctx.save_for_backward(qkv, rel_bias, mask)
         ctx.H, ctx.seed, ctx.rate = H, (seed if rate > 0.0 else None), rate
         return y
@@ -1153,20 +1328,25 @@ class _WindowAttentionQKV(torch.autograd.Function):
         q, k, v = _head_views(qkv, ctx.H)
         scale = q.shape[-1] ** -0.5
         g = _heads(gy, ctx.H)
+        bf16 = qkv.dtype == torch.bfloat16
         if qkv.device.type == "cpu":
-            dq, dk, dv, drel_bias = fused_window_attention_backward(
-                q, k, v, rel_bias, mask, g, ctx.seed, ctx.rate, q_scale=scale)
+            bwd = fused_window_attention_backward_bf16 if bf16 else fused_window_attention_backward
+            dq, dk, dv, drel_bias = bwd(q, k, v, rel_bias, mask, g, ctx.seed, ctx.rate,
+                                        q_scale=scale)
+            dq = scale_bf16(dq, scale) if bf16 else dq * scale
             B, H, N, hd = dq.shape
-            dqkv = torch.stack([dq * scale, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, 3 * H * hd)
+            dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, 3 * H * hd)
             return dqkv, drel_bias, None, None, None, None
         dqkv = torch.empty_like(qkv)
         if ctx.seed is None:
-            who, kernel = "fused_window_attention_backward", fused_window_attention_backward
+            kernel = (fused_window_attention_backward_bf16 if bf16
+                      else fused_window_attention_backward)
         else:
-            who, kernel = ("fused_window_attention_dropout_backward",
-                           fused_window_attention_dropout_backward)
-        drel_bias = _attention_backward(who, q, k, v, rel_bias, mask, _rows(g), ctx.seed, ctx.rate,
-                                        dqkv=dqkv, dq_scale=scale, q_scale=scale)[3]
+            kernel = (fused_window_attention_dropout_backward_bf16 if bf16
+                      else fused_window_attention_dropout_backward)
+        drel_bias = _attention_backward(kernel.__name__, q, k, v, rel_bias, mask, _rows(g),
+                                        ctx.seed, ctx.rate, dqkv=dqkv, dq_scale=scale,
+                                        q_scale=scale, dtype=qkv.dtype)[3]
         kernel.launches += 1
         return dqkv, drel_bias, None, None, None, None
 
@@ -1176,7 +1356,8 @@ def window_attention_qkv(qkv, num_heads, rel_bias, mask=None, seed=0, rate=0.0):
     the attention-only route of the Swin block hands it over: qkv [B_, N,
     3C] (column order part | head | dim, q unscaled), ``num_heads`` heads;
     q scaled by hd**-0.5 in the kernels, #7 (rate > 0) or #6 forward and #9
-    or #8 backward, whose d(qkv) comes out as one [B_, N, 3C] tensor.
+    or #8 backward (for a bf16 qkv #7-bf16 or #6-bf16 and #9-bf16 or
+    #8-bf16), whose d(qkv) comes out as one [B_, N, 3C] tensor.
     Returns [B_, H, N, hd], the head view of a contiguous [B_, N, C] tensor
     (``out.transpose(1, 2).reshape(B_, N, C)`` is a view); gradients in qkv
     and rel_bias. qkv must be contiguous (the Linear's output). CPU tensors
@@ -1188,9 +1369,17 @@ def window_attention_qkv(qkv, num_heads, rel_bias, mask=None, seed=0, rate=0.0):
 
 def window_attention_qkv_reference(qkv, num_heads, rel_bias, mask=None, seed=0, rate=0.0):
     """Plain version of window_attention_qkv on any device (autograd
-    through window_attention_reference on the scaled head views)."""
+    through window_attention_reference on the scaled head views; for a
+    bf16 qkv on them scaled as ``scale_bf16`` and upcast, the output
+    rounded to bf16: autograd then rounds d(qkv) where the kernels do)."""
     q, k, v = _head_views(qkv, num_heads)
-    return window_attention_reference(q * (q.shape[-1] ** -0.5), k, v, rel_bias, mask, seed, rate)
+    scale = q.shape[-1] ** -0.5
+    if qkv.dtype == torch.bfloat16:
+        f32 = torch.float32
+        out = window_attention_reference(scale_bf16(q, scale).to(f32), k.to(f32), v.to(f32),
+                                         rel_bias, mask, seed, rate)
+        return out.to(torch.bfloat16)
+    return window_attention_reference(q * scale, k, v, rel_bias, mask, seed, rate)
 
 
 def window_attention_reference(q, k, v, rel_bias, mask=None, seed=0, rate=0.0):
@@ -1214,8 +1403,12 @@ def _window_attention_lib():
         lib.focal_wattn_bwd_workspace.argtypes = [i] * 5 + [ll]
         lib.focal_wattn_bwd.argtypes = [p] * 4 + [ll] + [p] * 5 + [ll, f, f] + [p] * 2 + [i] * 5 + drop
         lib.focal_wattn_keep_mask.argtypes = [p, i, i, i, ctypes.c_ulonglong, ctypes.c_uint, p]
+        lib.focal_wattn_fwd_bf16.argtypes = lib.focal_wattn_fwd.argtypes
+        lib.focal_wattn_bwd_workspace_bf16.argtypes = lib.focal_wattn_bwd_workspace.argtypes
+        lib.focal_wattn_bwd_bf16.argtypes = lib.focal_wattn_bwd.argtypes
         for fn in (lib.focal_wattn_fwd, lib.focal_wattn_bwd_workspace, lib.focal_wattn_bwd,
-                   lib.focal_wattn_keep_mask):
+                   lib.focal_wattn_keep_mask, lib.focal_wattn_fwd_bf16,
+                   lib.focal_wattn_bwd_workspace_bf16, lib.focal_wattn_bwd_bf16):
             fn.restype = ctypes.c_int
         lib.focal_cuda_error_string.argtypes = [ctypes.c_int]
         lib.focal_cuda_error_string.restype = ctypes.c_char_p

@@ -1,9 +1,9 @@
 """``-compute_dtype`` in the port: the flag in every parser and in
 ``Predictor``, the f32 default, the entry points at bf16 on the CPU (both
-backbones), the bf16 routes ported since (DeepSense, ``-pallas_mlp``,
-MOD_WIDE's per-head blocks), and the routes whose bf16 forms are not
-ported, which raise NotImplementedError naming ROADMAP A6 instead of
-running f32.
+backbones), and the bf16 routes ported since (DeepSense, ``-pallas_mlp``,
+MOD_WIDE's per-head blocks, ``-no_pallas_block`` and the widths no bf16
+kernel takes), which once raised NotImplementedError naming ROADMAP A6 and
+now build and run.
 """
 
 import logging
@@ -60,12 +60,41 @@ def test_the_default_builds_the_f32_model():
     ("SW_Transformer", {"pallas_block": False}, "-no_pallas_block"),
 ])
 def test_unported_routes_refuse_bf16(model, kwargs, what, monkeypatch):
-    """-no_pallas_block raises in bf16. DeepSense (ROADMAP A6.1) and
-    -pallas_mlp (A6.3), ported in bf16 since, build instead: every layer in
-    bf16 over f32 parameters; the -pallas_mlp backbone runs a forward and a
-    backward with every Swin block's MLP, in every stage, on the fused bf16
-    route (its plain pair here)."""
+    """No route refuses bf16 any more: DeepSense (ROADMAP A6.1), -pallas_mlp
+    and -no_pallas_block (A6.3), each ported in bf16 since, build: every
+    layer in bf16 over f32 parameters; the -pallas_mlp backbone runs a
+    forward and a backward with every Swin block's MLP, in every stage, on
+    the fused bf16 route (its plain pair here), the -no_pallas_block one
+    with every block's attention on the bf16 attention-only route
+    (window_attention_qkv on a bf16 qkv: #7-bf16/#9-bf16's plain versions
+    here), and nothing raises naming A6."""
     cfg = load_dataset_config("MOD_TINY")
+    if not kwargs.get("pallas_block", True):
+        net = build_backbone(cfg, model, TASK, compute_dtype="bfloat16", **kwargs)
+        assert {m.compute_dtype for m in net.modules()
+                if hasattr(m, "compute_dtype")} == {torch.bfloat16}
+        assert all(p.dtype == torch.float32 for p in net.parameters())
+        attns = [m for m in net.modules() if isinstance(m, swin.WindowAttention)]
+        runs = []
+        real = swin.window_attention_qkv
+        monkeypatch.setattr(swin, "window_attention_qkv",
+                            lambda qkv, *a: runs.append(qkv.dtype) or real(qkv, *a))
+        for name in ("window_block", "window_block_forward"):
+            monkeypatch.setattr(swin, name, None)  # a whole-block call would raise
+        from focal_tpu_torch.ops.dropout import StepRngs
+
+        rng = np.random.default_rng(0)
+        batch = {loc: {mod: torch.from_numpy(rng.normal(size=(
+            3, 2 * cfg["loc_mod_in_time_channels"][loc][mod], cfg["num_segments"],
+            cfg["loc_mod_spectrum_len"][loc][mod])).astype(np.float32))
+            for mod in cfg["modality_names"]} for loc in cfg["location_names"]}
+        rngs = StepRngs(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
+        logits, proj = net.train()(batch, head="both", rng=rngs)
+        assert runs == [torch.bfloat16] * len(attns)
+        (logits.float().sum() + sum(p.float().sum() for p in proj.values())).backward()
+        assert all(m.qkv.weight.grad is not None and m.qkv.weight.grad.dtype == torch.float32
+                   and m.relative_position_bias_table.grad.dtype == torch.float32 for m in attns)
+        return
     if model == "DeepSense" or kwargs.get("pallas_mlp"):
         net = build_backbone(cfg, model, TASK, compute_dtype="bfloat16", **kwargs)
         assert {m.compute_dtype for m in net.modules()
@@ -95,9 +124,6 @@ def test_unported_routes_refuse_bf16(model, kwargs, what, monkeypatch):
         logits.float().sum().backward()
         assert all(m.Dense_0.weight.grad is not None and m.Dense_0.weight.grad.dtype == torch.float32
                    for m in mlps)
-        return
-    with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP A6"):
-        build_backbone(cfg, model, TASK, compute_dtype="bfloat16", **kwargs)
 
 
 def test_blocks_of_the_per_head_kernels_refuse_bf16():
@@ -120,11 +146,27 @@ def test_blocks_of_the_per_head_kernels_refuse_bf16():
 
 @pytest.mark.parametrize("dim,heads", [(12, 2), (20, 4)], ids=["C12", "C20"])
 def test_widths_no_bf16_kernel_takes_refuse(dim, heads):
-    """C not a multiple of 8: #1-bf16 to #3-bf16 stage rows 8 values at a
-    time; the f32 route takes these widths."""
+    """C not a multiple of 8, which no bf16 kernel takes (#1-bf16 to
+    #9-bf16 stage rows 8 values at a time), no longer refuses (ROADMAP
+    C12): the bf16 WindowAttention builds over f32 parameters and runs the
+    XLA route in bf16, a forward in eval and a forward and backward in
+    training, its gradients f32 and finite, as the f32 one runs at these
+    widths."""
     swin.WindowAttention(dim, (3, 3), heads)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        swin.WindowAttention(dim, (3, 3), heads, compute_dtype=torch.bfloat16)
+    attn = swin.WindowAttention(dim, (3, 3), heads, attn_drop=0.2, compute_dtype=torch.bfloat16)
+    assert all(p.dtype == torch.float32 for p in attn.parameters())
+    x = torch.randn(8, 9, dim).to(torch.bfloat16)
+    with torch.no_grad():
+        assert attn.eval()(x).dtype == torch.bfloat16
+    from focal_tpu_torch.ops.dropout import StepRngs
+
+    rngs = StepRngs(torch.Generator().manual_seed(1), torch.Generator().manual_seed(2))
+    y = attn.train()(x.requires_grad_(True), None, rngs)
+    assert y.dtype == torch.bfloat16
+    y.float().square().sum().backward()
+    assert x.grad.dtype == torch.bfloat16
+    assert all(p.grad.dtype == torch.float32 and bool(torch.isfinite(p.grad).all())
+               for p in attn.parameters())
 
 
 def test_predictor_serves_bf16_in_f32_probabilities():

@@ -1812,3 +1812,172 @@ def test_fused_mlp_bf16_route_and_refusals():
         fm.fused_mlp_forward_bf16(x.float(), w1, b1, w2, b2)
     with pytest.raises(ValueError):
         fm.fused_mlp_forward_bf16(*_mlp_bf16_args(rng, 8, 20, dev))
+
+
+# ---------------------------------------------------------------------------
+# the bf16 forms of the attention-only kernels (#6-bf16 to #9-bf16): against
+# their bf16 plain versions on the same bf16 inputs, q unscaled with q_scale
+# as the route passes it. Gates as chip_smoke.py's phase 33: y within 8e-3
+# of max|y| (one bf16 step is 2^-8), every gradient within 1e-2 relative,
+# #8-bf16 and #9-bf16 bitwise repeatable.
+
+ATTN_BF16_GEOMETRIES = [(509, 4, 9, 16, 16), (512, 4, 9, 32, 64), (511, 4, 9, 64, 0),
+                        (130, 4, 9, 128, 4), (67, 4, 9, 256, 4), (37, 2, 4, 8, 3),
+                        (33, 2, 16, 24, 2)]
+
+
+def _attn_bf16_args(rng, B, H, N, hd, nW, dev):
+    """qkv [B, N, 3C] bf16 (q unscaled), rel_bias, a 0 / -100 mask (or
+    None) and the output gradient [B, N, C] bf16."""
+    C = H * hd
+    qkv = torch.from_numpy(rng.normal(size=(B, N, 3 * C)).astype(np.float32)).to(dev)
+    _, _, _, rel_bias, mask, _ = _attn_args(rng, B, H, N, hd, nW, dev)
+    gy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+    return qkv.to(torch.bfloat16), rel_bias, mask, gy.to(torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd,nW", ATTN_BF16_GEOMETRIES)
+def test_attention_bf16_kernels_match_plain_and_repeat(B, H, N, hd, nW):
+    """#6-bf16 (its output in the head view of a [B_, N, C] bf16 tensor) and
+    #7-bf16 fed #7's mask against their plain versions; #8-bf16 and
+    #9-bf16 with q_scale against theirs, the same bits on a second call;
+    one launch counted a call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    bf = torch.bfloat16
+    qkv, rel_bias, mask, gy = _attn_bf16_args(np.random.default_rng(B + hd + 3), B, H, N, hd,
+                                              nW, dev)
+    q, k, v = pk._head_views(qkv, H)
+    g = pk._heads(gy, H)
+    s = hd**-0.5
+    kernels = (pk.fused_window_attention_bf16, pk.fused_window_attention_dropout_bf16,
+               pk.fused_window_attention_backward_bf16,
+               pk.fused_window_attention_dropout_backward_bf16)
+    f32_kernels = (pk.fused_window_attention, pk.fused_window_attention_dropout,
+                   pk.fused_window_attention_backward, pk.fused_window_attention_dropout_backward)
+    before = [f.launches for f in kernels + f32_kernels]
+    y = torch.empty((B, N, H * hd), dtype=bf, device=dev)
+    got = pk.fused_window_attention_bf16(q, k, v, rel_bias, mask, q_scale=s, out=pk._heads(y, H))
+    assert got.dtype == bf and got.data_ptr() == y.data_ptr()
+    assert _rel(got.float(), pk.fused_window_attention_bf16_reference(
+        q, k, v, rel_bias, mask, q_scale=s).float()) <= 8e-3
+    yd = pk.fused_window_attention_dropout_bf16(q, k, v, rel_bias, mask, 9, 0.2, q_scale=s)
+    keep = pk.window_attention_keep_mask(9, B, H, N, 0.2, dev)
+    assert _rel(yd.float(), pk.fused_window_attention_bf16_reference(
+        q, k, v, rel_bias, mask, keep, 0.2, s).float()) <= 8e-3
+    assert torch.equal(yd, pk.fused_window_attention_dropout_bf16(q, k, v, rel_bias, mask, 9, 0.2,
+                                                                  q_scale=s))
+    for seed, rate, kp in ((None, 0.0, None), (9, 0.2, keep)):
+        grads = pk.fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, g, seed, rate,
+                                                        q_scale=s)
+        again = pk.fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, g, seed, rate,
+                                                        q_scale=s)
+        torch.cuda.synchronize()
+        assert [t.dtype for t in grads] == [bf, bf, bf, torch.float32]
+        assert all(torch.equal(a, b) for a, b in zip(grads, again))
+        want = pk.fused_window_attention_backward_bf16_reference(q, k, v, rel_bias, mask, g, kp,
+                                                                 rate, s)
+        for name, a, w in zip(["dq", "dk", "dv", "drel_bias"], grads, want):
+            assert _rel(a.float(), w.float()) <= 1e-2, (name, rate, _rel(a.float(), w.float()))
+    assert [f.launches - b for f, b in zip(kernels + f32_kernels, before)] == [1, 2, 2, 2, 0, 0, 0,
+                                                                              0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("hd", [16, 32, 64])
+def test_attention_bf16_mask_is_the_f32_kernels_mask(hd):
+    """#7-bf16 drops exactly the weights #7 drops: with v one-hot per key
+    (v[j] = e_j) and no shift mask, its output's first N columns are the
+    dropped weights, zero exactly where window_attention_keep_mask (#7's
+    and #2's mask) is 0."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    B, H, N = 301, 4, 9
+    rng = np.random.default_rng(hd)
+    q, k = (torch.from_numpy(rng.normal(size=(B, H, N, hd)).astype(np.float32)).to(dev).to(
+        torch.bfloat16) for _ in range(2))
+    v = torch.zeros((B, H, N, hd), device=dev)
+    v[..., torch.arange(N), torch.arange(N)] = 1.0
+    rel_bias = torch.zeros((H, N, N), device=dev)
+    y = pk.fused_window_attention_dropout_bf16(q, k, v.to(torch.bfloat16), rel_bias, None, 41, 0.2,
+                                               q_scale=hd**-0.5)
+    keep = pk.window_attention_keep_mask(41, B, H, N, 0.2, dev)
+    assert torch.equal((y[..., :N] != 0).to(torch.uint8), keep)
+    yf = pk.fused_window_attention_dropout(q.float(), k.float(), v, rel_bias, None, 41, 0.2,
+                                           q_scale=hd**-0.5)
+    assert torch.equal((yf[..., :N] != 0).to(torch.uint8), keep)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,H,N,hd,nW", [(509, 4, 9, 16, 16), (512, 4, 9, 32, 64),
+                                         (511, 4, 9, 64, 0)])
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_window_attention_qkv_in_bf16(B, H, N, hd, nW, rate):
+    """window_attention_qkv on a bf16 qkv: #6-bf16/#7-bf16 forward, #8-bf16/
+    #9-bf16 writing d(qkv) in bf16 (the q columns bf16(bf16(dq) bf16(scale)))
+    against autograd of window_attention_qkv_reference fed the kernels'
+    mask; launches only of the bf16 kernels; the same bits on a second
+    call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    qkv, rel_bias, mask, gy = _attn_bf16_args(np.random.default_rng(B + hd + 5), B, H, N, hd, nW,
+                                              dev)
+    fwd = pk.fused_window_attention_dropout_bf16 if rate else pk.fused_window_attention_bf16
+    bwd = (pk.fused_window_attention_dropout_backward_bf16 if rate
+           else pk.fused_window_attention_backward_bf16)
+    f32 = (pk.fused_window_attention, pk.fused_window_attention_dropout,
+           pk.fused_window_attention_backward, pk.fused_window_attention_dropout_backward)
+    runs = []
+    for _ in range(2):
+        before = [fwd.launches, bwd.launches] + [f.launches for f in f32]
+        leaves = [qkv.clone().requires_grad_(True), rel_bias.clone().requires_grad_(True)]
+        y = pk.window_attention_qkv(leaves[0], H, leaves[1], mask, seed=23, rate=rate)
+        runs.append((y.detach(), torch.autograd.grad(y, leaves, pk._heads(gy, H))))
+        torch.cuda.synchronize()
+        assert [fwd.launches, bwd.launches] + [f.launches for f in f32] == [
+            b + d for b, d in zip(before, [1, 1, 0, 0, 0, 0])]
+    (y, got), (y2, again) = runs
+    assert torch.equal(y, y2) and all(torch.equal(a, b) for a, b in zip(got, again))
+    assert got[0].dtype == torch.bfloat16 and got[1].dtype == torch.float32
+    keep = pk.window_attention_keep_mask(23, B, H, N, rate, dev) if rate else None
+    leaves = [qkv.clone().requires_grad_(True), rel_bias.clone().requires_grad_(True)]
+    q, k, v = pk._head_views(leaves[0], H)
+    f = torch.float32
+    want_y = pk.fused_window_attention_reference(pk.scale_bf16(q, hd**-0.5).to(f), k.to(f),
+                                                 v.to(f), leaves[1], mask, keep,
+                                                 rate).to(torch.bfloat16)
+    want = torch.autograd.grad(want_y, leaves, pk._heads(gy, H))
+    assert _rel(y.float(), want_y.detach().float()) <= 8e-3
+    for a, w in zip(got, want):
+        assert _rel(a.float(), w.float()) <= 1e-2
+
+
+@pytest.mark.gpu
+def test_attention_bf16_gate_is_where_the_kernels_take_the_width():
+    """attention_takes(N, hd, bf16) admits exactly the head widths that the
+    bf16 kernels' launch plans take (multiples of 8 up to 256); a bf16 CUDA
+    tensor of another width raises, as do tensors of the wrong type for a
+    wrapper."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    lib = pk._window_attention_lib()
+    for hd in range(1, 300):
+        ok = all(lib.focal_wattn_bwd_workspace_bf16(37, 4, 9, hd, d, pk.ctypes.byref(
+            pk.ctypes.c_longlong(0))) == 0 for d in (0, 1))
+        assert ok == pk.attention_takes(9, hd, torch.bfloat16) == (hd % 8 == 0 and hd <= 256), hd
+    assert pk.attention_takes(9, 12) and not pk.attention_takes(9, 12, torch.bfloat16)
+    qkv, rel_bias, mask, _ = _attn_bf16_args(np.random.default_rng(1), 8, 2, 9, 12, 0, dev)
+    q, k, v = pk._head_views(qkv, 2)
+    with pytest.raises(ValueError, match="unsupported geometry"):
+        pk.fused_window_attention_bf16(q, k, v, rel_bias, None)
+    qkv, rel_bias, _, _ = _attn_bf16_args(np.random.default_rng(2), 8, 2, 9, 16, 0, dev)
+    q, k, v = pk._head_views(qkv, 2)
+    with pytest.raises(TypeError):
+        pk.fused_window_attention(q, k, v, rel_bias, None)
+    with pytest.raises(TypeError):
+        pk.fused_window_attention_bf16(q.float(), k.float(), v.float(), rel_bias, None)
