@@ -42,7 +42,8 @@ WindowAttention, and the entry points.
     its XLA route, op by op: within 1e-2 of max|y| (measured 0); a
     backward in training gives finite f32 gradients.
   * (f) The entry points on ``-device cpu`` with ``-no_pallas_block
-    -compute_dtype bfloat16``: pretrain 1 epoch, ``test`` and ``predict``.
+    -compute_dtype bfloat16``: pretrain and finetune 1 epoch each, ``test``
+    and ``predict``, the sweep (supervised) and ``Predictor``.
 
 The CUDA kernels are held against these plain versions on the card
 (``tests/test_torch_port_gpu.py``, ``chip_smoke.py`` phase 33).
@@ -63,12 +64,15 @@ from focal_tpu.models.swin import shifted_window_mask
 from focal_tpu.ops.pallas_kernels import (_bwd_math, _scores_softmax, _weighted_sum,
                                           expand_bias_lanes, fused_window_attention)
 from focal_tpu_torch import predict as predict_cli
+from focal_tpu_torch import sweep as sweep_cli
 from focal_tpu_torch import test as test_cli
+from focal_tpu_torch.data import synthetic_arrays
 from focal_tpu_torch.models import build_backbone
 from focal_tpu_torch.models import swin as tswin
 from focal_tpu_torch.ops import pallas_kernels as pk
 from focal_tpu_torch.ops.dropout import StepRngs
 from focal_tpu_torch.params import load_dataset_config
+from focal_tpu_torch.serve import Predictor
 from focal_tpu_torch.weights import params_from_flax
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
@@ -379,11 +383,26 @@ def test_bf16_plain_route_at_widths_no_bf16_kernel_takes(dim, heads, pallas_bloc
         assert float(p.grad.abs().max()) > 0, name
 
 
-def test_entry_points_run_the_bf16_attention_only_route(tmp_path):
+def test_entry_points_run_the_bf16_attention_only_route(tmp_path, monkeypatch):
+    """Pretrain 1 epoch, finetune 1 epoch, ``test`` and ``predict`` on the
+    pretrained _best, the sweep (supervised, one ratio) and ``Predictor``,
+    all with -no_pallas_block -compute_dtype bfloat16: finite numbers, f32
+    checkpoints, every window attention on the bf16 attention-only route
+    (a whole-block call fails the test)."""
+
+    def whole_block(*args, **kw):
+        raise AssertionError("a whole-block kernel entry was called")
+
+    monkeypatch.setattr(tswin, "window_block", whole_block)
+    monkeypatch.setattr(tswin, "window_block_forward", whole_block)
+    dtypes = set()
+    real = tswin.window_attention_qkv
+    monkeypatch.setattr(tswin, "window_attention_qkv",
+                        lambda qkv, *a: dtypes.add(qkv.dtype) or real(qkv, *a))
     tiny = ["-dataset", "MOD_TINY", "-model", "SW_Transformer", "-no_pallas_block",
             "-compute_dtype", "bfloat16", "-synthetic", "-synthetic_samples", "32",
-            "-batch_size", "8", "-val_epochs", "1", "-device", "cpu"]
-    pre = tiny + ["-learn_framework", "FOCAL", "-epochs", "1", "-output_dir", str(tmp_path)]
+            "-batch_size", "8", "-val_epochs", "1", "-device", "cpu", "-output_dir", str(tmp_path)]
+    pre = tiny + ["-learn_framework", "FOCAL", "-epochs", "1"]
     state, _, points = train_cli.main(pre)
     assert [p["epoch"] for p in points] == [0]
     assert all(np.isfinite(p[k]) for p in points for k in ("train_loss", "val_loss"))
@@ -392,8 +411,7 @@ def test_entry_points_run_the_bf16_attention_only_route(tmp_path):
     best = exp / "MOD_TINY_SW_Transformer_pretrain_best.pt"
     saved = torch.load(best, map_location="cpu", weights_only=True)
     assert saved and all(t.dtype == torch.float32 for t in saved.values())
-    result = test_cli.main(pre)
-    assert all(np.isfinite(result))
+    assert all(np.isfinite(test_cli.main(pre)))
     probs = predict_cli.main(["-dataset", "MOD_TINY", "-learn_framework", "FOCAL", "-synthetic",
                               "-synthetic_samples", "6", "-batch_size", "4", "-no_pallas_block",
                               "-compute_dtype", "bfloat16", "-model_weight", str(best),
@@ -401,3 +419,15 @@ def test_entry_points_run_the_bf16_attention_only_route(tmp_path):
     assert probs.shape[1:] == (7,) and len(probs) and probs.dtype == np.float32
     assert np.isfinite(probs).all()
     np.testing.assert_allclose(probs.sum(-1), 1.0, atol=1e-5)
+    _, _, points = train_cli.main(tiny + ["-learn_framework", "FOCAL", "-stage", "finetune",
+                                          "-epochs", "1"])
+    assert len(points) == 1 and np.isfinite(points[0]["test_loss"])
+    rows = sweep_cli.main(tiny + ["-learn_framework", "no", "-epochs", "1", "-ratios", "1.0",
+                                  "-out", str(tmp_path / "sweep.json")])
+    assert len(rows) == 1 and 0.0 <= rows[0]["best_val_acc"] <= 1.0
+    cfg = load_dataset_config("MOD_TINY")
+    data, labels, _ = synthetic_arrays(cfg, TASK, 6, seed=0)
+    served = Predictor(cfg, "SW_Transformer", TASK, None, batch_size=4, device="cpu",
+                       pallas_block=False, compute_dtype="bfloat16").predict(data)["probs"]
+    assert served.shape == (len(labels), 7) and np.isfinite(served).all()
+    assert dtypes == {torch.bfloat16}
