@@ -622,12 +622,27 @@ def time_ms_long(torch, fn):
         PROFILE_TRACE_MS / time_ms(torch, fn, iters=3, warmup=1))))
 
 
-def device_ms_per_call(torch, fn):
+def device_ms_per_call(torch, fn, attempts=3):
     """fn's device time a call (every kernel it launches, by a profile over
     at least PROFILE_TRACE_MS of calls): unlike CUDA events, not the host's
-    time to enqueue a call where that is the longer."""
+    time to enqueue a call where that is the longer. The calls are traced
+    with pauses around them, as kernel_phase_split's; a trace that lost
+    every record (device time 0: seen late in a process that has traced
+    many times) is taken again, and ``attempts`` such traces raise."""
     reps = trace_reps(torch, fn)
-    return profile_device(torch, lambda: [fn() for _ in range(reps)])["device_busy_ms"] / reps
+
+    def calls():
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    for _ in range(attempts):
+        busy = profile_device(torch, calls)["device_busy_ms"]
+        if busy > 0:
+            return busy / reps
+    raise AssertionError(f"{attempts} profiles of {reps} calls held no device record")
 
 
 def host_enqueue_ms(torch, fn, rounds=7, calls=30):
@@ -726,9 +741,17 @@ MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
                               "mlp_g2_kernel": "masked gradient",
                               "wgrad_gemm_kernel": "weight gradient",
                               "reduce_partials_kernel": "reduction",
-                              "mlp_bf16_hidden_kernel": "hidden GEMM",
-                              "mlp_bf16_out_kernel": "output GEMM",
-                              "mlp_bf16_g2_kernel": "masked gradient",
+                              "mlp_wcast_kernel": "weight cast",
+                              "mlp_wg_fwd_kernel": "fused forward",
+                              "mlp_wg_gelu_kernel": "hidden GEMM",
+                              "mlp_wg_hidden_kernel": "hidden GEMM",
+                              "mlp_wg_out_kernel": "output GEMM",
+                              "mlp_wg_g2_kernel": "masked gradient",
+                              "mlp_wg_wgrad_kernel": "weight gradient",
+                              "mlp_wg_reduce_kernel": "reduction",
+                              # gemm_splitk.cuh's bf16 weight gradients, as a build from
+                              # before #10-#12-bf16 moved to wgmma instantiates them
+                              # (compare_kernels.py profiles such a parent's steps)
                               "bf16_wgrad_kernel": "weight gradient"}}
 # how many times one call of #2 or #4 (fwd) or of #3 or #5 (bwd) launches each
 WB_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
@@ -747,16 +770,27 @@ def owned_by(lib, row):
     return name not in source_kernels(SPLITK) or lib["tag"] in row
 
 
-def mlp_launches(chunks, d, bf16=False):
+def mlp_launches(chunks, d, bf16_C=None):
     """How many times one call of #10 or #11 (fwd) or of #12 with masks
-    (bwd), or with ``bf16`` of their bf16 forms, launches each fused_mlp.cu
-    kernel, in ``chunks`` row chunks."""
-    pre = "mlp_bf16_" if bf16 else "mlp_"
+    (bwd) launches each fused_mlp.cu kernel, in ``chunks`` row chunks; with
+    ``bf16_C`` (the width C) of their bf16 forms: the weight cast, then the
+    forward in one launch where C <= fm.BF16_FUSED_MAX_C (else two a chunk),
+    the backward's g2, hidden, dx and weight-gradient launches a chunk and
+    one reduction."""
+    if bf16_C is not None:
+        from focal_tpu_torch.ops.fused_mlp import BF16_FUSED_MAX_C
+
+        if d == "fwd":
+            if bf16_C <= BF16_FUSED_MAX_C:
+                return {"mlp_wcast_kernel": 1, "mlp_wg_fwd_kernel": 1}
+            return {"mlp_wcast_kernel": 1, "mlp_wg_gelu_kernel": chunks, "mlp_wg_out_kernel": chunks}
+        return {"mlp_wcast_kernel": 1, "mlp_wg_g2_kernel": chunks, "mlp_wg_hidden_kernel": chunks,
+                "mlp_wg_out_kernel": chunks, "mlp_wg_wgrad_kernel": chunks,
+                "mlp_wg_reduce_kernel": 1}
     if d == "fwd":
-        return {f"{pre}hidden_kernel": chunks, f"{pre}out_kernel": chunks}
-    return {f"{pre}g2_kernel": chunks, f"{pre}hidden_kernel": chunks, f"{pre}out_kernel": chunks,
-            "bf16_wgrad_kernel" if bf16 else "wgrad_gemm_kernel": chunks,
-            "reduce_partials_kernel": 1}
+        return {"mlp_hidden_kernel": chunks, "mlp_out_kernel": chunks}
+    return {"mlp_g2_kernel": chunks, "mlp_hidden_kernel": chunks, "mlp_out_kernel": chunks,
+            "wgrad_gemm_kernel": chunks, "reduce_partials_kernel": 1}
 
 
 def kernel_phase_split(torch, fn, launches, lib=WB_LIB, reps=PROFILE_REPS):
@@ -3663,7 +3697,7 @@ def time_mlp_bf16(torch, np, fm, F, g, seed, dev, rate):
     w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
     keep1, keep2 = fm.mlp_keep_masks(7, T, C, H, rate, dev)
     lib_w = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
-    chunks = fm.mlp_launch_plan(T, C, H, True, dev, torch.bfloat16)[1]
+    chunks = [fm.mlp_launch_plan(T, C, H, d, dev, torch.bfloat16)[1] for d in (False, True)]
     calls = {
         "fwd": (lambda: fm.fused_mlp_forward_bf16(x, w1, b1, w2, b2),
                 lambda: fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2),
@@ -3684,7 +3718,7 @@ def time_mlp_bf16(torch, np, fm, F, g, seed, dev, rate):
             kernel()
             torch.cuda.synchronize()
             split = kernel_phase_split(torch, kernel, mlp_launches(
-                chunks, "bwd" if d == "bwd" else "fwd", bf16=True), MLP_LIB,
+                chunks[d == "bwd"], "bwd" if d == "bwd" else "fwd", bf16_C=C), MLP_LIB,
                 reps=trace_reps(torch, kernel))
             flops, nbytes, bnd, by = mlp_bf16_work(g, backward=d == "bwd")
             out[d] = {"ms": time_ms_long(torch, kernel), "device_ms": split["device_ms"],
@@ -3692,7 +3726,7 @@ def time_mlp_bf16(torch, np, fm, F, g, seed, dev, rate):
                       "library_ms": time_ms(torch, library) if library else bwd_library,
                       "bound_ms": bnd, "bound_by": by, "flops": flops, "bytes": nbytes}
         r = out[d]
-        log(f"[mlp-bf16-time] {g['name']} (T {T}, C {C}, {chunks} chunks) "
+        log(f"[mlp-bf16-time] {g['name']} (T {T}, C {C}, {chunks[0]} / {chunks[1]} chunks) "
             f"{ {'fwd': '#10-bf16', 'drop': '#11-bf16', 'bwd': '#12-bf16'}[d]}: {r['ms']:.4f} ms "
             f"(device {r['device_ms']:.4f}), plain {r['plain_ms']:.4f}, library "
             f"{r['library_ms']:.4f}, bound {bnd:.4f} ({by}), {flops / r['device_ms'] / 1e9:.2f} "

@@ -30,8 +30,11 @@ the copy and concatenation kernels and of PyTorch's elementwise kernels.
 With --profile, #2 and #3 are also split by kernel name
 (chip_smoke.profile_split; the DIR's window_block.cu must have the kernels
 chip_smoke.py knows). --parts takes a comma list of window (#1-#5),
-attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
--pallas_mlp step) and towers (#13, #14 and their step); all by default.
+window_bf16 (#1-bf16 to #5-bf16 by events and device time), attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
+-pallas_mlp step), mlp_bf16 (#10-bf16 to #12-bf16 per MLP geometry of a
+MOD and a MOD_WIDE forward by events and device time beside the bf16
+library chain, and the bf16 -pallas_mlp MOD supervised step) and towers
+(#13, #14 and their step); all by default.
 Needs a CUDA card; imports no JAX.
 """
 
@@ -42,7 +45,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("window", "attention", "mlp", "towers")
+PARTS = ("window", "window_bf16", "attention", "mlp", "mlp_bf16", "towers")
 
 
 def measure(root, profile, parts):
@@ -70,10 +73,14 @@ def measure(root, profile, parts):
     rate = 0.2
     if "window" in parts:
         measure_window(cs, torch, root, dev, gen, rate, profile)
+    if "window_bf16" in parts:
+        measure_window_bf16(cs, torch, root, dev, gen, rate)
     if "attention" in parts:
         measure_attention(cs, torch, np, root, dev, rate)
     if "mlp" in parts:
         measure_mlp(cs, torch, np, root, dev, rate)
+    if "mlp_bf16" in parts:
+        measure_mlp_bf16(cs, torch, np, root, dev, rate)
     if "towers" in parts:
         measure_towers(cs, torch, np, root, dev, load_yaml)
 
@@ -119,6 +126,55 @@ def measure_window(cs, torch, root, dev, gen, rate, profile):
         if profile:
             cs.profile_split(torch, pk.fused_window_block_dropout, pk.fused_window_block_backward,
                              ("#2", "#3"), geos, gen, dev, rate, f"profile-{dataset}")
+        torch.cuda.empty_cache()
+
+
+def measure_window_bf16(cs, torch, root, dev, gen, rate):
+    """#1-bf16 over one served MOD forward, #2-bf16/#3-bf16 over a MOD step
+    (batch 512) and #4-bf16/#5-bf16 over a MOD_WIDE step (batch 128), on
+    chip_smoke.bf16_inputs, by CUDA events and by device time in a
+    profile."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_yaml
+
+    def both(fn):
+        return cs.time_ms_long(torch, fn), cs.device_ms_per_call(torch, fn)
+
+    cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
+    tot = [0.0, 0.0]
+    for g in cs.block_geometries(cfg, cs.SERVE_BATCH):
+        args = cs.bf16_inputs(torch, g, gen, dev)
+        ev, dv = both(lambda: pk.fused_window_block_bf16(*args))
+        tot = [tot[0] + g["per_forward"] * ev, tot[1] + g["per_forward"] * dv]
+        del args
+    print(f"[{root}] MOD one served bf16 forward at batch {cs.SERVE_BATCH}: #1-bf16 "
+          f"{tot[0]:.3f} ms (device {tot[1]:.3f})", flush=True)
+    pairs = {("#2-bf16", "#3-bf16"): (pk.fused_window_block_dropout_bf16,
+                                      pk.fused_window_block_backward_bf16),
+             ("#4-bf16", "#5-bf16"): (pk.fused_window_block_perhead_bf16,
+                                      pk.fused_window_block_perhead_backward_bf16)}
+    for dataset, batch in (("MOD", 512), ("MOD_WIDE", 128)):
+        cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", f"{dataset}.yaml"))
+        every = cs.block_geometries(cfg, batch)
+        for names, (fwd, bwd) in pairs.items():
+            mono = names[0] == "#2-bf16"
+            geos = [g for g in every if pk.wblock_fits(g["N"], g["C"], g["heads"]) == mono]
+            if not geos:
+                continue
+            tot = {n: [0.0, 0.0] for n in names}
+            for g in geos:
+                args = cs.bf16_inputs(torch, g, gen, dev)
+                tr = cs.transposed(args)
+                dy = torch.randn(args[0].shape, generator=gen).to(dev).to(torch.bfloat16)
+                _, keep = fwd(*args, 7, rate)
+                for n, fn in ((names[0], lambda: fwd(*args, 7, rate)),
+                              (names[1], lambda: bwd(*args, dy, keep, rate, *tr))):
+                    ev, dv = both(fn)
+                    tot[n] = [tot[n][0] + g["per_forward"] * ev, tot[n][1] + g["per_forward"] * dv]
+                del args, tr, dy, keep
+            print(f"[{root}] {dataset} bf16 ({'/'.join(names)} geometries, batch {batch}): one "
+                  "step: " + ", ".join(f"{k} {a:.3f} ms (device {b:.3f})"
+                                       for k, (a, b) in tot.items()), flush=True)
         torch.cuda.empty_cache()
 
 
@@ -255,6 +311,65 @@ def measure_mlp(cs, torch, np, root, dev, rate):
     print(f"[{root}] MOD supervised step with -pallas_mlp (batch 128): p50 {run['p50_ms']:.3f} ms, "
           f"idle share {run['idle_share']:.3f}, device busy {run['profile']['device_busy_ms']:.3f} "
           f"ms, peak {run['peak_mb']:.1f} MiB", flush=True)
+
+
+def measure_mlp_bf16(cs, torch, np, root, dev, rate):
+    """#10-bf16 to #12-bf16 per MLP geometry of a MOD and a MOD_WIDE forward
+    (batch 128; chip_smoke.mlp_bf16_inputs) by CUDA events and by device time
+    in a profile, beside the bf16 library chain's (addmm -> GELU -> addmm,
+    its autograd backward: the same code in every DIR's process, so its
+    spread between them is the call's noise), summed over each forward;
+    then the bf16 -pallas_mlp MOD supervised step (3 + 20 steps at batch
+    128)."""
+    import torch.nn.functional as F
+
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_yaml, parse_train_params
+
+    for dataset in ("MOD", "MOD_WIDE"):
+        cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", f"{dataset}.yaml"))
+        tot = {}
+        for i, g in enumerate(cs.mlp_geometries(cfg, 128, dataset)):
+            x, w1, b1, w2, b2, gy = cs.mlp_bf16_inputs(torch, np, g, 500 + i, dev)
+            w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+            lw = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+            leaves = [t.clone().requires_grad_(True) for t in [x] + lw]
+            ly = cs.library_mlp(torch, F, *leaves, rate)
+            runs = {"#10-bf16": lambda: fm.fused_mlp_forward_bf16(x, w1, b1, w2, b2),
+                    "#11-bf16": lambda: fm.fused_mlp_dropout_forward_bf16(x, w1, b1, w2, b2, 7,
+                                                                          rate),
+                    "#12-bf16": lambda: fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, gy, 7,
+                                                                   rate),
+                    "library fwd": lambda: cs.library_mlp(torch, F, x, *lw),
+                    "library bwd": lambda: torch.autograd.grad(ly, leaves, gy, retain_graph=True)}
+            ms = {}
+            for key, fn in runs.items():
+                with torch.no_grad() if key != "library bwd" else torch.enable_grad():
+                    ms[key] = (cs.time_ms_long(torch, fn), cs.device_ms_per_call(torch, fn))
+            for key, v in ms.items():
+                t = tot.setdefault(key, [0.0, 0.0])
+                t[0] += g["per_forward"] * v[0]
+                t[1] += g["per_forward"] * v[1]
+            print(f"[{root}] bf16 {g['name']} (T {g['T']}, C {g['C']}, {g['per_forward']} a "
+                  "forward): " + ", ".join(f"{key} {a:.4f} ms (device {b:.4f})"
+                                          for key, (a, b) in ms.items()), flush=True)
+            del x, w1, b1, w2, b2, gy, w1t, w2t, lw, leaves, ly, runs
+        print(f"[{root}] bf16 {dataset} MLPs of one forward at batch 128: "
+              + ", ".join(f"{key} {a:.3f} ms (device {b:.3f})" for key, (a, b) in tot.items()),
+              flush=True)
+        torch.cuda.empty_cache()
+    step = (pk.fused_window_block_dropout_bf16, pk.fused_window_block_backward_bf16,
+            fm.fused_mlp_dropout_forward_bf16, fm.fused_mlp_backward_bf16)
+    sargs = parse_train_params(["-dataset", "MOD", "-model", "SW_Transformer", "-learn_framework",
+                                "no", "-batch_size", "128", "-pallas_mlp", "-compute_dtype",
+                                "bfloat16"])
+    run = cs.run_supervised_steps(torch, np, sargs, 128, cs.TRAIN_WARMUP, cs.TRAIN_STEPS, step,
+                                  {k.__name__: 16 for k in step}, dev,
+                                  "supervised-pallas-mlp-bf16")
+    print(f"[{root}] MOD bf16 supervised step with -pallas_mlp (batch 128): p50 "
+          f"{run['p50_ms']:.3f} ms, idle share {run['idle_share']:.3f}, device busy "
+          f"{run['profile']['device_busy_ms']:.3f} ms, peak {run['peak_mb']:.1f} MiB", flush=True)
 
 
 def measure_towers(cs, torch, np, root, dev, load_yaml):

@@ -1,0 +1,178 @@
+"""What the bf16 fused-MLP kernels (#10-bf16 to #12-bf16, csrc/fused_mlp.cu
+on csrc/gemm_wgmma.cuh) compile to and how they run, for one or more
+checkouts of the repository on one card.
+
+    python3 diagnose_mlp.py [--bench] DIR [DIR ...]
+
+Each DIR holds a focal_tpu_torch/ package (this checkout is ".", a variant
+a copy under build/ with its sources edited, the parent commit one
+unpacked with git archive); each is built and run in a process of its own.
+Per DIR it prints:
+  * the build's ptxas lines that say a wgmma pipeline was serialized
+    (C7510-C7518, C7520; the C7519 notes are harmless) and the bf16
+    kernels that spill, with their registers;
+  * each bf16 kernel's count of HGMMA (wgmma) and HMMA (mma.sync)
+    instructions in the compiled SASS (cuobjdump);
+  * #10-bf16, #11-bf16 (masks of mlp_keep_masks) and #12-bf16 (with the
+    masks and without) against their bf16 plain versions at WIDTHS: the
+    worst error relative to max|plain| of y and of each gradient, and
+    whether a second call gives the same bits;
+  * with --bench, each kernel's device time a call (a profile over at least
+    chip_smoke.PROFILE_TRACE_MS of calls) at every MLP geometry of a MOD
+    and a MOD_WIDE forward at batch 128 beside the bf16 library chain's
+    (addmm -> GELU -> addmm and its autograd backward), and their sums over
+    each forward.
+Needs a CUDA card; imports no JAX.
+"""
+
+import importlib.util
+import os
+import re
+import subprocess
+import sys
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+# (T, C, H): MOD's widths, MOD_WIDE's stage 0, C > 256 (the forward's
+# two-launch form), H = 2C, C 8 and T not a multiple of the 128-row tiles
+WIDTHS = [(2311, 64, 256), (1170, 128, 512), (301, 256, 1024), (517, 320, 1280),
+          (777, 96, 192), (200, 8, 32), (3000, 256, 512), (73728, 256, 1024), (999, 192, 768)]
+RATE = 0.2
+
+
+def build_report(build, cs):
+    """The build's serialization lines and spills, and SASS instruction counts."""
+    log = open(build.log_path("fused_mlp.cu")).read()
+    short = lambda name: re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d*", "", name)[:60]
+    for line in log.splitlines():
+        m = re.search(r"\((C75\d\d)\).*function '(\S+)'", line)
+        if m and m.group(1) != "C7519":
+            print(f"  serialized ({m.group(1)}): {short(m.group(2))}", flush=True)
+    cur = None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+        elif cur and ("wg_" in cur or "wcast" in cur):
+            if "spill stores" in line and not line.strip().startswith("0 bytes stack"):
+                print(f"  spills: {short(cur)}: {line.strip()}", flush=True)
+    tool = os.path.join(os.path.dirname(os.path.dirname(build.find_nvcc())), "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", build.library_path("fused_mlp.cu")],
+                          capture_output=True, text=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += bool(re.search(r"\bHMMA\b", line))
+    for name, (hg, hm) in sorted(counts.items()):
+        if "wg_" in name or "wcast" in name:
+            print(f"  sass {short(name)}: HGMMA {hg}, HMMA {hm}", flush=True)
+
+
+def check(torch, np, fm, dev):
+    """The bf16 kernels against their plain versions at WIDTHS."""
+    def rel(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    for T, C, H in WIDTHS:
+        rng = np.random.default_rng(T + C)
+        mk = lambda s, k: torch.from_numpy((rng.normal(size=s) * k).astype(np.float32)).to(dev)
+        x, w1, b1 = mk((T, C), 1.0).to(torch.bfloat16), mk((C, H), C**-0.5), mk((H,), 0.1)
+        w2, b2, g = mk((H, C), H**-0.5), mk((C,), 0.1), mk((T, C), 1.0).to(torch.bfloat16)
+        w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+        keep1, keep2 = fm.mlp_keep_masks(9, T, C, H, RATE, dev)
+        y = [fm.fused_mlp_forward_bf16(x, w1, b1, w2, b2) for _ in range(2)]
+        yd = [fm.fused_mlp_dropout_forward_bf16(x, w1, b1, w2, b2, 9, RATE) for _ in range(2)]
+        same = torch.equal(*y) and torch.equal(*yd)
+        out = [f"fwd {rel(y[0], fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2)):.2e}",
+               f"drop {rel(yd[0], fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2, keep1, keep2, RATE)):.2e}"]
+        for seed, masks in ((None, ()), (9, (keep1, keep2, RATE))):
+            got = [fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, g, seed, RATE) for _ in range(2)]
+            same = same and all(torch.equal(a, b) for a, b in zip(*got))
+            want = fm.fused_mlp_backward_bf16_reference(x, w1, b1, w2, b2, g, *masks)
+            out.append(("bwd-masks " if masks else "bwd ") + " ".join(
+                f"{n} {rel(a, b):.2e}" for n, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"),
+                                                          got[0], want)))
+        torch.cuda.synchronize()
+        print(f"  T {T} C {C} H {H}: " + "; ".join(out) + f"; same bits again: {same}", flush=True)
+
+
+def bench(cs, torch, np, fm, root, dev):
+    """Device time a call per MLP geometry beside the bf16 library chain."""
+    import torch.nn.functional as F
+
+    from focal_tpu_torch.params import load_yaml
+
+    for dataset in ("MOD", "MOD_WIDE"):
+        cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", f"{dataset}.yaml"))
+        tot = {}
+        for i, g in enumerate(cs.mlp_geometries(cfg, 128, dataset)):
+            x, w1, b1, w2, b2, gy = cs.mlp_bf16_inputs(torch, np, g, 500 + i, dev)
+            w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+            lw = [t.to(torch.bfloat16) for t in (w1, b1, w2, b2)]
+            leaves = [t.clone().requires_grad_(True) for t in [x] + lw]
+            ly = cs.library_mlp(torch, F, *leaves, RATE)
+            runs = {"#10-bf16": lambda: fm.fused_mlp_forward_bf16(x, w1, b1, w2, b2),
+                    "#11-bf16": lambda: fm.fused_mlp_dropout_forward_bf16(x, w1, b1, w2, b2, 7,
+                                                                          RATE),
+                    "#12-bf16": lambda: fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, gy, 7,
+                                                                   RATE),
+                    "library fwd": lambda: cs.library_mlp(torch, F, x, *lw),
+                    "library bwd": lambda: torch.autograd.grad(ly, leaves, gy, retain_graph=True)}
+            ms = {}
+            for key, fn in runs.items():
+                with torch.no_grad() if key != "library bwd" else torch.enable_grad():
+                    ms[key] = cs.device_ms_per_call(torch, fn)
+                tot[key] = tot.get(key, 0.0) + g["per_forward"] * ms[key]
+            print(f"  {g['name']} (T {g['T']}, C {g['C']}, {g['per_forward']} a forward): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in ms.items()), flush=True)
+            del x, w1, b1, w2, b2, gy, w1t, w2t, lw, leaves, ly, runs
+        print(f"  {dataset}, the MLPs of one forward at batch 128 (device ms): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in tot.items()), flush=True)
+        torch.cuda.empty_cache()
+
+
+def child(root, with_bench):
+    sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    import numpy as np
+    import torch
+
+    from focal_tpu_torch.ops import _build
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    if not os.path.abspath(fm.__file__).startswith(root + os.sep):
+        raise SystemExit(f"imported {fm.__file__}, not the package under {root}")
+    if not torch.cuda.is_available():
+        raise SystemExit("diagnose_mlp.py needs a CUDA card")
+    print(f"[{root}]", flush=True)
+    _build.build_all(("fused_mlp.cu",))
+    build_report(_build, cs)
+    dev = torch.device("cuda")
+    check(torch, np, fm, dev)
+    if with_bench:
+        bench(cs, torch, np, fm, root, dev)
+
+
+def main():
+    argv = sys.argv[1:]
+    if argv[:1] == ["--child"]:
+        child(os.path.abspath(argv[1]), argv[2] == "1")
+        return
+    with_bench = "--bench" in argv
+    dirs = [a for a in argv if a != "--bench"]
+    if not dirs:
+        sys.exit(__doc__)
+    for d in dirs:
+        subprocess.run([sys.executable, os.path.abspath(__file__), "--child", d,
+                        "1" if with_bench else "0"], check=True)
+
+
+if __name__ == "__main__":
+    main()

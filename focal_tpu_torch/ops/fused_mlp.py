@@ -22,7 +22,12 @@ weights and biases as they lie, and give a bf16 y (and dx) and f32 weight
 and bias gradients, rounding where the JAX package's kernel does when it is
 fed bf16 (see ``fused_mlp_bf16_reference``), the GELU with the TPU
 kernel's erf (ROADMAP C6). ``fused_mlp`` and ``fused_mlp_dropout`` take
-them for a bf16 x (``_FusedMlpBf16``).
+them for a bf16 x (``_FusedMlpBf16``). On the card they run on Hopper's
+``wgmma`` with TMA-fed shared memory (``csrc/gemm_wgmma.cuh``): the
+forward is one launch where C <= 256, h kept on chip (fc2 summed over
+64-column hidden chunks, each h chunk rounded to bf16 in registers); the
+backward stores h and dz as bf16 and sums db1 and db2 from f32 per-tile
+partials in a fixed order.
 
 Dropout is the TPU kernel's: a 32-bit draw per element, kept iff bits >=
 rate * 2**32, survivors scaled by 1 / (1 - rate) (not ``ops.dropout``'s
@@ -41,6 +46,7 @@ from focal_tpu_torch.ops.conv_tower import gelu_exact, gelu_grad_exact
 
 _FUSED_MLP_SRC = "fused_mlp.cu"
 MLP_TILE = 1024  # the JAX kernel's max token rows per tile
+BF16_FUSED_MAX_C = 256  # kFusedMaxC: #10-bf16/#11-bf16 run in one launch up to this width
 
 
 # ---------------------------------------------------------------------------
@@ -204,7 +210,7 @@ def _lib():
         lib.focal_mlp_bwd.argtypes = [p] * 9 + [i] * 4 + seed + [p]
         lib.focal_mlp_masks.argtypes = [ctypes.c_ulonglong, ctypes.c_uint] + [i] * 3 + [p] * 3
         lib.focal_mlp_fwd_bf16.argtypes = lib.focal_mlp_fwd.argtypes
-        lib.focal_mlp_bwd_bf16.argtypes = lib.focal_mlp_bwd.argtypes
+        lib.focal_mlp_bwd_bf16.argtypes = [p] * 8 + [i] * 4 + seed + [p]
         lib.focal_mlp_workspace_bf16.argtypes = lib.focal_mlp_workspace.argtypes
         for fn in (lib.focal_mlp_fwd, lib.focal_mlp_workspace, lib.focal_mlp_bwd,
                    lib.focal_mlp_masks, lib.focal_mlp_fwd_bf16, lib.focal_mlp_bwd_bf16,
@@ -289,7 +295,10 @@ def _forward(name, x, w1, b1, w2, b2, dropout, seed, rate, bf16=False):
     _check("b1", b1, (H,), dev)
     _check("w2", w2, (H, C), dev)
     _check("b2", b2, (C,), dev)
-    _check_aligned(name, x=x, w1=w1, w2=w2)
+    if bf16:
+        _check_aligned(name, x=x, w1=w1, b1=b1, w2=w2, b2=b2)
+    else:
+        _check_aligned(name, x=x, w1=w1, w2=w2)
     seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
     ws = torch.empty(mlp_launch_plan(T, C, H, False, dev, x.dtype)[0], dtype=torch.float32,
                      device=dev)
@@ -368,10 +377,14 @@ def _backward(name, x, w1, b1, w1_t, w2_t, g, seed, rate, bf16=False):
     T, C, H = _check_dims(x, w1, dtype)
     dev = x.device
     _check("b1", b1, (H,), dev)
-    _check("w1_t", w1_t, (H, C), dev)
+    if not bf16:  # the bf16 kernels read W1 in both orders as it lies
+        _check("w1_t", w1_t, (H, C), dev)
     _check("w2_t", w2_t, (C, H), dev)
     _check("g", g, (T, C), dev, dtype)
-    _check_aligned(name, x=x, w1=w1, w1_t=w1_t, w2_t=w2_t, g=g)
+    if bf16:
+        _check_aligned(name, x=x, w1=w1, b1=b1, w2_t=w2_t, g=g)
+    else:
+        _check_aligned(name, x=x, w1=w1, w1_t=w1_t, w2_t=w2_t, g=g)
     dropout = seed is not None
     seed_, thr, inv = _dropout_args(seed, rate) if dropout else (0, 0, 1.0)
     ws = torch.empty(mlp_launch_plan(T, C, H, True, dev, dtype)[0], dtype=torch.float32,
@@ -379,10 +392,14 @@ def _backward(name, x, w1, b1, w1_t, w2_t, g, seed, rate, bf16=False):
     dx = torch.empty_like(x)
     dweights = torch.empty(2 * C * H + H + C, dtype=torch.float32, device=dev)
     lib = _lib()
-    _launch(name, lib.focal_mlp_bwd_bf16 if bf16 else lib.focal_mlp_bwd, dev, x.data_ptr(),
-            w1.data_ptr(), b1.data_ptr(), w1_t.data_ptr(), w2_t.data_ptr(), g.data_ptr(),
-            dx.data_ptr(), dweights.data_ptr(), ws.data_ptr(), T, C, H, int(dropout), seed_, thr,
-            inv)
+    if bf16:
+        _launch(name, lib.focal_mlp_bwd_bf16, dev, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                w2_t.data_ptr(), g.data_ptr(), dx.data_ptr(), dweights.data_ptr(), ws.data_ptr(),
+                T, C, H, int(dropout), seed_, thr, inv)
+    else:
+        _launch(name, lib.focal_mlp_bwd, dev, x.data_ptr(), w1.data_ptr(), b1.data_ptr(),
+                w1_t.data_ptr(), w2_t.data_ptr(), g.data_ptr(), dx.data_ptr(),
+                dweights.data_ptr(), ws.data_ptr(), T, C, H, int(dropout), seed_, thr, inv)
     dw1 = dweights[:C * H].view(C, H)
     db1 = dweights[C * H:C * H + H]
     dw2 = dweights[C * H + H:2 * C * H + H].view(H, C)
@@ -392,10 +409,11 @@ def _backward(name, x, w1, b1, w1_t, w2_t, g, seed, rate, bf16=False):
 
 def fused_mlp_forward_bf16(x, w1, b1, w2, b2):
     """#10-bf16: #10's function on a bf16 x [T, C] with the f32 w1 [C, H],
-    b1, w2 [H, C] and b2 as they lie (rounded to bf16 as the kernel stages
-    them); returns bf16 y. C and H multiples of 8. On the card: h = GELU(x
-    W1 + b1) in f32 stored as bf16, y = h W2 + b2 in f32 stored as bf16,
-    the products on the bf16 tensor cores. Replaces
+    b1, w2 [H, C] and b2 as they lie (rounded to bf16 once a call); returns
+    bf16 y. C and H multiples of 8. On the card: h = GELU(x W1 + b1) in f32
+    rounded to bf16, y = h W2 + b2 in f32 stored as bf16, the products on
+    the bf16 tensor cores (wgmma); where C <= 256 one launch keeps h on chip,
+    y summed over 64-column hidden chunks. Replaces
     focal_tpu/ops/pallas_kernels.py::_mlp_fwd_impl (_mlp_fwd_kernel) fed
     bf16. CPU tensors take fused_mlp_bf16_reference."""
     if x.device.type == "cpu":
@@ -429,10 +447,13 @@ fused_mlp_dropout_forward_bf16.launches = 0
 def fused_mlp_backward_bf16(x, w1, b1, w1_t, w2_t, g, seed=None, rate=0.0):
     """#12-bf16: fused_mlp_backward's arguments with a bf16 x and g (the
     weights f32); returns (dx bf16, dw1, db1, dw2, db2 f32), the weight
-    gradients fixed-order sums: two calls give the same bits. On the card:
-    z and dh = g2 W2^T in one launch, dz in f32 (db1 sums it) rounded to
-    bf16 as dx = dz W1^T and dW1 = x^T dz stage it, dW2 = h^T g2 with h and
-    g2 rounded as staged. Replaces focal_tpu/ops/pallas_kernels.py::
+    gradients fixed-order sums: two calls give the same bits. ``w1_t`` is
+    not read (the kernels read w1 in both orders); ``w2_t`` gives W2. On the
+    card: z and dh = g2 W2^T over one tile, dz in f32 (db1 sums it in
+    per-tile partials) stored as bf16 with the h the forward used; g2 stored
+    as bf16 (db2 from its f32 values); dx = dz W1^T, dW1 = x^T dz and dW2 =
+    h^T g2 on the bf16 tensor cores (wgmma). Replaces
+    focal_tpu/ops/pallas_kernels.py::
     _mlp_bwd_impl (_mlp_bwd_kernel, _mlp_bwd_dropout_kernel) fed bf16. CPU
     tensors take fused_mlp_backward_bf16_reference, with draw_mlp_masks'
     masks for a seed."""

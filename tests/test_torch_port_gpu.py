@@ -763,8 +763,8 @@ def test_conv_tower_launches_only_conv_tower_kernels(C, external):
 # widths, T not a multiple of the kernels' 32-row tile
 
 
-def _mlp_args(rng, T, C, dev):
-    H = 4 * C
+def _mlp_args(rng, T, C, dev, H=None):
+    H = 4 * C if H is None else H
     shapes = [(T, C), (C, H), (H,), (H, C), (C,)]
     scales = [1.0, C**-0.5, 0.1, H**-0.5, 0.1]
     return [torch.from_numpy((rng.normal(size=s) * k).astype(np.float32)).to(dev)
@@ -1691,8 +1691,8 @@ def test_window_block_bf16_routes_wide_blocks_to_the_perhead_bf16_kernels():
         assert g.dtype == w.dtype and _rel(g, w) <= 1e-2
 
 
-def _mlp_bf16_args(rng, T, C, dev):
-    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev)
+def _mlp_bf16_args(rng, T, C, dev, H=None):
+    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev, H)
     return [x.to(torch.bfloat16), w1, b1, w2, b2]
 
 
@@ -1706,18 +1706,22 @@ def _mlp_bf16_calls(fm, x, w1, b1, w2, b2, g, seed, w1t, w2t):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("T,C", [(2311, 64), (1170, 128), (301, 256), (73728, 256)])
-def test_fused_mlp_bf16_matches_plain_and_repeats_bitwise(T, C):
+@pytest.mark.parametrize("T,C,H", [(2311, 64, 256), (1170, 128, 512), (301, 256, 1024),
+                                   (73728, 256, 1024), (517, 320, 1280), (777, 96, 192),
+                                   (1000, 256, 512)])
+def test_fused_mlp_bf16_matches_plain_and_repeats_bitwise(T, C, H):
     """#10-bf16, and #11-bf16 against the bf16 plain version fed #11's own
     masks (mlp_keep_masks), y within 8e-3 of max|y|; #12-bf16 with the masks
     and without, dx bf16 and the rest f32, each within 1e-2 relative; the
     same bits on a second call; one launch counted a call. T 73,728 at C
-    256 is MOD_WIDE's audio stage 0: three row chunks."""
+    256 is MOD_WIDE's audio stage 0 (the backward in two row chunks); C 320
+    takes the forward's two-launch form (C > 256); H = 2C at C 96 and 256;
+    every other T is not a multiple of the 128-row tiles."""
     from focal_tpu_torch.ops import fused_mlp as fm
 
     dev = _card()
     rng = np.random.default_rng(T + C)
-    x, w1, b1, w2, b2 = _mlp_bf16_args(rng, T, C, dev)
+    x, w1, b1, w2, b2 = _mlp_bf16_args(rng, T, C, dev, H)
     g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev).to(torch.bfloat16)
     tr = w1.t().contiguous(), w2.t().contiguous()
     kernels = (fm.fused_mlp_forward_bf16, fm.fused_mlp_dropout_forward_bf16,
@@ -1731,7 +1735,7 @@ def test_fused_mlp_bf16_matches_plain_and_repeats_bitwise(T, C):
         for u, v in zip(*((a, b) if isinstance(a, tuple) else ((a,), (b,)))):
             assert torch.equal(u, v)
     assert got[0].dtype == got[1].dtype == torch.bfloat16
-    keep1, keep2 = fm.mlp_keep_masks(9, T, C, 4 * C, 0.2, dev)
+    keep1, keep2 = fm.mlp_keep_masks(9, T, C, H, 0.2, dev)
     assert _rel(got[0], fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2)) <= 8e-3
     assert _rel(got[1], fm.fused_mlp_bf16_reference(x, w1, b1, w2, b2, keep1, keep2, 0.2)) <= 8e-3
     for grads, masks in ((got[2], (keep1, keep2, 0.2)), (got[3], ())):
@@ -1746,9 +1750,10 @@ def test_fused_mlp_bf16_matches_plain_and_repeats_bitwise(T, C):
 @pytest.mark.parametrize("T,C", [(2311, 64), (301, 256)])
 def test_fused_mlp_bf16_launches_only_fused_mlp_kernels(T, C):
     """A profiled call of #10-bf16, #11-bf16 and #12-bf16 (with masks and
-    without) runs only csrc/fused_mlp.cu's bf16 kernels and gemm_splitk.cuh's
-    bf16 weight gradients and reduction as instantiated for fused_mlp.cu; no
-    cast, no cuBLAS kernel."""
+    without) runs only csrc/fused_mlp.cu's wgmma kernels: the weights' bf16
+    pass, the fused forward (C <= 256), the backward's g2, hidden, dx
+    (output) and weight-gradient products and its reduction; no PyTorch
+    cast, no cuBLAS kernel, no gemm_splitk.cuh kernel."""
     import re
 
     from torch.autograd import DeviceType
@@ -1768,10 +1773,44 @@ def test_fused_mlp_bf16_launches_only_fused_mlp_kernels(T, C):
     names = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
     kernels = {m.group(1) if m else n for n in names
                for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
-    assert kernels == {"mlp_bf16_hidden_kernel", "mlp_bf16_out_kernel", "mlp_bf16_g2_kernel",
-                       "bf16_wgrad_kernel", "reduce_partials_kernel"}, names
-    shared = [n for n in names if "bf16_wgrad_kernel" in n or "reduce_partials_kernel" in n]
-    assert shared and all("FusedMlpSrc" in n for n in shared), shared
+    assert kernels == {"mlp_wcast_kernel", "mlp_wg_fwd_kernel", "mlp_wg_g2_kernel",
+                       "mlp_wg_hidden_kernel", "mlp_wg_out_kernel", "mlp_wg_wgrad_kernel",
+                       "mlp_wg_reduce_kernel"}, names
+
+
+# sha-256 (first 16 hex digits) of the f32 #10, #11 (seed 9, rate 0.2) and
+# #12 (with #11's masks, and without) outputs at (T, C), H = 4C, on the
+# inputs of _f32_mlp_digest, as the f32 kernels gave them before the bf16
+# forms moved to wgmma (the parent commit's build, NVIDIA H100 80GB HBM3,
+# 132 SMs: the weight gradients' row splits follow the SM count)
+F32_MLP_DIGESTS = {(1000, 64): "91e9620a2c1bd8f8", (333, 128): "abeabfcf98f0c1fc"}
+
+
+def _f32_mlp_digest(fm, T, C, dev):
+    import hashlib
+
+    rng = np.random.default_rng(7 * T + C)
+    x, w1, b1, w2, b2 = _mlp_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev)
+    outs = _mlp_calls(fm, x, w1, b1, w2, b2, g, 9, w1.t().contiguous(), w2.t().contiguous())
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in (outs[0], outs[1], *outs[2], *outs[3]):
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", sorted(F32_MLP_DIGESTS))
+def test_f32_fused_mlp_gives_the_parents_bits(T, C):
+    """The f32 #10-#12, whose code the bf16 redesign left as it was, give
+    the bits they gave before it (F32_MLP_DIGESTS)."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
+        "the digests were taken on a 132-SM H100")
+    assert _f32_mlp_digest(fm, T, C, dev) == F32_MLP_DIGESTS[(T, C)]
 
 
 @pytest.mark.gpu
