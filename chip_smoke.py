@@ -727,15 +727,18 @@ def kernel_name(row):
     return m.group(1) if m else None
 
 
-# a library's kernels: its source's, and gemm_splitk.cuh's (shared by
-# window_block.cu and fused_mlp.cu) as it instantiates them, with its tag
-# type in their names; the phase each kernel serves
-SPLITK = "gemm_splitk.cuh"
+# a library's kernels: its source's, and those of the headers window_block.cu
+# and fused_mlp.cu share (gemm_splitk.cuh's, gemm_wgmma.cuh's) as it
+# instantiates them, with its tag type in their names; the phase each
+# kernel serves
+SHARED = ("gemm_splitk.cuh", "gemm_wgmma.cuh")
 WB_LIB = {"source": "window_block.cu", "tag": "WindowBlockSrc",
           "phases": {"proj_gemm_kernel": "GEMM", "attn_fwd_kernel": "attention",
                      "attn_bwd_kernel": "attention", "wgrad_gemm_kernel": "weight gradient",
                      "reduce_partials_kernel": "reduction", "bf16_proj_kernel": "GEMM",
-                     "bf16_wgrad_kernel": "weight gradient"}}
+                     "wb_wg_qkvg_kernel": "GEMM", "wb_wg_dx_kernel": "GEMM",
+                     "attn_bwd_bf16_kernel": "attention", "wg_wgrad_kernel": "weight gradient",
+                     "wg_reduce_kernel": "reduction"}}
 MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
                    "phases": {"mlp_hidden_kernel": "hidden GEMM", "mlp_out_kernel": "output GEMM",
                               "mlp_g2_kernel": "masked gradient",
@@ -747,12 +750,8 @@ MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
                               "mlp_wg_hidden_kernel": "hidden GEMM",
                               "mlp_wg_out_kernel": "output GEMM",
                               "mlp_wg_g2_kernel": "masked gradient",
-                              "mlp_wg_wgrad_kernel": "weight gradient",
-                              "mlp_wg_reduce_kernel": "reduction",
-                              # gemm_splitk.cuh's bf16 weight gradients, as a build from
-                              # before #10-#12-bf16 moved to wgmma instantiates them
-                              # (compare_kernels.py profiles such a parent's steps)
-                              "bf16_wgrad_kernel": "weight gradient"}}
+                              "wg_wgrad_kernel": "weight gradient",
+                              "wg_reduce_kernel": "reduction"}}
 # how many times one call of #2 or #4 (fwd) or of #3 or #5 (bwd) launches each
 WB_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
                "bwd": {"proj_gemm_kernel": 2, "attn_bwd_kernel": 1, "wgrad_gemm_kernel": 1,
@@ -765,9 +764,9 @@ def owned_by(lib, row):
     """Whether a profiler row is a kernel of ``lib`` (WB_LIB or
     MLP_LIB)."""
     name = kernel_name(row)
-    if name not in source_kernels(lib["source"], SPLITK):
+    if name not in source_kernels(lib["source"], *SHARED):
         return False
-    return name not in source_kernels(SPLITK) or lib["tag"] in row
+    return name not in source_kernels(*SHARED) or lib["tag"] in row
 
 
 def mlp_launches(chunks, d, bf16_C=None):
@@ -785,8 +784,7 @@ def mlp_launches(chunks, d, bf16_C=None):
                 return {"mlp_wcast_kernel": 1, "mlp_wg_fwd_kernel": 1}
             return {"mlp_wcast_kernel": 1, "mlp_wg_gelu_kernel": chunks, "mlp_wg_out_kernel": chunks}
         return {"mlp_wcast_kernel": 1, "mlp_wg_g2_kernel": chunks, "mlp_wg_hidden_kernel": chunks,
-                "mlp_wg_out_kernel": chunks, "mlp_wg_wgrad_kernel": chunks,
-                "mlp_wg_reduce_kernel": 1}
+                "mlp_wg_out_kernel": chunks, "wg_wgrad_kernel": chunks, "wg_reduce_kernel": 1}
     if d == "fwd":
         return {"mlp_hidden_kernel": chunks, "mlp_out_kernel": chunks}
     return {"mlp_g2_kernel": chunks, "mlp_hidden_kernel": chunks, "mlp_out_kernel": chunks,
@@ -2505,8 +2503,8 @@ BF16_LOSS_TOL = 1e-2      # relative: the rate-0 bf16 step's loss vs the f32 ste
 BF16_GRAD_MIN_COS = 0.9   # each gradient's cosine to the bf16 plain versions' (C11)
 BF16_GRAD_MEDIAN_TOL = 5e-2  # median over the tensors of ||g - g_plain|| / ||g_plain|| (C11)
 WB_LAUNCHES_BF16 = {"fwd": {"bf16_proj_kernel": 2, "attn_fwd_kernel": 1},
-                    "bwd": {"bf16_proj_kernel": 2, "attn_bwd_kernel": 1, "bf16_wgrad_kernel": 1,
-                            "reduce_partials_kernel": 2}}
+                    "bwd": {"wb_wg_qkvg_kernel": 1, "attn_bwd_bf16_kernel": 1,
+                            "wb_wg_dx_kernel": 1, "wg_wgrad_kernel": 1, "wg_reduce_kernel": 1}}
 
 
 def bf16_inputs(torch, g, gen, dev):
@@ -2636,11 +2634,10 @@ def check_block_bf16(torch, pk, sgeos, tgeos, gen, dev, rate):
         kept = float(keep.double().mean())
         sigma = math.sqrt(rate * (1 - rate) / keep.numel())
         dy = torch.randn(y.shape, generator=gen).to(dev).to(torch.bfloat16)
-        tr = transposed(args)
         errs = {}
         for tag, kp in (("keep", keep), ("nomask", None)):
-            got = pk.fused_window_block_backward_bf16(*args, dy, kp, rate, *tr)
-            again = pk.fused_window_block_backward_bf16(*args, dy, kp, rate, *tr)
+            got = pk.fused_window_block_backward_bf16(*args, dy, kp, rate)
+            again = pk.fused_window_block_backward_bf16(*args, dy, kp, rate)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{g['name']}: #3-bf16 gives other bits on a second call")
@@ -2691,7 +2688,6 @@ def time_block_bf16(torch, pk, g, gen, dev, rate, train, perhead=False):
     bound (bf16_work)."""
     args = bf16_inputs(torch, g, gen, dev)
     dy = torch.randn(args[0].shape, generator=gen).to(dev).to(torch.bfloat16)
-    tr = transposed(args)
     fwd_k, bwd_k = ((pk.fused_window_block_perhead_bf16, pk.fused_window_block_perhead_backward_bf16)
                     if perhead else
                     (pk.fused_window_block_dropout_bf16, pk.fused_window_block_backward_bf16))
@@ -2699,7 +2695,7 @@ def time_block_bf16(torch, pk, g, gen, dev, rate, train, perhead=False):
         _, keep = fwd_k(*args, 7, rate)
         calls = {"fwd": (lambda: fwd_k(*args, 7, rate),
                          lambda: pk.fused_window_block_bf16_reference(*args, keep, rate)),
-                 "bwd": (lambda: bwd_k(*args, dy, keep, rate, *tr),
+                 "bwd": (lambda: bwd_k(*args, dy, keep, rate),
                          lambda: pk.fused_window_block_backward_bf16_reference(*args, dy, keep,
                                                                                rate))}
     else:
@@ -3402,11 +3398,10 @@ def check_perhead_bf16(torch, pk, geos, gen, dev, rate):
         kept = float(keep.double().mean())
         sigma = math.sqrt(rate * (1 - rate) / keep.numel())
         dy = torch.randn(y.shape, generator=gen).to(dev).to(torch.bfloat16)
-        tr = transposed(args)
         errs = {}
         for tag, kp in (("keep", keep), ("nomask", None)):
-            got = ph_bwd(*args, dy, kp, rate, *tr)
-            again = ph_bwd(*args, dy, kp, rate, *tr)
+            got = ph_bwd(*args, dy, kp, rate)
+            again = ph_bwd(*args, dy, kp, rate)
             torch.cuda.synchronize()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{g['name']}: #5-bf16 gives other bits on a second call")
@@ -4709,7 +4704,7 @@ def main():
     log_profile("profile", "one served batch", serve_profile)
     serve_block_ms = block_device_ms(serve_profile)
     strays = [r["name"] for r in serve_profile["rows"]
-              if kernel_name(r["name"]) in source_kernels(WB_LIB["source"], SPLITK)
+              if kernel_name(r["name"]) in source_kernels(WB_LIB["source"], *SHARED)
               and not (kernel_name(r["name"]) == "proj_gemm_kernel"
                        or re.search(r"\battn_fwd_kernel<false>", r["name"]))]
     log(f"[profile] #1 in the served batch, device ms by phase: {serve_block_ms}")

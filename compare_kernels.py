@@ -30,7 +30,9 @@ the copy and concatenation kernels and of PyTorch's elementwise kernels.
 With --profile, #2 and #3 are also split by kernel name
 (chip_smoke.profile_split; the DIR's window_block.cu must have the kernels
 chip_smoke.py knows). --parts takes a comma list of window (#1-#5),
-window_bf16 (#1-bf16 to #5-bf16 by events and device time), attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
+window_bf16 (#1-bf16 to #5-bf16 by events and device time, #3-bf16's and
+#5-bf16's device time by phase and the host's enqueue, and the bf16 MOD
+pretrain step), attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
 -pallas_mlp step), mlp_bf16 (#10-bf16 to #12-bf16 per MLP geometry of a
 MOD and a MOD_WIDE forward by events and device time beside the bf16
 library chain, and the bf16 -pallas_mlp MOD supervised step) and towers
@@ -129,11 +131,46 @@ def measure_window(cs, torch, root, dev, gen, rate, profile):
         torch.cuda.empty_cache()
 
 
+# the phase of each kernel #3-bf16 and #5-bf16 run, under the names of this
+# tree's csrc/window_block.cu and of its parent's (products on mma.sync,
+# the attention without the ring, split-K weight gradients)
+BF16_BWD_PHASES = {"wb_wg_qkvg_kernel": "products", "wb_wg_dx_kernel": "products",
+                   "attn_bwd_bf16_kernel": "attention", "wg_wgrad_kernel": "weight gradients",
+                   "wg_reduce_kernel": "reductions", "bf16_proj_kernel": "products",
+                   "attn_bwd_kernel": "attention", "bf16_wgrad_kernel": "weight gradients",
+                   "reduce_partials_kernel": "reductions"}
+
+
+def bwd_phases(cs, torch, fn):
+    """Device ms a call of fn by BF16_BWD_PHASES' phase, over a profile of at
+    least chip_smoke.PROFILE_TRACE_MS of calls; a kernel the map does not
+    name is reported under its own name."""
+    reps = cs.trace_reps(torch, fn)
+
+    def calls():
+        time.sleep(0.05)
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+
+    out = {}
+    for r in cs.profile_device(torch, calls)["rows"]:
+        name = cs.kernel_name(r["name"]) or r["name"][:40]
+        phase = BF16_BWD_PHASES.get(name, name)
+        out[phase] = out.get(phase, 0.0) + r["device_ms"] / reps
+    return out
+
+
 def measure_window_bf16(cs, torch, root, dev, gen, rate):
     """#1-bf16 over one served MOD forward, #2-bf16/#3-bf16 over a MOD step
     (batch 512) and #4-bf16/#5-bf16 over a MOD_WIDE step (batch 128), on
-    chip_smoke.bf16_inputs, by CUDA events and by device time in a
-    profile."""
+    chip_smoke.bf16_inputs, by CUDA events, by device time in a profile
+    (the backward's also by phase) and by the host's median enqueue of a
+    call; then the bf16 MOD pretrain step. A parent whose bf16 backward
+    reads transposed weights gets them, as its route passed them."""
+    import inspect
+
     from focal_tpu_torch.ops import pallas_kernels as pk
     from focal_tpu_torch.params import load_yaml
 
@@ -161,21 +198,77 @@ def measure_window_bf16(cs, torch, root, dev, gen, rate):
             geos = [g for g in every if pk.wblock_fits(g["N"], g["C"], g["heads"]) == mono]
             if not geos:
                 continue
+            transposes = "wqkv_t" in inspect.signature(bwd).parameters
             tot = {n: [0.0, 0.0] for n in names}
+            host, phases = 0.0, {}
             for g in geos:
                 args = cs.bf16_inputs(torch, g, gen, dev)
-                tr = cs.transposed(args)
+                tr = cs.transposed(args) if transposes else ()
                 dy = torch.randn(args[0].shape, generator=gen).to(dev).to(torch.bfloat16)
                 _, keep = fwd(*args, 7, rate)
-                for n, fn in ((names[0], lambda: fwd(*args, 7, rate)),
-                              (names[1], lambda: bwd(*args, dy, keep, rate, *tr))):
+                run_bwd = lambda: bwd(*args, dy, keep, rate, *tr)
+                for n, fn in ((names[0], lambda: fwd(*args, 7, rate)), (names[1], run_bwd)):
                     ev, dv = both(fn)
                     tot[n] = [tot[n][0] + g["per_forward"] * ev, tot[n][1] + g["per_forward"] * dv]
-                del args, tr, dy, keep
+                host += g["per_forward"] * cs.host_enqueue_ms(torch, run_bwd)
+                for ph, ms in bwd_phases(cs, torch, run_bwd).items():
+                    phases[ph] = phases.get(ph, 0.0) + g["per_forward"] * ms
+                del args, tr, dy, keep, run_bwd
             print(f"[{root}] {dataset} bf16 ({'/'.join(names)} geometries, batch {batch}): one "
                   "step: " + ", ".join(f"{k} {a:.3f} ms (device {b:.3f})"
-                                       for k, (a, b) in tot.items()), flush=True)
+                                       for k, (a, b) in tot.items())
+                  + f"; {names[1]} device ms by phase: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items(),
+                                                                key=lambda kv: -kv[1]))
+                  + f"; host's median enqueue {host:.3f} ms", flush=True)
         torch.cuda.empty_cache()
+    window_bf16_step(cs, torch, root, dev)
+
+
+def window_bf16_step(cs, torch, root, dev):
+    """The bf16 MOD pretrain step on the default routes (root bench.py's
+    configuration: batch 256, views fused to 512; 3 warm-up and 20 timed
+    steps, synthetic data on the card, a fixed idx): p50, peak memory, and
+    a profiled step's device busy time and idle share."""
+    import numpy as np
+
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    batch = cs.TRAIN_BATCH
+    targs = parse_train_params(["-dataset", "MOD", "-learn_framework", "FOCAL", "-compute_dtype",
+                                "bfloat16", "-batch_size", str(batch)])
+    cfg = targs.dataset_config
+    data = to_device(synthetic_arrays(cfg, targs.task, 2 * batch, seed=0)[0], dev)
+    idx = torch.arange(batch, device=dev)
+    model = init_params(build_backbone(cfg, "SW_Transformer", targs.task, "FOCAL",
+                                       compute_dtype="bfloat16"), seed=0).to(dev)
+    state = create_train_state(targs, model, steps_per_epoch=100, seed=0)
+    step = make_pretrain_step(model, build_augmenter(targs), make_focal_loss(targs))
+    for _ in range(cs.TRAIN_WARMUP):
+        step(state, data, idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for _ in range(cs.TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.time()
+        step(state, data, idx)
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t0)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    prof = cs.profile_device(torch, lambda: step(state, data, idx))
+    print(f"[{root}] MOD bf16 pretrain step (batch {batch}): p50 "
+          f"{float(np.percentile(step_s, 50)) * 1e3:.3f} ms, peak {peak_mb:.1f} MiB, device busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{1 - prof['device_busy_ms'] / prof['wall_ms']:.3f}", flush=True)
+    del model, state, step, data
+    torch.cuda.empty_cache()
 
 
 def measure_attention(cs, torch, np, root, dev, rate):

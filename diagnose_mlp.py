@@ -1,13 +1,14 @@
-"""What the bf16 fused-MLP kernels (#10-bf16 to #12-bf16, csrc/fused_mlp.cu
-on csrc/gemm_wgmma.cuh) compile to and how they run, for one or more
-checkouts of the repository on one card.
+"""What the bf16 wgmma kernels compile to and how they run, for one or more
+checkouts of the repository on one card: the fused MLP's (#10-bf16 to
+#12-bf16, csrc/fused_mlp.cu) and the whole-block backward's (#3-bf16 and
+#5-bf16, csrc/window_block.cu), both on csrc/gemm_wgmma.cuh.
 
     python3 diagnose_mlp.py [--bench] DIR [DIR ...]
 
 Each DIR holds a focal_tpu_torch/ package (this checkout is ".", a variant
 a copy under build/ with its sources edited, the parent commit one
 unpacked with git archive); each is built and run in a process of its own.
-Per DIR it prints:
+Per DIR and source it prints:
   * the build's ptxas lines that say a wgmma pipeline was serialized
     (C7510-C7518, C7520; the C7519 notes are harmless) and the bf16
     kernels that spill, with their registers;
@@ -17,11 +18,18 @@ Per DIR it prints:
     masks and without) against their bf16 plain versions at WIDTHS: the
     worst error relative to max|plain| of y and of each gradient, and
     whether a second call gives the same bits;
-  * with --bench, each kernel's device time a call (a profile over at least
-    chip_smoke.PROFILE_TRACE_MS of calls) at every MLP geometry of a MOD
-    and a MOD_WIDE forward at batch 128 beside the bf16 library chain's
+  * #3-bf16 (#5-bf16 at the widths wblock_fits sends to it) with a keep
+    mask and without against fused_window_block_backward_bf16_reference at
+    BLOCKS (MOD's and MOD_WIDE's widths, ragged rows, the shifted-window
+    mask, other N, a head width not a multiple of 4, and the widest head
+    the bf16 gate admits): each gradient's error relative to max|plain|,
+    and whether a second call gives the same bits;
+  * with --bench, each MLP kernel's device time a call (a profile over at
+    least chip_smoke.PROFILE_TRACE_MS of calls) at every MLP geometry of a
+    MOD and a MOD_WIDE forward at batch 128 beside the bf16 library chain's
     (addmm -> GELU -> addmm and its autograd backward), and their sums over
-    each forward.
+    each forward (compare_kernels.py --parts window_bf16 times #3-bf16 and
+    #5-bf16).
 Needs a CUDA card; imports no JAX.
 """
 
@@ -36,12 +44,26 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # two-launch form), H = 2C, C 8 and T not a multiple of the 128-row tiles
 WIDTHS = [(2311, 64, 256), (1170, 128, 512), (301, 256, 1024), (517, 320, 1280),
           (777, 96, 192), (200, 8, 32), (3000, 256, 512), (73728, 256, 1024), (999, 192, 768)]
+# (windows, N, C, H, nW or 0 for no mask): MOD's widths (C 64, 128, 256 at
+# hd 16, 32, 64) with and without the shifted-window mask, rows not a
+# multiple of 128, MOD_WIDE's per-head widths (#5-bf16: C 512 and 1024), N
+# other than 9, a head of 5 columns, and one head of 1,600 columns (the
+# widest the bf16 gate admits at N = 9: one slot of the ring)
+BLOCKS = [(256, 9, 64, 4, 32), (131, 9, 128, 4, 0), (67, 9, 256, 4, 2), (40, 9, 512, 4, 8),
+          (13, 9, 1024, 4, 0), (50, 16, 64, 2, 5), (77, 4, 96, 8, 0), (21, 9, 40, 8, 3),
+          (3, 9, 1600, 1, 0)]
+# the bf16 kernels' names in each source's build
+BF16_KERNELS = {"fused_mlp.cu": ("wg_", "wcast"),
+                "window_block.cu": ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16")}
 RATE = 0.2
 
 
-def build_report(build, cs):
-    """The build's serialization lines and spills, and SASS instruction counts."""
-    log = open(build.log_path("fused_mlp.cu")).read()
+def build_report(build, source="fused_mlp.cu"):
+    """The build's serialization lines and spills, and SASS instruction
+    counts, of ``source``'s bf16 kernels."""
+    print(f"  {source}:", flush=True)
+    ours = lambda name: any(k in name for k in BF16_KERNELS[source])
+    log = open(build.log_path(source)).read()
     short = lambda name: re.sub(r"_ZN\d+_GLOBAL__N__\w+?_cu_\w{8}\d*", "", name)[:60]
     for line in log.splitlines():
         m = re.search(r"\((C75\d\d)\).*function '(\S+)'", line)
@@ -52,11 +74,11 @@ def build_report(build, cs):
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             cur = m.group(1)
-        elif cur and ("wg_" in cur or "wcast" in cur):
+        elif cur and ours(cur):
             if "spill stores" in line and not line.strip().startswith("0 bytes stack"):
                 print(f"  spills: {short(cur)}: {line.strip()}", flush=True)
     tool = os.path.join(os.path.dirname(os.path.dirname(build.find_nvcc())), "bin", "cuobjdump")
-    sass = subprocess.run([tool, "-sass", build.library_path("fused_mlp.cu")],
+    sass = subprocess.run([tool, "-sass", build.library_path(source)],
                           capture_output=True, text=True).stdout
     counts, fn = {}, None
     for line in sass.splitlines():
@@ -68,7 +90,7 @@ def build_report(build, cs):
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += bool(re.search(r"\bHMMA\b", line))
     for name, (hg, hm) in sorted(counts.items()):
-        if "wg_" in name or "wcast" in name:
+        if ours(name):
             print(f"  sass {short(name)}: HGMMA {hg}, HMMA {hm}", flush=True)
 
 
@@ -99,6 +121,38 @@ def check(torch, np, fm, dev):
                                                           got[0], want)))
         torch.cuda.synchronize()
         print(f"  T {T} C {C} H {H}: " + "; ".join(out) + f"; same bits again: {same}", flush=True)
+
+
+def check_blocks(cs, torch, np, pk, dev):
+    """#3-bf16 (#5-bf16) against the bf16 plain version at BLOCKS."""
+    names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias")
+    for B, N, C, H, nW in BLOCKS:
+        rng = np.random.default_rng(B + N + C)
+        mk = lambda s, k: torch.from_numpy((rng.normal(size=s) * k).astype(np.float32)).to(dev)
+        bf = torch.bfloat16
+        x, wqkv, bqkv = mk((B, N, C), 1.0).to(bf), mk((C, 3 * C), C**-0.5).to(bf), mk((3 * C,), 0.1)
+        wproj, bproj = mk((C, C), C**-0.5).to(bf), mk((C,), 0.1)
+        rel_bias, dy = mk((H, N, N), 0.02), mk((B, N, C), 1.0).to(bf)
+        mask = (torch.from_numpy(np.where(rng.random((nW, N, N)) < 0.3, -100.0, 0.0)
+                                 .astype(np.float32)).to(dev) if nW else None)
+        keep = torch.from_numpy((rng.random((B, H, N, N)) >= RATE).astype(np.uint8)).to(dev)
+        args = (x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
+        bwd = (pk.fused_window_block_backward_bf16 if pk.wblock_fits(N, C, H)
+               else pk.fused_window_block_perhead_backward_bf16)
+        out, same = [], True
+        for tag, kp in (("keep", keep), ("no keep", None)):
+            got = [bwd(*args, dy, kp, RATE) for _ in range(2)]
+            same = same and all(torch.equal(a, b) for a, b in zip(*got))
+            want = pk.fused_window_block_backward_bf16_reference(*args, dy, kp, RATE)
+            errs = {n: float((a.float() - b.float()).abs().max()
+                             / b.float().abs().max().clamp_min(1e-30))
+                    for n, a, b in zip(names, got[0], want)}
+            out.append(f"{tag}: " + " ".join(f"{n} {e:.2e}" for n, e in errs.items())
+                       + f" (gate {cs.BF16_GRAD_TOL:.0e} by chip_smoke.bf16_grad_err: "
+                       f"{cs.bf16_grad_err(got[0], want):.2e})")
+        torch.cuda.synchronize()
+        print(f"  windows {B} N {N} C {C} H {H} nW {nW} ({bwd.__name__}): " + "; ".join(out)
+              + f"; same bits again: {same}", flush=True)
 
 
 def bench(cs, torch, np, fm, root, dev):
@@ -146,16 +200,19 @@ def child(root, with_bench):
 
     from focal_tpu_torch.ops import _build
     from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
 
     if not os.path.abspath(fm.__file__).startswith(root + os.sep):
         raise SystemExit(f"imported {fm.__file__}, not the package under {root}")
     if not torch.cuda.is_available():
         raise SystemExit("diagnose_mlp.py needs a CUDA card")
     print(f"[{root}]", flush=True)
-    _build.build_all(("fused_mlp.cu",))
-    build_report(_build, cs)
+    _build.build_all(tuple(BF16_KERNELS))
+    for source in BF16_KERNELS:
+        build_report(_build, source)
     dev = torch.device("cuda")
     check(torch, np, fm, dev)
+    check_blocks(cs, torch, np, pk, dev)
     if with_bench:
         bench(cs, torch, np, fm, root, dev)
 

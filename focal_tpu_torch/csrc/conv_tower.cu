@@ -661,8 +661,7 @@ __device__ __forceinline__ void bf_conv_tile(ARows& a, const bf16* B, int N, int
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   const focal::BfOperand bop{B, N, 0};
-  focal::PairSlice<kBN, false> bs;
-  float unused[2][8];
+  focal::PairSlice<kBN> bs;
   const int kt_n = (k_end - k_begin + focal::kBfBK - 1) / focal::kBfBK;
   if (kt_n > 0) {
     a.load(k_begin);
@@ -672,7 +671,7 @@ __device__ __forceinline__ void bf_conv_tile(ARows& a, const bf16* B, int N, int
     uint32_t* As = smem + (kt & 1) * focal::bf_stage_words(kBN);
     uint32_t* Bs = As + focal::kGemmBM * focal::kBfRowWords;
     a.store(As);
-    bs.store(bop, Bs, unused, false);
+    bs.store(bop, Bs);
     // the slot is staged; and every warp finished slice kt - 2, the last
     // reader of this slot, before it reached the barrier of slice kt - 1
     __syncthreads();

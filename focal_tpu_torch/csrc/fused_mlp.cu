@@ -87,8 +87,9 @@
 //       one tile (mlp_wg_hidden_kernel: dz and the h the forward used
 //       stored as bf16, db1's f32 per-tile partials), dx = dz W1^T
 //       (mlp_wg_out_kernel), dW1 = x^T dz and dW2 = h^T g2 over fixed row
-//       splits (mlp_wg_wgrad_kernel, both operands MN-major as they lie);
-//       then one reduction in fixed order (mlp_wg_reduce_kernel). No float
+//       splits (gemm_wgmma.cuh's wg_wgrad_kernel, both operands MN-major
+//       as they lie); then one reduction in fixed order (wg_reduce_kernel;
+//       both shared with #3-bf16 and #5-bf16). No float
 //       atomics: two calls give the same bits.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -626,17 +627,6 @@ mlp_wg_fwd_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant_
   }
 }
 
-// The streamed products (csrc/gemm_wgmma.cuh's streamed_tiles): persistent
-// blocks over 128 x kBN output tiles, K in 64-deep stages; kStages fill
-// ~192 KB of shared memory.
-template <int kBN>
-constexpr int kWgStages = kBN == 128 ? 6 : 8;
-
-template <int kBN, bool kAT, bool kBT>
-constexpr size_t wg_smem(size_t extra = 0) {
-  return wgk::Ring<kBN, kAT, kBT, kWgStages<kBN>>::kSmemBytes + extra;
-}
-
 // out = act(a b + bias) (keep) as bf16 over a chunk of `rows` rows: a [rows,
 // K] K-major, b [K, N] MN-major (kBT) or b^T [N, K] K-major. #10-bf16's
 // two-launch form (C > kFusedMaxC): h = GELU(x W1 + b1) (keep1, kGelu) and
@@ -688,7 +678,7 @@ __device__ __forceinline__ void out_tiles(void* smem, const CUtensorMap* ma, con
       }
     }
   };
-  wgk::streamed_tiles<kBN, false, kBT, kWgStages<kBN>, 1>(smem, tiles, plan, epi);
+  wgk::streamed_tiles<kBN, false, kBT, wgk::kStreamStages<kBN>, 1>(smem, tiles, plan, epi);
 }
 
 template <int kBN, bool kDropout>
@@ -885,100 +875,9 @@ mlp_wg_hidden_kernel(const __grid_constant__ CUtensorMap mx, const __grid_consta
   if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last stores have left shared memory
 }
 
-// #12-bf16's weight gradients over a chunk: dW1 = x^T dz [C, H] and dW2 =
-// h^T g2 [H, C], A and B both MN-major as they lie ([rows, C], [rows, H]),
-// over fixed row splits (rows_per_split a multiple of 64); tile t of the
-// launch is split t / (tiles0 + tiles1), then dW1's tiles0 tiles, then
-// dW2's. Each tile writes its split's partial (with `accumulate`, adds to
-// it: a later chunk of the same splits, still one fixed order).
-struct WgradArgs16 {
-  float* part;  // [splits][2 C H]: dW1 then dW2
-  int rows, C, H, rows_per_split, splits;
-  int accumulate;
-};
-
-template <int kBN>
-__global__ void __launch_bounds__(wgk::kThreads, 1)
-mlp_wg_wgrad_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mdz,
-                    const __grid_constant__ CUtensorMap mh, const __grid_constant__ CUtensorMap mg2,
-                    const WgradArgs16 p) {
-  extern __shared__ uint8_t smem_raw[];
-  const int tn0 = (p.H + kBN - 1) / kBN, tn1 = (p.C + kBN - 1) / kBN;
-  const int tiles0 = (p.C + wgk::kBM - 1) / wgk::kBM * tn0;
-  const int tiles1 = (p.H + wgk::kBM - 1) / wgk::kBM * tn1;
-  const int per_split = tiles0 + tiles1;
-  const size_t ch = (size_t)p.C * p.H;
-  auto plan = [&](int tile) {
-    const int split = tile / per_split, t = tile % per_split;
-    const bool second = t >= tiles0;
-    const int tt = second ? t - tiles0 : t, tn = second ? tn1 : tn0;
-    const int k0 = split * p.rows_per_split;
-    const int k_tiles = (min(p.rows, k0 + p.rows_per_split) - k0 + wgk::kBK - 1) / wgk::kBK;
-    return wgk::Job<1>{{second ? &mh : &mx}, {second ? &mg2 : &mdz}, tt / tn * wgk::kBM,
-                       second ? p.H : p.C, tt % tn * kBN, second ? p.C : p.H, k0, k_tiles};
-  };
-  auto epi = [&](const wgk::Job<1>& j, float (&acc)[1][kBN / 2]) {
-    const wgk::Frag f;
-    const int split = j.k0 / p.rows_per_split;
-    float* out = p.part + (size_t)split * 2 * ch + (j.a[0] == &mh ? ch : 0);
-#pragma unroll
-    for (int i = 0; i < kBN / 2; i += 2) {
-      const int m = j.m0 + f.row(i), n = j.n0 + f.col(i);
-      if (m >= j.M || n >= j.N) continue;
-      float2* dst = reinterpret_cast<float2*>(out + (size_t)m * j.N + n);
-      float2 v = make_float2(acc[0][i], acc[0][i + 1]);
-      if (p.accumulate) {
-        const float2 o = *dst;
-        v = make_float2(o.x + v.x, o.y + v.y);
-      }
-      *dst = v;
-    }
-  };
-  wgk::streamed_tiles<kBN, true, true, kWgStages<kBN>, 1>(smem_raw, p.splits * per_split, plan,
-                                                            epi);
-}
-
-// dweights = [dW1 | db1 | dW2 | db2] from the partials, in fixed order: the
-// weights over the splits in split order (one thread an element), the biases
-// over the call's 128-row tiles in eight consecutive slices (a warp a slice,
-// 32 columns a block), the slices then added in order.
-struct ReduceArgs16 {
-  const float* wpart;   // [splits][2 C H]
-  const float* b1part;  // [tiles][H]
-  const float* b2part;  // [tiles][C]
-  float* out;
-  int splits, tiles, C, H;
-};
-
-__global__ void __launch_bounds__(kThreads) mlp_wg_reduce_kernel(const ReduceArgs16 p) {
-  const size_t ch = (size_t)p.C * p.H;
-  const int wblocks = (int)((2 * ch + kThreads - 1) / kThreads);
-  if ((int)blockIdx.x < wblocks) {
-    const size_t e = (size_t)blockIdx.x * kThreads + threadIdx.x;
-    if (e >= 2 * ch) return;
-    float a = 0.f;
-    for (int s = 0; s < p.splits; ++s) a += p.wpart[(size_t)s * 2 * ch + e];
-    p.out[e < ch ? e : e + p.H] = a;
-    return;
-  }
-  __shared__ float red[kThreads / 32][32];
-  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5, slices = kThreads / 32;
-  const int col = (blockIdx.x - wblocks) * 32 + lane;
-  const bool first = col < p.H, in = col < p.H + p.C;
-  const int n = first ? p.H : p.C, cc = first ? col : col - p.H;
-  const float* part = first ? p.b1part : p.b2part;
-  const int per = (p.tiles + slices - 1) / slices;
-  float a = 0.f;
-  if (in)
-    for (int t = slice * per; t < min(p.tiles, (slice + 1) * per); ++t) a += part[(size_t)t * n + cc];
-  red[slice][lane] = a;
-  __syncthreads();
-  if (slice == 0 && in) {
-    float s = 0.f;
-    for (int k = 0; k < slices; ++k) s += red[k][lane];
-    p.out[first ? ch + cc : 2 * ch + p.H + cc] = s;
-  }
-}
+// #12-bf16's weight gradients and its reduction run gemm_wgmma.cuh's
+// wg_wgrad_kernel (dW1 = x^T dz, dW2 = h^T g2) and wg_reduce_kernel, which
+// #3-bf16 and #5-bf16 share.
 
 // ---------------------------------------------------------------------------
 // host side
@@ -1124,23 +1023,11 @@ Plan16 make_plan16(int T, int C, int H, bool backward, int sms) {
   P.hbn = focal::tile_bn(H, 0);
   P.obn = focal::tile_bn(C, 0);
   P.wbn = focal::tile_bn(H, C);
-  // the weight gradients' row splits: the fewest that give the persistent
-  // tiles' least span (waves of tiles times a tile's 64-row stages), which
-  // also keeps the partials few
-  const int wtiles = (C + wgk::kBM - 1) / wgk::kBM * ((H + P.wbn - 1) / P.wbn) +
-                     (H + wgk::kBM - 1) / wgk::kBM * ((C + P.wbn - 1) / P.wbn);
-  const int max_splits = std::max(1, std::min((P.rows + 255) / 256, 8 * sms / wtiles + 1));
-  long long best = -1;
-  for (int s = 1; s <= max_splits; ++s) {
-    const int rps = ((P.rows + s - 1) / s + wgk::kBK - 1) / wgk::kBK * wgk::kBK;
-    const int splits = (P.rows + rps - 1) / rps;
-    const long long span = (long long)((splits * wtiles + sms - 1) / sms) * (rps / wgk::kBK);
-    if (best < 0 || span < best) {
-      best = span;
-      P.rows_per_split = rps;
-      P.splits = splits;
-    }
-  }
+  // the weight gradients' row splits (gemm_wgmma.cuh's wgrad_splits)
+  const int wtiles = wgk::wgrad_tiles(C, H, P.wbn) + wgk::wgrad_tiles(H, C, P.wbn);
+  const wgk::WgradSplits ws = wgk::wgrad_splits(P.rows, wtiles, sms);
+  P.splits = ws.splits;
+  P.rows_per_split = ws.rows_per_split;
   size_t o = 0;
   P.w1b = o, o += bf16_floats((size_t)C * H);
   P.w2b = o, o += bf16_floats((size_t)C * H);
@@ -1166,22 +1053,6 @@ int plan16_for(int T, int C, int H, bool backward, Plan16* P) {
   return 0;
 }
 
-constexpr int kMapError = 100000;  // + libcuda's CUresult: a tensor map was refused
-
-int wg_map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows) {
-  const int r = focal_wg_map(m, base, rows, cols, box_rows);
-  return r == 0 ? 0 : kMapError + r;
-}
-
-template <class Kernel, class... Args>
-int launch_wg(Kernel kernel, int grid, size_t smem, cudaStream_t s, const Args&... args) {
-  const cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, wgk::kThreads, smem, s>>>(args...);
-  return (int)cudaGetLastError();
-}
-
 int launch_wcast(const void* w1, const void* w2, bf16* w1b, bf16* w2b, int C, int H, int sms,
                  cudaStream_t s) {
   const size_t n4 = (size_t)C * H / 4;
@@ -1201,13 +1072,13 @@ int launch_fused(const CUtensorMap (&m)[4], const FwdArgs& a, bool dropout, bool
   const int grid = (a.T + rows - 1) / rows;
   const size_t smem = FwdSmem<kCy>::kBytes;
   if (split)
-    return dropout ? launch_wg(mlp_wg_fwd_kernel<kCy, true, true>, grid, smem, s, m[0], m[1], m[2],
+    return dropout ? wgk::launch(mlp_wg_fwd_kernel<kCy, true, true>, grid, smem, s, m[0], m[1], m[2],
                                m[3], a)
-                   : launch_wg(mlp_wg_fwd_kernel<kCy, false, true>, grid, smem, s, m[0], m[1], m[2],
+                   : wgk::launch(mlp_wg_fwd_kernel<kCy, false, true>, grid, smem, s, m[0], m[1], m[2],
                                m[3], a);
-  return dropout ? launch_wg(mlp_wg_fwd_kernel<kCy, true, false>, grid, smem, s, m[0], m[1], m[2],
+  return dropout ? wgk::launch(mlp_wg_fwd_kernel<kCy, true, false>, grid, smem, s, m[0], m[1], m[2],
                              m[3], a)
-                 : launch_wg(mlp_wg_fwd_kernel<kCy, false, false>, grid, smem, s, m[0], m[1], m[2],
+                 : wgk::launch(mlp_wg_fwd_kernel<kCy, false, false>, grid, smem, s, m[0], m[1], m[2],
                              m[3], a);
 }
 
@@ -1219,19 +1090,19 @@ int launch_out16(const CUtensorMap& ma, const CUtensorMap& mb, const OutArgs16& 
   const int tiles = (a.rows + wgk::kBM - 1) / wgk::kBM * ((a.N + bn - 1) / bn);
   const int grid = std::min(tiles, sms);
   if (bn == 128) {
-    const size_t smem = wg_smem<128, false, kBT>();
+    const size_t smem = wgk::stream_smem<128, false, kBT>();
     if (kGelu)
-      return dropout ? launch_wg(mlp_wg_gelu_kernel<128, true>, grid, smem, s, ma, mb, a)
-                     : launch_wg(mlp_wg_gelu_kernel<128, false>, grid, smem, s, ma, mb, a);
-    return dropout ? launch_wg(mlp_wg_out_kernel<128, kBT, true>, grid, smem, s, ma, mb, a)
-                   : launch_wg(mlp_wg_out_kernel<128, kBT, false>, grid, smem, s, ma, mb, a);
+      return dropout ? wgk::launch(mlp_wg_gelu_kernel<128, true>, grid, smem, s, ma, mb, a)
+                     : wgk::launch(mlp_wg_gelu_kernel<128, false>, grid, smem, s, ma, mb, a);
+    return dropout ? wgk::launch(mlp_wg_out_kernel<128, kBT, true>, grid, smem, s, ma, mb, a)
+                   : wgk::launch(mlp_wg_out_kernel<128, kBT, false>, grid, smem, s, ma, mb, a);
   }
-  const size_t smem = wg_smem<64, false, kBT>();
+  const size_t smem = wgk::stream_smem<64, false, kBT>();
   if (kGelu)
-    return dropout ? launch_wg(mlp_wg_gelu_kernel<64, true>, grid, smem, s, ma, mb, a)
-                   : launch_wg(mlp_wg_gelu_kernel<64, false>, grid, smem, s, ma, mb, a);
-  return dropout ? launch_wg(mlp_wg_out_kernel<64, kBT, true>, grid, smem, s, ma, mb, a)
-                 : launch_wg(mlp_wg_out_kernel<64, kBT, false>, grid, smem, s, ma, mb, a);
+    return dropout ? wgk::launch(mlp_wg_gelu_kernel<64, true>, grid, smem, s, ma, mb, a)
+                   : wgk::launch(mlp_wg_gelu_kernel<64, false>, grid, smem, s, ma, mb, a);
+  return dropout ? wgk::launch(mlp_wg_out_kernel<64, kBT, true>, grid, smem, s, ma, mb, a)
+                 : wgk::launch(mlp_wg_out_kernel<64, kBT, false>, grid, smem, s, ma, mb, a);
 }
 
 template <int kBN>
@@ -1240,18 +1111,10 @@ int launch_hidden16(const CUtensorMap (&m)[6], const HiddenArgs16& a, bool dropo
   const int tiles = (a.rows + wgk::kBM - 1) / wgk::kBM * ((a.H + kBN - 1) / kBN);
   const int grid = std::min(tiles, sms);
   const size_t smem = HiddenSmem<kBN>::kBytes;
-  return dropout ? launch_wg(mlp_wg_hidden_kernel<kBN, true>, grid, smem, s, m[0], m[1], m[2], m[3],
+  return dropout ? wgk::launch(mlp_wg_hidden_kernel<kBN, true>, grid, smem, s, m[0], m[1], m[2], m[3],
                              m[4], m[5], a)
-                 : launch_wg(mlp_wg_hidden_kernel<kBN, false>, grid, smem, s, m[0], m[1], m[2], m[3],
+                 : wgk::launch(mlp_wg_hidden_kernel<kBN, false>, grid, smem, s, m[0], m[1], m[2], m[3],
                              m[4], m[5], a);
-}
-
-template <int kBN>
-int launch_wgrad16(const CUtensorMap (&m)[4], const WgradArgs16& a, int sms, cudaStream_t s) {
-  const int tiles = a.splits * ((a.C + wgk::kBM - 1) / wgk::kBM * ((a.H + kBN - 1) / kBN) +
-                                (a.H + wgk::kBM - 1) / wgk::kBM * ((a.C + kBN - 1) / kBN));
-  return launch_wg(mlp_wg_wgrad_kernel<kBN>, std::min(tiles, sms), wg_smem<kBN, true, true>(), s,
-                   m[0], m[1], m[2], m[3], a);
 }
 
 }  // namespace
@@ -1387,10 +1250,10 @@ extern "C" int focal_mlp_fwd_bf16(const void* x, const void* w1, const void* b1,
     // x, W1 [C, H] (MN-major B, C rows a box), W2 [H, C] (MN-major B), y
     CUtensorMap m[4];
     const int rows = P.split ? wgk::kBM / 2 : wgk::kBM;
-    if (int e = wg_map(&m[0], xb, T, C, rows)) return e;
-    if (int e = wg_map(&m[1], w1b, C, H, (C + 15) / 16 * 16)) return e;
-    if (int e = wg_map(&m[2], w2b, H, C, 64)) return e;
-    if (int e = wg_map(&m[3], yb, T, C, rows)) return e;
+    if (int e = wgk::map(&m[0], xb, T, C, rows)) return e;
+    if (int e = wgk::map(&m[1], w1b, C, H, (C + 15) / 16 * 16)) return e;
+    if (int e = wgk::map(&m[2], w2b, H, C, 64)) return e;
+    if (int e = wgk::map(&m[3], yb, T, C, rows)) return e;
     const FwdArgs a{b1f, b2f, T, C, H, keep};
     if (C <= 64) return launch_fused<64>(m, a, dropout, P.split, s);
     if (C <= 128) return launch_fused<128>(m, a, dropout, P.split, s);
@@ -1401,13 +1264,13 @@ extern "C" int focal_mlp_fwd_bf16(const void* x, const void* w1, const void* b1,
   for (int c = 0; c < P.chunks; ++c) {
     const int r0 = c * P.rows, rows = std::min(P.rows, T - r0);
     // h = GELU(x W1 + b1) (keep1): A = x K-major, B = W1 [C, H] MN-major
-    if (int e = wg_map(&ma, xb + (size_t)r0 * C, rows, C, wgk::kBM)) return e;
-    if (int e = wg_map(&mb, w1b, C, H, 64)) return e;
+    if (int e = wgk::map(&ma, xb + (size_t)r0 * C, rows, C, wgk::kBM)) return e;
+    if (int e = wgk::map(&mb, w1b, C, H, 64)) return e;
     const OutArgs16 ha{b1f, h, rows, H, C, r0, keep};
     if (int e = launch_out16<true, true>(ma, mb, ha, P.hbn, dropout, P.sms, s)) return e;
     // y = h W2 + b2 (keep2): A = h K-major, B = W2 [H, C] MN-major
-    if (int e = wg_map(&ma, h, rows, H, wgk::kBM)) return e;
-    if (int e = wg_map(&mb, w2b, H, C, 64)) return e;
+    if (int e = wgk::map(&ma, h, rows, H, wgk::kBM)) return e;
+    if (int e = wgk::map(&mb, w2b, H, C, 64)) return e;
     const OutArgs16 oa{b2f, yb + (size_t)r0 * C, rows, C, H, r0, keep};
     if (int e = launch_out16<false, true>(ma, mb, oa, P.obn, dropout, P.sms, s)) return e;
   }
@@ -1438,9 +1301,9 @@ extern "C" int focal_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
   if (int e = launch_wcast(w1, w2t, w1b, w2tb, C, H, P.sms, s)) return e;
   // the weights as B: W1 and W2^T [C, H] MN-major (z, dh), W1 K-major (dx)
   CUtensorMap mw1, mw2t, mw1k;
-  if (int e = wg_map(&mw1, w1b, C, H, 64)) return e;
-  if (int e = wg_map(&mw2t, w2tb, C, H, 64)) return e;
-  if (int e = wg_map(&mw1k, w1b, C, H, P.obn)) return e;
+  if (int e = wgk::map(&mw1, w1b, C, H, 64)) return e;
+  if (int e = wgk::map(&mw2t, w2tb, C, H, 64)) return e;
+  if (int e = wgk::map(&mw1k, w1b, C, H, P.obn)) return e;
   for (int c = 0; c < P.chunks; ++c) {
     const int r0 = c * P.rows, rows = std::min(P.rows, T - r0), tile0 = r0 / wgk::kBM;
     const bf16* xc = xb + (size_t)r0 * C;
@@ -1456,12 +1319,12 @@ extern "C" int focal_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
     const bf16* g2 = dropout ? g2w : gc;
     // 2. z = x W1 + b1 and dh = g2 W2^T; h, dz and db1's partials
     CUtensorMap mh[6] = {};
-    if (int e = wg_map(&mh[0], xc, rows, C, wgk::kBM)) return e;
+    if (int e = wgk::map(&mh[0], xc, rows, C, wgk::kBM)) return e;
     mh[1] = mw1;
-    if (int e = wg_map(&mh[2], g2, rows, C, wgk::kBM)) return e;
+    if (int e = wgk::map(&mh[2], g2, rows, C, wgk::kBM)) return e;
     mh[3] = mw2t;
-    if (int e = wg_map(&mh[4], h, rows, H, wgk::kBM)) return e;   // the stores of h and dz
-    if (int e = wg_map(&mh[5], dz, rows, H, wgk::kBM)) return e;
+    if (int e = wgk::map(&mh[4], h, rows, H, wgk::kBM)) return e;   // the stores of h and dz
+    if (int e = wgk::map(&mh[5], dz, rows, H, wgk::kBM)) return e;
     const HiddenArgs16 ha{static_cast<const float*>(b1), h, dz, w + P.b1part, rows, C, H, r0, tile0,
                           keep};
     if (int e = P.hbn == 128 ? launch_hidden16<128>(mh, ha, dropout, P.sms, s)
@@ -1473,23 +1336,19 @@ extern "C" int focal_mlp_bwd_bf16(const void* x, const void* w1, const void* b1,
     // 4. dW1 = x^T dz and dW2 = h^T g2 over the chunk's row splits, all
     //    four operands MN-major as they lie
     CUtensorMap mwg[4] = {};
-    if (int e = wg_map(&mwg[0], xc, rows, C, 64)) return e;
-    if (int e = wg_map(&mwg[1], dz, rows, H, 64)) return e;
-    if (int e = wg_map(&mwg[2], h, rows, H, 64)) return e;
-    if (int e = wg_map(&mwg[3], g2, rows, C, 64)) return e;
+    if (int e = wgk::map(&mwg[0], xc, rows, C, 64)) return e;
+    if (int e = wgk::map(&mwg[1], dz, rows, H, 64)) return e;
+    if (int e = wgk::map(&mwg[2], h, rows, H, 64)) return e;
+    if (int e = wgk::map(&mwg[3], g2, rows, C, 64)) return e;
     const int splits = (rows + P.rows_per_split - 1) / P.rows_per_split;
-    const WgradArgs16 wa{w + P.wpart, rows, C, H, P.rows_per_split, splits, c > 0};
-    if (int e = P.wbn == 128 ? launch_wgrad16<128>(mwg, wa, P.sms, s)
-                             : launch_wgrad16<64>(mwg, wa, P.sms, s))
-      return e;
+    const wgk::WgradArgs wa{w + P.wpart, rows, C, H, H, C, P.rows_per_split, splits, c > 0};
+    if (int e = wgk::launch_wgrad<Src>(mwg, wa, P.wbn, P.sms, s)) return e;
   }
   // 5. dweights from the partials, in fixed order
-  const ReduceArgs16 ra{w + P.wpart, w + P.b1part, w + P.b2part, static_cast<float*>(dweights),
-                        P.splits, P.tiles, C, H};
-  const size_t ch = (size_t)C * H;
-  const int grid = (int)((2 * ch + kThreads - 1) / kThreads) + (H + C + 31) / 32;
-  mlp_wg_reduce_kernel<<<grid, kThreads, 0, s>>>(ra);
-  return (int)cudaGetLastError();
+  const wgk::ReduceArgs ra{w + P.wpart, w + P.b1part, w + P.b2part, nullptr,
+                           static_cast<float*>(dweights), nullptr, P.splits, P.tiles, C, H, H,
+                           C, 0};
+  return wgk::launch_reduce<Src>(ra, s);
 }
 
 // The keep masks of `seed` as uint8: keep1 [T, H], keep2 [T, C].
@@ -1505,6 +1364,6 @@ extern "C" int focal_mlp_masks(unsigned long long seed, unsigned threshold, int 
 }
 
 extern "C" const char* focal_cuda_error_string(int err) {
-  if (err >= kMapError) return "cuTensorMapEncodeTiled refused a tensor map (CUresult: the code less 100000)";
+  if (err >= wgk::kMapError) return "cuTensorMapEncodeTiled refused a tensor map (CUresult: the code less 100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

@@ -1,8 +1,8 @@
 // Block-tiled matrix products on the bf16 tensor cores for Hopper (sm_90a;
-// mma.sync works from sm_80 on): the bf16 forms of the window-block kernels'
-// projections and weight gradients (#1-bf16 to #5-bf16, window_block.cu),
-// of the fused MLP's products (#10-bf16 to #12-bf16, fused_mlp.cu) and of
-// the conv tower's (#13-bf16, #14-bf16, conv_tower.cu).
+// mma.sync works from sm_80 on): the bf16 forms of the window-block
+// forwards' projections (#1-bf16, #2-bf16, #4-bf16, window_block.cu) and of
+// the conv tower's products (#13-bf16, #14-bf16, conv_tower.cu). (The bf16
+// backwards' products run on gemm_wgmma.cuh.)
 //
 // One block of kGemmThreads threads computes a kGemmBM x kBN output tile
 // (kBN 128, or 64 for products whose width is not a multiple of 128), eight
@@ -18,10 +18,9 @@
 // (attn_out.astype(bf16), dq/dk/dv.astype(bf16)). Shared memory holds bf16
 // tiles with K contiguous, [rows][kBfBK + 8], so every fragment register is
 // one 32-bit load of two K-neighbours and the 32 lanes of a fragment read hit
-// 32 banks. A is read row-major ([M, K], rows staged as they lie) or, for
-// the weight gradients, stored [K, M] (a^T b over the rows); B is [K, N].
-// Tiles stored with K as the strided axis are transposed while staged: a
-// thread reads two K rows and writes bf16 pairs.
+// 32 banks. A is read row-major ([M, K], rows staged as they lie); B is
+// [K, N]. Tiles stored with K as the strided axis are transposed while
+// staged: a thread reads two K rows and writes bf16 pairs.
 //
 // The pipeline is two shared-memory stages fed through registers: the
 // global loads of slice kt + 1 are in flight while the tensor cores work on
@@ -118,13 +117,11 @@ struct RowSlice {
 };
 
 // A K-slice of kW columns of an operand stored [K, cols] (K the strided
-// axis: B, and the weight gradients' A), transposed into a tile [kW][K
-// pairs] as it is stored. A thread's unit u = tid + 256 i is K pair p = u %
-// 16 (rows k0 + 2p and k0 + 2p + 1) of the column group u / 16 (4 f32 or 8
-// bf16 columns): f32 has 16 kW / 4 units, bf16 16 kW / 8. With kSums and
-// `add` the thread adds the f32 values of its columns (before any rounding)
-// into sums[i][j] (the bias gradients: column sums of B over the rows).
-template <int kW, bool kSums>
+// axis: B), transposed into a tile [kW][K pairs] as it is stored. A
+// thread's unit u = tid + 256 i is K pair p = u % 16 (rows k0 + 2p and k0 +
+// 2p + 1) of the column group u / 16 (4 f32 or 8 bf16 columns): f32 has 16
+// kW / 4 units, bf16 16 kW / 8.
+template <int kW>
 struct PairSlice {
   uint4 v[4];  // unit i: rows 2p (v[2i]) and 2p + 1 (v[2i + 1])
 
@@ -143,8 +140,7 @@ struct PairSlice {
     }
   }
 
-  __device__ __forceinline__ void store(const BfOperand& op, uint32_t* tile, float (&sums)[2][8],
-                                        bool add) const {
+  __device__ __forceinline__ void store(const BfOperand& op, uint32_t* tile) const {
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int u = threadIdx.x + 256 * i;
@@ -157,7 +153,6 @@ struct PairSlice {
         for (int j = 0; j < 4; ++j) {
           const float a = __uint_as_float(lo[j]), b = __uint_as_float(hi[j]);
           tile[(cg * 4 + j) * kBfRowWords + p] = pack_bf16x2(a, b);
-          if (kSums && add) sums[i][j] += a + b;
         }
       } else {
 #pragma unroll
@@ -165,7 +160,6 @@ struct PairSlice {
           const uint32_t a = (j & 1) ? lo[j / 2] >> 16 : lo[j / 2] & 0xffffu;
           const uint32_t b = (j & 1) ? hi[j / 2] >> 16 : hi[j / 2] & 0xffffu;
           tile[(cg * 8 + j) * kBfRowWords + p] = a | (b << 16);
-          if (kSums && add) sums[i][j] += __uint_as_float(a << 16) + __uint_as_float(b << 16);
         }
       }
     }
@@ -205,17 +199,13 @@ __device__ __forceinline__ void bf_compute(const uint32_t* As, const uint32_t* B
 }
 
 // The block's tile acc = A[m0 : m0 + BM, K range] B[K range, n0 : n0 + kBN]
-// over K in [k_begin, k_end): A row-major [M, K] (kATrans false) or stored
-// [K, M] (true), B [K, N]. With kSums and `with_sums`, sums[i][j] gathers
-// the f32 column sums of B over the K range of the thread's columns
-// (PairSlice; the caller zeroes them, bf_reduce_sums finishes them). smem
-// holds bf_smem_words(kBN) words.
-template <bool kATrans, bool kSums, int kBN>
+// over K in [k_begin, k_end): A row-major [M, K], B [K, N]. smem holds
+// bf_smem_words(kBN) words.
+template <int kBN>
 __device__ __forceinline__ void bf_gemm_tile(const BfOperand& a, const BfOperand& b, int M, int N,
                                              int m0, int n0, int k_begin, int k_end,
                                              uint32_t* smem,
-                                             float (&acc)[4][gemm_nt<kBN>()][4],
-                                             float (&sums)[2][8], bool with_sums) {
+                                             float (&acc)[4][gemm_nt<kBN>()][4]) {
   constexpr int kNT = gemm_nt<kBN>();
 #pragma unroll
   for (int mt = 0; mt < 4; ++mt)
@@ -224,13 +214,9 @@ __device__ __forceinline__ void bf_gemm_tile(const BfOperand& a, const BfOperand
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
   RowSlice ar;
-  PairSlice<kGemmBM, false> at;
-  PairSlice<kBN, kSums> bs;
+  PairSlice<kBN> bs;
   auto load = [&](int k0) {
-    if (kATrans)
-      at.load(a, M, m0, k0, k_end);
-    else
-      ar.load(a, M, m0, k0, k_end);
+    ar.load(a, M, m0, k0, k_end);
     bs.load(b, N, n0, k0, k_end);
   };
   const int kt_n = (k_end - k_begin + kBfBK - 1) / kBfBK;
@@ -238,42 +224,13 @@ __device__ __forceinline__ void bf_gemm_tile(const BfOperand& a, const BfOperand
   for (int kt = 0; kt < kt_n; ++kt) {
     uint32_t* As = smem + (kt & 1) * bf_stage_words(kBN);
     uint32_t* Bs = As + kGemmBM * kBfRowWords;
-    if (kATrans)
-      at.store(a, As, sums, false);
-    else
-      ar.store(a, As);
-    bs.store(b, Bs, sums, with_sums);
+    ar.store(a, As);
+    bs.store(b, Bs);
     // the slot is staged; and every warp finished slice kt - 2, the last
     // reader of this slot, before it reached the barrier of slice kt - 1
     __syncthreads();
     if (kt + 1 < kt_n) load(k_begin + (kt + 1) * kBfBK);
     bf_compute<kBN>(As, Bs, acc);
-  }
-}
-
-// Finish the column sums of bf_gemm_tile: the 16 threads of a column group
-// (one half warp) add theirs by a butterfly of shuffles (the same bits every
-// call); then f(col, sum) for each column col < N of the thread's groups,
-// by the group's first thread. Every thread of the block must call it.
-template <int kBN, class F>
-__device__ __forceinline__ void bf_reduce_sums(const BfOperand& b, int N, int n0,
-                                               float (&sums)[2][8], F f) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) sums[i][j] += __shfl_xor_sync(0xffffffffu, sums[i][j], off);
-  const int vec = b.f32 ? 4 : 8;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int u = threadIdx.x + 256 * i;
-    if ((u & 15) != 0 || u >= PairSlice<kBN, true>::units(b)) continue;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const int col = n0 + (u >> 4) * vec + j;
-      if (j < vec && col < N) f(col, sums[i][j]);
-    }
   }
 }
 

@@ -1,7 +1,8 @@
 // Weight gradients as fixed split-K products on the tensor cores, and their
 // ordered reduction: the core that #3 and #5 (window_block.cu) and #12
-// (fused_mlp.cu) share, with its bf16 form (bf16_wgrad_kernel, on
-// gemm_bf16.cuh) that #3-bf16/#5-bf16 and #12-bf16 share.
+// (fused_mlp.cu) share; #14 (conv_tower.cu) takes its split plan and its
+// reduction. (The bf16 backwards' weight gradients run on gemm_wgmma.cuh's
+// wg_wgrad_kernel.)
 //
 // A weight gradient a^T b sums over the R rows of a launch (a [R, M] and
 // b [R, N], read as they lie: a transposed in the tile loads of
@@ -22,7 +23,6 @@
 #include <algorithm>
 
 #include "gemm_3xtf32.cuh"
-#include "gemm_bf16.cuh"
 
 namespace focal {
 
@@ -148,79 +148,6 @@ cudaError_t launch_reduce(const float* part, int S, size_t E, float* out, cudaSt
   constexpr int kThreads = 256;
   reduce_partials_kernel<Src><<<(unsigned)((E + kThreads - 1) / kThreads), kThreads, 0, s>>>(
       part, S, E, out);
-  return cudaGetLastError();
-}
-
-// The bf16 form: one product of a bf16 weight-gradient launch, a^T b over
-// the rows with a [R, M] and b [R, N] bf16 operands (or f32 ones rounded as
-// they are staged), into [M, N] at offset `out` of a split partial and b's
-// f32 column sums (before any rounding) at `sums_out`, as WgradGemm.
-struct BfWgrad {
-  BfOperand a, b;
-  int M, N, tiles_n, tiles;
-  size_t out, sums_out;
-};
-
-inline BfWgrad bf_wgrad(BfOperand a, BfOperand b, int M, int N, size_t out, size_t sums_out,
-                        int bn) {
-  BfWgrad p{a, b, M, N, 0, 0, out, sums_out};
-  set_tiles(M, N, bn, &p.tiles_n, &p.tiles);
-  return p;
-}
-
-// wgrad_gemm_kernel's plan on the bf16 tensor cores (bf_gemm_tile): block
-// (tile, split) over its split's rows, `accumulate` adding to the partial
-// (a later chunk of rows). Two blocks an SM at 64 columns, one at 128; 40
-// KB of static shared memory at 128.
-template <int kBN, class Src>
-__global__ void __launch_bounds__(kGemmThreads, kBN == 64 ? 2 : 1)
-bf16_wgrad_kernel(BfWgrad p0, BfWgrad p1, int R, int rows_per_split, float* __restrict__ part,
-                  size_t E, bool accumulate) {
-  __shared__ __align__(16) uint32_t smem[bf_smem_words(kBN)];
-  int tile = blockIdx.x;
-  const BfWgrad p = tile < p0.tiles ? p0 : p1;
-  if (tile >= p0.tiles) tile -= p0.tiles;
-  const int m0 = (tile / p.tiles_n) * kGemmBM, n0 = (tile % p.tiles_n) * kBN;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(R, r_begin + rows_per_split);
-  const bool with_sums = m0 == 0;  // the first row tile writes the column sums
-  float acc[4][gemm_nt<kBN>()][4], sums[2][8];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) sums[i][j] = 0.f;
-  bf_gemm_tile<true, true, kBN>(p.a, p.b, p.M, p.N, m0, n0, r_begin, r_end, smem, acc, sums,
-                                with_sums);
-  float* out = part + (size_t)blockIdx.y * E;
-  gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
-    float2* dst = reinterpret_cast<float2*>(out + p.out + (size_t)row * p.N + col);
-    if (accumulate) {
-      const float2 o = *dst;
-      v0 = o.x + v0;
-      v1 = o.y + v1;
-    }
-    *dst = make_float2(v0, v1);
-  });
-  if (with_sums)
-    bf_reduce_sums<kBN>(p.b, p.N, n0, sums, [&](int col, float v) {
-      float* s = out + p.sums_out + col;
-      *s = accumulate ? *s + v : v;
-    });
-}
-
-// One bf16 weight-gradient launch of `splits` row splits of R rows (bf_wgrad's
-// tiles of bn columns, 128 or 64) on `stream`.
-template <class Src>
-cudaError_t launch_bf16_wgrad(int bn, const BfWgrad& p0, const BfWgrad& p1, int R,
-                              int rows_per_split, int splits, float* part, size_t E,
-                              bool accumulate, cudaStream_t s) {
-  const dim3 grid(p0.tiles + p1.tiles, splits);
-  if (bn == 128)
-    bf16_wgrad_kernel<128, Src><<<grid, kGemmThreads, 0, s>>>(p0, p1, R, rows_per_split, part, E,
-                                                              accumulate);
-  else
-    bf16_wgrad_kernel<64, Src><<<grid, kGemmThreads, 0, s>>>(p0, p1, R, rows_per_split, part, E,
-                                                             accumulate);
   return cudaGetLastError();
 }
 

@@ -46,6 +46,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
+
 namespace focal {
 namespace wg {
 
@@ -463,12 +465,14 @@ struct Ring {
 // One output tile of a streamed product: kPasses products over the same
 // kBM x kBN tile (rows m0 of M, columns n0 of N), one after the other,
 // acc[p] = A_p B_p over K [k0, k0 + 64 k_tiles), A_p and B_p read through
-// the maps a[p], b[p].
+// the maps a[p], b[p]. `problem` says which problem of a two-problem launch
+// the tile belongs to (0 where there is one).
 template <int kPasses>
 struct Job {
   const CUtensorMap* a[kPasses];
   const CUtensorMap* b[kPasses];
   int m0, M, n0, N, k0, k_tiles;
+  int problem;
 };
 
 // A persistent block's share of `tiles` output tiles (blockIdx.x, then every
@@ -476,13 +480,20 @@ struct Job {
 // warpgroup streams the tiles' stages, running ahead into the next tile's
 // while the consumers finish one; the consumer warpgroups multiply, one
 // wgmma group in flight while the next stage is awaited, then run
-// epi(job, acc) on the finished tile. Call with all kThreads threads and
-// Ring's kSmemBytes of dynamic shared memory (more for the epilogue's own).
-template <int kBN, bool kAT, bool kBT, int kStages, int kPasses, class Plan, class Epi>
+// epi(job, acc) on the finished tile. Jobs of problem 1 read their B in
+// kBT1's order (both orders stage the same bytes a stage): each order's
+// tile is a whole wgmma pipeline of its own, from its first group to its
+// last wait, so the branch between them splits no pipeline. Call with all
+// kThreads threads and Ring's kSmemBytes of dynamic shared memory (more for
+// the epilogue's own).
+template <int kBN, bool kAT, bool kBT, int kStages, int kPasses, bool kBT1 = kBT, class Plan,
+          class Epi>
 __device__ __forceinline__ void streamed_tiles(void* smem, int tiles, const Plan& plan,
                                                const Epi& epi) {
-  using R = Ring<kBN, kAT, kBT, kStages>;
-  const R ring(smem);
+  using R0 = Ring<kBN, kAT, kBT, kStages>;
+  using R1 = Ring<kBN, kAT, kBT1, kStages>;
+  const R0 ring(smem);
+  const R1 ring1(smem);
   if (threadIdx.x == 0) ring.init();
   __syncthreads();
   if (threadIdx.x >= kConsumers) {
@@ -492,32 +503,234 @@ __device__ __forceinline__ void streamed_tiles(void* smem, int tiles, const Plan
       for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
         const Job<kPasses> j = plan(tile);
         for (int p = 0; p < kPasses; ++p)
-          for (int kt = 0; kt < j.k_tiles; ++kt, ++it)
-            ring.load(it, j.a[p], j.b[p], j.m0, j.M, j.n0, j.N, j.k0 + kt * kBK);
+          for (int kt = 0; kt < j.k_tiles; ++kt, ++it) {
+            if (kBT1 != kBT && j.problem)
+              ring1.load(it, j.a[p], j.b[p], j.m0, j.M, j.n0, j.N, j.k0 + kt * kBK);
+            else
+              ring.load(it, j.a[p], j.b[p], j.m0, j.M, j.n0, j.N, j.k0 + kt * kBK);
+          }
       }
     }
   } else {
     set_max_regs_inc<kConsumerRegs>();
     float acc[kPasses][kBN / 2];
     int it = 0;
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const Job<kPasses> j = plan(tile);
+    // one tile's products through ring r
+    auto multiply = [&](const auto& r, const Job<kPasses>& j) {
       const int it0 = it;
 #pragma unroll
       for (int p = 0; p < kPasses; ++p) {
         for (int kt = 0; kt < j.k_tiles; ++kt, ++it) {
-          ring.mma(it, acc[p], kt > 0);
+          r.mma(it, acc[p], kt > 0);
           mma_wait<1>();
-          if (it > it0) ring.release(it - 1);
+          if (it > it0) r.release(it - 1);
         }
       }
       mma_wait<0>();
 #pragma unroll
       for (int p = 0; p < kPasses; ++p) hold(acc[p]);
-      ring.release(it - 1);
+      r.release(it - 1);
+    };
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const Job<kPasses> j = plan(tile);
+      if (kBT1 != kBT && j.problem)
+        multiply(ring1, j);
+      else
+        multiply(ring, j);
       epi(j, acc);
     }
   }
+}
+
+// The stages of a streamed product's ring: ~192 KB of shared memory.
+template <int kBN>
+constexpr int kStreamStages = kBN == 128 ? 6 : 8;
+
+template <int kBN, bool kAT, bool kBT>
+constexpr size_t stream_smem(size_t extra = 0) {
+  return Ring<kBN, kAT, kBT, kStreamStages<kBN>>::kSmemBytes + extra;
+}
+
+// ---------------------------------------------------------------------------
+// weight gradients over fixed row splits, and the ordered reduction: the
+// bf16 backwards' shared last phases (fused_mlp.cu's #12-bf16,
+// window_block.cu's #3-bf16 and #5-bf16). Src is a tag type of the
+// including library, so that a profile's kernel names say who launched
+// them.
+
+// Two weight gradients A0^T B0 [M0, N0] and A1^T B1 [M1, N1] over the same
+// rows, every operand [rows, M] or [rows, N] bf16 read MN-major as it lies,
+// over fixed row splits (rows_per_split a multiple of kBK); tile t of the
+// launch is split t / (tiles0 + tiles1), then problem 0's tiles0 tiles,
+// then problem 1's. Each tile writes its split's partial, part + split E
+// (E = M0 N0 + M1 N1: problem 0, then problem 1); with `accumulate` it
+// adds to it (a later row chunk of the same splits, still one fixed order).
+struct WgradArgs {
+  float* part;
+  int rows, M0, N0, M1, N1, rows_per_split, splits;
+  int accumulate;
+};
+
+// Output tiles of a weight-gradient split: problem 0's, then problem 1's.
+__host__ __device__ inline int wgrad_tiles(int M, int N, int bn) {
+  return (M + kBM - 1) / kBM * ((N + bn - 1) / bn);
+}
+
+template <int kBN, class Src>
+__global__ void __launch_bounds__(kThreads, 1)
+wg_wgrad_kernel(const __grid_constant__ CUtensorMap ma0, const __grid_constant__ CUtensorMap mb0,
+                const __grid_constant__ CUtensorMap ma1, const __grid_constant__ CUtensorMap mb1,
+                const WgradArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  const int tn0 = (p.N0 + kBN - 1) / kBN, tn1 = (p.N1 + kBN - 1) / kBN;
+  const int tiles0 = wgrad_tiles(p.M0, p.N0, kBN);
+  const int per_split = tiles0 + wgrad_tiles(p.M1, p.N1, kBN);
+  const size_t e0 = (size_t)p.M0 * p.N0, E = e0 + (size_t)p.M1 * p.N1;
+  auto plan = [&](int tile) {
+    const int split = tile / per_split, t = tile % per_split;
+    const bool second = t >= tiles0;
+    const int tt = second ? t - tiles0 : t, tn = second ? tn1 : tn0;
+    const int k0 = split * p.rows_per_split;
+    const int k_tiles = (min(p.rows, k0 + p.rows_per_split) - k0 + kBK - 1) / kBK;
+    return Job<1>{{second ? &ma1 : &ma0}, {second ? &mb1 : &mb0}, tt / tn * kBM,
+                  second ? p.M1 : p.M0, tt % tn * kBN, second ? p.N1 : p.N0, k0, k_tiles,
+                  second ? 1 : 0};
+  };
+  auto epi = [&](const Job<1>& j, float (&acc)[1][kBN / 2]) {
+    const Frag f;
+    const int split = j.k0 / p.rows_per_split;
+    float* out = p.part + (size_t)split * E + (j.problem ? e0 : 0);
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int m = j.m0 + f.row(i), n = j.n0 + f.col(i);
+      if (m >= j.M || n >= j.N) continue;
+      float2* dst = reinterpret_cast<float2*>(out + (size_t)m * j.N + n);
+      float2 v = make_float2(acc[0][i], acc[0][i + 1]);
+      if (p.accumulate) {
+        const float2 o = *dst;
+        v = make_float2(o.x + v.x, o.y + v.y);
+      }
+      *dst = v;
+    }
+  };
+  streamed_tiles<kBN, true, true, kStreamStages<kBN>, 1>(smem_raw, p.splits * per_split, plan, epi);
+}
+
+// The fewest row splits (rows_per_split a multiple of kBK) that give a
+// weight-gradient launch of `wtiles` tiles a split its least span on `sms`
+// persistent blocks (waves of tiles times a tile's kBK-row stages), which
+// also keeps the partials few.
+struct WgradSplits {
+  int splits, rows_per_split;
+};
+
+inline WgradSplits wgrad_splits(int rows, int wtiles, int sms) {
+  WgradSplits w{1, rows};
+  const int max_splits = std::max(1, std::min((rows + 255) / 256, 8 * sms / wtiles + 1));
+  long long best = -1;
+  for (int s = 1; s <= max_splits; ++s) {
+    const int rps = ((rows + s - 1) / s + kBK - 1) / kBK * kBK;
+    const int splits = (rows + rps - 1) / rps;
+    const long long span = (long long)((splits * wtiles + sms - 1) / sms) * (rps / kBK);
+    if (best < 0 || span < best) {
+      best = span;
+      w.rows_per_split = rps;
+      w.splits = splits;
+    }
+  }
+  return w;
+}
+
+// out = [W0 | b0 | W1 | b1 | x]: the weight gradients (M0 N0 and M1 N1
+// values) summed over the splits in split order (one thread an element);
+// the bias sums b0 (N0 values) and b1 (N1) and, where xn > 0, one more
+// vector x (xn values, at xout) from their partials [tiles][n], each over
+// the tiles in eight consecutive slices (a warp a slice, 32 columns a
+// block), the slices then added in order.
+struct ReduceArgs {
+  const float* wpart;   // [splits][M0 N0 + M1 N1]
+  const float* b0part;  // [tiles][N0]
+  const float* b1part;  // [tiles][N1]
+  const float* xpart;   // [tiles][xn] or null
+  float* out;
+  float* xout;
+  int splits, tiles, M0, N0, M1, N1, xn;
+};
+
+constexpr int kReduceThreads = 256;
+
+template <class Src>
+__global__ void __launch_bounds__(kReduceThreads) wg_reduce_kernel(const ReduceArgs p) {
+  const size_t e0 = (size_t)p.M0 * p.N0, E = e0 + (size_t)p.M1 * p.N1;
+  const int wblocks = (int)((E + kReduceThreads - 1) / kReduceThreads);
+  if ((int)blockIdx.x < wblocks) {
+    const size_t e = (size_t)blockIdx.x * kReduceThreads + threadIdx.x;
+    if (e >= E) return;
+    float a = 0.f;
+    for (int s = 0; s < p.splits; ++s) a += p.wpart[(size_t)s * E + e];
+    p.out[e < e0 ? e : e + p.N0] = a;
+    return;
+  }
+  __shared__ float red[kReduceThreads / 32][32];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5, slices = kReduceThreads / 32;
+  const int col = (blockIdx.x - wblocks) * 32 + lane;
+  const int nb = p.N0 + p.N1;
+  const int which = col < p.N0 ? 0 : col < nb ? 1 : 2;
+  const bool in = col < nb + p.xn;
+  const int n = which == 0 ? p.N0 : which == 1 ? p.N1 : p.xn;
+  const int cc = which == 0 ? col : which == 1 ? col - p.N0 : col - nb;
+  const float* part = which == 0 ? p.b0part : which == 1 ? p.b1part : p.xpart;
+  const int per = (p.tiles + slices - 1) / slices;
+  float a = 0.f;
+  if (in)
+    for (int t = slice * per; t < min(p.tiles, (slice + 1) * per); ++t) a += part[(size_t)t * n + cc];
+  red[slice][lane] = a;
+  __syncthreads();
+  if (slice == 0 && in) {
+    float s = 0.f;
+    for (int k = 0; k < slices; ++k) s += red[k][lane];
+    if (which == 2)
+      p.xout[cc] = s;
+    else
+      p.out[which == 0 ? e0 + cc : E + p.N0 + cc] = s;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// host side
+
+// One launch of a kernel here (kThreads threads a block) with `smem` bytes
+// of dynamic shared memory; 0 or the CUDA error.
+template <class Kernel, class... Args>
+int launch(Kernel kernel, int grid, size_t smem, cudaStream_t s, const Args&... args) {
+  const cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kThreads, smem, s>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// wg_wgrad_kernel over a.splits splits in bn-wide tiles (128 or 64),
+// persistent over min(tiles, sms) blocks; m: the maps of A0, B0, A1, B1,
+// each with 64-row boxes.
+template <class Src>
+int launch_wgrad(const CUtensorMap (&m)[4], const WgradArgs& a, int bn, int sms, cudaStream_t s) {
+  const int tiles = a.splits * (wgrad_tiles(a.M0, a.N0, bn) + wgrad_tiles(a.M1, a.N1, bn));
+  if (bn == 128)
+    return launch(wg_wgrad_kernel<128, Src>, std::min(tiles, sms), stream_smem<128, true, true>(),
+                  s, m[0], m[1], m[2], m[3], a);
+  return launch(wg_wgrad_kernel<64, Src>, std::min(tiles, sms), stream_smem<64, true, true>(), s,
+                m[0], m[1], m[2], m[3], a);
+}
+
+// wg_reduce_kernel over its outputs.
+template <class Src>
+int launch_reduce(const ReduceArgs& a, cudaStream_t s) {
+  const size_t E = (size_t)a.M0 * a.N0 + (size_t)a.M1 * a.N1;
+  const int grid =
+      (int)((E + kReduceThreads - 1) / kReduceThreads) + (a.N0 + a.N1 + a.xn + 31) / 32;
+  wg_reduce_kernel<Src><<<grid, kReduceThreads, 0, s>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace wg
@@ -549,3 +762,17 @@ inline int focal_wg_map(CUtensorMap* map, const void* base, int rows, int cols, 
                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
+
+namespace focal {
+namespace wg {
+
+constexpr int kMapError = 100000;  // + libcuda's CUresult: a tensor map was refused
+
+// focal_wg_map, its refusal as kMapError + the CUresult.
+inline int map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows) {
+  const int r = focal_wg_map(m, base, rows, cols, box_rows);
+  return r == 0 ? 0 : kMapError + r;
+}
+
+}  // namespace wg
+}  // namespace focal

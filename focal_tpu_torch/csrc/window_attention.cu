@@ -46,7 +46,12 @@
 //     staging and the math no longer alternate. A thread's staging row is
 //     found once for all its operands. The forward needs one barrier a
 //     chunk (the one after the chunk's copies land also frees the other
-//     slot), the backward two (it keeps ds and a_v in shared memory).
+//     slot), the backward two (it keeps ds and a_v in shared memory). The
+//     operands, their f32 staging and the stores live in window_rows.cuh
+//     (Operands, stage_chunk_async, store4), shared with the attention of
+//     the bf16 whole-block backward (#3-bf16, #5-bf16), whose walk there
+//     (ring_walk) has this loop's shape; these kernels keep the loop
+//     inline (#9 in f32 ran ~5 % slower through ring_walk on the H100).
 //   * q arrives unscaled where the caller passes its scale: each thread
 //     multiplies the q float4s it staged itself, after its own copies land
 //     and before the chunk's barrier. The f32 product rounds as the
@@ -108,10 +113,14 @@
 
 namespace {
 
+using focal::chunk_pairs;
 using focal::Geo;
 using focal::make_geo;
+using focal::Operands;
 using focal::Row;
 using focal::row_dots;
+using focal::stage_chunk_async;
+using focal::store4;
 using focal::Strides;
 using focal::thread_row;
 constexpr int kMaxN = focal::kAttnMaxN;
@@ -147,44 +156,6 @@ int check_geometry(int B, int H, int N, int hd, const void* mask, int nW) {
 
 // ---------------------------------------------------------------------------
 // the staging both directions share
-
-// The operands a chunk stages: q, k, v (the forward's three), g (the
-// backward's fourth), each [B, H, N, hd] of T at its own element strides.
-template <class T>
-struct Operands {
-  const T* src[4];
-  Strides st[4];
-};
-
-// The pairs chunk `chunk` holds (the last may hold fewer than P).
-__device__ __forceinline__ int chunk_pairs(const Geo& g, int chunk) {
-  return (int)min((long long)g.pairs, g.total - (long long)chunk * g.pairs);
-}
-
-// The staging of one chunk: cp.async copies of its rows of the first kOps
-// operands into a ring slot ([kOps][P][N][stride]), 16 bytes each. Thread
-// tid copies float4 column tid % c4 of rows tid / c4, + R, + 2R, ... (R =
-// kThreads / c4 rows a pass): the row's (pair, token) is found once for
-// its kOps operands.
-template <int kOps>
-__device__ __forceinline__ void stage_chunk_async(const Operands<float>& in, int chunk,
-                                                  const Geo& g, float* slot) {
-  const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
-  const int per_pass = kThreads / g.c4;
-  const int c = threadIdx.x % g.c4, r0 = threadIdx.x / g.c4;
-  if (r0 >= per_pass) return;
-  const int slab = g.pairs * g.N * g.stride;
-  for (int r = r0; r < np * g.N; r += per_pass) {
-    const int pl = r / g.N, i = r - pl * g.N;
-    const int pair = p0 + pl;
-    const int b = pair / g.H, h = pair - b * g.H;
-#pragma unroll
-    for (int o = 0; o < kOps; ++o) {
-      const float* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
-      focal::cp_async16(slot + o * slab + r * g.stride + 4 * c, row + 4 * c, true);
-    }
-  }
-}
 
 // Multiply the chunk's q rows in a ring slot by `scale`: each thread scales
 // the float4s it copied itself (stage_chunk_async's mapping), so it may do
@@ -294,17 +265,6 @@ __device__ __forceinline__ void land_chunk(int chunk, const Geo& g, float* slot,
   } else {
     widen_staged_bf16<kOps>(chunk, g, slot, q_scale);
   }
-}
-
-// Four f32 results stored at p: as a float4, or rounded to bf16 (8 bytes).
-__device__ __forceinline__ void store4(float* p, float4 v) {
-  *reinterpret_cast<float4*>(p) = v;
-}
-
-__device__ __forceinline__ void store4(bf16* p, float4 v) {
-  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
-  *reinterpret_cast<uint2*>(p) =
-      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
 }
 
 // dq as it leaves for d(qkv): times dq_scale in f32, or in bf16 the VJP of
@@ -670,24 +630,6 @@ __global__ void keep_mask_kernel(unsigned char* __restrict__ keep, int B, int H,
   }
 }
 
-// Raise a kernel's dynamic shared memory limit to `bytes` on the current
-// device, never lowering it below what an earlier plan (the cached plans
-// keep them) launches it with.
-template <class Kernel>
-cudaError_t raise_smem(Kernel kernel, size_t bytes) {
-  static std::mutex mutex;
-  static std::map<std::pair<int, const void*>, size_t> limits;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  std::lock_guard<std::mutex> lock(mutex);
-  size_t& limit = limits[{dev, reinterpret_cast<const void*>(kernel)}];
-  if (bytes <= limit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) limit = bytes;
-  return err;
-}
-
 template <class T>
 using FwdKernel = void (*)(Operands<T>, Strides, const float*, const float*, T*, float,
                            unsigned long long, unsigned, float, Geo, int);
@@ -756,7 +698,7 @@ Plan<Kernel> make_plan(int B, int H, int N, int hd, bool dropout,
     return P;
   }
   P.kernel = pick(P.geo, dropout);
-  P.err = raise_smem(P.kernel, P.smem);
+  P.err = focal::raise_smem(P.kernel, P.smem);
   if (P.err == cudaSuccess)
     P.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, P.kernel, kThreads, P.smem);
   if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;

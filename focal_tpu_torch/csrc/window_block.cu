@@ -70,28 +70,64 @@
 // The bf16 forms (-compute_dtype bfloat16): #1-bf16 and #2-bf16 (the forward
 // at rate 0 and with dropout) and #3-bf16 (their backward), and #4-bf16 and
 // #5-bf16 (the same code at the per-head geometries, whose TPU kernels fed
-// bf16 round at the same points), replace the same
-// TPU kernels fed bf16 operands (pk:908-938, 971-1072: bf16 dots with f32
-// accumulation, the softmax in f32). They run #1-#3's phases with the
-// products on the bf16 tensor cores (gemm_bf16.cuh: one mma.sync pass of
-// m16n8k16, 989 TFLOP/s dense on the H100, where 3xTF32 takes three at
-// 495) and the same f32 attention kernels between them, rounding where the
-// TPU kernels round: qkv = x Wqkv + bqkv kept in f32; the attention output
-// rounded to bf16 before the output projection; y = ao Wproj + bproj stored
-// as bf16; in the backward qkv and g = dy Wproj^T recomputed in f32, dq, dk,
-// dv and the attention output rounded to bf16 where the dx and weight
-// products stage them, dbqkv and d rel_bias from the f32 values, dbproj the
-// f32 sum of dy, dx stored as bf16. Activations in and out take half the
-// bytes; the workspaces stay f32.
+// bf16 round at the same points), replace the same TPU kernels fed bf16
+// operands (pk:908-938, 971-1072: bf16 dots with f32 accumulation, the
+// softmax in f32), rounding where they round: qkv = x Wqkv + bqkv kept in
+// f32; the attention output rounded to bf16 before the output projection;
+// y = ao Wproj + bproj stored as bf16; in the backward qkv and g = dy
+// Wproj^T recomputed in f32, the softmax and its gradient in f32, dq, dk,
+// dv and the attention output rounded to bf16 before the dx and weight
+// products, dbqkv and d rel_bias summed from the f32 values, dbproj the f32
+// sum of dy, dx stored as bf16.
+//   * The forwards (#1-, #2-, #4-bf16) run #1-#3's phases with the products
+//     on the bf16 tensor cores by mma.sync m16n8k16 (gemm_bf16.cuh), the f32
+//     attention between them, f32 workspaces.
+//   * The backward (#3-bf16, #5-bf16; wblock_bwd_bf16) is built for Hopper.
+//     What bounds it: operations for the products (22 N C^2 FLOPs a window
+//     at 989 TFLOP/s), bytes for the attention (its f32 qkv and g in, its
+//     bf16 dq | dk | dv and ao out: 24 bytes a row and column, ~2 FLOPs a
+//     byte). What the design does about it, in five launches:
+//       (a) qkv = x Wqkv + bqkv and g = dy Wproj^T (f32) in one launch of two
+//           problems on gemm_wgmma.cuh's core: TMA into 128-byte-swizzled
+//           rings, one producer and two consumer warpgroups, wgmma
+//           m64nNk16 with f32 sums; Wqkv read MN-major and Wproj K-major as
+//           they lie (streamed_tiles' per-problem B order), so no transposed
+//           copy of either is made or kept;
+//       (b) the attention backward (attn_bwd_bf16_kernel) on #8/#9's design,
+//           through window_rows.cuh (Operands and stage_chunk_async, which
+//           #6-#9 share; ring_walk, their walk as a function: a persistent
+//           grid over chunks of (window, head) pairs, a two-slot cp.async
+//           ring; the exact 9-key row tile; row_dots and the softmax): the
+//           keep mask read back, dq, dk, dv
+//           and ao rounded once to bf16 into [R, 3C] and [R, C] as the
+//           products read them by TMA (half the bytes of f32), and the f32
+//           sums as per-block partials in pair order: d rel_bias, dbqkv and
+//           dbproj (the block's share of dy's rows). A head too wide for two
+//           slots takes fewer pairs, then one slot (the gate's own shared
+//           memory: wblock_takes admits what it admitted);
+//       (c) dx = dqkv Wqkv^T on wgmma, stored as bf16 by TMA;
+//       (d) dWqkv = x^T dqkv and dWproj = ao^T dy on wgmma over fixed row
+//           splits, all four operands MN-major as they lie (gemm_wgmma.cuh's
+//           wg_wgrad_kernel, shared with #12-bf16);
+//       (e) one ordered reduction (wg_reduce_kernel): the weights over the
+//           splits in split order, the three sums over the attention's
+//           blocks in block order. No float atomics: two calls give the same
+//           bits.
+//   * Not yet: the bf16 forwards on wgmma (#1-, #2-, #4-bf16 keep
+//     mma.sync), and the f32 #2-#5 attention on the cp.async ring.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 #include <algorithm>
+#include <array>
+#include <map>
+#include <mutex>
 
 #include "gemm_3xtf32.cuh"
 #include "gemm_bf16.cuh"
 #include "gemm_splitk.cuh"
+#include "gemm_wgmma.cuh"
 #include "philox.cuh"
 #include "window_rows.cuh"
 
@@ -183,9 +219,8 @@ bf16_proj_kernel(BfGemm p0, BfGemm p1) {
   const BfGemm p = tile < p0.tiles ? p0 : p1;
   if (tile >= p0.tiles) tile -= p0.tiles;
   const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
-  float acc[4][focal::gemm_nt<kBN>()][4], sums[2][8];
-  focal::bf_gemm_tile<false, false, kBN>(p.a, p.b, p.M, p.N, m0, n0, 0, p.K, smem, acc, sums,
-                                         false);
+  float acc[4][focal::gemm_nt<kBN>()][4];
+  focal::bf_gemm_tile<kBN>(p.a, p.b, p.M, p.N, m0, n0, 0, p.K, smem, acc);
   focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
     if (p.bias) {
       v0 += __ldg(p.bias + col);
@@ -616,21 +651,16 @@ int wblock_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wp
                           ProjGemm{}, s);
 }
 
-// The backward's six launches on `stream` (focal_wblock_bwd and
-// focal_wblock_bwd_bf16): qkv = x Wqkv + bqkv and g = dy Wproj^T (one
-// launch, f32 into the workspace), the attention backward (dqkv, the
-// attention output, d rel_bias partials; f32), dx = dqkv Wqkv^T, the
-// weight-gradient split partials (x^T dqkv, ao^T dy and the column sums),
-// and the two ordered reductions. With bf16 the products run on the bf16
-// tensor cores: x, dy, the weights and dx bf16; dqkv and ao rounded to bf16
-// as the products stage them, the bias gradients summed from f32 dqkv and
-// dy.
-int wblock_bwd(const void* x, const void* wqkv, const void* bqkv, const void* wqkv_t,
-               const void* wproj_t, const void* rel_bias, const void* mask, const void* dy,
-               const void* keep, float inv_keep, void* dx, void* dweights, void* drel_bias,
-               void* ws, int B, int N, int C, int H, int nW, void* stream, bool bf16) {
-  if (check_geometry(N, C, H) || (bf16 && C % 8 != 0) || (mask != nullptr && nW < 1))
-    return (int)cudaErrorInvalidValue;
+// The backward's six launches on `stream` (focal_wblock_bwd): qkv = x
+// Wqkv + bqkv and g = dy Wproj^T (one launch, f32 into the workspace), the
+// attention backward (dqkv, the attention output, d rel_bias partials), dx
+// = dqkv Wqkv^T, the weight-gradient split partials (x^T dqkv, ao^T dy and
+// the column sums), and the two ordered reductions.
+int wblock_bwd(const float* x, const float* wqkv, const float* bqkv, const float* wqkv_t,
+               const float* wproj_t, const void* rel_bias, const void* mask, const float* dy,
+               const void* keep, float inv_keep, float* dx, void* dweights, void* drel_bias,
+               void* ws, int B, int N, int C, int H, int nW, void* stream) {
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const bool dropout = keep != nullptr;
   const BwdPlan P = bwd_plan(B, N, C, H, dropout);
@@ -639,21 +669,9 @@ int wblock_bwd(const void* x, const void* wqkv, const void* bqkv, const void* wq
   const int R = B * N;
   float* w = static_cast<float*>(ws);
   float *qkv = w + P.qkv, *dqkv = w + P.dqkv, *g = w + P.g, *ao = w + P.ao;
-  const float* bq = static_cast<const float*>(bqkv);
   // 1. qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
-  cudaError_t err =
-      bf16 ? launch_bf16_proj(
-                 bf_gemm(bf16_operand(x, C), bf16_operand(wqkv, 3 * C), bq, qkv, 3 * C, false, R,
-                         3 * C, C),
-                 bf_gemm(bf16_operand(dy, C), bf16_operand(wproj_t, C), nullptr, g, C, false, R,
-                         C, C),
-                 s)
-           : launch_proj(proj_gemm(static_cast<const float*>(x), C,
-                                   static_cast<const float*>(wqkv), 3 * C, bq, qkv, 3 * C, R,
-                                   3 * C, C),
-                         proj_gemm(static_cast<const float*>(dy), C,
-                                   static_cast<const float*>(wproj_t), C, nullptr, g, C, R, C, C),
-                         s);
+  cudaError_t err = launch_proj(proj_gemm(x, C, wqkv, 3 * C, bqkv, qkv, 3 * C, R, 3 * C, C),
+                                proj_gemm(dy, C, wproj_t, C, nullptr, g, C, R, C, C), s);
   if (err != cudaSuccess) return (int)err;
   // 2. the attention backward per (window, head)
 #define FOCAL_ATTN_ARGS                                                                       \
@@ -668,33 +686,597 @@ int wblock_bwd(const void* x, const void* wqkv, const void* bqkv, const void* wq
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // 3. dx = dqkv Wqkv^T
-  err = bf16 ? launch_bf16_proj(bf_gemm(f32_operand(dqkv, 3 * C), bf16_operand(wqkv_t, C),
-                                        nullptr, dx, C, true, R, C, 3 * C),
-                                BfGemm{}, s)
-             : launch_proj(proj_gemm(dqkv, 3 * C, static_cast<const float*>(wqkv_t), C, nullptr,
-                                     static_cast<float*>(dx), C, R, C, 3 * C),
-                           ProjGemm{}, s);
+  err = launch_proj(proj_gemm(dqkv, 3 * C, wqkv_t, C, nullptr, dx, C, R, C, 3 * C), ProjGemm{}, s);
   if (err != cudaSuccess) return (int)err;
   // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
   const size_t q = (size_t)3 * C * C, p_out = q + 3 * C, p_sums = p_out + (size_t)C * C;
-  if (bf16) {
-    err = focal::launch_bf16_wgrad<Src>(
-        P.wbn, focal::bf_wgrad(bf16_operand(x, C), f32_operand(dqkv, 3 * C), C, 3 * C, 0, q, P.wbn),
-        focal::bf_wgrad(f32_operand(ao, C), bf16_operand(dy, C), C, C, p_out, p_sums, P.wbn), R,
-        P.rows_per_split, P.splits, w + P.wpart, P.E, false, s);
-  } else {
-    const float* xf = static_cast<const float*>(x);
-    const float* dyf = static_cast<const float*>(dy);
-    err = focal::launch_wgrad<Src>(P.wbn, focal::wgrad_gemm(xf, dqkv, C, 3 * C, 0, q, P.wbn),
-                                   focal::wgrad_gemm(ao, dyf, C, C, p_out, p_sums, P.wbn), R,
-                                   P.rows_per_split, P.splits, w + P.wpart, P.E, false, s);
-  }
+  err = focal::launch_wgrad<Src>(P.wbn, focal::wgrad_gemm(x, dqkv, C, 3 * C, 0, q, P.wbn),
+                                 focal::wgrad_gemm(ao, dy, C, C, p_out, p_sums, P.wbn), R,
+                                 P.rows_per_split, P.splits, w + P.wpart, P.E, false, s);
   if (err != cudaSuccess) return (int)err;
   // 5. the partials summed in split order, and d rel_bias in block order
   err = focal::launch_reduce<Src>(w + P.wpart, P.splits, P.E, static_cast<float*>(dweights), s);
   if (err != cudaSuccess) return (int)err;
   return (int)focal::launch_reduce<Src>(w + P.dbias, P.attn_grid, (size_t)H * N * N,
                                         static_cast<float*>(drel_bias), s);
+}
+
+// ---------------------------------------------------------------------------
+// the bf16 backward (#3-bf16, #5-bf16): products on wgmma, the attention on
+// the chunk walk of #8/#9
+
+namespace wgk = focal::wg;
+using bf16 = __nv_bfloat16;
+
+// (a) qkv = x Wqkv + bqkv and g = dy Wproj^T, f32, into the workspaces: two
+// problems in one launch (gemm_wgmma.cuh's streamed_tiles over both
+// problems' tiles): A = x or dy [R, C] K-major, B = Wqkv [C, 3C] MN-major
+// as it lies, or Wproj [C, C] read as B^T, K-major as it lies (problem 1's
+// order, kBT1).
+struct QkvgArgs {
+  const float* bqkv;
+  float* qkv;  // [R, 3C]
+  float* g;    // [R, C]
+  int R, C;
+};
+
+template <int kBN>
+__global__ void __launch_bounds__(wgk::kThreads, 1)
+wb_wg_qkvg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mwqkv,
+                  const __grid_constant__ CUtensorMap mdy, const __grid_constant__ CUtensorMap mwproj,
+                  const QkvgArgs p) {
+  extern __shared__ uint8_t smem_raw[];
+  const int rt = (p.R + wgk::kBM - 1) / wgk::kBM;
+  const int tn0 = (3 * p.C + kBN - 1) / kBN, tn1 = (p.C + kBN - 1) / kBN;
+  const int k_tiles = (p.C + wgk::kBK - 1) / wgk::kBK;
+  auto plan = [&](int tile) {
+    const bool second = tile >= rt * tn0;
+    const int t = second ? tile - rt * tn0 : tile, tn = second ? tn1 : tn0;
+    return wgk::Job<1>{{second ? &mdy : &mx}, {second ? &mwproj : &mwqkv}, t / tn * wgk::kBM, p.R,
+                       t % tn * kBN, second ? p.C : 3 * p.C, 0, k_tiles, second ? 1 : 0};
+  };
+  auto epi = [&](const wgk::Job<1>& j, float (&acc)[1][kBN / 2]) {
+    const wgk::Frag f;
+    float* out = j.problem ? p.g : p.qkv;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int m = j.m0 + f.row(i), n = j.n0 + f.col(i);
+      if (m >= j.M || n >= j.N) continue;  // N is a multiple of 8, n even
+      float v0 = acc[0][i], v1 = acc[0][i + 1];
+      if (!j.problem) {
+        v0 += __ldg(p.bqkv + n);
+        v1 += __ldg(p.bqkv + n + 1);
+      }
+      *reinterpret_cast<float2*>(out + (size_t)m * j.N + n) = make_float2(v0, v1);
+    }
+  };
+  wgk::streamed_tiles<kBN, false, true, wgk::kStreamStages<kBN>, 1, false>(
+      smem_raw, rt * (tn0 + tn1), plan, epi);
+}
+
+// (b) dx = dqkv Wqkv^T: A = dqkv [R, 3C] bf16 K-major, B^T = Wqkv [C, 3C]
+// K-major as it lies; each 128 x kBN tile of dx rounded to bf16 and staged
+// in shared memory (128-byte swizzled boxes) for a TMA store, which leaves
+// out the rows past R and the columns past C. One stage fewer than
+// kStreamStages makes room for the staged tile.
+template <int kBN>
+struct DxSmem {
+  static constexpr int kStages = wgk::kStreamStages<kBN> - 1;
+  // from the 1,024-byte aligned start: the ring's tiles and a 1 KB page for
+  // its barriers, then the staged tile
+  static constexpr size_t kStaged =
+      (size_t)kStages * wgk::Ring<kBN, false, false, kStages>::kStageBytes + 1024;
+  static constexpr size_t kBytes = 1024 + kStaged + (size_t)wgk::kBM * kBN * 2;
+};
+
+template <int kBN>
+__global__ void __launch_bounds__(wgk::kThreads, 1)
+wb_wg_dx_kernel(const __grid_constant__ CUtensorMap mdqkv, const __grid_constant__ CUtensorMap mwqkv,
+                const __grid_constant__ CUtensorMap mdx, int R, int C) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tile = wgk::align1024(smem_raw) + DxSmem<kBN>::kStaged;
+  const int tn = (C + kBN - 1) / kBN;
+  const int tiles = (R + wgk::kBM - 1) / wgk::kBM * tn;
+  const int k_tiles = (3 * C + wgk::kBK - 1) / wgk::kBK;
+  auto plan = [&](int t) {
+    return wgk::Job<1>{{&mdqkv}, {&mwqkv}, t / tn * wgk::kBM, R, t % tn * kBN, C, 0, k_tiles, 0};
+  };
+  auto epi = [&](const wgk::Job<1>& j, float (&acc)[1][kBN / 2]) {
+    const wgk::Frag f;
+    if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last tile's store has read the tile
+    wgk::consumers_sync();
+#pragma unroll
+    for (int jj = 0; jj < kBN / 8; ++jj) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        const int i = 4 * jj + 2 * r;
+        wgk::stage_pair(tile, f.row(i), f.col(i), wgk::pack_bf16(acc[0][i], acc[0][i + 1]));
+      }
+    }
+    wgk::fence_async_smem();
+    wgk::consumers_sync();  // the tile is staged
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int b = 0; b < kBN / 64; ++b)
+        wgk::tma_store(&mdx, tile + b * wgk::kBM * 128, j.n0 + 64 * b, j.m0);
+      wgk::tma_store_commit();
+    }
+  };
+  wgk::streamed_tiles<kBN, false, false, DxSmem<kBN>::kStages, 1>(smem_raw, tiles, plan, epi);
+  if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last store has left shared memory
+}
+
+// Columns 4c .. 4c + 3 of a head's row at `row` stored in T (f32, or bf16
+// rounded once): a vector store where hd % 4 == 0 (kAnyHd false: the row is
+// then 16- or 8-byte aligned), else each column below hd alone.
+__device__ __forceinline__ void put_elem(float* p, float v) { *p = v; }
+__device__ __forceinline__ void put_elem(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <bool kAnyHd, class T>
+__device__ __forceinline__ void store_head4(T* row, int c, float4 v, int hd) {
+  if (!kAnyHd) {
+    focal::store4(row + 4 * c, v);
+    return;
+  }
+  const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (4 * c + k < hd) put_elem(row + 4 * c + k, e[k]);
+}
+
+// The attention backward of #3-bf16 and #5-bf16 per (window, head) pair, on
+// the chunk walk of #8/#9 (focal::ring_walk: a persistent grid, the rows of
+// q, k, v (from the f32 qkv workspace) and g (the f32 [R, C] workspace)
+// staged by cp.async into a two-slot ring, at most one chunk a block, the
+// exact 9-key row tile where N = 9). Per chunk:
+//   stage 1, query row i of each pair: the softmax p, d(weights) = g_i . v_j,
+//     the weights as applied to v, a_v (the forward's keep mask read back),
+//     the score gradients ds (a_v and ds to shared memory), dq_i = ds k and
+//     the attention output ao_i = a_v v;
+//   stage 2, key row j: dk_j = ds^T q, dv_j = a_v^T g;
+//   dq, dk, dv and ao rounded once to bf16 into dqkv [R, 3C] (the head's
+//   columns) and ao [R, C], the layouts the products read by TMA; dq's f32
+//   rows kept in shared memory, dk's and dv's over the chunk's k and v
+//   (read by then), and after a third barrier the block's f32 sums: d
+//   rel_bias per head and dbqkv per column, each over the chunk's pairs in
+//   pair order (and a column's rows in order).
+// After its chunks a block sums its share of dy's rows (dbproj's partial;
+// rows [b rpb, (b + 1) rpb)): a thread's 8 columns over rows slot, slot +
+// slots, ..., then the slots in order. Every sum is a per-block partial,
+// added in block order by the reduction: no atomics.
+// kWide (a head too wide for two slots; only with kAnyHd and kN kMaxN): one
+// slot, and dq's f32 rows and the dbqkv partial in device memory (over the
+// chunk's own q rows of the qkv workspace, read by then, and at the
+// block's partial), so the shared memory is the gate's (wblock_takes).
+struct AttnBwdArgs {
+  float* qkv;                 // [R, 3C] f32, q pre-scaled
+  const float* g;             // [R, C] f32
+  const float* rel_bias;      // [H, N, N]
+  const float* mask;          // [nW, N, N] or null
+  const unsigned char* keep;  // [B, H, N, N] (kDropout)
+  const bf16* dy;             // [R, C]
+  bf16* dqkv;                 // [R, 3C]
+  bf16* ao;                   // [R, C]
+  float* dbqkv_part;          // [grid][3C]
+  float* dbproj_part;         // [grid][C]
+  float* dbias_part;          // [grid][H N N]
+  float inv_keep;
+  int C, nW, R;
+};
+
+template <int kN, int kCols, bool kDropout, bool kAnyHd, bool kWide>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_bwd_bf16_kernel(const AttnBwdArgs a, const focal::Geo g) {
+  extern __shared__ float4 smem4[];
+  const int N = kN < kMaxN ? kN : g.N, nn = N * N, slab = g.pairs * N * g.stride;
+  const int C = a.C, C3 = 3 * C, hd = g.hd;
+  float* ring = reinterpret_cast<float*>(smem4);   // [slots][q, k, v, g][P][N][stride]
+  float* dqs = ring + (kWide ? 4 : 8) * slab;      // [P][N][stride]: dq's f32 rows
+  float* dss = dqs + (kWide ? 0 : slab);           // [P][N][N] score gradients
+  float* avs = dss + g.pairs * nn;                 // [P][N][N] weights as applied to v
+  float* dacc = avs + g.pairs * nn;                // [H][N][N] this block's d rel_bias
+  float* dbacc = kWide ? a.dbqkv_part + (size_t)blockIdx.x * C3 : dacc + g.H * nn;  // [3C]
+  for (int e = threadIdx.x; e < g.H * nn; e += kThreads) dacc[e] = 0.f;
+  for (int e = threadIdx.x; e < C3; e += kThreads) dbacc[e] = 0.f;
+  const focal::Strides sq = qkv_strides(N, C, hd), sg = row_strides(N, C, hd);
+  const focal::Operands<float> in{{a.qkv, a.qkv + C, a.qkv + 2 * C, a.g}, {sq, sq, sq, sg}};
+  auto stage = [&](int chunk, float* slot) {
+    focal::stage_chunk_async<4, kAnyHd>(in, chunk, g, slot);
+  };
+  auto land = [](int, float*) {};
+  focal::ring_walk(g, ring, 4 * slab, !kWide, stage, land, [&](int chunk, float* qs) {
+    const int p0 = chunk * g.pairs, np = focal::chunk_pairs(g, chunk);
+    float* ks = qs + slab;
+    float* vs = ks + slab;
+    const float* gs = vs + slab;
+
+    // stage 1: query row i of pair pl
+    const focal::Row t = focal::thread_row(g, p0, np);
+    const float* brow = a.rel_bias + (t.h * N + t.i) * N;
+    const float* mrow = a.mask ? a.mask + ((size_t)(t.w % a.nW) * N + t.i) * N : nullptr;
+    float bias[kN];  // the row's bias and mask, loaded ahead of the products
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      if (focal::key_in_row<kN>(j, N)) bias[j] = __ldg(brow + j);
+    float mk[kN];
+    if (mrow) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (focal::key_in_row<kN>(j, N)) mk[j] = __ldg(mrow + j);
+    }
+    unsigned kept = ~0u;
+    if (kDropout) {
+      const unsigned char* kr = a.keep + (((size_t)t.w * g.H + t.h) * N + t.i) * N;
+      kept = 0u;
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (focal::key_in_row<kN>(j, N)) kept |= (__ldg(kr + j) != 0 ? 1u : 0u) << j;
+    }
+    const float* kb = ks + t.pl * N * g.stride;
+    const float* vb = vs + t.pl * N * g.stride;
+    float p[kN], ds[kN];
+    focal::row_dots<kCols>(qs + t.r * g.stride, kb, g, t.lane, p);
+    focal::row_dots<kCols>(gs + t.r * g.stride, vb, g, t.lane, ds);  // d(weights) = g_i . v_j
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        p[j] += bias[j];
+        if (mrow) p[j] += mk[j];
+      }
+    }
+    focal::softmax_scores(p, N);
+    float dot = 0.f;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        if (kDropout) ds[j] = (kept >> j) & 1u ? ds[j] * a.inv_keep : 0.f;  // da
+        dot = fmaf(ds[j], p[j], dot);
+      }
+    }
+    float* avrow = avs + t.r * N;
+    float* dsrow = dss + t.r * N;
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        ds[j] = p[j] * (ds[j] - dot);
+        if (kDropout) p[j] = (kept >> j) & 1u ? p[j] * a.inv_keep : 0.f;  // a_v from here on
+        if (t.active && j % g.lanes == t.lane) {
+          avrow[j] = p[j];
+          dsrow[j] = ds[j];
+        }
+      }
+    }
+    const size_t row = (size_t)t.w * N + t.i;
+    bf16* dqo = a.dqkv + row * C3 + t.h * hd;
+    bf16* aoo = a.ao + row * C + t.h * hd;
+    float* dqf = kWide ? a.qkv + row * C3 + t.h * hd : dqs + t.r * g.stride;
+    focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        if (focal::key_in_row<kN>(j, N)) {
+          const float4 u = *reinterpret_cast<const float4*>(kb + j * g.stride + 4 * c);
+          const float4 w = *reinterpret_cast<const float4*>(vb + j * g.stride + 4 * c);
+          x.x = fmaf(ds[j], u.x, x.x);
+          x.y = fmaf(ds[j], u.y, x.y);
+          x.z = fmaf(ds[j], u.z, x.z);
+          x.w = fmaf(ds[j], u.w, x.w);
+          y.x = fmaf(p[j], w.x, y.x);
+          y.y = fmaf(p[j], w.y, y.y);
+          y.z = fmaf(p[j], w.z, y.z);
+          y.w = fmaf(p[j], w.w, y.w);
+        }
+      }
+      if (t.active) {
+        store_head4<kAnyHd>(dqo, c, x, hd);
+        store_head4<kAnyHd>(aoo, c, y, hd);
+        store_head4<kWide>(dqf, c, x, hd);
+      }
+    });
+    __syncthreads();  // ds and a_v written; k and v read
+
+    // stage 2: key row j = t.i of pair pl
+    if (t.active) {
+      const int j = t.i;
+      const float* dsc = dss + t.pl * nn + j;  // ds[.][j]
+      const float* avc = avs + t.pl * nn + j;  // a_v[.][j]
+      const float* qb = qs + t.pl * N * g.stride;
+      const float* gb = gs + t.pl * N * g.stride;
+      float dsj[kN], avj[kN];
+#pragma unroll
+      for (int i = 0; i < kN; ++i) {
+        if (focal::key_in_row<kN>(i, N)) {
+          dsj[i] = dsc[i * N];
+          avj[i] = avc[i * N];
+        }
+      }
+      bf16* base = a.dqkv + row * C3 + t.h * hd;
+      focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
+        float4 x = make_float4(0.f, 0.f, 0.f, 0.f), y = x;
+#pragma unroll
+        for (int i = 0; i < kN; ++i) {
+          if (focal::key_in_row<kN>(i, N)) {
+            const float4 u = *reinterpret_cast<const float4*>(qb + i * g.stride + 4 * c);
+            const float4 w = *reinterpret_cast<const float4*>(gb + i * g.stride + 4 * c);
+            x.x = fmaf(dsj[i], u.x, x.x);
+            x.y = fmaf(dsj[i], u.y, x.y);
+            x.z = fmaf(dsj[i], u.z, x.z);
+            x.w = fmaf(dsj[i], u.w, x.w);
+            y.x = fmaf(avj[i], w.x, y.x);
+            y.y = fmaf(avj[i], w.y, y.y);
+            y.z = fmaf(avj[i], w.z, y.z);
+            y.w = fmaf(avj[i], w.w, y.w);
+          }
+        }
+        store_head4<kAnyHd>(base + C, c, x, hd);
+        store_head4<kAnyHd>(base + 2 * C, c, y, hd);
+        *reinterpret_cast<float4*>(ks + t.r * g.stride + 4 * c) = x;  // k's rows are read
+        *reinterpret_cast<float4*>(vs + t.r * g.stride + 4 * c) = y;
+      });
+    }
+    __syncthreads();  // dq's, dk's and dv's f32 rows written
+
+    // the block's d rel_bias: element (h, i, j) adds the chunk's pairs of
+    // head h in pair order (each element keeps its thread across chunks)
+    for (int e = threadIdx.x; e < g.H * nn; e += kThreads) {
+      const int h = e / nn, ij = e - h * nn;
+      float acc = dacc[e];
+      for (int pl = ((h - p0 % g.H) + g.H) % g.H; pl < np; pl += g.H) acc += dss[pl * nn + ij];
+      dacc[e] = acc;
+    }
+    // the block's dbqkv: column e (q, k or v of head h, column d) adds the
+    // chunk's pairs of head h in pair order, a pair's rows in order
+    for (int e = threadIdx.x; e < C3; e += kThreads) {
+      const int part = e / C, cc = e - part * C, h = cc / hd, d = cc - h * hd;
+      const float* src = part == 0 ? dqs : part == 1 ? ks : vs;
+      float acc = dbacc[e];
+      for (int pl = ((h - p0 % g.H) + g.H) % g.H; pl < np; pl += g.H) {
+        for (int i = 0; i < N; ++i) {
+          if (kWide && part == 0)
+            acc += a.qkv[((size_t)((p0 + pl) / g.H) * N + i) * C3 + cc];
+          else
+            acc += src[(pl * N + i) * g.stride + d];
+        }
+      }
+      dbacc[e] = acc;
+    }
+  });
+  __syncthreads();
+  for (int e = threadIdx.x; e < g.H * nn; e += kThreads)
+    a.dbias_part[(size_t)blockIdx.x * g.H * nn + e] = dacc[e];
+  if (!kWide)
+    for (int e = threadIdx.x; e < C3; e += kThreads)
+      a.dbqkv_part[(size_t)blockIdx.x * C3 + e] = dbacc[e];
+  __syncthreads();  // shared memory is reused below
+
+  // dbproj's partial: this block's rows of dy, 8 columns a thread (groups
+  // of at most kThreads column groups at a time)
+  float* red = reinterpret_cast<float*>(smem4);  // [slots][8 gb]
+  const int rpb = (a.R + gridDim.x - 1) / gridDim.x;
+  const int r0 = blockIdx.x * rpb, r1 = min(a.R, r0 + rpb);
+  for (int cg0 = 0; cg0 < C / 8; cg0 += kThreads) {
+    const int gb = min(kThreads, C / 8 - cg0), slots = kThreads / gb;
+    const int cg = threadIdx.x % gb, slot = threadIdx.x / gb;
+    if (slot < slots) {
+      float s[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) s[u] = 0.f;
+#pragma unroll 4  // four rows' loads in flight a thread
+      for (int r = r0 + slot; r < r1; r += slots) {
+        const uint4 raw =
+            __ldg(reinterpret_cast<const uint4*>(a.dy + (size_t)r * C + 8 * (cg0 + cg)));
+        const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {  // the lower bf16 of a word is the lower address
+          s[2 * u] += __uint_as_float(w[u] << 16);
+          s[2 * u + 1] += __uint_as_float(w[u] & 0xffff0000u);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 8; ++u) red[slot * 8 * gb + 8 * cg + u] = s[u];
+    }
+    __syncthreads();
+    for (int col = threadIdx.x; col < 8 * gb; col += kThreads) {
+      float acc = 0.f;
+      for (int sl = 0; sl < slots; ++sl) acc += red[sl * 8 * gb + col];
+      a.dbproj_part[(size_t)blockIdx.x * C + 8 * cg0 + col] = acc;
+    }
+    __syncthreads();
+  }
+}
+
+// The bf16 attention backward's shared memory, in floats: the ring (two
+// slots, or one with kWide), dq's f32 rows (not kWide), ds and a_v, d
+// rel_bias, dbqkv (not kWide); at least the 2,048 of dbproj's sums.
+size_t attn_bwd16_floats(const focal::Geo& g, int C, bool wide) {
+  const size_t slab = (size_t)g.pairs * g.N * g.stride, nn = (size_t)g.N * g.N;
+  const size_t f = (wide ? 4 : 9) * slab + 2 * g.pairs * nn + g.H * nn + (wide ? 0 : 3 * (size_t)C);
+  return std::max<size_t>(f, 2048);
+}
+
+using AttnBwd16 = void (*)(AttnBwdArgs, focal::Geo);
+
+// The instance for a geometry: the exact 9-key tile at N = 9 (two float4
+// columns a lane unrolled where a lane takes exactly two), any N up to 16
+// otherwise; heads that are not a multiple of 4 (or wider than 1,024)
+// staged by kAnyHd's loop, 4 bytes at a time; kWide where two slots do not
+// fit.
+template <bool kDropout>
+AttnBwd16 attn_bwd16_kernel(const focal::Geo& g, bool wide) {
+  if (wide) return attn_bwd_bf16_kernel<kMaxN, 0, kDropout, true, true>;
+  if (g.hd % 4 != 0 || g.c4 > kThreads)
+    return attn_bwd_bf16_kernel<kMaxN, 0, kDropout, true, false>;
+  if (g.N == 9)
+    return g.c4 == 2 * g.lanes ? attn_bwd_bf16_kernel<9, 2, kDropout, false, false>
+                               : attn_bwd_bf16_kernel<9, 0, kDropout, false, false>;
+  return attn_bwd_bf16_kernel<kMaxN, 0, kDropout, false, false>;
+}
+
+// Launch plan of the bf16 backward, once a geometry and device: the
+// attention's geometry (make_geo's pairs, fewer where two slots do not fit
+// a block's shared memory, then one slot), instance, shared memory and
+// persistent grid; the products' tile widths; the weight gradients' row
+// splits (wgrad_splits); the workspace, in floats, each array 16-byte
+// aligned: qkv [R, 3C] and g [R, C] f32, dqkv [R, 3C] and ao [R, C] bf16,
+// the attention blocks' partials of dbqkv [grid][3C], dbproj [grid][C] and d
+// rel_bias [grid][H N N], the weight-gradient split partials [splits][4 C^2].
+struct BwdPlan16 {
+  focal::Geo geo;
+  AttnBwd16 attn;
+  size_t attn_smem;
+  int attn_grid, sms, qbn, dbn, wbn, splits, rows_per_split;
+  size_t qkv, g, dqkv, ao, dbqkv, dbproj, dbias, wpart, total;
+  cudaError_t err;
+};
+
+size_t bf16_floats(size_t n) { return (n + 7) / 8 * 4; }
+
+BwdPlan16 make_bwd_plan16(int B, int N, int C, int H, bool dropout) {
+  BwdPlan16 P{};
+  int optin = 0, per_sm = 0;
+  P.err = device_attr(cudaDevAttrMultiProcessorCount, &P.sms);
+  if (P.err == cudaSuccess) P.err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
+  if (P.err != cudaSuccess) return P;
+  const focal::Geo full = focal::make_geo(B, H, N, C / H);
+  P.geo = full;
+  bool wide = false;
+  while (attn_bwd16_floats(P.geo, C, wide) * sizeof(float) > (size_t)optin) {
+    if (P.geo.pairs > 1) {
+      --P.geo.pairs;
+    } else if (!wide) {
+      wide = true;
+      P.geo.pairs = full.pairs;
+    } else {
+      P.err = cudaErrorInvalidValue;
+      return P;
+    }
+  }
+  P.attn_smem = attn_bwd16_floats(P.geo, C, wide) * sizeof(float);
+  P.attn = dropout ? attn_bwd16_kernel<true>(P.geo, wide) : attn_bwd16_kernel<false>(P.geo, wide);
+  P.err = focal::raise_smem(P.attn, P.attn_smem);
+  if (P.err == cudaSuccess)
+    P.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, P.attn, kThreads, P.attn_smem);
+  if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
+  if (P.err != cudaSuccess) return P;
+  const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
+  P.attn_grid = (int)std::min<long long>(nchunks, (long long)per_sm * P.sms);
+  const int R = B * N;
+  P.qbn = tile_bn(3 * C, C);
+  P.dbn = tile_bn(C, 0);
+  P.wbn = tile_bn(3 * C, C);
+  const int wtiles = wgk::wgrad_tiles(C, 3 * C, P.wbn) + wgk::wgrad_tiles(C, C, P.wbn);
+  const wgk::WgradSplits ws = wgk::wgrad_splits(R, wtiles, P.sms);
+  P.splits = ws.splits;
+  P.rows_per_split = ws.rows_per_split;
+  const size_t E = (size_t)4 * C * C, nn = (size_t)N * N;
+  size_t o = 0;
+  P.qkv = o, o += (size_t)R * 3 * C;
+  P.g = o, o += (size_t)R * C;
+  P.dqkv = o, o += bf16_floats((size_t)R * 3 * C);
+  P.ao = o, o += bf16_floats((size_t)R * C);
+  P.dbqkv = o, o += (size_t)P.attn_grid * 3 * C;
+  P.dbproj = o, o += (size_t)P.attn_grid * C;
+  P.dbias = o, o += ((size_t)P.attn_grid * H * nn + 3) / 4 * 4;
+  P.wpart = o, o += (size_t)P.splits * E;
+  P.total = o;
+  return P;
+}
+
+// make_bwd_plan16 once a geometry and device: its attribute and occupancy
+// queries cost host time a call would otherwise pay.
+BwdPlan16 bwd_plan16(int B, int N, int C, int H, bool dropout) {
+  static std::mutex mutex;
+  static std::map<std::array<int, 6>, BwdPlan16> plans;
+  int dev = 0;
+  const cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) {
+    BwdPlan16 P{};
+    P.err = err;
+    return P;
+  }
+  const std::array<int, 6> key{dev, B, N, C, H, (int)dropout};
+  std::lock_guard<std::mutex> lock(mutex);
+  const auto it = plans.find(key);
+  if (it != plans.end()) return it->second;
+  const BwdPlan16 P = make_bwd_plan16(B, N, C, H, dropout);
+  if (P.err == cudaSuccess) plans.emplace(key, P);
+  return P;
+}
+
+template <int kBN>
+int launch_qkvg(const CUtensorMap (&m)[4], const QkvgArgs& a, int sms, cudaStream_t s) {
+  const int tiles =
+      (a.R + wgk::kBM - 1) / wgk::kBM * ((3 * a.C + kBN - 1) / kBN + (a.C + kBN - 1) / kBN);
+  return wgk::launch(wb_wg_qkvg_kernel<kBN>, std::min(tiles, sms),
+                     wgk::stream_smem<kBN, false, true>(), s, m[0], m[1], m[2], m[3], a);
+}
+
+template <int kBN>
+int launch_dx(const CUtensorMap (&m)[3], int R, int C, int sms, cudaStream_t s) {
+  const int tiles = (R + wgk::kBM - 1) / wgk::kBM * ((C + kBN - 1) / kBN);
+  return wgk::launch(wb_wg_dx_kernel<kBN>, std::min(tiles, sms), DxSmem<kBN>::kBytes, s, m[0], m[1],
+                     m[2], R, C);
+}
+
+// The bf16 backward's five launches on `stream` (focal_wblock_bwd_bf16):
+// (a) qkv and g, (b) the attention backward (with the partials of d
+// rel_bias, dbqkv and dbproj), (c) dx, (d) the weight-gradient split
+// partials x^T dqkv and ao^T dy, (e) the ordered reduction of every
+// partial.
+int wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                    const void* rel_bias, const void* mask, const void* dy, const void* keep,
+                    float inv_keep, void* dx, void* dweights, void* drel_bias, void* ws, int B,
+                    int N, int C, int H, int nW, void* stream) {
+  if (check_geometry(N, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const bool dropout = keep != nullptr;
+  const BwdPlan16 P = bwd_plan16(B, N, C, H, dropout);
+  if (P.err != cudaSuccess) return (int)P.err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = B * N;
+  float* w = static_cast<float*>(ws);
+  float *qkv = w + P.qkv, *g = w + P.g;
+  bf16* dqkv = reinterpret_cast<bf16*>(w + P.dqkv);
+  bf16* ao = reinterpret_cast<bf16*>(w + P.ao);
+  // (a) qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
+  CUtensorMap mq[4];
+  if (int e = wgk::map(&mq[0], x, R, C, wgk::kBM)) return e;
+  if (int e = wgk::map(&mq[1], wqkv, C, 3 * C, 64)) return e;
+  if (int e = wgk::map(&mq[2], dy, R, C, wgk::kBM)) return e;
+  if (int e = wgk::map(&mq[3], wproj, C, C, P.qbn)) return e;
+  const QkvgArgs qa{static_cast<const float*>(bqkv), qkv, g, R, C};
+  if (int e = P.qbn == 128 ? launch_qkvg<128>(mq, qa, P.sms, s) : launch_qkvg<64>(mq, qa, P.sms, s))
+    return e;
+  // (b) the attention backward per (window, head)
+  const AttnBwdArgs aa{qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
+                       static_cast<const unsigned char*>(keep), static_cast<const bf16*>(dy), dqkv,
+                       ao, w + P.dbqkv, w + P.dbproj, w + P.dbias, inv_keep, C,
+                       mask != nullptr ? nW : 1, R};
+  P.attn<<<P.attn_grid, kThreads, P.attn_smem, s>>>(aa, P.geo);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  // (c) dx = dqkv Wqkv^T: A = dqkv K-major, B^T = Wqkv K-major as it lies
+  CUtensorMap md[3];
+  if (int e = wgk::map(&md[0], dqkv, R, 3 * C, wgk::kBM)) return e;
+  if (int e = wgk::map(&md[1], wqkv, C, 3 * C, P.dbn)) return e;
+  if (int e = wgk::map(&md[2], dx, R, C, wgk::kBM)) return e;
+  if (int e = P.dbn == 128 ? launch_dx<128>(md, R, C, P.sms, s) : launch_dx<64>(md, R, C, P.sms, s))
+    return e;
+  // (d) dWqkv = x^T dqkv and dWproj = ao^T dy over the row splits, all four
+  //     operands MN-major as they lie
+  CUtensorMap mw[4];
+  if (int e = wgk::map(&mw[0], x, R, C, 64)) return e;
+  if (int e = wgk::map(&mw[1], dqkv, R, 3 * C, 64)) return e;
+  if (int e = wgk::map(&mw[2], ao, R, C, 64)) return e;
+  if (int e = wgk::map(&mw[3], dy, R, C, 64)) return e;
+  const wgk::WgradArgs wa{w + P.wpart, R, C, 3 * C, C, C, P.rows_per_split, P.splits, 0};
+  if (int e = wgk::launch_wgrad<Src>(mw, wa, P.wbn, P.sms, s)) return e;
+  // (e) the weights over the splits in split order; dbqkv, dbproj and d
+  //     rel_bias over the attention blocks in block order
+  const wgk::ReduceArgs ra{w + P.wpart, w + P.dbqkv, w + P.dbproj, w + P.dbias,
+                           static_cast<float*>(dweights), static_cast<float*>(drel_bias),
+                           P.splits, P.attn_grid, C, 3 * C, C, C, H * N * N};
+  return wgk::launch_reduce<Src>(ra, s);
 }
 
 }  // namespace
@@ -744,8 +1326,8 @@ extern "C" int focal_wblock_fwd_bf16(const void* x, const void* wqkv, const void
                     seed, threshold, inv_keep, stream, true);
 }
 
-// Workspace the backward (#3, #5, #3-bf16, #5-bf16) needs, in floats, for this
-// geometry on the current device (bwd_plan).
+// Workspace the backward (#3, #5) needs, in floats, for this geometry on the
+// current device (bwd_plan).
 extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
                                           long long* floats) {
   if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
@@ -771,20 +1353,44 @@ extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqk
                                 const void* mask, const void* dy, const void* keep,
                                 float inv_keep, void* dx, void* dweights, void* drel_bias,
                                 void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  return wblock_bwd(x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep, dx,
-                    dweights, drel_bias, ws, B, N, C, H, nW, stream, false);
+  return wblock_bwd(static_cast<const float*>(x), static_cast<const float*>(wqkv),
+                    static_cast<const float*>(bqkv), static_cast<const float*>(wqkv_t),
+                    static_cast<const float*>(wproj_t), rel_bias, mask,
+                    static_cast<const float*>(dy), keep, inv_keep, static_cast<float*>(dx),
+                    dweights, drel_bias, ws, B, N, C, H, nW, stream);
 }
 
-// The backward in bf16 (#3-bf16; #5-bf16): as focal_wblock_bwd, with x, the three
-// weights, dy and dx bf16 (C a multiple of 8); the weight, bias and
-// bias-table gradients f32.
+// Workspace the bf16 backward (#3-bf16, #5-bf16) needs, in floats, for this
+// geometry on the current device (make_bwd_plan16); an error where C is not
+// a multiple of 8 or the attention has no launch plan.
+extern "C" int focal_wblock_bwd_workspace_bf16(int B, int N, int C, int H, int dropout,
+                                               long long* floats) {
+  if (check_geometry(N, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) {
+    *floats = 0;
+    return 0;
+  }
+  const BwdPlan16 P = bwd_plan16(B, N, C, H, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  *floats = (long long)P.total;
+  return 0;
+}
+
+// The backward in bf16 (#3-bf16; #5-bf16): focal_wblock_bwd's function with
+// x, wqkv [C, 3C], wproj [C, C], dy and dx bf16 (C a multiple of 8; every
+// one read as it lies, so no transposed weight), bqkv, rel_bias and mask
+// f32; the weight, bias and bias-table gradients f32 in focal_wblock_bwd's
+// layout. x, the weights, dy, dx and `ws` 16-byte aligned; `ws` holds
+// focal_wblock_bwd_workspace_bf16 floats. Five launches on `stream`
+// (wblock_bwd_bf16). An error code at or above 100000 is libcuda's refusal
+// of a tensor map (CUresult + 100000).
 extern "C" int focal_wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv,
-                                     const void* wqkv_t, const void* wproj_t, const void* rel_bias,
-                                     const void* mask, const void* dy, const void* keep,
-                                     float inv_keep, void* dx, void* dweights, void* drel_bias,
-                                     void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  return wblock_bwd(x, wqkv, bqkv, wqkv_t, wproj_t, rel_bias, mask, dy, keep, inv_keep, dx,
-                    dweights, drel_bias, ws, B, N, C, H, nW, stream, true);
+                                     const void* wproj, const void* rel_bias, const void* mask,
+                                     const void* dy, const void* keep, float inv_keep, void* dx,
+                                     void* dweights, void* drel_bias, void* ws, int B, int N,
+                                     int C, int H, int nW, void* stream) {
+  return wblock_bwd_bf16(x, wqkv, bqkv, wproj, rel_bias, mask, dy, keep, inv_keep, dx, dweights,
+                         drel_bias, ws, B, N, C, H, nW, stream);
 }
 
 // The projections' product alone, for the checks: c = a b with a [M, K]
@@ -806,5 +1412,6 @@ extern "C" int focal_gemm_3xtf32(const void* a, const void* b, void* c, int M, i
 }
 
 extern "C" const char* focal_cuda_error_string(int err) {
+  if (err >= wgk::kMapError) return "cuTensorMapEncodeTiled refused a tensor map (CUresult: the code less 100000)";
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }

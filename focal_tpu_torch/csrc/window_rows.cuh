@@ -1,14 +1,26 @@
 // Row-parallel window attention: the device helpers that the attention-only
 // kernels (#6-#9, window_attention.cu) and the attention phase of the
-// window-block training kernels (#2-#5, window_block.cu) share. A block
-// owns P consecutive (window, head) pairs of [B, H, N, hd] operands; G lanes
-// serve one query row; scores and softmax stay in registers (the design
-// note of window_attention.cu).
+// window-block training kernels (#2-#5 and their bf16 forms, window_block.cu)
+// share. A block owns P consecutive (window, head) pairs of [B, H, N, hd]
+// operands; G lanes serve one query row; scores and softmax stay in
+// registers (the design note of window_attention.cu). #6-#9 and the bf16
+// whole-block backward (#3-bf16, #5-bf16) also share the staging of a
+// persistent grid's chunks of P pairs into a two-slot cp.async ring
+// (Operands, stage_chunk_async), the stores and the exact 9-key row tile
+// (kN = 9); ring_walk is that walk as a function, which the whole-block
+// backward runs (#6-#9 keep the same loop inline).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 #include <algorithm>
+#include <map>
+#include <mutex>
+#include <utility>
+
+#include "gemm_3xtf32.cuh"
 
 namespace focal {
 
@@ -199,6 +211,145 @@ __device__ __forceinline__ Row thread_row(const Geo& g, int p0, int np) {
   t.w = t.pair / g.H;
   t.h = t.pair - t.w * g.H;
   return t;
+}
+
+// ---------------------------------------------------------------------------
+// the chunk walk and its ring
+
+// The operands a chunk stages: q, k, v (the forward's three), g (the
+// backward's fourth), each [B, H, N, hd] of T at its own element strides.
+template <class T>
+struct Operands {
+  const T* src[4];
+  Strides st[4];
+};
+
+// The pairs chunk `chunk` holds (the last may hold fewer than P).
+__device__ __forceinline__ int chunk_pairs(const Geo& g, int chunk) {
+  return (int)min((long long)g.pairs, g.total - (long long)chunk * g.pairs);
+}
+
+// 4 bytes from global to shared memory, asynchronously; zero where !valid.
+__device__ __forceinline__ void cp_async4(float* smem, const float* gmem, bool valid) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s), "l"(gmem),
+               "r"(valid ? 4 : 0));
+}
+
+// The staging of one chunk: cp.async copies of its rows of the first kOps
+// f32 operands into a ring slot ([kOps][P][N][stride]), 16 bytes each.
+// Thread tid copies float4 column tid % c4 of rows tid / c4, + R, + 2R, ...
+// (R = kThreads / c4 rows a pass; c4 <= kThreads): the row's (pair, token)
+// is found once for its kOps operands. With kAnyHd, any head width: float4
+// column e % c4 of row e / c4 for e = tid, tid + kThreads, ..., copied 4
+// bytes at a time (a width that is not a multiple of 4 leaves rows that are
+// not 16-byte aligned), the columns past hd zero-filled.
+template <int kOps, bool kAnyHd = false>
+__device__ __forceinline__ void stage_chunk_async(const Operands<float>& in, int chunk,
+                                                  const Geo& g, float* slot) {
+  const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
+  const int slab = g.pairs * g.N * g.stride;
+  if (kAnyHd) {
+    for (int e = threadIdx.x; e < np * g.N * g.c4; e += kAttnThreads) {
+      const int r = e / g.c4, c = e - r * g.c4;
+      const int pl = r / g.N, i = r - pl * g.N;
+      const int pair = p0 + pl;
+      const int b = pair / g.H, h = pair - b * g.H;
+#pragma unroll
+      for (int o = 0; o < kOps; ++o) {
+        const float* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
+        float* dst = slot + o * slab + r * g.stride + 4 * c;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          const bool ok = 4 * c + k < g.hd;
+          cp_async4(dst + k, ok ? row + 4 * c + k : row, ok);
+        }
+      }
+    }
+    return;
+  }
+  const int per_pass = kAttnThreads / g.c4;
+  const int c = threadIdx.x % g.c4, r0 = threadIdx.x / g.c4;
+  if (r0 >= per_pass) return;
+  for (int r = r0; r < np * g.N; r += per_pass) {
+    const int pl = r / g.N, i = r - pl * g.N;
+    const int pair = p0 + pl;
+    const int b = pair / g.H, h = pair - b * g.H;
+#pragma unroll
+    for (int o = 0; o < kOps; ++o) {
+      const float* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
+      cp_async16(slot + o * slab + r * g.stride + 4 * c, row + 4 * c, true);
+    }
+  }
+}
+
+// The walk of a persistent grid over a call's chunks of P (window, head)
+// pairs: block b takes chunks b, b + grid, ... (the grid is at most one
+// block a chunk). stage(chunk, slot) issues a chunk's cp.async copies into
+// a slot of slot_floats floats at `ring`; once a thread's own copies have
+// landed it runs land(chunk, slot) on them (the copies it made itself),
+// then a barrier, then body(chunk, slot). With two slots the next chunk's
+// copies fly while this one computes: the barrier after a chunk's copies
+// land also frees the other slot, which the chunk before was read from, so
+// they are issued right after it. With one slot (a head too wide for two)
+// they are issued after the body and a second barrier.
+template <class Stage, class Land, class Body>
+__device__ __forceinline__ void ring_walk(const Geo& g, float* ring, int slot_floats, bool two_slots,
+                                          const Stage& stage, const Land& land, const Body& body) {
+  const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
+  stage(blockIdx.x, ring);
+  cp_async_commit();
+  int it = 0;
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x, ++it) {
+    float* slot = ring + (two_slots ? (it & 1) * slot_floats : 0);
+    cp_async_wait<0>();  // this thread's copies of the chunk have landed
+    land(chunk, slot);
+    __syncthreads();  // and every thread's; with two slots the other slot is free
+    const int next = chunk + gridDim.x;
+    if (two_slots) {
+      if (next < nchunks)  // the next chunk's loads fly while this one computes
+        stage(next, ring + ((it + 1) & 1) * slot_floats);
+      cp_async_commit();
+    }
+    body(chunk, slot);
+    if (!two_slots) {
+      __syncthreads();  // the slot's readers are done
+      if (next < nchunks) stage(next, ring);
+      cp_async_commit();
+    }
+  }
+}
+
+// Four f32 results stored at p: as a float4, or rounded to bf16 (8 bytes).
+__device__ __forceinline__ void store4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+
+__device__ __forceinline__ void store4(__nv_bfloat16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
+
+// ---------------------------------------------------------------------------
+// host side
+
+// Raise a kernel's dynamic shared memory limit to `bytes` on the current
+// device, never lowering it below what an earlier plan (the cached plans
+// keep them) launches it with.
+template <class Kernel>
+inline cudaError_t raise_smem(Kernel kernel, size_t bytes) {
+  static std::mutex mutex;
+  static std::map<std::pair<int, const void*>, size_t> limits;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  std::lock_guard<std::mutex> lock(mutex);
+  size_t& limit = limits[{dev, reinterpret_cast<const void*>(kernel)}];
+  if (bytes <= limit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) limit = bytes;
+  return err;
 }
 
 }  // namespace focal

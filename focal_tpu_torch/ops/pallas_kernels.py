@@ -26,8 +26,9 @@ an autograd pair) route each geometry to #1-#3 or to #4/#5.
 The bf16 forms (``-compute_dtype bfloat16``): ``fused_window_block_bf16``
 (#1-bf16), ``fused_window_block_dropout_bf16`` (#2-bf16) and
 ``fused_window_block_backward_bf16`` (#3-bf16) take bf16 x, weights and dy
-and give bf16 y and dx, the products on the bf16 tensor cores, rounding
-where the JAX package's kernel does when it is fed bf16 (see
+and give bf16 y and dx, the products on the bf16 tensor cores (the
+backward's on ``wgmma``, its attention on #8/#9's ``cp.async`` ring),
+rounding where the JAX package's kernel does when it is fed bf16 (see
 ``fused_window_block_bf16_reference``); ``fused_window_block_perhead_bf16``
 (#4-bf16) and ``fused_window_block_perhead_backward_bf16`` (#5-bf16) are
 the same for the blocks that ``wblock_fits`` sends to #4/#5, whose JAX
@@ -440,24 +441,38 @@ def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rat
     return y, keep
 
 
-def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate, wqkv_t,
-                     wproj_t, bf16=False):
-    """The CUDA path of #3 and #5 (with ``bf16``, #3-bf16): validate, size
-    the workspace, launch, and split the flat weight gradients."""
-    dtype = torch.bfloat16 if bf16 else torch.float32
+def _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate, dtype):
+    """Validate the backward's inputs (#3 and #5, or their bf16 forms);
+    returns (B, N, C, H, nW)."""
     B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype)
-    dev = x.device
-    _check("dy", dy, (B, N, C), dev, dtype)
+    _check("dy", dy, (B, N, C), x.device, dtype)
     if keep is not None:
         if not 0.0 < rate < 1.0:
             raise ValueError(f"{name}: rate must be in (0, 1), got {rate}")
-        _check("keep", keep, (B, H, N, N), dev, torch.uint8)
+        _check("keep", keep, (B, H, N, N), x.device, torch.uint8)
+    return B, N, C, H, nW
+
+
+def _split_grads(dweights, C):
+    """(dwqkv, dbqkv, dwproj, dbproj): views of the flat weight gradients."""
+    q = 3 * C * C
+    return (dweights[:q].view(C, 3 * C), dweights[q:q + 3 * C],
+            dweights[q + 3 * C:q + 3 * C + C * C].view(C, C), dweights[q + 3 * C + C * C:])
+
+
+def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate, wqkv_t,
+                     wproj_t):
+    """The CUDA path of #3 and #5: validate, size the workspace, launch, and
+    split the flat weight gradients."""
+    B, N, C, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep,
+                                    rate, torch.float32)
+    dev = x.device
     if wqkv_t is None:
         wqkv_t = wqkv.t().contiguous()
     if wproj_t is None:
         wproj_t = wproj.t().contiguous()
-    _check("wqkv_t", wqkv_t, (3 * C, C), dev, dtype)
-    _check("wproj_t", wproj_t, (C, C), dev, dtype)
+    _check("wqkv_t", wqkv_t, (3 * C, C), dev)
+    _check("wproj_t", wproj_t, (C, C), dev)
     _check_aligned(name, wqkv, wqkv_t, wproj_t, dy)
     lib = _window_block_lib()
     ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace, dev, B, N, C, H,
@@ -466,17 +481,35 @@ def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep
     dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
     drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
-    _launch(name, lib.focal_wblock_bwd_bf16 if bf16 else lib.focal_wblock_bwd, dev,
+    _launch(name, lib.focal_wblock_bwd, dev,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wqkv_t.data_ptr(), wproj_t.data_ptr(),
             rel_bias.data_ptr(), _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep,
             dx.data_ptr(), dweights.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(),
             B, N, C, H, nW)
-    q = 3 * C * C
-    dwqkv = dweights[:q].view(C, 3 * C)
-    dbqkv = dweights[q:q + 3 * C]
-    dwproj = dweights[q + 3 * C:q + 3 * C + C * C].view(C, C)
-    dbproj = dweights[q + 3 * C + C * C:]
-    return dx, dwqkv, dbqkv, dwproj, dbproj, drel_bias
+    return (dx, *_split_grads(dweights, C), drel_bias)
+
+
+def _launch_backward_bf16(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate):
+    """The CUDA path of #3-bf16 and #5-bf16: validate, size the workspace
+    (focal_wblock_bwd_workspace_bf16), launch, and split the flat weight
+    gradients. The kernels read wqkv and wproj as they lie (TMA), so every
+    operand must be 16-byte aligned."""
+    B, N, C, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep,
+                                    rate, torch.bfloat16)
+    dev = x.device
+    _check_aligned(name, wqkv, wproj, dy)
+    lib = _window_block_lib()
+    ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace_bf16, dev, B, N, C, H,
+                    int(keep is not None))
+    dx = torch.empty_like(x)
+    dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
+    drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
+    inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
+    _launch(name, lib.focal_wblock_bwd_bf16, dev,
+            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), rel_bias.data_ptr(),
+            _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep, dx.data_ptr(), dweights.data_ptr(),
+            drel_bias.data_ptr(), ws.data_ptr(), B, N, C, H, nW)
+    return (dx, *_split_grads(dweights, C), drel_bias)
 
 
 def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
@@ -637,10 +670,11 @@ def window_block(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=
     weights transposed, which #3 and #5 read (see
     fused_window_block_backward). A bf16 x takes #2-bf16 (or #1-bf16) and
     #3-bf16, or #4-bf16 and #5-bf16, by the same gate (``_WindowBlockBf16``:
-    f32 weights rounded inside, their gradients f32)."""
+    f32 weights rounded inside, their gradients f32; its backward reads the
+    weights as they lie, so the transposed ones go unread)."""
     if x.dtype == torch.bfloat16:
         return _WindowBlockBf16.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed,
-                                      float(rate), wqkv_t, wproj_t, False)
+                                      float(rate), False)
     return _WindowBlock.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, float(rate),
                               wqkv_t, wproj_t)
 
@@ -654,7 +688,7 @@ def window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, see
     (``_WindowBlockBf16`` with ``plain``)."""
     if x.dtype == torch.bfloat16:
         return _WindowBlockBf16.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed,
-                                      float(rate), None, None, True)
+                                      float(rate), True)
     keep = None
     if rate > 0.0:
         B, N, _ = x.shape
@@ -717,16 +751,20 @@ fused_window_block_dropout_bf16.launches = 0
 
 
 def fused_window_block_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep=None,
-                                     rate=0.0, wqkv_t=None, wproj_t=None):
+                                     rate=0.0):
     """VJP of #1-bf16 or #2-bf16 (#3-bf16): fused_window_block_backward's
-    arguments with bf16 x, weights (and their transposes) and dy. Returns
-    (dx bf16, dwqkv, dbqkv, dwproj, dbproj, drel_bias f32), the weight and
-    bias-table gradients fixed-order sums: two calls give the same bits.
+    arguments, but no transposed weights, with bf16 x, weights and dy.
+    Returns (dx bf16, dwqkv, dbqkv, dwproj, dbproj, drel_bias f32), the
+    weight and bias-table gradients fixed-order sums: two calls give the
+    same bits.
 
-    On the card: qkv and g = dy Wproj^T recomputed in f32, the attention
-    backward in f32, dx = dqkv Wqkv^T and the weight gradients x^T dqkv and
-    ao^T dy on the bf16 tensor cores with dqkv and ao rounded to bf16 as
-    they are staged, dbqkv summed from the f32 dqkv.
+    On the card, five launches: qkv and g = dy Wproj^T recomputed in f32 on
+    ``wgmma`` (the weights read by TMA as they lie); the attention backward
+    in f32 on #8/#9's persistent ``cp.async`` ring, dq, dk, dv and the
+    attention output rounded once to bf16, dbqkv, dbproj and d rel_bias
+    summed in f32 as per-block partials; dx = dqkv Wqkv^T and the weight
+    gradients x^T dqkv and ao^T dy on ``wgmma``; one ordered reduction. x,
+    dy and the weights 16-byte aligned.
 
     Replaces focal_tpu/ops/pallas_kernels.py::_wblock_bwd_impl fed bf16
     (_wblock_bwd_kernel). CPU tensors take
@@ -735,8 +773,8 @@ def fused_window_block_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask
     if x.device.type == "cpu":
         return fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
                                                           mask, dy, keep, rate)
-    grads = _launch_backward("fused_window_block_backward_bf16", x, wqkv, bqkv, wproj, bproj,
-                             rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t, bf16=True)
+    grads = _launch_backward_bf16("fused_window_block_backward_bf16", x, wqkv, bqkv, wproj, bproj,
+                                  rel_bias, mask, dy, keep, rate)
     fused_window_block_backward_bf16.launches += 1
     return grads
 
@@ -781,7 +819,7 @@ fused_window_block_perhead_bf16.launches = 0
 
 
 def fused_window_block_perhead_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
-                                             keep=None, rate=0.0, wqkv_t=None, wproj_t=None):
+                                             keep=None, rate=0.0):
     """VJP of #4-bf16 (#5-bf16), computed as #3-bf16 computes it:
     fused_window_block_backward_bf16's arguments and results; ``keep`` is
     #4-bf16's mask. Two calls give the same bits.
@@ -793,8 +831,8 @@ def fused_window_block_perhead_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bi
     if x.device.type == "cpu":
         return fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
                                                           mask, dy, keep, rate)
-    grads = _launch_backward("fused_window_block_perhead_backward_bf16", x, wqkv, bqkv, wproj,
-                             bproj, rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t, bf16=True)
+    grads = _launch_backward_bf16("fused_window_block_perhead_backward_bf16", x, wqkv, bqkv,
+                                  wproj, bproj, rel_bias, mask, dy, keep, rate)
     fused_window_block_perhead_backward_bf16.launches += 1
     return grads
 
@@ -811,8 +849,7 @@ class _WindowBlockBf16(torch.autograd.Function):
     parameters; dx leaves in bf16."""
 
     @staticmethod
-    def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, wqkv_t, wproj_t,
-                plain):
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, plain):
         bf16 = torch.bfloat16
         wq, wp = wqkv.to(bf16), wproj.to(bf16)
         keep = None
@@ -830,15 +867,13 @@ class _WindowBlockBf16(torch.autograd.Function):
                                                       rate)
         else:
             y = fused_window_block_bf16(x, wq, bqkv, wp, bproj, rel_bias, mask)
-        wq_t = None if wqkv_t is None else wqkv_t.to(bf16)
-        wp_t = None if wproj_t is None else wproj_t.to(bf16)
-        ctx.save_for_backward(x, wq, bqkv, wp, bproj, rel_bias, mask, keep, wq_t, wp_t)
+        ctx.save_for_backward(x, wq, bqkv, wp, bproj, rel_bias, mask, keep)
         ctx.rate, ctx.plain = rate, plain
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, wq, bqkv, wp, bproj, rel_bias, mask, keep, wq_t, wp_t = ctx.saved_tensors
+        x, wq, bqkv, wp, bproj, rel_bias, mask, keep = ctx.saved_tensors
         if ctx.plain:
             grads = fused_window_block_backward_bf16_reference(x, wq, bqkv, wp, bproj, rel_bias,
                                                                mask, dy, keep, ctx.rate)
@@ -846,8 +881,8 @@ class _WindowBlockBf16(torch.autograd.Function):
             backward = (fused_window_block_backward_bf16 if ctx.mono
                         else fused_window_block_perhead_backward_bf16)
             grads = backward(x, wq, bqkv, wp, bproj, rel_bias, mask, dy.contiguous(), keep,
-                             ctx.rate, wq_t, wp_t)
-        return (*grads, None, None, None, None, None, None)
+                             ctx.rate)
+        return (*grads, None, None, None, None)
 
 
 # ---------------------------------------------------------------------------
@@ -1426,9 +1461,11 @@ def _window_block_lib():
         lib.focal_wblock_bwd_workspace.argtypes = [i] * 5 + [ll]
         lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
         lib.focal_wblock_fwd_bf16.argtypes = lib.focal_wblock_fwd_dropout.argtypes
-        lib.focal_wblock_bwd_bf16.argtypes = lib.focal_wblock_bwd.argtypes
+        lib.focal_wblock_bwd_workspace_bf16.argtypes = lib.focal_wblock_bwd_workspace.argtypes
+        lib.focal_wblock_bwd_bf16.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
         for fn in (lib.focal_wblock_fwd_workspace, lib.focal_wblock_fwd_dropout, lib.focal_wblock_bwd_workspace,
-                   lib.focal_wblock_bwd, lib.focal_wblock_fwd_bf16, lib.focal_wblock_bwd_bf16):
+                   lib.focal_wblock_bwd, lib.focal_wblock_fwd_bf16, lib.focal_wblock_bwd_workspace_bf16,
+                   lib.focal_wblock_bwd_bf16):
             fn.restype = ctypes.c_int
         lib.focal_gemm_3xtf32.argtypes = [p] * 3 + [i] * 4 + [p]
         lib.focal_gemm_3xtf32.restype = ctypes.c_int

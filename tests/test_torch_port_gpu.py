@@ -933,13 +933,14 @@ def test_every_width_a_gate_admits_has_a_launch_plan():
     for H in (1, 2, 4):
         for hd in list(range(1, 64)) + list(range(64, 2049, 16)):
             C = H * hd
-            ok = all(lib.focal_wblock_bwd_workspace(7, 9, C, H, d, pk.ctypes.byref(
+            # the bf16 backward's own plan (two slots of its ring, or one)
+            ok = all(lib.focal_wblock_bwd_workspace_bf16(7, 9, C, H, d, pk.ctypes.byref(
                 pk.ctypes.c_longlong(0))) == 0 for d in (0, 1))
             ok = ok and lib.focal_wblock_fwd_workspace(7, 9, C, H, pk.ctypes.byref(
                 pk.ctypes.c_longlong(0))) == 0
             # zero windows: the bf16 entry points check the geometry and launch nothing
             ok = ok and lib.focal_wblock_fwd_bf16(*null, 0, 9, C, H, 1, 0, 0, 1.0, None) == 0
-            ok = ok and lib.focal_wblock_bwd_bf16(*null[:9], 1.0, *null[:4], 0, 9, C, H, 1,
+            ok = ok and lib.focal_wblock_bwd_bf16(*null[:8], 1.0, *null[:4], 0, 9, C, H, 1,
                                                   None) == 0
             assert ok == pk.wblock_takes(9, C, H, torch.bfloat16), (C, H)
     alib = pk._window_attention_lib()
@@ -1388,29 +1389,99 @@ def test_bf16_forward_matches_plain_on_card(B, N, C, H, nW):
     assert torch.equal(pk.fused_window_block_dropout(*f32, 11, 0.2)[1], keep)
 
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("C", [64, 128, 256])
-@pytest.mark.parametrize("nW,rate", [(0, 0.0), (4, 0.2)])
-def test_bf16_backward_matches_plain_and_repeats_bitwise(C, nW, rate):
-    """#3-bf16 against its plain version: dx bf16, the rest f32, each within
-    1e-2 relative; the same bits on a second call."""
+# every whole-block width (C, shift-mask windows nW, 0 for a stage's plain
+# blocks) of MOD, MOD_WIDE (C 512 and 1024: #5-bf16), ACIDS, PAMAP2 and
+# RealWorld_HAR at N 9 and 4 heads
+RECIPE_BLOCKS_BF16 = [(64, 0), (64, 32), (64, 48), (64, 64), (128, 0), (128, 8), (128, 12),
+                      (128, 16), (256, 0), (256, 2), (256, 3), (256, 4), (256, 32), (256, 64),
+                      (512, 0), (512, 8), (512, 16), (1024, 0), (1024, 2), (1024, 4)]
+
+
+def _bf16_backward_case(B, N, C, H, nW, seed):
+    """#3-bf16 (or #5-bf16 where wblock_fits refuses) with a keep mask and
+    without, against the bf16 plain version: dx bf16, the rest f32, each
+    within 1e-2 relative; the same bits on a second call; one launch
+    counted a call."""
     from focal_tpu_torch.ops import pallas_kernels as pk
 
     dev = _card()
-    B, N, H = 1031, 9, 4
-    rng = np.random.default_rng(C + nW)
+    rng = np.random.default_rng(seed)
     args = _bf16_args(rng, B, N, C, H, nW, dev)
     dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev).to(torch.bfloat16)
-    keep = pk.fused_window_block_dropout_bf16(*args, 5, rate)[1] if rate else None
-    tr = (args[1].t().contiguous(), args[3].t().contiguous())
-    got = pk.fused_window_block_backward_bf16(*args, dy, keep, rate, *tr)
-    again = pk.fused_window_block_backward_bf16(*args, dy, keep, rate, *tr)
-    torch.cuda.synchronize()
-    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
-    assert all(torch.equal(a, b) for a, b in zip(got, again))
-    want = pk.fused_window_block_backward_bf16_reference(*args, dy, keep, rate)
-    for g, w in zip(got, want):
-        assert _rel(g, w) <= 1e-2
+    keep = torch.from_numpy((rng.random((B, H, N, N)) >= 0.2).astype(np.uint8)).to(dev)
+    bwd = (pk.fused_window_block_backward_bf16 if pk.wblock_fits(N, C, H)
+           else pk.fused_window_block_perhead_backward_bf16)
+    for kp, rate in ((keep, 0.2), (None, 0.0)):
+        before = bwd.launches
+        got = bwd(*args, dy, kp, rate)
+        again = bwd(*args, dy, kp, rate)
+        torch.cuda.synchronize()
+        assert bwd.launches == before + 2
+        assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+        assert all(torch.equal(a, b) for a, b in zip(got, again))
+        want = pk.fused_window_block_backward_bf16_reference(*args, dy, kp, rate)
+        for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got,
+                              want):
+            assert _rel(g, w) <= 1e-2, (name, _rel(g, w))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,nW", RECIPE_BLOCKS_BF16)
+def test_bf16_backward_matches_plain_at_every_recipe_block(C, nW):
+    """#3-bf16 and #5-bf16 at every packaged whole-block width, at rows that
+    are no multiple of the products' 128-row tiles (129 or 37 windows of
+    9)."""
+    _bf16_backward_case(129 if C <= 256 else 37, 9, C, 4, nW, C + nW)
+
+
+# other windows and heads the bf16 gate admits: N 16 and 4, heads of 5
+# and 12 columns (not multiples of 8 or 4), and one head of 1,600 columns,
+# the widest at N 9 (two slots of the attention's ring do not fit: one)
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,C,H,nW", [(1031, 9, 64, 4, 4), (64, 16, 64, 4, 8),
+                                        (77, 4, 96, 8, 0), (21, 9, 40, 8, 3), (30, 9, 48, 4, 2),
+                                        (3, 9, 1600, 1, 0)])
+def test_bf16_backward_matches_plain_and_repeats_bitwise(B, N, C, H, nW):
+    """#3-bf16 (#5-bf16) at the other widths the bf16 gate admits."""
+    _bf16_backward_case(B, N, C, H, nW, B + C + nW)
+
+
+@pytest.mark.gpu
+def test_bf16_backward_kernels_run_on_wgmma():
+    """The bf16 backward's products and weight gradients (wb_wg_*, wg_wgrad)
+    compile to wgmma (HGMMA) and no mma.sync (HMMA), with no wgmma pipeline
+    serialized (ptxas C7510-C7518, C7520; C7519 notes are harmless); its
+    attention and reduction run no mma.sync either."""
+    import os
+    import re
+    import subprocess
+
+    from focal_tpu_torch.ops import _build
+
+    _card()
+    _build.build_all(("window_block.cu",))
+    ours = ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16")
+    with open(_build.log_path("window_block.cu")) as f:
+        serialized = [line for line in f
+                      if re.search(r"\(C75(1[0-8]|20)\)", line) and any(k in line for k in ours)]
+    assert not serialized, serialized
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.library_path("window_block.cu")],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if any(k in m.group(1) for k in ours) else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += bool(re.search(r"\bHMMA\b", line))
+    assert {k for k in ours if any(k in name for name in counts)} == set(ours), sorted(counts)
+    for name, (hgmma, hmma) in counts.items():
+        assert hmma == 0, name
+        assert (hgmma > 0) == ("wb_wg_" in name or "wg_wgrad" in name), (name, hgmma)
 
 
 @pytest.mark.gpu
@@ -1641,9 +1712,8 @@ def test_perhead_bf16_matches_plain_and_repeats_bitwise(B, C, nW, rate):
     before = (pk.fused_window_block_perhead_bf16.launches,
               pk.fused_window_block_perhead_backward_bf16.launches)
     y, keep = pk.fused_window_block_perhead_bf16(*args, seed=31, rate=rate)
-    tr = (args[1].t().contiguous(), args[3].t().contiguous())
-    got = pk.fused_window_block_perhead_backward_bf16(*args, dy, keep, rate, *tr)
-    again = pk.fused_window_block_perhead_backward_bf16(*args, dy, keep, rate, *tr)
+    got = pk.fused_window_block_perhead_backward_bf16(*args, dy, keep, rate)
+    again = pk.fused_window_block_perhead_backward_bf16(*args, dy, keep, rate)
     torch.cuda.synchronize()
     assert (pk.fused_window_block_perhead_bf16.launches,
             pk.fused_window_block_perhead_backward_bf16.launches) == (before[0] + 1, before[1] + 2)
@@ -1751,9 +1821,10 @@ def test_fused_mlp_bf16_matches_plain_and_repeats_bitwise(T, C, H):
 def test_fused_mlp_bf16_launches_only_fused_mlp_kernels(T, C):
     """A profiled call of #10-bf16, #11-bf16 and #12-bf16 (with masks and
     without) runs only csrc/fused_mlp.cu's wgmma kernels: the weights' bf16
-    pass, the fused forward (C <= 256), the backward's g2, hidden, dx
-    (output) and weight-gradient products and its reduction; no PyTorch
-    cast, no cuBLAS kernel, no gemm_splitk.cuh kernel."""
+    pass, the fused forward (C <= 256), the backward's g2, hidden and dx
+    (output) products, and csrc/gemm_wgmma.cuh's weight gradients and
+    reduction as fused_mlp.cu instantiates them (tagged FusedMlpSrc); no
+    PyTorch cast, no cuBLAS kernel, no gemm_splitk.cuh kernel."""
     import re
 
     from torch.autograd import DeviceType
@@ -1774,8 +1845,9 @@ def test_fused_mlp_bf16_launches_only_fused_mlp_kernels(T, C):
     kernels = {m.group(1) if m else n for n in names
                for m in [re.search(r"::(\w+)(?:<[^()]*>)?\(", n)]}
     assert kernels == {"mlp_wcast_kernel", "mlp_wg_fwd_kernel", "mlp_wg_g2_kernel",
-                       "mlp_wg_hidden_kernel", "mlp_wg_out_kernel", "mlp_wg_wgrad_kernel",
-                       "mlp_wg_reduce_kernel"}, names
+                       "mlp_wg_hidden_kernel", "mlp_wg_out_kernel", "wg_wgrad_kernel",
+                       "wg_reduce_kernel"}, names
+    assert all("FusedMlpSrc" in n for n in names if "wg_wgrad" in n or "wg_reduce" in n), names
 
 
 # sha-256 (first 16 hex digits) of the f32 #10, #11 (seed 9, rate 0.2) and
@@ -1811,6 +1883,79 @@ def test_f32_fused_mlp_gives_the_parents_bits(T, C):
     assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
         "the digests were taken on a 132-SM H100")
     assert _f32_mlp_digest(fm, T, C, dev) == F32_MLP_DIGESTS[(T, C)]
+
+
+# sha-256 (first 16 hex digits) of outputs that the bf16 whole-block
+# backward's redesign must leave as they were, as the parent commit's build
+# gave them (NVIDIA H100 80GB HBM3, 132 SMs: row splits and persistent grids
+# follow the SM count): the f32 #3 and #5 (_f32_block_digest, with a keep
+# mask and without) and #12-bf16 (_mlp_bf16_digest, with #11's masks and
+# without), whose weight-gradient and reduction kernels moved into
+# csrc/gemm_wgmma.cuh for #3-bf16 and #5-bf16 to share.
+F32_BLOCK_DIGESTS = {(131, 64, 4): "39c4b649a29d468d", (37, 512, 0): "bd829287d44309e1"}
+MLP_BF16_DIGESTS = {(2311, 64): "187d44466a9c36b4", (301, 256): "0f81bb9b7f29a003"}
+
+
+def _digest(tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def _f32_block_digest(pk, B, C, nW, dev):
+    """#3 (C <= 256) or #5 (C 512) at N 9, 4 heads, with a keep mask and
+    without; the weights also passed transposed, as the route passes them."""
+    rng = np.random.default_rng(5 * B + C)
+    args = _args(rng, B, 9, C, 4, nW, dev)
+    dy = torch.from_numpy(rng.normal(size=(B, 9, C)).astype(np.float32)).to(dev)
+    keep = torch.from_numpy((rng.random((B, 4, 9, 9)) >= 0.2).astype(np.uint8)).to(dev)
+    tr = (args[1].t().contiguous(), args[3].t().contiguous())
+    bwd = (pk.fused_window_block_backward if pk.wblock_fits(9, C, 4)
+           else pk.fused_window_block_perhead_backward)
+    outs = [*bwd(*args, dy, keep, 0.2, *tr), *bwd(*args, dy, None, 0.0, *tr)]
+    torch.cuda.synchronize()
+    return _digest(outs)
+
+
+def _mlp_bf16_digest(fm, T, C, dev):
+    """#12-bf16 with #11-bf16's masks (seed 9, rate 0.2) and without."""
+    rng = np.random.default_rng(3 * T + C)
+    x, w1, b1, w2, b2 = _mlp_bf16_args(rng, T, C, dev)
+    g = torch.from_numpy(rng.normal(size=(T, C)).astype(np.float32)).to(dev).to(torch.bfloat16)
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    outs = [*fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, g, 9, 0.2),
+            *fm.fused_mlp_backward_bf16(x, w1, b1, w1t, w2t, g)]
+    torch.cuda.synchronize()
+    return _digest(outs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,nW", sorted(F32_BLOCK_DIGESTS))
+def test_f32_block_backward_gives_the_parents_bits(B, C, nW):
+    """The f32 #3 and #5, whose kernels the bf16 redesign left as they were,
+    give the parent's bits (F32_BLOCK_DIGESTS)."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
+        "the digests were taken on a 132-SM H100")
+    assert _f32_block_digest(pk, B, C, nW, dev) == F32_BLOCK_DIGESTS[(B, C, nW)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("T,C", sorted(MLP_BF16_DIGESTS))
+def test_mlp_bf16_backward_gives_the_parents_bits(T, C):
+    """#12-bf16 on the weight-gradient and reduction kernels it now shares
+    with #3-bf16 and #5-bf16 gives the parent's bits (MLP_BF16_DIGESTS)."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+
+    dev = _card()
+    assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
+        "the digests were taken on a 132-SM H100")
+    assert _mlp_bf16_digest(fm, T, C, dev) == MLP_BF16_DIGESTS[(T, C)]
 
 
 @pytest.mark.gpu
