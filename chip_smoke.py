@@ -735,8 +735,9 @@ SHARED = ("gemm_splitk.cuh", "gemm_wgmma.cuh")
 WB_LIB = {"source": "window_block.cu", "tag": "WindowBlockSrc",
           "phases": {"proj_gemm_kernel": "GEMM", "attn_fwd_kernel": "attention",
                      "attn_bwd_kernel": "attention", "wgrad_gemm_kernel": "weight gradient",
-                     "reduce_partials_kernel": "reduction", "bf16_proj_kernel": "GEMM",
-                     "wb_wg_qkvg_kernel": "GEMM", "wb_wg_dx_kernel": "GEMM",
+                     "reduce_partials_kernel": "reduction", "wb_wg_qkvg_kernel": "GEMM",
+                     "wb_wg_y_kernel": "GEMM", "wb_wg_dx_kernel": "GEMM",
+                     "attn_fwd_bf16_kernel": "attention",
                      "attn_bwd_bf16_kernel": "attention", "wg_wgrad_kernel": "weight gradient",
                      "wg_reduce_kernel": "reduction"}}
 MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
@@ -2502,7 +2503,7 @@ BF16_SERVE_TOL = 1e-2     # served probabilities, #1-bf16's route vs the bf16 pl
 BF16_LOSS_TOL = 1e-2      # relative: the rate-0 bf16 step's loss vs the f32 step's
 BF16_GRAD_MIN_COS = 0.9   # each gradient's cosine to the bf16 plain versions' (C11)
 BF16_GRAD_MEDIAN_TOL = 5e-2  # median over the tensors of ||g - g_plain|| / ||g_plain|| (C11)
-WB_LAUNCHES_BF16 = {"fwd": {"bf16_proj_kernel": 2, "attn_fwd_kernel": 1},
+WB_LAUNCHES_BF16 = {"fwd": {"wb_wg_qkvg_kernel": 1, "attn_fwd_bf16_kernel": 1, "wb_wg_y_kernel": 1},
                     "bwd": {"wb_wg_qkvg_kernel": 1, "attn_bwd_bf16_kernel": 1,
                             "wb_wg_dx_kernel": 1, "wg_wgrad_kernel": 1, "wg_reduce_kernel": 1}}
 

@@ -30,9 +30,9 @@ the copy and concatenation kernels and of PyTorch's elementwise kernels.
 With --profile, #2 and #3 are also split by kernel name
 (chip_smoke.profile_split; the DIR's window_block.cu must have the kernels
 chip_smoke.py knows). --parts takes a comma list of window (#1-#5),
-window_bf16 (#1-bf16 to #5-bf16 by events and device time, #3-bf16's and
-#5-bf16's device time by phase and the host's enqueue, and the bf16 MOD
-pretrain step), attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
+window_bf16 (#1-bf16 to #5-bf16 by events, device time and device time by
+phase, #3-bf16's and #5-bf16's host enqueue, and the bf16 MOD pretrain
+step), attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
 -pallas_mlp step), mlp_bf16 (#10-bf16 to #12-bf16 per MLP geometry of a
 MOD and a MOD_WIDE forward by events and device time beside the bf16
 library chain, and the bf16 -pallas_mlp MOD supervised step) and towers
@@ -131,18 +131,19 @@ def measure_window(cs, torch, root, dev, gen, rate, profile):
         torch.cuda.empty_cache()
 
 
-# the phase of each kernel #3-bf16 and #5-bf16 run, under the names of this
-# tree's csrc/window_block.cu and of its parent's (products on mma.sync,
-# the attention without the ring, split-K weight gradients)
-BF16_BWD_PHASES = {"wb_wg_qkvg_kernel": "products", "wb_wg_dx_kernel": "products",
-                   "attn_bwd_bf16_kernel": "attention", "wg_wgrad_kernel": "weight gradients",
-                   "wg_reduce_kernel": "reductions", "bf16_proj_kernel": "products",
-                   "attn_bwd_kernel": "attention", "bf16_wgrad_kernel": "weight gradients",
-                   "reduce_partials_kernel": "reductions"}
+# the phase of each kernel the bf16 whole-block kernels (#1- to #5-bf16)
+# run, under the names of this tree's csrc/window_block.cu and of its
+# parent's (the forward's products on mma.sync, its attention without the
+# ring)
+BF16_PHASES = {"wb_wg_qkvg_kernel": "products", "wb_wg_y_kernel": "products",
+               "wb_wg_dx_kernel": "products", "attn_fwd_bf16_kernel": "attention",
+               "attn_bwd_bf16_kernel": "attention", "wg_wgrad_kernel": "weight gradients",
+               "wg_reduce_kernel": "reductions", "bf16_proj_kernel": "products",
+               "attn_fwd_kernel": "attention"}
 
 
-def bwd_phases(cs, torch, fn):
-    """Device ms a call of fn by BF16_BWD_PHASES' phase, over a profile of at
+def phases_of(cs, torch, fn):
+    """Device ms a call of fn by BF16_PHASES' phase, over a profile of at
     least chip_smoke.PROFILE_TRACE_MS of calls; a kernel the map does not
     name is reported under its own name."""
     reps = cs.trace_reps(torch, fn)
@@ -157,7 +158,7 @@ def bwd_phases(cs, torch, fn):
     out = {}
     for r in cs.profile_device(torch, calls)["rows"]:
         name = cs.kernel_name(r["name"]) or r["name"][:40]
-        phase = BF16_BWD_PHASES.get(name, name)
+        phase = BF16_PHASES.get(name, name)
         out[phase] = out.get(phase, 0.0) + r["device_ms"] / reps
     return out
 
@@ -166,7 +167,7 @@ def measure_window_bf16(cs, torch, root, dev, gen, rate):
     """#1-bf16 over one served MOD forward, #2-bf16/#3-bf16 over a MOD step
     (batch 512) and #4-bf16/#5-bf16 over a MOD_WIDE step (batch 128), on
     chip_smoke.bf16_inputs, by CUDA events, by device time in a profile
-    (the backward's also by phase) and by the host's median enqueue of a
+    and by phase, the backward's also by the host's median enqueue of a
     call; then the bf16 MOD pretrain step. A parent whose bf16 backward
     reads transposed weights gets them, as its route passed them."""
     import inspect
@@ -177,15 +178,24 @@ def measure_window_bf16(cs, torch, root, dev, gen, rate):
     def both(fn):
         return cs.time_ms_long(torch, fn), cs.device_ms_per_call(torch, fn)
 
+    def add_phases(into, fn, per):
+        for ph, ms in phases_of(cs, torch, fn).items():
+            into[ph] = into.get(ph, 0.0) + per * ms
+
+    def by_phase(phases):
+        return ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items(), key=lambda kv: -kv[1]))
+
     cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
-    tot = [0.0, 0.0]
+    tot, serve_phases = [0.0, 0.0], {}
     for g in cs.block_geometries(cfg, cs.SERVE_BATCH):
         args = cs.bf16_inputs(torch, g, gen, dev)
         ev, dv = both(lambda: pk.fused_window_block_bf16(*args))
         tot = [tot[0] + g["per_forward"] * ev, tot[1] + g["per_forward"] * dv]
+        add_phases(serve_phases, lambda: pk.fused_window_block_bf16(*args), g["per_forward"])
         del args
     print(f"[{root}] MOD one served bf16 forward at batch {cs.SERVE_BATCH}: #1-bf16 "
-          f"{tot[0]:.3f} ms (device {tot[1]:.3f})", flush=True)
+          f"{tot[0]:.3f} ms (device {tot[1]:.3f}); device ms by phase: {by_phase(serve_phases)}",
+          flush=True)
     pairs = {("#2-bf16", "#3-bf16"): (pk.fused_window_block_dropout_bf16,
                                       pk.fused_window_block_backward_bf16),
              ("#4-bf16", "#5-bf16"): (pk.fused_window_block_perhead_bf16,
@@ -200,7 +210,7 @@ def measure_window_bf16(cs, torch, root, dev, gen, rate):
                 continue
             transposes = "wqkv_t" in inspect.signature(bwd).parameters
             tot = {n: [0.0, 0.0] for n in names}
-            host, phases = 0.0, {}
+            host, phases, fwd_phases = 0.0, {}, {}
             for g in geos:
                 args = cs.bf16_inputs(torch, g, gen, dev)
                 tr = cs.transposed(args) if transposes else ()
@@ -211,16 +221,15 @@ def measure_window_bf16(cs, torch, root, dev, gen, rate):
                     ev, dv = both(fn)
                     tot[n] = [tot[n][0] + g["per_forward"] * ev, tot[n][1] + g["per_forward"] * dv]
                 host += g["per_forward"] * cs.host_enqueue_ms(torch, run_bwd)
-                for ph, ms in bwd_phases(cs, torch, run_bwd).items():
-                    phases[ph] = phases.get(ph, 0.0) + g["per_forward"] * ms
+                add_phases(phases, run_bwd, g["per_forward"])
+                add_phases(fwd_phases, lambda: fwd(*args, 7, rate), g["per_forward"])
                 del args, tr, dy, keep, run_bwd
             print(f"[{root}] {dataset} bf16 ({'/'.join(names)} geometries, batch {batch}): one "
                   "step: " + ", ".join(f"{k} {a:.3f} ms (device {b:.3f})"
                                        for k, (a, b) in tot.items())
-                  + f"; {names[1]} device ms by phase: "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in sorted(phases.items(),
-                                                                key=lambda kv: -kv[1]))
-                  + f"; host's median enqueue {host:.3f} ms", flush=True)
+                  + f"; {names[0]} device ms by phase: {by_phase(fwd_phases)}"
+                  + f"; {names[1]} device ms by phase: {by_phase(phases)}"
+                  + f"; host's median enqueue ({names[1]}) {host:.3f} ms", flush=True)
         torch.cuda.empty_cache()
     window_bf16_step(cs, torch, root, dev)
 

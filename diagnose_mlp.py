@@ -1,7 +1,8 @@
 """What the bf16 wgmma kernels compile to and how they run, for one or more
 checkouts of the repository on one card: the fused MLP's (#10-bf16 to
-#12-bf16, csrc/fused_mlp.cu) and the whole-block backward's (#3-bf16 and
-#5-bf16, csrc/window_block.cu), both on csrc/gemm_wgmma.cuh.
+#12-bf16, csrc/fused_mlp.cu) and the whole-block kernels' (the forward
+#1-, #2- and #4-bf16, the backward #3-bf16 and #5-bf16,
+csrc/window_block.cu), all on csrc/gemm_wgmma.cuh.
 
     python3 diagnose_mlp.py [--bench] DIR [DIR ...]
 
@@ -18,18 +19,24 @@ Per DIR and source it prints:
     masks and without) against their bf16 plain versions at WIDTHS: the
     worst error relative to max|plain| of y and of each gradient, and
     whether a second call gives the same bits;
-  * #3-bf16 (#5-bf16 at the widths wblock_fits sends to it) with a keep
-    mask and without against fused_window_block_backward_bf16_reference at
+  * #2-bf16 and #3-bf16 (#4-bf16 and #5-bf16 at the widths wblock_fits
+    sends to them) with a keep mask and without against
+    fused_window_block_bf16_reference and
+    fused_window_block_backward_bf16_reference at
     BLOCKS (MOD's and MOD_WIDE's widths, ragged rows, the shifted-window
     mask, other N, a head width not a multiple of 4, and the widest head
-    the bf16 gate admits): each gradient's error relative to max|plain|,
-    and whether a second call gives the same bits;
+    the bf16 gate admits): y's and each gradient's error relative to
+    max|plain|, whether a second call gives the same bits, and the
+    digests of y and the keep mask and of the gradients (two checkouts with
+    equal digests give the same bits);
   * with --bench, each MLP kernel's device time a call (a profile over at
     least chip_smoke.PROFILE_TRACE_MS of calls) at every MLP geometry of a
     MOD and a MOD_WIDE forward at batch 128 beside the bf16 library chain's
     (addmm -> GELU -> addmm and its autograd backward), and their sums over
-    each forward (compare_kernels.py --parts window_bf16 times #3-bf16 and
-    #5-bf16).
+    each forward, and the bf16 whole-block kernels' device time by kernel
+    over a served MOD forward (#1-bf16), a MOD step (#2-bf16, #3-bf16) and
+    a MOD_WIDE step (#4-bf16, #5-bf16) (compare_kernels.py --parts
+    window_bf16 times them by events and by phase).
 Needs a CUDA card; imports no JAX.
 """
 
@@ -38,6 +45,7 @@ import os
 import re
 import subprocess
 import sys
+import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 # (T, C, H): MOD's widths, MOD_WIDE's stage 0, C > 256 (the forward's
@@ -54,7 +62,8 @@ BLOCKS = [(256, 9, 64, 4, 32), (131, 9, 128, 4, 0), (67, 9, 256, 4, 2), (40, 9, 
           (3, 9, 1600, 1, 0)]
 # the bf16 kernels' names in each source's build
 BF16_KERNELS = {"fused_mlp.cu": ("wg_", "wcast"),
-                "window_block.cu": ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16")}
+                "window_block.cu": ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16",
+                                    "attn_fwd_bf16")}
 RATE = 0.2
 
 
@@ -124,7 +133,8 @@ def check(torch, np, fm, dev):
 
 
 def check_blocks(cs, torch, np, pk, dev):
-    """#3-bf16 (#5-bf16) against the bf16 plain version at BLOCKS."""
+    """#2-bf16 and #3-bf16 (#4-bf16 and #5-bf16) against the bf16 plain
+    versions at BLOCKS, the backward fed the forward's own keep mask."""
     names = ("dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias")
     for B, N, C, H, nW in BLOCKS:
         rng = np.random.default_rng(B + N + C)
@@ -135,14 +145,22 @@ def check_blocks(cs, torch, np, pk, dev):
         rel_bias, dy = mk((H, N, N), 0.02), mk((B, N, C), 1.0).to(bf)
         mask = (torch.from_numpy(np.where(rng.random((nW, N, N)) < 0.3, -100.0, 0.0)
                                  .astype(np.float32)).to(dev) if nW else None)
-        keep = torch.from_numpy((rng.random((B, H, N, N)) >= RATE).astype(np.uint8)).to(dev)
         args = (x, wqkv, bqkv, wproj, bproj, rel_bias, mask)
-        bwd = (pk.fused_window_block_backward_bf16 if pk.wblock_fits(N, C, H)
+        mono = pk.wblock_fits(N, C, H)
+        fwd = pk.fused_window_block_dropout_bf16 if mono else pk.fused_window_block_perhead_bf16
+        bwd = (pk.fused_window_block_backward_bf16 if mono
                else pk.fused_window_block_perhead_backward_bf16)
-        out, same = [], True
+        ys = [fwd(*args, 7, RATE) for _ in range(2)]
+        keep = ys[0][1]
+        same = torch.equal(ys[0][0], ys[1][0]) and torch.equal(keep, ys[1][1])
+        bits = [digest(ys[0])]
+        ref = pk.fused_window_block_bf16_reference(*args, keep, RATE)
+        out = [f"y {float((ys[0][0].float() - ref.float()).abs().max() / ref.float().abs().max()):.2e}"
+               f" (gate {cs.BF16_FWD_TOL:.0e})"]
         for tag, kp in (("keep", keep), ("no keep", None)):
             got = [bwd(*args, dy, kp, RATE) for _ in range(2)]
             same = same and all(torch.equal(a, b) for a, b in zip(*got))
+            bits.append(digest(got[0]))
             want = pk.fused_window_block_backward_bf16_reference(*args, dy, kp, RATE)
             errs = {n: float((a.float() - b.float()).abs().max()
                              / b.float().abs().max().clamp_min(1e-30))
@@ -151,8 +169,77 @@ def check_blocks(cs, torch, np, pk, dev):
                        + f" (gate {cs.BF16_GRAD_TOL:.0e} by chip_smoke.bf16_grad_err: "
                        f"{cs.bf16_grad_err(got[0], want):.2e})")
         torch.cuda.synchronize()
-        print(f"  windows {B} N {N} C {C} H {H} nW {nW} ({bwd.__name__}): " + "; ".join(out)
-              + f"; same bits again: {same}", flush=True)
+        print(f"  windows {B} N {N} C {C} H {H} nW {nW} ({fwd.__name__}, {bwd.__name__}): "
+              + "; ".join(out)
+              + f"; same bits again: {same}; digests {' '.join(bits)}", flush=True)
+
+
+def digest(tensors):
+    """sha-256 (first 16 hex digits) of tensors' bytes: equal digests from
+    two checkouts are the same bits."""
+    import hashlib
+
+    import torch
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def bench_blocks(cs, torch, pk, root, dev):
+    """Device ms by kernel of the bf16 whole-block kernels (a profile over at
+    least chip_smoke.PROFILE_TRACE_MS of calls a geometry): #1-bf16 over a
+    served MOD forward (batch 128), #2-bf16 and #3-bf16 over a MOD step's
+    whole-block geometries (batch 512), #4-bf16 and #5-bf16 over a MOD_WIDE
+    step's per-head ones (batch 128), on chip_smoke.bf16_inputs."""
+    from focal_tpu_torch.params import load_yaml
+
+    gen = torch.Generator().manual_seed(0)
+
+    def by_kernel(fn, per, into):
+        reps = cs.trace_reps(torch, fn)
+
+        def calls():
+            time.sleep(0.05)
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+
+        for r in cs.profile_device(torch, calls)["rows"]:
+            name = cs.kernel_name(r["name"]) or r["name"][:30]
+            into[name] = into.get(name, 0.0) + per * r["device_ms"] / reps
+
+    for label, dataset, batch, pick in (("served MOD #1-bf16", "MOD", cs.SERVE_BATCH, "serve"),
+                                        ("MOD step #2-bf16/#3-bf16", "MOD", 512, "mono"),
+                                        ("MOD_WIDE step #4-bf16/#5-bf16", "MOD_WIDE", 128,
+                                         "perhead")):
+        cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", f"{dataset}.yaml"))
+        fwd, bwd = {}, {}
+        for g in cs.block_geometries(cfg, batch):
+            mono = pk.wblock_fits(g["N"], g["C"], g["heads"])
+            if (pick == "mono" and not mono) or (pick == "perhead" and mono):
+                continue
+            args = cs.bf16_inputs(torch, g, gen, dev)
+            if pick == "serve":
+                by_kernel(lambda: pk.fused_window_block_bf16(*args), g["per_forward"], fwd)
+            else:
+                f = pk.fused_window_block_dropout_bf16 if mono else pk.fused_window_block_perhead_bf16
+                b = (pk.fused_window_block_backward_bf16 if mono
+                     else pk.fused_window_block_perhead_backward_bf16)
+                dy = torch.randn(args[0].shape, generator=gen).to(dev).to(torch.bfloat16)
+                _, keep = f(*args, 7, RATE)
+                by_kernel(lambda: f(*args, 7, RATE), g["per_forward"], fwd)
+                by_kernel(lambda: b(*args, dy, keep, RATE), g["per_forward"], bwd)
+            del args
+        for d, ks in (("forward", fwd), ("backward", bwd)):
+            if ks:
+                print(f"  {label}, {d} (device ms by kernel): {sum(ks.values()):.3f}: "
+                      + ", ".join(f"{k} {v:.3f}" for k, v in sorted(ks.items(),
+                                                                    key=lambda kv: -kv[1])),
+                      flush=True)
+        torch.cuda.empty_cache()
 
 
 def bench(cs, torch, np, fm, root, dev):
@@ -215,6 +302,7 @@ def child(root, with_bench):
     check_blocks(cs, torch, np, pk, dev)
     if with_bench:
         bench(cs, torch, np, fm, root, dev)
+        bench_blocks(cs, torch, pk, root, dev)
 
 
 def main():

@@ -560,9 +560,8 @@ struct BfShiftRows {
 };
 
 // A K-slice of kGemmBM rows of im2col(x) in a thread's registers: 2 x 8
-// values (row tid / 4 + 64 i, columns tid % 4 * 8, as gemm_bf16.cuh's
-// RowSlice lays out bf16), zeros outside the matrix and the sample. The
-// rows' positions are found once.
+// values (row tid / 4 + 64 i, columns tid % 4 * 8), zeros outside the
+// matrix and the sample. The rows' positions are found once.
 struct BfConvRows {
   BfShiftRows a;
   int M, m0, K;
@@ -649,7 +648,7 @@ struct BfConvWgradRows {
 // acc = A B over K in [k_begin, k_end), A staged by `a` (BfConvRows or
 // BfConvWgradRows), B [K, N] bf16 (row-major, ldb = N) by gemm_bf16.cuh's
 // PairSlice, on bf_compute's warp tiles: two shared-memory stages fed
-// through registers, as bf_gemm_tile.
+// through registers.
 template <int kBN, class ARows>
 __device__ __forceinline__ void bf_conv_tile(ARows& a, const bf16* B, int N, int n0, int k_begin,
                                              int k_end, uint32_t* smem,
@@ -660,7 +659,7 @@ __device__ __forceinline__ void bf_conv_tile(ARows& a, const bf16* B, int N, int
     for (int nt = 0; nt < focal::gemm_nt<kBN>(); ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  const focal::BfOperand bop{B, N, 0};
+  const focal::BfOperand bop{B, N};
   focal::PairSlice<kBN> bs;
   const int kt_n = (k_end - k_begin + focal::kBfBK - 1) / focal::kBfBK;
   if (kt_n > 0) {
@@ -671,7 +670,7 @@ __device__ __forceinline__ void bf_conv_tile(ARows& a, const bf16* B, int N, int
     uint32_t* As = smem + (kt & 1) * focal::bf_stage_words(kBN);
     uint32_t* Bs = As + focal::kGemmBM * focal::kBfRowWords;
     a.store(As);
-    bs.store(bop, Bs);
+    bs.store(Bs);
     // the slot is staged; and every warp finished slice kt - 2, the last
     // reader of this slot, before it reached the barrier of slice kt - 1
     __syncthreads();

@@ -2,7 +2,8 @@
 // operands staged by the Tensor Memory Accelerator (TMA) into a ring of
 // shared-memory stages, consumed by wgmma.mma_async with f32 sums in
 // registers. The core of the fused MLP's bf16 kernels (#10-bf16 to #12-bf16,
-// fused_mlp.cu); written so that other bf16 products can take it up.
+// fused_mlp.cu) and of the bf16 whole-block kernels' products (#1-bf16 to
+// #5-bf16, window_block.cu).
 //
 // Layout. Every staged tile is bf16 in 128-byte rows with the 128-byte
 // swizzle (16-byte chunk c of row r stored at chunk c ^ (r % 8)): TMA writes
@@ -145,6 +146,14 @@ __device__ __forceinline__ void stage_pair(uint8_t* tile, int row, int col, uint
                                            int box_rows = kBM) {
   *reinterpret_cast<uint32_t*>(tile + (col >> 6) * (box_rows * 128) + row * 128 +
                                ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2) = v;
+}
+
+// An f32 pair (columns col, col + 1; col even) of row `row` into a tile
+// staged for TMA stores: kBM-row boxes of 32 columns (128 bytes), each
+// [kBM][128 bytes] with the 128-byte swizzle.
+__device__ __forceinline__ void stage_pair_f32(uint8_t* tile, int row, int col, float2 v) {
+  *reinterpret_cast<float2*>(tile + (col >> 5) * (kBM * 128) + row * 128 +
+                             ((((col & 31) >> 2) ^ (row & 7)) << 4) + (col & 3) * 4) = v;
 }
 
 // The threads of warpgroup 0 only (named barrier 2).
@@ -737,12 +746,15 @@ int launch_reduce(const ReduceArgs& a, cudaStream_t s) {
 }  // namespace focal
 
 // Host side: the tensor map of a bf16 matrix [rows, cols] in device memory
-// (cols contiguous, a multiple of 8; 16-byte aligned) read in boxes of 64
-// columns by box_rows rows, with the 128-byte swizzle; reads past its edges
-// give zeros. Returns 0 or libcuda's CUresult (CUDA_ERROR_NOT_FOUND without
-// its cuTensorMapEncodeTiled, which is looked up in the loaded libcuda at
-// first use, so the library links no libcuda itself).
-inline int focal_wg_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+// (cols contiguous, a multiple of 8; 16-byte aligned), or with `f32` of an
+// f32 one (cols a multiple of 4), read or written in boxes of 128 bytes of
+// a row (64 bf16 or 32 f32 columns) by box_rows rows, with the 128-byte
+// swizzle; reads past its edges give zeros, writes past them are dropped.
+// Returns 0 or libcuda's CUresult (CUDA_ERROR_NOT_FOUND without its
+// cuTensorMapEncodeTiled, which is looked up in the loaded libcuda at first
+// use, so the library links no libcuda itself).
+inline int focal_wg_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+                        bool f32 = false) {
   using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
                               const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
                               const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
@@ -754,10 +766,11 @@ inline int focal_wg_map(CUtensorMap* map, const void* base, int rows, int cols, 
   }();
   if (!encode) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
-  const cuuint32_t box[2] = {64u, (cuuint32_t)box_rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 2)};
+  const cuuint32_t box[2] = {f32 ? 32u : 64u, (cuuint32_t)box_rows};
   const cuuint32_t elem[2] = {1u, 1u};
-  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+  return (int)encode(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                     2, const_cast<void*>(base), dims,
                      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
                      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
@@ -769,8 +782,9 @@ namespace wg {
 constexpr int kMapError = 100000;  // + libcuda's CUresult: a tensor map was refused
 
 // focal_wg_map, its refusal as kMapError + the CUresult.
-inline int map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows) {
-  const int r = focal_wg_map(m, base, rows, cols, box_rows);
+inline int map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows,
+               bool f32 = false) {
+  const int r = focal_wg_map(m, base, rows, cols, box_rows, f32);
   return r == 0 ? 0 : kMapError + r;
 }
 

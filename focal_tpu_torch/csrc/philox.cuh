@@ -59,4 +59,25 @@ __device__ __forceinline__ void attn_keep_row(unsigned long long seed, unsigned 
   }
 }
 
+// The keep flags of keys 0..N-1 of one (window, head, query row), as bit j
+// of the result, with the G lanes of the row sharing the Philox words: lane
+// l draws blocks jb = l, l + G, ... of attn_keep_words (so the bits are
+// attn_keep_row's) and a butterfly of shuffles ORs the lanes' bits. Every
+// lane of the warp must call it.
+__device__ __forceinline__ unsigned keep_bits_row(unsigned long long seed, unsigned window,
+                                                  int head, int row, int N, unsigned threshold,
+                                                  int lane, int lanes) {
+  const uint2 key = philox_key(seed);
+  unsigned bits = 0u;
+  for (int jb = lane; jb * 4 < N; jb += lanes) {
+    const uint4 r = attn_keep_words(key, window, head, row, jb);
+    bits |= (r.x >= threshold ? 1u : 0u) << (4 * jb);
+    bits |= (r.y >= threshold ? 2u : 0u) << (4 * jb);
+    bits |= (r.z >= threshold ? 4u : 0u) << (4 * jb);
+    bits |= (r.w >= threshold ? 8u : 0u) << (4 * jb);
+  }
+  for (int off = lanes / 2; off > 0; off >>= 1) bits |= __shfl_xor_sync(0xffffffffu, bits, off);
+  return bits;
+}
+
 }  // namespace focal

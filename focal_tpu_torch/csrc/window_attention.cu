@@ -276,27 +276,6 @@ __device__ __forceinline__ float4 scaled_dq(float4 a, float s) {
                      round_bf16(a.w) * s);
 }
 
-// The keep flags of keys 0..N-1 of one (window, head, query row), as bit j
-// of the result, with the G lanes of the row sharing the Philox words: lane
-// l draws blocks jb = l, l + G, ... of focal::attn_keep_words (so the bits
-// are #2's) and a butterfly of shuffles ORs the lanes' bits. Every lane of
-// the warp must call it.
-__device__ __forceinline__ unsigned keep_bits_row(unsigned long long seed, unsigned window,
-                                                  int head, int row, int N, unsigned threshold,
-                                                  int lane, int lanes) {
-  const uint2 key = focal::philox_key(seed);
-  unsigned bits = 0u;
-  for (int jb = lane; jb * 4 < N; jb += lanes) {
-    const uint4 r = focal::attn_keep_words(key, window, head, row, jb);
-    bits |= (r.x >= threshold ? 1u : 0u) << (4 * jb);
-    bits |= (r.y >= threshold ? 2u : 0u) << (4 * jb);
-    bits |= (r.z >= threshold ? 4u : 0u) << (4 * jb);
-    bits |= (r.w >= threshold ? 8u : 0u) << (4 * jb);
-  }
-  for (int off = lanes / 2; off > 0; off >>= 1) bits |= __shfl_xor_sync(focal::kAttnFull, bits, off);
-  return bits;
-}
-
 // ---------------------------------------------------------------------------
 // forward (#6; #7 with kDropout)
 
@@ -353,7 +332,7 @@ __device__ __forceinline__ void wattn_fwd(const Operands<T>& in, Strides so,
     }
     unsigned kept = ~0u;
     if (kDropout)
-      kept = keep_bits_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, t.lane, g.lanes);
+      kept = focal::keep_bits_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, t.lane, g.lanes);
     float p[kN];
     row_dots<kCols>(qs + t.r * g.stride, ks + t.pl * N * g.stride, g, t.lane, p);
 #pragma unroll
@@ -481,7 +460,7 @@ __device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStride
     }
     unsigned kept = ~0u;
     if (kDropout)
-      kept = keep_bits_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, t.lane, g.lanes);
+      kept = focal::keep_bits_row(seed, (unsigned)t.w, t.h, t.i, N, threshold, t.lane, g.lanes);
     const float* kb = ks + t.pl * N * g.stride;
     float p[kN], ds[kN];
     row_dots<kCols>(qs + t.r * g.stride, kb, g, t.lane, p);

@@ -79,9 +79,24 @@
 // dv and the attention output rounded to bf16 before the dx and weight
 // products, dbqkv and d rel_bias summed from the f32 values, dbproj the f32
 // sum of dy, dx stored as bf16.
-//   * The forwards (#1-, #2-, #4-bf16) run #1-#3's phases with the products
-//     on the bf16 tensor cores by mma.sync m16n8k16 (gemm_bf16.cuh), the f32
-//     attention between them, f32 workspaces.
+//   * The forward (#1-, #2-, #4-bf16; wblock_fwd_bf16) is built for Hopper.
+//     What bounds it: operations for the products (8 N C^2 FLOPs a window at
+//     989 TFLOP/s), bytes for the attention (its f32 qkv in, its bf16 ao
+//     out: 14 bytes a row and column). Three launches, on the backward's
+//     pieces:
+//       (a) qkv = x Wqkv + bqkv (f32) on wgmma: wb_wg_qkvg_kernel's problem
+//           0 alone, Wqkv read MN-major as it lies, the bias added in the
+//           epilogue, each f32 tile staged in shared memory and stored by
+//           TMA (store_tile: a third faster than stores from registers);
+//       (b) the attention (attn_fwd_bf16_kernel) on the persistent two-slot
+//           cp.async ring (ring_walk, stage_chunk_async from the f32 qkv;
+//           the exact 9-key row tile): the softmax and dropout in f32, the
+//           keep mask written as uint8 [B, H, N, N], ao rounded once to
+//           bf16 into [R, C] (half the bytes of f32). A head too wide for
+//           two slots takes fewer pairs, then one slot;
+//       (c) y = ao Wproj + bproj on wgmma, ao read by TMA, Wproj MN-major as
+//           it lies; the bias added in f32, each value rounded to bf16 once
+//           and stored by TMA (store_tile, as dx of the backward).
 //   * The backward (#3-bf16, #5-bf16; wblock_bwd_bf16) is built for Hopper.
 //     What bounds it: operations for the products (22 N C^2 FLOPs a window
 //     at 989 TFLOP/s), bytes for the attention (its f32 qkv and g in, its
@@ -92,7 +107,7 @@
 //           rings, one producer and two consumer warpgroups, wgmma
 //           m64nNk16 with f32 sums; Wqkv read MN-major and Wproj K-major as
 //           they lie (streamed_tiles' per-problem B order), so no transposed
-//           copy of either is made or kept;
+//           copy of either is made or kept; the f32 tiles stored by TMA;
 //       (b) the attention backward (attn_bwd_bf16_kernel) on #8/#9's design,
 //           through window_rows.cuh (Operands and stage_chunk_async, which
 //           #6-#9 share; ring_walk, their walk as a function: a persistent
@@ -113,8 +128,9 @@
 //           splits in split order, the three sums over the attention's
 //           blocks in block order. No float atomics: two calls give the same
 //           bits.
-//   * Not yet: the bf16 forwards on wgmma (#1-, #2-, #4-bf16 keep
-//     mma.sync), and the f32 #2-#5 attention on the cp.async ring.
+//   * Not yet: the f32 #1-#5 on wgmma and their attention on the cp.async
+//     ring; fusing the attention into the products (the forward's qkv and
+//     ao make one round trip through device memory).
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -125,7 +141,6 @@
 #include <mutex>
 
 #include "gemm_3xtf32.cuh"
-#include "gemm_bf16.cuh"
 #include "gemm_splitk.cuh"
 #include "gemm_wgmma.cuh"
 #include "philox.cuh"
@@ -189,48 +204,6 @@ proj_gemm_kernel(ProjGemm p0, ProjGemm p1) {
       v1 += __ldg(p.bias + col + 1);
     }
     *reinterpret_cast<float2*>(p.c + (size_t)row * p.ldc + col) = make_float2(v0, v1);
-  });
-}
-
-// The bf16 forms (#1-bf16 to #5-bf16): the same products on the
-// bf16 tensor cores (gemm_bf16.cuh), with bf16 x, dy, weights, y and dx and
-// f32 workspaces. c = a b (+ bias) over all rows of a launch, a [M, K]
-// row-major, b [K, N]; c f32 or, with c_bf16, rounded to bf16 once (after
-// the bias). One launch may run two problems, as ProjGemm.
-struct BfGemm {
-  focal::BfOperand a, b;
-  const float* bias;  // [N] or null
-  void* c;
-  int ldc, c_bf16, M, N, K, tiles_n, tiles;
-};
-
-BfGemm bf_gemm(focal::BfOperand a, focal::BfOperand b, const float* bias, void* c, int ldc,
-               bool c_bf16, int M, int N, int K) {
-  return BfGemm{a, b, bias, c, ldc, c_bf16 ? 1 : 0, M, N, K, 0, 0};
-}
-
-// Two blocks an SM at 64 columns, one at 128; 40 KB of static shared memory
-// at 128.
-template <int kBN>
-__global__ void __launch_bounds__(focal::kGemmThreads, kBN == 64 ? 2 : 1)
-bf16_proj_kernel(BfGemm p0, BfGemm p1) {
-  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
-  int tile = blockIdx.x;
-  const BfGemm p = tile < p0.tiles ? p0 : p1;
-  if (tile >= p0.tiles) tile -= p0.tiles;
-  const int m0 = (tile / p.tiles_n) * focal::kGemmBM, n0 = (tile % p.tiles_n) * kBN;
-  float acc[4][focal::gemm_nt<kBN>()][4];
-  focal::bf_gemm_tile<kBN>(p.a, p.b, p.M, p.N, m0, n0, 0, p.K, smem, acc);
-  focal::gemm_for_each_output<kBN>(acc, p.M, p.N, m0, n0, [&](int row, int col, float v0, float v1) {
-    if (p.bias) {
-      v0 += __ldg(p.bias + col);
-      v1 += __ldg(p.bias + col + 1);
-    }
-    const size_t at = (size_t)row * p.ldc + col;
-    if (p.c_bf16)
-      *reinterpret_cast<uint32_t*>(static_cast<__nv_bfloat16*>(p.c) + at) = focal::pack_bf16x2(v0, v1);
-    else
-      *reinterpret_cast<float2*>(static_cast<float*>(p.c) + at) = make_float2(v0, v1);
   });
 }
 
@@ -580,34 +553,14 @@ cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) 
                                     : launch_proj_bn<64>(p0, p1, s);
 }
 
-template <int kBN>
-cudaError_t launch_bf16_proj_bn(BfGemm p0, BfGemm p1, cudaStream_t s) {
-  set_tiles(p0.M, p0.N, kBN, &p0.tiles_n, &p0.tiles);
-  set_tiles(p1.M, p1.N, kBN, &p1.tiles_n, &p1.tiles);
-  bf16_proj_kernel<kBN><<<p0.tiles + p1.tiles, focal::kGemmThreads, 0, s>>>(p0, p1);
-  return cudaGetLastError();
-}
-
-// One bf16 projection launch (one or two problems; p1 = BfGemm{} for none).
-cudaError_t launch_bf16_proj(const BfGemm& p0, const BfGemm& p1, cudaStream_t s) {
-  return tile_bn(p0.N, p1.N) == 128 ? launch_bf16_proj_bn<128>(p0, p1, s)
-                                    : launch_bf16_proj_bn<64>(p0, p1, s);
-}
-
-focal::BfOperand bf16_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 0}; }
-focal::BfOperand f32_operand(const void* p, int ld) { return focal::BfOperand{p, ld, 1}; }
-
-// The forward's three launches on `stream` (focal_wblock_fwd_dropout and
-// focal_wblock_fwd_bf16): qkv = x Wqkv + bqkv into the f32 workspace, the
-// attention per (window, head), y = ao Wproj + bproj; with bf16 the
-// products on the bf16 tensor cores (x, Wqkv, Wproj and y bf16; ao rounded
-// to bf16 as the output projection stages it).
-int wblock_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
-               const void* bproj, const void* rel_bias, const void* mask, void* y, void* keep,
+// The f32 forward's three launches on `stream` (focal_wblock_fwd_dropout):
+// qkv = x Wqkv + bqkv into the workspace, the attention per (window,
+// head), y = ao Wproj + bproj.
+int wblock_fwd(const float* x, const float* wqkv, const float* bqkv, const float* wproj,
+               const float* bproj, const void* rel_bias, const void* mask, float* y, void* keep,
                void* ws, int B, int N, int C, int H, int nW, unsigned long long seed,
-               unsigned threshold, float inv_keep, void* stream, bool bf16) {
-  if (check_geometry(N, C, H) || (bf16 && C % 8 != 0) || (mask != nullptr && nW < 1))
-    return (int)cudaErrorInvalidValue;
+               unsigned threshold, float inv_keep, void* stream) {
+  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   focal::Geo g;
   size_t smem = 0;
@@ -621,14 +574,7 @@ int wblock_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wp
   const int R = B * N;
   float* qkv = static_cast<float*>(ws);
   float* ao = qkv + (size_t)R * 3 * C;
-  const float* bq = static_cast<const float*>(bqkv);
-  err = bf16 ? launch_bf16_proj(bf_gemm(bf16_operand(x, C), bf16_operand(wqkv, 3 * C), bq, qkv,
-                                        3 * C, false, R, 3 * C, C),
-                                BfGemm{}, s)
-             : launch_proj(proj_gemm(static_cast<const float*>(x), C,
-                                     static_cast<const float*>(wqkv), 3 * C, bq, qkv, 3 * C, R,
-                                     3 * C, C),
-                           ProjGemm{}, s);
+  err = launch_proj(proj_gemm(x, C, wqkv, 3 * C, bqkv, qkv, 3 * C, R, 3 * C, C), ProjGemm{}, s);
   if (err != cudaSuccess) return (int)err;
   const int grid = (int)((g.total + g.pairs - 1) / g.pairs);
 #define FOCAL_ATTN_ARGS                                                                       \
@@ -642,13 +588,7 @@ int wblock_fwd(const void* x, const void* wqkv, const void* bqkv, const void* wp
 #undef FOCAL_ATTN_ARGS
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const float* bp = static_cast<const float*>(bproj);
-  if (bf16)
-    return (int)launch_bf16_proj(
-        bf_gemm(f32_operand(ao, C), bf16_operand(wproj, C), bp, y, C, true, R, C, C), BfGemm{}, s);
-  return (int)launch_proj(proj_gemm(ao, C, static_cast<const float*>(wproj), C, bp,
-                                    static_cast<float*>(y), C, R, C, C),
-                          ProjGemm{}, s);
+  return (int)launch_proj(proj_gemm(ao, C, wproj, C, bproj, y, C, R, C, C), ProjGemm{}, s);
 }
 
 // The backward's six launches on `stream` (focal_wblock_bwd): qkv = x
@@ -702,30 +642,94 @@ int wblock_bwd(const float* x, const float* wqkv, const float* bqkv, const float
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 backward (#3-bf16, #5-bf16): products on wgmma, the attention on
-// the chunk walk of #8/#9
+// the bf16 forward (#1-bf16, #2-bf16, #4-bf16) and backward (#3-bf16,
+// #5-bf16): products on wgmma, the attention on the chunk walk of #8/#9
 
 namespace wgk = focal::wg;
 using bf16 = __nv_bfloat16;
 
-// (a) qkv = x Wqkv + bqkv and g = dy Wproj^T, f32, into the workspaces: two
-// problems in one launch (gemm_wgmma.cuh's streamed_tiles over both
-// problems' tiles): A = x or dy [R, C] K-major, B = Wqkv [C, 3C] MN-major
-// as it lies, or Wproj [C, C] read as B^T, K-major as it lies (problem 1's
-// order, kBT1).
+// The shared memory of a product whose output tiles (bf16, or f32 with
+// kF32) leave by TMA stores: fewer stages than kStreamStages make room for
+// a staged tile.
+template <int kBN, bool kF32 = false>
+struct StoreSmem {
+  static constexpr int kStages = wgk::kStreamStages<kBN> - (kF32 ? 2 : 1);
+  // from the 1,024-byte aligned start: the ring's tiles and a 1 KB page for
+  // its barriers, then the staged tile
+  static constexpr size_t kStaged =
+      (size_t)kStages * wgk::Ring<kBN, false, false, kStages>::kStageBytes + 1024;
+  static constexpr size_t kBytes = 1024 + kStaged + (size_t)wgk::kBM * kBN * (kF32 ? 4 : 2);
+};
+
+// The epilogue of such a product: the 128 x kBN tile's f32 sums (each column
+// n < N plus bias[n], where bias is not null), kept in f32 (kF32) or
+// rounded to bf16 once, staged in shared memory (boxes of 128-byte rows,
+// swizzled) and stored by TMA through `map`, which leaves out the rows past
+// M and the columns past N. Thread 0 issues the stores; it first waits
+// until the last tile's store has read the staged tile.
+template <int kBN, bool kF32>
+__device__ __forceinline__ void store_tile(uint8_t* tile, const CUtensorMap* map,
+                                           const wgk::Job<1>& j, const float (&acc)[kBN / 2],
+                                           const float* __restrict__ bias) {
+  constexpr int kBoxCols = kF32 ? 32 : 64;
+  const wgk::Frag f;
+  if (threadIdx.x == 0) wgk::tma_store_wait_read();
+  wgk::consumers_sync();
+#pragma unroll
+  for (int jj = 0; jj < kBN / 8; ++jj) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int i = 4 * jj + 2 * r, n = j.n0 + f.col(i);
+      float v0 = acc[i], v1 = acc[i + 1];
+      if (bias && n < j.N) {  // N is a multiple of 8, n even
+        v0 += __ldg(bias + n);
+        v1 += __ldg(bias + n + 1);
+      }
+      if (kF32)
+        wgk::stage_pair_f32(tile, f.row(i), f.col(i), make_float2(v0, v1));
+      else
+        wgk::stage_pair(tile, f.row(i), f.col(i), wgk::pack_bf16(v0, v1));
+    }
+  }
+  wgk::fence_async_smem();
+  wgk::consumers_sync();  // the tile is staged
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int b = 0; b < kBN / kBoxCols; ++b)
+      wgk::tma_store(map, tile + b * wgk::kBM * 128, j.n0 + kBoxCols * b, j.m0);
+    wgk::tma_store_commit();
+  }
+}
+
+// qkv = x Wqkv + bqkv and, in the backward, g = dy Wproj^T, f32, into the
+// workspaces: one or two problems in one launch (gemm_wgmma.cuh's
+// streamed_tiles over the problems' tiles): A = x or dy [R, C] K-major, B =
+// Wqkv [C, 3C] MN-major as it lies, or Wproj [C, C] read as B^T, K-major as
+// it lies (problem 1's order, kBT1). Each f32 tile leaves by TMA
+// (store_tile through mqkv or mg). With g null the launch is problem 0
+// alone: the forward's (a).
 struct QkvgArgs {
   const float* bqkv;
   float* qkv;  // [R, 3C]
-  float* g;    // [R, C]
+  float* g;    // [R, C], or null
   int R, C;
 };
+
+// Output tiles of a QkvgArgs launch in kBN-wide tiles.
+__host__ __device__ inline int qkvg_tiles(const QkvgArgs& p, int bn) {
+  const int tn = (3 * p.C + bn - 1) / bn + (p.g ? (p.C + bn - 1) / bn : 0);
+  return (p.R + wgk::kBM - 1) / wgk::kBM * tn;
+}
 
 template <int kBN>
 __global__ void __launch_bounds__(wgk::kThreads, 1)
 wb_wg_qkvg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mwqkv,
                   const __grid_constant__ CUtensorMap mdy, const __grid_constant__ CUtensorMap mwproj,
+                  const __grid_constant__ CUtensorMap mqkv, const __grid_constant__ CUtensorMap mg,
                   const QkvgArgs p) {
   extern __shared__ uint8_t smem_raw[];
+  using Smem = StoreSmem<kBN, true>;
+  uint8_t* tile = wgk::align1024(smem_raw) + Smem::kStaged;
   const int rt = (p.R + wgk::kBM - 1) / wgk::kBM;
   const int tn0 = (3 * p.C + kBN - 1) / kBN, tn1 = (p.C + kBN - 1) / kBN;
   const int k_tiles = (p.C + wgk::kBK - 1) / wgk::kBK;
@@ -736,45 +740,22 @@ wb_wg_qkvg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant_
                        t % tn * kBN, second ? p.C : 3 * p.C, 0, k_tiles, second ? 1 : 0};
   };
   auto epi = [&](const wgk::Job<1>& j, float (&acc)[1][kBN / 2]) {
-    const wgk::Frag f;
-    float* out = j.problem ? p.g : p.qkv;
-#pragma unroll
-    for (int i = 0; i < kBN / 2; i += 2) {
-      const int m = j.m0 + f.row(i), n = j.n0 + f.col(i);
-      if (m >= j.M || n >= j.N) continue;  // N is a multiple of 8, n even
-      float v0 = acc[0][i], v1 = acc[0][i + 1];
-      if (!j.problem) {
-        v0 += __ldg(p.bqkv + n);
-        v1 += __ldg(p.bqkv + n + 1);
-      }
-      *reinterpret_cast<float2*>(out + (size_t)m * j.N + n) = make_float2(v0, v1);
-    }
+    store_tile<kBN, true>(tile, j.problem ? &mg : &mqkv, j, acc[0], j.problem ? nullptr : p.bqkv);
   };
-  wgk::streamed_tiles<kBN, false, true, wgk::kStreamStages<kBN>, 1, false>(
-      smem_raw, rt * (tn0 + tn1), plan, epi);
+  wgk::streamed_tiles<kBN, false, true, Smem::kStages, 1, false>(smem_raw, qkvg_tiles(p, kBN), plan,
+                                                                 epi);
+  if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last store has left shared memory
 }
 
-// (b) dx = dqkv Wqkv^T: A = dqkv [R, 3C] bf16 K-major, B^T = Wqkv [C, 3C]
-// K-major as it lies; each 128 x kBN tile of dx rounded to bf16 and staged
-// in shared memory (128-byte swizzled boxes) for a TMA store, which leaves
-// out the rows past R and the columns past C. One stage fewer than
-// kStreamStages makes room for the staged tile.
-template <int kBN>
-struct DxSmem {
-  static constexpr int kStages = wgk::kStreamStages<kBN> - 1;
-  // from the 1,024-byte aligned start: the ring's tiles and a 1 KB page for
-  // its barriers, then the staged tile
-  static constexpr size_t kStaged =
-      (size_t)kStages * wgk::Ring<kBN, false, false, kStages>::kStageBytes + 1024;
-  static constexpr size_t kBytes = 1024 + kStaged + (size_t)wgk::kBM * kBN * 2;
-};
-
+// The backward's dx = dqkv Wqkv^T: A = dqkv [R, 3C] bf16 K-major, B^T =
+// Wqkv [C, 3C] K-major as it lies; each tile of dx rounded to bf16 and
+// stored by TMA (store_tile).
 template <int kBN>
 __global__ void __launch_bounds__(wgk::kThreads, 1)
 wb_wg_dx_kernel(const __grid_constant__ CUtensorMap mdqkv, const __grid_constant__ CUtensorMap mwqkv,
                 const __grid_constant__ CUtensorMap mdx, int R, int C) {
   extern __shared__ uint8_t smem_raw[];
-  uint8_t* tile = wgk::align1024(smem_raw) + DxSmem<kBN>::kStaged;
+  uint8_t* tile = wgk::align1024(smem_raw) + StoreSmem<kBN>::kStaged;
   const int tn = (C + kBN - 1) / kBN;
   const int tiles = (R + wgk::kBM - 1) / wgk::kBM * tn;
   const int k_tiles = (3 * C + wgk::kBK - 1) / wgk::kBK;
@@ -782,27 +763,33 @@ wb_wg_dx_kernel(const __grid_constant__ CUtensorMap mdqkv, const __grid_constant
     return wgk::Job<1>{{&mdqkv}, {&mwqkv}, t / tn * wgk::kBM, R, t % tn * kBN, C, 0, k_tiles, 0};
   };
   auto epi = [&](const wgk::Job<1>& j, float (&acc)[1][kBN / 2]) {
-    const wgk::Frag f;
-    if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last tile's store has read the tile
-    wgk::consumers_sync();
-#pragma unroll
-    for (int jj = 0; jj < kBN / 8; ++jj) {
-#pragma unroll
-      for (int r = 0; r < 2; ++r) {
-        const int i = 4 * jj + 2 * r;
-        wgk::stage_pair(tile, f.row(i), f.col(i), wgk::pack_bf16(acc[0][i], acc[0][i + 1]));
-      }
-    }
-    wgk::fence_async_smem();
-    wgk::consumers_sync();  // the tile is staged
-    if (threadIdx.x == 0) {
-#pragma unroll
-      for (int b = 0; b < kBN / 64; ++b)
-        wgk::tma_store(&mdx, tile + b * wgk::kBM * 128, j.n0 + 64 * b, j.m0);
-      wgk::tma_store_commit();
-    }
+    store_tile<kBN, false>(tile, &mdx, j, acc[0], nullptr);
   };
-  wgk::streamed_tiles<kBN, false, false, DxSmem<kBN>::kStages, 1>(smem_raw, tiles, plan, epi);
+  wgk::streamed_tiles<kBN, false, false, StoreSmem<kBN>::kStages, 1>(smem_raw, tiles, plan, epi);
+  if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last store has left shared memory
+}
+
+// The forward's y = ao Wproj + bproj: A = the attention's bf16 ao [R, C]
+// K-major, B = Wproj [C, C] MN-major as it lies; bproj added to the f32
+// sums, then each value rounded to bf16 once and stored by TMA
+// (store_tile).
+template <int kBN>
+__global__ void __launch_bounds__(wgk::kThreads, 1)
+wb_wg_y_kernel(const __grid_constant__ CUtensorMap mao, const __grid_constant__ CUtensorMap mwproj,
+               const __grid_constant__ CUtensorMap my, const float* __restrict__ bproj, int R,
+               int C) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* tile = wgk::align1024(smem_raw) + StoreSmem<kBN>::kStaged;
+  const int tn = (C + kBN - 1) / kBN;
+  const int tiles = (R + wgk::kBM - 1) / wgk::kBM * tn;
+  const int k_tiles = (C + wgk::kBK - 1) / wgk::kBK;
+  auto plan = [&](int t) {
+    return wgk::Job<1>{{&mao}, {&mwproj}, t / tn * wgk::kBM, R, t % tn * kBN, C, 0, k_tiles, 0};
+  };
+  auto epi = [&](const wgk::Job<1>& j, float (&acc)[1][kBN / 2]) {
+    store_tile<kBN, false>(tile, &my, j, acc[0], bproj);
+  };
+  wgk::streamed_tiles<kBN, false, true, StoreSmem<kBN>::kStages, 1>(smem_raw, tiles, plan, epi);
   if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last store has left shared memory
 }
 
@@ -822,6 +809,101 @@ __device__ __forceinline__ void store_head4(T* row, int c, float4 v, int hd) {
 #pragma unroll
   for (int k = 0; k < 4; ++k)
     if (4 * c + k < hd) put_elem(row + 4 * c + k, e[k]);
+}
+
+// The attention of #1-bf16, #2-bf16 and #4-bf16 per (window, head) pair, on
+// the chunk walk of #6/#7 (focal::ring_walk: a persistent grid, the rows of
+// q, k and v staged by cp.async from the f32 qkv workspace into a two-slot
+// ring, the next chunk's copies in flight while this one computes; one
+// slot where a head is too wide for two; the exact 9-key row tile where N
+// = 9). Query row i of each pair: the scores, softmax of q k^T + rel_bias
+// (+ the shifted-window mask) and dropout in f32 registers (the keep flags
+// drawn by focal::keep_bits_row, the G lanes of a row sharing its Philox
+// words, and written out as uint8 [B, H, N, N]), then ao_i = a_v v rounded
+// once to bf16 into ao [R, C] at the head's columns: the layout and type
+// the output projection reads by TMA.
+struct AttnFwdArgs {
+  const float* qkv;        // [R, 3C] f32, q pre-scaled
+  const float* rel_bias;   // [H, N, N]
+  const float* mask;       // [nW, N, N] or null
+  bf16* ao;                // [R, C]
+  unsigned char* keep;     // [B, H, N, N] (kDropout)
+  unsigned long long seed;
+  unsigned threshold;
+  float inv_keep;
+  int C, nW, two_slots;
+};
+
+template <int kN, int kCols, bool kDropout, bool kAnyHd>
+__global__ void __launch_bounds__(kThreads, 2)
+attn_fwd_bf16_kernel(const AttnFwdArgs a, const focal::Geo g) {
+  extern __shared__ float4 smem4[];
+  const int N = kN < kMaxN ? kN : g.N, slab = g.pairs * N * g.stride;
+  const int C = a.C, hd = g.hd;
+  float* ring = reinterpret_cast<float*>(smem4);  // [slots][q, k, v][P][N][stride]
+  const focal::Strides sq = qkv_strides(N, C, hd);
+  const focal::Operands<float> in{{a.qkv, a.qkv + C, a.qkv + 2 * C, nullptr}, {sq, sq, sq, {}}};
+  auto stage = [&](int chunk, float* slot) {
+    focal::stage_chunk_async<3, kAnyHd>(in, chunk, g, slot);
+  };
+  auto land = [](int, float*) {};
+  focal::ring_walk(g, ring, 3 * slab, a.two_slots != 0, stage, land, [&](int chunk, float* qs) {
+    const int p0 = chunk * g.pairs, np = focal::chunk_pairs(g, chunk);
+    const float* ks = qs + slab;
+    const float* vs = ks + slab;
+    const focal::Row t = focal::thread_row(g, p0, np);
+    const float* brow = a.rel_bias + (t.h * N + t.i) * N;
+    const float* mrow = a.mask ? a.mask + ((size_t)(t.w % a.nW) * N + t.i) * N : nullptr;
+    float bias[kN];  // the row's bias and mask, loaded ahead of the products
+#pragma unroll
+    for (int j = 0; j < kN; ++j)
+      if (focal::key_in_row<kN>(j, N)) bias[j] = __ldg(brow + j);
+    float mk[kN];
+    if (mrow) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (focal::key_in_row<kN>(j, N)) mk[j] = __ldg(mrow + j);
+    }
+    unsigned kept = ~0u;
+    if (kDropout) {
+      kept = focal::keep_bits_row(a.seed, (unsigned)t.w, t.h, t.i, N, a.threshold, t.lane, g.lanes);
+      if (t.active) {
+        unsigned char* kr = a.keep + (((size_t)t.w * g.H + t.h) * N + t.i) * N;
+        for (int j = t.lane; j < N; j += g.lanes) kr[j] = (kept >> j) & 1u;
+      }
+    }
+    float p[kN];
+    focal::row_dots<kCols>(qs + t.r * g.stride, ks + t.pl * N * g.stride, g, t.lane, p);
+#pragma unroll
+    for (int j = 0; j < kN; ++j) {
+      if (focal::key_in_row<kN>(j, N)) {
+        p[j] += bias[j];
+        if (mrow) p[j] += mk[j];
+      }
+    }
+    focal::softmax_scores(p, N);
+    if (kDropout) {
+#pragma unroll
+      for (int j = 0; j < kN; ++j)
+        if (focal::key_in_row<kN>(j, N)) p[j] = (kept >> j) & 1u ? p[j] * a.inv_keep : 0.f;
+    }
+    const float* vb = vs + t.pl * N * g.stride;
+    bf16* o = a.ao + ((size_t)t.w * N + t.i) * C + t.h * hd;
+    focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
+      float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int j = 0; j < kN; ++j) {
+        if (focal::key_in_row<kN>(j, N)) {
+          const float4 y = *reinterpret_cast<const float4*>(vb + j * g.stride + 4 * c);
+          acc.x = fmaf(p[j], y.x, acc.x);
+          acc.y = fmaf(p[j], y.y, acc.y);
+          acc.z = fmaf(p[j], y.z, acc.z);
+          acc.w = fmaf(p[j], y.w, acc.w);
+        }
+      }
+      if (t.active) store_head4<kAnyHd>(o, c, acc, hd);
+    });
+  });
 }
 
 // The attention backward of #3-bf16 and #5-bf16 per (window, head) pair, on
@@ -1085,22 +1167,38 @@ attn_bwd_bf16_kernel(const AttnBwdArgs a, const focal::Geo g) {
   }
 }
 
-// The bf16 attention backward's shared memory, in floats: the ring (two
-// slots, or one with kWide), dq's f32 rows (not kWide), ds and a_v, d
-// rel_bias, dbqkv (not kWide); at least the 2,048 of dbproj's sums.
+// The bf16 attentions' shared memory, in floats: the forward's ring (two
+// slots of q, k, v rows, or one where wide); the backward's ring (two
+// slots of q, k, v, g rows, or one with kWide), dq's f32 rows (not kWide),
+// ds and a_v, d rel_bias, dbqkv (not kWide), at least the 2,048 of dbproj's
+// sums.
+size_t attn_fwd16_floats(const focal::Geo& g, bool wide) {
+  return (size_t)(wide ? 3 : 6) * g.pairs * g.N * g.stride;
+}
+
 size_t attn_bwd16_floats(const focal::Geo& g, int C, bool wide) {
   const size_t slab = (size_t)g.pairs * g.N * g.stride, nn = (size_t)g.N * g.N;
   const size_t f = (wide ? 4 : 9) * slab + 2 * g.pairs * nn + g.H * nn + (wide ? 0 : 3 * (size_t)C);
   return std::max<size_t>(f, 2048);
 }
 
+using AttnFwd16 = void (*)(AttnFwdArgs, focal::Geo);
 using AttnBwd16 = void (*)(AttnBwdArgs, focal::Geo);
 
 // The instance for a geometry: the exact 9-key tile at N = 9 (two float4
 // columns a lane unrolled where a lane takes exactly two), any N up to 16
 // otherwise; heads that are not a multiple of 4 (or wider than 1,024)
-// staged by kAnyHd's loop, 4 bytes at a time; kWide where two slots do not
-// fit.
+// staged by kAnyHd's loop, 4 bytes at a time; in the backward kWide where
+// two slots do not fit (the forward takes its slots at run time).
+template <bool kDropout>
+AttnFwd16 attn_fwd16_kernel(const focal::Geo& g) {
+  if (g.hd % 4 != 0 || g.c4 > kThreads) return attn_fwd_bf16_kernel<kMaxN, 0, kDropout, true>;
+  if (g.N == 9)
+    return g.c4 == 2 * g.lanes ? attn_fwd_bf16_kernel<9, 2, kDropout, false>
+                               : attn_fwd_bf16_kernel<9, 0, kDropout, false>;
+  return attn_fwd_bf16_kernel<kMaxN, 0, kDropout, false>;
+}
+
 template <bool kDropout>
 AttnBwd16 attn_bwd16_kernel(const focal::Geo& g, bool wide) {
   if (wide) return attn_bwd_bf16_kernel<kMaxN, 0, kDropout, true, true>;
@@ -1112,60 +1210,114 @@ AttnBwd16 attn_bwd16_kernel(const focal::Geo& g, bool wide) {
   return attn_bwd_bf16_kernel<kMaxN, 0, kDropout, false, false>;
 }
 
-// Launch plan of the bf16 backward, once a geometry and device: the
-// attention's geometry (make_geo's pairs, fewer where two slots do not fit
-// a block's shared memory, then one slot), instance, shared memory and
-// persistent grid; the products' tile widths; the weight gradients' row
-// splits (wgrad_splits); the workspace, in floats, each array 16-byte
-// aligned: qkv [R, 3C] and g [R, C] f32, dqkv [R, 3C] and ao [R, C] bf16,
-// the attention blocks' partials of dbqkv [grid][3C], dbproj [grid][C] and d
-// rel_bias [grid][H N N], the weight-gradient split partials [splits][4 C^2].
-struct BwdPlan16 {
+// A bf16 attention's ring on the current device: make_geo's pairs a chunk,
+// fewer where floats(geo, wide) floats do not fit a block's shared memory,
+// then (wide) one slot with make_geo's pairs, and fewer again. Then the
+// instance's shared memory, its limit raised, and its persistent grid (as
+// many blocks as fit the card at once, at most one a chunk). An error where
+// one pair in one slot does not fit.
+struct Ring16 {
   focal::Geo geo;
+  bool wide;
+  size_t smem;
+  int grid, sms;
+  cudaError_t err;
+};
+
+template <class Kernel, class Floats, class Pick>
+Ring16 plan_ring16(int B, int N, int C, int H, const Floats& floats, const Pick& pick,
+                   Kernel* kernel) {
+  Ring16 r{};
+  int optin = 0, per_sm = 0;
+  r.err = device_attr(cudaDevAttrMultiProcessorCount, &r.sms);
+  if (r.err == cudaSuccess) r.err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
+  if (r.err != cudaSuccess) return r;
+  const focal::Geo full = focal::make_geo(B, H, N, C / H);
+  r.geo = full;
+  while (floats(r.geo, r.wide) * sizeof(float) > (size_t)optin) {
+    if (r.geo.pairs > 1) {
+      --r.geo.pairs;
+    } else if (!r.wide) {
+      r.wide = true;
+      r.geo.pairs = full.pairs;
+    } else {
+      r.err = cudaErrorInvalidValue;
+      return r;
+    }
+  }
+  r.smem = floats(r.geo, r.wide) * sizeof(float);
+  *kernel = pick(r.geo, r.wide);
+  r.err = focal::raise_smem(*kernel, r.smem);
+  if (r.err == cudaSuccess)
+    r.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, *kernel, kThreads, r.smem);
+  if (r.err == cudaSuccess && per_sm < 1) r.err = cudaErrorInvalidConfiguration;
+  if (r.err != cudaSuccess) return r;
+  const long long nchunks = (r.geo.total + r.geo.pairs - 1) / r.geo.pairs;
+  r.grid = (int)std::min<long long>(nchunks, (long long)per_sm * r.sms);
+  return r;
+}
+
+size_t bf16_floats(size_t n) { return (n + 7) / 8 * 4; }
+
+// Launch plan of the bf16 forward: the attention's ring (plan_ring16) and
+// instance, the products' tile widths, the workspace in floats: qkv [R, 3C]
+// f32, then ao [R, C] bf16 (16-byte aligned: C is a multiple of 8).
+struct FwdPlan16 {
+  Ring16 ring;
+  AttnFwd16 attn;
+  int qbn, ybn;
+  size_t qkv, ao, total;
+  cudaError_t err;
+};
+
+FwdPlan16 make_fwd_plan16(int B, int N, int C, int H, bool dropout) {
+  FwdPlan16 P{};
+  P.ring = plan_ring16(
+      B, N, C, H, attn_fwd16_floats,
+      [&](const focal::Geo& g, bool) {
+        return dropout ? attn_fwd16_kernel<true>(g) : attn_fwd16_kernel<false>(g);
+      },
+      &P.attn);
+  P.err = P.ring.err;
+  const int R = B * N;
+  P.qbn = tile_bn(3 * C, 0);
+  P.ybn = tile_bn(C, 0);
+  P.qkv = 0;
+  P.ao = (size_t)R * 3 * C;
+  P.total = P.ao + bf16_floats((size_t)R * C);
+  return P;
+}
+
+// Launch plan of the bf16 backward: the attention's ring (plan_ring16) and
+// instance; the products' tile widths; the weight gradients' row splits
+// (wgrad_splits); the workspace, in floats, each array 16-byte aligned: qkv
+// [R, 3C] and g [R, C] f32, dqkv [R, 3C] and ao [R, C] bf16, the attention
+// blocks' partials of dbqkv [grid][3C], dbproj [grid][C] and d rel_bias
+// [grid][H N N], the weight-gradient split partials [splits][4 C^2].
+struct BwdPlan16 {
+  Ring16 ring;
   AttnBwd16 attn;
-  size_t attn_smem;
-  int attn_grid, sms, qbn, dbn, wbn, splits, rows_per_split;
+  int qbn, dbn, wbn, splits, rows_per_split;
   size_t qkv, g, dqkv, ao, dbqkv, dbproj, dbias, wpart, total;
   cudaError_t err;
 };
 
-size_t bf16_floats(size_t n) { return (n + 7) / 8 * 4; }
-
 BwdPlan16 make_bwd_plan16(int B, int N, int C, int H, bool dropout) {
   BwdPlan16 P{};
-  int optin = 0, per_sm = 0;
-  P.err = device_attr(cudaDevAttrMultiProcessorCount, &P.sms);
-  if (P.err == cudaSuccess) P.err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
+  P.ring = plan_ring16(
+      B, N, C, H, [&](const focal::Geo& g, bool wide) { return attn_bwd16_floats(g, C, wide); },
+      [&](const focal::Geo& g, bool wide) {
+        return dropout ? attn_bwd16_kernel<true>(g, wide) : attn_bwd16_kernel<false>(g, wide);
+      },
+      &P.attn);
+  P.err = P.ring.err;
   if (P.err != cudaSuccess) return P;
-  const focal::Geo full = focal::make_geo(B, H, N, C / H);
-  P.geo = full;
-  bool wide = false;
-  while (attn_bwd16_floats(P.geo, C, wide) * sizeof(float) > (size_t)optin) {
-    if (P.geo.pairs > 1) {
-      --P.geo.pairs;
-    } else if (!wide) {
-      wide = true;
-      P.geo.pairs = full.pairs;
-    } else {
-      P.err = cudaErrorInvalidValue;
-      return P;
-    }
-  }
-  P.attn_smem = attn_bwd16_floats(P.geo, C, wide) * sizeof(float);
-  P.attn = dropout ? attn_bwd16_kernel<true>(P.geo, wide) : attn_bwd16_kernel<false>(P.geo, wide);
-  P.err = focal::raise_smem(P.attn, P.attn_smem);
-  if (P.err == cudaSuccess)
-    P.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, P.attn, kThreads, P.attn_smem);
-  if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
-  if (P.err != cudaSuccess) return P;
-  const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
-  P.attn_grid = (int)std::min<long long>(nchunks, (long long)per_sm * P.sms);
-  const int R = B * N;
+  const int R = B * N, grid = P.ring.grid;
   P.qbn = tile_bn(3 * C, C);
   P.dbn = tile_bn(C, 0);
   P.wbn = tile_bn(3 * C, C);
   const int wtiles = wgk::wgrad_tiles(C, 3 * C, P.wbn) + wgk::wgrad_tiles(C, C, P.wbn);
-  const wgk::WgradSplits ws = wgk::wgrad_splits(R, wtiles, P.sms);
+  const wgk::WgradSplits ws = wgk::wgrad_splits(R, wtiles, P.ring.sms);
   P.splits = ws.splits;
   P.rows_per_split = ws.rows_per_split;
   const size_t E = (size_t)4 * C * C, nn = (size_t)N * N;
@@ -1174,23 +1326,25 @@ BwdPlan16 make_bwd_plan16(int B, int N, int C, int H, bool dropout) {
   P.g = o, o += (size_t)R * C;
   P.dqkv = o, o += bf16_floats((size_t)R * 3 * C);
   P.ao = o, o += bf16_floats((size_t)R * C);
-  P.dbqkv = o, o += (size_t)P.attn_grid * 3 * C;
-  P.dbproj = o, o += (size_t)P.attn_grid * C;
-  P.dbias = o, o += ((size_t)P.attn_grid * H * nn + 3) / 4 * 4;
+  P.dbqkv = o, o += (size_t)grid * 3 * C;
+  P.dbproj = o, o += (size_t)grid * C;
+  P.dbias = o, o += ((size_t)grid * H * nn + 3) / 4 * 4;
   P.wpart = o, o += (size_t)P.splits * E;
   P.total = o;
   return P;
 }
 
-// make_bwd_plan16 once a geometry and device: its attribute and occupancy
-// queries cost host time a call would otherwise pay.
-BwdPlan16 bwd_plan16(int B, int N, int C, int H, bool dropout) {
+// make(B, N, C, H, dropout) once a geometry and device (one cache a plan
+// type): its attribute and occupancy queries cost host time a call would
+// otherwise pay.
+template <class Plan>
+Plan cached_plan(int B, int N, int C, int H, bool dropout, Plan (*make)(int, int, int, int, bool)) {
   static std::mutex mutex;
-  static std::map<std::array<int, 6>, BwdPlan16> plans;
+  static std::map<std::array<int, 6>, Plan> plans;
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) {
-    BwdPlan16 P{};
+    Plan P{};
     P.err = err;
     return P;
   }
@@ -1198,24 +1352,77 @@ BwdPlan16 bwd_plan16(int B, int N, int C, int H, bool dropout) {
   std::lock_guard<std::mutex> lock(mutex);
   const auto it = plans.find(key);
   if (it != plans.end()) return it->second;
-  const BwdPlan16 P = make_bwd_plan16(B, N, C, H, dropout);
+  const Plan P = make(B, N, C, H, dropout);
   if (P.err == cudaSuccess) plans.emplace(key, P);
   return P;
 }
 
-template <int kBN>
-int launch_qkvg(const CUtensorMap (&m)[4], const QkvgArgs& a, int sms, cudaStream_t s) {
-  const int tiles =
-      (a.R + wgk::kBM - 1) / wgk::kBM * ((3 * a.C + kBN - 1) / kBN + (a.C + kBN - 1) / kBN);
-  return wgk::launch(wb_wg_qkvg_kernel<kBN>, std::min(tiles, sms),
-                     wgk::stream_smem<kBN, false, true>(), s, m[0], m[1], m[2], m[3], a);
+FwdPlan16 fwd_plan16(int B, int N, int C, int H, bool dropout) {
+  return cached_plan(B, N, C, H, dropout, make_fwd_plan16);
+}
+
+BwdPlan16 bwd_plan16(int B, int N, int C, int H, bool dropout) {
+  return cached_plan(B, N, C, H, dropout, make_bwd_plan16);
 }
 
 template <int kBN>
-int launch_dx(const CUtensorMap (&m)[3], int R, int C, int sms, cudaStream_t s) {
+int launch_qkvg(const CUtensorMap (&m)[6], const QkvgArgs& a, int sms, cudaStream_t s) {
+  return wgk::launch(wb_wg_qkvg_kernel<kBN>, std::min(qkvg_tiles(a, kBN), sms),
+                     StoreSmem<kBN, true>::kBytes, s, m[0], m[1], m[2], m[3], m[4], m[5], a);
+}
+
+// dx (wb_wg_dx_kernel) or y (wb_wg_y_kernel): [R, C] in kBN-wide tiles.
+template <int kBN, class Kernel, class... Args>
+int launch_store(Kernel kernel, const CUtensorMap (&m)[3], int R, int C, int sms, cudaStream_t s,
+                 const Args&... args) {
   const int tiles = (R + wgk::kBM - 1) / wgk::kBM * ((C + kBN - 1) / kBN);
-  return wgk::launch(wb_wg_dx_kernel<kBN>, std::min(tiles, sms), DxSmem<kBN>::kBytes, s, m[0], m[1],
-                     m[2], R, C);
+  return wgk::launch(kernel, std::min(tiles, sms), StoreSmem<kBN>::kBytes, s, m[0], m[1], m[2],
+                     args...);
+}
+
+// The bf16 forward's three launches on `stream` (focal_wblock_fwd_bf16):
+// (a) qkv = x Wqkv + bqkv in f32 (wb_wg_qkvg_kernel, problem 0 alone), (b)
+// the attention (attn_fwd_bf16_kernel: ao in bf16, the keep mask), (c) y =
+// ao Wproj + bproj in bf16 (wb_wg_y_kernel).
+int wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
+                    const void* bproj, const void* rel_bias, const void* mask, void* y,
+                    void* keep, void* ws, int B, int N, int C, int H, int nW,
+                    unsigned long long seed, unsigned threshold, float inv_keep, void* stream) {
+  if (check_geometry(N, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
+    return (int)cudaErrorInvalidValue;
+  if (B == 0) return 0;
+  const FwdPlan16 P = fwd_plan16(B, N, C, H, keep != nullptr);
+  if (P.err != cudaSuccess) return (int)P.err;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int R = B * N, sms = P.ring.sms;
+  float* w = static_cast<float*>(ws);
+  float* qkv = w + P.qkv;
+  bf16* ao = reinterpret_cast<bf16*>(w + P.ao);
+  // (a) qkv = x Wqkv + bqkv: A = x K-major, B = Wqkv MN-major as it lies
+  CUtensorMap mq[6];
+  if (int e = wgk::map(&mq[0], x, R, C, wgk::kBM)) return e;
+  if (int e = wgk::map(&mq[1], wqkv, C, 3 * C, 64)) return e;
+  if (int e = wgk::map(&mq[4], qkv, R, 3 * C, wgk::kBM, true)) return e;
+  mq[2] = mq[0];  // problem 1's maps: no problem 1
+  mq[3] = mq[1];
+  mq[5] = mq[4];
+  const QkvgArgs qa{static_cast<const float*>(bqkv), qkv, nullptr, R, C};
+  if (int e = P.qbn == 128 ? launch_qkvg<128>(mq, qa, sms, s) : launch_qkvg<64>(mq, qa, sms, s))
+    return e;
+  // (b) the attention per (window, head)
+  const AttnFwdArgs aa{qkv, static_cast<const float*>(rel_bias), static_cast<const float*>(mask), ao,
+                       static_cast<unsigned char*>(keep), seed, threshold, inv_keep, C,
+                       mask != nullptr ? nW : 1, P.ring.wide ? 0 : 1};
+  P.attn<<<P.ring.grid, kThreads, P.ring.smem, s>>>(aa, P.ring.geo);
+  if (cudaError_t err = cudaGetLastError()) return (int)err;
+  // (c) y = ao Wproj + bproj: A = ao K-major, B = Wproj MN-major as it lies
+  CUtensorMap my[3];
+  if (int e = wgk::map(&my[0], ao, R, C, wgk::kBM)) return e;
+  if (int e = wgk::map(&my[1], wproj, C, C, 64)) return e;
+  if (int e = wgk::map(&my[2], y, R, C, wgk::kBM)) return e;
+  const float* bp = static_cast<const float*>(bproj);
+  return P.ybn == 128 ? launch_store<128>(wb_wg_y_kernel<128>, my, R, C, sms, s, bp, R, C)
+                      : launch_store<64>(wb_wg_y_kernel<64>, my, R, C, sms, s, bp, R, C);
 }
 
 // The bf16 backward's five launches on `stream` (focal_wblock_bwd_bf16):
@@ -1234,33 +1441,36 @@ int wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
   const BwdPlan16 P = bwd_plan16(B, N, C, H, dropout);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int R = B * N;
+  const int R = B * N, sms = P.ring.sms;
   float* w = static_cast<float*>(ws);
   float *qkv = w + P.qkv, *g = w + P.g;
   bf16* dqkv = reinterpret_cast<bf16*>(w + P.dqkv);
   bf16* ao = reinterpret_cast<bf16*>(w + P.ao);
   // (a) qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
-  CUtensorMap mq[4];
+  CUtensorMap mq[6];
   if (int e = wgk::map(&mq[0], x, R, C, wgk::kBM)) return e;
   if (int e = wgk::map(&mq[1], wqkv, C, 3 * C, 64)) return e;
   if (int e = wgk::map(&mq[2], dy, R, C, wgk::kBM)) return e;
   if (int e = wgk::map(&mq[3], wproj, C, C, P.qbn)) return e;
+  if (int e = wgk::map(&mq[4], qkv, R, 3 * C, wgk::kBM, true)) return e;
+  if (int e = wgk::map(&mq[5], g, R, C, wgk::kBM, true)) return e;
   const QkvgArgs qa{static_cast<const float*>(bqkv), qkv, g, R, C};
-  if (int e = P.qbn == 128 ? launch_qkvg<128>(mq, qa, P.sms, s) : launch_qkvg<64>(mq, qa, P.sms, s))
+  if (int e = P.qbn == 128 ? launch_qkvg<128>(mq, qa, sms, s) : launch_qkvg<64>(mq, qa, sms, s))
     return e;
   // (b) the attention backward per (window, head)
   const AttnBwdArgs aa{qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
                        static_cast<const unsigned char*>(keep), static_cast<const bf16*>(dy), dqkv,
                        ao, w + P.dbqkv, w + P.dbproj, w + P.dbias, inv_keep, C,
                        mask != nullptr ? nW : 1, R};
-  P.attn<<<P.attn_grid, kThreads, P.attn_smem, s>>>(aa, P.geo);
+  P.attn<<<P.ring.grid, kThreads, P.ring.smem, s>>>(aa, P.ring.geo);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   // (c) dx = dqkv Wqkv^T: A = dqkv K-major, B^T = Wqkv K-major as it lies
   CUtensorMap md[3];
   if (int e = wgk::map(&md[0], dqkv, R, 3 * C, wgk::kBM)) return e;
   if (int e = wgk::map(&md[1], wqkv, C, 3 * C, P.dbn)) return e;
   if (int e = wgk::map(&md[2], dx, R, C, wgk::kBM)) return e;
-  if (int e = P.dbn == 128 ? launch_dx<128>(md, R, C, P.sms, s) : launch_dx<64>(md, R, C, P.sms, s))
+  if (int e = P.dbn == 128 ? launch_store<128>(wb_wg_dx_kernel<128>, md, R, C, sms, s, R, C)
+                            : launch_store<64>(wb_wg_dx_kernel<64>, md, R, C, sms, s, R, C))
     return e;
   // (d) dWqkv = x^T dqkv and dWproj = ao^T dy over the row splits, all four
   //     operands MN-major as they lie
@@ -1270,18 +1480,18 @@ int wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
   if (int e = wgk::map(&mw[2], ao, R, C, 64)) return e;
   if (int e = wgk::map(&mw[3], dy, R, C, 64)) return e;
   const wgk::WgradArgs wa{w + P.wpart, R, C, 3 * C, C, C, P.rows_per_split, P.splits, 0};
-  if (int e = wgk::launch_wgrad<Src>(mw, wa, P.wbn, P.sms, s)) return e;
+  if (int e = wgk::launch_wgrad<Src>(mw, wa, P.wbn, sms, s)) return e;
   // (e) the weights over the splits in split order; dbqkv, dbproj and d
   //     rel_bias over the attention blocks in block order
   const wgk::ReduceArgs ra{w + P.wpart, w + P.dbqkv, w + P.dbproj, w + P.dbias,
                            static_cast<float*>(dweights), static_cast<float*>(drel_bias),
-                           P.splits, P.attn_grid, C, 3 * C, C, C, H * N * N};
+                           P.splits, P.ring.grid, C, 3 * C, C, C, H * N * N};
   return wgk::launch_reduce<Src>(ra, s);
 }
 
 }  // namespace
 
-// Workspace of the forward (#1, #2, #4 and their bf16 forms), in floats: the qkv projection
+// Workspace of the f32 forward (#1, #2, #4), in floats: the qkv projection
 // [R, 3C] and the attention output [R, C], R = B N. An error where the
 // attention has no launch plan (a head too wide for shared memory).
 extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long* floats) {
@@ -1310,20 +1520,46 @@ extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const v
                                         void* keep, void* ws, int B, int N, int C, int H, int nW,
                                         unsigned long long seed, unsigned threshold,
                                         float inv_keep, void* stream) {
-  return wblock_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, y, keep, ws, B, N, C, H, nW,
-                    seed, threshold, inv_keep, stream, false);
+  return wblock_fwd(static_cast<const float*>(x), static_cast<const float*>(wqkv),
+                    static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
+                    static_cast<const float*>(bproj), rel_bias, mask, static_cast<float*>(y), keep,
+                    ws, B, N, C, H, nW, seed, threshold, inv_keep, stream);
 }
 
-// The forward in bf16 (#1-bf16 with `keep` null, #2-bf16 with it; #4-bf16): as
-// focal_wblock_fwd_dropout, with x, wqkv, wproj and y bf16 (bqkv, bproj,
-// rel_bias and mask f32) and C a multiple of 8; the same workspace.
+// Workspace the bf16 forward (#1-bf16, #2-bf16, #4-bf16; `dropout` for the
+// instance with a keep mask) needs, in floats, for this geometry on the
+// current device (make_fwd_plan16): qkv [R, 3C] f32 and the attention
+// output [R, C] bf16. An error where C is not a multiple of 8 or the
+// attention has no launch plan.
+extern "C" int focal_wblock_fwd_workspace_bf16(int B, int N, int C, int H, int dropout,
+                                               long long* floats) {
+  if (check_geometry(N, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (B == 0) {
+    *floats = 0;
+    return 0;
+  }
+  const FwdPlan16 P = fwd_plan16(B, N, C, H, dropout != 0);
+  if (P.err != cudaSuccess) return (int)P.err;
+  *floats = (long long)P.total;
+  return 0;
+}
+
+// The forward in bf16 (#1-bf16 with `keep` null, #2-bf16 with it; #4-bf16):
+// focal_wblock_fwd_dropout's function with x, wqkv [C, 3C], wproj [C, C]
+// and y bf16 (C a multiple of 8; the weights read as they lie), bqkv,
+// bproj, rel_bias and mask f32: qkv = x Wqkv + bqkv kept in f32, the
+// softmax and dropout in f32, the attention output rounded once to bf16, y
+// rounded once after the bias. x, the weights, y and `ws` 16-byte aligned;
+// `ws` holds focal_wblock_fwd_workspace_bf16 floats. Three launches on
+// `stream` (wblock_fwd_bf16). An error code at or above 100000 is libcuda's
+// refusal of a tensor map (CUresult + 100000).
 extern "C" int focal_wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv,
                                      const void* wproj, const void* bproj, const void* rel_bias,
                                      const void* mask, void* y, void* keep, void* ws, int B, int N,
                                      int C, int H, int nW, unsigned long long seed,
                                      unsigned threshold, float inv_keep, void* stream) {
-  return wblock_fwd(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, y, keep, ws, B, N, C, H, nW,
-                    seed, threshold, inv_keep, stream, true);
+  return wblock_fwd_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, y, keep, ws, B, N, C, H, nW,
+                         seed, threshold, inv_keep, stream);
 }
 
 // Workspace the backward (#3, #5) needs, in floats, for this geometry on the

@@ -4,11 +4,12 @@
 // share. A block owns P consecutive (window, head) pairs of [B, H, N, hd]
 // operands; G lanes serve one query row; scores and softmax stay in
 // registers (the design note of window_attention.cu). #6-#9 and the bf16
-// whole-block backward (#3-bf16, #5-bf16) also share the staging of a
-// persistent grid's chunks of P pairs into a two-slot cp.async ring
-// (Operands, stage_chunk_async), the stores and the exact 9-key row tile
-// (kN = 9); ring_walk is that walk as a function, which the whole-block
-// backward runs (#6-#9 keep the same loop inline).
+// whole-block kernels (the forward #1-, #2-, #4-bf16 and the backward
+// #3-bf16, #5-bf16) also share the staging of a persistent grid's chunks of
+// P pairs into a two-slot cp.async ring (Operands, stage_chunk_async), the
+// stores and the exact 9-key row tile (kN = 9); ring_walk is that walk as a
+// function, which the bf16 whole-block kernels run (#6-#9 keep the same
+// loop inline).
 #pragma once
 
 #include <cuda_bf16.h>

@@ -424,14 +424,19 @@ def _workspace(name, lib, fn, dev, *geometry):
 
 
 def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, bf16=False):
-    """The CUDA path of #1, #2 and #4 (with ``bf16``, #1-bf16 and #2-bf16):
+    """The CUDA path of #1, #2 and #4 (with ``bf16``, #1-bf16, #2-bf16 and
+    #4-bf16, whose workspace comes from focal_wblock_fwd_workspace_bf16):
     validate, size the workspace, launch. Returns (y, keep), keep None at
     rate 0."""
     B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
                                        torch.bfloat16 if bf16 else torch.float32)
     _check_aligned(name, wqkv, wproj)
     lib = _window_block_lib()
-    ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace, x.device, B, N, C, H)
+    if bf16:
+        ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace_bf16, x.device, B, N, C, H,
+                        int(rate > 0.0))
+    else:
+        ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace, x.device, B, N, C, H)
     y = torch.empty_like(x)
     keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
     _launch(name, lib.focal_wblock_fwd_bf16 if bf16 else lib.focal_wblock_fwd_dropout, x.device,
@@ -705,10 +710,11 @@ def fused_window_block_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None):
     C], wqkv [C, 3C] (q columns pre-scaled) and wproj [C, C], with f32 bqkv,
     bproj, rel_bias and mask; returns bf16 y. C a multiple of 8.
 
-    On the card: qkv = x Wqkv + bqkv over all B_ N rows in f32, the
-    attention per (window, head) in f32, y = ao Wproj + bproj with ao
-    rounded to bf16, the products on the bf16 tensor cores (one mma.sync
-    m16n8k16 pass, f32 sums); x, wqkv and wproj 16-byte aligned.
+    On the card, three launches: qkv = x Wqkv + bqkv over all B_ N rows in
+    f32 on ``wgmma`` (TMA-fed, the weights read as they lie); the attention
+    per (window, head) in f32 on a persistent ``cp.async`` ring, its output
+    ao rounded once to bf16; y = ao Wproj + bproj on ``wgmma``, rounded to
+    bf16 once after the bias. x, wqkv and wproj 16-byte aligned.
 
     Replaces focal_tpu/ops/pallas_kernels.py::fused_window_block fed bf16
     (_wblock_fwd_kernel at rate 0). CPU tensors take
@@ -786,9 +792,10 @@ def fused_window_block_perhead_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=
                                     rate=0.0):
     """#4 in bf16 (#4-bf16): the function of #1-bf16 (rate 0) or #2-bf16
     (rate > 0) for the blocks that ``wblock_fits`` sends away from them,
-    computed as #2-bf16 computes it (the same CUDA code: the products on the
-    bf16 tensor cores over all B_ N rows, the attention per (window, head)
-    in f32, ao rounded to bf16 before the output projection). Arguments as
+    computed as #2-bf16 computes it (the same CUDA code: the products on
+    ``wgmma`` over all B_ N rows, the attention per (window, head) in f32 on
+    the ``cp.async`` ring, ao rounded to bf16 once before the output
+    projection). Arguments as
     fused_window_block_dropout_bf16; returns (y bf16, keep uint8 [B_, H, N,
     N], or None at rate 0), the mask #2's for the same seed and geometry.
 
@@ -1462,9 +1469,11 @@ def _window_block_lib():
         lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
         lib.focal_wblock_fwd_bf16.argtypes = lib.focal_wblock_fwd_dropout.argtypes
         lib.focal_wblock_bwd_workspace_bf16.argtypes = lib.focal_wblock_bwd_workspace.argtypes
+        lib.focal_wblock_fwd_workspace_bf16.argtypes = lib.focal_wblock_bwd_workspace.argtypes
         lib.focal_wblock_bwd_bf16.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
-        for fn in (lib.focal_wblock_fwd_workspace, lib.focal_wblock_fwd_dropout, lib.focal_wblock_bwd_workspace,
-                   lib.focal_wblock_bwd, lib.focal_wblock_fwd_bf16, lib.focal_wblock_bwd_workspace_bf16,
+        for fn in (lib.focal_wblock_fwd_workspace, lib.focal_wblock_fwd_dropout,
+                   lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd, lib.focal_wblock_fwd_bf16,
+                   lib.focal_wblock_fwd_workspace_bf16, lib.focal_wblock_bwd_workspace_bf16,
                    lib.focal_wblock_bwd_bf16):
             fn.restype = ctypes.c_int
         lib.focal_gemm_3xtf32.argtypes = [p] * 3 + [i] * 4 + [p]

@@ -933,11 +933,11 @@ def test_every_width_a_gate_admits_has_a_launch_plan():
     for H in (1, 2, 4):
         for hd in list(range(1, 64)) + list(range(64, 2049, 16)):
             C = H * hd
-            # the bf16 backward's own plan (two slots of its ring, or one)
-            ok = all(lib.focal_wblock_bwd_workspace_bf16(7, 9, C, H, d, pk.ctypes.byref(
-                pk.ctypes.c_longlong(0))) == 0 for d in (0, 1))
-            ok = ok and lib.focal_wblock_fwd_workspace(7, 9, C, H, pk.ctypes.byref(
-                pk.ctypes.c_longlong(0))) == 0
+            # the bf16 backward's and forward's own plans (two slots of their
+            # rings, or one)
+            ok = all(fn(7, 9, C, H, d, pk.ctypes.byref(pk.ctypes.c_longlong(0))) == 0
+                     for fn in (lib.focal_wblock_bwd_workspace_bf16,
+                                lib.focal_wblock_fwd_workspace_bf16) for d in (0, 1))
             # zero windows: the bf16 entry points check the geometry and launch nothing
             ok = ok and lib.focal_wblock_fwd_bf16(*null, 0, 9, C, H, 1, 0, 0, 1.0, None) == 0
             ok = ok and lib.focal_wblock_bwd_bf16(*null[:8], 1.0, *null[:4], 0, 9, C, H, 1,
@@ -1434,6 +1434,60 @@ def test_bf16_backward_matches_plain_at_every_recipe_block(C, nW):
     _bf16_backward_case(129 if C <= 256 else 37, 9, C, 4, nW, C + nW)
 
 
+def _bf16_forward_case(B, N, C, H, nW, seed):
+    """#1-bf16 and #2-bf16 (#4-bf16 at rate 0 and 0.2 where wblock_fits
+    refuses) against the bf16 plain version given the kernel's own keep
+    mask: y within 8e-3 of max|y|, the same bits on a second call, one
+    launch counted a call; the keep mask the f32 #2's for the same seed
+    (the same Philox counters)."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    args = _bf16_args(np.random.default_rng(seed), B, N, C, H, nW, dev)
+    f32 = [a.float() if a is not None and a.dtype == torch.bfloat16 else a for a in args]
+    if pk.wblock_fits(N, C, H):
+        runs = {0.0: (pk.fused_window_block_bf16, lambda: (pk.fused_window_block_bf16(*args), None)),
+                0.2: (pk.fused_window_block_dropout_bf16,
+                      lambda: pk.fused_window_block_dropout_bf16(*args, 11, 0.2))}
+    else:
+        fn = pk.fused_window_block_perhead_bf16
+        runs = {r: (fn, lambda r=r: fn(*args, 11, r)) for r in (0.0, 0.2)}
+    for rate, (fn, run) in runs.items():
+        before = fn.launches
+        y, keep = run()
+        again, keep2 = run()
+        torch.cuda.synchronize()
+        assert fn.launches == before + 2
+        assert y.dtype == torch.bfloat16 and torch.equal(y, again), rate
+        if rate:
+            assert keep.dtype == torch.uint8 and torch.equal(keep, keep2)
+            assert torch.equal(keep, pk.fused_window_block_dropout(*f32, 11, 0.2)[1])
+        else:
+            assert keep is None
+        err = _rel(y, pk.fused_window_block_bf16_reference(*args, keep, rate))
+        assert err <= 8e-3, (rate, err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,nW", RECIPE_BLOCKS_BF16)
+def test_bf16_forward_matches_plain_at_every_recipe_block(C, nW):
+    """#1-bf16, #2-bf16 and #4-bf16 at every packaged whole-block width, at
+    rows that are no multiple of the products' 128-row tiles."""
+    _bf16_forward_case(129 if C <= 256 else 37, 9, C, 4, nW, 3 * C + nW)
+
+
+# other windows and heads the bf16 gate admits: N 16 and 4, heads of 5
+# and 12 columns (not multiples of 8 or 4), one head of 1,600 columns, the
+# widest at N 9 (two slots of the attention's ring do not fit: one), and a
+# call of fewer rows than one product tile
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,N,C,H,nW", [(1031, 9, 64, 4, 4), (64, 16, 64, 4, 8),
+                                        (77, 4, 96, 8, 0), (21, 9, 40, 8, 3), (30, 9, 48, 4, 2),
+                                        (3, 9, 1600, 1, 0), (5, 9, 128, 4, 2)])
+def test_bf16_forward_at_the_other_widths_the_gate_admits(B, N, C, H, nW):
+    _bf16_forward_case(B, N, C, H, nW, B + C + nW)
+
+
 # other windows and heads the bf16 gate admits: N 16 and 4, heads of 5
 # and 12 columns (not multiples of 8 or 4), and one head of 1,600 columns,
 # the widest at N 9 (two slots of the attention's ring do not fit: one)
@@ -1448,10 +1502,12 @@ def test_bf16_backward_matches_plain_and_repeats_bitwise(B, N, C, H, nW):
 
 @pytest.mark.gpu
 def test_bf16_backward_kernels_run_on_wgmma():
-    """The bf16 backward's products and weight gradients (wb_wg_*, wg_wgrad)
+    """The bf16 whole-block kernels' products and weight gradients (wb_wg_*:
+    the forward's qkv and y, the backward's qkv and g and dx; wg_wgrad)
     compile to wgmma (HGMMA) and no mma.sync (HMMA), with no wgmma pipeline
-    serialized (ptxas C7510-C7518, C7520; C7519 notes are harmless); its
-    attention and reduction run no mma.sync either."""
+    serialized (ptxas C7510-C7518, C7520; C7519 notes are harmless); their
+    attentions (forward and backward) and reduction run no mma.sync either,
+    and the mma.sync forward (bf16_proj_kernel) is gone."""
     import os
     import re
     import subprocess
@@ -1460,7 +1516,7 @@ def test_bf16_backward_kernels_run_on_wgmma():
 
     _card()
     _build.build_all(("window_block.cu",))
-    ours = ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16")
+    ours = ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16", "attn_fwd_bf16")
     with open(_build.log_path("window_block.cu")) as f:
         serialized = [line for line in f
                       if re.search(r"\(C75(1[0-8]|20)\)", line) and any(k in line for k in ours)]
@@ -1479,6 +1535,7 @@ def test_bf16_backward_kernels_run_on_wgmma():
             counts[fn][0] += "HGMMA" in line
             counts[fn][1] += bool(re.search(r"\bHMMA\b", line))
     assert {k for k in ours if any(k in name for name in counts)} == set(ours), sorted(counts)
+    assert "wb_wg_y_kernel" in " ".join(counts) and "bf16_proj_kernel" not in sass
     for name, (hgmma, hmma) in counts.items():
         assert hmma == 0, name
         assert (hgmma > 0) == ("wb_wg_" in name or "wg_wgrad" in name), (name, hgmma)
@@ -1893,6 +1950,9 @@ def test_f32_fused_mlp_gives_the_parents_bits(T, C):
 # without), whose weight-gradient and reduction kernels moved into
 # csrc/gemm_wgmma.cuh for #3-bf16 and #5-bf16 to share.
 F32_BLOCK_DIGESTS = {(131, 64, 4): "39c4b649a29d468d", (37, 512, 0): "bd829287d44309e1"}
+# The f32 #1, #2 and #4 (_f32_fwd_digest), which the bf16 forward's redesign
+# left as they were, as the parent commit's build gave them (the same card).
+F32_FWD_DIGESTS = {(131, 64, 4): "5fe71663319caea3", (37, 512, 0): "032b542fc947a7fa"}
 MLP_BF16_DIGESTS = {(2311, 64): "187d44466a9c36b4", (301, 256): "0f81bb9b7f29a003"}
 
 
@@ -1920,6 +1980,19 @@ def _f32_block_digest(pk, B, C, nW, dev):
     return _digest(outs)
 
 
+def _f32_fwd_digest(pk, B, C, nW, dev):
+    """#1 and #2 (C <= 256) or #4 at rate 0 and 0.2 (C 512) at N 9, 4
+    heads: y and the keep mask."""
+    args = _args(np.random.default_rng(7 * B + C), B, 9, C, 4, nW, dev)
+    if pk.wblock_fits(9, C, 4):
+        outs = [pk.fused_window_block(*args), *pk.fused_window_block_dropout(*args, 5, 0.2)]
+    else:
+        outs = [pk.fused_window_block_perhead(*args)[0],
+                *pk.fused_window_block_perhead(*args, 5, 0.2)]
+    torch.cuda.synchronize()
+    return _digest(outs)
+
+
 def _mlp_bf16_digest(fm, T, C, dev):
     """#12-bf16 with #11-bf16's masks (seed 9, rate 0.2) and without."""
     rng = np.random.default_rng(3 * T + C)
@@ -1943,6 +2016,19 @@ def test_f32_block_backward_gives_the_parents_bits(B, C, nW):
     assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
         "the digests were taken on a 132-SM H100")
     assert _f32_block_digest(pk, B, C, nW, dev) == F32_BLOCK_DIGESTS[(B, C, nW)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,nW", sorted(F32_FWD_DIGESTS))
+def test_f32_block_forward_gives_the_parents_bits(B, C, nW):
+    """The f32 #1, #2 and #4, whose kernels the bf16 forward's redesign left
+    as they were, give the parent's bits (F32_FWD_DIGESTS)."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
+        "the digests were taken on a 132-SM H100")
+    assert _f32_fwd_digest(pk, B, C, nW, dev) == F32_FWD_DIGESTS[(B, C, nW)]
 
 
 @pytest.mark.gpu
