@@ -317,8 +317,35 @@ result line if any fails):
      an epoch; a served bf16 batch (#6-bf16 16) against the bf16 plain route
      (1e-2); a bf16 WindowAttention at C 12 (no kernel takes it) forward and
      backward on the card, launching nothing.
+ 34. #4-TP and #5-TP (fused_window_block_tp, fused_window_block_tp_backward:
+     #4/#5's CUDA code at a tensor-parallel shard's inner width D = C / mp)
+     against their plain versions at every local geometry of MOD's and
+     MOD_WIDE's stages at mp 2 and 4 (131 windows, rate 0 and the recipe's):
+     y within 1e-4, every gradient within 1e-4 relative, the backward's bits
+     again on a second call; at rate 0 the shards' y (bproj once) and dx
+     summed against #4/#5 at full heads, each shard's weight gradients
+     against their slices, 1e-4 relative; timed on one of two shards of a
+     MOD pretrain step (events, device time, plain, cuBLAS + SDPA at the
+     local geometry under autograd, the bound at 3 TF32 products an f32 one);
+     the data-parallel rows (the JAX package's DP wrappers: the existing
+     kernels on a data shard's rows, DP-1-5: #2 + #3, DP-6-9: #7 + #9,
+     DP-10-12: #11 + #12) timed the same way on one of two data shards, each
+     forward within 1e-4 of its plain version;
+ 35. python -m focal_tpu_torch.train's main on MOD (one epoch, 512
+     synthetic samples, batch 256) on two ranks sharing the card (gloo;
+     the processes join from the FOCAL_DIST_* variables), at
+     -data_parallel 2 and at -model_parallel 2, the launches counted in each
+     rank; each layout's rate-0 SGD update (and at dp 2 the -no_pallas_block
+     -pallas_mlp one) from the seed-0 init against the single-process update
+     (loss 1e-4 relative; every entry within 3e-3 of itself + 1e-5 + its
+     f32 rounding allowance, from the sums of |terms| of its gradient;
+     a planted fault in one model shard's slice of a bias rejected);
+     1 + 4 timed pretrain steps a layout (p50 and peak memory per rank, two
+     ranks sharing one card: not multi-GPU speed), the launches held; one
+     more step with its collectives timed apart.
 
-Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #14-bf16), the
+Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #14-bf16, #4-TP/#5-TP
+and the data-parallel rows DP-1-5, DP-6-9, DP-10-12), the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
 nothing of the JAX package. --out DIR writes the per-geometry details and
 the profiles as JSON there.
@@ -535,11 +562,12 @@ def time_ms(torch, fn, iters=20, warmup=3):
 def library_block(torch, x, wqkv, bqkv, wproj, bproj, attn_mask, H, dropout_p=0.0):
     """Yardstick only: the same function through cuBLAS and PyTorch's
     scaled_dot_product_attention (q is pre-scaled, so scale=1)."""
-    B, N, C = x.shape
-    qkv = torch.matmul(x, wqkv).add_(bqkv).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+    B, N, _ = x.shape
+    D = wqkv.shape[1] // 3  # C, or a tensor-parallel shard's heads
+    qkv = torch.matmul(x, wqkv).add_(bqkv).reshape(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)
     o = torch.nn.functional.scaled_dot_product_attention(
         qkv[0], qkv[1], qkv[2], attn_mask=attn_mask, dropout_p=dropout_p, scale=1.0)
-    return torch.matmul(o.transpose(1, 2).reshape(B, N, C), wproj).add_(bproj)
+    return torch.matmul(o.transpose(1, 2).reshape(B, N, D), wproj).add_(bproj)
 
 
 def library_mask(torch, g, rel_bias, mask):
@@ -4564,6 +4592,721 @@ def check_attention(torch, np, pk, geos, gen, dev, a_rate, seed0, at_err):
         del q, k, v, rel_bias, mask, gy, y, yd, keep
 
 
+# ---------------------------------------------------------------------------
+# phases 34-35: multi-process training, #4-TP/#5-TP and the data-parallel forms
+
+TP_WAYS = (2, 4)          # model ranks of phase 34's gates (H 4: 2 and 1 heads a shard)
+TP_GATE_WINDOWS = 131     # windows of each gate (not a multiple of nW or of a block's pairs)
+MP_WARMUP, MP_STEPS = 1, 4  # warm-up and timed pretrain steps a layout of phase 35
+MP_LR = 0.05              # the rate-0 update's SGD step
+MP_LOSS_RTOL = 1e-4
+MP_PARAM_RTOL, MP_PARAM_ATOL = 3e-3, 1e-5
+MP_ROUNDING_LAMBDA = 6.0
+# an update is held entry by entry against the single-process one:
+#   |a - b| <= MP_PARAM_RTOL |b| + MP_PARAM_ATOL + lr 2 lambda sqrt(n) u A,
+# A the sum of the |terms| of the entry's gradient over its n rows, u = 2^-24:
+# an f32 sum of n terms lies within lambda sqrt(n) u A of its exact value
+# (Higham and Mary's probabilistic bound, SIAM J. Sci. Comput. 41(5), 2019,
+# failing with probability below 2 n exp(-lambda^2 / 2)), and the two updates
+# sum in two orders. A bias summed over ~1.5e5 rows at MOD can be small beside
+# its terms, so allclose alone fails on order noise there. A and n come from
+# hooks on the Linears and LayerNorms of a single-process step
+# (rounding_allowance); a parameter no hook sees is held to allclose alone.
+MP_PLANT = ("stage0_shake_seismic.block1.attn.qkv.bias", 1.5)
+# the planted fault the gate must reject: model shard 1's slice (of 2) of this
+# bias (part|head|dim) with its update scaled by 1.5
+MP_SAMPLES = 512          # synthetic train split of phase 35's entry-point runs
+MP_DEVICE = "cuda"
+MP_LAYOUTS = {"dp2": ["-data_parallel", "2"], "mp2": ["-model_parallel", "2"]}
+# the rate-0 updates each layout holds to the single-process one
+MP_RATE0 = {"dp2": {"default": [], "no_pallas_block_pallas_mlp": ["-no_pallas_block",
+                                                                   "-pallas_mlp"]},
+            "mp2": {"default": []}}
+MP_KERNELS = ("fused_window_block_tp", "fused_window_block_tp_backward", "fused_window_block",
+              "fused_window_block_dropout", "fused_window_attention", "fused_window_block_backward",
+              "fused_window_attention_dropout", "fused_window_attention_dropout_backward",
+              "fused_window_attention_backward", "fused_mlp_forward",
+              "fused_mlp_dropout_forward", "fused_mlp_backward")
+
+
+def mp_kernels():
+    """The wrappers phase 35's ranks count (MP_KERNELS, by name)."""
+    from focal_tpu_torch.ops import fused_mlp as fm
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    return tuple(getattr(pk, n, None) or getattr(fm, n) for n in MP_KERNELS)
+
+
+def tp_shard(torch, args, mp, m):
+    """Model rank m's kernel arguments from whole ones (x, wqkv [C, 3C],
+    bqkv, wproj [C, C], bproj, rel_bias, mask): its heads' columns of wqkv
+    and bqkv (part|head|dim), rows of wproj, heads of rel_bias; bproj on
+    rank 0 alone."""
+    from focal_tpu_torch.parallel.tp import Spec, local_slice
+
+    x, wqkv, bqkv, wproj, bproj, rel_bias, mask = args
+    H = rel_bias.shape[0]
+    return (x, local_slice(wqkv, Spec(1, 3, H), mp, m), local_slice(bqkv, Spec(0, 3, H), mp, m),
+            local_slice(wproj, Spec(0, 1, H), mp, m), bproj if m == 0 else torch.zeros_like(bproj),
+            local_slice(rel_bias, Spec(0, 1, H), mp, m), mask)
+
+
+def tp_work(g, mp, backward, with_keep):
+    """#4-TP (#5-TP) on one of mp shards: #4's (#5's) formulas with D = C /
+    mp for the inner width, B_ (8 N C D + 4 N^2 D) FLOPs forward and B_ (22 N
+    C D + 12 N^2 D) backward; bytes: x and y (and dy, dx) once, the shard's
+    weights, bias table and the shift mask once (their gradients written
+    once), the keep mask. Returns (flops, bytes, bound ms at 3 TF32 products
+    an f32 one, what bounds it, the f32 bound ms)."""
+    B, N, C, H = g["windows"], g["N"], g["C"], g["heads"]
+    D, Hl = C // mp, H // mp
+    mask = g["nW"] * N * N if g["mask"] is not None else 0
+    weights = 4 * C * D + 3 * D + C + Hl * N * N
+    keep = B * Hl * N * N if with_keep else 0
+    if backward:
+        flops = B * (22 * N * C * D + 12 * N * N * D)
+        nbytes = 4 * (3 * B * N * C + 2 * weights + mask) + keep
+    else:
+        flops = B * (8 * N * C * D + 4 * N * N * D)
+        nbytes = 4 * (2 * B * N * C + weights + mask) + keep
+    t_ops, t_bytes = 3 * flops / TF32_FLOPS, nbytes / HBM_BYTES_PER_S
+    return (flops, nbytes, 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes",
+            bound(flops, nbytes)[0])
+
+
+def tp_kernel_paths(torch, np, pk, gen, dev):
+    """Phase 34: #4-TP/#5-TP (fused_window_block_tp, _backward) against their
+    plain versions at every local geometry of MOD's and MOD_WIDE's stages at
+    mp 2 and 4 (TP_GATE_WINDOWS windows), at rate 0 and the recipe's rate:
+    forward and every gradient within KERNEL_TOL / GRAD_TOL, the backward
+    bitwise on a second call; at rate 0 the shards' y (bproj once) and dx
+    summed equal #4's and #5's at full heads, each shard's weight gradients
+    their slices. Then both held to their plain versions again and timed at
+    MOD's training geometries on one of two shards (phase 35's mp 2 layout:
+    batch TRAIN_BATCH, views fused): events and device time a step, the
+    plain versions, cuBLAS + SDPA at the local geometry, and the bound."""
+    from focal_tpu_torch.params import load_dataset_config
+
+    t0 = time.time()
+    fwd, bwd = pk.fused_window_block_tp, pk.fused_window_block_tp_backward
+    cfg = load_dataset_config("MOD")
+    rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
+    seen, gates = set(), []
+    errs = {"fwd": 0.0, "bwd": 0.0, "bwd_abs": 0.0, "sum_y": 0.0, "sum_dx": 0.0, "slices": 0.0}
+    for ds in ("MOD", "MOD_WIDE"):
+        for geo in block_geometries(load_dataset_config(ds), 1):
+            key = (geo["N"], geo["C"], geo["heads"], geo["mask"] is not None)
+            if key in seen:
+                continue
+            seen.add(key)
+            g = dict(geo, windows=TP_GATE_WINDOWS)
+            whole = make_inputs(torch, g, gen, dev)
+            dy = torch.randn(whole[0].shape, generator=gen).to(dev)
+            full_y = pk.fused_window_block_perhead(*whole)[0]
+            full_g = pk.fused_window_block_perhead_backward(*whole, dy)
+            for mp in TP_WAYS:
+                for r in (0.0, rate):
+                    args = tp_shard(torch, whole, mp, mp - 1)
+                    y, keep = fwd(*args, 11, r)
+                    got = bwd(*args, dy, keep, r)
+                    again = bwd(*args, dy, keep, r)
+                    torch.cuda.synchronize()
+                    errs["fwd"] = max(errs["fwd"], float(
+                        (y - pk.fused_window_block_reference(*args, keep, r)).abs().max()))
+                    want = pk.fused_window_block_backward_reference(*args, dy, keep, r)
+                    errs["bwd"] = max([errs["bwd"]] + [rel_err(a, w) for a, w in zip(got, want)])
+                    errs["bwd_abs"] = max([errs["bwd_abs"]] + [float((a - w).abs().max())
+                                                               for a, w in zip(got, want)])
+                    if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                        raise AssertionError(f"[tp-kernels] #5-TP repeats with other bits at {key}")
+                y_sum, dx_sum = torch.zeros_like(full_y), torch.zeros_like(full_y)
+                for m in range(mp):
+                    args = tp_shard(torch, whole, mp, m)
+                    y_sum += fwd(*args)[0]
+                    dx, *dws = bwd(*args, dy)
+                    dx_sum += dx
+                    sliced = tp_shard(torch, (None, *full_g[1:], None), mp, m)
+                    for a, w in zip(dws, (sliced[1], sliced[2], sliced[3], full_g[4], sliced[5])):
+                        errs["slices"] = max(errs["slices"], rel_err(a, w))
+                errs["sum_y"] = max(errs["sum_y"], rel_err(y_sum, full_y))
+                errs["sum_dx"] = max(errs["sum_dx"], rel_err(dx_sum, full_g[0]))
+                gates.append({"N": key[0], "C": key[1], "heads": key[2], "shifted": key[3],
+                              "mp": mp})
+    if errs["fwd"] > KERNEL_TOL or max(errs["bwd"], errs["sum_y"], errs["sum_dx"],
+                                       errs["slices"]) > GRAD_TOL:
+        raise AssertionError(f"[tp-kernels] past the gates: {errs}")
+    log(f"[tp-kernels] #4-TP/#5-TP at {len(gates)} local geometries (rate 0 and {rate}) vs plain: "
+        f"{errs}")
+
+    # timed: one shard of two at MOD's training geometries
+    mp, sms = 2, torch.cuda.get_device_properties(dev).multi_processor_count
+    geos = block_geometries(cfg, 2 * TRAIN_BATCH)
+    for g in geos:
+        whole = make_inputs(torch, g, gen, dev)
+        args = tp_shard(torch, whole, mp, 0)
+        x, wqkv, bqkv, wproj, bproj, rel_bias, mask = args
+        dy = torch.randn(x.shape, generator=gen).to(dev)
+        y, keep = fwd(*args, 7, rate)
+        tr = transposed(args)
+        got, want = bwd(*args, dy, keep, rate, *tr), pk.fused_window_block_backward_reference(
+            *args, dy, keep, rate)
+        g["fwd_err"] = float((y - pk.fused_window_block_reference(*args, keep, rate)).abs().max())
+        g["bwd_err"] = max(rel_err(a, w) for a, w in zip(got, want))
+        if g["fwd_err"] > KERNEL_TOL or g["bwd_err"] > GRAD_TOL:
+            raise AssertionError(f"[tp-kernels] {g['name']}: off the plain versions at the main "
+                                 f"path's geometry: {g['fwd_err']}, {g['bwd_err']}")
+        errs["fwd"], errs["bwd"] = max(errs["fwd"], g["fwd_err"]), max(errs["bwd"], g["bwd_err"])
+        lib_args = (x, wqkv, bqkv, wproj, bproj)
+        am = library_mask(torch, g, rel_bias, mask)
+        g["fwd_ms"] = time_ms(torch, lambda: fwd(*args, 7, rate))
+        g["fwd_device_ms"] = device_ms_per_call(torch, lambda: fwd(*args, 7, rate))
+        g["fwd_plain_ms"] = time_ms(torch, lambda: pk.fused_window_block_reference(*args, keep, rate))
+        g["fwd_library_ms"] = time_ms(torch, lambda: library_block(torch, *lib_args, am,
+                                                                   g["heads"] // mp, rate))
+        g["bwd_ms"] = time_ms(torch, lambda: bwd(*args, dy, keep, rate, *tr))
+        g["bwd_device_ms"] = device_ms_per_call(torch, lambda: bwd(*args, dy, keep, rate, *tr))
+        g["bwd_plain_ms"] = time_ms(
+            torch, lambda: pk.fused_window_block_backward_reference(*args, dy, keep, rate))
+        leaves = [t.clone().requires_grad_(True) for t in lib_args]
+        amg = am.clone().requires_grad_(True)
+        out = library_block(torch, *leaves, amg, g["heads"] // mp, rate)
+        g["bwd_library_ms"] = time_ms(torch, lambda: torch.autograd.grad(
+            out, leaves + [amg], dy, retain_graph=True))
+        del out
+        for d in ("fwd", "bwd"):
+            f, b, bnd, by, f32 = tp_work(g, mp, d == "bwd", True)
+            g.update({f"{d}_flops": f, f"{d}_bytes": b, f"{d}_bound_ms": bnd, f"{d}_bound_by": by,
+                      f"{d}_bound_f32_ms": f32})
+    keys = [f"{d}_{k}" for d in ("fwd", "bwd") for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_f32_ms", "flops", "bytes")]
+    tot = {k: sum(g["per_forward"] * g[k] for g in geos) for k in keys}
+    for d in ("fwd", "bwd"):
+        tot[f"{d}_bound_by"] = ("operations" if 3 * tot[f"{d}_flops"] / TF32_FLOPS
+                                >= tot[f"{d}_bytes"] / HBM_BYTES_PER_S else "bytes")
+    per_fwd = sum(g["per_forward"] for g in geos)
+    log(f"[tp-kernels] one MOD step on one of {mp} shards ({per_fwd} launches each, rate {rate}): "
+        + "; ".join(f"{n} {tot[f'{d}_ms']:.3f} ms (device {tot[f'{d}_device_ms']:.3f}, plain "
+                    f"{tot[f'{d}_plain_ms']:.3f}, library {tot[f'{d}_library_ms']:.3f}, bound "
+                    f"3xTF32 {tot[f'{d}_bound_ms']:.3f}, f32 {tot[f'{d}_bound_f32_ms']:.3f})"
+                    for d, n in (("fwd", "#4-TP"), ("bwd", "#5-TP"))))
+    return {"seconds": time.time() - t0, "gates": gates, "errors": errs, "step": tot,
+            "per_forward": per_fwd, "rate": rate,
+            "geometries": [{k: v for k, v in g.items() if k != "mask"} for g in geos]}
+
+
+def dp_form_times(torch, np, pk, fm, gen, dev):
+    """The data-parallel forms at one data shard's geometry of phase 35's dp
+    2 layout (MOD, TRAIN_BATCH / 2 samples a rank, views fused) and the
+    recipe's rates, summed over one step: DP-1-5 (#2 forward + #3 backward),
+    DP-6-9 (#7 + #9, -no_pallas_block), DP-10-12 (#11 + #12, -pallas_mlp).
+    Each: kernel ms by events and device time, the plain versions, the
+    library chain's forward and autograd backward, the f32 bound, the
+    kernel's worst error against its plain version."""
+    import torch.nn.functional as F
+    from focal_tpu_torch.params import load_dataset_config
+
+    cfg = load_dataset_config("MOD")
+    sw = cfg["SW_Transformer"]
+    rate, mlp_rate = float(sw["attn_drop_rate"]), float(sw["dropout_ratio"])
+    shard = TRAIN_BATCH  # samples a rank: half the batch, its two views fused
+    out = {}
+
+    def add(name, per, parts):
+        tot = out.setdefault(name, {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0,
+                                    "library_ms": 0.0, "flops": 0, "bytes": 0, "err": 0.0})
+        for k in ("ms", "device_ms", "plain_ms", "library_ms", "flops", "bytes"):
+            tot[k] += per * parts[k]
+        tot["err"] = max(tot["err"], parts["err"])
+
+    def timed(kernel_fns, plain_fns, library_fn, flops_bytes, err):
+        run = lambda: [f() for f in kernel_fns]  # noqa: E731
+        return {"ms": time_ms(torch, run), "device_ms": device_ms_per_call(torch, run),
+                "plain_ms": time_ms(torch, lambda: [f() for f in plain_fns]),
+                "library_ms": library_fn(), "flops": flops_bytes[0], "bytes": flops_bytes[1],
+                "err": err}
+
+    for g in block_geometries(cfg, shard):
+        args = make_inputs(torch, g, gen, dev)
+        x = args[0]
+        dy = torch.randn(x.shape, generator=gen).to(dev)
+        tr = transposed(args)
+        y, keep = pk.fused_window_block_dropout(*args, 7, rate)
+        err = float((y - pk.fused_window_block_reference(*args, keep, rate)).abs().max())
+        f_w, b_w = work_dropout(g)[:2], work_backward(g, True)[:2]
+        am = library_mask(torch, g, args[5], args[6])
+
+        def lib_ms():
+            fwd_ms = time_ms(torch, lambda: library_block(torch, *args[:5], am, g["heads"], rate))
+            return fwd_ms + library_backward_ms(torch, g, args, dy, rate)
+
+        add("DP-1-5", g["per_forward"], timed(
+            [lambda: pk.fused_window_block_dropout(*args, 7, rate),
+             lambda: pk.fused_window_block_backward(*args, dy, keep, rate, *tr)],
+            [lambda: pk.fused_window_block_reference(*args, keep, rate),
+             lambda: pk.fused_window_block_backward_reference(*args, dy, keep, rate)],
+            lib_ms, (f_w[0] + b_w[0], f_w[1] + b_w[1]), err))
+    for g in attention_geometries(cfg, shard, "MOD"):
+        q, k, v, rel_bias, mask, gy = attention_inputs(torch, np, g, 5, dev)
+        keep = pk.window_attention_keep_mask(7, g["windows"], g["heads"], g["N"], rate, dev)
+        y = pk.fused_window_attention_dropout(q, k, v, rel_bias, mask, 7, rate)
+        err = float((y - pk.fused_window_attention_reference(q, k, v, rel_bias, mask, keep,
+                                                             rate)).abs().max())
+        am = library_mask(torch, g, rel_bias, mask)
+        f_a, b_a = attention_work(g, False), attention_work(g, True)
+
+        def lib_ms():
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            o = library_attention(torch, *leaves, am, rate)
+            fwd_ms = time_ms(torch, lambda: library_attention(torch, q, k, v, am, rate))
+            return fwd_ms + time_ms(torch, lambda: torch.autograd.grad(o, leaves, gy,
+                                                                        retain_graph=True))
+
+        add("DP-6-9", g["per_forward"], timed(
+            [lambda: pk.fused_window_attention_dropout(q, k, v, rel_bias, mask, 7, rate),
+             lambda: pk.fused_window_attention_dropout_backward(q, k, v, rel_bias, mask, gy, 7,
+                                                                rate)],
+            [lambda: pk.fused_window_attention_reference(q, k, v, rel_bias, mask, keep, rate),
+             lambda: pk.fused_window_attention_backward_reference(q, k, v, rel_bias, mask, gy,
+                                                                  keep, rate)],
+            lib_ms, (f_a[0] + b_a[0], f_a[1] + b_a[1]), err))
+    for g in mlp_geometries(cfg, shard, "MOD"):
+        x, w1, b1, w2, b2, gm = mlp_inputs(torch, np, g, 9, dev)
+        w1_t, w2_t = w1.t().contiguous(), w2.t().contiguous()
+        k1, k2 = fm.draw_mlp_masks(7, g["T"], g["C"], g["H"], mlp_rate, dev)
+        y = fm.fused_mlp_dropout_forward(x, w1, b1, w2, b2, 7, mlp_rate)
+        ref = fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, *fm.mlp_keep_masks(
+            7, g["T"], g["C"], g["H"], mlp_rate, dev), mlp_rate)
+        err = float((y - ref).abs().max())
+        f_m, b_m = mlp_work(g, False), mlp_work(g, True)
+
+        def lib_ms():
+            leaves = [t.clone().requires_grad_(True) for t in (x, w1, b1, w2, b2)]
+            o = library_mlp(torch, F, *leaves, mlp_rate)
+            fwd_ms = time_ms(torch, lambda: library_mlp(torch, F, x, w1, b1, w2, b2, mlp_rate))
+            return fwd_ms + time_ms(torch, lambda: torch.autograd.grad(o, leaves, gm,
+                                                                        retain_graph=True))
+
+        add("DP-10-12", g["per_forward"], timed(
+            [lambda: fm.fused_mlp_dropout_forward(x, w1, b1, w2, b2, 7, mlp_rate),
+             lambda: fm.fused_mlp_backward(x, w1, b1, w1_t, w2_t, gm, 7, mlp_rate)],
+            [lambda: fm.fused_mlp_dropout_reference(x, w1, b1, w2, b2, k1, k2, mlp_rate),
+             lambda: fm.fused_mlp_backward_reference(x, w1, b1, w2, b2, gm, k1, k2, mlp_rate)],
+            lib_ms, (f_m[0] + b_m[0], f_m[1] + b_m[1]), err))
+    for name, tot in out.items():
+        tot["bound_ms"], tot["bound_by"] = bound(tot["flops"], tot["bytes"])
+        if tot["err"] > KERNEL_TOL:
+            raise AssertionError(f"[dp-forms] {name}: forward {tot['err']} off its plain version")
+        log(f"[dp-forms] {name}, one MOD step on one of 2 data shards: {tot['ms']:.3f} ms "
+            f"(device {tot['device_ms']:.3f}, plain {tot['plain_ms']:.3f}, library "
+            f"{tot['library_ms']:.3f}, bound f32 {tot['bound_ms']:.3f}, {tot['bound_by']}), "
+            f"forward error {tot['err']:.2e}")
+    return out
+
+
+def sgd_rate0_step(torch, argv, plan, dev, batch, on_model=None):
+    """One MOD pretrain update at every drop rate 0 (SGD at MP_LR, from the
+    seed-0 init, fixed rows and views): (loss, the updated state_dict whole
+    on the CPU, MP_PLANT's tensor before the update). ``plan``: the rank's
+    layout, or None for one process; ``on_model``, called with the model
+    before the step."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import apply_plan, build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.parallel import tp
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.optim import StepOptimizer, trainable_mask
+    from focal_tpu_torch.train.state import TrainState
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    args = parse_train_params(["-dataset", "MOD", "-batch_size", str(batch), "-device",
+                               MP_DEVICE] + argv)
+    cfg = copy.deepcopy(args.dataset_config)
+    cfg["SW_Transformer"].update(dropout_ratio=0.0, drop_path_rate=0.0, attn_drop_rate=0.0)
+    args.dataset_config = cfg
+    model = build_backbone(cfg, "SW_Transformer", args.task, args.learn_framework,
+                           pallas_mlp=args.pallas_mlp, pallas_block=not args.no_pallas_block)
+    model = apply_plan(init_params(model, seed=0).to(dev), plan)
+    mask = trainable_mask(model, args)
+    params = [p for n, p in model.named_parameters() if mask[n]]
+    for n, p in model.named_parameters():
+        p.requires_grad_(mask[n])
+    opt = StepOptimizer(torch.optim.SGD(params, lr=MP_LR), params, lambda e: MP_LR, 10, plan=plan)
+    state = TrainState(model, opt, seed=0, plan=plan)
+    host, _, _ = synthetic_arrays(cfg, args.task, batch, seed=0)
+    data = to_device(host, dev)
+    step = make_pretrain_step(model, build_augmenter(args), make_focal_loss(args), plan=plan)
+    whole = lambda: tp.full_state_dict(model, plan) if plan is not None else model.state_dict()  # noqa: E731
+    init = whole()[MP_PLANT[0]].detach().cpu().clone()
+    if on_model is not None:
+        on_model(model)
+    _, metrics = step(state, data, torch.arange(batch, device=dev))
+    return float(metrics["loss"]), {k: v.detach().cpu() for k, v in whole().items()}, init
+
+
+def rounding_allowance(torch, dev, batch):
+    """Each parameter entry's rounding allowance lr 2 MP_ROUNDING_LAMBDA
+    sqrt(n) u A (see MP_PARAM_RTOL), from hooks on every Linear and
+    LayerNorm of a single-process rate-0 update on the -no_pallas_block
+    route, where the window attentions' qkv and proj run as Linears (at rate
+    0 every route computes the same function): a Linear's weight A = |X|^T
+    |G| and bias A = the sum of |G| over its n rows (X its input, G the
+    gradient of its output), a LayerNorm's the sums of |G| |xhat| and |G|.
+    {name: allowance on the CPU}, {name: n}."""
+    import torch.nn as nn
+
+    sums = {}
+
+    def watch(name, mod):
+        def on_forward(m, inp, out):
+            x = inp[0].detach().float()
+
+            def on_grad(g):
+                g = g.detach().abs().float().reshape(-1, g.shape[-1])
+                xf = x.reshape(-1, x.shape[-1])
+                if isinstance(m, nn.LayerNorm):
+                    xhat = (xf - xf.mean(-1, keepdim=True)) * torch.rsqrt(
+                        xf.var(-1, unbiased=False, keepdim=True) + m.eps)
+                    terms = {"weight": (g * xhat.abs()).sum(0), "bias": g.sum(0)}
+                else:
+                    terms = {"weight": g.t() @ xf.abs(), "bias": g.sum(0)}
+                for k, a in terms.items():
+                    if getattr(m, k, None) is not None:
+                        a0, n0 = sums.get(f"{name}.{k}", (0.0, 0))
+                        sums[f"{name}.{k}"] = (a0 + a, n0 + g.shape[0])
+
+            if out.requires_grad:
+                out.register_hook(on_grad)
+        return mod.register_forward_hook(on_forward)
+
+    def hook_all(model):
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Linear, nn.LayerNorm)):
+                watch(name, mod)
+
+    sgd_rate0_step(torch, ["-no_pallas_block"], None, dev, batch, on_model=hook_all)
+    u = 2.0**-24
+    allow = {k: (MP_LR * 2 * MP_ROUNDING_LAMBDA * n**0.5 * u * a).cpu() for k, (a, n) in sums.items()}
+    return allow, {k: n for k, (_, n) in sums.items()}
+
+
+def update_errors(whole, ref, allow):
+    """An update against the single-process one, entry by entry: the
+    largest ratio of |a - b| to its bound MP_PARAM_RTOL |b| + MP_PARAM_ATOL
+    + the entry's rounding allowance (the gate: at most 1), and, reported,
+    the largest ratios to allclose's bound alone and, over the entries
+    that bound does not hold, to the allowance alone; the worst five
+    parameters of each: [(ratio, name)]."""
+    gate, plain, rounding = [], [], []
+    for n, a in whole.items():
+        b = ref[n]
+        diff, bnd = (a - b).abs(), MP_PARAM_RTOL * b.abs() + MP_PARAM_ATOL
+        gate.append((float((diff / (bnd + allow.get(n, 0.0))).max()), n))
+        plain.append((float((diff / bnd).max()), n))
+        past = diff > bnd
+        if past.any():
+            rounding.append((float((diff[past] / allow[n][past]).max()) if n in allow
+                             else math.inf, n))
+    return tuple(sorted(x, reverse=True)[:5] for x in (gate, plain, rounding))
+
+
+def planted_fault(whole, ref, init, allow):
+    """MP_PLANT applied to an update: model shard 1's slice of the tensor
+    (its heads' entries of each of q, k and v) moved 1.5 times as far from
+    the init. (the gate's ratio, which must exceed 1; the ratio of the
+    per-tensor bound max|a - b| <= MP_PARAM_RTOL max|b| + MP_PARAM_ATOL)."""
+    name, scale = MP_PLANT
+    a, b = whole[name].clone(), ref[name]
+    v, v0 = a.view(3, 2, -1), init.view(3, 2, -1)
+    v[:, 1] = v0[:, 1] + scale * (v[:, 1] - v0[:, 1])
+    diff = (a - b).abs()
+    gate = float((diff / (MP_PARAM_RTOL * b.abs() + MP_PARAM_ATOL + allow.get(name, 0.0))).max())
+    return gate, float(diff.max() / (MP_PARAM_RTOL * b.abs().max() + MP_PARAM_ATOL))
+
+
+def collective_split(torch, fn):
+    """fn() with every all_reduce and all_gather of torch.distributed
+    timed, the card synchronized before and after each: (fn's seconds, the
+    collectives' seconds, their count, their bytes). The collectives' time
+    includes each rank's wait for the other."""
+    import torch.distributed as dist
+
+    spent = {"s": 0.0, "calls": 0, "bytes": 0}
+    saved = {n: getattr(dist, n) for n in ("all_reduce", "all_gather")}
+
+    def timed(name, f):
+        def call(*a, **k):
+            t = a[0] if name == "all_reduce" else a[1]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = f(*a, **k)
+            torch.cuda.synchronize()
+            spent["s"] += time.perf_counter() - t0
+            spent["calls"] += 1
+            spent["bytes"] += t.numel() * t.element_size()
+            return out
+        return call
+
+    for n, f in saved.items():
+        setattr(dist, n, timed(n, f))
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+    finally:
+        for n, f in saved.items():
+            setattr(dist, n, f)
+    return total, spent["s"], spent["calls"], spent["bytes"]
+
+
+def rate0_ref_path(layout, variant):
+    return os.path.join(HERE, "build", f"phase35_rate0_{layout}_{variant}.pt")
+
+
+def phase35_rank(rank, world, layout):
+    """One of two ranks of phase 35 on the shared card (spawned by
+    run_local without a process group: the entry point joins it from the
+    FOCAL_DIST_* variables). (1) ``python -m focal_tpu_torch.train``'s main
+    on MOD at the layout's flags, every count zeroed before and read after;
+    (2) the rate-0 SGD updates of MP_RATE0 against the single-process ones
+    the parent saved, and MP_PLANT planted in each; (3) MP_WARMUP + MP_STEPS
+    timed pretrain steps at the recipe's rates on the layout: p50, peak
+    memory, launches; then one step with its collectives timed
+    (collective_split)."""
+    sys.path.insert(0, HERE)
+    import importlib
+
+    import numpy as np
+    import torch
+
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import apply_plan, build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.parallel import distributed
+    from focal_tpu_torch.parallel.mesh import make_mesh_plan
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = mp_kernels()
+    flags = MP_LAYOUTS[layout]
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    out_dir = os.path.join(HERE, "build", f"phase35_{layout}")
+    argv = ["-dataset", "MOD", "-synthetic", "-synthetic_samples", str(MP_SAMPLES), "-epochs", "1",
+            "-val_epochs", "1", "-output_dir", out_dir, "-device", MP_DEVICE] + flags
+    zero_counts(kernels)
+    t0 = time.time()
+    train_cli.main(argv)
+    torch.cuda.synchronize()
+    res = {"rank": rank, "backend": distributed.backend(), "cli_seconds": time.time() - t0,
+           "cli_launches": counts(kernels)}
+    dev = torch.device(distributed.device_for(MP_DEVICE))
+    plan = make_mesh_plan(2, 1) if layout == "dp2" else make_mesh_plan(1, 2)
+    res["rate0"] = {}
+    for variant, extra in MP_RATE0[layout].items():
+        zero_counts(kernels)
+        loss, whole, _ = sgd_rate0_step(torch, flags + extra, plan, dev, TRAIN_BATCH)
+        ref = torch.load(rate0_ref_path(layout, variant), weights_only=True)
+        gate, plain, rounding = update_errors(whole, ref["state"], ref["allow"])
+        plant_gate, plant_tensor = planted_fault(whole, ref["state"], ref["init"], ref["allow"])
+        res["rate0"][variant] = {
+            "loss": loss, "loss_single": ref["loss"],
+            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]), "worst_ratio": gate[0][0],
+            "worst_name": gate[0][1], "worst_gate": gate, "worst_allclose": plain,
+            "worst_allowance": rounding,
+            "plant_gate": plant_gate, "plant_per_tensor": plant_tensor,
+            "launches": counts(kernels)}
+    args = parse_train_params(["-dataset", "MOD", "-batch_size", str(TRAIN_BATCH), "-device",
+                               MP_DEVICE] + flags)
+    model = build_backbone(args.dataset_config, "SW_Transformer", args.task, args.learn_framework)
+    model = apply_plan(init_params(model, seed=0).to(dev), plan)
+    state = create_train_state(args, model, steps_per_epoch=100, seed=0)
+    host, _, _ = synthetic_arrays(args.dataset_config, args.task, TRAIN_BATCH, seed=0)
+    data = to_device(host, dev)
+    idx = torch.arange(TRAIN_BATCH, device=dev)
+    step = make_pretrain_step(model, build_augmenter(args), make_focal_loss(args), plan=plan)
+    for _ in range(MP_WARMUP):
+        step(state, data, idx)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(kernels)
+    step_s, losses = [], []
+    for _ in range(MP_STEPS):
+        torch.cuda.synchronize()
+        t1 = time.time()
+        losses.append(float(step(state, data, idx)[1]["loss"]))
+        torch.cuda.synchronize()
+        step_s.append(time.time() - t1)
+    res.update(steps_launches=counts(kernels), p50_ms=float(np.percentile(step_s, 50)) * 1e3,
+               peak_mb=torch.cuda.max_memory_allocated() / 2**20, losses=losses)
+    total, coll, calls, nbytes = collective_split(torch, lambda: step(state, data, idx))
+    res["split"] = {"step_ms": total * 1e3, "collective_ms": coll * 1e3, "calls": calls,
+                    "mbytes": nbytes / 2**20}
+    return res
+
+
+DP_ROWS = {  # a data shard's kernels: forward, backward, the update that also runs them
+    "DP-1-5": ("fused_window_block_dropout", "fused_window_block_backward", "default"),
+    "DP-6-9": ("fused_window_attention", "fused_window_attention_backward",
+               "no_pallas_block_pallas_mlp"),
+    "DP-10-12": ("fused_mlp_forward", "fused_mlp_backward", "no_pallas_block_pallas_mlp")}
+
+
+def check_mp_launches(layout, ranks, per_fwd):
+    """Phase 35's launches: the timed steps ran the layout's kernels
+    exactly (per_fwd a step each: #4-TP/#5-TP at mp 2; #2/#3 on a data
+    shard's rows at dp 2) and the other layout's none; the entry point ran
+    the layout's, and the dp 2 -no_pallas_block -pallas_mlp rate-0 update
+    #6/#8 and #10/#12 on a data shard's rows."""
+    want_tp = MP_STEPS * per_fwd if layout == "mp2" else 0
+    want_dp = MP_STEPS * per_fwd if layout == "dp2" else 0
+    for r in ranks:
+        got = r["steps_launches"]
+        if (got["fused_window_block_tp"], got["fused_window_block_tp_backward"],
+                got["fused_window_block_dropout"], got["fused_window_block_backward"]) != (
+                want_tp, want_tp, want_dp, want_dp):
+            raise AssertionError(f"[multi-process] {layout} rank {r['rank']}: launches {got}")
+        if min(r["cli_launches"][k] for k in (
+                ("fused_window_block_tp", "fused_window_block_tp_backward") if layout == "mp2"
+                else DP_ROWS["DP-1-5"][:2])) < 1:
+            raise AssertionError(f"[multi-process] {layout}: the entry point ran no kernel "
+                                 f"of the layout: {r['cli_launches']}")
+        if layout == "dp2" and min(r["rate0"]["no_pallas_block_pallas_mlp"]["launches"][k]
+                                   for num in ("DP-6-9", "DP-10-12")
+                                   for k in DP_ROWS[num][:2]) < 1:
+            raise AssertionError(f"[multi-process] dp2: the -no_pallas_block -pallas_mlp update "
+                                 f"ran no attention or MLP kernel: {r['rate0']}")
+
+
+def multi_process_paths(torch, dev):
+    """Phase 35: MOD SW_Transformer pretraining at full width on two ranks
+    sharing the card (gloo), at -data_parallel 2 and at -model_parallel 2
+    (phase35_rank); the single-process rate-0 updates they are held to are
+    taken here first."""
+    from focal_tpu_torch.parallel import distributed
+    from focal_tpu_torch.params import load_dataset_config
+
+    t0 = time.time()
+    allow, rows = rounding_allowance(torch, dev, TRAIN_BATCH)
+    for layout, variants in MP_RATE0.items():
+        for variant, extra in variants.items():
+            loss, whole, init = sgd_rate0_step(torch, extra, None, dev, TRAIN_BATCH)
+            torch.save({"loss": loss, "state": whole, "init": init, "allow": allow},
+                       rate0_ref_path(layout, variant))
+    per_fwd = sum(g["per_forward"] for g in block_geometries(load_dataset_config("MOD"), 1))
+    out = {"layouts": {}, "per_forward": per_fwd, "allowance_rows": rows}
+    for layout in MP_LAYOUTS:
+        t1 = time.time()
+        ranks = distributed.run_local(phase35_rank, 2, layout, device=MP_DEVICE, timeout=900,
+                                      init=False)
+        for r in ranks:
+            for variant, v in r["rate0"].items():
+                if v["loss_rel"] > MP_LOSS_RTOL or v["worst_ratio"] > 1:
+                    raise AssertionError(f"[multi-process] {layout} rank {r['rank']} {variant}: "
+                                         f"the rate-0 update is off the single-process one: {v}")
+                if v["plant_gate"] <= 1:
+                    raise AssertionError(f"[multi-process] {layout} {variant}: the gate passes "
+                                         f"the planted fault {MP_PLANT}: {v['plant_gate']}")
+        check_mp_launches(layout, ranks, per_fwd)
+        out["layouts"][layout] = {"seconds": time.time() - t1, "ranks": ranks}
+        for r in ranks:
+            log(f"[multi-process] {layout} rank {r['rank']} (two ranks sharing one card, "
+                f"{r['backend']}): entry point {r['cli_seconds']:.1f}s, launches "
+                f"{ {k: v for k, v in r['cli_launches'].items() if v} }; rate-0 update vs one "
+                f"process: " + ", ".join(f"{k} loss rel {v['loss_rel']:.2e}, worst entries over "
+                                         f"the gate's bound {v['worst_gate'][:3]}, over "
+                                         f"allclose's alone {v['worst_allclose'][:3]}, over "
+                                         f"the rounding allowance alone "
+                                         f"{v['worst_allowance'][:3]}, planted "
+                                         f"fault {v['plant_gate']:.3g} of the gate's bound "
+                                         f"({v['plant_per_tensor']:.3g} of the per-tensor one)"
+                                         for k, v in r["rate0"].items())
+                + f"; {MP_STEPS} steps p50 {r['p50_ms']:.3f} ms, peak {r['peak_mb']:.1f} MiB "
+                f"(two ranks sharing one card: not multi-GPU speed), losses {r['losses']}; one "
+                f"step with its collectives timed: {r['split']['step_ms']:.1f} ms, "
+                f"collectives {r['split']['collective_ms']:.1f} ms ({r['split']['calls']} "
+                f"calls, {r['split']['mbytes']:.1f} MiB)")
+    out["seconds"] = time.time() - t0
+    return out
+
+
+def multi_process_entries(tpk, dp_forms, multi):
+    """The kernels line's rows of phases 34-35: #4-TP, #5-TP and the
+    data-parallel forms."""
+    kernels = []
+    layouts = multi["layouts"]
+
+    def mp_launches(layout, name, where="cli_launches"):
+        """A kernel's launches in a layout's run, both ranks."""
+        return sum(r[where][name] if where == "cli_launches" else r["rate0"][where]["launches"][name]
+                   for r in layouts[layout]["ranks"])
+
+    tst = tpk["step"]
+    tp_per = (f"times: the {tpk['per_forward']} launches of one MOD pretrain step at batch "
+              f"{TRAIN_BATCH} (views fused to {2 * TRAIN_BATCH}, dropout {tpk['rate']}) on one of "
+              "two model shards (D = C / 2); launches: the -model_parallel 2 entry point's run, "
+              "both ranks (training and eval forwards); max_abs_err: worst over every local "
+              "geometry of MOD's and MOD_WIDE's stages at mp 2 and 4; bound: 3 TF32 products an "
+              "f32 one at 495 TFLOP/s, or the bytes")
+
+    def tp_entry(name, num, line, d, err, also):
+        return {"name": name, "kernel": num, "route": "cuda",
+                "source": "focal_tpu_torch/csrc/window_block.cu", "replaces": f"{PK}:{line}",
+                "replaces_also": also, "launches": mp_launches("mp2", name),
+                "max_abs_err": err, "ms": tst[f"{d}_ms"], "plain_ms": tst[f"{d}_plain_ms"],
+                "bound_ms": tst[f"{d}_bound_ms"], "bound_by": tst[f"{d}_bound_by"],
+                "library_ms": tst[f"{d}_library_ms"], "per": tp_per,
+                "device_ms": tst[f"{d}_device_ms"], "bound_ms_f32": tst[f"{d}_bound_f32_ms"],
+                "flops": tst[f"{d}_flops"], "bytes": tst[f"{d}_bytes"],
+                "launches_by_path": {"train_cli_MOD_mp2": mp_launches("mp2", name),
+                                     "timed_steps_MOD_mp2": sum(r["steps_launches"][name] for r
+                                                                in layouts["mp2"]["ranks"]),
+                                     "rate0_step_MOD_mp2": mp_launches("mp2", name, "default")}}
+
+    terr = tpk["errors"]
+    kernels += [
+        tp_entry("fused_window_block_tp", "#4-TP", 1759, "fwd", terr["fwd"], [f"{PK}:1629",
+                                                                             f"{PK}:1303"]),
+        tp_entry("fused_window_block_tp_backward", "#5-TP", 1727, "bwd", terr["bwd_abs"],
+                 [f"{PK}:1342"]) | {"max_rel_err": terr["bwd"]},
+    ]
+    dp_rows = (("DP-1-5", 1622, 1546, "cli_launches", "#2 forward and #3 backward",
+                "the -data_parallel 2 entry point's run", "focal_tpu_torch/csrc/window_block.cu"),
+               ("DP-6-9", 439, 380, "no_pallas_block_pallas_mlp",
+                "#7 forward and #9 backward (-no_pallas_block)",
+                "#6 in the -data_parallel 2 -no_pallas_block -pallas_mlp rate-0 update", ATTN_SRC),
+               ("DP-10-12", 800, 747, "no_pallas_block_pallas_mlp",
+                "#11 forward and #12 backward (-pallas_mlp)",
+                "#10 in the -data_parallel 2 -no_pallas_block -pallas_mlp rate-0 update",
+                "focal_tpu_torch/csrc/fused_mlp.cu"))
+    for num, line, also, where, what, run, src in dp_rows:
+        t, (fwd_name, bwd_name, _) = dp_forms[num], DP_ROWS[num]
+        kernels.append({
+            "name": f"{fwd_name} + {bwd_name} on a data shard", "kernel": num, "route": "cuda",
+            "source": src, "replaces": f"{PK}:{line}", "replaces_also": [f"{PK}:{also}"],
+            "launches": mp_launches("dp2", fwd_name, where), "max_abs_err": t["err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            "device_ms": t["device_ms"],
+            "per": (f"the existing kernels at a data shard's rows, its kernel seed (no wrapper of "
+                    f"their own); times: {what} of one MOD pretrain step at batch {TRAIN_BATCH} "
+                    f"on one of two data shards ({TRAIN_BATCH // 2} samples, views fused to "
+                    f"{TRAIN_BATCH}), the recipe's rates; launches (forwards): {run}, both ranks; "
+                    "max_abs_err: the forward against its plain version there; bound: f32 at "
+                    "67 TFLOP/s or the bytes"),
+            "launches_by_path": {"train_cli_MOD_dp2": mp_launches("dp2", fwd_name),
+                                 "timed_steps_MOD_dp2": sum(r["steps_launches"][fwd_name] for r in
+                                                            layouts["dp2"]["ranks"]),
+                                 **{f"rate0_step_MOD_dp2_{v}": mp_launches("dp2", fwd_name, v)
+                                    for v in MP_RATE0["dp2"]}}})
+    return kernels
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for the per-geometry JSON")
@@ -5626,6 +6369,23 @@ def main():
     log(f"[smoke] phase 33 in {attn_bf16['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
 
+    # ---- 34. #4-TP/#5-TP vs their plain versions at every local geometry of
+    # MOD's and MOD_WIDE's stages at mp 2 and 4, the shards summed against #4
+    # and #5 at full heads; timed on one of two shards of a MOD step; the
+    # data-parallel forms timed on one of two data shards
+    t34 = time.time()
+    tpk = tp_kernel_paths(torch, np, pk, gen, dev)
+    dp_forms = dp_form_times(torch, np, pk, fm, gen, dev)
+    log(f"[smoke] phase 34 in {time.time() - t34:.1f}s (#4-TP/#5-TP {tpk['seconds']:.1f}s); "
+        f"{time.time() - t_start:.1f}s after the build started")
+
+    # ---- 35. python -m focal_tpu_torch.train on two ranks sharing the card,
+    # at -data_parallel 2 and at -model_parallel 2; their rate-0 updates
+    # against the single-process one; their steps timed
+    multi = multi_process_paths(torch, dev)
+    log(f"[smoke] phase 35 in {multi['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -5661,7 +6421,8 @@ def main():
                 "no_pallas_block_route_forward": route_fwd,
                 "recipes": recipes, "two_locations": two_loc, "attribution": attribution,
                 "bf16": bf16, "deepsense_bf16": ds_bf16, "wide_bf16": wide_bf16,
-                "mlp_bf16": mlp_bf16, "attention_bf16": attn_bf16,
+                "mlp_bf16": mlp_bf16, "attention_bf16": attn_bf16, "tp_kernels": tpk,
+                "dp_forms": dp_forms, "multi_process": multi,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -6059,6 +6820,7 @@ def main():
                         attn_bf16["train_step"]["drop_bwd"], ae["bwd_abs"], max_rel_err=ae["bwd"],
                         launches_per_step=per_fwd, steps=ATTN_BF16_STEPS),
     ]
+    kernels += multi_process_entries(tpk, dp_forms, multi)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,11 @@
 //   #4 _wblock_ph_fwd_kernel (_wblock_ph_fwd_impl -> pl.pallas_call), with
 //      and without dropout
 //   #5 _wblock_ph_bwd_kernel (_wblock_ph_bwd_impl -> pl.pallas_call)
+//   #4-TP, #5-TP: #4 and #5 on a tensor-parallel shard's heads
+//      (sharded_window_block_tp -> _sharded_wblock_tp_op), the f32 code below
+//      at an inner width D = H hd below C: Wqkv [C, 3D], Wproj [D, C], the
+//      attention over the shard's H heads; y and dx are partial sums that the
+//      caller adds over the model ranks (D = C for #1-#5 and the bf16 forms)
 // Per window w of x [B, N, C] (f32, row-major):
 //   qkv = x Wqkv + bqkv                      (q columns pre-scaled by the caller)
 //   a_h = softmax(q_h k_h^T + rel_bias[h] + mask[w % nW])   for each head h
@@ -471,24 +476,26 @@ size_t attn_bwd_smem(const focal::Geo& g) {
           (size_t)g.H * g.N * g.N) * sizeof(float);
 }
 
-// The attention's geometry for (B, N, C, H) and its shared memory in bytes:
-// focal::make_geo's pairs a block, fewer where a head is too wide for them
-// to fit a block's shared memory (the backward's from C / H ~ 530 at N =
-// 9). An error where even one pair does not fit.
-cudaError_t attn_geo(int B, int N, int C, int H, size_t (*smem_of)(const focal::Geo&),
+// The attention's geometry for (B, N, D, H), D = H hd the width of the
+// attention's rows, and its shared memory in bytes: focal::make_geo's pairs
+// a block, fewer where a head is too wide for them to fit a block's shared
+// memory (the backward's from hd ~ 530 at N = 9). An error where even one
+// pair does not fit.
+cudaError_t attn_geo(int B, int N, int D, int H, size_t (*smem_of)(const focal::Geo&),
                      focal::Geo* g, size_t* smem) {
   int optin = 0;
   cudaError_t err = device_attr(cudaDevAttrMaxSharedMemoryPerBlockOptin, &optin);
   if (err != cudaSuccess) return err;
-  *g = focal::make_geo(B, H, N, C / H);
+  *g = focal::make_geo(B, H, N, D / H);
   while (g->pairs > 1 && smem_of(*g) > (size_t)optin) --g->pairs;
   *smem = smem_of(*g);
   return *smem <= (size_t)optin ? cudaSuccess : cudaErrorInvalidValue;
 }
 
-// Launch plan of the backward (#3, #5) and its workspace, in floats: qkv
-// and dqkv [R, 3C], g and the attention output [R, C], the attention
-// blocks' d rel_bias partials, and the weight-gradient split partials.
+// Launch plan of the backward (#3, #5; #5-TP at D < C) and its workspace,
+// in floats: qkv and dqkv [R, 3D], g and the attention output [R, D], the
+// attention blocks' d rel_bias partials, and the weight-gradient split
+// partials (E floats each: dWqkv [C, 3D], dbqkv, dWproj [D, C], dbproj).
 struct BwdPlan {
   focal::Geo geo;
   size_t attn_smem;
@@ -497,11 +504,11 @@ struct BwdPlan {
   cudaError_t err;
 };
 
-BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
+BwdPlan bwd_plan(int B, int N, int C, int D, int H, bool dropout) {
   BwdPlan P{};
   int sms = 0, per_sm = 0;
   P.err = device_attr(cudaDevAttrMultiProcessorCount, &sms);
-  if (P.err == cudaSuccess) P.err = attn_geo(B, N, C, H, attn_bwd_smem, &P.geo, &P.attn_smem);
+  if (P.err == cudaSuccess) P.err = attn_geo(B, N, D, H, attn_bwd_smem, &P.geo, &P.attn_smem);
   if (P.err != cudaSuccess) return P;
   P.err = dropout ? set_smem(attn_bwd_kernel<true>, P.attn_smem, &per_sm)
                   : set_smem(attn_bwd_kernel<false>, P.attn_smem, &per_sm);
@@ -510,28 +517,31 @@ BwdPlan bwd_plan(int B, int N, int C, int H, bool dropout) {
   const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
   P.attn_grid = (int)std::min<long long>(nchunks, (long long)per_sm * sms);
   const int R = B * N;
-  P.wbn = tile_bn(3 * C, C);
+  P.wbn = tile_bn(3 * D, C);
   int tq = 0, tp = 0, unused = 0;
-  set_tiles(C, 3 * C, P.wbn, &unused, &tq);
-  set_tiles(C, C, P.wbn, &unused, &tp);
+  set_tiles(C, 3 * D, P.wbn, &unused, &tq);
+  set_tiles(D, C, P.wbn, &unused, &tp);
   P.wtiles = tq + tp;
   const focal::RowSplits rs = focal::split_rows(R, P.wtiles, sms);
   P.splits = rs.splits;
   P.rows_per_split = rs.rows_per_split;
-  P.E = (size_t)4 * C * C + 4 * C;
+  P.E = (size_t)4 * C * D + 3 * D + C;
   size_t o = 0;
-  P.qkv = o, o += (size_t)R * 3 * C;
-  P.dqkv = o, o += (size_t)R * 3 * C;
-  P.g = o, o += (size_t)R * C;
-  P.ao = o, o += (size_t)R * C;
+  P.qkv = o, o += (size_t)R * 3 * D;
+  P.dqkv = o, o += (size_t)R * 3 * D;
+  P.g = o, o += (size_t)R * D;
+  P.ao = o, o += (size_t)R * D;
   P.dbias = o, o += ((size_t)P.attn_grid * H * N * N + 3) / 4 * 4;  // keeps wpart 16-byte aligned
   P.wpart = o, o += (size_t)P.splits * P.E;
   P.total = o;
   return P;
 }
 
-int check_geometry(int N, int C, int H) {
-  if (N < 1 || N > kMaxN || C < 4 || C % 4 != 0 || H < 1 || C % H != 0) return (int)cudaErrorInvalidValue;
+// x [R, C] and an attention of H heads over rows D = H hd wide (D = C but
+// for a tensor-parallel shard's heads).
+int check_geometry(int N, int C, int D, int H) {
+  if (N < 1 || N > kMaxN || C < 4 || C % 4 != 0 || D < 4 || D % 4 != 0 || H < 1 || D % H != 0)
+    return (int)cudaErrorInvalidValue;
   return 0;
 }
 
@@ -555,16 +565,16 @@ cudaError_t launch_proj(const ProjGemm& p0, const ProjGemm& p1, cudaStream_t s) 
 
 // The f32 forward's three launches on `stream` (focal_wblock_fwd_dropout):
 // qkv = x Wqkv + bqkv into the workspace, the attention per (window,
-// head), y = ao Wproj + bproj.
+// head), y = ao Wproj + bproj; x [R, C], Wqkv [C, 3D], Wproj [D, C].
 int wblock_fwd(const float* x, const float* wqkv, const float* bqkv, const float* wproj,
                const float* bproj, const void* rel_bias, const void* mask, float* y, void* keep,
-               void* ws, int B, int N, int C, int H, int nW, unsigned long long seed,
+               void* ws, int B, int N, int C, int D, int H, int nW, unsigned long long seed,
                unsigned threshold, float inv_keep, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+  if (check_geometry(N, C, D, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   focal::Geo g;
   size_t smem = 0;
-  cudaError_t err = attn_geo(B, N, C, H, attn_fwd_smem, &g, &smem);
+  cudaError_t err = attn_geo(B, N, D, H, attn_fwd_smem, &g, &smem);
   const bool dropout = keep != nullptr;
   if (err == cudaSuccess)
     err = dropout ? set_smem(attn_fwd_kernel<true>, smem, nullptr)
@@ -573,13 +583,13 @@ int wblock_fwd(const float* x, const float* wqkv, const float* bqkv, const float
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * N;
   float* qkv = static_cast<float*>(ws);
-  float* ao = qkv + (size_t)R * 3 * C;
-  err = launch_proj(proj_gemm(x, C, wqkv, 3 * C, bqkv, qkv, 3 * C, R, 3 * C, C), ProjGemm{}, s);
+  float* ao = qkv + (size_t)R * 3 * D;
+  err = launch_proj(proj_gemm(x, C, wqkv, 3 * D, bqkv, qkv, 3 * D, R, 3 * D, C), ProjGemm{}, s);
   if (err != cudaSuccess) return (int)err;
   const int grid = (int)((g.total + g.pairs - 1) / g.pairs);
 #define FOCAL_ATTN_ARGS                                                                       \
   qkv, static_cast<const float*>(rel_bias), static_cast<const float*>(mask), ao,              \
-      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, g, C,                     \
+      static_cast<unsigned char*>(keep), seed, threshold, inv_keep, g, D,                     \
       mask != nullptr ? nW : 1
   if (dropout)
     attn_fwd_kernel<true><<<grid, kThreads, smem, s>>>(FOCAL_ATTN_ARGS);
@@ -588,35 +598,36 @@ int wblock_fwd(const float* x, const float* wqkv, const float* bqkv, const float
 #undef FOCAL_ATTN_ARGS
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  return (int)launch_proj(proj_gemm(ao, C, wproj, C, bproj, y, C, R, C, C), ProjGemm{}, s);
+  return (int)launch_proj(proj_gemm(ao, D, wproj, C, bproj, y, C, R, C, D), ProjGemm{}, s);
 }
 
 // The backward's six launches on `stream` (focal_wblock_bwd): qkv = x
 // Wqkv + bqkv and g = dy Wproj^T (one launch, f32 into the workspace), the
 // attention backward (dqkv, the attention output, d rel_bias partials), dx
 // = dqkv Wqkv^T, the weight-gradient split partials (x^T dqkv, ao^T dy and
-// the column sums), and the two ordered reductions.
+// the column sums), and the two ordered reductions. Wqkv^T is [3D, C],
+// Wproj^T [C, D].
 int wblock_bwd(const float* x, const float* wqkv, const float* bqkv, const float* wqkv_t,
                const float* wproj_t, const void* rel_bias, const void* mask, const float* dy,
                const void* keep, float inv_keep, float* dx, void* dweights, void* drel_bias,
-               void* ws, int B, int N, int C, int H, int nW, void* stream) {
-  if (check_geometry(N, C, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
+               void* ws, int B, int N, int C, int D, int H, int nW, void* stream) {
+  if (check_geometry(N, C, D, H) || (mask != nullptr && nW < 1)) return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const bool dropout = keep != nullptr;
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout);
+  const BwdPlan P = bwd_plan(B, N, C, D, H, dropout);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * N;
   float* w = static_cast<float*>(ws);
   float *qkv = w + P.qkv, *dqkv = w + P.dqkv, *g = w + P.g, *ao = w + P.ao;
   // 1. qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
-  cudaError_t err = launch_proj(proj_gemm(x, C, wqkv, 3 * C, bqkv, qkv, 3 * C, R, 3 * C, C),
-                                proj_gemm(dy, C, wproj_t, C, nullptr, g, C, R, C, C), s);
+  cudaError_t err = launch_proj(proj_gemm(x, C, wqkv, 3 * D, bqkv, qkv, 3 * D, R, 3 * D, C),
+                                proj_gemm(dy, C, wproj_t, D, nullptr, g, D, R, D, C), s);
   if (err != cudaSuccess) return (int)err;
   // 2. the attention backward per (window, head)
 #define FOCAL_ATTN_ARGS                                                                       \
   qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),               \
-      static_cast<const unsigned char*>(keep), inv_keep, dqkv, ao, w + P.dbias, P.geo, C,    \
+      static_cast<const unsigned char*>(keep), inv_keep, dqkv, ao, w + P.dbias, P.geo, D,    \
       mask != nullptr ? nW : 1
   if (dropout)
     attn_bwd_kernel<true><<<P.attn_grid, kThreads, P.attn_smem, s>>>(FOCAL_ATTN_ARGS);
@@ -626,12 +637,12 @@ int wblock_bwd(const float* x, const float* wqkv, const float* bqkv, const float
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   // 3. dx = dqkv Wqkv^T
-  err = launch_proj(proj_gemm(dqkv, 3 * C, wqkv_t, C, nullptr, dx, C, R, C, 3 * C), ProjGemm{}, s);
+  err = launch_proj(proj_gemm(dqkv, 3 * D, wqkv_t, C, nullptr, dx, C, R, C, 3 * D), ProjGemm{}, s);
   if (err != cudaSuccess) return (int)err;
   // 4. dWqkv = x^T dqkv with dbqkv, dWproj = ao^T dy with dbproj, per split
-  const size_t q = (size_t)3 * C * C, p_out = q + 3 * C, p_sums = p_out + (size_t)C * C;
-  err = focal::launch_wgrad<Src>(P.wbn, focal::wgrad_gemm(x, dqkv, C, 3 * C, 0, q, P.wbn),
-                                 focal::wgrad_gemm(ao, dy, C, C, p_out, p_sums, P.wbn), R,
+  const size_t q = (size_t)3 * C * D, p_out = q + 3 * D, p_sums = p_out + (size_t)D * C;
+  err = focal::launch_wgrad<Src>(P.wbn, focal::wgrad_gemm(x, dqkv, C, 3 * D, 0, q, P.wbn),
+                                 focal::wgrad_gemm(ao, dy, D, C, p_out, p_sums, P.wbn), R,
                                  P.rows_per_split, P.splits, w + P.wpart, P.E, false, s);
   if (err != cudaSuccess) return (int)err;
   // 5. the partials summed in split order, and d rel_bias in block order
@@ -1388,7 +1399,7 @@ int wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
                     const void* bproj, const void* rel_bias, const void* mask, void* y,
                     void* keep, void* ws, int B, int N, int C, int H, int nW,
                     unsigned long long seed, unsigned threshold, float inv_keep, void* stream) {
-  if (check_geometry(N, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
+  if (check_geometry(N, C, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const FwdPlan16 P = fwd_plan16(B, N, C, H, keep != nullptr);
@@ -1434,7 +1445,7 @@ int wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
                     const void* rel_bias, const void* mask, const void* dy, const void* keep,
                     float inv_keep, void* dx, void* dweights, void* drel_bias, void* ws, int B,
                     int N, int C, int H, int nW, void* stream) {
-  if (check_geometry(N, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
+  if (check_geometry(N, C, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const bool dropout = keep != nullptr;
@@ -1491,18 +1502,19 @@ int wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
 
 }  // namespace
 
-// Workspace of the f32 forward (#1, #2, #4), in floats: the qkv projection
-// [R, 3C] and the attention output [R, C], R = B N. An error where the
-// attention has no launch plan (a head too wide for shared memory).
-extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long* floats) {
-  if (check_geometry(N, C, H) || B < 0) return (int)cudaErrorInvalidValue;
+// Workspace of the f32 forward (#1, #2, #4; #4-TP), in floats: the qkv
+// projection [R, 3D] and the attention output [R, D], R = B N, D = C but
+// for a tensor-parallel shard's heads. An error where the attention has no
+// launch plan (a head too wide for shared memory).
+extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int D, int H, long long* floats) {
+  if (check_geometry(N, C, D, H) || B < 0) return (int)cudaErrorInvalidValue;
   if (B > 0) {
     focal::Geo g;
     size_t smem = 0;
-    const cudaError_t err = attn_geo(B, N, C, H, attn_fwd_smem, &g, &smem);
+    const cudaError_t err = attn_geo(B, N, D, H, attn_fwd_smem, &g, &smem);
     if (err != cudaSuccess) return (int)err;
   }
-  *floats = (long long)B * N * 4 * C;
+  *floats = (long long)B * N * 4 * D;
   return 0;
 }
 
@@ -1510,20 +1522,23 @@ extern "C" int focal_wblock_fwd_workspace(int B, int N, int C, int H, long long*
 // `keep` is not null: each (window, head, query, key) weight is kept iff its
 // Philox word (keyed by `seed`) is >= `threshold`, then scaled by
 // `inv_keep`, and the keep mask is written to `keep` as uint8 [B, H, N, N]).
-// Pointers are device pointers to contiguous f32 tensors; `mask` may be
-// null (nW ignored). `ws` holds focal_wblock_fwd_workspace floats, 16-byte
-// aligned, as x, wqkv and wproj must be. Three launches on `stream`: qkv = x
-// Wqkv + bqkv, the attention per (window, head), y = ao Wproj + bproj.
+// x [B, N, C], wqkv [C, 3D], bqkv [3D], wproj [D, C], bproj [C], rel_bias
+// [H, N, N], D = H hd (D = C but for #4-TP, a tensor-parallel shard's H
+// heads, whose y is a partial sum). Pointers are device pointers to
+// contiguous f32 tensors; `mask` may be null (nW ignored). `ws` holds
+// focal_wblock_fwd_workspace floats, 16-byte aligned, as x, wqkv and wproj
+// must be. Three launches on `stream`: qkv = x Wqkv + bqkv, the attention
+// per (window, head), y = ao Wproj + bproj.
 extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const void* bqkv,
                                         const void* wproj, const void* bproj,
                                         const void* rel_bias, const void* mask, void* y,
-                                        void* keep, void* ws, int B, int N, int C, int H, int nW,
-                                        unsigned long long seed, unsigned threshold,
+                                        void* keep, void* ws, int B, int N, int C, int D, int H,
+                                        int nW, unsigned long long seed, unsigned threshold,
                                         float inv_keep, void* stream) {
   return wblock_fwd(static_cast<const float*>(x), static_cast<const float*>(wqkv),
                     static_cast<const float*>(bqkv), static_cast<const float*>(wproj),
                     static_cast<const float*>(bproj), rel_bias, mask, static_cast<float*>(y), keep,
-                    ws, B, N, C, H, nW, seed, threshold, inv_keep, stream);
+                    ws, B, N, C, D, H, nW, seed, threshold, inv_keep, stream);
 }
 
 // Workspace the bf16 forward (#1-bf16, #2-bf16, #4-bf16; `dropout` for the
@@ -1533,7 +1548,7 @@ extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const v
 // attention has no launch plan.
 extern "C" int focal_wblock_fwd_workspace_bf16(int B, int N, int C, int H, int dropout,
                                                long long* floats) {
-  if (check_geometry(N, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (check_geometry(N, C, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) {
     *floats = 0;
     return 0;
@@ -1562,38 +1577,40 @@ extern "C" int focal_wblock_fwd_bf16(const void* x, const void* wqkv, const void
                          seed, threshold, inv_keep, stream);
 }
 
-// Workspace the backward (#3, #5) needs, in floats, for this geometry on the
-// current device (bwd_plan).
-extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int H, int dropout,
+// Workspace the backward (#3, #5; #5-TP) needs, in floats, for this
+// geometry on the current device (bwd_plan).
+extern "C" int focal_wblock_bwd_workspace(int B, int N, int C, int D, int H, int dropout,
                                           long long* floats) {
-  if (check_geometry(N, C, H)) return (int)cudaErrorInvalidValue;
+  if (check_geometry(N, C, D, H)) return (int)cudaErrorInvalidValue;
   if (B == 0) {
     *floats = 0;
     return 0;
   }
-  const BwdPlan P = bwd_plan(B, N, C, H, dropout != 0);
+  const BwdPlan P = bwd_plan(B, N, C, D, H, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   *floats = (long long)P.total;
   return 0;
 }
 
-// Backward (#3; #5). Inputs: x, wqkv [C, 3C] and its transpose [3C, C], bqkv,
-// the transpose of wproj [C, C], rel_bias, mask (may be null), dy, keep
-// (uint8 [B, H, N, N] from the forward, or null for no dropout) with
-// inv_keep; x, the weights, dy and `ws` 16-byte aligned. Outputs: dx [B, N,
-// C]; dweights, flat [dWqkv C*3C | dbqkv 3C | dWproj C*C | dbproj C];
-// drel_bias [H, N, N]. `ws` holds focal_wblock_bwd_workspace floats. Six
-// launches on `stream` (wblock_bwd).
+// Backward (#3; #5; #5-TP at D < C). Inputs: x, wqkv [C, 3D] and its
+// transpose [3D, C], bqkv, the transpose of wproj [D, C] ([C, D]), rel_bias,
+// mask (may be null), dy, keep (uint8 [B, H, N, N] from the forward, or null
+// for no dropout) with inv_keep; x, the weights, dy and `ws` 16-byte
+// aligned. Outputs: dx [B, N, C] (a partial sum at D < C); dweights, flat
+// [dWqkv C*3D | dbqkv 3D | dWproj D*C | dbproj C]; drel_bias [H, N, N]. `ws`
+// holds focal_wblock_bwd_workspace floats. Six launches on `stream`
+// (wblock_bwd).
 extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqkv,
                                 const void* wqkv_t, const void* wproj_t, const void* rel_bias,
                                 const void* mask, const void* dy, const void* keep,
                                 float inv_keep, void* dx, void* dweights, void* drel_bias,
-                                void* ws, int B, int N, int C, int H, int nW, void* stream) {
+                                void* ws, int B, int N, int C, int D, int H, int nW,
+                                void* stream) {
   return wblock_bwd(static_cast<const float*>(x), static_cast<const float*>(wqkv),
                     static_cast<const float*>(bqkv), static_cast<const float*>(wqkv_t),
                     static_cast<const float*>(wproj_t), rel_bias, mask,
                     static_cast<const float*>(dy), keep, inv_keep, static_cast<float*>(dx),
-                    dweights, drel_bias, ws, B, N, C, H, nW, stream);
+                    dweights, drel_bias, ws, B, N, C, D, H, nW, stream);
 }
 
 // Workspace the bf16 backward (#3-bf16, #5-bf16) needs, in floats, for this
@@ -1601,7 +1618,7 @@ extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqk
 // a multiple of 8 or the attention has no launch plan.
 extern "C" int focal_wblock_bwd_workspace_bf16(int B, int N, int C, int H, int dropout,
                                                long long* floats) {
-  if (check_geometry(N, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (check_geometry(N, C, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) {
     *floats = 0;
     return 0;

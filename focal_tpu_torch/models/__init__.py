@@ -1,5 +1,5 @@
 """Backbones of the port."""
 
-from focal_tpu_torch.models.registry import build_backbone, init_params
+from focal_tpu_torch.models.registry import apply_plan, build_backbone, init_params
 
-__all__ = ["build_backbone", "init_params"]
+__all__ = ["apply_plan", "build_backbone", "init_params"]

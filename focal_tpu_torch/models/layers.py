@@ -18,6 +18,13 @@ In ``train()`` mode the dropout of a block takes the step's ``rng``
 block's convs, BatchNorms, GELUs, dropouts, residual adds and ``out_proj``
 in bf16 (``conv2d_low``, ``BatchNorm``'s f32 normalisation rounded once),
 its fused tower through #13-bf16/#14-bf16; the GRU in f32.
+
+Across processes (``plan``, a ``parallel.mesh.MeshPlan``, set by
+``models.registry.apply_plan``): a ``Dense`` that ``parallel.tp`` cut runs its
+part of a column- or row-parallel product, with the model axis's sums
+(``tp_role``); the attentions run the heads of their cut q, k and v; a
+training ``BatchNorm`` takes its statistics over the global batch, summed
+over the data ranks.
 """
 
 import torch
@@ -26,6 +33,7 @@ import torch.nn.functional as F
 
 from focal_tpu_torch.ops.conv_tower import BN_EPS, fused_conv_tower, tower_takes
 from focal_tpu_torch.ops.dropout import keep_mask, needs_rng
+from focal_tpu_torch.parallel.distributed import copy_to, gather_from, reduce_from
 
 BN_MOMENTUM = 0.9  # flax's: running = 0.9 running + 0.1 batch (torch momentum 0.1)
 
@@ -35,18 +43,39 @@ class Dense(nn.Linear):
     ...)`` does: the f32 parameters cast at use, x W^T rounded to the dtype,
     then the bias added in it (two roundings, as flax's dot and ``y +=
     bias``). In f32 it is nn.Linear. The parameters stay f32 whatever the
-    dtype; their gradients reach them through the casts."""
+    dtype; their gradients reach them through the casts.
 
-    def __init__(self, in_features, out_features, bias=True, compute_dtype=torch.float32):
+    ``tp_role`` says how the product splits once ``parallel.tp.shard_model``
+    has cut its weight (``tp_sharded``): "column" (the rank's output columns;
+    x enters by ``copy_to``, so its gradient sums over the model ranks),
+    "column_gather" (the same, the columns gathered after) or "row" (the
+    rank's input columns; the partial products summed over the model ranks,
+    then the whole bias added)."""
+
+    def __init__(self, in_features, out_features, bias=True, compute_dtype=torch.float32,
+                 tp_role=None):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = compute_dtype
+        self.tp_role = tp_role
+        self.plan = None
+        self.tp_sharded = False
 
-    def forward(self, x):
+    def _linear(self, x, bias):
         dt = self.compute_dtype
         if dt == torch.float32:
-            return super().forward(x)
+            return F.linear(x, self.weight, bias)
         y = F.linear(x.to(dt), self.weight.to(dt))
-        return y if self.bias is None else y + self.bias.to(dt)
+        return y if bias is None else y + bias.to(dt)
+
+    def forward(self, x):
+        if not self.tp_sharded:
+            return self._linear(x, self.bias)
+        group = self.plan.model
+        if self.tp_role == "row":
+            y = reduce_from(self._linear(x, None), group)
+            return y if self.bias is None else y + self.bias.to(y.dtype)
+        y = self._linear(copy_to(x, group), self.bias)
+        return gather_from(y, group, dim=-1) if self.tp_role == "column_gather" else y
 
 
 def gelu(x):
@@ -121,6 +150,7 @@ class BatchNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
         self.register_buffer("var", torch.ones(features))
+        self.plan = None  # over several data ranks: the global batch's statistics
 
     @torch.no_grad()
     def update(self, mu, var):
@@ -132,7 +162,14 @@ class BatchNorm(nn.Module):
         dtype = x.dtype
         x = x.to(torch.float32)
         dims = [d for d in range(x.dim()) if d != 1]
-        if self.training:
+        if self.training and self.plan is not None and self.plan.dp > 1:
+            # E[x] and E[x^2] over every data rank's rows, a differentiable sum
+            sums = self.plan.sum_data(torch.stack([x.sum(dim=dims), (x * x).sum(dim=dims)]))
+            n = x.numel() // x.shape[1] * self.plan.dp
+            mu = sums[0] / n
+            var = torch.clamp(sums[1] / n - mu * mu, min=0.0)
+            self.update(mu.detach(), var.detach())
+        elif self.training:
             mu = x.mean(dim=dims)
             var = torch.clamp((x * x).mean(dim=dims) - mu * mu, min=0.0)
             self.update(mu.detach(), var.detach())
@@ -358,27 +395,29 @@ class MultiHeadDotProductAttention(nn.Module):
     In bf16 (``compute_dtype``) every step rounds as flax's does at
     ``dtype=bfloat16``: q divided by sqrt(hd) rounded to bf16, the scores,
     the softmax's exp, sum and quotient, the dropout and the weighted sum
-    each in bf16."""
+    each in bf16.
+
+    Under tensor parallelism query, key and value are column- and out
+    row-parallel: a rank attends over its whole heads."""
 
     def __init__(self, dim, num_heads, dropout_rate=0.0, compute_dtype=torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.dropout_rate = float(dropout_rate)
         self.compute_dtype = compute_dtype
-        self.query = Dense(dim, dim, compute_dtype=compute_dtype)
-        self.key = Dense(dim, dim, compute_dtype=compute_dtype)
-        self.value = Dense(dim, dim, compute_dtype=compute_dtype)
-        self.out = Dense(dim, dim, compute_dtype=compute_dtype)
+        self.query = Dense(dim, dim, compute_dtype=compute_dtype, tp_role="column")
+        self.key = Dense(dim, dim, compute_dtype=compute_dtype, tp_role="column")
+        self.value = Dense(dim, dim, compute_dtype=compute_dtype, tp_role="column")
+        self.out = Dense(dim, dim, compute_dtype=compute_dtype, tp_role="row")
 
     def forward(self, q_in, kv_in, rng=None):
         b, lq, c = q_in.shape
         lk = kv_in.shape[1]
-        H = self.num_heads
-        hd = c // H
+        hd = c // self.num_heads
         dt = self.compute_dtype
-        q = self.query(q_in).reshape(b, lq, H, hd).transpose(1, 2)
-        k = self.key(kv_in).reshape(b, lk, H, hd).transpose(1, 2)
-        v = self.value(kv_in).reshape(b, lk, H, hd).transpose(1, 2)
+        q = self.query(q_in).reshape(b, lq, -1, hd).transpose(1, 2)  # this rank's heads
+        k = self.key(kv_in).reshape(b, lk, -1, hd).transpose(1, 2)
+        v = self.value(kv_in).reshape(b, lk, -1, hd).transpose(1, 2)
         if dt == torch.float32:
             attn = torch.softmax(torch.matmul(q / hd**0.5, k.transpose(-1, -2)), dim=-1)
         else:
@@ -388,7 +427,7 @@ class MultiHeadDotProductAttention(nn.Module):
         if self.training and self.dropout_rate > 0.0:
             gen = needs_rng(rng, "attention dropout").device
             attn = attn * keep_mask((1, 1, lq, lk), self.dropout_rate, gen).to(dt)
-        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, c)
+        out = torch.matmul(attn, v).transpose(1, 2).reshape(b, lq, -1)
         return self.out(out)
 
 
@@ -452,12 +491,13 @@ class TransformerEncoderLayer(nn.Module):
 
 
 class ProjectionHead(nn.Module):
-    """Linear -> ReLU -> Linear, in ``compute_dtype``."""
+    """Linear -> ReLU -> Linear, in ``compute_dtype``; under tensor
+    parallelism column- then row-parallel."""
 
     def __init__(self, in_dim, out_dim, compute_dtype=torch.float32):
         super().__init__()
-        self.Dense_0 = Dense(in_dim, out_dim, compute_dtype=compute_dtype)
-        self.Dense_1 = Dense(out_dim, out_dim, compute_dtype=compute_dtype)
+        self.Dense_0 = Dense(in_dim, out_dim, compute_dtype=compute_dtype, tp_role="column")
+        self.Dense_1 = Dense(out_dim, out_dim, compute_dtype=compute_dtype, tp_role="row")
 
     def forward(self, x):
         return self.Dense_1(F.relu(self.Dense_0(x)))

@@ -56,3 +56,28 @@ def init_params(model, seed=0):
     if isinstance(model, sw_transformer.SWTransformer):
         return sw_transformer.init_params(model, seed)
     raise ValueError(f"No init for {type(model).__name__}")
+
+
+def apply_plan(model, plan):
+    """Place a built and initialised backbone on a process layout
+    (``parallel.mesh.MeshPlan``; None: one process): every module that takes
+    part (``plan`` attribute: the Dense layers, window attentions and
+    BatchNorms) learns the plan, and under tensor parallelism
+    ``parallel.tp.shard_model`` keeps this rank's slice of each parameter
+    the rules cut. DeepSense under tensor parallelism raises (ROADMAP
+    A7.3)."""
+    if plan is None:
+        return model
+    from focal_tpu_torch.models.deepsense import DeepSense
+    from focal_tpu_torch.parallel import tp
+
+    if plan.mp > 1 and isinstance(model, DeepSense):
+        raise NotImplementedError("DeepSense under -model_parallel (conv-channel sharding) is not "
+                                  "ported yet: ROADMAP A7.3")
+    for mod in model.modules():
+        if hasattr(mod, "plan"):
+            mod.plan = plan
+    model.plan = plan  # the train state's layout
+    if plan.mp > 1:
+        tp.shard_model(model, plan)
+    return model

@@ -22,6 +22,11 @@ whole-block ones. ``compute_dtype`` (the CLI's ``-compute_dtype``) is the
 activations' type, as the JAX package's ``dtype``: the input spectra and
 the position embedding are cast to it, every layer computes in it over f32
 parameters (``models.swin``), and the class logits come out in f32.
+
+Under tensor parallelism (``models.registry.apply_plan``) the Swin blocks
+split their heads and MLP widths, ``mod_in_layer`` its output columns
+(gathered after it), the projectors and fusion attentions theirs
+(``parallel.tp``); the rest runs whole on every model rank.
 """
 
 import math
@@ -116,7 +121,7 @@ class SWTransformer(nn.Module):
                 (fh, fw), final_dim = geo["stages"][-1]
                 self.add_module(f"mod_in_layer_{loc}_{mod}",
                                 Dense(fh * fw * final_dim, config["loc_out_channels"],
-                                      compute_dtype=dt))
+                                      compute_dtype=dt, tp_role="column_gather"))
 
         loc_out = config["loc_out_channels"]
         self.loc_block_num = config["loc_block_num"] if self.multi_location else 0

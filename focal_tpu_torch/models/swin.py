@@ -18,7 +18,8 @@ the JAX package would run its kernel.
 
 In training every module takes ``rng``, the step's ``ops.dropout.StepRngs``:
 one kernel seed per block from its host generator, DropPath and the other
-dropouts from its device generator.
+dropouts from its device generator (under tensor parallelism, those of a
+split tensor from its split generator).
 
 ``compute_dtype`` (the CLI's ``-compute_dtype``) is the activations' type,
 as flax's ``dtype=``: in bf16 each Linear and LayerNorm casts its f32
@@ -35,6 +36,20 @@ forward and #9-bf16 or #8-bf16 backward in training); a width that no bf16
 kernel takes runs the XLA route in bf16, rounding where the JAX package's
 does op by op.
 
+Across processes (``plan``, set by ``models.registry.apply_plan``): a data
+rank runs the same kernels on its rows, with its shard's kernel seeds (the
+JAX package's data-parallel wrappers: ``StepRngs.seed``); a rank's windows
+are whole samples', so each holds a multiple of nW windows, as the JAX
+package's gate asks. Under tensor parallelism a block whose qkv, proj and
+bias table ``parallel.tp`` cut by whole heads runs
+``sharded_window_block_tp`` (#4-TP forward, #5-TP backward) where
+``wblock_tp_takes``, else the plain attention route on the rank's heads (as
+the JAX package falls back to XLA there, ``-no_pallas_block`` too); its MLP
+is column- then row-parallel (``models.layers.Dense``). The masks of what a
+rank holds alone of a tensor (its heads' attention weights, its columns of
+the MLP's hidden layer) come from ``StepRngs.split``, so the model ranks
+draw one mask over the whole tensor.
+
 Parameter names follow the flax tree (``norm1``, ``attn.qkv``, ``mlp.Dense_0``,
 ``downsample.reduction`` ...) so a reader can map one to the other; weights
 use torch's ``nn.Linear`` layout ``[out, in]``.
@@ -49,8 +64,9 @@ from focal_tpu_torch.ops.dropout import needs_rng, remat_dropout
 from focal_tpu_torch.ops.fused_mlp import fused_mlp, fused_mlp_dropout, mlp_takes
 from focal_tpu_torch.ops.pallas_kernels import (attention_takes, fused_window_attention,
                                                 fused_window_attention_bf16, scale_bf16,
-                                                wblock_takes, window_attention_qkv, window_block,
-                                                window_block_forward)
+                                                sharded_window_block_tp, wblock_takes,
+                                                wblock_tp_takes, window_attention_qkv,
+                                                window_block, window_block_forward)
 
 
 def window_partition(x, wh, ww):
@@ -132,9 +148,10 @@ class WindowAttention(nn.Module):
         self.proj_drop = float(proj_drop)
         self.compute_dtype = compute_dtype
         wh, ww = self.window_size
-        # columns part|head|dim
-        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, compute_dtype=compute_dtype)
-        self.proj = Dense(dim, dim, compute_dtype=compute_dtype)
+        # columns part|head|dim; under tensor parallelism a rank's whole heads
+        self.qkv = Dense(dim, 3 * dim, bias=qkv_bias, compute_dtype=compute_dtype,
+                         tp_role="column")
+        self.proj = Dense(dim, dim, compute_dtype=compute_dtype, tp_role="row")
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * wh - 1) * (2 * ww - 1), num_heads)
         )
@@ -144,23 +161,27 @@ class WindowAttention(nn.Module):
             persistent=False,
         )
         self._kernel_key = None  # (data_ptr, _version) of each parameter when folded
+        self.plan = None
+        self.tp_sharded = False  # parallel.tp cut the heads: this rank's alone
 
     def _rel_bias(self):
-        """[H, N, N]: the bias table gathered by the relative position index."""
+        """[H, N, N]: the bias table gathered by the relative position index
+        (this rank's heads under tensor parallelism)."""
         N = self.window_size[0] * self.window_size[1]
         bias = self.relative_position_bias_table[self.relative_position_index]
-        return bias.reshape(N, N, self.num_heads).permute(2, 0, 1).contiguous()
+        return bias.reshape(N, N, -1).permute(2, 0, 1).contiguous()
 
     def _fold(self):
-        """(wqkv_t [3C, C] with the q scale folded in, bqkv, wproj_t [C, C],
+        """(wqkv_t [3D, C] with the q scale folded in, bqkv, wproj_t [C, D],
         bproj, rel_bias [H, N, N]): the weights in nn.Linear's [out, in]
-        layout, the transpose of what the kernels take."""
-        C, H = self.dim, self.num_heads
-        scale = (C // H) ** -0.5
+        layout, the transpose of what the kernels take; D = C, or under
+        tensor parallelism the width of the rank's heads."""
+        scale = (self.dim // self.num_heads) ** -0.5
+        D = self.qkv.weight.shape[0] // 3
         dev = self.qkv.weight.device
-        scale_vec = torch.cat([torch.full((C,), scale, device=dev), torch.ones(2 * C, device=dev)])
+        scale_vec = torch.cat([torch.full((D,), scale, device=dev), torch.ones(2 * D, device=dev)])
         wqkv_t = self.qkv.weight * scale_vec[:, None]
-        bqkv = self.qkv.bias if self.qkv.bias is not None else torch.zeros(3 * C, device=dev)
+        bqkv = self.qkv.bias if self.qkv.bias is not None else torch.zeros(3 * D, device=dev)
         bqkv = (bqkv * scale_vec).contiguous()
         return wqkv_t, bqkv, self.proj.weight, self.proj.bias, self._rel_bias()
 
@@ -222,10 +243,12 @@ class WindowAttention(nn.Module):
         ``scale_bf16``; at N <= 16 (its ``small_window``) the scores and
         the weighted sum as bf16 products summed in f32 and rounded once,
         else bf16 matmuls; the bias, mask and softmax in f32, the weights
-        rounded to bf16 before the dropout."""
-        B_, N, C = x.shape
-        H = self.num_heads
-        hd = C // H
+        rounded to bf16 before the dropout. Under tensor parallelism
+        (``tp_sharded``) the rank's H heads, the qkv and proj Linears column-
+        and row-parallel, the dropout's mask from the split generator."""
+        B_, N, _ = x.shape
+        hd = self.dim // self.num_heads
+        H = self.relative_position_bias_table.shape[-1]
         q, k, v = self.qkv(x).reshape(B_, N, 3, H, hd).permute(2, 0, 3, 1, 4).unbind(0)
         low = q.dtype != torch.float32
         if low:
@@ -242,16 +265,19 @@ class WindowAttention(nn.Module):
             attn = (attn.reshape(B_ // nW, nW, H, N, N) + mask[None, :, None]).reshape(B_, H, N, N)
         attn = torch.softmax(attn, dim=-1).to(q.dtype)
         if self.training and self.attn_drop > 0.0:
-            attn = remat_dropout(attn, self.attn_drop, needs_rng(rng, "attention dropout").device)
+            rng = needs_rng(rng, "attention dropout")
+            attn = remat_dropout(attn, self.attn_drop, rng.split if self.tp_sharded else rng.device)
         if low and N <= 16:
             out = (attn[..., None] * v[:, :, None, :, :]).sum(-2)
         else:
             out = torch.matmul(attn, v)
-        return self.proj(out.transpose(1, 2).reshape(B_, N, C))
+        return self.proj(out.transpose(1, 2).reshape(B_, N, H * hd))
 
     def forward(self, x, mask=None, rng=None):
         N, C, H, dt = x.shape[1], self.dim, self.num_heads, self.compute_dtype
-        if not (self.pallas_block and wblock_takes(N, C, H, dt)):
+        if self.tp_sharded:
+            out = self._tensor_parallel(x, mask, rng)
+        elif not (self.pallas_block and wblock_takes(N, C, H, dt)):
             if attention_takes(N, C // H, dt):
                 out = self._attention_only(x, mask, rng)
             else:
@@ -270,6 +296,19 @@ class WindowAttention(nn.Module):
         if self.training and self.proj_drop > 0.0:
             out = remat_dropout(out, self.proj_drop, needs_rng(rng, "proj_drop").device)
         return out
+
+    def _tensor_parallel(self, x, mask, rng):
+        """The rank's heads: #4-TP/#5-TP (``sharded_window_block_tp``, in eval
+        too) where ``wblock_tp_takes``, else the plain route."""
+        N, C, H = x.shape[1], self.dim, self.num_heads
+        if not (self.pallas_block and wblock_tp_takes(N, C, H, self.plan.mp)):
+            return self._plain_attention(x, mask, rng)
+        rate = self.attn_drop if self.training else 0.0
+        seed = needs_rng(rng, "attention dropout").seed(split=True) if rate > 0.0 else 0
+        wqkv_t, bqkv, wproj_t, bproj, rel_bias = self._fold()
+        return sharded_window_block_tp(self.plan, x.contiguous(), wqkv_t.t().contiguous(), bqkv,
+                                       wproj_t.t().contiguous(), bproj, rel_bias, mask, seed,
+                                       rate, wqkv_t=wqkv_t, wproj_t=wproj_t)
 
 
 class DropPath(nn.Module):
@@ -301,19 +340,28 @@ class Mlp(nn.Module):
     rate > 0, one kernel seed per call from the step's host generator; in
     bf16 their bf16 forms (#10-bf16 to #12-bf16) over the f32 weights.
     Otherwise two nn.Linear layers with the dropouts of
-    ``ops.dropout.remat_dropout``, in ``compute_dtype``."""
+    ``ops.dropout.remat_dropout``, in ``compute_dtype``. Under tensor
+    parallelism the Linears are column- then row-parallel, the hidden
+    layer's mask from the split generator (the fused MLP there is ROADMAP
+    A7.3)."""
 
     def __init__(self, dim, hidden, out, drop=0.0, use_pallas=False, compute_dtype=torch.float32):
         super().__init__()
-        self.Dense_0 = Dense(dim, hidden, compute_dtype=compute_dtype)
-        self.Dense_1 = Dense(hidden, out, compute_dtype=compute_dtype)
+        self.Dense_0 = Dense(dim, hidden, compute_dtype=compute_dtype, tp_role="column")
+        self.Dense_1 = Dense(hidden, out, compute_dtype=compute_dtype, tp_role="row")
         self.drop = float(drop)
         self.fused = bool(use_pallas) and out == dim and mlp_takes(dim, hidden, compute_dtype)
 
-    def _drop(self, x, rng):
+    def check_tp(self):
+        if self.fused and self.Dense_0.tp_sharded:
+            raise NotImplementedError("-pallas_mlp under -model_parallel is not ported yet: "
+                                      "ROADMAP A7.3")
+
+    def _drop(self, x, rng, split=False):
         if not self.training or self.drop == 0.0:
             return x
-        return remat_dropout(x, self.drop, needs_rng(rng, "Mlp dropout").device)
+        rng = needs_rng(rng, "Mlp dropout")
+        return remat_dropout(x, self.drop, rng.split if split else rng.device)
 
     def forward(self, x, rng=None):
         if self.fused:
@@ -327,7 +375,7 @@ class Mlp(nn.Module):
             else:
                 y = fused_mlp(x2, *w, w1_t=w1_t, w2_t=w2_t)
             return y.reshape(*lead, C)
-        x = self._drop(gelu(self.Dense_0(x)), rng)
+        x = self._drop(gelu(self.Dense_0(x)), rng, split=self.Dense_0.tp_sharded)
         return self._drop(self.Dense_1(x), rng)
 
 

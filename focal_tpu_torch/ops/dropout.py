@@ -55,13 +55,27 @@ def needs_rng(rng, what):
 class StepRngs:
     """The randomness of one training step: ``host``, a CPU generator for
     scalar draws (augmenter choices, gates, kernel seeds), and ``device``, a
-    generator on the model's device for masks."""
+    generator on the model's device for masks.
 
-    def __init__(self, host, device):
+    Across processes (``train.state.TrainState`` over a plan) ``device``
+    differs between data ranks and agrees between the model ranks of one,
+    for the masks of what they hold whole; ``split`` differs between every
+    two ranks, for the masks of what the model ranks split between them (a
+    column-parallel output, a rank's heads), so that they draw one mask
+    over the whole tensor, as one process does. In one process it is
+    ``device``. ``offset`` and ``split_offset`` are the shard's offsets of
+    the kernel seeds (``seed``)."""
+
+    def __init__(self, host, device, split=None, offset=0, split_offset=0):
         self.host = host
         self.device = device
+        self.split = device if split is None else split
+        self.offset = offset
+        self.split_offset = split_offset
 
-    def seed(self):
+    def seed(self, split=False):
         """A fresh 31-bit seed from the host generator (one per dropout
-        kernel launch, as the JAX package draws one per block)."""
-        return int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+        kernel launch, as the JAX package draws one per block), plus the
+        data shard's offset, or with ``split`` the (data, model) shard's."""
+        draw = int(torch.randint(0, 2**31 - 1, (1,), generator=self.host))
+        return draw + (self.split_offset if split else self.offset)

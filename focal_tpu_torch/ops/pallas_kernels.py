@@ -55,6 +55,17 @@ v and g and give bf16 out, dq, dk and dv (f32 drel_bias), the math in f32
 between, as the JAX package's kernels fed bf16 compute it (see
 ``fused_window_attention_bf16_reference``); ``window_attention_qkv`` takes
 them for a bf16 qkv.
+
+Multi-process forms (``parallel``): #4-TP ``fused_window_block_tp`` and
+#5-TP ``fused_window_block_tp_backward`` run #4/#5's f32 CUDA code on a
+tensor-parallel shard's heads, at an inner width D = H hd below C (wqkv [C,
+3D], wproj [D, C]), their y and dx partial sums; ``sharded_window_block_tp``
+is their autograd pair with the sums over the model ranks. The JAX
+package's data-parallel wrappers (``sharded_window_block``,
+``sharded_window_attention``, ``sharded_fused_mlp``) have no form of their
+own: a data rank calls ``window_block``, ``window_attention_qkv`` and the
+fused MLP on its rows with its shard's kernel seed (``ops.dropout.StepRngs.
+seed``), and the training step sums the weight gradients over ``data``.
 """
 
 import ctypes
@@ -130,18 +141,19 @@ def fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=Non
     package's ``_xla_attention`` with the bias and shift mask summed as
     ``expand_bias_lanes`` does). Window w takes mask[w % nW]. With ``keep``
     (uint8 [B_, H, N, N]) the attention weights are dropped where keep is 0
-    and scaled by 1 / (1 - rate) where it is 1. A bf16 x takes
-    fused_window_block_bf16_reference."""
+    and scaled by 1 / (1 - rate) where it is 1. The attention's rows are D =
+    wqkv.shape[1] / 3 wide (wqkv [C, 3D], wproj [D, C]): D = C, or a
+    tensor-parallel shard's H heads, whose y is then a partial sum. A bf16 x
+    takes fused_window_block_bf16_reference."""
     if x.dtype == torch.bfloat16:
         return fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
                                                  rate)
-    B, N, C = x.shape
-    H = rel_bias.shape[0]
-    hd = C // H
-    qkv = torch.matmul(x, wqkv) + bqkv  # [B, N, 3C], q pre-scaled
-    qkv = qkv.reshape(B, N, 3, H, hd).permute(2, 0, 3, 1, 4)  # [3, B, H, N, hd]
+    B, N, _ = x.shape
+    H, D = rel_bias.shape[0], wqkv.shape[1] // 3
+    qkv = torch.matmul(x, wqkv) + bqkv  # [B, N, 3D], q pre-scaled
+    qkv = qkv.reshape(B, N, 3, H, D // H).permute(2, 0, 3, 1, 4)  # [3, B, H, N, hd]
     out = fused_window_attention_reference(qkv[0], qkv[1], qkv[2], rel_bias, mask, keep, rate)
-    return torch.matmul(out.transpose(1, 2).reshape(B, N, C), wproj) + bproj
+    return torch.matmul(out.transpose(1, 2).reshape(B, N, D), wproj) + bproj
 
 
 def fused_window_attention_reference(q, k, v, rel_bias, mask=None, keep=None, rate=0.0):
@@ -260,20 +272,25 @@ def _check(name, t, shape, device, dtype=torch.float32, who="fused_window_block"
 def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype=torch.float32):
     """Validate the CUDA path's inputs, x, wqkv and wproj of ``dtype`` (f32,
     or bf16 for #1-bf16 to #3-bf16, whose rows are staged 8 values at a
-    time: C a multiple of 8); returns (B, N, C, H, nW)."""
+    time: C a multiple of 8); returns (B, N, C, D, H, nW). The attention's
+    rows are D = wqkv.shape[1] / 3 wide: D = C, or in f32 a tensor-parallel
+    shard's H heads (#4-TP, #5-TP: wqkv [C, 3D], wproj [D, C])."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_window_block: unsupported device {x.device}")
-    if x.dim() != 3:
+    if x.dim() != 3 or wqkv.dim() != 2:
         raise ValueError(f"fused_window_block: x must be [B_, N, C], got {tuple(x.shape)}")
     B, N, C = x.shape
-    H = rel_bias.shape[0]
-    if not 1 <= N <= _MAX_N or C % _row_multiple(dtype) or C % H:
-        raise ValueError(f"fused_window_block: unsupported geometry N={N} C={C} H={H} ({dtype})")
+    H, D = rel_bias.shape[0], wqkv.shape[1] // 3
+    mult = _row_multiple(dtype)
+    if (not 1 <= N <= _MAX_N or C % mult or D < mult or D % mult or D % H
+            or (dtype != torch.float32 and D != C)):
+        raise ValueError(f"fused_window_block: unsupported geometry N={N} C={C} D={D} H={H} "
+                         f"({dtype})")
     dev = x.device
     _check("x", x, (B, N, C), dev, dtype)
-    _check("wqkv", wqkv, (C, 3 * C), dev, dtype)
-    _check("bqkv", bqkv, (3 * C,), dev)
-    _check("wproj", wproj, (C, C), dev, dtype)
+    _check("wqkv", wqkv, (C, 3 * D), dev, dtype)
+    _check("bqkv", bqkv, (3 * D,), dev)
+    _check("wproj", wproj, (D, C), dev, dtype)
     _check("bproj", bproj, (C,), dev)
     _check("rel_bias", rel_bias, (H, N, N), dev)
     nW = 1
@@ -282,7 +299,7 @@ def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype=torch.f
         _check("mask", mask, (nW, N, N), dev)
     if x.data_ptr() % 16:
         raise ValueError("fused_window_block: x must be 16-byte aligned")
-    return B, N, C, H, nW
+    return B, N, C, D, H, nW
 
 
 def _ptr(t):
@@ -428,70 +445,74 @@ def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rat
     #4-bf16, whose workspace comes from focal_wblock_fwd_workspace_bf16):
     validate, size the workspace, launch. Returns (y, keep), keep None at
     rate 0."""
-    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
-                                       torch.bfloat16 if bf16 else torch.float32)
+    B, N, C, D, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                          torch.bfloat16 if bf16 else torch.float32)
     _check_aligned(name, wqkv, wproj)
     lib = _window_block_lib()
+    y = torch.empty_like(x)
+    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
+    ptrs = (x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
+            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep))
+    dropout = (int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
     if bf16:
         ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace_bf16, x.device, B, N, C, H,
                         int(rate > 0.0))
+        _launch(name, lib.focal_wblock_fwd_bf16, x.device, *ptrs, ws.data_ptr(), B, N, C, H, nW,
+                *dropout)
     else:
-        ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace, x.device, B, N, C, H)
-    y = torch.empty_like(x)
-    keep = torch.empty((B, H, N, N), dtype=torch.uint8, device=x.device) if rate > 0.0 else None
-    _launch(name, lib.focal_wblock_fwd_bf16 if bf16 else lib.focal_wblock_fwd_dropout, x.device,
-            x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), bproj.data_ptr(),
-            rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep), ws.data_ptr(), B, N, C, H,
-            nW, int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
+        ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace, x.device, B, N, C, D, H)
+        _launch(name, lib.focal_wblock_fwd_dropout, x.device, *ptrs, ws.data_ptr(), B, N, C, D, H,
+                nW, *dropout)
     return y, keep
 
 
 def _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate, dtype):
     """Validate the backward's inputs (#3 and #5, or their bf16 forms);
-    returns (B, N, C, H, nW)."""
-    B, N, C, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype)
+    returns (B, N, C, D, H, nW)."""
+    B, N, C, D, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype)
     _check("dy", dy, (B, N, C), x.device, dtype)
     if keep is not None:
         if not 0.0 < rate < 1.0:
             raise ValueError(f"{name}: rate must be in (0, 1), got {rate}")
         _check("keep", keep, (B, H, N, N), x.device, torch.uint8)
-    return B, N, C, H, nW
+    return B, N, C, D, H, nW
 
 
-def _split_grads(dweights, C):
-    """(dwqkv, dbqkv, dwproj, dbproj): views of the flat weight gradients."""
-    q = 3 * C * C
-    return (dweights[:q].view(C, 3 * C), dweights[q:q + 3 * C],
-            dweights[q + 3 * C:q + 3 * C + C * C].view(C, C), dweights[q + 3 * C + C * C:])
+def _split_grads(dweights, C, D):
+    """(dwqkv [C, 3D], dbqkv, dwproj [D, C], dbproj): views of the flat
+    weight gradients."""
+    q = 3 * C * D
+    return (dweights[:q].view(C, 3 * D), dweights[q:q + 3 * D],
+            dweights[q + 3 * D:q + 3 * D + D * C].view(D, C), dweights[q + 3 * D + D * C:])
 
 
 def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate, wqkv_t,
                      wproj_t):
     """The CUDA path of #3 and #5: validate, size the workspace, launch, and
     split the flat weight gradients."""
-    B, N, C, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep,
-                                    rate, torch.float32)
+    B, N, C, D, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+                                       keep, rate, torch.float32)
     dev = x.device
     if wqkv_t is None:
         wqkv_t = wqkv.t().contiguous()
     if wproj_t is None:
         wproj_t = wproj.t().contiguous()
-    _check("wqkv_t", wqkv_t, (3 * C, C), dev)
-    _check("wproj_t", wproj_t, (C, C), dev)
+    _check("wqkv_t", wqkv_t, (3 * D, C), dev)
+    _check("wproj_t", wproj_t, (C, D), dev)
     _check_aligned(name, wqkv, wqkv_t, wproj_t, dy)
     lib = _window_block_lib()
-    ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace, dev, B, N, C, H,
+    ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace, dev, B, N, C, D, H,
                     int(keep is not None))
     dx = torch.empty_like(x)
-    dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
+    dweights = torch.empty(4 * C * D + 3 * D + C, dtype=torch.float32, device=dev)
     drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
     _launch(name, lib.focal_wblock_bwd, dev,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wqkv_t.data_ptr(), wproj_t.data_ptr(),
             rel_bias.data_ptr(), _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep,
             dx.data_ptr(), dweights.data_ptr(), drel_bias.data_ptr(), ws.data_ptr(),
-            B, N, C, H, nW)
-    return (dx, *_split_grads(dweights, C), drel_bias)
+            B, N, C, D, H, nW)
+    return (dx, *_split_grads(dweights, C, D), drel_bias)
 
 
 def _launch_backward_bf16(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate):
@@ -499,8 +520,8 @@ def _launch_backward_bf16(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
     (focal_wblock_bwd_workspace_bf16), launch, and split the flat weight
     gradients. The kernels read wqkv and wproj as they lie (TMA), so every
     operand must be 16-byte aligned."""
-    B, N, C, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep,
-                                    rate, torch.bfloat16)
+    B, N, C, _, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+                                       keep, rate, torch.bfloat16)
     dev = x.device
     _check_aligned(name, wqkv, wproj, dy)
     lib = _window_block_lib()
@@ -514,7 +535,7 @@ def _launch_backward_bf16(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), rel_bias.data_ptr(),
             _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep, dx.data_ptr(), dweights.data_ptr(),
             drel_bias.data_ptr(), ws.data_ptr(), B, N, C, H, nW)
-    return (dx, *_split_grads(dweights, C), drel_bias)
+    return (dx, *_split_grads(dweights, C, C), drel_bias)
 
 
 def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
@@ -699,6 +720,128 @@ def window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, see
         B, N, _ = x.shape
         keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
     return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep, rate)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-parallel forms: #4-TP/#5-TP on a shard's heads
+
+
+def wblock_tp_takes(N, C, H, mp):
+    """Whether #4-TP/#5-TP take a block of window size N, width C and H
+    heads split over mp model ranks: whole heads a rank (H % mp == 0), the
+    whole block in the kernels' reach (``wblock_takes``, whose shared memory
+    depends on the head width only) and the shard's width D = C / mp a
+    multiple of 4. Where not, the block runs the plain attention route with
+    whole heads a rank (models/swin.py), as the JAX package falls back to
+    XLA there. f32 only: the bf16 forms are ROADMAP A7.3."""
+    return H % mp == 0 and wblock_takes(N, C, H) and (C // mp) % 4 == 0
+
+
+def fused_window_block_tp(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=0.0):
+    """#4 on a tensor-parallel shard's heads (#4-TP): the qkv projection of
+    the shard's H heads, their attention and their rows of the output
+    projection, a partial y that the sum over the model ranks completes.
+
+    x: [B_, N, C] f32; wqkv: [C, 3D] (the shard's columns of each of q, k
+    and v, part|head|dim, q pre-scaled), D = H hd; bqkv: [3D]; wproj: [D, C]
+    (the shard's rows); bproj: [C] (zero on every model rank but one, so the
+    sum adds it once); rel_bias: [H, N, N], the shard's heads; mask as #4.
+    Returns (y [B_, N, C], keep uint8 [B_, H, N, N] or None at rate 0).
+
+    On the card: #4's CUDA code at the inner width D (csrc/window_block.cu,
+    wblock_fwd): qkv = x Wqkv + bqkv [R, 3D], the attention per (window,
+    head), y = ao Wproj + bproj, the products on the tensor cores (3xTF32).
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_fwd_impl with
+    head_dim, inside sharded_window_block_tp. CPU tensors take the plain
+    version, with draw_keep_mask's mask at rate > 0.
+    """
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"fused_window_block_tp: rate must be in [0, 1), got {rate}")
+    if x.device.type == "cpu":
+        keep = None
+        if rate > 0.0:
+            B, N, _ = x.shape
+            keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+        return fused_window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
+                                            rate), keep
+    y, keep = _launch_forward("fused_window_block_tp", x, wqkv, bqkv, wproj, bproj, rel_bias,
+                              mask, seed, rate)
+    fused_window_block_tp.launches += 1
+    return y, keep
+
+
+fused_window_block_tp.launches = 0
+
+
+def fused_window_block_tp_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep=None,
+                                   rate=0.0, wqkv_t=None, wproj_t=None):
+    """VJP of #4-TP (#5-TP): fused_window_block_backward's arguments at the
+    shard's geometry (wqkv_t [3D, C], wproj_t [C, D]). Returns (dx [B_, N,
+    C], a partial sum over the model ranks; dwqkv [C, 3D], dbqkv [3D],
+    dwproj [D, C], d rel_bias [H, N, N], the shard's own; dbproj [C], the
+    same on every model rank), fixed-order sums: two calls give the same
+    bits.
+
+    On the card: #5's CUDA code at the inner width D (wblock_bwd).
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_bwd_impl with
+    head_dim, inside sharded_window_block_tp. CPU tensors take the plain
+    version.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_backward_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
+                                                     dy, keep, rate)
+    grads = _launch_backward("fused_window_block_tp_backward", x, wqkv, bqkv, wproj, bproj,
+                             rel_bias, mask, dy, keep, rate, wqkv_t, wproj_t)
+    fused_window_block_tp_backward.launches += 1
+    return grads
+
+
+fused_window_block_tp_backward.launches = 0
+
+
+class _WindowBlockTP(torch.autograd.Function):
+    """#4-TP forward and #5-TP backward with the model axis's sums: y and
+    dx summed over the model ranks, the weight gradients the shard's own."""
+
+    @staticmethod
+    def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, wqkv_t, wproj_t,
+                plan):
+        bp = bproj if plan.m == 0 else torch.zeros_like(bproj)
+        y, keep = fused_window_block_tp(x, wqkv, bqkv, wproj, bp, rel_bias, mask, seed, rate)
+        plan.sum_model_(y)
+        ctx.save_for_backward(x, wqkv, bqkv, wproj, bp, rel_bias, mask, keep, wqkv_t, wproj_t)
+        ctx.rate, ctx.plan = rate, plan
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, wqkv, bqkv, wproj, bp, rel_bias, mask, keep, wqkv_t, wproj_t = ctx.saved_tensors
+        dx, *dws = fused_window_block_tp_backward(x, wqkv, bqkv, wproj, bp, rel_bias, mask,
+                                                  dy.contiguous(), keep, ctx.rate, wqkv_t, wproj_t)
+        return (ctx.plan.sum_model_(dx), *dws) + (None,) * 6
+
+
+def sharded_window_block_tp(plan, x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
+                            rate=0.0, wqkv_t=None, wproj_t=None):
+    """Differentiable whole-block window attention on a tensor-parallel
+    shard's heads, for training: forward #4-TP, then y summed over the model
+    ranks; backward #5-TP on the same dy, dx summed over the model ranks,
+    dwqkv, dbqkv, dwproj and d rel_bias left the shard's own, dbproj the
+    same on every model rank. ``seed`` is the shard's kernel seed (the
+    step's ``StepRngs.seed(split=True)``: a draw + (d mp + m) 1000003, the
+    JAX package's for shard (d, m)). Arguments as fused_window_block_tp,
+    with bproj whole (the model rank 0 adds it); ``wqkv_t`` and ``wproj_t``
+    as window_block's. The weight gradients' sum over the data ranks is the
+    training step's.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::sharded_window_block_tp
+    (_sharded_wblock_tp_op). On CPU tensors the kernels' plain versions
+    run, between the same sums.
+    """
+    return _WindowBlockTP.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, float(rate),
+                                wqkv_t, wproj_t, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -1462,14 +1605,15 @@ def _window_block_lib():
     if lib.focal_wblock_fwd_dropout.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
         ll = ctypes.POINTER(ctypes.c_longlong)
-        lib.focal_wblock_fwd_workspace.argtypes = [i] * 4 + [ll]
-        lib.focal_wblock_fwd_dropout.argtypes = (
-            [p] * 10 + [i] * 5 + [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p])
-        lib.focal_wblock_bwd_workspace.argtypes = [i] * 5 + [ll]
-        lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
-        lib.focal_wblock_fwd_bf16.argtypes = lib.focal_wblock_fwd_dropout.argtypes
-        lib.focal_wblock_bwd_workspace_bf16.argtypes = lib.focal_wblock_bwd_workspace.argtypes
-        lib.focal_wblock_fwd_workspace_bf16.argtypes = lib.focal_wblock_bwd_workspace.argtypes
+        dropout = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p]
+        # the f32 entry points take the attention's width D after C
+        lib.focal_wblock_fwd_workspace.argtypes = [i] * 5 + [ll]
+        lib.focal_wblock_fwd_dropout.argtypes = [p] * 10 + [i] * 6 + dropout
+        lib.focal_wblock_bwd_workspace.argtypes = [i] * 6 + [ll]
+        lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 6 + [p]
+        lib.focal_wblock_fwd_bf16.argtypes = [p] * 10 + [i] * 5 + dropout
+        lib.focal_wblock_bwd_workspace_bf16.argtypes = [i] * 5 + [ll]
+        lib.focal_wblock_fwd_workspace_bf16.argtypes = [i] * 5 + [ll]
         lib.focal_wblock_bwd_bf16.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
         for fn in (lib.focal_wblock_fwd_workspace, lib.focal_wblock_fwd_dropout,
                    lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd, lib.focal_wblock_fwd_bf16,

@@ -3,6 +3,11 @@ training.
 
 A dataset's recipe is ``focal_tpu_torch/configs/{dataset}.yaml``, the
 package's own copy of the JAX package's recipe; nothing else is searched.
+
+Training runs one process per card (``parallel.distributed``): the
+``-dist_*`` flags or the ``FOCAL_DIST_*`` variables name the process group,
+which ``parse_train_params`` joins before any device is chosen; a process's
+card is then ``cuda:{local rank % cards}``.
 """
 
 import argparse
@@ -10,6 +15,8 @@ import os
 
 import torch
 import yaml
+
+from focal_tpu_torch.parallel.distributed import device_for, maybe_initialize, topology
 
 CONFIG_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "configs")
 
@@ -174,13 +181,27 @@ def build_train_parser():
                         "kernels in bf16 (#1-bf16 to #3-bf16) and DeepSense's conv blocks in bf16 "
                         "(with -pallas_conv, #13-bf16/#14-bf16). Default float32, as the JAX "
                         "CLI's off the TPU.")
-    parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
-    # the JAX CLI's flags for what the port does not run yet
-    parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7).")
-    parser.add_argument("-data_parallel", type=int, default=0, help="Not ported yet (ROADMAP A7).")
-    parser.add_argument("-model_parallel", type=int, default=1, help="Not ported yet (ROADMAP A7).")
+    parser.add_argument("-device", type=str, default="cuda",
+                        help="cuda (default: this process's card) | cpu.")
+    parser.add_argument("-data_parallel", type=int, default=0,
+                        help="Processes on the data axis, each training its rows of the batch "
+                        "(0: the process count over -model_parallel).")
+    parser.add_argument("-model_parallel", type=int, default=1,
+                        help="Processes on the model axis (tensor parallelism: SW_Transformer's "
+                        "heads and widths split over them; 1 = none).")
+    parser.add_argument("-dist_coordinator", type=str, default=None,
+                        help="host:port of the process group's rendezvous (process 0 listens "
+                        "there); also via FOCAL_DIST_COORDINATOR.")
+    parser.add_argument("-dist_num_processes", type=int, default=0,
+                        help="Process count, one per card; also via FOCAL_DIST_NUM_PROCESSES.")
+    parser.add_argument("-dist_process_id", type=int, default=None,
+                        help="This process's rank in [0, dist_num_processes); also via "
+                        "FOCAL_DIST_PROCESS_ID.")
     parser.add_argument("-data_layout", type=str, default="auto",
-                        help="auto | replicated; sharded is not ported yet (ROADMAP A7).")
+                        help="auto (= replicated: every process holds the splits) | replicated; "
+                        "sharded is not ported yet (ROADMAP A7.2).")
+    # the JAX CLI's flags for what the port does not run yet
+    parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7.2).")
     # the attribution arms (pretraining; the classifier stages ignore the
     # first two, as in the JAX package)
     parser.add_argument("-ragged_tail", action="store_true",
@@ -204,9 +225,32 @@ def build_train_parser():
 
 # flag -> (the values the port runs, the ROADMAP item that brings the rest)
 _PORTED_VALUES = {
-    "grad_accum": ({1}, "A7"), "data_parallel": ({0, 1}, "A7"), "model_parallel": ({1}, "A7"),
-    "data_layout": ({"auto", "replicated"}, "A7"),
+    "grad_accum": ({1}, "A7.2"), "data_layout": ({"auto", "replicated"}, "A7.2"),
 }
+
+
+def _check_layout(args):
+    """The process layout's refusals, before any process group is joined:
+    what ROADMAP A7.3 brings, and a layout of several processes without a
+    rendezvous to join them."""
+    coord, nproc, _ = topology(args)
+    mp = max(1, args.model_parallel)
+    dp = args.data_parallel if args.data_parallel > 0 else max(1, (nproc or 1) // mp)
+    if mp > 1:
+        for flag, what in ((args.model != "SW_Transformer", f"-model {args.model}"),
+                           (args.pallas_mlp, "-pallas_mlp"),
+                           (args.compute_dtype != "float32",
+                            f"-compute_dtype {args.compute_dtype}")):
+            if flag:
+                raise NotImplementedError(f"{what} under -model_parallel is not ported yet: "
+                                          "ROADMAP A7.3")
+    if dp > 1 and args.pallas_conv:
+        raise NotImplementedError("-pallas_conv under -data_parallel (the tower's BatchNorm "
+                                  "sums over the data ranks) is not ported yet: ROADMAP A7.3")
+    if dp * mp > 1 and not coord:
+        raise ValueError(f"-data_parallel {dp} x -model_parallel {mp} runs one process per card: "
+                         "start each with -dist_coordinator host:port, -dist_num_processes "
+                         f"{dp * mp} and its -dist_process_id (or the FOCAL_DIST_* variables)")
 
 
 def parse_train_params(argv=None, option="train"):
@@ -230,6 +274,10 @@ def fill_train_params(args, option="train"):
         if getattr(args, name) not in values:
             raise NotImplementedError(
                 f"-{name} {getattr(args, name)} is not ported yet: ROADMAP {item}")
+    _check_layout(args)
+    # the process group first: the card depends on this process's rank
+    maybe_initialize(args)
+    args.device = device_for(args.device)
     args.dataset_config = load_dataset_config(args.dataset)
     if args.task is None:
         args.task = default_task(args.dataset, args.dataset_config)

@@ -7,13 +7,30 @@ A split's batches follow an ``EvalPlan``: every unit once, in order, the
 ragged tail padded and weighted 0. The model runs in eval mode, so its
 window attention goes through the eval kernels (#1, or #4 for wide blocks;
 #6 with -no_pallas_block) and, with -pallas_mlp, its MLPs through #10.
+
+Over several processes (``mesh``, a ``parallel.mesh.MeshPlan``) each data
+rank runs its rows of an eval batch and the outputs are gathered, so the
+features, the KNN probe and the metrics are the single-process ones; a
+batch that the data ranks do not divide runs whole on every rank.
 """
 
 import numpy as np
 import torch
 
 from focal_tpu_torch.ops.knn import KNN
-from focal_tpu_torch.train.steps import gather_batch
+from focal_tpu_torch.train.steps import gather_batch, local_batch
+
+
+def _forward(model, x, head, mesh):
+    """model(x, head=head) on a global eval batch, split over the data ranks
+    and gathered back (no gradient)."""
+    rows = next(iter(next(iter(x.values())).values())).shape[0]
+    if mesh is None or mesh.dp == 1 or rows % mesh.dp:
+        return model(x, head=head)
+    out = model(local_batch(x, mesh), head=head)
+    if isinstance(out, dict):
+        return {m: mesh.gather_data_(v) for m, v in out.items()}
+    return mesh.gather_data_(out)
 
 
 class EvalPlan:
@@ -29,7 +46,7 @@ class EvalPlan:
         self.labels = loader.split.labels[idx]
 
 
-def extract_features(model, augmenter, plan, data):
+def extract_features(model, augmenter, plan, data, mesh=None):
     """Per-mod encoder features (no projection) of every batch of a plan,
     concatenated in mod-name order, the padded rows dropped -> (features
     [n, d] f32 on the device, whatever the compute dtype; labels [n]
@@ -38,20 +55,20 @@ def extract_features(model, augmenter, plan, data):
     rows = []
     with torch.no_grad():
         for idx in plan.idx:
-            feats = model(augmenter.no(gather_batch(data, idx)), head="feat")
+            feats = _forward(model, augmenter.no(gather_batch(data, idx)), "feat", mesh)
             rows.append(torch.cat([feats[m] for m in sorted(feats)], dim=-1).to(torch.float32))
     keep = plan.weight.reshape(-1) > 0
     stacked = torch.cat(rows)
     return stacked[torch.from_numpy(keep).to(stacked.device)], plan.labels.reshape(-1)[keep]
 
 
-def compute_knn(model, augmenter, plan, train_data):
+def compute_knn(model, augmenter, plan, train_data, mesh=None):
     """The KNN probe fitted on the train split's features."""
-    feats, labels = extract_features(model, augmenter, plan, train_data)
+    feats, labels = extract_features(model, augmenter, plan, train_data, mesh)
     return KNN().fit(feats, torch.from_numpy(labels).to(feats.device))
 
 
-def make_batched_pretrain_loss(model, augmenter, focal_loss):
+def make_batched_pretrain_loss(model, augmenter, focal_loss, mesh=None):
     """(data, plan, generator) -> mean FOCAL loss over the plan's batches:
     two random views of each batch (drawn from ``generator``) through the
     eval forward. Padded rows count, as in the JAX package."""
@@ -62,8 +79,8 @@ def make_batched_pretrain_loss(model, augmenter, focal_loss):
         with torch.no_grad():
             for idx in plan.idx:
                 batch = gather_batch(data, idx)
-                f1 = model(augmenter.random(gen, batch), head="proj")
-                f2 = model(augmenter.random(gen, batch), head="proj")
+                f1 = _forward(model, augmenter.random(gen, batch), "proj", mesh)
+                f2 = _forward(model, augmenter.random(gen, batch), "proj", mesh)
                 losses.append(focal_loss(f1, f2)[0])
         return float(torch.stack(losses).mean())
 
@@ -95,23 +112,24 @@ def eval_task_metrics(args, labels, predictions):
     return mean_acc, float(f1.mean()), conf
 
 
-def eval_pretrained(args, model, augmenter, loss_fn, estimator, plan, data, gen):
+def eval_pretrained(args, model, augmenter, loss_fn, estimator, plan, data, gen, mesh=None):
     """(mean pretrain loss, (accuracy, macro-F1, confusion)) of a split,
     the metrics from the KNN probe's predictions."""
     mean_loss = loss_fn(data, plan, gen)
-    feats, labels = extract_features(model, augmenter, plan, data)
+    feats, labels = extract_features(model, augmenter, plan, data, mesh)
     preds = estimator.predict(feats).cpu().numpy()
     return mean_loss, eval_task_metrics(args, labels, preds)
 
 
-def class_logits(model, augmenter, plan, data):
+def class_logits(model, augmenter, plan, data, mesh=None):
     """[nb, B, num_classes] f32 numpy: the class head's logits of every
     batch of a plan, FFT-only inputs, eval forward."""
     model.eval()
     rows = []
     with torch.no_grad():
         for idx in plan.idx:
-            rows.append(model(augmenter.no(gather_batch(data, idx)), head="class").float())
+            rows.append(_forward(model, augmenter.no(gather_batch(data, idx)), "class",
+                                 mesh).float())
     return torch.stack(rows).cpu().numpy()
 
 
@@ -123,13 +141,13 @@ def _np_cross_entropy(logits, labels, weight):
     return float((per * weight).sum() / max(weight.sum(), 1.0))
 
 
-def eval_supervised(args, model, augmenter, plan, data):
+def eval_supervised(args, model, augmenter, plan, data, mesh=None):
     """(mean loss, (accuracy, macro-F1, confusion)) of a split through the
     class head: the loss is the mean of per-batch weighted means (the
     reference's one loss per batch), the metrics over the unpadded rows.
     A task whose name holds "regression" gives (mean weighted MSE, (MSE,)),
     the head's first output regressing the label, as in the JAX package."""
-    return supervised_metrics(args, class_logits(model, augmenter, plan, data), plan)
+    return supervised_metrics(args, class_logits(model, augmenter, plan, data, mesh), plan)
 
 
 def supervised_metrics(args, logits, plan):

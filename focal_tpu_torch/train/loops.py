@@ -1,5 +1,5 @@
-"""Stage loops (port of the JAX package's ``train/loops.py``) on one
-device: FOCAL pretraining (``pretrain``), supervised training
+"""Stage loops (port of the JAX package's ``train/loops.py``): FOCAL
+pretraining (``pretrain``), supervised training
 (``supervised_train``) and finetuning (``finetune``).
 
 Epochs of steps over the device-resident train split; validation after
@@ -29,6 +29,14 @@ least two; the schedule counts it, so lr still paces by epochs);
 ``random.Random(seed)`` draws, the JAX package's table exactly. Unlike the JAX loops, `_resume` holds
 the best val loss (accuracy) after this point's update, so that a resumed
 run also picks `_best` as a straight run does.
+
+Over several processes (``-data_parallel``, ``-model_parallel``: one
+process per card, ``parallel.mesh.MeshPlan``) every rank holds the splits
+whole (the ``replicated`` layout, what ``-data_layout auto`` means here),
+draws the same batches and views, and trains its shard of the batch (and of
+SW_Transformer's heads and widths); the process of rank 0 alone makes the
+experiment folder, logs and writes the checkpoints, in the single-process
+format.
 """
 
 import logging
@@ -41,9 +49,11 @@ import torch
 
 from focal_tpu_torch.data import (DeviceDataLoader, create_dataloader, load_split,
                                   sequence_batches)
-from focal_tpu_torch.models import build_backbone, init_params
+from focal_tpu_torch.models import apply_plan, build_backbone, init_params
 from focal_tpu_torch.ops.augment import build_augmenter
 from focal_tpu_torch.output_paths import checkpoint_paths, set_model_weight_folder
+from focal_tpu_torch.parallel import distributed, tp
+from focal_tpu_torch.parallel.mesh import make_mesh_plan
 from focal_tpu_torch.params import select_device
 from focal_tpu_torch.train import checkpoint as ckpt
 from focal_tpu_torch.train import evaluate as ev
@@ -61,14 +71,48 @@ def _generator(seed, stream, n):
     return torch.Generator().manual_seed(key % 2**63)
 
 
+def prepare_folder(args):
+    """set_model_weight_folder on the process of rank 0, the folder then
+    handed to the others (which log warnings alone, to stderr)."""
+    if distributed.is_main():
+        set_model_weight_folder(args)
+    else:
+        logging.basicConfig(level=logging.WARNING, force=True, format="%(message)s")
+    args.weight_folder = distributed.broadcast_object(args.weight_folder if distributed.is_main()
+                                                      else None)
+    return args
+
+
+def place_model(model, device, plan, weights=None):
+    """A built backbone moved to ``device`` and placed on ``plan``
+    (models.apply_plan), then a params file's values loaded (``weights``:
+    -init_weight, or the file the test CLI evaluates)."""
+    model = apply_plan(model.to(device), plan)
+    if weights:
+        ckpt.load_params_into(model, weights, load_class_layer=True, plan=plan)
+    return model
+
+
 class Run:
-    """What a stage loop needs, built once, on one device: the train, val
-    and test splits resident there, the train split's loader (its steps),
-    the augmenter, and the model in the flax package's init from -seed."""
+    """What a stage loop needs, built once, on this process's device: the
+    train, val and test splits resident there, the train split's loader
+    (its steps), the augmenter, the process layout (``plan``; None for one
+    process) and the model in the flax package's init from -seed, placed
+    on it."""
 
     def __init__(self, args):
         self.args = args
         self.device = select_device(args.device)
+        if self.device.type == "cuda" and self.device.index is not None:
+            torch.cuda.set_device(self.device)
+        self.plan = make_mesh_plan(args.data_parallel, args.model_parallel)
+        if self.plan is not None:
+            if args.batch_size % self.plan.dp:
+                raise ValueError(f"-batch_size {args.batch_size} does not split over "
+                                 f"{self.plan.dp} data ranks")
+            logging.info(f"= Mesh: {self.plan.dp} (data) x {self.plan.mp} (model) processes, "
+                         f"this one ({self.plan.d}, {self.plan.m}) on {self.device}, "
+                         f"{distributed.backend()}")
         self.splits = {}
         for name in ("train", "val", "test"):
             split = load_split(name, args)
@@ -78,7 +122,7 @@ class Run:
                 if nbytes > _RESIDENT_SHARE * total:
                     raise NotImplementedError(
                         f"train split of {nbytes / 2**30:.1f} GiB does not fit the device; "
-                        "streaming is not ported yet: ROADMAP A7")
+                        "streaming is not ported yet: ROADMAP A7.2")
             self.splits[name] = split.to(self.device)
         self.train_loader = train = create_dataloader("train", self.splits["train"], args)
         if not len(train):
@@ -91,10 +135,13 @@ class Run:
                                pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
                                pallas_block=not args.no_pallas_block,
                                compute_dtype=args.compute_dtype)
-        self.model = init_params(model, seed=args.seed).to(self.device)
         if args.init_weight:
             logging.info(f"= Initialising params from {args.init_weight}")
-            ckpt.load_params_into(self.model, args.init_weight, load_class_layer=True)
+        self.model = place_model(init_params(model, seed=args.seed), self.device, self.plan,
+                                 args.init_weight)
+        if self.plan is not None and self.plan.mp > 1:
+            logging.info(f"= TP: {tp.sharded_leaf_count(model, self.plan.mp)} model-sharded "
+                         "parameters")
         self._plans = {}
 
     def eval_plan(self, split):
@@ -161,7 +208,7 @@ def pretrain(args):
     best val loss, validation points), a point being a dict of the epoch,
     the train loss and the val/test losses and metrics."""
     select_device(args.device)  # no card and no -device cpu: raise before any folder is made
-    set_model_weight_folder(args)
+    prepare_folder(args)
     run = Run(args)
     train_epochs = args.epochs or (
         args.dataset_config[args.learn_framework]["pretrain_lr_scheduler"]["train_epochs"])
@@ -180,8 +227,8 @@ def pretrain(args):
                      "augmenters")
     focal_loss = make_focal_loss(args)
     step = make_pretrain_step(run.model, run.augmenter, focal_loss,
-                              fused_views=not args.no_fused_views)
-    loss_fn = ev.make_batched_pretrain_loss(run.model, run.augmenter, focal_loss)
+                              fused_views=not args.no_fused_views, plan=run.plan)
+    loss_fn = ev.make_batched_pretrain_loss(run.model, run.augmenter, focal_loss, run.plan)
     best_path, latest_path, resume_path = checkpoint_paths(args)
     val_epochs = args.val_epochs or 10
     best_val_loss, start_epoch = math.inf, 0
@@ -207,18 +254,19 @@ def pretrain(args):
         _nan_guard(train_loss, "pretrain", epoch)
         logging.info(f"[pretrain] epoch {epoch}: train loss {train_loss:.5f} "
                      f"({block_samples / max(time.time() - block_t0, 1e-9):.1f} samples/s)")
-        estimator = ev.compute_knn(run.model, run.augmenter, run.eval_plan("train"), data)
+        estimator = ev.compute_knn(run.model, run.augmenter, run.eval_plan("train"), data,
+                                   run.plan)
         val_loss, val_metrics = ev.eval_pretrained(
             args, run.model, run.augmenter, loss_fn, estimator, run.eval_plan("val"),
-            run.splits["val"].data, _generator(args.seed, _EVAL, epoch))
+            run.splits["val"].data, _generator(args.seed, _EVAL, epoch), run.plan)
         test_loss, test_metrics = ev.eval_pretrained(
             args, run.model, run.augmenter, loss_fn, estimator, run.eval_plan("test"),
-            run.splits["test"].data, _generator(args.seed, _EVAL, epoch + 1))
+            run.splits["test"].data, _generator(args.seed, _EVAL, epoch + 1), run.plan)
         log_val_test("pretrain", epoch, val_loss, val_metrics, test_loss, test_metrics)
-        ckpt.save_params(latest_path, run.model)
+        ckpt.save_params(latest_path, run.model, run.plan)
         if val_loss < best_val_loss:
             best_val_loss = val_loss
-            ckpt.save_params(best_path, run.model)
+            ckpt.save_params(best_path, run.model, run.plan)
         ckpt.save_state(resume_path, state, epoch, best_val_loss)
         points.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
                        "val_acc": val_metrics[0], "val_f1": val_metrics[1],
@@ -226,6 +274,7 @@ def pretrain(args):
                        "test_f1": test_metrics[1]})
         block_t0, block_samples = time.time(), 0
     logging.info(f"[pretrain] total time {time.time() - start:.1f}s, best val loss {best_val_loss:.5f}")
+    distributed.barrier()  # rank 0's files are whole when any rank returns
     return state, best_val_loss, points
 
 
@@ -249,18 +298,19 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
     """The loop the two classifier stages share (they differ in
     augmentation and in the initial weights)."""
     select_device(args.device)  # no card and no -device cpu: raise before any folder is made
-    set_model_weight_folder(args)
+    prepare_folder(args)
     run = Run(args)
     train_epochs = args.epochs or scheduler["train_epochs"]
     if stage == "finetune":
         pretrain_latest = checkpoint_paths(args, stage="pretrain")[1]
         logging.info(f"= Loading the pretrained backbone from {pretrain_latest}")
-        ckpt.load_params_into(run.model, pretrain_latest, load_class_layer=False)
+        ckpt.load_params_into(run.model, pretrain_latest, load_class_layer=False, plan=run.plan)
     steps_per_epoch = len(run.train_loader)
     state = create_train_state(args, run.model, steps_per_epoch, seed=args.seed)
     logging.info(f"= Model params: {sum(p.numel() for p in run.model.parameters()):,} "
                  f"({sum(p.numel() for p in state.optimizer.params):,} trained)")
-    step = make_supervised_train_step(run.model, run.augmenter, fixed_aug=fixed_aug)
+    step = make_supervised_train_step(run.model, run.augmenter, fixed_aug=fixed_aug,
+                                      plan=run.plan)
     best_path, latest_path, resume_path = checkpoint_paths(args)
     val_epochs = args.val_epochs or 5
     best_val_acc, start_epoch = -1.0, 0
@@ -285,14 +335,16 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
                      f"{train_acc:.5f} ({block_samples / max(time.time() - block_t0, 1e-9):.1f} "
                      "samples/s)")
         val_loss, val_metrics = ev.eval_supervised(args, run.model, run.augmenter,
-                                                   run.eval_plan("val"), run.splits["val"].data)
+                                                   run.eval_plan("val"), run.splits["val"].data,
+                                                   run.plan)
         test_loss, test_metrics = ev.eval_supervised(args, run.model, run.augmenter,
-                                                     run.eval_plan("test"), run.splits["test"].data)
+                                                     run.eval_plan("test"), run.splits["test"].data,
+                                                     run.plan)
         log_val_test(stage, epoch, val_loss, val_metrics, test_loss, test_metrics)
-        ckpt.save_params(latest_path, run.model)
+        ckpt.save_params(latest_path, run.model, run.plan)
         if val_metrics[0] > best_val_acc:
             best_val_acc = val_metrics[0]
-            ckpt.save_params(best_path, run.model)
+            ckpt.save_params(best_path, run.model, run.plan)
         ckpt.save_state(resume_path, state, epoch, best_val_acc)
         points.append({"epoch": epoch, "train_loss": train_loss, "train_acc": train_acc,
                        "val_loss": val_loss, "val_acc": val_metrics[0], "val_f1": val_metrics[1],
@@ -300,4 +352,5 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
                        "test_f1": test_metrics[1]})
         block_t0, block_samples = time.time(), 0
     logging.info(f"[{stage}] total time {time.time() - start:.1f}s, best val acc {best_val_acc:.5f}")
+    distributed.barrier()  # rank 0's files are whole when any rank returns
     return state, best_val_acc, points

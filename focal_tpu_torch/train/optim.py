@@ -8,11 +8,16 @@ Adam puts weight decay into the gradient (L2, torch ``Adam``); AdamW
 decouples it (torch ``AdamW``). Gradients are clipped to the recipe's
 ``clip_grad`` global norm only when the run asks for it (``-clip_grad``).
 Frozen parameters are left out of the optimizer: no update, no decay.
+Under tensor parallelism each rank's optimizer holds its slices of the
+parameters and of their moments; the clip's global norm sums the sliced
+gradients over the model ranks.
 """
 
 import math
 
 import torch
+
+from focal_tpu_torch.parallel.tp import is_sharded
 
 
 def make_epoch_schedule(scheduler_config, optimizer_config):
@@ -86,12 +91,13 @@ class StepOptimizer:
     schedule and optional clipping. ``step(k)`` applies update k (0-based)
     from the parameters' ``.grad``."""
 
-    def __init__(self, optimizer, params, lr_epoch, steps_per_epoch, clip=None):
+    def __init__(self, optimizer, params, lr_epoch, steps_per_epoch, clip=None, plan=None):
         self.optimizer = optimizer
         self.params = params
         self.lr_epoch = lr_epoch
         self.steps_per_epoch = steps_per_epoch
         self.clip = clip
+        self.plan = plan
 
     def lr(self, k):
         return self.lr_epoch(math.floor(k / self.steps_per_epoch))
@@ -103,22 +109,33 @@ class StepOptimizer:
         for group in self.optimizer.param_groups:
             group["lr"] = self.lr(k)
         if self.clip:
-            clip_by_global_norm([p.grad for p in self.params if p.grad is not None], self.clip)
+            with_grad = [p for p in self.params if p.grad is not None]
+            clip_by_global_norm([p.grad for p in with_grad], self.clip, self.plan,
+                                [is_sharded(p) for p in with_grad])
         self.optimizer.step()
 
 
-def clip_by_global_norm(grads, max_norm):
+def clip_by_global_norm(grads, max_norm, plan=None, sharded=None):
     """optax.clip_by_global_norm in place: g * max_norm / norm when the
-    global norm reaches max_norm. Stays on the device (no host sync)."""
+    global norm reaches max_norm. Stays on the device (no host sync). Under
+    tensor parallelism (``plan``, ``sharded`` flagging the gradients of cut
+    parameters) the squares of the cut ones are summed over the model ranks
+    and the whole ones counted once."""
     if not grads:
         return
-    norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
+    if plan is not None and plan.mp > 1:
+        sq = [torch.linalg.vector_norm(g) ** 2 for g in grads]
+        part = torch.stack([s for s, cut in zip(sq, sharded) if cut] or [sq[0] * 0]).sum()
+        whole = torch.stack([s for s, cut in zip(sq, sharded) if not cut] or [sq[0] * 0]).sum()
+        norm = torch.sqrt(whole + plan.sum_model_(part))
+    else:
+        norm = torch.linalg.vector_norm(torch.stack([torch.linalg.vector_norm(g) for g in grads]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
     for g in grads:
         g.mul_(scale)
 
 
-def build_optimizer(args, model, steps_per_epoch):
+def build_optimizer(args, model, steps_per_epoch, plan=None):
     """(StepOptimizer over the trainable parameters, lr(epoch)) from the
     stage's recipe sections; a run's -epochs, when given, is also the
     schedule's length, as in the JAX package; -ref_lr_timing shifts the
@@ -159,4 +176,4 @@ def build_optimizer(args, model, steps_per_epoch):
     clip = None
     if args.clip_grad and optimizer_config.get("clip_grad"):
         clip = float(optimizer_config["clip_grad"])
-    return StepOptimizer(opt, params, lr_epoch, steps_per_epoch, clip), lr_epoch
+    return StepOptimizer(opt, params, lr_epoch, steps_per_epoch, clip, plan), lr_epoch

@@ -914,9 +914,9 @@ def test_every_width_a_gate_admits_has_a_launch_plan():
     for H in (1, 2, 4):
         for hd in list(range(1, 64)) + list(range(64, 2049, 16)):
             C = H * hd
-            ok = all(lib.focal_wblock_bwd_workspace(7, 9, C, H, d, pk.ctypes.byref(
+            ok = all(lib.focal_wblock_bwd_workspace(7, 9, C, C, H, d, pk.ctypes.byref(
                 pk.ctypes.c_longlong(0))) == 0 for d in (0, 1))
-            ok = ok and lib.focal_wblock_fwd_workspace(7, 9, C, H, pk.ctypes.byref(
+            ok = ok and lib.focal_wblock_fwd_workspace(7, 9, C, C, H, pk.ctypes.byref(
                 pk.ctypes.c_longlong(0))) == 0
             assert ok == pk.wblock_takes(9, C, H), (C, H)
     for C in range(1, 480):
@@ -2251,3 +2251,88 @@ def test_attention_bf16_gate_is_where_the_kernels_take_the_width():
         pk.fused_window_attention(q, k, v, rel_bias, None)
     with pytest.raises(TypeError):
         pk.fused_window_attention_bf16(q.float(), k.float(), v.float(), rel_bias, None)
+
+
+# ---------------------------------------------------------------------------
+# #4-TP/#5-TP: the whole-block kernels on a tensor-parallel shard's heads, at
+# every local geometry of MOD's and MOD_WIDE's stages (N 9, H 4; C 64-1024)
+# at mp 2 and 4 (H 2 and 1 a shard; D = C / 2, C / 4)
+
+
+def _tp_shard(args, mp, m):
+    """Model rank m's kernel arguments from whole ones: its heads' columns
+    of wqkv [C, 3C] and bqkv, rows of wproj, heads of rel_bias; bproj on
+    rank 0 alone."""
+    from focal_tpu_torch.parallel.tp import Spec, local_slice
+
+    x, wqkv, bqkv, wproj, bproj, rel_bias, mask = args
+    H = rel_bias.shape[0]
+    return [x, local_slice(wqkv, Spec(1, 3, H), mp, m), local_slice(bqkv, Spec(0, 3, H), mp, m),
+            local_slice(wproj, Spec(0, 1, H), mp, m), bproj if m == 0 else torch.zeros_like(bproj),
+            local_slice(rel_bias, Spec(0, 1, H), mp, m), mask]
+
+
+TP_GEOMETRIES = [(C, mp) for C in (64, 128, 256, 512, 1024) for mp in (2, 4)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,mp", TP_GEOMETRIES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_tp_kernels_match_plain(C, mp, rate):
+    """#4-TP and #5-TP on one shard against the plain versions at its
+    geometry (the keep mask #4-TP wrote), within 1e-4; #5-TP twice gives
+    the same bits."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(C + mp)
+    whole = _args(rng, 131, 9, C, 4, 4, dev)
+    args = _tp_shard(whole, mp, mp - 1)
+    dy = torch.from_numpy(rng.normal(size=(131, 9, C)).astype(np.float32)).to(dev)
+    f0, b0 = pk.fused_window_block_tp.launches, pk.fused_window_block_tp_backward.launches
+    y, keep = pk.fused_window_block_tp(*args, seed=11, rate=rate)
+    got = pk.fused_window_block_tp_backward(*args, dy, keep, rate)
+    torch.cuda.synchronize()
+    assert (pk.fused_window_block_tp.launches, pk.fused_window_block_tp_backward.launches) == (
+        f0 + 1, b0 + 1)
+    assert (keep is None) == (rate == 0.0)
+    assert _rel(y, pk.fused_window_block_reference(*args, keep, rate)) <= 1e-4
+    want = pk.fused_window_block_backward_reference(*args, dy, keep, rate)
+    for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) <= 1e-4, (name, _rel(g, w))
+    again = pk.fused_window_block_tp_backward(*args, dy, keep, rate)
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,mp", TP_GEOMETRIES)
+def test_tp_shards_sum_to_the_whole_block(C, mp):
+    """The shards' #4-TP outputs, bproj added once, sum to #4 at full heads
+    within 1e-4 of max|y|, and so do their #5-TP dx; each shard's weight
+    gradients equal the matching slices of #5's within 1e-4, dbproj the
+    same on every shard."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.parallel.tp import Spec, local_slice
+
+    dev = _card()
+    rng = np.random.default_rng(C * mp)
+    whole = _args(rng, 131, 9, C, 4, 4, dev)
+    dy = torch.from_numpy(rng.normal(size=(131, 9, C)).astype(np.float32)).to(dev)
+    y_full = pk.fused_window_block_perhead(*whole)[0]
+    g_full = pk.fused_window_block_perhead_backward(*whole, dy)
+    H = 4
+    specs = [None, Spec(1, 3, H), Spec(0, 3, H), Spec(0, 1, H), None, Spec(0, 1, H)]
+    y_sum, dx_sum = torch.zeros_like(y_full), torch.zeros_like(y_full)
+    for m in range(mp):
+        args = _tp_shard(whole, mp, m)
+        y_sum += pk.fused_window_block_tp(*args)[0]
+        dx, *dws = pk.fused_window_block_tp_backward(*args, dy)
+        dx_sum += dx
+        for name, g, w, spec in zip(["dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], dws,
+                                    g_full[1:], specs[1:]):
+            want = w if spec is None else local_slice(w, spec, mp, m)
+            assert _rel(g, want) <= 1e-4, (name, m, _rel(g, want))
+    torch.cuda.synchronize()
+    assert _rel(y_sum, y_full) <= 1e-4 and _rel(dx_sum, g_full[0]) <= 1e-4

@@ -39,6 +39,8 @@ def test_port_imports_no_jax_and_no_focal_tpu():
     probe = json.loads(proc.stdout.strip().splitlines()[-1])
     assert "focal_tpu_torch.serve" in probe["modules"], probe  # submodules were walked
     assert "focal_tpu_torch.train.__main__" in probe["modules"], probe  # imported, ran nothing
+    for name in ("distributed", "mesh", "tp"):  # the multi-process modules are walked too
+        assert f"focal_tpu_torch.parallel.{name}" in probe["modules"], probe
     assert probe["bad"] == [], f"port pulled in: {probe['bad']}"
 
 

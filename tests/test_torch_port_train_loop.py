@@ -119,9 +119,10 @@ def test_resume_continues_as_a_straight_run(straight, tmp_path):
 
 def test_unported_stages_and_flags_raise(tmp_path):
     """The three stages dispatch (finetune without a pretrained run finds
-    no folder); the flags of what is not ported (ROADMAP A7) raise naming
-    ROADMAP; -no_pallas_block and the attribution flags (ROADMAP A8),
-    ported, parse."""
+    no folder); the flags of what is not ported (ROADMAP A7.2, A7.3) raise
+    naming ROADMAP; a layout of several processes without a rendezvous
+    raises naming -dist_num_processes; -no_pallas_block and the attribution
+    flags (ROADMAP A8), ported, parse."""
     sup = parse_train_params(["-learn_framework", "no", "-pallas_mlp", "-label_ratio", "0.5"])
     assert sup.train_mode == "supervised" and sup.pallas_mlp and sup.batch_size == 256
     assert parse_train_params(["-no_pallas_block"]).no_pallas_block
@@ -129,9 +130,15 @@ def test_unported_stages_and_flags_raise(tmp_path):
     with pytest.raises(FileNotFoundError, match="contrastive_FOCAL"):
         train_cli.main(["-stage", "finetune", "-dataset", "MOD_TINY", "-synthetic", "-device",
                         "cpu", "-output_dir", str(tmp_path)])
-    for flags, item in ((["-grad_accum", "2"], "A7"), (["-model_parallel", "2"], "A7"),
-                        (["-data_parallel", "4"], "A7"), (["-data_layout", "sharded"], "A7")):
+    for flags, item in ((["-grad_accum", "2"], "A7.2"), (["-data_layout", "sharded"], "A7.2"),
+                        (["-model_parallel", "2", "-model", "DeepSense"], "A7.3"),
+                        (["-model_parallel", "2", "-pallas_mlp"], "A7.3"),
+                        (["-model_parallel", "2", "-compute_dtype", "bfloat16"], "A7.3"),
+                        (["-data_parallel", "2", "-pallas_conv"], "A7.3")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+            parse_train_params(flags)
+    for flags in (["-model_parallel", "2"], ["-data_parallel", "4"]):
+        with pytest.raises(ValueError, match="-dist_num_processes"):
             parse_train_params(flags)
     for flags, name, value in ((["-ragged_tail"], "ragged_tail", True),
                                (["-py_aug_draws"], "py_aug_draws", True),
