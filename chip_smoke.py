@@ -331,7 +331,7 @@ result line if any fails):
      kernels on a data shard's rows, DP-1-5: #2 + #3, DP-6-9: #7 + #9,
      DP-10-12: #11 + #12) timed the same way on one of two data shards, each
      forward within 1e-4 of its plain version;
- 35. python -m focal_tpu_torch.train's main on MOD (one epoch, 512
+ 35. python -m focal_tpu_torch.train's main on MOD (one epoch, 256
      synthetic samples, batch 256) on two ranks sharing the card (gloo;
      the processes join from the FOCAL_DIST_* variables), at
      -data_parallel 2 and at -model_parallel 2, the launches counted in each
@@ -342,10 +342,30 @@ result line if any fails):
      a planted fault in one model shard's slice of a bias rejected);
      1 + 4 timed pretrain steps a layout (p50 and peak memory per rank, two
      ranks sharing one card: not multi-GPU speed), the launches held; one
-     more step with its collectives timed apart.
+     more step with its collectives timed apart. Then, with 1 + 2 timed
+     steps each (run after phase 36): bf16 SW_Transformer at
+     -model_parallel 2 (#4-TP-bf16/#5-TP-bf16; its finetune, supervised
+     stage and test CLI after the pretraining, each holding its launches), DeepSense
+     at -model_parallel 2 in f32 and bf16 (cuDNN convs: no kernel), and
+     DeepSense -pallas_conv at -data_parallel 2 in f32 and bf16 (DP-13-14:
+     #13/#14 writing raw BatchNorm sums, summed over the ranks); the f32
+     updates held as above, the bf16 ones by C11's gates (loss 1e-2
+     relative, each gradient's cosine >= 0.9, the median relative error <=
+     5e-2); each layout's kernels launched by each timed step as by its
+     rate-0 update, and no other;
+ 36. #4-TP-bf16 and #5-TP-bf16 (fused_window_block_tp_bf16, _backward_bf16)
+     against their bf16 plain versions at every local geometry of MOD's and
+     MOD_WIDE's stages at mp 2 and 4, at rate 0 and 0.2 (y within 8e-3 of
+     max|y|, gradients within 1e-2 relative, each repeat the same bits, the
+     keep rate within 5 sigma), at D = C the bits of #4-bf16/#5-bf16; timed
+     on one of two shards of a MOD bf16 step; the conv tower's
+     data-parallel form (raw sums, the statistics at the global count)
+     against its plain version and timed over one of two data shards of a
+     MOD DeepSense step, f32 and bf16.
 
-Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #14-bf16, #4-TP/#5-TP
-and the data-parallel rows DP-1-5, DP-6-9, DP-10-12), the
+Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #14-bf16, #4-TP/#5-TP,
+#4-TP-bf16/#5-TP-bf16 and the data-parallel rows DP-1-5, DP-6-9, DP-10-12,
+DP-13-14, DP-13-14-bf16), the
 nvidia-smi line, and as its last line {"ok": true, "device": {...}}. Needs one CUDA card; imports no JAX and
 nothing of the JAX package. --out DIR writes the per-geometry details and
 the profiles as JSON there.
@@ -4615,26 +4635,70 @@ MP_ROUNDING_LAMBDA = 6.0
 MP_PLANT = ("stage0_shake_seismic.block1.attn.qkv.bias", 1.5)
 # the planted fault the gate must reject: model shard 1's slice (of 2) of this
 # bias (part|head|dim) with its update scaled by 1.5
-MP_SAMPLES = 512          # synthetic train split of phase 35's entry-point runs
+MP_SAMPLES = 256          # synthetic train split of phase 35's entry-point runs
 MP_DEVICE = "cuda"
-MP_LAYOUTS = {"dp2": ["-data_parallel", "2"], "mp2": ["-model_parallel", "2"]}
+# layout: (the layout's flags, the model's flags, which a single process
+# runs too); the last five are the layouts PR 23 opened (bf16 SW_Transformer
+# and DeepSense under TP, -pallas_conv under DP), given MP_NEW_STEPS timed
+# steps
+MP_LAYOUTS = {"dp2": (["-data_parallel", "2"], []), "mp2": (["-model_parallel", "2"], []),
+              "mp2_bf16": (["-model_parallel", "2"], ["-compute_dtype", "bfloat16"]),
+              "ds_mp2": (["-model_parallel", "2"], ["-model", "DeepSense"]),
+              "ds_mp2_bf16": (["-model_parallel", "2"], ["-model", "DeepSense", "-compute_dtype",
+                                                         "bfloat16"]),
+              "ds_pallas_conv_dp2": (["-data_parallel", "2"], ["-model", "DeepSense",
+                                                               "-pallas_conv"]),
+              "ds_pallas_conv_dp2_bf16": (["-data_parallel", "2"],
+                                          ["-model", "DeepSense", "-pallas_conv", "-compute_dtype",
+                                           "bfloat16"])}
+MP_NEW_STEPS = 2
+# the entry points a layout runs after its pretraining, in its output folder:
+# (name, module, flags); the kernels each must launch (the bf16 TP layout's
+# finetune trains the class head alone: no backward through the blocks)
+MP_LAYOUT_STAGES = {"mp2_bf16": (
+    ("finetune", "train.__main__", ["-stage", "finetune"], ("fused_window_block_tp_bf16",)),
+    ("supervised", "train.__main__", ["-learn_framework", "no"],
+     ("fused_window_block_tp_bf16", "fused_window_block_tp_backward_bf16")),
+    ("test", "test", ["-learn_framework", "no"], ("fused_window_block_tp_bf16",)))}
 # the rate-0 updates each layout holds to the single-process one
 MP_RATE0 = {"dp2": {"default": [], "no_pallas_block_pallas_mlp": ["-no_pallas_block",
                                                                    "-pallas_mlp"]},
-            "mp2": {"default": []}}
+            **{layout: {"default": []} for layout in MP_LAYOUTS if layout != "dp2"}}
+# the kernels a new layout's steps run (each step as its rate-0 update), and
+# none other of MP_KERNELS; the DeepSense TP layouts run none (cuDNN convs)
+MP_LAYOUT_KERNELS = {"mp2_bf16": ("fused_window_block_tp_bf16",
+                                  "fused_window_block_tp_backward_bf16"),
+                     "ds_mp2": (), "ds_mp2_bf16": (),
+                     "ds_pallas_conv_dp2": ("fused_conv_tower", "fused_conv_tower_backward"),
+                     "ds_pallas_conv_dp2_bf16": ("fused_conv_tower_bf16",
+                                                 "fused_conv_tower_backward_bf16")}
 MP_KERNELS = ("fused_window_block_tp", "fused_window_block_tp_backward", "fused_window_block",
               "fused_window_block_dropout", "fused_window_attention", "fused_window_block_backward",
               "fused_window_attention_dropout", "fused_window_attention_dropout_backward",
               "fused_window_attention_backward", "fused_mlp_forward",
-              "fused_mlp_dropout_forward", "fused_mlp_backward")
+              "fused_mlp_dropout_forward", "fused_mlp_backward", "fused_window_block_tp_bf16",
+              "fused_window_block_tp_backward_bf16", "fused_conv_tower",
+              "fused_conv_tower_backward", "fused_conv_tower_bf16",
+              "fused_conv_tower_backward_bf16")
 
 
 def mp_kernels():
     """The wrappers phase 35's ranks count (MP_KERNELS, by name)."""
+    from focal_tpu_torch.ops import conv_tower as ct
     from focal_tpu_torch.ops import fused_mlp as fm
     from focal_tpu_torch.ops import pallas_kernels as pk
 
-    return tuple(getattr(pk, n, None) or getattr(fm, n) for n in MP_KERNELS)
+    return tuple(getattr(pk, n, None) or getattr(fm, n, None) or getattr(ct, n)
+                 for n in MP_KERNELS)
+
+
+def mp_steps(layout):
+    """The timed steps of a phase 35 layout."""
+    return MP_STEPS if layout in ("dp2", "mp2") else MP_NEW_STEPS
+
+
+def mp_bf16(layout):
+    return "bfloat16" in MP_LAYOUTS[layout][1]
 
 
 def tp_shard(torch, args, mp, m):
@@ -4905,10 +4969,11 @@ def dp_form_times(torch, np, pk, fm, gen, dev):
 
 def sgd_rate0_step(torch, argv, plan, dev, batch, on_model=None):
     """One MOD pretrain update at every drop rate 0 (SGD at MP_LR, from the
-    seed-0 init, fixed rows and views): (loss, the updated state_dict whole
-    on the CPU, MP_PLANT's tensor before the update). ``plan``: the rank's
-    layout, or None for one process; ``on_model``, called with the model
-    before the step."""
+    seed-0 init, fixed rows and views) of the model ``argv`` names
+    (SW_Transformer by default): (loss, the updated state_dict whole on the
+    CPU, the state_dict before the update, the trained parameters' names).
+    ``plan``: the rank's layout, or None for one process; ``on_model``,
+    called with the model before the step."""
     from focal_tpu_torch.data import synthetic_arrays, to_device
     from focal_tpu_torch.models import apply_plan, build_backbone, init_params
     from focal_tpu_torch.ops.augment import build_augmenter
@@ -4923,9 +4988,12 @@ def sgd_rate0_step(torch, argv, plan, dev, batch, on_model=None):
                                MP_DEVICE] + argv)
     cfg = copy.deepcopy(args.dataset_config)
     cfg["SW_Transformer"].update(dropout_ratio=0.0, drop_path_rate=0.0, attn_drop_rate=0.0)
+    cfg["DeepSense"].update(dropout_ratio=0.0)
     args.dataset_config = cfg
-    model = build_backbone(cfg, "SW_Transformer", args.task, args.learn_framework,
-                           pallas_mlp=args.pallas_mlp, pallas_block=not args.no_pallas_block)
+    model = build_backbone(cfg, args.model, args.task, args.learn_framework,
+                           pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
+                           pallas_block=not args.no_pallas_block,
+                           compute_dtype=args.compute_dtype)
     model = apply_plan(init_params(model, seed=0).to(dev), plan)
     mask = trainable_mask(model, args)
     params = [p for n, p in model.named_parameters() if mask[n]]
@@ -4936,12 +5004,16 @@ def sgd_rate0_step(torch, argv, plan, dev, batch, on_model=None):
     host, _, _ = synthetic_arrays(cfg, args.task, batch, seed=0)
     data = to_device(host, dev)
     step = make_pretrain_step(model, build_augmenter(args), make_focal_loss(args), plan=plan)
-    whole = lambda: tp.full_state_dict(model, plan) if plan is not None else model.state_dict()  # noqa: E731
-    init = whole()[MP_PLANT[0]].detach().cpu().clone()
+
+    def whole():
+        state_dict = tp.full_state_dict(model, plan) if plan is not None else model.state_dict()
+        return {k: v.detach().cpu().clone() for k, v in state_dict.items()}
+
+    init = whole()
     if on_model is not None:
         on_model(model)
     _, metrics = step(state, data, torch.arange(batch, device=dev))
-    return float(metrics["loss"]), {k: v.detach().cpu() for k, v in whole().items()}, init
+    return float(metrics["loss"]), whole(), init, [n for n in mask if mask[n]]
 
 
 def rounding_allowance(torch, dev, batch):
@@ -5017,7 +5089,7 @@ def planted_fault(whole, ref, init, allow):
     per-tensor bound max|a - b| <= MP_PARAM_RTOL max|b| + MP_PARAM_ATOL)."""
     name, scale = MP_PLANT
     a, b = whole[name].clone(), ref[name]
-    v, v0 = a.view(3, 2, -1), init.view(3, 2, -1)
+    v, v0 = a.view(3, 2, -1), init[name].view(3, 2, -1)
     v[:, 1] = v0[:, 1] + scale * (v[:, 1] - v0[:, 1])
     diff = (a - b).abs()
     gate = float((diff / (MP_PARAM_RTOL * b.abs() + MP_PARAM_ATOL + allow.get(name, 0.0))).max())
@@ -5070,10 +5142,14 @@ def phase35_rank(rank, world, layout):
     run_local without a process group: the entry point joins it from the
     FOCAL_DIST_* variables). (1) ``python -m focal_tpu_torch.train``'s main
     on MOD at the layout's flags, every count zeroed before and read after;
-    (2) the rate-0 SGD updates of MP_RATE0 against the single-process ones
-    the parent saved, and MP_PLANT planted in each; (3) MP_WARMUP + MP_STEPS
-    timed pretrain steps at the recipe's rates on the layout: p50, peak
-    memory, launches; then one step with its collectives timed
+    then the layout's MP_LAYOUT_STAGES (the bf16 TP layout's finetune,
+    supervised stage and test CLI), counted alike; (2) the rate-0 SGD
+    updates of MP_RATE0 against the single-process ones
+    the parent saved: an f32 update entry by entry (update_errors) with
+    MP_PLANT planted where the model has it, a bf16 one by C11's gates on
+    its gradients (the update over the learning rate: bf16_grad_stats);
+    (3) MP_WARMUP + the layout's timed pretrain steps at the recipe's rates:
+    p50, peak memory, launches; then one step with its collectives timed
     (collective_split)."""
     sys.path.insert(0, HERE)
     import importlib
@@ -5094,36 +5170,56 @@ def phase35_rank(rank, world, layout):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     kernels = mp_kernels()
-    flags = MP_LAYOUTS[layout]
+    layout_flags, model_flags = MP_LAYOUTS[layout]
+    flags = layout_flags + model_flags
+    steps = mp_steps(layout)
     train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
     out_dir = os.path.join(HERE, "build", f"phase35_{layout}")
-    argv = ["-dataset", "MOD", "-synthetic", "-synthetic_samples", str(MP_SAMPLES), "-epochs", "1",
-            "-val_epochs", "1", "-output_dir", out_dir, "-device", MP_DEVICE] + flags
+    argv = ["-dataset", "MOD", "-synthetic", "-synthetic_samples", str(MP_SAMPLES), "-epochs",
+            "1", "-val_epochs", "1", "-output_dir", out_dir, "-device", MP_DEVICE] + flags
     zero_counts(kernels)
     t0 = time.time()
     train_cli.main(argv)
     torch.cuda.synchronize()
     res = {"rank": rank, "backend": distributed.backend(), "cli_seconds": time.time() - t0,
-           "cli_launches": counts(kernels)}
+           "cli_launches": counts(kernels), "stages": {}}
+    for name, module, more, _ in MP_LAYOUT_STAGES.get(layout, ()):
+        zero_counts(kernels)
+        t0 = time.time()
+        importlib.import_module(f"focal_tpu_torch.{module}").main(argv + more)
+        torch.cuda.synchronize()
+        res["stages"][name] = {"seconds": time.time() - t0, "launches": counts(kernels)}
     dev = torch.device(distributed.device_for(MP_DEVICE))
-    plan = make_mesh_plan(2, 1) if layout == "dp2" else make_mesh_plan(1, 2)
+    plan = make_mesh_plan(2, 1) if "-data_parallel" in layout_flags else make_mesh_plan(1, 2)
     res["rate0"] = {}
     for variant, extra in MP_RATE0[layout].items():
         zero_counts(kernels)
-        loss, whole, _ = sgd_rate0_step(torch, flags + extra, plan, dev, TRAIN_BATCH)
+        loss, whole, init, names = sgd_rate0_step(torch, flags + extra, plan, dev, TRAIN_BATCH)
         ref = torch.load(rate0_ref_path(layout, variant), weights_only=True)
-        gate, plain, rounding = update_errors(whole, ref["state"], ref["allow"])
-        plant_gate, plant_tensor = planted_fault(whole, ref["state"], ref["init"], ref["allow"])
-        res["rate0"][variant] = {
-            "loss": loss, "loss_single": ref["loss"],
-            "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]), "worst_ratio": gate[0][0],
-            "worst_name": gate[0][1], "worst_gate": gate, "worst_allclose": plain,
-            "worst_allowance": rounding,
-            "plant_gate": plant_gate, "plant_per_tensor": plant_tensor,
-            "launches": counts(kernels)}
+        v = {"loss": loss, "loss_single": ref["loss"],
+             "loss_rel": abs(loss - ref["loss"]) / abs(ref["loss"]), "launches": counts(kernels)}
+        if mp_bf16(layout):
+            grads = [(init[n] - whole[n]) / MP_LR for n in names]
+            want = [(ref["init"][n] - ref["state"][n]) / MP_LR for n in names]
+            v["grads"] = bf16_grad_stats(names, grads, want)
+            v["ok"] = (v["loss_rel"] <= BF16_LOSS_TOL and v["grads"]["min_cos"] >= BF16_GRAD_MIN_COS
+                       and v["grads"]["median_rel"] <= BF16_GRAD_MEDIAN_TOL
+                       and v["grads"]["zero_true_gradient_max_abs"] <= NEAR_ZERO)
+        else:
+            gate, plain, rounding = update_errors(whole, ref["state"], ref["allow"])
+            v.update(worst_ratio=gate[0][0], worst_name=gate[0][1], worst_gate=gate,
+                     worst_allclose=plain, worst_allowance=rounding)
+            v["ok"] = v["loss_rel"] <= MP_LOSS_RTOL and gate[0][0] <= 1
+            if MP_PLANT[0] in whole:
+                v["plant_gate"], v["plant_per_tensor"] = planted_fault(whole, ref["state"], init,
+                                                                        ref["allow"])
+        res["rate0"][variant] = v
+        del whole, init, ref
     args = parse_train_params(["-dataset", "MOD", "-batch_size", str(TRAIN_BATCH), "-device",
                                MP_DEVICE] + flags)
-    model = build_backbone(args.dataset_config, "SW_Transformer", args.task, args.learn_framework)
+    model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
+                           pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
+                           pallas_block=not args.no_pallas_block, compute_dtype=args.compute_dtype)
     model = apply_plan(init_params(model, seed=0).to(dev), plan)
     state = create_train_state(args, model, steps_per_epoch=100, seed=0)
     host, _, _ = synthetic_arrays(args.dataset_config, args.task, TRAIN_BATCH, seed=0)
@@ -5136,7 +5232,7 @@ def phase35_rank(rank, world, layout):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(kernels)
     step_s, losses = [], []
-    for _ in range(MP_STEPS):
+    for _ in range(steps):
         torch.cuda.synchronize()
         t1 = time.time()
         losses.append(float(step(state, data, idx)[1]["loss"]))
@@ -5162,7 +5258,30 @@ def check_mp_launches(layout, ranks, per_fwd):
     exactly (per_fwd a step each: #4-TP/#5-TP at mp 2; #2/#3 on a data
     shard's rows at dp 2) and the other layout's none; the entry point ran
     the layout's, and the dp 2 -no_pallas_block -pallas_mlp rate-0 update
-    #6/#8 and #10/#12 on a data shard's rows."""
+    #6/#8 and #10/#12 on a data shard's rows. A layout of MP_LAYOUT_KERNELS:
+    its timed steps each ran its kernels as many times as its rate-0 update
+    (at least once) and no other of MP_KERNELS, and so did its entry point
+    (the DeepSense TP layouts none); each of its MP_LAYOUT_STAGES launched
+    the kernels it must and no other of MP_KERNELS."""
+    if layout in MP_LAYOUT_KERNELS:
+        names, steps = MP_LAYOUT_KERNELS[layout], mp_steps(layout)
+        for r in ranks:
+            one = r["rate0"]["default"]["launches"]
+            want = {k: steps * one[k] if k in names else 0 for k in MP_KERNELS}
+            cli = r["cli_launches"]
+            if (r["steps_launches"] != want or any(one[k] < 1 for k in names)
+                    or any(cli[k] < 1 for k in names)
+                    or any(v for k, v in cli.items() if k not in names)):
+                raise AssertionError(f"[multi-process] {layout} rank {r['rank']}: launches "
+                                     f"{r['steps_launches']}, rate-0 update {one}, entry point "
+                                     f"{cli}")
+            for name, _, _, must in MP_LAYOUT_STAGES.get(layout, ()):
+                got = r["stages"][name]["launches"]
+                if any(got[k] < 1 for k in must) or any(v for k, v in got.items()
+                                                        if k not in names):
+                    raise AssertionError(f"[multi-process] {layout} rank {r['rank']} {name}: "
+                                         f"launches {got}")
+        return
     want_tp = MP_STEPS * per_fwd if layout == "mp2" else 0
     want_dp = MP_STEPS * per_fwd if layout == "dp2" else 0
     for r in ranks:
@@ -5184,10 +5303,12 @@ def check_mp_launches(layout, ranks, per_fwd):
 
 
 def multi_process_paths(torch, dev):
-    """Phase 35: MOD SW_Transformer pretraining at full width on two ranks
-    sharing the card (gloo), at -data_parallel 2 and at -model_parallel 2
-    (phase35_rank); the single-process rate-0 updates they are held to are
-    taken here first."""
+    """Phase 35: MOD pretraining at full width on two ranks sharing the
+    card (gloo), at every layout of MP_LAYOUTS: SW_Transformer at
+    -data_parallel 2 and -model_parallel 2 in f32 and at -model_parallel 2
+    in bf16, DeepSense at -model_parallel 2 in f32 and bf16 and with
+    -pallas_conv at -data_parallel 2 in f32 and bf16 (phase35_rank); the
+    single-process rate-0 updates they are held to are taken here first."""
     from focal_tpu_torch.parallel import distributed
     from focal_tpu_torch.params import load_dataset_config
 
@@ -5195,9 +5316,15 @@ def multi_process_paths(torch, dev):
     allow, rows = rounding_allowance(torch, dev, TRAIN_BATCH)
     for layout, variants in MP_RATE0.items():
         for variant, extra in variants.items():
-            loss, whole, init = sgd_rate0_step(torch, extra, None, dev, TRAIN_BATCH)
-            torch.save({"loss": loss, "state": whole, "init": init, "allow": allow},
+            model_flags = MP_LAYOUTS[layout][1]
+            loss, whole, init, _ = sgd_rate0_step(torch, model_flags + extra, None, dev,
+                                                  TRAIN_BATCH)
+            # the allowances are SW_Transformer's (hooks on its Linears and
+            # LayerNorms); a DeepSense update is held to allclose alone
+            torch.save({"loss": loss, "state": whole, "init": init,
+                        "allow": {} if "DeepSense" in model_flags else allow},
                        rate0_ref_path(layout, variant))
+            del whole, init
     per_fwd = sum(g["per_forward"] for g in block_geometries(load_dataset_config("MOD"), 1))
     out = {"layouts": {}, "per_forward": per_fwd, "allowance_rows": rows}
     for layout in MP_LAYOUTS:
@@ -5206,38 +5333,53 @@ def multi_process_paths(torch, dev):
                                       init=False)
         for r in ranks:
             for variant, v in r["rate0"].items():
-                if v["loss_rel"] > MP_LOSS_RTOL or v["worst_ratio"] > 1:
+                if not v["ok"]:
                     raise AssertionError(f"[multi-process] {layout} rank {r['rank']} {variant}: "
                                          f"the rate-0 update is off the single-process one: {v}")
-                if v["plant_gate"] <= 1:
+                if v.get("plant_gate", math.inf) <= 1:
                     raise AssertionError(f"[multi-process] {layout} {variant}: the gate passes "
                                          f"the planted fault {MP_PLANT}: {v['plant_gate']}")
         check_mp_launches(layout, ranks, per_fwd)
         out["layouts"][layout] = {"seconds": time.time() - t1, "ranks": ranks}
+        steps = mp_steps(layout)
         for r in ranks:
+            stages = "".join(f"; {n} {st['seconds']:.1f}s, launches "
+                             f"{ {k: v for k, v in st['launches'].items() if v} }"
+                             for n, st in r["stages"].items())
             log(f"[multi-process] {layout} rank {r['rank']} (two ranks sharing one card, "
                 f"{r['backend']}): entry point {r['cli_seconds']:.1f}s, launches "
-                f"{ {k: v for k, v in r['cli_launches'].items() if v} }; rate-0 update vs one "
-                f"process: " + ", ".join(f"{k} loss rel {v['loss_rel']:.2e}, worst entries over "
-                                         f"the gate's bound {v['worst_gate'][:3]}, over "
-                                         f"allclose's alone {v['worst_allclose'][:3]}, over "
-                                         f"the rounding allowance alone "
-                                         f"{v['worst_allowance'][:3]}, planted "
-                                         f"fault {v['plant_gate']:.3g} of the gate's bound "
-                                         f"({v['plant_per_tensor']:.3g} of the per-tensor one)"
-                                         for k, v in r["rate0"].items())
-                + f"; {MP_STEPS} steps p50 {r['p50_ms']:.3f} ms, peak {r['peak_mb']:.1f} MiB "
+                f"{ {k: v for k, v in r['cli_launches'].items() if v} }{stages}; rate-0 update vs one "
+                f"process: " + ", ".join(rate0_summary(k, v) for k, v in r["rate0"].items())
+                + f"; {steps} steps p50 {r['p50_ms']:.3f} ms, peak {r['peak_mb']:.1f} MiB "
                 f"(two ranks sharing one card: not multi-GPU speed), losses {r['losses']}; one "
                 f"step with its collectives timed: {r['split']['step_ms']:.1f} ms, "
                 f"collectives {r['split']['collective_ms']:.1f} ms ({r['split']['calls']} "
                 f"calls, {r['split']['mbytes']:.1f} MiB)")
+        log(f"[multi-process] {layout} in {out['layouts'][layout]['seconds']:.1f}s")
     out["seconds"] = time.time() - t0
     return out
 
 
-def multi_process_entries(tpk, dp_forms, multi):
-    """The kernels line's rows of phases 34-35: #4-TP, #5-TP and the
-    data-parallel forms."""
+def rate0_summary(variant, v):
+    """One rate-0 update's line of phase 35's log."""
+    if "grads" in v:
+        gs = v["grads"]
+        return (f"{variant} (C11's gates) loss rel {v['loss_rel']:.2e}, min cosine "
+                f"{gs['min_cos']:.5f} ({gs['min_cos_tensor']}), median rel {gs['median_rel']:.3e}, "
+                f"max rel {gs['max_rel']:.3e} ({gs['max_rel_tensor']}), true-zero gradients "
+                f"within {gs['zero_true_gradient_max_abs']:.3e}")
+    line = (f"{variant} loss rel {v['loss_rel']:.2e}, worst entries over the gate's bound "
+            f"{v['worst_gate'][:3]}, over allclose's alone {v['worst_allclose'][:3]}, over the "
+            f"rounding allowance alone {v['worst_allowance'][:3]}")
+    if "plant_gate" in v:
+        line += (f", planted fault {v['plant_gate']:.3g} of the gate's bound "
+                 f"({v['plant_per_tensor']:.3g} of the per-tensor one)")
+    return line
+
+
+def multi_process_entries(tpk, dp_forms, multi, tpb, dpt):
+    """The kernels line's rows of phases 34-36: #4-TP, #5-TP, the
+    data-parallel forms, #4-TP-bf16, #5-TP-bf16 and DP-13-14(-bf16)."""
     kernels = []
     layouts = multi["layouts"]
 
@@ -5304,7 +5446,329 @@ def multi_process_entries(tpk, dp_forms, multi):
                                                             layouts["dp2"]["ranks"]),
                                  **{f"rate0_step_MOD_dp2_{v}": mp_launches("dp2", fwd_name, v)
                                     for v in MP_RATE0["dp2"]}}})
+
+    def launches_by_path(layout, name):
+        return {f"train_cli_MOD_{layout}": mp_launches(layout, name),
+                f"timed_steps_MOD_{layout}": sum(r["steps_launches"][name]
+                                                 for r in layouts[layout]["ranks"]),
+                f"rate0_step_MOD_{layout}": mp_launches(layout, name, "default")}
+
+    bst, berr = tpb["step"], tpb["errors"]
+    tpb_per = (f"times: the {tpb['per_forward']} launches of one MOD bf16 pretrain step at batch "
+               f"{TRAIN_BATCH} (views fused to {2 * TRAIN_BATCH}, dropout {tpb['rate']}) on one "
+               "of two model shards (D = C / 2); launches: the -model_parallel 2 -compute_dtype "
+               "bfloat16 entry point's run, both ranks (training and eval forwards); "
+               "max_abs_err: worst over every local geometry of MOD's and MOD_WIDE's stages at "
+               "mp 2 and 4 against the bf16 plain versions; bound: B_ (8 N C D + 4 N^2 D) FLOPs "
+               "forward, B_ (22 N C D + 12 N^2 D) backward at 989 TFLOP/s, or the bytes; "
+               "library: cuBLAS bf16 + SDPA at the local geometry")
+    for name, num, line, d, also in (
+            ("fused_window_block_tp_bf16", "#4-TP-bf16", 1759, "fwd", [f"{PK}:1629", f"{PK}:1303"]),
+            ("fused_window_block_tp_backward_bf16", "#5-TP-bf16", 1727, "bwd", [f"{PK}:1342"])):
+        kernels.append({
+            "name": name, "kernel": num, "route": "cuda",
+            "source": "focal_tpu_torch/csrc/window_block.cu", "replaces": f"{PK}:{line}",
+            "replaces_also": also, "launches": mp_launches("mp2_bf16", name),
+            "max_abs_err": berr[f"{d}_abs"], "max_rel_err": berr[d], "ms": bst[f"{d}_ms"],
+            "plain_ms": bst[f"{d}_plain_ms"], "bound_ms": bst[f"{d}_bound_ms"],
+            "bound_by": bst[f"{d}_bound_by"], "library_ms": bst[f"{d}_library_ms"],
+            "device_ms": bst[f"{d}_device_ms"], "flops": bst[f"{d}_flops"],
+            "bytes": bst[f"{d}_bytes"], "per": tpb_per,
+            "launches_by_path": launches_by_path("mp2_bf16", name)})
+    for dtype, num, layout, fwd_name, bwd_name in (
+            ("float32", "DP-13-14", "ds_pallas_conv_dp2", "fused_conv_tower",
+             "fused_conv_tower_backward"),
+            ("bfloat16", "DP-13-14-bf16", "ds_pallas_conv_dp2_bf16", "fused_conv_tower_bf16",
+             "fused_conv_tower_backward_bf16")):
+        t = dpt[dtype]
+        kernels.append({
+            "name": f"{fwd_name} + {bwd_name} over data ranks", "kernel": num, "route": "cuda",
+            "source": "focal_tpu_torch/csrc/conv_tower.cu", "replaces": f"{CT}:288",
+            "replaces_also": [f"{CT}:327", f"{CT}:349", f"{CT}:366", f"{CT}:387"],
+            "launches": mp_launches(layout, fwd_name) + mp_launches(layout, bwd_name),
+            "max_abs_err": t["err"], "max_rel_err": t["grad_err"], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"], "device_ms": t["device_ms"], "flops": t["flops"],
+            "bytes": t["bytes"],
+            "per": (f"#13 and #14 writing raw BatchNorm sums, the statistics finished at the "
+                    f"global count (the sums over the data ranks in phase 35's collectives); "
+                    f"times: the towers of one MOD DeepSense -pallas_conv step ({dtype}) on one "
+                    f"of two data shards ({TRAIN_BATCH // 2} samples, views fused to "
+                    f"{TRAIN_BATCH}), forward plus backward; launches: #13's and #14's wrappers "
+                    f"in the -data_parallel 2 -pallas_conv entry point's run, both ranks; "
+                    "max_abs_err: the outputs and statistics against the plain DP form "
+                    "(relative), max_rel_err its gradients; library: the cuDNN chain; bound: "
+                    "the convs at the f32 (bf16) peak, the rest at 67 TFLOP/s, or the bytes"),
+            "launches_by_path": {k: launches_by_path(layout, fwd_name)[k]
+                                 + launches_by_path(layout, bwd_name)[k]
+                                 for k in launches_by_path(layout, fwd_name)}})
     return kernels
+
+
+# ---------------------------------------------------------------------------
+# phase 36: #4-TP-bf16/#5-TP-bf16, and the conv tower's data-parallel form
+
+class TwinRanks:
+    """A stand-in plan of two data ranks that hold the same rows: their sum
+    doubles a tensor (in place, as all_reduce does). It times the
+    data-parallel tower's own work on one shard without a process group:
+    its launches write raw sums, its statistics' last steps run at twice the
+    count; the sums over the ranks themselves (2 x C floats a conv) are the
+    collectives' part of phase 35."""
+    dp = 2
+
+    @staticmethod
+    def sum_data_(t):
+        return t.mul_(2.0)
+
+    @staticmethod
+    def sum_data(t):
+        return 2.0 * t
+
+
+def tp_bf16_work(g, mp, backward, with_keep):
+    """#4-TP-bf16 (#5-TP-bf16) on one of mp shards: B_ (8 N C D + 4 N^2 D)
+    FLOPs forward and B_ (22 N C D + 12 N^2 D) backward at the bf16 tensor
+    cores' peak, D = C / mp; bytes at the types they move, each once: x, y
+    (dy, dx) and the shard's weights bf16, its biases, bias table, shift
+    mask and parameter gradients f32, the keep mask uint8. Returns (flops,
+    bytes, bound ms, what bounds)."""
+    B, N, C, H = g["windows"], g["N"], g["C"], g["heads"]
+    D, Hl = C // mp, H // mp
+    small = 4 * (3 * D + C + Hl * N * N) + (4 * g["nW"] * N * N if g["mask"] is not None else 0)
+    small += B * Hl * N * N if with_keep else 0
+    if backward:
+        flops = B * (22 * N * C * D + 12 * N * N * D)
+        nbytes = 2 * (3 * B * N * C + 4 * C * D) + small + 4 * (4 * C * D + 3 * D + C + Hl * N * N)
+    else:
+        flops = B * (8 * N * C * D + 4 * N * N * D)
+        nbytes = 2 * (2 * B * N * C + 4 * C * D) + small
+    t_ops, t_by = flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, 1e3 * max(t_ops, t_by), "operations" if t_ops >= t_by else "bytes"
+
+
+def tp_bf16_kernel_paths(torch, np, pk, gen, dev):
+    """Phase 36: #4-TP-bf16/#5-TP-bf16 (fused_window_block_tp_bf16,
+    _backward_bf16) against their bf16 plain versions at every local
+    geometry of MOD's and MOD_WIDE's stages at mp 2 and 4 (TP_GATE_WINDOWS
+    windows), at rate 0 and the recipe's rate: y within BF16_FWD_TOL of
+    max|y|, every gradient within BF16_GRAD_TOL relative (absolutely to
+    NEAR_ZERO where both sides are below it), each kernel the same bits on a
+    second call, the keep rate within 5 sigma; at D = C (one shard) the
+    bits of #4-bf16/#5-bf16, the same code (the card tests hold those to
+    the parent's). Then timed at MOD's training geometries on one of two
+    shards (phase 35's mp 2 bf16 layout): events and device time a step,
+    the bf16 plain versions, cuBLAS bf16 + SDPA at the local geometry, the
+    bound."""
+    from focal_tpu_torch.params import load_dataset_config
+
+    t0 = time.time()
+    fwd, bwd = pk.fused_window_block_tp_bf16, pk.fused_window_block_tp_backward_bf16
+    bf = torch.bfloat16
+    cfg = load_dataset_config("MOD")
+    rate = float(cfg["SW_Transformer"]["attn_drop_rate"])
+    seen, gates = set(), []
+    errs = {"fwd": 0.0, "fwd_abs": 0.0, "bwd": 0.0, "bwd_near": 0.0, "bwd_abs": 0.0,
+            "keep_sigma": 0.0}
+    for ds in ("MOD", "MOD_WIDE"):
+        for geo in block_geometries(load_dataset_config(ds), 1):
+            key = (geo["N"], geo["C"], geo["heads"], geo["mask"] is not None)
+            if key in seen:
+                continue
+            seen.add(key)
+            g = dict(geo, windows=TP_GATE_WINDOWS)
+            whole = bf16_inputs(torch, g, gen, dev)
+            dy = torch.randn(whole[0].shape, generator=gen).to(dev).to(bf)
+            # one shard: D = C, the per-head bf16 kernels' call
+            y1, k1 = fwd(*whole, 11, rate)
+            y0, k0 = pk.fused_window_block_perhead_bf16(*whole, 11, rate)
+            same = torch.equal(y1, y0) and torch.equal(k1, k0) and all(
+                torch.equal(a, b) for a, b in zip(bwd(*whole, dy, k1, rate),
+                                                  pk.fused_window_block_perhead_backward_bf16(
+                                                      *whole, dy, k0, rate)))
+            if not same:
+                raise AssertionError(f"[tp-bf16] at D = C #4-TP-bf16/#5-TP-bf16 differ from "
+                                     f"#4-bf16/#5-bf16 at {key}")
+            for mp in TP_WAYS:
+                for r in (0.0, rate):
+                    args = tp_shard(torch, whole, mp, mp - 1)
+                    y, keep = fwd(*args, 11, r)
+                    y2, keep2 = fwd(*args, 11, r)
+                    got = bwd(*args, dy, keep, r)
+                    again = bwd(*args, dy, keep, r)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(y, y2) and (keep is None or torch.equal(keep, keep2))
+                            and all(torch.equal(a, b) for a, b in zip(got, again))):
+                        raise AssertionError(f"[tp-bf16] repeats with other bits at {key}, mp {mp}")
+                    ref = pk.fused_window_block_bf16_reference(*args, keep, r).float()
+                    errs["fwd"] = max(errs["fwd"], rel_err(y.float(), ref))
+                    errs["fwd_abs"] = max(errs["fwd_abs"], float((y.float() - ref).abs().max()))
+                    want = pk.fused_window_block_backward_bf16_reference(*args, dy, keep, r)
+                    rel, near, absolute = grad_errors([a.float() for a in got],
+                                                      [w.float() for w in want])
+                    errs["bwd"], errs["bwd_near"] = max(errs["bwd"], rel), max(errs["bwd_near"], near)
+                    errs["bwd_abs"] = max(errs["bwd_abs"], absolute)
+                    if r:
+                        kept = float(keep.double().mean())
+                        errs["keep_sigma"] = max(errs["keep_sigma"], abs(kept - (1 - r)) / (
+                            r * (1 - r) / keep.numel()) ** 0.5)
+                gates.append({"N": key[0], "C": key[1], "heads": key[2], "shifted": key[3],
+                              "mp": mp})
+    if (errs["fwd"] > BF16_FWD_TOL or errs["bwd"] > BF16_GRAD_TOL or errs["bwd_near"] > NEAR_ZERO
+            or errs["keep_sigma"] > 5):
+        raise AssertionError(f"[tp-bf16] past the gates: {errs}")
+    log(f"[tp-bf16] #4-TP-bf16/#5-TP-bf16 at {len(gates)} local geometries (rate 0 and {rate}) "
+        f"vs the bf16 plain versions: {errs}; at D = C the bits of #4-bf16/#5-bf16")
+
+    # timed: one shard of two at MOD's training geometries
+    mp = 2
+    geos = block_geometries(cfg, 2 * TRAIN_BATCH)
+    for g in geos:
+        args = tp_shard(torch, bf16_inputs(torch, g, gen, dev), mp, 0)
+        dy = torch.randn(args[0].shape, generator=gen).to(dev).to(bf)
+        y, keep = fwd(*args, 7, rate)
+        ref = pk.fused_window_block_bf16_reference(*args, keep, rate).float()
+        g["fwd_err"] = rel_err(y.float(), ref)
+        g["fwd_abs_err"] = float((y.float() - ref).abs().max())
+        got = bwd(*args, dy, keep, rate)
+        want = pk.fused_window_block_backward_bf16_reference(*args, dy, keep, rate)
+        g["bwd_err"] = grad_errors([a.float() for a in got], [w.float() for w in want])[0]
+        if g["fwd_err"] > BF16_FWD_TOL or g["bwd_err"] > BF16_GRAD_TOL:
+            raise AssertionError(f"[tp-bf16] {g['name']}: off the plain versions at the main "
+                                 f"path's geometry: {g['fwd_err']}, {g['bwd_err']}")
+        g["fwd_ms"] = time_ms(torch, lambda: fwd(*args, 7, rate))
+        g["fwd_device_ms"] = device_ms_per_call(torch, lambda: fwd(*args, 7, rate))
+        g["fwd_plain_ms"] = time_ms(torch, lambda: pk.fused_window_block_bf16_reference(
+            *args, keep, rate))
+        g["bwd_ms"] = time_ms(torch, lambda: bwd(*args, dy, keep, rate))
+        g["bwd_device_ms"] = device_ms_per_call(torch, lambda: bwd(*args, dy, keep, rate))
+        g["bwd_plain_ms"] = time_ms(torch, lambda: pk.fused_window_block_backward_bf16_reference(
+            *args, dy, keep, rate))
+        g["fwd_library_ms"], g["bwd_library_ms"] = library_bf16_ms(
+            torch, dict(g, heads=g["heads"] // mp), args, dy, rate)
+        for d in ("fwd", "bwd"):
+            f, b, bnd, by = tp_bf16_work(g, mp, d == "bwd", True)
+            g.update({f"{d}_flops": f, f"{d}_bytes": b, f"{d}_bound_ms": bnd, f"{d}_bound_by": by})
+        del args, dy, y, keep, got, want, ref
+    keys = [f"{d}_{k}" for d in ("fwd", "bwd") for k in (
+        "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "flops", "bytes")]
+    tot = {k: sum(g["per_forward"] * g[k] for g in geos) for k in keys}
+    for d in ("fwd", "bwd"):
+        tot[f"{d}_bound_by"] = ("operations" if tot[f"{d}_flops"] / BF16_FLOPS
+                                >= tot[f"{d}_bytes"] / HBM_BYTES_PER_S else "bytes")
+        tot[f"{d}_err"] = max(g[f"{d}_err"] for g in geos)
+    per_fwd = sum(g["per_forward"] for g in geos)
+    log(f"[tp-bf16] one MOD bf16 step on one of {mp} shards ({per_fwd} launches each, rate "
+        f"{rate}): " + "; ".join(
+            f"{n} {tot[f'{d}_ms']:.3f} ms (device {tot[f'{d}_device_ms']:.3f}, plain "
+            f"{tot[f'{d}_plain_ms']:.3f}, library {tot[f'{d}_library_ms']:.3f}, bound "
+            f"{tot[f'{d}_bound_ms']:.3f} {tot[f'{d}_bound_by']})"
+            for d, n in (("fwd", "#4-TP-bf16"), ("bwd", "#5-TP-bf16"))))
+    torch.cuda.empty_cache()
+    return {"seconds": time.time() - t0, "gates": gates, "errors": errs, "step": tot,
+            "per_forward": per_fwd, "rate": rate,
+            "geometries": [{k: v for k, v in g.items() if k != "mask"} for g in geos]}
+
+
+def dp_tower_times(torch, np, ct, dev):
+    """DP-13-14 (f32) and DP-13-14-bf16: the towers of one MOD DeepSense
+    -pallas_conv step on one of two data shards (TRAIN_BATCH / 2 samples,
+    views fused to TRAIN_BATCH), through the data-parallel form (TwinRanks:
+    each conv's launch writes raw sums, the statistics finished at the
+    global count between the launches; the backward's means from the
+    summed s2). Each geometry: the output, statistics and every gradient
+    against the plain DP form (fused_conv_tower_reference with the same
+    plan; bf16: its written-out VJP), forward plus backward by events and
+    device time (tower_forward and fused_conv_tower_backward called as
+    time_tower calls them), the plain versions and the cuDNN chain
+    (library_tower; bf16 rows in bf16), each forward and autograd
+    backward, and the bound (tower_work, tower_bf16_work). Summed over the
+    step's towers."""
+    import torch.nn.functional as F
+    from focal_tpu_torch.params import load_dataset_config
+
+    t0 = time.time()
+    cfg = load_dataset_config("MOD")
+    plan = TwinRanks()
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        bf16 = dtype == "bfloat16"
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "flops": 0,
+               "bytes": 0, "bound_ms": 0.0, "err": 0.0, "grad_err": 0.0}
+        for g in tower_geometries(cfg, TRAIN_BATCH, "MOD"):
+            x0, params, masks, dy = (tower_bf16_inputs if bf16 else tower_inputs)(
+                torch, np, g, 91 + g["S"], dev)
+            cfgs, ext = g["cfgs"], g["external"]
+            xl, pl_, leaves = tower_leaves(torch, x0, params, ext)
+
+            def kernels():
+                a = ct.fused_conv_tower(xl, cfgs, *pl_, masks, ext, plan=plan)[0]
+                return torch.autograd.grad(a, leaves, dy)
+
+            def plain():
+                a = ct.fused_conv_tower_reference(xl, cfgs, *pl_, masks, ext, plan=plan)[0]
+                return torch.autograd.grad(a, leaves, dy)
+
+            got_a = ct.fused_conv_tower(xl, cfgs, *pl_, masks, ext, plan=plan)
+            want_a = ct.fused_conv_tower_reference(xl, cfgs, *pl_, masks, ext, plan=plan)
+            err = max(rel_err(a.detach().float(), w.detach().float()) for a, w in zip(
+                [got_a[0], *got_a[1], *got_a[2]], [want_a[0], *want_a[1], *want_a[2]]))
+            rel, near, _ = grad_errors([t.float() for t in kernels()],
+                                       [t.float() for t in plain()])
+            if err > (BF16_FWD_TOL if bf16 else KERNEL_TOL) or rel > (
+                    BF16_GRAD_TOL if bf16 else GRAD_TOL) or near > NEAR_ZERO:
+                raise AssertionError(f"[dp-tower] {dtype} {g['name']}: the DP form is off its "
+                                     f"plain version: {err}, {rel}, {near}")
+            lib_params = params if not bf16 else [[w.to(torch.bfloat16) for w in params[0]],
+                                                  [b.to(torch.bfloat16) for b in params[1]],
+                                                  *params[2:]]
+            lx, lp, lleaves = tower_leaves(torch, x0, lib_params, ext)
+            lmasks = masks if not bf16 else [m.to(torch.bfloat16) for m in masks]
+            dyl = dy.permute(0, 2, 1).unsqueeze(2)
+
+            def library():
+                y = library_tower(torch, F, lx, g, lp, lmasks)
+                return torch.autograd.grad(y, lleaves, dyl)
+
+            # timed as time_tower times #13/#14: the forward and the backward
+            # calls themselves, without autograd's host work around them
+            kp = params if not bf16 else [[w.to(torch.bfloat16) for w in params[0]]] + params[1:]
+            _, _, _, saved = ct.tower_forward(x0, cfgs, *kp, masks, ext, plan)
+
+            def forward():
+                return ct.tower_forward(x0, cfgs, *kp, masks, ext, plan)
+
+            def backward():
+                return ct.fused_conv_tower_backward(saved, dy, plan)
+
+            n = g["towers"]
+            tot["ms"] += n * (time_ms(torch, forward) + time_ms(torch, backward))
+            tot["device_ms"] += n * (device_ms_per_call(torch, forward)
+                                     + device_ms_per_call(torch, backward))
+            tot["plain_ms"] += n * time_ms(torch, plain)
+            tot["library_ms"] += n * time_ms(torch, library)
+            if bf16:
+                f_fl, f_by, f_bnd, _, b_fl, b_by, b_bnd, _ = tower_bf16_work(g)
+            else:
+                f_fl, f_by, b_fl, b_by = tower_work(g)
+                f_bnd, b_bnd = (bound(f_fl, f_by)[0], bound(b_fl, b_by)[0])
+            tot["flops"] += n * (f_fl + b_fl)
+            tot["bytes"] += n * (f_by + b_by)
+            tot["bound_ms"] += n * (f_bnd + b_bnd)
+            tot["err"] = max(tot["err"], err)
+            tot["grad_err"] = max(tot["grad_err"], rel)
+            del x0, params, masks, dy, xl, pl_, leaves, lx, lp, lleaves, got_a, want_a, saved
+        tot["bound_by"] = ("operations" if tot["bound_ms"] > 1e3 * tot["bytes"] / HBM_BYTES_PER_S
+                           else "bytes")
+        out[dtype] = tot
+        log(f"[dp-tower] {dtype}: the towers of one MOD DeepSense step on one of two data shards "
+            f"(#13 + #14 through the DP form): {tot['ms']:.3f} ms (device "
+            f"{tot['device_ms']:.3f}, plain {tot['plain_ms']:.3f}, cuDNN chain "
+            f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} {tot['bound_by']}), worst "
+            f"error vs the plain DP form {tot['err']:.2e} (gradients {tot['grad_err']:.2e})")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    return out
 
 
 def main():
@@ -6379,9 +6843,23 @@ def main():
     log(f"[smoke] phase 34 in {time.time() - t34:.1f}s (#4-TP/#5-TP {tpk['seconds']:.1f}s); "
         f"{time.time() - t_start:.1f}s after the build started")
 
+    # ---- 36. #4-TP-bf16/#5-TP-bf16 vs their bf16 plain versions at every
+    # local geometry of MOD's and MOD_WIDE's stages at mp 2 and 4, at D = C
+    # the bits of #4-bf16/#5-bf16; timed on one of two shards of a MOD bf16
+    # step; the conv tower's data-parallel form timed on one of two data
+    # shards of a MOD DeepSense step, f32 and bf16
+    t36 = time.time()
+    tpb = tp_bf16_kernel_paths(torch, np, pk, gen, dev)
+    dpt = dp_tower_times(torch, np, ct, dev)
+    log(f"[smoke] phase 36 in {time.time() - t36:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     # ---- 35. python -m focal_tpu_torch.train on two ranks sharing the card,
-    # at -data_parallel 2 and at -model_parallel 2; their rate-0 updates
-    # against the single-process one; their steps timed
+    # at -data_parallel 2 and at -model_parallel 2, at -model_parallel 2 in
+    # bf16, DeepSense at -model_parallel 2 (f32, bf16) and with -pallas_conv
+    # at -data_parallel 2 (f32, bf16); their rate-0 updates against the
+    # single-process ones; their steps timed (after phase 36, whose kernels
+    # its new layouts run)
     multi = multi_process_paths(torch, dev)
     log(f"[smoke] phase 35 in {multi['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
@@ -6422,7 +6900,8 @@ def main():
                 "recipes": recipes, "two_locations": two_loc, "attribution": attribution,
                 "bf16": bf16, "deepsense_bf16": ds_bf16, "wide_bf16": wide_bf16,
                 "mlp_bf16": mlp_bf16, "attention_bf16": attn_bf16, "tp_kernels": tpk,
-                "dp_forms": dp_forms, "multi_process": multi,
+                "dp_forms": dp_forms, "multi_process": multi, "tp_bf16_kernels": tpb,
+                "dp_towers": dpt,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -6820,7 +7299,7 @@ def main():
                         attn_bf16["train_step"]["drop_bwd"], ae["bwd_abs"], max_rel_err=ae["bwd"],
                         launches_per_step=per_fwd, steps=ATTN_BF16_STEPS),
     ]
-    kernels += multi_process_entries(tpk, dp_forms, multi)
+    kernels += multi_process_entries(tpk, dp_forms, multi, tpb, dpt)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

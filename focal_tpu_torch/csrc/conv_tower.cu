@@ -23,7 +23,10 @@
 // The [C]-sized steps between them (the statistics to A, B, P, Q; m0, m1)
 // end the reductions that produce their sums (bn_stats_kernel,
 // bn_grad_stats_kernel); an external first conv's statistics are the
-// caller's.
+// caller's. Over several data ranks (DP-13-14: the JAX tower over a data
+// mesh normalises with the global batch's statistics) those two kernels
+// write the raw sums alone, the caller sums them over the ranks and forms
+// the [C]-sized steps at the global count between the launches.
 //
 // What bounds them on this card: operations. A (1, KW) conv over C = 64
 // channels does 2*KW*C multiply-adds per output for 8 bytes of activation
@@ -334,6 +337,9 @@ __global__ void column_total_kernel(const float* __restrict__ part, int blocks, 
 
 // The BatchNorm of a conv's output: its affine (scale, bias [C]) in; the
 // coefficients rows [5, C] and the batch mean and biased variance [C] out.
+// With scale null (several data ranks, whose sums the caller adds and
+// finalises at the global count): the raw sums [Σc; Σc²] into rows [2, C]
+// alone.
 struct BnStats {
   const float* scale;
   const float* bias;
@@ -356,6 +362,11 @@ __global__ void bn_stats_kernel(const float* __restrict__ part, int tiles, int C
     s1 += part[(size_t)t * 2 * C + ch];
     s2 += part[((size_t)t * 2 + 1) * C + ch];
   }
+  if (st.scale == nullptr) {
+    st.rows[ch] = s1;
+    st.rows[C + ch] = s2;
+    return;
+  }
   const float mu = s1 / n;
   const float var = fmaxf(__fsub_rn(s2 / n, __fmul_rn(mu, mu)), 0.f);
   const float invstd = rsqrtf(var + kBnEps);
@@ -371,7 +382,8 @@ __global__ void bn_stats_kernel(const float* __restrict__ part, int tiles, int C
 
 // One thread a channel: the ordered sum of the backward's column-sum
 // partials [blocks, 2, C] into s2 = [Σgy; Σgy·x̂], and m = s2 scale / n
-// (the means of dx̂ and dx̂·x̂).
+// (the means of dx̂ and dx̂·x̂) where m is not null (several data ranks:
+// the caller sums s2 over them first).
 __global__ void bn_grad_stats_kernel(const float* __restrict__ part, int blocks, int C, float n,
                                      const float* __restrict__ rows, float* __restrict__ s2,
                                      float* __restrict__ m) {
@@ -385,6 +397,7 @@ __global__ void bn_grad_stats_kernel(const float* __restrict__ part, int blocks,
   const float sc = rows[4 * C + ch];
   s2[ch] = t1;
   s2[C + ch] = t2;
+  if (m == nullptr) return;
   m[ch] = __fmul_rn(t1, sc) / n;
   m[C + ch] = __fmul_rn(t2, sc) / n;
 }
@@ -1236,7 +1249,9 @@ extern "C" int focal_ct_workspace(int kind, int R, int S, int cin, int cout, int
 
 // The first conv of an internal-c0 tower (#13, _conv0_kernel): c = conv(x,
 // w) + b [RS, cout], and from its batch statistics (with the BatchNorm's
-// scale and bias [cout]) rows [5, cout], mu and var [cout]. ws holds
+// scale and bias [cout]) rows [5, cout], mu and var [cout]; with scale null
+// the raw sums [Σc; Σc²] into rows [2, cout] alone (mu, var unused: several
+// data ranks). ws holds
 // focal_ct_workspace(0, R, S, cin, cout, kw, bf16) floats. Two launches on
 // `stream`: the conv with its column-sum partials (the product, or the
 // narrow conv where cin is not a multiple of 4, 8 in bf16) and their
@@ -1260,7 +1275,9 @@ extern "C" int focal_ct_conv0(const void* x, const void* w, const void* b, const
 // aprev null for no residual. With w [kw*C, cout], b and layer k+1's
 // BatchNorm scale and bias: then layer k+1's c_next = conv(a, w) + b and
 // from its batch statistics rows_next [5, cout], mu_next and var_next
-// [cout] (ws: focal_ct_workspace(0, R, S, C, cout, kw, bf16) floats); with
+// [cout] (with scale null the raw sums into rows_next [2, cout], as
+// focal_ct_conv0's; ws: focal_ct_workspace(0, R, S, C, cout, kw, bf16)
+// floats); with
 // w null the apply alone (the rest unused). One launch, or three: the
 // apply, the conv product with its column-sum partials, their ordered sum
 // with the statistics. bf16 (#13-bf16): c, aprev, a, w and c_next bf16.
@@ -1286,7 +1303,8 @@ extern "C" int focal_ct_apply(const void* c, const void* rows, const void* mask,
 
 // The backward sums of layer k (#14, _bwd_stats_kernel): s2 = [Σgy; Σgy·x̂]
 // [2, C] from da, c [RS, C], mask and rows, and m = s2 scale / n [2, C]
-// (m0, m1 of the backward apply). ws: focal_ct_workspace(1, R, S, C, C, 1,
+// (m0, m1 of the backward apply; m null: s2 alone, for several data ranks,
+// whose caller forms m from the ranks' sum). ws: focal_ct_workspace(1, R, S, C, C, 1,
 // bf16) floats. Two launches: per-block sums, their ordered sum. bf16: da
 // and c bf16.
 extern "C" int focal_ct_bwd_stats(const void* da, const void* c, const void* mask,

@@ -15,7 +15,9 @@
 //      (sharded_window_block_tp -> _sharded_wblock_tp_op), the f32 code below
 //      at an inner width D = H hd below C: Wqkv [C, 3D], Wproj [D, C], the
 //      attention over the shard's H heads; y and dx are partial sums that the
-//      caller adds over the model ranks (D = C for #1-#5 and the bf16 forms)
+//      caller adds over the model ranks (D = C for #1-#5)
+//   #4-TP-bf16, #5-TP-bf16: the same in bf16 (sharded_window_block_tp fed
+//      bf16), the bf16 code below at the inner width D
 // Per window w of x [B, N, C] (f32, row-major):
 //   qkv = x Wqkv + bqkv                      (q columns pre-scaled by the caller)
 //   a_h = softmax(q_h k_h^T + rel_bias[h] + mask[w % nW])   for each head h
@@ -133,6 +135,14 @@
 //           splits in split order, the three sums over the attention's
 //           blocks in block order. No float atomics: two calls give the same
 //           bits.
+//   * At an inner width D < C (#4-TP-bf16, #5-TP-bf16: a tensor-parallel
+//     shard's H heads, Wqkv [C, 3D], Wproj [D, C]) the same launches: the
+//     qkv and g products D-wide (3D and D columns), the attention's rows
+//     3D and D wide, y's and dx's products over K = D and 3D (TMA's zero
+//     fill past an edge pads a K or N below a box: no narrow plan of its
+//     own), dbqkv 3D and dbproj C wide. y and dx are partial sums, each
+//     rounded to bf16 once, that the caller adds over the model ranks; at
+//     D = C the bits of #1-#5-bf16.
 //   * Not yet: the f32 #1-#5 on wgmma and their attention on the cp.async
 //     ring; fusing the attention into the products (the forward's qkv and
 //     ao make one round trip through device memory).
@@ -715,20 +725,20 @@ __device__ __forceinline__ void store_tile(uint8_t* tile, const CUtensorMap* map
 // qkv = x Wqkv + bqkv and, in the backward, g = dy Wproj^T, f32, into the
 // workspaces: one or two problems in one launch (gemm_wgmma.cuh's
 // streamed_tiles over the problems' tiles): A = x or dy [R, C] K-major, B =
-// Wqkv [C, 3C] MN-major as it lies, or Wproj [C, C] read as B^T, K-major as
+// Wqkv [C, 3D] MN-major as it lies, or Wproj [D, C] read as B^T, K-major as
 // it lies (problem 1's order, kBT1). Each f32 tile leaves by TMA
 // (store_tile through mqkv or mg). With g null the launch is problem 0
 // alone: the forward's (a).
 struct QkvgArgs {
   const float* bqkv;
-  float* qkv;  // [R, 3C]
-  float* g;    // [R, C], or null
-  int R, C;
+  float* qkv;  // [R, 3D]
+  float* g;    // [R, D], or null
+  int R, C, D;  // D: the attention's width (C but for a tensor-parallel shard)
 };
 
 // Output tiles of a QkvgArgs launch in kBN-wide tiles.
 __host__ __device__ inline int qkvg_tiles(const QkvgArgs& p, int bn) {
-  const int tn = (3 * p.C + bn - 1) / bn + (p.g ? (p.C + bn - 1) / bn : 0);
+  const int tn = (3 * p.D + bn - 1) / bn + (p.g ? (p.D + bn - 1) / bn : 0);
   return (p.R + wgk::kBM - 1) / wgk::kBM * tn;
 }
 
@@ -742,13 +752,13 @@ wb_wg_qkvg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant_
   using Smem = StoreSmem<kBN, true>;
   uint8_t* tile = wgk::align1024(smem_raw) + Smem::kStaged;
   const int rt = (p.R + wgk::kBM - 1) / wgk::kBM;
-  const int tn0 = (3 * p.C + kBN - 1) / kBN, tn1 = (p.C + kBN - 1) / kBN;
+  const int tn0 = (3 * p.D + kBN - 1) / kBN, tn1 = (p.D + kBN - 1) / kBN;
   const int k_tiles = (p.C + wgk::kBK - 1) / wgk::kBK;
   auto plan = [&](int tile) {
     const bool second = tile >= rt * tn0;
     const int t = second ? tile - rt * tn0 : tile, tn = second ? tn1 : tn0;
     return wgk::Job<1>{{second ? &mdy : &mx}, {second ? &mwproj : &mwqkv}, t / tn * wgk::kBM, p.R,
-                       t % tn * kBN, second ? p.C : 3 * p.C, 0, k_tiles, second ? 1 : 0};
+                       t % tn * kBN, second ? p.D : 3 * p.D, 0, k_tiles, second ? 1 : 0};
   };
   auto epi = [&](const wgk::Job<1>& j, float (&acc)[1][kBN / 2]) {
     store_tile<kBN, true>(tile, j.problem ? &mg : &mqkv, j, acc[0], j.problem ? nullptr : p.bqkv);
@@ -758,18 +768,18 @@ wb_wg_qkvg_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant_
   if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last store has left shared memory
 }
 
-// The backward's dx = dqkv Wqkv^T: A = dqkv [R, 3C] bf16 K-major, B^T =
-// Wqkv [C, 3C] K-major as it lies; each tile of dx rounded to bf16 and
+// The backward's dx = dqkv Wqkv^T: A = dqkv [R, 3D] bf16 K-major, B^T =
+// Wqkv [C, 3D] K-major as it lies; each tile of dx rounded to bf16 and
 // stored by TMA (store_tile).
 template <int kBN>
 __global__ void __launch_bounds__(wgk::kThreads, 1)
 wb_wg_dx_kernel(const __grid_constant__ CUtensorMap mdqkv, const __grid_constant__ CUtensorMap mwqkv,
-                const __grid_constant__ CUtensorMap mdx, int R, int C) {
+                const __grid_constant__ CUtensorMap mdx, int R, int C, int D) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* tile = wgk::align1024(smem_raw) + StoreSmem<kBN>::kStaged;
   const int tn = (C + kBN - 1) / kBN;
   const int tiles = (R + wgk::kBM - 1) / wgk::kBM * tn;
-  const int k_tiles = (3 * C + wgk::kBK - 1) / wgk::kBK;
+  const int k_tiles = (3 * D + wgk::kBK - 1) / wgk::kBK;
   auto plan = [&](int t) {
     return wgk::Job<1>{{&mdqkv}, {&mwqkv}, t / tn * wgk::kBM, R, t % tn * kBN, C, 0, k_tiles, 0};
   };
@@ -780,20 +790,20 @@ wb_wg_dx_kernel(const __grid_constant__ CUtensorMap mdqkv, const __grid_constant
   if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last store has left shared memory
 }
 
-// The forward's y = ao Wproj + bproj: A = the attention's bf16 ao [R, C]
-// K-major, B = Wproj [C, C] MN-major as it lies; bproj added to the f32
+// The forward's y = ao Wproj + bproj: A = the attention's bf16 ao [R, D]
+// K-major, B = Wproj [D, C] MN-major as it lies; bproj added to the f32
 // sums, then each value rounded to bf16 once and stored by TMA
 // (store_tile).
 template <int kBN>
 __global__ void __launch_bounds__(wgk::kThreads, 1)
 wb_wg_y_kernel(const __grid_constant__ CUtensorMap mao, const __grid_constant__ CUtensorMap mwproj,
                const __grid_constant__ CUtensorMap my, const float* __restrict__ bproj, int R,
-               int C) {
+               int C, int D) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* tile = wgk::align1024(smem_raw) + StoreSmem<kBN>::kStaged;
   const int tn = (C + kBN - 1) / kBN;
   const int tiles = (R + wgk::kBM - 1) / wgk::kBM * tn;
-  const int k_tiles = (C + wgk::kBK - 1) / wgk::kBK;
+  const int k_tiles = (D + wgk::kBK - 1) / wgk::kBK;
   auto plan = [&](int t) {
     return wgk::Job<1>{{&mao}, {&mwproj}, t / tn * wgk::kBM, R, t % tn * kBN, C, 0, k_tiles, 0};
   };
@@ -831,18 +841,18 @@ __device__ __forceinline__ void store_head4(T* row, int c, float4 v, int hd) {
 // (+ the shifted-window mask) and dropout in f32 registers (the keep flags
 // drawn by focal::keep_bits_row, the G lanes of a row sharing its Philox
 // words, and written out as uint8 [B, H, N, N]), then ao_i = a_v v rounded
-// once to bf16 into ao [R, C] at the head's columns: the layout and type
-// the output projection reads by TMA.
+// once to bf16 into ao [R, D] at the head's columns: the layout and type
+// the output projection reads by TMA. C here is the attention's width D.
 struct AttnFwdArgs {
-  const float* qkv;        // [R, 3C] f32, q pre-scaled
+  const float* qkv;        // [R, 3D] f32, q pre-scaled
   const float* rel_bias;   // [H, N, N]
   const float* mask;       // [nW, N, N] or null
-  bf16* ao;                // [R, C]
+  bf16* ao;                // [R, D]
   unsigned char* keep;     // [B, H, N, N] (kDropout)
   unsigned long long seed;
   unsigned threshold;
   float inv_keep;
-  int C, nW, two_slots;
+  int C, nW, two_slots;  // C: the rows' width D
 };
 
 template <int kN, int kCols, bool kDropout, bool kAnyHd>
@@ -941,20 +951,21 @@ attn_fwd_bf16_kernel(const AttnFwdArgs a, const focal::Geo g) {
 // slot, and dq's f32 rows and the dbqkv partial in device memory (over the
 // chunk's own q rows of the qkv workspace, read by then, and at the
 // block's partial), so the shared memory is the gate's (wblock_takes).
+// C is the attention's width D (C but for a tensor-parallel shard), Cy dy's.
 struct AttnBwdArgs {
-  float* qkv;                 // [R, 3C] f32, q pre-scaled
-  const float* g;             // [R, C] f32
+  float* qkv;                 // [R, 3D] f32, q pre-scaled
+  const float* g;             // [R, D] f32
   const float* rel_bias;      // [H, N, N]
   const float* mask;          // [nW, N, N] or null
   const unsigned char* keep;  // [B, H, N, N] (kDropout)
-  const bf16* dy;             // [R, C]
-  bf16* dqkv;                 // [R, 3C]
-  bf16* ao;                   // [R, C]
-  float* dbqkv_part;          // [grid][3C]
-  float* dbproj_part;         // [grid][C]
+  const bf16* dy;             // [R, Cy]
+  bf16* dqkv;                 // [R, 3D]
+  bf16* ao;                   // [R, D]
+  float* dbqkv_part;          // [grid][3D]
+  float* dbproj_part;         // [grid][Cy]
   float* dbias_part;          // [grid][H N N]
   float inv_keep;
-  int C, nW, R;
+  int C, nW, R, Cy;
 };
 
 template <int kN, int kCols, bool kDropout, bool kAnyHd, bool kWide>
@@ -1146,9 +1157,9 @@ attn_bwd_bf16_kernel(const AttnBwdArgs a, const focal::Geo g) {
   // of at most kThreads column groups at a time)
   float* red = reinterpret_cast<float*>(smem4);  // [slots][8 gb]
   const int rpb = (a.R + gridDim.x - 1) / gridDim.x;
-  const int r0 = blockIdx.x * rpb, r1 = min(a.R, r0 + rpb);
-  for (int cg0 = 0; cg0 < C / 8; cg0 += kThreads) {
-    const int gb = min(kThreads, C / 8 - cg0), slots = kThreads / gb;
+  const int r0 = blockIdx.x * rpb, r1 = min(a.R, r0 + rpb), Cy = a.Cy;
+  for (int cg0 = 0; cg0 < Cy / 8; cg0 += kThreads) {
+    const int gb = min(kThreads, Cy / 8 - cg0), slots = kThreads / gb;
     const int cg = threadIdx.x % gb, slot = threadIdx.x / gb;
     if (slot < slots) {
       float s[8];
@@ -1157,7 +1168,7 @@ attn_bwd_bf16_kernel(const AttnBwdArgs a, const focal::Geo g) {
 #pragma unroll 4  // four rows' loads in flight a thread
       for (int r = r0 + slot; r < r1; r += slots) {
         const uint4 raw =
-            __ldg(reinterpret_cast<const uint4*>(a.dy + (size_t)r * C + 8 * (cg0 + cg)));
+            __ldg(reinterpret_cast<const uint4*>(a.dy + (size_t)r * Cy + 8 * (cg0 + cg)));
         const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
 #pragma unroll
         for (int u = 0; u < 4; ++u) {  // the lower bf16 of a word is the lower address
@@ -1172,7 +1183,7 @@ attn_bwd_bf16_kernel(const AttnBwdArgs a, const focal::Geo g) {
     for (int col = threadIdx.x; col < 8 * gb; col += kThreads) {
       float acc = 0.f;
       for (int sl = 0; sl < slots; ++sl) acc += red[sl * 8 * gb + col];
-      a.dbproj_part[(size_t)blockIdx.x * C + 8 * cg0 + col] = acc;
+      a.dbproj_part[(size_t)blockIdx.x * Cy + 8 * cg0 + col] = acc;
     }
     __syncthreads();
   }
@@ -1270,9 +1281,10 @@ Ring16 plan_ring16(int B, int N, int C, int H, const Floats& floats, const Pick&
 
 size_t bf16_floats(size_t n) { return (n + 7) / 8 * 4; }
 
-// Launch plan of the bf16 forward: the attention's ring (plan_ring16) and
-// instance, the products' tile widths, the workspace in floats: qkv [R, 3C]
-// f32, then ao [R, C] bf16 (16-byte aligned: C is a multiple of 8).
+// Launch plan of the bf16 forward: the attention's ring (plan_ring16, over
+// D = H hd) and instance, the products' tile widths, the workspace in
+// floats: qkv [R, 3D] f32, then ao [R, D] bf16 (16-byte aligned: D is a
+// multiple of 8).
 struct FwdPlan16 {
   Ring16 ring;
   AttnFwd16 attn;
@@ -1281,30 +1293,30 @@ struct FwdPlan16 {
   cudaError_t err;
 };
 
-FwdPlan16 make_fwd_plan16(int B, int N, int C, int H, bool dropout) {
+FwdPlan16 make_fwd_plan16(int B, int N, int C, int D, int H, bool dropout) {
   FwdPlan16 P{};
   P.ring = plan_ring16(
-      B, N, C, H, attn_fwd16_floats,
+      B, N, D, H, attn_fwd16_floats,
       [&](const focal::Geo& g, bool) {
         return dropout ? attn_fwd16_kernel<true>(g) : attn_fwd16_kernel<false>(g);
       },
       &P.attn);
   P.err = P.ring.err;
   const int R = B * N;
-  P.qbn = tile_bn(3 * C, 0);
+  P.qbn = tile_bn(3 * D, 0);
   P.ybn = tile_bn(C, 0);
   P.qkv = 0;
-  P.ao = (size_t)R * 3 * C;
-  P.total = P.ao + bf16_floats((size_t)R * C);
+  P.ao = (size_t)R * 3 * D;
+  P.total = P.ao + bf16_floats((size_t)R * D);
   return P;
 }
 
 // Launch plan of the bf16 backward: the attention's ring (plan_ring16) and
 // instance; the products' tile widths; the weight gradients' row splits
 // (wgrad_splits); the workspace, in floats, each array 16-byte aligned: qkv
-// [R, 3C] and g [R, C] f32, dqkv [R, 3C] and ao [R, C] bf16, the attention
-// blocks' partials of dbqkv [grid][3C], dbproj [grid][C] and d rel_bias
-// [grid][H N N], the weight-gradient split partials [splits][4 C^2].
+// [R, 3D] and g [R, D] f32, dqkv [R, 3D] and ao [R, D] bf16, the attention
+// blocks' partials of dbqkv [grid][3D], dbproj [grid][C] and d rel_bias
+// [grid][H N N], the weight-gradient split partials [splits][4 C D].
 struct BwdPlan16 {
   Ring16 ring;
   AttnBwd16 attn;
@@ -1313,10 +1325,10 @@ struct BwdPlan16 {
   cudaError_t err;
 };
 
-BwdPlan16 make_bwd_plan16(int B, int N, int C, int H, bool dropout) {
+BwdPlan16 make_bwd_plan16(int B, int N, int C, int D, int H, bool dropout) {
   BwdPlan16 P{};
   P.ring = plan_ring16(
-      B, N, C, H, [&](const focal::Geo& g, bool wide) { return attn_bwd16_floats(g, C, wide); },
+      B, N, D, H, [&](const focal::Geo& g, bool wide) { return attn_bwd16_floats(g, D, wide); },
       [&](const focal::Geo& g, bool wide) {
         return dropout ? attn_bwd16_kernel<true>(g, wide) : attn_bwd16_kernel<false>(g, wide);
       },
@@ -1324,20 +1336,20 @@ BwdPlan16 make_bwd_plan16(int B, int N, int C, int H, bool dropout) {
   P.err = P.ring.err;
   if (P.err != cudaSuccess) return P;
   const int R = B * N, grid = P.ring.grid;
-  P.qbn = tile_bn(3 * C, C);
+  P.qbn = tile_bn(3 * D, D);
   P.dbn = tile_bn(C, 0);
-  P.wbn = tile_bn(3 * C, C);
-  const int wtiles = wgk::wgrad_tiles(C, 3 * C, P.wbn) + wgk::wgrad_tiles(C, C, P.wbn);
+  P.wbn = tile_bn(3 * D, C);
+  const int wtiles = wgk::wgrad_tiles(C, 3 * D, P.wbn) + wgk::wgrad_tiles(D, C, P.wbn);
   const wgk::WgradSplits ws = wgk::wgrad_splits(R, wtiles, P.ring.sms);
   P.splits = ws.splits;
   P.rows_per_split = ws.rows_per_split;
-  const size_t E = (size_t)4 * C * C, nn = (size_t)N * N;
+  const size_t E = (size_t)4 * C * D, nn = (size_t)N * N;
   size_t o = 0;
-  P.qkv = o, o += (size_t)R * 3 * C;
-  P.g = o, o += (size_t)R * C;
-  P.dqkv = o, o += bf16_floats((size_t)R * 3 * C);
-  P.ao = o, o += bf16_floats((size_t)R * C);
-  P.dbqkv = o, o += (size_t)grid * 3 * C;
+  P.qkv = o, o += (size_t)R * 3 * D;
+  P.g = o, o += (size_t)R * D;
+  P.dqkv = o, o += bf16_floats((size_t)R * 3 * D);
+  P.ao = o, o += bf16_floats((size_t)R * D);
+  P.dbqkv = o, o += (size_t)grid * 3 * D;
   P.dbproj = o, o += (size_t)grid * C;
   P.dbias = o, o += ((size_t)grid * H * nn + 3) / 4 * 4;
   P.wpart = o, o += (size_t)P.splits * E;
@@ -1345,13 +1357,14 @@ BwdPlan16 make_bwd_plan16(int B, int N, int C, int H, bool dropout) {
   return P;
 }
 
-// make(B, N, C, H, dropout) once a geometry and device (one cache a plan
-// type): its attribute and occupancy queries cost host time a call would
-// otherwise pay.
+// make(B, N, C, D, H, dropout) once a geometry and device (one cache a
+// plan type): its attribute and occupancy queries cost host time a call
+// would otherwise pay.
 template <class Plan>
-Plan cached_plan(int B, int N, int C, int H, bool dropout, Plan (*make)(int, int, int, int, bool)) {
+Plan cached_plan(int B, int N, int C, int D, int H, bool dropout,
+                 Plan (*make)(int, int, int, int, int, bool)) {
   static std::mutex mutex;
-  static std::map<std::array<int, 6>, Plan> plans;
+  static std::map<std::array<int, 7>, Plan> plans;
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) {
@@ -1359,21 +1372,21 @@ Plan cached_plan(int B, int N, int C, int H, bool dropout, Plan (*make)(int, int
     P.err = err;
     return P;
   }
-  const std::array<int, 6> key{dev, B, N, C, H, (int)dropout};
+  const std::array<int, 7> key{dev, B, N, C, D, H, (int)dropout};
   std::lock_guard<std::mutex> lock(mutex);
   const auto it = plans.find(key);
   if (it != plans.end()) return it->second;
-  const Plan P = make(B, N, C, H, dropout);
+  const Plan P = make(B, N, C, D, H, dropout);
   if (P.err == cudaSuccess) plans.emplace(key, P);
   return P;
 }
 
-FwdPlan16 fwd_plan16(int B, int N, int C, int H, bool dropout) {
-  return cached_plan(B, N, C, H, dropout, make_fwd_plan16);
+FwdPlan16 fwd_plan16(int B, int N, int C, int D, int H, bool dropout) {
+  return cached_plan(B, N, C, D, H, dropout, make_fwd_plan16);
 }
 
-BwdPlan16 bwd_plan16(int B, int N, int C, int H, bool dropout) {
-  return cached_plan(B, N, C, H, dropout, make_bwd_plan16);
+BwdPlan16 bwd_plan16(int B, int N, int C, int D, int H, bool dropout) {
+  return cached_plan(B, N, C, D, H, dropout, make_bwd_plan16);
 }
 
 template <int kBN>
@@ -1391,18 +1404,24 @@ int launch_store(Kernel kernel, const CUtensorMap (&m)[3], int R, int C, int sms
                      args...);
 }
 
+// The bf16 entry points' geometry: check_geometry's, and bf16 rows of C
+// and D values 16-byte multiples (the products stage them by TMA).
+int check_geometry16(int N, int C, int D, int H) {
+  return check_geometry(N, C, D, H) || C % 8 != 0 || D % 8 != 0 ? (int)cudaErrorInvalidValue : 0;
+}
+
 // The bf16 forward's three launches on `stream` (focal_wblock_fwd_bf16):
 // (a) qkv = x Wqkv + bqkv in f32 (wb_wg_qkvg_kernel, problem 0 alone), (b)
 // the attention (attn_fwd_bf16_kernel: ao in bf16, the keep mask), (c) y =
 // ao Wproj + bproj in bf16 (wb_wg_y_kernel).
 int wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
                     const void* bproj, const void* rel_bias, const void* mask, void* y,
-                    void* keep, void* ws, int B, int N, int C, int H, int nW,
+                    void* keep, void* ws, int B, int N, int C, int D, int H, int nW,
                     unsigned long long seed, unsigned threshold, float inv_keep, void* stream) {
-  if (check_geometry(N, C, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
+  if (check_geometry16(N, C, D, H) || (mask != nullptr && nW < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
-  const FwdPlan16 P = fwd_plan16(B, N, C, H, keep != nullptr);
+  const FwdPlan16 P = fwd_plan16(B, N, C, D, H, keep != nullptr);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * N, sms = P.ring.sms;
@@ -1412,28 +1431,28 @@ int wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
   // (a) qkv = x Wqkv + bqkv: A = x K-major, B = Wqkv MN-major as it lies
   CUtensorMap mq[6];
   if (int e = wgk::map(&mq[0], x, R, C, wgk::kBM)) return e;
-  if (int e = wgk::map(&mq[1], wqkv, C, 3 * C, 64)) return e;
-  if (int e = wgk::map(&mq[4], qkv, R, 3 * C, wgk::kBM, true)) return e;
+  if (int e = wgk::map(&mq[1], wqkv, C, 3 * D, 64)) return e;
+  if (int e = wgk::map(&mq[4], qkv, R, 3 * D, wgk::kBM, true)) return e;
   mq[2] = mq[0];  // problem 1's maps: no problem 1
   mq[3] = mq[1];
   mq[5] = mq[4];
-  const QkvgArgs qa{static_cast<const float*>(bqkv), qkv, nullptr, R, C};
+  const QkvgArgs qa{static_cast<const float*>(bqkv), qkv, nullptr, R, C, D};
   if (int e = P.qbn == 128 ? launch_qkvg<128>(mq, qa, sms, s) : launch_qkvg<64>(mq, qa, sms, s))
     return e;
   // (b) the attention per (window, head)
   const AttnFwdArgs aa{qkv, static_cast<const float*>(rel_bias), static_cast<const float*>(mask), ao,
-                       static_cast<unsigned char*>(keep), seed, threshold, inv_keep, C,
+                       static_cast<unsigned char*>(keep), seed, threshold, inv_keep, D,
                        mask != nullptr ? nW : 1, P.ring.wide ? 0 : 1};
   P.attn<<<P.ring.grid, kThreads, P.ring.smem, s>>>(aa, P.ring.geo);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   // (c) y = ao Wproj + bproj: A = ao K-major, B = Wproj MN-major as it lies
   CUtensorMap my[3];
-  if (int e = wgk::map(&my[0], ao, R, C, wgk::kBM)) return e;
-  if (int e = wgk::map(&my[1], wproj, C, C, 64)) return e;
+  if (int e = wgk::map(&my[0], ao, R, D, wgk::kBM)) return e;
+  if (int e = wgk::map(&my[1], wproj, D, C, 64)) return e;
   if (int e = wgk::map(&my[2], y, R, C, wgk::kBM)) return e;
   const float* bp = static_cast<const float*>(bproj);
-  return P.ybn == 128 ? launch_store<128>(wb_wg_y_kernel<128>, my, R, C, sms, s, bp, R, C)
-                      : launch_store<64>(wb_wg_y_kernel<64>, my, R, C, sms, s, bp, R, C);
+  return P.ybn == 128 ? launch_store<128>(wb_wg_y_kernel<128>, my, R, C, sms, s, bp, R, C, D)
+                      : launch_store<64>(wb_wg_y_kernel<64>, my, R, C, sms, s, bp, R, C, D);
 }
 
 // The bf16 backward's five launches on `stream` (focal_wblock_bwd_bf16):
@@ -1444,12 +1463,12 @@ int wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
 int wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv, const void* wproj,
                     const void* rel_bias, const void* mask, const void* dy, const void* keep,
                     float inv_keep, void* dx, void* dweights, void* drel_bias, void* ws, int B,
-                    int N, int C, int H, int nW, void* stream) {
-  if (check_geometry(N, C, C, H) || C % 8 != 0 || (mask != nullptr && nW < 1))
+                    int N, int C, int D, int H, int nW, void* stream) {
+  if (check_geometry16(N, C, D, H) || (mask != nullptr && nW < 1))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const bool dropout = keep != nullptr;
-  const BwdPlan16 P = bwd_plan16(B, N, C, H, dropout);
+  const BwdPlan16 P = bwd_plan16(B, N, C, D, H, dropout);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int R = B * N, sms = P.ring.sms;
@@ -1460,43 +1479,43 @@ int wblock_bwd_bf16(const void* x, const void* wqkv, const void* bqkv, const voi
   // (a) qkv = x Wqkv + bqkv (recomputed) and g = dy Wproj^T
   CUtensorMap mq[6];
   if (int e = wgk::map(&mq[0], x, R, C, wgk::kBM)) return e;
-  if (int e = wgk::map(&mq[1], wqkv, C, 3 * C, 64)) return e;
+  if (int e = wgk::map(&mq[1], wqkv, C, 3 * D, 64)) return e;
   if (int e = wgk::map(&mq[2], dy, R, C, wgk::kBM)) return e;
-  if (int e = wgk::map(&mq[3], wproj, C, C, P.qbn)) return e;
-  if (int e = wgk::map(&mq[4], qkv, R, 3 * C, wgk::kBM, true)) return e;
-  if (int e = wgk::map(&mq[5], g, R, C, wgk::kBM, true)) return e;
-  const QkvgArgs qa{static_cast<const float*>(bqkv), qkv, g, R, C};
+  if (int e = wgk::map(&mq[3], wproj, D, C, P.qbn)) return e;
+  if (int e = wgk::map(&mq[4], qkv, R, 3 * D, wgk::kBM, true)) return e;
+  if (int e = wgk::map(&mq[5], g, R, D, wgk::kBM, true)) return e;
+  const QkvgArgs qa{static_cast<const float*>(bqkv), qkv, g, R, C, D};
   if (int e = P.qbn == 128 ? launch_qkvg<128>(mq, qa, sms, s) : launch_qkvg<64>(mq, qa, sms, s))
     return e;
   // (b) the attention backward per (window, head)
   const AttnBwdArgs aa{qkv, g, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
                        static_cast<const unsigned char*>(keep), static_cast<const bf16*>(dy), dqkv,
-                       ao, w + P.dbqkv, w + P.dbproj, w + P.dbias, inv_keep, C,
-                       mask != nullptr ? nW : 1, R};
+                       ao, w + P.dbqkv, w + P.dbproj, w + P.dbias, inv_keep, D,
+                       mask != nullptr ? nW : 1, R, C};
   P.attn<<<P.ring.grid, kThreads, P.ring.smem, s>>>(aa, P.ring.geo);
   if (cudaError_t err = cudaGetLastError()) return (int)err;
   // (c) dx = dqkv Wqkv^T: A = dqkv K-major, B^T = Wqkv K-major as it lies
   CUtensorMap md[3];
-  if (int e = wgk::map(&md[0], dqkv, R, 3 * C, wgk::kBM)) return e;
-  if (int e = wgk::map(&md[1], wqkv, C, 3 * C, P.dbn)) return e;
+  if (int e = wgk::map(&md[0], dqkv, R, 3 * D, wgk::kBM)) return e;
+  if (int e = wgk::map(&md[1], wqkv, C, 3 * D, P.dbn)) return e;
   if (int e = wgk::map(&md[2], dx, R, C, wgk::kBM)) return e;
-  if (int e = P.dbn == 128 ? launch_store<128>(wb_wg_dx_kernel<128>, md, R, C, sms, s, R, C)
-                            : launch_store<64>(wb_wg_dx_kernel<64>, md, R, C, sms, s, R, C))
+  if (int e = P.dbn == 128 ? launch_store<128>(wb_wg_dx_kernel<128>, md, R, C, sms, s, R, C, D)
+                            : launch_store<64>(wb_wg_dx_kernel<64>, md, R, C, sms, s, R, C, D))
     return e;
   // (d) dWqkv = x^T dqkv and dWproj = ao^T dy over the row splits, all four
   //     operands MN-major as they lie
   CUtensorMap mw[4];
   if (int e = wgk::map(&mw[0], x, R, C, 64)) return e;
-  if (int e = wgk::map(&mw[1], dqkv, R, 3 * C, 64)) return e;
-  if (int e = wgk::map(&mw[2], ao, R, C, 64)) return e;
+  if (int e = wgk::map(&mw[1], dqkv, R, 3 * D, 64)) return e;
+  if (int e = wgk::map(&mw[2], ao, R, D, 64)) return e;
   if (int e = wgk::map(&mw[3], dy, R, C, 64)) return e;
-  const wgk::WgradArgs wa{w + P.wpart, R, C, 3 * C, C, C, P.rows_per_split, P.splits, 0};
+  const wgk::WgradArgs wa{w + P.wpart, R, C, 3 * D, D, C, P.rows_per_split, P.splits, 0};
   if (int e = wgk::launch_wgrad<Src>(mw, wa, P.wbn, sms, s)) return e;
   // (e) the weights over the splits in split order; dbqkv, dbproj and d
   //     rel_bias over the attention blocks in block order
   const wgk::ReduceArgs ra{w + P.wpart, w + P.dbqkv, w + P.dbproj, w + P.dbias,
                            static_cast<float*>(dweights), static_cast<float*>(drel_bias),
-                           P.splits, P.ring.grid, C, 3 * C, C, C, H * N * N};
+                           P.splits, P.ring.grid, C, 3 * D, D, C, H * N * N};
   return wgk::launch_reduce<Src>(ra, s);
 }
 
@@ -1541,27 +1560,28 @@ extern "C" int focal_wblock_fwd_dropout(const void* x, const void* wqkv, const v
                     ws, B, N, C, D, H, nW, seed, threshold, inv_keep, stream);
 }
 
-// Workspace the bf16 forward (#1-bf16, #2-bf16, #4-bf16; `dropout` for the
-// instance with a keep mask) needs, in floats, for this geometry on the
-// current device (make_fwd_plan16): qkv [R, 3C] f32 and the attention
-// output [R, C] bf16. An error where C is not a multiple of 8 or the
-// attention has no launch plan.
-extern "C" int focal_wblock_fwd_workspace_bf16(int B, int N, int C, int H, int dropout,
+// Workspace the bf16 forward (#1-bf16, #2-bf16, #4-bf16, #4-TP-bf16;
+// `dropout` for the instance with a keep mask) needs, in floats, for this
+// geometry on the current device (make_fwd_plan16): qkv [R, 3D] f32 and
+// the attention output [R, D] bf16. An error where C or D is not a multiple
+// of 8 or the attention has no launch plan.
+extern "C" int focal_wblock_fwd_workspace_bf16(int B, int N, int C, int D, int H, int dropout,
                                                long long* floats) {
-  if (check_geometry(N, C, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (check_geometry16(N, C, D, H) || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) {
     *floats = 0;
     return 0;
   }
-  const FwdPlan16 P = fwd_plan16(B, N, C, H, dropout != 0);
+  const FwdPlan16 P = fwd_plan16(B, N, C, D, H, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   *floats = (long long)P.total;
   return 0;
 }
 
-// The forward in bf16 (#1-bf16 with `keep` null, #2-bf16 with it; #4-bf16):
-// focal_wblock_fwd_dropout's function with x, wqkv [C, 3C], wproj [C, C]
-// and y bf16 (C a multiple of 8; the weights read as they lie), bqkv,
+// The forward in bf16 (#1-bf16 with `keep` null, #2-bf16 with it; #4-bf16;
+// #4-TP-bf16 at D < C): focal_wblock_fwd_dropout's function with x, wqkv
+// [C, 3D], wproj [D, C] and y bf16 (C and D multiples of 8; the weights
+// read as they lie), bqkv,
 // bproj, rel_bias and mask f32: qkv = x Wqkv + bqkv kept in f32, the
 // softmax and dropout in f32, the attention output rounded once to bf16, y
 // rounded once after the bias. x, the weights, y and `ws` 16-byte aligned;
@@ -1571,10 +1591,10 @@ extern "C" int focal_wblock_fwd_workspace_bf16(int B, int N, int C, int H, int d
 extern "C" int focal_wblock_fwd_bf16(const void* x, const void* wqkv, const void* bqkv,
                                      const void* wproj, const void* bproj, const void* rel_bias,
                                      const void* mask, void* y, void* keep, void* ws, int B, int N,
-                                     int C, int H, int nW, unsigned long long seed,
+                                     int C, int D, int H, int nW, unsigned long long seed,
                                      unsigned threshold, float inv_keep, void* stream) {
-  return wblock_fwd_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, y, keep, ws, B, N, C, H, nW,
-                         seed, threshold, inv_keep, stream);
+  return wblock_fwd_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, y, keep, ws, B, N, C, D, H,
+                         nW, seed, threshold, inv_keep, stream);
 }
 
 // Workspace the backward (#3, #5; #5-TP) needs, in floats, for this
@@ -1613,25 +1633,27 @@ extern "C" int focal_wblock_bwd(const void* x, const void* wqkv, const void* bqk
                     dweights, drel_bias, ws, B, N, C, D, H, nW, stream);
 }
 
-// Workspace the bf16 backward (#3-bf16, #5-bf16) needs, in floats, for this
-// geometry on the current device (make_bwd_plan16); an error where C is not
-// a multiple of 8 or the attention has no launch plan.
-extern "C" int focal_wblock_bwd_workspace_bf16(int B, int N, int C, int H, int dropout,
+// Workspace the bf16 backward (#3-bf16, #5-bf16, #5-TP-bf16) needs, in
+// floats, for this geometry on the current device (make_bwd_plan16); an
+// error where C or D is not a multiple of 8 or the attention has no launch
+// plan.
+extern "C" int focal_wblock_bwd_workspace_bf16(int B, int N, int C, int D, int H, int dropout,
                                                long long* floats) {
-  if (check_geometry(N, C, C, H) || C % 8 != 0 || B < 0) return (int)cudaErrorInvalidValue;
+  if (check_geometry16(N, C, D, H) || B < 0) return (int)cudaErrorInvalidValue;
   if (B == 0) {
     *floats = 0;
     return 0;
   }
-  const BwdPlan16 P = bwd_plan16(B, N, C, H, dropout != 0);
+  const BwdPlan16 P = bwd_plan16(B, N, C, D, H, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   *floats = (long long)P.total;
   return 0;
 }
 
-// The backward in bf16 (#3-bf16; #5-bf16): focal_wblock_bwd's function with
-// x, wqkv [C, 3C], wproj [C, C], dy and dx bf16 (C a multiple of 8; every
-// one read as it lies, so no transposed weight), bqkv, rel_bias and mask
+// The backward in bf16 (#3-bf16; #5-bf16; #5-TP-bf16 at D < C, dx then a
+// partial sum): focal_wblock_bwd's function with x, wqkv [C, 3D], wproj
+// [D, C], dy and dx bf16 (C and D multiples of 8; every one read as it
+// lies, so no transposed weight), bqkv, rel_bias and mask
 // f32; the weight, bias and bias-table gradients f32 in focal_wblock_bwd's
 // layout. x, the weights, dy, dx and `ws` 16-byte aligned; `ws` holds
 // focal_wblock_bwd_workspace_bf16 floats. Five launches on `stream`
@@ -1641,9 +1663,9 @@ extern "C" int focal_wblock_bwd_bf16(const void* x, const void* wqkv, const void
                                      const void* wproj, const void* rel_bias, const void* mask,
                                      const void* dy, const void* keep, float inv_keep, void* dx,
                                      void* dweights, void* drel_bias, void* ws, int B, int N,
-                                     int C, int H, int nW, void* stream) {
+                                     int C, int D, int H, int nW, void* stream) {
   return wblock_bwd_bf16(x, wqkv, bqkv, wproj, rel_bias, mask, dy, keep, inv_keep, dx, dweights,
-                         drel_bias, ws, B, N, C, H, nW, stream);
+                         drel_bias, ws, B, N, C, D, H, nW, stream);
 }
 
 // The projections' product alone, for the checks: c = a b with a [M, K]

@@ -25,6 +25,11 @@ as flax's ``dtype=``: in bf16 the inputs are cast to it, the conv blocks,
 the location mean and the projection and class heads compute in it (the
 fused towers through #13-bf16/#14-bf16), the GRUs in f32 (so the ``feat``
 head is f32), and the class logits are cast to f32. Parameters stay f32.
+
+Under tensor parallelism (``models.registry.apply_plan``) each conv block
+computes its rank's output channels (``models.layers.ConvBlock``), its
+``out_proj`` gathered after; the projector pair is column- then
+row-parallel; the GRUs and the class head stay whole on every rank.
 """
 
 import math

@@ -24,7 +24,14 @@ Across processes (``plan``, a ``parallel.mesh.MeshPlan``, set by
 part of a column- or row-parallel product, with the model axis's sums
 (``tp_role``); the attentions run the heads of their cut q, k and v; a
 training ``BatchNorm`` takes its statistics over the global batch, summed
-over the data ranks.
+over the data ranks (the fused tower too: ``ops.conv_tower``'s ``plan``).
+A ``ConvBlock`` whose convs ``parallel.tp`` cut by output channels computes
+the rank's channels of each layer from the whole input (the model ranks'
+channels gathered with autograd before every conv after the first and
+before ``out_proj``), its BatchNorms on those channels (their running
+statistics the rank's slice), the residual adds on them, its Dropout2d
+masks from the split generator; ``out_proj`` is column-parallel, its
+output gathered.
 """
 
 import torch
@@ -206,10 +213,16 @@ class ConvLayer2D(nn.Module):
             return conv2d_f32(x, self.Conv_0.weight, self.Conv_0.bias, self.stride)
         return conv2d_low(x, self.Conv_0.weight, self.Conv_0.bias, self.stride, self.compute_dtype)
 
+    @property
+    def tp_sharded(self):
+        """Whether ``parallel.tp`` cut this layer's output channels."""
+        return getattr(self.Conv_0, "tp_sharded", False)
+
     def forward(self, x, rng=None):
         x = gelu(self.BatchNorm_0(self.conv(x)))
         if self.training and self.dropout_ratio > 0.0:
-            gen = needs_rng(rng, "Dropout2d").device
+            rng = needs_rng(rng, "Dropout2d")
+            gen = rng.split if self.tp_sharded else rng.device
             mask = keep_mask(x.shape[:2], self.dropout_ratio, gen)[:, :, None, None]
             if x.dtype == torch.float32:
                 x = x * mask
@@ -256,7 +269,9 @@ class ConvBlock(nn.Module):
             s = (s - self.conv_lens[0][1]) // self.stride[1] + 1
         self.out_size = (i, s)
         flat = i * s * self.half if self.conv_lens[1][0] > 1 else s * self.half
-        self.out_proj = Dense(flat, out_channels, compute_dtype=compute_dtype)
+        self.out_proj = Dense(flat, out_channels, compute_dtype=compute_dtype,
+                              tp_role="column_gather")
+        self.plan = None
 
     @property
     def strided(self):
@@ -278,15 +293,27 @@ class ConvBlock(nn.Module):
         return tower_takes(b * i, self.out_size[1], self.half, cin, self.compute_dtype,
                            kw_max=kw_max)
 
+    def _whole(self, x, dim=None):
+        """x as a conv cut by output channels reads it: the model ranks'
+        channels (axis ``dim``) gathered, where given, and the gradient
+        summed over the model ranks, each of whose convs reads all of it.
+        x itself where the tower is whole."""
+        if not self.ConvLayer2D_0.tp_sharded:
+            return x
+        x = x if dim is None else gather_from(x, self.plan.model, dim)
+        return copy_to(x, self.plan.model)
+
     def forward(self, x, rng=None):
         if self.use_pallas and self.training and self.fused_geometry(x):
             x = self._fused_tower(x, rng)
         else:
             layers = self.layers()
-            x = layers[0](x.permute(0, 3, 1, 2), rng)  # NCHW
+            x = layers[0](self._whole(x.permute(0, 3, 1, 2)), rng)  # NCHW
             for layer in layers[1:]:
-                x = x + layer(x, rng)
+                x = x + layer(self._whole(x, dim=1), rng)
             x = x.permute(0, 2, 3, 1)  # back to NHWC before the flatten
+            if self.ConvLayer2D_0.tp_sharded:  # out_proj reads every channel
+                x = gather_from(x.contiguous(), self.plan.model, dim=-1)
         b, i, s, c = x.shape
         x = x.reshape(b, 1, i * s * c) if self.conv_lens[1][0] > 1 else x.reshape(b, i, s * c)
         return self.out_proj(x)
@@ -318,7 +345,7 @@ class ConvBlock(nn.Module):
             else:
                 masks.append(torch.ones((b, self.half), device=x0.device))  # f32, as keep_mask's
         a, mus, vars_ = fused_conv_tower(x0, cfgs, ws, bs, scales, biases, masks,
-                                         external_c0=self.strided)
+                                         external_c0=self.strided, plan=self.plan)
         for layer, mu, var in zip(layers, mus, vars_):
             layer.BatchNorm_0.update(mu, var)
         return a.reshape(b, i, s_out, self.half)

@@ -61,22 +61,28 @@ def init_params(model, seed=0):
 def apply_plan(model, plan):
     """Place a built and initialised backbone on a process layout
     (``parallel.mesh.MeshPlan``; None: one process): every module that takes
-    part (``plan`` attribute: the Dense layers, window attentions and
-    BatchNorms) learns the plan, and under tensor parallelism
+    part (``plan`` attribute: the Dense layers, window attentions, conv
+    blocks and BatchNorms) learns the plan, and under tensor parallelism
     ``parallel.tp.shard_model`` keeps this rank's slice of each parameter
-    the rules cut. DeepSense under tensor parallelism raises (ROADMAP
-    A7.3)."""
+    (and BatchNorm statistic) the rules cut. Under tensor parallelism the
+    fused MLP and the fused conv tower are off: the Swin MLPs run their
+    Dense pair and the conv blocks their cuDNN convs, as the JAX package
+    builds both backbones without those kernels on a model axis
+    (``focal_tpu/models/registry.py``: ``-pallas_mlp`` and ``-pallas_conv``
+    only where mp is 1)."""
     if plan is None:
         return model
-    from focal_tpu_torch.models.deepsense import DeepSense
+    from focal_tpu_torch.models.layers import ConvBlock
+    from focal_tpu_torch.models.swin import Mlp
     from focal_tpu_torch.parallel import tp
 
-    if plan.mp > 1 and isinstance(model, DeepSense):
-        raise NotImplementedError("DeepSense under -model_parallel (conv-channel sharding) is not "
-                                  "ported yet: ROADMAP A7.3")
     for mod in model.modules():
         if hasattr(mod, "plan"):
             mod.plan = plan
+        if plan.mp > 1 and isinstance(mod, Mlp):
+            mod.fused = False
+        if plan.mp > 1 and isinstance(mod, ConvBlock):
+            mod.use_pallas = False
     model.plan = plan  # the train state's layout
     if plan.mp > 1:
         tp.shard_model(model, plan)

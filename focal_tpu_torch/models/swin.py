@@ -44,8 +44,10 @@ package's gate asks. Under tensor parallelism a block whose qkv, proj and
 bias table ``parallel.tp`` cut by whole heads runs
 ``sharded_window_block_tp`` (#4-TP forward, #5-TP backward) where
 ``wblock_tp_takes``, else the plain attention route on the rank's heads (as
-the JAX package falls back to XLA there, ``-no_pallas_block`` too); its MLP
-is column- then row-parallel (``models.layers.Dense``). The masks of what a
+the JAX package falls back to XLA there, ``-no_pallas_block`` too), in bf16
+through #4-TP-bf16/#5-TP-bf16; its MLP is column- then row-parallel
+(``models.layers.Dense``), ``-pallas_mlp`` or not, as the JAX package takes
+its flag-off route there (``models.registry.apply_plan``). The masks of what a
 rank holds alone of a tensor (its heads' attention weights, its columns of
 the MLP's hidden layer) come from ``StepRngs.split``, so the model ranks
 draw one mask over the whole tensor.
@@ -299,9 +301,10 @@ class WindowAttention(nn.Module):
 
     def _tensor_parallel(self, x, mask, rng):
         """The rank's heads: #4-TP/#5-TP (``sharded_window_block_tp``, in eval
-        too) where ``wblock_tp_takes``, else the plain route."""
+        too; in bf16 #4-TP-bf16/#5-TP-bf16) where ``wblock_tp_takes``, else
+        the plain route."""
         N, C, H = x.shape[1], self.dim, self.num_heads
-        if not (self.pallas_block and wblock_tp_takes(N, C, H, self.plan.mp)):
+        if not (self.pallas_block and wblock_tp_takes(N, C, H, self.plan.mp, x.dtype)):
             return self._plain_attention(x, mask, rng)
         rate = self.attn_drop if self.training else 0.0
         seed = needs_rng(rng, "attention dropout").seed(split=True) if rate > 0.0 else 0
@@ -342,8 +345,9 @@ class Mlp(nn.Module):
     Otherwise two nn.Linear layers with the dropouts of
     ``ops.dropout.remat_dropout``, in ``compute_dtype``. Under tensor
     parallelism the Linears are column- then row-parallel, the hidden
-    layer's mask from the split generator (the fused MLP there is ROADMAP
-    A7.3)."""
+    layer's mask from the split generator; ``models.registry.apply_plan``
+    turns ``fused`` off there, as the JAX package builds its MLP without
+    the kernels under a model axis."""
 
     def __init__(self, dim, hidden, out, drop=0.0, use_pallas=False, compute_dtype=torch.float32):
         super().__init__()
@@ -351,11 +355,6 @@ class Mlp(nn.Module):
         self.Dense_1 = Dense(hidden, out, compute_dtype=compute_dtype, tp_role="row")
         self.drop = float(drop)
         self.fused = bool(use_pallas) and out == dim and mlp_takes(dim, hidden, compute_dtype)
-
-    def check_tp(self):
-        if self.fused and self.Dense_0.tp_sharded:
-            raise NotImplementedError("-pallas_mlp under -model_parallel is not ported yet: "
-                                      "ROADMAP A7.3")
 
     def _drop(self, x, rng, split=False):
         if not self.training or self.drop == 0.0:

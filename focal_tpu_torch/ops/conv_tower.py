@@ -34,6 +34,17 @@ rounding where the JAX package's tower does at ``store_dtype`` bfloat16
 x0 takes them; ``fused_conv_tower_bf16.launches`` and
 ``fused_conv_tower_backward_bf16.launches`` count their calls.
 
+Over several data ranks (``plan``, a ``parallel.mesh.MeshPlan`` with dp >
+1: the JAX package's tower over a data mesh normalises with the global
+batch's statistics) the same launches write each conv's raw per-channel
+sums [2, C] in place of its BatchNorm rows; they are summed over the data
+ranks and ``_finalize_stats`` turns them into the rows at the global count
+before the next launch; in the backward the sums Σgy and Σgy·x̂ are summed
+over the data ranks before their means (the rank's own sums stay its
+scale and bias gradients, which the training step sums). The DP-13-14 and
+DP-13-14-bf16 rows of ``PERF.md`` are these calls; one process keeps its
+launches and bits.
+
 ``layer_plan``, ``stages_forward`` and ``stages_backward`` model the
 kernels' plan and the order of their sums in plain PyTorch, for the tests.
 
@@ -157,19 +168,26 @@ def _conv_same(x, w, kw):
     return torch.matmul(cols, w)
 
 
+def _over_data(plan):
+    """Whether a tower's BatchNorm statistics are summed over data ranks."""
+    return plan is not None and plan.dp > 1
+
+
 def fused_conv_tower_reference(x0, layer_cfgs, ws, bs, scales, biases, masks,
-                               external_c0=False):
+                               external_c0=False, plan=None):
     """Plain PyTorch version of fused_conv_tower (the math of the JAX
     package's tests/test_conv_tower.py replica), differentiable by
-    autograd. Arguments and results as fused_conv_tower. A bf16 x0 takes
-    the bf16 plain versions (``_ConvTowerBf16`` with ``plain``)."""
+    autograd. Arguments and results as fused_conv_tower; over several data
+    ranks the statistics' sums go through the differentiable sum over
+    ``plan.data``. A bf16 x0 takes the bf16 plain versions
+    (``_ConvTowerBf16`` with ``plain``)."""
     if x0.dtype == torch.bfloat16:
         cfgs = tuple(tuple(int(v) for v in c) for c in layer_cfgs)
         L = len(cfgs)
-        out = _ConvTowerBf16.apply(cfgs, bool(external_c0), True, x0, *ws, *bs, *scales, *biases,
-                                   *masks)
+        out = _ConvTowerBf16.apply(cfgs, bool(external_c0), True, plan, x0, *ws, *bs, *scales,
+                                   *biases, *masks)
         return out[0], tuple(out[1:1 + L]), tuple(out[1 + L:])
-    R = x0.shape[0]
+    R, S = x0.shape[:2]
     a = None
     mus, vars_ = [], []
     for k, (kw, _, _, residual) in enumerate(layer_cfgs):
@@ -177,8 +195,13 @@ def fused_conv_tower_reference(x0, layer_cfgs, ws, bs, scales, biases, masks,
             c = x0
         else:
             c = _conv_same(a if k > 0 else x0, ws[k], kw) + bs[k]
-        mu = c.mean(dim=(0, 1))
-        var = torch.clamp((c * c).mean(dim=(0, 1)) - mu * mu, min=0.0)
+        if _over_data(plan):
+            sums = plan.sum_data(torch.stack([c.sum(dim=(0, 1)), (c * c).sum(dim=(0, 1))]))
+            mu = sums[0] / (R * S * plan.dp)
+            var = torch.clamp(sums[1] / (R * S * plan.dp) - mu * mu, min=0.0)
+        else:
+            mu = c.mean(dim=(0, 1))
+            var = torch.clamp((c * c).mean(dim=(0, 1)) - mu * mu, min=0.0)
         y = (c - mu) * torch.rsqrt(var + BN_EPS) * scales[k] + biases[k]
         z = gelu_exact(y) * _rows_of(masks[k], R)[:, None, :]
         a = z + a if residual else z
@@ -192,7 +215,16 @@ def round_bf16(t):
     return t.to(torch.bfloat16).to(t.dtype)
 
 
-def tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False):
+def _data_sums(sums, plan):
+    """A rank's raw statistics [2, C] summed over the data ranks (in place),
+    and the count they are over: (sums, the ranks' count)."""
+    if _over_data(plan):
+        return plan.sum_data_(sums), plan.dp
+    return sums, 1
+
+
+def tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False,
+                                 plan=None):
     """Plain version of #13-bf16: the JAX package's tower at store_dtype
     bfloat16 (focal_tpu/ops/conv_tower.py:163-203, 403-421): c = im2col(x)
     W (bf16 operands, f32 sums) + b rounded to bf16; the BN sums of the
@@ -203,9 +235,10 @@ def tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases, masks, extern
     bf16, against which a conv bias's true gradient of 0 shows as ~0.
     Returns (a_last bf16 [R, S, C], mus, vars, saved) with saved = {x2, a,
     c, rows, ws} in that type holding bf16 values, for
-    tower_backward_bf16_reference."""
+    tower_backward_bf16_reference. Over several data ranks (``plan``) the
+    statistics are the global batch's."""
     R, S, _ = x0.shape
-    n = float(R * S)
+    n = float(R * S * (plan.dp if _over_data(plan) else 1))
     work = bs[0].dtype
     x2 = x0.reshape(R * S, x0.shape[-1]).to(work)
     wb = [round_bf16(w.detach().to(work)) for w in ws]
@@ -217,8 +250,8 @@ def tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases, masks, extern
     a = None
     mus, vars_ = [], []
     for k, (_, _, cout, residual) in enumerate(cfgs):
-        rows, mu, var = _finalize_stats(torch.stack([c.sum(0), (c * c).sum(0)]), n,
-                                        scales[k].detach(), biases[k].detach())
+        sums = _data_sums(torch.stack([c.sum(0), (c * c).sum(0)]), plan)[0]
+        rows, mu, var = _finalize_stats(sums, n, scales[k].detach(), biases[k].detach())
         z = gelu_exact(c * rows[0] + rows[1]) * _rows_of(masks[k], R).repeat_interleave(S, dim=0)
         a = round_bf16(z + (a if k > 0 else x2) if residual else z)
         for key, v in (("a", a), ("c", c), ("rows", rows)):
@@ -231,17 +264,18 @@ def tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases, masks, extern
     return a.view(R, S, cfgs[-1][2]).to(torch.bfloat16), tuple(mus), tuple(vars_), saved
 
 
-def tower_backward_bf16_reference(saved, cfgs, masks, da_last, external_c0=False):
+def tower_backward_bf16_reference(saved, cfgs, masks, da_last, external_c0=False, plan=None):
     """Plain version of #14-bf16, the JAX tower's VJP at store_dtype
     bfloat16 (focal_tpu/ops/conv_tower.py:146-160, 206-270, 474-511): gy and
     x̂ in f32 from the bf16 da and c; dc in f32, rounded to bf16 for the
     transposed conv and dW; db the sum of the f32 dc; dprev = convT(dc, W) +
-    da rounded to bf16 once; dW in f32. Returns (dx0 bf16, dws, dbs,
-    dscales, dbiases) as fused_conv_tower_backward."""
+    da rounded to bf16 once; dW in f32. Over several data ranks (``plan``)
+    the means m come from the sums over the data ranks. Returns (dx0 bf16,
+    dws, dbs, dscales, dbiases) as fused_conv_tower_backward."""
     x2 = saved["x2"]
     RS = x2.shape[0]
     R, S, C = da_last.shape
-    n = float(RS)
+    n = float(RS * (plan.dp if _over_data(plan) else 1))
     da = da_last.reshape(RS, C).to(x2.dtype)
     L = len(cfgs)
     dws, dbs, dscales, dbiases = ([None] * L for _ in range(4))
@@ -252,7 +286,7 @@ def tower_backward_bf16_reference(saved, cfgs, masks, da_last, external_c0=False
         gy = da * mask * gelu_grad_exact(c * rows[0] + rows[1])
         xhat = c * rows[2] - rows[3]
         s2 = torch.stack([gy.sum(0), (gy * xhat).sum(0)])
-        m = s2 * rows[4] / n
+        m = _data_sums(s2.clone(), plan)[0] * rows[4] / n
         dscales[k], dbiases[k] = s2[1], s2[0]
         dc = rows[2] * (gy * rows[4] - m[0] - xhat * m[1])
         if k == 0 and external_c0:
@@ -277,18 +311,18 @@ class _ConvTowerBf16(torch.autograd.Function):
     them to the f32 parameters; dx0 leaves in bf16."""
 
     @staticmethod
-    def forward(ctx, cfgs, external_c0, plain, x0, *flat):
+    def forward(ctx, cfgs, external_c0, plain, plan, x0, *flat):
         L = len(cfgs)
         ws, bs, scales, biases, masks = (list(flat[i * L:(i + 1) * L]) for i in range(5))
-        ctx.meta = (cfgs, external_c0, plain)
+        ctx.meta = (cfgs, external_c0, plain, plan)
         if plain:
             aL, mus, vars_, saved = tower_forward_bf16_reference(x0, cfgs, ws, bs, scales, biases,
-                                                                 masks, external_c0)
+                                                                 masks, external_c0, plan)
             ctx.saved = (saved, masks)
         else:
             wb = [w.to(torch.bfloat16).contiguous() for w in ws]
             aL, mus, vars_, saved = tower_forward(x0, cfgs, wb, bs, scales, biases, masks,
-                                                  external_c0)
+                                                  external_c0, plan)
             ctx.save_for_backward(saved.x2, *saved.a_list, *saved.c_list, *saved.rows_list,
                                   *saved.ws, *saved.masks)
             ctx.R, ctx.S = saved.R, saved.S
@@ -297,17 +331,17 @@ class _ConvTowerBf16(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, da, *_):
-        cfgs, external_c0, plain = ctx.meta
+        cfgs, external_c0, plain, plan = ctx.meta
         L = len(cfgs)
         if plain:
             saved, masks = ctx.saved
-            grads = tower_backward_bf16_reference(saved, cfgs, masks, da, external_c0)
+            grads = tower_backward_bf16_reference(saved, cfgs, masks, da, external_c0, plan)
         else:
             t = ctx.saved_tensors
             x2, parts = t[0], [list(t[1 + i * L:1 + (i + 1) * L]) for i in range(5)]
             grads = fused_conv_tower_backward(
-                TowerSaved(cfgs, external_c0, ctx.R, ctx.S, x2, *parts), da)
-        return (None, None, None, *grads[0:1], *grads[1], *grads[2], *grads[3], *grads[4],
+                TowerSaved(cfgs, external_c0, ctx.R, ctx.S, x2, *parts), da, plan)
+        return (None, None, None, None, *grads[0:1], *grads[1], *grads[2], *grads[3], *grads[4],
                 *([None] * L))
 
 
@@ -612,31 +646,38 @@ def _launch(name, fn, dev, *args):
                            f"{_lib().focal_cuda_error_string(err).decode()}")
 
 
-def _bn_outputs(cout, dev):
-    """rows [5, cout], mu and var [cout], for a conv's BatchNorm."""
-    return (torch.empty((5, cout), dtype=torch.float32, device=dev),
-            torch.empty(cout, dtype=torch.float32, device=dev),
-            torch.empty(cout, dtype=torch.float32, device=dev))
+def _bn_outputs(cout, dev, sums=False):
+    """rows [5, cout], mu and var [cout], for a conv's BatchNorm; with
+    ``sums`` the raw sums [2, cout] alone (several data ranks), mu and var
+    None."""
+    f32 = torch.float32
+    if sums:
+        return torch.empty((2, cout), dtype=f32, device=dev), None, None
+    return (torch.empty((5, cout), dtype=f32, device=dev), torch.empty(cout, dtype=f32, device=dev),
+            torch.empty(cout, dtype=f32, device=dev))
 
 
 def _conv0(x2, w, b, scale, bias, kw, R, S):
     """First conv of an internal-c0 tower: x [R*S, Cin] -> c [R*S, Cout] and
     from its batch statistics the BN rows [5, Cout] (scale and bias: its
-    BatchNorm's affine), mu and var. Returns (c, rows, mu, var). x, w and
-    c are f32, or bf16 for #13-bf16."""
+    BatchNorm's affine), mu and var. Returns (c, rows, mu, var). With scale
+    and bias None: (c, the raw sums [Σc; Σc²] [2, Cout], None, None), for
+    the caller to sum over data ranks. x, w and c are f32, or bf16 for
+    #13-bf16."""
     dev = x2.device
     cin = x2.shape[1]
     cout = w.shape[1]
     _check("w", w, (kw * cin, cout), dev, x2.dtype)
     for name, t in (("b", b), ("scale", scale), ("bias", bias)):
-        _check(name, t, (cout,), dev)
+        if t is not None:
+            _check(name, t, (cout,), dev)
     bf16 = _is_bf16(x2)
     ws = _workspace("forward", R, S, cin, cout, kw, dev, bf16)
     c = torch.empty((R * S, cout), dtype=x2.dtype, device=dev)
-    rows, mu, var = _bn_outputs(cout, dev)
+    rows, mu, var = _bn_outputs(cout, dev, sums=scale is None)
     _launch("conv0", _lib().focal_ct_conv0, dev, x2.data_ptr(), w.data_ptr(), b.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), c.data_ptr(), rows.data_ptr(), mu.data_ptr(),
-            var.data_ptr(), ws.data_ptr(), R, S, cin, cout, kw, bf16)
+            _ptr(scale), _ptr(bias), c.data_ptr(), rows.data_ptr(), _ptr(mu), _ptr(var),
+            ws.data_ptr(), R, S, cin, cout, kw, bf16)
     _forward_count(x2).launches += 1
     return c, rows, mu, var
 
@@ -644,7 +685,8 @@ def _conv0(x2, w, b, scale, bias, kw, R, S):
 def _apply(c, rows, mask, aprev, nxt, R, S):
     """Layer k's apply: a = GELU(c*A + B) * mask [+ aprev]; with ``nxt`` =
     (w, b, kw, scale, bias) of layer k+1 also its conv and, from that conv's
-    batch statistics, its BN rows, mu and var. Returns (a, c_next,
+    batch statistics, its BN rows, mu and var (scale and bias None: the raw
+    sums [2, cout] in place of the rows, as _conv0). Returns (a, c_next,
     rows_next, mu_next, var_next), all but a None without ``nxt``. The rows
     (c, aprev, a, w, c_next) are f32, or bf16 for #13-bf16."""
     dev = c.device
@@ -662,10 +704,11 @@ def _apply(c, rows, mask, aprev, nxt, R, S):
         cout = w.shape[1]
         _check("w", w, (kw * C, cout), dev, c.dtype)
         for name, t in (("b", b), ("scale", scale), ("bias", bias)):
-            _check(name, t, (cout,), dev)
+            if t is not None:
+                _check(name, t, (cout,), dev)
         ws = _workspace("forward", R, S, C, cout, kw, dev, _is_bf16(c))
         c_next = torch.empty((R * S, cout), dtype=c.dtype, device=dev)
-        st = _bn_outputs(cout, dev)
+        st = _bn_outputs(cout, dev, sums=scale is None)
     _launch("apply", _lib().focal_ct_apply, dev, c.data_ptr(), rows.data_ptr(), mask.data_ptr(),
             _ptr(aprev), _ptr(w), _ptr(b), _ptr(scale), _ptr(bias), a.data_ptr(), _ptr(c_next),
             *(_ptr(t) for t in st), _ptr(ws), R, S, mask.shape[0], C, cout, kw, _is_bf16(c))
@@ -673,18 +716,19 @@ def _apply(c, rows, mask, aprev, nxt, R, S):
     return (a, c_next, *st)
 
 
-def _bwd_stats(da, c, mask, rows, R, S):
+def _bwd_stats(da, c, mask, rows, R, S, means=True):
     """(s2, m), each [2, C]: s2 = [Σ gy; Σ gy·x̂] over every row (gy the
     gradient at the BN output, x̂ the normalised conv output) and m = s2
-    scale / n, the means of dx̂ and dx̂·x̂ (dx̂ = gy scale)."""
+    scale / n, the means of dx̂ and dx̂·x̂ (dx̂ = gy scale); without
+    ``means`` m is None (several data ranks: the caller sums s2 first)."""
     dev = c.device
     C = c.shape[1]
     _check("da", da, (R * S, C), dev, c.dtype)
     ws = _workspace("bwd_stats", R, S, C, C, 1, dev, _is_bf16(c))
     s2 = torch.empty((2, C), dtype=torch.float32, device=dev)
-    m = torch.empty((2, C), dtype=torch.float32, device=dev)
+    m = torch.empty((2, C), dtype=torch.float32, device=dev) if means else None
     _launch("bwd_stats", _lib().focal_ct_bwd_stats, dev, da.data_ptr(), c.data_ptr(),
-            mask.data_ptr(), rows.data_ptr(), s2.data_ptr(), m.data_ptr(), ws.data_ptr(), R, S,
+            mask.data_ptr(), rows.data_ptr(), s2.data_ptr(), _ptr(m), ws.data_ptr(), R, S,
             mask.shape[0], C, _is_bf16(c))
     _backward_count(c).launches += 1
     return s2, m
@@ -768,30 +812,41 @@ def _check_tower(x0, cfgs, masks, external_c0):
         _check(f"mask {k}", masks[k], (M, cout), dev)
 
 
-def tower_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0):
+def tower_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0, plan=None):
     """#13 over the chain on the card (#13-bf16 for a bf16 x0, whose
     weights ws must then be bf16): (a_last [R, S, C], mus, vars, TowerSaved
-    for the backward)."""
+    for the backward). Over several data ranks (``plan``) each conv's
+    launch writes its raw sums, summed over the ranks and finalised here."""
     _check_tower(x0, cfgs, masks, external_c0)
     R, S, _ = x0.shape
-    n = float(R * S)
+    dp = plan.dp if _over_data(plan) else 1
+    n = float(R * S * dp)
     x2 = _aligned(x0.reshape(R * S, x0.shape[-1]))
     masks = [_aligned(m) for m in masks]
     L = len(cfgs)
+
+    def affine(k):  # what a conv's launch takes: the affine, or None for its raw sums
+        return (scales[k], biases[k]) if dp == 1 else (None, None)
+
+    def finish(k, c, rows, mu, var):  # the global rows from a rank's raw sums
+        if dp == 1:
+            return c, rows, mu, var
+        return (c, *_finalize_stats(_data_sums(rows, plan)[0], n, scales[k], biases[k]))
+
     if external_c0:  # its BN statistics in torch: no conv of the tower produced them
         c = x2
         cf = c.float()
-        rows, mu, var = _finalize_stats(torch.stack([cf.sum(dim=0), (cf * cf).sum(dim=0)]), n,
-                                        scales[0], biases[0])
+        sums = _data_sums(torch.stack([cf.sum(dim=0), (cf * cf).sum(dim=0)]), plan)[0]
+        rows, mu, var = _finalize_stats(sums, n, scales[0], biases[0])
     else:
-        c, rows, mu, var = _conv0(x2, ws[0], bs[0], scales[0], biases[0], cfgs[0][0], R, S)
+        c, rows, mu, var = finish(0, *_conv0(x2, ws[0], bs[0], *affine(0), cfgs[0][0], R, S))
     a = None
     a_list, c_list, rows_list, mus, vars_ = [], [], [], [], []
     for k in range(L):
-        nxt = None if k + 1 == L else (ws[k + 1], bs[k + 1], cfgs[k + 1][0], scales[k + 1],
-                                       biases[k + 1])
+        nxt = None if k + 1 == L else (ws[k + 1], bs[k + 1], cfgs[k + 1][0], *affine(k + 1))
         aprev = (a if k > 0 else x2) if cfgs[k][3] else None
-        a, c_next, rows_next, mu_next, var_next = _apply(c, rows, masks[k], aprev, nxt, R, S)
+        a, *rest = _apply(c, rows, masks[k], aprev, nxt, R, S)
+        c_next, rows_next, mu_next, var_next = rest if nxt is None else finish(k + 1, *rest)
         a_list.append(a)
         c_list.append(c)
         rows_list.append(rows)
@@ -802,13 +857,15 @@ def tower_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0):
     return a.view(R, S, cfgs[-1][2]), tuple(mus), tuple(vars_), saved
 
 
-def fused_conv_tower_backward(saved, da_last):
+def fused_conv_tower_backward(saved, da_last, plan=None):
     """#14 over the chain in reverse on the card: the VJP of
     fused_conv_tower at ``saved`` (tower_forward's) for the gradient
     da_last [R, S, C] of its output. Returns (dx0, dws, dbs, dscales,
     dbiases); with an external first conv dws[0] and dbs[0] are zeros (its
     gradient flows on through dx0). Every cross-row sum is a fixed-order
-    reduction: two calls give the same bits.
+    reduction: two calls give the same bits. Over several data ranks
+    (``plan``) the BatchNorm backward's means come from its sums over the
+    ranks, m = Σ s2 scale / n at the global count.
 
     Replaces focal_tpu/ops/conv_tower.py's op_bwd (_bwd_stats_kernel,
     _bwd_apply_kernel, _bwd_dc_kernel); fused_conv_tower_backward.launches
@@ -818,10 +875,13 @@ def fused_conv_tower_backward(saved, da_last):
     da = _aligned(da_last.reshape(R * S, cfgs[-1][2]).contiguous())
     dws, dbs, dscales, dbiases = [None] * L, [None] * L, [None] * L, [None] * L
     dx0 = None
+    dp = plan.dp if _over_data(plan) else 1
     for k in range(L - 1, -1, -1):
         kw, cin, cout, residual = cfgs[k]
         rows = saved.rows_list[k]
-        s2, m = _bwd_stats(da, saved.c_list[k], saved.masks[k], rows, R, S)
+        s2, m = _bwd_stats(da, saved.c_list[k], saved.masks[k], rows, R, S, means=dp == 1)
+        if dp > 1:  # the kernel's m = s2 scale / n, over every data rank's rows
+            m = _data_sums(s2.clone(), plan)[0] * rows[4] / float(R * S * dp)
         dscales[k], dbiases[k] = s2[1], s2[0]
         if k == 0 and saved.external_c0:
             dx0 = _bwd_dc(da, saved.c_list[0], saved.masks[0], rows, m, R, S)
@@ -845,12 +905,13 @@ class _ConvTower(torch.autograd.Function):
     """#13 forward, #14 backward (the JAX package's jax.custom_vjp)."""
 
     @staticmethod
-    def forward(ctx, cfgs, external_c0, x0, *flat):
+    def forward(ctx, cfgs, external_c0, plan, x0, *flat):
         L = len(cfgs)
         ws, bs, scales, biases, masks = (list(flat[i * L:(i + 1) * L]) for i in range(5))
         ws = [w.contiguous() for w in ws]
-        aL, mus, vars_, saved = tower_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0)
-        ctx.meta = (cfgs, external_c0, saved.R, saved.S)
+        aL, mus, vars_, saved = tower_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0,
+                                              plan)
+        ctx.meta = (cfgs, external_c0, saved.R, saved.S, plan)
         ctx.save_for_backward(saved.x2, *saved.a_list, *saved.c_list, *saved.rows_list,
                               *saved.ws, *saved.masks)
         ctx.mark_non_differentiable(*mus, *vars_)
@@ -858,16 +919,17 @@ class _ConvTower(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, da, *_):
-        cfgs, external_c0, R, S = ctx.meta
+        cfgs, external_c0, R, S, plan = ctx.meta
         L = len(cfgs)
         t = ctx.saved_tensors
         x2, parts = t[0], [list(t[1 + i * L:1 + (i + 1) * L]) for i in range(5)]
         saved = TowerSaved(cfgs, external_c0, R, S, x2, *parts)
-        dx0, dws, dbs, dscales, dbiases = fused_conv_tower_backward(saved, da)
-        return (None, None, dx0, *dws, *dbs, *dscales, *dbiases, *([None] * L))
+        dx0, dws, dbs, dscales, dbiases = fused_conv_tower_backward(saved, da, plan)
+        return (None, None, None, dx0, *dws, *dbs, *dscales, *dbiases, *([None] * L))
 
 
-def fused_conv_tower(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0=False):
+def fused_conv_tower(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0=False,
+                     plan=None):
     """Run the ConvLayer2D chain in train mode (#13, with #14 as its
     backward).
 
@@ -888,18 +950,25 @@ def fused_conv_tower(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0=
     ws stay f32 (the parameters' views) and are rounded to bf16 inside,
     a_last and the gradient of x0 are bf16, the other gradients f32.
 
+    ``plan`` (a ``parallel.mesh.MeshPlan``): over several data ranks x0 is
+    the rank's rows and the BatchNorm statistics (mus, vars too) are the
+    global batch's (DP-13-14, DP-13-14-bf16), the JAX tower's under a data
+    mesh; the scale and bias gradients stay the rank's part.
+
     Replaces focal_tpu/ops/conv_tower.py::fused_conv_tower (_conv0_kernel,
     _apply_kernel; their VJP #14), fed f32 or bf16. CPU tensors take the
     plain version."""
     cfgs = tuple(tuple(int(v) for v in c) for c in layer_cfgs)
     if x0.device.type == "cpu":
-        return fused_conv_tower_reference(x0, cfgs, ws, bs, scales, biases, masks, external_c0)
+        return fused_conv_tower_reference(x0, cfgs, ws, bs, scales, biases, masks, external_c0,
+                                          plan)
     L = len(cfgs)
     if x0.dtype == torch.bfloat16:
-        out = _ConvTowerBf16.apply(cfgs, bool(external_c0), False, x0, *ws, *bs, *scales, *biases,
-                                   *masks)
+        out = _ConvTowerBf16.apply(cfgs, bool(external_c0), False, plan, x0, *ws, *bs, *scales,
+                                   *biases, *masks)
     else:
-        out = _ConvTower.apply(cfgs, bool(external_c0), x0, *ws, *bs, *scales, *biases, *masks)
+        out = _ConvTower.apply(cfgs, bool(external_c0), plan, x0, *ws, *bs, *scales, *biases,
+                               *masks)
     return out[0], tuple(out[1:1 + L]), tuple(out[1 + L:])
 
 
@@ -907,7 +976,8 @@ fused_conv_tower.launches = 0
 
 
 
-def fused_conv_tower_bf16(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0=False):
+def fused_conv_tower_bf16(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0=False,
+                          plan=None):
     """#13-bf16, with #14-bf16 (``fused_conv_tower_backward_bf16``) as its
     backward: ``fused_conv_tower`` on a bf16 x0 (f32 ws rounded inside).
     ``fused_conv_tower_bf16.launches`` counts #13-bf16's kernel calls, as
@@ -917,13 +987,13 @@ def fused_conv_tower_bf16(x0, layer_cfgs, ws, bs, scales, biases, masks, externa
     (store_dtype bfloat16)."""
     if x0.dtype != torch.bfloat16:
         raise TypeError(f"fused_conv_tower_bf16: x0 must be bfloat16, got {x0.dtype}")
-    return fused_conv_tower(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0)
+    return fused_conv_tower(x0, layer_cfgs, ws, bs, scales, biases, masks, external_c0, plan)
 
 
 fused_conv_tower_bf16.launches = 0
 
 
-def fused_conv_tower_backward_bf16(saved, da_last):
+def fused_conv_tower_backward_bf16(saved, da_last, plan=None):
     """#14-bf16: ``fused_conv_tower_backward`` at a bf16 tower's saved
     (tower_forward on bf16 rows and weights); dx0 bf16, the rest f32.
     ``fused_conv_tower_backward_bf16.launches`` counts its kernel calls.
@@ -931,7 +1001,7 @@ def fused_conv_tower_backward_bf16(saved, da_last):
     Replaces focal_tpu/ops/conv_tower.py's op_bwd at store_dtype bfloat16."""
     if saved.x2.dtype != torch.bfloat16:
         raise TypeError(f"fused_conv_tower_backward_bf16: saved rows are {saved.x2.dtype}")
-    return fused_conv_tower_backward(saved, da_last)
+    return fused_conv_tower_backward(saved, da_last, plan)
 
 
 fused_conv_tower_backward_bf16.launches = 0

@@ -59,8 +59,11 @@ them for a bf16 qkv.
 Multi-process forms (``parallel``): #4-TP ``fused_window_block_tp`` and
 #5-TP ``fused_window_block_tp_backward`` run #4/#5's f32 CUDA code on a
 tensor-parallel shard's heads, at an inner width D = H hd below C (wqkv [C,
-3D], wproj [D, C]), their y and dx partial sums; ``sharded_window_block_tp``
-is their autograd pair with the sums over the model ranks. The JAX
+3D], wproj [D, C]), their y and dx partial sums; #4-TP-bf16
+``fused_window_block_tp_bf16`` and #5-TP-bf16
+``fused_window_block_tp_backward_bf16`` run #4-bf16/#5-bf16's code there
+on bf16 rows; ``sharded_window_block_tp`` is their autograd pair with the
+sums over the model ranks. The JAX
 package's data-parallel wrappers (``sharded_window_block``,
 ``sharded_window_attention``, ``sharded_fused_mlp``) have no form of their
 own: a data rank calls ``window_block``, ``window_attention_qkv`` and the
@@ -213,14 +216,16 @@ def fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mas
     y = ao Wproj + bproj rounded to bf16. bqkv, bproj, rel_bias and the
     mask are f32. ``acc`` is the type the f32 steps run in: float64 gives
     an exact reference, its values rounded to f32 where they are rounded to
-    bf16."""
+    bf16. The attention's rows are D = wqkv.shape[1] / 3 wide, as in
+    fused_window_block_reference: D = C, or a tensor-parallel shard's heads
+    (#4-TP-bf16), whose y is then a partial sum rounded to bf16 once."""
     f32, bf16 = torch.float32, torch.bfloat16
-    B, N, C = x.shape
+    B, N, _ = x.shape
     qkv = torch.matmul(x.to(acc), wqkv.to(acc)) + bqkv.to(acc)
     q, k, v = _head_views(qkv, rel_bias.shape[0])
     out = fused_window_attention_reference(q, k, v, rel_bias.to(acc),
                                            None if mask is None else mask.to(acc), keep, rate)
-    ao = out.transpose(1, 2).reshape(B, N, C).to(f32).to(bf16).to(acc)
+    ao = out.transpose(1, 2).reshape(B, N, -1).to(f32).to(bf16).to(acc)
     return (torch.matmul(ao, wproj.to(acc)) + bproj.to(acc)).to(f32).to(bf16)
 
 
@@ -233,24 +238,26 @@ def fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_
     dq, dk, dv rounded to bf16 for dx = dqkv Wqkv^T (stored as bf16) and
     dWqkv = x^T dqkv; the attention output rounded to bf16 for dWproj = ao^T
     dy; dbqkv and d rel_bias from the f32 values, dbproj the f32 sum of dy.
-    ``acc`` as fused_window_block_bf16_reference's. Returns (dx bf16, dwqkv,
-    dbqkv, dwproj, dbproj, drel_bias f32)."""
+    ``acc`` as fused_window_block_bf16_reference's; at D < C (#5-TP-bf16) dx
+    is a partial sum rounded to bf16 once. Returns (dx bf16, dwqkv, dbqkv,
+    dwproj, dbproj, drel_bias f32)."""
     f32, bf16 = torch.float32, torch.bfloat16
     B, N, C = x.shape
+    D = wqkv.shape[1] // 3
     x, wqkv, bqkv, wproj, dy = (t.detach() for t in (x, wqkv, bqkv, wproj, dy))
     xf, dyf, wq = x.to(acc).reshape(B * N, C), dy.to(acc), wqkv.to(acc)
     g = torch.matmul(dyf, wproj.to(acc).t())
     with torch.enable_grad():
-        qkv = (torch.matmul(xf, wq) + bqkv.to(acc)).reshape(B, N, 3 * C).requires_grad_(True)
+        qkv = (torch.matmul(xf, wq) + bqkv.to(acc)).reshape(B, N, 3 * D).requires_grad_(True)
         rb = rel_bias.detach().to(acc).requires_grad_(True)
         q, k, v = _head_views(qkv, rel_bias.shape[0])
         out = fused_window_attention_reference(q, k, v, rb, None if mask is None else mask.to(acc),
                                                keep, rate)
-        ao = out.transpose(1, 2).reshape(B, N, C)
+        ao = out.transpose(1, 2).reshape(B, N, D)
         dqkv, drel_bias = torch.autograd.grad(ao, (qkv, rb), g)
-    dqkv = dqkv.reshape(B * N, 3 * C)
+    dqkv = dqkv.reshape(B * N, 3 * D)
     dqkv_b = dqkv.to(f32).to(bf16).to(acc)
-    ao_b = ao.detach().reshape(B * N, C).to(f32).to(bf16).to(acc)
+    ao_b = ao.detach().reshape(B * N, D).to(f32).to(bf16).to(acc)
     dyf = dyf.reshape(B * N, C)
     dx = torch.matmul(dqkv_b, wq.t()).to(f32).to(bf16).reshape(B, N, C)
     return tuple(t.to(f32) if t.dtype != bf16 else t for t in (
@@ -271,10 +278,10 @@ def _check(name, t, shape, device, dtype=torch.float32, who="fused_window_block"
 
 def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype=torch.float32):
     """Validate the CUDA path's inputs, x, wqkv and wproj of ``dtype`` (f32,
-    or bf16 for #1-bf16 to #3-bf16, whose rows are staged 8 values at a
-    time: C a multiple of 8); returns (B, N, C, D, H, nW). The attention's
-    rows are D = wqkv.shape[1] / 3 wide: D = C, or in f32 a tensor-parallel
-    shard's H heads (#4-TP, #5-TP: wqkv [C, 3D], wproj [D, C])."""
+    or bf16 for the bf16 forms, whose rows are staged 8 values at a time: C
+    and D multiples of 8); returns (B, N, C, D, H, nW). The attention's rows
+    are D = wqkv.shape[1] / 3 wide: D = C, or a tensor-parallel shard's H
+    heads (#4-TP, #5-TP and their bf16 forms: wqkv [C, 3D], wproj [D, C])."""
     if x.device.type != "cuda":
         raise ValueError(f"fused_window_block: unsupported device {x.device}")
     if x.dim() != 3 or wqkv.dim() != 2:
@@ -282,8 +289,7 @@ def _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dtype=torch.f
     B, N, C = x.shape
     H, D = rel_bias.shape[0], wqkv.shape[1] // 3
     mult = _row_multiple(dtype)
-    if (not 1 <= N <= _MAX_N or C % mult or D < mult or D % mult or D % H
-            or (dtype != torch.float32 and D != C)):
+    if not 1 <= N <= _MAX_N or C % mult or D < mult or D % mult or D % H:
         raise ValueError(f"fused_window_block: unsupported geometry N={N} C={C} D={D} H={H} "
                          f"({dtype})")
     dev = x.device
@@ -442,7 +448,8 @@ def _workspace(name, lib, fn, dev, *geometry):
 
 def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, bf16=False):
     """The CUDA path of #1, #2 and #4 (with ``bf16``, #1-bf16, #2-bf16 and
-    #4-bf16, whose workspace comes from focal_wblock_fwd_workspace_bf16):
+    #4-bf16, whose workspace comes from focal_wblock_fwd_workspace_bf16;
+    #4-TP and #4-TP-bf16 at D < C):
     validate, size the workspace, launch. Returns (y, keep), keep None at
     rate 0."""
     B, N, C, D, H, nW = _check_block_args(x, wqkv, bqkv, wproj, bproj, rel_bias, mask,
@@ -455,10 +462,10 @@ def _launch_forward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rat
             rel_bias.data_ptr(), _ptr(mask), y.data_ptr(), _ptr(keep))
     dropout = (int(seed) % 2**64, _keep_threshold(rate) if rate > 0.0 else 0, 1.0 / (1.0 - rate))
     if bf16:
-        ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace_bf16, x.device, B, N, C, H,
+        ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace_bf16, x.device, B, N, C, D, H,
                         int(rate > 0.0))
-        _launch(name, lib.focal_wblock_fwd_bf16, x.device, *ptrs, ws.data_ptr(), B, N, C, H, nW,
-                *dropout)
+        _launch(name, lib.focal_wblock_fwd_bf16, x.device, *ptrs, ws.data_ptr(), B, N, C, D, H,
+                nW, *dropout)
     else:
         ws = _workspace(name, lib, lib.focal_wblock_fwd_workspace, x.device, B, N, C, D, H)
         _launch(name, lib.focal_wblock_fwd_dropout, x.device, *ptrs, ws.data_ptr(), B, N, C, D, H,
@@ -516,26 +523,26 @@ def _launch_backward(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep
 
 
 def _launch_backward_bf16(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy, keep, rate):
-    """The CUDA path of #3-bf16 and #5-bf16: validate, size the workspace
+    """The CUDA path of #3-bf16, #5-bf16 and #5-TP-bf16: validate, size the workspace
     (focal_wblock_bwd_workspace_bf16), launch, and split the flat weight
     gradients. The kernels read wqkv and wproj as they lie (TMA), so every
     operand must be 16-byte aligned."""
-    B, N, C, _, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+    B, N, C, D, H, nW = _backward_args(name, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
                                        keep, rate, torch.bfloat16)
     dev = x.device
     _check_aligned(name, wqkv, wproj, dy)
     lib = _window_block_lib()
-    ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace_bf16, dev, B, N, C, H,
+    ws = _workspace(name, lib, lib.focal_wblock_bwd_workspace_bf16, dev, B, N, C, D, H,
                     int(keep is not None))
     dx = torch.empty_like(x)
-    dweights = torch.empty(4 * C * C + 4 * C, dtype=torch.float32, device=dev)
+    dweights = torch.empty(4 * C * D + 3 * D + C, dtype=torch.float32, device=dev)
     drel_bias = torch.empty((H, N, N), dtype=torch.float32, device=dev)
     inv_keep = 1.0 / (1.0 - rate) if keep is not None else 1.0
     _launch(name, lib.focal_wblock_bwd_bf16, dev,
             x.data_ptr(), wqkv.data_ptr(), bqkv.data_ptr(), wproj.data_ptr(), rel_bias.data_ptr(),
             _ptr(mask), dy.data_ptr(), _ptr(keep), inv_keep, dx.data_ptr(), dweights.data_ptr(),
-            drel_bias.data_ptr(), ws.data_ptr(), B, N, C, H, nW)
-    return (dx, *_split_grads(dweights, C, C), drel_bias)
+            drel_bias.data_ptr(), ws.data_ptr(), B, N, C, D, H, nW)
+    return (dx, *_split_grads(dweights, C, D), drel_bias)
 
 
 def fused_window_block_perhead(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
@@ -726,15 +733,17 @@ def window_block_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, see
 # the tensor-parallel forms: #4-TP/#5-TP on a shard's heads
 
 
-def wblock_tp_takes(N, C, H, mp):
-    """Whether #4-TP/#5-TP take a block of window size N, width C and H
-    heads split over mp model ranks: whole heads a rank (H % mp == 0), the
-    whole block in the kernels' reach (``wblock_takes``, whose shared memory
-    depends on the head width only) and the shard's width D = C / mp a
-    multiple of 4. Where not, the block runs the plain attention route with
-    whole heads a rank (models/swin.py), as the JAX package falls back to
-    XLA there. f32 only: the bf16 forms are ROADMAP A7.3."""
-    return H % mp == 0 and wblock_takes(N, C, H) and (C // mp) % 4 == 0
+def wblock_tp_takes(N, C, H, mp, dtype=torch.float32):
+    """Whether #4-TP/#5-TP (with ``dtype`` bf16, #4-TP-bf16/#5-TP-bf16) take
+    a block of window size N, width C and H heads split over mp model
+    ranks: whole heads a rank (H % mp == 0), the whole block in the kernels'
+    reach in that type (``wblock_takes``, whose shared memory depends on the
+    head width only) and the shard's width D = C / mp a multiple of 4 (of 8
+    in bf16: 16-byte rows). Where not, the block runs the plain attention
+    route with whole heads a rank (models/swin.py), as the JAX package falls
+    back to XLA there."""
+    return (H % mp == 0 and wblock_takes(N, C, H, dtype)
+            and (C // mp) % _row_multiple(dtype) == 0)
 
 
 def fused_window_block_tp(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0, rate=0.0):
@@ -801,15 +810,89 @@ def fused_window_block_tp_backward(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, 
 fused_window_block_tp_backward.launches = 0
 
 
+def fused_window_block_tp_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask=None, seed=0,
+                               rate=0.0):
+    """#4-TP in bf16 (#4-TP-bf16): fused_window_block_tp's function on bf16
+    x [B_, N, C], wqkv [C, 3D] and wproj [D, C] (D = H hd, the shard's
+    heads, a multiple of 8), with f32 bqkv, bproj, rel_bias and mask,
+    rounding where #4-bf16 does: qkv in f32, the attention output rounded to
+    bf16 once, the partial y = ao Wproj + bproj rounded to bf16 once (the
+    TPU kernel casts its f32 output to bf16 before the psum). Returns (y
+    bf16 [B_, N, C], keep uint8 [B_, H, N, N] or None at rate 0).
+
+    On the card: #4-bf16's three launches at the inner width D
+    (csrc/window_block.cu, wblock_fwd_bf16): qkv [R, 3D] on ``wgmma``, the
+    attention on the ``cp.async`` ring, y on ``wgmma`` over K = D.
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_fwd_impl fed bf16
+    with head_dim, inside sharded_window_block_tp. CPU tensors take
+    fused_window_block_bf16_reference, with draw_keep_mask's mask at rate >
+    0.
+    """
+    if not 0.0 <= rate < 1.0:
+        raise ValueError(f"fused_window_block_tp_bf16: rate must be in [0, 1), got {rate}")
+    if x.device.type == "cpu":
+        keep = None
+        if rate > 0.0:
+            B, N, _ = x.shape
+            keep = draw_keep_mask(seed, (B, rel_bias.shape[0], N, N), rate, x.device)
+        return fused_window_block_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, keep,
+                                                 rate), keep
+    y, keep = _launch_forward("fused_window_block_tp_bf16", x, wqkv, bqkv, wproj, bproj, rel_bias,
+                              mask, seed, rate, bf16=True)
+    fused_window_block_tp_bf16.launches += 1
+    return y, keep
+
+
+fused_window_block_tp_bf16.launches = 0
+
+
+def fused_window_block_tp_backward_bf16(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, dy,
+                                        keep=None, rate=0.0):
+    """VJP of #4-TP-bf16 (#5-TP-bf16): fused_window_block_backward_bf16's
+    arguments and results at the shard's geometry (wqkv [C, 3D], wproj [D,
+    C] bf16). dx [B_, N, C] bf16 is a partial sum over the model ranks,
+    rounded to bf16 once; dwqkv [C, 3D], dbqkv [3D], dwproj [D, C] and d
+    rel_bias [H, N, N] are the shard's own, dbproj [C] the same on every
+    model rank, all f32 fixed-order sums: two calls give the same bits.
+
+    On the card: #5-bf16's five launches at the inner width D
+    (wblock_bwd_bf16).
+
+    Replaces focal_tpu/ops/pallas_kernels.py::_wblock_ph_bwd_impl fed bf16
+    with head_dim, inside sharded_window_block_tp. CPU tensors take
+    fused_window_block_backward_bf16_reference.
+    """
+    if x.device.type == "cpu":
+        return fused_window_block_backward_bf16_reference(x, wqkv, bqkv, wproj, bproj, rel_bias,
+                                                          mask, dy, keep, rate)
+    grads = _launch_backward_bf16("fused_window_block_tp_backward_bf16", x, wqkv, bqkv, wproj,
+                                  bproj, rel_bias, mask, dy, keep, rate)
+    fused_window_block_tp_backward_bf16.launches += 1
+    return grads
+
+
+fused_window_block_tp_backward_bf16.launches = 0
+
+
 class _WindowBlockTP(torch.autograd.Function):
     """#4-TP forward and #5-TP backward with the model axis's sums: y and
-    dx summed over the model ranks, the weight gradients the shard's own."""
+    dx summed over the model ranks, the weight gradients the shard's own.
+    A bf16 x takes #4-TP-bf16 and #5-TP-bf16: the f32 weights rounded to
+    bf16 here, so their gradients leave in f32, and each rank's bf16 y and
+    dx partials summed in f32 and rounded once (``distributed.all_reduce_``)."""
 
     @staticmethod
     def forward(ctx, x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, rate, wqkv_t, wproj_t,
                 plan):
         bp = bproj if plan.m == 0 else torch.zeros_like(bproj)
-        y, keep = fused_window_block_tp(x, wqkv, bqkv, wproj, bp, rel_bias, mask, seed, rate)
+        ctx.bf16 = x.dtype == torch.bfloat16
+        if ctx.bf16:
+            wqkv, wproj = wqkv.to(x.dtype), wproj.to(x.dtype)
+            y, keep = fused_window_block_tp_bf16(x, wqkv, bqkv, wproj, bp, rel_bias, mask, seed,
+                                                 rate)
+        else:
+            y, keep = fused_window_block_tp(x, wqkv, bqkv, wproj, bp, rel_bias, mask, seed, rate)
         plan.sum_model_(y)
         ctx.save_for_backward(x, wqkv, bqkv, wproj, bp, rel_bias, mask, keep, wqkv_t, wproj_t)
         ctx.rate, ctx.plan = rate, plan
@@ -818,8 +901,13 @@ class _WindowBlockTP(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         x, wqkv, bqkv, wproj, bp, rel_bias, mask, keep, wqkv_t, wproj_t = ctx.saved_tensors
-        dx, *dws = fused_window_block_tp_backward(x, wqkv, bqkv, wproj, bp, rel_bias, mask,
-                                                  dy.contiguous(), keep, ctx.rate, wqkv_t, wproj_t)
+        if ctx.bf16:
+            dx, *dws = fused_window_block_tp_backward_bf16(x, wqkv, bqkv, wproj, bp, rel_bias,
+                                                           mask, dy.contiguous(), keep, ctx.rate)
+        else:
+            dx, *dws = fused_window_block_tp_backward(x, wqkv, bqkv, wproj, bp, rel_bias, mask,
+                                                      dy.contiguous(), keep, ctx.rate, wqkv_t,
+                                                      wproj_t)
         return (ctx.plan.sum_model_(dx), *dws) + (None,) * 6
 
 
@@ -838,7 +926,10 @@ def sharded_window_block_tp(plan, x, wqkv, bqkv, wproj, bproj, rel_bias, mask=No
 
     Replaces focal_tpu/ops/pallas_kernels.py::sharded_window_block_tp
     (_sharded_wblock_tp_op). On CPU tensors the kernels' plain versions
-    run, between the same sums.
+    run, between the same sums. A bf16 x takes #4-TP-bf16 forward and
+    #5-TP-bf16 backward over the f32 weights (rounded inside; the
+    transposed ones go unread), y and dx leaving in bf16, as the JAX wrapper
+    fed bf16 psums its bf16 partials.
     """
     return _WindowBlockTP.apply(x, wqkv, bqkv, wproj, bproj, rel_bias, mask, seed, float(rate),
                                 wqkv_t, wproj_t, plan)
@@ -1606,15 +1697,15 @@ def _window_block_lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         ll = ctypes.POINTER(ctypes.c_longlong)
         dropout = [ctypes.c_ulonglong, ctypes.c_uint, ctypes.c_float, p]
-        # the f32 entry points take the attention's width D after C
+        # the entry points take the attention's width D after C
         lib.focal_wblock_fwd_workspace.argtypes = [i] * 5 + [ll]
         lib.focal_wblock_fwd_dropout.argtypes = [p] * 10 + [i] * 6 + dropout
         lib.focal_wblock_bwd_workspace.argtypes = [i] * 6 + [ll]
         lib.focal_wblock_bwd.argtypes = [p] * 9 + [ctypes.c_float] + [p] * 4 + [i] * 6 + [p]
-        lib.focal_wblock_fwd_bf16.argtypes = [p] * 10 + [i] * 5 + dropout
-        lib.focal_wblock_bwd_workspace_bf16.argtypes = [i] * 5 + [ll]
-        lib.focal_wblock_fwd_workspace_bf16.argtypes = [i] * 5 + [ll]
-        lib.focal_wblock_bwd_bf16.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 4 + [i] * 5 + [p]
+        lib.focal_wblock_fwd_bf16.argtypes = [p] * 10 + [i] * 6 + dropout
+        lib.focal_wblock_bwd_workspace_bf16.argtypes = [i] * 6 + [ll]
+        lib.focal_wblock_fwd_workspace_bf16.argtypes = [i] * 6 + [ll]
+        lib.focal_wblock_bwd_bf16.argtypes = [p] * 8 + [ctypes.c_float] + [p] * 4 + [i] * 6 + [p]
         for fn in (lib.focal_wblock_fwd_workspace, lib.focal_wblock_fwd_dropout,
                    lib.focal_wblock_bwd_workspace, lib.focal_wblock_bwd, lib.focal_wblock_fwd_bf16,
                    lib.focal_wblock_fwd_workspace_bf16, lib.focal_wblock_bwd_workspace_bf16,

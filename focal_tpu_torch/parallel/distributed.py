@@ -139,14 +139,24 @@ def backend():
 
 
 def all_reduce_(tensor, group=None):
-    """Sum ``tensor`` over ``group`` in place; returns it."""
+    """Sum ``tensor`` over ``group`` in place; returns it. A bf16 tensor is
+    summed in f32 and rounded to bf16 once (gloo reduces no bf16; over two
+    ranks that is the bf16 add, as the JAX package's psum of bf16 partials
+    gives, over more the order of an f32 sum)."""
+    if tensor.dtype == torch.bfloat16:
+        wide = tensor.float()
+        dist.all_reduce(wide, group=group)
+        return tensor.copy_(wide)
     dist.all_reduce(tensor, group=group)
     return tensor
 
 
 def all_gather(tensor, group=None, dim=0):
     """The tensors of every rank of ``group``, concatenated along ``dim`` in
-    rank order (equal shapes)."""
+    rank order (equal shapes; a bf16 tensor moves as its bytes, which gloo
+    takes)."""
+    if tensor.dtype == torch.bfloat16:
+        return all_gather(tensor.contiguous().view(torch.uint8), group, dim).view(torch.bfloat16)
     parts = [torch.empty_like(tensor) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, tensor.contiguous(), group=group)
     return torch.cat(parts, dim=dim)

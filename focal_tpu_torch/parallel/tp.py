@@ -9,7 +9,15 @@ product shards axis 0 and a row-parallel one axis 1; the fused qkv weight
 ("qkv": the axis is 3 parts of H heads). A leaf whose sharded unit does not
 divide by mp stays whole on every rank, as in the JAX package.
 
-SW_Transformer (DeepSense under TP is ROADMAP A7.3):
+DeepSense:
+  * every conv tower's convs (``(loc_)?mod_extractor_*.ConvLayer2D_k``)
+    by output channels, their BatchNorms' scale and bias and running mean
+    and variance (buffers) with them: one channel split across a tower, so
+    the residual adds stay a rank's own;
+  * ``out_proj`` column-wise, its output gathered after (the GRUs and the
+    class head stay whole);
+  * the projector pair, Dense_0 column- and Dense_1 row-parallel.
+SW_Transformer:
   * every Swin block: the window attention by whole heads (qkv columns,
     proj rows, the bias table's heads), the MLP's Dense_0 column- and
     Dense_1 row-parallel;
@@ -24,9 +32,10 @@ mp, where the port keeps the whole attention on every rank.
 ``shard_model`` cuts each rank's slice out of a model built and initialised
 whole, so every layout starts from the single-process init; the modules
 whose parameters it cut (``tp_sharded``) then compute their part and the
-collectives (models/layers.py ``Dense``, models/swin.py ``WindowAttention``).
-The optimizer's moments follow their parameter's slice;
-``full_state_dict`` and ``load_local`` carry checkpoints across layouts.
+collectives (models/layers.py ``Dense`` and ``ConvBlock``, models/swin.py
+``WindowAttention``). The optimizer's moments follow their parameter's
+slice, the BatchNorm statistics their channels'; ``full_state_dict`` and
+``load_local`` carry checkpoints across layouts.
 """
 
 import re
@@ -40,6 +49,10 @@ from focal_tpu_torch.parallel import distributed
 # shards the axis itself, "heads" the owner's num_heads blocks of it, "qkv"
 # 3 parts of num_heads blocks
 _RULES = (
+    (re.compile(r"mod_extractor_[^.]+\.ConvLayer2D_\d+\.Conv_0\.(weight|bias)$"), 0, "dim"),
+    (re.compile(r"mod_extractor_[^.]+\.ConvLayer2D_\d+\.BatchNorm_0\.(weight|bias|mean|var)$"), 0,
+     "dim"),
+    (re.compile(r"mod_extractor_[^.]+\.out_proj\.(weight|bias)$"), 0, "dim"),
     (re.compile(r"\.mlp\.Dense_0\.(weight|bias)$"), 0, "dim"),
     (re.compile(r"\.mlp\.Dense_1\.weight$"), 1, "dim"),
     (re.compile(r"\.attn\.qkv\.(weight|bias)$"), 0, "qkv"),
@@ -108,11 +121,13 @@ def _owner_heads(model, name):
     return None
 
 
-def model_specs(model, mp):
+def model_specs(model, mp, buffers=False):
     """{parameter name: Spec} of the parameters that shard at mp ways, from
-    the whole model."""
+    the whole model; with ``buffers`` the same of its buffers (BatchNorm
+    statistics)."""
     specs = {}
-    for name, p in model.named_parameters():
+    named = model.named_buffers() if buffers else model.named_parameters()
+    for name, p in named:
         spec = leaf_spec(name, tuple(p.shape), mp, _owner_heads(model, name))
         if spec is not None:
             specs[name] = spec
@@ -128,22 +143,22 @@ def sharded_leaf_count(model, mp):
 def shard_model(model, plan):
     """Replace each sharding parameter of the whole ``model`` by this rank's
     slice (``tp_spec`` on the parameter names its Spec) and mark the module
-    that owns it ``tp_sharded``. Returns the {name: Spec} of the cut."""
+    that owns it ``tp_sharded``; each sharding buffer likewise (their specs
+    in ``model.tp_buffer_specs``). Returns the {name: Spec} of the cut
+    parameters."""
     specs = model_specs(model, plan.mp)
+    model.tp_buffer_specs = model_specs(model, plan.mp, buffers=True)
     with torch.no_grad():
-        for name, spec in specs.items():
+        for name, spec in (*specs.items(), *model.tp_buffer_specs.items()):
             owner_name, _, leaf = name.rpartition(".")
             owner = model.get_submodule(owner_name)
-            p = getattr(owner, leaf)
-            new = torch.nn.Parameter(local_slice(p.data, spec, plan.mp, plan.m),
-                                     requires_grad=p.requires_grad)
-            new.tp_spec = spec
-            setattr(owner, leaf, new)
-            owner.tp_sharded = True
-    for mod in model.modules():
-        check = getattr(mod, "check_tp", None)
-        if check is not None:
-            check()
+            t = getattr(owner, leaf)
+            local = local_slice(t.data, spec, plan.mp, plan.m)
+            if name in specs:
+                local = torch.nn.Parameter(local, requires_grad=t.requires_grad)
+                local.tp_spec = spec
+                owner.tp_sharded = True
+            setattr(owner, leaf, local)
     return specs
 
 
@@ -151,39 +166,40 @@ def is_sharded(p):
     return getattr(p, "tp_spec", None) is not None
 
 
+def _state_specs(model):
+    """{state_dict name: Spec} of the entries a rank holds a slice of."""
+    specs = {n: p.tp_spec for n, p in model.named_parameters() if is_sharded(p)}
+    return {**specs, **getattr(model, "tp_buffer_specs", {})}
+
+
 def full_state_dict(model, plan):
     """The model's state_dict in the single-process layout: each sharded
-    parameter gathered whole over the model axis (every model rank takes
-    part)."""
-    out = {}
-    params = dict(model.named_parameters())
-    for name, t in model.state_dict().items():
-        p = params.get(name)
-        if plan is not None and plan.mp > 1 and p is not None and is_sharded(p):
-            t = whole(t, p.tp_spec, plan.mp, plan.model)
-        out[name] = t
-    return out
+    parameter and buffer gathered whole over the model axis (every model
+    rank takes part)."""
+    specs = _state_specs(model) if plan is not None and plan.mp > 1 else {}
+    return {name: whole(t, specs[name], plan.mp, plan.model) if name in specs else t
+            for name, t in model.state_dict().items()}
 
 
 def load_local(model, state, plan, skip=()):
     """Copy a single-process state_dict into ``model``, each sharded
-    parameter's slice (entries it lacks and names containing a ``skip``
-    string keep theirs; a shape that differs raises)."""
-    params = dict(model.named_parameters())
+    parameter's and buffer's slice (entries it lacks and names containing a
+    ``skip`` string keep theirs; a shape that differs raises)."""
+    specs = _state_specs(model)
     own = model.state_dict()
     with torch.no_grad():
         for name, t in own.items():
             if name not in state or any(s in name for s in skip):
                 continue
             src = state[name]
-            p = params.get(name)
-            if p is not None and is_sharded(p):
+            spec = specs.get(name)
+            if spec is not None:
                 want = list(t.shape)
-                want[p.tp_spec.axis] *= plan.mp
+                want[spec.axis] *= plan.mp
                 if list(src.shape) != want:
                     raise ValueError(f"{name} has shape {tuple(src.shape)}, the model "
                                      f"{tuple(want)}")
-                src = local_slice(src, p.tp_spec, plan.mp, plan.m)
+                src = local_slice(src, spec, plan.mp, plan.m)
             elif tuple(src.shape) != tuple(t.shape):
                 raise ValueError(f"{name} has shape {tuple(src.shape)}, the model "
                                  f"{tuple(t.shape)}")

@@ -11,6 +11,7 @@ card is then ``cuda:{local rank % cards}``.
 """
 
 import argparse
+import logging
 import os
 
 import torch
@@ -188,7 +189,8 @@ def build_train_parser():
                         "(0: the process count over -model_parallel).")
     parser.add_argument("-model_parallel", type=int, default=1,
                         help="Processes on the model axis (tensor parallelism: SW_Transformer's "
-                        "heads and widths split over them; 1 = none).")
+                        "heads and widths, DeepSense's conv channels, split over them; 1 = "
+                        "none).")
     parser.add_argument("-dist_coordinator", type=str, default=None,
                         help="host:port of the process group's rendezvous (process 0 listens "
                         "there); also via FOCAL_DIST_COORDINATOR.")
@@ -230,23 +232,20 @@ _PORTED_VALUES = {
 
 
 def _check_layout(args):
-    """The process layout's refusals, before any process group is joined:
-    what ROADMAP A7.3 brings, and a layout of several processes without a
-    rendezvous to join them."""
+    """The process layout's refusal of several processes without a
+    rendezvous to join them, before any process group is joined. Under
+    -model_parallel, -pallas_mlp and -pallas_conv take their flag-off routes
+    (models.registry.apply_plan), as the JAX package's registry builds them;
+    a line says so."""
     coord, nproc, _ = topology(args)
     mp = max(1, args.model_parallel)
     dp = args.data_parallel if args.data_parallel > 0 else max(1, (nproc or 1) // mp)
-    if mp > 1:
-        for flag, what in ((args.model != "SW_Transformer", f"-model {args.model}"),
-                           (args.pallas_mlp, "-pallas_mlp"),
-                           (args.compute_dtype != "float32",
-                            f"-compute_dtype {args.compute_dtype}")):
-            if flag:
-                raise NotImplementedError(f"{what} under -model_parallel is not ported yet: "
-                                          "ROADMAP A7.3")
-    if dp > 1 and args.pallas_conv:
-        raise NotImplementedError("-pallas_conv under -data_parallel (the tower's BatchNorm "
-                                  "sums over the data ranks) is not ported yet: ROADMAP A7.3")
+    flags = [f for f, on in (("-pallas_mlp", args.pallas_mlp), ("-pallas_conv", args.pallas_conv))
+             if on]
+    if mp > 1 and flags:
+        logging.info(f"= {' and '.join(flags)} under -model_parallel {mp}: the flag-off routes "
+                     "(the Swin MLPs' Dense pair, the conv blocks' cuDNN convs), as the JAX "
+                     "package takes them on a model axis")
     if dp * mp > 1 and not coord:
         raise ValueError(f"-data_parallel {dp} x -model_parallel {mp} runs one process per card: "
                          "start each with -dist_coordinator host:port, -dist_num_processes "

@@ -230,7 +230,13 @@ def test_init_statistics_match_flax():
 
 def test_dropout2d_zeroes_whole_planes_at_its_rate():
     rate = 0.2
-    layer = port_layers.ConvLayer2D(4, 64, (1, 3), dropout_ratio=rate).train()
+    # the layer's init from a fixed seed, not from whatever the global
+    # generator holds after the tests before it: about one init in a
+    # thousand puts a conv output exactly on its channel's mean, whose
+    # BatchNorm output and GELU are then 0 inside a kept plane
+    with torch.random.fork_rng():
+        torch.manual_seed(0)
+        layer = port_layers.ConvLayer2D(4, 64, (1, 3), dropout_ratio=rate).train()
     rng = StepRngs(torch.Generator().manual_seed(0), torch.Generator().manual_seed(1))
     x = torch.randn(32, 4, 5, 20, generator=torch.Generator().manual_seed(2))
     with torch.no_grad():

@@ -935,12 +935,12 @@ def test_every_width_a_gate_admits_has_a_launch_plan():
             C = H * hd
             # the bf16 backward's and forward's own plans (two slots of their
             # rings, or one)
-            ok = all(fn(7, 9, C, H, d, pk.ctypes.byref(pk.ctypes.c_longlong(0))) == 0
+            ok = all(fn(7, 9, C, C, H, d, pk.ctypes.byref(pk.ctypes.c_longlong(0))) == 0
                      for fn in (lib.focal_wblock_bwd_workspace_bf16,
                                 lib.focal_wblock_fwd_workspace_bf16) for d in (0, 1))
             # zero windows: the bf16 entry points check the geometry and launch nothing
-            ok = ok and lib.focal_wblock_fwd_bf16(*null, 0, 9, C, H, 1, 0, 0, 1.0, None) == 0
-            ok = ok and lib.focal_wblock_bwd_bf16(*null[:8], 1.0, *null[:4], 0, 9, C, H, 1,
+            ok = ok and lib.focal_wblock_fwd_bf16(*null, 0, 9, C, C, H, 1, 0, 0, 1.0, None) == 0
+            ok = ok and lib.focal_wblock_bwd_bf16(*null[:8], 1.0, *null[:4], 0, 9, C, C, H, 1,
                                                   None) == 0
             assert ok == pk.wblock_takes(9, C, H, torch.bfloat16), (C, H)
     alib = pk._window_attention_lib()
@@ -2336,3 +2336,230 @@ def test_tp_shards_sum_to_the_whole_block(C, mp):
             assert _rel(g, want) <= 1e-4, (name, m, _rel(g, want))
     torch.cuda.synchronize()
     assert _rel(y_sum, y_full) <= 1e-4 and _rel(dx_sum, g_full[0]) <= 1e-4
+
+
+# ---------------------------------------------------------------------------
+# #4-TP-bf16/#5-TP-bf16: the bf16 whole-block kernels on a tensor-parallel
+# shard's heads (D = C / mp), at every local geometry of MOD's and
+# MOD_WIDE's stages at mp 2 and 4; the bf16 kernels at D = C keep the
+# parent's bits
+
+
+def _tp_bf16_shard(whole, mp, m):
+    args = _tp_shard(whole, mp, m)
+    for i in (0, 1, 3):  # x, wqkv, wproj
+        args[i] = args[i].to(torch.bfloat16)
+    return args
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,mp", TP_GEOMETRIES)
+@pytest.mark.parametrize("rate", [0.0, 0.2])
+def test_tp_bf16_kernels_match_plain(C, mp, rate):
+    """#4-TP-bf16 and #5-TP-bf16 on one shard against the bf16 plain
+    versions at its geometry (the keep mask #4-TP-bf16 wrote): y within
+    8e-3 of max|y|, every gradient within 1e-2 relative; both twice give
+    the same bits; the keep rate within 5 sigma and the mask #4-TP's for
+    the same seed; one launch counted a call."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    rng = np.random.default_rng(C + mp + 1)
+    whole = _args(rng, 131, 9, C, 4, 4, dev)
+    args = _tp_bf16_shard(whole, mp, mp - 1)
+    dy = torch.from_numpy(rng.normal(size=(131, 9, C)).astype(np.float32)).to(dev)
+    dy = dy.to(torch.bfloat16)
+    fwd, bwd = pk.fused_window_block_tp_bf16, pk.fused_window_block_tp_backward_bf16
+    f0, b0 = fwd.launches, bwd.launches
+    y, keep = fwd(*args, seed=11, rate=rate)
+    y2, keep2 = fwd(*args, seed=11, rate=rate)
+    got = bwd(*args, dy, keep, rate)
+    again = bwd(*args, dy, keep, rate)
+    torch.cuda.synchronize()
+    assert (fwd.launches, bwd.launches) == (f0 + 2, b0 + 2)
+    assert y.dtype == torch.bfloat16 and torch.equal(y, y2)
+    assert (keep is None) == (rate == 0.0)
+    if rate:
+        assert torch.equal(keep, keep2)
+        kept = float(keep.double().mean())
+        assert abs(kept - 0.8) <= 5 * (0.16 / keep.numel()) ** 0.5
+        f32 = [a.float() if a is not None and a.dtype == torch.bfloat16 else a for a in args]
+        assert torch.equal(pk.fused_window_block_tp(*f32, 11, rate)[1], keep)
+    assert _rel(y, pk.fused_window_block_bf16_reference(*args, keep, rate)) <= 8e-3
+    want = pk.fused_window_block_backward_bf16_reference(*args, dy, keep, rate)
+    assert got[0].dtype == torch.bfloat16 and all(g.dtype == torch.float32 for g in got[1:])
+    for name, g, w in zip(["dx", "dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) <= 1e-2, (name, _rel(g, w))
+    for g, h in zip(got, again):
+        assert torch.equal(g, h)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("C,mp", TP_GEOMETRIES)
+def test_tp_bf16_shards_sum_to_the_whole_block(C, mp):
+    """The shards' #4-TP-bf16 y partials, bproj added once, summed in f32
+    come within 8e-3 of max|y| of #4-bf16 at full heads (each partial
+    rounded to bf16 once), and so do their #5-TP-bf16 dx against #5-bf16's;
+    each shard's weight gradients are the matching slices of #5-bf16's
+    within 1e-2."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.parallel.tp import Spec, local_slice
+
+    dev = _card()
+    rng = np.random.default_rng(C * mp + 1)
+    whole = _args(rng, 131, 9, C, 4, 4, dev)
+    for i in (0, 1, 3):
+        whole[i] = whole[i].to(torch.bfloat16)
+    dy = torch.from_numpy(rng.normal(size=(131, 9, C)).astype(np.float32)).to(dev)
+    dy = dy.to(torch.bfloat16)
+    y_full = pk.fused_window_block_perhead_bf16(*whole)[0]
+    g_full = pk.fused_window_block_perhead_backward_bf16(*whole, dy)
+    H = 4
+    specs = [Spec(1, 3, H), Spec(0, 3, H), Spec(0, 1, H), None, Spec(0, 1, H)]
+    y_sum = torch.zeros(y_full.shape, device=dev)
+    dx_sum = torch.zeros(y_full.shape, device=dev)
+    for m in range(mp):
+        args = _tp_shard(whole, mp, m)
+        y_sum += pk.fused_window_block_tp_bf16(*args)[0].float()
+        dx, *dws = pk.fused_window_block_tp_backward_bf16(*args, dy)
+        dx_sum += dx.float()
+        for name, g, w, spec in zip(["dwqkv", "dbqkv", "dwproj", "dbproj", "drel_bias"], dws,
+                                    g_full[1:], specs):
+            want = w if spec is None else local_slice(w, spec, mp, m)
+            assert _rel(g, want) <= 1e-2, (name, m, _rel(g, want))
+    torch.cuda.synchronize()
+    assert _rel(y_sum, y_full) <= 8e-3 and _rel(dx_sum, g_full[0]) <= 1e-2
+
+
+def _bf16_block_digest(pk, B, C, nW, dev):
+    """The bf16 whole-block kernels at D = C, N 9, 4 heads: #1-bf16 and
+    #2-bf16 (C <= 256) or #4-bf16 at rate 0 and 0.2 (C 512), y and the keep
+    mask, then #3-bf16 (#5-bf16) with that mask and without."""
+    rng = np.random.default_rng(11 * B + C)
+    args = _bf16_args(rng, B, 9, C, 4, nW, dev)
+    dy = torch.from_numpy(rng.normal(size=(B, 9, C)).astype(np.float32)).to(dev)
+    dy = dy.to(torch.bfloat16)
+    if pk.wblock_fits(9, C, 4):
+        y0 = pk.fused_window_block_bf16(*args)
+        y, keep = pk.fused_window_block_dropout_bf16(*args, 5, 0.2)
+        bwd = pk.fused_window_block_backward_bf16
+    else:
+        y0 = pk.fused_window_block_perhead_bf16(*args)[0]
+        y, keep = pk.fused_window_block_perhead_bf16(*args, 5, 0.2)
+        bwd = pk.fused_window_block_perhead_backward_bf16
+    outs = [y0, y, keep, *bwd(*args, dy, keep, 0.2), *bwd(*args, dy, None, 0.0)]
+    torch.cuda.synchronize()
+    return _digest(outs)
+
+
+# _bf16_block_digest as the parent commit's build gave it (NVIDIA H100 80GB
+# HBM3, 132 SMs), before the bf16 kernels took an inner width D apart from C
+BF16_BLOCK_DIGESTS = {(131, 64, 4): "e250c8aeec7735b6", (129, 256, 0): "9a3358d42e578920",
+                      (37, 512, 0): "bdc8c11351af3288"}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,C,nW", sorted(BF16_BLOCK_DIGESTS))
+def test_bf16_block_gives_the_parents_bits_at_d_equal_c(B, C, nW):
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
+        "the digests were taken on a 132-SM H100")
+    assert _bf16_block_digest(pk, B, C, nW, dev) == BF16_BLOCK_DIGESTS[(B, C, nW)]
+
+
+# ---------------------------------------------------------------------------
+# DP-13-14(-bf16): the conv tower over several data ranks. Each conv's launch
+# writes its raw sums [Σc; Σc²] in place of the BatchNorm rows, the
+# backward's statistics launch s2 alone; the tower sums them over the data
+# ranks (``plan.sum_data_``). Two data ranks that hold the same rows give
+# the single-process tower: every sum doubles, and so does the count.
+
+
+class _TwinRanks:
+    """A stand-in plan of two data ranks that hold the same rows: the sum
+    over them doubles a tensor (in place, as all_reduce does)."""
+    dp = 2
+
+    @staticmethod
+    def sum_data_(t):
+        return t.mul_(2.0)
+
+    @staticmethod
+    def sum_data(t):
+        return 2.0 * t
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_tower_raw_sums_match_plain(dtype):
+    """_conv0 and _apply without the BatchNorm's affine write the raw sums
+    of the conv they launch (Σc, Σc² over every row of c, within 1e-5 of
+    the f32 sums of the c they stored); _bwd_stats without means gives the
+    s2 of the launch with them and no m."""
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    dev = _card()
+    rng = np.random.default_rng(17)
+    cfgs, x0, params, masks = _tower_args(rng, 64, 10, 20, 64, 3, False, 3, dev)
+    ws, bs, scales, biases = ([p.detach() for p in g] for g in params)
+    if dtype == torch.bfloat16:
+        x0, ws = x0.to(dtype), [w.to(dtype) for w in ws]
+    R, S = x0.shape[:2]
+    x2 = x0.detach().reshape(R * S, -1).contiguous()
+    c, sums, mu, var = ct._conv0(x2, ws[0], bs[0], None, None, 3, R, S)
+    assert sums.shape == (2, 64) and mu is None and var is None
+    cf = c.float()
+    want = torch.stack([cf.sum(0), (cf * cf).sum(0)])
+    assert _rel(sums, want) <= 1e-5
+    rows = ct._finalize_stats(sums, float(R * S), scales[0], biases[0])[0]
+    a, c1, sums1, _, _ = ct._apply(c, rows, masks[0], None, (ws[1], bs[1], 3, None, None), R, S)
+    c1f = c1.float()
+    assert _rel(sums1, torch.stack([c1f.sum(0), (c1f * c1f).sum(0)])) <= 1e-5
+    da = torch.from_numpy(rng.normal(size=(R * S, 64)).astype(np.float32)).to(dev).to(dtype)
+    s2, m = ct._bwd_stats(da, c, masks[0], rows, R, S)
+    s2_raw, none = ct._bwd_stats(da, c, masks[0], rows, R, S, means=False)
+    torch.cuda.synchronize()
+    assert none is None and torch.equal(s2, s2_raw)
+    assert _rel(m, s2 * rows[4] / float(R * S)) <= 1e-6
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("external", [False, True])
+def test_conv_tower_over_twin_data_ranks_is_the_single_tower(dtype, external):
+    """The tower with a plan of two data ranks that hold the same rows
+    (_TwinRanks) against the single-process tower: the output, the
+    statistics and every gradient within 1e-5 relative (f32; the
+    statistics' last steps run in torch there, in the kernel here), 8e-3 /
+    1e-2 in bf16; the launches of one process (DP-13-14 counts through
+    #13's and #14's wrappers)."""
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    dev = _card()
+    rng = np.random.default_rng(23 + external)
+    cfgs, x0, params, masks = _tower_args(rng, 32, 10, 20, 64, 5 if external else 3, external,
+                                          4, dev)
+    x0 = x0.detach().to(dtype).requires_grad_(True)
+    dy = torch.from_numpy(rng.normal(size=(320, 20, 64)).astype(np.float32)).to(dev).to(dtype)
+    fwd = ct.fused_conv_tower_bf16 if dtype == torch.bfloat16 else ct.fused_conv_tower
+    bwd = ct.fused_conv_tower_backward_bf16 if dtype == torch.bfloat16 else \
+        ct.fused_conv_tower_backward
+    single = _tower_grads(ct.fused_conv_tower, cfgs, x0, params, masks, dy, external)
+    f0, b0 = fwd.launches, bwd.launches
+    twin = _tower_grads(lambda *a: ct.fused_conv_tower(*a, plan=_TwinRanks()), cfgs, x0, params,
+                        masks, dy, external)
+    torch.cuda.synchronize()
+    assert (fwd.launches - f0, bwd.launches - b0) == (len(cfgs) + 1 - external, 2 * len(cfgs))
+    tol_y, tol_g = (1e-5, 1e-5) if dtype == torch.float32 else (8e-3, 1e-2)
+    assert _rel(twin[0].detach().float(), single[0].detach().float()) <= tol_y
+    for a, b in zip(twin[1] + twin[2], single[1] + single[2]):
+        assert _rel(a, b) <= tol_y
+    for i, (g, w) in enumerate(zip(twin[3], single[3])):
+        g, w = g.float(), w.float()
+        if max(float(g.abs().max()), float(w.abs().max())) < 1e-2:
+            assert float((g - w).abs().max()) <= 1e-2, i  # C7: a conv bias before its BatchNorm
+        else:
+            assert _rel(g, w) <= tol_g, (i, _rel(g, w))

@@ -117,12 +117,15 @@ def test_resume_continues_as_a_straight_run(straight, tmp_path):
         assert float((got[name] - want[name]).abs().max()) <= 1e-6, name
 
 
-def test_unported_stages_and_flags_raise(tmp_path):
+def test_unported_stages_and_flags_raise(tmp_path, caplog):
     """The three stages dispatch (finetune without a pretrained run finds
-    no folder); the flags of what is not ported (ROADMAP A7.2, A7.3) raise
-    naming ROADMAP; a layout of several processes without a rendezvous
-    raises naming -dist_num_processes; -no_pallas_block and the attribution
-    flags (ROADMAP A8), ported, parse."""
+    no folder); the flags of what is not ported (ROADMAP A7.2) raise naming
+    ROADMAP; a layout of several processes without a rendezvous raises
+    naming -dist_num_processes, the layouts that once raised as not ported
+    among them (DeepSense and bf16 under -model_parallel, -pallas_mlp and
+    -pallas_conv there, which log their flag-off routes, -pallas_conv under
+    -data_parallel), so they are planned now; -no_pallas_block and the
+    attribution flags (ROADMAP A8), ported, parse."""
     sup = parse_train_params(["-learn_framework", "no", "-pallas_mlp", "-label_ratio", "0.5"])
     assert sup.train_mode == "supervised" and sup.pallas_mlp and sup.batch_size == 256
     assert parse_train_params(["-no_pallas_block"]).no_pallas_block
@@ -130,16 +133,21 @@ def test_unported_stages_and_flags_raise(tmp_path):
     with pytest.raises(FileNotFoundError, match="contrastive_FOCAL"):
         train_cli.main(["-stage", "finetune", "-dataset", "MOD_TINY", "-synthetic", "-device",
                         "cpu", "-output_dir", str(tmp_path)])
-    for flags, item in ((["-grad_accum", "2"], "A7.2"), (["-data_layout", "sharded"], "A7.2"),
-                        (["-model_parallel", "2", "-model", "DeepSense"], "A7.3"),
-                        (["-model_parallel", "2", "-pallas_mlp"], "A7.3"),
-                        (["-model_parallel", "2", "-compute_dtype", "bfloat16"], "A7.3"),
-                        (["-data_parallel", "2", "-pallas_conv"], "A7.3")):
+    for flags, item in ((["-grad_accum", "2"], "A7.2"), (["-data_layout", "sharded"], "A7.2")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
             parse_train_params(flags)
-    for flags in (["-model_parallel", "2"], ["-data_parallel", "4"]):
-        with pytest.raises(ValueError, match="-dist_num_processes"):
+    for flags in (["-model_parallel", "2"], ["-data_parallel", "4"],
+                  ["-model_parallel", "2", "-model", "DeepSense"],
+                  ["-model_parallel", "2", "-pallas_mlp"],
+                  ["-model_parallel", "2", "-model", "DeepSense", "-pallas_conv"],
+                  ["-model_parallel", "2", "-compute_dtype", "bfloat16"],
+                  ["-data_parallel", "2", "-pallas_conv"]):
+        caplog.clear()
+        with caplog.at_level("INFO"), pytest.raises(ValueError, match="-dist_num_processes"):
             parse_train_params(flags)
+        flag_off = [f for f in ("-pallas_mlp", "-pallas_conv") if f in flags]
+        logged = "flag-off routes" in caplog.text
+        assert logged == bool(flag_off and "-model_parallel" in flags), (flags, caplog.text)
     for flags, name, value in ((["-ragged_tail"], "ragged_tail", True),
                                (["-py_aug_draws"], "py_aug_draws", True),
                                (["-init_weight", "w.pt"], "init_weight", "w.pt"),

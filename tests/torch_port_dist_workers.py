@@ -32,9 +32,10 @@ BATCH = 16
 LR = 0.05
 
 
-def _args(model, supervised, rate=0.0):
+def _args(model, supervised, rate=0.0, flags=()):
     argv = ["-dataset", "MOD_TINY", "-model", model, "-device", "cpu",
             "-batch_size", str(BATCH)] + (["-learn_framework", "no"] if supervised else [])
+    argv += list(flags)
     args = parse_train_params(argv)
     cfg = copy.deepcopy(args.dataset_config)
     for section in ("SW_Transformer", "DeepSense"):
@@ -45,12 +46,16 @@ def _args(model, supervised, rate=0.0):
     return args
 
 
-def step_result(model_name, supervised=False, fused=True, pallas_block=True, plan=None, rate=0.0):
+def step_result(model_name, supervised=False, fused=True, pallas_block=True, plan=None, rate=0.0,
+                flags=(), evaluate=False):
     """{"loss", "state" (the updated state_dict, whole)} of one step, every
-    drop rate ``rate``."""
-    args = _args(model_name, supervised, rate)
+    drop rate ``rate``; ``flags``: more of the CLI's (-compute_dtype,
+    -pallas_conv, -pallas_mlp); with ``evaluate`` also "eval", the updated
+    model's eval logits of the step's batch (every rank all of it)."""
+    args = _args(model_name, supervised, rate, flags)
     model = build_backbone(args.dataset_config, model_name, args.task, args.learn_framework,
-                           pallas_block=pallas_block)
+                           pallas_block=pallas_block, pallas_conv=args.pallas_conv,
+                           pallas_mlp=args.pallas_mlp, compute_dtype=args.compute_dtype)
     model = apply_plan(init_params(model, seed=0), plan)
     mask = trainable_mask(model, args)
     params = [p for name, p in model.named_parameters() if mask[name]]
@@ -70,8 +75,15 @@ def step_result(model_name, supervised=False, fused=True, pallas_block=True, pla
                                   plan=plan)
         _, metrics = step(state, data, idx)
     whole = tp.full_state_dict(model, plan) if plan is not None else model.state_dict()
-    return {"loss": float(metrics["loss"]),
-            "state": {k: v.detach().numpy().copy() for k, v in whole.items()}}
+    out = {"loss": float(metrics["loss"]),
+           "state": {k: v.detach().numpy().copy() for k, v in whole.items()}}
+    if evaluate:
+        model.eval()
+        with torch.no_grad():
+            batch = {loc: {m: a.index_select(0, idx) for m, a in mods.items()}
+                     for loc, mods in augmenter.no(data).items()}
+            out["eval"] = model(batch, head="class").float().numpy()
+    return out
 
 
 def rank_steps(rank, world, mp, configs):
@@ -105,21 +117,27 @@ def tp_block_shard(case, plan):
             "cols": cols, "rows": rows, "lo": lo, "hi": hi, "heads": heads}
 
 
-def rank_tp_blocks(rank, world, mp, cases):
+def rank_tp_blocks(rank, world, mp, cases, bf16=False):
     """sharded_window_block_tp forward and backward on this rank's shard of
     each case: y and dx of its windows, its heads' weight gradients, and
-    where they go in the whole tensors."""
+    where they go in the whole tensors. With ``bf16`` x and dy in bf16 (the
+    weights f32, rounded inside: #4-TP-bf16/#5-TP-bf16's plain versions),
+    y and dx returned as f32 values."""
     plan = make_mesh_plan(0, mp)
+    dt = torch.bfloat16 if bf16 else torch.float32
     out = []
     for case in cases:
         sh = tp_block_shard(case, plan)
-        t = {k: torch.from_numpy(np.ascontiguousarray(sh[k])).requires_grad_(k != "mask")
-             for k in ("x", "wqkv", "bqkv", "wproj", "bproj", "rel_bias")}
+        t = {k: torch.from_numpy(np.ascontiguousarray(sh[k])) for k in
+             ("x", "wqkv", "bqkv", "wproj", "bproj", "rel_bias")}
+        t["x"] = t["x"].to(dt)
+        t = {k: v.requires_grad_(True) for k, v in t.items()}
         mask = None if sh["mask"] is None else torch.from_numpy(sh["mask"])
         y = sharded_window_block_tp(plan, t["x"], t["wqkv"], t["bqkv"], t["wproj"], t["bproj"],
                                     t["rel_bias"], mask)
-        y.backward(torch.from_numpy(sh["dy"]))
-        res = {"y": y.detach().numpy(), **{f"d{k}": t[k].grad.numpy() for k in t}}
+        y.backward(torch.from_numpy(sh["dy"]).to(dt))
+        res = {"y": y.detach().float().numpy(),
+               **{f"d{k}": t[k].grad.float().numpy() for k in t}}
         out.append({**res, **{k: sh[k] for k in ("cols", "rows", "lo", "hi", "heads")}})
     return out
 
@@ -155,3 +173,118 @@ def rank_tp(rank, world, mp, cases, steps):
     """rank_tp_blocks, rank_steps and dropout_masks in one spawn."""
     return (rank_tp_blocks(rank, world, mp, cases), rank_steps(rank, world, mp, steps),
             dropout_masks(make_mesh_plan(0, mp)))
+
+
+def rank_tp_bf16(rank, world, mp, cases, steps):
+    """rank_tp_blocks in bf16 and rank_steps in one spawn."""
+    return rank_tp_blocks(rank, world, mp, cases, bf16=True), rank_steps(rank, world, mp, steps)
+
+
+def flag_off_routes(plan=None):
+    """The fused kernels' calls in one SW_Transformer -pallas_mlp supervised
+    step and one DeepSense -pallas_conv pretrain step (MOD_TINY, rate 0),
+    counted by spies on the names the modules call: {"fused_mlp": n,
+    "fused_conv_tower": n}."""
+    from focal_tpu_torch.models import layers, swin
+
+    calls = {"fused_mlp": 0, "fused_conv_tower": 0}
+    saved = {(swin, "fused_mlp"): swin.fused_mlp, (layers, "fused_conv_tower"):
+             layers.fused_conv_tower}
+
+    def spy(key, fn):
+        def call(*a, **k):
+            calls[key] += 1
+            return fn(*a, **k)
+        return call
+
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, spy(name, fn))
+    try:
+        step_result("SW_Transformer", supervised=True, plan=plan, flags=["-pallas_mlp"])
+        step_result("DeepSense", plan=plan, flags=["-pallas_conv"])
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+    return calls
+
+
+def rank_tp_deepsense(rank, world, mp, steps, ckpt_path):
+    """rank_steps of DeepSense configs; at mp 2 without data ranks also the
+    flag-off routes (flag_off_routes) and a checkpoint of the rank's model
+    (train.checkpoint.save_params: rank 0 writes the single-process tree to
+    ``ckpt_path``)."""
+    from focal_tpu_torch.train import checkpoint
+
+    plan = make_mesh_plan(0, mp)
+    out = {"steps": [step_result(plan=plan, **cfg) for cfg in steps]}
+    if plan.dp == 1:
+        out["routes"] = flag_off_routes(plan)
+        model = apply_plan(marked_deepsense(), plan)
+        checkpoint.save_params(ckpt_path, model, plan)
+        out["local_shapes"] = {k: tuple(v.shape) for k, v in model.state_dict().items()}
+    return out
+
+
+def marked_deepsense():
+    """The MOD_TINY DeepSense, its seeded init with every entry of its
+    state_dict (parameters and BatchNorm statistics) moved by 1e-3 times
+    its flat index, so that a tree put together from slices shows each
+    entry's place."""
+    args = _args("DeepSense", False)
+    model = init_params(build_backbone(args.dataset_config, "DeepSense", args.task,
+                                       args.learn_framework), seed=0)
+    with torch.no_grad():
+        for t in model.state_dict().values():
+            if t.is_floating_point():
+                t.add_(torch.arange(t.numel(), dtype=t.dtype).view_as(t) * 1e-3)
+    return model
+
+
+def tower_case(seed, samples, S, C, cin, layers, external, dtype):
+    """A conv tower's inputs as numpy arrays: x0 [samples * 2, S, cin (C for
+    an external first conv)], the layers' weights, biases, BatchNorm affines
+    and per-sample Dropout2d masks, the output gradient."""
+    rng = np.random.default_rng(seed)
+    kw = 3
+    cfgs = tuple((kw, (C if external else cin) if k == 0 else C, C, k > 0) for k in range(layers))
+    f = lambda *shape, s=1.0: (s * rng.normal(size=shape)).astype(np.float32)  # noqa: E731
+    case = {"cfgs": cfgs, "external": external, "dtype": dtype,
+            "x0": f(2 * samples, S, cfgs[0][1]), "dy": f(2 * samples, S, C)}
+    case["ws"] = [np.zeros((1, 1), np.float32) if external and k == 0 else
+                  f(kw * cin_k, C, s=(kw * cin_k) ** -0.5) for k, (_, cin_k, _, _) in enumerate(cfgs)]
+    case["bs"] = [f(C, s=0.1) for _ in cfgs]
+    case["scales"] = [1.0 + f(C, s=0.1) for _ in cfgs]
+    case["biases"] = [f(C, s=0.1) for _ in cfgs]
+    case["masks"] = [((rng.random((samples, C)) > 0.2) / 0.8).astype(np.float32) for _ in cfgs]
+    return case
+
+
+def tower_result(case, plan=None):
+    """fused_conv_tower (its plain versions on the CPU) on a case, over
+    ``plan``'s data ranks (each its samples' rows) or whole: the output,
+    the statistics and every gradient, as f32 numpy arrays."""
+    from focal_tpu_torch.ops.conv_tower import fused_conv_tower
+
+    dt = torch.bfloat16 if case["dtype"] == "bfloat16" else torch.float32
+    samples = case["masks"][0].shape[0]
+    lo, hi = (0, samples) if plan is None else plan.rows(samples)
+    rows = slice(2 * lo, 2 * hi)  # two rows (intervals) a sample
+    x0 = torch.from_numpy(case["x0"][rows]).to(dt).requires_grad_(True)
+    params = [[torch.from_numpy(a).requires_grad_(True) for a in case[k]]
+              for k in ("ws", "bs", "scales", "biases")]
+    masks = [torch.from_numpy(m[lo:hi]) for m in case["masks"]]
+    a, mus, vars_ = fused_conv_tower(x0, case["cfgs"], *params, masks, case["external"], plan=plan)
+    leaves = [x0] + [p for group in params for p in group]
+    grads = torch.autograd.grad(a, leaves, torch.from_numpy(case["dy"][rows]).to(dt),
+                                allow_unused=True)
+    return {"a": a.detach().float().numpy(), "mus": [m.numpy() for m in mus],
+            "vars": [v.numpy() for v in vars_], "lo": 2 * lo, "hi": 2 * hi,
+            "grads": [None if g is None else g.float().numpy() for g in grads]}
+
+
+def rank_conv_dp(rank, world, cases, steps):
+    """tower_result of each case on this data rank, and rank_steps of the
+    DeepSense -pallas_conv configs at dp ``world``."""
+    plan = make_mesh_plan(0, 1)
+    return ([tower_result(c, plan) for c in cases],
+            [step_result(plan=plan, **cfg) for cfg in steps])
