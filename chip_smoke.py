@@ -254,9 +254,13 @@ result line if any fails):
      mod_extractor, masks of rate 0.2: the output within 8e-3 of max|a|, the
      statistics 1e-3, the gradients 1e-2 relative (absolutely to 1e-2 where
      both sides are below it), the same bits on a second call, the launches
-     counted; timed at MOD's geometries beside #13/#14 in f32 and the cuDNN
-     bf16 chain (events, device time by kernel, plain, bound at 989 TFLOP/s
-     for the convs or the bf16 bytes); a served bf16 batch of 128 (no
+     counted; conv_tower.cu's build: its bf16 products (ct_wg_*) compiled
+     to wgmma (HGMMA) and no mma.sync (HMMA), no wgmma pipeline serialized;
+     timed at MOD's geometries beside #13/#14 in f32 and the cuDNN bf16
+     chain (events, device time by kernel, plain, bound at 989 TFLOP/s for
+     the convs or the bf16 bytes), the profile holding the products on
+     wgmma and no f32-only kernel (W's per-tap transpose, a sum walked on
+     one SM: F32_ONLY_TOWER); a served bf16 batch of 128 (no
      kernel) against the same model on the CPU (1e-2); rate-0 pretrain (256)
      and supervised (128) steps from one init: -pallas_conv's kernels
      against their bf16 plain versions (loss 1e-2, C11's gradient gates),
@@ -1155,8 +1159,10 @@ NEAR_ZERO = 1e-2
 FWD_ELEM_OPS = 27
 BWD_ELEM_OPS = 40
 CT = "focal_tpu/ops/conv_tower.py"
-# csrc/conv_tower.cu's kernels (and gemm_splitk.cuh's reduction as it
-# instantiates it, tagged ConvTowerSrc) and the part of #13/#14 each serves
+# csrc/conv_tower.cu's kernels (and gemm_splitk.cuh's and gemm_wgmma.cuh's
+# reductions as it instantiates them, tagged ConvTowerSrc) and the part of
+# #13/#14(-bf16) each serves (the bf16 transposed conv's epilogue takes the
+# previous layer's BatchNorm sums: "products")
 TOWER_LIB = {"source": "conv_tower.cu", "tag": "ConvTowerSrc",
              "phases": {"conv_gemm_kernel": "products", "conv_wgrad_kernel": "weight gradients",
                         "bn_elementwise_kernel": "elementwise passes",
@@ -1166,10 +1172,12 @@ TOWER_LIB = {"source": "conv_tower.cu", "tag": "ConvTowerSrc",
                         "narrow_conv_kernel": "first conv (CUDA cores)",
                         "narrow_convT_kernel": "first conv (CUDA cores)",
                         "narrow_wgrad_kernel": "first conv (CUDA cores)",
-                        "bf16_conv_gemm_kernel": "products",
-                        "bf16_conv_wgrad_kernel": "weight gradients",
+                        "ct_wg_conv_kernel": "products",
+                        "ct_wg_wgrad_kernel": "weight gradients",
                         "bn_dc_sums_kernel": "elementwise passes",
-                        "column_total_kernel": "reductions"}}
+                        "bn_stats_sliced_kernel": "reductions",
+                        "bn_grad_stats_sliced_kernel": "reductions",
+                        "wg_reduce_kernel": "reductions"}}
 TOWER_KERNEL_NAMES = tuple(TOWER_LIB["phases"])
 # an external first conv's BN statistics and coefficients are PyTorch's
 # own kernels, between #13's calls
@@ -3154,6 +3162,40 @@ def tower_bf16_work(g):
     return out
 
 
+# conv_tower.cu's kernels that only its f32 forms launch: the per-tap
+# transpose of W (the bf16 transposed conv reads W as it lies) and the sums
+# walked on one SM (the bf16 forms' cross-block sums go in slices)
+F32_ONLY_TOWER = {"tap_transpose_kernel", "conv_gemm_kernel", "conv_wgrad_kernel",
+                  "reduce_partials_kernel", "bn_stats_kernel", "bn_grad_stats_kernel"}
+
+
+def bf16_tower_build():
+    """The build of conv_tower.cu: its bf16 products' (ct_wg_*) lines from
+    ptxas that say a wgmma pipeline was serialized (C7510-C7518, C7520) and
+    each such kernel's HGMMA (wgmma) and HMMA (mma.sync) count in its SASS
+    (cuobjdump beside nvcc). Returns {"serialized": [...], "sass": {kernel:
+    [HGMMA, HMMA]}}."""
+    from focal_tpu_torch.ops import _build
+
+    log = open(_build.log_path("conv_tower.cu")).read()
+    serialized = [line.strip() for line in log.splitlines()
+                  if re.search(r"\((C75(?:1[0-8]|20))\).*ct_wg_", line)]
+    tool = os.path.join(os.path.dirname(_build.find_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _build.library_path("conv_tower.cu")],
+                          capture_output=True, text=True, check=True).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1) if "ct_wg_" in m.group(1) else None
+            if fn:
+                counts[fn] = [0, 0]
+        elif fn:
+            counts[fn][0] += "HGMMA" in line
+            counts[fn][1] += bool(re.search(r"\bHMMA\b", line))
+    return {"serialized": serialized, "sass": counts}
+
+
 def time_tower_bf16(torch, np, ct, F, g, seed, dev):
     """#13-bf16 and #14-bf16 at one tower geometry, into g["bf16"]: by
     events and by device time (tower_phase_split: only conv_tower.cu's
@@ -3191,6 +3233,10 @@ def time_tower_bf16(torch, np, ct, F, g, seed, dev):
                     "bwd": tower_phase_split(torch, lambda: ct.fused_conv_tower_backward_bf16(
                         saved, dy))}
     r["device_ms_fwd"], r["device_ms_bwd"] = (r["profile"][d]["device_ms"] for d in ("fwd", "bwd"))
+    ran = set(r["profile"]["fwd"]["kernels"]) | set(r["profile"]["bwd"]["kernels"])
+    if "ct_wg_conv_kernel" not in ran or "ct_wg_wgrad_kernel" not in ran or ran & F32_ONLY_TOWER:
+        raise AssertionError(f"{g['name']}: the bf16 tower ran {sorted(ran)}: its products on "
+                             f"wgmma expected, none of {sorted(F32_ONLY_TOWER)}")
     f_fl, f_by, r["bound_ms_fwd"], r["bound_by_fwd"], b_fl, b_by, r["bound_ms_bwd"], \
         r["bound_by_bwd"] = tower_bf16_work(g)
     r.update(flops_fwd=f_fl, bytes_fwd=f_by, flops_bwd=b_fl, bytes_bwd=b_by)
@@ -3247,6 +3293,16 @@ def deepsense_bf16_paths(torch, np, kernels, dev):
             + [g for g in tower_geometries(two_locations(cfg), 2 * DS_BATCH, "MOD two-location")
                if g["name"].endswith("mod_extractor")])
     out["errors"] = check_towers_bf16(torch, np, ct, geos, dev, seed0=3000)
+    # the bf16 products compiled to wgmma, none to mma.sync, no pipeline serialized
+    out["build"] = bf16_tower_build()
+    sass = out["build"]["sass"]
+    log(f"[{tag}] conv_tower.cu's bf16 products: {len(sass)} instances, HGMMA "
+        f"{sorted({c[0] for c in sass.values()})}, HMMA {sorted({c[1] for c in sass.values()})}; "
+        f"serialized-wgmma lines {len(out['build']['serialized'])}")
+    if (len(sass) < 6 or any(hg == 0 or hm for hg, hm in sass.values())
+            or out["build"]["serialized"]):
+        raise AssertionError(f"{tag}: the bf16 tower's products are not all wgmma alone: "
+                             f"{out['build']}")
     mod_geos = [g for g in geos if g["name"].startswith("MOD ") and "two-location" not in g["name"]]
     for gi, g in enumerate(mod_geos):
         time_tower_bf16(torch, np, ct, F, g, 3100 + gi, dev)

@@ -35,8 +35,14 @@ phase, #3-bf16's and #5-bf16's host enqueue, and the bf16 MOD pretrain
 step), attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
 -pallas_mlp step), mlp_bf16 (#10-bf16 to #12-bf16 per MLP geometry of a
 MOD and a MOD_WIDE forward by events and device time beside the bf16
-library chain, and the bf16 -pallas_mlp MOD supervised step) and towers
-(#13, #14 and their step); all by default.
+library chain, and the bf16 -pallas_mlp MOD supervised step), towers
+(#13, #14 and their step) and towers_bf16 (#13-bf16 and #14-bf16 at every
+tower geometry of one MOD and one MOD_WIDE DeepSense step, chip_smoke's
+phase-30 inputs, and summed over each step by the towers that run them:
+device ms a call with its split by phase and by kernel, CUDA-event ms, the
+host's median ms to enqueue a call, the cuDNN bf16 chain forward and
+backward, and the bound; then the other recipes' towers and the
+two-location mod_extractor's, by device time); all by default.
 Needs a CUDA card; imports no JAX.
 """
 
@@ -47,7 +53,7 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("window", "window_bf16", "attention", "mlp", "mlp_bf16", "towers")
+PARTS = ("window", "window_bf16", "attention", "mlp", "mlp_bf16", "towers", "towers_bf16")
 
 
 def measure(root, profile, parts):
@@ -85,6 +91,8 @@ def measure(root, profile, parts):
         measure_mlp_bf16(cs, torch, np, root, dev, rate)
     if "towers" in parts:
         measure_towers(cs, torch, np, root, dev, load_yaml)
+    if "towers_bf16" in parts:
+        measure_towers_bf16(cs, torch, np, root, dev, load_yaml)
 
 
 def measure_window(cs, torch, root, dev, gen, rate, profile):
@@ -531,6 +539,103 @@ def measure_towers(cs, torch, np, root, dev, load_yaml):
           f"{run['p50_ms']:.3f} ms, idle share {run['idle_share']:.3f}, device busy "
           f"{run['device_busy_ms']:.3f} ms, peak {run['peak_mb']:.1f} MiB", flush=True)
     del model
+    torch.cuda.empty_cache()
+
+
+def measure_towers_bf16(cs, torch, np, root, dev, load_yaml):
+    """#13-bf16 and #14-bf16 per tower geometry and summed over one MOD and
+    one MOD_WIDE DeepSense step (chip_smoke's phase-30 inputs; a geometry
+    counts as often as towers run it): device ms a call by phase (a
+    profile, chip_smoke.tower_phase_split), CUDA-event ms, the host's median
+    ms to enqueue a call (21 calls, each after a synchronise), the cuDNN
+    bf16 chain (chip_smoke.library_tower on bf16 rows, its autograd
+    backward) and the bound (chip_smoke.tower_bf16_work)."""
+    import statistics
+
+    import torch.nn.functional as F
+
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    bf = torch.bfloat16
+    for dataset, samples in (("MOD", 2 * cs.DS_BATCH), ("MOD_WIDE", 2 * cs.DS_WIDE_BATCH)):
+        cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", f"{dataset}.yaml"))
+        tot, phases, kernels = {}, {}, {}
+        for i, g in enumerate(cs.tower_geometries(cfg, samples, dataset)):
+            x0, params, masks, dy = cs.tower_bf16_inputs(torch, np, g, 300 + i, dev)
+            kp = [[w.to(bf) for w in params[0]]] + params[1:]
+            cfgs, ext = g["cfgs"], g["external"]
+            _, _, _, saved = ct.tower_forward(x0, cfgs, *kp, masks, ext)
+            runs = {"#13-bf16": lambda: ct.tower_forward(x0, cfgs, *kp, masks, ext),
+                    "#14-bf16": lambda: ct.fused_conv_tower_backward_bf16(saved, dy)}
+            ms = {}
+            for key, fn in runs.items():
+                split = cs.tower_phase_split(torch, fn, strict=False)
+                ms[f"{key} device"] = split["device_ms"]
+                for ph, v in split["phases"].items():
+                    phases[(key, ph)] = phases.get((key, ph), 0.0) + g["towers"] * v
+                for name, k in split["kernels"].items():
+                    kernels[(key, name)] = kernels.get((key, name), 0.0) + g["towers"] * k["device_ms"]
+                ms[key] = cs.time_ms(torch, fn)
+                host = []
+                for _ in range(21):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    fn()
+                    host.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                ms[f"{key} host"] = statistics.median(host)
+                print(f"[{root}] {g['name']} {key} device ms by phase: "
+                      + ", ".join(f"{ph} {v:.4f}" for ph, v in sorted(split["phases"].items(),
+                                                                      key=lambda kv: -kv[1])),
+                      flush=True)
+            lp = [kp[0], [b.to(bf) for b in params[1]]] + params[2:]
+            lm = [m.to(bf) for m in masks]
+            with torch.no_grad():
+                ms["library fwd"] = cs.time_ms(torch, lambda: cs.library_tower(torch, F, x0, g, lp,
+                                                                                lm))
+            xl, pl_, leaves = cs.tower_leaves(torch, x0, lp, ext)
+            ly = cs.library_tower(torch, F, xl, g, pl_, lm)
+            dyl = dy.permute(0, 2, 1).unsqueeze(2)
+            ms["library bwd"] = cs.time_ms(torch, lambda: torch.autograd.grad(
+                ly, leaves, dyl, retain_graph=True))
+            work = cs.tower_bf16_work(g)
+            ms["bound fwd"], ms["bound bwd"] = work[2], work[6]
+            for key, v in ms.items():
+                tot[key] = tot.get(key, 0.0) + g["towers"] * v
+            print(f"[{root}] {g['name']} (R {g['R']}, S {g['S']}, C {g['C']}, towers "
+                  f"{g['towers']}): " + ", ".join(f"{key} {v:.4f} ms" for key, v in ms.items()),
+                  flush=True)
+            del x0, params, masks, dy, saved, runs, ly, xl, pl_, leaves
+        print(f"[{root}] {dataset} bf16 one DeepSense step's towers: "
+              + ", ".join(f"{key} {v:.4f} ms" for key, v in tot.items()), flush=True)
+        for key in ("#13-bf16", "#14-bf16"):
+            print(f"[{root}] {dataset} bf16 step {key} device ms by phase: "
+                  + ", ".join(f"{ph} {v:.4f}" for (k, ph), v in sorted(
+                      phases.items(), key=lambda kv: -kv[1]) if k == key), flush=True)
+            print(f"[{root}] {dataset} bf16 step {key} device ms by kernel: "
+                  + ", ".join(f"{name} {v:.4f}" for (k, name), v in sorted(
+                      kernels.items(), key=lambda kv: -kv[1]) if k == key), flush=True)
+        torch.cuda.empty_cache()
+    mod = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
+    others = [g for r in cs.RECIPES
+              for g in cs.tower_geometries(load_yaml(os.path.join(
+                  root, "focal_tpu_torch", "configs", f"{r}.yaml")), 2 * cs.DS_BATCH, r)]
+    others += [g for g in cs.tower_geometries(cs.two_locations(mod), 2 * cs.DS_BATCH,
+                                              "MOD two-location")
+               if g["name"].endswith("mod_extractor")]
+    for i, g in enumerate(others):
+        x0, params, masks, dy = cs.tower_bf16_inputs(torch, np, g, 400 + i, dev)
+        kp = [[w.to(bf) for w in params[0]]] + params[1:]
+        cfgs, ext = g["cfgs"], g["external"]
+        _, _, _, saved = ct.tower_forward(x0, cfgs, *kp, masks, ext)
+        fwd = cs.tower_phase_split(torch, lambda: ct.tower_forward(x0, cfgs, *kp, masks, ext),
+                                   strict=False)["device_ms"]
+        bwd = cs.tower_phase_split(torch, lambda: ct.fused_conv_tower_backward_bf16(saved, dy),
+                                   strict=False)["device_ms"]
+        print(f"[{root}] {g['name']} (R {g['R']}, S {g['S']}, C {g['C']}, cin "
+              f"{g['cfgs'][0][1]}, layers {len(cfgs)}): #13-bf16 device {fwd:.4f} ms, #14-bf16 "
+              f"device {bwd:.4f} ms", flush=True)
+        del x0, params, masks, dy, saved
     torch.cuda.empty_cache()
 
 

@@ -1,8 +1,10 @@
 """What the bf16 wgmma kernels compile to and how they run, for one or more
 checkouts of the repository on one card: the fused MLP's (#10-bf16 to
-#12-bf16, csrc/fused_mlp.cu) and the whole-block kernels' (the forward
+#12-bf16, csrc/fused_mlp.cu), the whole-block kernels' (the forward
 #1-, #2- and #4-bf16, the backward #3-bf16 and #5-bf16,
-csrc/window_block.cu), all on csrc/gemm_wgmma.cuh.
+csrc/window_block.cu) and the conv tower's (#13-bf16, #14-bf16,
+csrc/conv_tower.cu: its build report alone; compare_kernels.py --parts
+towers_bf16 checks and times them), all on csrc/gemm_wgmma.cuh.
 
     python3 diagnose_mlp.py [--bench] DIR [DIR ...]
 
@@ -63,7 +65,8 @@ BLOCKS = [(256, 9, 64, 4, 32), (131, 9, 128, 4, 0), (67, 9, 256, 4, 2), (40, 9, 
 # the bf16 kernels' names in each source's build
 BF16_KERNELS = {"fused_mlp.cu": ("wg_", "wcast"),
                 "window_block.cu": ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16",
-                                    "attn_fwd_bf16")}
+                                    "attn_fwd_bf16"),
+                "conv_tower.cu": ("ct_wg_", "wg_reduce", "_sliced_", "bn_dc_sums")}
 RATE = 0.2
 
 

@@ -70,8 +70,8 @@
 // whose time is set by writing c [R*S, C], not by the multiply-adds;
 // padding x0 to 4 channels would add a copy of x0 and of dx0 and the
 // products' waste on the padding for nothing.
-// Not yet: wgmma and TMA; Σgy and Σgy·x̂ folded into the previous
-// transposed conv's epilogue.
+// Not yet, in f32: wgmma and TMA; Σgy and Σgy·x̂ folded into the previous
+// transposed conv's epilogue (the bf16 forms below do both).
 //
 // The bf16 forms (-compute_dtype bfloat16): #13-bf16 and #14-bf16 replace
 // the same TPU kernels fed bf16 rows (store_dtype bfloat16,
@@ -83,18 +83,51 @@
 // a rounded once; in the backward gy and x̂ in f32 from the bf16 da and c,
 // dc in f32 rounded to bf16 for the transposed conv and dW, db the sum of
 // the f32 dc (the dc pass sums it per block, bn_dc_sums_kernel), dprev =
-// convT(dc, W) + da rounded once. The products run on the bf16 tensor cores
-// (gemm_bf16.cuh: mma.sync.m16n8k16, f32 sums, one pass where 3xTF32 takes
-// three): bf16_conv_gemm_kernel with BfConvRows, an implicit-im2col loader
-// of bf16 rows (eight channels, 16 bytes, of one tap a piece: cin % 8 == 0;
-// the SAME padding zero-filled), and bf16_conv_wgrad_kernel with
-// BfConvWgradRows, the same rows read transposed. At MOD's widths these are
-// bound by bytes: a (1, KW) conv over C = 64 does 2*KW*64 FLOP an output for
-// 4 bytes of bf16 rows in and out (160 FLOP a byte at KW 5, below the bf16
-// ridge of 295). A first conv over cin % 8 != 0 (the seismic cin 2, the
-// mod_extractor's cin 1) stays on the CUDA cores in bf16
-// (narrow_*_kernel<bf16>). Every layer after the first has cin = C, a
-// multiple of 8 (check_rows), so it runs on the tensor cores.
+// convT(dc, W) + da rounded once.
+// What bounds them: at MOD's widths bytes (a (1, KW) conv over C = 64 does
+// 2*KW*64 FLOP an output for 4 bytes of bf16 rows in and out: 160 FLOP a
+// byte at KW 5, below the bf16 ridge of 295), at MOD_WIDE's (C 256) the
+// products' operations. The design:
+//   * the three products on gemm_wgmma.cuh's ring (TMA into 128-byte-
+//     swizzled stages, one producer and two consumer warpgroups, wgmma
+//     m64nNk16, persistent blocks), every operand read as it lies:
+//     ct_wg_conv_kernel for the conv and the transposed conv, ct_wg_wgrad_
+//     kernel for dW = im2col(a_{k-1})^T dc, its split partials summed in
+//     split order by gemm_wgmma.cuh's wg_reduce_kernel (tagged ConvTowerSrc),
+//     with db from the dc pass's block sums. Operand A, the implicit im2col,
+//     through a 3-D tensor map of the rows viewed [R, S, cin] (focal_wg_map3):
+//     a tile is rb whole samples of sb positions (rb * sb <= 128 rows, 64 for
+//     the weight gradient's K stages: MOD S 20 takes 6 samples, 120 rows;
+//     S > 128 boxes of <= 128 positions, SampleTiles), and tap j's K stage is
+//     the box at position s0 + j - lo (s0 - (j - lo) in the transposed conv):
+//     TMA's zero fill of coordinates outside [0, S) is the SAME padding at
+//     each sample's edges, with no im2col in memory and no predicate per
+//     element. (TMA's im2col mode would do the same for a 4-D map; a tiled
+//     3-D box of whole samples needs no [N, H, W, C] view and gives the
+//     weight gradient its rows, K, as the same boxes.) Operand B, W viewed
+//     [KW, cin, N]: a tap's K slice past cin reads zeros (cin < 64, e.g.
+//     MOD_TINY's C 16, pads each tap's K to 64-channel blocks); the conv
+//     reads it MN-major, the transposed conv K-major (wgmma's transpose
+//     bit): no W^T pass. The rows of a tile past rb * sb, and of samples
+//     past R, are out of the stores (TMA clips them) and of the column sums.
+//   * the forward conv's epilogue adds the bias, rounds c to bf16 once,
+//     stores it by TMA and adds the stored values' Σc and Σc² into the
+//     persistent block's column sums (its tiles in order), one partial a
+//     block: a fixed-order reduction that the card's SMs share.
+//   * the transposed conv of layer k stores the rounded da_{k-1} and, in
+//     the same epilogue, sums layer k-1's Σgy and Σgy·x̂ from it (with
+//     c_{k-1}, its mask and BN rows: where the JAX tower takes them), so
+//     only the last layer keeps its sums pass (bn_grad_sums_kernel).
+//   * the cross-block sums (bn_stats_sliced_kernel, bn_grad_stats_sliced_
+//     kernel, wg_reduce_kernel's column part) walk the partials in eight
+//     slices of consecutive partials, a warp a slice and 32 channels a
+//     block, then add the slices in order: no float atomics, two calls give
+//     the same bits, and over several data ranks the raw sums still reach
+//     the caller, which sums them over `data` before the [C]-sized steps.
+// A first conv over cin % 8 != 0 (the seismic cin 2, the mod_extractor's
+// cin 1) stays on the CUDA cores in bf16 (narrow_*_kernel<bf16>). Every
+// layer after the first has cin = C, a multiple of 8 (check_rows), so it
+// runs on the tensor cores. The f32 forms above are untouched by them.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -103,16 +136,18 @@
 #include <algorithm>
 
 #include "gemm_3xtf32.cuh"
-#include "gemm_bf16.cuh"
 #include "gemm_splitk.cuh"
+#include "gemm_wgmma.cuh"
 
 namespace focal {
-struct ConvTowerSrc {};  // tags this library's instances of gemm_splitk.cuh's kernels
+struct ConvTowerSrc {};  // tags this library's instances of gemm_splitk.cuh's and
+                         // gemm_wgmma.cuh's kernels
 }  // namespace focal
 
 namespace {
 
 using Src = focal::ConvTowerSrc;
+namespace wgk = focal::wg;
 using bf16 = __nv_bfloat16;
 constexpr int kThreads = 256;
 constexpr int kStatRows = 256;   // rows per block of the column sums and the narrow convs
@@ -177,7 +212,7 @@ __device__ __forceinline__ void st4(float* base, size_t i4, const F4& f) {
 
 __device__ __forceinline__ void st4(bf16* base, size_t i4, const F4& f) {
   reinterpret_cast<uint2*>(base)[i4] =
-      make_uint2(focal::pack_bf16x2(f.v[0], f.v[1]), focal::pack_bf16x2(f.v[2], f.v[3]));
+      make_uint2(wgk::pack_bf16(f.v[0], f.v[1]), wgk::pack_bf16(f.v[2], f.v[3]));
 }
 
 // v as a T row stores it (bf16: rounded to nearest even), in f32.
@@ -248,8 +283,9 @@ __global__ void __launch_bounds__(kThreads) bn_elementwise_kernel(const BnArgs<T
 // four columns and lanes = kThreads / cols; a thread sums its group c4
 // over rows g_begin + lane, + lanes, ... in order (f(g, c4, s1, s2) adds
 // to its two sums), and the lanes' sums are added in lane order into
-// part[blockIdx.x] [2, K]. red holds column_sums_smem(K) bytes.
-template <class F>
+// part[blockIdx.x] [2, K] (kRows 1: the first sum alone, [1, K]). red holds
+// column_sums_smem(K) bytes.
+template <int kRows = 2, class F>
 __device__ __forceinline__ void block_column_sums(int K, int g_begin, int g_end, float* red,
                                                   float* part, F f) {
   const int K4 = K / 4, cols = min(K4, kThreads), lanes = kThreads / cols;
@@ -273,8 +309,8 @@ __device__ __forceinline__ void block_column_sums(int K, int g_begin, int g_end,
       t1 += red[l * K + ch];
       t2 += red[(lanes + l) * K + ch];
     }
-    part[(size_t)blockIdx.x * 2 * K + ch] = t1;
-    part[((size_t)blockIdx.x * 2 + 1) * K + ch] = t2;
+    part[(size_t)blockIdx.x * kRows * K + ch] = t1;
+    if (kRows == 2) part[((size_t)blockIdx.x * 2 + 1) * K + ch] = t2;
   }
 }
 
@@ -307,14 +343,14 @@ __global__ void __launch_bounds__(kThreads) bn_grad_sums_kernel(const BnArgs<T> 
 
 // #14-bf16's dc pass: dc (bn_dc4) stored as bf16 rows into p.out, and per
 // block of kStatRows rows the column sums of the f32 dc (the conv bias's
-// gradient db, before dc is rounded) into part[block] [2, C] (the second
-// row zeros).
+// gradient db, before dc is rounded) into part[block] [C] (wg_reduce_kernel
+// sums them into db).
 __global__ void __launch_bounds__(kThreads) bn_dc_sums_kernel(const BnArgs<bf16> p,
                                                               float* __restrict__ part) {
   extern __shared__ float red[];
   const int C4 = p.C / 4;
   const int g_begin = blockIdx.x * kStatRows;
-  block_column_sums(p.C, g_begin, min(p.R * p.S, g_begin + kStatRows), red, part,
+  block_column_sums<1>(p.C, g_begin, min(p.R * p.S, g_begin + kStatRows), red, part,
                     [&](int g, int c4, F4& s1, F4&) {
                       const size_t e = (size_t)g * C4 + c4;
                       const F4 dc = bn_dc4(p, e, g, c4);
@@ -322,17 +358,6 @@ __global__ void __launch_bounds__(kThreads) bn_dc_sums_kernel(const BnArgs<bf16>
 #pragma unroll
                       for (int u = 0; u < 4; ++u) s1.v[u] += dc.v[u];
                     });
-}
-
-// out[ch] = the ordered sum over blocks of part[block][0][ch] (C channels):
-// db from bn_dc_sums_kernel's partials.
-__global__ void column_total_kernel(const float* __restrict__ part, int blocks, int C,
-                                    float* __restrict__ out) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= C) return;
-  float t = 0.f;
-  for (int b = 0; b < blocks; ++b) t += part[(size_t)b * 2 * C + ch];
-  out[ch] = t;
 }
 
 // The BatchNorm of a conv's output: its affine (scale, bias [C]) in; the
@@ -348,20 +373,13 @@ struct BnStats {
   float* var;
 };
 
-// One thread a channel: the ordered sum of a forward conv's column-sum
-// partials [tiles, 2, C], then mu = Σc / n, var = max(Σc² / n - mu², 0)
-// (the fast variance), invstd = rsqrt(var + eps) and rows = [A = invstd
-// scale; B = bias - mu A; P = invstd; Q = mu invstd; scale], each step
-// rounded on its own as the plain version's torch ops round it.
-__global__ void bn_stats_kernel(const float* __restrict__ part, int tiles, int C, float n,
-                                const BnStats st) {
-  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
-  if (ch >= C) return;
-  float s1 = 0.f, s2 = 0.f;
-  for (int t = 0; t < tiles; ++t) {
-    s1 += part[(size_t)t * 2 * C + ch];
-    s2 += part[((size_t)t * 2 + 1) * C + ch];
-  }
+// Channel ch's statistics from its sums s1 = Σc, s2 = Σc² over n rows: mu
+// = s1 / n, var = max(s2 / n - mu², 0) (the fast variance), invstd =
+// rsqrt(var + eps) and rows = [A = invstd scale; B = bias - mu A; P =
+// invstd; Q = mu invstd; scale], each step rounded on its own as the plain
+// version's torch ops round it; with st.scale null the raw sums.
+__device__ __forceinline__ void finish_stats(const BnStats& st, int ch, int C, float n, float s1,
+                                             float s2) {
   if (st.scale == nullptr) {
     st.rows[ch] = s1;
     st.rows[C + ch] = s2;
@@ -380,10 +398,35 @@ __global__ void bn_stats_kernel(const float* __restrict__ part, int tiles, int C
   st.var[ch] = var;
 }
 
-// One thread a channel: the ordered sum of the backward's column-sum
-// partials [blocks, 2, C] into s2 = [Σgy; Σgy·x̂], and m = s2 scale / n
-// (the means of dx̂ and dx̂·x̂) where m is not null (several data ranks:
+// One thread a channel: the ordered sum of a forward conv's column-sum
+// partials [tiles, 2, C], then finish_stats (the f32 forms).
+__global__ void bn_stats_kernel(const float* __restrict__ part, int tiles, int C, float n,
+                                const BnStats st) {
+  const int ch = blockIdx.x * blockDim.x + threadIdx.x;
+  if (ch >= C) return;
+  float s1 = 0.f, s2 = 0.f;
+  for (int t = 0; t < tiles; ++t) {
+    s1 += part[(size_t)t * 2 * C + ch];
+    s2 += part[((size_t)t * 2 + 1) * C + ch];
+  }
+  finish_stats(st, ch, C, n, s1, s2);
+}
+
+// Channel ch of s2 = [Σgy; Σgy·x̂] from its sums t1, t2, and m = s2 scale /
+// n (the means of dx̂ and dx̂·x̂) where m is not null (several data ranks:
 // the caller sums s2 over them first).
+__device__ __forceinline__ void finish_grad_stats(int ch, int C, float n, const float* rows,
+                                                  float* s2, float* m, float t1, float t2) {
+  const float sc = rows[4 * C + ch];
+  s2[ch] = t1;
+  s2[C + ch] = t2;
+  if (m == nullptr) return;
+  m[ch] = __fmul_rn(t1, sc) / n;
+  m[C + ch] = __fmul_rn(t2, sc) / n;
+}
+
+// One thread a channel: the ordered sum of the backward's column-sum
+// partials [blocks, 2, C], then finish_grad_stats (the f32 forms).
 __global__ void bn_grad_stats_kernel(const float* __restrict__ part, int blocks, int C, float n,
                                      const float* __restrict__ rows, float* __restrict__ s2,
                                      float* __restrict__ m) {
@@ -394,12 +437,61 @@ __global__ void bn_grad_stats_kernel(const float* __restrict__ part, int blocks,
     t1 += part[(size_t)b * 2 * C + ch];
     t2 += part[((size_t)b * 2 + 1) * C + ch];
   }
-  const float sc = rows[4 * C + ch];
-  s2[ch] = t1;
-  s2[C + ch] = t2;
-  if (m == nullptr) return;
-  m[ch] = __fmul_rn(t1, sc) / n;
-  m[C + ch] = __fmul_rn(t2, sc) / n;
+  finish_grad_stats(ch, C, n, rows, s2, m, t1, t2);
+}
+
+// The bf16 forms' cross-block sums: partials [parts, 2, C] of channel ch =
+// 32 blockIdx.x + lane summed in kSlices slices of consecutive partials
+// (warp w the w-th, in order), then the slices added in order by warp 0.
+// True in warp 0 for ch < C, with the sums; call with kSlices warps.
+constexpr int kSlices = 8;
+
+__device__ __forceinline__ bool sliced_sums(const float* __restrict__ part, int parts, int C,
+                                            float& s1, float& s2) {
+  __shared__ float red[2][kSlices][32];
+  const int lane = threadIdx.x & 31, slice = threadIdx.x >> 5;
+  const int ch = blockIdx.x * 32 + lane;
+  const int per = (parts + kSlices - 1) / kSlices;
+  float a = 0.f, b = 0.f;
+  if (ch < C) {
+    const int t_end = min(parts, (slice + 1) * per);
+#pragma unroll 4
+    for (int t = slice * per; t < t_end; ++t) {
+      a += part[(size_t)t * 2 * C + ch];
+      b += part[((size_t)t * 2 + 1) * C + ch];
+    }
+  }
+  red[0][slice][lane] = a;
+  red[1][slice][lane] = b;
+  __syncthreads();
+  if (slice != 0 || ch >= C) return false;
+  s1 = s2 = 0.f;
+  for (int k = 0; k < kSlices; ++k) {
+    s1 += red[0][k][lane];
+    s2 += red[1][k][lane];
+  }
+  return true;
+}
+
+// #13-bf16's statistics: sliced_sums of a forward conv's partials, then
+// finish_stats.
+__global__ void __launch_bounds__(kSlices * 32)
+bn_stats_sliced_kernel(const float* __restrict__ part, int parts, int C, float n, const BnStats st) {
+  float s1, s2;
+  if (sliced_sums(part, parts, C, s1, s2))
+    finish_stats(st, blockIdx.x * 32 + (threadIdx.x & 31), C, n, s1, s2);
+}
+
+// #14-bf16's: sliced_sums of the backward's partials (the last layer's sums
+// pass, or the fold of the transposed conv after it), then
+// finish_grad_stats.
+__global__ void __launch_bounds__(kSlices * 32)
+bn_grad_stats_sliced_kernel(const float* __restrict__ part, int parts, int C, float n,
+                            const float* __restrict__ rows, float* __restrict__ s2,
+                            float* __restrict__ m) {
+  float t1, t2;
+  if (sliced_sums(part, parts, C, t1, t2))
+    finish_grad_stats(blockIdx.x * 32 + (threadIdx.x & 31), C, n, rows, s2, m, t1, t2);
 }
 
 // ---------------------------------------------------------------------------
@@ -423,13 +515,6 @@ struct ConvGemmArgs {
 // values as stored (bf16: rounded to nearest even).
 __device__ __forceinline__ void store_pair(float* out, size_t e, float& v0, float& v1) {
   *reinterpret_cast<float2*>(out + e) = make_float2(v0, v1);
-}
-
-__device__ __forceinline__ void store_pair(bf16* out, size_t e, float& v0, float& v1) {
-  const uint32_t packed = focal::pack_bf16x2(v0, v1);
-  *reinterpret_cast<uint32_t*>(out + e) = packed;
-  v0 = __uint_as_float(packed << 16);
-  v1 = __uint_as_float(packed & 0xffff0000u);
 }
 
 // A conv product's epilogue over the block's tile (row tile tile_m, columns
@@ -559,192 +644,387 @@ __global__ void tap_transpose_kernel(const T* __restrict__ w, int KW, int cin, i
 }
 
 // ---------------------------------------------------------------------------
-// the bf16 products (#13-bf16, #14-bf16) on gemm_bf16.cuh's tensor-core
-// tiles
+// the bf16 products (#13-bf16, #14-bf16) on gemm_wgmma.cuh's TMA ring and
+// wgmma
 
-// The A operand of a bf16 (1, KW) SAME conv (sign +1) or transposed conv
-// (sign -1), implicit im2col as ShiftRows: column k = j * cin + ci of row g
-// is x[g + sign * (j - lo), ci], zero where the position leaves [0, S).
-// cin % 8 == 0: a 16-byte piece (eight bf16) of a row never straddles two
-// taps.
-struct BfShiftRows {
-  const bf16* x;
-  int cin, S, lo, sign;
+// Row tiles of whole samples of rows [R, S, C]: a tile is rb samples of sb
+// positions (rb * sb <= the tile's rows), one box (64 channels, sb, rb) of
+// a 3-D tensor map; where a sample is longer than the tile's rows it is cut
+// into s_tiles boxes of sb positions (rb 1). Tile t starts at sample r0(t)
+// and position s0(t); its row q < rb * sb is sample r0 + q / sb, position
+// s0 + q % sb. The rows past rb * sb, and those of samples past R or
+// positions past S, belong to no output.
+struct SampleTiles {
+  int rb, sb, s_tiles, r_tiles;
+  __host__ __device__ int tiles() const { return r_tiles * s_tiles; }
+  __host__ __device__ int rows() const { return rb * sb; }
+  __host__ __device__ int r0(int t) const { return t / s_tiles * rb; }
+  __host__ __device__ int s0(int t) const { return t % s_tiles * sb; }
 };
 
-// A K-slice of kGemmBM rows of im2col(x) in a thread's registers: 2 x 8
-// values (row tid / 4 + 64 i, columns tid % 4 * 8), zeros outside the
-// matrix and the sample. The rows' positions are found once.
-struct BfConvRows {
-  BfShiftRows a;
-  int M, m0, K;
-  int s[2];  // the positions of the thread's rows, -1 past M
-  uint4 v[2];
-
-  __device__ __forceinline__ BfConvRows(const BfShiftRows& a_, int M_, int m0_, int K_)
-      : a(a_), M(M_), m0(m0_), K(K_) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int row = m0 + (threadIdx.x >> 2) + 64 * i;
-      s[i] = row < M ? row % a.S : -1;
-    }
+SampleTiles sample_tiles(int R, int S, int rows) {
+  SampleTiles t{};
+  if (S <= rows) {
+    t.sb = S;
+    t.rb = std::min(rows / S, R);
+    t.s_tiles = 1;
+  } else {
+    t.s_tiles = (S + rows - 1) / rows;
+    t.sb = (S + t.s_tiles - 1) / t.s_tiles;
+    t.rb = 1;
   }
-
-  __device__ __forceinline__ void load(int k0) {
-    const int c = (threadIdx.x & 3) * 8, k = k0 + c;
-    const int j = k / a.cin, ci = k - j * a.cin;
-    const int d = a.sign * (j - a.lo);
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = (threadIdx.x >> 2) + 64 * i;
-      const bool ok = k < K && s[i] >= 0 && (unsigned)(s[i] + d) < (unsigned)a.S;
-      v[i] = ok ? __ldg(reinterpret_cast<const uint4*>(a.x + (size_t)(m0 + r + d) * a.cin + ci))
-                : make_uint4(0u, 0u, 0u, 0u);
-    }
-  }
-
-  // Into the tile [kGemmBM][kBfRowWords] (words of K pairs).
-  __device__ __forceinline__ void store(uint32_t* tile) const {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int r = (threadIdx.x >> 2) + 64 * i, c = (threadIdx.x & 3) * 8;
-      *reinterpret_cast<uint4*>(tile + r * focal::kBfRowWords + c / 2) = v[i];
-    }
-  }
-};
-
-// A K-slice (K running over the rows g) of im2col(x) read transposed, the A
-// of a weight gradient im2col(x)^T dc over rows [.., k_end): the thread's
-// unit is K pair p = tid % 16 (rows k0 + 2p, + 1) of the column group tid /
-// 16 (eight columns m = j * cin + ci of one tap), stored as gemm_bf16.cuh's
-// PairSlice stores bf16. The column's tap shift and offset are found once.
-struct BfConvWgradRows {
-  BfShiftRows a;
-  int k_end;
-  int d, off;  // the group's tap shift and its offset in x, d * cin + ci
-  bool m_ok;   // the group lies inside M
-  uint4 lo, hi;
-
-  __device__ __forceinline__ BfConvWgradRows(const BfShiftRows& a_, int M, int m0, int k_end_)
-      : a(a_), k_end(k_end_) {
-    const int m = m0 + (threadIdx.x >> 4) * 8;
-    const int j = m / a.cin;
-    d = a.sign * (j - a.lo);
-    off = d * a.cin + (m - j * a.cin);
-    m_ok = m < M;
-  }
-
-  __device__ __forceinline__ uint4 row(int g) const {
-    const bool ok = m_ok && g < k_end && (unsigned)(g % a.S + d) < (unsigned)a.S;
-    return ok ? __ldg(reinterpret_cast<const uint4*>(a.x + (size_t)g * a.cin + off))
-              : make_uint4(0u, 0u, 0u, 0u);
-  }
-
-  __device__ __forceinline__ void load(int k0) {
-    const int g = k0 + 2 * (threadIdx.x & 15);
-    lo = row(g);
-    hi = row(g + 1);
-  }
-
-  __device__ __forceinline__ void store(uint32_t* tile) const {
-    const int p = threadIdx.x & 15, cg = threadIdx.x >> 4;
-    const uint32_t l[4] = {lo.x, lo.y, lo.z, lo.w}, h[4] = {hi.x, hi.y, hi.z, hi.w};
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const uint32_t a0 = (j & 1) ? l[j / 2] >> 16 : l[j / 2] & 0xffffu;
-      const uint32_t b0 = (j & 1) ? h[j / 2] >> 16 : h[j / 2] & 0xffffu;
-      tile[(cg * 8 + j) * focal::kBfRowWords + p] = a0 | (b0 << 16);
-    }
-  }
-};
-
-// acc = A B over K in [k_begin, k_end), A staged by `a` (BfConvRows or
-// BfConvWgradRows), B [K, N] bf16 (row-major, ldb = N) by gemm_bf16.cuh's
-// PairSlice, on bf_compute's warp tiles: two shared-memory stages fed
-// through registers.
-template <int kBN, class ARows>
-__device__ __forceinline__ void bf_conv_tile(ARows& a, const bf16* B, int N, int n0, int k_begin,
-                                             int k_end, uint32_t* smem,
-                                             float (&acc)[4][focal::gemm_nt<kBN>()][4]) {
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < focal::gemm_nt<kBN>(); ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-  const focal::BfOperand bop{B, N};
-  focal::PairSlice<kBN> bs;
-  const int kt_n = (k_end - k_begin + focal::kBfBK - 1) / focal::kBfBK;
-  if (kt_n > 0) {
-    a.load(k_begin);
-    bs.load(bop, N, n0, k_begin, k_end);
-  }
-  for (int kt = 0; kt < kt_n; ++kt) {
-    uint32_t* As = smem + (kt & 1) * focal::bf_stage_words(kBN);
-    uint32_t* Bs = As + focal::kGemmBM * focal::kBfRowWords;
-    a.store(As);
-    bs.store(Bs);
-    // the slot is staged; and every warp finished slice kt - 2, the last
-    // reader of this slot, before it reached the barrier of slice kt - 1
-    __syncthreads();
-    if (kt + 1 < kt_n) {
-      const int k0 = k_begin + (kt + 1) * focal::kBfBK;
-      a.load(k0);
-      bs.load(bop, N, n0, k0, k_end);
-    }
-    focal::bf_compute<kBN>(As, Bs, acc);
-  }
+  t.r_tiles = (R + t.rb - 1) / t.rb;
+  return t;
 }
 
-// A bf16 conv (sign +1) or transposed conv (sign -1) as an implicit-im2col
-// product: out = im2col(a.x) w + bias (+ add), rounded to bf16 once [M, N],
-// K = KW * a.cin; with part, each row tile's column sums of the stored out
-// and out^2 into part[tile] [2, N].
-struct BfConvGemmArgs {
-  BfShiftRows a;
-  const bf16* w;      // [K, N]
-  const float* bias;  // [N], or null
-  const bf16* add;    // [M, N], or null
-  bf16* out;          // [M, N]
-  float* part;        // [row tiles, 2, N], or null
-  int M, N, K;
+// A bf16 conv's or transposed conv's plan over N output channels on `sms`
+// SMs: 128-row tiles of whole samples, bn-wide column tiles (128 where N is
+// a multiple of 128, else 64), and per column tile per_n persistent blocks,
+// each summing its tiles' columns into one partial: per_n column-sum
+// partials [per_n, 2, N].
+struct ConvPlan16 {
+  SampleTiles st;
+  int bn, tiles_n, per_n;
 };
 
-// Two blocks an SM at 64 columns, one at 128; 30 or 40 KB of static shared
-// memory.
-template <int kBN>
-__global__ void __launch_bounds__(kThreads, kBN == 64 ? 2 : 1)
-bf16_conv_gemm_kernel(const BfConvGemmArgs p) {
-  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
-  const int tiles_n = (p.N + kBN - 1) / kBN;
-  const int tile_m = blockIdx.x / tiles_n;
-  const int m0 = tile_m * focal::kGemmBM, n0 = (blockIdx.x % tiles_n) * kBN;
-  float acc[4][focal::gemm_nt<kBN>()][4];
-  BfConvRows rows(p.a, p.M, m0, p.K);
-  bf_conv_tile<kBN>(rows, p.w, p.N, n0, 0, p.K, smem, acc);
-  conv_epilogue<kBN>(acc, p.bias, p.add, p.out, p.part, p.M, p.N, m0, n0, tile_m,
-                     reinterpret_cast<float*>(smem));
+ConvPlan16 conv_plan16(int R, int S, int N, int sms) {
+  ConvPlan16 P{};
+  P.st = sample_tiles(R, S, wgk::kBM);
+  P.bn = N % 128 == 0 ? 128 : 64;
+  P.tiles_n = (N + P.bn - 1) / P.bn;
+  P.per_n = std::max(1, std::min(P.st.tiles(), sms / P.tiles_n));
+  return P;
 }
 
-// Block (tile, split): one tile of dW = im2col(a.x)^T dc [M = KW * cin, N]
-// over the split's rows (bf16 operands, f32 sums), into the split's partial
-// (E = M N floats; db comes from the dc pass).
+// A bf16 weight gradient's plan, dW = im2col(x)^T dc [kw * cin, N]: K
+// stages of whole samples (up to 64 rows; a stage's rows past them stay
+// zero), dW's rows padded per tap to cb 64-channel blocks (m_pad = kw * cb
+// * 64 rows, those past cin dropped), bn-wide columns, wtiles output tiles,
+// and the stages in `splits` runs of per_split (gemm_wgmma.cuh's
+// wgrad_splits over 64-row stages).
+struct WgradPlan16 {
+  SampleTiles st;
+  int cb, m_pad, bn, tn, wtiles, per_split, splits;
+};
+
+WgradPlan16 wgrad_plan16(int R, int S, int cin, int N, int kw, int sms) {
+  WgradPlan16 W{};
+  W.st = sample_tiles(R, S, wgk::kBK);
+  W.cb = (cin + 63) / 64;
+  W.m_pad = kw * W.cb * 64;
+  W.bn = N % 128 == 0 ? 128 : 64;
+  W.tn = (N + W.bn - 1) / W.bn;
+  W.wtiles = wgk::wgrad_tiles(W.m_pad, N, W.bn);
+  const wgk::WgradSplits sp = wgk::wgrad_splits(W.st.tiles() * wgk::kBK, W.wtiles, sms);
+  W.per_split = sp.rows_per_split / wgk::kBK;
+  W.splits = sp.splits;
+  return W;
+}
+
+// A bf16 conv (sign +1: out = im2col(x) W + bias) or transposed conv (sign
+// -1: out = convT(x, W) (+ add)) of rows x [R, S, cx] into out [R, S, N],
+// rounded to bf16 once; K is kw taps of cb 64-channel blocks of x. With
+// part, each persistent block's column sums over its tiles into part[i]
+// [2, N] (i the block's place in its column tile): the conv's Σout and
+// Σout² of the stored values, or, with c (the transposed conv of layer k),
+// layer k-1's Σgy and Σgy·x̂ from the stored out, its da (gy = da *
+// mask * GELU'(c A + B), x̂ = c P - Q with layer k-1's c, mask and BN rows).
+struct ConvArgs16 {
+  SampleTiles st;
+  int R, S, N, tiles_n;
+  int cb, kw, lo, sign;
+  const float* bias;   // [N], or null
+  const bf16* add;     // [R S, N], or null
+  float* part;         // [per_n, 2, N], or null
+  const bf16* c;       // layer k-1's c [R S, N], or null
+  const float* mask;   // its mask [M, N]: row r takes mask[r / group]
+  const float* rows;   // its BN rows [5, N]
+  int group;
+};
+
+// The shared memory of ct_wg_conv_kernel: the ring, a 1 KB page for its
+// barriers (and the epilogue's two), the staged output tile, in the
+// transposed conv (kT) the tile of layer k-1's c, and the blocks'
+// column-sum exchange.
+template <int kBN, bool kT>
+struct ConvSmem16 {
+  static constexpr int kStages = kBN == 128 ? (kT ? 4 : 5) : 7;
+  static constexpr size_t kTile = (size_t)wgk::kBM * kBN * 2;
+  static constexpr size_t kStaged =
+      (size_t)kStages * wgk::Ring<kBN, false, false, kStages>::kStageBytes + 1024;
+  static constexpr size_t kC = kStaged + kTile;
+  static constexpr size_t kRed = kC + (kT ? kTile : 0);
+  static constexpr size_t kBytes = 1024 + kRed + (size_t)8 * 2 * kBN * sizeof(float);
+};
+
+struct ConvJob16 {
+  int t, tile, n0, k_tiles;  // launch tile t: row tile `tile`, columns from n0
+};
+
+// The bf16 pair at (row, col) of a tile staged for TMA (kBM-row boxes of
+// 64 columns, 128-byte swizzle: gemm_wgmma.cuh's stage_pair).
+__device__ __forceinline__ uint32_t* staged_pair(uint8_t* tile, int row, int col) {
+  return reinterpret_cast<uint32_t*>(tile + (col >> 6) * (wgk::kBM * 128) + row * 128 +
+                                     ((((col & 63) >> 3) ^ (row & 7)) << 4) + (col & 7) * 2);
+}
+
+// Persistent blocks over the row tiles x column tiles (a block keeps one
+// column tile: the grid is per_n * tiles_n), each tile's K stages tap by
+// tap and 64-channel block by block: A the box of x at the tap's shifted
+// position (zeros outside the sample), B W's tap slice, MN-major (the conv:
+// B [cin, N] as it lies) or K-major (kT, the transposed conv: B^T [N = cin,
+// C] as it lies). In the transposed conv the producer also loads, after a
+// tile's stages, the tile's residual (into the staged output tile, added in
+// place) and layer k-1's c (the fold's) by TMA through mda and mc (the
+// barriers efull, and efree once the last tile's store has read them), so
+// that the epilogue reads them from shared memory. The epilogue rounds the
+// tile once, stores it by TMA and adds its rows' sums into the thread's
+// running sums; the block's last tile reduces them (a fixed butterfly over
+// each warp's row groups, then the eight warps in order) into its partial.
+template <int kBN, bool kT>
+__global__ void __launch_bounds__(wgk::kThreads, 1)
+ct_wg_conv_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mw,
+                  const __grid_constant__ CUtensorMap mout, const __grid_constant__ CUtensorMap mda,
+                  const __grid_constant__ CUtensorMap mc, const ConvArgs16 p) {
+  using Sm = ConvSmem16<kBN, kT>;
+  constexpr int kCols = kBN / 4;  // a consumer thread's columns of a tile
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* base = wgk::align1024(smem_raw);
+  uint8_t* staged = base + Sm::kStaged;
+  uint8_t* ctile = base + Sm::kC;
+  float* red = reinterpret_cast<float*>(base + Sm::kRed);
+  // efull, efree: after the ring's 2 kStages barriers in its page
+  uint64_t* ebar = reinterpret_cast<uint64_t*>(base + Sm::kStaged - 1024) + 2 * Sm::kStages;
+  const bool fold = kT && p.c != nullptr, eload = kT && (p.add != nullptr || fold);
+  const int tiles = p.st.tiles() * p.tiles_n, k_tiles = p.kw * p.cb;
+  if (threadIdx.x == 0 && eload) {
+    wgk::mbar_init(&ebar[0], 1);
+    wgk::mbar_init(&ebar[1], 1);
+  }
+  float s1[kCols], s2[kCols];
+  int et = 0;  // tiles done: the producer's (loads issued) and each consumer's (epilogues)
+  auto plan = [&](int t) {
+    return ConvJob16{t, t / p.tiles_n, t % p.tiles_n * kBN, k_tiles};
+  };
+  auto load = [&](const auto& ring, int s, const ConvJob16& j, int kt) {
+    const int tap = kt / p.cb, c0 = kt % p.cb * 64;
+    const int r0 = p.st.r0(j.tile), s0 = p.st.s0(j.tile);
+    const int b_boxes = kT ? 1 : min(kBN / 64, (p.N - j.n0 + 63) / 64);
+    wgk::mbar_expect_tx(&ring.full[s],
+                        p.st.rows() * 128 + (kT ? kBN * 128 : b_boxes * wgk::kBoxBytes));
+    wgk::tma_load3(ring.a(s), &mx, &ring.full[s], c0, s0 + p.sign * (tap - p.lo), r0);
+    if (kT) {
+      wgk::tma_load3(ring.b(s), &mw, &ring.full[s], c0, j.n0, tap);
+    } else {
+      for (int i = 0; i < b_boxes; ++i)
+        wgk::tma_load3(ring.b(s) + i * wgk::kBoxBytes, &mw, &ring.full[s], j.n0 + 64 * i, c0, tap);
+    }
+  };
+  auto after = [&](const ConvJob16& j) {
+    if (!eload) return;
+    if (et > 0) wgk::mbar_wait(&ebar[1], (et - 1) & 1);  // the last tile's store has read them
+    const int r0 = p.st.r0(j.tile), s0 = p.st.s0(j.tile);
+    const int boxes = min(kBN / 64, (p.N - j.n0 + 63) / 64);
+    wgk::mbar_expect_tx(&ebar[0], boxes * p.st.rows() * 128 * ((p.add ? 1 : 0) + (fold ? 1 : 0)));
+    for (int b = 0; b < boxes; ++b) {
+      if (p.add) wgk::tma_load3(staged + b * wgk::kBM * 128, &mda, &ebar[0], j.n0 + 64 * b, s0, r0);
+      if (fold) wgk::tma_load3(ctile + b * wgk::kBM * 128, &mc, &ebar[0], j.n0 + 64 * b, s0, r0);
+    }
+    ++et;
+  };
+  auto epi = [&](const ConvJob16& j, float (&acc)[kBN / 2]) {
+    const wgk::Frag f;
+    const int r0 = p.st.r0(j.tile), s0 = p.st.s0(j.tile);
+    if (j.t == (int)blockIdx.x) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) s1[c] = s2[c] = 0.f;
+    }
+    // the thread's two rows: whether they hold outputs and their sample's
+    // mask row
+    bool in[2];
+    int mrow[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = f.row0 + 8 * h, rl = q / p.st.sb, r = r0 + rl, s = s0 + q - rl * p.st.sb;
+      in[h] = q < p.st.rows() && r < p.R && s < p.S;
+      mrow[h] = fold && in[h] ? r / p.group : 0;
+    }
+    if (threadIdx.x == 0) wgk::tma_store_wait_read();
+    if (eload) wgk::mbar_wait(&ebar[0], et & 1);  // the tile's residual and c are staged
+    ++et;
+    wgk::consumers_sync();
+    // kGroup column groups of 8 at a time: their global loads (L1-resident
+    // bias, BN rows and mask) first, at addresses inside the arrays, so
+    // that they issue together, then their math
+    constexpr int kGroup = 4;
+#pragma unroll
+    for (int j0 = 0; j0 < kBN / 8; j0 += kGroup) {
+      float2 mk[kGroup][2], cf[kGroup][4];  // the mask; bias, or A, B, P, Q
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+        const int n = j.n0 + f.col(4 * (j0 + jj)), nn = n < p.N ? n : 0;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          mk[jj][h] = fold ? __ldg(reinterpret_cast<const float2*>(p.mask + (size_t)mrow[h] * p.N +
+                                                                   nn))
+                           : make_float2(0.f, 0.f);
+        if (!kT) {
+          cf[jj][0] = make_float2(__ldg(p.bias + nn), __ldg(p.bias + nn + 1));
+        } else if (fold) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            cf[jj][k] = __ldg(reinterpret_cast<const float2*>(p.rows + (size_t)k * p.N + nn));
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < kGroup; ++jj) {
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int c2 = 2 * (j0 + jj), i = 4 * (j0 + jj) + 2 * h, n = j.n0 + f.col(i);
+          const bool on = in[h] && n < p.N;  // N % 8 == 0: n + 1 lies inside with n
+          uint32_t* at = staged_pair(staged, f.row(i), f.col(i));
+          float v0 = acc[i], v1 = acc[i + 1];
+          if (!kT) {
+            v0 += cf[jj][0].x;
+            v1 += cf[jj][0].y;
+          } else if (p.add) {
+            const uint32_t d = *at;
+            v0 += __uint_as_float(d << 16);
+            v1 += __uint_as_float(d & 0xffff0000u);
+          }
+          const uint32_t packed = wgk::pack_bf16(v0, v1);
+          *at = packed;
+          if (!on || p.part == nullptr) continue;
+          const float o[2] = {__uint_as_float(packed << 16), __uint_as_float(packed & 0xffff0000u)};
+          if (!kT) {
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              s1[c2 + u] += o[u];
+              s2[c2 + u] = fmaf(o[u], o[u], s2[c2 + u]);
+            }
+          } else {
+            const uint32_t cc = *staged_pair(ctile, f.row(i), f.col(i));
+            const float c[2] = {__uint_as_float(cc << 16), __uint_as_float(cc & 0xffff0000u)};
+            const float m[2] = {mk[jj][h].x, mk[jj][h].y};
+            const float A[2] = {cf[jj][0].x, cf[jj][0].y}, B[2] = {cf[jj][1].x, cf[jj][1].y};
+            const float P[2] = {cf[jj][2].x, cf[jj][2].y}, Q[2] = {cf[jj][3].x, cf[jj][3].y};
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const float gy = o[u] * m[u] * gelu_grad(fmaf(c[u], A[u], B[u]));
+              s1[c2 + u] += gy;
+              s2[c2 + u] = fmaf(gy, fmaf(c[u], P[u], -Q[u]), s2[c2 + u]);
+            }
+          }
+        }
+      }
+    }
+    wgk::fence_async_smem();
+    wgk::consumers_sync();  // the tile is staged
+    if (threadIdx.x == 0) {
+#pragma unroll
+      for (int b = 0; b < kBN / 64; ++b)
+        if (j.n0 + 64 * b < p.N)
+          wgk::tma_store3(&mout, staged + b * wgk::kBM * 128, j.n0 + 64 * b, s0, r0);
+      wgk::tma_store_commit();
+      if (eload) {  // the staged tile and c free for the next tile's loads
+        wgk::tma_store_wait_read();
+        wgk::mbar_arrive(&ebar[1]);
+      }
+    }
+    if (p.part == nullptr || j.t + (int)gridDim.x < tiles) return;
+    // the block's last tile: its partial
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+    for (int c = 0; c < kCols; ++c)
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        s1[c] += __shfl_xor_sync(0xffffffffu, s1[c], off);
+        s2[c] += __shfl_xor_sync(0xffffffffu, s2[c], off);
+      }
+    if (lane < 4) {
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int col = f.col0 + 8 * (c / 2) + c % 2;
+        red[(2 * warp) * kBN + col] = s1[c];
+        red[(2 * warp + 1) * kBN + col] = s2[c];
+      }
+    }
+    wgk::consumers_sync();
+    const int n = j.n0 + (int)threadIdx.x;
+    if ((int)threadIdx.x < kBN && n < p.N) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int w = 0; w < 8; ++w) {
+        t1 += red[(2 * w) * kBN + threadIdx.x];
+        t2 += red[(2 * w + 1) * kBN + threadIdx.x];
+      }
+      const size_t i = blockIdx.x / p.tiles_n;
+      p.part[i * 2 * p.N + n] = t1;
+      p.part[(i * 2 + 1) * p.N + n] = t2;
+    }
+  };
+  wgk::streamed_tiles_by<kBN, false, !kT, Sm::kStages>(smem_raw, tiles, plan, load, epi, after);
+  if (threadIdx.x == 0) wgk::tma_store_wait_read();  // the last store has left shared memory
+}
+
+// dW = im2col(x)^T dc over a split's K stages, into its partial part + split
+// kw cin N (the rows of dW past cin in a tap dropped): A the boxes of x at
+// each 64-row block of dW's tap-shifted channels, B dc's box, both MN-major
+// as they lie (rows are K).
+struct WgradArgs16 {
+  WgradPlan16 w;
+  int kw, cin, N, lo;
+  float* part;  // [splits, kw cin, N]
+};
+
+struct WgradJob16 {
+  int m0, n0, b0, k_tiles, split;
+};
+
 template <int kBN>
-__global__ void __launch_bounds__(kThreads, kBN == 64 ? 2 : 1)
-bf16_conv_wgrad_kernel(const BfShiftRows a, const bf16* __restrict__ dc, int M, int N, int RS,
-                       int rows_per_split, float* __restrict__ part, size_t E) {
-  __shared__ __align__(16) uint32_t smem[focal::bf_smem_words(kBN)];
-  const int tiles_n = (N + kBN - 1) / kBN;
-  const int m0 = (blockIdx.x / tiles_n) * focal::kGemmBM, n0 = (blockIdx.x % tiles_n) * kBN;
-  const int r_begin = blockIdx.y * rows_per_split;
-  const int r_end = min(RS, r_begin + rows_per_split);
-  float acc[4][focal::gemm_nt<kBN>()][4];
-  BfConvWgradRows rows(a, M, m0, r_end);
-  bf_conv_tile<kBN>(rows, dc, N, n0, r_begin, r_end, smem, acc);
-  float* out = part + (size_t)blockIdx.y * E;
-  focal::gemm_for_each_output<kBN>(acc, M, N, m0, n0, [&](int row, int col, float v0, float v1) {
-    *reinterpret_cast<float2*>(out + (size_t)row * N + col) = make_float2(v0, v1);
-  });
+__global__ void __launch_bounds__(wgk::kThreads, 1)
+ct_wg_wgrad_kernel(const __grid_constant__ CUtensorMap mx, const __grid_constant__ CUtensorMap mdc,
+                   const WgradArgs16 p) {
+  constexpr int kStages = wgk::kStreamStages<kBN>;
+  extern __shared__ uint8_t smem_raw[];
+  const WgradPlan16& w = p.w;
+  {  // zeros in every stage: a stage's K rows past w.st.rows() are never loaded
+    uint4* z = reinterpret_cast<uint4*>(wgk::align1024(smem_raw));
+    const int words = kStages * wgk::Ring<kBN, true, true, kStages>::kStageBytes / 16;
+    for (int i = threadIdx.x; i < words; i += blockDim.x) z[i] = make_uint4(0u, 0u, 0u, 0u);
+    wgk::fence_async_smem();
+  }
+  const int tap_rows = w.cb * 64;
+  auto plan = [&](int t) {
+    const int split = t / w.wtiles, tt = t % w.wtiles, b0 = split * w.per_split;
+    return WgradJob16{tt / w.tn * wgk::kBM, tt % w.tn * kBN, b0,
+                      min(w.st.tiles(), b0 + w.per_split) - b0, split};
+  };
+  auto load = [&](const auto& ring, int s, const WgradJob16& j, int kt) {
+    const int b = j.b0 + kt, r0 = w.st.r0(b), s0 = w.st.s0(b);
+    const int a_boxes = j.m0 + 64 < w.m_pad ? 2 : 1;
+    const int b_boxes = min(kBN / 64, (p.N - j.n0 + 63) / 64);
+    wgk::mbar_expect_tx(&ring.full[s], (a_boxes + b_boxes) * w.st.rows() * 128);
+    for (int i = 0; i < a_boxes; ++i) {
+      const int m = j.m0 + 64 * i, tap = m / tap_rows;
+      wgk::tma_load3(ring.a(s) + i * wgk::kBoxBytes, &mx, &ring.full[s], m - tap * tap_rows,
+                     s0 + tap - p.lo, r0);
+    }
+    for (int i = 0; i < b_boxes; ++i)
+      wgk::tma_load3(ring.b(s) + i * wgk::kBoxBytes, &mdc, &ring.full[s], j.n0 + 64 * i, s0, r0);
+  };
+  auto epi = [&](const WgradJob16& j, float (&acc)[kBN / 2]) {
+    const wgk::Frag f;
+    float* out = p.part + (size_t)j.split * p.kw * p.cin * p.N;
+#pragma unroll
+    for (int i = 0; i < kBN / 2; i += 2) {
+      const int mp = j.m0 + f.row(i), n = j.n0 + f.col(i);
+      const int tap = mp / tap_rows, ci = mp - tap * tap_rows;
+      if (mp >= w.m_pad || ci >= p.cin || n >= p.N) continue;
+      *reinterpret_cast<float2*>(out + ((size_t)tap * p.cin + ci) * p.N + n) =
+          make_float2(acc[i], acc[i + 1]);
+    }
+  };
+  wgk::streamed_tiles_by<kBN, true, true, kStages>(smem_raw, w.splits * w.wtiles, plan, load, epi);
 }
 
 // ---------------------------------------------------------------------------
@@ -909,17 +1189,25 @@ int ceil_div(long long a, long long b) { return (int)((a + b - 1) / b); }
 // Floats of workspace that n bf16 values take, rounded up to 16 bytes.
 size_t bf16_floats(size_t n) { return (n + 7) / 8 * 4; }
 
-// The column-sum partials of a forward conv over cin channels: one per
-// 128-row tile of the product, or per kStatRows rows of the narrow conv.
-int fwd_partials(int RS, int cin, bool bf16) {
-  return on_tensor_cores(cin, bf16) ? ceil_div(RS, focal::kGemmBM) : ceil_div(RS, kStatRows);
+// The column-sum partials of an f32 forward conv over cin channels: one
+// per 128-row tile of the product, or per kStatRows rows of the narrow conv.
+int fwd_partials(int RS, int cin) {
+  return on_tensor_cores(cin, false) ? ceil_div(RS, focal::kGemmBM) : ceil_div(RS, kStatRows);
 }
 
-// The weight gradient of a layer (KW * cin x C, and in f32 db): tile width,
-// tiles, row splits and the partial size E = M C + C (bf16: M C, db comes
-// from the dc pass). The product's splits fill the card about four times
-// over (split_rows); the narrow one takes kStatRows-row splits the same
-// way, as one tile.
+// The same of a bf16 forward conv into cout channels: one per persistent
+// block of the product (conv_plan16), or per kStatRows rows of the narrow
+// conv.
+int fwd_partials16(int R, int S, int cin, int cout, int sms) {
+  return on_tensor_cores(cin, true) ? conv_plan16(R, S, cout, sms).per_n
+                                    : ceil_div((long long)R * S, kStatRows);
+}
+
+// The weight gradient of an f32 layer (KW * cin x C, and db), or of a bf16
+// narrow first conv (KW * cin x C: db comes from the dc pass): tile width,
+// tiles, row splits and the partial size E. The product's splits fill the
+// card about four times over (split_rows); the narrow one takes
+// kStatRows-row splits the same way, as one tile.
 struct WgradPlan {
   int bn, tiles, splits, rows_per_split;
   size_t E;
@@ -940,6 +1228,13 @@ WgradPlan wgrad_plan(int RS, int cin, int C, int KW, int sms, bool bf16) {
   P.splits = rs.splits;
   P.rows_per_split = rs.rows_per_split;
   return P;
+}
+
+// The weight-gradient splits of a bf16 layer: wgrad_plan16's on the tensor
+// cores, wgrad_plan's for a narrow first conv.
+int wgrad_splits16(int R, int S, int cin, int C, int kw, int sms) {
+  return on_tensor_cores(cin, true) ? wgrad_plan16(R, S, cin, C, kw, sms).splits
+                                    : wgrad_plan(R * S, cin, C, kw, sms, true).splits;
 }
 
 // R rows of S positions with a mask of M rows (R % M == 0), and C channels
@@ -984,26 +1279,63 @@ cudaError_t launch_conv_gemm(const float* x, int cin, int S, int KW, int sign, c
                                      : launch_conv_gemm_bn<64>(p, s);
 }
 
-// The same in bf16 (bf16_conv_gemm_kernel): x, w, add and out bf16, out
-// rounded once.
-cudaError_t launch_conv_gemm(const bf16* x, int cin, int S, int KW, int sign, const bf16* w,
-                             const float* bias, const bf16* add, bf16* out, float* part, int RS,
-                             int N, cudaStream_t s) {
-  if (!aligned16(x) || !aligned16(w) || !aligned16(out) || (add && !aligned16(add)))
-    return cudaErrorMisalignedAddress;
-  BfConvGemmArgs p{};
-  p.a = BfShiftRows{x, cin, S, (KW - 1) / 2, sign};
-  p.w = w, p.bias = bias, p.add = add, p.out = out, p.part = part;
-  p.M = RS, p.N = N, p.K = KW * cin;
-  int tiles_n = 0, tiles = 0;
-  if (focal::tile_bn(N, 0) == 128) {
-    focal::set_tiles(p.M, p.N, 128, &tiles_n, &tiles);
-    bf16_conv_gemm_kernel<128><<<tiles, kThreads, 0, s>>>(p);
-  } else {
-    focal::set_tiles(p.M, p.N, 64, &tiles_n, &tiles);
-    bf16_conv_gemm_kernel<64><<<tiles, kThreads, 0, s>>>(p);
-  }
-  return cudaGetLastError();
+// A bf16 conv (sign 1) or transposed conv (sign -1) on the TMA ring
+// (ct_wg_conv_kernel) over rows x [R, S, cx]: w [kw * wrows, wcols] viewed
+// [kw, wrows, wcols] (the conv's: cx = wrows, out [R, S, wcols]; the
+// transposed conv's: cx = wcols, out [R, S, wrows]); a holds the bias, the
+// residual, the partials and the fold. Each map encoded once a call.
+int launch_conv16(const bf16* x, int cx, const bf16* w, int wrows, int wcols, int kw, int sign,
+                  ConvArgs16 a, bf16* out, int R, int S, int sms, cudaStream_t s) {
+  const int N = sign > 0 ? wcols : wrows;
+  if (!aligned16(x) || !aligned16(w) || !aligned16(out) || (a.add && !aligned16(a.add)) ||
+      (a.c && !aligned16(a.c)))
+    return (int)cudaErrorMisalignedAddress;
+  const ConvPlan16 P = conv_plan16(R, S, N, sms);
+  // x, w, out; the residual and layer k-1's c (the transposed conv's
+  // epilogue loads; out's map where there is none)
+  CUtensorMap m[5];
+  if (int e = wgk::map3(&m[0], x, R, S, cx, P.st.rb, P.st.sb)) return e;
+  if (int e = wgk::map3(&m[1], w, kw, wrows, wcols, 1, sign > 0 ? 64 : P.bn)) return e;
+  if (int e = wgk::map3(&m[2], out, R, S, N, P.st.rb, P.st.sb)) return e;
+  m[3] = m[4] = m[2];
+  if (a.add)
+    if (int e = wgk::map3(&m[3], a.add, R, S, N, P.st.rb, P.st.sb)) return e;
+  if (a.c)
+    if (int e = wgk::map3(&m[4], a.c, R, S, N, P.st.rb, P.st.sb)) return e;
+  a.st = P.st;
+  a.R = R, a.S = S, a.N = N, a.tiles_n = P.tiles_n;
+  a.cb = (cx + 63) / 64, a.kw = kw, a.lo = (kw - 1) / 2, a.sign = sign;
+  const int grid = P.per_n * P.tiles_n;
+  if (sign > 0)
+    return P.bn == 128
+               ? wgk::launch(ct_wg_conv_kernel<128, false>, grid, ConvSmem16<128, false>::kBytes, s,
+                             m[0], m[1], m[2], m[3], m[4], a)
+               : wgk::launch(ct_wg_conv_kernel<64, false>, grid, ConvSmem16<64, false>::kBytes, s,
+                             m[0], m[1], m[2], m[3], m[4], a);
+  return P.bn == 128
+             ? wgk::launch(ct_wg_conv_kernel<128, true>, grid, ConvSmem16<128, true>::kBytes, s,
+                           m[0], m[1], m[2], m[3], m[4], a)
+             : wgk::launch(ct_wg_conv_kernel<64, true>, grid, ConvSmem16<64, true>::kBytes, s, m[0],
+                           m[1], m[2], m[3], m[4], a);
+}
+
+// The split partials of a bf16 weight gradient im2col(x)^T dc, x [R, S,
+// cin], dc [R, S, C], into part [splits, kw cin, C] (ct_wg_wgrad_kernel,
+// persistent over min(tiles, sms) blocks). Returns the splits through
+// *splits.
+int launch_wgrad16(const bf16* x, int cin, const bf16* dc, int C, int kw, float* part, int R,
+                   int S, int sms, int* splits, cudaStream_t s) {
+  const WgradPlan16 W = wgrad_plan16(R, S, cin, C, kw, sms);
+  *splits = W.splits;
+  CUtensorMap m[2];
+  if (int e = wgk::map3(&m[0], x, R, S, cin, W.st.rb, W.st.sb)) return e;
+  if (int e = wgk::map3(&m[1], dc, R, S, C, W.st.rb, W.st.sb)) return e;
+  const WgradArgs16 a{W, kw, cin, C, (kw - 1) / 2, part};
+  const int grid = std::min(W.splits * W.wtiles, sms);
+  return W.bn == 128 ? wgk::launch(ct_wg_wgrad_kernel<128>, grid,
+                                   wgk::stream_smem<128, true, true>(), s, m[0], m[1], a)
+                     : wgk::launch(ct_wg_wgrad_kernel<64>, grid, wgk::stream_smem<64, true, true>(),
+                                   s, m[0], m[1], a);
 }
 
 template <class T>
@@ -1022,16 +1354,29 @@ int launch_elementwise(bool backward, const BnArgs<T>& p, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
-// The first conv (or layer k+1's conv) of the forward over x [RS, cin]:
-// c [RS, cout] and its BatchNorm's statistics and coefficients st,
-// through ws (the column-sum partials). T: the rows' type.
+// The first conv (or layer k+1's conv) of the forward over x [R S, cin]:
+// c [R S, cout] and its BatchNorm's statistics and coefficients st,
+// through ws (the column-sum partials). T: the rows' type. f32: the 3xTF32
+// product (or the narrow conv) and bn_stats_kernel; bf16: the wgmma product
+// (or the narrow conv) and bn_stats_sliced_kernel.
 template <class T>
 int conv_forward(const T* x, const T* w, const float* b, T* c, const BnStats& st, float* ws,
-                 int RS, int S, int cin, int cout, int kw, cudaStream_t s) {
+                 int R, int S, int cin, int cout, int kw, cudaStream_t s) {
   constexpr bool kBf16 = sizeof(T) == 2;
+  const int RS = R * S;
   cudaError_t err;
+  int sms = 0;
+  if (kBf16 && (err = device_sms(&sms)) != cudaSuccess) return (int)err;
   if (on_tensor_cores(cin, kBf16)) {
-    err = launch_conv_gemm(x, cin, S, kw, 1, w, b, nullptr, c, ws, RS, cout, s);
+    if constexpr (kBf16) {
+      ConvArgs16 a{};
+      a.bias = b;
+      a.part = ws;
+      if (int e = launch_conv16(x, cin, w, cin, cout, kw, 1, a, c, R, S, sms, s)) return e;
+      err = cudaSuccess;
+    } else {
+      err = launch_conv_gemm(x, cin, S, kw, 1, w, b, nullptr, c, ws, RS, cout, s);
+    }
   } else {
     if (!aligned16(c)) return (int)cudaErrorMisalignedAddress;
     const size_t smem = column_sums_smem(cout);
@@ -1042,8 +1387,12 @@ int conv_forward(const T* x, const T* w, const float* b, T* c, const BnStats& st
     err = cudaGetLastError();
   }
   if (err != cudaSuccess) return (int)err;
-  bn_stats_kernel<<<ceil_div(cout, kThreads), kThreads, 0, s>>>(
-      ws, fwd_partials(RS, cin, kBf16), cout, (float)RS, st);
+  if (kBf16)
+    bn_stats_sliced_kernel<<<ceil_div(cout, 32), kSlices * 32, 0, s>>>(
+        ws, fwd_partials16(R, S, cin, cout, sms), cout, (float)RS, st);
+  else
+    bn_stats_kernel<<<ceil_div(cout, kThreads), kThreads, 0, s>>>(ws, fwd_partials(RS, cin), cout,
+                                                                  (float)RS, st);
   return (int)cudaGetLastError();
 }
 
@@ -1052,7 +1401,7 @@ int ct_conv0(const void* x, const void* w, const void* b, const BnStats& st, voi
              int R, int S, int cin, int cout, int kw, cudaStream_t s) {
   return conv_forward(static_cast<const T*>(x), static_cast<const T*>(w),
                       static_cast<const float*>(b), static_cast<T*>(c), st,
-                      static_cast<float*>(ws), R * S, S, cin, cout, kw, s);
+                      static_cast<float*>(ws), R, S, cin, cout, kw, s);
 }
 
 template <class T>
@@ -1070,29 +1419,48 @@ int ct_apply(const void* c, const void* rows, const void* mask, const void* apre
   if (err || w == nullptr) return err;
   return conv_forward(static_cast<const T*>(p.out), static_cast<const T*>(w),
                       static_cast<const float*>(b), static_cast<T*>(c_next), st,
-                      static_cast<float*>(ws), R * S, S, C, cout, kw, s);
+                      static_cast<float*>(ws), R, S, C, cout, kw, s);
 }
 
+// The backward sums: per-block partials (bn_grad_sums_kernel) then their
+// ordered sum, or in bf16 with `folded` (the partials of layer k+1's
+// transposed conv, conv_plan16's per_n of them) the ordered sum alone.
 template <class T>
 int ct_bwd_stats(const void* da, const void* c, const void* mask, const void* rows, void* s2,
-                 void* m, void* ws, int R, int S, int M, int C, cudaStream_t s) {
+                 void* m, void* ws, const void* folded, int R, int S, int M, int C,
+                 cudaStream_t s) {
+  constexpr bool kBf16 = sizeof(T) == 2;
   BnArgs<T> p{};
   p.c = static_cast<const T*>(c);
   p.da = static_cast<const T*>(da);
   p.rows = static_cast<const float*>(rows);
   p.mask = static_cast<const float*>(mask);
   p.R = R, p.S = S, p.C = C, p.group = R / M;
-  if (!bn_aligned(p)) return (int)cudaErrorMisalignedAddress;
-  const int blocks = ceil_div(R * S, kStatRows);
-  const size_t smem = column_sums_smem(C);
-  cudaError_t e = set_smem(bn_grad_sums_kernel<T>, smem);
-  if (e != cudaSuccess) return (int)e;
-  float* part = static_cast<float*>(ws);
-  bn_grad_sums_kernel<T><<<blocks, kThreads, smem, s>>>(p, part);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return (int)e;
-  bn_grad_stats_kernel<<<ceil_div(C, kThreads), kThreads, 0, s>>>(
-      part, blocks, C, (float)(R * S), p.rows, static_cast<float*>(s2), static_cast<float*>(m));
+  cudaError_t e;
+  const float* part = static_cast<const float*>(folded);
+  int parts = 0;
+  if (part != nullptr) {
+    if (!kBf16) return (int)cudaErrorInvalidValue;
+    int sms = 0;
+    if ((e = device_sms(&sms)) != cudaSuccess) return (int)e;
+    parts = conv_plan16(R, S, C, sms).per_n;
+  } else {
+    if (!bn_aligned(p)) return (int)cudaErrorMisalignedAddress;
+    parts = ceil_div(R * S, kStatRows);
+    const size_t smem = column_sums_smem(C);
+    e = set_smem(bn_grad_sums_kernel<T>, smem);
+    if (e != cudaSuccess) return (int)e;
+    bn_grad_sums_kernel<T><<<parts, kThreads, smem, s>>>(p, static_cast<float*>(ws));
+    e = cudaGetLastError();
+    if (e != cudaSuccess) return (int)e;
+    part = static_cast<const float*>(ws);
+  }
+  if (kBf16)
+    bn_grad_stats_sliced_kernel<<<ceil_div(C, 32), kSlices * 32, 0, s>>>(
+        part, parts, C, (float)(R * S), p.rows, static_cast<float*>(s2), static_cast<float*>(m));
+  else
+    bn_grad_stats_kernel<<<ceil_div(C, kThreads), kThreads, 0, s>>>(
+        part, parts, C, (float)(R * S), p.rows, static_cast<float*>(s2), static_cast<float*>(m));
   return (int)cudaGetLastError();
 }
 
@@ -1110,101 +1478,146 @@ int ct_bwd_dc(const void* da, const void* c, const void* mask, const void* rows,
   return launch_elementwise(true, p, s);
 }
 
-// Floats of workspace that n values of T take, rounded up to 16 bytes.
-template <class T>
-size_t row_floats(size_t n) {
-  return sizeof(T) == 4 ? n : bf16_floats(n);
-}
-
-// #14's backward apply (focal_ct_bwd_apply's launches) on T rows. The
-// workspace holds dc [RS, C] and W's per-tap transpose as T, in bf16 the dc
-// pass's block sums, then the weight-gradient partials. f32: dc in one
-// elementwise pass, db beside dW in the partials; bf16: dc rounded to bf16
-// with the f32 dc's block sums, db their ordered sum.
-template <class T>
-int bwd_apply(const BnArgs<T>& p0, const T* w, const T* ap, T* dprev, float* dwb, float* ws,
-              int R, int S, int C, int cin, int kw, int residual, int sms, cudaStream_t s) {
-  constexpr bool kBf16 = sizeof(T) == 2;
+// #14's backward apply (focal_ct_bwd_apply's launches) on f32 rows. The
+// workspace holds dc [RS, C], W's per-tap transpose, then the
+// weight-gradient partials (dW beside db); dc in one elementwise pass.
+int bwd_apply(const BnArgs<float>& p0, const float* w, const float* ap, float* dprev, float* dwb,
+              float* ws, int R, int S, int C, int cin, int kw, int residual, int sms,
+              cudaStream_t s) {
   const int RS = R * S;
-  const bool tc = on_tensor_cores(cin, kBf16);
-  const int blocks = ceil_div(RS, kStatRows);
-  T* dc = reinterpret_cast<T*>(ws);
-  float* next = ws + row_floats<T>((size_t)RS * C);
-  T* wt = reinterpret_cast<T*>(next);
-  next += tc ? row_floats<T>((size_t)kw * C * cin) : 0;
-  float* dsum = next;
-  float* wpart = next + (kBf16 ? (size_t)blocks * 2 * C : 0);
-  BnArgs<T> p = p0;
+  const bool tc = on_tensor_cores(cin, false);
+  float* dc = ws;
+  float* wt = ws + (size_t)RS * C;
+  float* wpart = wt + (tc ? (size_t)kw * C * cin : 0);
+  BnArgs<float> p = p0;
   p.out = dc;
-  const WgradPlan W = wgrad_plan(RS, cin, C, kw, sms, kBf16);
+  const WgradPlan W = wgrad_plan(RS, cin, C, kw, sms, false);
   cudaError_t e;
-  if constexpr (kBf16) {
-    if (!bn_aligned(p)) return (int)cudaErrorMisalignedAddress;
-    const size_t smem = column_sums_smem(C);
-    if ((e = set_smem(bn_dc_sums_kernel, smem)) != cudaSuccess) return (int)e;
-    bn_dc_sums_kernel<<<blocks, kThreads, smem, s>>>(p, dsum);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    column_total_kernel<<<ceil_div(C, kThreads), kThreads, 0, s>>>(dsum, blocks, C, dwb + W.E);
-    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-  } else {
-    if (int err = launch_elementwise(true, p, s)) return err;
-  }
+  if (int err = launch_elementwise(true, p, s)) return err;
   if (tc) {
     if (!aligned16(ap)) return (int)cudaErrorMisalignedAddress;
     const size_t n = (size_t)kw * C * cin;
-    tap_transpose_kernel<T><<<(unsigned)std::min<size_t>((n + kThreads - 1) / kThreads, sms * 8),
-                              kThreads, 0, s>>>(w, kw, cin, C, wt);
+    tap_transpose_kernel<float>
+        <<<(unsigned)std::min<size_t>((n + kThreads - 1) / kThreads, sms * 8), kThreads, 0, s>>>(
+            w, kw, cin, C, wt);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
     e = launch_conv_gemm(dc, C, S, kw, -1, wt, nullptr, residual ? p.da : nullptr, dprev, nullptr,
                          RS, cin, s);
     if (e != cudaSuccess) return (int)e;
     const dim3 grid(W.tiles, W.splits);
-    if constexpr (kBf16) {
-      const BfShiftRows a{ap, cin, S, (kw - 1) / 2, 1};
-      if (W.bn == 128)
-        bf16_conv_wgrad_kernel<128><<<grid, kThreads, 0, s>>>(a, dc, kw * cin, C, RS,
-                                                             W.rows_per_split, wpart, W.E);
-      else
-        bf16_conv_wgrad_kernel<64><<<grid, kThreads, 0, s>>>(a, dc, kw * cin, C, RS,
-                                                            W.rows_per_split, wpart, W.E);
+    const focal::ShiftRows a{ap, cin, S, (kw - 1) / 2, 1};
+    const size_t smem = focal::gemm_smem_bytes(W.bn);
+    if (W.bn == 128) {
+      if ((e = set_smem(conv_wgrad_kernel<128>, smem)) != cudaSuccess) return (int)e;
+      conv_wgrad_kernel<128><<<grid, kThreads, smem, s>>>(a, dc, kw * cin, C, RS,
+                                                         W.rows_per_split, wpart, W.E);
     } else {
-      const focal::ShiftRows a{ap, cin, S, (kw - 1) / 2, 1};
-      const size_t smem = focal::gemm_smem_bytes(W.bn);
-      if (W.bn == 128) {
-        if ((e = set_smem(conv_wgrad_kernel<128>, smem)) != cudaSuccess) return (int)e;
-        conv_wgrad_kernel<128><<<grid, kThreads, smem, s>>>(a, dc, kw * cin, C, RS,
-                                                           W.rows_per_split, wpart, W.E);
-      } else {
-        if ((e = set_smem(conv_wgrad_kernel<64>, smem)) != cudaSuccess) return (int)e;
-        conv_wgrad_kernel<64><<<grid, kThreads, smem, s>>>(a, dc, kw * cin, C, RS,
-                                                          W.rows_per_split, wpart, W.E);
-      }
+      if ((e = set_smem(conv_wgrad_kernel<64>, smem)) != cudaSuccess) return (int)e;
+      conv_wgrad_kernel<64><<<grid, kThreads, smem, s>>>(a, dc, kw * cin, C, RS,
+                                                        W.rows_per_split, wpart, W.E);
     }
   } else {
-    narrow_convT_kernel<T><<<ceil_div(RS, kThreads / 32), kThreads, 0, s>>>(dc, w, dprev, RS, S,
-                                                                          cin, C, kw);
+    narrow_convT_kernel<float><<<ceil_div(RS, kThreads / 32), kThreads, 0, s>>>(dc, w, dprev, RS,
+                                                                              S, cin, C, kw);
     if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
-    narrow_wgrad_kernel<T><<<W.splits, kThreads, 0, s>>>(ap, dc, RS, S, cin, C, kw,
-                                                         W.rows_per_split, wpart, W.E, !kBf16);
+    narrow_wgrad_kernel<float><<<W.splits, kThreads, 0, s>>>(ap, dc, RS, S, cin, C, kw,
+                                                             W.rows_per_split, wpart, W.E, true);
   }
   if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
   return (int)focal::launch_reduce<Src>(wpart, W.splits, W.E, dwb, s);
 }
 
-template <class T>
+// Layer k-1's arrays for the fold of layer k's transposed conv (bf16): its
+// c, mask [M, cin] and BN rows, and where its Σgy, Σgy·x̂ partials go
+// (null: no fold).
+struct Fold16 {
+  const bf16* c;
+  const float* mask;
+  const float* rows;
+  float* part;
+  int M;
+};
+
+// #14-bf16's backward apply: four launches. The dc pass (dc rounded to
+// bf16, the f32 dc's block sums), the transposed conv on the TMA ring with
+// the residual and the fold (or the narrow transposed conv of a first conv
+// over cin % 8 != 0), the weight gradient's split partials (the wgmma
+// product, or the narrow one), and wg_reduce_kernel: dW's splits summed in
+// split order, db the block sums summed in slices. The workspace holds dc,
+// the block sums [blocks, C] and the split partials [splits, kw cin C].
+int bwd_apply16(const BnArgs<bf16>& p0, const bf16* w, const bf16* ap, bf16* dprev, float* dwb,
+                float* ws, const Fold16& fold, int R, int S, int C, int cin, int kw, int residual,
+                int sms, cudaStream_t s) {
+  const int RS = R * S;
+  const bool tc = on_tensor_cores(cin, true);
+  if (fold.part && (!tc || fold.M < 1 || R % fold.M)) return (int)cudaErrorInvalidValue;
+  const int blocks = ceil_div(RS, kStatRows);
+  bf16* dc = reinterpret_cast<bf16*>(ws);
+  float* dsum = ws + bf16_floats((size_t)RS * C);
+  float* wpart = dsum + (size_t)blocks * C;
+  BnArgs<bf16> p = p0;
+  p.out = dc;
+  if (!bn_aligned(p) || !aligned16(ap)) return (int)cudaErrorMisalignedAddress;
+  cudaError_t e;
+  const size_t smem = column_sums_smem(C);
+  if ((e = set_smem(bn_dc_sums_kernel, smem)) != cudaSuccess) return (int)e;
+  bn_dc_sums_kernel<<<blocks, kThreads, smem, s>>>(p, dsum);
+  if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+  int splits = 0;
+  if (tc) {
+    ConvArgs16 a{};
+    a.add = residual ? p.da : nullptr;
+    if (fold.part) {
+      a.part = fold.part;
+      a.c = fold.c;
+      a.mask = fold.mask;
+      a.rows = fold.rows;
+      a.group = R / fold.M;
+    }
+    if (int err = launch_conv16(dc, C, w, cin, C, kw, -1, a, dprev, R, S, sms, s)) return err;
+    if (int err = launch_wgrad16(ap, cin, dc, C, kw, wpart, R, S, sms, &splits, s)) return err;
+  } else {
+    const WgradPlan W = wgrad_plan(RS, cin, C, kw, sms, true);
+    narrow_convT_kernel<bf16><<<ceil_div(RS, kThreads / 32), kThreads, 0, s>>>(dc, w, dprev, RS, S,
+                                                                             cin, C, kw);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    narrow_wgrad_kernel<bf16><<<W.splits, kThreads, 0, s>>>(ap, dc, RS, S, cin, C, kw,
+                                                            W.rows_per_split, wpart, W.E, false);
+    if ((e = cudaGetLastError()) != cudaSuccess) return (int)e;
+    splits = W.splits;
+  }
+  const wgk::ReduceArgs r{wpart, dsum, nullptr, nullptr, dwb, nullptr, splits, blocks,
+                          kw * cin, C, 0, 0, 0};
+  return wgk::launch_reduce<Src>(r, s);
+}
+
 int ct_bwd_apply(const void* da, const void* c, const void* mask, const void* rows, const void* m,
-                 const void* aprev, const void* w, void* dprev, void* dwb, void* ws, int R, int S,
-                 int M, int C, int cin, int kw, int residual, int sms, cudaStream_t s) {
-  BnArgs<T> p{};
-  p.c = static_cast<const T*>(c);
-  p.da = static_cast<const T*>(da);
+                 const void* aprev, const void* w, void* dprev, void* dwb, void* ws,
+                 const Fold16& fold, int R, int S, int M, int C, int cin, int kw, int residual,
+                 int bf16_rows, int sms, cudaStream_t s) {
+  if (bf16_rows) {
+    BnArgs<bf16> p{};
+    p.c = static_cast<const bf16*>(c);
+    p.da = static_cast<const bf16*>(da);
+    p.rows = static_cast<const float*>(rows);
+    p.m = static_cast<const float*>(m);
+    p.mask = static_cast<const float*>(mask);
+    p.R = R, p.S = S, p.C = C, p.group = R / M;
+    return bwd_apply16(p, static_cast<const bf16*>(w), static_cast<const bf16*>(aprev),
+                       static_cast<bf16*>(dprev), static_cast<float*>(dwb),
+                       static_cast<float*>(ws), fold, R, S, C, cin, kw, residual, sms, s);
+  }
+  if (fold.part) return (int)cudaErrorInvalidValue;
+  BnArgs<float> p{};
+  p.c = static_cast<const float*>(c);
+  p.da = static_cast<const float*>(da);
   p.rows = static_cast<const float*>(rows);
   p.m = static_cast<const float*>(m);
   p.mask = static_cast<const float*>(mask);
   p.R = R, p.S = S, p.C = C, p.group = R / M;
-  return bwd_apply(p, static_cast<const T*>(w), static_cast<const T*>(aprev),
-                   static_cast<T*>(dprev), static_cast<float*>(dwb), static_cast<float*>(ws), R, S,
-                   C, cin, kw, residual, sms, s);
+  return bwd_apply(p, static_cast<const float*>(w), static_cast<const float*>(aprev),
+                   static_cast<float*>(dprev), static_cast<float*>(dwb), static_cast<float*>(ws),
+                   R, S, C, cin, kw, residual, sms, s);
 }
 
 }  // namespace
@@ -1213,38 +1626,40 @@ int ct_bwd_apply(const void* da, const void* c, const void* mask, const void* ro
 // when no plan takes the geometry. kind 0: a forward conv (conv0 or apply
 // with a next layer; cin = the conv's input channels, cout = its
 // outputs); 1: the backward sums (cin = cout = C); 2: the backward apply
-// (cin = the layer's input channels, cout = C). bf16: the launch's rows
-// are bf16 (#13-bf16, #14-bf16).
+// (cin = the layer's input channels, cout = C); 3 (bf16 only): the
+// partials of a backward apply's fold, layer k-1's Σgy and Σgy·x̂ (cin =
+// the layer's input channels, layer k-1's C). bf16: the launch's rows are
+// bf16 (#13-bf16, #14-bf16).
 extern "C" int focal_ct_workspace(int kind, int R, int S, int cin, int cout, int kw, int bf16_rows,
                                   long long* floats) {
   if (int e = check_rows(R, S, 1, cout, bf16_rows)) return e;
   if (!channels_ok(cin) || kw < 1 || (long long)R * S * cin >= (1ll << 31))
     return (int)cudaErrorInvalidValue;
   const int RS = R * S;
-  if (kind == 0) {
-    *floats = (long long)fwd_partials(RS, cin, bf16_rows) * 2 * cout;
-    return 0;
-  }
   if (kind == 1) {
     *floats = (long long)ceil_div(RS, kStatRows) * 2 * cout;
     return 0;
   }
-  if (kind == 2) {
-    int sms = 0;
-    const cudaError_t err = device_sms(&sms);
-    if (err != cudaSuccess) return (int)err;
-    const WgradPlan W = wgrad_plan(RS, cin, cout, kw, sms, bf16_rows);
-    const bool tc = on_tensor_cores(cin, bf16_rows);
-    if (bf16_rows)
-      *floats = (long long)(bf16_floats((size_t)RS * cout) +
-                            (tc ? bf16_floats((size_t)kw * cout * cin) : 0)) +
-                (long long)ceil_div(RS, kStatRows) * 2 * cout + (long long)W.splits * W.E;
-    else
-      *floats = (long long)RS * cout + (tc ? (long long)kw * cout * cin : 0) +
-                (long long)W.splits * (long long)W.E;
-    return 0;
+  if (kind < 0 || kind > 3 || (kind == 3 && !bf16_rows)) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const cudaError_t err = device_sms(&sms);
+  if (err != cudaSuccess) return (int)err;
+  const bool tc = on_tensor_cores(cin, bf16_rows);
+  if (kind == 0) {
+    *floats = (long long)(bf16_rows ? fwd_partials16(R, S, cin, cout, sms) : fwd_partials(RS, cin)) *
+              2 * cout;
+  } else if (kind == 3) {
+    if (!tc) return (int)cudaErrorInvalidConfiguration;
+    *floats = (long long)conv_plan16(R, S, cin, sms).per_n * 2 * cin;
+  } else if (bf16_rows) {
+    *floats = (long long)bf16_floats((size_t)RS * cout) + (long long)ceil_div(RS, kStatRows) * cout +
+              (long long)wgrad_splits16(R, S, cin, cout, kw, sms) * kw * cin * cout;
+  } else {
+    const WgradPlan W = wgrad_plan(RS, cin, cout, kw, sms, false);
+    *floats = (long long)RS * cout + (tc ? (long long)kw * cout * cin : 0) +
+              (long long)W.splits * (long long)W.E;
   }
-  return (int)cudaErrorInvalidValue;
+  return 0;
 }
 
 // The first conv of an internal-c0 tower (#13, _conv0_kernel): c = conv(x,
@@ -1306,32 +1721,39 @@ extern "C" int focal_ct_apply(const void* c, const void* rows, const void* mask,
 // (m0, m1 of the backward apply; m null: s2 alone, for several data ranks,
 // whose caller forms m from the ranks' sum). ws: focal_ct_workspace(1, R, S, C, C, 1,
 // bf16) floats. Two launches: per-block sums, their ordered sum. bf16: da
-// and c bf16.
+// and c bf16; with `folded` (the partials that layer k+1's backward apply
+// summed in its transposed conv's epilogue, focal_ct_workspace kind 3) one
+// launch, their ordered sum (da, c, mask and ws unused).
 extern "C" int focal_ct_bwd_stats(const void* da, const void* c, const void* mask,
-                                  const void* rows, void* s2, void* m, void* ws, int R, int S,
-                                  int M, int C, int bf16_rows, void* stream) {
+                                  const void* rows, void* s2, void* m, void* ws,
+                                  const void* folded, int R, int S, int M, int C, int bf16_rows,
+                                  void* stream) {
   if (int e = check_rows(R, S, M, C, bf16_rows)) return e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return bf16_rows ? ct_bwd_stats<bf16>(da, c, mask, rows, s2, m, ws, R, S, M, C, s)
-              : ct_bwd_stats<float>(da, c, mask, rows, s2, m, ws, R, S, M, C, s);
+  return bf16_rows ? ct_bwd_stats<bf16>(da, c, mask, rows, s2, m, ws, folded, R, S, M, C, s)
+              : ct_bwd_stats<float>(da, c, mask, rows, s2, m, ws, folded, R, S, M, C, s);
 }
 
 // The backward apply of layer k (#14, _bwd_apply_kernel): dc from da, c,
 // mask, rows and m = [m0; m1] [2, C]; dprev = convT(dc, W) (+ da when
 // `residual`) [RS, cin] from w = W [kw*cin, C]; dwb = [dW (kw*cin x C) | db
 // (C)]. aprev [RS, cin] is the layer's input. ws: focal_ct_workspace(2, R,
-// S, cin, C, kw, bf16) floats (dc, W's per-tap transpose, in bf16 the dc
-// pass's block sums, the weight-gradient partials). Launches: dc (in bf16
-// with its block sums and then db); W^T and the transposed-conv product (or
-// the narrow transposed conv where cin is not a multiple of 4, 8 in bf16);
-// the weight-gradient partials (product or narrow); their ordered sum.
-// bf16 (#14-bf16): da, c, aprev, w and dprev bf16, dc rounded to bf16 for
-// the products, db the f32 dc's sum.
+// S, cin, C, kw, bf16) floats. f32 launches: dc; W's per-tap transpose and
+// the transposed-conv product (or the narrow transposed conv where cin is
+// not a multiple of 4); the weight-gradient partials (product or narrow);
+// their ordered sum. bf16 (#14-bf16): da, c, aprev, w and dprev bf16, dc
+// rounded to bf16 for the products, db the f32 dc's sum; four launches
+// (bwd_apply16). With fold_part (bf16, cin % 8 == 0): layer k-1's Σgy and
+// Σgy·x̂ from the stored dprev, with its c (fold_c [RS, cin]), mask
+// (fold_mask [fold_M, cin]) and rows (fold_rows [5, cin]), into fold_part
+// (focal_ct_workspace(3, R, S, cin, cin, kw, 1) floats) for
+// focal_ct_bwd_stats's `folded`.
 extern "C" int focal_ct_bwd_apply(const void* da, const void* c, const void* mask,
                                   const void* rows, const void* m, const void* aprev,
-                                  const void* w, void* dprev, void* dwb, void* ws, int R,
-                                  int S, int M, int C, int cin, int kw, int residual, int bf16_rows,
-                                  void* stream) {
+                                  const void* w, void* dprev, void* dwb, void* ws,
+                                  const void* fold_c, const void* fold_mask, const void* fold_rows,
+                                  void* fold_part, int R, int S, int M, int C, int cin, int kw,
+                                  int residual, int fold_M, int bf16_rows, void* stream) {
   if (int e = check_rows(R, S, M, C, bf16_rows)) return e;
   if (!channels_ok(cin) || kw < 1 || (residual && cin != C) ||
       (long long)R * S * cin >= (1ll << 31))
@@ -1340,11 +1762,10 @@ extern "C" int focal_ct_bwd_apply(const void* da, const void* c, const void* mas
   cudaError_t e = device_sms(&sms);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16_rows)
-    return ct_bwd_apply<bf16>(da, c, mask, rows, m, aprev, w, dprev, dwb, ws, R, S, M, C, cin, kw,
-                              residual, sms, s);
-  return ct_bwd_apply<float>(da, c, mask, rows, m, aprev, w, dprev, dwb, ws, R, S, M, C, cin, kw,
-                             residual, sms, s);
+  const Fold16 fold{static_cast<const bf16*>(fold_c), static_cast<const float*>(fold_mask),
+                    static_cast<const float*>(fold_rows), static_cast<float*>(fold_part), fold_M};
+  return ct_bwd_apply(da, c, mask, rows, m, aprev, w, dprev, dwb, ws, fold, R, S, M, C, cin, kw,
+                      residual, bf16_rows, sms, s);
 }
 
 // dc alone (#14, _bwd_dc_kernel): the input gradient of an external first

@@ -2,8 +2,9 @@
 // operands staged by the Tensor Memory Accelerator (TMA) into a ring of
 // shared-memory stages, consumed by wgmma.mma_async with f32 sums in
 // registers. The core of the fused MLP's bf16 kernels (#10-bf16 to #12-bf16,
-// fused_mlp.cu) and of the bf16 whole-block kernels' products (#1-bf16 to
-// #5-bf16, window_block.cu).
+// fused_mlp.cu), of the bf16 whole-block kernels' products (#1-bf16 to
+// #5-bf16, window_block.cu) and of the bf16 conv tower's (#13-bf16,
+// #14-bf16, conv_tower.cu).
 //
 // Layout. Every staged tile is bf16 in 128-byte rows with the 128-byte
 // swizzle (16-byte chunk c of row r stored at chunk c ^ (r % 8)): TMA writes
@@ -117,6 +118,18 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
+// One box of a 3-D tensor map at (c0, c1, c2), c0 the contiguous axis; a
+// coordinate may lie outside the map (negative, or past its extent): TMA
+// fills what it does not find with zeros.
+__device__ __forceinline__ void tma_load3(void* dst, const CUtensorMap* map, uint64_t* bar, int c0,
+                                          int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%3, "
+      "%4, %5}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
 // One box from shared memory to a 2-D tensor map at (column c0, row c1)
 // (rows and columns past the map's edges are not written), in the issuing
 // thread's bulk group; tma_store_wait_read waits until the thread's groups
@@ -127,6 +140,16 @@ __device__ __forceinline__ void tma_store(const CUtensorMap* map, const void* sr
       "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n" ::"l"(
           reinterpret_cast<uint64_t>(map)),
       "r"(smem_u32(src)), "r"(c0), "r"(c1)
+      : "memory");
+}
+// The same to a 3-D tensor map at (c0, c1, c2): coordinates past the map's
+// extent are not written.
+__device__ __forceinline__ void tma_store3(const CUtensorMap* map, const void* src, int c0, int c1,
+                                           int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2)
       : "memory");
 }
 __device__ __forceinline__ void tma_store_commit() {
@@ -551,6 +574,64 @@ __device__ __forceinline__ void streamed_tiles(void* smem, int tiles, const Plan
   }
 }
 
+// No producer work between tiles (streamed_tiles_by's default).
+struct NoTileHook {
+  template <class Job>
+  __device__ __forceinline__ void operator()(const Job&) const {}
+};
+
+// streamed_tiles with one pass a tile and the producer's copies the
+// caller's: plan(tile) gives a job with a k_tiles member, and load(ring,
+// stage, job, kt) issues K tile kt's copies into ring.a(stage) and
+// ring.b(stage), their bytes expected on ring.full[stage], once the ring has
+// freed the stage; after(job), the producer's after a tile's stages (the
+// copies an epilogue reads, on barriers of the caller's). For operands that
+// a 2-D box cannot cut, such as the conv tower's rows read through a 3-D
+// map of whole samples (conv_tower.cu). The consumers run as in
+// streamed_tiles, then epi(job, acc).
+template <int kBN, bool kAT, bool kBT, int kStages, class Plan, class Load, class Epi,
+          class After = NoTileHook>
+__device__ __forceinline__ void streamed_tiles_by(void* smem, int tiles, const Plan& plan,
+                                                  const Load& load, const Epi& epi,
+                                                  const After& after = After()) {
+  using R = Ring<kBN, kAT, kBT, kStages>;
+  const R ring(smem);
+  if (threadIdx.x == 0) ring.init();
+  __syncthreads();
+  if (threadIdx.x >= kConsumers) {
+    set_max_regs_dec<kProducerRegs>();
+    if (threadIdx.x == kConsumers) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        const auto j = plan(tile);
+        for (int kt = 0; kt < j.k_tiles; ++kt, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&ring.empty[s], ((it / kStages) & 1) ^ 1);
+          load(ring, s, j, kt);
+        }
+        after(j);
+      }
+    }
+  } else {
+    set_max_regs_inc<kConsumerRegs>();
+    float acc[kBN / 2];
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const auto j = plan(tile);
+      const int it0 = it;
+      for (int kt = 0; kt < j.k_tiles; ++kt, ++it) {
+        ring.mma(it, acc, kt > 0);
+        mma_wait<1>();
+        if (it > it0) ring.release(it - 1);
+      }
+      mma_wait<0>();
+      hold(acc);
+      ring.release(it - 1);
+      epi(j, acc);
+    }
+  }
+}
+
 // The stages of a streamed product's ring: ~192 KB of shared memory.
 template <int kBN>
 constexpr int kStreamStages = kBN == 128 ? 6 : 8;
@@ -563,7 +644,8 @@ constexpr size_t stream_smem(size_t extra = 0) {
 // ---------------------------------------------------------------------------
 // weight gradients over fixed row splits, and the ordered reduction: the
 // bf16 backwards' shared last phases (fused_mlp.cu's #12-bf16,
-// window_block.cu's #3-bf16 and #5-bf16). Src is a tag type of the
+// window_block.cu's #3-bf16 and #5-bf16; conv_tower.cu's #14-bf16 takes
+// the reduction and the split plan). Src is a tag type of the
 // including library, so that a profile's kernel names say who launched
 // them.
 
@@ -753,17 +835,24 @@ int launch_reduce(const ReduceArgs& a, cudaStream_t s) {
 // Returns 0 or libcuda's CUresult (CUDA_ERROR_NOT_FOUND without its
 // cuTensorMapEncodeTiled, which is looked up in the loaded libcuda at first
 // use, so the library links no libcuda itself).
-inline int focal_wg_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
-                        bool f32 = false) {
-  using Encode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                              const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                              const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                              CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-  static const Encode encode = [] {
+using FocalWgEncode = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, or null.
+inline FocalWgEncode focal_wg_encode() {
+  static const FocalWgEncode encode = [] {
     void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
     if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    return lib ? reinterpret_cast<Encode>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
+    return lib ? reinterpret_cast<FocalWgEncode>(dlsym(lib, "cuTensorMapEncodeTiled")) : nullptr;
   }();
+  return encode;
+}
+
+inline int focal_wg_map(CUtensorMap* map, const void* base, int rows, int cols, int box_rows,
+                        bool f32 = false) {
+  const FocalWgEncode encode = focal_wg_encode();
   if (!encode) return (int)CUDA_ERROR_NOT_FOUND;
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * (f32 ? 4 : 2)};
@@ -776,6 +865,26 @@ inline int focal_wg_map(CUtensorMap* map, const void* base, int rows, int cols, 
                      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
 }
 
+// The 3-D form: a bf16 array [d2, d1, d0] (d0 contiguous, a multiple of 8;
+// 16-byte aligned) in boxes of 64 values of d0 (128 bytes) by box1 of d1 by
+// box2 of d2 (each at most 256), stored in shared memory as box1 * box2
+// rows of 128 bytes (d1 the faster), with the 128-byte swizzle: a box of
+// whole samples of the conv tower's rows [R, S, C], or a tap's slice of its
+// weights [KW, cin, C]. Reads past an edge (a negative coordinate among
+// them) give zeros, writes past one are dropped.
+inline int focal_wg_map3(CUtensorMap* map, const void* base, int d2, int d1, int d0, int box2,
+                         int box1) {
+  const FocalWgEncode encode = focal_wg_encode();
+  if (!encode) return (int)CUDA_ERROR_NOT_FOUND;
+  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
+  const cuuint64_t strides[2] = {(cuuint64_t)d0 * 2, (cuuint64_t)d0 * d1 * 2};
+  const cuuint32_t box[3] = {64u, (cuuint32_t)box1, (cuuint32_t)box2};
+  const cuuint32_t elem[3] = {1u, 1u, 1u};
+  return (int)encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+                     strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                     CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 namespace focal {
 namespace wg {
 
@@ -785,6 +894,12 @@ constexpr int kMapError = 100000;  // + libcuda's CUresult: a tensor map was ref
 inline int map(CUtensorMap* m, const void* base, int rows, int cols, int box_rows,
                bool f32 = false) {
   const int r = focal_wg_map(m, base, rows, cols, box_rows, f32);
+  return r == 0 ? 0 : kMapError + r;
+}
+
+// focal_wg_map3, its refusal as kMapError + the CUresult.
+inline int map3(CUtensorMap* m, const void* base, int d2, int d1, int d0, int box2, int box1) {
+  const int r = focal_wg_map3(m, base, d2, d1, d0, box2, box1);
   return r == 0 ? 0 : kMapError + r;
 }
 

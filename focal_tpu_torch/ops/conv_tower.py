@@ -26,12 +26,17 @@ An external first conv's statistics are torch's (``_finalize_stats``), as
 the JAX package computes that layer's in XLA.
 
 The bf16 forms (``-compute_dtype bfloat16``), #13-bf16 and #14-bf16: the
-same launches on bf16 rows (x0, c, a, da, dc and dprev stored in bf16; the
-weights rounded to bf16; the BN rows, masks, sums and parameter gradients
-f32), the products on the bf16 tensor cores (``csrc/gemm_bf16.cuh``),
-rounding where the JAX package's tower does at ``store_dtype`` bfloat16
-(``tower_forward_bf16_reference``, ``tower_backward_bf16_reference``). A bf16
-x0 takes them; ``fused_conv_tower_bf16.launches`` and
+same wrapper calls on bf16 rows (x0, c, a, da, dc and dprev stored in bf16;
+the weights rounded to bf16; the BN rows, masks, sums and parameter
+gradients f32), the products on ``wgmma`` fed by TMA (``csrc/gemm_wgmma.cuh``:
+row tiles of whole samples read through a 3-D map, the SAME padding TMA's
+zero fill), rounding where the JAX package's tower does at ``store_dtype``
+bfloat16 (``tower_forward_bf16_reference``,
+``tower_backward_bf16_reference``). Their cross-block sums are partials of
+the persistent blocks summed in slices (no sum walked on one SM), and a
+layer's Σgy and Σgy·x̂ come from the next layer's transposed conv's
+epilogue (``_bwd_apply``'s fold), the last layer's from its own pass. A
+bf16 x0 takes them; ``fused_conv_tower_bf16.launches`` and
 ``fused_conv_tower_backward_bf16.launches`` count their calls.
 
 Over several data ranks (``plan``, a ``parallel.mesh.MeshPlan`` with dp >
@@ -64,7 +69,7 @@ from focal_tpu_torch.ops import _build
 
 BN_EPS = 1e-5
 _CONV_TOWER_SRC = "conv_tower.cu"
-_KINDS = {"forward": 0, "bwd_stats": 1, "bwd_apply": 2}  # kinds of focal_ct_workspace
+_KINDS = {"forward": 0, "bwd_stats": 1, "bwd_apply": 2, "fold": 3}  # kinds of focal_ct_workspace
 
 
 # ---------------------------------------------------------------------------
@@ -385,29 +390,120 @@ def bf16_floats(n):
     return _ceil(n, 8) * 4
 
 
+# the bf16 products' plan (csrc/conv_tower.cu's SampleTiles, ConvPlan16,
+# WgradPlan16; gemm_wgmma.cuh's kBM, kBK and wgrad_splits)
+WG_BM = 128   # rows of a wgmma product tile
+WG_BK = 64    # rows of a weight gradient's K stage
+
+
+def sample_tiles(R, S, rows):
+    """Row tiles of whole samples of rows [R, S, C] (sample_tiles): rb
+    samples of sb positions a tile (rb * sb <= rows), or, where a sample is
+    longer than ``rows``, s_tiles boxes of sb positions a sample (rb 1).
+    Tile t starts at sample t // s_tiles * rb and position t % s_tiles *
+    sb."""
+    if S <= rows:
+        sb, rb, s_tiles = S, min(rows // S, R), 1
+    else:
+        s_tiles = _ceil(S, rows)
+        sb, rb = _ceil(S, s_tiles), 1
+    r_tiles = _ceil(R, rb)
+    return {"rb": rb, "sb": sb, "s_tiles": s_tiles, "r_tiles": r_tiles,
+            "tiles": r_tiles * s_tiles, "rows": rb * sb}
+
+
+def tile_row_range(st, t, R, S):
+    """[start, end) of tile t's rows in [R*S, C] (a tile's rows are
+    contiguous there; rows past R or S, and the tile's rows past rb * sb,
+    are masked out of it)."""
+    r0, s0 = t // st["s_tiles"] * st["rb"], t % st["s_tiles"] * st["sb"]
+    if st["s_tiles"] == 1:
+        return r0 * S, min(R, r0 + st["rb"]) * S
+    return r0 * S + s0, r0 * S + min(S, s0 + st["sb"])
+
+
+def conv_plan16(R, S, N, sms=132):
+    """A bf16 conv's or transposed conv's plan over N output channels
+    (conv_plan16): 128-row tiles of whole samples, column tiles of bn (128
+    where N is a multiple of 128, else 64), and per column tile per_n
+    persistent blocks: block i sums tiles i, i + per_n, ... into its
+    partial, per_n column-sum partials."""
+    st = sample_tiles(R, S, WG_BM)
+    bn = 128 if N % 128 == 0 else 64
+    tiles_n = _ceil(N, bn)
+    return {"tile": st, "bn": bn, "tiles_n": tiles_n,
+            "per_n": max(1, min(st["tiles"], sms // tiles_n))}
+
+
+def wgrad_splits(rows, wtiles, sms):
+    """(splits, rows a split) of a weight gradient over ``rows`` K rows in
+    ``wtiles`` output tiles (gemm_wgmma.cuh's wgrad_splits)."""
+    best = None
+    for n in range(1, max(1, min(_ceil(rows, 256), 8 * sms // wtiles + 1)) + 1):
+        r = _ceil(_ceil(rows, n), WG_BK) * WG_BK
+        k = _ceil(rows, r)
+        span = _ceil(k * wtiles, sms) * (r // WG_BK)
+        if best is None or span < best:
+            best, splits, rps = span, k, r
+    return splits, rps
+
+
+def wgrad_plan16(R, S, cin, N, kw, sms=132):
+    """A bf16 weight gradient's plan (wgrad_plan16): K stages of whole
+    samples (up to 64 rows), dW's rows padded per tap to 64-channel blocks
+    (m_pad), bn-wide columns, wtiles output tiles, and the stages in
+    ``splits`` runs of ``per_split``."""
+    st = sample_tiles(R, S, WG_BK)
+    m_pad = kw * _ceil(cin, 64) * 64
+    bn = 128 if N % 128 == 0 else 64
+    wtiles = _ceil(m_pad, WG_BM) * _ceil(N, bn)
+    splits, rps = wgrad_splits(st["tiles"] * WG_BK, wtiles, sms)
+    return {"tile": st, "m_pad": m_pad, "bn": bn, "wtiles": wtiles, "per_split": rps // WG_BK,
+            "splits": splits}
+
+
 def layer_plan(R, S, kw, cin, C, sms=132, dtype=torch.float32):
     """The launch plan of one layer on a card of ``sms`` SMs, as
     csrc/conv_tower.cu sets it: the route of its conv, its transposed conv
     and its weight gradient; the forward conv's column-sum partials, the
     backward sums' blocks, the weight gradient's tiles and row splits, and
     the workspaces in floats (focal_ct_workspace's kinds 0, 1, 2). In bf16
-    the weight gradient's partials hold dW alone (E = KW*cin*C: db is the
-    sum of the f32 dc, per 256-row block of the dc pass, ``stat_blocks``)
-    and the backward apply's workspace holds dc and W^T in bf16 and those
-    blocks' sums."""
+    on the tensor cores: the products' plan (``conv``: conv_plan16 of the
+    conv, ``fold``: of the transposed conv, whose N is cin) with one
+    column-sum partial a persistent block, the weight gradient's
+    (``wgrad``: wgrad_plan16, ``rows_per_split`` None), and the workspace
+    of the fold's partials (kind 3, ``fold``); the weight gradient's
+    partials hold dW alone (E = KW*cin*C: db is the sum of the f32 dc, per
+    256-row block of the dc pass, ``stat_blocks``) and the backward apply's
+    workspace holds dc in bf16, those blocks' sums [blocks, C] and the
+    split partials."""
     RS = R * S
     bf16 = dtype == torch.bfloat16
     tc = on_tensor_cores(cin, dtype)
-    E = kw * cin * C + (0 if bf16 else C)
+    blocks = _ceil(RS, STAT_ROWS)
+    if bf16:
+        E = kw * cin * C
+        out = {"tensor_cores": tc, "stat_blocks": blocks, "E": E}
+        if tc:
+            conv, wgrad = conv_plan16(R, S, C, sms), wgrad_plan16(R, S, cin, C, kw, sms)
+            fold = conv_plan16(R, S, cin, sms)
+            out.update(bn=conv["bn"], conv=conv, fold=fold, wgrad=wgrad,
+                       fwd_partials=conv["per_n"], wgrad_tiles=wgrad["wtiles"],
+                       splits=wgrad["splits"], rows_per_split=None)
+        else:
+            splits, rps = split_rows(RS, 1, sms)
+            out.update(bn=None, fwd_partials=blocks, wgrad_tiles=1, splits=splits,
+                       rows_per_split=rps)
+        out["workspace"] = {"forward": out["fwd_partials"] * 2 * C, "bwd_stats": blocks * 2 * C,
+                            "bwd_apply": bf16_floats(RS * C) + blocks * C + out["splits"] * E}
+        if tc:
+            out["workspace"]["fold"] = out["fold"]["per_n"] * 2 * cin
+        return out
+    E = kw * cin * C + C
     tiles = _ceil(kw * cin, GEMM_BM) * _ceil(C, tile_bn(C)) if tc else 1
     splits, rps = split_rows(RS, tiles, sms)
     partials = _ceil(RS, GEMM_BM) if tc else _ceil(RS, STAT_ROWS)
-    blocks = _ceil(RS, STAT_ROWS)
-    if bf16:
-        bwd_apply = (bf16_floats(RS * C) + (bf16_floats(kw * C * cin) if tc else 0)
-                     + blocks * 2 * C + splits * E)
-    else:
-        bwd_apply = RS * C + (kw * C * cin if tc else 0) + splits * E
+    bwd_apply = RS * C + (kw * C * cin if tc else 0) + splits * E
     return {"tensor_cores": tc, "bn": tile_bn(C) if tc else None, "fwd_partials": partials,
             "stat_blocks": blocks, "wgrad_tiles": tiles, "splits": splits,
             "rows_per_split": rps, "E": E,
@@ -446,6 +542,32 @@ def ordered_sum(partials):
     return total
 
 
+SLICES = 8  # kSlices: the slices of the bf16 forms' cross-block sums
+
+
+def sliced_sum(partials):
+    """The bf16 forms' cross-block sum (sliced_sums, and wg_reduce_kernel's
+    column part): SLICES runs of consecutive partials, each summed in order,
+    then the runs in order."""
+    per = _ceil(len(partials), SLICES)
+    return ordered_sum([ordered_sum(partials[i:i + per]) if partials[i:i + per]
+                        else torch.zeros_like(partials[0]) for i in range(0, SLICES * per, per)])
+
+
+def block_partials(t, plan, R, S):
+    """Column sums of t [R*S, N] as a bf16 product's persistent blocks take
+    them (conv_plan16's ``plan``): block i sums its tiles i, i + per_n, ...
+    in order, each tile's rows (tile_row_range) summed on their own; one
+    partial a block."""
+    st, per_n = plan["tile"], plan["per_n"]
+    out = []
+    for i in range(per_n):
+        tiles = [t[a:b].sum(0) for a, b in (tile_row_range(st, k, R, S)
+                                             for k in range(i, st["tiles"], per_n))]
+        out.append(ordered_sum(tiles))
+    return out
+
+
 def _tile_sums(c, rows):
     return [torch.stack([t.sum(0), (t * t).sum(0)]) for t in c.split(rows)]
 
@@ -455,26 +577,40 @@ def _store(t, dtype):
     return round_bf16(t) if dtype == torch.bfloat16 else t
 
 
-def stages_conv(x, w, b, kw, S, gemm=torch.matmul, dtype=torch.float32):
+def stages_conv(x, w, b, kw, S, gemm=torch.matmul, dtype=torch.float32, sms=132):
     """A forward conv as #13 runs it: c = im2col(x) w + b, through ``gemm``
     on the tensor cores or in f32 on the CUDA cores (the narrow first conv),
     and its sums [2, C]: per 128-row tile (256-row block) Σc and Σc²,
-    summed in tile order. In bf16 x and w hold bf16 values and c is rounded
-    to bf16 before its sums. Returns (c, sums, partials)."""
+    summed in tile order. In bf16 (#13-bf16) x and w hold bf16 values, c is
+    rounded to bf16 before its sums, and on the tensor cores the partials
+    are the persistent blocks' (block_partials over tiles of whole samples),
+    the narrow conv's its 256-row blocks', summed by sliced_sum. Returns (c,
+    sums, partials)."""
     tc = on_tensor_cores(x.shape[1], dtype)
     c = _store((gemm if tc else torch.matmul)(im2col_rows(x, kw, S), w) + b, dtype)
+    if dtype == torch.bfloat16:
+        if tc:
+            sq = torch.cat([c, c * c], dim=1)
+            n = c.shape[1]
+            partials = [torch.stack([p[:n], p[n:]])
+                        for p in block_partials(sq, conv_plan16(c.shape[0] // S, S, n, sms),
+                                                c.shape[0] // S, S)]
+        else:
+            partials = _tile_sums(c, STAT_ROWS)
+        return c, sliced_sum(partials), partials
     partials = _tile_sums(c, GEMM_BM if tc else STAT_ROWS)
     return c, ordered_sum(partials), partials
 
 
 def stages_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False, gemm=torch.matmul,
-                   dtype=torch.float32):
+                   dtype=torch.float32, sms=132):
     """#13's phase order: per layer the BN coefficients from the sums, the
     apply pass a_k = GELU(c_k A + B) mask (+ a_{k-1}), then the next conv
     with its tile sums. With ``dtype`` bf16, #13-bf16's: x0 and the weights
     rounded to bf16, c and a stored in bf16 (f32 tensors of bf16 values
-    here). Returns (a_last [R, S, C], mus, vars, saved) with saved = {x2,
-    a, c, rows, ws} per layer for stages_backward."""
+    here), the sums stages_conv's on a card of ``sms`` SMs. Returns (a_last
+    [R, S, C], mus, vars, saved) with saved = {x2, a, c, rows, ws} per layer
+    for stages_backward."""
     R, S, _ = x0.shape
     n = float(R * S)
     x2 = _store(x0.reshape(R * S, x0.shape[-1]).to(torch.float32), dtype)
@@ -483,7 +619,7 @@ def stages_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False, g
         c = x2
         sums = torch.stack([c.sum(dim=0), (c * c).sum(dim=0)])  # tower_forward's, in torch
     else:
-        c, sums, _ = stages_conv(x2, ws[0], bs[0], cfgs[0][0], S, gemm, dtype)
+        c, sums, _ = stages_conv(x2, ws[0], bs[0], cfgs[0][0], S, gemm, dtype, sms)
     saved = {"x2": x2, "a": [], "c": [], "rows": [], "ws": ws}
     mus, vars_ = [], []
     a = None
@@ -497,7 +633,8 @@ def stages_forward(x0, cfgs, ws, bs, scales, biases, masks, external_c0=False, g
         mus.append(mu)
         vars_.append(var)
         if k + 1 < len(cfgs):
-            c, sums, _ = stages_conv(a, ws[k + 1], bs[k + 1], cfgs[k + 1][0], S, gemm, dtype)
+            c, sums, _ = stages_conv(a, ws[k + 1], bs[k + 1], cfgs[k + 1][0], S, gemm, dtype,
+                                     sms)
     return a.view(R, S, cfgs[-1][2]), tuple(mus), tuple(vars_), saved
 
 
@@ -509,10 +646,15 @@ def stages_backward(saved, cfgs, ws, masks, da_last, external_c0=False, gemm=tor
     residual) and dW | db as partials over the layer plan's fixed row
     splits summed in split order. With ``dtype`` bf16, #14-bf16's: da
     rounded to bf16, dc rounded to bf16 for the transposed conv and dW
-    (the weights saved's bf16 ones), dprev stored in bf16, and db the f32
-    dc's column sums per 256-row block of the dc pass, summed in block
-    order. Returns (dx0, dws, dbs, dscales, dbiases) as
-    fused_conv_tower_backward, and the layers' partials."""
+    (the weights saved's bf16 ones), dprev stored in bf16; Σgy and Σgy·x̂
+    per 256-row block for the last layer, and for every other layer from
+    the stored dprev of the layer after it (its da) as that transposed
+    conv's persistent blocks take them (block_partials at conv_plan16 over
+    the layer's C), summed by sliced_sum; dW over wgrad_plan16's splits of
+    whole-sample K stages (split_rows' row splits for a narrow first conv)
+    summed in split order; db the f32 dc's column sums per 256-row block of
+    the dc pass, summed by sliced_sum. Returns (dx0, dws, dbs, dscales,
+    dbiases) as fused_conv_tower_backward, and the layers' partials."""
     x2 = saved["x2"]
     RS = x2.shape[0]
     R, S, C = da_last.shape
@@ -528,8 +670,14 @@ def stages_backward(saved, cfgs, ws, masks, da_last, external_c0=False, gemm=tor
         mask = _rows_of(masks[k], R).repeat_interleave(S, dim=0)
         gy = da * mask * gelu_grad_exact(c * rows[0] + rows[1])
         xhat = c * rows[2] - rows[3]
-        s2 = ordered_sum([torch.stack([g.sum(0), (g * x).sum(0)])
-                          for g, x in zip(gy.split(STAT_ROWS), xhat.split(STAT_ROWS))])
+        if bf16 and k + 1 < L:  # the fold: layer k+1's transposed conv's blocks
+            both = torch.cat([gy, gy * xhat], dim=1)
+            s2 = sliced_sum([torch.stack([p[:cout], p[cout:]]) for p in block_partials(
+                both, conv_plan16(R, S, cout, sms), R, S)])
+        else:
+            blocks = [torch.stack([g.sum(0), (g * x).sum(0)])
+                      for g, x in zip(gy.split(STAT_ROWS), xhat.split(STAT_ROWS))]
+            s2 = sliced_sum(blocks) if bf16 else ordered_sum(blocks)
         m = s2 * rows[4] / n
         dscales[k], dbiases[k] = s2[1], s2[0]
         dc = rows[2] * (gy * rows[4] - m[0] - xhat * m[1])
@@ -546,21 +694,38 @@ def stages_backward(saved, cfgs, ws, masks, da_last, external_c0=False, gemm=tor
             dprev = dprev + da
         dprev = _store(dprev, dtype)
         cols = im2col_rows(aprev, kw, S)
-        rps = layer_plan(R, S, kw, cin, cout, sms, dtype)["rows_per_split"]
-        parts = [torch.cat([(gemm if tc else torch.matmul)(cols[r0:r0 + rps].t().contiguous(),
-                                                           dcs[r0:r0 + rps]).flatten()]
-                           + ([] if bf16 else [dc[r0:r0 + rps].sum(0)]))
-                 for r0 in range(0, RS, rps)]
+        plan = layer_plan(R, S, kw, cin, cout, sms, dtype)
+        if bf16 and tc:
+            spans = wgrad_split_rows(plan["wgrad"], R, S)
+        else:
+            rps = plan["rows_per_split"]
+            spans = [(r0, min(RS, r0 + rps)) for r0 in range(0, RS, rps)]
+        parts = [torch.cat([(gemm if tc else torch.matmul)(cols[a:b].t().contiguous(),
+                                                           dcs[a:b]).flatten()]
+                           + ([] if bf16 else [dc[a:b].sum(0)]))
+                 for a, b in spans]
         total = ordered_sum(parts)
         if bf16:
             dws[k] = total.view(kw * cin, cout)
-            dbs[k] = ordered_sum([t.sum(0) for t in dc.split(STAT_ROWS)])
+            dbs[k] = sliced_sum([t.sum(0) for t in dc.split(STAT_ROWS)])
         else:
             dws[k], dbs[k] = total[:-cout].view(kw * cin, cout), total[-cout:]
         partials[k] = parts
         da = dprev
         dx0 = dprev
     return (dx0.view(R, S, dx0.shape[-1]), dws, dbs, dscales, dbiases), partials
+
+
+def wgrad_split_rows(wplan, R, S):
+    """[start, end) rows of each split of a bf16 weight gradient
+    (wgrad_plan16's ``wplan``): its run of K stages, tiles of whole samples,
+    is a contiguous range of rows."""
+    st, per = wplan["tile"], wplan["per_split"]
+    out = []
+    for k in range(wplan["splits"]):
+        first, last = k * per, min(st["tiles"], (k + 1) * per) - 1
+        out.append((tile_row_range(st, first, R, S)[0], tile_row_range(st, last, R, S)[1]))
+    return out
 
 
 def gelu_grad_exact(z):
@@ -580,8 +745,8 @@ def _lib():
         lib.focal_ct_workspace.argtypes = [i] * 7 + [ctypes.POINTER(ctypes.c_longlong)]
         lib.focal_ct_conv0.argtypes = [p] * 10 + [i] * 6 + [p]
         lib.focal_ct_apply.argtypes = [p] * 14 + [i] * 7 + [p]
-        lib.focal_ct_bwd_stats.argtypes = [p] * 7 + [i] * 5 + [p]
-        lib.focal_ct_bwd_apply.argtypes = [p] * 10 + [i] * 8 + [p]
+        lib.focal_ct_bwd_stats.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.focal_ct_bwd_apply.argtypes = [p] * 14 + [i] * 9 + [p]
         lib.focal_ct_bwd_dc.argtypes = [p] * 6 + [i] * 5 + [p]
         for fn in (lib.focal_ct_workspace, lib.focal_ct_conv0, lib.focal_ct_apply,
                    lib.focal_ct_bwd_stats, lib.focal_ct_bwd_apply, lib.focal_ct_bwd_dc):
@@ -716,28 +881,35 @@ def _apply(c, rows, mask, aprev, nxt, R, S):
     return (a, c_next, *st)
 
 
-def _bwd_stats(da, c, mask, rows, R, S, means=True):
+def _bwd_stats(da, c, mask, rows, R, S, means=True, folded=None):
     """(s2, m), each [2, C]: s2 = [Σ gy; Σ gy·x̂] over every row (gy the
     gradient at the BN output, x̂ the normalised conv output) and m = s2
     scale / n, the means of dx̂ and dx̂·x̂ (dx̂ = gy scale); without
-    ``means`` m is None (several data ranks: the caller sums s2 first)."""
+    ``means`` m is None (several data ranks: the caller sums s2 first).
+    ``folded`` (bf16): the partials of those sums that the next layer's
+    backward apply took in its transposed conv's epilogue (``_bwd_apply``'s
+    fold), which this launch only adds up; da is then not read."""
     dev = c.device
     C = c.shape[1]
     _check("da", da, (R * S, C), dev, c.dtype)
-    ws = _workspace("bwd_stats", R, S, C, C, 1, dev, _is_bf16(c))
+    ws = None if folded is not None else _workspace("bwd_stats", R, S, C, C, 1, dev, _is_bf16(c))
     s2 = torch.empty((2, C), dtype=torch.float32, device=dev)
     m = torch.empty((2, C), dtype=torch.float32, device=dev) if means else None
     _launch("bwd_stats", _lib().focal_ct_bwd_stats, dev, da.data_ptr(), c.data_ptr(),
-            mask.data_ptr(), rows.data_ptr(), s2.data_ptr(), _ptr(m), ws.data_ptr(), R, S,
-            mask.shape[0], C, _is_bf16(c))
+            mask.data_ptr(), rows.data_ptr(), s2.data_ptr(), _ptr(m), _ptr(ws), _ptr(folded), R,
+            S, mask.shape[0], C, _is_bf16(c))
     _backward_count(c).launches += 1
     return s2, m
 
 
-def _bwd_apply(da, c, mask, rows, m, aprev, w, kw, residual, R, S):
+def _bwd_apply(da, c, mask, rows, m, aprev, w, kw, residual, R, S, fold=None):
     """dc (the BN input gradient), then dprev = convT(dc, W) [+ da], dW
-    [KW*Cin, Cout] and db [Cout]. Returns (dprev, dW, db): dprev in the
-    rows' type (bf16 for #14-bf16), dW and db f32."""
+    [KW*Cin, Cout] and db [Cout]. Returns (dprev, dW, db, folded): dprev in
+    the rows' type (bf16 for #14-bf16), dW and db f32. ``fold`` (bf16
+    only): the previous layer's (c, mask, rows), whose BatchNorm backward
+    sums the transposed conv's epilogue takes from the stored dprev, its da;
+    folded is then their partials for that layer's ``_bwd_stats``, else
+    None."""
     dev = c.device
     C = c.shape[1]
     cin = aprev.shape[1]
@@ -750,12 +922,20 @@ def _bwd_apply(da, c, mask, rows, m, aprev, w, kw, residual, R, S):
     ws = _workspace("bwd_apply", R, S, cin, C, kw, dev, bf16)
     dprev = torch.empty((R * S, cin), dtype=c.dtype, device=dev)
     dwb = torch.empty(kw * cin * C + C, dtype=torch.float32, device=dev)
+    fc = fmask = frows = folded = None
+    if fold is not None:
+        fc, fmask, frows = fold
+        _check("fold c", fc, (R * S, cin), dev, c.dtype)
+        _check("fold mask", fmask, (fmask.shape[0], cin), dev)
+        _check("fold rows", frows, (5, cin), dev)
+        folded = _workspace("fold", R, S, cin, cin, kw, dev, bf16)
     _launch("bwd_apply", _lib().focal_ct_bwd_apply, dev, da.data_ptr(), c.data_ptr(),
             mask.data_ptr(), rows.data_ptr(), m.data_ptr(), aprev.data_ptr(), w.data_ptr(),
-            dprev.data_ptr(), dwb.data_ptr(), ws.data_ptr(), R, S, mask.shape[0], C, cin, kw,
-            int(bool(residual)), bf16)
+            dprev.data_ptr(), dwb.data_ptr(), ws.data_ptr(), _ptr(fc), _ptr(fmask), _ptr(frows),
+            _ptr(folded), R, S, mask.shape[0], C, cin, kw, int(bool(residual)),
+            0 if fmask is None else fmask.shape[0], bf16)
     _backward_count(c).launches += 1
-    return dprev, dwb[:kw * cin * C].view(kw * cin, C), dwb[kw * cin * C:]
+    return dprev, dwb[:kw * cin * C].view(kw * cin, C), dwb[kw * cin * C:], folded
 
 
 def _bwd_dc(da, c, mask, rows, m, R, S):
@@ -874,12 +1054,14 @@ def fused_conv_tower_backward(saved, da_last, plan=None):
     L = len(cfgs)
     da = _aligned(da_last.reshape(R * S, cfgs[-1][2]).contiguous())
     dws, dbs, dscales, dbiases = [None] * L, [None] * L, [None] * L, [None] * L
-    dx0 = None
+    dx0 = folded = None
     dp = plan.dp if _over_data(plan) else 1
+    bf16 = saved.x2.dtype == torch.bfloat16
     for k in range(L - 1, -1, -1):
         kw, cin, cout, residual = cfgs[k]
         rows = saved.rows_list[k]
-        s2, m = _bwd_stats(da, saved.c_list[k], saved.masks[k], rows, R, S, means=dp == 1)
+        s2, m = _bwd_stats(da, saved.c_list[k], saved.masks[k], rows, R, S, means=dp == 1,
+                           folded=folded)
         if dp > 1:  # the kernel's m = s2 scale / n, over every data rank's rows
             m = _data_sums(s2.clone(), plan)[0] * rows[4] / float(R * S * dp)
         dscales[k], dbiases[k] = s2[1], s2[0]
@@ -889,8 +1071,10 @@ def fused_conv_tower_backward(saved, da_last, plan=None):
             dbs[0] = torch.zeros(cout, dtype=torch.float32, device=da.device)
             break
         aprev = saved.a_list[k - 1] if k > 0 else saved.x2
-        dprev, dws[k], dbs[k] = _bwd_apply(da, saved.c_list[k], saved.masks[k], rows, m, aprev,
-                                           saved.ws[k], kw, residual, R, S)
+        fold = ((saved.c_list[k - 1], saved.masks[k - 1], saved.rows_list[k - 1])
+                if bf16 and k > 0 else None)
+        dprev, dws[k], dbs[k], folded = _bwd_apply(da, saved.c_list[k], saved.masks[k], rows, m,
+                                                   aprev, saved.ws[k], kw, residual, R, S, fold)
         if k > 0:
             da = dprev
         else:

@@ -137,14 +137,16 @@ def _plain(cfgs, external, inputs):
     return a.detach(), mus, vars_, grads
 
 
-def _stages(cfgs, external, inputs):
-    """stages_forward then stages_backward in bf16: (a, mus, vars, grads)."""
+def _stages(cfgs, external, inputs, sms=132):
+    """stages_forward then stages_backward in bf16 on a card of ``sms``
+    SMs: (a, mus, vars, grads)."""
     x0, ws, bs, scales, biases, masks, dy = inputs
     p = [_t(t) for t in (ws, bs, scales, biases)]
     a, mus, vars_, saved = ct.stages_forward(torch.from_numpy(x0), cfgs, *p, _t(masks), external,
-                                             dtype=torch.bfloat16)
+                                             dtype=torch.bfloat16, sms=sms)
     (dx0, dws, dbs, dscales, dbiases), _ = ct.stages_backward(
-        saved, cfgs, p[0], _t(masks), torch.from_numpy(dy), external, dtype=torch.bfloat16)
+        saved, cfgs, p[0], _t(masks), torch.from_numpy(dy), external, sms=sms,
+        dtype=torch.bfloat16)
     return a, mus, vars_, {"dx0": dx0, "dws": dws, "dbs": dbs, "dscales": dscales,
                            "dbiases": dbiases}
 
@@ -180,24 +182,36 @@ def test_plain_bf16_tower_matches_jax(case):
     _check(cfgs, external, got, want)
 
 
-def test_stages_bf16_match_jax_and_the_plain_tower(case):
-    """The kernels' phase order in bf16 (tile sums, split-K dW in split
-    order, db per 256-row block of the f32 dc) against the JAX tower, and
-    against the plain bf16 tower at half the gates."""
+@pytest.mark.parametrize("sms", [132, 3])
+def test_stages_bf16_match_jax_and_the_plain_tower(case, sms):
+    """The kernels' phase order in bf16 (the products' tiles of whole
+    samples summed by persistent blocks, the partials summed in slices, the
+    folded Σgy and Σgy·x̂ from the stored da, split-K dW over runs of
+    whole-sample K stages in split order, db per 256-row block of the f32
+    dc) against the JAX tower, and against the plain bf16 tower at half the
+    gates; on 132 SMs (a block a tile here) and on 3 (a block walks
+    several: sums in yet another order, so a bf16 rounding of dc or dprev
+    lands one step apart at other elements than on 132, and the plain
+    tower is held at the file's full gates, as JAX is)."""
     _, cfgs, external, inputs, want = case
-    got = _stages(cfgs, external, inputs)
+    got = _stages(cfgs, external, inputs, sms)
     _check(cfgs, external, got, want)
     a, mus, vars_, grads = _plain(cfgs, external, inputs)
     plain = {"a": a.detach().float().numpy(), "mus": [m.numpy() for m in mus],
              "vars": [v.numpy() for v in vars_], "dx0": grads["dx0"].float().numpy()}
     plain.update({n: [g.numpy() for g in grads[n]] for n in ("dws", "dbs", "dscales", "dbiases")})
-    _check(cfgs, external, got, plain, scale=0.5)
+    _check(cfgs, external, got, plain, scale=0.5 if sms == 132 else 1.0)
 
 
 def test_bf16_plan_routes_and_workspaces():
     """In bf16 a conv runs on the tensor cores where cin is a multiple of 8;
-    the weight gradient's partials hold dW alone and the backward apply's
-    workspace holds dc and W^T in bf16 and the dc pass's block sums."""
+    there (MOD's layer: R 5120, S 20, C 64 on 132 SMs) the products take
+    row tiles of 6 whole samples (120 rows), one column-sum partial a
+    persistent block (132), the weight gradient K stages of 3 samples (60
+    rows) over wgrad_splits' runs; its partials hold dW alone, and the
+    backward apply's workspace holds dc in bf16, the dc pass's block sums
+    [blocks, C] and the split partials (no W^T); the fold's partials are a
+    transposed conv's blocks' [per_n, 2, cin]."""
     assert [ct.on_tensor_cores(c, torch.bfloat16) for c in (1, 2, 4, 6, 8, 64)] == [
         False, False, False, False, True, True]
     assert [ct.on_tensor_cores(c) for c in (2, 4, 8)] == [False, True, True]
@@ -205,11 +219,152 @@ def test_bf16_plan_routes_and_workspaces():
     f32 = ct.layer_plan(5120, 20, kw, cin, Cc)
     bf = ct.layer_plan(5120, 20, kw, cin, Cc, dtype=torch.bfloat16)
     assert bf["E"] == kw * cin * Cc and f32["E"] == kw * cin * Cc + Cc
-    assert bf["workspace"]["bwd_apply"] == (RS * Cc // 2 + kw * Cc * cin // 2
-                                            + bf["stat_blocks"] * 2 * Cc + bf["splits"] * bf["E"])
-    assert bf["workspace"]["forward"] == f32["workspace"]["forward"]
+    assert bf["conv"]["tile"] == {"rb": 6, "sb": 20, "s_tiles": 1, "r_tiles": 854, "tiles": 854,
+                                  "rows": 120}
+    assert (bf["conv"]["bn"], bf["conv"]["tiles_n"], bf["conv"]["per_n"]) == (64, 1, 132)
+    assert bf["fwd_partials"] == 132 and bf["fold"] == bf["conv"]
+    w = bf["wgrad"]
+    assert w["tile"] == {"rb": 3, "sb": 20, "s_tiles": 1, "r_tiles": 1707, "tiles": 1707,
+                         "rows": 60}
+    assert (w["m_pad"], w["bn"], w["wtiles"]) == (192, 64, 2)
+    sp, rps = ct.wgrad_splits(1707 * 64, 2, 132)
+    assert (w["splits"], w["per_split"]) == (sp, rps // 64)
+    assert w["splits"] == -(-1707 // w["per_split"]) and bf["splits"] == w["splits"]
+    assert bf["workspace"] == {"forward": 132 * 2 * Cc, "bwd_stats": bf["stat_blocks"] * 2 * Cc,
+                               "bwd_apply": RS * Cc // 2 + bf["stat_blocks"] * Cc
+                               + bf["splits"] * bf["E"], "fold": 132 * 2 * cin}
+    assert bf["stat_blocks"] == RS // ct.STAT_ROWS
     narrow = ct.layer_plan(5120, 20, 3, 2, 64, dtype=torch.bfloat16)
     assert not narrow["tensor_cores"] and narrow["fwd_partials"] == -(-RS // ct.STAT_ROWS)
+    assert "fold" not in narrow["workspace"] and narrow["splits"] == ct.split_rows(RS, 1, 132)[0]
+
+
+# geometries whose tiles of whole samples leave rows out, and whose samples
+# outrun a tile: R 33 of S 12 (10 samples a 120-row product tile: the
+# fourth tile holds 3; 5 a 60-row K stage: the seventh holds 3), S 150 (two
+# 75-position boxes a sample in the products, three of 50 in the weight
+# gradient), S 70 (one sample a product tile, two 35-position K stages);
+# cin 8 on the tensor cores, cin 2 on the CUDA cores, an external first conv
+TILE_GEOMETRIES = {
+    "tail_R33_S12": (33, 12, ((3, 8, 16, False), (3, 16, 16, True), (5, 16, 16, True)), False),
+    "long_S150": (5, 150, ((3, 8, 16, False), (3, 16, 16, True)), False),
+    "long_S70_external": (6, 70, ((5, 16, 16, False), (5, 16, 16, True)), True),
+    "narrow_cin2_S20": (12, 20, ((3, 2, 16, False), (3, 16, 16, True)), False),
+}
+
+
+def _tile_inputs(R, S_, cfgs, external, seed):
+    """_inputs' draws at another R and S: numpy f32, x0 and the cotangent
+    of bf16 values (no JAX: these geometries meet the plain tower only)."""
+    rng = np.random.default_rng(seed)
+    cin0 = cfgs[0][2] if external else cfgs[0][1]
+    bf = lambda a: torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16).float().numpy()
+    x0 = bf(rng.normal(size=(R, S_, cin0)))
+    groups = [[], [], [], [], []]
+    for kw, cin, cout, _ in cfgs:
+        groups[0].append((rng.normal(size=(kw * cin, cout)) * (kw * cin) ** -0.5).astype(np.float32))
+        groups[1].append((rng.normal(size=(cout,)) * 0.1).astype(np.float32))
+        groups[2].append((1.0 + 0.1 * rng.normal(size=(cout,))).astype(np.float32))
+        groups[3].append((0.1 * rng.normal(size=(cout,))).astype(np.float32))
+        groups[4].append(((rng.random((R, cout)) > 0.2) / 0.8).astype(np.float32))
+    return (x0, *groups, bf(rng.normal(size=(R, S_, cfgs[-1][2]))))
+
+
+@pytest.mark.parametrize("sms", [132, 2])
+@pytest.mark.parametrize("name", sorted(TILE_GEOMETRIES))
+def test_bf16_stages_over_tiles_of_whole_samples(name, sms):
+    """The stages model at geometries whose tiles leave rows out or cut a
+    sample into boxes, on 132 SMs and on 2 (the persistent blocks walk
+    several tiles, the weight gradient several K stages a split), against
+    the plain bf16 tower at twice the file's gates: a few hundred to a
+    thousand rows, where one bf16 step of dc at a few rows moves dW by ~1e-3
+    of max|dW| (at tail_R33_S12 the plain tower's own dW sits 1.1e-3 from
+    the one with its f32 steps in float64, the model's 6.8e-4); every row
+    enters one tile's sums once (a row left out or taken twice moves a
+    statistic by ~1/RS, 1e-3 to 1e-2 here, far past 2 STATS_TOL)."""
+    R_, S_, cfgs, external = TILE_GEOMETRIES[name]
+    inputs = _tile_inputs(R_, S_, cfgs, external, sorted(TILE_GEOMETRIES).index(name))
+    got = _stages(cfgs, external, inputs, sms)
+    a, mus, vars_, grads = _plain(cfgs, external, inputs)
+    plain = {"a": a.float().numpy(), "mus": [m.numpy() for m in mus],
+             "vars": [v.numpy() for v in vars_], "dx0": grads["dx0"].float().numpy()}
+    plain.update({n: [g.numpy() for g in grads[n]] for n in ("dws", "dbs", "dscales", "dbiases")})
+    _check(cfgs, external, got, plain, scale=2.0)
+
+
+def _covers(st, R_, S_):
+    """Whether the tiles' row ranges (tile_row_range) cover [0, R*S) once,
+    in order, each within the tile's rows."""
+    spans = [ct.tile_row_range(st, t, R_, S_) for t in range(st["tiles"])]
+    return (spans[0][0] == 0 and spans[-1][1] == R_ * S_
+            and all(a[1] == b[0] for a, b in zip(spans, spans[1:]))
+            and all(0 < e - b <= st["rows"] for b, e in spans))
+
+
+def _plan_holds(R_, S_, kw, cin, C, sms=132):
+    """The bf16 plan of one layer keeps the kernels' rules: boxes of at most
+    256 along each axis and 128 (products) or 64 (weight-gradient K stages)
+    rows of whole samples, or of one sample's positions, covering every
+    row once; one partial a persistent block and no more blocks than SMs;
+    every K stage in one split; the workspaces as focal_ct_workspace sizes
+    them."""
+    p = ct.layer_plan(R_, S_, kw, cin, C, sms, torch.bfloat16)
+    if not p["tensor_cores"]:
+        return p["fwd_partials"] == -(-R_ * S_ // ct.STAT_ROWS)
+    for plan, rows in ((p["conv"], 128), (p["fold"], 128), (p["wgrad"], 64)):
+        st = plan["tile"]
+        assert st["rows"] <= rows and max(st["rb"], st["sb"]) <= 256, (R_, S_, st)
+        assert (st["s_tiles"] == 1) == (S_ <= rows) and _covers(st, R_, S_), (R_, S_, st)
+    conv, fold, w = p["conv"], p["fold"], p["wgrad"]
+    assert conv["per_n"] == min(conv["tile"]["tiles"], sms // conv["tiles_n"])
+    assert conv["per_n"] * conv["tiles_n"] <= sms and p["fwd_partials"] == conv["per_n"]
+    assert w["m_pad"] == kw * -(-cin // 64) * 64 and w["m_pad"] >= kw * cin
+    stages = w["tile"]["tiles"]
+    assert (w["splits"] - 1) * w["per_split"] < stages <= w["splits"] * w["per_split"]
+    assert p["workspace"] == {
+        "forward": conv["per_n"] * 2 * C, "bwd_stats": p["stat_blocks"] * 2 * C,
+        "bwd_apply": ct.bf16_floats(R_ * S_ * C) + p["stat_blocks"] * C + w["splits"] * kw * cin * C,
+        "fold": fold["per_n"] * 2 * cin}
+    return True
+
+
+@pytest.mark.parametrize("dataset", ["MOD", "MOD_WIDE", "ACIDS", "PAMAP2", "RealWorld_HAR"])
+def test_bf16_plan_at_every_recipe_tower_layer(dataset):
+    """The bf16 plan at every tower layer of the recipe's DeepSense (the
+    two-location mod_extractor's too: cin 1, S its loc_mod_out_channels,
+    e.g. MOD's 128, one sample a 128-row tile, or boxes of a sample) at the fused batches the card runs (512 and 256 samples) and at a
+    few samples, on 132 SMs and on 114 (an H100 PCIe)."""
+    for batch in (2, 7, 256, 512):
+        for R_, S_, C_, cin, kw in _recipe_geometries(dataset, batch):
+            for sms in (132, 114):
+                assert _plan_holds(R_, S_, kw, cin, C_, sms)
+                assert _plan_holds(R_, S_, kw, C_, C_, sms)
+    R_, S_ = _recipe_geometries(dataset, 512)[-1][:2]  # the mod_extractor
+    st = ct.sample_tiles(R_, S_, 128)
+    assert st["rb"] == 1 and st["s_tiles"] == -(-S_ // 128)
+
+
+def test_bf16_plan_past_128_positions():
+    """S 300 (past a 128-row tile): three boxes of 100 positions a sample in
+    the products, five of 60 in the weight gradient, at C 64 and 256."""
+    for C_ in (64, 256):
+        assert _plan_holds(30, 300, 5, C_, C_)
+    p = ct.layer_plan(30, 300, 5, 64, 64, dtype=torch.bfloat16)
+    assert (p["conv"]["tile"]["s_tiles"], p["conv"]["tile"]["sb"]) == (3, 100)
+    assert (p["wgrad"]["tile"]["s_tiles"], p["wgrad"]["tile"]["sb"]) == (5, 60)
+
+
+def test_sliced_sum_is_slices_in_order():
+    """sliced_sum: eight runs of consecutive partials, each summed in order,
+    then the runs in order (sliced_sums, wg_reduce_kernel's column part)."""
+    parts = [torch.tensor([float(2**k), 1.0]) for k in range(19)]
+    per = 3  # ceil(19 / 8)
+    runs = [sum(parts[i:i + per], torch.zeros(2)) for i in range(0, 19, per)]
+    want = torch.zeros(2)
+    for r in runs:
+        want = want + r
+    assert torch.equal(ct.sliced_sum(parts), want)
+    assert torch.equal(ct.sliced_sum(parts[:1]), parts[0])
 
 
 def test_bf16_kernels_refuse_widths_not_a_multiple_of_8():

@@ -1650,15 +1650,21 @@ def test_conv_tower_bf16_matches_plain_on_card(samples, C, external):
 @pytest.mark.parametrize("samples,S,C,cin,kw,external,layers", [
     (512, 20, 64, 6, 3, False, 5), (512, 25, 64, 6, 3, False, 5), (512, 41, 64, 64, 3, True, 5),
     (512, 128, 64, 1, 4, False, 4), (7, 128, 64, 1, 4, False, 4), (5, 200, 64, 8, 3, False, 3),
-    (5, 1, 16, 2, 3, False, 3),
+    (5, 1, 16, 2, 3, False, 3), (3, 300, 256, 256, 5, True, 3), (4, 70, 64, 64, 3, True, 3),
+    (7, 20, 96, 96, 3, True, 3), (13, 9, 64, 64, 5, True, 3),
 ])
 def test_conv_tower_bf16_at_the_recipe_and_other_geometries(samples, S, C, cin, kw, external,
                                                             layers):
     """The recipes' cin 6 and the mod_extractor's cin 1 (the narrow bf16
     first conv), ACIDS's strided first conv, cin 8 (the first conv on the
     bf16 tensor cores), a spectrum past a 128-row tile and one of a single
-    position at MOD_TINY's width. Held against the plain version with its
-    f32 steps in float64 (``exact``)."""
+    position at MOD_TINY's width; for the products' tiles of whole samples:
+    S 300 at C 256 (three 100-position boxes a sample, two 128-column
+    tiles), S 70 (two 35-position K stages a sample in the weight
+    gradient), C 96 (a tap's K padded to two 64-channel blocks, a ragged
+    64-column tile) and S 9 (14 samples a 126-row tile: the last tile masks
+    the rows of its 10 samples past R = 130). Held against the plain
+    version with its f32 steps in float64 (``exact``)."""
     _tower_case_bf16(samples, C, external, S=S, layers=layers, cin=cin, kw=kw, exact=True)
 
 
@@ -1702,35 +1708,43 @@ def test_conv_tower_bf16_launch_counts_and_kernels(external):
         m = re.search(r"::(\w+)(?:<[^()]*>)?\(", n)
         return m.group(1) if m else n
 
-    want = {"bn_elementwise_kernel", "bf16_conv_gemm_kernel", "bn_stats_kernel",
-            "bn_grad_sums_kernel", "bn_grad_stats_kernel", "bn_dc_sums_kernel",
-            "column_total_kernel", "tap_transpose_kernel", "bf16_conv_wgrad_kernel",
-            "reduce_partials_kernel"}
+    want = {"bn_elementwise_kernel", "ct_wg_conv_kernel", "bn_stats_sliced_kernel",
+            "bn_grad_sums_kernel", "bn_grad_stats_sliced_kernel", "bn_dc_sums_kernel",
+            "ct_wg_wgrad_kernel", "wg_reduce_kernel"}
     want |= set() if external else {"narrow_conv_kernel", "narrow_convT_kernel",
                                     "narrow_wgrad_kernel"}
     # PyTorch's own kernels: an external first conv's [C]-sized statistics,
     # the placeholders' zero gradients
     others = [n for n in names if short(n) not in want and not n.startswith(("void at::", "Memset"))]
     assert want <= {short(n) for n in names} and not others, names
+    # no f32 product, per-tap transpose or one-SM walk of the sums ran
+    assert not {"tap_transpose_kernel", "reduce_partials_kernel", "bn_stats_kernel",
+                "bn_grad_stats_kernel"} & {short(n) for n in names}, names
+    assert all("ConvTowerSrc" in n for n in names if "wg_reduce" in n), names
 
 
 @pytest.mark.gpu
 def test_conv_tower_bf16_workspaces_and_refusals():
-    """focal_ct_workspace's bf16 sizes equal layer_plan's; C 12 (not a
+    """focal_ct_workspace's bf16 sizes equal layer_plan's (the fold's
+    partials, kind 3, where the layer's input runs on the tensor cores) at
+    MOD's, MOD_WIDE's and MOD_TINY's layers and at S > 128; C 12 (not a
     multiple of 8) has no bf16 launch plan; bf16 rows with f32 weights
     raise."""
     from focal_tpu_torch.ops import conv_tower as ct
 
     dev = _card()
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for R, C, layers in ((5120, 64, [(3, 2), (3, 64), (5, 64)]),
-                         (2560, 256, [(3, 2), (3, 256), (5, 256)]), (50, 16, [(3, 8), (3, 16)])):
+    for R, S, C, layers in ((5120, 20, 64, [(3, 2), (3, 64), (5, 64)]),
+                            (2560, 20, 256, [(3, 2), (3, 256), (5, 256)]),
+                            (50, 20, 16, [(3, 8), (3, 16)]), (30, 300, 64, [(4, 1), (4, 64)])):
         for kw, cin in layers:
-            want = ct.layer_plan(R, 20, kw, cin, C, sms, torch.bfloat16)["workspace"]
-            got = {"forward": ct._workspace("forward", R, 20, cin, C, kw, dev, 1),
-                   "bwd_stats": ct._workspace("bwd_stats", R, 20, C, C, 1, dev, 1),
-                   "bwd_apply": ct._workspace("bwd_apply", R, 20, cin, C, kw, dev, 1)}
-            assert {k: t.numel() for k, t in got.items()} == want, (R, C, kw, cin)
+            want = ct.layer_plan(R, S, kw, cin, C, sms, torch.bfloat16)["workspace"]
+            got = {"forward": ct._workspace("forward", R, S, cin, C, kw, dev, 1),
+                   "bwd_stats": ct._workspace("bwd_stats", R, S, C, C, 1, dev, 1),
+                   "bwd_apply": ct._workspace("bwd_apply", R, S, cin, C, kw, dev, 1)}
+            if ct.on_tensor_cores(cin, torch.bfloat16):
+                got["fold"] = ct._workspace("fold", R, S, cin, cin, kw, dev, 1)
+            assert {k: t.numel() for k, t in got.items()} == want, (R, S, C, kw, cin)
     rng = np.random.default_rng(12)
     cfgs, x0, params, masks = _tower_args(rng, 4, 10, 20, 12, 3, False, 2, dev)
     with pytest.raises(RuntimeError, match="no launch plan"):
@@ -1739,6 +1753,44 @@ def test_conv_tower_bf16_workspaces_and_refusals():
     with pytest.raises(TypeError):
         ct.tower_forward(x0.detach().to(torch.bfloat16), cfgs, *[[t.detach() for t in g]
                                                                   for g in params], masks, False)
+
+
+# sha-256 (first 16 hex digits) of the f32 #13/#14 outputs (a, the batch
+# statistics and the VJP of _tower_grads) at (samples, C, external, S), four
+# layers, as the parent commit's build gave them before the bf16 forms moved
+# to wgmma (NVIDIA H100 80GB HBM3, 132 SMs: the weight gradients' row splits
+# follow the SM count)
+F32_TOWER_DIGESTS = {(64, 64, False, 20): "52c236c9af4ab951", (16, 256, True, 20): "0b05c82cc31643db",
+                     (5, 64, False, 200): "3be90c1e996e44bf"}
+
+
+def _f32_tower_digest(ct, samples, C, external, S, dev):
+    import hashlib
+
+    rng = np.random.default_rng(900 + samples + C + external + S)
+    kw = 5 if external else 3
+    cfgs, x0, params, masks = _tower_args(rng, samples, 10, S, C, kw, external, 4, dev)
+    dy = torch.from_numpy(rng.normal(size=(samples * 10, S, C)).astype(np.float32)).to(dev)
+    y, mus, vars_, grads = _tower_grads(ct.fused_conv_tower, cfgs, x0, params, masks, dy, external)
+    torch.cuda.synchronize()
+    h = hashlib.sha256()
+    for t in (y, *mus, *vars_, *grads):
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("samples,C,external,S", sorted(F32_TOWER_DIGESTS))
+def test_f32_conv_tower_gives_the_parents_bits(samples, C, external, S):
+    """The f32 #13/#14, whose kernels the bf16 redesign left as they were,
+    give the bits they gave before it (F32_TOWER_DIGESTS)."""
+    from focal_tpu_torch.ops import conv_tower as ct
+
+    dev = _card()
+    assert torch.cuda.get_device_properties(dev).multi_processor_count == 132, (
+        "the digests were taken on a 132-SM H100")
+    key = (samples, C, external, S)
+    assert _f32_tower_digest(ct, *key, dev) == F32_TOWER_DIGESTS[key]
 
 
 # ---------------------------------------------------------------------------
