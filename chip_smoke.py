@@ -366,6 +366,25 @@ result line if any fails):
      data-parallel form (raw sums, the statistics at the global count)
      against its plain version and timed over one of two data shards of a
      MOD DeepSense step, f32 and bf16.
+     Phase 35 also runs python -m focal_tpu_torch.train at -data_parallel 2
+     -data_layout sharded (each rank holding its rows of the train split),
+     its entry point alone, each rank's launches held exactly; one pair of
+     ranks runs every layout in turn.
+ 37. gradient accumulation: one GradCache update (-grad_accum 2) from the
+     seed-0 init at the recipe's drop rates for MOD SW_Transformer f32
+     (#2/#3), bf16 (#2-bf16/#3-bf16), -no_pallas_block (#7/#9), -pallas_mlp
+     (#2/#3 and #11/#12), MOD_WIDE (#2/#3 at stage 0, #4/#5), DeepSense
+     -pallas_conv f32 and bf16 (#13/#14, #13-bf16/#14-bf16), micro-batches
+     of 128 (MOD_WIDE 16): pass 2's features bitwise pass 1's, the launches
+     exactly 2 k forwards' and k backwards', DeepSense's BatchNorm buffers
+     bitwise pass 1's chain (pass 2 folds none); the rate-0 GradCache update
+     of 2 x 256 against the step over the 512 samples, kernels on both
+     sides, the views the FFT (loss 1e-5 relative, gradients 1e-4); python -m
+     focal_tpu_torch.train -dataset MOD -grad_accum 2 for an epoch of 1,024
+     samples resident and with the train split streamed (-hbm_budget_gb
+     1e-6, blocks of 3 steps from pinned memory on a side stream): launches
+     exact and equal, validation points and parameters bit for bit the
+     same.
 
 Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #14-bf16, #4-TP/#5-TP,
 #4-TP-bf16/#5-TP-bf16 and the data-parallel rows DP-1-5, DP-6-9, DP-10-12,
@@ -4706,7 +4725,11 @@ MP_LAYOUTS = {"dp2": (["-data_parallel", "2"], []), "mp2": (["-model_parallel", 
                                                                "-pallas_conv"]),
               "ds_pallas_conv_dp2_bf16": (["-data_parallel", "2"],
                                           ["-model", "DeepSense", "-pallas_conv", "-compute_dtype",
-                                           "bfloat16"])}
+                                           "bfloat16"]),
+              "dp2_sharded": (["-data_parallel", "2", "-data_layout", "sharded"], [])}
+# the layouts that run their entry point alone (the sharded step's equality
+# with one process on the same global batch is a CPU test's)
+MP_ENTRY_ONLY = ("dp2_sharded",)
 MP_NEW_STEPS = 2
 # the entry points a layout runs after its pretraining, in its output folder:
 # (name, module, flags); the kernels each must launch (the bf16 TP layout's
@@ -4719,7 +4742,8 @@ MP_LAYOUT_STAGES = {"mp2_bf16": (
 # the rate-0 updates each layout holds to the single-process one
 MP_RATE0 = {"dp2": {"default": [], "no_pallas_block_pallas_mlp": ["-no_pallas_block",
                                                                    "-pallas_mlp"]},
-            **{layout: {"default": []} for layout in MP_LAYOUTS if layout != "dp2"}}
+            **{layout: {"default": []} for layout in MP_LAYOUTS
+               if layout != "dp2" and layout not in MP_ENTRY_ONLY}}
 # the kernels a new layout's steps run (each step as its rate-0 update), and
 # none other of MP_KERNELS; the DeepSense TP layouts run none (cuDNN convs)
 MP_LAYOUT_KERNELS = {"mp2_bf16": ("fused_window_block_tp_bf16",
@@ -5234,7 +5258,7 @@ def phase35_rank(rank, world, layout):
     argv = ["-dataset", "MOD", "-synthetic", "-synthetic_samples", str(MP_SAMPLES), "-epochs",
             "1", "-val_epochs", "1", "-output_dir", out_dir, "-device", MP_DEVICE] + flags
     zero_counts(kernels)
-    t0 = time.time()
+    t_layout = t0 = time.time()
     train_cli.main(argv)
     torch.cuda.synchronize()
     res = {"rank": rank, "backend": distributed.backend(), "cli_seconds": time.time() - t0,
@@ -5245,6 +5269,9 @@ def phase35_rank(rank, world, layout):
         importlib.import_module(f"focal_tpu_torch.{module}").main(argv + more)
         torch.cuda.synchronize()
         res["stages"][name] = {"seconds": time.time() - t0, "launches": counts(kernels)}
+    if layout in MP_ENTRY_ONLY:
+        res["seconds"] = time.time() - t_layout
+        return res
     dev = torch.device(distributed.device_for(MP_DEVICE))
     plan = make_mesh_plan(2, 1) if "-data_parallel" in layout_flags else make_mesh_plan(1, 2)
     res["rate0"] = {}
@@ -5299,7 +5326,25 @@ def phase35_rank(rank, world, layout):
     total, coll, calls, nbytes = collective_split(torch, lambda: step(state, data, idx))
     res["split"] = {"step_ms": total * 1e3, "collective_ms": coll * 1e3, "calls": calls,
                     "mbytes": nbytes / 2**20}
+    res["seconds"] = time.time() - t_layout
     return res
+
+
+def phase35_ranks(rank, world, layouts):
+    """phase35_rank for each of ``layouts`` in turn, in one pair of ranks:
+    the first entry point joins the process group, the others find it
+    joined (a pair of processes a layout spent ~15 s starting and stopping
+    on the card's host)."""
+    import gc
+
+    import torch
+
+    out = []
+    for layout in layouts:
+        out.append(phase35_rank(rank, world, layout))
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 DP_ROWS = {  # a data shard's kernels: forward, backward, the update that also runs them
@@ -5319,6 +5364,28 @@ def check_mp_launches(layout, ranks, per_fwd):
     (at least once) and no other of MP_KERNELS, and so did its entry point
     (the DeepSense TP layouts none); each of its MP_LAYOUT_STAGES launched
     the kernels it must and no other of MP_KERNELS."""
+    if layout in MP_ENTRY_ONLY:
+        # sharded dp 2: each rank's rows; the train split's KNN plan one
+        # batch of each rank's rows, val and test two views and the features
+        from focal_tpu_torch.data import DeviceDataLoader, load_split
+        from focal_tpu_torch.params import parse_train_params
+
+        args = parse_train_params(["-dataset", "MOD", "-synthetic", "-synthetic_samples",
+                                   str(MP_SAMPLES), "-device", "cpu"])
+        seq = args.dataset_config["seq_len"]
+        local_units, per = MP_SAMPLES // seq // 2, args.batch_size // seq // 2
+        steps = local_units // per
+        knn = -(-local_units * seq // (args.batch_size // 2))
+        evals = knn + 3 * sum(len(DeviceDataLoader(load_split(o, args), args.batch_size,
+                                                   sequence=True)) for o in ("val", "test"))
+        want = {k: {"fused_window_block_dropout": per_fwd * steps,
+                    "fused_window_block_backward": per_fwd * steps,
+                    "fused_window_block": per_fwd * evals}.get(k, 0) for k in MP_KERNELS}
+        for r in ranks:
+            if r["cli_launches"] != want:
+                raise AssertionError(f"[multi-process] {layout} rank {r['rank']}: entry point "
+                                     f"launches {r['cli_launches']} != {want}")
+        return
     if layout in MP_LAYOUT_KERNELS:
         names, steps = MP_LAYOUT_KERNELS[layout], mp_steps(layout)
         for r in ranks:
@@ -5360,11 +5427,13 @@ def check_mp_launches(layout, ranks, per_fwd):
 
 def multi_process_paths(torch, dev):
     """Phase 35: MOD pretraining at full width on two ranks sharing the
-    card (gloo), at every layout of MP_LAYOUTS: SW_Transformer at
-    -data_parallel 2 and -model_parallel 2 in f32 and at -model_parallel 2
-    in bf16, DeepSense at -model_parallel 2 in f32 and bf16 and with
-    -pallas_conv at -data_parallel 2 in f32 and bf16 (phase35_rank); the
-    single-process rate-0 updates they are held to are taken here first."""
+    card (gloo), at every layout of MP_LAYOUTS, one after the other in one
+    pair of ranks (phase35_ranks): SW_Transformer at -data_parallel 2 and
+    -model_parallel 2 in f32 and at -model_parallel 2 in bf16, DeepSense at
+    -model_parallel 2 in f32 and bf16 and with -pallas_conv at
+    -data_parallel 2 in f32 and bf16, SW_Transformer at -data_parallel 2
+    on the sharded layout (phase35_rank); the single-process rate-0 updates
+    they are held to are taken here first."""
     from focal_tpu_torch.parallel import distributed
     from focal_tpu_torch.params import load_dataset_config
 
@@ -5383,12 +5452,16 @@ def multi_process_paths(torch, dev):
             del whole, init
     per_fwd = sum(g["per_forward"] for g in block_geometries(load_dataset_config("MOD"), 1))
     out = {"layouts": {}, "per_forward": per_fwd, "allowance_rows": rows}
-    for layout in MP_LAYOUTS:
-        t1 = time.time()
-        ranks = distributed.run_local(phase35_rank, 2, layout, device=MP_DEVICE, timeout=900,
-                                      init=False)
+    t1 = time.time()
+    pairs = distributed.run_local(phase35_ranks, 2, list(MP_LAYOUTS), device=MP_DEVICE,
+                                  timeout=1500, init=False)
+    out["ranks_seconds"] = time.time() - t1
+    log(f"[multi-process] {len(MP_LAYOUTS)} layouts in one pair of ranks: "
+        f"{out['ranks_seconds']:.1f}s")
+    for i, layout in enumerate(MP_LAYOUTS):
+        ranks = [pair[i] for pair in pairs]
         for r in ranks:
-            for variant, v in r["rate0"].items():
+            for variant, v in r.get("rate0", {}).items():
                 if not v["ok"]:
                     raise AssertionError(f"[multi-process] {layout} rank {r['rank']} {variant}: "
                                          f"the rate-0 update is off the single-process one: {v}")
@@ -5396,9 +5469,14 @@ def multi_process_paths(torch, dev):
                     raise AssertionError(f"[multi-process] {layout} {variant}: the gate passes "
                                          f"the planted fault {MP_PLANT}: {v['plant_gate']}")
         check_mp_launches(layout, ranks, per_fwd)
-        out["layouts"][layout] = {"seconds": time.time() - t1, "ranks": ranks}
+        out["layouts"][layout] = {"seconds": max(r["seconds"] for r in ranks), "ranks": ranks}
         steps = mp_steps(layout)
         for r in ranks:
+            if layout in MP_ENTRY_ONLY:
+                log(f"[multi-process] {layout} rank {r['rank']} (two ranks sharing one card, "
+                    f"{r['backend']}): entry point {r['cli_seconds']:.1f}s, launches "
+                    f"{ {k: v for k, v in r['cli_launches'].items() if v} } (exact)")
+                continue
             stages = "".join(f"; {n} {st['seconds']:.1f}s, launches "
                              f"{ {k: v for k, v in st['launches'].items() if v} }"
                              for n, st in r["stages"].items())
@@ -5822,6 +5900,318 @@ def dp_tower_times(torch, np, ct, dev):
             f"{tot['device_ms']:.3f}, plain {tot['plain_ms']:.3f}, cuDNN chain "
             f"{tot['library_ms']:.3f}, bound {tot['bound_ms']:.3f} {tot['bound_by']}), worst "
             f"error vs the plain DP form {tot['err']:.2e} (gradients {tot['grad_err']:.2e})")
+    torch.cuda.empty_cache()
+    out["seconds"] = time.time() - t0
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 37: gradient accumulation (GradCache's replayed forwards, MultiSteps),
+# host->device streaming and the sharded layout
+
+ACCUM_DATASET = "MOD"     # the recipe of phase 37's SW_Transformer and DeepSense cases
+ACCUM_K = 2               # micro-batches a GradCache update of phase 37
+ACCUM_MICRO = 128         # samples a micro-batch of the replay checks (views fused to 256)
+ACCUM_WIDE_MICRO = 16     # MOD_WIDE's
+ACCUM_SAMPLES = 1024      # MOD synthetic train split of the entry points: 4 steps of 256
+ACCUM_STREAM = ["-hbm_budget_gb", "1e-6", "-stream_block_steps", "3"]
+# the replay cases: (dataset, None for ACCUM_DATASET; flags); each effective step's launches are
+# its kernels' per forward (``accum_per_forward``) times 2 k forwards (pass
+# 1 and pass 2) and k backwards
+ACCUM_REPLAY = {
+    "sw": (None, []), "sw_bf16": (None, ["-compute_dtype", "bfloat16"]),
+    "sw_no_pallas_block": (None, ["-no_pallas_block"]), "sw_pallas_mlp": (None, ["-pallas_mlp"]),
+    "ds_pallas_conv": (None, ["-model", "DeepSense", "-pallas_conv"]),
+    "ds_pallas_conv_bf16": (None, ["-model", "DeepSense", "-pallas_conv", "-compute_dtype",
+                                   "bfloat16"]),
+    "sw_wide": ("MOD_WIDE", []),
+}
+
+
+def accum_per_forward(cfg, dataset, flags, micro):
+    """({forward wrapper: launches a training forward}, {backward wrapper:
+    launches a backward}) of a replay case at ``micro`` samples (views
+    fused)."""
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    if "DeepSense" in flags:
+        tl = tower_launches(tower_geometries(cfg, 2 * micro, dataset))
+        sfx = "_bf16" if "bfloat16" in flags else ""
+        return ({f"fused_conv_tower{sfx}": tl["fused_conv_tower"]},
+                {f"fused_conv_tower_backward{sfx}": tl["fused_conv_tower_backward"]})
+    geos = block_geometries(cfg, 2 * micro)
+    mono = sum(g["per_forward"] for g in geos if pk.wblock_fits(g["N"], g["C"], g["heads"]))
+    heads = sum(g["per_forward"] for g in geos) - mono
+    if "-no_pallas_block" in flags:
+        fwd, bwd = ({"fused_window_attention_dropout": mono + heads},
+                    {"fused_window_attention_dropout_backward": mono + heads})
+    elif "bfloat16" in flags:
+        fwd, bwd = ({"fused_window_block_dropout_bf16": mono},
+                    {"fused_window_block_backward_bf16": mono})
+    else:
+        fwd = {"fused_window_block_dropout": mono, "fused_window_block_perhead": heads}
+        bwd = {"fused_window_block_backward": mono, "fused_window_block_perhead_backward": heads}
+    if "-pallas_mlp" in flags:
+        mlps = sum(g["per_forward"] for g in mlp_geometries(cfg, 2 * micro, dataset))
+        fwd["fused_mlp_dropout_forward"], bwd["fused_mlp_backward"] = mlps, mlps
+    return ({k: v for k, v in fwd.items() if v}, {k: v for k, v in bwd.items() if v})
+
+
+def recorded_passes(torch, model):
+    """(handle, {False: pass 1's outputs, True: pass 2's}): a forward hook
+    on ``model`` that copies each {mod: features} output of a GradCache
+    update, keyed by the grad mode it ran under (pass 1 without gradient,
+    pass 2 with), in call order; ``handle.remove()`` ends it."""
+    seen = {False: [], True: []}
+
+    def hook(module, inputs, out):
+        seen[torch.is_grad_enabled()].append({m: v.detach().clone() for m, v in out.items()})
+
+    return model.register_forward_hook(hook), seen
+
+
+def replayed_bitwise(torch, seen):
+    """Pass 2 made as many forwards as pass 1, each bitwise its pass-1
+    counterpart."""
+    first, second = seen[False], seen[True]
+    return len(first) == len(second) > 0 and all(
+        a.keys() == b.keys() and all(torch.equal(a[m], b[m]) for m in a)
+        for a, b in zip(first, second))
+
+
+def accum_replay(torch, kernels, dev, case):
+    """One GradCache update of ``case`` (ACCUM_REPLAY) at the recipe's drop
+    rates through the kernels, from the seed-0 init: pass 2's features
+    bitwise pass 1's (a forward hook, ``recorded_passes``), the launches exactly 2 k
+    forwards' and k backwards', the loss finite; DeepSense's BatchNorm
+    buffers bitwise those of pass 1's forwards chained on a copy of the
+    model (pass 2 folds none)."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import TrainState, create_train_state
+    from focal_tpu_torch.train.steps import (gather_batch, make_gathered_pretrain_step,
+                                             pretrain_features, pretrain_views)
+
+    dataset, flags = ACCUM_REPLAY[case]
+    dataset = dataset or ACCUM_DATASET
+    micro = ACCUM_WIDE_MICRO if dataset == "MOD_WIDE" else ACCUM_MICRO
+    args = parse_train_params(["-dataset", dataset, "-batch_size", str(micro), "-grad_accum",
+                               str(ACCUM_K)] + flags)
+    cfg = args.dataset_config
+    model = build_backbone(cfg, args.model, args.task, args.learn_framework,
+                           pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
+                           pallas_block=not args.no_pallas_block, compute_dtype=args.compute_dtype)
+    init_params(model, seed=0).to(dev)
+    chained = copy.deepcopy(model) if args.model == "DeepSense" else None
+    state = create_train_state(args, model, 100, seed=0, accum_in_step=True)
+    host, _, _ = synthetic_arrays(cfg, args.task, ACCUM_K * micro, seed=0)
+    data = to_device(host, dev)
+    micro_batches = [(data, torch.arange(i * micro, (i + 1) * micro, device=dev))
+                     for i in range(ACCUM_K)]
+    augmenter = build_augmenter(args)
+    step = make_gathered_pretrain_step(model, augmenter, make_focal_loss(args), ACCUM_K)
+    fwd, bwd = accum_per_forward(cfg, dataset, flags, micro)
+    want = {k.__name__: 2 * ACCUM_K * fwd.get(k.__name__, 0) + ACCUM_K * bwd.get(k.__name__, 0)
+            for k in kernels}
+    hook, seen = recorded_passes(torch, model)
+    zero_counts(kernels)
+    t0 = time.time()
+    _, metrics = step(state, micro_batches)
+    loss = float(metrics["loss"])
+    seconds = time.time() - t0
+    got = counts(kernels)
+    hook.remove()
+    check_counts(f"[accum-replay] {case}: one GradCache update", got, want)
+    replayed = replayed_bitwise(torch, seen)
+    if not replayed or not math.isfinite(loss):
+        raise AssertionError(f"[accum-replay] {case}: pass 2's features differ from pass 1's "
+                             f"({replayed}) or the loss is {loss}")
+    stats_equal = None
+    if chained is not None:
+        ref = TrainState(chained, None, seed=0)
+        with torch.no_grad():
+            for i, (d, idx) in enumerate(micro_batches):
+                rngs = ref.generators(i)
+                pretrain_features(chained, rngs, *pretrain_views(augmenter, rngs,
+                                                                 gather_batch(d, idx)))
+        after = dict(model.named_buffers())
+        stats_equal = all(torch.equal(after[n], b) for n, b in chained.named_buffers())
+        if not stats_equal:
+            raise AssertionError(f"[accum-replay] {case}: BatchNorm buffers are not pass 1's chain")
+    res = {"dataset": dataset, "flags": flags, "micro": micro, "k": ACCUM_K, "loss": loss,
+           "replayed_bitwise": True, "bn_stats_pass1_chain": stats_equal, "seconds": seconds,
+           "launches": got, "per_forward": fwd, "per_backward": bwd}
+    log(f"[accum-replay] {case} ({dataset} {' '.join(flags) or 'default'}, {ACCUM_K} x {micro}): "
+        f"pass 2's features bitwise pass 1's; launches "
+        f"{ {k: v for k, v in got.items() if v} } = 2 x {ACCUM_K} forwards x {fwd} + "
+        f"{ACCUM_K} backwards x {bwd}; BatchNorm buffers pass 1's chain: {stats_equal}; "
+        f"loss {loss:.4f}; {seconds:.2f}s")
+    return res
+
+
+def accum_exactness(torch, kernels, dev):
+    """The rate-0 GradCache update of 2 x TRAIN_BATCH against one step over
+    the whole 2 x TRAIN_BATCH batch, kernels on both sides (MOD
+    SW_Transformer, seed-0 init, the augmenter pool ["no"]: each view the
+    batch's FFT on both sides): loss within LOSS_TOL, gradients within
+    GRAD_TOL relative (TINY_GRAD absolutely where tiny on both)."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_gathered_pretrain_step, make_pretrain_step
+
+    out = {}
+    for k, batch in ((ACCUM_K, TRAIN_BATCH), (1, ACCUM_K * TRAIN_BATCH)):
+        args = parse_train_params(["-dataset", ACCUM_DATASET, "-batch_size", str(batch),
+                                   "-grad_accum", str(k)])
+        cfg = copy.deepcopy(args.dataset_config)
+        sw = cfg["SW_Transformer"]
+        sw["dropout_ratio"] = sw["drop_path_rate"] = sw["attn_drop_rate"] = 0.0
+        cfg["FOCAL"]["random_augmenters"] = {"time_augmenters": ["no"], "freq_augmenters": ["no"]}
+        args.dataset_config = cfg
+        model = init_params(build_backbone(cfg, args.model, args.task, args.learn_framework),
+                            seed=0).to(dev)
+        state = create_train_state(args, model, 100, seed=0, accum_in_step=k > 1)
+        data = to_device(synthetic_arrays(cfg, args.task, ACCUM_K * TRAIN_BATCH, seed=0)[0], dev)
+        focal_loss, augmenter = make_focal_loss(args), build_augmenter(args)
+        zero_counts(kernels)
+        if k > 1:
+            step = make_gathered_pretrain_step(model, augmenter, focal_loss, k)
+            _, m = step(state, [(data, torch.arange(i * batch, (i + 1) * batch, device=dev))
+                                for i in range(k)])
+        else:
+            _, m = make_pretrain_step(model, augmenter, focal_loss)(
+                state, data, torch.arange(batch, device=dev))
+        out[k] = (float(m["loss"]), {n: p.grad.cpu() for n, p in model.named_parameters()
+                                     if p.grad is not None}, counts(kernels))
+        del model, state, data
+    (loss_k, grads_k, launches_k), (loss_1, grads_1, launches_1) = out[ACCUM_K], out[1]
+    if set(grads_k) != set(grads_1):
+        raise AssertionError("[accum-exact] the two steps give gradients to other parameters")
+    worst, worst_name = 0.0, ""
+    for n, want in grads_1.items():
+        got = grads_k[n]
+        if max(float(got.abs().max()), float(want.abs().max())) < TINY_GRAD:
+            e = 0.0 if float((got - want).abs().max()) <= TINY_GRAD else math.inf
+        else:
+            e = rel_err(got, want)
+        if e > worst:
+            worst, worst_name = e, n
+    loss_rel = abs(loss_k - loss_1) / abs(loss_1)
+    per = sum(g["per_forward"] for g in block_geometries(
+        parse_train_params(["-dataset", ACCUM_DATASET]).dataset_config, 1))
+    check_counts("[accum-exact] GradCache update", launches_k,
+                 {n: {"fused_window_block": 2 * ACCUM_K * per,
+                      "fused_window_block_backward": ACCUM_K * per}.get(n, 0) for n in launches_k})
+    check_counts("[accum-exact] full-batch step", launches_1,
+                 {n: {"fused_window_block": per, "fused_window_block_backward": per}.get(n, 0)
+                  for n in launches_1})
+    res = {"loss_gradcache": loss_k, "loss_full_batch": loss_1, "loss_rel": loss_rel,
+           "max_grad_rel": worst, "worst": worst_name, "launches_gradcache": launches_k,
+           "launches_full_batch": launches_1}
+    log(f"[accum-exact] rate-0 GradCache update of {ACCUM_K} x {TRAIN_BATCH} vs one step of "
+        f"{ACCUM_K * TRAIN_BATCH}, kernels on both sides: loss {loss_k:.6f} vs {loss_1:.6f} "
+        f"(rel {loss_rel:.2e}), max grad rel err {worst:.2e} ({worst_name})")
+    if not (loss_rel <= LOSS_TOL and worst <= GRAD_TOL):
+        raise AssertionError(f"[accum-exact] the GradCache update is off the full batch's: {res}")
+    return res
+
+
+def accum_entry_points(torch, kernels, dev):
+    """python -m focal_tpu_torch.train at MOD -grad_accum 2 for an epoch of
+    ACCUM_SAMPLES (4 micro-steps of TRAIN_BATCH, 2 GradCache updates),
+    resident and then with the split streamed (ACCUM_STREAM: blocks of 3
+    steps and 1, pinned on the host, copied on a side stream): the launches
+    exact (#2 2 x 16 a micro-step, #3 16, #1 16 an eval forward) and the
+    same in both, the streamed run's validation points and parameters
+    bitwise the resident run's, every block from pinned memory."""
+    import importlib
+
+    from focal_tpu_torch import streaming
+    from focal_tpu_torch.data import DeviceDataLoader, load_split
+    from focal_tpu_torch.params import parse_train_params
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    base = ["-dataset", ACCUM_DATASET, "-synthetic", "-synthetic_samples", str(ACCUM_SAMPLES),
+            "-batch_size", str(TRAIN_BATCH), "-epochs", "1", "-val_epochs", "1", "-grad_accum",
+            str(ACCUM_K), "-device", dev.type]
+    args = parse_train_params(base)
+    per = sum(g["per_forward"] for g in block_geometries(args.dataset_config, 1))
+    batches = {o: len(DeviceDataLoader(load_split(o, args), TRAIN_BATCH, sequence=True))
+               for o in ("train", "val", "test")}
+    evals = batches["train"] + 3 * (batches["val"] + batches["test"])
+    micro_steps = batches["train"] // ACCUM_K * ACCUM_K
+    want = {k.__name__: {"fused_window_block_dropout": 2 * per * micro_steps,
+                         "fused_window_block_backward": per * micro_steps,
+                         "fused_window_block": per * evals}.get(k.__name__, 0) for k in kernels}
+    blocks = []
+    start = streaming.BlockStream.start
+
+    def spy(self, rows):
+        blocks.append({"rows": int(len(rows)), "card": self.cuda,
+                       "pinned": all(t.is_pinned() for t in self._tensors()),
+                       "copy_stream": getattr(self, "copy_stream", None) is not None})
+        return start(self, rows)
+
+    runs = {}
+    streaming.BlockStream.start = spy
+    try:
+        for name, extra in (("resident", []), ("streamed", ACCUM_STREAM)):
+            out = os.path.join(HERE, "build", f"chip_smoke_accum_{name}")
+            shutil.rmtree(out, ignore_errors=True)
+            zero_counts(kernels)
+            t0 = time.time()
+            st, best, points = train_cli.main(base + extra + ["-output_dir", out])
+            torch.cuda.synchronize()
+            (latest,) = [os.path.join(r, f) for r, _, fs in os.walk(out) for f in fs
+                         if f.endswith("_pretrain_latest.pt")]
+            runs[name] = {"seconds": time.time() - t0, "launches": counts(kernels),
+                          "points": points, "updates": st.step,
+                          "latest": torch.load(latest, weights_only=True)}
+            check_counts(f"[accum-entry] {name}", runs[name]["launches"], want)
+    finally:
+        streaming.BlockStream.start = start
+    res, stre = runs["resident"], runs["streamed"]
+    same_points = res["points"] == stre["points"]
+    same_params = all(torch.equal(res["latest"][n], stre["latest"][n]) for n in res["latest"])
+    # the train split's 4 steps and the KNN plan's 4 batches, in blocks of 3 and 1
+    blocks_ok = ([b["rows"] for b in blocks] == [3 * TRAIN_BATCH, TRAIN_BATCH] * 2
+                 and all(b["card"] and b["pinned"] and b["copy_stream"] for b in blocks))
+    if dev.type != "cuda":  # a rehearsal on the CPU: blocks are host gathers
+        blocks_ok = [b["rows"] for b in blocks] == [3 * TRAIN_BATCH, TRAIN_BATCH] * 2
+    summary = {name: {k: v for k, v in r.items() if k != "latest"} for name, r in runs.items()}
+    summary.update(same_points=same_points, same_params=same_params, blocks=blocks,
+                   per_forward=per, evals=evals, micro_steps=micro_steps)
+    log(f"[accum-entry] {ACCUM_DATASET} -grad_accum {ACCUM_K}, {ACCUM_SAMPLES} samples: resident "
+        f"{res['seconds']:.1f}s, streamed {stre['seconds']:.1f}s ({len(blocks)} blocks "
+        f"{[b['rows'] for b in blocks]}, pinned, side stream); {res['updates']} updates; launches "
+        f"{ {k: v for k, v in res['launches'].items() if v} } in both; train loss "
+        f"{res['points'][0]['train_loss']!r} resident, {stre['points'][0]['train_loss']!r} "
+        f"streamed; validation points equal: {same_points}, parameters bitwise: {same_params}")
+    if not (same_points and same_params and blocks_ok and res["updates"] == micro_steps // ACCUM_K):
+        raise AssertionError(f"[accum-entry] the streamed run differs from the resident one or "
+                             f"streamed otherwise: {summary}")
+    return summary
+
+
+def accumulation_paths(torch, np, kernels, dev):
+    """Phase 37: GradCache's replay through every training kernel (ACCUM_REPLAY),
+    the rate-0 update against the full batch, and the -grad_accum entry
+    point resident and streamed."""
+    t0 = time.time()
+    out = {"replay": {}}
+    for case in ACCUM_REPLAY:
+        out["replay"][case] = accum_replay(torch, kernels, dev, case)
+        torch.cuda.empty_cache()
+    out["exact"] = accum_exactness(torch, kernels, dev)
+    torch.cuda.empty_cache()
+    out["entry"] = accum_entry_points(torch, kernels, dev)
     torch.cuda.empty_cache()
     out["seconds"] = time.time() - t0
     return out
@@ -6920,6 +7310,15 @@ def main():
     log(f"[smoke] phase 35 in {multi['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
 
+    # ---- 37. gradient accumulation and streaming: GradCache's pass 2
+    # replaying pass 1 bit for bit through every training kernel, the
+    # launches of an effective step exact; the rate-0 GradCache update of
+    # 2 x 256 against the 512 step; the -grad_accum entry point resident and
+    # streamed, bit for bit the same
+    accum = accumulation_paths(torch, np, all_kernels, dev)
+    log(f"[smoke] phase 37 in {accum['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -6957,7 +7356,7 @@ def main():
                 "bf16": bf16, "deepsense_bf16": ds_bf16, "wide_bf16": wide_bf16,
                 "mlp_bf16": mlp_bf16, "attention_bf16": attn_bf16, "tp_kernels": tpk,
                 "dp_forms": dp_forms, "multi_process": multi, "tp_bf16_kernels": tpb,
-                "dp_towers": dpt,
+                "dp_towers": dpt, "accumulation": accum,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,
@@ -7356,6 +7755,20 @@ def main():
                         launches_per_step=per_fwd, steps=ATTN_BF16_STEPS),
     ]
     kernels += multi_process_entries(tpk, dp_forms, multi, tpb, dpt)
+    # phase 37's paths: each kernel's launches in one GradCache update of a
+    # replay case, the rate-0 update, the -grad_accum entry points; phase
+    # 35's sharded dp 2 entry point (both ranks)
+    accum_paths = {f"gradcache_update_{c}": r["launches"] for c, r in accum["replay"].items()}
+    accum_paths["gradcache_rate0_update_MOD"] = accum["exact"]["launches_gradcache"]
+    accum_paths.update({f"train_cli_MOD_grad_accum_{n}": accum["entry"][n]["launches"]
+                        for n in ("resident", "streamed")})
+    sharded = multi["layouts"]["dp2_sharded"]["ranks"]
+    accum_paths["train_cli_MOD_dp2_sharded"] = {n: sum(r["cli_launches"][n] for r in sharded)
+                                                for n in sharded[0]["cli_launches"]}
+    for e in kernels:
+        for path, got in accum_paths.items():
+            if got.get(e["name"]):
+                e.setdefault("launches_by_path", {})[path] = got[e["name"]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -34,6 +34,8 @@ masks from the split generator; ``out_proj`` is column-parallel, its
 output gathered.
 """
 
+import contextlib
+
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -149,7 +151,10 @@ class BatchNorm(nn.Module):
     normalises with the running ones. A bf16 x is upcast: the statistics
     and the normalisation run in f32 and the result is rounded to bf16
     once (flax 0.12's ``force_float32_reductions``); the running
-    statistics stay f32."""
+    statistics stay f32. ``statistics_frozen`` stops the fold for a
+    replayed forward (GradCache's second pass)."""
+
+    fold = True
 
     def __init__(self, features):
         super().__init__()
@@ -162,6 +167,8 @@ class BatchNorm(nn.Module):
     @torch.no_grad()
     def update(self, mu, var):
         """Fold one batch's statistics into the running ones."""
+        if not self.fold:
+            return
         self.mean.copy_(BN_MOMENTUM * self.mean + (1.0 - BN_MOMENTUM) * mu)
         self.var.copy_(BN_MOMENTUM * self.var + (1.0 - BN_MOMENTUM) * var)
 
@@ -185,6 +192,21 @@ class BatchNorm(nn.Module):
         shape = [1, -1] + [1] * (x.dim() - 2)
         mul = torch.rsqrt(var + BN_EPS) * self.weight
         return ((x - mu.view(shape)) * mul.view(shape) + self.bias.view(shape)).to(dtype)
+
+
+@contextlib.contextmanager
+def statistics_frozen(model):
+    """No BatchNorm of ``model`` folds its batch statistics inside the
+    block: a forward replayed for its gradient (the JAX package discards
+    the second pass's ``batch_stats``)."""
+    norms = [m for m in model.modules() if isinstance(m, BatchNorm)]
+    for m in norms:
+        m.fold = False
+    try:
+        yield
+    finally:
+        for m in norms:
+            del m.fold
 
 
 class ConvLayer2D(nn.Module):

@@ -23,8 +23,15 @@ Semantics, as in the JAX package:
   * time_mask zeroes a run of intervals, freq_mask a band of the spectrum;
     jitter adds noise scaled by the modality's value range (the per-(loc,
     mod) ``ctx`` table).
+
+A data rank of the sharded layout holds only its rows of a batch: its
+augmenter (``Augmenter.for_rows``) makes every draw of the global batch,
+so that every rank draws the same values, and applies them to its rows;
+jitter keeps its rows of the global noise, and mixup takes its partners
+from the data ranks' rows gathered.
 """
 
+import copy
 import math
 
 import numpy as np
@@ -219,6 +226,8 @@ FREQ_AUGMENTERS = {
 # (the JAX package's table, from the reference's normalize.py)
 TIME_VALUE_RANGES = {"MOD": {"audio": 44778.1953125, "seismic": 71805.0}}
 
+_ROW_DRAWS = {draw_jitter}  # draws the size of the batch: a rank keeps its rows
+
 
 # --------------------------------------------------------------------------
 # mixup / cutmix (one lambda and permutation for the batch, a cutmix box per
@@ -266,11 +275,15 @@ def _cut_bounds(center, size, ratio):
     return min(max(center - cut // 2, 0), size), min(max(center + cut // 2, 0), size)
 
 
-def mixup_batch(loc_inputs, labels, d, cfg, num_classes):
+def mixup_batch(loc_inputs, labels, d, cfg, num_classes, rows=None, gather=None):
     """timm-style Mixup/CutMix given draw_mixup's draws ``d`` -> (mixed
     inputs, soft targets [b, num_classes] with label smoothing). Mixup
     blends every sample with its partner rand_index[n] by lambda; cutmix
-    copies the partner's box, one box per modality."""
+    copies the partner's box, one box per modality. With ``rows`` the
+    inputs and labels are rows lo:hi of the global batch, whose whole
+    ``gather`` returns."""
+    index = d["rand_index"] if rows is None else d["rand_index"][rows[0]:rows[1]]
+    whole = (lambda t: t) if rows is None else gather
     lam = np.float32(mixup_lambda(d))
     ratio = np.sqrt(np.maximum(np.float32(1.0) - lam, np.float32(0.0)))
     out = {}
@@ -280,7 +293,7 @@ def mixup_batch(loc_inputs, labels, d, cfg, num_classes):
             if not d["apply"]:
                 out[loc][mod] = x
                 continue
-            partner = x[d["rand_index"].to(x.device)]
+            partner = whole(x)[index.to(x.device)]
             if d["cutmix"]:
                 cy, cx = d["centers"][(loc, mod)]
                 yl, yh = _cut_bounds(cy, x.shape[2], ratio)
@@ -294,7 +307,8 @@ def mixup_batch(loc_inputs, labels, d, cfg, num_classes):
     off = smoothing / num_classes
     on = 1.0 - smoothing + off
     y1 = F.one_hot(labels.long(), num_classes).to(torch.float32) * (on - off) + off
-    y2 = y1[d["rand_index"].to(labels.device)]
+    y2 = (F.one_hot(whole(labels).long(), num_classes).to(torch.float32) * (on - off)
+          + off)[index.to(labels.device)]
     return out, y1 * float(lam) + y2 * float(np.float32(1.0) - lam)
 
 
@@ -341,8 +355,20 @@ class Augmenter:
                     "jitter_std": ranges.get(mod, 1.0) / 100.0 * jitter_pct,
                 }
 
+    rows = None  # (lo, hi, global rows) of a data rank's batches (for_rows)
+    gather = None  # a rank's tensor -> the data ranks' whole one, in rank order
+
+    def for_rows(self, rows, gather):
+        """This augmenter on a data rank that holds rows lo:hi of each global
+        batch of n rows (``rows`` (lo, hi, n)); ``gather`` concatenates the
+        data ranks' tensors."""
+        view = copy.copy(self)
+        view.rows, view.gather = rows, gather
+        return view
+
     def _apply_one(self, name, table, gen, loc_inputs):
         """Apply one named augmenter across all (loc, mod), each gated once."""
+        rows = self.rows
         entry = table[name]
         if entry is None:
             return loc_inputs
@@ -353,7 +379,11 @@ class Augmenter:
             out[loc] = {}
             for mod, x in mods.items():
                 if _gated(gen, cfg["prob"]):
-                    x = apply(x, draw(gen, x.shape, cfg, self.ctx[(loc, mod)]), cfg)
+                    shape = x.shape if rows is None else (rows[2],) + tuple(x.shape[1:])
+                    value = draw(gen, shape, cfg, self.ctx[(loc, mod)])
+                    if rows is not None and draw in _ROW_DRAWS:
+                        value = value[rows[0]:rows[1]]
+                    x = apply(x, value, cfg)
                 out[loc][mod] = x
         return out
 
@@ -383,8 +413,10 @@ class Augmenter:
         for name in self.time_aug_names:
             if name == "mixup":
                 shapes = {(loc, m): a.shape for loc, mods in x.items() for m, a in mods.items()}
-                d = draw_mixup(gen, labels.shape[0], shapes, self.aug_cfgs["mixup"])
-                x, soft = mixup_batch(x, labels, d, self.aug_cfgs["mixup"], self.num_classes)
+                b = labels.shape[0] if self.rows is None else self.rows[2]
+                d = draw_mixup(gen, b, shapes, self.aug_cfgs["mixup"])
+                x, soft = mixup_batch(x, labels, d, self.aug_cfgs["mixup"], self.num_classes,
+                                      self.rows, self.gather)
             else:
                 x = self._apply_one(name, TIME_AUGMENTERS, gen, x)
         x = fft_preprocess(x)

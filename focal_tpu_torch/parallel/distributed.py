@@ -255,10 +255,10 @@ def free_port():
         return s.getsockname()[1]
 
 
-def _spawned(rank, world, port, fn, args, queue, device, init):
+def _spawned(rank, world, port, fn, args, queue, device, init, threads):
     os.environ.update({"LOCAL_RANK": str(rank), "LOCAL_WORLD_SIZE": str(world)})
-    if device == "cpu":  # the ranks share the host's cores
-        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    if device == "cpu":  # the ranks share the caller's cores
+        torch.set_num_threads(threads)
     try:
         if init:
             dist.init_process_group(_backend(device), init_method=f"tcp://127.0.0.1:{port}",
@@ -284,8 +284,9 @@ def run_local(fn, world, *args, device="cpu", timeout=600, init=True):
     NCCL where each rank has a card), and return the ranks' results in rank
     order. ``fn`` must be importable by name. Without ``init`` the processes
     get the FOCAL_DIST_* variables instead, for ``fn`` to join through an
-    entry point. A rank that fails fails the job: its error is raised here
-    and the other ranks are stopped."""
+    entry point. On the CPU each rank takes the caller's intra-op threads,
+    at most its share of the cores. A rank that fails fails the job: its
+    error is raised here and the other ranks are stopped."""
     import queue as queue_mod
 
     import torch.multiprocessing as mp
@@ -293,7 +294,9 @@ def run_local(fn, world, *args, device="cpu", timeout=600, init=True):
     ctx = mp.get_context("spawn")
     queue = ctx.Queue()
     port = free_port()
-    procs = [ctx.Process(target=_spawned, args=(r, world, port, fn, args, queue, device, init))
+    threads = max(1, min(torch.get_num_threads(), (os.cpu_count() or 1) // world))
+    procs = [ctx.Process(target=_spawned, args=(r, world, port, fn, args, queue, device, init,
+                                                 threads))
              for r in range(world)]
     for p in procs:
         p.start()

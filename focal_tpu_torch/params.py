@@ -126,8 +126,7 @@ def parse_predict_params(argv=None):
 
 
 def build_train_parser():
-    """The JAX CLI's training flags that the port runs, spelled the same,
-    and those it does not run yet, which parse_train_params refuses."""
+    """The JAX CLI's training flags that the port runs, spelled the same."""
     parser = argparse.ArgumentParser(description="FOCAL (PyTorch/CUDA) training")
     parser.add_argument("-dataset", type=str, default="MOD", help="Dataset recipe name.")
     parser.add_argument("-model", type=str, default="SW_Transformer", help="Backbone.")
@@ -200,10 +199,26 @@ def build_train_parser():
                         help="This process's rank in [0, dist_num_processes); also via "
                         "FOCAL_DIST_PROCESS_ID.")
     parser.add_argument("-data_layout", type=str, default="auto",
-                        help="auto (= replicated: every process holds the splits) | replicated; "
-                        "sharded is not ported yet (ROADMAP A7.2).")
-    # the JAX CLI's flags for what the port does not run yet
-    parser.add_argument("-grad_accum", type=int, default=1, help="Not ported yet (ROADMAP A7.2).")
+                        choices=["auto", "replicated", "sharded"],
+                        help="Train-split placement: replicated (every process holds the split), "
+                        "or sharded over the data ranks (each holds its rows and shuffles them "
+                        "locally); auto is replicated. -model_parallel and a streamed split "
+                        "take replicated.")
+    parser.add_argument("-grad_accum", type=_positive_int, default=1,
+                        help="Accumulate the gradients of N consecutive micro-batches of "
+                        "-batch_size and update once (an effective batch of N x -batch_size). "
+                        "FOCAL pretraining gathers the micro-batches' features into one loss "
+                        "(GradCache, two passes); the classifier stages and -no_accum_gather "
+                        "average the micro-batches' gradients (optax.MultiSteps).")
+    parser.add_argument("-no_accum_gather", action="store_true",
+                        help="With -grad_accum N in FOCAL pretraining, average the micro-batches' "
+                        "gradients (negatives per micro-batch) instead of gathering features.")
+    parser.add_argument("-hbm_budget_gb", type=float, default=0,
+                        help="Device memory (GiB) the train split may take; a larger split "
+                        "streams from pinned host memory in double-buffered blocks. 0: 60%% of "
+                        "the card's memory (8 GiB on the CPU).")
+    parser.add_argument("-stream_block_steps", type=int, default=0,
+                        help="Steps a streamed block holds (0: 64).")
     # the attribution arms (pretraining; the classifier stages ignore the
     # first two, as in the JAX package)
     parser.add_argument("-ragged_tail", action="store_true",
@@ -225,10 +240,11 @@ def build_train_parser():
     return parser
 
 
-# flag -> (the values the port runs, the ROADMAP item that brings the rest)
-_PORTED_VALUES = {
-    "grad_accum": ({1}, "A7.2"), "data_layout": ({"auto", "replicated"}, "A7.2"),
-}
+def _positive_int(text):
+    value = int(text)
+    if value < 1:
+        raise argparse.ArgumentTypeError(f"{text} is not a positive integer")
+    return value
 
 
 def _check_layout(args):
@@ -254,8 +270,7 @@ def _check_layout(args):
 
 def parse_train_params(argv=None, option="train"):
     """Parse training flags and fill the derived fields (recipe, task,
-    train_mode, batch_size, option). A flag of what is not ported raises
-    NotImplementedError naming its ROADMAP item."""
+    train_mode, batch_size, option)."""
     return fill_train_params(build_train_parser().parse_args(argv), option)
 
 
@@ -269,10 +284,6 @@ def fill_train_params(args, option="train"):
             args.grad_accum > 1 or args.data_layout == "sharded"):
         raise ValueError("-py_aug_draws/-ragged_tail are attribution arms for the replicated "
                          "single-step layout (no streaming/sharded/grad_accum)")
-    for name, (values, item) in _PORTED_VALUES.items():
-        if getattr(args, name) not in values:
-            raise NotImplementedError(
-                f"-{name} {getattr(args, name)} is not ported yet: ROADMAP {item}")
     _check_layout(args)
     # the process group first: the card depends on this process's rank
     maybe_initialize(args)

@@ -11,7 +11,10 @@ window attention goes through the eval kernels (#1, or #4 for wide blocks;
 Over several processes (``mesh``, a ``parallel.mesh.MeshPlan``) each data
 rank runs its rows of an eval batch and the outputs are gathered, so the
 features, the KNN probe and the metrics are the single-process ones; a
-batch that the data ranks do not divide runs whole on every rank.
+batch that the data ranks do not divide runs whole on every rank. A train
+split of the sharded layout has its ``ShardedEvalPlan`` (each rank's batch
+its own rows, the outputs gathered); a streamed one takes its batches from
+the stream (``EvalPlan``'s ``stream``), in the resident plan's order.
 """
 
 import numpy as np
@@ -21,13 +24,14 @@ from focal_tpu_torch.ops.knn import KNN
 from focal_tpu_torch.train.steps import gather_batch, local_batch
 
 
-def _forward(model, x, head, mesh):
+def _forward(model, x, head, mesh, local=False):
     """model(x, head=head) on a global eval batch, split over the data ranks
-    and gathered back (no gradient)."""
+    and gathered back (no gradient); with ``local``, x is this rank's rows
+    of it already."""
     rows = next(iter(next(iter(x.values())).values())).shape[0]
-    if mesh is None or mesh.dp == 1 or rows % mesh.dp:
+    if not local and (mesh is None or mesh.dp == 1 or rows % mesh.dp):
         return model(x, head=head)
-    out = model(local_batch(x, mesh), head=head)
+    out = model(x if local else local_batch(x, mesh), head=head)
     if isinstance(out, dict):
         return {m: mesh.gather_data_(v) for m, v in out.items()}
     return mesh.gather_data_(out)
@@ -35,15 +39,50 @@ def _forward(model, x, head, mesh):
 
 class EvalPlan:
     """Static batch schedule of a split from an eval loader (every unit
-    once, in order, the tail padded): ``idx`` [nb, B] rows on ``device``,
-    ``weight`` and ``labels`` [nb, B] in numpy."""
+    once, in order, the tail padded): ``idx`` [nb, B] rows on ``device``
+    (on the host where ``stream``, a ``streaming.BlockStream`` of the
+    split, feeds the batches), ``weight`` and ``labels`` [nb, B] in
+    numpy."""
 
-    def __init__(self, loader, device):
+    local = False  # each rank's batch is the global one
+
+    def __init__(self, loader, device, stream=None):
         plans = list(loader)
         idx = np.stack([p.idx for p in plans])
-        self.idx = torch.from_numpy(idx).to(device)
+        self.stream = stream
+        self.idx = torch.from_numpy(idx)
+        if stream is None:
+            self.idx = self.idx.to(device)
         self.weight = np.stack([p.weight for p in plans])
         self.labels = loader.split.labels[idx]
+
+    def batches(self, data):
+        """(data, idx) of every batch, in order."""
+        if self.stream is not None:
+            return ((d, idx) for d, _, idx in self.stream.feed(self.idx))
+        return ((data, idx) for idx in self.idx)
+
+
+class ShardedEvalPlan(EvalPlan):
+    """The plan of a train split of the sharded layout (the JAX package's
+    ``ShardedEvalPlan``): batch b is every data rank's local rows [b L,
+    (b + 1) L), L = batch_size // dp, the tail wrapped with weight 0, the
+    outputs gathered in rank order, so every row counts once.
+    ``labels_grouped`` [dp, n_local]: the ranks' labels."""
+
+    local = True
+
+    def __init__(self, labels_grouped, batch_size, plan, device):
+        n_dev, n_local = labels_grouped.shape
+        L = max(1, batch_size // n_dev)
+        nb = -(-n_local // L)
+        idx = (np.arange(nb * L) % n_local).reshape(nb, L)
+        wloc = (np.arange(nb * L) < n_local).reshape(nb, L)
+        self.stream = None
+        self.idx = torch.from_numpy(idx.astype(np.int64)).to(device)
+        self.weight = np.repeat(wloc[:, None, :], n_dev, axis=1).reshape(nb, n_dev * L)
+        self.weight = self.weight.astype(np.float32)
+        self.labels = np.stack([labels_grouped[:, idx[b]].reshape(-1) for b in range(nb)])
 
 
 def extract_features(model, augmenter, plan, data, mesh=None):
@@ -54,8 +93,8 @@ def extract_features(model, augmenter, plan, data, mesh=None):
     model.eval()
     rows = []
     with torch.no_grad():
-        for idx in plan.idx:
-            feats = _forward(model, augmenter.no(gather_batch(data, idx)), "feat", mesh)
+        for d, idx in plan.batches(data):
+            feats = _forward(model, augmenter.no(gather_batch(d, idx)), "feat", mesh, plan.local)
             rows.append(torch.cat([feats[m] for m in sorted(feats)], dim=-1).to(torch.float32))
     keep = plan.weight.reshape(-1) > 0
     stacked = torch.cat(rows)
@@ -127,9 +166,9 @@ def class_logits(model, augmenter, plan, data, mesh=None):
     model.eval()
     rows = []
     with torch.no_grad():
-        for idx in plan.idx:
-            rows.append(_forward(model, augmenter.no(gather_batch(data, idx)), "class",
-                                 mesh).float())
+        for d, idx in plan.batches(data):
+            rows.append(_forward(model, augmenter.no(gather_batch(d, idx)), "class", mesh,
+                                 plan.local).float())
     return torch.stack(rows).cpu().numpy()
 
 

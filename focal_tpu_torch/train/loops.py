@@ -30,15 +30,31 @@ least two; the schedule counts it, so lr still paces by epochs);
 the best val loss (accuracy) after this point's update, so that a resumed
 run also picks `_best` as a straight run does.
 
+``-grad_accum k`` (the JAX package's loops): pretraining takes GradCache
+steps of k micro-batches (``steps.make_gathered_pretrain_step``; steps //
+k updates an epoch, the ragged micro-step tail dropped), or with
+``-no_accum_gather``, and in the classifier stages, one step a micro-batch
+with the optimizer's MultiSteps accumulation (``optim.StepOptimizer``),
+whose cycles may straddle epochs. An epoch's train loss is the mean over
+its updates (GradCache) or its micro-steps (MultiSteps), as in the JAX
+package.
+
 Over several processes (``-data_parallel``, ``-model_parallel``: one
 process per card, ``parallel.mesh.MeshPlan``) every rank holds the splits
 whole (the ``replicated`` layout, what ``-data_layout auto`` means here),
 draws the same batches and views, and trains its shard of the batch (and of
 SW_Transformer's heads and widths); the process of rank 0 alone makes the
 experiment folder, logs and writes the checkpoints, in the single-process
-format.
+format. ``-data_layout sharded`` (data ranks only, as in the JAX package)
+holds on each rank only its rows of the train split (``Run._shard``) and
+draws each epoch a permutation of them keyed by (seed, epoch, rank); the
+global batch is the ranks' local batches in rank order. A train split
+over the device budget (``streaming.device_budget_bytes``) streams from
+the host (``streaming.BlockStream``) under the replicated layout, the
+resident permutation and rows step by step.
 """
 
+import itertools
 import logging
 import math
 import random
@@ -47,8 +63,8 @@ import time
 import numpy as np
 import torch
 
-from focal_tpu_torch.data import (DeviceDataLoader, create_dataloader, load_split,
-                                  sequence_batches)
+from focal_tpu_torch import streaming
+from focal_tpu_torch.data import DeviceDataLoader, Split, load_split, sequence_batches
 from focal_tpu_torch.models import apply_plan, build_backbone, init_params
 from focal_tpu_torch.ops.augment import build_augmenter
 from focal_tpu_torch.output_paths import checkpoint_paths, set_model_weight_folder
@@ -59,15 +75,16 @@ from focal_tpu_torch.train import checkpoint as ckpt
 from focal_tpu_torch.train import evaluate as ev
 from focal_tpu_torch.train.losses import make_focal_loss
 from focal_tpu_torch.train.state import create_train_state
-from focal_tpu_torch.train.steps import make_pretrain_step, make_supervised_train_step
+from focal_tpu_torch.train.steps import (make_gathered_pretrain_step, make_pretrain_step,
+                                         make_supervised_train_step)
 
 _PERMUTATION, _EVAL = 1, 2  # generator streams derived from the seed
-_RESIDENT_SHARE = 0.6  # of device memory a resident train split may take
+_SHARD_SEED = 17  # the sharded layout's row assignment: default_rng(seed + 17), the JAX package's
 
 
-def _generator(seed, stream, n):
-    """A CPU generator keyed by (seed, stream, n)."""
-    key = int(np.random.SeedSequence([seed, stream, n]).generate_state(1, np.uint64)[0])
+def _generator(seed, stream, *keys):
+    """A CPU generator keyed by (seed, stream, *keys)."""
+    key = int(np.random.SeedSequence([seed, stream, *keys]).generate_state(1, np.uint64)[0])
     return torch.Generator().manual_seed(key % 2**63)
 
 
@@ -95,10 +112,10 @@ def place_model(model, device, plan, weights=None):
 
 class Run:
     """What a stage loop needs, built once, on this process's device: the
-    train, val and test splits resident there, the train split's loader
-    (its steps), the augmenter, the process layout (``plan``; None for one
-    process) and the model in the flax package's init from -seed, placed
-    on it."""
+    val and test splits resident there, the train split as its layout
+    (``layout``) places it, the train split's loader (its steps), the
+    augmenter, the process layout (``plan``; None for one process) and the
+    model in the flax package's init from -seed, placed on it."""
 
     def __init__(self, args):
         self.args = args
@@ -113,22 +130,16 @@ class Run:
             logging.info(f"= Mesh: {self.plan.dp} (data) x {self.plan.mp} (model) processes, "
                          f"this one ({self.plan.d}, {self.plan.m}) on {self.device}, "
                          f"{distributed.backend()}")
-        self.splits = {}
-        for name in ("train", "val", "test"):
-            split = load_split(name, args)
-            if name == "train" and self.device.type == "cuda":
-                nbytes = sum(a.nbytes for mods in split.data.values() for a in mods.values())
-                total = torch.cuda.get_device_properties(self.device).total_memory
-                if nbytes > _RESIDENT_SHARE * total:
-                    raise NotImplementedError(
-                        f"train split of {nbytes / 2**30:.1f} GiB does not fit the device; "
-                        "streaming is not ported yet: ROADMAP A7.2")
-            self.splits[name] = split.to(self.device)
-        self.train_loader = train = create_dataloader("train", self.splits["train"], args)
+        self.stream = None
+        self.splits = {name: self._place(name, load_split(name, args))
+                       for name in ("train", "val", "test")}
+        batch = args.batch_size // (self.plan.dp if self.layout == "sharded" else 1)
+        self.train_loader = train = DeviceDataLoader(self.splits["train"], batch, drop_last=True,
+                                                     sequence=sequence_batches(args))
         if not len(train):
             raise ValueError("the train split holds less than one batch")
         logging.info(f"= Splits: train {len(self.splits['train'])} samples / {len(train)} steps "
-                     f"of {train.batch_size}, val {len(self.splits['val'])}, "
+                     f"of {train.batch_size} ({self.layout}), val {len(self.splits['val'])}, "
                      f"test {len(self.splits['test'])}; device {self.device}")
         self.augmenter = build_augmenter(args)
         model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
@@ -144,25 +155,106 @@ class Run:
                          "parameters")
         self._plans = {}
 
+    def _place(self, name, split):
+        """A split on the device; the train split by its layout: streamed
+        where it exceeds the device budget (replicated, as in the JAX
+        package), else sharded where -data_layout sharded asks on data ranks
+        only, else replicated."""
+        if name != "train":
+            return split.to(self.device)
+        args, plan = self.args, self.plan
+        layout = args.data_layout
+        if layout == "auto" or plan is None or plan.mp > 1:
+            layout = "replicated"
+        nbytes = streaming.split_nbytes(split.data)
+        per_device = nbytes // plan.dp if layout == "sharded" else nbytes
+        budget = streaming.device_budget_bytes(args, self.device)
+        if per_device > budget:
+            if args.py_aug_draws or args.ragged_tail:
+                raise ValueError("-py_aug_draws/-ragged_tail are attribution arms for the "
+                                 "replicated single-step layout (no streaming/sharded/grad_accum)")
+            logging.info(f"= Train split {nbytes / 1e9:.2f} GB exceeds the {budget / 1e9:.2f} GB "
+                         "device budget: streaming host->device in double-buffered blocks")
+            self.layout = "streamed"
+            self.stream = streaming.BlockStream(split.data, split.labels, self.device,
+                                                args.stream_block_steps)
+            return split
+        self.layout = layout
+        if layout == "sharded":
+            split = self._shard(split)
+        return split.to(self.device)
+
+    def _shard(self, split):
+        """This data rank's rows of the train split (the JAX package's
+        ``_place_sharded_train``): the units (subsequences, or samples)
+        trimmed to a multiple of dp and assigned by a permutation from
+        default_rng(seed + 17), rank d taking the d-th contiguous part, its
+        subsequences whole and stored one after another. Also keeps
+        ``labels_grouped`` [dp, local rows], every rank's labels, for the
+        KNN plan."""
+        dp, d = self.plan.dp, self.plan.d
+        rng = np.random.default_rng(self.args.seed + _SHARD_SEED)
+        sequence = sequence_batches(self.args)
+        units = split.num_subseqs if sequence else len(split)
+        n = units // dp * dp
+        per = self.args.batch_size // (split.subseq_idx.shape[1] if sequence else 1)
+        if n == 0 or per % dp:
+            raise ValueError(f"the sharded layout needs the train units ({units}) and a batch's "
+                             f"units ({per}) to split over the {dp} data ranks")
+        order = rng.permutation(units)[:n]
+        rows = split.subseq_idx[order].reshape(-1) if sequence else order
+        mine = rows.reshape(dp, -1)[d]
+        self.labels_grouped = split.labels[rows].reshape(dp, -1)
+        local = Split({loc: {m: a[mine] for m, a in mods.items()}
+                       for loc, mods in split.data.items()},
+                      split.labels[mine], [split.names[i] for i in mine])
+        if sequence:
+            seq_len = split.subseq_idx.shape[1]
+            local.subseq_idx = np.arange(len(mine), dtype=np.int32).reshape(-1, seq_len)
+        return local
+
     def eval_plan(self, split):
-        """Every unit of a split once, in order, in batches of -batch_size."""
+        """Every unit of a split once, in order, in batches of -batch_size
+        (the sharded train split's: each rank's rows, ``ShardedEvalPlan``)."""
         if split not in self._plans:
+            if split == "train" and self.layout == "sharded":
+                self._plans[split] = ev.ShardedEvalPlan(self.labels_grouped, self.args.batch_size,
+                                                        self.plan, self.device)
+                return self._plans[split]
             loader = DeviceDataLoader(self.splits[split], self.args.batch_size,
                                       sequence=sequence_batches(self.args))
-            self._plans[split] = ev.EvalPlan(loader, self.device)
+            stream = self.stream if split == "train" else None
+            self._plans[split] = ev.EvalPlan(loader, self.device, stream)
         return self._plans[split]
 
-    def train_batches(self, epoch):
-        """([steps, rows], [tail rows]) on the device: each full step's rows
-        of an epoch, from a permutation of the train units keyed by (seed,
-        epoch), ``per`` units a step, and the rows of the permutation's
-        leftover units (the ragged tail, which only -ragged_tail trains
-        on). One copy an epoch, so no step waits on the host."""
+    @property
+    def step_samples(self):
+        """Samples of the global batch of a train step."""
+        ways = self.plan.dp if self.layout == "sharded" else 1
+        return self.train_loader.batch_size * ways
+
+    def epoch_steps(self, epoch):
+        """(steps, tail): ``steps`` yields (data, labels, idx) for each full
+        step of an epoch, ``idx`` the step's rows of ``data`` (the resident
+        split, or a streamed block), from a permutation of the train units
+        keyed by (seed, epoch), and of this rank's units by (seed, epoch,
+        rank) under the sharded layout, ``per`` units a step; ``tail`` the
+        rows of the permutation's leftover units (the ragged tail, which
+        only -ragged_tail trains on, resident layouts only). A resident
+        epoch's rows go to the device in one copy, so no step waits on the
+        host."""
         loader = self.train_loader
-        perm = torch.randperm(loader.units, generator=_generator(self.args.seed, _PERMUTATION, epoch))
-        rows = torch.from_numpy(loader.rows(perm.numpy()).astype(np.int64)).to(self.device)
+        keys = (epoch, self.plan.d) if self.layout == "sharded" else (epoch,)
+        perm = torch.randperm(loader.units, generator=_generator(self.args.seed, _PERMUTATION,
+                                                                  *keys))
+        rows = torch.from_numpy(loader.rows(perm.numpy()).astype(np.int64))
         full = len(loader) * loader.batch_size
-        return rows[:full].view(len(loader), -1), rows[full:]
+        steps = rows[:full].view(len(loader), -1)
+        if self.stream is not None:
+            return self.stream.feed(steps), None
+        train = self.splits["train"]
+        return (((train.data, train.device_labels, idx) for idx in steps.to(self.device)),
+                rows[full:].to(self.device))
 
 
 def tail_steps(loader, ragged_tail):
@@ -214,9 +306,15 @@ def pretrain(args):
         args.dataset_config[args.learn_framework]["pretrain_lr_scheduler"]["train_epochs"])
     steps_per_epoch = len(run.train_loader)
     tail = tail_steps(run.train_loader, args.ragged_tail)
+    accum = args.grad_accum
+    gather = accum > 1 and not args.no_accum_gather
+    if gather and steps_per_epoch < accum:
+        raise ValueError(f"-grad_accum {accum} exceeds the {steps_per_epoch} steps per epoch; "
+                         "lower -grad_accum or -batch_size")
     # the tail's update is one more an epoch; the schedule counts it, so
     # lr(epoch) still paces by epochs
-    state = create_train_state(args, run.model, steps_per_epoch + tail, seed=args.seed)
+    state = create_train_state(args, run.model, steps_per_epoch + tail, seed=args.seed,
+                               accum_in_step=gather)
     logging.info(f"= Model params: {sum(p.numel() for p in run.model.parameters()):,}")
     table = None
     if args.py_aug_draws:
@@ -226,14 +324,23 @@ def pretrain(args):
                      f"{len(run.augmenter.time_aug_names) + len(run.augmenter.freq_aug_names)} "
                      "augmenters")
     focal_loss = make_focal_loss(args)
-    step = make_pretrain_step(run.model, run.augmenter, focal_loss,
-                              fused_views=not args.no_fused_views, plan=run.plan)
+    sharded = run.layout == "sharded"
+    if gather:
+        logging.info(f"= -grad_accum {accum}: GradCache updates of {accum} micro-batches, "
+                     f"{steps_per_epoch // accum} an epoch")
+        step = make_gathered_pretrain_step(run.model, run.augmenter, focal_loss, accum,
+                                           fused_views=not args.no_fused_views, plan=run.plan,
+                                           sharded=sharded)
+    else:
+        step = make_pretrain_step(run.model, run.augmenter, focal_loss,
+                                  fused_views=not args.no_fused_views, plan=run.plan,
+                                  sharded=sharded)
     loss_fn = ev.make_batched_pretrain_loss(run.model, run.augmenter, focal_loss, run.plan)
     best_path, latest_path, resume_path = checkpoint_paths(args)
     val_epochs = args.val_epochs or 10
     best_val_loss, start_epoch = math.inf, 0
     if args.resume:
-        epoch, best_val_loss = ckpt.restore_state(resume_path, state)
+        epoch, best_val_loss = ckpt.restore_state(resume_path, state, accum)
         start_epoch = epoch + 1
         logging.info(f"= Resumed from {resume_path} at epoch {start_epoch}, best {best_val_loss:.5f}")
     data = run.splits["train"].data
@@ -241,13 +348,20 @@ def pretrain(args):
     start = block_t0 = time.time()
     block_samples = 0
     for epoch in range(start_epoch, train_epochs):
-        batches, tail_rows = run.train_batches(epoch)
-        ids = table[epoch] if table is not None else None
-        if tail:
-            batches = list(batches) + [tail_rows]  # the tail takes column `steps` of the table
-        losses = [step(state, data, idx, None if ids is None else ids[i])[1]["loss"]
-                  for i, idx in enumerate(batches)]
-        block_samples += sum(len(idx) for idx in batches)
+        steps, tail_rows = run.epoch_steps(epoch)
+        if gather:  # the ragged micro-step tail is dropped
+            losses = [step(state, [(d, idx) for d, _, idx in itertools.islice(steps, accum)])[1][
+                "loss"] for _ in range(steps_per_epoch // accum)]
+            block_samples += steps_per_epoch // accum * accum * run.step_samples
+        else:
+            ids = table[epoch] if table is not None else None
+            losses = [step(state, d, idx, None if ids is None else ids[i])[1]["loss"]
+                      for i, (d, _, idx) in enumerate(steps)]
+            block_samples += steps_per_epoch * run.step_samples
+            if tail:  # the tail takes column `steps` of the table
+                losses.append(step(state, data, tail_rows,
+                                   None if ids is None else ids[steps_per_epoch])[1]["loss"])
+                block_samples += len(tail_rows)
         if epoch % val_epochs and epoch != train_epochs - 1:
             continue
         train_loss = float(torch.stack(losses).mean())
@@ -267,7 +381,7 @@ def pretrain(args):
         if val_loss < best_val_loss:
             best_val_loss = val_loss
             ckpt.save_params(best_path, run.model, run.plan)
-        ckpt.save_state(resume_path, state, epoch, best_val_loss)
+        ckpt.save_state(resume_path, state, epoch, best_val_loss, accum)
         points.append({"epoch": epoch, "train_loss": train_loss, "val_loss": val_loss,
                        "val_acc": val_metrics[0], "val_f1": val_metrics[1],
                        "test_loss": test_loss, "test_acc": test_metrics[0],
@@ -310,22 +424,20 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
     logging.info(f"= Model params: {sum(p.numel() for p in run.model.parameters()):,} "
                  f"({sum(p.numel() for p in state.optimizer.params):,} trained)")
     step = make_supervised_train_step(run.model, run.augmenter, fixed_aug=fixed_aug,
-                                      plan=run.plan)
+                                      plan=run.plan, sharded=run.layout == "sharded")
     best_path, latest_path, resume_path = checkpoint_paths(args)
     val_epochs = args.val_epochs or 5
     best_val_acc, start_epoch = -1.0, 0
     if args.resume:
-        epoch, best_val_acc = ckpt.restore_state(resume_path, state)
+        epoch, best_val_acc = ckpt.restore_state(resume_path, state, args.grad_accum)
         start_epoch = epoch + 1
         logging.info(f"= Resumed from {resume_path} at epoch {start_epoch}, best {best_val_acc:.5f}")
-    train = run.splits["train"]
     points = []
     start = block_t0 = time.time()
     block_samples = 0
     for epoch in range(start_epoch, train_epochs):
-        metrics = [step(state, train.data, train.device_labels, idx)[1]
-                   for idx in run.train_batches(epoch)[0]]
-        block_samples += steps_per_epoch * run.train_loader.batch_size
+        metrics = [step(state, d, labels, idx)[1] for d, labels, idx in run.epoch_steps(epoch)[0]]
+        block_samples += steps_per_epoch * run.step_samples
         if epoch % val_epochs and epoch != train_epochs - 1:
             continue
         train_loss = float(torch.stack([m["loss"] for m in metrics]).mean())
@@ -345,7 +457,7 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
         if val_metrics[0] > best_val_acc:
             best_val_acc = val_metrics[0]
             ckpt.save_params(best_path, run.model, run.plan)
-        ckpt.save_state(resume_path, state, epoch, best_val_acc)
+        ckpt.save_state(resume_path, state, epoch, best_val_acc, args.grad_accum)
         points.append({"epoch": epoch, "train_loss": train_loss, "train_acc": train_acc,
                        "val_loss": val_loss, "val_acc": val_metrics[0], "val_f1": val_metrics[1],
                        "test_loss": test_loss, "test_acc": test_metrics[0],

@@ -30,10 +30,12 @@ class TrainState:
     def device(self):
         return next(self.model.parameters()).device
 
-    def generators(self):
-        """StepRngs of the current step: a host generator, and the device
-        generators seeded from it."""
-        host = torch.Generator().manual_seed((self.seed * 1_000_003 + self.step) % 2**63)
+    def generators(self, step=None):
+        """StepRngs of the current step (or of step ``step``: GradCache's
+        micro-steps, each drawn as the step of that count, in both passes):
+        a host generator, and the device generators seeded from it."""
+        step = self.step if step is None else step
+        host = torch.Generator().manual_seed((self.seed * 1_000_003 + step) % 2**63)
         dev_seed = int(torch.randint(0, 2**62, (1,), generator=host))
         make = lambda s: torch.Generator(device=self.device).manual_seed(s)  # noqa: E731
         plan = self.plan
@@ -45,9 +47,10 @@ class TrainState:
                         plan.d * SEED_STRIDE, shard * SEED_STRIDE)
 
 
-def create_train_state(args, model, steps_per_epoch, seed=0):
+def create_train_state(args, model, steps_per_epoch, seed=0, accum_in_step=False):
     """Wrap a model (already on its device and layout: the ``plan``
-    models.apply_plan gave it) with the run's optimizer."""
+    models.apply_plan gave it) with the run's optimizer
+    (``optim.build_optimizer``)."""
     plan = getattr(model, "plan", None)
-    optimizer, _ = build_optimizer(args, model, steps_per_epoch, plan)
+    optimizer, _ = build_optimizer(args, model, steps_per_epoch, plan, accum_in_step)
     return TrainState(model, optimizer, seed=seed, plan=plan)

@@ -41,19 +41,11 @@ from focal_tpu_torch.models import swin as tswin
 from focal_tpu_torch.ops.dropout import StepRngs
 from focal_tpu_torch.params import load_dataset_config
 from focal_tpu_torch.weights import params_from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 
 TASK = "vehicle_classification"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

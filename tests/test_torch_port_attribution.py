@@ -49,6 +49,7 @@ from focal_tpu_torch.train.losses import make_focal_loss
 from focal_tpu_torch.train.optim import build_optimizer
 from focal_tpu_torch.train.state import create_train_state
 from focal_tpu_torch.train.steps import make_pretrain_step
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 test_cli = importlib.import_module("focal_tpu_torch.test")
@@ -69,15 +70,6 @@ def _restore_logging():
         if h not in root.handlers:
             root.addHandler(h)
     root.setLevel(level)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _tiny(tmp_path, *flags, samples=32, batch=12, model="DeepSense"):
@@ -151,7 +143,7 @@ def test_ragged_tail_schedule_counts_the_tail_as_jax(monkeypatch, tmp_path, samp
     want = _jax_pretrain_until_epoch_fn(monkeypatch, tmp_path, argv)["steps_per_epoch"]
     seen = {}
 
-    def spy(args, model, steps_per_epoch, seed=0):
+    def spy(args, model, steps_per_epoch, seed=0, accum_in_step=False):
         seen["spe"] = steps_per_epoch
         state = create_train_state(args, model, steps_per_epoch, seed)
         seen["lr"] = [state.optimizer.lr(k) for k in range(2 * steps_per_epoch)]
@@ -291,7 +283,7 @@ def test_init_weight_loads_every_stage(monkeypatch, tmp_path, stage):
     init = _perturbed_params_file(tmp_path / "init.pt", args, seed=7)
     started = {}
 
-    def spy(args, model, steps_per_epoch, seed=0):
+    def spy(args, model, steps_per_epoch, seed=0, accum_in_step=False):
         started.update({k: v.detach().clone() for k, v in model.state_dict().items()})
         raise _Stop
 

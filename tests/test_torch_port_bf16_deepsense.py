@@ -69,6 +69,7 @@ from focal_tpu_torch.train.losses import make_focal_loss
 from focal_tpu_torch.train.state import create_train_state
 from focal_tpu_torch.train.steps import make_pretrain_step, make_supervised_train_step
 from focal_tpu_torch.weights import params_from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 
@@ -82,16 +83,6 @@ LOSS_TOL = 1e-2
 GRAD_MIN_COS = 0.9
 GRAD_MEDIAN_TOL = 5e-2
 ZERO_GRAD_REL = 1e-2
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's torch work (several test
-    processes share the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -19,6 +19,7 @@ from focal_tpu_torch.params import (load_dataset_config, parse_predict_params, p
                                     parse_train_params)
 from focal_tpu_torch.serve import Predictor
 from focal_tpu_torch.train.__main__ import main as train_main
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TASK = "vehicle_classification"
 

@@ -36,6 +36,7 @@ import torch
 from focal_tpu.ops.pallas_kernels import _mlp_bwd_impl, _mlp_bwd_math, _mlp_fwd_core, _mlp_fwd_impl
 from focal_tpu_torch.ops import fused_mlp as fm
 from focal_tpu_torch.ops.conv_tower import gelu_exact, gelu_grad_exact
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 1e-2       # against the JAX kernels (tests/test_torch_port_bf16_mlp.py)
 GRAD_TOL = 2e-2
@@ -49,15 +50,6 @@ BM, BK = 128, 64     # rows of a tile; K of a stage (the row splits' unit)
 CHUNK_VALUES = 1 << 26  # one [rows, H] bf16 array: 128 MiB
 # (C, H): MOD_TINY's widths (mlp_ratio 2) and MOD's (mlp_ratio 4)
 WIDTHS = [(16, 32), (32, 64), (64, 256), (128, 512), (256, 1024)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def plan16(T, C, H, backward, sms=132, chunk_values=CHUNK_VALUES):

@@ -49,6 +49,7 @@ from focal_tpu_torch.train.losses import make_focal_loss
 from focal_tpu_torch.train.state import create_train_state
 from focal_tpu_torch.train.steps import make_pretrain_step, make_supervised_train_step
 from focal_tpu_torch.weights import params_from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TASK = "vehicle_classification"
 BATCH = 8

@@ -41,6 +41,7 @@ from focal_tpu.ops.conv_tower import fused_conv_tower as jax_fused_conv_tower
 from focal_tpu.ops.conv_tower import tower_fits as jax_tower_fits
 from focal_tpu_torch.ops import conv_tower as ct
 from focal_tpu_torch.params import load_dataset_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 R, S, SAMPLES, C = 32, 16, 8, 32
 GEOMETRIES = {
@@ -54,16 +55,6 @@ DX_TOL = 1e-2
 GRAD_TOL = 1e-3
 BIAS_GRAD_ABS = 1e-4
 BF16 = jnp.bfloat16
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's torch work (several test
-    processes share the cores)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(seed, cfgs, external):

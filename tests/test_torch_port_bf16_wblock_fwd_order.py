@@ -29,20 +29,12 @@ import torch
 from focal_tpu.models.swin import shifted_window_mask
 from focal_tpu.ops.pallas_kernels import _wblock_fwd_impl, _wblock_ph_fwd_impl, expand_bias_lanes
 from focal_tpu_torch.ops import pallas_kernels as pk
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 FWD_TOL = 1e-2        # against the JAX kernels and the plain version (of max|y|)
 THREADS = 256         # threads of an attention block (kAttnThreads)
 MAX_LANES = 8
 SMEM_OPTIN = 232448   # bytes a block may opt in to on the H100
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_geo(B, H, N, hd):

@@ -36,6 +36,7 @@ from focal_tpu.models.swin import shifted_window_mask
 from focal_tpu.ops.pallas_kernels import (_block_tile, _block_tile_perhead, _wblock_bwd_impl,
                                           _wblock_ph_bwd_impl, expand_bias_lanes)
 from focal_tpu_torch.ops import pallas_kernels as pk
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 GRAD_TOL = 2e-2       # against the JAX kernels (tests/test_torch_port_bf16_kernel.py)
 CARD_GRAD_TOL = 1e-2  # against the port's plain version (chip_smoke.BF16_GRAD_TOL)
@@ -44,15 +45,6 @@ BM, BK = 128, 64      # rows of a product tile; K of a stage (the row splits' un
 THREADS = 256         # threads of an attention block (kAttnThreads)
 MAX_N, MAX_LANES = 16, 8
 SMEM_OPTIN = 232448   # bytes a block may opt in to on the H100
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def make_geo(B, H, N, hd):

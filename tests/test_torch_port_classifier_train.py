@@ -68,21 +68,13 @@ from focal_tpu_torch.train.evaluate import supervised_metrics
 from focal_tpu_torch.train.state import create_train_state
 from focal_tpu_torch.train.steps import make_supervised_train_step
 from focal_tpu_torch.weights import params_from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 
 BATCH = 8
 STEPS_PER_EPOCH = 10
 TASK = "vehicle_classification"
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

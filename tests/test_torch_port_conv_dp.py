@@ -22,6 +22,7 @@ import pytest
 
 import torch_port_dist_workers as workers
 from focal_tpu_torch.parallel import distributed
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CASES = [workers.tower_case(seed, 6, 7, 16, 3, 3, external, dtype)
          for seed, (external, dtype) in enumerate([(False, "float32"), (True, "float32"),

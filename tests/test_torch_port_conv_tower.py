@@ -29,22 +29,11 @@ from focal_tpu.ops.conv_tower import fused_conv_tower as jax_fused_conv_tower
 from focal_tpu.ops.conv_tower import tower_fits as jax_tower_fits
 from focal_tpu_torch.ops.conv_tower import fused_conv_tower, tower_fits
 from focal_tpu_torch.params import load_dataset_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CFG_SEISMIC = ((3, 2, 32, False), (3, 32, 32, True), (3, 32, 32, True))
 CFG_AUDIO = ((5, 2, 32, False), (5, 32, 32, True))  # external first conv
 R, S, SAMPLES = 64, 20, 8  # 8 samples of 8 intervals
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs
-    several test processes at once, and torch's per-process thread pools
-    then oversubscribe the cores and slow each other down many times
-    over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _setup(seed, cfgs, external_c0):

@@ -39,21 +39,10 @@ from focal_tpu_torch.models import layers as port_layers
 from focal_tpu_torch.ops.dropout import StepRngs, keep_mask
 from focal_tpu_torch.params import load_dataset_config
 from focal_tpu_torch.weights import params_from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TASK = "vehicle_classification"
 BATCH = 8
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs
-    several test processes at once, and torch's per-process thread pools
-    then oversubscribe the cores and slow each other down many times
-    over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _cfg(dropout=None, name="MOD_TINY"):

@@ -55,6 +55,7 @@ from focal_tpu_torch.train.losses import make_focal_loss
 from focal_tpu_torch.train.state import create_train_state
 from focal_tpu_torch.train.steps import make_pretrain_step
 from focal_tpu_torch.weights import params_from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 
@@ -62,18 +63,6 @@ BATCH = 8
 STEPS_PER_EPOCH = 10
 ARGV = ["-dataset", "MOD_TINY", "-model", "DeepSense", "-learn_framework", "FOCAL",
         "-stage", "pretrain", "-batch_size", str(BATCH)]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs
-    several test processes at once, and torch's per-process thread pools
-    then oversubscribe the cores and slow each other down many times
-    over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _deterministic(cfg):

@@ -2615,3 +2615,93 @@ def test_conv_tower_over_twin_data_ranks_is_the_single_tower(dtype, external):
             assert float((g - w).abs().max()) <= 1e-2, i  # C7: a conv bias before its BatchNorm
         else:
             assert _rel(g, w) <= tol_g, (i, _rel(g, w))
+
+
+# GradCache's replay and the streamed split (-grad_accum, -hbm_budget_gb):
+# MOD_TINY, the recipe's drop rates, micro-batches of 8
+
+
+GRADCACHE_ROUTES = {
+    "sw": ["-model", "SW_Transformer"],
+    "sw_bf16": ["-model", "SW_Transformer", "-compute_dtype", "bfloat16"],
+    "sw_no_pallas_block": ["-model", "SW_Transformer", "-no_pallas_block"],
+    "sw_pallas_mlp": ["-model", "SW_Transformer", "-pallas_mlp"],
+    "ds_pallas_conv": ["-model", "DeepSense", "-pallas_conv"],
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(GRADCACHE_ROUTES))
+def test_gradcache_replays_pass_one_bitwise_through_the_kernels(route):
+    """One GradCache update of 2 micro-batches: pass 2's features bitwise
+    pass 1's through the route's kernels (which launched), the loss
+    finite."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops import conv_tower, fused_mlp
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_gathered_pretrain_step
+    from torch_port_replay import recorded_passes, replayed_bitwise
+
+    dev = _card()
+    args = parse_train_params(["-dataset", "MOD_TINY", "-batch_size", "8", "-grad_accum", "2",
+                               *GRADCACHE_ROUTES[route]])
+    model = build_backbone(args.dataset_config, args.model, args.task, args.learn_framework,
+                           pallas_conv=args.pallas_conv, pallas_mlp=args.pallas_mlp,
+                           pallas_block=not args.no_pallas_block, compute_dtype=args.compute_dtype)
+    init_params(model, seed=0).to(dev)
+    state = create_train_state(args, model, 10, seed=1, accum_in_step=True)
+    data = to_device(synthetic_arrays(args.dataset_config, args.task, 16, seed=0)[0], dev)
+    step = make_gathered_pretrain_step(model, build_augmenter(args), make_focal_loss(args), 2)
+    wrappers = [pk.fused_window_block_dropout, pk.fused_window_block_dropout_bf16,
+                pk.fused_window_attention_dropout, fused_mlp.fused_mlp_dropout_forward,
+                conv_tower.fused_conv_tower]
+    before = [w.launches for w in wrappers]
+    with recorded_passes(model) as seen:
+        _, metrics = step(state, [(data, torch.arange(i * 8, (i + 1) * 8, device=dev))
+                                  for i in range(2)])
+    torch.cuda.synchronize()
+    assert replayed_bitwise(seen) and np.isfinite(float(metrics["loss"]))
+    assert any(w.launches > b for w, b in zip(wrappers, before))
+
+
+@pytest.mark.gpu
+def test_streamed_steps_equal_resident_steps_on_card():
+    """The pretrain loop's steps fed by BlockStream (blocks of 3 steps from
+    pinned memory on a side stream) against the same steps on the resident
+    split: the losses and the parameters bit for bit."""
+    from focal_tpu_torch.data import synthetic_arrays, to_device
+    from focal_tpu_torch.models import build_backbone, init_params
+    from focal_tpu_torch.ops.augment import build_augmenter
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.streaming import BlockStream
+    from focal_tpu_torch.train.losses import make_focal_loss
+    from focal_tpu_torch.train.state import create_train_state
+    from focal_tpu_torch.train.steps import make_pretrain_step
+
+    dev = _card()
+    args = parse_train_params(["-dataset", "MOD_TINY", "-batch_size", "8"])
+    host, labels, _ = synthetic_arrays(args.dataset_config, args.task, 64, seed=0)
+    steps = torch.randperm(64, generator=torch.Generator().manual_seed(0)).view(8, 8)
+    runs = []
+    for streamed in (False, True):
+        model = init_params(build_backbone(args.dataset_config, args.model, args.task,
+                                           args.learn_framework), seed=0).to(dev)
+        state = create_train_state(args, model, 10, seed=1)
+        step = make_pretrain_step(model, build_augmenter(args), make_focal_loss(args))
+        if streamed:
+            stream = BlockStream(host, labels, dev, block_steps=3)
+            assert stream.labels.is_pinned()
+            feed = [(d, idx) for d, _, idx in stream.feed(steps)]
+        else:
+            data = to_device(host, dev)
+            feed = [(data, idx) for idx in steps.to(dev)]
+        losses = [step(state, d, idx)[1]["loss"] for d, idx in feed]
+        runs.append((torch.stack(losses).cpu(), {k: v.cpu() for k, v in
+                                                  model.state_dict().items()}))
+    assert torch.equal(runs[0][0], runs[1][0])
+    assert all(torch.equal(runs[0][1][k], runs[1][1][k]) for k in runs[0][1])

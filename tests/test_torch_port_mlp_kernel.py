@@ -26,17 +26,9 @@ from focal_tpu.models.swin import Mlp as JaxMlp
 from focal_tpu.ops import pallas_kernels as jpk
 from focal_tpu_torch.models.swin import Mlp
 from focal_tpu_torch.ops import fused_mlp as fm
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _inputs(T, C, H, seed=0):

@@ -40,6 +40,7 @@ import torch.nn.functional as F
 from focal_tpu.ops import pallas_kernels as jpk
 from focal_tpu_torch.ops import fused_mlp as fm
 from focal_tpu_torch.ops import pallas_kernels as pk
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 GEMMS = {"f32": torch.matmul, "3xtf32": pk.gemm_3xtf32_reference}
 CHUNK_FLOATS = 1 << 25  # kChunkFloats in csrc/fused_mlp.cu
@@ -47,15 +48,6 @@ SMALL_CHUNKS = 1 << 15  # T = 333 in three chunks (128, 128, 77 rows) at every H
 BM = 128                # rows of a product tile (kGemmBM)
 NAMES = ("dx", "dw1", "db1", "dw2", "db2")
 TOL = 1e-5
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def plan(T, C, H, chunk_floats=CHUNK_FLOATS, sms=132):

@@ -22,6 +22,7 @@ import torch_port_dist_workers as workers
 from focal_tpu_torch.parallel import distributed
 from focal_tpu_torch.parallel.mesh import SEED_STRIDE, make_mesh_plan
 from focal_tpu_torch.train.state import TrainState
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CASES = {
     "sw_pretrain": dict(model_name="SW_Transformer"),

@@ -56,19 +56,11 @@ from focal_tpu_torch.params import load_dataset_config
 from focal_tpu_torch.train import losses as tl
 from focal_tpu_torch.weights import params_from_flax
 from test_torch_port_multi_location import _random_variables, two_locations
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 RECIPES = ["ACIDS", "PAMAP2", "RealWorld_HAR"]
 JAX_CONFIGS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                            "focal_tpu", "configs")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _task(recipe):

@@ -21,26 +21,17 @@ import logging
 
 import numpy as np
 import pytest
-import torch
 
 from focal_tpu_torch import params as port_params
 from focal_tpu_torch import predict as predict_cli
 from focal_tpu_torch import test as test_cli
 from focal_tpu_torch.models import layers
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 
 SW_FLAGS = {"ACIDS": ["-pallas_mlp"], "PAMAP2": ["-no_pallas_block"],
             "RealWorld_HAR": ["-pallas_mlp", "-no_pallas_block"]}
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -21,6 +21,7 @@ from focal_tpu.train import checkpoint as ckpt
 from focal_tpu.train.state import init_state
 from focal_tpu_torch.serve import Predictor, write_predictions
 from focal_tpu_torch.weights import params_from_flax
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -12,11 +12,11 @@ import os
 import sys
 
 import pytest
-import torch
 
 from focal_tpu.train import loops as jax_loops
 from focal_tpu.utils import cache as jax_cache
 from focal_tpu_torch import sweep
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,15 +37,6 @@ def _restore_logging():
         if h not in root.handlers:
             root.addHandler(h)
     root.setLevel(level)
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _jax_sweep(monkeypatch, tmp_path, argv, accuracies):

@@ -49,6 +49,7 @@ from focal_tpu_torch.models import build_backbone
 from focal_tpu_torch.ops import pallas_kernels as pk
 from focal_tpu_torch.parallel import distributed, tp
 from focal_tpu_torch.params import load_dataset_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 H, N, NW, SAMPLES = 4, 9, 4, 4
 WIDTHS = (64, 128)

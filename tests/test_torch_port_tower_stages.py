@@ -41,20 +41,12 @@ import torch
 from focal_tpu.ops.conv_tower import fused_conv_tower as jax_fused_conv_tower
 from focal_tpu_torch.ops import conv_tower as ct
 from focal_tpu_torch.ops import pallas_kernels as pk
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 GEMMS = {"f32": torch.matmul, "3xtf32": pk.gemm_3xtf32_reference}
 TOL = 1e-5
 SAMPLES, INTERVALS, S, LAYERS = 3, 8, 20, 5
 R = SAMPLES * INTERVALS
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread: the suite runs several test processes at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _case(C, external, seed):

@@ -32,6 +32,7 @@ from focal_tpu.parallel.mesh import make_mesh_plan as jax_mesh_plan
 from focal_tpu_torch.models import build_backbone, init_params
 from focal_tpu_torch.parallel import distributed
 from test_torch_port_tensor_parallel import CASES, H, LAYOUTS, _assemble
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 STEP = dict(model_name="SW_Transformer", flags=["-compute_dtype", "bfloat16"])
 

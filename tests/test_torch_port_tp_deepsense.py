@@ -33,6 +33,7 @@ from focal_tpu.parallel.mesh import make_mesh_plan as jax_mesh_plan
 from focal_tpu_torch.models import build_backbone
 from focal_tpu_torch.parallel import distributed, tp
 from focal_tpu_torch.params import load_dataset_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 STEPS = {"pretrain": dict(model_name="DeepSense"),
          "supervised": dict(model_name="DeepSense", supervised=True, evaluate=True)}

@@ -24,6 +24,7 @@ from focal_tpu.ops import augment as jaug
 from focal_tpu_torch.ops import augment as taug
 from focal_tpu_torch.ops.fft import fft_preprocess
 from focal_tpu_torch.params import load_dataset_config
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 CFG = load_dataset_config("MOD_TINY")
 

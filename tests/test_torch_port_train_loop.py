@@ -33,24 +33,13 @@ from focal_tpu_torch.data import DeviceDataLoader, create_dataloader, load_split
 from focal_tpu_torch.ops.knn import KNN
 from focal_tpu_torch.params import parse_train_params
 from focal_tpu_torch.train.evaluate import eval_task_metrics
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
 
 TINY = ["-dataset", "MOD_TINY", "-model", "SW_Transformer", "-learn_framework", "FOCAL",
         "-stage", "pretrain", "-synthetic", "-synthetic_samples", "64", "-batch_size", "16",
         "-val_epochs", "1", "-device", "cpu"]
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_torch_thread():
-    """One intra-op thread for this file's torch work: the suite runs
-    several test processes at once, and torch's per-process thread pools
-    then oversubscribe the cores and slow each other down many times
-    over."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -119,8 +108,9 @@ def test_resume_continues_as_a_straight_run(straight, tmp_path):
 
 def test_unported_stages_and_flags_raise(tmp_path, caplog):
     """The three stages dispatch (finetune without a pretrained run finds
-    no folder); the flags of what is not ported (ROADMAP A7.2) raise naming
-    ROADMAP; a layout of several processes without a rendezvous raises
+    no folder); the accumulation, streaming and layout flags (ROADMAP A7.2,
+    ported) parse and -grad_accum 2 pretrains, an attribution arm with it
+    still raising; a layout of several processes without a rendezvous raises
     naming -dist_num_processes, the layouts that once raised as not ported
     among them (DeepSense and bf16 under -model_parallel, -pallas_mlp and
     -pallas_conv there, which log their flag-off routes, -pallas_conv under
@@ -133,9 +123,13 @@ def test_unported_stages_and_flags_raise(tmp_path, caplog):
     with pytest.raises(FileNotFoundError, match="contrastive_FOCAL"):
         train_cli.main(["-stage", "finetune", "-dataset", "MOD_TINY", "-synthetic", "-device",
                         "cpu", "-output_dir", str(tmp_path)])
-    for flags, item in ((["-grad_accum", "2"], "A7.2"), (["-data_layout", "sharded"], "A7.2")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            parse_train_params(flags)
+    accum = parse_train_params(["-grad_accum", "2", "-no_accum_gather", "-hbm_budget_gb", "0.5",
+                                "-stream_block_steps", "8"])
+    assert (accum.grad_accum, accum.no_accum_gather, accum.hbm_budget_gb,
+            accum.stream_block_steps) == (2, True, 0.5, 8)
+    assert parse_train_params(["-data_layout", "sharded"]).data_layout == "sharded"
+    with pytest.raises(ValueError, match="attribution arms"):
+        parse_train_params(["-ragged_tail", "-grad_accum", "2"])
     for flags in (["-model_parallel", "2"], ["-data_parallel", "4"],
                   ["-model_parallel", "2", "-model", "DeepSense"],
                   ["-model_parallel", "2", "-pallas_mlp"],
@@ -153,6 +147,9 @@ def test_unported_stages_and_flags_raise(tmp_path, caplog):
                                (["-init_weight", "w.pt"], "init_weight", "w.pt"),
                                (["-ref_lr_timing"], "ref_lr_timing", True)):
         assert getattr(parse_train_params(flags), name) == value
+    state, _, _ = train_cli.main(TINY + ["-epochs", "1", "-grad_accum", "2", "-output_dir",
+                                         str(tmp_path / "accum")])
+    assert state.step == 2  # 4 steps of 16, 2 GradCache updates
 
 
 @pytest.mark.parametrize("n,d,classes", [(200, 16, 7), (37, 5, 3)])

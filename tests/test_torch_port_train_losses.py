@@ -17,6 +17,7 @@ import torch
 from focal_tpu.train import losses as jl
 from focal_tpu_torch.params import load_dataset_config
 from focal_tpu_torch.train import losses as tl
+from torch_port_threads import one_torch_thread  # noqa: F401
 
 
 def _feats(seed, b=8, d=32, mods=("seismic", "audio")):

@@ -8,7 +8,10 @@ with ``plan`` None, in one process; ``rank_steps`` runs a list of them on a
 rank. ``rank_tp_blocks`` runs ``sharded_window_block_tp`` (the plain
 versions of #4-TP/#5-TP on the CPU) on the rank's windows and heads of whole
 inputs; ``dropout_masks`` records the masks of one SW_Transformer step at
-its recipe's dropout rates; ``rank_tp`` runs all three.
+its recipe's dropout rates; ``rank_tp`` runs all three. ``sharded_step``
+takes one step of the sharded layout on a data rank, or the replicated
+step over the whole global batch in one process; ``rank_sharded`` runs a
+list of them on a rank.
 """
 
 import copy
@@ -26,7 +29,9 @@ from focal_tpu_torch.params import parse_train_params
 from focal_tpu_torch.train.losses import make_focal_loss
 from focal_tpu_torch.train.optim import StepOptimizer, trainable_mask
 from focal_tpu_torch.train.state import TrainState
-from focal_tpu_torch.train.steps import make_pretrain_step, make_supervised_train_step
+from focal_tpu_torch.train.steps import (make_gathered_pretrain_step, make_pretrain_step,
+                                         make_supervised_train_step)
+from torch_port_replay import recorded_passes, replayed_bitwise
 
 BATCH = 16
 LR = 0.05
@@ -288,3 +293,64 @@ def rank_conv_dp(rank, world, cases, steps):
     plan = make_mesh_plan(0, 1)
     return ([tower_result(c, plan) for c in cases],
             [step_result(plan=plan, **cfg) for cfg in steps])
+
+
+SHARDED_POOLS = {  # draws the size of the batch (jitter) and across its rows (mixup)
+    "random": {"time_augmenters": ["jitter"], "freq_augmenters": ["phase_shift"]},
+}
+
+
+def sharded_step(model_name, supervised=False, accum=1, plan=None):
+    """{"loss", "state", "grads"} of one SGD update over a global batch of BATCH
+    rows (``accum`` micro-batches of it with GradCache), every drop rate 0,
+    the recipe's augmenters drawn with jitter forced in pretraining and
+    mixup's soft targets in supervised training. With ``plan`` (the data
+    ranks) each rank holds only its rows of every micro-batch and takes the
+    sharded step; without, one process takes the replicated step over the
+    whole batch."""
+    flags = ["-mixup_labels"] if supervised else []
+    args = _args(model_name, supervised, 0.0, flags)
+    args.dataset_config["FOCAL"]["random_augmenters"] = SHARDED_POOLS["random"]
+    args.dataset_config["jitter"]["prob"] = 1.0
+    model = build_backbone(args.dataset_config, model_name, args.task, args.learn_framework)
+    model = apply_plan(init_params(model, seed=0), plan)
+    mask = trainable_mask(model, args)
+    params = [p for name, p in model.named_parameters() if mask[name]]
+    for name, p in model.named_parameters():
+        p.requires_grad_(mask[name])
+    opt = StepOptimizer(torch.optim.SGD(params, lr=LR), params, lambda epoch: LR, 10, plan=plan)
+    state = TrainState(model, opt, seed=3, plan=plan)
+    data, labels, _ = synthetic_arrays(args.dataset_config, args.task, accum * BATCH, seed=1)
+    micro = BATCH // accum
+    ways, d = (plan.dp, plan.d) if plan is not None else (1, 0)
+    local = micro // ways
+    rows = np.concatenate([i * micro + d * local + np.arange(local) for i in range(accum)])
+    data = to_device({loc: {m: a[rows] for m, a in mods.items()} for loc, mods in data.items()},
+                     "cpu")
+    labels = torch.from_numpy(labels[rows]).long()
+    sharded = plan is not None
+    augmenter = build_augmenter(args)
+    if supervised:
+        step = make_supervised_train_step(model, augmenter, plan=plan, sharded=sharded)
+        _, metrics = step(state, data, labels, torch.arange(local))
+    elif accum > 1:
+        step = make_gathered_pretrain_step(model, augmenter, make_focal_loss(args), accum,
+                                           plan=plan, sharded=sharded)
+        with recorded_passes(model) as seen:
+            _, metrics = step(state, [(data, torch.arange(i * local, (i + 1) * local))
+                                      for i in range(accum)])
+        assert replayed_bitwise(seen)
+    else:
+        step = make_pretrain_step(model, augmenter, make_focal_loss(args), plan=plan,
+                                  sharded=sharded)
+        _, metrics = step(state, data, torch.arange(local), (0, 0))
+    return {"loss": float(metrics["loss"]),
+            "state": {k: v.detach().numpy().copy() for k, v in model.state_dict().items()},
+            "grads": {n: p.grad.numpy().copy() for n, p in model.named_parameters()
+                      if p.grad is not None}}
+
+
+def rank_sharded(rank, world, configs):
+    """sharded_step of each config on this data rank."""
+    plan = make_mesh_plan(0, 1)
+    return [sharded_step(plan=plan, **cfg) for cfg in configs]
