@@ -3,7 +3,12 @@ pretraining (``pretrain``), supervised training
 (``supervised_train``) and finetuning (``finetune``).
 
 Epochs of steps over the device-resident train split; validation after
-epochs 0, val_epochs, 2 val_epochs, ... and the last. Pretraining fits a
+epochs 0, val_epochs, 2 val_epochs, ... and the last. Epochs run in the JAX
+package's blocks (``blocks``): a whole val interval once at least five of
+them remain, else one epoch (``-epochs_per_call`` sets the size, capped at
+val_epochs); a block never crosses a validation point, and the train loss
+(the classifier's train accuracy too) at a point is the mean of the epoch
+means of the block that ends there. Pretraining fits a
 KNN probe on the train split's encoder features and reports the pretrain
 loss and the probe's metrics on val and test; its `_best` has the lowest
 val loss. The classifier stages report the class head's loss and metrics
@@ -279,6 +284,64 @@ def aug_id_table(loader, augmenter, epochs, seed, ragged_tail):
                        for _ in range(epochs)], dtype=np.int32)
 
 
+def _block_size(args, val_epochs, remaining_epochs):
+    """Max epochs per block, the JAX package's: a whole val block when the
+    run is long enough (at least 5 val blocks remain); -epochs_per_call
+    overrides, capped at val_epochs. Actual blocks never cross a validation
+    point (see _next_block)."""
+    override = getattr(args, "epochs_per_call", 0) or 0
+    if override:
+        return max(1, min(override, val_epochs))
+    if val_epochs > 1 and remaining_epochs >= 5 * val_epochs:
+        return val_epochs
+    return 1
+
+
+def _next_block(epoch, k, val_epochs, train_epochs):
+    """Epochs to run from ``epoch`` before the next stop point, keeping the
+    validation cadence (after epochs 0, val_epochs, 2 val_epochs, ...)."""
+    # the next epoch that is validated: smallest l >= epoch with l % val_epochs == 0
+    next_val = epoch if epoch % val_epochs == 0 else epoch + (val_epochs - epoch % val_epochs)
+    return max(1, min(k, next_val + 1 - epoch, train_epochs - epoch))
+
+
+class Block:
+    """The epochs that end at a validation point: ``epochs`` what the loop's
+    epoch function returned for each (its train metrics), ``samples_per_s``
+    the samples trained since the last validation point over the time
+    since."""
+
+    __slots__ = ("epochs", "samples_per_s")
+
+    def __init__(self, epochs, samples_per_s):
+        self.epochs, self.samples_per_s = epochs, samples_per_s
+
+
+def blocks(args, run, stage, val_epochs, start_epoch, train_epochs, train_epoch):
+    """Run epochs start_epoch .. train_epochs - 1 through ``train_epoch``
+    (epoch -> (train metrics, samples trained)) in the JAX package's blocks
+    (``_block_size``, ``_next_block``; a streamed split takes blocks of one,
+    as there) and yield (epoch, Block) at each validation point, the Block
+    holding the epochs of the block that ends there: the train metrics at a
+    point are the means of that block's epoch means, as the JAX package's
+    epoch functions return them."""
+    k = 1 if run.layout == "streamed" else _block_size(args, val_epochs,
+                                                         train_epochs - start_epoch)
+    if k > 1:
+        logging.info(f"= Blocks of up to {k} epochs: the train loss at a validation point is the "
+                     "mean of its block's epoch means")
+    epoch = start_epoch
+    t0, samples = time.time(), 0
+    while epoch < train_epochs:
+        n = _next_block(epoch, k, val_epochs, train_epochs)
+        done = [train_epoch(e) for e in range(epoch, epoch + n)]
+        samples += sum(s for _, s in done)
+        epoch += n
+        if (epoch - 1) % val_epochs == 0 or epoch == train_epochs:
+            yield epoch - 1, Block([m for m, _ in done], samples / max(time.time() - t0, 1e-9))
+            t0, samples = time.time(), 0
+
+
 def _nan_guard(train_loss, stage, epoch):
     if not math.isfinite(train_loss):
         logging.error(f"[{stage}] non-finite train loss at epoch {epoch}; aborting. "
@@ -344,30 +407,31 @@ def pretrain(args):
         start_epoch = epoch + 1
         logging.info(f"= Resumed from {resume_path} at epoch {start_epoch}, best {best_val_loss:.5f}")
     data = run.splits["train"].data
-    points = []
-    start = block_t0 = time.time()
-    block_samples = 0
-    for epoch in range(start_epoch, train_epochs):
+
+    def train_epoch(epoch):
         steps, tail_rows = run.epoch_steps(epoch)
         if gather:  # the ragged micro-step tail is dropped
             losses = [step(state, [(d, idx) for d, _, idx in itertools.islice(steps, accum)])[1][
                 "loss"] for _ in range(steps_per_epoch // accum)]
-            block_samples += steps_per_epoch // accum * accum * run.step_samples
-        else:
-            ids = table[epoch] if table is not None else None
-            losses = [step(state, d, idx, None if ids is None else ids[i])[1]["loss"]
-                      for i, (d, _, idx) in enumerate(steps)]
-            block_samples += steps_per_epoch * run.step_samples
-            if tail:  # the tail takes column `steps` of the table
-                losses.append(step(state, data, tail_rows,
-                                   None if ids is None else ids[steps_per_epoch])[1]["loss"])
-                block_samples += len(tail_rows)
-        if epoch % val_epochs and epoch != train_epochs - 1:
-            continue
-        train_loss = float(torch.stack(losses).mean())
+            return torch.stack(losses).mean(), steps_per_epoch // accum * accum * run.step_samples
+        ids = table[epoch] if table is not None else None
+        losses = [step(state, d, idx, None if ids is None else ids[i])[1]["loss"]
+                  for i, (d, _, idx) in enumerate(steps)]
+        samples = steps_per_epoch * run.step_samples
+        if tail:  # the tail takes column `steps` of the table
+            losses.append(step(state, data, tail_rows,
+                               None if ids is None else ids[steps_per_epoch])[1]["loss"])
+            samples += len(tail_rows)
+        return torch.stack(losses).mean(), samples
+
+    points = []
+    start = time.time()
+    for epoch, block in blocks(args, run, "pretrain", val_epochs, start_epoch, train_epochs,
+                               train_epoch):
+        train_loss = float(torch.stack(block.epochs).mean())
         _nan_guard(train_loss, "pretrain", epoch)
         logging.info(f"[pretrain] epoch {epoch}: train loss {train_loss:.5f} "
-                     f"({block_samples / max(time.time() - block_t0, 1e-9):.1f} samples/s)")
+                     f"({block.samples_per_s:.1f} samples/s)")
         estimator = ev.compute_knn(run.model, run.augmenter, run.eval_plan("train"), data,
                                    run.plan)
         val_loss, val_metrics = ev.eval_pretrained(
@@ -386,7 +450,6 @@ def pretrain(args):
                        "val_acc": val_metrics[0], "val_f1": val_metrics[1],
                        "test_loss": test_loss, "test_acc": test_metrics[0],
                        "test_f1": test_metrics[1]})
-        block_t0, block_samples = time.time(), 0
     logging.info(f"[pretrain] total time {time.time() - start:.1f}s, best val loss {best_val_loss:.5f}")
     distributed.barrier()  # rank 0's files are whole when any rank returns
     return state, best_val_loss, points
@@ -432,20 +495,21 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
         epoch, best_val_acc = ckpt.restore_state(resume_path, state, args.grad_accum)
         start_epoch = epoch + 1
         logging.info(f"= Resumed from {resume_path} at epoch {start_epoch}, best {best_val_acc:.5f}")
-    points = []
-    start = block_t0 = time.time()
-    block_samples = 0
-    for epoch in range(start_epoch, train_epochs):
+    def train_epoch(epoch):
         metrics = [step(state, d, labels, idx)[1] for d, labels, idx in run.epoch_steps(epoch)[0]]
-        block_samples += steps_per_epoch * run.step_samples
-        if epoch % val_epochs and epoch != train_epochs - 1:
-            continue
-        train_loss = float(torch.stack([m["loss"] for m in metrics]).mean())
-        train_acc = float(torch.stack([m["acc"] for m in metrics]).mean())
+        return ((torch.stack([m["loss"] for m in metrics]).mean(),
+                 torch.stack([m["acc"] for m in metrics]).mean()),
+                steps_per_epoch * run.step_samples)
+
+    points = []
+    start = time.time()
+    for epoch, block in blocks(args, run, stage, val_epochs, start_epoch, train_epochs,
+                               train_epoch):
+        train_loss = float(torch.stack([loss for loss, _ in block.epochs]).mean())
+        train_acc = float(torch.stack([acc for _, acc in block.epochs]).mean())
         _nan_guard(train_loss, stage, epoch)
         logging.info(f"[{stage}] epoch {epoch}: train loss {train_loss:.5f}, train acc "
-                     f"{train_acc:.5f} ({block_samples / max(time.time() - block_t0, 1e-9):.1f} "
-                     "samples/s)")
+                     f"{train_acc:.5f} ({block.samples_per_s:.1f} samples/s)")
         val_loss, val_metrics = ev.eval_supervised(args, run.model, run.augmenter,
                                                    run.eval_plan("val"), run.splits["val"].data,
                                                    run.plan)
@@ -462,7 +526,6 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
                        "val_loss": val_loss, "val_acc": val_metrics[0], "val_f1": val_metrics[1],
                        "test_loss": test_loss, "test_acc": test_metrics[0],
                        "test_f1": test_metrics[1]})
-        block_t0, block_samples = time.time(), 0
     logging.info(f"[{stage}] total time {time.time() - start:.1f}s, best val acc {best_val_acc:.5f}")
     distributed.barrier()  # rank 0's files are whole when any rank returns
     return state, best_val_acc, points
