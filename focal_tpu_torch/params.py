@@ -2,7 +2,11 @@
 training.
 
 A dataset's recipe is ``focal_tpu_torch/configs/{dataset}.yaml``, the
-package's own copy of the JAX package's recipe; nothing else is searched.
+package's own copy of the JAX package's recipe (``load_dataset_config``).
+The CLIs resolve it in the JAX CLI's order (``resolve_dataset_yaml``): the
+``-dataset_config`` path, then ``./data/{dataset}.yaml`` under the working
+directory, then the packaged recipe; a recipe of one's own names one's own
+index files.
 
 Training runs one process per card (``parallel.distributed``): the
 ``-dist_*`` flags or the ``FOCAL_DIST_*`` variables name the process group,
@@ -48,6 +52,29 @@ def load_dataset_config(dataset):
     return load_yaml(path)
 
 
+def resolve_dataset_yaml(dataset, explicit_path=None):
+    """The recipe file of a dataset as the CLIs find it, in the JAX CLI's
+    order: ``explicit_path`` (-dataset_config), ``./data/{dataset}.yaml``
+    under the working directory, the packaged recipe; the first that
+    exists."""
+    candidates = [explicit_path] if explicit_path else []
+    candidates += [os.path.join(".", "data", f"{dataset}.yaml"),
+                   os.path.join(CONFIG_DIR, f"{dataset}.yaml")]
+    for c in candidates:
+        if os.path.isfile(c):
+            return c
+    raise FileNotFoundError(f"No dataset recipe found for '{dataset}'. Looked at: {candidates}")
+
+
+def cli_dataset_config(args):
+    """The recipe of a CLI's ``args`` (resolve_dataset_yaml), its path
+    logged when it is not the packaged one."""
+    path = resolve_dataset_yaml(args.dataset, args.dataset_config_path)
+    if os.path.dirname(os.path.abspath(path)) != CONFIG_DIR:
+        logging.info(f"= Recipe of {args.dataset}: {path}")
+    return load_yaml(path)
+
+
 def default_task(dataset, dataset_config):
     if dataset_config.get("default_task"):
         return dataset_config["default_task"]
@@ -63,15 +90,30 @@ def get_train_mode(learn_framework):
 
 
 def select_device(device="cuda"):
-    """torch.device for ``device``. A CUDA device with no card raises: the
-    port never carries on on the CPU unless the caller asks for it."""
+    """torch.device for ``device`` ("cuda:N" for card N, as -gpu N names
+    it). A CUDA device with no card, or an index past the cards, raises:
+    the port never carries on on the CPU unless the caller asks for it."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {device!r} requested but no CUDA device is available; "
             "pass device='cpu' (-device cpu) to run on the CPU"
         )
+    if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
+        raise RuntimeError(f"device {dev} requested but this machine has "
+                           f"{torch.cuda.device_count()} CUDA device(s)")
     return dev
+
+
+def _gpu_device(args):
+    """-gpu N: the name of card N for a CUDA -device (cuda:N, which
+    select_device then checks); -device cpu ignores it, and says so."""
+    if args.gpu is None:
+        return args.device
+    if torch.device(args.device).type != "cuda":
+        logging.info(f"= -gpu {args.gpu} ignored: -device {args.device}")
+        return args.device
+    return f"cuda:{args.gpu}" if torch.device(args.device).index is None else args.device
 
 
 def build_parser():
@@ -110,13 +152,26 @@ def build_parser():
                         "(with -pallas_conv, #13-bf16/#14-bf16). Default float32, as the JAX "
                         "CLI's off the TPU.")
     parser.add_argument("-device", type=str, default="cuda", help="cuda (default) | cpu.")
+    _add_shared_flags(parser)
     return parser
+
+
+def _add_shared_flags(parser):
+    """The flags the serving, training and evaluation CLIs share with the
+    JAX CLI's parser: -gpu and -dataset_config."""
+    parser.add_argument("-gpu", type=_index, default=None,
+                        help="The card to run on: cuda:N (one process; with -device cpu "
+                        "ignored). Several processes take one card a rank.")
+    parser.add_argument("-dataset_config", dest="dataset_config_path", type=str, default=None,
+                        help="Path of the dataset recipe (yaml); else ./data/{dataset}.yaml, else "
+                        "the packaged recipe.")
 
 
 def parse_predict_params(argv=None):
     """Parse serving flags and fill the derived fields (recipe, task, batch)."""
     args = build_parser().parse_args(argv)
-    args.dataset_config = load_dataset_config(args.dataset)
+    args.device = _gpu_device(args)
+    args.dataset_config = cli_dataset_config(args)
     if args.task is None:
         args.task = default_task(args.dataset, args.dataset_config)
     args.train_mode = get_train_mode(args.learn_framework)
@@ -237,6 +292,21 @@ def build_train_parser():
                         "lr(e - 1), epoch 0 at lr(0).")
     parser.add_argument("-torch_out", type=str, default=None,
                         help="export_torch: the reference-format .pt file to write.")
+    parser.add_argument("-epochs_per_call", type=int, default=0,
+                        help="Epochs a block runs (0 = auto: a whole validation interval once "
+                        "at least five remain, else 1; capped at -val_epochs). The train loss "
+                        "at a validation point is the mean of its block's epoch means.")
+    parser.add_argument("-profile_dir", type=str, default=None,
+                        help="Trace the first epoch after the start (a block of its own) with "
+                        "torch.profiler, the card's kernels included, as a Chrome trace in this "
+                        "directory.")
+    parser.add_argument("-knn_backend", type=str, default="sklearn", choices=["sklearn", "jnp"],
+                        help="The JAX CLI's KNN probe backends; both run the port's KNN "
+                        "(scikit-learn's defaults, in torch) on the features' device.")
+    parser.add_argument("-prng_impl", type=str, default=None,
+                        help="Refused: it selects JAX's PRNG implementation; the port draws "
+                        "from torch's Philox generators.")
+    _add_shared_flags(parser)
     return parser
 
 
@@ -244,6 +314,13 @@ def _positive_int(text):
     value = int(text)
     if value < 1:
         raise argparse.ArgumentTypeError(f"{text} is not a positive integer")
+    return value
+
+
+def _index(text):
+    value = int(text)
+    if value < 0:
+        raise argparse.ArgumentTypeError(f"{text} is not a card index")
     return value
 
 
@@ -262,6 +339,10 @@ def _check_layout(args):
         logging.info(f"= {' and '.join(flags)} under -model_parallel {mp}: the flag-off routes "
                      "(the Swin MLPs' Dense pair, the conv blocks' cuDNN convs), as the JAX "
                      "package takes them on a model axis")
+    if args.gpu is not None and (dp * mp > 1 or (nproc or 1) > 1):
+        raise ValueError(f"-gpu {args.gpu} names one card, but this run has several processes, "
+                         "each of which takes a card of its own (cuda:{local rank % cards}); "
+                         "leave -gpu out, or choose the cards with CUDA_VISIBLE_DEVICES")
     if dp * mp > 1 and not coord:
         raise ValueError(f"-data_parallel {dp} x -model_parallel {mp} runs one process per card: "
                          "start each with -dist_coordinator host:port, -dist_num_processes "
@@ -280,6 +361,10 @@ def fill_train_params(args, option="train"):
     accumulation and a sharded layout, as the JAX package's pretraining
     does."""
     args.option = option
+    if args.prng_impl is not None:
+        raise ValueError(f"-prng_impl {args.prng_impl}: the flag selects JAX's PRNG implementation "
+                         "(threefry2x32 or rbg); the port draws from torch's Philox generators "
+                         "(train/state.py), so it has nothing to select")
     if (args.py_aug_draws or args.ragged_tail) and (
             args.grad_accum > 1 or args.data_layout == "sharded"):
         raise ValueError("-py_aug_draws/-ragged_tail are attribution arms for the replicated "
@@ -287,8 +372,8 @@ def fill_train_params(args, option="train"):
     _check_layout(args)
     # the process group first: the card depends on this process's rank
     maybe_initialize(args)
-    args.device = device_for(args.device)
-    args.dataset_config = load_dataset_config(args.dataset)
+    args.device = device_for(_gpu_device(args))
+    args.dataset_config = cli_dataset_config(args)
     if args.task is None:
         args.task = default_task(args.dataset, args.dataset_config)
     args.train_mode = get_train_mode(args.learn_framework)

@@ -25,6 +25,12 @@ epoch), a step's augmentation and dropout from (seed, update count), a
 validation's views from (seed, epoch). A run resumed from `_resume` thus
 takes the steps a straight run takes.
 
+``-profile_dir`` traces the first epoch after the start with torch.profiler
+(``epoch_trace``), that epoch a block of its own, as the JAX package traces
+it. ``-knn_backend`` names one of the JAX package's probes (scikit-learn's,
+or its on-device top-k); both run ``ops/knn.py``'s KNN on the features'
+device, and the name is logged.
+
 ``-init_weight`` loads a params file into the model before any stage
 trains (finetuning then loads the pretrained backbone over it). The
 pretraining attribution arms, as in the JAX package: ``-ragged_tail`` runs
@@ -59,9 +65,11 @@ the host (``streaming.BlockStream``) under the replicated layout, the
 resident permutation and rows step by step.
 """
 
+import contextlib
 import itertools
 import logging
 import math
+import os
 import random
 import time
 
@@ -305,6 +313,26 @@ def _next_block(epoch, k, val_epochs, train_epochs):
     return max(1, min(k, next_val + 1 - epoch, train_epochs - epoch))
 
 
+@contextlib.contextmanager
+def epoch_trace(profile_dir, device, stage, epoch):
+    """-profile_dir: a torch.profiler trace of the work inside (the host's
+    operations, and on the card its kernels and copies), written as a
+    Chrome trace to ``{profile_dir}/{stage}_epoch{epoch}.pt.trace.json``
+    (``_rank{r}`` before the suffix when there are several processes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cuda = device.type == "cuda"
+    os.makedirs(profile_dir, exist_ok=True)
+    with profile(activities=[ProfilerActivity.CPU] + [ProfilerActivity.CUDA] * cuda) as prof:
+        yield
+        if cuda:
+            torch.cuda.synchronize(device)
+    rank = f"_rank{distributed.process_index()}" if distributed.process_count() > 1 else ""
+    path = os.path.join(profile_dir, f"{stage}_epoch{epoch}{rank}.pt.trace.json")
+    prof.export_chrome_trace(path)
+    logging.info(f"= Profiler trace of epoch {epoch} written to {path}")
+
+
 class Block:
     """The epochs that end at a validation point: ``epochs`` what the loop's
     epoch function returned for each (its train metrics), ``samples_per_s``
@@ -324,17 +352,24 @@ def blocks(args, run, stage, val_epochs, start_epoch, train_epochs, train_epoch)
     as there) and yield (epoch, Block) at each validation point, the Block
     holding the epochs of the block that ends there: the train metrics at a
     point are the means of that block's epoch means, as the JAX package's
-    epoch functions return them."""
+    epoch functions return them. With -profile_dir the first epoch after
+    ``start_epoch`` runs as a block of its own, traced (``epoch_trace``),
+    as the JAX package's loops trace it."""
     k = 1 if run.layout == "streamed" else _block_size(args, val_epochs,
                                                          train_epochs - start_epoch)
     if k > 1:
         logging.info(f"= Blocks of up to {k} epochs: the train loss at a validation point is the "
                      "mean of its block's epoch means")
-    epoch = start_epoch
+    epoch, profiled = start_epoch, False
     t0, samples = time.time(), 0
     while epoch < train_epochs:
         n = _next_block(epoch, k, val_epochs, train_epochs)
-        done = [train_epoch(e) for e in range(epoch, epoch + n)]
+        traced = bool(args.profile_dir) and not profiled and epoch > start_epoch
+        if traced:
+            n, profiled = 1, True
+        with (epoch_trace(args.profile_dir, run.device, stage, epoch) if traced
+              else contextlib.nullcontext()):
+            done = [train_epoch(e) for e in range(epoch, epoch + n)]
         samples += sum(s for _, s in done)
         epoch += n
         if (epoch - 1) % val_epochs == 0 or epoch == train_epochs:
@@ -399,6 +434,7 @@ def pretrain(args):
                                   fused_views=not args.no_fused_views, plan=run.plan,
                                   sharded=sharded)
     loss_fn = ev.make_batched_pretrain_loss(run.model, run.augmenter, focal_loss, run.plan)
+    logging.info(f"= KNN probe (-knn_backend {args.knn_backend}): ops/knn.py's KNN on {run.device}")
     best_path, latest_path, resume_path = checkpoint_paths(args)
     val_epochs = args.val_epochs or 10
     best_val_loss, start_epoch = math.inf, 0

@@ -5,16 +5,30 @@ blocks.
     the JAX package's on a grid of flags, val intervals, epochs and run
     lengths, exactly;
   * pretraining and the supervised stage on MOD_TINY with -val_epochs 2 over
-    10 epochs (blocks of 2): each validation point's train loss (and the
-    classifier's train accuracy) is the mean of the epoch means of the block
-    that ends there, the blocks taken from the JAX package's loop logic
-    run on its own functions; the epoch means are recorded from the steps
-    the loop takes, so the check is exact.
+    10 epochs (auto: blocks of 2), over 5 with -epochs_per_call 3 (blocks
+    of 2, the cap) and with -profile_dir (epoch 1 a traced block of its
+    own): each validation point's train loss (and the classifier's train
+    accuracy) is the mean of the epoch means of the block that ends there,
+    the blocks taken from the JAX package's loop logic run on its own
+    functions; the epoch means are recorded from the steps the loop takes,
+    so the check is exact. The trace is one epoch's, and the only one;
+  * -knn_backend: both names run the probe, another is refused;
+  * -gpu in the train, test and predict parsers: cuda:N, ignored with
+    -device cpu, refused with several processes, an index past the cards
+    refused by select_device;
+  * -dataset_config in all three parsers resolves as the JAX package's
+    ``resolve_dataset_yaml`` (the explicit path, ./data/{dataset}.yaml in
+    the working directory, the packaged recipe);
+  * -prng_impl is refused by name;
+  * the parser diff: every flag of the JAX CLI's parser is in the port's
+    training parser, or (-input, -predictions_out) in its serving parser.
 """
 
 import argparse
 import importlib
+import json
 import logging
+import os
 from types import SimpleNamespace
 
 import pytest
@@ -117,20 +131,125 @@ def block_mean(seen, block, key):
                               for e in block]).mean())
 
 
-@pytest.mark.parametrize("flags, epochs_per_call, val_epochs, epochs", [
-    pytest.param([], 0, 2, 10, id="auto"),
+@pytest.mark.parametrize("epochs_per_call, epochs, profile", [
+    pytest.param(0, 10, False, id="auto"),
+    pytest.param(3, 5, False, id="epochs_per_call"),
+    pytest.param(2, 5, True, id="profile_dir"),
 ])
 @pytest.mark.parametrize("stage", sorted(STAGES))
-def test_train_loss_is_the_mean_of_its_block(stage, flags, epochs_per_call, val_epochs, epochs,
-                                             tmp_path, monkeypatch):
+def test_train_loss_is_the_mean_of_its_block(stage, epochs_per_call, epochs, profile, tmp_path,
+                                             monkeypatch):
     seen = record_steps(monkeypatch)
+    trace_dir = tmp_path / "trace"
+    flags = ["-epochs_per_call", str(epochs_per_call)] + (
+        ["-profile_dir", str(trace_dir)] if profile else [])
+    if stage == "pretrain" and epochs_per_call:
+        flags += ["-knn_backend", "jnp"]
     _, _, points = train_cli.main(TINY + STAGES[stage] + flags + [
-        "-val_epochs", str(val_epochs), "-epochs", str(epochs), "-output_dir", str(tmp_path)])
-    want = jax_blocks(epochs_per_call, val_epochs, epochs)
+        "-val_epochs", "2", "-epochs", str(epochs), "-output_dir", str(tmp_path / "run")])
+    want = jax_blocks(epochs_per_call, 2, epochs, profile=profile)
     assert [p["epoch"] for p in points] == sorted(want)
     assert sorted(seen) == list(range(epochs))
     assert any(len(b) > 1 for b in want.values())  # blocks of several epochs were taken
+    if profile:
+        assert want[2] == [2]  # the traced epoch 1 shifted the blocks
+        (trace,) = trace_dir.iterdir()
+        assert trace.name == f"{stage}_epoch1.pt.trace.json"
+        events = json.loads(trace.read_text())["traceEvents"]
+        assert any(e.get("name", "").startswith("aten::") for e in events)
     keys = ("loss", "acc") if stage == "supervised" else ("loss",)
     for p in points:
         for key in keys:
             assert p[f"train_{key}"] == block_mean(seen, want[p["epoch"]], key), (p, key)
+
+
+def test_knn_backend_names():
+    from focal_tpu_torch.params import parse_train_params
+
+    for name in ("sklearn", "jnp"):
+        assert parse_train_params(TINY + ["-knn_backend", name]).knn_backend == name
+    with pytest.raises(SystemExit):
+        parse_train_params(TINY + ["-knn_backend", "faiss"])
+
+
+def test_gpu_flag(monkeypatch):
+    from focal_tpu_torch.params import (parse_predict_params, parse_test_params,
+                                        parse_train_params, select_device)
+
+    base = ["-dataset", "MOD_TINY", "-synthetic"]
+    for parse in (parse_train_params, parse_test_params, parse_predict_params):
+        assert parse(base + ["-gpu", "1"]).device == "cuda:1"
+        assert parse(base + ["-gpu", "1", "-device", "cpu"]).device == "cpu"
+        assert parse(base).device == "cuda"
+        with pytest.raises(SystemExit):
+            parse(base + ["-gpu", "-1"])
+    with pytest.raises(ValueError, match="several processes"):
+        parse_train_params(base + ["-gpu", "0", "-data_parallel", "2"])
+    monkeypatch.setenv("FOCAL_DIST_NUM_PROCESSES", "2")
+    with pytest.raises(ValueError, match="several processes"):
+        parse_test_params(base + ["-gpu", "0"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    assert select_device("cuda:0") == torch.device("cuda", 0)
+    with pytest.raises(RuntimeError, match="1 CUDA device"):
+        select_device("cuda:1")
+
+
+def test_dataset_config_resolves_as_the_jax_package(tmp_path, monkeypatch):
+    import yaml
+
+    from focal_tpu.params.yaml_utils import resolve_dataset_yaml as jax_resolve
+    from focal_tpu_torch.params import (CONFIG_DIR, load_yaml, parse_predict_params,
+                                        parse_test_params, parse_train_params,
+                                        resolve_dataset_yaml)
+
+    packaged = load_yaml(os.path.join(CONFIG_DIR, "MOD_TINY.yaml"))
+    own = dict(packaged, pretrain_index_file="own/pretrain_index.txt")
+    explicit = tmp_path / "own.yaml"
+    explicit.write_text(yaml.safe_dump(own))
+    cwd = tmp_path / "cwd"
+    (cwd / "data").mkdir(parents=True)
+    local = dict(packaged, pretrain_index_file="local/pretrain_index.txt")
+    (cwd / "data" / "MOD_TINY.yaml").write_text(yaml.safe_dump(local))
+    cases = [(None, packaged, "packaged"), (str(explicit), own, "explicit"),
+             (str(tmp_path / "missing.yaml"), packaged, "packaged")]
+    for where in ("repo", "cwd"):
+        if where == "cwd":
+            monkeypatch.chdir(cwd)
+            cases = [(None, local, "local"), (str(explicit), own, "explicit"),
+                     (str(tmp_path / "missing.yaml"), local, "local")]
+        for path, recipe, kind in cases:
+            got, want = resolve_dataset_yaml("MOD_TINY", path), jax_resolve("MOD_TINY", path)
+            if kind == "packaged":  # each package's own copy of the recipe
+                assert load_yaml(got) == load_yaml(want) == packaged
+                assert os.path.dirname(os.path.abspath(got)) == CONFIG_DIR
+            else:
+                assert got == want
+            flags = ["-dataset", "MOD_TINY", "-synthetic"] + (
+                ["-dataset_config", path] if path else [])
+            for parse in (parse_train_params, parse_test_params, parse_predict_params):
+                assert parse(flags).dataset_config == recipe, (where, path, parse)
+    with pytest.raises(FileNotFoundError, match="NO_SUCH"):
+        resolve_dataset_yaml("NO_SUCH")
+
+
+def test_prng_impl_is_refused_by_name():
+    from focal_tpu_torch.params import parse_test_params, parse_train_params
+
+    for parse in (parse_train_params, parse_test_params):
+        with pytest.raises(ValueError, match="-prng_impl rbg: the flag selects JAX's PRNG "
+                                             "implementation.*Philox"):
+            parse(TINY + ["-prng_impl", "rbg"])
+
+
+def test_every_jax_flag_has_a_port_parser():
+    from focal_tpu.params.cli import build_parser as jax_parser
+    from focal_tpu_torch.params import build_parser, build_train_parser
+
+    def flags(parser):
+        return {o for a in parser._actions for o in a.option_strings}
+
+    jax_only = flags(jax_parser()) - flags(build_train_parser())
+    assert jax_only == {"-input", "-predictions_out"}  # predict.py's, in the serving parser
+    assert jax_only <= flags(build_parser())
+    assert {"-gpu", "-dataset_config"} <= flags(build_parser())
