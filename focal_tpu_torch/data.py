@@ -5,15 +5,20 @@ device-resident splits, and their batch plans (port of the JAX package's
 Sample schema: each sample file holds
     {"label": int or {task: int}, "data": {loc: {mod: [c, i, s] float32}}}
 as either a torch ``.pt`` or an ``.npz`` with keys ``label.<task>`` /
-``label`` and ``data.<loc>.<mod>``.
+``label`` and ``data.<loc>.<mod>``. A split of ``.npz`` files loads through
+the bulk loader (``focal_tpu_torch.native``), as the JAX package's does;
+the archives it cannot read (compressed, zip64, unreadable) and ``.pt``
+files are read one by one here.
 
 A split lives on the device whole; a loader yields only index arrays, which
 the step gathers from it. Train batches drop the ragged tail; eval batches
 pad it by repeating the last unit and carry a 0/1 weight per row.
 """
 
+import logging
 import os
 import re
+
 import numpy as np
 import torch
 
@@ -97,6 +102,82 @@ def synthetic_arrays(dataset_config, task, num_samples, seed=0, num_seqs=None):
     return data, labels, names
 
 
+def write_synthetic_sample_files(dataset_config, task, out_dir, num_samples, seed=0,
+                                 splits=(0.7, 0.15, 0.15)):
+    """Write ``synthetic_arrays``' samples as .npz files and the index
+    files {train,val,test,pretrain}_index.txt in the reference's layout
+    (the JAX package's files, byte for byte); split boundaries fall on
+    sequence boundaries, so subsequences never straddle splits. Returns
+    {split: index file path}."""
+    os.makedirs(out_dir, exist_ok=True)
+    data, labels, names = synthetic_arrays(dataset_config, task, num_samples, seed)
+    label_key = TASK_LABEL_KEYS.get(task)
+    paths = []
+    for i, name in enumerate(names):
+        path = os.path.join(out_dir, name)
+        arrays = {f"label.{label_key}" if label_key else "label": np.int32(labels[i])}
+        for loc in data:
+            for mod in data[loc]:
+                arrays[f"data.{loc}.{mod}"] = data[loc][mod][i]
+        np.savez(path, **arrays)
+        paths.append(path)
+    seq_len = dataset_config.get("seq_len", 4)
+    n_seq = len(paths) // seq_len
+    n_train_seq, n_val_seq = int(n_seq * splits[0]), int(n_seq * splits[1])
+    cut1, cut2 = n_train_seq * seq_len, (n_train_seq + n_val_seq) * seq_len
+    index = {"train": paths[:cut1], "val": paths[cut1:cut2], "test": paths[cut2:],
+             "pretrain": paths[:cut2]}
+    index_files = {}
+    for split, files in index.items():
+        index_files[split] = os.path.join(out_dir, f"{split}_index.txt")
+        with open(index_files[split], "w") as f:
+            f.write("\n".join(files) + "\n")
+    return index_files
+
+
+def _bulk_load(files, task):
+    """({loc: {mod: [N, ...] float32}}, int32 labels [N]) of .npz sample
+    files through the bulk loader, the JAX package's ``_bulk_load_native``:
+    the members and the label key are those of the first file (``label``,
+    else ``label.<the task's key>``); None where the files are not all
+    .npz or the first names no data or label. Archives the loader cannot
+    read are read with numpy, and logged."""
+    if not all(f.endswith(".npz") for f in files):
+        return None
+    from focal_tpu_torch import native
+
+    with np.load(files[0]) as z:
+        data_keys = {k: z[k].shape for k in z.files if k.startswith("data.")}
+        label_keys = [k for k in z.files if k == "label" or k.startswith("label.")]
+    wanted = TASK_LABEL_KEYS.get(task)
+    label_key = ("label" if "label" in label_keys else
+                 f"label.{wanted}" if wanted and f"label.{wanted}" in label_keys else None)
+    if not data_keys or label_key is None:
+        return None
+    stacked, read = {}, np.ones(len(files), bool)
+    for key, shape in data_keys.items():
+        _, loc, mod = key.split(".")
+        arr, ok = native.load_batch_f32(files, key, shape)
+        stacked.setdefault(loc, {})[mod] = arr
+        read &= ok
+    labels, ok = native.load_scalar_i64(files, label_key)
+    labels, read = labels.astype(np.int32), read & ok
+    missed = np.flatnonzero(~read)
+    if len(missed):
+        logging.info(f"= Bulk loader: {len(missed)} of {len(files)} archives not in its format "
+                     f"(compressed, zip64 or unreadable), read with numpy: {files[missed[0]]}"
+                     + (" and others" if len(missed) > 1 else ""))
+    for i in missed:
+        data, label = _load_sample_file(files[i], task)
+        if label is None:
+            raise ValueError(f"Sample without a label in a training index: {files[i]}")
+        for loc, mods in stacked.items():
+            for mod, a in mods.items():
+                a[i] = data[loc][mod]
+        labels[i] = label
+    return stacked, labels
+
+
 def to_device(data, device):
     """{loc: {mod: numpy}} -> {loc: {mod: tensor on device}}."""
     return {loc: {m: torch.from_numpy(np.ascontiguousarray(a)).to(device) for m, a in mods.items()}
@@ -163,9 +244,15 @@ class Split:
 
     @classmethod
     def from_index_file(cls, index_file, task, seq_len=None, delimiter="_"):
+        """The split an index file lists: .npz files through the bulk
+        loader (``_bulk_load``), else one file at a time."""
         files = [str(f) for f in np.loadtxt(index_file, dtype=str, ndmin=1)]
         if not files:
             raise ValueError(f"Empty index file: {index_file}")
+        names = [os.path.basename(f) for f in files]
+        bulk = _bulk_load(files, task)
+        if bulk is not None:
+            return cls(*bulk, names, seq_len, delimiter)
         samples = [_load_sample_file(f, task) for f in files]
         for f, (_, label) in zip(files, samples):
             if label is None:
@@ -173,7 +260,6 @@ class Split:
         first = samples[0][0]
         data = {loc: {m: np.stack([d[loc][m] for d, _ in samples]).astype(np.float32)
                       for m in mods} for loc, mods in first.items()}
-        names = [os.path.basename(f) for f in files]
         return cls(data, [label for _, label in samples], names, seq_len, delimiter)
 
 

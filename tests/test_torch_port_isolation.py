@@ -1,7 +1,7 @@
-"""The port stands alone: importing it loads neither JAX nor the JAX package
-(nor scikit-learn, which the card's machine lacks), importing its training
-CLI runs nothing, and its entry points refuse to carry on on the CPU unless
-asked."""
+"""The port stands alone: importing it (its offline data tools included)
+loads neither JAX nor the JAX package (nor scikit-learn, which the card's
+machine lacks), importing its training CLI runs nothing, and its entry
+points refuse to carry on on the CPU unless asked."""
 
 import json
 import os
@@ -41,6 +41,9 @@ def test_port_imports_no_jax_and_no_focal_tpu():
     assert "focal_tpu_torch.train.__main__" in probe["modules"], probe  # imported, ran nothing
     for name in ("distributed", "mesh", "tp"):  # the multi-process modules are walked too
         assert f"focal_tpu_torch.parallel.{name}" in probe["modules"], probe
+    for name in ("preprocess.mod", "preprocess.mod_tables", "preprocess.partition",
+                 "preprocess.signal", "native"):  # and the offline data tools
+        assert f"focal_tpu_torch.{name}" in probe["modules"], probe
     assert probe["bad"] == [], f"port pulled in: {probe['bad']}"
 
 
