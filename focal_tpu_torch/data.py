@@ -106,7 +106,7 @@ def write_synthetic_sample_files(dataset_config, task, out_dir, num_samples, see
                                  splits=(0.7, 0.15, 0.15)):
     """Write ``synthetic_arrays``' samples as .npz files and the index
     files {train,val,test,pretrain}_index.txt in the reference's layout
-    (the JAX package's files, byte for byte); split boundaries fall on
+    (the JAX package's arrays and index files); split boundaries fall on
     sequence boundaries, so subsequences never straddle splits. Returns
     {split: index file path}."""
     os.makedirs(out_dir, exist_ok=True)

@@ -67,11 +67,12 @@ def resolve_dataset_yaml(dataset, explicit_path=None):
 
 
 def cli_dataset_config(args):
-    """The recipe of a CLI's ``args`` (resolve_dataset_yaml), its path
-    logged when it is not the packaged one."""
+    """The recipe of a CLI's ``args`` (resolve_dataset_yaml): the packaged
+    one through load_dataset_config, another from its path, logged."""
     path = resolve_dataset_yaml(args.dataset, args.dataset_config_path)
-    if os.path.dirname(os.path.abspath(path)) != CONFIG_DIR:
-        logging.info(f"= Recipe of {args.dataset}: {path}")
+    if os.path.dirname(os.path.abspath(path)) == CONFIG_DIR:
+        return load_dataset_config(args.dataset)
+    logging.info(f"= Recipe of {args.dataset}: {path}")
     return load_yaml(path)
 
 

@@ -297,9 +297,8 @@ def _block_size(args, val_epochs, remaining_epochs):
     run is long enough (at least 5 val blocks remain); -epochs_per_call
     overrides, capped at val_epochs. Actual blocks never cross a validation
     point (see _next_block)."""
-    override = getattr(args, "epochs_per_call", 0) or 0
-    if override:
-        return max(1, min(override, val_epochs))
+    if args.epochs_per_call:
+        return max(1, min(args.epochs_per_call, val_epochs))
     if val_epochs > 1 and remaining_epochs >= 5 * val_epochs:
         return val_epochs
     return 1
@@ -333,26 +332,15 @@ def epoch_trace(profile_dir, device, stage, epoch):
     logging.info(f"= Profiler trace of epoch {epoch} written to {path}")
 
 
-class Block:
-    """The epochs that end at a validation point: ``epochs`` what the loop's
-    epoch function returned for each (its train metrics), ``samples_per_s``
-    the samples trained since the last validation point over the time
-    since."""
-
-    __slots__ = ("epochs", "samples_per_s")
-
-    def __init__(self, epochs, samples_per_s):
-        self.epochs, self.samples_per_s = epochs, samples_per_s
-
-
 def blocks(args, run, stage, val_epochs, start_epoch, train_epochs, train_epoch):
     """Run epochs start_epoch .. train_epochs - 1 through ``train_epoch``
     (epoch -> (train metrics, samples trained)) in the JAX package's blocks
     (``_block_size``, ``_next_block``; a streamed split takes blocks of one,
-    as there) and yield (epoch, Block) at each validation point, the Block
-    holding the epochs of the block that ends there: the train metrics at a
-    point are the means of that block's epoch means, as the JAX package's
-    epoch functions return them. With -profile_dir the first epoch after
+    as there) and yield (epoch, metrics, samples/s) at each validation
+    point: ``metrics`` what ``train_epoch`` returned for each epoch of the
+    block that ends there (the train metrics at a point are the means of
+    these epoch means, as the JAX package's epoch functions return them),
+    samples/s over the samples and time since the last point. With -profile_dir the first epoch after
     ``start_epoch`` runs as a block of its own, traced (``epoch_trace``),
     as the JAX package's loops trace it."""
     k = 1 if run.layout == "streamed" else _block_size(args, val_epochs,
@@ -373,7 +361,7 @@ def blocks(args, run, stage, val_epochs, start_epoch, train_epochs, train_epoch)
         samples += sum(s for _, s in done)
         epoch += n
         if (epoch - 1) % val_epochs == 0 or epoch == train_epochs:
-            yield epoch - 1, Block([m for m, _ in done], samples / max(time.time() - t0, 1e-9))
+            yield epoch - 1, [m for m, _ in done], samples / max(time.time() - t0, 1e-9)
             t0, samples = time.time(), 0
 
 
@@ -462,12 +450,11 @@ def pretrain(args):
 
     points = []
     start = time.time()
-    for epoch, block in blocks(args, run, "pretrain", val_epochs, start_epoch, train_epochs,
-                               train_epoch):
-        train_loss = float(torch.stack(block.epochs).mean())
+    for epoch, means, rate in blocks(args, run, "pretrain", val_epochs, start_epoch,
+                                     train_epochs, train_epoch):
+        train_loss = float(torch.stack(means).mean())
         _nan_guard(train_loss, "pretrain", epoch)
-        logging.info(f"[pretrain] epoch {epoch}: train loss {train_loss:.5f} "
-                     f"({block.samples_per_s:.1f} samples/s)")
+        logging.info(f"[pretrain] epoch {epoch}: train loss {train_loss:.5f} ({rate:.1f} samples/s)")
         estimator = ev.compute_knn(run.model, run.augmenter, run.eval_plan("train"), data,
                                    run.plan)
         val_loss, val_metrics = ev.eval_pretrained(
@@ -531,6 +518,7 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
         epoch, best_val_acc = ckpt.restore_state(resume_path, state, args.grad_accum)
         start_epoch = epoch + 1
         logging.info(f"= Resumed from {resume_path} at epoch {start_epoch}, best {best_val_acc:.5f}")
+
     def train_epoch(epoch):
         metrics = [step(state, d, labels, idx)[1] for d, labels, idx in run.epoch_steps(epoch)[0]]
         return ((torch.stack([m["loss"] for m in metrics]).mean(),
@@ -539,13 +527,13 @@ def _classifier_loop(args, stage, fixed_aug, scheduler):
 
     points = []
     start = time.time()
-    for epoch, block in blocks(args, run, stage, val_epochs, start_epoch, train_epochs,
-                               train_epoch):
-        train_loss = float(torch.stack([loss for loss, _ in block.epochs]).mean())
-        train_acc = float(torch.stack([acc for _, acc in block.epochs]).mean())
+    for epoch, means, rate in blocks(args, run, stage, val_epochs, start_epoch, train_epochs,
+                                     train_epoch):
+        train_loss = float(torch.stack([loss for loss, _ in means]).mean())
+        train_acc = float(torch.stack([acc for _, acc in means]).mean())
         _nan_guard(train_loss, stage, epoch)
         logging.info(f"[{stage}] epoch {epoch}: train loss {train_loss:.5f}, train acc "
-                     f"{train_acc:.5f} ({block.samples_per_s:.1f} samples/s)")
+                     f"{train_acc:.5f} ({rate:.1f} samples/s)")
         val_loss, val_metrics = ev.eval_supervised(args, run.model, run.augmenter,
                                                    run.eval_plan("val"), run.splits["val"].data,
                                                    run.plan)

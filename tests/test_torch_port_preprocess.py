@@ -1,16 +1,16 @@
 """The port's offline MOD preprocessing (``focal_tpu_torch.preprocess``)
 against the JAX package's (``focal_tpu.data.preprocess``), on the same
 numpy-seeded inputs. Both run the same numpy operations, so every array,
-file name, file and index file is equal bit for bit:
+file name, archive member and index file is equal bit for bit:
 
   * the sinc kernel, resampling (16 kHz -> 8 kHz and 3 -> 2), windows with
     and without overlap, the time/frequency extraction, segmentation and
     whole samples from signals;
   * ``process_shake`` end to end on raw CSVs in tests/test_preprocess.py's
     layout (with a trim, and with the frequency-domain files), the sample
-    files byte for byte, then loaded by the port's split and the JAX
-    package's dataset alike; the speed/distance labels of a folder name
-    under each task;
+    files' members byte for byte, then loaded by the port's split and the
+    JAX package's dataset alike; the speed/distance labels of a folder
+    name under each task;
   * the allowlists (both flows), the trim tables and ``process_dataset``'s
     use of them;
   * ``partition_samples``: the index files of tests/test_preprocess.py's
@@ -19,6 +19,7 @@ file name, file and index file is equal bit for bit:
 """
 
 import os
+import zipfile
 
 import numpy as np
 import pytest
@@ -85,10 +86,13 @@ def _write_raw_recording(root, run, shake, seconds=5, seed=0):
 
 
 def _same_files(got, want):
+    """The same file names, and each archive's members byte for byte (the
+    zip headers hold the time of writing)."""
     assert [os.path.basename(p) for p in got] == [os.path.basename(p) for p in want]
     for a, b in zip(got, want):
-        with open(a, "rb") as fa, open(b, "rb") as fb:
-            assert fa.read() == fb.read(), a
+        with zipfile.ZipFile(a) as za, zipfile.ZipFile(b) as zb:
+            assert za.namelist() == zb.namelist(), a
+            assert all(za.read(n) == zb.read(n) for n in za.namelist()), a
 
 
 def test_process_shake_end_to_end(tmp_path):
