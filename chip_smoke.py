@@ -64,17 +64,17 @@ result line if any fails):
      gradients with #4's mask and without (1e-4 relative) and the same bits
      on a second call;
  11. the training entry point: python -m focal_tpu_torch.train at MOD_WIDE
-     (512 synthetic samples, batch 64, 2 epochs, validation every epoch)
-     run in-process, then -resume to epoch 3: finite losses, two validation
-     points and one after the resume, the _latest/_best/_resume files; per
+     (512 synthetic samples, batch 64, 1 epoch, validation every epoch)
+     run in-process, then -resume to epoch 2: finite losses, a validation
+     point before the resume and one after, the _latest/_best/_resume files; per
      step #2 and #3 launched 4 times (stage 0) and #4 and #5 12 times, per
      eval forward #1 4 times and #4 12 times, nothing else;
  12. MOD_WIDE pretrain steps timed as phase 7 times MOD's (batch 64, 3
-     warm-up + 10 timed; #2/#3 4 per step, #4/#5 12 per step), the rate-0
+     warm-up + 5 timed; #2/#3 4 per step, #4/#5 12 per step), the rate-0
      kernels-vs-plain step held to phase 7's tolerances from the initial
-     state (and from the trained state beside the plain step on the CPU,
-     reported but not held: AdamW at lr 1e-3 grows the 184M-parameter
-     model's attention logits, so any f32 summation order moves its loss),
+     state (and from the trained state, reported but not held: AdamW at lr
+     1e-3 grows the 184M-parameter model's attention logits, so any f32
+     summation order moves its loss; C3),
      and a torch.profiler trace of one step (#2-#5's device time in it by
      phase); p50, samples/s, idle share and peak memory printed beside the
      step with the per-window #2/#3 (PARENT_STEPS);
@@ -92,8 +92,8 @@ result line if any fails):
      (absolutely to 1e-2 where both are below 1e-2: conv biases before a
      BatchNorm), the same bits on a second call;
  15. DeepSense pretrain steps (flax-style init, synthetic data resident on
-     the card), MOD_WIDE at batch 128 (views fused to 256; 3 warm-up + 10
-     timed) and MOD at batch 256 (3 + 20), on the default path (cuDNN
+     the card), MOD_WIDE at batch 128 (views fused to 256; 3 warm-up + 5
+     timed) and MOD at batch 256 (3 + 10), on the default path (cuDNN
      convs, no kernel launched) and with -pallas_conv (#13 11 and #14 20
      launches a step at either): p50, samples/s, peak memory and a
      profiled step's idle share, device busy time and #13/#14's share of
@@ -123,7 +123,7 @@ result line if any fails):
      masks and without <= 1e-4 relative; each mask's keep rate within 5
      sigma of 0.8; the same bits on a second call;
  19. MOD supervised steps at batch 128 (fixed pool: mixup, phase_shift):
-     3 warm-up + 20 timed on the default path (#2/#3 16 a step, no MLP
+     3 warm-up + 10 timed on the default path (#2/#3 16 a step, no MLP
      kernel) and with -pallas_mlp (#2, #3, #11, #12 16 each), p50,
      samples/s, peak memory, a profiled step's idle share, top device
      kernels and #10-#12's device time by phase; the -pallas_mlp step
@@ -157,7 +157,7 @@ result line if any fails):
      sides are below it) and the same bits on a second call; #7's keep rate
      within 5 sigma of 0.8 and its mask equal to #2's (#4's where #2 does
      not launch) bit for bit at the same seed and geometry;
- 23. MOD pretrain steps with -no_pallas_block at batch 256: 3 warm-up + 20
+ 23. MOD pretrain steps with -no_pallas_block at batch 256: 3 warm-up + 10
      timed (#7 and #9 16 a step, nothing of #1-#5), p50, samples/s, peak
      memory, a profiled step's idle share and top device kernels; a rate-0
      step from the initial state, kernels (#6 and #8 16 each) vs plain:
@@ -240,7 +240,7 @@ result line if any fails):
      bf16 batch of 128 (#1-bf16 16) against the bf16 plain block (1e-2); a
      rate-0 pretrain step at 256 from one state, bf16 kernels against f32
      (loss 1e-2 relative) and against the bf16 plain versions (loss 1e-2),
-     gradients f32; 3 + 20 bf16 and f32 MOD pretrain steps from one init
+     gradients f32; 3 + 10 bf16 and f32 MOD pretrain steps from one init
      beside each other (p50, samples/s, peak memory, idle share, device
      time by window_block.cu phase, top kernels); the rate-0 step's
      gradients held to the CPU step test's gates (C11: each tensor's cosine
@@ -266,7 +266,7 @@ result line if any fails):
      against their bf16 plain versions (loss 1e-2, C11's gradient gates),
      the cuDNN route's bf16 step against its f32 step (loss 1e-2); python -m
      focal_tpu_torch.train -pallas_conv -compute_dtype bfloat16 for 1 epoch
-     with its launches held; 3 + 20 MOD pretrain steps at 256 of both
+     with its launches held; 3 + 10 MOD pretrain steps at 256 of both
      routes, bf16 beside f32 from one init (p50, device busy, idle share,
      device operations, peak memory);
  31. MOD_WIDE at -compute_dtype bfloat16: #4-bf16 and #5-bf16
@@ -277,7 +277,7 @@ result line if any fails):
      its keep rate within 5 sigma, the mask #2's), #5-bf16 with the mask and
      without, phase 29's gates, the same bits on a second call; timed there
      (events, device time by kernel, plain, cuBLAS bf16 + SDPA bf16 under
-     autograd, the bound at 989 TFLOP/s or the bf16 bytes); 3 + 10 MOD_WIDE
+     autograd, the bound at 989 TFLOP/s or the bf16 bytes); 3 + 5 MOD_WIDE
      pretrain steps at batch 64, bf16 beside f32 from one init (#2-bf16 and
      #3-bf16 4, #4-bf16 and #5-bf16 12 a step: p50, device busy, idle share,
      device operations, peak memory); the rate-0 bf16 step, kernels against
@@ -344,7 +344,7 @@ result line if any fails):
      (loss 1e-4 relative; every entry within 3e-3 of itself + 1e-5 + its
      f32 rounding allowance, from the sums of |terms| of its gradient;
      a planted fault in one model shard's slice of a bias rejected);
-     1 + 4 timed pretrain steps a layout (p50 and peak memory per rank, two
+     1 + 2 timed pretrain steps a layout (p50 and peak memory per rank, two
      ranks sharing one card: not multi-GPU speed), the launches held; one
      more step with its collectives timed apart. Then, with 1 + 2 timed
      steps each (run after phase 36): bf16 SW_Transformer at
@@ -385,6 +385,19 @@ result line if any fails):
      1e-6, blocks of 3 steps from pinned memory on a side stream): launches
      exact and equal, validation points and parameters bit for bit the
      same.
+ 38. sample files: python -m focal_tpu_torch.preprocess.mod and .partition
+     on raw CSVs of two allowlisted MOD recordings (samples of MOD's
+     shapes, their labels, the index files); 2,048 MOD sample files (~133
+     MB) read through the bulk loader (focal_tpu_torch/native, built with
+     g++ here) and one file at a time: the same bits, both rates in MB/s;
+     python -m focal_tpu_torch.train -dataset MOD -dataset_config <a recipe
+     copy naming those files' index files> -gpu 0 -knn_backend jnp
+     -profile_dir, 3 epochs at batch 256, in-process, twice, around the
+     same flags on a synthetic split resident on the card: finite
+     validation points, the launches exact, one trace, of epoch 1, whose
+     window_block.cu kernels are one epoch's #2/#3 exactly; wall and step
+     p50 (CUDA events, the traced epoch left out) beside the synthetic
+     run's, phase 11's wall and phase 7's p50.
 
 Prints a {"kernels": [...]} line (#1-#14, #1-bf16 to #14-bf16, #4-TP/#5-TP,
 #4-TP-bf16/#5-TP-bf16 and the data-parallel rows DP-1-5, DP-6-9, DP-10-12,
@@ -418,9 +431,9 @@ SERVE_BATCH = 128
 SERVE_SAMPLES = 1000
 TRAIN_BATCH = 256         # samples per step; the two views run fused as 512
 TRAIN_WARMUP = 3
-TRAIN_STEPS = 20
+TRAIN_STEPS = 10
 WIDE_BATCH = 64           # MOD_WIDE samples per step; views fused to 128
-WIDE_STEPS = 10
+WIDE_STEPS = 5
 WIDE_SAMPLES = 512        # MOD_WIDE synthetic train split of the entry-point run
 KERNEL_TOL = 1e-4
 GRAD_TOL = 1e-4           # relative: max|kernel - plain| / max|plain|
@@ -589,7 +602,7 @@ def make_inputs(torch, g, gen, dev):
     return x, wqkv, bqkv, wproj, bproj, rel_bias, mask
 
 
-def time_ms(torch, fn, iters=20, warmup=3):
+def time_ms(torch, fn, iters=10, warmup=3):
     for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -687,9 +700,9 @@ def step_totals(geos, tag, names, launches):
 
 
 def time_ms_long(torch, fn):
-    """time_ms over at least PROFILE_TRACE_MS of calls (and at least 20): a
+    """time_ms over at least PROFILE_TRACE_MS of calls (and at least 10): a
     one-off slow launch then moves the mean by little."""
-    return time_ms(torch, fn, iters=max(20, math.ceil(
+    return time_ms(torch, fn, iters=max(10, math.ceil(
         PROFILE_TRACE_MS / time_ms(torch, fn, iters=3, warmup=1))))
 
 
@@ -1143,19 +1156,15 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
         check_counts(f"{tag}: rate-0 step (plain)", plain[2], {k.__name__: 0 for k in kernels})
     del kern, plain
     if rate0_from == "initial+trained":
-        # the trained state, not held: the same comparison, and the plain
-        # step on the card against the plain step on the CPU
+        # the trained state, not held: the same comparison
         kern = rate0_step(trained, False, dev)
         plain = rate0_step(trained, True, dev)
-        host = rate0_step(trained, True, torch.device("cpu"))
-        kp, pc = differ(kern, plain), differ(plain, host)
-        train.update(trained_rate0_kernel_vs_plain=kp, trained_rate0_plain_card_vs_cpu=pc,
-                     trained_rate0_losses=[kern[0], plain[0], host[0]])
+        kp = differ(kern, plain)
+        train.update(trained_rate0_kernel_vs_plain=kp, trained_rate0_losses=[kern[0], plain[0]])
         log(f"[{tag}] rate-0 step from the trained state (not held): loss kernels {kern[0]:.6f}, "
-            f"plain {plain[0]:.6f}, plain on the CPU {host[0]:.6f}; kernels vs plain: loss rel "
-            f"{kp[0]:.2e}, max grad rel {kp[1]:.2e} ({kp[2]}); plain on the card vs on the CPU: "
-            f"loss rel {pc[0]:.2e}, max grad rel {pc[1]:.2e} ({pc[2]})")
-        del kern, plain, host
+            f"plain {plain[0]:.6f}; kernels vs plain: loss rel {kp[0]:.2e}, max grad rel "
+            f"{kp[1]:.2e} ({kp[2]})")
+        del kern, plain
     return train, (state, step, tdata, idx)
 
 
@@ -3558,7 +3567,7 @@ def wide_bf16_paths(torch, np, kernels, gen, dev):
     """Phase 31, MOD_WIDE's SW_Transformer at -compute_dtype bfloat16: #4-bf16
     and #5-bf16 against their bf16 plain versions at every per-head geometry
     of the wide training batch (check_perhead_bf16's gates) and timed there;
-    3 + 10 bf16 and f32 pretrain steps at WIDE_BATCH from one init, beside
+    3 + 5 bf16 and f32 pretrain steps at WIDE_BATCH from one init, beside
     each other (#2-bf16/#3-bf16 4 and #4-bf16/#5-bf16 12 a step); the rate-0
     bf16 step, kernels against the bf16 plain versions (BF16_LOSS_TOL, C11's
     gradient gates, the median's to the plain versions' own floor where
@@ -4692,7 +4701,7 @@ def check_attention(torch, np, pk, geos, gen, dev, a_rate, seed0, at_err):
 
 TP_WAYS = (2, 4)          # model ranks of phase 34's gates (H 4: 2 and 1 heads a shard)
 TP_GATE_WINDOWS = 131     # windows of each gate (not a multiple of nW or of a block's pairs)
-MP_WARMUP, MP_STEPS = 1, 4  # warm-up and timed pretrain steps a layout of phase 35
+MP_WARMUP, MP_STEPS = 1, 2  # warm-up and timed pretrain steps a layout of phase 35
 MP_LR = 0.05              # the rate-0 update's SGD step
 MP_LOSS_RTOL = 1e-4
 MP_PARAM_RTOL, MP_PARAM_ATOL = 3e-3, 1e-5
@@ -6217,6 +6226,279 @@ def accumulation_paths(torch, np, kernels, dev):
     return out
 
 
+# ---------------------------------------------------------------------------
+# sample files (38): MOD's offline preprocessing, the bulk loader, and the
+# training entry point fed from index files
+
+FILES_DATASET = "MOD"
+FILES_SAMPLES = 2048      # sample files at MOD's shapes the loader reads (~133 MB)
+FILES_EPOCHS = 3
+FILES_SEED = 7
+# raw recordings of tests/test_preprocess.py's layout: (run folder, sensor,
+# seconds); both folders on the reference's allowlist, untrimmed
+FILES_RAW = (("Polaris0150pm", "rs1", 5), ("Warhog1135am", "rs1", 5))
+FILES_LABELS = {"Polaris0150pm": 0, "Warhog1135am": 1}
+
+
+def files_preprocess(np, task, root):
+    """python -m focal_tpu_torch.preprocess.mod and .partition, each once, on
+    FILES_RAW's CSVs: every complete 2 s segment a sample file of MOD's
+    shapes with its recording's label, the index files listing each once
+    (train and val/test apart, pretrain the train split)."""
+    from focal_tpu_torch.data import Split
+    from focal_tpu_torch.params import load_dataset_config
+
+    cfg = load_dataset_config("MOD")
+
+    raw, samples, index = (os.path.join(root, d) for d in ("raw", "samples", "index"))
+    for i, (run, shake, seconds) in enumerate(FILES_RAW):
+        rng = np.random.default_rng(i)
+        d = os.path.join(raw, run, shake)
+        os.makedirs(d)
+        np.savetxt(os.path.join(d, "aud16000.csv"), rng.normal(size=16000 * seconds), delimiter=",")
+        np.savetxt(os.path.join(d, "ehz.csv"), rng.normal(size=100 * seconds), delimiter=",")
+    t0 = time.time()
+    for argv in (["focal_tpu_torch.preprocess.mod", "--input", raw, "--output", samples],
+                 ["focal_tpu_torch.preprocess.partition", "--samples", samples, "--output", index]):
+        proc = subprocess.run([sys.executable, "-m", *argv], cwd=HERE, capture_output=True,
+                              text=True, timeout=300)
+        if proc.returncode:
+            raise AssertionError(f"python -m {argv[0]} failed:\n{proc.stdout}{proc.stderr}")
+    seconds = time.time() - t0
+    files = sorted(os.path.join(samples, f) for f in os.listdir(samples))
+    listed = {s: open(os.path.join(index, f"{s}_index.txt")).read().split()
+              for s in ("train", "val", "test", "pretrain")}
+    want = sorted(os.path.join(samples, f"{run}_{shake}_{i}.npz") for run, shake, s in FILES_RAW
+                  for i in range(s // 2))
+    split = Split.from_index_file(os.path.join(index, "pretrain_index.txt"), task)
+    shapes = {m: a.shape[1:] for m, a in split.data["shake"].items()}
+    want_shapes = {m: (cfg["loc_mod_in_time_channels"]["shake"][m], cfg["num_segments"],
+                       cfg["loc_mod_spectrum_len"]["shake"][m])
+                   for m in cfg["loc_modalities"]["shake"]}
+    labels_ok = all(label == FILES_LABELS[name.split("_rs")[0]]
+                    for name, label in zip(split.names, split.labels))
+    out = {"seconds": seconds, "samples": len(files), "index": {k: len(v) for k, v in listed.items()},
+           "shapes": {m: list(s) for m, s in shapes.items()}}
+    log(f"[files-preprocess] {len(FILES_RAW)} raw recordings -> {len(files)} sample files, "
+        f"index files {out['index']} in {seconds:.1f}s (two python -m runs); sample shapes {shapes}")
+    if not (files == want and sorted(listed["train"] + listed["val"]) == want
+            and listed["val"] == listed["test"] and listed["pretrain"] == listed["train"]
+            and shapes == want_shapes and labels_ok):
+        raise AssertionError(f"[files-preprocess] the samples or index files are not as expected: "
+                             f"{files} {listed} {shapes} != {want_shapes}, labels {split.labels}")
+    return out
+
+
+def files_loader(np, cfg, task, root):
+    """FILES_SAMPLES sample files at MOD's shapes (write_synthetic_sample_files)
+    read through the bulk loader, built with g++ here, and one by one: the
+    same bits; each rate in MB/s of the arrays (the files just written: a
+    warm read)."""
+    from focal_tpu_torch import native
+    from focal_tpu_torch.data import _bulk_load, _load_sample_file, write_synthetic_sample_files
+
+    t0 = time.time()
+    index = write_synthetic_sample_files(cfg, task, os.path.join(root, "samples"), FILES_SAMPLES,
+                                         seed=FILES_SEED)
+    write_s = time.time() - t0
+    paths = [p for s in ("train", "val", "test") for p in open(index[s]).read().split()]
+    t0 = time.time()
+    lib = native.build()
+    build_s = time.time() - t0
+    t0 = time.time()
+    samples = [_load_sample_file(p, task) for p in paths]
+    data = {loc: {m: np.stack([d[loc][m] for d, _ in samples]) for m in mods}
+            for loc, mods in samples[0][0].items()}
+    labels = np.asarray([label for _, label in samples], np.int32)
+    file_s = time.time() - t0
+    bulk_s = []
+    for _ in range(2):
+        t0 = time.time()
+        bulk, bulk_labels = _bulk_load(paths, task)
+        bulk_s.append(time.time() - t0)
+    same = (np.array_equal(bulk_labels, labels) and bulk.keys() == data.keys() and all(
+        bulk[loc].keys() == data[loc].keys() and all(
+            bulk[loc][m].dtype == data[loc][m].dtype and np.array_equal(bulk[loc][m], data[loc][m])
+            for m in data[loc]) for loc in data))
+    mb = sum(a.nbytes for mods in data.values() for a in mods.values()) / 1e6
+    out = {"samples": len(paths), "mb": mb, "write_s": write_s, "build_s": build_s,
+           "library": os.path.relpath(lib, HERE), "file_s": file_s, "bulk_s": bulk_s,
+           "file_mb_per_s": mb / file_s, "bulk_mb_per_s": [mb / s for s in bulk_s],
+           "bitwise": same, "index": index}
+    log(f"[files-loader] {len(paths)} MOD sample files ({mb:.1f} MB of arrays) written in "
+        f"{write_s:.1f}s; loader built with g++ in {build_s:.2f}s ({out['library']}); one file at a "
+        f"time {file_s:.3f}s = {mb / file_s:.1f} MB/s, bulk loader {bulk_s[0]:.3f}s = "
+        f"{mb / bulk_s[0]:.1f} MB/s (again {bulk_s[1]:.3f}s = {mb / bulk_s[1]:.1f} MB/s), warm "
+        f"page cache; the same bits: {same}")
+    if not same:
+        raise AssertionError("[files-loader] the bulk loader's arrays differ from the per-file read")
+    return out
+
+
+def trace_window_block_kernels(path):
+    """{kernel: launches} of window_block.cu's kernels among a Chrome
+    trace's device kernels, and the count of all its device kernels."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    device = [e["name"] for e in events if e.get("cat") == "kernel"]
+    got = {}
+    for name in device:
+        if owned_by(WB_LIB, name):
+            got[kernel_name(name)] = got.get(kernel_name(name), 0) + 1
+    return got, len(device)
+
+
+def files_entry_point(torch, np, kernels, dev, cfg, task, index, root):
+    """python -m focal_tpu_torch.train -dataset MOD -dataset_config <a
+    recipe copy naming ``index``> -gpu 0 -knn_backend jnp -profile_dir, in
+    process, FILES_EPOCHS epochs validated after each, at TRAIN_BATCH; then
+    the same flags on a synthetic split of the train split's size resident
+    on the card, then the file-fed run again (the host-bound steps' p50
+    moves between runs, C4). Held, in each file-fed run: finite validation
+    points, the launches of the whole run exact (#2/#3 16 a step, #1 16 an
+    eval forward), one trace, of epoch 1, its window_block.cu kernels one
+    epoch's #2/#3 (their kernels times 16 a step) and no other. Timed:
+    wall, the steps by CUDA events (p50 over the untraced epochs), the
+    three split loads."""
+    import importlib
+
+    import yaml
+
+    from focal_tpu_torch.data import DeviceDataLoader
+    from focal_tpu_torch.params import parse_train_params
+    from focal_tpu_torch.train import loops
+
+    train_cli = importlib.import_module("focal_tpu_torch.train.__main__")
+    recipe = copy.deepcopy(cfg)
+    recipe["pretrain_index_file"] = index["pretrain"]
+    for s in ("train", "val", "test"):
+        recipe[task][f"{s}_index_file"] = index[s]
+    recipe_path = os.path.join(root, f"{FILES_DATASET}_files.yaml")
+    with open(recipe_path, "w") as f:
+        yaml.safe_dump(recipe, f)
+    base = ["-dataset", FILES_DATASET, "-model", "SW_Transformer", "-learn_framework", "FOCAL",
+            "-stage", "pretrain", "-knn_backend", "jnp", "-epochs", str(FILES_EPOCHS),
+            "-val_epochs", "1", "-batch_size", str(TRAIN_BATCH)]
+    base += ["-gpu", "0"] if dev.type == "cuda" else ["-device", "cpu"]
+    file_argv = base + ["-dataset_config", recipe_path]
+    args = parse_train_params(file_argv)
+    splits = {o: loops.load_split(o, args) for o in ("train", "val", "test")}
+    batches = {o: len(DeviceDataLoader(s, TRAIN_BATCH, sequence=True)) for o, s in splits.items()}
+    steps = len(DeviceDataLoader(splits["train"], TRAIN_BATCH, drop_last=True, sequence=True))
+    evals = batches["train"] + 3 * (batches["val"] + batches["test"])
+    per = sum(g["per_forward"] for g in block_geometries(args.dataset_config, 1))
+    names = {k.__name__ for k in kernels}
+    want = {n: {"fused_window_block_dropout": per * steps * FILES_EPOCHS,
+                "fused_window_block_backward": per * steps * FILES_EPOCHS,
+                "fused_window_block": per * evals * FILES_EPOCHS}.get(n, 0) for n in names}
+    trace_want = {k: per * steps * (WB_LAUNCHES["fwd"].get(k, 0) + WB_LAUNCHES["bwd"].get(k, 0))
+                  for k in set(WB_LAUNCHES["fwd"]) | set(WB_LAUNCHES["bwd"])}
+
+    make_step, load = loops.make_pretrain_step, loops.load_split
+    marks, loads = [], []
+
+    def timed_make(*a, **kw):
+        step = make_step(*a, **kw)
+
+        def timed(*sa, **skw):
+            if dev.type == "cuda":
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step(*sa, **skw)
+                end.record()
+            else:
+                start = time.perf_counter()
+                out = step(*sa, **skw)
+                end = time.perf_counter()
+            marks.append((start, end))
+            return out
+
+        return timed
+
+    def timed_load(*a, **kw):
+        t0 = time.time()
+        out = load(*a, **kw)
+        loads.append(time.time() - t0)
+        return out
+
+    runs = {}
+    loops.make_pretrain_step, loops.load_split = timed_make, timed_load
+    try:
+        for name, argv in (("files", file_argv), ("synthetic", base + [
+                "-synthetic", "-synthetic_samples", str(len(splits["train"]))]),
+                           ("files_again", file_argv)):
+            out_dir, trace_dir = os.path.join(root, f"run_{name}"), os.path.join(root, f"trace_{name}")
+            marks.clear()
+            loads.clear()
+            zero_counts(kernels)
+            t0 = time.time()
+            st, _, points = train_cli.main(argv + ["-output_dir", out_dir, "-profile_dir", trace_dir])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            wall = time.time() - t0
+            got = counts(kernels)
+            ms = [s.elapsed_time(e) if dev.type == "cuda" else (e - s) * 1e3 for s, e in marks]
+            untraced = [m for i, m in enumerate(ms) if i // steps != 1]
+            traces = sorted(os.listdir(trace_dir))
+            runs[name] = {"seconds": wall, "steps": st.step, "step_ms": ms,
+                          "p50_ms": statistics.median(untraced), "load_s": list(loads),
+                          "launches": got, "points": points, "traces": traces}
+            if name != "synthetic":
+                check_counts(f"[files-entry] the file-fed entry point ({name})", got, want)
+                if [p["epoch"] for p in points] != list(range(FILES_EPOCHS)) or not all(
+                        math.isfinite(p[k]) for p in points
+                        for k in ("train_loss", "val_loss", "test_loss")):
+                    raise AssertionError(f"[files-entry] validation points {points}")
+                if traces != ["pretrain_epoch1.pt.trace.json"] or st.step != steps * FILES_EPOCHS:
+                    raise AssertionError(f"[files-entry] traces {traces}, steps {st.step}")
+                trace_got, n_device = trace_window_block_kernels(os.path.join(trace_dir, traces[0]))
+                runs[name].update(trace_kernels=trace_got, trace_device_kernels=n_device)
+                if dev.type == "cuda" and trace_got != trace_want:
+                    raise AssertionError(f"[files-entry] the trace's window_block.cu kernels "
+                                         f"{trace_got} != one epoch's #2/#3 {trace_want}")
+            shutil.rmtree(out_dir, ignore_errors=True)
+            shutil.rmtree(trace_dir, ignore_errors=True)
+    finally:
+        loops.make_pretrain_step, loops.load_split = make_step, load
+    f, s, again = runs["files"], runs["synthetic"], runs["files_again"]
+    log(f"[files-entry] {FILES_DATASET} from index files ({len(splits['train'])} train, "
+        f"{len(splits['val'])} val, {len(splits['test'])} test samples), -gpu 0 -knn_backend jnp "
+        f"-profile_dir, {FILES_EPOCHS} epochs of {steps} steps at batch {TRAIN_BATCH}: launches "
+        f"{ {k: v for k, v in f['launches'].items() if v} } (exact); trace of epoch 1: "
+        f"{f['trace_device_kernels']} device kernels, window_block.cu's {f['trace_kernels']} "
+        f"= {per} x {steps} steps of #2/#3; points " + "; ".join(
+            f"epoch {p['epoch']} train {p['train_loss']:.4f} val {p['val_loss']:.4f} test "
+            f"{p['test_loss']:.4f}" for p in f["points"]))
+    log(f"[files-entry] wall {f['seconds']:.2f}s (split loads {sum(f['load_s']):.2f}s), step p50 "
+        f"{f['p50_ms']:.3f} ms from files; wall {s['seconds']:.2f}s (split loads "
+        f"{sum(s['load_s']):.2f}s), step p50 {s['p50_ms']:.3f} ms synthetic-resident (the same "
+        f"flags, -synthetic -synthetic_samples {len(splits['train'])}: val and test "
+        f"{len(splits['train']) // 4} each); from files again: wall {again['seconds']:.2f}s (split "
+        f"loads {sum(again['load_s']):.2f}s), step p50 {again['p50_ms']:.3f} ms; trace of epoch 1 "
+        f"again: window_block.cu's {again['trace_kernels']}")
+    return {"recipe": os.path.relpath(recipe_path, HERE), "per_forward": per, "steps": steps,
+            "evals": evals, "runs": {n: {k: v for k, v in r.items() if k != "step_ms"}
+                                     for n, r in runs.items()}}
+
+
+def files_paths(torch, np, kernels, dev):
+    """Phase 38: the preprocessing CLIs on raw CSVs, the bulk loader against
+    the per-file read, the entry point fed from index files, traced."""
+    from focal_tpu_torch.params import load_dataset_config
+
+    t0 = time.time()
+    root = os.path.join(HERE, "build", "chip_smoke_files")
+    shutil.rmtree(root, ignore_errors=True)
+    cfg, task = load_dataset_config(FILES_DATASET), "vehicle_classification"
+    out = {"preprocess": files_preprocess(np, task, os.path.join(root, "pre")),
+           "loader": files_loader(np, cfg, task, root)}
+    out["entry"] = files_entry_point(torch, np, kernels, dev, cfg, task, out["loader"].pop("index"),
+                                     root)
+    shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.time() - t0
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default=None, help="directory for the per-geometry JSON")
@@ -6477,7 +6759,7 @@ def main():
     # for the loss and the features
     evals_per_point = plan_batches["train"] + 3 * (plan_batches["val"] + plan_batches["test"])
     cli_runs = []
-    for extra, points_want in ((["-epochs", "2"], [0, 1]), (["-epochs", "3", "-resume"], [2])):
+    for extra, points_want in ((["-epochs", "1"], [0]), (["-epochs", "2", "-resume"], [1])):
         zero_counts(all_kernels)
         t0 = time.time()
         st, best, points = train_cli.main(argv + extra)
@@ -6580,7 +6862,7 @@ def main():
 
     # ---- 15. DeepSense pretrain steps: the default path (cuDNN convs, no
     # kernel) and -pallas_conv (#13/#14), in one call: MOD at batch 256 (3 +
-    # 20 steps), then MOD_WIDE at batch 128 (3 + 10), where the towers weigh
+    # 10 steps), then MOD_WIDE at batch 128 (3 + 5), where the towers weigh
     mod_geos = [g for g in cgeos if g["name"].startswith("MOD ")]
     ds_per_step = tower_launches(mod_geos)
     ds_wide_per_step = tower_launches([g for g in cgeos if g["name"].startswith("MOD_WIDE ")])
@@ -7319,6 +7601,20 @@ def main():
     log(f"[smoke] phase 37 in {accum['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
         "build started")
 
+    # ---- 38. sample files: the preprocessing CLIs on raw CSVs, the bulk
+    # loader against the per-file read, the entry point fed from index files
+    # (-dataset_config -gpu 0 -knn_backend jnp -profile_dir), traced
+    files = files_paths(torch, np, all_kernels, dev)
+    f_entry = files["entry"]["runs"]
+    log(f"[files] entry point from files: wall {f_entry['files']['seconds']:.2f}s, step p50 "
+        f"{f_entry['files']['p50_ms']:.3f} ms (again: {f_entry['files_again']['seconds']:.2f}s, "
+        f"{f_entry['files_again']['p50_ms']:.3f} ms); synthetic-resident, the same flags: wall "
+        f"{f_entry['synthetic']['seconds']:.2f}s, step p50 {f_entry['synthetic']['p50_ms']:.3f} ms; "
+        f"phase 11's synthetic-resident MOD_WIDE entry point (1 epoch): wall "
+        f"{cli_runs[0]['seconds']:.2f}s; phase 7's MOD step p50 {p50_ms:.3f} ms")
+    log(f"[smoke] phase 38 in {files['seconds']:.1f}s; {time.time() - t_start:.1f}s after the "
+        "build started")
+
     if cli.out:
         os.makedirs(cli.out, exist_ok=True)
         with open(os.path.join(cli.out, "chip_smoke.json"), "w") as f:
@@ -7356,7 +7652,7 @@ def main():
                 "bf16": bf16, "deepsense_bf16": ds_bf16, "wide_bf16": wide_bf16,
                 "mlp_bf16": mlp_bf16, "attention_bf16": attn_bf16, "tp_kernels": tpk,
                 "dp_forms": dp_forms, "multi_process": multi, "tp_bf16_kernels": tpb,
-                "dp_towers": dpt, "accumulation": accum,
+                "dp_towers": dpt, "accumulation": accum, "files": files,
             }, f, indent=1, default=str)
 
     def entry(name, replaces, launches_, err, ms, plain, bnd, flops_bytes, lib, per,

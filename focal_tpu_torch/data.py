@@ -22,6 +22,8 @@ import re
 import numpy as np
 import torch
 
+from focal_tpu_torch import native
+
 TASK_LABEL_KEYS = {
     "vehicle_classification": "vehicle_type",
     "distance_classification": "distance",
@@ -144,8 +146,6 @@ def _bulk_load(files, task):
     read are read with numpy, and logged."""
     if not all(f.endswith(".npz") for f in files):
         return None
-    from focal_tpu_torch import native
-
     with np.load(files[0]) as z:
         data_keys = {k: z[k].shape for k in z.files if k.startswith("data.")}
         label_keys = [k for k in z.files if k == "label" or k.startswith("label.")]
