@@ -876,13 +876,15 @@ def mlp_launches(chunks, d, bf16_C=None):
             "wgrad_gemm_kernel": chunks, "reduce_partials_kernel": 1}
 
 
-def kernel_phase_split(torch, fn, launches, lib=WB_LIB, reps=PROFILE_REPS):
+def kernel_phase_split(torch, fn, launches, lib=WB_LIB, reps=PROFILE_REPS, attempts=3):
     """``reps`` calls of fn under torch.profiler; each kernel's device
     time per call (its mean per launch times ``launches[name]``: a short
     trace may lose a few records) and those times by ``lib``'s phases.
     Raises if a device kernel (or copy) ran that is not one of ``lib``'s
     (no cuBLAS or library kernel may run under the kernels' wrappers), or
-    not one of ``launches``, or if one of ``launches`` left no record."""
+    not one of ``launches``, or if one of ``launches`` left no record in
+    ``attempts`` traces (a trace that lost records, as device_ms_per_call's
+    can, is taken again)."""
     def calls():
         # pauses around the calls: in a process that had traced before, a
         # trace of one call (a few milliseconds) lost some or all records
@@ -892,20 +894,27 @@ def kernel_phase_split(torch, fn, launches, lib=WB_LIB, reps=PROFILE_REPS):
         torch.cuda.synchronize()
         time.sleep(0.05)
 
-    prof = profile_device(torch, calls)
-    kernels = {}
-    for r in prof["rows"]:
-        name = kernel_name(r["name"])
-        if not owned_by(lib, r["name"]):
-            raise AssertionError(f"a device kernel outside csrc/{lib['source']} ran: {r['name']}")
-        if name not in launches:
-            raise AssertionError(f"{name} ran; expected only {sorted(launches)}")
-        k = kernels.setdefault(name, {"device_ms": 0.0, "count": 0})
-        k["device_ms"] += r["device_ms"]
-        k["count"] += r["count"]
-    missing = set(launches) - set(kernels)
-    if missing:
-        raise AssertionError(f"the profile holds no record of {sorted(missing)}")
+    for attempt in range(attempts):
+        prof = profile_device(torch, calls)
+        kernels = {}
+        for r in prof["rows"]:
+            name = kernel_name(r["name"])
+            if not owned_by(lib, r["name"]):
+                raise AssertionError(f"a device kernel outside csrc/{lib['source']} ran: "
+                                     f"{r['name']}")
+            if name not in launches:
+                raise AssertionError(f"{name} ran; expected only {sorted(launches)}")
+            k = kernels.setdefault(name, {"device_ms": 0.0, "count": 0})
+            k["device_ms"] += r["device_ms"]
+            k["count"] += r["count"]
+        missing = set(launches) - set(kernels)
+        if not missing:
+            break
+        log(f"[profile] trace {attempt + 1} of {attempts} holds no record of {sorted(missing)} "
+            f"({len(prof['rows'])} device rows); taken again")
+    else:
+        raise AssertionError(f"the profile holds no record of {sorted(missing)} in {attempts} "
+                             "traces")
     phases = {}
     for name, k in kernels.items():
         k["ms_per_call"] = k["device_ms"] / k["count"] * launches[name]
