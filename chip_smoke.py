@@ -64,13 +64,13 @@ result line if any fails):
      gradients with #4's mask and without (1e-4 relative) and the same bits
      on a second call;
  11. the training entry point: python -m focal_tpu_torch.train at MOD_WIDE
-     (512 synthetic samples, batch 64, 1 epoch, validation every epoch)
+     (256 synthetic samples, batch 64, 1 epoch, validation every epoch)
      run in-process, then -resume to epoch 2: finite losses, a validation
      point before the resume and one after, the _latest/_best/_resume files; per
      step #2 and #3 launched 4 times (stage 0) and #4 and #5 12 times, per
      eval forward #1 4 times and #4 12 times, nothing else;
  12. MOD_WIDE pretrain steps timed as phase 7 times MOD's (batch 64, 3
-     warm-up + 5 timed; #2/#3 4 per step, #4/#5 12 per step), the rate-0
+     warm-up + 3 timed; #2/#3 4 per step, #4/#5 12 per step), the rate-0
      kernels-vs-plain step held to phase 7's tolerances from the initial
      state (and from the trained state, reported but not held: AdamW at lr
      1e-3 grows the 184M-parameter model's attention logits, so any f32
@@ -92,8 +92,8 @@ result line if any fails):
      (absolutely to 1e-2 where both are below 1e-2: conv biases before a
      BatchNorm), the same bits on a second call;
  15. DeepSense pretrain steps (flax-style init, synthetic data resident on
-     the card), MOD_WIDE at batch 128 (views fused to 256; 3 warm-up + 5
-     timed) and MOD at batch 256 (3 + 10), on the default path (cuDNN
+     the card), MOD_WIDE at batch 128 (views fused to 256; 3 warm-up + 3
+     timed) and MOD at batch 256 (3 + 5), on the default path (cuDNN
      convs, no kernel launched) and with -pallas_conv (#13 11 and #14 20
      launches a step at either): p50, samples/s, peak memory and a
      profiled step's idle share, device busy time and #13/#14's share of
@@ -123,14 +123,14 @@ result line if any fails):
      masks and without <= 1e-4 relative; each mask's keep rate within 5
      sigma of 0.8; the same bits on a second call;
  19. MOD supervised steps at batch 128 (fixed pool: mixup, phase_shift):
-     3 warm-up + 10 timed on the default path (#2/#3 16 a step, no MLP
+     3 warm-up + 5 timed on the default path (#2/#3 16 a step, no MLP
      kernel) and with -pallas_mlp (#2, #3, #11, #12 16 each), p50,
      samples/s, peak memory, a profiled step's idle share, top device
      kernels and #10-#12's device time by phase; the -pallas_mlp step
      beside the one with the CUDA-core #10-#12 (PARENT_STEPS); a rate-0
      step from the initial state, kernels (#1, #3, #10, #12 16 each) vs
      plain: loss 1e-5 relative, gradients 1e-4;
- 20. the entry points in-process at MOD with -pallas_mlp and -synthetic (512
+ 20. the entry points in-process at MOD with -pallas_mlp and -synthetic (256
      samples): supervised 2 epochs, -resume to 3, focal_tpu_torch.test on
      its _best; FOCAL pretrain 1 epoch, finetune 2 epochs, -resume to 3,
      test: the launches per step (finetune: #2 and #11 only, the backbone
@@ -157,13 +157,13 @@ result line if any fails):
      sides are below it) and the same bits on a second call; #7's keep rate
      within 5 sigma of 0.8 and its mask equal to #2's (#4's where #2 does
      not launch) bit for bit at the same seed and geometry;
- 23. MOD pretrain steps with -no_pallas_block at batch 256: 3 warm-up + 10
+ 23. MOD pretrain steps with -no_pallas_block at batch 256: 3 warm-up + 5
      timed (#7 and #9 16 a step, nothing of #1-#5), p50, samples/s, peak
      memory, a profiled step's idle share and top device kernels; a rate-0
      step from the initial state, kernels (#6 and #8 16 each) vs plain:
      loss <= 1e-5 relative, gradients <= 1e-4;
  24. the entry points in-process at MOD with -no_pallas_block -synthetic
-     (512 samples): supervised 1 epoch, -resume to 2, test on its _best;
+     (256 samples): supervised 1 epoch, -resume to 2, test on its _best;
      FOCAL pretrain 1 epoch, finetune 1 epoch (#7 only: the backbone is
      frozen), test on its _best: launches per step and per eval forward (#6
      16) held exactly; then Predictor(pallas_block=False) over ~1,000
@@ -211,7 +211,7 @@ result line if any fails):
      there as phases 8 and 17 do; the tail step at rate 0
      from the initial state, kernels vs plain, for SW_Transformer (#1/#3;
      phase 26's gates) and DeepSense -pallas_conv (#13/#14; phase 15's,
-     running statistics included); 3 + 10 full and tail steps of each
+     running statistics included); 3 + 5 full and tail steps of each
      timed from one state (launches held a step); python -m
      focal_tpu_torch.train -ragged_tail for 2 epochs of SW_Transformer (with
      -py_aug_draws -ref_lr_timing: #2/#3 16 x 3 x 2, #1 16 an eval forward;
@@ -240,7 +240,7 @@ result line if any fails):
      bf16 batch of 128 (#1-bf16 16) against the bf16 plain block (1e-2); a
      rate-0 pretrain step at 256 from one state, bf16 kernels against f32
      (loss 1e-2 relative) and against the bf16 plain versions (loss 1e-2),
-     gradients f32; 3 + 10 bf16 and f32 MOD pretrain steps from one init
+     gradients f32; 3 + 5 bf16 and f32 MOD pretrain steps from one init
      beside each other (p50, samples/s, peak memory, idle share, device
      time by window_block.cu phase, top kernels); the rate-0 step's
      gradients held to the CPU step test's gates (C11: each tensor's cosine
@@ -266,7 +266,7 @@ result line if any fails):
      against their bf16 plain versions (loss 1e-2, C11's gradient gates),
      the cuDNN route's bf16 step against its f32 step (loss 1e-2); python -m
      focal_tpu_torch.train -pallas_conv -compute_dtype bfloat16 for 1 epoch
-     with its launches held; 3 + 10 MOD pretrain steps at 256 of both
+     with its launches held; 3 + 5 MOD pretrain steps at 256 of both
      routes, bf16 beside f32 from one init (p50, device busy, idle share,
      device operations, peak memory);
  31. MOD_WIDE at -compute_dtype bfloat16: #4-bf16 and #5-bf16
@@ -277,7 +277,7 @@ result line if any fails):
      its keep rate within 5 sigma, the mask #2's), #5-bf16 with the mask and
      without, phase 29's gates, the same bits on a second call; timed there
      (events, device time by kernel, plain, cuBLAS bf16 + SDPA bf16 under
-     autograd, the bound at 989 TFLOP/s or the bf16 bytes); 3 + 5 MOD_WIDE
+     autograd, the bound at 989 TFLOP/s or the bf16 bytes); 3 + 3 MOD_WIDE
      pretrain steps at batch 64, bf16 beside f32 from one init (#2-bf16 and
      #3-bf16 4, #4-bf16 and #5-bf16 12 a step: p50, device busy, idle share,
      device operations, peak memory); the rate-0 bf16 step, kernels against
@@ -294,7 +294,7 @@ result line if any fails):
      128): y within 8e-3 of max|y|, #11-bf16 fed #11's masks (keep rates
      within 5 sigma), #12-bf16 with them and without, gradients 1e-2
      relative, the same bits on a second call; timed there (the library
-     bf16 addmm -> GELU -> addmm); 3 + 10 MOD bf16 supervised steps at 128
+     bf16 addmm -> GELU -> addmm); 3 + 5 MOD bf16 supervised steps at 128
      on the cuBLAS-MLP route and with -pallas_mlp from one init (#11-bf16
      and #12-bf16 16 a step); the rate-0 -pallas_mlp bf16 step, kernels
      against the bf16 plain versions (loss 1e-2, C11's gates); the
@@ -312,7 +312,7 @@ result line if any fails):
      mask bit for bit), #8-bf16/#9-bf16 every gradient within 1e-2
      relative, the same bits on a second call; timed there (events, device
      time, plain, SDPA in bf16 with a bf16 attn_mask under autograd, the
-     bound at the f32 peak or the bf16 bytes); 3 + 10 MOD -no_pallas_block
+     bound at the f32 peak or the bf16 bytes); 3 + 5 MOD -no_pallas_block
      pretrain steps at 256, bf16 beside f32 from one init (#7-bf16/#9-bf16
      16 a step, no whole-block kernel; p50, device busy, idle share, device
      operations, peak); the rate-0 bf16 step, kernels (#6-bf16/#8-bf16 16
@@ -344,9 +344,9 @@ result line if any fails):
      (loss 1e-4 relative; every entry within 3e-3 of itself + 1e-5 + its
      f32 rounding allowance, from the sums of |terms| of its gradient;
      a planted fault in one model shard's slice of a bias rejected);
-     1 + 2 timed pretrain steps a layout (p50 and peak memory per rank, two
+     1 + 1 timed pretrain steps a layout (p50 and peak memory per rank, two
      ranks sharing one card: not multi-GPU speed), the launches held; one
-     more step with its collectives timed apart. Then, with 1 + 2 timed
+     more step with its collectives timed apart. Then, with 1 + 1 timed
      steps each (run after phase 36): bf16 SW_Transformer at
      -model_parallel 2 (#4-TP-bf16/#5-TP-bf16; its finetune, supervised
      stage and test CLI after the pretraining, each holding its launches), DeepSense
@@ -392,8 +392,8 @@ result line if any fails):
      g++ here) and one file at a time: the same bits, both rates in MB/s;
      python -m focal_tpu_torch.train -dataset MOD -dataset_config <a recipe
      copy naming those files' index files> -gpu 0 -knn_backend jnp
-     -profile_dir, 3 epochs at batch 256, in-process, twice, around the
-     same flags on a synthetic split resident on the card: finite
+     -profile_dir, 3 epochs at batch 256, in-process, then the same flags
+     on a synthetic split resident on the card: finite
      validation points, the launches exact, one trace, of epoch 1, whose
      window_block.cu kernels are one epoch's #2/#3 exactly; wall and step
      p50 (CUDA events, the traced epoch left out) beside the synthetic
@@ -431,10 +431,10 @@ SERVE_BATCH = 128
 SERVE_SAMPLES = 1000
 TRAIN_BATCH = 256         # samples per step; the two views run fused as 512
 TRAIN_WARMUP = 3
-TRAIN_STEPS = 10
+TRAIN_STEPS = 5
 WIDE_BATCH = 64           # MOD_WIDE samples per step; views fused to 128
-WIDE_STEPS = 5
-WIDE_SAMPLES = 512        # MOD_WIDE synthetic train split of the entry-point run
+WIDE_STEPS = 3
+WIDE_SAMPLES = 256        # MOD_WIDE synthetic train split of the entry-point run
 KERNEL_TOL = 1e-4
 GRAD_TOL = 1e-4           # relative: max|kernel - plain| / max|plain|
 SLICE_TOL = 1e-5
@@ -1182,7 +1182,7 @@ def run_train_steps(torch, np, targs, batch, warmup, steps, kernels, per_step, d
 
 DS_BATCH = 256            # DeepSense MOD samples per step; views fused to 512
 DS_WIDE_BATCH = 128       # DeepSense MOD_WIDE samples per step; views fused to 256
-DS_SAMPLES = 512          # MOD synthetic train split of the DeepSense entry-point run
+DS_SAMPLES = 256          # MOD synthetic train split of the DeepSense entry-point run
 TOWER_TOL = 1e-5          # relative: output, batch means and variances
 # a gradient below NEAR_ZERO on both sides is compared absolutely, to
 # NEAR_ZERO, as the JAX package's own test holds its kernels: a conv bias
@@ -1529,7 +1529,7 @@ def deepsense_rate0_step(torch, targs, weights, dev, plain):
 # the fused MLP (#10, #11, #12) and the classifier stages
 
 SUP_BATCH = 128           # supervised and finetune samples per step (no views to fuse)
-SUP_SAMPLES = 512         # MOD synthetic train split of the classifier entry-point runs
+SUP_SAMPLES = 256         # MOD synthetic train split of the classifier entry-point runs
 # operations a hidden element besides the two products: forward the bias,
 # the exact GELU (~20) and the mask; backward the GELU again and its
 # derivative (~35), the masks, dz and the bias sums
@@ -2203,7 +2203,7 @@ def two_location_paths(torch, np, kernels, gen, dev):
 # the attribution arms, the sweep and the reference format (28)
 
 TAIL_UNITS = 3            # subsequences phase 28's split leaves after its full steps
-TAIL_REPS = 10            # timed full and tail steps
+TAIL_REPS = 5             # timed full and tail steps
 
 
 def stage_plan(argv):
@@ -3510,7 +3510,7 @@ WIDE_BF16_SAMPLES = 256  # MOD_WIDE synthetic train split of phase 31's entry-po
 # (f32 sums against float64 sums, measured in the same run) is higher, to
 # this multiple of it (on the H100 the floor read 6.39e-2, the kernels 6.58e-2)
 BF16_FLOOR_MARGIN = 1.25
-MLP_BF16_STEPS = 10      # timed supervised steps of each route in phase 32
+MLP_BF16_STEPS = 5       # timed supervised steps of each route in phase 32
 
 
 def check_perhead_bf16(torch, pk, geos, gen, dev, rate):
@@ -3576,7 +3576,7 @@ def wide_bf16_paths(torch, np, kernels, gen, dev):
     """Phase 31, MOD_WIDE's SW_Transformer at -compute_dtype bfloat16: #4-bf16
     and #5-bf16 against their bf16 plain versions at every per-head geometry
     of the wide training batch (check_perhead_bf16's gates) and timed there;
-    3 + 5 bf16 and f32 pretrain steps at WIDE_BATCH from one init, beside
+    3 + 3 bf16 and f32 pretrain steps at WIDE_BATCH from one init, beside
     each other (#2-bf16/#3-bf16 4 and #4-bf16/#5-bf16 12 a step); the rate-0
     bf16 step, kernels against the bf16 plain versions (BF16_LOSS_TOL, C11's
     gradient gates, the median's to the plain versions' own floor where
@@ -4043,7 +4043,7 @@ def mlp_bf16_paths(torch, np, kernels, dev):
 # ---------------------------------------------------------------------------
 # -no_pallas_block at -compute_dtype bfloat16 (33): #6-bf16 to #9-bf16
 
-ATTN_BF16_STEPS = 10      # timed bf16 and f32 -no_pallas_block pretrain steps in phase 33
+ATTN_BF16_STEPS = 5       # timed bf16 and f32 -no_pallas_block pretrain steps in phase 33
 C12_WIDTH = (12, 2)       # (C, heads) of phase 33's bf16 WindowAttention that no kernel takes
 
 
@@ -4710,7 +4710,7 @@ def check_attention(torch, np, pk, geos, gen, dev, a_rate, seed0, at_err):
 
 TP_WAYS = (2, 4)          # model ranks of phase 34's gates (H 4: 2 and 1 heads a shard)
 TP_GATE_WINDOWS = 131     # windows of each gate (not a multiple of nW or of a block's pairs)
-MP_WARMUP, MP_STEPS = 1, 2  # warm-up and timed pretrain steps a layout of phase 35
+MP_WARMUP, MP_STEPS = 1, 1  # warm-up and timed pretrain steps a layout of phase 35
 MP_LR = 0.05              # the rate-0 update's SGD step
 MP_LOSS_RTOL = 1e-4
 MP_PARAM_RTOL, MP_PARAM_ATOL = 3e-3, 1e-5
@@ -4748,7 +4748,7 @@ MP_LAYOUTS = {"dp2": (["-data_parallel", "2"], []), "mp2": (["-model_parallel", 
 # the layouts that run their entry point alone (the sharded step's equality
 # with one process on the same global batch is a CPU test's)
 MP_ENTRY_ONLY = ("dp2_sharded",)
-MP_NEW_STEPS = 2
+MP_NEW_STEPS = 1
 # the entry points a layout runs after its pretraining, in its output folder:
 # (name, module, flags); the kernels each must launch (the bf16 TP layout's
 # finetune trains the class head alone: no backward through the blocks)
@@ -6362,10 +6362,9 @@ def files_entry_point(torch, np, kernels, dev, cfg, task, index, root):
     recipe copy naming ``index``> -gpu 0 -knn_backend jnp -profile_dir, in
     process, FILES_EPOCHS epochs validated after each, at TRAIN_BATCH; then
     the same flags on a synthetic split of the train split's size resident
-    on the card, then the file-fed run again (the host-bound steps' p50
-    moves between runs, C4). Held, in each file-fed run: finite validation
-    points, the launches of the whole run exact (#2/#3 16 a step, #1 16 an
-    eval forward), one trace, of epoch 1, its window_block.cu kernels one
+    on the card. Held in the file-fed run: finite validation points, the
+    launches of the whole run exact (#2/#3 16 a step, #1 16 an eval
+    forward), one trace, of epoch 1, its window_block.cu kernels one
     epoch's #2/#3 (their kernels times 16 a step) and no other. Timed:
     wall, the steps by CUDA events (p50 over the untraced epochs), the
     three split loads."""
@@ -6434,8 +6433,7 @@ def files_entry_point(torch, np, kernels, dev, cfg, task, index, root):
     loops.make_pretrain_step, loops.load_split = timed_make, timed_load
     try:
         for name, argv in (("files", file_argv), ("synthetic", base + [
-                "-synthetic", "-synthetic_samples", str(len(splits["train"]))]),
-                           ("files_again", file_argv)):
+                "-synthetic", "-synthetic_samples", str(len(splits["train"]))])):
             out_dir, trace_dir = os.path.join(root, f"run_{name}"), os.path.join(root, f"trace_{name}")
             marks.clear()
             loads.clear()
@@ -6452,8 +6450,8 @@ def files_entry_point(torch, np, kernels, dev, cfg, task, index, root):
             runs[name] = {"seconds": wall, "steps": st.step, "step_ms": ms,
                           "p50_ms": statistics.median(untraced), "load_s": list(loads),
                           "launches": got, "points": points, "traces": traces}
-            if name != "synthetic":
-                check_counts(f"[files-entry] the file-fed entry point ({name})", got, want)
+            if name == "files":
+                check_counts("[files-entry] the file-fed entry point", got, want)
                 if [p["epoch"] for p in points] != list(range(FILES_EPOCHS)) or not all(
                         math.isfinite(p[k]) for p in points
                         for k in ("train_loss", "val_loss", "test_loss")):
@@ -6469,7 +6467,7 @@ def files_entry_point(torch, np, kernels, dev, cfg, task, index, root):
             shutil.rmtree(trace_dir, ignore_errors=True)
     finally:
         loops.make_pretrain_step, loops.load_split = make_step, load
-    f, s, again = runs["files"], runs["synthetic"], runs["files_again"]
+    f, s = runs["files"], runs["synthetic"]
     log(f"[files-entry] {FILES_DATASET} from index files ({len(splits['train'])} train, "
         f"{len(splits['val'])} val, {len(splits['test'])} test samples), -gpu 0 -knn_backend jnp "
         f"-profile_dir, {FILES_EPOCHS} epochs of {steps} steps at batch {TRAIN_BATCH}: launches "
@@ -6482,9 +6480,7 @@ def files_entry_point(torch, np, kernels, dev, cfg, task, index, root):
         f"{f['p50_ms']:.3f} ms from files; wall {s['seconds']:.2f}s (split loads "
         f"{sum(s['load_s']):.2f}s), step p50 {s['p50_ms']:.3f} ms synthetic-resident (the same "
         f"flags, -synthetic -synthetic_samples {len(splits['train'])}: val and test "
-        f"{len(splits['train']) // 4} each); from files again: wall {again['seconds']:.2f}s (split "
-        f"loads {sum(again['load_s']):.2f}s), step p50 {again['p50_ms']:.3f} ms; trace of epoch 1 "
-        f"again: window_block.cu's {again['trace_kernels']}")
+        f"{len(splits['train']) // 4} each)")
     return {"recipe": os.path.relpath(recipe_path, HERE), "per_forward": per, "steps": steps,
             "evals": evals, "runs": {n: {k: v for k, v in r.items() if k != "step_ms"}
                                      for n, r in runs.items()}}
@@ -7616,8 +7612,7 @@ def main():
     files = files_paths(torch, np, all_kernels, dev)
     f_entry = files["entry"]["runs"]
     log(f"[files] entry point from files: wall {f_entry['files']['seconds']:.2f}s, step p50 "
-        f"{f_entry['files']['p50_ms']:.3f} ms (again: {f_entry['files_again']['seconds']:.2f}s, "
-        f"{f_entry['files_again']['p50_ms']:.3f} ms); synthetic-resident, the same flags: wall "
+        f"{f_entry['files']['p50_ms']:.3f} ms; synthetic-resident, the same flags: wall "
         f"{f_entry['synthetic']['seconds']:.2f}s, step p50 {f_entry['synthetic']['p50_ms']:.3f} ms; "
         f"phase 11's synthetic-resident MOD_WIDE entry point (1 epoch): wall "
         f"{cli_runs[0]['seconds']:.2f}s; phase 7's MOD step p50 {p50_ms:.3f} ms")
