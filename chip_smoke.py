@@ -6298,12 +6298,11 @@ def files_preprocess(np, task, root):
     return out
 
 
-def files_loader(np, cfg, task, root):
+def files_loader(np, cfg, task, root, build):
     """FILES_SAMPLES sample files at MOD's shapes (write_synthetic_sample_files)
-    read through the bulk loader, built with g++ here, and one by one: the
-    same bits; each rate in MB/s of the arrays (the files just written: a
-    warm read)."""
-    from focal_tpu_torch import native
+    read through the bulk loader (``build``: its g++ build, files_paths')
+    and one by one: the same bits; each rate in MB/s of the arrays (the
+    files just written: a warm read)."""
     from focal_tpu_torch.data import _bulk_load, _load_sample_file, write_synthetic_sample_files
 
     t0 = time.time()
@@ -6311,9 +6310,6 @@ def files_loader(np, cfg, task, root):
                                          seed=FILES_SEED)
     write_s = time.time() - t0
     paths = [p for s in ("train", "val", "test") for p in open(index[s]).read().split()]
-    t0 = time.time()
-    lib = native.build()
-    build_s = time.time() - t0
     t0 = time.time()
     samples = [_load_sample_file(p, task) for p in paths]
     data = {loc: {m: np.stack([d[loc][m] for d, _ in samples]) for m in mods}
@@ -6330,12 +6326,12 @@ def files_loader(np, cfg, task, root):
             bulk[loc][m].dtype == data[loc][m].dtype and np.array_equal(bulk[loc][m], data[loc][m])
             for m in data[loc]) for loc in data))
     mb = sum(a.nbytes for mods in data.values() for a in mods.values()) / 1e6
-    out = {"samples": len(paths), "mb": mb, "write_s": write_s, "build_s": build_s,
-           "library": os.path.relpath(lib, HERE), "file_s": file_s, "bulk_s": bulk_s,
+    out = {"samples": len(paths), "mb": mb, "write_s": write_s, **build, "file_s": file_s,
+           "bulk_s": bulk_s,
            "file_mb_per_s": mb / file_s, "bulk_mb_per_s": [mb / s for s in bulk_s],
            "bitwise": same, "index": index}
     log(f"[files-loader] {len(paths)} MOD sample files ({mb:.1f} MB of arrays) written in "
-        f"{write_s:.1f}s; loader built with g++ in {build_s:.2f}s ({out['library']}); one file at a "
+        f"{write_s:.1f}s; loader {build['how']} ({build['library']}); one file at a "
         f"time {file_s:.3f}s = {mb / file_s:.1f} MB/s, bulk loader {bulk_s[0]:.3f}s = "
         f"{mb / bulk_s[0]:.1f} MB/s (again {bulk_s[1]:.3f}s = {mb / bulk_s[1]:.1f} MB/s), warm "
         f"page cache; the same bits: {same}")
@@ -6491,12 +6487,19 @@ def files_paths(torch, np, kernels, dev):
     the per-file read, the entry point fed from index files, traced."""
     from focal_tpu_torch.params import load_dataset_config
 
+    from focal_tpu_torch import native
+
     t0 = time.time()
     root = os.path.join(HERE, "build", "chip_smoke_files")
     shutil.rmtree(root, ignore_errors=True)
     cfg, task = load_dataset_config(FILES_DATASET), "vehicle_classification"
+    t_build, fresh = time.time(), not os.path.isfile(native.library_path())
+    lib = native.build()  # g++ on this host, into build/ (a checkout has none built)
+    build_s = time.time() - t_build
+    build = {"library": os.path.relpath(lib, HERE), "build_s": build_s,
+             "how": f"built with g++ in {build_s:.2f}s" if fresh else "already built"}
     out = {"preprocess": files_preprocess(np, task, os.path.join(root, "pre")),
-           "loader": files_loader(np, cfg, task, root)}
+           "loader": files_loader(np, cfg, task, root, build)}
     out["entry"] = files_entry_point(torch, np, kernels, dev, cfg, task, out["loader"].pop("index"),
                                      root)
     shutil.rmtree(root, ignore_errors=True)
