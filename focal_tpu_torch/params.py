@@ -101,8 +101,8 @@ def select_device(device="cuda"):
             "pass device='cpu' (-device cpu) to run on the CPU"
         )
     if dev.type == "cuda" and dev.index is not None and dev.index >= torch.cuda.device_count():
-        raise RuntimeError(f"device {dev} requested but this machine has "
-                           f"{torch.cuda.device_count()} CUDA device(s)")
+        raise RuntimeError(f"device {dev} requested but only {torch.cuda.device_count()} "
+                           "CUDA device(s) are visible")
     return dev
 
 
