@@ -312,7 +312,8 @@ result line if any fails):
      mask bit for bit), #8-bf16/#9-bf16 every gradient within 1e-2
      relative, the same bits on a second call; timed there (events, device
      time, plain, SDPA in bf16 with a bf16 attn_mask under autograd, the
-     bound at the f32 peak or the bf16 bytes); 3 + 5 MOD -no_pallas_block
+     bound: the products at the bf16 peak, the rest at the f32 one, or the
+     bf16 bytes); 3 + 5 MOD -no_pallas_block
      pretrain steps at 256, bf16 beside f32 from one init (#7-bf16/#9-bf16
      16 a step, no whole-block kernel; p50, device busy, idle share, device
      operations, peak); the rate-0 bf16 step, kernels (#6-bf16/#8-bf16 16
@@ -837,6 +838,9 @@ MLP_LIB = {"source": "fused_mlp.cu", "tag": "FusedMlpSrc",
                               "mlp_wg_g2_kernel": "masked gradient",
                               "wg_wgrad_kernel": "weight gradient",
                               "wg_reduce_kernel": "reduction"}}
+# window_attention.cu's kernels, gemm_splitk.cuh's reduction among them as
+# it instantiates it for drel_bias
+ATTN_LIB = {"source": "window_attention.cu", "tag": "WindowAttentionSrc"}
 # how many times one call of #2 or #4 (fwd) or of #3 or #5 (bwd) launches each
 WB_LAUNCHES = {"fwd": {"proj_gemm_kernel": 2, "attn_fwd_kernel": 1},
                "bwd": {"proj_gemm_kernel": 2, "attn_bwd_kernel": 1, "wgrad_gemm_kernel": 1,
@@ -2890,9 +2894,8 @@ def bf16_step_runs(torch, np, kernels, dev, tag, dataset="MOD", batch=TRAIN_BATC
         run["device_busy_ms"] = prof["device_busy_ms"]
         run["device_ops"] = prof["device_ops"]
         run["block_device_ms"] = block_device_ms(prof)
-        run["attention_device_ms"] = sum(
-            r["device_ms"] for r in prof["rows"]
-            if kernel_name(r["name"]) in source_kernels("window_attention.cu"))
+        run["attention_device_ms"] = sum(r["device_ms"] for r in prof["rows"]
+                                         if owned_by(ATTN_LIB, r["name"]))
         run["top_kernels"] = prof["rows"][:12]
         if run["grad_dtypes"] != ["torch.float32"] or run["param_dtypes"] != ["torch.float32"]:
             raise AssertionError(f"{tag}: {dtype} step's parameters or gradients are not f32: "
@@ -4063,18 +4066,23 @@ def attention_bf16_inputs(torch, np, g, seed, dev):
 
 def attention_bf16_work(g, backward):
     """(FLOPs, bytes, bound ms, what bounds) of one #6-bf16/#7-bf16 or
-    #8-bf16/#9-bf16 launch: attention_work's FLOPs at the f32 peak (the math
-    between the bf16 edges is f32 on the CUDA cores); bytes with q, k, v, g,
-    out, dq, dk and dv at 2 bytes, rel_bias, drel_bias and the mask at 4,
-    each read or written once."""
+    #8-bf16/#9-bf16 launch: attention_work's FLOPs, the products (4 N^2 hd
+    a pair forward, 10 N^2 hd backward; bf16 operands on the tensor cores)
+    at the bf16 peak and the rest (ATTN_ELEM_* a score, f32 on the CUDA
+    cores) at the f32 peak; bytes with q, k, v, g, out, dq, dk and dv at 2
+    bytes, rel_bias, drel_bias and the mask at 4, each read or written
+    once."""
     pairs, N, hd, H = g["windows"] * g["heads"], g["N"], g["hd"], g["heads"]
     mask = g["nW"] * N * N if g["mask"] is not None else 0
     flops = attention_work(g, backward)[0]
+    products = pairs * (10 if backward else 4) * N * N * hd
     if backward:
         nbytes = 2 * 7 * pairs * N * hd + 4 * (2 * H * N * N + mask)
     else:
         nbytes = 2 * 4 * pairs * N * hd + 4 * (H * N * N + mask)
-    return (flops, nbytes, *bound(flops, nbytes))
+    t_ops = products / BF16_FLOPS + (flops - products) / F32_FLOPS
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return flops, nbytes, 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def bf16_keep_pattern(torch, pk, g, seed, rate, dev):
@@ -8025,8 +8033,8 @@ def main():
                      f"step at batch {TRAIN_BATCH} (views fused to {2 * TRAIN_BATCH}; #8-bf16 at "
                      f"every drop rate 0); launches: {ATTN_BF16_STEPS} timed bf16 -no_pallas_block "
                      "pretrain steps (#8-bf16: the rate-0 step); max_abs_err: worst over the served "
-                     "and training geometries; bound: the f32 math at 67 TFLOP/s or 3.35 TB/s at "
-                     "bf16 rows")
+                     "and training geometries; bound: the products at 989 TFLOP/s bf16 and the "
+                     "softmax at 67 TFLOP/s f32, or 3.35 TB/s at bf16 rows")
 
     def attn_bf16_entry(name, num, line, launches_, tot, err, per=attn_bf16_per, **extra):
         return bf16_entry(name, num, line, launches_, err, tot, per, source=ATTN_SRC,
@@ -8041,7 +8049,8 @@ def main():
                         ae["fwd_abs"],
                         per=(f"times: the {per_fwd} launches of one MOD bf16 -no_pallas_block "
                              f"forward at batch {SERVE_BATCH}; launches: the served bf16 "
-                             "-no_pallas_block batch; bound: the f32 math at 67 TFLOP/s or "
+                             "-no_pallas_block batch; bound: the products at 989 TFLOP/s "
+                             "bf16 and the softmax at 67 TFLOP/s f32, or "
                              "3.35 TB/s at bf16 rows"),
                         max_rel_err=ae["fwd"], launches_per_forward=per_fwd),
         attn_bf16_entry(at_bf_drop.__name__, "#7-bf16", 129,

@@ -32,7 +32,14 @@ With --profile, #2 and #3 are also split by kernel name
 chip_smoke.py knows). --parts takes a comma list of window (#1-#5),
 window_bf16 (#1-bf16 to #5-bf16 by events, device time and device time by
 phase, #3-bf16's and #5-bf16's host enqueue, and the bf16 MOD pretrain
-step), attention (#6-#9 and the -no_pallas_block step), mlp (#10-#12 and the
+step), attention (#6-#9 and the -no_pallas_block step), attention_bf16
+(#6-bf16 to #9-bf16 at every MOD geometry and summed over a served MOD
+forward, #6-bf16, and a MOD step, #7-bf16 to #9-bf16, by device time and
+events beside the bound, the f32 #6-#9 by device time at the same
+geometries; the build's spills and HMMA counts of the bf16 kernels; and
+digests of the outputs of the f32 #6-#9, #1-#5 and #1-#5-bf16, the same
+bits giving the same digests on two checkouts; it builds only
+window_attention.cu and window_block.cu), mlp (#10-#12 and the
 -pallas_mlp step), mlp_bf16 (#10-bf16 to #12-bf16 per MLP geometry of a
 MOD and a MOD_WIDE forward by events and device time beside the bf16
 library chain, and the bf16 -pallas_mlp MOD supervised step), towers
@@ -53,7 +60,10 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-PARTS = ("window", "window_bf16", "attention", "mlp", "mlp_bf16", "towers", "towers_bf16")
+PARTS = ("window", "window_bf16", "attention", "attention_bf16", "mlp", "mlp_bf16", "towers",
+         "towers_bf16")
+# the sources a part builds (all by default)
+PART_SOURCES = {"attention_bf16": ("window_attention.cu", "window_block.cu")}
 
 
 def measure(root, profile, parts):
@@ -75,7 +85,10 @@ def measure(root, profile, parts):
         raise SystemExit("compare_kernels.py needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 yardsticks, as chip_smoke.py sets them
     torch.backends.cudnn.allow_tf32 = False
-    _build.build_all()
+    sources = set()
+    for part in parts:
+        sources |= set(PART_SOURCES.get(part, _build.SOURCES))
+    _build.build_all(tuple(sorted(sources)))
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
     rate = 0.2
@@ -85,6 +98,8 @@ def measure(root, profile, parts):
         measure_window_bf16(cs, torch, root, dev, gen, rate)
     if "attention" in parts:
         measure_attention(cs, torch, np, root, dev, rate)
+    if "attention_bf16" in parts:
+        measure_attention_bf16(cs, torch, np, root, dev, rate)
     if "mlp" in parts:
         measure_mlp(cs, torch, np, root, dev, rate)
     if "mlp_bf16" in parts:
@@ -385,6 +400,131 @@ def attention_step(cs, torch, root, dev):
           f"kernels {copies:.3f}, elementwise kernels {elementwise:.3f}", flush=True)
     del model, state, step, tdata
     torch.cuda.empty_cache()
+
+
+def measure_attention_bf16(cs, torch, np, root, dev, rate):
+    """#6-bf16 at a served MOD forward's geometries (batch 128) and #7-bf16,
+    #8-bf16 and #9-bf16 at a MOD step's (256 fused to 512), on the route's
+    inputs (head views of a bf16 qkv, q unscaled with its scale passed):
+    device ms a call (a profile) and CUDA-event ms, the bound
+    (chip_smoke.attention_bf16_work); the f32 #6-#9 by device time at the
+    same geometries; the sums over the forward and the step with the share
+    of the bound; the bf16 kernels' spills and HMMA counts; the digests."""
+    from focal_tpu_torch.ops import _build
+    from focal_tpu_torch.ops import pallas_kernels as pk
+    from focal_tpu_torch.params import load_yaml
+
+    spec = importlib.util.spec_from_file_location("diagnose_mlp",
+                                                  os.path.join(HERE, "diagnose_mlp.py"))
+    dm = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(dm)
+    print(f"[{root}] the bf16 attention kernels' build:", flush=True)
+    dm.build_report(_build, "window_attention.cu")
+    cfg = load_yaml(os.path.join(root, "focal_tpu_torch", "configs", "MOD.yaml"))
+    serve = cs.attention_geometries(cfg, cs.SERVE_BATCH, "MOD")
+    train = cs.attention_geometries(cfg, 2 * cs.TRAIN_BATCH, "MOD")
+    for what, geos, names in (("one served MOD forward", serve, ("#6",)),
+                              ("one MOD step", train, ("#7", "#8", "#9"))):
+        tot = {}
+        for i, g in enumerate(geos):
+            s = g["hd"] ** -0.5
+            qkv, rb, mask, gy = cs.attention_bf16_inputs(torch, np, g, 600 + i, dev)
+            q, k, v = pk._head_views(qkv, g["heads"])
+            gh = pk._heads(gy, g["heads"])
+            fq, fk, fv, frb, fmask, fgy = cs.attention_inputs(torch, np, g, 600 + i, dev)
+            runs = {
+                "#6-bf16": lambda: pk.fused_window_attention_bf16(q, k, v, rb, mask, q_scale=s),
+                "#7-bf16": lambda: pk.fused_window_attention_dropout_bf16(q, k, v, rb, mask, 7,
+                                                                          rate, q_scale=s),
+                "#8-bf16": lambda: pk.fused_window_attention_backward_bf16(q, k, v, rb, mask, gh,
+                                                                           q_scale=s),
+                "#9-bf16": lambda: pk.fused_window_attention_dropout_backward_bf16(
+                    q, k, v, rb, mask, gh, 7, rate, q_scale=s),
+                "#6": lambda: pk.fused_window_attention(fq, fk, fv, frb, fmask),
+                "#7": lambda: pk.fused_window_attention_dropout(fq, fk, fv, frb, fmask, 7, rate),
+                "#8": lambda: pk.fused_window_attention_backward(fq, fk, fv, frb, fmask, fgy),
+                "#9": lambda: pk.fused_window_attention_dropout_backward(fq, fk, fv, frb, fmask,
+                                                                         fgy, 7, rate)}
+            ms = {}
+            for n in names:
+                ms[f"{n}-bf16 device"] = cs.device_ms_per_call(torch, runs[f"{n}-bf16"])
+                ms[f"{n}-bf16 events"] = cs.time_ms_long(torch, runs[f"{n}-bf16"])
+                ms[f"{n}-bf16 bound"] = cs.attention_bf16_work(g, n in ("#8", "#9"))[2]
+                ms[f"{n} device"] = cs.device_ms_per_call(torch, runs[n])
+            for key, v_ in ms.items():
+                tot[key] = tot.get(key, 0.0) + g["per_forward"] * v_
+            print(f"[{root}] {g['name']} (windows {g['windows']}, hd {g['hd']}, "
+                  f"{g['per_forward']} a forward): "
+                  + ", ".join(f"{key} {v_:.4f}" for key, v_ in ms.items()), flush=True)
+            del qkv, rb, mask, gy, q, k, v, gh, fq, fk, fv, frb, fmask, fgy, runs
+        print(f"[{root}] bf16 attention, {what} (ms): " + ", ".join(
+            f"{key} {v_:.4f}" for key, v_ in tot.items()) + "; share of the bound by device time: "
+            + ", ".join(f"{n}-bf16 {tot[f'{n}-bf16 bound'] / tot[f'{n}-bf16 device']:.3f}"
+                        for n in names), flush=True)
+        torch.cuda.empty_cache()
+    for name, digest in bits_digests(torch, np, pk, dev).items():
+        print(f"[{root}] digest {name}: {digest}", flush=True)
+
+
+def _digest(torch, tensors):
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def bits_digests(torch, np, pk, dev):
+    """sha-256 (16 hex digits) of the outputs of kernels that a change to
+    the bf16 attention must leave as they were: the f32 #6-#9 (at two
+    geometries, rate 0 and 0.2), #1-#3 (C 64) and #4/#5 (C 512) and their
+    bf16 forms, on inputs made from fixed seeds."""
+    out = {}
+    for B, H, N, hd, nW in ((131, 4, 9, 16, 4), (37, 4, 9, 64, 0)):
+        rng = np.random.default_rng(B + hd)
+        q, k, v, g = (torch.from_numpy(rng.normal(size=(B, H, N, hd)).astype(np.float32)).to(dev)
+                      for _ in range(4))
+        rb = torch.from_numpy((0.02 * rng.normal(size=(H, N, N))).astype(np.float32)).to(dev)
+        mask = (torch.from_numpy(np.where(rng.random((nW, N, N)) < 0.3, -100.0, 0.0).astype(
+            np.float32)).to(dev) if nW else None)
+        outs = [pk.fused_window_attention(q, k, v, rb, mask, q_scale=hd**-0.5),
+                pk.fused_window_attention_dropout(q, k, v, rb, mask, 5, 0.2),
+                *pk.fused_window_attention_backward(q, k, v, rb, mask, g, q_scale=hd**-0.5),
+                *pk.fused_window_attention_dropout_backward(q, k, v, rb, mask, g, 5, 0.2)]
+        out[f"f32 #6-#9 B {B} hd {hd}"] = _digest(torch, outs)
+    for B, C, nW in ((131, 64, 4), (37, 512, 0)):
+        rng = np.random.default_rng(B + C)
+        H, N = 4, 9
+        shapes = [(B, N, C), (C, 3 * C), (3 * C,), (C, C), (C,), (H, N, N)]
+        scales = [1.0, C**-0.5, 0.1, C**-0.5, 0.1, 0.02]
+        args = [torch.from_numpy((rng.normal(size=sh) * sc).astype(np.float32)).to(dev)
+                for sh, sc in zip(shapes, scales)]
+        args.append(torch.from_numpy(np.where(rng.random((nW, N, N)) < 0.3, -100.0, 0.0).astype(
+            np.float32)).to(dev) if nW else None)
+        dy = torch.from_numpy(rng.normal(size=(B, N, C)).astype(np.float32)).to(dev)
+        bf = torch.bfloat16
+        bargs = [args[0].to(bf), args[1].to(bf), args[2], args[3].to(bf), *args[4:]]
+        if pk.wblock_fits(N, C, H):
+            y, keep = pk.fused_window_block_dropout(*args, 5, 0.2)
+            f32 = [pk.fused_window_block(*args), y, keep,
+                   *pk.fused_window_block_backward(*args, dy, keep, 0.2)]
+            yb, keepb = pk.fused_window_block_dropout_bf16(*bargs, 5, 0.2)
+            b16 = [pk.fused_window_block_bf16(*bargs), yb, keepb,
+                   *pk.fused_window_block_backward_bf16(*bargs, dy.to(bf), keepb, 0.2)]
+            names = ("#1-#3", "#1-#3-bf16")
+        else:
+            y, keep = pk.fused_window_block_perhead(*args, 5, 0.2)
+            f32 = [pk.fused_window_block_perhead(*args)[0], y, keep,
+                   *pk.fused_window_block_perhead_backward(*args, dy, keep, 0.2)]
+            yb, keepb = pk.fused_window_block_perhead_bf16(*bargs, 5, 0.2)
+            b16 = [pk.fused_window_block_perhead_bf16(*bargs)[0], yb, keepb,
+                   *pk.fused_window_block_perhead_backward_bf16(*bargs, dy.to(bf), keepb, 0.2)]
+            names = ("#4/#5", "#4/#5-bf16")
+        out[f"f32 {names[0]} B {B} C {C}"] = _digest(torch, f32)
+        out[f"{names[1]} B {B} C {C}"] = _digest(torch, b16)
+    torch.cuda.synchronize()
+    return out
 
 
 def measure_mlp(cs, torch, np, root, dev, rate):

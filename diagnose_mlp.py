@@ -4,7 +4,10 @@ checkouts of the repository on one card: the fused MLP's (#10-bf16 to
 #1-, #2- and #4-bf16, the backward #3-bf16 and #5-bf16,
 csrc/window_block.cu) and the conv tower's (#13-bf16, #14-bf16,
 csrc/conv_tower.cu: its build report alone; compare_kernels.py --parts
-towers_bf16 checks and times them), all on csrc/gemm_wgmma.cuh.
+towers_bf16 checks and times them), all on csrc/gemm_wgmma.cuh, and the
+attention-only kernels' (#6-bf16 to #9-bf16, csrc/window_attention.cu, on
+mma.sync: its build report alone; compare_kernels.py --parts
+attention_bf16 times them).
 
     python3 diagnose_mlp.py [--bench] DIR [DIR ...]
 
@@ -66,7 +69,8 @@ BLOCKS = [(256, 9, 64, 4, 32), (131, 9, 128, 4, 0), (67, 9, 256, 4, 2), (40, 9, 
 BF16_KERNELS = {"fused_mlp.cu": ("wg_", "wcast"),
                 "window_block.cu": ("wb_wg_", "wg_wgrad", "wg_reduce", "attn_bwd_bf16",
                                     "attn_fwd_bf16"),
-                "conv_tower.cu": ("ct_wg_", "wg_reduce", "_sliced_", "bn_dc_sums")}
+                "conv_tower.cu": ("ct_wg_", "wg_reduce", "_sliced_", "bn_dc_sums"),
+                "window_attention.cu": ("wattn_bf16_", "wattn_fwd_bf16", "wattn_bwd_bf16")}
 RATE = 0.2
 
 

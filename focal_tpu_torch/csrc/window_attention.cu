@@ -76,25 +76,57 @@
 //     the blocks' partials. No atomics: two calls give the same bits.
 //
 // The bf16 forms (-compute_dtype bfloat16): #6-bf16 to #9-bf16
-// (focal_wattn_fwd_bf16, focal_wattn_bwd_bf16) replace the same TPU kernels
-// fed bf16 q, k, v and g (pk:119, :129, :189, :200), which upcast them to
-// f32 first, compute as in f32 and store out, dq, dk and dv in the inputs'
-// type (pk:235, :254-256), dbias in f32 (pk:257). So do these: the same
-// kernel bodies, instantiated on the element type.
-//   * Rows are staged 16 bytes (8 bf16) at a time by the same cp.async
-//     ring, into the upper half of the 32 bytes each 8 values take in f32;
-//     once its copies land, each thread widens them to f32 in place, before
-//     the chunk's barrier (as it scales f32 q). The ring's layout, the math
-//     and the shared memory stay the f32 kernels' (hd a multiple of 8).
-//   * q_scale is rounded to bf16 once and each q to bf16(q bf16(scale)) as
-//     it is widened: the rounding of the JAX caller's bf16 `qkv[0] * scale`
-//     (focal_tpu/models/swin.py:270).
-//   * Softmax, dropout and every sum stay in f32 with fmaf and expf; out,
-//     dq, dk and dv are rounded to bf16 once as they are stored, the q
-//     columns of d(qkv) as bf16(bf16(dq) bf16(scale)), the VJP of that
-//     multiply; drel_bias stays f32 in the same fixed order.
-//   * What bounds them is bytes, as in f32 (the rows at 2 bytes move half
-//     as many): no tensor-core product is needed.
+// (focal_wattn_fwd_bf16, focal_wattn_bwd_bf16; wattn_bf16_fwd_kernel,
+// wattn_bf16_bwd_kernel) replace the same TPU kernels fed bf16 q, k, v and g
+// (pk:119, :129, :189, :200), which upcast them to f32 first, compute as in
+// f32 and store out, dq, dk and dv in the inputs' type (pk:235, :254-256),
+// dbias in f32 (pk:257). Their rows move half the f32 kernels' bytes, so
+// the bound halves; run as the f32 bodies on bf16 rows (widened to f32 in
+// the ring), they took the f32 kernels' time (#9-bf16 2.02 ms a MOD step
+// against a bound of 0.47 on the H100, diagnose_attention.py --bf16): the
+// work inside the SM set the pace, and in bf16 it was the f32 work. These
+// kernels cut that work:
+//   * Rows stay bf16 in shared memory: copied 16 bytes at a time by
+//     cp.async into a two-slot ring, at a row stride
+//     of hd16 + 8 (hd rounded up to 16; the columns past hd zeroed once), no
+//     widening pass; q scaled in place (bf16(q bf16(scale)): the rounding
+//     of the JAX caller's bf16 `qkv[0] * scale`, focal_tpu/models/swin.py:270)
+//     by the threads that copied it, before the chunk's barrier. A slot
+//     takes as many pairs as fit kFwdSlotBytes / kBwdSlotBytes.
+//   * The products run on the tensor cores, a (window, head) pair a 16 x 16
+//     tile: its 9 (up to 16) rows and keys pad to 16, the rows past N
+//     reading row N - 1 (ldmatrix's row addresses, clamped: finite values,
+//     masked as keys and never stored as rows). Each product is
+//     mma.sync.m16n8k16 bf16 with f32 accumulators fed by ldmatrix (.trans
+//     for the operands read along their rows): q k^T and g v^T over hd16,
+//     then per 16 columns out = a_v v, dq = ds k, dk = ds^T q, dv = a_v^T g.
+//     q k^T and g v^T are exact (bf16 products, f32 sums). a_v and ds are
+//     f32 in the TPU kernel: each is split into bf16 hi = bf16(x) and lo =
+//     bf16(x - hi), two products into one accumulator (about 16
+//     significant bits against the output's 8).
+//   * The softmax works a row a lane: a warp takes its pairs grp = 32 / N
+//     at a time (3 at N = 9), writes their scores (and d_attn) from the
+//     accumulators to its scratch, and lane u N + i takes query row i of
+//     pair u: bias, mask, softmax, the keep bits (philox.cuh's
+//     attn_keep_row: #7's and #2's mask bit for bit), da, ds and a_v in f32
+//     in registers, as the f32 bodies do; 27 of 32 lanes busy at N = 9,
+//     where one pair's 16 x 16 accumulator tile holds 81 scores in 256
+//     places. The lane writes its row's a_v (ds) back as bf16 hi and lo
+//     tile rows over the scores; the products read them by ldmatrix, the
+//     transposes by ldmatrix.trans, rows past N from a zero row.
+//   * Outputs leave at the caller's strides as bf16 pairs, rounded once: out
+//     into the proj Linear's [B, N, C] input, dq, dk, dv into d(qkv) [B, N,
+//     3C], the q columns as bf16(bf16(dq) bf16(scale)), the VJP of that
+//     multiply.
+//   * drel_bias in f32: the row's lane writes ds to one of two [P][N][N]
+//     buffers; after the next chunk's barrier the block adds the chunk's ds
+//     head by head in pair order, and one ordered pass adds the blocks'
+//     partials (gemm_splitk.cuh's reduce_partials_kernel): bitwise
+//     repeatable, one barrier a chunk in both directions.
+//   * The products do ~5 FLOP a byte in bf16, far under the card's bf16
+//     ridge (~295): wgmma's 64-row tiles would have to pack seven windows
+//     block-diagonally for nothing, and mma.sync's 16 x 16 tile already
+//     takes a window whole.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -108,11 +140,17 @@
 #include <utility>
 
 #include "gemm_3xtf32.cuh"
+#include "gemm_splitk.cuh"
 #include "philox.cuh"
 #include "window_rows.cuh"
 
+namespace focal {
+struct WindowAttentionSrc {};  // tags this library's instances of gemm_splitk.cuh's kernels
+}  // namespace focal
+
 namespace {
 
+using Src = focal::WindowAttentionSrc;
 using focal::chunk_pairs;
 using focal::Geo;
 using focal::make_geo;
@@ -128,14 +166,14 @@ constexpr int kMaxHd = focal::kAttnMaxHd;
 constexpr int kThreads = focal::kAttnThreads;
 using bf16 = __nv_bfloat16;
 
-// The forward's shared memory: the two-slot ring of q, k, v rows.
-size_t fwd_smem_floats(const Geo& g) { return (size_t)6 * g.pairs * g.N * g.stride; }
+// The f32 forward's shared memory: the two-slot ring of q, k, v rows.
+size_t fwd_smem_bytes(const Geo& g) { return (size_t)6 * g.pairs * g.N * g.stride * sizeof(float); }
 
-// The backward's shared memory: the two-slot ring of q, k, v, g rows, ds
-// and a_v [P][N][N], and the block's d rel_bias [H][N][N].
-size_t bwd_smem_floats(const Geo& g) {
-  return (size_t)8 * g.pairs * g.N * g.stride + (size_t)2 * g.pairs * g.N * g.N +
-         (size_t)g.H * g.N * g.N;
+// The f32 backward's: the two-slot ring of q, k, v, g rows, ds and a_v
+// [P][N][N], and the block's d rel_bias [H][N][N].
+size_t bwd_smem_bytes(const Geo& g) {
+  return ((size_t)8 * g.pairs * g.N * g.stride + (size_t)2 * g.pairs * g.N * g.N +
+          (size_t)g.H * g.N * g.N) * sizeof(float);
 }
 
 // The head widths a row of element type T is staged at: multiples of 4
@@ -177,105 +215,6 @@ __host__ __device__ inline float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
-// The staging of one chunk of bf16 operands: stage_chunk_async's ring
-// layout and thread mapping over 8-column groups (c8 = hd / 8 of them):
-// thread tid copies the 16 bytes of group tid % c8 of rows tid / c8, + R,
-// ... (R = kThreads / c8) by cp.async into the upper half of the 32 bytes
-// the group takes in f32, where widen_staged_bf16 later reads them.
-template <int kOps>
-__device__ __forceinline__ void stage_chunk_async_bf16(const Operands<bf16>& in, int chunk,
-                                                       const Geo& g, float* slot) {
-  const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
-  const int c8 = g.c4 / 2;
-  const int per_pass = kThreads / c8;
-  const int c = threadIdx.x % c8, r0 = threadIdx.x / c8;
-  if (r0 >= per_pass) return;
-  const int slab = g.pairs * g.N * g.stride;
-  for (int r = r0; r < np * g.N; r += per_pass) {
-    const int pl = r / g.N, i = r - pl * g.N;
-    const int pair = p0 + pl;
-    const int b = pair / g.H, h = pair - b * g.H;
-#pragma unroll
-    for (int o = 0; o < kOps; ++o) {
-      const bf16* row = in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n;
-      focal::cp_async16(slot + o * slab + r * g.stride + 8 * c + 4,
-                        reinterpret_cast<const float*>(row + 8 * c), true);
-    }
-  }
-}
-
-// Widen the chunk's bf16 rows in a ring slot to f32 in place: each thread
-// reads the 16 bytes it copied itself (stage_chunk_async_bf16's mapping)
-// and writes the group's 8 floats over them, so it may do so right after
-// its own cp_async_wait, before the chunk's barrier. q (operand 0) becomes
-// bf16(q q_scale) where q_scale != 1 (q_scale is a bf16 value: the product
-// of two is exact in f32, then rounded once).
-template <int kOps>
-__device__ __forceinline__ void widen_staged_bf16(int chunk, const Geo& g, float* slot,
-                                                  float q_scale) {
-  const int np = chunk_pairs(g, chunk);
-  const int c8 = g.c4 / 2;
-  const int per_pass = kThreads / c8;
-  const int c = threadIdx.x % c8, r0 = threadIdx.x / c8;
-  if (r0 >= per_pass) return;
-  const int slab = g.pairs * g.N * g.stride;
-  for (int r = r0; r < np * g.N; r += per_pass) {
-#pragma unroll
-    for (int o = 0; o < kOps; ++o) {
-      float4* d = reinterpret_cast<float4*>(slot + o * slab + r * g.stride + 8 * c);
-      const uint4 u = *reinterpret_cast<const uint4*>(d + 1);
-      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
-      float f[8];
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {  // the lower bf16 of a word is the lower address
-        f[2 * e] = __uint_as_float(w[e] << 16);
-        f[2 * e + 1] = __uint_as_float(w[e] & 0xffff0000u);
-      }
-      if (o == 0 && q_scale != 1.f) {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) f[e] = round_bf16(f[e] * q_scale);
-      }
-      d[0] = make_float4(f[0], f[1], f[2], f[3]);
-      d[1] = make_float4(f[4], f[5], f[6], f[7]);
-    }
-  }
-}
-
-// A chunk's staging by element type, both by cp.async: f32 rows, or bf16
-// rows that land_chunk widens.
-template <int kOps>
-__device__ __forceinline__ void stage_chunk(const Operands<float>& in, int chunk, const Geo& g,
-                                            float* slot) {
-  stage_chunk_async<kOps>(in, chunk, g, slot);
-}
-
-template <int kOps>
-__device__ __forceinline__ void stage_chunk(const Operands<bf16>& in, int chunk, const Geo& g,
-                                            float* slot) {
-  stage_chunk_async_bf16<kOps>(in, chunk, g, slot);
-}
-
-// What a thread does to its own copies of a chunk once they have landed,
-// before the chunk's barrier: scale the f32 q rows (scale_staged_q), or
-// widen the bf16 rows to f32, q scaled and rounded (widen_staged_bf16).
-template <class T, int kOps>
-__device__ __forceinline__ void land_chunk(int chunk, const Geo& g, float* slot, float q_scale) {
-  if (std::is_same<T, float>::value) {
-    if (q_scale != 1.f) scale_staged_q(chunk, g, slot, q_scale);
-  } else {
-    widen_staged_bf16<kOps>(chunk, g, slot, q_scale);
-  }
-}
-
-// dq as it leaves for d(qkv): times dq_scale in f32, or in bf16 the VJP of
-// the caller's bf16 q * scale, bf16(bf16(dq) scale) (store4 rounds last).
-template <class T>
-__device__ __forceinline__ float4 scaled_dq(float4 a, float s) {
-  if (std::is_same<T, float>::value) return make_float4(a.x * s, a.y * s, a.z * s, a.w * s);
-  return make_float4(round_bf16(a.x) * s, round_bf16(a.y) * s, round_bf16(a.z) * s,
-                     round_bf16(a.w) * s);
-}
-
 // ---------------------------------------------------------------------------
 // forward (#6; #7 with kDropout)
 
@@ -286,12 +225,11 @@ __device__ __forceinline__ float4 scaled_dq(float4 a, float s) {
 // out_i = a_v v, written at the caller's strides `so`. One barrier a chunk:
 // the one after a chunk's copies land (and its q is scaled) also frees the
 // other slot, which the chunk before was read from, so the next chunk's
-// copies are issued right after it. kN and kCols as in wattn_bwd; T the
-// element type of q, k, v and out (float, or bf16: stage_chunk_async_bf16).
-template <class T, int kN, int kCols, bool kDropout>
-__device__ __forceinline__ void wattn_fwd(const Operands<T>& in, Strides so,
+// copies are issued right after it. kN and kCols as in wattn_bwd.
+template <int kN, int kCols, bool kDropout>
+__device__ __forceinline__ void wattn_fwd(const Operands<float>& in, Strides so,
                                           const float* __restrict__ rel_bias,
-                                          const float* __restrict__ mask, T* __restrict__ out,
+                                          const float* __restrict__ mask, float* __restrict__ out,
                                           float q_scale, unsigned long long seed,
                                           unsigned threshold, float inv_keep, const Geo& g,
                                           int nW) {
@@ -300,7 +238,7 @@ __device__ __forceinline__ void wattn_fwd(const Operands<T>& in, Strides so,
   float* ring = reinterpret_cast<float*>(smem4);  // [2][q, k, v][P][N][stride]
   const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
 
-  stage_chunk<3>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  stage_chunk_async<3>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
   focal::cp_async_commit();
 
   int it = 0;
@@ -308,11 +246,11 @@ __device__ __forceinline__ void wattn_fwd(const Operands<T>& in, Strides so,
     const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
     float* qs = ring + (it & 1) * 3 * slab;
     focal::cp_async_wait<0>();  // this thread's copies of the chunk have landed
-    land_chunk<T, 3>(chunk, g, qs, q_scale);
-    __syncthreads();  // and every thread's, scaled (widened); the other slot is free
+    if (q_scale != 1.f) scale_staged_q(chunk, g, qs, q_scale);
+    __syncthreads();  // and every thread's, scaled; the other slot is free
     const int next = chunk + gridDim.x;
     if (next < nchunks)  // the next chunk's loads fly while this one computes
-      stage_chunk<3>(in, next, g, ring + ((it + 1) & 1) * 3 * slab);
+      stage_chunk_async<3>(in, next, g, ring + ((it + 1) & 1) * 3 * slab);
     focal::cp_async_commit();
     const float* ks = qs + slab;
     const float* vs = ks + slab;
@@ -349,7 +287,7 @@ __device__ __forceinline__ void wattn_fwd(const Operands<T>& in, Strides so,
         if (focal::key_in_row<kN>(j, N)) p[j] = (kept >> j) & 1u ? p[j] * inv_keep : 0.f;
     }
     const float* vb = vs + t.pl * N * g.stride;
-    T* o = out + t.w * so.b + t.h * so.h + t.i * so.n;
+    float* o = out + t.w * so.b + t.h * so.h + t.i * so.n;
     focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -372,17 +310,8 @@ __global__ void __launch_bounds__(kThreads, 2)
 wattn_fwd_kernel(Operands<float> in, Strides so, const float* __restrict__ rel_bias,
                  const float* __restrict__ mask, float* __restrict__ out, float q_scale,
                  unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
-  wattn_fwd<float, kN, kCols, kDropout>(in, so, rel_bias, mask, out, q_scale, seed, threshold,
-                                        inv_keep, g, nW);
-}
-
-template <int kN, int kCols, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
-wattn_fwd_bf16_kernel(Operands<bf16> in, Strides so, const float* __restrict__ rel_bias,
-                      const float* __restrict__ mask, bf16* __restrict__ out, float q_scale,
-                      unsigned long long seed, unsigned threshold, float inv_keep, Geo g, int nW) {
-  wattn_fwd<bf16, kN, kCols, kDropout>(in, so, rel_bias, mask, out, q_scale, seed, threshold,
-                                       inv_keep, g, nW);
+  wattn_fwd<kN, kCols, kDropout>(in, so, rel_bias, mask, out, q_scale, seed, threshold, inv_keep,
+                                 g, nW);
 }
 
 // ---------------------------------------------------------------------------
@@ -408,12 +337,13 @@ struct OutStrides {
 // chunk before), so the next chunk's copies are issued right after it. kN
 // = 9 is the 3 x 3 window's exact row tile, kN = kAttnMaxN any N up to 16;
 // kCols > 0 unrolls a lane's kCols float4 columns (c4 = kCols G: 2 at hd
-// 16, 32 and 64). T is the element type of q, k, v, g, dq, dk and dv.
-template <class T, int kN, int kCols, bool kDropout>
-__device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStrides& so,
+// 16, 32 and 64).
+template <int kN, int kCols, bool kDropout>
+__device__ __forceinline__ void wattn_bwd(const Operands<float>& in, const OutStrides& so,
                                           const float* __restrict__ rel_bias,
-                                          const float* __restrict__ mask, T* __restrict__ dq,
-                                          T* __restrict__ dk, T* __restrict__ dv, float q_scale,
+                                          const float* __restrict__ mask, float* __restrict__ dq,
+                                          float* __restrict__ dk, float* __restrict__ dv,
+                                          float q_scale,
                                           float dq_scale, float* __restrict__ dbias_part,
                                           unsigned long long seed, unsigned threshold,
                                           float inv_keep, const Geo& g, int nW) {
@@ -426,7 +356,7 @@ __device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStride
   const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
 
   for (int e = threadIdx.x; e < g.H * nn; e += kThreads) dacc[e] = 0.f;
-  stage_chunk<4>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  stage_chunk_async<4>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
   focal::cp_async_commit();
 
   int it = 0;
@@ -434,11 +364,11 @@ __device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStride
     const int p0 = chunk * g.pairs, np = chunk_pairs(g, chunk);
     float* qs = ring + (it & 1) * 4 * slab;
     focal::cp_async_wait<0>();  // this chunk's copies have landed (each thread its own)
-    land_chunk<T, 4>(chunk, g, qs, q_scale);
+    if (q_scale != 1.f) scale_staged_q(chunk, g, qs, q_scale);
     __syncthreads();            // and every thread's; the other slot and ds / a_v are free
     const int next = chunk + gridDim.x;
     if (next < nchunks)  // the next chunk's loads fly while this one computes
-      stage_chunk<4>(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
+      stage_chunk_async<4>(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
     focal::cp_async_commit();
     const float* ks = qs + slab;
     const float* vs = ks + slab;
@@ -494,7 +424,7 @@ __device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStride
         }
       }
     }
-    T* dqo = dq + t.w * so.dq.b + t.h * so.dq.h + t.i * so.dq.n;
+    float* dqo = dq + t.w * so.dq.b + t.h * so.dq.h + t.i * so.dq.n;
     focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
       float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
 #pragma unroll
@@ -507,7 +437,9 @@ __device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStride
           acc.w = fmaf(ds[j], y.w, acc.w);
         }
       }
-      if (t.active) store4(dqo + 4 * c, scaled_dq<T>(acc, dq_scale));
+      if (t.active)
+        store4(dqo + 4 * c, make_float4(acc.x * dq_scale, acc.y * dq_scale, acc.z * dq_scale,
+                                        acc.w * dq_scale));
     });
     __syncthreads();
 
@@ -526,8 +458,8 @@ __device__ __forceinline__ void wattn_bwd(const Operands<T>& in, const OutStride
           avj[i] = avc[i * N];
         }
       }
-      T* dko = dk + t.w * so.dk.b + t.h * so.dk.h + j * so.dk.n;
-      T* dvo = dv + t.w * so.dv.b + t.h * so.dv.h + j * so.dv.n;
+      float* dko = dk + t.w * so.dk.b + t.h * so.dk.h + j * so.dk.n;
+      float* dvo = dv + t.w * so.dv.b + t.h * so.dv.h + j * so.dv.n;
       focal::for_lane_cols<kCols>(t.lane, g, [&](int c) {
         float4 a = make_float4(0.f, 0.f, 0.f, 0.f), b = a;
 #pragma unroll
@@ -570,30 +502,8 @@ wattn_bwd_kernel(Operands<float> in, OutStrides so, const float* __restrict__ re
                  float* __restrict__ dv, float q_scale, float dq_scale,
                  float* __restrict__ dbias_part, unsigned long long seed, unsigned threshold,
                  float inv_keep, Geo g, int nW) {
-  wattn_bwd<float, kN, kCols, kDropout>(in, so, rel_bias, mask, dq, dk, dv, q_scale, dq_scale,
-                                        dbias_part, seed, threshold, inv_keep, g, nW);
-}
-
-template <int kN, int kCols, bool kDropout>
-__global__ void __launch_bounds__(kThreads, 2)
-wattn_bwd_bf16_kernel(Operands<bf16> in, OutStrides so, const float* __restrict__ rel_bias,
-                      const float* __restrict__ mask, bf16* __restrict__ dq, bf16* __restrict__ dk,
-                      bf16* __restrict__ dv, float q_scale, float dq_scale,
-                      float* __restrict__ dbias_part, unsigned long long seed, unsigned threshold,
-                      float inv_keep, Geo g, int nW) {
-  wattn_bwd<bf16, kN, kCols, kDropout>(in, so, rel_bias, mask, dq, dk, dv, q_scale, dq_scale,
-                                       dbias_part, seed, threshold, inv_keep, g, nW);
-}
-
-// out[e] = sum over s (in order) of part[s][e]: the ordered second pass of
-// d rel_bias.
-__global__ void reduce_partials_kernel(const float* __restrict__ part, int S, int E,
-                                       float* __restrict__ out) {
-  const int e = blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= E) return;
-  float acc = 0.f;
-  for (int s = 0; s < S; ++s) acc += part[(size_t)s * E + e];
-  out[e] = acc;
+  wattn_bwd<kN, kCols, kDropout>(in, so, rel_bias, mask, dq, dk, dv, q_scale, dq_scale, dbias_part,
+                                 seed, threshold, inv_keep, g, nW);
 }
 
 // The keep mask of #7 / #9 as uint8 [B, H, N, N], one thread per query row.
@@ -609,69 +519,655 @@ __global__ void keep_mask_kernel(unsigned char* __restrict__ keep, int B, int H,
   }
 }
 
-template <class T>
-using FwdKernel = void (*)(Operands<T>, Strides, const float*, const float*, T*, float,
+using FwdKernel = void (*)(Operands<float>, Strides, const float*, const float*, float*, float,
                            unsigned long long, unsigned, float, Geo, int);
-template <class T>
-using BwdKernel = void (*)(Operands<T>, OutStrides, const float*, const float*, T*, T*, T*, float,
-                           float, float*, unsigned long long, unsigned, float, Geo, int);
+using BwdKernel = void (*)(Operands<float>, OutStrides, const float*, const float*, float*, float*,
+                           float*, float, float, float*, unsigned long long, unsigned, float, Geo,
+                           int);
 
-// A kernel instance of element type T: the f32 kernels, or their bf16 twins.
-template <class T, int kN, int kCols, bool kDropout>
-FwdKernel<T> fwd_instance() {
-  if constexpr (std::is_same<T, float>::value) return wattn_fwd_kernel<kN, kCols, kDropout>;
-  else return wattn_fwd_bf16_kernel<kN, kCols, kDropout>;
-}
-
-template <class T, int kN, int kCols, bool kDropout>
-BwdKernel<T> bwd_instance() {
-  if constexpr (std::is_same<T, float>::value) return wattn_bwd_kernel<kN, kCols, kDropout>;
-  else return wattn_bwd_bf16_kernel<kN, kCols, kDropout>;
-}
-
-// Each direction's instance: the exact 3 x 3 window tile with two float4
-// columns a lane (hd 16, 32, 64 at N = 9), or any N and head width.
-template <class T>
-FwdKernel<T> fwd_kernel(const Geo& g, bool dropout) {
+// Each f32 direction's instance: the exact 3 x 3 window tile with two
+// float4 columns a lane (hd 16, 32, 64 at N = 9), or any N and head width.
+FwdKernel fwd_kernel(const Geo& g, bool dropout) {
   if (g.N == 9 && g.c4 == 2 * g.lanes)
-    return dropout ? fwd_instance<T, 9, 2, true>() : fwd_instance<T, 9, 2, false>();
-  return dropout ? fwd_instance<T, kMaxN, 0, true>() : fwd_instance<T, kMaxN, 0, false>();
+    return dropout ? wattn_fwd_kernel<9, 2, true> : wattn_fwd_kernel<9, 2, false>;
+  return dropout ? wattn_fwd_kernel<kMaxN, 0, true> : wattn_fwd_kernel<kMaxN, 0, false>;
 }
 
-template <class T>
-BwdKernel<T> bwd_kernel(const Geo& g, bool dropout) {
+BwdKernel bwd_kernel(const Geo& g, bool dropout) {
   if (g.N == 9 && g.c4 == 2 * g.lanes)
-    return dropout ? bwd_instance<T, 9, 2, true>() : bwd_instance<T, 9, 2, false>();
-  return dropout ? bwd_instance<T, kMaxN, 0, true>() : bwd_instance<T, kMaxN, 0, false>();
+    return dropout ? wattn_bwd_kernel<9, 2, true> : wattn_bwd_kernel<9, 2, false>;
+  return dropout ? wattn_bwd_kernel<kMaxN, 0, true> : wattn_bwd_kernel<kMaxN, 0, false>;
 }
 
-// A launch plan on the current device: make_geo's pairs a block, fewer
-// where the ring does not fit a block's shared memory (the backward's from
-// hd ~ 256 at N = 9); a persistent grid of as many blocks as fit the card
-// at once, at most one a chunk. Deterministic for a geometry on a card, so
+// ---------------------------------------------------------------------------
+// the bf16 kernels (#6-bf16 to #9-bf16): a window's products on tensor-core
+// tiles, its softmax a row a lane
+
+constexpr int kThreads16 = 128;  // threads of a bf16 block: four warps
+constexpr int kWarps16 = kThreads16 / 32;
+constexpr int kPairsMax = 64;    // pairs a chunk at most
+constexpr int kTileRs = 24;      // a bf16 tile row's stride: 16 keys, 8 more for ldmatrix's banks
+// A ring slot's bytes at most (the ring has two), so that several blocks,
+// each with a slot of loads in flight, share an SM.
+constexpr int kFwdSlotBytes = 26 * 1024;
+constexpr int kBwdSlotBytes = 36 * 1024;
+
+// Launch geometry of a bf16 call: rows of hd bf16 in shared memory at a
+// stride of rs = hd16 + 8 elements (hd16: hd rounded up to 16, the depth of
+// the products; the 8 more put the 8 rows an ldmatrix reads on 8 distinct
+// 16-byte bank groups), chunks of P pairs; a warp's pairs taken grp at a
+// time, so that grp N of its lanes hold a query row each in the row phase.
+struct Geo16 {
+  int B, H, N, hd;
+  int hd16;         // hd rounded up to 16; columns hd .. hd16 - 1 are zeros
+  int c8;           // hd / 8: a row's 16-byte groups
+  int rs;           // shared-memory row stride in bf16, hd16 + 8
+  int pairs;        // P: (window, head) pairs a chunk
+  int grp;          // pairs a warp takes at once: min(8, 32 / N)
+  int wbytes;       // a warp's scratch: scores, then tiles, and a zero row
+  long long total;  // B * H pairs
+};
+
+// The geometry of a call whose ring slot holds `ops` operands: as many
+// pairs a chunk as fit `slot_bytes`, a multiple of the block's warps times
+// grp where that many fit; the warps' scratch for `scores` f32 [grp][N][N]
+// tiles, then (over them) `tiles` bf16 [grp N][kTileRs] ones.
+Geo16 make_geo16(int B, int H, int N, int hd, int ops, int slot_bytes, int scores, int tiles) {
+  Geo16 g;
+  g.B = B, g.H = H, g.N = N, g.hd = hd;
+  g.hd16 = (hd + 15) / 16 * 16, g.c8 = hd / 8, g.rs = g.hd16 + 8;
+  g.total = (long long)B * H;
+  g.grp = std::min(8, 32 / N);
+  const int unit = kWarps16 * g.grp;
+  int p = slot_bytes / (ops * N * g.rs * (int)sizeof(bf16));
+  if (p >= unit) p -= p % unit;
+  g.pairs = std::max(1, std::min(p, kPairsMax));
+  const int rows = g.grp * N;
+  const int over = std::max(scores * rows * N * (int)sizeof(float),
+                            tiles * rows * kTileRs * (int)sizeof(bf16));
+  g.wbytes = (over + 15) / 16 * 16 + kTileRs * (int)sizeof(bf16);
+  return g;
+}
+
+Geo16 fwd16_geo(int B, int H, int N, int hd) {
+  return make_geo16(B, H, N, hd, 3, kFwdSlotBytes, 1, 2);  // scores; a_v hi, lo
+}
+
+Geo16 bwd16_geo(int B, int H, int N, int hd) {
+  return make_geo16(B, H, N, hd, 4, kBwdSlotBytes, 2, 4);  // scores, d_attn; ds, a_v hi, lo
+}
+
+// The forward's shared memory: the two-slot ring of q, k, v rows and the
+// warps' scratch.
+size_t fwd16_smem_bytes(const Geo16& g) {
+  return (size_t)6 * g.pairs * g.N * g.rs * sizeof(bf16) + (size_t)kWarps16 * g.wbytes;
+}
+
+// The backward's: the two-slot ring of q, k, v, g rows, the warps'
+// scratch, two buffers of the chunk's ds [P][N][N] (f32) and the block's d
+// rel_bias [H][N][N].
+size_t bwd16_smem_bytes(const Geo16& g) {
+  return (size_t)8 * g.pairs * g.N * g.rs * sizeof(bf16) +
+         (size_t)kWarps16 * g.wbytes +
+         ((size_t)2 * g.pairs * g.N * g.N + (size_t)g.H * g.N * g.N) * sizeof(float);
+}
+
+__device__ __forceinline__ int chunk_pairs16(const Geo16& g, int chunk) {
+  return (int)min((long long)g.pairs, g.total - (long long)chunk * g.pairs);
+}
+
+__device__ __forceinline__ void cp_async16_bf16(bf16* smem, const bf16* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+}
+
+// The staging of one chunk: cp.async copies of its rows of the first kOps
+// bf16 operands into a ring slot ([kOps][P][N][rs]), 16 bytes each. Thread
+// tid copies group e % c8 of row e / c8 for e = tid, tid + kThreads16, ...
+template <int kOps>
+__device__ __forceinline__ void stage16(const Operands<bf16>& in, int chunk, const Geo16& g,
+                                        bf16* slot) {
+  const int p0 = chunk * g.pairs, n = chunk_pairs16(g, chunk) * g.N * g.c8;
+  const int slab = g.pairs * g.N * g.rs;
+  for (int e = threadIdx.x; e < n; e += kThreads16) {
+    const int r = e / g.c8, c = e - r * g.c8;
+    const int pl = r / g.N, i = r - pl * g.N;
+    const int pair = p0 + pl;
+    const int b = pair / g.H, h = pair - b * g.H;
+#pragma unroll
+    for (int o = 0; o < kOps; ++o)
+      cp_async16_bf16(slot + o * slab + r * g.rs + 8 * c,
+                      in.src[o] + b * in.st[o].b + h * in.st[o].h + i * in.st[o].n + 8 * c);
+  }
+}
+
+// q (operand 0 of a slot) times `scale` in place, rounded to bf16: each
+// thread the groups it copied itself (stage16's mapping), right after its
+// own cp_async_wait. scale is a bf16 value: the product is exact in f32 and
+// rounds once, as the caller's bf16 q * scale.
+__device__ __forceinline__ void scale_q16(int chunk, const Geo16& g, bf16* slot, float scale) {
+  const int n = chunk_pairs16(g, chunk) * g.N * g.c8;
+  for (int e = threadIdx.x; e < n; e += kThreads16) {
+    const int r = e / g.c8, c = e - r * g.c8;
+    __nv_bfloat162* x = reinterpret_cast<__nv_bfloat162*>(slot + r * g.rs + 8 * c);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const float2 f = __bfloat1622float2(x[u]);
+      x[u] = __floats2bfloat162_rn(f.x * scale, f.y * scale);
+    }
+  }
+}
+
+// Zero columns hd .. hd16 - 1 of the ring's `rows` rows, and each warp's
+// zero row (at the end of its scratch `wsp`), once: nothing writes them
+// after, and the products read them.
+__device__ __forceinline__ void zero_pads16(bf16* ring, int rows, const Geo16& g, char* wsp) {
+  if (g.hd16 != g.hd)
+    for (int r = threadIdx.x; r < rows; r += kThreads16)
+      *reinterpret_cast<uint4*>(ring + r * g.rs + g.hd) = make_uint4(0u, 0u, 0u, 0u);
+  const int lane = threadIdx.x % 32;
+  if (lane < kTileRs / 8)
+    reinterpret_cast<uint4*>(wsp + g.wbytes - kTileRs * sizeof(bf16))[lane] =
+        make_uint4(0u, 0u, 0u, 0u);
+}
+
+// ---- the warp's tile operations (m16n8k16 fragments: lane = 4 gr + tq)
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(p);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(s));
+}
+
+// c += a b, a 16 x 16 (row) and b 16 x 8 (column) bf16, c f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// s = a b^T for a pair's 16 x 16 tile: a's and b's rows at offsets offA and
+// offB (the lane's ldmatrix row addresses), over hd16 columns, kKS k-steps
+// of 16 (0: ks of them). s[n][0..1]: row gr, keys 8 n + 2 tq, + 1;
+// s[n][2..3]: row gr + 8.
+template <int kKS>
+__device__ __forceinline__ void tile_dots(const bf16* a, const bf16* b, int offA, int offB, int ks,
+                                          float (&s)[2][4]) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n)
+#pragma unroll
+    for (int u = 0; u < 4; ++u) s[n][u] = 0.f;
+  const int steps = kKS > 0 ? kKS : ks;
+#pragma unroll
+  for (int kk = 0; kk < steps; ++kk) {
+    uint32_t fa[4], fb[4];
+    ldsm_x4(fa, a + offA + 16 * kk);
+    ldsm_x4(fb, b + offB + 16 * kk);
+    mma_bf16(s[0], fa, fb[0], fb[1]);
+    mma_bf16(s[1], fa, fb[2], fb[3]);
+  }
+}
+
+// c = (hi + lo) b for columns n0 .. n0 + 15 of rows b (16 rows at the
+// lane's ldmatrix.trans offset offT): two n8 accumulators, the lo product
+// first.
+__device__ __forceinline__ void tile_apply(const uint32_t (&hi)[4], const uint32_t (&lo)[4],
+                                           const bf16* b, int offT, int n0, float (&c)[2][4]) {
+  uint32_t fb[4];
+  ldsm_x4_trans(fb, b + offT + n0);
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+#pragma unroll
+    for (int u = 0; u < 4; ++u) c[n][u] = 0.f;
+    mma_bf16(c[n], lo, fb[2 * n], fb[2 * n + 1]);
+    mma_bf16(c[n], hi, fb[2 * n], fb[2 * n + 1]);
+  }
+}
+
+// Store columns n0 .. n0 + 15 of a 16-row tile's rows < N (and columns <
+// hd) as bf16 pairs at row pointer o (row i at o + i * ld); with kScale
+// each value first rounded to bf16 and times `scale` (dq into d(qkv)).
+template <bool kScale>
+__device__ __forceinline__ void store_tile(const float (&c)[2][4], bf16* o, long long ld, int n0,
+                                           int N, int hd, int gr, int tq, float scale) {
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int col = n0 + 8 * n + 2 * tq;
+    if (col >= hd) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = gr + 8 * h;
+      float x0 = c[n][2 * h], x1 = c[n][2 * h + 1];
+      if (kScale) x0 = round_bf16(x0) * scale, x1 = round_bf16(x1) * scale;
+      if (row < N) *reinterpret_cast<uint32_t*>(o + row * ld + col) = pack_bf16(x0, x1);
+    }
+  }
+}
+
+// The lane's ldmatrix row offsets into a pair's N rows in the ring (rows
+// past N read row N - 1: finite values whose products are masked or never
+// stored): offA for A operands and .trans B operands (row lane % 16,
+// columns 8 (lane / 16) on), offB for non-transposed B operands (row lane %
+// 8 + 8 (lane / 16), columns 8 (lane / 8 % 2) on).
+struct Lane16 {
+  int gr, tq, offA, offB;
+};
+
+__device__ __forceinline__ Lane16 lane16(const Geo16& g) {
+  const int lane = threadIdx.x % 32;
+  Lane16 l;
+  l.gr = lane / 4, l.tq = lane % 4;
+  l.offA = min(lane % 16, g.N - 1) * g.rs + 8 * (lane / 16);
+  l.offB = min(lane % 8 + 8 * (lane / 16), g.N - 1) * g.rs + 8 * (lane / 8 % 2);
+  return l;
+}
+
+// A pair's scores (rows and keys < N) from the accumulator fragments into
+// its [N][N] f32 block of the warp's scratch.
+__device__ __forceinline__ void store_scores(const float (&s)[2][4], float* dst, int N,
+                                             const Lane16& l) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = l.gr + 8 * h;
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int key = 8 * n + 2 * l.tq + u;
+        if (row < N && key < N) dst[row * N + key] = s[n][2 * h + u];
+      }
+  }
+}
+
+__device__ __forceinline__ void load_row(const float* src, int N, float (&x)[kMaxN]) {
+#pragma unroll
+  for (int j = 0; j < kMaxN; ++j)
+    if (j < N) x[j] = src[j];
+}
+
+// A row of f32 weights (keys < N; 0 past N) as bf16 hi = bf16(x) and lo =
+// bf16(x - hi) tile rows, about 16 significant bits in all.
+__device__ __forceinline__ void store_split_row(const float (&x)[kMaxN], int N, bf16* hi,
+                                                bf16* lo) {
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    uint32_t h[4], l[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int j = 8 * c + 2 * u;
+      const float x0 = j < N ? x[j] : 0.f, x1 = j + 1 < N ? x[j + 1] : 0.f;
+      const __nv_bfloat162 b = __floats2bfloat162_rn(x0, x1);
+      const float2 r = __bfloat1622float2(b);
+      h[u] = *reinterpret_cast<const uint32_t*>(&b);
+      l[u] = pack_bf16(x0 - r.x, x1 - r.y);
+    }
+    reinterpret_cast<uint4*>(hi)[c] = make_uint4(h[0], h[1], h[2], h[3]);
+    reinterpret_cast<uint4*>(lo)[c] = make_uint4(l[0], l[1], l[2], l[3]);
+  }
+}
+
+// The lane's ldmatrix address into tile rows [u N, u N + N) of a group's
+// tile (pair u), as an A operand (row lane % 16) or, with kTrans, as the
+// .trans A operand of the tile's transpose (row lane % 8 + 8 (lane / 16)):
+// rows past N read the warp's zero row.
+template <bool kTrans>
+__device__ __forceinline__ const bf16* tile_at(const bf16* tile, int u, int N, const bf16* zrow) {
+  const int lane = threadIdx.x % 32;
+  const int row = kTrans ? lane % 8 + 8 * (lane / 16) : lane % 16;
+  const int col = kTrans ? 8 * (lane / 8 % 2) : 8 * (lane / 16);
+  return (row < N ? tile + (u * N + row) * kTileRs : zrow) + col;
+}
+
+// ---------------------------------------------------------------------------
+// bf16 forward (#6-bf16; #7-bf16 with kDropout)
+
+// A persistent grid: block b takes chunks b, b + grid, ... of P (window,
+// head) pairs, staged by cp.async into one slot of a two-deep ring while
+// the block computes the chunk before it; one barrier a chunk (the one
+// after a chunk's copies land, and its q is scaled, also frees the other
+// slot). Warp w takes the chunk's pairs w, w + 4, ..., grp at a time:
+// each pair's scores are one 16 x 16 tile on the tensor cores, written to
+// the warp's scratch; then lane u N + i takes query row i of pair u: bias,
+// mask, softmax and dropout in f32 in registers, a_v written back as bf16
+// hi and lo tile rows (over the scores); then per pair out = a_v v, two
+// products a 16 columns, stored at the caller's strides `so`. kKS: hd16 /
+// 16 unrolled (0: any).
+template <int kKS, bool kDropout>
+__global__ void __launch_bounds__(kThreads16, 4)
+wattn_bf16_fwd_kernel(Operands<bf16> in, Strides so, const float* __restrict__ rel_bias,
+                      const float* __restrict__ mask, bf16* __restrict__ out, float q_scale,
+                      unsigned long long seed, unsigned threshold, float inv_keep, Geo16 g, int nW) {
+  extern __shared__ uint4 smem16[];
+  const int N = g.N, nn = N * N, slab = g.pairs * N * g.rs, ks = g.hd16 / 16, rows = g.grp * N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* ring = reinterpret_cast<bf16*>(smem16);  // [2][q, k, v][P][N][rs]
+  char* wsp = reinterpret_cast<char*>(ring + 6 * slab) + warp * g.wbytes;
+  float* sc = reinterpret_cast<float*>(wsp);  // [grp][N][N] scores, then over them:
+  bf16* tl = reinterpret_cast<bf16*>(wsp);    // [a_v hi, lo][grp N][kTileRs]
+  const bf16* zrow = reinterpret_cast<const bf16*>(wsp + g.wbytes) - kTileRs;
+  const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
+  const Lane16 l = lane16(g);
+
+  zero_pads16(ring, 6 * g.pairs * N, g, wsp);
+  stage16<3>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  focal::cp_async_commit();
+
+  int it = 0;
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x, ++it) {
+    const int p0 = chunk * g.pairs, np = chunk_pairs16(g, chunk);
+    bf16* qs0 = ring + (it & 1) * 3 * slab;
+    focal::cp_async_wait<0>();  // this thread's copies of the chunk have landed
+    // [phase 0]
+    if (q_scale != 1.f) scale_q16(chunk, g, qs0, q_scale);
+    // [phase 1]
+    __syncthreads();  // and every thread's, q scaled; the other slot is free
+    // [phase 2]
+    const int next = chunk + gridDim.x;
+    if (next < nchunks)  // the next chunk's loads fly while this one computes
+      stage16<3>(in, next, g, ring + ((it + 1) & 1) * 3 * slab);
+    focal::cp_async_commit();
+    // [phase 3]
+    const int mine = warp < np ? (np - warp + kWarps16 - 1) / kWarps16 : 0;
+    for (int m0 = 0; m0 < mine; m0 += g.grp) {
+      const int cnt = min(g.grp, mine - m0), pl0 = warp + kWarps16 * m0;
+      __syncwarp();  // the group before is done with the scratch
+      // [math]
+      for (int u = 0; u < cnt; ++u) {
+        const bf16* qs = qs0 + (pl0 + kWarps16 * u) * N * g.rs;
+        float s[2][4];
+        tile_dots<kKS>(qs, qs + slab, l.offA, l.offB, ks, s);
+        store_scores(s, sc + u * nn, N, l);
+      }
+      __syncwarp();
+      // [phase 4]
+      const int ru = lane / N, ri = lane - ru * N;  // the lane's pair and query row
+      float p[kMaxN];
+      if (ru < cnt) load_row(sc + (ru * N + ri) * N, N, p);
+      __syncwarp();  // every row is read: the tiles go over the scores
+      if (ru < cnt) {
+        const int pair = p0 + pl0 + kWarps16 * ru, w = pair / g.H, h = pair - w * g.H;
+        focal::softmax_row(p, rel_bias + (h * N + ri) * N,
+                           mask ? mask + ((size_t)(w % nW) * N + ri) * N : nullptr, N);
+        if (kDropout) {
+          bool kept[kMaxN];
+          focal::attn_keep_row(seed, (unsigned)w, h, ri, N, threshold, kept);
+#pragma unroll
+          for (int j = 0; j < kMaxN; ++j)
+            if (j < N) p[j] = kept[j] ? p[j] * inv_keep : 0.f;
+        }
+        store_split_row(p, N, tl + (ru * N + ri) * kTileRs, tl + (rows + ru * N + ri) * kTileRs);
+      }
+      __syncwarp();
+      // [phase 5]
+      for (int u = 0; u < cnt; ++u) {
+        const int pl = pl0 + kWarps16 * u, pair = p0 + pl, w = pair / g.H, h = pair - w * g.H;
+        uint32_t hi[4], lo[4];
+        ldsm_x4(hi, tile_at<false>(tl, u, N, zrow));
+        ldsm_x4(lo, tile_at<false>(tl + rows * kTileRs, u, N, zrow));
+        const bf16* vs = qs0 + 2 * slab + pl * N * g.rs;
+        bf16* o = out + w * so.b + h * so.h;
+        const int groups = kKS > 0 ? kKS : ks;
+#pragma unroll
+        for (int c = 0; c < groups; ++c) {
+          float acc[2][4];
+          tile_apply(hi, lo, vs, l.offA, 16 * c, acc);
+          store_tile<false>(acc, o, so.n, 16 * c, N, g.hd, l.gr, l.tq, 1.f);
+        }
+      }
+      // [phase 6]
+      // [end math]
+    }
+  }
+  // [end]
+}
+
+// ---------------------------------------------------------------------------
+// bf16 backward (#8-bf16; #9-bf16 with kDropout)
+
+// The block's d rel_bias: element (h, i, j) adds ds of a chunk's pairs of
+// head h in pair order (each element keeps its thread across chunks).
+__device__ __forceinline__ void add_dbias16(const float* dss, int p0, int np, int H, int nn,
+                                            float* dacc) {
+  for (int e = threadIdx.x; e < H * nn; e += kThreads16) {
+    const int h = e / nn, ij = e - h * nn;
+    float acc = dacc[e];
+    for (int pl = ((h - p0 % H) + H) % H; pl < np; pl += H) acc += dss[pl * nn + ij];
+    dacc[e] = acc;
+  }
+}
+
+// The forward's walk with q, k, v and g staged; warp w takes the chunk's
+// pairs w, w + 4, ..., grp at a time: s = q k^T and d_attn = g v^T (two
+// tiles a pair) into the warp's scratch; lane u N + i takes query row i of
+// pair u: the softmax p, da (dropped as the forward's weights), ds = p (da -
+// rowsum(da p)) and a_v in f32, written back as bf16 hi and lo tile rows
+// (over the scores) and ds in f32 to one of two [P][N][N] buffers; then per
+// pair dq = ds k, dk = ds^T q and dv = a_v^T g, the transposes read by
+// ldmatrix.trans. After the next chunk's barrier the block adds the ds
+// buffer to its d rel_bias in pair order (add_dbias16): one barrier a
+// chunk, as the forward's.
+template <int kKS, bool kDropout>
+__global__ void __launch_bounds__(kThreads16, 3)
+wattn_bf16_bwd_kernel(Operands<bf16> in, OutStrides so, const float* __restrict__ rel_bias,
+                      const float* __restrict__ mask, bf16* __restrict__ dq, bf16* __restrict__ dk,
+                      bf16* __restrict__ dv, float q_scale, float dq_scale,
+                      float* __restrict__ dbias_part, unsigned long long seed, unsigned threshold,
+                      float inv_keep, Geo16 g, int nW) {
+  extern __shared__ uint4 smem16[];
+  const int N = g.N, nn = N * N, slab = g.pairs * N * g.rs, ks = g.hd16 / 16, rows = g.grp * N;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  bf16* ring = reinterpret_cast<bf16*>(smem16);  // [2][q, k, v, g][P][N][rs]
+  char* scratch = reinterpret_cast<char*>(ring + 8 * slab);
+  char* wsp = scratch + warp * g.wbytes;
+  float* sc = reinterpret_cast<float*>(wsp);  // [scores, d_attn][grp][N][N], then over them:
+  bf16* tl = reinterpret_cast<bf16*>(wsp);    // [ds hi, ds lo, a_v hi, a_v lo][grp N][kTileRs]
+  const bf16* zrow = reinterpret_cast<const bf16*>(wsp + g.wbytes) - kTileRs;
+  float* dss = reinterpret_cast<float*>(scratch + kWarps16 * g.wbytes);  // [2][P][N][N] ds
+  float* dacc = dss + 2 * g.pairs * nn;  // [H][N][N] this block's d rel_bias
+  const int nchunks = (int)((g.total + g.pairs - 1) / g.pairs);
+  const Lane16 l = lane16(g);
+
+  for (int e = threadIdx.x; e < g.H * nn; e += kThreads16) dacc[e] = 0.f;
+  zero_pads16(ring, 8 * g.pairs * N, g, wsp);
+  stage16<4>(in, blockIdx.x, g, ring);  // the grid is at most one block a chunk
+  focal::cp_async_commit();
+
+  int prev_p0 = 0, prev_np = 0;
+  int it = 0;
+  for (int chunk = blockIdx.x; chunk < nchunks; chunk += gridDim.x, ++it) {
+    const int p0 = chunk * g.pairs, np = chunk_pairs16(g, chunk);
+    bf16* qs0 = ring + (it & 1) * 4 * slab;
+    focal::cp_async_wait<0>();  // this thread's copies of the chunk have landed
+    // [phase 0]
+    if (q_scale != 1.f) scale_q16(chunk, g, qs0, q_scale);
+    // [phase 1]
+    __syncthreads();  // and every thread's; the other slot and ds buffer are free
+    // [phase 2]
+    const int next = chunk + gridDim.x;
+    if (next < nchunks)  // the next chunk's loads fly while this one computes
+      stage16<4>(in, next, g, ring + ((it + 1) & 1) * 4 * slab);
+    focal::cp_async_commit();
+    if (it > 0) add_dbias16(dss + ((it - 1) & 1) * g.pairs * nn, prev_p0, prev_np, g.H, nn, dacc);
+    float* dsb = dss + (it & 1) * g.pairs * nn;
+    // [phase 3]
+    const int mine = warp < np ? (np - warp + kWarps16 - 1) / kWarps16 : 0;
+    for (int m0 = 0; m0 < mine; m0 += g.grp) {
+      const int cnt = min(g.grp, mine - m0), pl0 = warp + kWarps16 * m0;
+      __syncwarp();  // the group before is done with the scratch
+      // [math]
+      for (int u = 0; u < cnt; ++u) {
+        const bf16* qs = qs0 + (pl0 + kWarps16 * u) * N * g.rs;
+        float s[2][4];
+        tile_dots<kKS>(qs, qs + slab, l.offA, l.offB, ks, s);
+        store_scores(s, sc + u * nn, N, l);
+        tile_dots<kKS>(qs + 3 * slab, qs + 2 * slab, l.offA, l.offB, ks, s);  // d_attn = g v^T
+        store_scores(s, sc + (g.grp + u) * nn, N, l);
+      }
+      __syncwarp();
+      // [phase 4]
+      const int ru = lane / N, ri = lane - ru * N;  // the lane's pair and query row
+      float p[kMaxN], da[kMaxN];
+      if (ru < cnt) {
+        load_row(sc + (ru * N + ri) * N, N, p);
+        load_row(sc + ((g.grp + ru) * N + ri) * N, N, da);
+      }
+      __syncwarp();  // every row is read: the tiles go over the scores
+      if (ru < cnt) {
+        const int pl = pl0 + kWarps16 * ru, pair = p0 + pl, w = pair / g.H, h = pair - w * g.H;
+        focal::softmax_row(p, rel_bias + (h * N + ri) * N,
+                           mask ? mask + ((size_t)(w % nW) * N + ri) * N : nullptr, N);
+        bool kept[kMaxN];
+        if (kDropout) focal::attn_keep_row(seed, (unsigned)w, h, ri, N, threshold, kept);
+        float dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < N) {
+            if (kDropout) da[j] = kept[j] ? da[j] * inv_keep : 0.f;
+            dot = fmaf(da[j], p[j], dot);
+          }
+        }
+        float* dsrow = dsb + pl * nn + ri * N;
+#pragma unroll
+        for (int j = 0; j < kMaxN; ++j) {
+          if (j < N) {
+            da[j] = p[j] * (da[j] - dot);  // ds
+            dsrow[j] = da[j];
+            if (kDropout) p[j] = kept[j] ? p[j] * inv_keep : 0.f;  // a_v
+          }
+        }
+        const int r = ru * N + ri;
+        store_split_row(da, N, tl + r * kTileRs, tl + (rows + r) * kTileRs);
+        store_split_row(p, N, tl + (2 * rows + r) * kTileRs, tl + (3 * rows + r) * kTileRs);
+      }
+      __syncwarp();
+      // [phase 5]
+      for (int u = 0; u < cnt; ++u) {
+        const int pl = pl0 + kWarps16 * u, pair = p0 + pl, w = pair / g.H, h = pair - w * g.H;
+        const bf16* qs = qs0 + pl * N * g.rs;
+        const int groups = kKS > 0 ? kKS : ks;
+        uint32_t hi[4], lo[4];
+        ldsm_x4(hi, tile_at<false>(tl, u, N, zrow));
+        ldsm_x4(lo, tile_at<false>(tl + rows * kTileRs, u, N, zrow));
+        bf16* dqo = dq + w * so.dq.b + h * so.dq.h;
+#pragma unroll
+        for (int c = 0; c < groups; ++c) {
+          float acc[2][4];
+          tile_apply(hi, lo, qs + slab, l.offA, 16 * c, acc);  // ds k
+          store_tile<true>(acc, dqo, so.dq.n, 16 * c, N, g.hd, l.gr, l.tq, dq_scale);
+        }
+        // [phase 6]
+        uint32_t ahi[4], alo[4];
+        ldsm_x4_trans(hi, tile_at<true>(tl, u, N, zrow));  // ds^T
+        ldsm_x4_trans(lo, tile_at<true>(tl + rows * kTileRs, u, N, zrow));
+        ldsm_x4_trans(ahi, tile_at<true>(tl + 2 * rows * kTileRs, u, N, zrow));  // a_v^T
+        ldsm_x4_trans(alo, tile_at<true>(tl + 3 * rows * kTileRs, u, N, zrow));
+        bf16* dko = dk + w * so.dk.b + h * so.dk.h;
+        bf16* dvo = dv + w * so.dv.b + h * so.dv.h;
+#pragma unroll
+        for (int c = 0; c < groups; ++c) {
+          float acc[2][4];
+          tile_apply(hi, lo, qs, l.offA, 16 * c, acc);
+          store_tile<false>(acc, dko, so.dk.n, 16 * c, N, g.hd, l.gr, l.tq, 1.f);
+          tile_apply(ahi, alo, qs + 3 * slab, l.offA, 16 * c, acc);
+          store_tile<false>(acc, dvo, so.dv.n, 16 * c, N, g.hd, l.gr, l.tq, 1.f);
+        }
+        // [phase 7]
+      }
+      // [end math]
+    }
+    prev_p0 = p0, prev_np = np;
+  }
+  __syncthreads();  // the last chunk's ds
+  if (it > 0) add_dbias16(dss + ((it - 1) & 1) * g.pairs * nn, prev_p0, prev_np, g.H, nn, dacc);
+  for (int e = threadIdx.x; e < g.H * nn; e += kThreads16)
+    dbias_part[(size_t)blockIdx.x * g.H * nn + e] = dacc[e];
+  // [end]
+}
+
+// ---------------------------------------------------------------------------
+// bf16 kernel instances
+using FwdKernel16 = void (*)(Operands<bf16>, Strides, const float*, const float*, bf16*, float,
+                             unsigned long long, unsigned, float, Geo16, int);
+using BwdKernel16 = void (*)(Operands<bf16>, OutStrides, const float*, const float*, bf16*, bf16*,
+                             bf16*, float, float, float*, unsigned long long, unsigned, float, Geo16,
+                             int);
+
+// Each direction's instance: hd16 / 16 = 1, 2 or 4 k-steps unrolled (hd 16,
+// 32, 64 and the widths that pad to them), or any.
+template <bool kDropout>
+FwdKernel16 fwd16_instance(int steps) {
+  switch (steps) {
+    case 1: return wattn_bf16_fwd_kernel<1, kDropout>;
+    case 2: return wattn_bf16_fwd_kernel<2, kDropout>;
+    case 4: return wattn_bf16_fwd_kernel<4, kDropout>;
+    default: return wattn_bf16_fwd_kernel<0, kDropout>;
+  }
+}
+
+template <bool kDropout>
+BwdKernel16 bwd16_instance(int steps) {
+  switch (steps) {
+    case 1: return wattn_bf16_bwd_kernel<1, kDropout>;
+    case 2: return wattn_bf16_bwd_kernel<2, kDropout>;
+    case 4: return wattn_bf16_bwd_kernel<4, kDropout>;
+    default: return wattn_bf16_bwd_kernel<0, kDropout>;
+  }
+}
+
+FwdKernel16 fwd16_kernel(const Geo16& g, bool dropout) {
+  return dropout ? fwd16_instance<true>(g.hd16 / 16) : fwd16_instance<false>(g.hd16 / 16);
+}
+
+BwdKernel16 bwd16_kernel(const Geo16& g, bool dropout) {
+  return dropout ? bwd16_instance<true>(g.hd16 / 16) : bwd16_instance<false>(g.hd16 / 16);
+}
+
+// ---------------------------------------------------------------------------
+// launch plans
+
+// A launch plan on the current device: the geometry's pairs a chunk, fewer
+// where the shared memory does not fit a block (the f32 backward's from hd
+// ~ 256 at N = 9); a persistent grid of as many blocks as fit the card at
+// once, at most one a chunk. Deterministic for a geometry on a card, so
 // the backward's d rel_bias partials (and their sum) are too.
-template <class Kernel>
+template <class G, class Kernel>
 struct Plan {
-  Geo geo;
+  G geo;
   Kernel kernel;
   size_t smem;
-  int grid;
+  int threads, grid;
   cudaError_t err;
 };
 
-template <class Kernel>
-Plan<Kernel> make_plan(int B, int H, int N, int hd, bool dropout,
-                       Kernel (*pick)(const Geo&, bool), size_t (*smem_floats)(const Geo&)) {
-  Plan<Kernel> P{};
+template <class G, class Kernel>
+Plan<G, Kernel> make_plan(G geo, bool dropout, Kernel (*pick)(const G&, bool),
+                          size_t (*smem_bytes)(const G&), int threads) {
+  Plan<G, Kernel> P{};
+  P.threads = threads;
   int dev = 0, sms = 0, optin = 0, per_sm = 0;
   P.err = cudaGetDevice(&dev);
   if (P.err == cudaSuccess) P.err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (P.err == cudaSuccess)
     P.err = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   if (P.err != cudaSuccess) return P;
-  P.geo = make_geo(B, H, N, hd);
-  while (P.geo.pairs > 1 && smem_floats(P.geo) * sizeof(float) > (size_t)optin) --P.geo.pairs;
-  P.smem = smem_floats(P.geo) * sizeof(float);
+  P.geo = geo;
+  while (P.geo.pairs > 1 && smem_bytes(P.geo) > (size_t)optin) --P.geo.pairs;
+  P.smem = smem_bytes(P.geo);
   if (P.smem > (size_t)optin) {
     P.err = cudaErrorInvalidValue;
     return P;
@@ -679,7 +1175,7 @@ Plan<Kernel> make_plan(int B, int H, int N, int hd, bool dropout,
   P.kernel = pick(P.geo, dropout);
   P.err = focal::raise_smem(P.kernel, P.smem);
   if (P.err == cudaSuccess)
-    P.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, P.kernel, kThreads, P.smem);
+    P.err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, P.kernel, threads, P.smem);
   if (P.err == cudaSuccess && per_sm < 1) P.err = cudaErrorInvalidConfiguration;
   if (P.err != cudaSuccess) return P;
   const long long nchunks = (P.geo.total + P.geo.pairs - 1) / P.geo.pairs;
@@ -687,34 +1183,54 @@ Plan<Kernel> make_plan(int B, int H, int N, int hd, bool dropout,
   return P;
 }
 
-// make_plan, once a geometry and device (one cache a direction): its
+// make(), once a geometry and device (one cache a kind of plan): its
 // attribute and occupancy queries cost more host time than a small launch
 // takes on the card.
-template <class Kernel>
-Plan<Kernel> cached_plan(int B, int H, int N, int hd, bool dropout,
-                         Kernel (*pick)(const Geo&, bool), size_t (*smem_floats)(const Geo&)) {
+template <class PlanT, class Make>
+PlanT cached_plan(int B, int H, int N, int hd, bool dropout, const Make& make) {
   static std::mutex mutex;
-  static std::map<std::array<int, 6>, Plan<Kernel>> plans;
+  static std::map<std::array<int, 6>, PlanT> plans;
   int dev = 0;
   const cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return Plan<Kernel>{Geo{}, nullptr, 0, 0, err};
+  if (err != cudaSuccess) {
+    PlanT P{};
+    P.err = err;
+    return P;
+  }
   const std::array<int, 6> key{dev, B, H, N, hd, (int)dropout};
   std::lock_guard<std::mutex> lock(mutex);
   const auto it = plans.find(key);
   if (it != plans.end()) return it->second;
-  const Plan<Kernel> P = make_plan(B, H, N, hd, dropout, pick, smem_floats);
+  const PlanT P = make();
   if (P.err == cudaSuccess) plans.emplace(key, P);
   return P;
 }
 
+// Each element type's plans: the f32 kernels on Geo, the bf16 ones on Geo16.
 template <class T>
-Plan<FwdKernel<T>> fwd_plan(int B, int H, int N, int hd, bool dropout) {
-  return cached_plan(B, H, N, hd, dropout, fwd_kernel<T>, fwd_smem_floats);
+auto fwd_plan(int B, int H, int N, int hd, bool dropout) {
+  if constexpr (std::is_same<T, float>::value)
+    return cached_plan<Plan<Geo, FwdKernel>>(B, H, N, hd, dropout, [=] {
+      return make_plan(make_geo(B, H, N, hd), dropout, fwd_kernel, fwd_smem_bytes, kThreads);
+    });
+  else
+    return cached_plan<Plan<Geo16, FwdKernel16>>(B, H, N, hd, dropout, [=] {
+      return make_plan(fwd16_geo(B, H, N, hd), dropout, fwd16_kernel, fwd16_smem_bytes,
+                       kThreads16);
+    });
 }
 
 template <class T>
-Plan<BwdKernel<T>> bwd_plan(int B, int H, int N, int hd, bool dropout) {
-  return cached_plan(B, H, N, hd, dropout, bwd_kernel<T>, bwd_smem_floats);
+auto bwd_plan(int B, int H, int N, int hd, bool dropout) {
+  if constexpr (std::is_same<T, float>::value)
+    return cached_plan<Plan<Geo, BwdKernel>>(B, H, N, hd, dropout, [=] {
+      return make_plan(make_geo(B, H, N, hd), dropout, bwd_kernel, bwd_smem_bytes, kThreads);
+    });
+  else
+    return cached_plan<Plan<Geo16, BwdKernel16>>(B, H, N, hd, dropout, [=] {
+      return make_plan(bwd16_geo(B, H, N, hd), dropout, bwd16_kernel, bwd16_smem_bytes,
+                       kThreads16);
+    });
 }
 
 Strides strides_at(const long long* s, int k) { return Strides{s[3 * k], s[3 * k + 1], s[3 * k + 2]}; }
@@ -726,13 +1242,13 @@ int wattn_fwd_launch(const void* q, const void* k, const void* v, const void* re
                      unsigned threshold, float inv_keep, void* stream) {
   if (int e = check_geometry<T>(B, H, N, hd, mask, nW)) return e;
   if (B == 0) return 0;
-  const Plan<FwdKernel<T>> P = fwd_plan<T>(B, H, N, hd, dropout != 0);
+  const auto P = fwd_plan<T>(B, H, N, hd, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   const Operands<T> in{{static_cast<const T*>(q), static_cast<const T*>(k),
                         static_cast<const T*>(v), nullptr},
                        {strides_at(strides, 0), strides_at(strides, 1), strides_at(strides, 2),
                         Strides{}}};
-  P.kernel<<<P.grid, kThreads, P.smem, static_cast<cudaStream_t>(stream)>>>(
+  P.kernel<<<P.grid, P.threads, P.smem, static_cast<cudaStream_t>(stream)>>>(
       in, strides_at(strides, 3), static_cast<const float*>(rel_bias),
       static_cast<const float*>(mask), static_cast<T*>(out), q_scale, seed, threshold, inv_keep,
       P.geo, mask != nullptr ? nW : 1);
@@ -746,7 +1262,7 @@ int wattn_bwd_workspace(int B, int H, int N, int hd, int dropout, long long* flo
     *floats = 0;
     return 0;
   }
-  const Plan<BwdKernel<T>> P = bwd_plan<T>(B, H, N, hd, dropout != 0);
+  const auto P = bwd_plan<T>(B, H, N, hd, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   *floats = (long long)P.grid * H * N * N;
   return 0;
@@ -761,7 +1277,7 @@ int wattn_bwd_launch(const void* q, const void* k, const void* v, const void* g_
                      float inv_keep, void* stream) {
   if (int e = check_geometry<T>(B, H, N, hd, mask, nW)) return e;
   if (B == 0) return 0;
-  const Plan<BwdKernel<T>> P = bwd_plan<T>(B, H, N, hd, dropout != 0);
+  const auto P = bwd_plan<T>(B, H, N, hd, dropout != 0);
   if (P.err != cudaSuccess) return (int)P.err;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* part = static_cast<float*>(ws);
@@ -771,16 +1287,14 @@ int wattn_bwd_launch(const void* q, const void* k, const void* v, const void* g_
                         strides_at(strides, 3)}};
   const OutStrides so{strides_at(out_strides, 0), strides_at(out_strides, 1),
                       strides_at(out_strides, 2)};
-  P.kernel<<<P.grid, kThreads, P.smem, s>>>(
+  P.kernel<<<P.grid, P.threads, P.smem, s>>>(
       in, so, static_cast<const float*>(rel_bias), static_cast<const float*>(mask),
       static_cast<T*>(dq), static_cast<T*>(dk), static_cast<T*>(dv), q_scale, dq_scale, part, seed,
       threshold, inv_keep, P.geo, mask != nullptr ? nW : 1);
-  cudaError_t err = cudaGetLastError();
+  const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const int E = H * N * N;
-  reduce_partials_kernel<<<(E + kThreads - 1) / kThreads, kThreads, 0, s>>>(
-      part, P.grid, E, static_cast<float*>(drel_bias));
-  return (int)cudaGetLastError();
+  return (int)focal::launch_reduce<Src>(part, P.grid, (size_t)H * N * N,
+                                        static_cast<float*>(drel_bias), s);
 }
 
 }  // namespace

@@ -2145,7 +2145,8 @@ def test_fused_mlp_bf16_route_and_refusals():
 
 ATTN_BF16_GEOMETRIES = [(509, 4, 9, 16, 16), (512, 4, 9, 32, 64), (511, 4, 9, 64, 0),
                         (130, 4, 9, 128, 4), (67, 4, 9, 256, 4), (37, 2, 4, 8, 3),
-                        (33, 2, 16, 24, 2)]
+                        (33, 2, 16, 24, 2), (41, 2, 16, 8, 0), (19, 2, 16, 256, 3),
+                        (29, 3, 9, 24, 0)]
 
 
 def _attn_bf16_args(rng, B, H, N, hd, nW, dev):
@@ -2205,6 +2206,121 @@ def test_attention_bf16_kernels_match_plain_and_repeat(B, H, N, hd, nW):
             assert _rel(a.float(), w.float()) <= 1e-2, (name, rate, _rel(a.float(), w.float()))
     assert [f.launches - b for f, b in zip(kernels + f32_kernels, before)] == [1, 2, 2, 2, 0, 0, 0,
                                                                               0]
+
+
+def _mod_attention_geometries(batch):
+    """(windows, heads, N, hd, shift-mask arguments or None) of every
+    distinct attention launch of a MOD forward at ``batch`` samples, as
+    chip_smoke.py's attention_geometries finds them."""
+    from focal_tpu_torch.models.sw_transformer import mod_geometry
+    from focal_tpu_torch.models.swin import block_geometry
+    from focal_tpu_torch.params import load_dataset_config
+
+    cfg = load_dataset_config("MOD")
+    heads = cfg["SW_Transformer"]["time_freq_head_num"]
+    geos = {}
+    for loc in cfg["location_names"]:
+        for mod in cfg["modality_names"]:
+            geo = mod_geometry(cfg, loc, mod)
+            for stage, ((H, W), C) in enumerate(geo["stages"]):
+                for i in range(geo["block_num"][stage]):
+                    shift = [0, 0] if i % 2 == 0 else [w // 2 for w in geo["window"]]
+                    wh, ww, sh, sw, shifted = block_geometry((H, W), geo["window"], shift)
+                    geos[(H, W, C, wh, ww, sh, sw, shifted)] = (
+                        batch * (H // wh) * (W // ww), heads, wh * ww, C // heads,
+                        (H, W, wh, ww, sh, sw) if shifted else None)
+    return list(geos.values())
+
+
+@pytest.mark.gpu
+def test_attention_bf16_kernels_at_every_mod_geometry():
+    """#6-bf16 to #9-bf16 on qkv head views at every attention geometry of a
+    MOD forward at 128 samples (hd 16, 32, 64; the shifted windows' masks)
+    against their plain versions (y within 8e-3 of max|y|, gradients within
+    1e-2 relative), the same bits on a second call."""
+    from focal_tpu_torch.models.swin import shifted_window_mask
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    geos = _mod_attention_geometries(128)
+    assert sorted({g[3] for g in geos}) == [16, 32, 64] and any(g[4] for g in geos)
+    for i, (B, H, N, hd, shifted) in enumerate(geos):
+        rng = np.random.default_rng(i)
+        qkv, rel_bias, _, gy = _attn_bf16_args(rng, B, H, N, hd, 0, dev)
+        mask = None if shifted is None else torch.from_numpy(shifted_window_mask(*shifted)).to(dev)
+        q, k, v = pk._head_views(qkv, H)
+        g = pk._heads(gy, H)
+        s = hd**-0.5
+        keep = pk.window_attention_keep_mask(i, B, H, N, 0.2, dev)
+        for seed, rate, kp in ((None, 0.0, None), (i, 0.2, keep)):
+            fwd = (pk.fused_window_attention_bf16(q, k, v, rel_bias, mask, q_scale=s)
+                   if seed is None else
+                   pk.fused_window_attention_dropout_bf16(q, k, v, rel_bias, mask, seed, rate,
+                                                          q_scale=s))
+            want = pk.fused_window_attention_bf16_reference(q, k, v, rel_bias, mask, kp, rate, s)
+            assert _rel(fwd.float(), want.float()) <= 8e-3, (B, hd, rate)
+            grads = pk.fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, g, seed, rate,
+                                                            q_scale=s)
+            again = pk.fused_window_attention_backward_bf16(q, k, v, rel_bias, mask, g, seed, rate,
+                                                            q_scale=s)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(grads, again)), (B, hd, rate)
+            wgrads = pk.fused_window_attention_backward_bf16_reference(q, k, v, rel_bias, mask, g,
+                                                                       kp, rate, s)
+            for name, a, w in zip(["dq", "dk", "dv", "drel_bias"], grads, wgrads):
+                assert _rel(a.float(), w.float()) <= 1e-2, (name, B, hd, rate)
+
+
+@pytest.mark.gpu
+def test_attention_bf16_runs_the_tensor_core_kernels():
+    """The bf16 wrappers launch window_attention.cu's tensor-core kernels
+    (wattn_bf16_fwd_kernel, wattn_bf16_bwd_kernel and the drel_bias
+    reduction tagged WindowAttentionSrc) and none of the f32 bodies; the
+    f32 wrappers the f32 bodies."""
+    import re
+    import time
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from focal_tpu_torch.ops import pallas_kernels as pk
+
+    dev = _card()
+    qkv, rel_bias, mask, gy = _attn_bf16_args(np.random.default_rng(4), 203, 4, 9, 32, 8, dev)
+    q, k, v = pk._head_views(qkv, 4)
+    g = pk._heads(gy, 4)
+
+    def names(fn):
+        # a trace in a process that traced before may lose its records (as
+        # chip_smoke.py's kernel_phase_split finds): take it again, up to 3 times
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):
+            time.sleep(0.05)
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+            time.sleep(0.05)
+            got = {e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+            if got:
+                return got
+        return got
+
+    def short(n):
+        m = re.search(r"::(\w+)(?:<[^()]*>)?\(", n)
+        return m.group(1) if m else n
+
+    got = names(lambda: (pk.fused_window_attention_bf16(q, k, v, rel_bias, mask, q_scale=0.25),
+                         pk.fused_window_attention_dropout_backward_bf16(
+                             q, k, v, rel_bias, mask, g, 3, 0.2, q_scale=0.25)))
+    assert {short(n) for n in got} == {"wattn_bf16_fwd_kernel", "wattn_bf16_bwd_kernel",
+                                       "reduce_partials_kernel"}, got
+    assert all("WindowAttentionSrc" in n for n in got if "reduce_partials" in n), got
+    f = [t.float().contiguous() for t in (q, k, v, g)]
+    got = names(lambda: (pk.fused_window_attention(*f[:3], rel_bias, mask),
+                         pk.fused_window_attention_backward(*f[:3], rel_bias, mask, f[3])))
+    assert {short(n) for n in got} == {"wattn_fwd_kernel", "wattn_bwd_kernel",
+                                       "reduce_partials_kernel"}, got
 
 
 @pytest.mark.gpu
